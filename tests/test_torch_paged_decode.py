@@ -1,0 +1,147 @@
+"""The port's paged decode and fused sampling against the JAX package's
+Pallas kernels (interpret mode on the CPU).
+
+Inputs come from a numpy seed. Paged decode: f32, atol = rtol = 1e-5 (f32
+accumulation on both sides; only the summation order differs). Fused
+sampling: token ids must agree exactly, with the same Gumbel noise handed
+to both sides.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from accelerate_tpu.engine import _sample_rows as j_sample_rows
+from accelerate_tpu.ops.paged_decode import fused_sample as j_fused_sample
+from accelerate_tpu.ops.paged_decode import paged_flash_decode as j_paged_decode
+from accelerate_tpu_torch.engine import _sample_rows
+from accelerate_tpu_torch.ops.attention import paged_attention
+from accelerate_tpu_torch.ops.paged_decode import (
+    fused_sample,
+    fused_sample_reference,
+    paged_flash_decode,
+    paged_flash_verify,
+)
+
+B, BPR, BS, H, HKV, D, NB = 3, 4, 4, 4, 2, 8, 12
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _pools(seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, 1, H, D)).astype(np.float32)
+    kp = rng.normal(size=(NB, BS, HKV, D)).astype(np.float32)
+    vp = rng.normal(size=(NB, BS, HKV, D)).astype(np.float32)
+    tables = rng.integers(1, NB, size=(B, BPR)).astype(np.int32)
+    return q, kp, vp, tables
+
+
+def _single_block_tables():
+    t = np.zeros((B, BPR), np.int32)
+    t[:, 0] = [2, 5, 9]
+    return t
+
+
+# name -> (tables override, pos, softcap)
+CASES = {
+    "mixed_pos": (None, [0, 5, BPR * BS - 1], None),
+    "all_null_pos0": (np.zeros((B, BPR), np.int32), [0, 0, 0], None),
+    "single_live_block": (_single_block_tables(), [1, 2, BS - 1], None),
+    "exactly_full_last_block": (None, [BPR * BS - 1] * B, None),
+    "softcap": (None, [0, 5, BPR * BS - 1], 30.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_paged_decode_matches_jax_kernel(case):
+    tables_override, pos, softcap = CASES[case]
+    q, kp, vp, tables = _pools(seed=sorted(CASES).index(case))
+    if tables_override is not None:
+        tables = tables_override
+    pos = np.asarray(pos, np.int32)
+    ref = j_paged_decode(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(tables),
+                         jnp.asarray(pos), softcap=softcap, interpret=True)
+    out = paged_flash_decode(*(torch.from_numpy(x) for x in (q, kp, vp, tables, pos)), softcap=softcap)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+def test_paged_decode_custom_scale_matches_jax_kernel():
+    q, kp, vp, tables = _pools(seed=7)
+    pos = np.asarray([3, 9, 14], np.int32)
+    ref = j_paged_decode(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(tables),
+                         jnp.asarray(pos), scale=0.0625, interpret=True)
+    out = paged_flash_decode(*(torch.from_numpy(x) for x in (q, kp, vp, tables, pos)), scale=0.0625)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+def test_int8_pool_and_verify_are_queued():
+    q, kp, vp, tables = (torch.from_numpy(x) for x in _pools(seed=8))
+    pos = torch.zeros(B, dtype=torch.int32)
+    scales = torch.ones(NB, BS)
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        paged_flash_decode(q, kp, vp, tables, pos, k_scale=scales, v_scale=scales)
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        paged_flash_verify(q, kp, vp, None, None, tables, pos)
+
+
+def _sample_inputs(seed, s=8, v=64):
+    rng = np.random.default_rng(seed)
+    logits = (rng.normal(size=(s, v)) * 3).astype(np.float32)
+    logits[5] = np.round(logits[5])  # ties: first-index and Z-over-k_eff rules
+    temp = np.asarray([0.0, 0.8, 0.8, 0.8, 1.0, 0.7, 1.3, 0.5], np.float32)[:s]
+    top_k = np.asarray([0, 5, 0, 5, 1, 7, 0, 64], np.int32)[:s]
+    top_p = np.asarray([1.0, 1.0, 0.9, 0.9, 0.5, 0.95, 0.3, 1.0], np.float32)[:s]
+    keys = jax.random.split(jax.random.key(seed), s)
+    noise = np.array(jax.vmap(lambda kk: jax.random.gumbel(kk, (v,), jnp.float32))(keys))
+    return logits, noise, temp, top_k, top_p, keys
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fused_sample_bitwise_matches_jax_kernel(seed):
+    logits, noise, temp, top_k, top_p, keys = _sample_inputs(seed)
+    ref = np.asarray(j_fused_sample(*(jnp.asarray(x) for x in (logits, noise, temp, top_k, top_p)),
+                                    interpret=True))
+    args = [torch.from_numpy(x) for x in (logits, noise, temp, top_k, top_p)]
+    np.testing.assert_array_equal(fused_sample(*args).numpy(), ref)
+    # the JAX engine's sort-based sampler with the keys that made the noise
+    # draws the same tokens (categorical == argmax(filtered + gumbel(key)))
+    ref_rows = np.asarray(j_sample_rows(jnp.asarray(logits), keys, jnp.asarray(temp),
+                                        jnp.asarray(top_k), jnp.asarray(top_p)))
+    np.testing.assert_array_equal(fused_sample(*args).numpy(), ref_rows)
+    # and so does the port's own sort-based sampler (the engine's reference path)
+    np.testing.assert_array_equal(_sample_rows(*args).numpy(), ref_rows)
+
+
+@pytest.mark.cuda
+def test_paged_decode_kernel_matches_plain_on_card(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    slots, h, h_kv, d, bs, bpr = 6, 32, 8, 128, 16, 8
+    nb = slots * bpr + 1
+    pos = torch.tensor([0, 15, 16, 77, bpr * bs - 1, 40], dtype=torch.int32, device=cuda_device)
+    tables = (torch.randperm(nb - 1, generator=gen, device=cuda_device)[: slots * bpr] + 1)
+    tables = tables.reshape(slots, bpr).to(torch.int32)
+    tables[5] = 0  # vacant slot: all-null row with a stale pos
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        q = torch.randn((slots, 1, h, d), generator=gen, device=cuda_device).to(dtype)
+        kp = torch.randn((nb, bs, h_kv, d), generator=gen, device=cuda_device).to(dtype)
+        vp = torch.randn((nb, bs, h_kv, d), generator=gen, device=cuda_device).to(dtype)
+        out = paged_flash_decode(q, kp, vp, tables, pos, softcap=50.0)
+        ref = paged_attention(q, kp, vp, tables, pos, softcap=50.0)
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_fused_sample_kernel_bitwise_on_card(cuda_device):
+    logits, noise, temp, top_k, top_p, _ = _sample_inputs(3, v=64)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (logits, noise, temp, top_k, top_p)]
+    assert torch.equal(fused_sample(*args), fused_sample_reference(*args))
