@@ -13,26 +13,39 @@ This package never imports ``jax`` or ``accelerate_tpu``. Entry points take
 ``device=`` and default to ``"cuda"``; they raise when no GPU is present.
 
 Ported so far: Llama continuous-batching serving over a paged KV pool
-(``InferenceServer(mode="continuous")``). Training, speculative decoding,
-chunked prefill and the serving control plane are still to be ported
-(ROADMAP.md).
+(``InferenceServer(mode="continuous")``), and one-device Llama training
+through the ``Accelerator`` (``prepare``, ``prepare_data_loader``,
+``train_step`` or the eager ``backward`` loop) with the flash backward
+kernels. Distributed training, speculative decoding, chunked prefill and
+the serving control plane are still to be ported (ROADMAP.md).
 """
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "Accelerator",
     "ContinuousBatchingEngine",
     "InferenceServer",
     "LlamaConfig",
     "LlamaForCausalLM",
     "ServingConfig",
     "ServingResult",
+    "create_llama",
     "get_logger",
     "init_llama_params",
+    "llama_loss",
     "resolve_device",
 ]
 
 _LAZY = {
+    "Accelerator": ("accelerator", "Accelerator"),
+    "AcceleratedOptimizer": ("optimizer", "AcceleratedOptimizer"),
+    "AcceleratorState": ("state", "AcceleratorState"),
+    "GradientState": ("state", "GradientState"),
+    "PartialState": ("state", "PartialState"),
+    "prepare_data_loader": ("data_loader", "prepare_data_loader"),
+    "create_llama": ("models.llama", "create_llama"),
+    "llama_loss": ("models.llama", "llama_loss"),
     "resolve_device": ("_device", "resolve_device"),
     "get_logger": ("logging", "get_logger"),
     "LlamaConfig": ("models.llama", "LlamaConfig"),

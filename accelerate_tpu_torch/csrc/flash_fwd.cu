@@ -18,15 +18,18 @@
 // later work.
 //
 // Layout (the JAX package's public layout, read in place, no transposes):
-//   q, out (B, Sq, H, D); k, v (B, Skv, Hkv, D); lse (B, H, Sq) f32.
+//   q, out (B, Sq, H, D); k, v (B, Skv, Hkv, D); lse (B, H, Sq) f32;
+//   qseg (B, Sq), kseg (B, Skv) int32 packed-sequence labels, or null.
 // GQA: q head h reads kv head h / (H / Hkv); KV is never repeated.
 // Grid: (ceil(Sq / BQ), B * H). The kv loop runs inside the block, because
 // blocks run in no order and nothing carries between them (the TPU kernel
 // carried acc/m/l across a sequential grid dimension).
 // Masking follows _mask_scores: softcap first, then causal (q >= k), then
-// the Mistral window (q - k < window), with the finite NEG_INF = -1e6; keys
-// past Skv are masked and read as zeros (the JAX kernel needs S divisible
-// by its block; this one masks the ragged edge instead).
+// the Mistral window (q - k < window), then equal segment labels, with the
+// finite NEG_INF = -1e6 (segments prune no tiles). Keys past Skv read as
+// zeros and take no weight at all (-inf), as in the backward kernels (the
+// JAX kernel needs S divisible by its block; this one masks the ragged edge
+// instead).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,14 +55,16 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 
 template <int D>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
+  return sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1))
+         + sizeof(int) * (BQ + BK);
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, float* __restrict__ lse, int Sq, int Skv, int H,
-    int Hkv, int causal, int window, float softcap, float scale) {
+    T* __restrict__ out, float* __restrict__ lse, const int* __restrict__ qseg,
+    const int* __restrict__ kseg, int Sq, int Skv, int H, int Hkv, int causal,
+    int window, float softcap, float scale) {
   constexpr int DP = D + 1;   // padded rows: column reads hit distinct banks
   constexpr int PP = BK + 1;
   constexpr int DC = D / 16;  // output columns per thread
@@ -68,6 +73,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   float* sK = sQ + BQ * DP;
   float* sV = sK + BK * DP;
   float* sP = sV + BK * D;
+  int* sQseg = reinterpret_cast<int*>(sP + BQ * PP);
+  int* sKseg = sQseg + BQ;
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
@@ -88,6 +95,10 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const int r = idx / D, c = idx % D;
     const int qi = q0 + r;
     sQ[r * DP + c] = qi < Sq ? to_f(qb[(long)qi * q_stride + c]) : 0.f;
+  }
+  for (int i = tid; i < BQ; i += NT) {
+    const int qi = q0 + i;
+    sQseg[i] = (qi < Sq && qseg) ? qseg[(long)b * Sq + qi] : 0;
   }
 
   float m_i[4], l_i[4], acc[4][DC];
@@ -121,6 +132,10 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
       sK[r * DP + c] = in ? to_f(kb[(long)kj * kv_stride + c]) : 0.f;
       sV[r * D + c] = in ? to_f(vb[(long)kj * kv_stride + c]) : 0.f;
     }
+    for (int i = tid; i < BK; i += NT) {
+      const int kj = k0 + i;
+      sKseg[i] = (kj < Skv && kseg) ? kseg[(long)b * Skv + kj] : 0;
+    }
     __syncthreads();
 
     float s[4][4];
@@ -150,10 +165,13 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
         const int kj = k0 + tx + 16 * c;
         float x = s[r][c] * scale;
         if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        bool vis = kj < Skv;
-        if (masked) vis = vis && qi >= kj;
+        bool vis = true;
+        if (masked) vis = qi >= kj;
         if (window > 0) vis = vis && (qi - kj) < window;
-        s[r][c] = vis ? x : kNegInf;
+        if (qseg) vis = vis && sQseg[ty + 16 * r] == sKseg[tx + 16 * c];
+        // every processed tile holds a key below Skv, so each row's max
+        // stays finite and exp(-inf - m) is an exact 0
+        s[r][c] = kj < Skv ? (vis ? x : kNegInf) : __int_as_float(0xff800000);  // -inf
         mx = fmaxf(mx, s[r][c]);
       }
       // a row's 64 columns live in the 16 lanes sharing ty (one half-warp)
@@ -207,8 +225,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           int B, int Sq, int Skv, int H, int Hkv, int causal, int window,
-           float softcap, float scale, cudaStream_t stream) {
+           const void* qseg, const void* kseg, int B, int Sq, int Skv, int H,
+           int Hkv, int causal, int window, float softcap, float scale,
+           cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -216,29 +235,30 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
   flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<float*>(lse), Sq, Skv, H, Hkv, causal,
-      window, softcap, scale);
+      static_cast<T*>(out), static_cast<float*>(lse), static_cast<const int*>(qseg),
+      static_cast<const int*>(kseg), Sq, Skv, H, Hkv, causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. window <= 0 and softcap <= 0 mean off.
-// Returns a cudaError_t code (0 on success).
+// dtype: 0 = float32, 1 = bfloat16. window <= 0 and softcap <= 0 mean off;
+// qseg/kseg null mean no segments. Returns a cudaError_t code (0 on success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out,
-                         void* lse, int B, int Sq, int Skv, int H, int Hkv,
-                         int D, int dtype, int causal, int window,
-                         float softcap, float scale, void* stream) {
+                         void* lse, const void* qseg, const void* kseg, int B,
+                         int Sq, int Skv, int H, int Hkv, int D, int dtype,
+                         int causal, int window, float softcap, float scale,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Sq <= 0 || B <= 0) return 0;
   if (Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, causal, window, softcap, scale, s);
+    return launch<float, 64>(q, k, v, out, lse, qseg, kseg, B, Sq, Skv, H, Hkv, causal, window, softcap, scale, s);
   if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, causal, window, softcap, scale, s);
+    return launch<float, 128>(q, k, v, out, lse, qseg, kseg, B, Sq, Skv, H, Hkv, causal, window, softcap, scale, s);
   if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, causal, window, softcap, scale, s);
+    return launch<__nv_bfloat16, 64>(q, k, v, out, lse, qseg, kseg, B, Sq, Skv, H, Hkv, causal, window, softcap, scale, s);
   if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, causal, window, softcap, scale, s);
+    return launch<__nv_bfloat16, 128>(q, k, v, out, lse, qseg, kseg, B, Sq, Skv, H, Hkv, causal, window, softcap, scale, s);
   return (int)cudaErrorInvalidValue;
 }

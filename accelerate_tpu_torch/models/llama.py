@@ -1,11 +1,15 @@
-"""Llama-family decoder for serving (counterpart of
-``accelerate_tpu/models/llama.py``): config presets, parameter init and
-conversion, the prefill forward and the one-token decode step.
+"""Llama-family decoder (counterpart of ``accelerate_tpu/models/llama.py``):
+config presets, parameter init and conversion, the training forward and
+loss, the prefill forward and the one-token decode step.
 
 Parameters keep the JAX package's pytree: stacked ``(L, ...)`` layer
 leaves, projection kernels in ``(in, out)`` layout, so ``params_from_jax``
 is a plain tree copy and each function here has a same-named counterpart.
-Layers run as a Python loop over the stack (the JAX ``lax.scan``).
+Layers run as a Python loop over the stack (the JAX ``lax.scan``); under
+remat ``"nothing"`` each layer is a ``torch.utils.checkpoint`` region.
+:class:`LlamaForCausalLM` holds the stacked leaves as its parameters, and
+``llama_apply`` splits each one into its layers with one ``unbind`` (see
+:func:`_layer_trees`).
 
 RoPE uses the interleaved-pair convention ``x[..., 0::2], x[..., 1::2]``
 (not HF's ``rotate_half``). As in the JAX package, prefill rotates with
@@ -13,9 +17,9 @@ tables computed in float64 on the host and cast to f32 (``apply_rope``),
 while decode computes its angles in f32 on the device from the per-slot
 positions (``apply_rope_at``): two paths, each reproduced as it is.
 
-Not ported yet (ROADMAP.md): training (``llama_apply`` gradients, loss,
-remat), MoE layers, Gemma-2's alternating sliding window, fp8, and the
-speculative ``llama_verify_step``.
+Not ported yet (ROADMAP.md): remat ``"dots"``/``"minimal"``, chunked CE,
+MoE layers, Gemma-2's alternating sliding window, fp8, and the speculative
+``llama_verify_step``.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from .._device import resolve_device
@@ -35,12 +40,16 @@ from ..ops.attention import NEG_INF, dispatch_attention, tanh_softcap
 __all__ = [
     "LlamaConfig",
     "LlamaForCausalLM",
+    "create_llama",
     "init_llama_params",
     "params_from_jax",
     "rms_norm",
     "apply_rope",
     "apply_rope_at",
     "llama_apply",
+    "llama_ce_denominator",
+    "llama_flops_per_token",
+    "llama_loss",
     "llama_prefill_at",
     "llama_decode_step",
 ]
@@ -72,6 +81,7 @@ class LlamaConfig:
     tie_word_embeddings: bool = False
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
+    remat_policy: str = "nothing"  # "nothing" | "full" ("dots", "minimal" queued)
     attention_impl: str = "blockwise"  # "xla" | "blockwise" | "flash"
     attention_kv_block: int = 512
     num_experts: int = 1  # > 1 (MoE) is not ported yet
@@ -269,10 +279,16 @@ def _flatten(tree, prefix=()):
 
 
 class LlamaForCausalLM(nn.Module):
-    """Holds a Llama parameter tree as module parameters (frozen: the port
-    serves, it does not train yet). ``params`` rebuilds the nested tree the
-    functions in this module take; ``forward`` returns full-sequence f32
-    logits (B, S, V)."""
+    """A Llama parameter tree as trainable module parameters, one per leaf
+    (named by its path joined with ``"__"``), stacked ``(L, ...)`` layer
+    leaves included. ``params`` is the tree the serving functions take,
+    detached (serving builds no graph). ``forward`` returns full-sequence
+    f32 logits (B, S, V) and casts the f32 master weights to
+    ``config.compute_dtype`` per use (as ``examples/llama_finetune.py`` runs
+    with ``model.policy = None``), so
+    :func:`~accelerate_tpu_torch.model.prepare_model` leaves it unwrapped."""
+
+    casts_per_use = True
 
     def __init__(self, config: LlamaConfig, params: dict):
         super().__init__()
@@ -281,7 +297,7 @@ class LlamaForCausalLM(nn.Module):
         self._paths = []
         for path, tensor in _flatten(params):
             name = "__".join(path)
-            self.register_parameter(name, nn.Parameter(tensor, requires_grad=False))
+            self.register_parameter(name, nn.Parameter(tensor.detach()))
             self._paths.append((path, name))
 
     @classmethod
@@ -292,18 +308,30 @@ class LlamaForCausalLM(nn.Module):
         gen.manual_seed(seed)
         return cls(config, init_llama_params(config, gen, dev))
 
-    @property
-    def params(self) -> dict:
+    def _tree(self, detach: bool) -> dict:
         tree: dict = {}
         for path, name in self._paths:
             node = tree
             for key in path[:-1]:
                 node = node.setdefault(key, {})
-            node[path[-1]] = getattr(self, name)
+            p = getattr(self, name)
+            node[path[-1]] = p.detach() if detach else p
         return tree
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return llama_apply(self.config, self.params, input_ids)
+    @property
+    def params(self) -> dict:
+        return self._tree(detach=True)
+
+    def forward(self, input_ids: torch.Tensor, segment_ids=None, position_ids=None) -> torch.Tensor:
+        return llama_apply(self.config, self._tree(detach=False), input_ids,
+                           segment_ids=segment_ids, position_ids=position_ids)
+
+
+def create_llama(config: LlamaConfig, seed: int = 0, device="cuda") -> LlamaForCausalLM:
+    """The model :func:`accelerate_tpu_torch.accelerator.Accelerator.prepare`
+    takes, with random weights from ``seed`` (the JAX ``create_llama``; the
+    numbers differ from ``jax.random``'s)."""
+    return LlamaForCausalLM.from_seed(config, seed=seed, device=device)
 
 
 # ------------------------------------------------------------------ forward
@@ -436,9 +464,11 @@ def _attn_out(config, layer_params, attn, residual):
 
 
 def _layer(config: LlamaConfig, layer_params, x, position_offset: int = 0,
-           collect_kv: bool = False):
+           collect_kv: bool = False, segment_ids=None, position_ids=None):
     """One block on (B, S, D) activations; ``collect_kv=True`` also returns
-    the post-RoPE k/v for building the cache."""
+    the post-RoPE k/v for building the cache. ``segment_ids`` (B, S) keep
+    attention inside packed documents; ``position_ids`` (B, S) are per-token
+    RoPE positions (restarting at each document)."""
     h, kvh, hd = config.num_attention_heads, config.num_key_value_heads, config.head_dim
     b, s, _ = x.shape
     y = rms_norm(x, layer_params["input_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
@@ -446,8 +476,8 @@ def _layer(config: LlamaConfig, layer_params, x, position_offset: int = 0,
     k = _proj(config, layer_params, "k_proj", y).reshape(b, s, kvh, hd)
     v = _proj(config, layer_params, "v_proj", y).reshape(b, s, kvh, hd)
     sc = config._rope_scaling_key()
-    q = apply_rope(q, position_offset, config.rope_theta, scaling=sc)
-    k = apply_rope(k, position_offset, config.rope_theta, scaling=sc)
+    q = apply_rope(q, position_offset, config.rope_theta, position_ids, sc)
+    k = apply_rope(k, position_offset, config.rope_theta, position_ids, sc)
     if config.query_pre_attn_scalar is not None:
         # every impl scales by 1/sqrt(hd); this makes it 1/sqrt(qpas)
         q = q * math.sqrt(hd / config.query_pre_attn_scalar)
@@ -455,6 +485,7 @@ def _layer(config: LlamaConfig, layer_params, x, position_offset: int = 0,
         config.attention_impl, q.contiguous(), k.contiguous(), v.contiguous(),
         causal=True, q_offset=position_offset, kv_block=config.attention_kv_block,
         window=config.sliding_window, softcap=config.attn_logit_softcap,
+        segment_ids=segment_ids,
     )
     x = _mlp_block(config, layer_params, _attn_out(config, layer_params, attn, x))
     return (x, (k, v)) if collect_kv else x
@@ -462,6 +493,16 @@ def _layer(config: LlamaConfig, layer_params, x, position_offset: int = 0,
 
 def _layer_slice(layers: dict, i: int) -> dict:
     return {k: _layer_slice(v, i) if isinstance(v, dict) else v[i] for k, v in layers.items()}
+
+
+def _layer_trees(layers: dict, n: int) -> list:
+    """Every layer's parameters from the stacked tree, by one ``unbind`` per
+    leaf. Its backward stacks the ``n`` layer gradients once; ``n`` slices
+    (:func:`_layer_slice`) would each write a zero gradient of the whole
+    stack, ``n`` times the gradient's bytes per step."""
+    split = {k: _layer_trees(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in layers.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
 
 def _embed(config, params, ids):
@@ -482,13 +523,91 @@ def _head(config, params, x):
     return tanh_softcap(logits, config.final_logit_softcap).float()
 
 
-def llama_apply(config: LlamaConfig, params: dict, input_ids: torch.Tensor) -> torch.Tensor:
-    """Causal forward over (B, S) token ids -> f32 logits (B, S, V)."""
+def llama_apply(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
+                segment_ids=None, position_ids=None) -> torch.Tensor:
+    """Causal forward over (B, S) token ids -> f32 logits (B, S, V).
+    ``segment_ids`` (B, S): packed-sequence document labels (attention never
+    crosses a boundary); ``position_ids`` (B, S): per-token RoPE positions.
+    With gradients on and remat ``"nothing"`` (the JAX default) each layer
+    is a checkpoint region: its activations are recomputed in the backward,
+    so the flash forward runs twice per layer and step."""
     _check_supported(config)
+    if config.remat_policy not in ("nothing", "full"):
+        raise NotImplementedError(
+            f"remat_policy={config.remat_policy!r} is not ported yet (queued in "
+            "ROADMAP.md); use 'nothing' (recompute each layer) or 'full' (keep all)"
+        )
+    remat = config.remat_policy == "nothing" and torch.is_grad_enabled()
     x = _embed(config, params, input_ids)
-    for i in range(config.num_hidden_layers):
-        x = _layer(config, _layer_slice(params["layers"], i), x)
+    for lp in _layer_trees(params["layers"], config.num_hidden_layers):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _layer, config, lp, x, 0, False, segment_ids, position_ids,
+                use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _layer(config, lp, x, segment_ids=segment_ids, position_ids=position_ids)
     return _head(config, params, x)
+
+
+# ----------------------------------------------------------------- loss
+def _mask_of(labels, mask):
+    """HF semantics: an explicit loss_mask wins (sliced to the label
+    length), else labels < 0 (the -100 ignore index) are excluded."""
+    if mask is None:
+        return (labels >= 0).float()
+    return mask[:, : labels.shape[1]].float()
+
+
+def _dense_ce_from_logits(logits, labels, mask, reduction: str = "mean"):
+    """Masked cross entropy from full logits: f32 logsumexp minus the label
+    logit, summed over the mask, divided by ``max(sum(mask), 1)``
+    (``reduction="sum"`` returns the masked sum). The label logit is a
+    gather where the JAX package uses a one-hot einsum (a partitioner
+    workaround): the same value without a (B, S, V) one-hot."""
+    mask = _mask_of(labels, mask)
+    labels = labels.clamp_min(0).long()
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    label_logit = logits.gather(-1, labels[..., None])[..., 0].float()
+    total = ((lse - label_logit) * mask).sum()
+    if reduction == "sum":
+        return total
+    return total / mask.sum().clamp_min(1)
+
+
+def llama_ce_denominator(batch) -> torch.Tensor:
+    """The valid-token count :func:`llama_loss` divides by."""
+    labels = batch.get("labels")
+    if labels is None:
+        labels = batch["input_ids"][:, 1:]
+    return _mask_of(labels, batch.get("loss_mask")).sum().clamp_min(1)
+
+
+def llama_loss(model, batch) -> torch.Tensor:
+    """Next-token cross entropy; ``batch = {"input_ids": (B, S)}`` with
+    optional ``"labels"`` (default: the shifted input_ids), ``"loss_mask"``,
+    and ``"segment_ids"``/``"position_ids"`` (forwarded to the model so
+    attention never crosses a packed document)."""
+    input_ids = batch["input_ids"]
+    packed = {k: batch[k] for k in ("segment_ids", "position_ids") if k in batch}
+    logits = model(input_ids, **packed)
+    labels = batch.get("labels")
+    if labels is None:
+        labels = input_ids[:, 1:]
+        logits = logits[:, :-1]
+    return _dense_ce_from_logits(logits, labels, batch.get("loss_mask"))
+
+
+def llama_flops_per_token(config: LlamaConfig, seq_len: int) -> float:
+    """Useful training FLOPs per token for MFU: 3 x (forward matmuls +
+    attention upper bound + LM head); the remat recompute is not useful
+    work and is not counted."""
+    d, i, v = config.hidden_size, config.intermediate_size, config.vocab_size
+    h, kvh, hd = config.num_attention_heads, config.num_key_value_heads, config.head_dim
+    per_layer = 2 * d * (h * hd) + 2 * 2 * d * (kvh * hd) + 2 * (h * hd) * d  # qkvo
+    per_layer += 3 * 2 * d * i  # swiglu
+    attn = 2 * 2 * seq_len * h * hd  # qk + pv per token (causal is about half)
+    fwd = config.num_hidden_layers * (per_layer + attn) + 2 * d * v
+    return 3.0 * fwd
 
 
 def _prefill_stack(config: LlamaConfig, params, input_ids):

@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels, and count their launches.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
-with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
--fPIC`` into ``build/kernels/<name>-<hash>.so`` at the repository root,
-then loaded with :mod:`ctypes` (no PyTorch headers, so a build takes
-seconds). The file name carries a hash of the source and flags, so an
-edited source is rebuilt and a stale library is never loaded.
-:func:`build_all` starts one ``nvcc`` per source, all at once.
+Each ``csrc/<source>.cu`` has a plain C interface and is compiled on its
+own with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
+-Xcompiler -fPIC`` into ``build/kernels/<source>-<hash>.so`` at the
+repository root, then loaded with :mod:`ctypes` (no PyTorch headers, so a
+build takes seconds). The file name carries a hash of the source and
+flags, so an edited source is rebuilt and a stale library is never loaded.
+One source may hold several kernels, each with its own C entry point of
+the kernel's name. :func:`build_all` starts one ``nvcc`` per source, all
+at once.
 
 Nothing here runs at import time: the first launch of a kernel builds it.
 ``CUDA_HOME`` names the toolkit when it is not in ``/usr/local/cuda``.
@@ -39,9 +41,11 @@ __all__ = [
     "entry",
 ]
 
-# kernel name -> source file under accelerate_tpu_torch/csrc
+# kernel name (its C entry point) -> source file under accelerate_tpu_torch/csrc
 KERNELS = {
     "flash_fwd": "flash_fwd.cu",
+    "flash_bwd_dq": "flash_bwd.cu",
+    "flash_bwd_dkv": "flash_bwd.cu",
     "paged_decode": "paged_decode.cu",
     "fused_sample": "fused_sample.cu",
 }
@@ -53,10 +57,10 @@ NVCC_FLAGS = (
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[str, ctypes.CDLL] = {}  # source file -> loaded library
 _entries: Dict[str, object] = {}  # kernel name -> bound C entry point
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
-# nvcc's stderr (ptxas register/shared-memory report) of the last build
+# source file -> nvcc's stderr (ptxas register/shared-memory report) of its build
 build_logs: Dict[str, str] = {}
 
 
@@ -90,41 +94,41 @@ def _nvcc() -> str:
     return found
 
 
-def _so_path(name: str) -> Path:
-    src = (_CSRC / KERNELS[name]).read_bytes()
+def _so_path(source: str) -> Path:
+    src = (_CSRC / source).read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return _BUILD_DIR / f"{name}-{digest}.so"
+    return _BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
-    """Build every kernel in ``names`` (default: all) that is not built yet,
-    one ``nvcc`` process per source, all started together. Returns the
-    build seconds per kernel (0.0 for a library already on disk). Raises
-    ``RuntimeError`` with nvcc's output if any build fails."""
-    names = list(KERNELS if names is None else names)
-    out_dir = _BUILD_DIR
-    out_dir.mkdir(parents=True, exist_ok=True)
+    """Build the sources of every kernel in ``names`` (default: all) that
+    are not built yet, one ``nvcc`` process per source, all started
+    together. Returns the build seconds per source file (0.0 for a library
+    already on disk). Raises ``RuntimeError`` with nvcc's output if any
+    build fails."""
+    sources = sorted({KERNELS[n] for n in (KERNELS if names is None else names)})
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     seconds = {}
     with _lock:
-        for name in names:
-            so = _so_path(name)
+        for source in sources:
+            so = _so_path(source)
             if so.exists():
-                seconds[name] = 0.0
+                seconds[source] = 0.0
                 continue
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / KERNELS[name])]
-            procs[name] = (
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / source)]
+            procs[source] = (
                 subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
                 time.perf_counter(), tmp, so,
             )
         failed = []
-        for name, (proc, t0, tmp, so) in procs.items():
+        for source, (proc, t0, tmp, so) in procs.items():
             log, _ = proc.communicate()
-            seconds[name] = time.perf_counter() - t0
-            build_logs[name] = log
+            seconds[source] = time.perf_counter() - t0
+            build_logs[source] = log
             if proc.returncode != 0:
-                failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n{log}")
+                failed.append(f"--- {source} (nvcc exit {proc.returncode}) ---\n{log}")
                 tmp.unlink(missing_ok=True)
             else:
                 os.replace(tmp, so)
@@ -134,15 +138,16 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
-    lib = _libs.get(name)
+    """The loaded library holding kernel ``name``, built first if needed."""
+    source = KERNELS[name]
+    lib = _libs.get(source)
     if lib is not None:
         return lib
     build_all([name])
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(source)
         if lib is None:
-            lib = _libs[name] = ctypes.CDLL(str(_so_path(name)))
+            lib = _libs[source] = ctypes.CDLL(str(_so_path(source)))
     return lib
 
 

@@ -71,10 +71,12 @@ def dot_product_attention(
     q_offset: int = 0,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
+    segment_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Reference attention with fully materialised scores. ``window`` is the
     Mistral convention ``0 <= q_pos - k_pos < window``; ``softcap`` caps the
-    scores before any mask."""
+    scores before any mask; ``segment_ids`` (B, S) mask scores across packed
+    documents."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scores = _grouped_scores(q, k) * (1.0 / math.sqrt(d))
@@ -85,6 +87,9 @@ def dot_product_attention(
         # additive bias, as _causal_mask_bias adds it
         bias = torch.where(q_pos >= k_pos, 0.0, NEG_INF).to(torch.float32)
         scores = scores + bias
+    if segment_ids is not None:
+        same = segment_ids[:, :, None] == segment_ids[:, None, :]  # (b, sq, sk)
+        scores = torch.where(same[:, None, None], scores, NEG_INF)
     if window is not None:
         diff = q_pos - k_pos
         scores = torch.where((diff >= 0) & (diff < window), scores, NEG_INF)
@@ -120,9 +125,12 @@ def _combine_blocks(out_a, m_a, l_a, out_b, m_b, l_b):
 def blockwise_attention(
     q, k, v, *, causal: bool = True, kv_block: int = 512, q_offset: int = 0,
     window: Optional[int] = None, softcap: Optional[float] = None,
+    segment_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Memory-efficient attention: a loop over kv blocks with online
-    softmax (the single-device form of the ring-attention math)."""
+    softmax (the single-device form of the ring-attention math).
+    ``segment_ids`` (B, S) mask scores across packed documents; padding
+    past the sequence end gets label -1, which matches no token."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
     n_rep = h // k.shape[2]
@@ -133,6 +141,9 @@ def blockwise_attention(
     m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
     q_pos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    if segment_ids is not None:
+        n_blocks = -(-skv // kv_block)
+        kv_segs = torch.nn.functional.pad(segment_ids, (0, n_blocks * kv_block - skv), value=-1)
     for start in range(0, skv, kv_block):
         kv_pos = torch.arange(start, start + kv_block, device=q.device)[None, :]
         bias = torch.where(kv_pos < skv, 0.0, NEG_INF)
@@ -141,15 +152,17 @@ def blockwise_attention(
         if window is not None:
             diff = q_pos - kv_pos
             bias = torch.where((diff >= 0) & (diff < window), bias, NEG_INF)
+        bias = bias.to(torch.float32)[None, None]
+        if segment_ids is not None:
+            same = segment_ids[:, :, None] == kv_segs[:, None, start:start + kv_block]
+            bias = torch.where(same[:, None], bias, NEG_INF)
         k_blk = k[:, start:start + kv_block]
         v_blk = v[:, start:start + kv_block]
         pad = kv_block - k_blk.shape[1]
         if pad:
             k_blk = torch.nn.functional.pad(k_blk, (0, 0, 0, 0, 0, pad))
             v_blk = torch.nn.functional.pad(v_blk, (0, 0, 0, 0, 0, pad))
-        o_b, m_b, l_b = _attend_block(
-            q, k_blk, v_blk, bias.to(torch.float32)[None, None], softcap=softcap
-        )
+        o_b, m_b, l_b = _attend_block(q, k_blk, v_blk, bias, softcap=softcap)
         out, m, l = _combine_blocks(out, m, l, o_b, m_b, l_b)
     denom = l.transpose(1, 2)[..., None]
     return out / torch.clamp(denom, min=1e-30).to(out.dtype)
@@ -202,13 +215,15 @@ def dispatch_attention(
     kv_block: int = 512,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
+    segment_ids: Optional[torch.Tensor] = None,
 ):
     """Select the attention implementation by name: ``"flash"`` (the flash
     kernel wrapper; its plain version on the CPU), ``"blockwise"`` or
     ``"xla"`` (the materialised reference; the name is kept from the JAX
     package). Flash with a shifted q block (``q_offset != 0``) or without a
     causal mask falls back to blockwise, as in the JAX package: the kernel
-    anchors its causal mask at position 0."""
+    anchors its causal mask at position 0. ``segment_ids`` (B, S) keep
+    attention inside each packed document on every path."""
     if impl not in ("flash", "blockwise", "xla"):
         raise ValueError(
             f"unknown attention impl {impl!r}; expected 'flash', 'blockwise', or 'xla'"
@@ -216,12 +231,14 @@ def dispatch_attention(
     if impl == "flash" and q_offset == 0 and causal:
         from .flash_attention import flash_attention
 
-        return flash_attention(q, k, v, causal=True, window=window, softcap=softcap)
+        return flash_attention(q, k, v, causal=True, window=window, softcap=softcap,
+                               segment_ids=segment_ids)
     if impl in ("blockwise", "flash"):
         return blockwise_attention(
             q, k, v, causal=causal, kv_block=kv_block, q_offset=q_offset,
-            window=window, softcap=softcap,
+            window=window, softcap=softcap, segment_ids=segment_ids,
         )
     return dot_product_attention(
         q, k, v, causal=causal, q_offset=q_offset, window=window, softcap=softcap,
+        segment_ids=segment_ids,
     )

@@ -1,18 +1,26 @@
-"""Flash attention forward (counterpart of
+"""Flash attention, forward and backward (counterpart of
 ``accelerate_tpu/ops/flash_attention.py``).
 
-* :func:`flash_attention_reference` is the plain PyTorch version: scores
-  materialised in f32, the kernel's masking rules, ``(out, lse)``.
+* :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`
+  are the plain PyTorch versions: scores materialised in f32, the kernels'
+  masking rules, and for the backward the kernels' recompute math
+  (``p = exp(s - lse)``, ``ds = p * (dp - delta)``) with their casts.
 * :func:`flash_attention_with_lse` / :func:`flash_attention` are the kernel
-  wrappers. A CUDA tensor launches the hand-written kernel
-  (``csrc/flash_fwd.cu``, replacing the Pallas ``_fwd_kernel``) or raises;
-  a CPU tensor runs the plain version. Forward only: the backward kernels
-  (dq, dk/dv) belong to the training slice, so an input that requires grad
-  is refused, and so are ``segment_ids`` (the packing slice).
+  wrappers, differentiable through :class:`_FlashAttention` (the
+  ``jax.custom_vjp`` of ``_flash_core`` / ``_flash_core_lse``). A CUDA
+  tensor launches the hand-written kernels (``csrc/flash_fwd.cu`` for the
+  forward, ``csrc/flash_bwd.cu`` for dq and for dk/dv) or raises; a CPU
+  tensor runs the plain versions.
 
-Layout (B, S, H, D) for q/out, (B, S, H_kv, D) for k/v, lse (B, H, Sq) f32.
-The kernel masks a ragged sequence edge itself, so unlike the Pallas
-kernel any S works.
+Layout (B, S, H, D) for q/out/do, (B, S, H_kv, D) for k/v, lse (B, H, Sq)
+f32. ``segment_ids`` (B, Sq) / ``kv_segment_ids`` (B, Skv) are packed-
+sequence document labels: a score is masked where the labels differ. The
+kernels mask a ragged sequence edge themselves, so unlike the Pallas
+kernels any S works.
+
+``delta = rowsum(out * do) - dlse`` is computed here in PyTorch before the
+two backward kernels, as the JAX package computes it with ``jnp`` outside
+its kernels.
 """
 
 from __future__ import annotations
@@ -23,11 +31,47 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .attention import NEG_INF, tanh_softcap
+from .attention import NEG_INF
 
-__all__ = ["flash_attention", "flash_attention_with_lse", "flash_attention_reference"]
+__all__ = [
+    "flash_attention",
+    "flash_attention_with_lse",
+    "flash_attention_reference",
+    "flash_attention_bwd_reference",
+]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _visible(sq, skv, causal, window, segment_ids, kv_segment_ids, device):
+    """Boolean visibility broadcastable to grouped scores (B, Hkv, n_rep,
+    Sq, Skv), or None when nothing is masked: causal ``q >= k``, then the
+    window ``q - k < window`` (which implies the causal bound), then equal
+    segment labels (``_mask_scores``)."""
+    vis = None
+    if causal or window is not None:
+        q_pos = torch.arange(sq, device=device)[:, None]
+        k_pos = torch.arange(skv, device=device)[None, :]
+        vis = q_pos >= k_pos
+        if window is not None:
+            vis = vis & (q_pos - k_pos < window)
+    if segment_ids is not None:
+        same = (segment_ids[:, :, None] == kv_segment_ids[:, None, :])[:, None, None]
+        vis = same if vis is None else vis & same
+    return vis
+
+
+def _grouped_scores(q, k, softcap):
+    """f32 scores (B, Hkv, n_rep, Sq, Skv) after the softcap, and the tanh
+    term the backward needs (None without a softcap)."""
+    b, sq, h, d = q.shape
+    h_kv = k.shape[2]
+    qg = q.reshape(b, sq, h_kv, h // h_kv, d).float()
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * (1.0 / math.sqrt(d))
+    if softcap is None:
+        return s, None
+    t = torch.tanh(s / softcap)
+    return softcap * t, t
 
 
 def flash_attention_reference(
@@ -38,24 +82,20 @@ def flash_attention_reference(
     causal: bool = True,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the flash forward: the same masks in the same order
-    (softcap, then causal ``q >= k``, then window ``q - k < window``; the
-    window implies the causal lower bound), f32 scores and f32 P·V, and the
-    per-row ``lse = m + log(l)``. Returns ``(out (B, Sq, H, D), lse (B, H,
-    Sq) f32)``."""
+    (softcap, then causal, window and segments), f32 scores and f32 P·V, and
+    the per-row ``lse = m + log(l)``. Returns ``(out (B, Sq, H, D), lse (B,
+    H, Sq) f32)``. Differentiable by autograd."""
     b, sq, h, d = q.shape
-    skv, h_kv = k.shape[1], k.shape[2]
-    n_rep = h // h_kv
-    qg = q.reshape(b, sq, h_kv, n_rep, d).float()
-    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * (1.0 / math.sqrt(d))
-    s = tanh_softcap(s, softcap)
-    if causal or window is not None:
-        q_pos = torch.arange(sq, device=q.device)[:, None]
-        k_pos = torch.arange(skv, device=q.device)[None, :]
-        vis = q_pos >= k_pos
-        if window is not None:
-            vis = vis & (q_pos - k_pos < window)
+    skv = k.shape[1]
+    if segment_ids is not None and kv_segment_ids is None:
+        kv_segment_ids = segment_ids
+    s, _ = _grouped_scores(q, k, softcap)
+    vis = _visible(sq, skv, causal, window, segment_ids, kv_segment_ids, q.device)
+    if vis is not None:
         s = torch.where(vis, s, NEG_INF)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
@@ -65,50 +105,122 @@ def flash_attention_reference(
     return out.reshape(b, sq, h, d).to(q.dtype), lse
 
 
-def _check_inputs(q, k, v, segment_ids):
-    if segment_ids is not None:
-        raise NotImplementedError(
-            "segment_ids (packed sequences) are not ported: the packing masks "
-            "belong to the training slice (ROADMAP.md)"
-        )
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "flash_attention is forward-only in the port: the backward kernels "
-            "(dq, dk/dv) come with the training slice; call it under "
-            "torch.no_grad() or on tensors that do not require grad"
-        )
+def _delta(out, do, dlse):
+    """``rowsum(out * do)`` in f32 as (B, H, Sq), minus the lse cotangent:
+    an lse cotangent adds ``dlse_i * p_ij`` to ``ds_ij``, which folds into
+    ``ds = p * (dp - delta)`` as ``delta -= dlse``."""
+    delta = (out.float() * do.float()).sum(dim=-1).transpose(1, 2)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    return delta.contiguous()
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    dlse: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the two backward kernels (B2 dq, B3 dk/dv): the
+    recompute math, not autograd. ``p = exp(s - lse)`` from the saved lse,
+    ``dp = do · vᵀ``, ``ds = p * (dp - delta)`` (times ``1 - t²`` under a
+    softcap); ``p`` is rounded to ``do``'s dtype before ``dv = pᵀ · do`` and
+    ``ds`` to q/k's dtype before ``dq = ds · k`` and ``dk = dsᵀ · q`` (both
+    scaled by ``1/sqrt(D)``), as the Pallas kernels round them. Sums run in
+    f32; dk/dv sum over each kv head's group of q heads."""
+    b, sq, h, d = q.shape
+    skv, h_kv = k.shape[1], k.shape[2]
+    n_rep = h // h_kv
+    scale = 1.0 / math.sqrt(d)
+    if segment_ids is not None and kv_segment_ids is None:
+        kv_segment_ids = segment_ids
+    s, t = _grouped_scores(q, k, softcap)
+    vis = _visible(sq, skv, causal, window, segment_ids, kv_segment_ids, q.device)
+    if vis is not None:
+        s = torch.where(vis, s, NEG_INF)
+    p = torch.exp(s - lse.reshape(b, h_kv, n_rep, sq)[..., None])
+    delta = _delta(out, do, dlse).reshape(b, h_kv, n_rep, sq)
+    dog = do.reshape(b, sq, h_kv, n_rep, d).float()
+    dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, v.float())
+    ds = p * (dp - delta[..., None])
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    p_lo = p.to(do.dtype).float()
+    ds_lo = ds.to(q.dtype).float()
+    qg = q.reshape(b, sq, h_kv, n_rep, d).float()
+    dv = torch.einsum("bgrqk,bqgrd->bkgd", p_lo, dog)
+    dk = torch.einsum("bgrqk,bqgrd->bkgd", ds_lo, qg) * scale
+    dq = torch.einsum("bgrqk,bkgd->bqgrd", ds_lo, k.float()) * scale
+    return dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_inputs(q, k, v, segment_ids, kv_segment_ids):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, S, H, D)")
     if k.shape != v.shape or q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     if q.shape[2] % k.shape[2] != 0:
         raise ValueError(f"num heads {q.shape[2]} not divisible by kv heads {k.shape[2]}")
+    if kv_segment_ids is not None and segment_ids is None:
+        raise ValueError("kv_segment_ids needs segment_ids (the q rows' labels)")
+    for name, seg, s in (("segment_ids", segment_ids, q.shape[1]),
+                         ("kv_segment_ids", kv_segment_ids, k.shape[1])):
+        if seg is None:
+            continue
+        if seg.shape != (q.shape[0], s) or seg.dtype.is_floating_point or seg.dtype == torch.bool:
+            raise ValueError(
+                f"{name} must be integer labels of shape {(q.shape[0], s)}, got "
+                f"{seg.dtype} {tuple(seg.shape)}"
+            )
+        if seg.device != q.device:
+            raise ValueError(f"{name} is on {seg.device}, q on {q.device}")
 
 
-def _launch(q, k, v, causal, window, softcap):
-    if not (q.device == k.device == v.device):
-        raise ValueError("flash_attention: q, k, v must all be on one device")
+def _check_launch(q, k, v, extra=()):
+    if not all(t.device == q.device for t in (k, v, *extra)):
+        raise ValueError("flash attention: all operands must be on one device")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
-            f"flash kernel takes float32 or bfloat16 q/k/v of one dtype, got "
+            f"flash kernels take float32 or bfloat16 q/k/v of one dtype, got "
             f"{q.dtype}, {k.dtype}, {v.dtype}"
         )
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash kernel takes contiguous (B, S, H, D) tensors")
-    b, sq, h, d = q.shape
-    skv, h_kv = k.shape[1], k.shape[2]
-    if d not in (64, 128):
-        raise ValueError(f"flash kernel supports head_dim 64 or 128, got {d}")
+        raise ValueError("flash kernels take contiguous (B, S, H, D) tensors")
+    if q.shape[3] not in (64, 128):
+        raise ValueError(f"flash kernels support head_dim 64 or 128, got {q.shape[3]}")
+    if q.device.type != "cuda":
+        raise ValueError(f"the flash kernels run on CUDA tensors; got {q.device}")
+
+
+def _check_options(window, softcap):
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
-    if q.device.type != "cuda":
-        raise ValueError(f"the flash kernel runs on CUDA tensors; got {q.device}")
+
+
+def _seg_ptr(seg):
+    return None if seg is None else seg.data_ptr()
+
+
+def _launch_fwd(q, k, v, q_seg, kv_seg, causal, window, softcap):
+    _check_launch(q, k, v)
+    b, sq, h, d = q.shape
+    skv, h_kv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    code = _build.entry("flash_fwd", 5, 9, 2)(
+    code = _build.entry("flash_fwd", 7, 9, 2)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        _seg_ptr(q_seg), _seg_ptr(kv_seg),
         b, sq, skv, h, h_kv, d, _DTYPE_CODE[q.dtype], int(bool(causal)),
         int(window or 0), float(softcap or 0.0), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream,
@@ -118,23 +230,112 @@ def _launch(q, k, v, causal, window, softcap):
     return out, lse
 
 
+def _bwd_launch_args(q, k, v, do, lse, delta, q_seg, kv_seg, causal, window, softcap):
+    _check_launch(q, k, v, (do, lse, delta))
+    if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous():
+        raise ValueError(f"do must be a contiguous {q.dtype} {tuple(q.shape)}, got "
+                         f"{do.dtype} {tuple(do.shape)}")
+    b, sq, h, d = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (b, h, sq) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 {(b, h, sq)}")
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+           delta.data_ptr(), _seg_ptr(q_seg), _seg_ptr(kv_seg))
+    dims = (b, sq, k.shape[1], h, k.shape[2], d, _DTYPE_CODE[q.dtype], int(bool(causal)),
+            int(window or 0), float(softcap or 0.0), 1.0 / math.sqrt(d),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    return ins, dims
+
+
+def _launch_bwd_dq(q, k, v, do, lse, delta, q_seg, kv_seg, causal, window, softcap):
+    """Kernel B2: dq from the saved lse and the precomputed delta."""
+    ins, dims = _bwd_launch_args(q, k, v, do, lse, delta, q_seg, kv_seg, causal, window, softcap)
+    dq = torch.empty_like(q)
+    code = _build.entry("flash_bwd_dq", 9, 9, 2)(*ins, dq.data_ptr(), *dims)
+    _build.check("flash_bwd_dq", code)
+    _build.count_launch("flash_bwd_dq")
+    return dq
+
+
+def _launch_bwd_dkv(q, k, v, do, lse, delta, q_seg, kv_seg, causal, window, softcap):
+    """Kernel B3: dk and dv, each kv head summed over its group of q heads."""
+    ins, dims = _bwd_launch_args(q, k, v, do, lse, delta, q_seg, kv_seg, causal, window, softcap)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    code = _build.entry("flash_bwd_dkv", 10, 9, 2)(*ins, dk.data_ptr(), dv.data_ptr(), *dims)
+    _build.check("flash_bwd_dkv", code)
+    _build.count_launch("flash_bwd_dkv")
+    return dk, dv
+
+
+def _launch_bwd(q, k, v, out, lse, do, q_seg, kv_seg, causal, window, softcap, dlse):
+    do = do.contiguous()
+    delta = _delta(out, do, dlse)
+    opts = (q_seg, kv_seg, causal, window, softcap)
+    dq = _launch_bwd_dq(q, k, v, do, lse, delta, *opts)
+    dk, dv = _launch_bwd_dkv(q, k, v, do, lse, delta, *opts)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward B1, backward B2 + B3 (the custom VJP of ``_flash_core_lse``):
+    the forward saves ``q, k, v, out, lse``; the backward takes cotangents
+    of both ``out`` and ``lse`` (the latter folded into ``delta``). CPU
+    tensors run the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_seg, kv_seg, causal, window, softcap):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_reference(
+                q, k, v, causal=causal, window=window, softcap=softcap,
+                segment_ids=q_seg, kv_segment_ids=kv_seg)
+        else:
+            out, lse = _launch_fwd(q, k, v, q_seg, kv_seg, causal, window, softcap)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(q, k, v, out, lse, q_seg, kv_seg)
+        ctx.opts = (causal, window, softcap)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse, q_seg, kv_seg = ctx.saved_tensors
+        causal, window, softcap = ctx.opts
+        if dout is None:
+            dout = torch.zeros_like(out)
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_bwd_reference(
+                q, k, v, out, lse, dout, causal=causal, window=window, softcap=softcap,
+                segment_ids=q_seg, kv_segment_ids=kv_seg, dlse=dlse)
+        else:
+            dq, dk, dv = _launch_bwd(q, k, v, out, lse, dout, q_seg, kv_seg,
+                                     causal, window, softcap, dlse)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention_with_lse(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     *,
     causal: bool = True,
-    segment_ids=None,
+    segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, Sq, H, D) x (B, Skv, H_kv, D) flash attention returning ``(out,
-    lse (B, H, Sq) f32)``. q and kv lengths may differ; ``causal`` anchors
-    both at position 0."""
-    _check_inputs(q, k, v, segment_ids)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal=causal, window=window, softcap=softcap)
-    return _launch(q, k, v, causal, window, softcap)
+    lse (B, H, Sq) f32)``, differentiable in both outputs. q and kv lengths
+    may differ; ``causal`` anchors both at position 0. ``segment_ids``
+    labels the q rows and, unless ``kv_segment_ids`` is given, the kv rows
+    too."""
+    _check_inputs(q, k, v, segment_ids, kv_segment_ids)
+    _check_options(window, softcap)
+    q_seg = kv_seg = None
+    if segment_ids is not None:
+        q_seg = segment_ids.to(torch.int32).contiguous()
+        kv_seg = (q_seg if kv_segment_ids is None
+                  else kv_segment_ids.to(torch.int32).contiguous())
+    return _FlashAttention.apply(q, k, v, q_seg, kv_seg, bool(causal), window, softcap)
 
 
 def flash_attention(
@@ -143,13 +344,14 @@ def flash_attention(
     v: torch.Tensor,
     *,
     causal: bool = True,
-    segment_ids=None,
+    segment_ids: Optional[torch.Tensor] = None,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """(B, S, H, D) flash attention; GQA by passing fewer kv heads (shared
-    across the group in the kernel, never repeated); ``window`` is the
-    Mistral sliding window, whose out-of-window kv tiles the kernel skips."""
+    across the group in the kernels, never repeated); ``window`` is the
+    Mistral sliding window, whose out-of-window kv tiles the kernels skip;
+    ``segment_ids`` (B, S) keep attention inside each packed document."""
     if q.shape[1] != k.shape[1]:
         raise ValueError(
             f"flash_attention needs equal q/kv lengths, got {q.shape[1]} and "

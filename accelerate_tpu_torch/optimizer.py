@@ -1,0 +1,166 @@
+"""Optimizer wrapper with gradient accumulation and loss scaling
+(counterpart of ``accelerate_tpu/optimizer.py``).
+
+The JAX package wraps an optax transformation over functional pytrees; here
+:class:`AcceleratedOptimizer` wraps a ``torch.optim.Optimizer`` and the
+gradients accumulate in each parameter's ``.grad``. The observable
+semantics are the JAX package's: ``step`` runs only when
+``GradientState.sync_gradients`` is set and, under fp16 loss scaling, skips
+on non-finite gradients; ``zero_grad`` does nothing mid-accumulation;
+``clip_grad_norm_`` scales by ``min(1, max_norm / (norm + 1e-6))`` over the
+f32 global norm.
+
+``optax.adamw(lr, weight_decay=wd)`` maps to ``torch.optim.AdamW(lr,
+betas=(0.9, 0.999), eps=1e-8, weight_decay=wd)``: both decay decoupled, on
+every parameter. Their default ``weight_decay`` differs (1e-4 against
+1e-2), so pass it explicitly.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import List, Optional
+
+import torch
+
+from .state import GradientState
+
+__all__ = ["AcceleratedOptimizer", "DynamicScale", "clip_grads_by_norm", "global_grad_norm"]
+
+
+class DynamicScale:
+    """fp16 dynamic loss scaling: the loss is multiplied by ``scale`` before
+    the backward; a step with non-finite gradients is skipped and the scale
+    multiplied by ``backoff_factor``; after ``growth_interval`` finite steps
+    in a row it is multiplied by ``growth_factor``. The state lives on the
+    host: skipping a step needs the finite check there anyway."""
+
+    def __init__(self, init_scale: float = 2.0**16, growth_factor: float = 2.0,
+                 backoff_factor: float = 0.5, growth_interval: int = 2000):
+        self.growth_factor = growth_factor
+        self.backoff_factor = backoff_factor
+        self.growth_interval = growth_interval
+        self.state = {"scale": float(init_scale), "good_steps": 0}
+
+    @property
+    def scale(self) -> float:
+        return self.state["scale"]
+
+    def unscale_(self, grads: List[torch.Tensor]) -> None:
+        inv = 1.0 / self.state["scale"]
+        for g in grads:
+            g.mul_(inv)
+
+    @staticmethod
+    def grads_finite(grads: List[torch.Tensor]) -> bool:
+        """One host readback for the whole gradient set."""
+        if not grads:
+            return True
+        return bool(torch.stack([torch.isfinite(g).all() for g in grads]).all().item())
+
+    def update(self, is_finite: bool) -> None:
+        scale, good = self.state["scale"], self.state["good_steps"]
+        if not is_finite:
+            self.state = {"scale": scale * self.backoff_factor, "good_steps": 0}
+        elif good + 1 >= self.growth_interval:
+            self.state = {"scale": scale * self.growth_factor, "good_steps": 0}
+        else:
+            self.state = {"scale": scale, "good_steps": good + 1}
+
+
+def global_grad_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """The L2 norm over every gradient, on the device, summed in f32 (or
+    the gradients' wider dtype)."""
+    if not grads:
+        return torch.zeros(())
+    norms = [torch.linalg.vector_norm(g, dtype=torch.promote_types(g.dtype, torch.float32))
+             for g in grads]
+    dtype = functools.reduce(torch.promote_types, (n.dtype for n in norms))
+    return torch.linalg.vector_norm(torch.stack([n.to(dtype) for n in norms]))
+
+
+def clip_grads_by_norm(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """Scale ``grads`` in place by ``min(1, max_norm / (norm + 1e-6))``;
+    returns the norm before clipping. No host readback."""
+    norm = global_grad_norm(grads)
+    factor = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+    for g in grads:
+        g.mul_(factor.to(g.dtype))
+    return norm
+
+
+class AcceleratedOptimizer:
+    """Wraps a ``torch.optim.Optimizer``.
+
+    * ``accelerator.backward(...)`` accumulates into the parameters' ``.grad``;
+    * :meth:`step` updates iff ``GradientState.sync_gradients`` (and, under
+      fp16, the unscaled gradients are finite);
+    * :meth:`zero_grad` drops the gradients once synced.
+    """
+
+    def __init__(self, optimizer: torch.optim.Optimizer, scaler: Optional[DynamicScale] = None):
+        if isinstance(optimizer, AcceleratedOptimizer):
+            raise ValueError("optimizer is already wrapped by AcceleratedOptimizer")
+        if not isinstance(optimizer, torch.optim.Optimizer):
+            raise TypeError(f"Expected a torch.optim.Optimizer, got {type(optimizer)}")
+        self.optimizer = optimizer
+        self.scaler = scaler
+        self.gradient_state = GradientState()
+        self.step_was_skipped = False
+        self._step_count = 0
+        self._unscaled = False
+
+    def params(self) -> List[torch.Tensor]:
+        return [p for group in self.optimizer.param_groups for p in group["params"]]
+
+    def grads(self) -> List[torch.Tensor]:
+        return [p.grad for p in self.params() if p.grad is not None]
+
+    def unscale_(self) -> None:
+        """Divide the gradients by the loss scale, once per update."""
+        if self.scaler is not None and not self._unscaled:
+            self.scaler.unscale_(self.grads())
+            self._unscaled = True
+
+    def clip_grad_norm_(self, max_norm: float) -> torch.Tensor:
+        grads = self.grads()
+        if not grads:
+            return torch.zeros(())
+        self.unscale_()
+        return clip_grads_by_norm(grads, max_norm)
+
+    def clip_grad_value_(self, clip_value: float) -> None:
+        grads = self.grads()
+        if not grads:
+            return
+        self.unscale_()
+        for g in grads:
+            g.clamp_(-clip_value, clip_value)
+
+    def step(self, closure=None) -> None:
+        if not self.gradient_state.sync_gradients or not self.grads():
+            self.step_was_skipped = True
+            self._unscaled = False
+            return
+        if self.scaler is not None:
+            self.unscale_()
+            finite = self.scaler.grads_finite(self.grads())
+            self.scaler.update(finite)
+            if not finite:
+                self.step_was_skipped = True
+                self.optimizer.zero_grad(set_to_none=True)
+                self._unscaled = False
+                return
+        self.optimizer.step(closure)
+        self._unscaled = False
+        self.step_was_skipped = False
+        self._step_count += 1
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        """A no-op mid-accumulation: the gradients are still being summed."""
+        if self.gradient_state.sync_gradients:
+            self.optimizer.zero_grad(set_to_none=set_to_none)
+            self._unscaled = False
+
+    def __repr__(self) -> str:
+        return f"AcceleratedOptimizer({type(self.optimizer).__name__}, steps={self._step_count})"

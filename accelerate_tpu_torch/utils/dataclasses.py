@@ -1,20 +1,132 @@
-"""Config dataclasses of the port (counterpart of the ``ServingConfig`` in
+"""Config dataclasses of the port (counterpart of
 ``accelerate_tpu/utils/dataclasses.py``).
 
-Only ``mode="continuous"`` is ported: the slot engine over a KV backend,
-with the continuous-mode knobs and their validation, plus the admission
-knobs the server reads (queue bound, default budget and deadline, drain
-timeout). Static mode, retry/circuit breaker, the degradation ladder,
-speculative decoding, chunked prefill and the host KV tier are still to
-be ported (ROADMAP.md).
+Training: the kwargs handlers a single-device ``Accelerator`` reads
+(``GradientAccumulationPlugin``, ``GradScalerKwargs``,
+``MixedPrecisionPolicy``, the ``DataLoaderConfiguration`` fields of
+single-process batching, and ``DistributedDataParallelKwargs``, whose
+gradient-compression hooks wait for the distributed slice).
+
+Serving: only ``mode="continuous"`` is ported: the slot engine over a KV
+backend, with the continuous-mode knobs and their validation, plus the
+admission knobs the server reads (queue bound, default budget and
+deadline, drain timeout). Static mode, retry/circuit breaker, the
+degradation ladder, speculative decoding, chunked prefill and the host KV
+tier are still to be ported (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import Optional
 
-__all__ = ["ServingConfig"]
+import torch
+
+__all__ = [
+    "DataLoaderConfiguration",
+    "DistributedDataParallelKwargs",
+    "GradScalerKwargs",
+    "GradientAccumulationPlugin",
+    "KwargsHandler",
+    "MixedPrecisionPolicy",
+    "ServingConfig",
+]
+
+
+class KwargsHandler:
+    """Base: the fields that differ from the defaults, as kwargs."""
+
+    def to_dict(self) -> dict:
+        return copy.deepcopy(self.__dict__)
+
+    def to_kwargs(self) -> dict:
+        default = self.__class__()
+        return {k: v for k, v in self.to_dict().items() if getattr(default, k, None) != v}
+
+
+@dataclass
+class GradientAccumulationPlugin(KwargsHandler):
+    """Gradient accumulation: ``num_steps`` micro-batches per update;
+    ``sync_with_dataloader`` forces an update at the end of the data loader
+    even mid-window."""
+
+    num_steps: int = 1
+    sync_with_dataloader: bool = True
+
+    def __post_init__(self):
+        if self.num_steps < 1:
+            raise ValueError(f"num_steps must be >= 1, got {self.num_steps}")
+
+
+@dataclass
+class DistributedDataParallelKwargs(KwargsHandler):
+    """Gradient communication hooks: ``comm_hook`` ``"bf16"``/``"fp16"``
+    (reduce gradients in a compressed dtype) or ``"powersgd"`` (low-rank
+    compression). Both act on the cross-device reduction, so a single-device
+    ``train_step`` refuses them until the distributed slice (ROADMAP.md A7)."""
+
+    comm_hook: str = "no"  # "no" | "bf16" | "fp16" | "powersgd"
+
+    def __post_init__(self):
+        if self.comm_hook not in ("no", "bf16", "fp16", "powersgd"):
+            raise ValueError(f"comm_hook must be no|bf16|fp16|powersgd, got {self.comm_hook}")
+
+
+@dataclass
+class GradScalerKwargs(KwargsHandler):
+    """Dynamic loss scaling for fp16 (torch GradScaler's defaults)."""
+
+    init_scale: float = 2.0**16
+    growth_factor: float = 2.0
+    backoff_factor: float = 0.5
+    growth_interval: int = 2000
+
+
+def _cast_floats(tree, dtype):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype) if tree.is_floating_point() else tree
+    if isinstance(tree, dict):
+        return type(tree)((k, _cast_floats(v, dtype)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast_floats(v, dtype) for v in tree)
+    return tree
+
+
+@dataclass
+class MixedPrecisionPolicy(KwargsHandler):
+    """Three-dtype policy: parameters stored in ``param_dtype``, cast to
+    ``compute_dtype`` for the forward, float outputs cast to
+    ``output_dtype``. ``"bf16"`` is f32 params, bf16 compute, f32 outputs."""
+
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+    output_dtype: str = "float32"
+
+    @classmethod
+    def from_mixed_precision(cls, mixed_precision: str) -> "MixedPrecisionPolicy":
+        if mixed_precision == "bf16":
+            return cls(compute_dtype="bfloat16")
+        if mixed_precision == "fp16":
+            return cls(compute_dtype="float16")
+        return cls()
+
+    def cast_to_compute(self, tree):
+        return _cast_floats(tree, getattr(torch, self.compute_dtype))
+
+    def cast_to_output(self, tree):
+        return _cast_floats(tree, getattr(torch, self.output_dtype))
+
+
+@dataclass
+class DataLoaderConfiguration(KwargsHandler):
+    """The data-loader knobs of single-process batching: ``data_seed`` (the
+    shuffling seed), ``non_blocking`` (copies from pinned host buffers
+    overlap the step). Splitting and dispatching batches across processes
+    wait for the distributed slice."""
+
+    data_seed: Optional[int] = None
+    non_blocking: bool = True
 
 
 @dataclass

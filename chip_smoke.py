@@ -1,8 +1,9 @@
 """Chip smoke test of the PyTorch/H100 port: builds the CUDA kernels from
 this checkout, holds each one against its plain PyTorch version on the
-card, and drives the port's main path (Llama-3-8B continuous-batching
-serving through ``InferenceServer``) at full width and depth with seeded
-random weights.
+card, and drives the port's two main paths with seeded random weights:
+Llama-3-8B continuous-batching serving through ``InferenceServer`` at full
+width and depth, and Llama-3-8B training steps through the ``Accelerator``
+at full width and 4 layers.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -11,13 +12,22 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases (any failure exits non-zero and prints no result):
   1. build the kernels (one nvcc per source, in parallel); print the card
-  2. each kernel against its plain version at the main path's shapes:
-     max abs error against a stated tolerance, median kernel / plain /
-     library times and the roofline bound
+  2. each kernel against its plain version at the main paths' shapes (B1
+     also with segment ids; B2/B3 also with segment ids, a ragged S, an lse
+     cotangent, softcap and window, non-causal): max abs error against a
+     stated tolerance, median kernel / plain / library times and the bound
   3. the engine's kernel path against its reference path at full width and
      2 layers (prefill logits, first decode logits, greedy tokens)
-  4. the main path: InferenceServer, Llama-3-8B, 32 layers, 16 requests;
-     launch counters reset just before and read just after
+  4. the serving main path: InferenceServer, Llama-3-8B, 32 layers, 16
+     requests; launch counters reset just before and read just after
+  5. a training step's kernel path against its reference path at full
+     width, 2 layers, f32 (loss and every gradient leaf), with a planted
+     fault that must exceed the limit
+  6. the training main path: Accelerator(mixed_precision="bf16"), prepare,
+     prepare_data_loader and train_step(llama_loss, max_grad_norm=1.0) on
+     Llama-3-8B at 4 layers, batch 4 x 2048; 2 warm-up and 8 timed steps
+     with the launch counters reset just before; tokens/s, step time, MFU,
+     peak memory and a profile of one step
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Long output goes to chiprun_out/.
 """
@@ -81,42 +91,173 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
 
 
 # ----------------------------------------------------------------- phase 2
+def segments(bounds_per_row, s, dev):
+    """(B, S) int32 packed-sequence labels from each row's document starts."""
+    rows = []
+    for bounds in bounds_per_row:
+        starts = torch.tensor(bounds[1:], device=dev)
+        rows.append(torch.bucketize(torch.arange(s, device=dev), starts, right=True))
+    return torch.stack(rows).to(torch.int32)
+
+
 def check_flash(dev, gen, results):
     from accelerate_tpu_torch.ops.flash_attention import (
         flash_attention_reference, flash_attention_with_lse,
     )
 
-    b, s, h, h_kv, d = 1, 512, 32, 8, 128
+    h, h_kv, d = 32, 8, 128
+    # serving's prefill shape, then the training step's shape (in the line)
+    for b, s in ((1, 512), (4, 2048)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+            k = torch.randn((b, s, h_kv, d), generator=gen, device=dev).to(dtype)
+            v = torch.randn((b, s, h_kv, d), generator=gen, device=dev).to(dtype)
+            out, lse = flash_attention_with_lse(q, k, v, causal=True)
+            ref, ref_lse = flash_attention_reference(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            err = max((out.float() - ref.float()).abs().max().item(),
+                      (lse - ref_lse).abs().max().item())
+            tol = B1_TOL[dtype]
+            log(f"B1 flash_fwd {dtype} (B={b}, S={s}, H={h}, Hkv={h_kv}, D={d}) "
+                f"max_abs_err={err:.3e} tol={tol:g}")
+            if not err <= tol:
+                raise AssertionError(f"flash_fwd {dtype} disagrees with its plain version")
+            del out, lse, ref, ref_lse
+            iters = 20 if s <= 512 else 5
+            ms = time_ms(lambda: flash_attention_with_lse(q, k, v, causal=True), iters=iters)
+            plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, causal=True),
+                               iters=5 if s <= 512 else 2, repeats=3)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), iters=iters)
+            item = dtype.itemsize
+            nbytes = 2 * b * s * h * d * item + 2 * b * s * h_kv * d * item + b * h * s * 4
+            flops = 4.0 * b * h * d * s * (s + 1) / 2  # visible causal pairs
+            bms, by = bound_ms(nbytes, flops, dtype)
+            log(f"  ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
+                f"bound_ms={bms:.5f} ({by})")
+            if dtype == torch.bfloat16 and s == 2048:  # the training step's shape
+                results["flash_fwd"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                    bound_by=by, library_ms=lib_ms,
+                )
+            del q, k, v, qt, kt, vt
+    # packed sequences: document boundaries off the 64-row tiles
+    b, s, h, h_kv = 2, 1024, 8, 2
+    seg = segments([(0, 300, 777), (0, 100, 613, 1000)], s, dev)
     for dtype in (torch.float32, torch.bfloat16):
         q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
         k = torch.randn((b, s, h_kv, d), generator=gen, device=dev).to(dtype)
         v = torch.randn((b, s, h_kv, d), generator=gen, device=dev).to(dtype)
-        out, lse = flash_attention_with_lse(q, k, v, causal=True)
-        ref, ref_lse = flash_attention_reference(q, k, v, causal=True)
+        out, lse = flash_attention_with_lse(q, k, v, causal=True, segment_ids=seg)
+        ref, ref_lse = flash_attention_reference(q, k, v, causal=True, segment_ids=seg)
         torch.cuda.synchronize()
         err = max((out.float() - ref.float()).abs().max().item(),
                   (lse - ref_lse).abs().max().item())
-        tol = B1_TOL[dtype]
-        log(f"B1 flash_fwd {dtype} (B={b}, S={s}, H={h}, Hkv={h_kv}, D={d}) "
-            f"max_abs_err={err:.3e} tol={tol:g}")
-        if not err <= tol:
-            raise AssertionError(f"flash_fwd {dtype} disagrees with its plain version")
-        ms = time_ms(lambda: flash_attention_with_lse(q, k, v, causal=True))
-        plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, causal=True), iters=5)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
-        item = dtype.itemsize
-        nbytes = 2 * b * s * h * d * item + 2 * b * s * h_kv * d * item + b * h * s * 4
-        flops = 4.0 * b * h * d * s * (s + 1) / 2  # visible causal pairs
-        bms, by = bound_ms(nbytes, flops, dtype)
-        log(f"  ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
-            f"bound_ms={bms:.5f} ({by})")
-        if dtype == torch.bfloat16:  # the main path's dtype goes in the line
-            results["flash_fwd"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib_ms,
-            )
+        log(f"B1 flash_fwd {dtype} segment ids (B={b}, S={s}, documents at 0/300/777 and "
+            f"0/100/613/1000) max_abs_err={err:.3e} tol={B1_TOL[dtype]:g}")
+        if not err <= B1_TOL[dtype]:
+            raise AssertionError(f"flash_fwd {dtype} with segment ids disagrees with its plain version")
+        results["flash_fwd"].setdefault("segment_ids_max_abs_err", {})[str(dtype)] = err
+
+
+# B2/B3: max abs error over the largest |gradient| of the plain version. f32
+# sums the same products in another order; bf16 also rounds p and ds to bf16
+# before the products (as the plain version does), and an ulp flip of those
+# roundings where the two f32 sums straddle a bf16 boundary moves a gradient
+# by up to one bf16 ulp of its largest terms (2^-8 relative)
+BWD_TOL_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+# name -> (B, S, H, Hkv, D, options): the training step's shape, then packed
+# documents off the tile grid, a ragged S with an lse cotangent, softcap with
+# a window, and the non-causal form
+BWD_CASES = {
+    "main": (4, 2048, 32, 8, 128, {}),
+    "segments": (2, 1024, 8, 2, 128, dict(segments=[(0, 300, 777), (0, 100, 613, 1000)])),
+    "ragged_dlse": (2, 1000, 8, 2, 64, dict(dlse=True)),
+    "softcap_window": (2, 512, 8, 2, 128, dict(softcap=30.0, window=200)),
+    "noncausal": (1, 333, 4, 4, 64, dict(causal=False)),
+}
+
+
+def check_flash_bwd(dev, gen, results):
+    from accelerate_tpu_torch.ops.flash_attention import (
+        _delta, _launch_bwd_dkv, _launch_bwd_dq, flash_attention_bwd_reference,
+        flash_attention_reference,
+    )
+
+    for name, (b, s, h, h_kv, d, opt) in BWD_CASES.items():
+        causal, window, softcap = opt.get("causal", True), opt.get("window"), opt.get("softcap")
+        seg = segments(opt["segments"], s, dev) if "segments" in opt else None
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+            k = torch.randn((b, s, h_kv, d), generator=gen, device=dev).to(dtype)
+            v = torch.randn((b, s, h_kv, d), generator=gen, device=dev).to(dtype)
+            do = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+            dlse = (torch.randn((b, h, s), generator=gen, device=dev)
+                    if opt.get("dlse") else None)
+            mask = dict(causal=causal, window=window, softcap=softcap, segment_ids=seg)
+            out, lse = flash_attention_reference(q, k, v, **mask)
+            delta = _delta(out, do, dlse)
+            args = (q, k, v, do, lse, delta, seg, seg, causal, window, softcap)
+            got = (_launch_bwd_dq(*args), *_launch_bwd_dkv(*args))
+            ref = flash_attention_bwd_reference(q, k, v, out, lse, do, dlse=dlse, **mask)
+            torch.cuda.synchronize()
+            errs, rels = {}, {}
+            for grad, g, r in zip(("dq", "dk", "dv"), got, ref):
+                errs[grad] = (g.float() - r.float()).abs().max().item()
+                big = r.float().abs().max().item()
+                rels[grad] = errs[grad] / big
+                log(f"B2/B3 flash_bwd {name} {dtype} (B={b}, S={s}, H={h}, Hkv={h_kv}, D={d}, "
+                    f"{opt or 'causal'}) {grad}: max_abs_err={errs[grad]:.3e} max |{grad}|={big:.3e} "
+                    f"ratio={rels[grad]:.3e} tol {BWD_TOL_REL[dtype]:g}")
+                if not rels[grad] <= BWD_TOL_REL[dtype]:
+                    raise AssertionError(f"flash backward {name} {dtype}: {grad} disagrees with "
+                                         "its plain version")
+            del got, ref
+            if name == "main":
+                time_flash_bwd(dtype, args, out, dlse, mask, errs, rels, results)
+            del q, k, v, do, out, lse, delta, args
+            torch.cuda.empty_cache()
+
+
+def time_flash_bwd(dtype, args, out, dlse, mask, errs, rels, results):
+    from accelerate_tpu_torch.ops.flash_attention import (
+        _launch_bwd_dkv, _launch_bwd_dq, flash_attention_bwd_reference,
+    )
+
+    q, k, v, do, lse = args[:5]
+    b, s, h, d = q.shape
+    h_kv = k.shape[2]
+    dq_ms = time_ms(lambda: _launch_bwd_dq(*args), iters=5)
+    dkv_ms = time_ms(lambda: _launch_bwd_dkv(*args), iters=5)
+    plain_ms = time_ms(lambda: flash_attention_bwd_reference(
+        q, k, v, out, lse, do, dlse=dlse, **mask), iters=2, repeats=3)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    with torch.enable_grad():
+        o = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = do.transpose(1, 2)
+        lib_ms = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True),
+                         iters=5)
+    del o
+    item = dtype.itemsize
+    n_q, n_kv, n_row = b * s * h * d * item, b * s * h_kv * d * item, b * h * s * 4
+    pairs = b * h * s * (s + 1) / 2
+    dq_bound = bound_ms(3 * n_q + 2 * n_kv + 2 * n_row, 6.0 * d * pairs, dtype)
+    dkv_bound = bound_ms(2 * n_q + 4 * n_kv + 2 * n_row, 8.0 * d * pairs, dtype)
+    log(f"  dq ms={dq_ms:.4f} bound_ms={dq_bound[0]:.5f} ({dq_bound[1]}); dk/dv ms={dkv_ms:.4f} "
+        f"bound_ms={dkv_bound[0]:.5f} ({dkv_bound[1]}); plain backward (dq, dk, dv) "
+        f"ms={plain_ms:.4f}; SDPA backward ms={lib_ms:.4f}")
+    if dtype == torch.bfloat16:
+        # max_rel_err: max abs error / max |gradient|, what BWD_TOL_REL limits
+        results["flash_bwd_dq"] = dict(
+            max_abs_err=errs["dq"], max_rel_err=rels["dq"], ms=dq_ms, plain_ms=plain_ms,
+            bound_ms=dq_bound[0], bound_by=dq_bound[1], library_ms=lib_ms)
+        results["flash_bwd_dkv"] = dict(
+            max_abs_err=max(errs["dk"], errs["dv"]), max_rel_err=max(rels["dk"], rels["dv"]),
+            ms=dkv_ms, plain_ms=plain_ms, bound_ms=dkv_bound[0], bound_by=dkv_bound[1],
+            library_ms=lib_ms)
 
 
 def check_paged_decode(dev, gen, results):
@@ -397,9 +538,9 @@ def phase_main_path(dev, card, n_layers):
     }
     log(f"phase 4 launches during the main path: {launches}; expected {expected}; "
         f"decode steps {steps}")
-    for name, n in launches.items():
-        if n <= 0 or n != expected[name]:
-            raise AssertionError(f"kernel {name}: {n} launches on the main path, expected {expected[name]}")
+    for name, n in expected.items():
+        if launches[name] <= 0 or launches[name] != n:
+            raise AssertionError(f"kernel {name}: {launches[name]} launches on the main path, expected {n}")
     ttft = sorted(r.ttft_s for r in results)
     gen_tokens = n_req * new_tokens
     log(f"phase 4 served {n_req} requests (prompts {int(lens.min())}-{int(lens.max())}, "
@@ -434,7 +575,7 @@ def phase_main_path(dev, card, n_layers):
         f"{prefill_ms:.3f} ms/request (bucket 512) [{card}]")
     if not finite:
         raise AssertionError("full-depth prefill logits are not finite")
-    return launches, dict(tokens_per_s=gen_tokens / wall, ttft_min_s=ttft[0],
+    return {k: launches[k] for k in expected}, dict(tokens_per_s=gen_tokens / wall, ttft_min_s=ttft[0],
                           ttft_p50_s=ttft[len(ttft) // 2],
                           ttft_max_s=ttft[-1], decode_ms_per_step=step_ms,
                           prefill_ms=prefill_ms, wall_s=wall, decode_steps=steps,
@@ -478,10 +619,223 @@ def profile_decode(eng, step_ms, card, n_steps=8):
     return dict(device_ms_per_step=device_ms, busy_share=device_ms / step_ms, groups_ms=per_step)
 
 
+# ----------------------------------------------------------------- phase 5
+# f32 weights and compute on both paths: only attention differs (the flash
+# kernels' tiled f32 FMA sums against the materialised reference and its
+# autograd softmax backward), so the loss agrees to f32 rounding through two
+# layers and the head, and each gradient leaf to well under 1e-3 of its
+# largest entry; a planted fault (each kv head's dk taken from its
+# neighbour) must exceed the leaf limit
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-3
+
+
+def phase_train_parity(dev, card):
+    import dataclasses
+
+    from accelerate_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, llama_loss
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    cfg_k = LlamaConfig.llama3_8b(num_hidden_layers=2, param_dtype=torch.float32,
+                                  compute_dtype=torch.float32, attention_impl="flash")
+    cfg_r = dataclasses.replace(cfg_k, attention_impl="xla")
+    model = LlamaForCausalLM.from_seed(cfg_k, seed=2, device=dev)
+    ids = np.random.default_rng(2).integers(0, cfg_k.vocab_size, size=(2, 512)).astype(np.int32)
+    batch = {"input_ids": torch.from_numpy(ids).to(dev)}
+
+    def loss_and_grads(cfg):
+        model.config = cfg
+        model.zero_grad(set_to_none=True)
+        loss = llama_loss(model, batch)
+        loss.backward()
+        grads = {name: p.grad.detach().clone() for name, p in model.named_parameters()}
+        return loss.item(), grads
+
+    loss_k, grads_k = loss_and_grads(cfg_k)
+    loss_r, grads_r = loss_and_grads(cfg_r)
+
+    def worst(grads):
+        return max(((grads[n] - grads_r[n]).abs().max() / grads_r[n].abs().max().clamp_min(1e-30)).item()
+                   for n in grads_r)
+
+    loss_err = abs(loss_k - loss_r) / abs(loss_r)
+    grad_err = worst(grads_k)
+    log(f"phase 5 training step (2 layers, full width, f32, B=2 S=512), flash kernels vs plain "
+        f"attention: loss {loss_k:.6f} vs {loss_r:.6f} rel_err={loss_err:.3e} (tol "
+        f"{TRAIN_LOSS_RTOL:g}); worst gradient leaf max_abs_err / leaf max = {grad_err:.3e} "
+        f"(tol {TRAIN_GRAD_RTOL:g})")
+    if not (loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_RTOL):
+        raise AssertionError("training step: kernel path disagrees with reference path")
+
+    launch_dkv = fa._launch_bwd_dkv
+
+    def wrong_head_dkv(*args):
+        dk, dv = launch_dkv(*args)
+        return dk.roll(1, dims=2), dv
+
+    fa._launch_bwd_dkv = wrong_head_dkv
+    try:
+        _, grads_bad = loss_and_grads(cfg_k)
+    finally:
+        fa._launch_bwd_dkv = launch_dkv
+    bad_err = worst(grads_bad)
+    log(f"phase 5 planted fault (dk of each kv head taken from its neighbour): worst gradient "
+        f"leaf err / leaf max = {bad_err:.3e} (must exceed {TRAIN_GRAD_RTOL:g})")
+    if not bad_err > TRAIN_GRAD_RTOL:
+        raise AssertionError("phase 5's gradient tolerance cannot see a wrong-head dk")
+    del model, grads_k, grads_r, grads_bad
+    torch.cuda.empty_cache()
+    return dict(loss_rel_err=loss_err, grad_rel_err=grad_err, planted_fault_rel_err=bad_err)
+
+
+# ----------------------------------------------------------------- phase 6
+# 32 layers of f32 weights, gradients and AdamW moments (128 GB) do not fit
+# one card; 4 layers at full width hold 30.8 GB of that state
+TRAIN_LAYERS = 4
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+TRAIN_WARMUP, TRAIN_STEPS = 2, 8
+PEAK_MEMORY_LIMIT = 75e9
+
+
+def phase_train_main_path(dev, card):
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models.llama import (
+        LlamaConfig, create_llama, llama_flops_per_token, llama_loss,
+    )
+    from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    AcceleratorState._reset_state(reset_partial_state=True)
+    GradientState._reset_state()
+    torch.cuda.reset_peak_memory_stats()
+    acc = Accelerator(mixed_precision="bf16")
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=TRAIN_LAYERS, attention_impl="flash")
+    t0 = time.perf_counter()
+    model = create_llama(cfg, seed=0, device=acc.device)
+    optimizer = torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=0.01)
+    model, optimizer = acc.prepare(model, optimizer)
+    step_fn = acc.train_step(llama_loss, max_grad_norm=1.0)
+    rng = np.random.default_rng(0)
+    data = {"input_ids": rng.integers(0, cfg.vocab_size, size=(4 * TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)}
+    loader = acc.prepare_data_loader(data, batch_size=TRAIN_BATCH, drop_last=True)
+    batch = next(iter(loader))  # one batch, repeated on every step
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    log(f"phase 6 model: Llama-3-8B width, {TRAIN_LAYERS} layers, f32 master weights, bf16 compute, "
+        f"remat {cfg.remat_policy!r}, {n_params / 1e9:.3f}B params, AdamW(lr=3e-4, wd=0.01), "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens; init {time.perf_counter() - t0:.1f}s")
+    losses = [step_fn(batch) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses += [step_fn(batch) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [l.item() for l in losses]
+    expected = {"flash_fwd": 2 * TRAIN_LAYERS * TRAIN_STEPS, "flash_bwd_dq": TRAIN_LAYERS * TRAIN_STEPS,
+                "flash_bwd_dkv": TRAIN_LAYERS * TRAIN_STEPS}
+    log(f"phase 6 launches during {TRAIN_STEPS} steps: "
+        f"{ {k: launches[k] for k in expected} }; expected {expected} (remat runs the forward twice)")
+    for name, n in expected.items():
+        if launches[name] != n:
+            raise AssertionError(f"kernel {name}: {launches[name]} launches on the training path, expected {n}")
+    log(f"phase 6 losses {[round(l, 4) for l in losses]}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError("training losses are not finite or did not fall")
+    step_ms = wall / TRAIN_STEPS * 1e3
+    tokens_per_s = TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ / wall
+    mfu = tokens_per_s * llama_flops_per_token(cfg, TRAIN_SEQ) / PEAK_FLOPS[torch.bfloat16]
+    log(f"phase 6 train step {step_ms:.1f} ms, {tokens_per_s:.0f} tokens/s, MFU {mfu:.4f} "
+        f"(llama_flops_per_token, 989 TFLOP/s bf16 peak), peak memory "
+        f"{peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated) [{card}]")
+    if peak > PEAK_MEMORY_LIMIT:
+        raise AssertionError(f"peak memory {peak / 1e9:.1f} GB is over {PEAK_MEMORY_LIMIT / 1e9:.0f} GB")
+    profile = profile_train_step(step_fn, batch, step_ms, card)
+    del model, optimizer, step_fn, batch, loader
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in expected}, dict(
+        losses=losses, step_ms=step_ms, tokens_per_s=tokens_per_s, mfu=mfu, peak_memory_bytes=peak,
+        batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, layers=TRAIN_LAYERS, profile=profile)
+
+
+TRAIN_GROUPS = (
+    ("flash_fwd", ("flash_fwd",)),
+    ("flash_bwd_dq", ("flash_bwd_dq",)),
+    ("flash_bwd_dkv", ("flash_bwd_dkv",)),
+    ("matmul", ("gemm", "gemv", "cutlass", "sm90_", "cublas", "nvjet")),
+    ("optimizer", ("multi_tensor", "adam")),
+)
+
+
+def device_events(prof):
+    """(name, start_us, dur_us) of every kernel, memcpy and memset in a
+    profile, from its Chrome trace: annotation ranges (such as
+    ``Optimizer.step``) and host-side entries are left out."""
+    path = Path("chiprun_out/trace_train.json")
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return [(e["name"], float(e["ts"]), float(e["dur"])) for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+
+
+def busy_us(events):
+    """Length of the union of the events' intervals."""
+    total, end = 0.0, float("-inf")
+    for _, ts, dur in sorted(events, key=lambda e: e[1]):
+        if ts + dur > end:
+            total += ts + dur - max(ts, end)
+            end = ts + dur
+    return total
+
+
+def profile_train_step(step_fn, batch, step_ms, card):
+    """Device time of one training step by kernel group, from a
+    torch.profiler trace of that step; the busy share is the union of the
+    kernels' intervals over the profiled step's own wall time. The table
+    goes to chiprun_out/profile_train.txt, the trace to trace_train.json."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    Path("chiprun_out").mkdir(exist_ok=True)
+    Path("chiprun_out/profile_train.txt").write_text(
+        prof.key_averages().table(sort_by="self_device_time_total", row_limit=50))
+    events = device_events(prof)
+    if not events:
+        log("phase 6 profile: the profiler recorded no device time (not measured)")
+        return None
+    groups = dict.fromkeys([g for g, _ in TRAIN_GROUPS] + ["elementwise"], 0.0)
+    for name, _, dur in events:
+        lower = name.lower()
+        group = next((g for g, keys in TRAIN_GROUPS if any(k in lower for k in keys)), "elementwise")
+        groups[group] += dur / 1e3
+    busy_ms = busy_us(events) / 1e3
+    log(f"phase 6 train-step profile: kernels busy {busy_ms:.1f} ms of the profiled step's "
+        f"{wall_ms:.1f} ms (busy share {busy_ms / wall_ms:.3f}; unprofiled step {step_ms:.1f} ms); "
+        f"by group ms " + ", ".join(f"{g}={v:.1f}" for g, v in groups.items()) + f" [{card}]")
+    return dict(busy_ms=busy_ms, profiled_wall_ms=wall_ms, busy_share=busy_ms / wall_ms,
+                groups_ms=groups, kernels=len(events))
+
+
 KERNEL_META = {
     "flash_fwd": dict(
         route="cuda", source="accelerate_tpu_torch/csrc/flash_fwd.cu",
         replaces="accelerate_tpu/ops/flash_attention.py:98",
+    ),
+    "flash_bwd_dq": dict(
+        route="cuda", source="accelerate_tpu_torch/csrc/flash_bwd.cu",
+        replaces="accelerate_tpu/ops/flash_attention.py:236",
+    ),
+    "flash_bwd_dkv": dict(
+        route="cuda", source="accelerate_tpu_torch/csrc/flash_bwd.cu",
+        replaces="accelerate_tpu/ops/flash_attention.py:281",
     ),
     "paged_decode": dict(
         route="cuda", source="accelerate_tpu_torch/csrc/paged_decode.cu",
@@ -499,7 +853,7 @@ def main(argv=None) -> int:
     parser.add_argument("--kernels", action="store_true",
                         help="build and check the kernels only (phases 1-2)")
     parser.add_argument("--layers", type=int, default=32,
-                        help="depth of the main path's model (default: the full 32)")
+                        help="depth of the serving main path's model (default: the full 32)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU")
@@ -516,27 +870,40 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     secs = _build.build_all()
-    log(f"phase 1 build: {time.perf_counter() - t0:.2f}s wall, per kernel "
+    log(f"phase 1 build: {time.perf_counter() - t0:.2f}s wall, per source "
         + ", ".join(f"{k}={v:.2f}s" for k, v in secs.items()))
     for name, text in _build.build_logs.items():
         regs = [ln.strip() for ln in text.splitlines() if "registers" in ln]
-        log(f"  ptxas {name}: {len(regs)} kernels; " + " | ".join(regs[:4]))
+        spills = sorted({ln.strip() for ln in text.splitlines() if "spill" in ln})
+        log(f"  ptxas {name}: {len(regs)} kernels; " + " | ".join(regs[:4])
+            + (" || " + " | ".join(spills) if spills else ""))
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     results = {}
     with torch.no_grad():
         check_flash(dev, gen, results)
+        check_flash_bwd(dev, gen, results)
         check_paged_decode(dev, gen, results)
         check_fused_sample(dev, gen, results)
     launches = dict.fromkeys(KERNEL_META, 0)
+    by_path = {}
     summary = {"card": card, "build_s": secs}
     if not args.kernels:
-        phase_engine_parity(dev, card)
-        launches, summary["main_path"] = phase_main_path(dev, card, args.layers)
+        with torch.no_grad():
+            phase_engine_parity(dev, card)
+            by_path["serving"], summary["main_path"] = phase_main_path(dev, card, args.layers)
+        torch.cuda.empty_cache()
+        summary["train_parity"] = phase_train_parity(dev, card)
+        by_path["training"], summary["train_main_path"] = phase_train_main_path(dev, card)
+        for counts in by_path.values():
+            for name, n in counts.items():
+                launches[name] += n
 
     kernels = [
-        dict(name=name, **KERNEL_META[name], launches=launches[name], **results[name])
+        dict(name=name, **KERNEL_META[name], launches=launches[name],
+             launches_by_path={path: counts.get(name, 0) for path, counts in by_path.items()},
+             **results[name])
         for name in KERNEL_META
     ]
     summary["kernels"] = kernels

@@ -8,7 +8,7 @@
 * Kernel wrappers given a tensor that is not on the CPU either launch the
   kernel or raise; they never fall back to the plain version. Meta tensors
   stand in for CUDA ones here: they reach the kernel path and must be
-  refused.
+  refused, in the forward and in the backward.
 """
 
 import json
@@ -17,12 +17,17 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from accelerate_tpu_torch._device import resolve_device
 from accelerate_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
-from accelerate_tpu_torch.ops.flash_attention import flash_attention, flash_attention_with_lse
+from accelerate_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_reference,
+    flash_attention_with_lse,
+)
 from accelerate_tpu_torch.ops.paged_decode import fused_sample, paged_flash_decode
 
 REPO = Path(__file__).resolve().parents[1]
@@ -47,8 +52,8 @@ def test_port_and_chip_smoke_import_no_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120, check=True)
     report = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "accelerate_tpu_torch.engine" in report["modules"]
-    assert "accelerate_tpu_torch.serving" in report["modules"]
+    for name in ("engine", "serving", "state", "optimizer", "accelerator", "data_loader", "model"):
+        assert f"accelerate_tpu_torch.{name}" in report["modules"]
     leaked = [m for m in report["new"]
               if m == "jax" or m.startswith(("jax.", "jaxlib"))
               or m == "accelerate_tpu" or m.startswith("accelerate_tpu.")]
@@ -92,7 +97,7 @@ FLASH_REFUSALS = {
     "head_dim_96": (lambda: (_meta(1, 8, 4, 96),) * 3, {}, ValueError),
     "not_cuda": (lambda: (_meta(1, 8, 4, 64),) * 3, {}, ValueError),
     "segment_ids": (lambda: (_meta(1, 8, 4, 64),) * 3,
-                    {"segment_ids": torch.zeros(1, 8, dtype=torch.int32)}, NotImplementedError),
+                    {"segment_ids": torch.zeros(1, 7, dtype=torch.int32, device="meta")}, ValueError),
 }
 
 
@@ -104,9 +109,51 @@ def test_flash_wrapper_refuses_instead_of_falling_back(case):
 
 
 def test_flash_wrapper_refuses_requires_grad():
-    q = torch.zeros(1, 8, 4, 16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        flash_attention_with_lse(q, q.detach(), q.detach())
+    # inputs that require grad: on the CPU the gradients flow through the
+    # plain backward and match autograd through the plain forward (f32
+    # recompute vs autograd, 1e-5); on another device the kernel path is
+    # taken and refused, never the plain one
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.tensor(rng.normal(size=(1, 8, 4, 16)), dtype=torch.float32, requires_grad=True)
+               for _ in range(3))
+    out, lse = flash_attention_with_lse(q, k, v)
+    grads = torch.autograd.grad(out.square().sum() + lse.sum(), (q, k, v))
+    ref_out, ref_lse = flash_attention_reference(q, k, v)
+    ref = torch.autograd.grad(ref_out.square().sum() + ref_lse.sum(), (q, k, v))
+    for g, r in zip(grads, ref):
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5)
+    qm = _meta(1, 8, 4, 64).requires_grad_()
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_with_lse(qm, _meta(1, 8, 4, 64), _meta(1, 8, 4, 64))
+
+
+def test_flash_wrapper_honours_segment_ids_on_cpu():
+    # two packed documents in one row give each document's own attention
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.tensor(rng.normal(size=(1, 10, 4, 16)), dtype=torch.float32) for _ in range(3))
+    seg = torch.tensor([[0] * 4 + [1] * 6], dtype=torch.int32)
+    packed = flash_attention(q, k, v, segment_ids=seg)
+    first = flash_attention(q[:, :4], k[:, :4], v[:, :4])
+    second = flash_attention(q[:, 4:], k[:, 4:], v[:, 4:])
+    torch.testing.assert_close(packed, torch.cat([first, second], dim=1), atol=1e-6, rtol=1e-6)
+
+
+def test_accelerator_needs_the_card_unless_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without a GPU")
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    AcceleratorState._reset_state(reset_partial_state=True)
+    GradientState._reset_state()
+    try:
+        with pytest.raises(RuntimeError, match="cuda"):
+            Accelerator()
+        AcceleratorState._reset_state(reset_partial_state=True)
+        assert Accelerator(cpu=True).device == torch.device("cpu")
+    finally:
+        AcceleratorState._reset_state(reset_partial_state=True)
+        GradientState._reset_state()
 
 
 PAGED_REFUSALS = {
