@@ -13,11 +13,12 @@ This package never imports ``jax`` or ``accelerate_tpu``. Entry points take
 ``device=`` and default to ``"cuda"``; they raise when no GPU is present.
 
 Ported so far: Llama continuous-batching serving over a paged KV pool
-(``InferenceServer(mode="continuous")``), and one-device Llama training
-through the ``Accelerator`` (``prepare``, ``prepare_data_loader``,
-``train_step`` or the eager ``backward`` loop) with the flash backward
-kernels. Distributed training, speculative decoding, chunked prefill and
-the serving control plane are still to be ported (ROADMAP.md).
+(``InferenceServer(mode="continuous")``) with speculative decoding,
+chunked prefill and the int8 pool, and one-device Llama training through
+the ``Accelerator`` (``prepare``, ``prepare_data_loader``, ``train_step``
+or the eager ``backward`` loop) with the flash backward kernels.
+Distributed training, the host KV tier and the serving control plane are
+still to be ported (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

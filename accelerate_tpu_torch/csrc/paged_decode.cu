@@ -29,34 +29,42 @@
 // (block 0) table entries and read block 0: always in range.
 //
 // Layout: q, out (B, 1, H, D); k_pool, v_pool (num_blocks, block_size, Hkv,
-// D); tables (B, blocks_per_row) int32; pos (B,) int32. The int8 pool with
-// per-(block, position) scales is not ported yet.
+// D) in q's dtype, or int8 with k_scale, v_scale (num_blocks, block_size)
+// f32; tables (B, blocks_per_row) int32; pos (B,) int32.
+//
+// The int8 branch (the TPU kernel's `quantized` path, paged_decode.py:116-118;
+// entry point paged_decode_int8): each lane loads its int8 elements of a K/V
+// row and the row's f32 scale, and dequantizes in registers as it loads
+// (k = q * s, kv_pool.cuh), so the arithmetic after the load is the f32
+// path's. It reads 1 byte per element plus 4 per row and head group instead
+// of 2 (bf16): the same loop moves about half the bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "kv_pool.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1.0e6f;
+using kvpool::dequant;
+using kvpool::from_f;
+using kvpool::kNegInf;
+using kvpool::row_scale;
+using kvpool::to_f;
+
 constexpr int NW = 4;        // warps per block
 constexpr int CHUNK = 8;     // K/V rows loaded ahead per warp
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-template <typename T, int D, int NREP>
+// T: q/out dtype; PT: pool dtype (T, or int8_t with per-row scales)
+template <typename T, typename PT, int D, int NREP>
 __global__ void __launch_bounds__(NW * 32) paged_decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pool,
-    const T* __restrict__ v_pool, const int* __restrict__ tables,
+    const T* __restrict__ q, const PT* __restrict__ k_pool,
+    const PT* __restrict__ v_pool, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ tables,
     const int* __restrict__ pos, T* __restrict__ out, int H, int Hkv, int bs,
     int bpr, float scale, float softcap) {
   constexpr int DL = D / 32;  // dims per lane
@@ -91,17 +99,20 @@ __global__ void __launch_bounds__(NW * 32) paged_decode_kernel(
   }
 
   for (int j = warp; j < nblk; j += NW) {
-    const long base = (long)trow[j] * bs * row_stride + (long)g * D + lane * DL;
+    const long row0 = (long)trow[j] * bs;  // pool row of the block's first position
     for (int t0 = 0; t0 < bs; t0 += CHUNK) {
       float kr[CHUNK][DL], vr[CHUNK][DL];
 #pragma unroll
       for (int u = 0; u < CHUNK; ++u) {
         const bool in = t0 + u < bs;
-        const long off = base + (long)(t0 + u) * row_stride;
+        const long prow = row0 + t0 + u;
+        const long off = prow * row_stride + (long)g * D + lane * DL;
+        const float ks = in ? row_scale<PT>(k_scale, prow) : 0.f;
+        const float vs = in ? row_scale<PT>(v_scale, prow) : 0.f;
 #pragma unroll
         for (int i = 0; i < DL; ++i) {
-          kr[u][i] = in ? to_f(k_pool[off + i]) : 0.f;
-          vr[u][i] = in ? to_f(v_pool[off + i]) : 0.f;
+          kr[u][i] = in ? dequant(k_pool, off + i, ks) : 0.f;
+          vr[u][i] = in ? dequant(v_pool, off + i, vs) : 0.f;
         }
       }
 #pragma unroll
@@ -160,51 +171,78 @@ __global__ void __launch_bounds__(NW * 32) paged_decode_kernel(
   }
 }
 
-template <typename T, int D, int NREP>
-int launch(const void* q, const void* kp, const void* vp, const int* tables,
-           const int* pos, void* out, int B, int H, int Hkv, int bs, int bpr,
-           float scale, float softcap, cudaStream_t stream) {
+template <typename T, typename PT, int D, int NREP>
+int launch(const void* q, const void* kp, const void* vp, const float* ks, const float* vs,
+           const int* tables, const int* pos, void* out, int B, int H, int Hkv, int bs,
+           int bpr, float scale, float softcap, cudaStream_t stream) {
   dim3 grid(Hkv, B);
-  paged_decode_kernel<T, D, NREP><<<grid, NW * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
+  paged_decode_kernel<T, PT, D, NREP><<<grid, NW * 32, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const PT*>(kp), static_cast<const PT*>(vp), ks, vs,
       tables, pos, static_cast<T*>(out), H, Hkv, bs, bpr, scale, softcap);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int by_rep(int nrep, const void* q, const void* kp, const void* vp, const int* tables,
-           const int* pos, void* out, int B, int H, int Hkv, int bs, int bpr,
-           float scale, float softcap, cudaStream_t s) {
+template <typename T, typename PT, int D>
+int by_rep(int nrep, const void* q, const void* kp, const void* vp, const float* ks,
+           const float* vs, const int* tables, const int* pos, void* out, int B, int H,
+           int Hkv, int bs, int bpr, float scale, float softcap, cudaStream_t s) {
   switch (nrep) {
-    case 1: return launch<T, D, 1>(q, kp, vp, tables, pos, out, B, H, Hkv, bs, bpr, scale, softcap, s);
-    case 2: return launch<T, D, 2>(q, kp, vp, tables, pos, out, B, H, Hkv, bs, bpr, scale, softcap, s);
-    case 4: return launch<T, D, 4>(q, kp, vp, tables, pos, out, B, H, Hkv, bs, bpr, scale, softcap, s);
-    case 8: return launch<T, D, 8>(q, kp, vp, tables, pos, out, B, H, Hkv, bs, bpr, scale, softcap, s);
+    case 1: return launch<T, PT, D, 1>(q, kp, vp, ks, vs, tables, pos, out, B, H, Hkv, bs, bpr, scale, softcap, s);
+    case 2: return launch<T, PT, D, 2>(q, kp, vp, ks, vs, tables, pos, out, B, H, Hkv, bs, bpr, scale, softcap, s);
+    case 4: return launch<T, PT, D, 4>(q, kp, vp, ks, vs, tables, pos, out, B, H, Hkv, bs, bpr, scale, softcap, s);
+    case 8: return launch<T, PT, D, 8>(q, kp, vp, ks, vs, tables, pos, out, B, H, Hkv, bs, bpr, scale, softcap, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16. softcap <= 0 means off.
-// Returns a cudaError_t code (0 on success).
-extern "C" int paged_decode(const void* q, const void* k_pool, const void* v_pool,
-                            const void* tables, const void* pos, void* out, int B,
-                            int H, int Hkv, int D, int bs, int bpr, int dtype,
-                            float scale, float softcap, void* stream) {
+// q/out dtype: 0 = float32, 1 = bfloat16; the pool is that dtype (PoolInt8
+// false) or int8 with scales (true)
+template <bool PoolInt8>
+int dispatch(const void* q, const void* kp, const void* vp, const void* ks, const void* vs,
+             const void* tables, const void* pos, void* out, int B, int H, int Hkv, int D,
+             int bs, int bpr, int dtype, float scale, float softcap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0) return 0;
   if (Hkv <= 0 || H % Hkv != 0 || bs <= 0 || bpr <= 0) return (int)cudaErrorInvalidValue;
   const int nrep = H / Hkv;
+  const float* ksc = static_cast<const float*>(ks);
+  const float* vsc = static_cast<const float*>(vs);
   const int* t = static_cast<const int*>(tables);
   const int* p = static_cast<const int*>(pos);
+  using F = float;
+  using BF = __nv_bfloat16;
+  using PF = typename std::conditional<PoolInt8, int8_t, F>::type;
+  using PBF = typename std::conditional<PoolInt8, int8_t, BF>::type;
   if (dtype == 0 && D == 64)
-    return by_rep<float, 64>(nrep, q, k_pool, v_pool, t, p, out, B, H, Hkv, bs, bpr, scale, softcap, s);
+    return by_rep<F, PF, 64>(nrep, q, kp, vp, ksc, vsc, t, p, out, B, H, Hkv, bs, bpr, scale, softcap, s);
   if (dtype == 0 && D == 128)
-    return by_rep<float, 128>(nrep, q, k_pool, v_pool, t, p, out, B, H, Hkv, bs, bpr, scale, softcap, s);
+    return by_rep<F, PF, 128>(nrep, q, kp, vp, ksc, vsc, t, p, out, B, H, Hkv, bs, bpr, scale, softcap, s);
   if (dtype == 1 && D == 64)
-    return by_rep<__nv_bfloat16, 64>(nrep, q, k_pool, v_pool, t, p, out, B, H, Hkv, bs, bpr, scale, softcap, s);
+    return by_rep<BF, PBF, 64>(nrep, q, kp, vp, ksc, vsc, t, p, out, B, H, Hkv, bs, bpr, scale, softcap, s);
   if (dtype == 1 && D == 128)
-    return by_rep<__nv_bfloat16, 128>(nrep, q, k_pool, v_pool, t, p, out, B, H, Hkv, bs, bpr, scale, softcap, s);
+    return by_rep<BF, PBF, 128>(nrep, q, kp, vp, ksc, vsc, t, p, out, B, H, Hkv, bs, bpr, scale, softcap, s);
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype (of q, out and a float pool): 0 = float32, 1 = bfloat16. softcap <= 0
+// means off. Returns a cudaError_t code (0 on success).
+extern "C" int paged_decode(const void* q, const void* k_pool, const void* v_pool,
+                            const void* tables, const void* pos, void* out, int B,
+                            int H, int Hkv, int D, int bs, int bpr, int dtype,
+                            float scale, float softcap, void* stream) {
+  return dispatch<false>(q, k_pool, v_pool, nullptr, nullptr, tables, pos, out, B, H, Hkv, D,
+                         bs, bpr, dtype, scale, softcap, stream);
+}
+
+// The int8 pool: k_pool, v_pool int8, k_scale, v_scale (num_blocks,
+// block_size) f32.
+extern "C" int paged_decode_int8(const void* q, const void* k_pool, const void* v_pool,
+                                 const void* k_scale, const void* v_scale, const void* tables,
+                                 const void* pos, void* out, int B, int H, int Hkv, int D,
+                                 int bs, int bpr, int dtype, float scale, float softcap,
+                                 void* stream) {
+  return dispatch<true>(q, k_pool, v_pool, k_scale, v_scale, tables, pos, out, B, H, Hkv, D,
+                        bs, bpr, dtype, scale, softcap, stream);
 }

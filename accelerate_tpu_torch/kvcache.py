@@ -23,9 +23,16 @@ Safety invariants (why recycling a slot or a block cannot leak KV):
   only full prompt blocks, so shared content is never written after it is
   registered (re-running a shared prefix's prefill rewrites the same bytes).
 
+* **int8 pool** (``paged_int8``): each pool leaf is ``{"q": int8 (L, NB,
+  bs, kvh, hd), "s": f32 (L, NB, bs)}``, symmetric with one scale per
+  (layer, block, position) (:func:`kv_quantize`); every commit quantizes,
+  every read dequantizes.
+* **Window commits** (speculative verify and chunked prefill): only the
+  first ``count[b]`` columns of a window land; the rest, and positions past
+  the row, are dropped, never clamped onto live positions.
+
 Device tensors are updated in place (the JAX package rebuilt them
-functionally). The int8 pool (``paged_int8``) and the host-RAM spill tier
-are not ported yet (ROADMAP.md).
+functionally). The host-RAM spill tier is not ported yet (ROADMAP.md A3).
 """
 
 from __future__ import annotations
@@ -40,6 +47,8 @@ from .utils.fault import EngineCapacityError
 
 __all__ = [
     "KV_BACKENDS",
+    "kv_quantize",
+    "kv_dequantize",
     "KVCacheBackend",
     "DenseKVBackend",
     "PagedKVBackend",
@@ -48,7 +57,7 @@ __all__ = [
     "make_kv_backend",
 ]
 
-KV_BACKENDS = ("dense", "paged")
+KV_BACKENDS = ("dense", "paged", "paged_int8")
 
 _NULL_BLOCK = 0  # reserved garbage sink; never allocated, never attended
 
@@ -66,6 +75,38 @@ def host_to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type != "cuda":
         return t.clone()
     return t.pin_memory().to(device, non_blocking=True)
+
+
+# ------------------------------------------------------------------ int8 ops
+def kv_quantize(x: torch.Tensor):
+    """Symmetric int8 quantization with one f32 scale per leading position:
+    ``x`` is ``(..., kvh, hd)``, the amax reduces over the last two axes
+    (clamped at 1e-6). ``round`` is half-to-even and the division a true
+    division, as ``jnp.round(x / scale)``, so the bytes equal the JAX
+    package's. Deterministic: identical inputs give identical bytes, which
+    shared-prefix rewrites rely on. Returns ``(q int8, scale f32 (...))``."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=(-1, -2)).clamp_min(1e-6)
+    scale = amax / 127.0
+    q = torch.round(xf / scale[..., None, None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """Inverse of :func:`kv_quantize`: ``q (..., kvh, hd)`` times the
+    per-position ``scale (...)``, in ``dtype``."""
+    return (q.float() * scale[..., None, None]).to(dtype)
+
+
+def _set_rows(leaf, index, value):
+    """``leaf[index] = value`` for a float pool leaf or an int8 ``{"q",
+    "s"}`` pair (``value`` quantized per position first), in place."""
+    if isinstance(leaf, dict):
+        q, s = kv_quantize(value)
+        leaf["q"][index] = q
+        leaf["s"][index] = s
+    else:
+        leaf[index] = value.to(leaf.dtype)
 
 
 # --------------------------------------------------------------- device side
@@ -87,10 +128,15 @@ class PagedKVLayout:
         self.attention_impl = attention_impl
         self._slots_at = None  # (pos, its version, block ids, offsets)
 
-    def view(self, layer_cache: torch.Tensor) -> torch.Tensor:
-        """(num_blocks, bs, kvh, hd) pool slice -> (B, blocks_per_row * bs,
-        kvh, hd) dense copy; unallocated entries gather the null block."""
-        dense = layer_cache[self.tables.long()]
+    def view(self, layer_cache) -> torch.Tensor:
+        """(num_blocks, bs, kvh, hd) pool slice (or the int8 ``{"q", "s"}``
+        pair, dequantized) -> (B, blocks_per_row * bs, kvh, hd) dense copy in
+        the compute dtype; unallocated entries gather the null block."""
+        t = self.tables.long()
+        if isinstance(layer_cache, dict):
+            dense = kv_dequantize(layer_cache["q"][t], layer_cache["s"][t], self.compute_dtype)
+        else:
+            dense = layer_cache[t]
         b, bpr, bs, kvh, hd = dense.shape
         return dense.reshape(b, bpr * bs, kvh, hd).to(self.compute_dtype)
 
@@ -108,8 +154,7 @@ class PagedKVLayout:
         return cached[2:]
 
     def _scatter(self, layer_cache, col, pos):
-        blk, off = self._pool_index(pos)
-        layer_cache[blk, off] = col.to(layer_cache.dtype)
+        _set_rows(layer_cache, self._pool_index(pos), col)
         return layer_cache
 
     def commit(self, layer_cache, view, pos):
@@ -125,6 +170,27 @@ class PagedKVLayout:
         straight into the pool slice, in place (the kernel path's
         commit-before-attend)."""
         return self._scatter(layer_cache, col[:, 0], pos)
+
+    def commit_window(self, cache_leaf, window, pos, count):
+        """Write the first ``count[b]`` columns of a window into the pool,
+        stacked over layers, in place: ``window`` (L, B, W, kvh, hd) holds
+        positions ``pos .. pos+W-1``; ``cache_leaf`` is the whole (L, ...)
+        pool leaf. Columns ``j >= count[b]`` and positions past the row's
+        table (``pos + j >= blocks_per_row * block_size``) go to the null
+        block: a rejected draft rewinds by never being committed. Windows
+        start at or after the prompt's end (or, for a chunk, rewrite prompt
+        positions with the same bytes), so shared prefix blocks keep their
+        content."""
+        bs = self.block_size
+        w = window.shape[2]
+        bpr = self.tables.shape[1]
+        j = torch.arange(w, device=window.device)[None, :]
+        abs_pos = pos.long()[:, None] + j  # (B, W)
+        valid = (j < count.long()[:, None]) & (abs_pos < bpr * bs)
+        blk = torch.gather(self.tables.long(), 1, (abs_pos // bs).clamp(0, bpr - 1))
+        blk = torch.where(valid, blk, torch.full_like(blk, _NULL_BLOCK))
+        _set_rows(cache_leaf, (slice(None), blk, abs_pos % bs), window)
+        return cache_leaf
 
 
 # ------------------------------------------------------------ host block pool
@@ -159,6 +225,10 @@ class PagedBlockPool:
         self._key_of: Dict[int, bytes] = {}
         self._cached: "collections.OrderedDict[int, None]" = collections.OrderedDict()
         self._rows: List[List[int]] = [[] for _ in range(self.slots)]
+        # chunked prefill: the fresh prompt blocks of a slot still being
+        # prefilled must not serve prefix hits before their content exists;
+        # their registrations wait here until the last chunk commits
+        self._deferred: Dict[int, List[Tuple[bytes, int]]] = {}
         self.tables = np.zeros((self.slots, self.blocks_per_row), dtype=np.int32)
         self.prefix_hits = 0
         self.prefix_misses = 0
@@ -221,12 +291,15 @@ class PagedBlockPool:
         self._registry[key] = blk
         self._key_of[blk] = key
 
-    def acquire(self, slot: int, prompt: np.ndarray, budget: int) -> Tuple[np.ndarray, int]:
+    def acquire(self, slot: int, prompt: np.ndarray, budget: int,
+                defer_register: bool = False) -> Tuple[np.ndarray, int]:
         """Allocate (or share) one admitted request's blocks and install the
         slot's table row. Returns ``(row, shared_blocks)``: the full
         ``(blocks_per_row,)`` int32 row, null beyond the allocation. Raises
         :class:`EngineCapacityError` when the pool lacks room (callers gate
-        on :meth:`can_admit`)."""
+        on :meth:`can_admit`). ``defer_register=True`` (chunked prefill)
+        parks the fresh prompt blocks' registrations until
+        :meth:`promote_deferred`; a release before that drops them."""
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
         total = self.blocks_needed(len(prompt), budget)
         if total > self.blocks_per_row:
@@ -246,21 +319,47 @@ class PagedBlockPool:
             row.append(blk)
         self.prefix_hits += len(hits)
         self.prefix_misses += full - len(hits)
+        deferred: List[Tuple[bytes, int]] = []
         for j in range(len(hits), total):
             blk = self._alloc_block()
             self._ref[blk] = 1
             if j < full:
-                self._register(prompt[: (j + 1) * bs].tobytes(), blk)
+                key = prompt[: (j + 1) * bs].tobytes()
+                if defer_register:
+                    deferred.append((key, blk))
+                else:
+                    self._register(key, blk)
             row.append(blk)
+        if deferred:
+            self._deferred[slot] = deferred
+        else:
+            self._deferred.pop(slot, None)
         self._rows[slot] = row
         self.tables[slot] = _NULL_BLOCK
         self.tables[slot, : len(row)] = row
         return self.tables[slot].copy(), len(hits)
 
+    def promote_deferred(self, slot: int, count: Optional[int] = None) -> int:
+        """Install up to ``count`` (all when None) of the slot's parked
+        registrations, shallowest first, once their content exists. Returns
+        how many were promoted."""
+        deferred = self._deferred.get(slot, [])
+        n = len(deferred) if count is None else min(count, len(deferred))
+        for key, blk in deferred[:n]:
+            self._register(key, blk)
+        rest = deferred[n:]
+        if rest:
+            self._deferred[slot] = rest
+        else:
+            self._deferred.pop(slot, None)
+        return n
+
     def release(self, slot: int) -> None:
         """Drop the slot's references: zero-reference registered blocks
         park in the cached LRU, the rest free. The row resets to the null
-        block so the ghost slot's masked writes stop touching real blocks."""
+        block so the ghost slot's masked writes stop touching real blocks.
+        Registrations still parked (cancelled mid-prefill) are dropped."""
+        self._deferred.pop(slot, None)
         for blk in self._rows[slot]:
             self._ref[blk] -= 1
             if self._ref[blk] == 0:
@@ -304,10 +403,23 @@ class KVCacheBackend:
         leaf) into the store for ``slot``/``table_row``, in place."""
         raise NotImplementedError
 
+    def commit_window(self, cache, window_kv, tables, pos, count) -> dict:
+        """Write the first ``count[b]`` columns of a window (``window_kv``:
+        ``{"k", "v"}`` of (L, B, W, kvh, hd), positions ``pos .. pos+W-1``)
+        into the store, in place. Columns past ``count`` and positions past
+        the row are dropped, never clamped onto live positions."""
+        raise NotImplementedError
+
+    def rows(self, cache, tables, slot: int):
+        """``(cache, tables)`` restricted to one slot's row, for a window
+        forward over that slot alone (chunked prefill)."""
+        raise NotImplementedError
+
     def device_tables(self) -> torch.Tensor:
         raise NotImplementedError
 
-    def acquire(self, slot: int, prompt: np.ndarray, budget: int) -> Tuple[np.ndarray, int]:
+    def acquire(self, slot: int, prompt: np.ndarray, budget: int,
+                defer_register: bool = False) -> Tuple[np.ndarray, int]:
         raise NotImplementedError
 
     def release(self, slot: int) -> None:
@@ -359,10 +471,30 @@ class DenseKVBackend(KVCacheBackend):
             cache[w][:, slot] = new_cache[w][:, 0].to(self._dtype)
         return cache
 
+    def commit_window(self, cache, window_kv, tables, pos, count):
+        # row b of the window is arena row b of ``cache`` (the whole arena,
+        # or one slot's row from rows()); positions past max_len are dropped
+        # by writing them back unchanged: W <= max_len consecutive positions
+        # are distinct modulo max_len, so the wrapped targets never collide
+        # with a real write
+        b, w = window_kv["k"].shape[1:3]
+        j = torch.arange(w, device=pos.device)[None, :]
+        idx = pos.long()[:, None] + j
+        valid = ((j < count.long()[:, None]) & (idx < self.max_len))[None, :, :, None, None]
+        rows = torch.arange(b, device=pos.device)[:, None]
+        target = (slice(None), rows, idx % self.max_len)
+        for w_ in ("k", "v"):
+            leaf = cache[w_]
+            leaf[target] = torch.where(valid, window_kv[w_].to(leaf.dtype), leaf[target])
+        return cache
+
+    def rows(self, cache, tables, slot):
+        return {w: c[:, slot: slot + 1] for w, c in cache.items()}, tables[slot: slot + 1]
+
     def device_tables(self):
         return self._tables
 
-    def acquire(self, slot, prompt, budget):
+    def acquire(self, slot, prompt, budget, defer_register=False):
         return np.zeros((1,), np.int32), 0
 
     def release(self, slot):
@@ -390,17 +522,17 @@ class DenseKVBackend(KVCacheBackend):
 
 
 class PagedKVBackend(KVCacheBackend):
-    """Block pool + tables + copy-on-write prefix cache.
+    """Block pool + tables + copy-on-write prefix cache (+ int8 storage
+    with ``quantized=True``, the ``"paged_int8"`` kind).
 
     ``pool_blocks=None`` provisions every slot's worst case plus the null
     block (the dense arena's token capacity); a smaller pool oversubscribes
     slots, with admission gated on free blocks."""
 
-    kind = "paged"
-
     def __init__(self, *, config, slots: int, max_len: int, prompt_bucket: int,
                  device: torch.device, block_size: int = 16,
-                 pool_blocks: Optional[int] = None, attention_impl: str = "reference"):
+                 pool_blocks: Optional[int] = None, quantized: bool = False,
+                 attention_impl: str = "reference"):
         if attention_impl not in ("reference", "kernel"):
             raise ValueError(
                 f"attention_impl must be 'reference' or 'kernel', got {attention_impl!r}"
@@ -431,6 +563,8 @@ class PagedKVBackend(KVCacheBackend):
         self._kvh, self._hd = config.num_key_value_heads, config.head_dim
         self._layers = config.num_hidden_layers
         self._dtype = config.compute_dtype
+        self.quantized = quantized
+        self.kind = "paged_int8" if quantized else "paged"
         self.attention_impl = attention_impl
         self.pool = PagedBlockPool(
             num_blocks=pool_blocks, block_size=block_size, slots=slots,
@@ -440,6 +574,10 @@ class PagedKVBackend(KVCacheBackend):
 
     def init_device_state(self):
         shape = (self._layers, self.pool_blocks, self.block_size, self._kvh, self._hd)
+        if self.quantized:
+            return {w: {"q": torch.zeros(shape, dtype=torch.int8, device=self.device),
+                        "s": torch.zeros(shape[:3], dtype=torch.float32, device=self.device)}
+                    for w in ("k", "v")}
         return {w: torch.zeros(shape, dtype=self._dtype, device=self.device) for w in ("k", "v")}
 
     def make_layout(self, tables):
@@ -449,23 +587,37 @@ class PagedKVBackend(KVCacheBackend):
         """Write the bucket's ``prefill_blocks`` blocks into the slot's
         table-row blocks in one indexed copy per leaf. Rows allocated shorter
         than the bucket carry null entries there, which absorb the extra
-        writes; shared prefix blocks are rewritten with identical bytes."""
+        writes; shared prefix blocks are rewritten with identical bytes (int8:
+        the same quantization of the same values)."""
         n, bs = self.prefill_blocks, self.block_size
         ids = table_row[:n].long()
         for w in ("k", "v"):
             fresh = new_cache[w][:, 0, : n * bs]  # (L, n*bs, kvh, hd)
-            cache[w][:, ids] = fresh.reshape(self._layers, n, bs, self._kvh, self._hd).to(self._dtype)
+            fresh = fresh.reshape(self._layers, n, bs, self._kvh, self._hd)
+            _set_rows(cache[w], (slice(None), ids), fresh if self.quantized else fresh.to(self._dtype))
         return cache
+
+    def commit_window(self, cache, window_kv, tables, pos, count):
+        layout = self.make_layout(tables)
+        for w in ("k", "v"):
+            layout.commit_window(cache[w], window_kv[w], pos, count)
+        return cache
+
+    def rows(self, cache, tables, slot):
+        return cache, tables[slot: slot + 1]
 
     def device_tables(self):
         if self._device_tables is None:
             self._device_tables = host_to_device(self.pool.tables, self.device)
         return self._device_tables
 
-    def acquire(self, slot, prompt, budget):
-        out = self.pool.acquire(slot, prompt, budget)
+    def acquire(self, slot, prompt, budget, defer_register=False):
+        out = self.pool.acquire(slot, prompt, budget, defer_register=defer_register)
         self._device_tables = None
         return out
+
+    def promote_deferred(self, slot: int, count: Optional[int] = None) -> int:
+        return self.pool.promote_deferred(slot, count)
 
     def release(self, slot):
         self.pool.release(slot)
@@ -490,7 +642,12 @@ class PagedKVBackend(KVCacheBackend):
         self._device_tables = None
 
     def _per_block_bytes(self) -> int:
-        return self._layers * self.block_size * self._kvh * self._hd * self._dtype.itemsize
+        """One block of one leaf over every layer; int8 adds its f32
+        per-position scales."""
+        per_block = self._layers * self.block_size * self._kvh * self._hd
+        if self.quantized:
+            return per_block + self._layers * self.block_size * 4
+        return per_block * self._dtype.itemsize
 
     def hbm_bytes(self):
         return 2 * self.pool_blocks * self._per_block_bytes()
@@ -524,19 +681,15 @@ def make_kv_backend(kind: str, *, config, slots: int, max_len: int, prompt_bucke
     if kind == "dense":
         if attention_impl != "reference":
             raise ValueError(
-                "attention_impl='kernel' requires kv_cache='paged'; the dense "
-                "arena has no block tables for the kernel to walk"
+                "attention_impl='kernel' requires a paged KV cache (kv_cache="
+                "'paged' or 'paged_int8'); the dense arena has no block tables "
+                "for the kernel to walk"
             )
         return DenseKVBackend(config=config, slots=slots, max_len=max_len, device=device)
-    if kind == "paged":
+    if kind in ("paged", "paged_int8"):
         return PagedKVBackend(
             config=config, slots=slots, max_len=max_len, prompt_bucket=prompt_bucket,
             device=device, block_size=block_size, pool_blocks=pool_blocks,
-            attention_impl=attention_impl,
-        )
-    if kind == "paged_int8":
-        raise NotImplementedError(
-            "kv_cache='paged_int8' (int8 pool + per-position scales) is queued "
-            "for slice 2 (ROADMAP.md)"
+            quantized=kind == "paged_int8", attention_impl=attention_impl,
         )
     raise ValueError(f"kv_cache must be one of {KV_BACKENDS}, got {kind!r}")

@@ -1,6 +1,7 @@
 """Llama-family decoder (counterpart of ``accelerate_tpu/models/llama.py``):
 config presets, parameter init and conversion, the training forward and
-loss, the prefill forward and the one-token decode step.
+loss, the prefill forward, the one-token decode step and the W-token
+verify step (speculative decoding and chunked prefill).
 
 Parameters keep the JAX package's pytree: stacked ``(L, ...)`` layer
 leaves, projection kernels in ``(in, out)`` layout, so ``params_from_jax``
@@ -18,8 +19,7 @@ while decode computes its angles in f32 on the device from the per-slot
 positions (``apply_rope_at``): two paths, each reproduced as it is.
 
 Not ported yet (ROADMAP.md): remat ``"dots"``/``"minimal"``, chunked CE,
-MoE layers, Gemma-2's alternating sliding window, fp8, and the speculative
-``llama_verify_step``.
+MoE layers, Gemma-2's alternating sliding window and fp8.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from .._device import resolve_device
-from ..ops.attention import NEG_INF, dispatch_attention, tanh_softcap
+from ..ops.attention import NEG_INF, _write_window, dispatch_attention, tanh_softcap
 
 __all__ = [
     "LlamaConfig",
@@ -46,12 +46,14 @@ __all__ = [
     "rms_norm",
     "apply_rope",
     "apply_rope_at",
+    "apply_rope_window",
     "llama_apply",
     "llama_ce_denominator",
     "llama_flops_per_token",
     "llama_loss",
     "llama_prefill_at",
     "llama_decode_step",
+    "llama_verify_step",
 ]
 
 
@@ -434,6 +436,22 @@ def apply_rope_at(x, pos, theta: float, scaling=None):
     return _rotate(x, *_rope_at_tables(pos, x.shape[-1], theta, scaling, x.device))
 
 
+def _rope_window_tables(pos, w: int, head_dim: int, theta: float, scaling, device):
+    """cos/sin (B, W, 1, head_dim/2) of a window at ``pos[b] + j``, angles
+    computed on the device in f32."""
+    freqs = _rope_freqs_f32(head_dim, theta, scaling, device)
+    abs_pos = pos.float()[:, None] + torch.arange(w, dtype=torch.float32, device=device)[None, :]
+    angles = (abs_pos[:, :, None] * freqs[None, None, :])[:, :, None, :]
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope_window(x, pos, theta: float, scaling=None):
+    """RoPE for a W-token window: ``x`` (B, W, H, D) where offset j of row b
+    sits at absolute position ``pos[b] + j``; the angles are computed on the
+    device in f32, as :func:`apply_rope_at` does."""
+    return _rotate(x, *_rope_window_tables(pos, x.shape[1], x.shape[-1], theta, scaling, x.device))
+
+
 def _proj(config, layer_params, name, y):
     p = layer_params["attn"][name]
     out = y @ p["kernel"].to(config.compute_dtype)
@@ -651,6 +669,14 @@ def _write_kv_at(cache, kv, pos):
     return cache
 
 
+def _layer_leaf(leaf, i):
+    """Layer ``i`` of a stacked cache leaf: a tensor, or the int8 ``{"q",
+    "s"}`` pair (views: in-place writes reach the stacked store)."""
+    if isinstance(leaf, dict):
+        return {k: v[i] for k, v in leaf.items()}
+    return leaf[i]
+
+
 def _use_kernel_attention(config, kv_layout) -> bool:
     """Whether the decode step routes attention through the paged
     flash-decode kernel: opted in on the layout. A sliding-window config
@@ -678,11 +704,38 @@ def _kernel_decode_override(config, kv_layout, pos, ck_pool, cv_pool):
     def override(q, k_new, v_new):
         kv_layout.commit_column(ck_pool, k_new, pos)
         kv_layout.commit_column(cv_pool, v_new, pos)
+        k_pool, v_pool, scales = _pool_operands(ck_pool, cv_pool)
         out = paged_flash_decode(
-            q.contiguous(), ck_pool, cv_pool, kv_layout.tables, pos,
+            q.contiguous(), k_pool, v_pool, kv_layout.tables, pos, **scales,
             scale=_attn_scale(config), softcap=config.attn_logit_softcap,
         )
         return out, ck_pool, cv_pool
+
+    return override
+
+
+def _pool_operands(ck_pool, cv_pool):
+    """(k_pool, v_pool, {k_scale, v_scale}) of a layer's pool leaves, for the
+    kernel wrappers: int8 ``{"q", "s"}`` pairs pass their scales."""
+    if isinstance(ck_pool, dict):
+        return ck_pool["q"], cv_pool["q"], {"k_scale": ck_pool["s"], "v_scale": cv_pool["s"]}
+    return ck_pool, cv_pool, {}
+
+
+def _kernel_verify_override(config, kv_layout, pos, ck_pool, cv_pool):
+    """Verify attention through the kernel: it walks the committed history
+    in the pool (strictly ``k_pos < pos``) and attends the window's fresh
+    K/V from its operands; nothing is written, the engine commits the
+    accepted prefix afterwards. ``pos`` is (B,) int32."""
+    from ..ops.paged_decode import paged_flash_verify
+
+    def override(q, k_win, v_win):
+        k_pool, v_pool, scales = _pool_operands(ck_pool, cv_pool)
+        return paged_flash_verify(
+            q.contiguous(), k_pool, v_pool, k_win.contiguous(), v_win.contiguous(),
+            kv_layout.tables, pos, **scales,
+            scale=_attn_scale(config), softcap=config.attn_logit_softcap,
+        )
 
     return override
 
@@ -747,7 +800,7 @@ def llama_decode_step(config: LlamaConfig, params, cache, token, pos, *, kv_layo
         pos_i32 = (pos.expand(token.shape[0]) if pos.dim() == 0 else pos).to(torch.int32).contiguous()
     for i in range(config.num_hidden_layers):
         lp = _layer_slice(params["layers"], i)
-        ck, cv = cache["k"][i], cache["v"][i]
+        ck, cv = _layer_leaf(cache["k"], i), _layer_leaf(cache["v"], i)
         if use_kernel:
             override = _kernel_decode_override(config, kv_layout, pos_i32, ck, cv)
             x, _, _ = _decode_layer(config, lp, x, None, None, pos, attention_override=override,
@@ -760,3 +813,80 @@ def llama_decode_step(config: LlamaConfig, params, cache, token, pos, *, kv_layo
         else:
             x, _, _ = _decode_layer(config, lp, x, ck, cv, pos, rope=rope)
     return _head(config, params, x)[:, 0], cache
+
+
+def _verify_layer(config: LlamaConfig, layer_params, x, cache_k, cache_v, pos,
+                  attention_override=None, rope=None):
+    """One block over a W-token window: ``x`` (B, W, D) at positions ``pos
+    .. pos+W-1`` (``pos`` (B,)). The caches are read only: the window's K/V
+    are written into copies so the window attends itself causally, and the
+    rotated window K and raw V are returned for the caller to commit the
+    accepted prefix. ``attention_override(q, k, v) -> attn`` (the kernel
+    path) reads the pool and the window itself. ``rope``: the window's
+    (cos, sin), when the caller computed them once for every layer."""
+    h, kvh, hd = config.num_attention_heads, config.num_key_value_heads, config.head_dim
+    b, w, _ = x.shape
+    cdt = config.compute_dtype
+    y = rms_norm(x, layer_params["input_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
+    q = _proj(config, layer_params, "q_proj", y).reshape(b, w, h, hd)
+    k = _proj(config, layer_params, "k_proj", y).reshape(b, w, kvh, hd)
+    v = _proj(config, layer_params, "v_proj", y).reshape(b, w, kvh, hd)
+    if rope is None:
+        rope = _rope_window_tables(pos, w, hd, config.rope_theta, config._rope_scaling_key(), x.device)
+    q = _rotate(q, *rope)
+    k = _rotate(k, *rope)
+    if attention_override is not None:
+        attn = attention_override(q, k, v).to(cdt)
+    else:
+        ck = _write_window(cache_k.clone(), k, pos)
+        cv = _write_window(cache_v.clone(), v, pos)
+        n_rep = h // kvh
+        qg = (q * _attn_scale(config)).reshape(b, w, kvh, n_rep, hd)
+        scores = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(), ck.to(cdt).float())
+        scores = tanh_softcap(scores, config.attn_logit_softcap)
+        k_pos = torch.arange(ck.shape[1], device=x.device)
+        q_abs = (pos.long()[:, None] + torch.arange(w, device=x.device)[None, :])[:, None, None, :, None]
+        scores = torch.where(k_pos <= q_abs, scores, NEG_INF)
+        if config.sliding_window is not None:
+            scores = torch.where(q_abs - k_pos < config.sliding_window, scores, NEG_INF)
+        weights = torch.softmax(scores, dim=-1)
+        attn = torch.einsum(
+            "bgrqk,bkgd->bqgrd", weights.to(cdt).float(), cv.to(cdt).float()
+        ).to(cdt)
+    x = _attn_out(config, layer_params, attn, x)
+    return _mlp_block(config, layer_params, x), k, v
+
+
+def llama_verify_step(config: LlamaConfig, params, cache, tokens, pos, *, kv_layout=None):
+    """Window forward: ``tokens`` (B, W), each row's carried token and its
+    W-1 drafts (or a chunk of a prompt), at positions ``pos .. pos+W-1``
+    (``pos`` (B,) tensor). Returns (f32 logits (B, W, V), the window KV
+    ``{"k", "v"}`` of (L, B, W, kvh, hd)). The cache is read only: the caller
+    commits the accepted prefix (``commit_window``), so a rejected draft
+    never reaches the store. With ``kv_layout`` the cache is the block pool
+    (f32/bf16 or int8 ``{"q", "s"}`` leaves): the reference path gathers
+    each layer's dense view, the kernel path runs the verify kernel."""
+    _check_supported(config)
+    pos = torch.as_tensor(pos, device=tokens.device)
+    x = _embed(config, params, tokens)
+    # position-only work, done once for all layers
+    rope = _rope_window_tables(pos, tokens.shape[1], config.head_dim, config.rope_theta,
+                               config._rope_scaling_key(), x.device)
+    use_kernel = _use_kernel_attention(config, kv_layout)
+    if use_kernel:
+        pos_i32 = pos.to(torch.int32).contiguous()
+    win_k, win_v = [], []
+    for i in range(config.num_hidden_layers):
+        lp = _layer_slice(params["layers"], i)
+        ck, cv = _layer_leaf(cache["k"], i), _layer_leaf(cache["v"], i)
+        if use_kernel:
+            override = _kernel_verify_override(config, kv_layout, pos_i32, ck, cv)
+            x, k, v = _verify_layer(config, lp, x, None, None, pos, attention_override=override,
+                                    rope=rope)
+        else:
+            if kv_layout is not None:
+                ck, cv = kv_layout.view(ck), kv_layout.view(cv)
+            x, k, v = _verify_layer(config, lp, x, ck, cv, pos, rope=rope)
+        win_k.append(k)
+        win_v.append(v)
+    return _head(config, params, x), {"k": torch.stack(win_k), "v": torch.stack(win_v)}

@@ -7,7 +7,8 @@ repository root, then loaded with :mod:`ctypes` (no PyTorch headers, so a
 build takes seconds). The file name carries a hash of the source and
 flags, so an edited source is rebuilt and a stale library is never loaded.
 One source may hold several kernels, each with its own C entry point of
-the kernel's name. :func:`build_all` starts one ``nvcc`` per source, all
+the kernel's name; headers shared by the sources (``csrc/*.cuh``) are part
+of every source's hash. :func:`build_all` starts one ``nvcc`` per source, all
 at once.
 
 Nothing here runs at import time: the first launch of a kernel builds it.
@@ -47,6 +48,9 @@ KERNELS = {
     "flash_bwd_dq": "flash_bwd.cu",
     "flash_bwd_dkv": "flash_bwd.cu",
     "paged_decode": "paged_decode.cu",
+    "paged_decode_int8": "paged_decode.cu",
+    "paged_verify": "paged_verify.cu",
+    "paged_verify_int8": "paged_verify.cu",
     "fused_sample": "fused_sample.cu",
 }
 
@@ -95,7 +99,8 @@ def _nvcc() -> str:
 
 
 def _so_path(source: str) -> Path:
-    src = (_CSRC / source).read_bytes()
+    # the shared headers are part of every source's build
+    src = b"".join(p.read_bytes() for p in [_CSRC / source, *sorted(_CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return _BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 

@@ -22,6 +22,7 @@ __all__ = [
     "dot_product_attention",
     "blockwise_attention",
     "paged_attention",
+    "verify_attention",
     "dispatch_attention",
 ]
 
@@ -168,6 +169,46 @@ def blockwise_attention(
     return out / torch.clamp(denom, min=1e-30).to(out.dtype)
 
 
+def _gather_pool(pool, block_tables, pool_scale=None):
+    """(num_blocks, bs, Hkv, D) pool -> (B, bpr * bs, Hkv, D) per-row dense
+    context by the block tables; an int8 pool is dequantized in f32 by its
+    per-(block, position) ``pool_scale`` (num_blocks, bs)."""
+    tables = block_tables.long()
+    x = pool[tables]  # (B, bpr, bs, Hkv, D)
+    b, bpr, bs = x.shape[:3]
+    x = x.reshape(b, bpr * bs, *x.shape[3:])
+    if pool_scale is not None:
+        x = x.float() * pool_scale[tables].reshape(b, bpr * bs)[:, :, None, None]
+    return x
+
+
+def _write_window(dense, kv, pos):
+    """Write a (B, W, Hkv, D) window ``kv`` into a per-row dense context
+    (B, S, Hkv, D) at ``pos[b] .. pos[b]+W-1``, in place; positions past
+    ``S`` are dropped, never clamped onto live columns."""
+    idx = pos.long()[:, None] + torch.arange(kv.shape[1], device=dense.device)[None, :]
+    rows, cols = torch.nonzero(idx < dense.shape[1], as_tuple=True)
+    dense[rows, idx[rows, cols]] = kv[rows, cols].to(dense.dtype)
+    return dense
+
+
+def _window_attention(q, k, v, pos, scale, softcap):
+    """Grouped attention of a W-query window at absolute positions ``pos +
+    q_idx`` over a per-row dense context (B, Sk, Hkv, D): keys at ``k_pos <=
+    pos + q_idx`` attend, the rest get ``NEG_INF``. Softcap before the mask;
+    f32 scores and P·V, weights rounded to v's dtype first."""
+    b, w, h, d = q.shape
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    scores = _grouped_scores(q, k) * scale  # (B, Hkv, n_rep, W, Sk)
+    scores = tanh_softcap(scores, softcap)
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    q_idx = torch.arange(w, device=q.device)
+    live = k_pos[None, None, :] <= pos.long()[:, None, None] + q_idx[None, :, None]  # (B, W, Sk)
+    scores = torch.where(live[:, None, None], scores, NEG_INF)
+    weights = torch.softmax(scores, dim=-1)
+    return _grouped_pv(weights, v, (b, w, h, d))
+
+
 def paged_attention(
     q: torch.Tensor,
     k_pool: torch.Tensor,
@@ -175,33 +216,49 @@ def paged_attention(
     block_tables: torch.Tensor,
     pos: torch.Tensor,
     *,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Single-token decode attention over a paged KV pool: the reference
     semantics (and kernel contract) of the paged decode path.
 
-    ``q`` (B, 1, H, D); ``k_pool``/``v_pool`` (num_blocks, block_size, Hkv,
-    D); ``block_tables`` (B, blocks_per_row) int32, released rows pointing
-    at the null block 0; ``pos`` (B,) int32, keys strictly after it masked.
+    ``q`` (B, 1, H, D) (a W-query window: :func:`verify_attention`);
+    ``k_pool``/``v_pool`` (num_blocks, block_size, Hkv,
+    D), int8 with ``k_scale``/``v_scale`` (num_blocks, block_size) f32
+    per-position scales, dequantized here in f32 after the gather;
+    ``block_tables`` (B, blocks_per_row) int32, released rows pointing at
+    the null block 0; ``pos`` (B,) int32, keys strictly after it masked.
     The gather materialises each row's whole table (live or not); masked
     scores hit ``NEG_INF`` and softmax to exact zeros, so recycled block
     content never leaks. ``scale`` defaults to ``1/sqrt(D)``."""
-    b, sq, h, d = q.shape
-    tables = block_tables.long()
-    k = k_pool[tables]  # (B, bpr, bs, Hkv, D)
-    v = v_pool[tables]
-    bpr, bs = k.shape[1], k.shape[2]
-    k = k.reshape(b, bpr * bs, *k.shape[3:])
-    v = v.reshape(b, bpr * bs, *v.shape[3:])
-    scale = 1.0 / math.sqrt(d) if scale is None else scale
-    scores = _grouped_scores(q, k) * scale
-    scores = tanh_softcap(scores, softcap)
-    k_pos = torch.arange(bpr * bs, device=q.device)
-    live = k_pos[None, :] <= pos.long()[:, None]  # (B, Sk)
-    scores = torch.where(live[:, None, None, None, :], scores, NEG_INF)
-    weights = torch.softmax(scores, dim=-1)
-    return _grouped_pv(weights, v, (b, sq, h, d))
+    k = _gather_pool(k_pool, block_tables, k_scale)
+    v = _gather_pool(v_pool, block_tables, v_scale)
+    return _window_attention(q, k, v, pos, scale, softcap)
+
+
+def verify_attention(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,
+    pos: torch.Tensor,
+    *,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Speculative-verify attention over a paged KV pool: as
+    :func:`paged_attention` with a W-token window ``q`` (B, W, H, D) whose
+    query j sits at ``pos[b] + j`` and attends ``k_pos <= pos + j``. The
+    window's own K/V must already be in the pool positions it attends (the
+    kernel's plain version writes them into a copy first). Queries past a
+    row's real draft produce rows the caller discards; their keys lie after
+    every valid query's causal horizon."""
+    return paged_attention(q, k_pool, v_pool, block_tables, pos, k_scale=k_scale,
+                           v_scale=v_scale, scale=scale, softcap=softcap)
 
 
 def dispatch_attention(

@@ -6,13 +6,19 @@
   Pallas ``_decode_kernel``), which walks each slot's block table inside
   the kernel and never touches the dead tail of the row; a CPU tensor runs
   the plain version, :func:`~accelerate_tpu_torch.ops.attention
-  .paged_attention`, which gathers the whole table first.
+  .paged_attention`, which gathers the whole table first. An int8 pool
+  with per-position scales launches the same source's ``paged_decode_int8``
+  entry point, counted under that name.
+* :func:`paged_flash_verify` — a W-query window (speculative verify, W =
+  draft length + 1, or a chunk of a long prompt) over committed pool
+  history plus the window's own K/V, which are not in the pool yet. A CUDA
+  tensor launches ``csrc/paged_verify.cu`` (replacing ``_verify_kernel``;
+  ``paged_verify_int8`` for an int8 pool); a CPU tensor runs
+  :func:`paged_flash_verify_reference`.
 * :func:`fused_sample` — temperature, top-k, top-p and the categorical draw
   in one kernel (``csrc/fused_sample.cu``, replacing ``_sample_kernel``),
   with the same tie rules and the same noise operand as
   :func:`fused_sample_reference`, so the two agree bitwise.
-* :func:`paged_flash_verify` — the speculative-verify kernel — is not
-  ported yet (slice 2) and raises.
 """
 
 from __future__ import annotations
@@ -23,16 +29,72 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention import paged_attention
+from .attention import _gather_pool, _window_attention, _write_window, paged_attention
 
 __all__ = [
     "paged_flash_decode",
     "paged_flash_verify",
+    "paged_flash_verify_reference",
     "fused_sample",
     "fused_sample_reference",
 ]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_pools(q, k_pool, v_pool, k_scale, v_scale, block_tables, pos):
+    """Shape checks shared by decode and verify; returns (n_rep, int8)."""
+    b, _, h, d = q.shape
+    nb, bs, h_kv, d_pool = k_pool.shape
+    if v_pool.shape != k_pool.shape or d_pool != d:
+        raise ValueError(f"pool shapes {tuple(k_pool.shape)}/{tuple(v_pool.shape)} do not match q {tuple(q.shape)}")
+    if h % h_kv != 0:
+        raise ValueError(f"num heads {h} not divisible by kv heads {h_kv}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != b or pos.shape != (b,):
+        raise ValueError(
+            f"block_tables must be (B, blocks_per_row) and pos (B,), got "
+            f"{tuple(block_tables.shape)} and {tuple(pos.shape)}"
+        )
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale come together (an int8 pool has both)")
+    quantized = k_scale is not None
+    if quantized and (k_scale.shape != (nb, bs) or v_scale.shape != (nb, bs)):
+        raise ValueError(f"scales must be (num_blocks, block_size) = {(nb, bs)}, got "
+                         f"{tuple(k_scale.shape)} and {tuple(v_scale.shape)}")
+    return h // h_kv, quantized
+
+
+def _check_kernel_operands(name, q, k_pool, v_pool, scales, others, n_rep, softcap):
+    """What the CUDA kernels take; raises on anything else (never falls
+    back to the plain version). ``others`` ends with the tables and pos."""
+    tensors = (q, k_pool, v_pool, *scales, *others)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError(f"{name}: all operands must be on one device")
+    if others[-2].dtype != torch.int32 or others[-1].dtype != torch.int32:
+        raise TypeError("block_tables and pos must be int32")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name} kernel takes float32 or bfloat16 q, got {q.dtype}")
+    if scales:
+        if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
+            raise TypeError(f"{name} kernel with scales takes int8 pools, got {k_pool.dtype}, {v_pool.dtype}")
+        if any(s.dtype != torch.float32 for s in scales):
+            raise TypeError(f"{name} kernel takes float32 scales")
+    elif k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise TypeError(
+            f"{name} kernel takes q and pools of one dtype (or int8 pools with "
+            f"scales), got {q.dtype}, {k_pool.dtype}, {v_pool.dtype}"
+        )
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} kernel takes contiguous operands")
+    d = q.shape[-1]
+    if d not in (64, 128):
+        raise ValueError(f"{name} kernel supports head_dim 64 or 128, got {d}")
+    if n_rep not in (1, 2, 4, 8):
+        raise ValueError(f"{name} kernel supports GQA groups of 1, 2, 4 or 8, got {n_rep}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"softcap must be > 0, got {softcap}")
+    if q.device.type != "cuda":
+        raise ValueError(f"the {name} kernel runs on CUDA tensors; got {q.device}")
 
 
 def paged_flash_decode(
@@ -48,70 +110,112 @@ def paged_flash_decode(
     softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Single-token paged decode attention. ``q`` (B, 1, H, D), pools
-    (num_blocks, block_size, H_kv, D), ``block_tables`` (B, blocks_per_row)
-    int32, ``pos`` (B,) int32; returns (B, 1, H, D). ``scale`` defaults to
-    ``1/sqrt(D)``. Sliding windows are not supported (the engine refuses
-    such configs)."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "the int8 pool branch (k_scale/v_scale) of paged_flash_decode is "
-            "queued for slice 2 with kv_cache='paged_int8' (ROADMAP.md)"
-        )
+    (num_blocks, block_size, H_kv, D) in q's dtype, or int8 with
+    ``k_scale``/``v_scale`` (num_blocks, block_size) f32; ``block_tables``
+    (B, blocks_per_row) int32, ``pos`` (B,) int32. Returns (B, 1, H, D) in
+    q's dtype. ``scale`` defaults to ``1/sqrt(D)``. Sliding windows are not
+    supported (the engine refuses such configs)."""
     b, sq, h, d = q.shape
     if sq != 1:
         raise ValueError(f"paged_flash_decode takes one query token, got {sq}")
-    nb, bs, h_kv, d_pool = k_pool.shape
-    if v_pool.shape != k_pool.shape or d_pool != d:
-        raise ValueError(f"pool shapes {tuple(k_pool.shape)}/{tuple(v_pool.shape)} do not match q {tuple(q.shape)}")
-    if h % h_kv != 0:
-        raise ValueError(f"num heads {h} not divisible by kv heads {h_kv}")
-    if block_tables.dim() != 2 or block_tables.shape[0] != b or pos.shape != (b,):
-        raise ValueError(
-            f"block_tables must be (B, blocks_per_row) and pos (B,), got "
-            f"{tuple(block_tables.shape)} and {tuple(pos.shape)}"
-        )
+    n_rep, quantized = _check_pools(q, k_pool, v_pool, k_scale, v_scale, block_tables, pos)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
-        return paged_attention(q, k_pool, v_pool, block_tables, pos, scale=scale, softcap=softcap)
-    tensors = (q, k_pool, v_pool, block_tables, pos)
-    if any(t.device != q.device for t in tensors):
-        raise ValueError("paged_flash_decode: all operands must be on one device")
-    if q.dtype not in _DTYPE_CODE or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError(
-            f"paged decode kernel takes float32 or bfloat16 q and pools of one "
-            f"dtype, got {q.dtype}, {k_pool.dtype}, {v_pool.dtype}"
-        )
-    if block_tables.dtype != torch.int32 or pos.dtype != torch.int32:
-        raise TypeError("block_tables and pos must be int32")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("paged decode kernel takes contiguous operands")
-    if d not in (64, 128):
-        raise ValueError(f"paged decode kernel supports head_dim 64 or 128, got {d}")
-    if h // h_kv not in (1, 2, 4, 8):
-        raise ValueError(f"paged decode kernel supports GQA groups of 1, 2, 4 or 8, got {h // h_kv}")
-    if softcap is not None and softcap <= 0:
-        raise ValueError(f"softcap must be > 0, got {softcap}")
-    if q.device.type != "cuda":
-        raise ValueError(f"the paged decode kernel runs on CUDA tensors; got {q.device}")
+        return paged_attention(q, k_pool, v_pool, block_tables, pos, k_scale=k_scale,
+                               v_scale=v_scale, scale=scale, softcap=softcap).to(q.dtype)
+    scales = (k_scale, v_scale) if quantized else ()
+    _check_kernel_operands("paged decode", q, k_pool, v_pool, scales, (block_tables, pos), n_rep, softcap)
     out = torch.empty_like(q)
-    code = _build.entry("paged_decode", 6, 7, 2)(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), b, h, h_kv, d, bs, block_tables.shape[1],
-        _DTYPE_CODE[q.dtype], float(scale), float(softcap or 0.0),
-        torch.cuda.current_stream(q.device).cuda_stream,
+    bs = k_pool.shape[1]
+    dims = (b, h, k_pool.shape[2], d, bs, block_tables.shape[1], _DTYPE_CODE[q.dtype])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    name = "paged_decode_int8" if quantized else "paged_decode"
+    ptrs = (q, k_pool, v_pool, *scales, block_tables, pos, out)
+    code = _build.entry(name, len(ptrs), 7, 2)(
+        *(t.data_ptr() for t in ptrs), *dims, float(scale), float(softcap or 0.0), stream,
     )
-    _build.check("paged_decode", code)
-    _build.count_launch("paged_decode")
+    _build.check(name, code)
+    _build.count_launch(name)
     return out
 
 
-def paged_flash_verify(*args, **kwargs):
-    """The W-token speculative-verify kernel (Pallas ``_verify_kernel``)."""
-    raise NotImplementedError(
-        "paged_flash_verify is not ported yet: it runs only with spec='ngram', "
-        "which is queued for slice 2 (ROADMAP.md)"
+def paged_flash_verify_reference(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    win_k: torch.Tensor,
+    win_v: torch.Tensor,
+    block_tables: torch.Tensor,
+    pos: torch.Tensor,
+    *,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain version of the verify kernel: gather each row's history from
+    the pool (dequantized in f32 for an int8 pool), write the window's K/V
+    into that copy at ``pos .. pos+W-1`` (positions past the row are
+    dropped), and attend with the :func:`~accelerate_tpu_torch.ops
+    .attention.verify_attention` mask ``k_pos <= pos + q_idx``. Returns (B,
+    W, H, D) in q's dtype."""
+    # the gather is a copy: the window is written there, not into the pool
+    k = _write_window(_gather_pool(k_pool, block_tables, k_scale), win_k, pos)
+    v = _write_window(_gather_pool(v_pool, block_tables, v_scale), win_v, pos)
+    return _window_attention(q, k, v, pos, scale, softcap).to(q.dtype)
+
+
+def paged_flash_verify(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    win_k: torch.Tensor,
+    win_v: torch.Tensor,
+    block_tables: torch.Tensor,
+    pos: torch.Tensor,
+    *,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """W-query window attention over the paged pool (the verify kernel).
+    ``q`` (B, W, H, D) at absolute positions ``pos[b] + q_idx``; committed
+    history comes from the pool (int8 with ``k_scale``/``v_scale``), masked
+    strictly ``k_pos < pos``; the window's own K/V, ``win_k``/``win_v`` (B,
+    W, H_kv, D) in q's dtype and not yet committed, are attended causally
+    (``k_idx <= q_idx``). Together that is ``verify_attention``'s ``k_pos
+    <= pos + q_idx``. Returns (B, W, H, D) in q's dtype."""
+    b, w, h, d = q.shape
+    n_rep, quantized = _check_pools(q, k_pool, v_pool, k_scale, v_scale, block_tables, pos)
+    if win_k.shape != (b, w, k_pool.shape[2], d) or win_v.shape != win_k.shape:
+        raise ValueError(f"win_k/win_v must be (B, W, H_kv, D) = {(b, w, k_pool.shape[2], d)}, "
+                         f"got {tuple(win_k.shape)} and {tuple(win_v.shape)}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return paged_flash_verify_reference(q, k_pool, v_pool, win_k, win_v, block_tables, pos,
+                                            k_scale=k_scale, v_scale=v_scale, scale=scale,
+                                            softcap=softcap)
+    if win_k.dtype != q.dtype or win_v.dtype != q.dtype:
+        raise TypeError(f"paged verify kernel takes the window K/V in q's dtype {q.dtype}, "
+                        f"got {win_k.dtype}, {win_v.dtype}")
+    scales = (k_scale, v_scale) if quantized else ()
+    _check_kernel_operands("paged verify", q, k_pool, v_pool, scales,
+                           (win_k, win_v, block_tables, pos), n_rep, softcap)
+    out = torch.empty_like(q)
+    bs = k_pool.shape[1]
+    dims = (b, w, h, k_pool.shape[2], d, bs, block_tables.shape[1], _DTYPE_CODE[q.dtype])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    name = "paged_verify_int8" if quantized else "paged_verify"
+    ptrs = (q, k_pool, v_pool, *scales, win_k, win_v, block_tables, pos, out)
+    code = _build.entry(name, len(ptrs), 8, 2)(
+        *(t.data_ptr() for t in ptrs), *dims, float(scale), float(softcap or 0.0), stream,
     )
+    _build.check(name, code)
+    _build.count_launch(name)
+    return out
 
 
 def _float_key(x: torch.Tensor) -> torch.Tensor:

@@ -3,9 +3,10 @@
 
 One daemon worker thread owns the engine and the whole dispatch cycle:
 admit queued requests into free slots (each admission runs the prompt
-forward), run one decode step over every slot, read back the matured
-results, reply to retired requests, and shed requests past their
-deadline. ``submit`` only validates and enqueues, so any number of client
+forward, or the first chunk of a long prompt), run one engine tick over
+every slot (pending chunks, then a decode or speculative verify step),
+read back the matured results, reply to retired requests, and shed
+requests past their deadline. ``submit`` only validates and enqueues, so any number of client
 threads can submit while the device stream stays single-controller.
 
 Robustness that is ported: a bounded admission queue
@@ -149,6 +150,9 @@ class InferenceServer:
                 block_size=self.config.engine_block_size,
                 pool_blocks=self.config.engine_pool_blocks,
                 attention_impl=self.config.attention_impl,
+                spec=self.config.speculative,
+                spec_draft_len=self.config.spec_draft_len,
+                prefill_chunk=self.config.engine_prefill_chunk,
                 device=device,
                 clock=clock,
             )

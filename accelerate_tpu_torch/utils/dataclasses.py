@@ -8,11 +8,12 @@ single-process batching, and ``DistributedDataParallelKwargs``, whose
 gradient-compression hooks wait for the distributed slice).
 
 Serving: only ``mode="continuous"`` is ported: the slot engine over a KV
-backend, with the continuous-mode knobs and their validation, plus the
-admission knobs the server reads (queue bound, default budget and
+backend (dense, paged or the int8 paged pool), with speculative decoding
+and chunked prefill, the continuous-mode knobs and their validation, plus
+the admission knobs the server reads (queue bound, default budget and
 deadline, drain timeout). Static mode, retry/circuit breaker, the
-degradation ladder, speculative decoding, chunked prefill and the host KV
-tier are still to be ported (ROADMAP.md).
+degradation ladder and the host KV tier are still to be ported
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -139,15 +140,22 @@ class ServingConfig:
     * ``engine_readback_lag``: the engine reads a program's tokens back that
       many programs later (0 reads back every step, for deterministic
       tests).
-    * ``kv_cache``: ``"dense"`` (one max_len row per slot) or ``"paged"``
-      (shared block pool + block tables + copy-on-write prefix cache).
-      ``engine_block_size`` positions per block (must divide
+    * ``kv_cache``: ``"dense"`` (one max_len row per slot), ``"paged"``
+      (shared block pool + block tables + copy-on-write prefix cache) or
+      ``"paged_int8"`` (the same pool in int8 with one f32 scale per
+      position). ``engine_block_size`` positions per block (must divide
       ``engine_max_len``); ``engine_pool_blocks`` sizes the pool (``None``:
       every slot's worst case + the null block).
     * ``attention_impl``: ``"reference"`` (plain PyTorch paged attention and
       sort-based sampling) or ``"kernel"`` (the hand-written paged
-      flash-decode and fused-sampling kernels; the counterpart of the JAX
-      package's ``"pallas"``). ``"kernel"`` needs ``kv_cache="paged"``.
+      flash-decode, flash-verify and fused-sampling kernels; the
+      counterpart of the JAX package's ``"pallas"``). ``"kernel"`` needs a
+      paged ``kv_cache``.
+    * ``speculative="ngram"``: prompt-lookup speculative decoding with up
+      to ``spec_draft_len`` drafts per slot and step.
+    * ``engine_prefill_chunk``: prompts longer than
+      ``engine_prompt_bucket`` are admitted and prefilled in chunks of this
+      many positions, one chunk per scheduler tick between decode steps.
     """
 
     mode: str = "continuous"
@@ -159,6 +167,9 @@ class ServingConfig:
     engine_block_size: int = 16
     engine_pool_blocks: Optional[int] = None
     attention_impl: str = "reference"
+    speculative: Optional[str] = None
+    spec_draft_len: int = 4
+    engine_prefill_chunk: Optional[int] = None
     max_queue: int = 256
     default_max_new_tokens: int = 32
     default_deadline_s: Optional[float] = None
@@ -185,16 +196,15 @@ class ServingConfig:
             raise ValueError(
                 f"engine_readback_lag must be >= 0, got {self.engine_readback_lag}"
             )
-        if self.kv_cache not in ("dense", "paged"):
+        if self.kv_cache not in ("dense", "paged", "paged_int8"):
             raise ValueError(
-                f"kv_cache must be 'dense' or 'paged', got {self.kv_cache!r} "
-                "('paged_int8' is queued in ROADMAP.md)"
+                f"kv_cache must be 'dense', 'paged' or 'paged_int8', got {self.kv_cache!r}"
             )
         if self.engine_block_size < 1:
             raise ValueError(
                 f"engine_block_size must be >= 1, got {self.engine_block_size}"
             )
-        if self.kv_cache == "paged" and self.engine_max_len % self.engine_block_size:
+        if self.kv_cache != "dense" and self.engine_max_len % self.engine_block_size:
             raise ValueError(
                 f"engine_max_len ({self.engine_max_len}) must be a multiple of "
                 f"engine_block_size ({self.engine_block_size}) so a block table "
@@ -205,16 +215,29 @@ class ServingConfig:
                 "attention_impl must be 'reference' or 'kernel', got "
                 f"{self.attention_impl!r}"
             )
-        if self.attention_impl == "kernel" and self.kv_cache != "paged":
+        if self.attention_impl == "kernel" and self.kv_cache == "dense":
             raise ValueError(
-                "attention_impl='kernel' requires kv_cache='paged': the "
-                "flash-decode kernel walks block tables, which the dense "
-                "arena does not have"
+                "attention_impl='kernel' requires a paged KV cache (kv_cache="
+                "'paged' or 'paged_int8'): the kernels walk block tables, which "
+                "the dense arena does not have"
             )
         if self.engine_pool_blocks is not None and self.engine_pool_blocks < 2:
             raise ValueError(
                 "engine_pool_blocks must be None (full provisioning) or >= 2 "
                 f"(block 0 is the reserved null block), got {self.engine_pool_blocks}"
+            )
+        if self.speculative not in (None, "ngram"):
+            raise ValueError(f"speculative must be None or 'ngram', got {self.speculative!r}")
+        if self.speculative is not None and self.spec_draft_len < 1:
+            raise ValueError(
+                f"spec_draft_len must be >= 1 when speculative is enabled, got {self.spec_draft_len}"
+            )
+        if self.engine_prefill_chunk is not None and not (
+            1 <= self.engine_prefill_chunk <= self.engine_max_len - 1
+        ):
+            raise ValueError(
+                "engine_prefill_chunk must be in [1, engine_max_len-1], got "
+                f"{self.engine_prefill_chunk} (engine_max_len={self.engine_max_len})"
             )
         if self.max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {self.max_queue}")

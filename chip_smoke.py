@@ -1,9 +1,10 @@
 """Chip smoke test of the PyTorch/H100 port: builds the CUDA kernels from
 this checkout, holds each one against its plain PyTorch version on the
-card, and drives the port's two main paths with seeded random weights:
+card, and drives the port's main paths with seeded random weights:
 Llama-3-8B continuous-batching serving through ``InferenceServer`` at full
-width and depth, and Llama-3-8B training steps through the ``Accelerator``
-at full width and 4 layers.
+width and depth, plain and with speculative decoding, chunked prefill and
+the int8 KV pool, and Llama-3-8B training steps through the
+``Accelerator`` at full width and 4 layers.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -14,12 +15,22 @@ Phases (any failure exits non-zero and prints no result):
   1. build the kernels (one nvcc per source, in parallel); print the card
   2. each kernel against its plain version at the main paths' shapes (B1
      also with segment ids; B2/B3 also with segment ids, a ragged S, an lse
-     cotangent, softcap and window, non-causal): max abs error against a
-     stated tolerance, median kernel / plain / library times and the bound
+     cotangent, softcap and window, non-causal; B4 with bf16/f32/int8
+     pools; B5 at the spec shape W=5 and the chunk shape W=512, bf16/f32/
+     int8 pools, softcap, n_rep=1): max abs error against a stated
+     tolerance, median kernel / plain / library times and the bound
   3. the engine's kernel path against its reference path at full width and
-     2 layers (prefill logits, first decode logits, greedy tokens)
+     2 layers (prefill, first decode, verify W=5 and a 512 chunk, int8
+     decode and verify logits; greedy tokens, plain and speculative), with
+     planted faults that must exceed the limit
   4. the serving main path: InferenceServer, Llama-3-8B, 32 layers, 16
      requests; launch counters reset just before and read just after
+  7. (run right after 4, on its model) InferenceServer with speculative
+     decoding and 512-token chunked prefill over 16 requests (12
+     drafter-friendly, 4 of 1,025-1,500 tokens), on the paged pool (A) and
+     the int8 pool (B): launches against the engine's counters, greedy
+     requests teacher-forced, tokens/s, TTFT, acceptance, step and chunk
+     times, a profile of a verify step
   5. a training step's kernel path against its reference path at full
      width, 2 layers, f32 (loss and every gradient leaf), with a planted
      fault that must exceed the limit
@@ -50,6 +61,7 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 B1_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# B4 and B5, by q's dtype (an int8 pool with f32 q computes in f32 throughout)
 B4_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -260,6 +272,35 @@ def time_flash_bwd(dtype, args, out, dlse, mask, errs, rels, results):
             library_ms=lib_ms)
 
 
+def random_tables(gen, dev, slots, bpr, nb, live_blocks):
+    """(slots, bpr) int32 tables over disjoint random pool blocks; each row
+    holds ``live_blocks[i]`` real blocks, null (0) past them."""
+    perm = torch.randperm(nb - 1, generator=gen, device=dev).to(torch.int32) + 1
+    tables = torch.zeros((slots, bpr), dtype=torch.int32, device=dev)
+    for i, n in enumerate(live_blocks):
+        tables[i, :n] = perm[i * bpr: i * bpr + n]
+    return tables
+
+
+def random_pools(gen, dev, nb, bs, h_kv, d, pool_dtype):
+    """K/V pools (and, for int8, their per-position scales as kwargs)."""
+    if pool_dtype == torch.int8:
+        kq, vq = (torch.randint(-127, 128, (nb, bs, h_kv, d), generator=gen, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((nb, bs), generator=gen, device=dev) * 0.02 + 1e-3 for _ in range(2))
+        return kq, vq, dict(k_scale=ks, v_scale=vs)
+    kp, vp = (torch.randn((nb, bs, h_kv, d), generator=gen, device=dev).to(pool_dtype)
+              for _ in range(2))
+    return kp, vp, {}
+
+
+def pool_bytes_per_pos(h_kv, d, pool_dtype):
+    """K and V bytes of one position of the pool, scales included."""
+    if pool_dtype == torch.int8:
+        return 2 * (h_kv * d + 4)
+    return 2 * h_kv * d * pool_dtype.itemsize
+
+
 def check_paged_decode(dev, gen, results):
     from accelerate_tpu_torch.ops.attention import paged_attention
     from accelerate_tpu_torch.ops.paged_decode import paged_flash_decode
@@ -270,39 +311,115 @@ def check_paged_decode(dev, gen, results):
     # last block of the row, main-path-like positions
     pos_list = [0, 15, 16, 575, 576, bpr * bs - 1, 300, 47]
     pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
-    perm = torch.randperm(nb - 1, generator=gen, device=dev).to(torch.int32) + 1
-    tables = torch.zeros((slots, bpr), dtype=torch.int32, device=dev)
-    for i, p in enumerate(pos_list):
-        n = p // bs + 1
-        tables[i, :n] = perm[i * bpr: i * bpr + n]
-    for dtype in (torch.float32, torch.bfloat16):
+    tables = random_tables(gen, dev, slots, bpr, nb, [p // bs + 1 for p in pos_list])
+    # (pool, q) dtypes: the float pools, then the int8 pool with f32 q and
+    # with bf16 q (the main path's form)
+    for pool_dtype, dtype in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                              (torch.int8, torch.float32), (torch.int8, torch.bfloat16)):
         q = torch.randn((slots, 1, h, d), generator=gen, device=dev).to(dtype)
-        kp = torch.randn((nb, bs, h_kv, d), generator=gen, device=dev).to(dtype)
-        vp = torch.randn((nb, bs, h_kv, d), generator=gen, device=dev).to(dtype)
-        out = paged_flash_decode(q, kp, vp, tables, pos)
-        ref = paged_attention(q, kp, vp, tables, pos)
+        kp, vp, scales = random_pools(gen, dev, nb, bs, h_kv, d, pool_dtype)
+        out = paged_flash_decode(q, kp, vp, tables, pos, **scales)
+        ref = paged_attention(q, kp, vp, tables, pos, **scales)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         tol = B4_TOL[dtype]
-        log(f"B4 paged_decode {dtype} (slots={slots}, bs={bs}, pos={pos_list}) "
+        name = "paged_decode_int8" if scales else "paged_decode"
+        log(f"B4 {name} pool {pool_dtype} q {dtype} (slots={slots}, bs={bs}, pos={pos_list}) "
             f"max_abs_err={err:.3e} tol={tol:g}")
         if not err <= tol:
-            raise AssertionError(f"paged_decode {dtype} disagrees with its plain version")
-        if dtype != torch.bfloat16:
-            continue
-        ms = time_ms(lambda: paged_flash_decode(q, kp, vp, tables, pos))
-        plain_ms = time_ms(lambda: paged_attention(q, kp, vp, tables, pos))
+            raise AssertionError(f"{name} {pool_dtype}/{dtype} disagrees with its plain version")
+        ms = time_ms(lambda: paged_flash_decode(q, kp, vp, tables, pos, **scales))
+        plain_ms = time_ms(lambda: paged_attention(q, kp, vp, tables, pos, **scales))
         live = sum(p + 1 for p in pos_list)
         item = dtype.itemsize
-        nbytes = (2 * live * h_kv * d * item + 2 * slots * h * d * item
+        nbytes = (live * pool_bytes_per_pos(h_kv, d, pool_dtype) + 2 * slots * h * d * item
                   + tables.numel() * 4 + slots * 4)
         flops = 4.0 * live * h * d
         bms, by = bound_ms(nbytes, flops, dtype)
         log(f"  ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.5f} ({by})")
-        results["paged_decode"] = dict(
+        if dtype != torch.bfloat16:
+            continue  # the kernels line keeps the main path's form: bf16 q
+        results[name] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
             bound_by=by, library_ms=None,
         )
+
+
+# B5 cases: name -> (B, W, H, Hkv, pos per slot, softcap); the spec shape
+# (8 slots, W = 5, the row of engine_max_len 2048) with fresh and long
+# slots, the chunk shape (one slot, W = 512) at chunk offsets 0, 512 and
+# 1024 and a ragged last chunk at 1700 whose window overhangs the row (only
+# its rows inside the row are compared: the engine discards the rest), a
+# softcap case and an n_rep = 1 case
+B5_SPEC_POS = [0, 300, 517, 777, 1024, 1200, 1391, 1500]
+B5_CASES = {
+    "spec": (8, 5, 32, 8, B5_SPEC_POS, None),
+    "chunk_0": (1, 512, 32, 8, [0], None),
+    "chunk_512": (1, 512, 32, 8, [512], None),
+    "chunk_1024": (1, 512, 32, 8, [1024], None),
+    "chunk_ragged_1700": (1, 512, 32, 8, [1700], None),
+    "spec_softcap": (8, 5, 32, 8, B5_SPEC_POS, 50.0),
+    "spec_mha": (8, 5, 8, 8, B5_SPEC_POS, None),
+}
+B5_BPR, B5_BS = 128, 16
+
+
+def check_paged_verify(dev, gen, results):
+    from accelerate_tpu_torch.ops.paged_decode import paged_flash_verify, paged_flash_verify_reference
+
+    d, bs, bpr = 128, B5_BS, B5_BPR
+    for case, (b, w, h, h_kv, pos_list, softcap) in B5_CASES.items():
+        nb = b * bpr + 1
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+        # every slot owns its whole row, as a request of max_len does
+        tables = random_tables(gen, dev, b, bpr, nb, [bpr] * b)
+        valid = (pos[:, None] + torch.arange(w, device=dev)[None, :]) < bpr * bs
+        main_case = case in ("spec", "chunk_1024")
+        combos = [(torch.bfloat16, torch.bfloat16)]
+        if case in ("spec", "chunk_512"):
+            combos = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                      (torch.int8, torch.float32), (torch.int8, torch.bfloat16)]
+        elif main_case:
+            combos += [(torch.int8, torch.bfloat16)]
+        for pool_dtype, dtype in combos:
+            kp, vp, scales = random_pools(gen, dev, nb, bs, h_kv, d, pool_dtype)
+            q = torch.randn((b, w, h, d), generator=gen, device=dev).to(dtype)
+            wk = torch.randn((b, w, h_kv, d), generator=gen, device=dev).to(dtype)
+            wv = torch.randn((b, w, h_kv, d), generator=gen, device=dev).to(dtype)
+            args = (q, kp, vp, wk, wv, tables, pos)
+            kw = dict(softcap=softcap, **scales)
+            out = paged_flash_verify(*args, **kw)
+            ref = paged_flash_verify_reference(*args, **kw)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float())[valid].abs().max().item()
+            tol = B4_TOL[dtype]
+            name = "paged_verify_int8" if scales else "paged_verify"
+            log(f"B5 {name} {case} pool {pool_dtype} q {dtype} (B={b}, W={w}, H={h}, Hkv={h_kv}, "
+                f"D={d}, bs={bs}, bpr={bpr}, pos={pos_list}, softcap={softcap}) "
+                f"max_abs_err={err:.3e} tol={tol:g}")
+            if not err <= tol:
+                raise AssertionError(f"{name} {case} {pool_dtype}/{dtype} disagrees with its plain version")
+            ms = time_ms(lambda: paged_flash_verify(*args, **kw))
+            plain_ms = time_ms(lambda: paged_flash_verify_reference(*args, **kw), iters=5, repeats=3)
+            item = dtype.itemsize
+            hist = sum(min(p, bpr * bs) for p in pos_list)
+            nbytes = (2 * b * w * h * d * item + 2 * b * w * h_kv * d * item
+                      + hist * pool_bytes_per_pos(h_kv, d, pool_dtype) + tables.numel() * 4 + b * 4)
+            flops = sum(4.0 * h * d * w * (p + (w + 1) / 2) for p in pos_list)
+            bms, by = bound_ms(nbytes, flops, dtype)
+            log(f"  ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.5f} ({by})")
+            if not (main_case and dtype == torch.bfloat16):
+                continue
+            shape = "spec" if case == "spec" else "chunk"
+            entry = results.setdefault(name, dict(library_ms=None))
+            if shape == "spec":
+                entry.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+            else:
+                entry.update(chunk_max_abs_err=err, chunk_ms=ms, chunk_plain_ms=plain_ms,
+                             chunk_bound_ms=bms, chunk_bound_by=by)
+            del ref
+        del kp, vp, q, wk, wv
+    torch.cuda.empty_cache()
 
 
 def check_fused_sample(dev, gen, results):
@@ -388,6 +505,9 @@ LOGIT_TOL = 0.1
 # reference forward's argmax at this share of positions, and within
 # LOGIT_TOL of it (a near-tie) at every other position
 GREEDY_SHARE_MIN = 0.9
+# speculative and phase 7 greedy checks: a token that is not the reference
+# argmax must be a near-tie, within two bf16 ulps of logits of order 4
+NEAR_TIE = 0.0625
 
 
 def phase_engine_parity(dev, card):
@@ -396,7 +516,7 @@ def phase_engine_parity(dev, card):
     from accelerate_tpu_torch.engine import ContinuousBatchingEngine
     from accelerate_tpu_torch.kvcache import PagedKVLayout
     from accelerate_tpu_torch.models.llama import (
-        LlamaConfig, LlamaForCausalLM, llama_apply, llama_decode_step, llama_prefill_at,
+        LlamaConfig, LlamaForCausalLM, llama_decode_step, llama_prefill_at,
     )
 
     cfg_k = LlamaConfig.llama3_8b(num_hidden_layers=2, param_dtype=torch.bfloat16,
@@ -469,29 +589,158 @@ def phase_engine_parity(dev, card):
     agree = total = 0
     worst_gap = 0.0
     for p, occ in zip(prompts, occs):
-        toks = torch.tensor(occ.tokens, device=dev)
-        seq = torch.cat([torch.from_numpy(p).to(dev).long(), toks[:-1].long()])[None]
-        ref = llama_apply(cfg_r, params, seq)[0, len(p) - 1:]  # logits that chose each token
-        chosen = ref.gather(1, toks.long()[:, None])[:, 0]
-        agree += int((ref.argmax(-1) == toks).sum().item())
-        total += len(occ.tokens)
-        worst_gap = max(worst_gap, (ref.max(-1).values - chosen).max().item())
+        a, n, gap = teacher_forced(cfg_r, params, p, occ.tokens)
+        agree, total, worst_gap = agree + a, total + n, max(worst_gap, gap)
     share = agree / total
     log(f"phase 3 greedy tokens (kernel engine, teacher-forced reference forward): "
         f"{agree}/{total} positions are the reference argmax (share {share:.3f}, min "
         f"{GREEDY_SHARE_MIN}); largest logit gap at the rest {worst_gap:.4f} (tol {LOGIT_TOL})")
     if not (share >= GREEDY_SHARE_MIN and worst_gap <= LOGIT_TOL):
         raise AssertionError("greedy tokens: kernel path disagrees with reference path")
-    del eng, model, params
+    eng.reset()
+    occs = [eng.insert(p, max_new_tokens=32) for p in prompts]
+    verify_parity(cfg_k, params, eng, prompts)
+    del eng, occs
+    spec_engine_parity(dev, model, cfg_r, params)
+    del model, params
     torch.cuda.empty_cache()
 
 
+def teacher_forced(cfg_r, params, prompt, tokens):
+    """(argmax agreements, positions, largest gap at the rest): the plain
+    path's forward over prompt + output, teacher-forced; ``gap`` is how far
+    the chosen token's logit sits below the reference argmax's."""
+    from accelerate_tpu_torch.models.llama import llama_apply
+
+    dev = params["embed_tokens"]["embedding"].device
+    toks = torch.tensor(tokens, device=dev)
+    seq = torch.cat([torch.from_numpy(prompt).to(dev).long(), toks[:-1].long()])[None]
+    ref = llama_apply(cfg_r, params, seq)[0, len(prompt) - 1:]  # logits that chose each token
+    chosen = ref.gather(1, toks.long()[:, None])[:, 0]
+    gap = (ref.max(-1).values - chosen).max().item()
+    return int((ref.argmax(-1) == toks).sum().item()), len(tokens), gap
+
+
+def verify_parity(cfg, params, eng, prompts):
+    """Verify-step logits through B5 against the plain verify path (W = 5
+    with drafts; a 512-wide chunk), and decode and verify logits over an
+    int8 copy of the pool through B4-int8/B5-int8 against the plain paths,
+    from copies of the engine's pool after its prefills; then two planted
+    faults in the kernel path that must exceed the limit."""
+    from accelerate_tpu_torch.kvcache import PagedKVLayout, kv_quantize
+    from accelerate_tpu_torch.models.llama import llama_decode_step, llama_verify_step
+    from accelerate_tpu_torch.ops import paged_decode as pd
+
+    dev = eng.device
+    tables = eng._backend.device_tables()
+    pos = eng._pos.clone()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    drafts = torch.randint(0, cfg.vocab_size, (eng.slots, 4), generator=gen, device=dev)
+    window = torch.cat([eng._carried["token"][:, None].long(), drafts], dim=1)
+    int8_cache = {w: dict(zip(("q", "s"), kv_quantize(t))) for w, t in eng._cache.items()}
+    # the chunk: slot 2's next 512 positions, one row
+    slot = 2
+    chunk = torch.randint(0, cfg.vocab_size, (1, 512), generator=gen, device=dev)
+
+    def layout(impl, tabs=tables):
+        return PagedKVLayout(tabs, 16, cfg.compute_dtype, attention_impl=impl)
+
+    def copy(cache):
+        return {w: ({k: v.clone() for k, v in t.items()} if isinstance(t, dict) else t.clone())
+                for w, t in cache.items()}
+
+    def verify_logits(impl, cache=eng._cache):
+        return llama_verify_step(cfg, params, copy(cache), window, pos, kv_layout=layout(impl))[0]
+
+    def chunk_logits(impl):
+        return llama_verify_step(cfg, params, copy(eng._cache), chunk, pos[slot: slot + 1],
+                                 kv_layout=layout(impl, tables[slot: slot + 1]))[0]
+
+    def decode_logits(impl, cache):
+        return llama_decode_step(cfg, params, copy(cache), eng._carried["token"][:, None].long(),
+                                 pos, kv_layout=layout(impl))[0]
+
+    errs = {
+        "verify W=5": (verify_logits("kernel") - verify_logits("reference")).abs().max().item(),
+        "chunk W=512": (chunk_logits("kernel") - chunk_logits("reference")).abs().max().item(),
+        "int8 decode": (decode_logits("kernel", int8_cache)
+                        - decode_logits("reference", int8_cache)).abs().max().item(),
+        "int8 verify W=5": (verify_logits("kernel", int8_cache)
+                            - verify_logits("reference", int8_cache)).abs().max().item(),
+    }
+    log("phase 3 window logits, kernel path vs plain path: " + ", ".join(
+        f"{k} max_abs_err={v:.4f}" for k, v in errs.items()) + f" (tol {LOGIT_TOL})")
+    if not max(errs.values()) <= LOGIT_TOL:
+        raise AssertionError("verify/int8 logits: kernel path disagrees with reference path")
+    ref = verify_logits("reference")
+    ref8 = decode_logits("reference", int8_cache)
+    verify_kernel, decode_kernel = pd.paged_flash_verify, pd.paged_flash_decode
+
+    def window_shifted(q, kp, vp, wk, wv, *a, **kw):  # query j sees key j+1
+        return verify_kernel(q, kp, vp, wk.roll(-1, dims=1).contiguous(),
+                             wv.roll(-1, dims=1).contiguous(), *a, **kw)
+
+    def neighbour_scales(*a, k_scale=None, v_scale=None, **kw):  # position p reads p-1's scale
+        return decode_kernel(*a, k_scale=k_scale.roll(1, dims=1).contiguous(),
+                             v_scale=v_scale.roll(1, dims=1).contiguous(), **kw)
+
+    try:
+        pd.paged_flash_verify = window_shifted
+        shift_err = (verify_logits("kernel") - ref).abs().max().item()
+        pd.paged_flash_verify = verify_kernel
+        pd.paged_flash_decode = neighbour_scales
+        scale_err = (decode_logits("kernel", int8_cache) - ref8).abs().max().item()
+    finally:
+        pd.paged_flash_verify, pd.paged_flash_decode = verify_kernel, decode_kernel
+    log(f"phase 3 planted faults: window mask shifted by one (query j sees key j+1) "
+        f"max_abs_err={shift_err:.4f}, int8 scales read from the neighbouring position "
+        f"max_abs_err={scale_err:.4f} (each must exceed {LOGIT_TOL})")
+    if not (shift_err > LOGIT_TOL and scale_err > LOGIT_TOL):
+        raise AssertionError("phase 3's logit tolerance cannot see a planted verify/int8 fault")
+
+
+def drafter_prompts(rng, n, lo, hi, vocab):
+    """``n`` prompts of ``lo``-``hi`` tokens, each a random 8-32-token unit
+    tiled: the n-gram drafter's kind of traffic."""
+    out = []
+    for _ in range(n):
+        unit = rng.integers(0, vocab, size=int(rng.integers(8, 33)))
+        length = int(rng.integers(lo, hi + 1))
+        out.append(np.tile(unit, -(-length // len(unit)))[:length].astype(np.int32))
+    return out
+
+
+def spec_engine_parity(dev, model, cfg_r, params):
+    """A greedy spec engine (kernel path, 2 layers) on drafter-friendly
+    prompts: its tokens pass the teacher-forced argmax check."""
+    from accelerate_tpu_torch.engine import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(model, slots=8, max_len=1024, prompt_bucket=512, kv_cache="paged",
+                                   block_size=16, readback_lag=2, attention_impl="kernel",
+                                   spec="ngram", device=dev)
+    prompts = drafter_prompts(np.random.default_rng(5), 8, 64, 400, cfg_r.vocab_size)
+    occs = [eng.insert(p, max_new_tokens=48) for p in prompts]
+    eng.drain()
+    spec = eng.stats()["spec"]
+    agree = total = 0
+    worst_gap = 0.0
+    for p, occ in zip(prompts, occs):
+        a, n, gap = teacher_forced(cfg_r, params, p, occ.tokens)
+        agree, total, worst_gap = agree + a, total + n, max(worst_gap, gap)
+    share = agree / total
+    log(f"phase 3 greedy spec engine (kernel path): verify steps {spec['verify_steps']}, drafted "
+        f"{spec['drafted']}, accepted {spec['accepted']}; {agree}/{total} tokens are the "
+        f"teacher-forced reference argmax (share {share:.3f}, min {GREEDY_SHARE_MIN}); largest "
+        f"gap at the rest {worst_gap:.4f} (near-tie limit {NEAR_TIE})")
+    if not (spec["verify_steps"] > 0 and share >= GREEDY_SHARE_MIN and worst_gap <= NEAR_TIE):
+        raise AssertionError("greedy spec engine: kernel path disagrees with reference path")
+
+
 # ----------------------------------------------------------------- phase 4
-def phase_main_path(dev, card, n_layers):
-    from accelerate_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, llama_prefill_at
-    from accelerate_tpu_torch.ops import _build
-    from accelerate_tpu_torch.serving import InferenceServer
-    from accelerate_tpu_torch.utils.dataclasses import ServingConfig
+def serving_model(dev, n_layers):
+    """Llama-3-8B at full width, bf16, seeded random weights: the model
+    phases 4 and 7 serve."""
+    from accelerate_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
     cfg = LlamaConfig.llama3_8b(num_hidden_layers=n_layers, param_dtype=torch.bfloat16,
                                 compute_dtype=torch.bfloat16, attention_impl="flash")
@@ -501,6 +750,17 @@ def phase_main_path(dev, card, n_layers):
     log(f"phase 4 model: Llama-3-8B, {n_layers} layers, bf16, seeded random weights, "
         f"{sum(p.numel() for p in model.parameters()) / 1e9:.2f}B params, "
         f"init {time.perf_counter() - t0:.1f}s")
+    return model
+
+
+def phase_main_path(dev, card, model):
+    from accelerate_tpu_torch.models.llama import llama_prefill_at
+    from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.serving import InferenceServer
+    from accelerate_tpu_torch.utils.dataclasses import ServingConfig
+
+    cfg = model.config
+    n_layers = cfg.num_hidden_layers
     scfg = ServingConfig(
         engine_slots=8, engine_max_len=1024, engine_prompt_bucket=512, engine_block_size=16,
         kv_cache="paged", attention_impl="kernel", engine_readback_lag=2,
@@ -536,11 +796,8 @@ def phase_main_path(dev, card, n_layers):
         "paged_decode": n_layers * steps,
         "fused_sample": steps + n_req,
     }
-    log(f"phase 4 launches during the main path: {launches}; expected {expected}; "
-        f"decode steps {steps}")
-    for name, n in expected.items():
-        if launches[name] <= 0 or launches[name] != n:
-            raise AssertionError(f"kernel {name}: {launches[name]} launches on the main path, expected {n}")
+    log(f"phase 4 decode steps {steps}")
+    check_launches("phase 4", launches, expected)
     ttft = sorted(r.ttft_s for r in results)
     gen_tokens = n_req * new_tokens
     log(f"phase 4 served {n_req} requests (prompts {int(lens.min())}-{int(lens.max())}, "
@@ -582,41 +839,277 @@ def phase_main_path(dev, card, n_layers):
                           decode_profile=profile)
 
 
-def profile_decode(eng, step_ms, card, n_steps=8):
-    """Device time per decode step by kernel group, from torch.profiler
+PROFILE_GROUPS = ("paged_verify", "paged_decode", "fused_sample", "flash_fwd", "sort")
+MATMUL_KEYS = ("gemm", "gemv", "cutlass", "sm90_", "cublas", "nvjet")
+
+
+def profile_decode(eng, step_ms, card, n_steps=8, label="phase 4 decode",
+                   out="profile_decode.txt"):
+    """Device time per engine step by kernel group, from torch.profiler
     over ``n_steps`` steps; the busy share divides it by the unprofiled
-    ``step_ms``. The full table goes to chiprun_out/profile_decode.txt."""
+    ``step_ms``. The full table goes to ``out`` in the output directory."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n_steps):
             eng.step()
         torch.cuda.synchronize()
-    groups = {"paged_decode": 0.0, "fused_sample": 0.0, "flash_fwd": 0.0, "matmul": 0.0, "other": 0.0}
+    groups = dict.fromkeys((*PROFILE_GROUPS, "matmul", "other"), 0.0)
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", 0.0)
         name = e.key.lower()
-        for g in ("paged_decode", "fused_sample", "flash_fwd"):
-            if g in name:
+        for g in PROFILE_GROUPS:
+            if g in name:  # paged_decode also names paged_decode_int8's kernel
                 groups[g] += us
                 break
         else:
-            matmul = any(t in name for t in ("gemm", "gemv", "cutlass", "sm90_", "cublas", "nvjet"))
-            groups["matmul" if matmul else "other"] += us
+            groups["matmul" if any(t in name for t in MATMUL_KEYS) else "other"] += us
     per_step = {g: us / n_steps / 1e3 for g, us in groups.items()}
     device_ms = sum(per_step.values())
     Path("chiprun_out").mkdir(exist_ok=True)
-    Path("chiprun_out/profile_decode.txt").write_text(
+    Path("chiprun_out", out).write_text(
         prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
     if device_ms == 0.0:
-        log("phase 4 profile: the profiler recorded no device time (not measured)")
+        log(f"{label} profile: the profiler recorded no device time (not measured)")
         return None
-    log(f"phase 4 decode profile: device time {device_ms:.3f} ms/step of {step_ms:.3f} ms wall "
+    log(f"{label} profile: device time {device_ms:.3f} ms/step of {step_ms:.3f} ms wall "
         f"(busy share {device_ms / step_ms:.3f}); by group ms/step "
         + ", ".join(f"{g}={v:.3f}" for g, v in per_step.items()) + f" [{card}]")
     return dict(device_ms_per_step=device_ms, busy_share=device_ms / step_ms, groups_ms=per_step)
+
+
+# ----------------------------------------------------------------- phase 7
+SPEC_SERVING = dict(engine_slots=8, engine_max_len=2048, engine_prompt_bucket=512,
+                    engine_block_size=16, attention_impl="kernel", speculative="ngram",
+                    spec_draft_len=4, engine_prefill_chunk=512, engine_readback_lag=2)
+SPEC_NEW_TOKENS = 64
+
+
+def spec_traffic(vocab):
+    """12 drafter-friendly prompts of 64-512 tokens and 4 of 1,025-1,500
+    random tokens (three 512-token chunks each), interleaved; even requests
+    greedy, odd ones sampled."""
+    rng = np.random.default_rng(0)
+    short = drafter_prompts(rng, 12, 64, 512, vocab)
+    long = [rng.integers(0, vocab, size=int(n)).astype(np.int32)
+            for n in rng.integers(1025, 1501, size=4)]
+    return short[:3] + long[:1] + short[3:6] + long[1:2] + short[6:9] + long[2:3] + short[9:] + long[3:]
+
+
+def serve_mix(dev, model, prompts, **overrides):
+    """Serve ``prompts`` at once through InferenceServer with the phase 7
+    config; launch counters reset just before the mix and read just after.
+    Returns (results, wall s, launches, engine counter deltas, engine)."""
+    from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.serving import InferenceServer
+    from accelerate_tpu_torch.utils.dataclasses import ServingConfig
+
+    scfg = ServingConfig(**{**SPEC_SERVING, **overrides})
+    with InferenceServer(model, scfg, device=dev) as srv:
+        # warm-up: a single-shot and a chunked prompt, unrelated to the mix
+        # (a shared prefix would skip the mix's chunks)
+        vocab = model.config.vocab_size
+        warm = [srv.submit(np.random.default_rng(1).integers(0, vocab, size=n).astype(np.int32),
+                           max_new_tokens=8) for n in (64, 1100)]
+        for f in warm:
+            f.result(timeout=300)
+        eng = srv.engine
+        before = dict(steps=eng.steps, verify=eng.spec_verify_steps, chunks=eng.prefill_chunks,
+                      inserted=eng.inserted, **{k: eng.stats()["spec"][k]
+                                                for k in ("drafted", "accepted", "wasted")})
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        futs = []
+        for i, p in enumerate(prompts):
+            sampled = i % 2 == 1
+            futs.append(srv.submit(
+                p, max_new_tokens=SPEC_NEW_TOKENS, temperature=0.8 if sampled else 0.0,
+                top_k=50 if sampled else None, top_p=0.9 if sampled else None, seed=i))
+        results = [f.result(timeout=900) for f in futs]
+        wall = time.perf_counter() - t0
+        launches = _build.launch_counts()
+        spec = eng.stats()["spec"]
+        delta = dict(steps=eng.steps - before["steps"],
+                     verify=eng.spec_verify_steps - before["verify"],
+                     chunks=eng.prefill_chunks - before["chunks"],
+                     inserted=eng.inserted - before["inserted"],
+                     **{k: spec[k] - before[k] for k in ("drafted", "accepted", "wasted")})
+        hbm = eng.stats()["kv"]["hbm_bytes"]
+    vocab = model.config.vocab_size
+    for p, r in zip(prompts, results):
+        new = r.tokens[len(p):]
+        if r.tokens.shape != (len(p) + SPEC_NEW_TOKENS,) or not (r.tokens[: len(p)] == p).all():
+            raise AssertionError("a result row has the wrong shape or prompt")
+        if not ((new >= 0) & (new < vocab)).all():
+            raise AssertionError("a generated token is out of the vocabulary")
+    delta["hbm_bytes"] = hbm
+    return results, wall, launches, delta, eng
+
+
+def expected_launches(n_layers, delta, n_single, n_chunked, suffix=""):
+    decode_steps = delta["steps"] - delta["verify"]
+    return {
+        "flash_fwd": n_layers * n_single,
+        "paged_decode" + suffix: n_layers * decode_steps,
+        "paged_verify" + suffix: n_layers * (delta["verify"] + delta["chunks"]),
+        "fused_sample": decode_steps + n_single + n_chunked,
+    }
+
+
+def check_launches(label, launches, expected):
+    log(f"{label} launches during the mix: { {k: launches[k] for k in launches if launches[k]} }; "
+        f"expected {expected}")
+    for name, n in expected.items():
+        if launches[name] <= 0 or launches[name] != n:
+            raise AssertionError(f"kernel {name}: {launches[name]} launches on {label}, expected {n}")
+    for name, n in launches.items():
+        if name not in expected and n:
+            raise AssertionError(f"kernel {name} launched {n} times on {label}, expected none")
+
+
+def phase_spec_path(dev, card, model):
+    """Phase 7: speculative decoding, chunked prefill and the int8 pool
+    through InferenceServer on the phase-4 model; returns the launches of
+    server A (paged pool) and server B (int8 pool) and the numbers."""
+    import dataclasses
+
+    cfg = model.config
+    n_layers = cfg.num_hidden_layers
+    prompts = spec_traffic(cfg.vocab_size)
+    is_long = [len(p) > SPEC_SERVING["engine_prompt_bucket"] for p in prompts]
+    n_chunked = sum(is_long)
+    n_single = len(prompts) - n_chunked
+    results, wall_a, launches, delta, eng = serve_mix(dev, model, prompts, kv_cache="paged")
+    expected = expected_launches(n_layers, delta, n_single, n_chunked)
+    log(f"phase 7 A (paged, spec ngram/4, chunk 512): engine steps {delta['steps']} (verify "
+        f"{delta['verify']}), chunks {delta['chunks']}, admissions {delta['inserted']}")
+    check_launches("phase 7 A", launches, expected)
+    if delta["chunks"] != 3 * n_chunked or delta["inserted"] != len(prompts):
+        raise AssertionError(f"phase 7 A: {delta['chunks']} chunks for {n_chunked} long prompts")
+    if not (delta["verify"] > 0 and delta["accepted"] > 0
+            and delta["accepted"] + delta["wasted"] == delta["drafted"]):
+        raise AssertionError(f"phase 7 A speculation counters are off: {delta}")
+    gen_tokens = len(prompts) * SPEC_NEW_TOKENS
+    ttft = {k: sorted(r.ttft_s for r, lg in zip(results, is_long) if lg == k) for k in (False, True)}
+    spec = eng.stats()["spec"]
+    accept_rate = delta["accepted"] / delta["drafted"]
+    log(f"phase 7 A served {len(prompts)} requests ({n_single} drafter-friendly of 64-512 tokens, "
+        f"{n_chunked} of 1,025-1,500 in 512-token chunks; {SPEC_NEW_TOKENS} new tokens each, half "
+        f"sampled) in {wall_a:.3f}s: {gen_tokens / wall_a:.1f} generated tokens/s; TTFT short min/p50/max "
+        f"{ttft[False][0]:.4f}/{ttft[False][len(ttft[False]) // 2]:.4f}/{ttft[False][-1]:.4f}s, "
+        f"chunked {ttft[True][0]:.4f}/{ttft[True][len(ttft[True]) // 2]:.4f}/{ttft[True][-1]:.4f}s; "
+        f"drafted {delta['drafted']}, accepted {delta['accepted']} (rate {accept_rate:.3f}), tokens "
+        f"per slot and verify step {spec['tokens_per_step']:.3f} (engine lifetime) [{card}]")
+    # every greedy request, teacher-forced through one plain-path forward:
+    # each token that is not the reference argmax must be a near-tie; the
+    # share of argmax tokens is held over all greedy requests together, as
+    # in phase 3 (random weights at 32 layers leave many top-2 gaps within
+    # the two paths' rounding, so one request's 64 tokens vary by chance)
+    cfg_r = dataclasses.replace(cfg, attention_impl="xla")
+    greedy = {}
+    for i, (p, r) in enumerate(zip(prompts, results)):
+        if i % 2 == 0:
+            greedy[i] = teacher_forced(cfg_r, model.params, p, r.tokens[len(p):].tolist())
+    share = sum(a for a, _, _ in greedy.values()) / sum(n for _, n, _ in greedy.values())
+    worst_gap = max(g for _, _, g in greedy.values())
+    log("phase 7 A greedy requests, teacher-forced plain-path forward (argmax tokens/tokens, "
+        "largest gap at the rest): " + ", ".join(f"{i}: {a}/{n} {g:.4f}" for i, (a, n, g) in greedy.items())
+        + f"; share {share:.3f} (min {GREEDY_SHARE_MIN}), largest gap {worst_gap:.4f} (near-tie "
+        f"limit {NEAR_TIE})")
+    if not (share >= GREEDY_SHARE_MIN and worst_gap <= NEAR_TIE):
+        raise AssertionError("phase 7 greedy tokens: kernel path disagrees with the plain path")
+    steady = spec_steady_state(eng, prompts, card)
+    a_tokens = [r.tokens for r in results]
+    a_launches = {k: launches[k] for k in expected}
+    del eng, results
+    torch.cuda.empty_cache()
+
+    results, wall_b, launches, delta8, eng = serve_mix(dev, model, prompts, kv_cache="paged_int8")
+    expected8 = expected_launches(n_layers, delta8, n_single, n_chunked, suffix="_int8")
+    check_launches("phase 7 B", launches, expected8)
+    agree = total = 0
+    for i, (ta, r) in enumerate(zip(a_tokens, results)):
+        if i % 2:
+            continue
+        new_a, new_b = ta[len(prompts[i]):], r.tokens[len(prompts[i]):]
+        diverge = np.flatnonzero(new_a != new_b)
+        agree += int(diverge[0]) if len(diverge) else len(new_a)
+        total += len(new_a)
+    log(f"phase 7 B (paged_int8, same mix): {gen_tokens / wall_b:.1f} generated tokens/s in "
+        f"{wall_b:.3f}s; engine steps {delta8['steps']} (verify {delta8['verify']}), accepted "
+        f"{delta8['accepted']}/{delta8['drafted']}; pool {delta8['hbm_bytes'] / 1e9:.3f} GB against "
+        f"A's {delta['hbm_bytes'] / 1e9:.3f} GB; greedy tokens equal to A's up to the first "
+        f"divergence: {agree}/{total} (information only) [{card}]")
+    del eng, results
+    torch.cuda.empty_cache()
+    numbers = dict(
+        tokens_per_s=gen_tokens / wall_a, wall_s=wall_a, counters=delta, acceptance_rate=accept_rate,
+        tokens_per_verify_step=spec["tokens_per_step"],
+        ttft_short_s=ttft[False], ttft_chunked_s=ttft[True], greedy_share=share,
+        greedy_worst_gap=worst_gap, **steady,
+        int8=dict(tokens_per_s=gen_tokens / wall_b, wall_s=wall_b, counters=delta8,
+                  greedy_prefix_agreement=agree / total),
+    )
+    return a_launches, {k: launches[k] for k in expected8}, numbers
+
+
+def spec_steady_state(eng, prompts, card):
+    """Steady-state verify-step and decode-step ms at 8 slots, ms per
+    512-token chunk, and a profile of verify steps, on phase 7 A's engine."""
+    with torch.no_grad():
+        eng.reset()
+        for p in prompts:
+            if len(p) <= 512 and eng.free_slots():
+                eng.insert(p[:300], max_new_tokens=600)
+        for _ in range(4):
+            eng.step()
+        verify_ms, decode_ms = [], []
+        for _ in range(24):
+            v0 = eng.spec_verify_steps
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            (verify_ms if eng.spec_verify_steps > v0 else decode_ms).append(
+                (time.perf_counter() - t0) * 1e3)
+            eng.poll()
+        verify_med = statistics.median(verify_ms) if verify_ms else None
+        profile = profile_decode(eng, verify_med, card, n_steps=4, label="phase 7 verify step",
+                                 out="profile_verify.txt") if verify_med else None
+        eng.set_spec_draft_limit(0)
+        for _ in range(2):
+            eng.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(16):
+            eng.step()
+            eng.poll()
+        torch.cuda.synchronize()
+        plain_decode_ms = (time.perf_counter() - t0) / 16 * 1e3
+        eng.set_spec_draft_limit(eng.spec_draft_len)
+        eng.reset()
+        eng.set_prefill_chunk_limit(0)
+        long = [p for p in prompts if len(p) > 1024][0]
+        eng.insert(long, max_new_tokens=4)  # its first chunk runs here
+        chunk_ms = []
+        while eng.prefill_chunks_pending():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.prefill_step(limit=1)
+            torch.cuda.synchronize()
+            chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        eng.set_prefill_chunk_limit(1)
+        eng.reset()
+    log(f"phase 7 steady state at 8 slots (positions 300+): verify step median "
+        f"{verify_med if verify_med is None else round(verify_med, 3)} ms over {len(verify_ms)} "
+        f"steps, decode step (drafting off) {plain_decode_ms:.3f} ms/step, decode steps taken "
+        f"between verify steps {len(decode_ms)}; 512-token chunk at offsets 512 and 1024: "
+        + ", ".join(f"{x:.3f}" for x in chunk_ms) + f" ms [{card}]")
+    return dict(verify_step_ms=verify_med, verify_steps_timed=len(verify_ms),
+                decode_step_ms=plain_decode_ms, chunk_ms=chunk_ms, verify_profile=profile)
 
 
 # ----------------------------------------------------------------- phase 5
@@ -841,6 +1334,18 @@ KERNEL_META = {
         route="cuda", source="accelerate_tpu_torch/csrc/paged_decode.cu",
         replaces="accelerate_tpu/ops/paged_decode.py:87",
     ),
+    "paged_decode_int8": dict(
+        route="cuda", source="accelerate_tpu_torch/csrc/paged_decode.cu",
+        replaces="accelerate_tpu/ops/paged_decode.py:87",
+    ),
+    "paged_verify": dict(
+        route="cuda", source="accelerate_tpu_torch/csrc/paged_verify.cu",
+        replaces="accelerate_tpu/ops/paged_decode.py:222",
+    ),
+    "paged_verify_int8": dict(
+        route="cuda", source="accelerate_tpu_torch/csrc/paged_verify.cu",
+        replaces="accelerate_tpu/ops/paged_decode.py:222",
+    ),
     "fused_sample": dict(
         route="cuda", source="accelerate_tpu_torch/csrc/fused_sample.cu",
         replaces="accelerate_tpu/ops/paged_decode.py:390",
@@ -885,6 +1390,7 @@ def main(argv=None) -> int:
         check_flash(dev, gen, results)
         check_flash_bwd(dev, gen, results)
         check_paged_decode(dev, gen, results)
+        check_paged_verify(dev, gen, results)
         check_fused_sample(dev, gen, results)
     launches = dict.fromkeys(KERNEL_META, 0)
     by_path = {}
@@ -892,7 +1398,11 @@ def main(argv=None) -> int:
     if not args.kernels:
         with torch.no_grad():
             phase_engine_parity(dev, card)
-            by_path["serving"], summary["main_path"] = phase_main_path(dev, card, args.layers)
+            model = serving_model(dev, args.layers)
+            by_path["serving"], summary["main_path"] = phase_main_path(dev, card, model)
+            by_path["serving_spec"], by_path["serving_int8"], summary["spec_path"] = (
+                phase_spec_path(dev, card, model))
+            del model
         torch.cuda.empty_cache()
         summary["train_parity"] = phase_train_parity(dev, card)
         by_path["training"], summary["train_main_path"] = phase_train_main_path(dev, card)

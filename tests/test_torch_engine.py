@@ -164,12 +164,20 @@ def test_engine_eos_budget_and_cancel(models):
 
 def test_engine_refuses_what_it_cannot_do(models):
     _, tmodel = models
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        ContinuousBatchingEngine(tmodel, spec="ngram", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        ContinuousBatchingEngine(tmodel, prefill_chunk=8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ContinuousBatchingEngine(tmodel, kv_cache="paged_int8", device="cpu")
+    # speculative decoding, chunked prefill and the int8 pool are ported:
+    # they construct (their behaviour: test_torch_spec.py, test_torch_longctx.py)
+    eng = ContinuousBatchingEngine(tmodel, spec="ngram", prefill_chunk=8, kv_cache="paged_int8",
+                                   attention_impl="kernel", device="cpu", **{
+                                       k: v for k, v in ENGINE_KW.items() if k != "kv_cache"})
+    assert eng.stats()["kv"]["backend"] == "paged_int8" and eng.stats()["spec"]["mode"] == "ngram"
+    eng.validate_request(40, 8)  # past the bucket: chunked
+    # still queued, each naming its queue
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
+        ContinuousBatchingEngine(tmodel, kv_cache="paged", host_tier_bytes=1 << 20, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
+        eng.prefill_remote(PROMPTS[0], max_new_tokens=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
+        eng.insert_prefilled(None)
     with pytest.raises(ValueError, match="paged"):
         ContinuousBatchingEngine(tmodel, attention_impl="kernel", kv_cache="dense", device="cpu")
     eng = ContinuousBatchingEngine(tmodel, device="cpu", **ENGINE_KW)
@@ -252,6 +260,10 @@ def test_serving_config_validation():
         ServingConfig(mode="static")
     with pytest.raises(ValueError, match="paged"):
         ServingConfig(attention_impl="kernel", kv_cache="dense")
+    ServingConfig(attention_impl="kernel", kv_cache="paged_int8", speculative="ngram",
+                  engine_prefill_chunk=64)
+    with pytest.raises(ValueError, match="kv_cache"):
+        ServingConfig(kv_cache="paged_fp8")
     with pytest.raises(ValueError, match="multiple"):
         ServingConfig(kv_cache="paged", engine_max_len=100, engine_block_size=16)
     with pytest.raises(ValueError, match="attention_impl"):

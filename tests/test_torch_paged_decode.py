@@ -85,13 +85,26 @@ def test_paged_decode_custom_scale_matches_jax_kernel():
 
 
 def test_int8_pool_and_verify_are_queued():
-    q, kp, vp, tables = (torch.from_numpy(x) for x in _pools(seed=8))
-    pos = torch.zeros(B, dtype=torch.int32)
-    scales = torch.ones(NB, BS)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        paged_flash_decode(q, kp, vp, tables, pos, k_scale=scales, v_scale=scales)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        paged_flash_verify(q, kp, vp, None, None, tables, pos)
+    # the int8 pool and the verify kernel were queued and are ported now:
+    # an int8 pool at unit scales is the f32 pool of its codes, and a
+    # one-token window whose key is the pool's own column at pos is decode
+    q, kp, vp, tables = _pools(seed=8)
+    kq = np.clip(np.round(kp * 40), -127, 127).astype(np.int8)
+    vq = np.clip(np.round(vp * 40), -127, 127).astype(np.int8)
+    pos = np.asarray([0, 5, BPR * BS - 1], np.int32)
+    ones = torch.ones(NB, BS)
+    args = [torch.from_numpy(x) for x in (q, kq, vq, tables, pos)]
+    out = paged_flash_decode(*args, k_scale=ones, v_scale=ones)
+    ref = paged_flash_decode(*(torch.from_numpy(x) for x in (q, kq.astype(np.float32),
+                                                               vq.astype(np.float32), tables, pos)))
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **TOL)
+    rows = np.arange(B)
+    blk, off = tables[rows, pos // BS], pos % BS
+    win_k, win_v = (torch.from_numpy(p[blk, off][:, None].copy()) for p in (kp, vp))
+    ver = paged_flash_verify(*(torch.from_numpy(x) for x in (q, kp, vp)), win_k, win_v,
+                             torch.from_numpy(tables), torch.from_numpy(pos))
+    dec = paged_flash_decode(*(torch.from_numpy(x) for x in (q, kp, vp, tables, pos)))
+    np.testing.assert_allclose(ver.numpy(), dec.numpy(), **TOL)
 
 
 def _sample_inputs(seed, s=8, v=64):
