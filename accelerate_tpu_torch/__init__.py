@@ -14,9 +14,14 @@ This package never imports ``jax`` or ``accelerate_tpu``. Entry points take
 
 Ported so far: Llama continuous-batching serving over a paged KV pool
 (``InferenceServer(mode="continuous")``) with speculative decoding,
-chunked prefill and the int8 pool, and one-device Llama training through
-the ``Accelerator`` (``prepare``, ``prepare_data_loader``, ``train_step``
-or the eager ``backward`` loop) with the flash backward kernels.
+chunked prefill and the int8 pool; one-device Llama training through the
+``Accelerator`` (``prepare``, ``prepare_data_loader``, ``train_step`` or the
+eager ``backward`` loop) with the flash backward kernels; and big-model
+inference on one device: ``init_empty_weights``, safetensors checkpoints
+read and written without the ``safetensors`` package,
+``load_checkpoint_in_model``, CPU and disk offload, and int8/int4/NF4
+weight quantization (``quantize_model``, ``load_and_quantize_model``) with
+the quantized matmul kernel.
 Distributed training, the host KV tier and the serving control plane are
 still to be ported (ROADMAP.md).
 """
@@ -29,12 +34,18 @@ __all__ = [
     "InferenceServer",
     "LlamaConfig",
     "LlamaForCausalLM",
+    "QuantizationConfig",
     "ServingConfig",
     "ServingResult",
     "create_llama",
     "get_logger",
+    "init_empty_weights",
     "init_llama_params",
     "llama_loss",
+    "load_and_quantize_model",
+    "load_checkpoint_in_model",
+    "quantize_model",
+    "quantized_matmul",
     "resolve_device",
 ]
 
@@ -68,6 +79,23 @@ _LAZY = {
     "ServingError": ("utils.fault", "ServingError"),
     "EngineCapacityError": ("utils.fault", "EngineCapacityError"),
     "EngineInvariantError": ("utils.fault", "EngineInvariantError"),
+    "init_empty_weights": ("big_modeling", "init_empty_weights"),
+    "abstract_params": ("big_modeling", "abstract_params"),
+    "load_checkpoint_in_model": ("big_modeling", "load_checkpoint_in_model"),
+    "load_checkpoint_and_dispatch": ("big_modeling", "load_checkpoint_and_dispatch"),
+    "dispatch_model": ("big_modeling", "dispatch_model"),
+    "cpu_offload": ("big_modeling", "cpu_offload"),
+    "disk_offload": ("utils.offload", "disk_offload"),
+    "get_max_memory": ("big_modeling", "get_max_memory"),
+    "QuantizationConfig": ("utils.quantization", "QuantizationConfig"),
+    "QuantizedLeaf": ("utils.quantization", "QuantizedLeaf"),
+    "NF4Leaf": ("utils.quantization", "NF4Leaf"),
+    "quantize_model": ("utils.quantization", "quantize_model"),
+    "quantize_params": ("utils.quantization", "quantize_params"),
+    "load_and_quantize_model": ("utils.quantization", "load_and_quantize_model"),
+    "quantized_matmul": ("ops.quant_matmul", "quantized_matmul"),
+    "save_sharded_safetensors": ("utils.serialization", "save_sharded_safetensors"),
+    "load_sharded_safetensors": ("utils.serialization", "load_sharded_safetensors"),
 }
 
 

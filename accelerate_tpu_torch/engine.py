@@ -250,7 +250,7 @@ class ContinuousBatchingEngine:
         device="cuda",
         clock: Callable[[], float] = time.monotonic,
     ):
-        from .models.llama import llama_decode_step, llama_prefill_at, llama_verify_step
+        from .models.llama import _check_supported, llama_decode_step, llama_prefill_at, llama_verify_step
 
         if host_tier_bytes:
             raise NotImplementedError(
@@ -282,6 +282,7 @@ class ContinuousBatchingEngine:
         self.device = resolve_device(device)
         self.model = model
         self.config = model.config
+        _check_supported(self.config, model.params)  # float trees only
         params_dev = model.params["embed_tokens"]["embedding"].device
         if params_dev != self.device:
             raise ValueError(f"model parameters are on {params_dev}, engine device is {self.device}")

@@ -18,6 +18,12 @@ tables computed in float64 on the host and cast to f32 (``apply_rope``),
 while decode computes its angles in f32 on the device from the per-slot
 positions (``apply_rope_at``): two paths, each reproduced as it is.
 
+Quantized weights (``utils.quantization.quantize_model``) run through
+:func:`llama_apply` and the model's forward only: a per-channel int8 or
+int4 projection multiplies through the quantized matmul kernel, other
+quantized leaves are dequantized first. The prefill, decode and verify
+steps take float trees, as in the JAX package.
+
 Not ported yet (ROADMAP.md): remat ``"dots"``/``"minimal"``, chunked CE,
 MoE layers, Gemma-2's alternating sliding window and fp8.
 """
@@ -35,7 +41,9 @@ import torch.utils.checkpoint
 from torch import nn
 
 from .._device import resolve_device
+from ..ops import quant_matmul as _qmm
 from ..ops.attention import NEG_INF, _write_window, dispatch_attention, tanh_softcap
+from ..utils.quantization import NF4Leaf, QuantizedLeaf
 
 __all__ = [
     "LlamaConfig",
@@ -182,7 +190,18 @@ class LlamaConfig:
         ), **overrides})
 
 
-def _check_supported(config: LlamaConfig) -> None:
+def _check_supported(config: LlamaConfig, params: Optional[dict] = None) -> None:
+    """Refuse what the port does not run yet. ``params``: the tree a
+    prefill, decode or verify step (or the engine) is given, which must be
+    float: only :func:`llama_apply` takes quantized leaves, as in the JAX
+    package, whose engine and ``generate`` take float trees."""
+    if params is not None and any(not isinstance(leaf, torch.Tensor) for _, leaf in _flatten(params)):
+        raise NotImplementedError(
+            "a quantized parameter tree runs only through llama_apply (the model's "
+            "forward); the prefill, decode and verify steps and the engine take float "
+            "trees, as in the JAX package (static generate over quantized weights: "
+            "ROADMAP.md A8)"
+        )
     if config.num_experts > 1:
         raise NotImplementedError(
             "MoE layers (num_experts > 1) are not ported yet (ROADMAP.md)"
@@ -194,22 +213,35 @@ def _check_supported(config: LlamaConfig) -> None:
 
 
 # ------------------------------------------------------------------- params
+def _building_empty() -> bool:
+    """Inside ``big_modeling.init_empty_weights`` (the default device is
+    ``meta``): build shapes and dtypes only."""
+    return torch.get_default_device().type == "meta"
+
+
 def init_llama_params(config: LlamaConfig, generator: torch.Generator,
                       device="cuda") -> dict:
     """Stacked-layer parameter tree, drawn like the JAX ``init_llama_params``:
     each projection ``normal * 1/sqrt(in_dim)``, the embedding ``normal *
     0.02``, norms at one (zero with ``rms_norm_offset``). ``generator`` must
-    live on ``device``; the numbers differ from ``jax.random``'s."""
+    live on ``device``; the numbers differ from ``jax.random``'s. Under
+    ``init_empty_weights`` every leaf is an empty ``meta`` tensor and
+    nothing is drawn (``generator`` may be None)."""
     _check_supported(config)
-    dev = resolve_device(device)
+    empty = _building_empty()
+    dev = torch.device("meta") if empty else resolve_device(device)
     d, i, v = config.hidden_size, config.intermediate_size, config.vocab_size
     h, kvh, hd = config.num_attention_heads, config.num_key_value_heads, config.head_dim
     L = config.num_hidden_layers
     dt = config.param_dtype
 
+    def draw(shape, scale):
+        if empty:
+            return torch.empty(shape, dtype=dt, device=dev)
+        return (torch.randn(shape, generator=generator, device=dev) * scale).to(dt)
+
     def dense(in_dim, out_dim):
-        return (torch.randn((in_dim, out_dim), generator=generator, device=dev)
-                * (1.0 / math.sqrt(in_dim))).to(dt)
+        return draw((in_dim, out_dim), 1.0 / math.sqrt(in_dim))
 
     def stacked(in_dim, out_dim):
         # one layer at a time keeps the f32 draw's footprint to one layer
@@ -228,9 +260,8 @@ def init_llama_params(config: LlamaConfig, generator: torch.Generator,
             entry["bias"] = torch.zeros((L, out_dim), dtype=dt, device=dev)
         return entry
 
-    embedding = (torch.randn((v, d), generator=generator, device=dev) * 0.02).to(dt)
     params = {
-        "embed_tokens": {"embedding": embedding},
+        "embed_tokens": {"embedding": draw((v, d), 0.02)},
         "layers": {
             "attn": {
                 "q_proj": proj(d, h * hd),
@@ -288,7 +319,10 @@ class LlamaForCausalLM(nn.Module):
     f32 logits (B, S, V) and casts the f32 master weights to
     ``config.compute_dtype`` per use (as ``examples/llama_finetune.py`` runs
     with ``model.policy = None``), so
-    :func:`~accelerate_tpu_torch.model.prepare_model` leaves it unwrapped."""
+    :func:`~accelerate_tpu_torch.model.prepare_model` leaves it unwrapped.
+    ``utils.quantization.quantize_model`` replaces projection parameters by
+    quantized leaves (modules under the same names), which ``params`` and
+    ``forward`` pass on as they are."""
 
     casts_per_use = True
 
@@ -304,11 +338,19 @@ class LlamaForCausalLM(nn.Module):
 
     @classmethod
     def from_seed(cls, config: LlamaConfig, seed: int = 0, device="cuda") -> "LlamaForCausalLM":
-        """Random weights drawn from ``torch.Generator(device).manual_seed(seed)``."""
+        """Random weights drawn from ``torch.Generator(device).manual_seed(seed)``;
+        under ``init_empty_weights``, empty ``meta`` parameters and no draw."""
+        if _building_empty():
+            return cls(config, init_llama_params(config, None))
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         return cls(config, init_llama_params(config, gen, dev))
+
+    def checkpoint_keys(self) -> list:
+        """(checkpoint key, attribute name) of every leaf: the key is the
+        tree path joined with ``"."``, as the JAX package names it."""
+        return [(".".join(path), name) for path, name in self._paths]
 
     def _tree(self, detach: bool) -> dict:
         tree: dict = {}
@@ -317,7 +359,7 @@ class LlamaForCausalLM(nn.Module):
             for key in path[:-1]:
                 node = node.setdefault(key, {})
             p = getattr(self, name)
-            node[path[-1]] = p.detach() if detach else p
+            node[path[-1]] = p.detach() if detach and isinstance(p, torch.Tensor) else p
         return tree
 
     @property
@@ -452,9 +494,23 @@ def apply_rope_window(x, pos, theta: float, scaling=None):
     return _rotate(x, *_rope_window_tables(pos, x.shape[1], x.shape[-1], theta, scaling, x.device))
 
 
+def _matmul(config, y, w):
+    """``y @ w`` for a projection weight: a float tensor is cast to the
+    compute dtype; a per-channel quantized leaf (int8 or linear int4)
+    multiplies as int8 through the quantized matmul kernel, scales after the
+    sum (the same function as ``y @ dequantize(w)``); a block-scaled or
+    NF4 leaf is dequantized to its original dtype, then cast, as the JAX
+    package does."""
+    if isinstance(w, QuantizedLeaf) and w.block_size is None:
+        return _qmm.quantized_matmul(y, w.q, w.scales)
+    if not isinstance(w, torch.Tensor):
+        w = w.dequantize()
+    return y @ w.to(config.compute_dtype)
+
+
 def _proj(config, layer_params, name, y):
     p = layer_params["attn"][name]
-    out = y @ p["kernel"].to(config.compute_dtype)
+    out = _matmul(config, y, p["kernel"])
     if "bias" in p:
         out = out + p["bias"].to(config.compute_dtype)
     return out
@@ -462,12 +518,11 @@ def _proj(config, layer_params, name, y):
 
 def _mlp_block(config, layer_params, x):
     """Post-attention half of a block: norm, SwiGLU/GeGLU MLP, residual."""
-    cdt = config.compute_dtype
     y = rms_norm(x, layer_params["post_attn_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
     mlp = layer_params["mlp"]
-    gate = y @ mlp["gate_proj"]["kernel"].to(cdt)
-    up = y @ mlp["up_proj"]["kernel"].to(cdt)
-    y = (_mlp_act(config, gate) * up) @ mlp["down_proj"]["kernel"].to(cdt)
+    gate = _matmul(config, y, mlp["gate_proj"]["kernel"])
+    up = _matmul(config, y, mlp["up_proj"]["kernel"])
+    y = _matmul(config, _mlp_act(config, gate) * up, mlp["down_proj"]["kernel"])
     if config.post_block_norms:
         y = rms_norm(y, layer_params["mlp_out_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
     return x + y
@@ -475,7 +530,7 @@ def _mlp_block(config, layer_params, x):
 
 def _attn_out(config, layer_params, attn, residual):
     b, s = attn.shape[:2]
-    attn = attn.reshape(b, s, -1) @ layer_params["attn"]["o_proj"]["kernel"].to(config.compute_dtype)
+    attn = _matmul(config, attn.reshape(b, s, -1), layer_params["attn"]["o_proj"]["kernel"])
     if config.post_block_norms:
         attn = rms_norm(attn, layer_params["attn_out_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
     return residual + attn
@@ -518,9 +573,20 @@ def _layer_trees(layers: dict, n: int) -> list:
     leaf. Its backward stacks the ``n`` layer gradients once; ``n`` slices
     (:func:`_layer_slice`) would each write a zero gradient of the whole
     stack, ``n`` times the gradient's bytes per step."""
-    split = {k: _layer_trees(v, n) if isinstance(v, dict) else v.unbind(0)
+    split = {k: _layer_trees(v, n) if isinstance(v, dict) else _unbind_leaf(v)
              for k, v in layers.items()}
     return [{k: v[i] for k, v in split.items()} for i in range(n)]
+
+
+def _unbind_leaf(leaf):
+    """Each layer's slice of a stacked leaf: a tensor or quantized leaf is
+    split; an NF4 leaf (packed over the whole flattened stack) is
+    dequantized first, as the JAX package does every leaf."""
+    if isinstance(leaf, NF4Leaf):
+        return leaf.dequantize().unbind(0)
+    if isinstance(leaf, QuantizedLeaf):
+        return leaf.layers()
+    return leaf.unbind(0)
 
 
 def _embed(config, params, ids):
@@ -537,7 +603,7 @@ def _head(config, params, x):
     if config.tie_word_embeddings:
         logits = x @ params["embed_tokens"]["embedding"].to(cdt).T
     else:
-        logits = x @ params["lm_head"]["kernel"].to(cdt)
+        logits = _matmul(config, x, params["lm_head"]["kernel"])
     return tanh_softcap(logits, config.final_logit_softcap).float()
 
 
@@ -631,7 +697,7 @@ def llama_flops_per_token(config: LlamaConfig, seq_len: int) -> float:
 def _prefill_stack(config: LlamaConfig, params, input_ids):
     """One full forward over the prompt -> (pre-final-norm hidden (B, S, D),
     stacked K and V (L, B, S, kvh, hd))."""
-    _check_supported(config)
+    _check_supported(config, params)
     x = _embed(config, params, input_ids)
     ks, vs = [], []
     for i in range(config.num_hidden_layers):
@@ -789,7 +855,7 @@ def llama_decode_step(config: LlamaConfig, params, cache, token, pos, *, kv_layo
     tensors updated in place: the dense arena (L, B, max_len, kvh, hd), or
     with ``kv_layout`` (a :class:`~accelerate_tpu_torch.kvcache
     .PagedKVLayout`) the block pool (L, num_blocks, block_size, kvh, hd)."""
-    _check_supported(config)
+    _check_supported(config, params)
     pos = torch.as_tensor(pos, device=token.device)
     x = _embed(config, params, token)
     # position-only work, done once for all layers
@@ -866,7 +932,7 @@ def llama_verify_step(config: LlamaConfig, params, cache, tokens, pos, *, kv_lay
     never reaches the store. With ``kv_layout`` the cache is the block pool
     (f32/bf16 or int8 ``{"q", "s"}`` leaves): the reference path gathers
     each layer's dense view, the kernel path runs the verify kernel."""
-    _check_supported(config)
+    _check_supported(config, params)
     pos = torch.as_tensor(pos, device=tokens.device)
     x = _embed(config, params, tokens)
     # position-only work, done once for all layers

@@ -52,6 +52,7 @@ KERNELS = {
     "paged_verify": "paged_verify.cu",
     "paged_verify_int8": "paged_verify.cu",
     "fused_sample": "fused_sample.cu",
+    "quant_matmul": "quant_matmul.cu",
 }
 
 NVCC_FLAGS = (

@@ -1,1 +1,2 @@
-"""Config dataclasses and the serving error taxonomy of the port."""
+"""Config dataclasses, the serving error taxonomy, checkpoint files,
+model sizes, offload and weight quantization of the port."""

@@ -3,8 +3,10 @@ this checkout, holds each one against its plain PyTorch version on the
 card, and drives the port's main paths with seeded random weights:
 Llama-3-8B continuous-batching serving through ``InferenceServer`` at full
 width and depth, plain and with speculative decoding, chunked prefill and
-the int8 KV pool, and Llama-3-8B training steps through the
-``Accelerator`` at full width and 4 layers.
+the int8 KV pool; the same model quantized to int8 weights, and a
+checkpoint written, loaded into an empty model and quantized; and
+Llama-3-8B training steps through the ``Accelerator`` at full width and 4
+layers.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -17,8 +19,10 @@ Phases (any failure exits non-zero and prints no result):
      also with segment ids; B2/B3 also with segment ids, a ragged S, an lse
      cotangent, softcap and window, non-causal; B4 with bf16/f32/int8
      pools; B5 at the spec shape W=5 and the chunk shape W=512, bf16/f32/
-     int8 pools, softcap, n_rep=1): max abs error against a stated
-     tolerance, median kernel / plain / library times and the bound
+     int8 pools, softcap, n_rep=1; B7 at every Llama-3-8B projection shape,
+     M = 8 and 2048, bf16/f32 x, int4-range codes, ragged M/K/N, f16 x):
+     max abs error against a stated tolerance, median kernel / plain /
+     library times and the bound
   3. the engine's kernel path against its reference path at full width and
      2 layers (prefill, first decode, verify W=5 and a 512 chunk, int8
      decode and verify logits; greedy tokens, plain and speculative), with
@@ -31,6 +35,13 @@ Phases (any failure exits non-zero and prints no result):
      the int8 pool (B): launches against the engine's counters, greedy
      requests teacher-forced, tokens/s, TTFT, acceptance, step and chunk
      times, a profile of a verify step
+  8. (run right after 7, on its model) quantized big-model inference: the
+     model quantized to int8 in place, its forward over 4 x 512 tokens
+     through B7 and B1 (225 B7 launches per forward) held against the
+     plain-dequantize path, with a planted scale fault that must fail the
+     check; then Llama-3-8B at full width and 4 layers written to sharded
+     safetensors, loaded into an empty (meta) model and quantized, bitwise
+     equal to quantizing the in-memory copy
   5. a training step's kernel path against its reference path at full
      width, 2 layers, f32 (loss and every gradient leaf), with a planted
      fault that must exceed the limit
@@ -77,10 +88,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20, repeats: int = 5) -> float:
+def time_ms(fn, iters: int = 20, repeats: int = 5, warmup: int = 3) -> float:
     """Median over ``repeats`` of the mean time of ``iters`` back-to-back
-    calls, by CUDA events (after warm-up)."""
-    for _ in range(3):
+    calls, by CUDA events (after ``warmup`` calls)."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     samples = []
@@ -491,6 +502,142 @@ def check_fused_sample_sweep(dev, gen, v) -> int:
     if mismatches:
         raise AssertionError(f"fused_sample disagrees with its plain version on {mismatches} rows")
     return mismatches
+
+
+# B7: one output ulp. Outputs are kept below 4 (checked), so the bf16 limit
+# is one ulp of [2, 4) (2^-6 = 0.0156) and the f16 one 2^-9; an f32 output
+# is held to 1e-4 of the largest, the sum running over up to 14,336 terms
+B7_TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-3}
+B7_F32_RTOL = 1e-4
+# Llama-3-8B's projections: name -> (K, N, launches per layer or per forward)
+B7_SHAPES = {
+    "q_o": (4096, 4096, 2), "k_v": (4096, 1024, 2), "gate_up": (4096, 14336, 2),
+    "down": (14336, 4096, 1), "head": (4096, 128256, None),
+}
+
+
+def b7_operands(gen, dev, m, k, n, dtype, qmax=127):
+    """x (M, K), int8 q (K, N) with |q| <= qmax, per-column scales that keep
+    the outputs near 0.3 standard deviation (below 4 everywhere)."""
+    x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    q = torch.randint(-qmax, qmax + 1, (k, n), generator=gen, device=dev, dtype=torch.int8)
+    scales = (0.5 + torch.rand(n, generator=gen, device=dev)) * (0.3 * 3 ** 0.5 / (qmax * k ** 0.5))
+    return x, q, scales
+
+
+def b7_error(x, q, scales, label):
+    from accelerate_tpu_torch.ops.quant_matmul import quantized_matmul, quantized_matmul_plain
+
+    out = quantized_matmul(x, q, scales)
+    ref = quantized_matmul_plain(x, q, scales)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    top = ref.float().abs().max().item()
+    if x.dtype == torch.float32:
+        ok, tol = err <= B7_F32_RTOL * top, f"{B7_F32_RTOL:g} x max|out| = {B7_F32_RTOL * top:.3e}"
+    else:
+        ok, tol = err <= B7_TOL[x.dtype] and top < 4.0, f"{B7_TOL[x.dtype]:g} (max|out| {top:.3f} < 4)"
+    log(f"B7 quant_matmul {label} {x.dtype} (M={x.shape[0]}, K={q.shape[0]}, N={q.shape[1]}) "
+        f"max_abs_err={err:.3e} tol {tol}")
+    if not ok:
+        raise AssertionError(f"quant_matmul {label} {x.dtype} disagrees with its plain version")
+    return err
+
+
+def check_quant_matmul(dev, gen, results):
+    """B7 against its plain version at Llama-3-8B's projection shapes, M = 8
+    (decode) and M = 2048 (the phase-8 forward's 4 x 512 tokens), bf16 and
+    (at the three largest shapes) f32 x; then int4-range codes, a ragged
+    M/K/N and an f16 x. Times: kernel, plain, and the library yardstick
+    cuBLAS ``x @ w_bf16`` with ``w`` dequantized ahead (untimed)."""
+    from accelerate_tpu_torch.ops.quant_matmul import quantized_matmul, quantized_matmul_plain
+
+    per_m = {}
+    int8pack = {}
+    pack_available = True
+    for m in (8, 2048):
+        sums = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, t_bytes=0.0, t_ops=0.0, err=0.0)
+        for name, (k, n, per_layer) in B7_SHAPES.items():
+            count = 1 if per_layer is None else per_layer * 32
+            dtypes = (torch.bfloat16,) if name in ("q_o", "k_v") else (torch.bfloat16, torch.float32)
+            for dtype in dtypes:
+                x, q, scales = b7_operands(gen, dev, m, k, n, dtype)
+                err = b7_error(x, q, scales, name)
+                iters = 3 if m * n * k > 1e11 else 20
+                ms = time_ms(lambda: quantized_matmul(x, q, scales), iters=iters, repeats=3)
+                plain_ms = time_ms(lambda: quantized_matmul_plain(x, q, scales), iters=iters, repeats=3)
+                w = (q.float() * scales).to(dtype)  # dequantized ahead, untimed
+                lib_ms = time_ms(lambda: x @ w, iters=iters, repeats=3)
+                del w
+                item = dtype.itemsize
+                nbytes = m * k * item + k * n + n * 4 + m * n * item
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = 2.0 * m * k * n / PEAK_FLOPS[dtype] * 1e3
+                bms, by = bound_ms(nbytes, 2.0 * m * k * n, dtype)
+                extra = ""
+                if dtype == torch.bfloat16:
+                    pack_ms = time_int8pack(x, q, scales, iters) if pack_available else None
+                    pack_available = pack_ms is not None
+                    if pack_ms is not None:
+                        int8pack[m] = int8pack.get(m, 0.0) + pack_ms * count
+                        extra = f" torch._weight_int8pack_mm_ms={pack_ms:.4f}"
+                    for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                                   ("t_bytes", t_bytes), ("t_ops", t_ops)):
+                        sums[key] += v * count
+                    sums["err"] = max(sums["err"], err)
+                log(f"  ms={ms:.4f} plain_ms={plain_ms:.4f} cublas_dequantized_ms={lib_ms:.4f}{extra} "
+                    f"bound_ms={bms:.5f} ({by}); {count} per 32-layer forward")
+                del x, q, scales
+        per_m[m] = sums
+        torch.cuda.empty_cache()
+    gen_case = [("int4_range", 2048, 4096, 14336, torch.bfloat16, 7),
+                ("ragged", 7, 4100, 1000, torch.bfloat16, 127),
+                ("ragged", 7, 4100, 1000, torch.float32, 127),
+                ("ragged", 130, 4100, 1000, torch.bfloat16, 127),
+                ("f16_x", 8, 4096, 14336, torch.float16, 127),
+                ("f16_x", 2048, 4096, 4096, torch.float16, 127)]
+    for label, m, k, n, dtype, qmax in gen_case:
+        b7_error(*b7_operands(gen, dev, m, k, n, dtype, qmax), label)
+    main, decode = per_m[2048], per_m[8]
+
+    def bound(s):
+        return (s["t_bytes"], "bytes") if s["t_bytes"] >= s["t_ops"] else (s["t_ops"], "operations")
+
+    (bms, by), (dbms, dby) = bound(main), bound(decode)
+    log(f"B7 per 32-layer forward (225 launches, bf16): M=2048 kernel {main['ms']:.3f} ms, plain "
+        f"{main['plain_ms']:.3f} ms, cuBLAS on dequantized bf16 {main['library_ms']:.3f} ms, bound "
+        f"{bms:.3f} ms ({by}); M=8 kernel {decode['ms']:.3f} ms, plain {decode['plain_ms']:.3f} ms, "
+        f"cuBLAS {decode['library_ms']:.3f} ms, bound {dbms:.3f} ms ({dby})"
+        + (f"; torch._weight_int8pack_mm {int8pack}" if int8pack else "; torch._weight_int8pack_mm "
+           "not available on this card's torch"))
+    results["quant_matmul"] = dict(
+        max_abs_err=main["err"], ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=bms, bound_by=by,
+        library_ms=main["library_ms"], decode_max_abs_err=decode["err"], decode_ms=decode["ms"],
+        decode_plain_ms=decode["plain_ms"], decode_bound_ms=dbms, decode_bound_by=dby,
+        decode_library_ms=decode["library_ms"],
+        int8pack_ms={str(m): v for m, v in int8pack.items()} or None,
+        shape="sum over one 32-layer Llama-3-8B forward's 225 launches at M = 2048 (decode_*: M = 8)",
+    )
+
+
+def time_int8pack(x, q, scales, iters):
+    """ms of ``torch._weight_int8pack_mm`` (int8 weights as (N, K), scales
+    in x's dtype) where this torch has it on CUDA, else None: a library call
+    of the same function, timed as a yardstick only (one call after one
+    warm-up at prefill shapes, where it takes up to seconds)."""
+    op = getattr(torch, "_weight_int8pack_mm", None)
+    if op is None:
+        return None
+    qt, s = q.t().contiguous(), scales.to(x.dtype)
+    try:
+        op(x, qt, s)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as exc:
+        log(f"  torch._weight_int8pack_mm unavailable: {str(exc).splitlines()[0][:120]}")
+        return None
+    if x.shape[0] > 64:
+        return time_ms(lambda: op(x, qt, s), iters=1, repeats=1, warmup=1)
+    return time_ms(lambda: op(x, qt, s), iters=iters, repeats=3)
 
 
 # ----------------------------------------------------------------- phase 3
@@ -1112,6 +1259,216 @@ def spec_steady_state(eng, prompts, card):
                 decode_step_ms=plain_decode_ms, chunk_ms=chunk_ms, verify_profile=profile)
 
 
+# ----------------------------------------------------------------- phase 8
+Q_BATCH, Q_SEQ = 4, 512
+Q_FORWARDS = 2  # timed forwards, after one warm-up
+CKPT_LAYERS = 4
+
+
+def greedy_agreement(logits, ref):
+    """(share of positions whose argmax is ``ref``'s, largest gap at the
+    rest): how far the chosen token's ``ref`` logit sits below ``ref``'s
+    argmax, as in phase 7's teacher-forced check."""
+    chosen = logits.argmax(-1)
+    top = ref.argmax(-1)
+    share = (chosen == top).float().mean().item()
+    gap = (ref.max(-1).values - ref.gather(-1, chosen[..., None])[..., 0]).max().item()
+    return share, gap
+
+
+def projection_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+               if "proj" in n or "lm_head" in n)
+
+
+def phase_quantized(dev, card, model):
+    """Phase 8 (a): the phase-4 model (32 layers, bf16) quantized to int8 in
+    place; its forward over 4 x 512 tokens runs each projection through B7
+    and attention through B1. Returns (launches, numbers)."""
+    from accelerate_tpu_torch.models.llama import llama_apply
+    from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.ops import quant_matmul as qmm
+    from accelerate_tpu_torch.utils.quantization import (
+        QuantizationConfig, dequantize_leaf, quantize_model,
+    )
+
+    cfg = model.config
+    n_layers = cfg.num_hidden_layers
+    ids = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, size=(Q_BATCH, Q_SEQ))).to(dev)
+    bf16_bytes = projection_bytes(model)
+    logits_bf16 = model(ids)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quantize_model(model, QuantizationConfig(load_in_8bit=True))
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    int8_bytes = sum(b.numel() * b.element_size() for _, b in model.named_buffers())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model(ids)  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(Q_FORWARDS):
+        logits_q = model(ids)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    expected = {"quant_matmul": (7 * n_layers + 1) * Q_FORWARDS, "flash_fwd": n_layers * Q_FORWARDS}
+    check_launches("phase 8", launches, expected)
+    if logits_q.shape != (Q_BATCH, Q_SEQ, cfg.vocab_size) or not torch.isfinite(logits_q).all():
+        raise AssertionError("quantized logits have the wrong shape or are not finite")
+
+    # the plain path: the same model with B7's plain version in place of
+    # the kernel (the same function; the f32 sums run in another order),
+    # attention through B1 on both sides; held as phase 7 holds its greedy
+    # tokens. A planted fault (each output column scaled by its neighbour's
+    # scale) must fail the same check.
+    kernel = qmm.quantized_matmul
+
+    def logits_with(matmul):
+        qmm.quantized_matmul = matmul
+        try:
+            return model(ids)
+        finally:
+            qmm.quantized_matmul = kernel
+
+    logits_p = logits_with(qmm.quantized_matmul_plain)
+    share, gap = greedy_agreement(logits_q, logits_p)
+    log(f"phase 8 kernel path (B7) vs plain path (B7's plain version), int8 Llama-3-8B {n_layers} "
+        f"layers, {Q_BATCH} x {Q_SEQ} tokens: argmax share {share:.4f} (min {GREEDY_SHARE_MIN}), "
+        f"largest gap at the rest {gap:.4f} (near-tie limit {NEAR_TIE}); max |logit diff| "
+        f"{(logits_q - logits_p).abs().max().item():.4f}")
+    if not (share >= GREEDY_SHARE_MIN and gap <= NEAR_TIE):
+        raise AssertionError("phase 8: the quantized kernel path disagrees with the plain path")
+    bad_share, bad_gap = greedy_agreement(logits_with(
+        lambda x, q, sc: kernel(x, q, sc.reshape(-1).roll(1).contiguous())), logits_p)
+    log(f"phase 8 planted fault (each output column scaled by its neighbour's scale): argmax share "
+        f"{bad_share:.4f}, largest gap {bad_gap:.4f} (the check must fail)")
+    if bad_share >= GREEDY_SHARE_MIN and bad_gap <= NEAR_TIE:
+        raise AssertionError("phase 8's check cannot see neighbouring scales")
+    # the JAX package's way, information only: every leaf dequantized to
+    # bf16 (each weight rounded to bf16, which the kernel path never does),
+    # then the float forward
+    plain_params = map_tree(dequantize_leaf, model.params)
+    deq_share, deq_gap = greedy_agreement(logits_q, llama_apply(cfg, plain_params, ids))
+    del plain_params
+    log(f"phase 8 kernel path vs dequantize-then-bf16-matmul path (information only): argmax share "
+        f"{deq_share:.4f}, largest gap at the rest {deq_gap:.4f}")
+
+    agree_bf16 = (logits_q.argmax(-1) == logits_bf16.argmax(-1)).float().mean().item()
+    diff = (logits_q - logits_bf16).abs()
+    ms = wall / Q_FORWARDS * 1e3
+    tokens_per_s = Q_BATCH * Q_SEQ / (ms / 1e3)
+    log(f"phase 8 int8 vs bf16 (information only): argmax agreement {agree_bf16:.4f}, |logit diff| max "
+        f"{diff.max().item():.4f} mean {diff.mean().item():.5f}; projection weights {int8_bytes / 1e9:.3f} GB "
+        f"int8 + scales against {bf16_bytes / 1e9:.3f} GB bf16 ({int8_bytes / bf16_bytes:.4f}); quantize_model "
+        f"{quant_s:.2f}s; {ms:.1f} ms per forward, {tokens_per_s:.0f} scored tokens/s, peak memory "
+        f"{peak / 1e9:.2f} GB [{card}]")
+    del logits_bf16, logits_p, diff
+    profile = profile_forward(model, ids, ms, card)
+    return {k: launches[k] for k in expected}, dict(
+        ms_per_forward=ms, tokens_per_s=tokens_per_s, peak_memory_bytes=peak, quantize_s=quant_s,
+        int8_projection_bytes=int8_bytes, bf16_projection_bytes=bf16_bytes, greedy_share=share,
+        greedy_worst_gap=gap, planted_fault_share=bad_share, planted_fault_gap=bad_gap,
+        dequantize_path_share=deq_share, dequantize_path_gap=deq_gap,
+        argmax_agreement_with_bf16=agree_bf16, profile=profile)
+
+
+def map_tree(fn, tree):
+    return {k: map_tree(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def profile_forward(model, ids, ms, card):
+    """Busy share of one profiled quantized forward (union of the kernels'
+    intervals over its wall) and device time by group."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model(ids)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    Path("chiprun_out").mkdir(exist_ok=True)
+    Path("chiprun_out/profile_quantized.txt").write_text(
+        prof.key_averages().table(sort_by="self_device_time_total", row_limit=30))
+    events = device_events(prof, "chiprun_out/trace_quantized.json")
+    if not events:
+        log("phase 8 profile: the profiler recorded no device time (not measured)")
+        return None
+    groups = dict.fromkeys(("quant_matmul", "flash_fwd", "other"), 0.0)
+    for name, _, dur in events:
+        lower = name.lower()
+        groups[next((g for g in ("quant_matmul", "flash_fwd") if g in lower), "other")] += dur / 1e3
+    busy = busy_us(events) / 1e3
+    log(f"phase 8 forward profile: kernels busy {busy:.1f} ms of the profiled forward's {wall_ms:.1f} ms "
+        f"(busy share {busy / wall_ms:.3f}; unprofiled {ms:.1f} ms); by group ms "
+        + ", ".join(f"{g}={v:.1f}" for g, v in groups.items()) + f" [{card}]")
+    return dict(busy_ms=busy, profiled_wall_ms=wall_ms, busy_share=busy / wall_ms, groups_ms=groups)
+
+
+def phase_checkpoint(dev, card):
+    """Phase 8 (b): Llama-3-8B at full width and 4 layers, seeded bf16
+    weights, written with the port's safetensors writer in 1 GB shards, then
+    loaded into a model built under init_empty_weights and quantized; the
+    int8 bytes and the logits must equal quantize_model's on the in-memory
+    copy, bitwise."""
+    import os
+    import tempfile
+
+    from accelerate_tpu_torch.big_modeling import init_empty_weights
+    from accelerate_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, create_llama
+    from accelerate_tpu_torch.utils.quantization import (
+        QuantizationConfig, load_and_quantize_model, quantize_model,
+    )
+    from accelerate_tpu_torch.utils.serialization import save_sharded_safetensors
+
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=CKPT_LAYERS, param_dtype=torch.bfloat16,
+                                compute_dtype=torch.bfloat16, attention_impl="flash")
+    qcfg = QuantizationConfig(load_in_8bit=True)
+    src = LlamaForCausalLM.from_seed(cfg, seed=4, device=dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        files = save_sharded_safetensors(src.params, tmp, max_shard_size="1GB")
+        write_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(f) for f in files)
+        torch.cuda.reset_peak_memory_stats()
+        with init_empty_weights():
+            loaded = create_llama(cfg, seed=0, device=dev)
+        if not all(p.is_meta for p in loaded.parameters()):
+            raise AssertionError("init_empty_weights left a parameter off the meta device")
+        t0 = time.perf_counter()
+        load_and_quantize_model(loaded, tmp, qcfg, device=dev)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    quantize_model(src, qcfg)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    got, want = dict(loaded.named_buffers()), dict(src.named_buffers())
+    same = sorted(got) == sorted(want) and all(torch.equal(got[k], want[k]) for k in want)
+    same = same and all(torch.equal(p, src.get_parameter(n)) for n, p in loaded.named_parameters())
+    ids = torch.from_numpy(np.random.default_rng(9).integers(0, cfg.vocab_size, size=(2, 256))).to(dev)
+    logits_equal = torch.equal(loaded(ids), src(ids))
+    log(f"phase 8 checkpoint (Llama-3-8B width, {CKPT_LAYERS} layers, bf16): {len(files)} files, "
+        f"{nbytes / 1e9:.3f} GB written in {write_s:.2f}s ({nbytes / write_s / 1e9:.2f} GB/s); "
+        f"load_and_quantize_model into an empty model {read_s:.2f}s ({nbytes / read_s / 1e9:.2f} GB/s of "
+        f"checkpoint; quantize_model alone {quant_s:.2f}s), peak memory {peak / 1e9:.2f} GB; int8 bytes "
+        f"and leaves equal to the in-memory quantization: {same}; logits bitwise equal: {logits_equal} "
+        f"[{card}]")
+    if not (same and logits_equal and len(files) > 1):
+        raise AssertionError("phase 8: load-then-quantize differs from quantizing in memory")
+    del src, loaded
+    torch.cuda.empty_cache()
+    return dict(files=len(files), checkpoint_bytes=nbytes, write_s=write_s, load_quantize_s=read_s,
+                quantize_s=quant_s, peak_memory_bytes=peak)
+
+
 # ----------------------------------------------------------------- phase 5
 # f32 weights and compute on both paths: only attention differs (the flash
 # kernels' tiled f32 FMA sums against the materialised reference and its
@@ -1263,11 +1620,11 @@ TRAIN_GROUPS = (
 )
 
 
-def device_events(prof):
+def device_events(prof, path="chiprun_out/trace_train.json"):
     """(name, start_us, dur_us) of every kernel, memcpy and memset in a
-    profile, from its Chrome trace: annotation ranges (such as
-    ``Optimizer.step``) and host-side entries are left out."""
-    path = Path("chiprun_out/trace_train.json")
+    profile, from its Chrome trace (written to ``path``): annotation ranges
+    (such as ``Optimizer.step``) and host-side entries are left out."""
+    path = Path(path)
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
     return [(e["name"], float(e["ts"]), float(e["dur"])) for e in events
@@ -1350,6 +1707,10 @@ KERNEL_META = {
         route="cuda", source="accelerate_tpu_torch/csrc/fused_sample.cu",
         replaces="accelerate_tpu/ops/paged_decode.py:390",
     ),
+    "quant_matmul": dict(
+        route="cuda", source="accelerate_tpu_torch/csrc/quant_matmul.cu",
+        replaces="accelerate_tpu/ops/quant_matmul.py:33",
+    ),
 }
 
 
@@ -1392,6 +1753,7 @@ def main(argv=None) -> int:
         check_paged_decode(dev, gen, results)
         check_paged_verify(dev, gen, results)
         check_fused_sample(dev, gen, results)
+        check_quant_matmul(dev, gen, results)
     launches = dict.fromkeys(KERNEL_META, 0)
     by_path = {}
     summary = {"card": card, "build_s": secs}
@@ -1402,7 +1764,10 @@ def main(argv=None) -> int:
             by_path["serving"], summary["main_path"] = phase_main_path(dev, card, model)
             by_path["serving_spec"], by_path["serving_int8"], summary["spec_path"] = (
                 phase_spec_path(dev, card, model))
+            by_path["quantized"], summary["quantized_path"] = phase_quantized(dev, card, model)
             del model
+            torch.cuda.empty_cache()
+            summary["checkpoint"] = phase_checkpoint(dev, card)
         torch.cuda.empty_cache()
         summary["train_parity"] = phase_train_parity(dev, card)
         by_path["training"], summary["train_main_path"] = phase_train_main_path(dev, card)

@@ -1,8 +1,9 @@
 """Import hygiene and device discipline of the PyTorch port.
 
 * Importing every ``accelerate_tpu_torch`` module and ``chip_smoke`` must
-  not import ``jax`` or the JAX package ``accelerate_tpu`` (the card's
-  machine has neither); checked in a fresh interpreter.
+  not import ``jax``, the JAX package ``accelerate_tpu`` or ``safetensors``
+  (the card's machine has none of them; the port reads and writes the
+  format itself); checked in a fresh interpreter.
 * Entry points default to the card and raise when it is absent: nothing
   carries on silently on the CPU.
 * Kernel wrappers given a tensor that is not on the CPU either launch the
@@ -52,11 +53,14 @@ def test_port_and_chip_smoke_import_no_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120, check=True)
     report = json.loads(out.stdout.strip().splitlines()[-1])
-    for name in ("engine", "serving", "state", "optimizer", "accelerator", "data_loader", "model"):
+    for name in ("engine", "serving", "state", "optimizer", "accelerator", "data_loader", "model",
+                 "big_modeling", "ops.quant_matmul", "utils.quantization", "utils.serialization",
+                 "utils.modeling", "utils.offload", "utils.constants"):
         assert f"accelerate_tpu_torch.{name}" in report["modules"]
     leaked = [m for m in report["new"]
               if m == "jax" or m.startswith(("jax.", "jaxlib"))
-              or m == "accelerate_tpu" or m.startswith("accelerate_tpu.")]
+              or m == "accelerate_tpu" or m.startswith("accelerate_tpu.")
+              or m == "safetensors" or m.startswith("safetensors.")]
     assert leaked == []
 
 
@@ -184,3 +188,24 @@ def test_fused_sample_wrapper_refuses_instead_of_falling_back(bad):
     k = _meta(2, dtype=torch.int64 if bad == "int64_top_k" else torch.int32)
     with pytest.raises(TypeError if bad != "not_cuda" else ValueError):
         fused_sample(logits, noise, t, k, t)
+
+
+QMM_REFUSALS = {
+    "int32_q": (dict(q_dtype=torch.int32), TypeError),
+    "float64_x": (dict(x_dtype=torch.float64), TypeError),
+    "non_contiguous_x": (dict(transpose=True), ValueError),
+    "not_cuda": (dict(), ValueError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(QMM_REFUSALS))
+def test_quant_matmul_wrapper_refuses_instead_of_falling_back(case):
+    from accelerate_tpu_torch.ops.quant_matmul import quantized_matmul
+
+    opts, exc = QMM_REFUSALS[case]
+    x = _meta(8, 64, dtype=opts.get("x_dtype", torch.bfloat16))
+    if opts.get("transpose"):
+        x = _meta(64, 8).T
+    q = _meta(64, 32, dtype=opts.get("q_dtype", torch.int8))
+    with pytest.raises(exc):
+        quantized_matmul(x, q, _meta(32, dtype=torch.float32))
