@@ -32,7 +32,9 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 __all__ = [
+    "FILL_BLOCKS",
     "KERNELS",
+    "SMS",
     "build_all",
     "count_launch",
     "launch_counts",
@@ -45,6 +47,7 @@ __all__ = [
 # kernel name (its C entry point) -> source file under accelerate_tpu_torch/csrc
 KERNELS = {
     "flash_fwd": "flash_fwd.cu",
+    "flash_fwd_mma": "flash_fwd.cu",
     "flash_bwd_dq": "flash_bwd.cu",
     "flash_bwd_dkv": "flash_bwd.cu",
     "paged_decode": "paged_decode.cu",
@@ -53,7 +56,14 @@ KERNELS = {
     "paged_verify_int8": "paged_verify.cu",
     "fused_sample": "fused_sample.cu",
     "quant_matmul": "quant_matmul.cu",
+    "quant_matmul_mma": "quant_matmul.cu",
+    "quant_matmul_splitk": "quant_matmul.cu",
 }
+
+# the card the kernels are built for (H100 SXM, sm_90a): its SMs, and the
+# blocks that fill it at two per SM (the tile choices aim for that)
+SMS = 132
+FILL_BLOCKS = 2 * SMS
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

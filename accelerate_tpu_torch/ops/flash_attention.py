@@ -10,7 +10,9 @@
   ``jax.custom_vjp`` of ``_flash_core`` / ``_flash_core_lse``). A CUDA
   tensor launches the hand-written kernels (``csrc/flash_fwd.cu`` for the
   forward, ``csrc/flash_bwd.cu`` for dq and for dk/dv) or raises; a CPU
-  tensor runs the plain versions.
+  tensor runs the plain versions. The forward has two variants, chosen by
+  :func:`flash_fwd_kernel_for` from the dtype: ``flash_fwd_mma`` (bf16, the
+  products on the tensor cores) and ``flash_fwd`` (f32, FMA loops).
 
 Layout (B, S, H, D) for q/out/do, (B, S, H_kv, D) for k/v, lse (B, H, Sq)
 f32. ``segment_ids`` (B, Sq) / ``kv_segment_ids`` (B, Skv) are packed-
@@ -35,6 +37,8 @@ from .attention import NEG_INF
 
 __all__ = [
     "flash_attention",
+    "flash_fwd_block_q",
+    "flash_fwd_kernel_for",
     "flash_attention_with_lse",
     "flash_attention_reference",
     "flash_attention_bwd_reference",
@@ -86,9 +90,10 @@ def flash_attention_reference(
     kv_segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the flash forward: the same masks in the same order
-    (softcap, then causal, window and segments), f32 scores and f32 P·V, and
-    the per-row ``lse = m + log(l)``. Returns ``(out (B, Sq, H, D), lse (B,
-    H, Sq) f32)``. Differentiable by autograd."""
+    (softcap, then causal, window and segments), f32 scores, P rounded to
+    v's dtype before an f32 P·V (as the TPU kernel rounds it; ``l`` sums
+    the unrounded P), and the per-row ``lse = m + log(l)``. Returns ``(out
+    (B, Sq, H, D), lse (B, H, Sq) f32)``. Differentiable by autograd."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
     if segment_ids is not None and kv_segment_ids is None:
@@ -100,7 +105,8 @@ def flash_attention_reference(
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
     l = torch.clamp(p.sum(dim=-1), min=1e-30)
-    out = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float()) / l.permute(0, 3, 1, 2)[..., None]
+    p_lo = p.to(v.dtype).float()
+    out = torch.einsum("bgrqk,bkgd->bqgrd", p_lo, v.float()) / l.permute(0, 3, 1, 2)[..., None]
     lse = (m + torch.log(l)).reshape(b, h, sq)
     return out.reshape(b, sq, h, d).to(q.dtype), lse
 
@@ -199,6 +205,8 @@ def _check_launch(q, k, v, extra=()):
         raise ValueError(f"flash kernels support head_dim 64 or 128, got {q.shape[3]}")
     if q.device.type != "cuda":
         raise ValueError(f"the flash kernels run on CUDA tensors; got {q.device}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash kernels take 16-byte aligned q, k and v (16-byte copies)")
 
 
 def _check_options(window, softcap):
@@ -212,21 +220,41 @@ def _seg_ptr(seg):
     return None if seg is None else seg.data_ptr()
 
 
+def flash_fwd_kernel_for(dtype: torch.dtype) -> str:
+    """The forward kernel (its C entry point and launch counter) that serves
+    q/k/v of ``dtype``: ``flash_fwd_mma`` for bf16, whose products run on the
+    tensor cores, and ``flash_fwd`` for f32, which keeps f32 products (FMA
+    loops; TF32 would be another function)."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash kernels take float32 or bfloat16, got {dtype}")
+    return "flash_fwd_mma" if dtype == torch.bfloat16 else "flash_fwd"
+
+
+def flash_fwd_block_q(b: int, h: int, sq: int) -> int:
+    """q rows per block of ``flash_fwd_mma``: 128 (32 rows a warp, so each
+    K/V fragment feeds two row tiles) where that still gives
+    ``_build.FILL_BLOCKS`` blocks, else 64 (serving's B=1 S=512 prefill: 256
+    blocks, not 128 on 132 SMs)."""
+    return 128 if b * h * -(-sq // 128) >= _build.FILL_BLOCKS else 64
+
+
 def _launch_fwd(q, k, v, q_seg, kv_seg, causal, window, softcap):
     _check_launch(q, k, v)
     b, sq, h, d = q.shape
     skv, h_kv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    code = _build.entry("flash_fwd", 7, 9, 2)(
+    name = flash_fwd_kernel_for(q.dtype)
+    dims = [b, sq, skv, h, h_kv, d, int(bool(causal)), int(window or 0)]
+    if name == "flash_fwd_mma":
+        dims.append(flash_fwd_block_q(b, h, sq))
+    code = _build.entry(name, 7, len(dims), 2)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        _seg_ptr(q_seg), _seg_ptr(kv_seg),
-        b, sq, skv, h, h_kv, d, _DTYPE_CODE[q.dtype], int(bool(causal)),
-        int(window or 0), float(softcap or 0.0), 1.0 / math.sqrt(d),
+        _seg_ptr(q_seg), _seg_ptr(kv_seg), *dims, float(softcap or 0.0), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check("flash_fwd", code)
-    _build.count_launch("flash_fwd")
+    _build.check(name, code)
+    _build.count_launch(name)
     return out, lse
 
 

@@ -5,22 +5,64 @@ per-output-channel scales (counterpart of ``accelerate_tpu/ops/quant_matmul
 The hot op of weight-only quantized inference: the weights stay int8 in
 device memory, half the bytes of bf16, and the per-column scale multiplies
 the f32 sum after the dot, which for column-wise scales is the same
-function as ``x @ dequantize(q)``. A CUDA tensor launches
-``csrc/quant_matmul.cu`` (replacing the Pallas ``_qmm_kernel``); a CPU
-tensor runs :func:`quantized_matmul_plain`.
+function as ``x @ dequantize(q)``. A CUDA tensor launches one of the
+three variants of ``csrc/quant_matmul.cu`` (replacing the Pallas
+``_qmm_kernel``), chosen by :func:`qmm_plan` from the shape and x's dtype;
+a CPU tensor runs :func:`quantized_matmul_plain`.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
-__all__ = ["quantized_matmul", "quantized_matmul_plain"]
+__all__ = ["QmmPlan", "qmm_plan", "quantized_matmul", "quantized_matmul_plain"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+# the tensor-core variants' output columns per block and K tile depth
+MMA_BN, MMA_BK = 128, 64
+# largest M of the split-K variant (one 16-row mma tile)
+SPLITK_MAX_M = 16
+
+
+class QmmPlan(NamedTuple):
+    """How B7 runs one product: the kernel (its C entry point and launch
+    counter), the rows of ``quant_matmul_mma``'s tiles (128 or 64, by 128
+    columns), and the K split of ``quant_matmul_splitk``: ``slices`` slices
+    of ``k_tiles_per_slice`` 64-deep K tiles (0 where they do not apply)."""
+
+    kernel: str
+    block_m: int = 0
+    k_tiles_per_slice: int = 0
+    slices: int = 0
+
+
+def qmm_plan(m: int, k: int, n: int, dtype: torch.dtype, aligned: bool = True) -> QmmPlan:
+    """The B7 variant for an (m, k) x (k, n) product with x of ``dtype``.
+    ``aligned``: x's and q's base addresses are multiples of 16 bytes.
+
+    * f32 x keeps f32 products: ``quant_matmul`` (FMA loops).
+    * Rows that break 16-byte copies (k % 8 for x's bf16 rows, n % 16 for
+      q's int8 rows), or unaligned bases: ``quant_matmul`` (masked loads).
+    * m <= 16: ``quant_matmul_splitk``, bound by q's bytes; K is cut into
+      slices of whole 64-deep tiles so that at least ``_build.FILL_BLOCKS``
+      blocks stream q where the shape allows it.
+    * otherwise ``quant_matmul_mma``: 128 x 128 tiles, or 64 x 128 where
+      128-row tiles would leave SMs without a block (Llama-3-8B's k_v at M
+      = 2048: 16 x 8 = 128 tiles on 132 SMs)."""
+    if dtype == torch.float32 or not aligned or k % 8 or n % 16:
+        return QmmPlan("quant_matmul")
+    n_tiles = -(-n // MMA_BN)
+    if m <= SPLITK_MAX_M:
+        k_tiles = -(-k // MMA_BK)
+        per_slice = max(1, k_tiles // -(-_build.FILL_BLOCKS // n_tiles))
+        return QmmPlan("quant_matmul_splitk", 0, per_slice, -(-k_tiles // per_slice))
+    return QmmPlan("quant_matmul_mma", 128 if -(-m // 128) * n_tiles >= _build.SMS else 64)
 
 
 def _shapes(x, q, scales):
@@ -68,11 +110,26 @@ def quantized_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor) -> 
     out = torch.empty((*lead, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0 or k == 0:
         return out.zero_()
+    aligned = x.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0
+    return _launch(qmm_plan(m, k, n, x.dtype, aligned), x, q, s, out)
+
+
+def _launch(plan: QmmPlan, x, q, s, out):
+    """Launch ``plan``'s kernel on checked operands (x (.., K), q (K, N),
+    f32 scales (N,), out (.., N)), count it and return ``out``."""
+    k, n = q.shape
+    m = x.numel() // k
+    ptrs = (x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr())
+    code_dtype = _DTYPE_CODE[x.dtype]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = _build.entry("quant_matmul", 4, 4, 0)(
-        x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), m, k, n,
-        _DTYPE_CODE[x.dtype], stream,
-    )
-    _build.check("quant_matmul", code)
-    _build.count_launch("quant_matmul")
+    if plan.kernel == "quant_matmul":
+        code = _build.entry(plan.kernel, 4, 4, 0)(*ptrs, m, k, n, code_dtype, stream)
+    elif plan.kernel == "quant_matmul_mma":
+        code = _build.entry(plan.kernel, 4, 5, 0)(*ptrs, m, k, n, code_dtype, plan.block_m, stream)
+    else:
+        ws = torch.empty((plan.slices, m, n), dtype=torch.float32, device=x.device)
+        code = _build.entry(plan.kernel, 5, 6, 0)(
+            *ptrs, ws.data_ptr(), m, k, n, code_dtype, plan.k_tiles_per_slice, plan.slices, stream)
+    _build.check(plan.kernel, code)
+    _build.count_launch(plan.kernel)
     return out

@@ -15,14 +15,20 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases (any failure exits non-zero and prints no result):
   1. build the kernels (one nvcc per source, in parallel); print the card
-  2. each kernel against its plain version at the main paths' shapes (B1
-     also with segment ids; B2/B3 also with segment ids, a ragged S, an lse
-     cotangent, softcap and window, non-causal; B4 with bf16/f32/int8
-     pools; B5 at the spec shape W=5 and the chunk shape W=512, bf16/f32/
-     int8 pools, softcap, n_rep=1; B7 at every Llama-3-8B projection shape,
-     M = 8 and 2048, bf16/f32 x, int4-range codes, ragged M/K/N, f16 x):
-     max abs error against a stated tolerance, median kernel / plain /
-     library times and the bound
+     and each kernel's registers, spills and shared memory
+  2. each kernel, every variant, against its plain version at the main
+     paths' shapes (B1's tensor-core variant on bf16 and its FMA variant
+     on f32, also with segment ids, a ragged S at D = 64, softcap with a
+     window, Sq != Skv, non-causal; B2/B3 also with segment ids, a ragged
+     S, an lse cotangent, softcap and window, non-causal; B4 with
+     bf16/f32/int8 pools; B5 at the spec shape W=5 and the chunk shape
+     W=512, bf16/f32/int8 pools, softcap, n_rep=1; B7 at every Llama-3-8B
+     projection shape, M = 2048 through the tensor-core variant and M = 8
+     through split-K, the FMA variant on the same bf16 inputs and on f32 x,
+     int4-range codes, ragged M/K/N, f16 x, M = 17 and 65): max abs error
+     against a stated tolerance, median kernel / plain / library times, the
+     bound and the bound share (B7 at M = 8 on cold weights, rotated over
+     copies that exceed the L2, for the kernels and cuBLAS alike)
   3. the engine's kernel path against its reference path at full width and
      2 layers (prefill, first decode, verify W=5 and a 512 chunk, int8
      decode and verify logits; greedy tokens, plain and speculative), with
@@ -43,8 +49,8 @@ Phases (any failure exits non-zero and prints no result):
      safetensors, loaded into an empty (meta) model and quantized, bitwise
      equal to quantizing the in-memory copy
   5. a training step's kernel path against its reference path at full
-     width, 2 layers, f32 (loss and every gradient leaf), with a planted
-     fault that must exceed the limit
+     width, 2 layers, f32 (loss and every gradient leaf; B1's FMA variant,
+     launches checked), with a planted fault that must exceed the limit
   6. the training main path: Accelerator(mixed_precision="bf16"), prepare,
      prepare_data_loader and train_step(llama_loss, max_grad_norm=1.0) on
      Llama-3-8B at 4 layers, batch 4 x 2048; 2 warm-up and 8 timed steps
@@ -57,7 +63,9 @@ The line before the last is the ``kernels`` JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -107,6 +115,37 @@ def time_ms(fn, iters: int = 20, repeats: int = 5, warmup: int = 3) -> float:
     return statistics.median(samples)
 
 
+def time_graph_ms(fn, iters: int, repeats: int = 5) -> float:
+    """Median over ``repeats`` of the mean time of ``iters`` calls of ``fn``
+    captured in one CUDA graph and replayed, by CUDA events: the device
+    time of launches that take microseconds, without the host's launch
+    overhead (Python, ctypes and allocation take longer than the kernel
+    at decode shapes, so an eager loop would time the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / iters)
+    del graph
+    return statistics.median(samples)
+
+
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -125,7 +164,7 @@ def segments(bounds_per_row, s, dev):
 
 def check_flash(dev, gen, results):
     from accelerate_tpu_torch.ops.flash_attention import (
-        flash_attention_reference, flash_attention_with_lse,
+        flash_attention_reference, flash_attention_with_lse, flash_fwd_kernel_for,
     )
 
     h, h_kv, d = 32, 8, 128
@@ -141,29 +180,41 @@ def check_flash(dev, gen, results):
             err = max((out.float() - ref.float()).abs().max().item(),
                       (lse - ref_lse).abs().max().item())
             tol = B1_TOL[dtype]
-            log(f"B1 flash_fwd {dtype} (B={b}, S={s}, H={h}, Hkv={h_kv}, D={d}) "
+            log(f"B1 {flash_fwd_kernel_for(dtype)} {dtype} (B={b}, S={s}, H={h}, Hkv={h_kv}, D={d}) "
                 f"max_abs_err={err:.3e} tol={tol:g}")
             if not err <= tol:
                 raise AssertionError(f"flash_fwd {dtype} disagrees with its plain version")
             del out, lse, ref, ref_lse
-            iters = 20 if s <= 512 else 5
-            ms = time_ms(lambda: flash_attention_with_lse(q, k, v, causal=True), iters=iters)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+            def kern():
+                return flash_attention_with_lse(q, k, v, causal=True)
+
+            def lib():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+
+            if s <= 512:  # tens of microseconds: a graph keeps the host out of the timing
+                ms, lib_ms = time_graph_ms(kern, 20), time_graph_ms(lib, 20)
+            else:
+                ms, lib_ms = time_ms(kern, iters=5), time_ms(lib, iters=5)
             plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, causal=True),
                                iters=5 if s <= 512 else 2, repeats=3)
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), iters=iters)
             item = dtype.itemsize
             nbytes = 2 * b * s * h * d * item + 2 * b * s * h_kv * d * item + b * h * s * 4
             flops = 4.0 * b * h * d * s * (s + 1) / 2  # visible causal pairs
             bms, by = bound_ms(nbytes, flops, dtype)
-            log(f"  ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
-                f"bound_ms={bms:.5f} ({by})")
-            if dtype == torch.bfloat16 and s == 2048:  # the training step's shape
-                results["flash_fwd"] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                    bound_by=by, library_ms=lib_ms,
-                )
+            log(f"  {flash_fwd_kernel_for(dtype)} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"sdpa_ms={lib_ms:.4f} bound_ms={bms:.5f} ({by}); bound share {bms / ms:.4f}, "
+                f"{ms / lib_ms:.2f}x SDPA")
+            entry = results.setdefault(flash_fwd_kernel_for(dtype), {})
+            if s == 2048:  # the training step's shape
+                entry.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                             bound_by=by, library_ms=lib_ms,
+                             shape=f"B={b} S={s} H={h} Hkv={h_kv} D={d} causal, {dtype}")
+            else:  # serving's single-shot prefill
+                entry.update(serving_max_abs_err=err, serving_ms=ms, serving_plain_ms=plain_ms,
+                             serving_bound_ms=bms, serving_bound_by=by, serving_library_ms=lib_ms)
             del q, k, v, qt, kt, vt
     # packed sequences: document boundaries off the 64-row tiles
     b, s, h, h_kv = 2, 1024, 8, 2
@@ -181,7 +232,34 @@ def check_flash(dev, gen, results):
             f"0/100/613/1000) max_abs_err={err:.3e} tol={B1_TOL[dtype]:g}")
         if not err <= B1_TOL[dtype]:
             raise AssertionError(f"flash_fwd {dtype} with segment ids disagrees with its plain version")
-        results["flash_fwd"].setdefault("segment_ids_max_abs_err", {})[str(dtype)] = err
+        results[flash_fwd_kernel_for(dtype)]["segment_ids_max_abs_err"] = err
+    # the edges: ragged S with D = 64 and no GQA, a window with a softcap,
+    # Sq < Skv and Sq > Skv (causal anchored at 0), non-causal
+    for name, (b, sq, skv, h, h_kv, d, opts) in B1_EDGE_CASES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dtype)
+            k = torch.randn((b, skv, h_kv, d), generator=gen, device=dev).to(dtype)
+            v = torch.randn((b, skv, h_kv, d), generator=gen, device=dev).to(dtype)
+            out, lse = flash_attention_with_lse(q, k, v, **opts)
+            ref, ref_lse = flash_attention_reference(q, k, v, **opts)
+            torch.cuda.synchronize()
+            err = max((out.float() - ref.float()).abs().max().item(),
+                      (lse - ref_lse).abs().max().item())
+            log(f"B1 {flash_fwd_kernel_for(dtype)} {name} {dtype} (B={b}, Sq={sq}, Skv={skv}, H={h}, "
+                f"Hkv={h_kv}, D={d}, {opts}) max_abs_err={err:.3e} tol={B1_TOL[dtype]:g}")
+            if not err <= B1_TOL[dtype]:
+                raise AssertionError(f"flash forward {name} {dtype} disagrees with its plain version")
+            edge = results[flash_fwd_kernel_for(dtype)].setdefault("edge_max_abs_err", 0.0)
+            results[flash_fwd_kernel_for(dtype)]["edge_max_abs_err"] = max(edge, err)
+
+
+# name -> (B, Sq, Skv, H, Hkv, D, options)
+B1_EDGE_CASES = {
+    "ragged_d64": (1, 333, 333, 4, 4, 64, dict(causal=True)),
+    "window_softcap": (2, 1000, 1000, 8, 2, 128, dict(causal=True, window=200, softcap=30.0)),
+    "sq_lt_skv": (1, 200, 520, 8, 8, 64, dict(causal=True)),
+    "sq_gt_skv_noncausal": (1, 300, 130, 8, 2, 128, dict(causal=False)),
+}
 
 
 # B2/B3: max abs error over the largest |gradient| of the plain version. f32
@@ -525,11 +603,17 @@ def b7_operands(gen, dev, m, k, n, dtype, qmax=127):
     return x, q, scales
 
 
-def b7_error(x, q, scales, label):
-    from accelerate_tpu_torch.ops.quant_matmul import quantized_matmul, quantized_matmul_plain
+def b7_error(x, q, scales, label, plan=None):
+    """Max abs error of B7 against its plain version, held to B7_TOL (bf16,
+    f16) or B7_F32_RTOL: the variant the wrapper picks, or ``plan``'s."""
+    from accelerate_tpu_torch.ops import quant_matmul as qmm
 
-    out = quantized_matmul(x, q, scales)
-    ref = quantized_matmul_plain(x, q, scales)
+    if plan is None:
+        out = qmm.quantized_matmul(x, q, scales)
+    else:
+        out = torch.empty((x.shape[0], q.shape[1]), dtype=x.dtype, device=x.device)
+        qmm._launch(plan, x, q, scales.reshape(-1).float().contiguous(), out)
+    ref = qmm.quantized_matmul_plain(x, q, scales)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     top = ref.float().abs().max().item()
@@ -537,94 +621,147 @@ def b7_error(x, q, scales, label):
         ok, tol = err <= B7_F32_RTOL * top, f"{B7_F32_RTOL:g} x max|out| = {B7_F32_RTOL * top:.3e}"
     else:
         ok, tol = err <= B7_TOL[x.dtype] and top < 4.0, f"{B7_TOL[x.dtype]:g} (max|out| {top:.3f} < 4)"
-    log(f"B7 quant_matmul {label} {x.dtype} (M={x.shape[0]}, K={q.shape[0]}, N={q.shape[1]}) "
+    log(f"B7 {label} {x.dtype} (M={x.shape[0]}, K={q.shape[0]}, N={q.shape[1]}) "
         f"max_abs_err={err:.3e} tol {tol}")
     if not ok:
         raise AssertionError(f"quant_matmul {label} {x.dtype} disagrees with its plain version")
     return err
 
 
+# each timed loop over cold weights reads at least this many bytes
+COLD_BYTES = 100e6
+
+
+def cold_copies(t, min_bytes=COLD_BYTES):
+    """``t`` and enough clones of it that a loop over all of them reads at
+    least ``min_bytes``: twice the 50 MB L2, so each copy comes back from
+    device memory, as a decode step finds its weights."""
+    return [t] + [t.clone() for _ in range(math.ceil(min_bytes / t.nbytes) - 1)]
+
+
+def rotating(fn, copies):
+    """A call of ``fn`` on the next of ``copies`` per call, and the number of
+    calls that visits each once."""
+    it = itertools.cycle(copies)
+    return (lambda: fn(next(it))), len(copies)
+
+
 def check_quant_matmul(dev, gen, results):
-    """B7 against its plain version at Llama-3-8B's projection shapes, M = 8
-    (decode) and M = 2048 (the phase-8 forward's 4 x 512 tokens), bf16 and
-    (at the three largest shapes) f32 x; then int4-range codes, a ragged
-    M/K/N and an f16 x. Times: kernel, plain, and the library yardstick
-    cuBLAS ``x @ w_bf16`` with ``w`` dequantized ahead (untimed)."""
-    from accelerate_tpu_torch.ops.quant_matmul import quantized_matmul, quantized_matmul_plain
+    """B7 against its plain version at Llama-3-8B's projection shapes, M =
+    2048 (the phase-8 forward's 4 x 512 tokens, the tensor-core variant) and
+    M = 8 (decode, the split-K variant), bf16 x, and the FMA variant on the
+    same bf16 inputs (the earlier design) and on f32 x at the three largest
+    shapes; then int4-range codes, a ragged M/K/N and an f16 x. Times per
+    32-layer forward (225 launches): each variant, the plain version, and
+    the library yardstick cuBLAS ``x @ w_bf16`` with ``w`` dequantized ahead
+    (untimed). At M = 8 the weights are cold (rotated over copies that
+    exceed the L2) and the loop is a CUDA graph, for the kernels and for
+    cuBLAS alike."""
+    from accelerate_tpu_torch.ops import quant_matmul as qmm
 
     per_m = {}
-    int8pack = {}
-    pack_available = True
+    int8pack = 0.0
+    fma_err = 0.0
     for m in (8, 2048):
-        sums = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, t_bytes=0.0, t_ops=0.0, err=0.0)
+        sums = dict(ms=0.0, fma_ms=0.0, plain_ms=0.0, library_ms=0.0, t_bytes=0.0, t_ops=0.0,
+                    err=0.0, fma_err=0.0)
         for name, (k, n, per_layer) in B7_SHAPES.items():
             count = 1 if per_layer is None else per_layer * 32
-            dtypes = (torch.bfloat16,) if name in ("q_o", "k_v") else (torch.bfloat16, torch.float32)
-            for dtype in dtypes:
-                x, q, scales = b7_operands(gen, dev, m, k, n, dtype)
-                err = b7_error(x, q, scales, name)
+            x, q, scales = b7_operands(gen, dev, m, k, n, torch.bfloat16)
+            plan = qmm.qmm_plan(m, k, n, x.dtype)
+            err = b7_error(x, q, scales, f"{name} {plan.kernel}")
+            fma = qmm.QmmPlan("quant_matmul")
+            f_err = b7_error(x, q, scales, f"{name} quant_matmul (FMA, the earlier design)", plan=fma)
+            s32 = scales.float().contiguous()
+
+            def run(plan_, w):
+                return qmm._launch(plan_, x, w, s32, torch.empty((m, n), dtype=x.dtype, device=dev))
+
+            w_bf16 = (q.float() * scales).to(torch.bfloat16)  # dequantized ahead, untimed
+            if m == 8:  # bytes-bound: every timed loop reads cold weights, in a graph
+                kern, nq = rotating(lambda w: run(plan, w), cold_copies(q))
+                kern_fma, _ = rotating(lambda w: run(fma, w), cold_copies(q))
+                lib, nw = rotating(lambda w: x @ w, cold_copies(w_bf16))
+                iters = max(nq, nw, 20)
+                ms, fma_ms, lib_ms = (time_graph_ms(fn, iters) for fn in (kern, kern_fma, lib))
+            else:
                 iters = 3 if m * n * k > 1e11 else 20
-                ms = time_ms(lambda: quantized_matmul(x, q, scales), iters=iters, repeats=3)
-                plain_ms = time_ms(lambda: quantized_matmul_plain(x, q, scales), iters=iters, repeats=3)
-                w = (q.float() * scales).to(dtype)  # dequantized ahead, untimed
-                lib_ms = time_ms(lambda: x @ w, iters=iters, repeats=3)
-                del w
-                item = dtype.itemsize
-                nbytes = m * k * item + k * n + n * 4 + m * n * item
-                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-                t_ops = 2.0 * m * k * n / PEAK_FLOPS[dtype] * 1e3
-                bms, by = bound_ms(nbytes, 2.0 * m * k * n, dtype)
-                extra = ""
-                if dtype == torch.bfloat16:
-                    pack_ms = time_int8pack(x, q, scales, iters) if pack_available else None
-                    pack_available = pack_ms is not None
-                    if pack_ms is not None:
-                        int8pack[m] = int8pack.get(m, 0.0) + pack_ms * count
-                        extra = f" torch._weight_int8pack_mm_ms={pack_ms:.4f}"
-                    for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                                   ("t_bytes", t_bytes), ("t_ops", t_ops)):
-                        sums[key] += v * count
-                    sums["err"] = max(sums["err"], err)
-                log(f"  ms={ms:.4f} plain_ms={plain_ms:.4f} cublas_dequantized_ms={lib_ms:.4f}{extra} "
-                    f"bound_ms={bms:.5f} ({by}); {count} per 32-layer forward")
-                del x, q, scales
+                ms, fma_ms, lib_ms = (time_ms(fn, iters=iters, repeats=3) for fn in (
+                    lambda: run(plan, q), lambda: run(fma, q), lambda: x @ w_bf16))
+            plain_ms = time_ms(lambda: qmm.quantized_matmul_plain(x, q, scales), iters=3, repeats=3)
+            del w_bf16
+            nbytes = m * k * 2 + k * n + n * 4 + m * n * 2
+            bms, by = bound_ms(nbytes, 2.0 * m * k * n, torch.bfloat16)
+            extra = ""
+            if m == 8 and int8pack is not None:
+                pack_ms = time_int8pack(x, q, scales, iters)
+                int8pack = None if pack_ms is None else int8pack + pack_ms * count
+                if pack_ms is not None:
+                    extra = f" torch._weight_int8pack_mm_ms={pack_ms:.4f} (warm weights)"
+            for key, v in (("ms", ms), ("fma_ms", fma_ms), ("plain_ms", plain_ms),
+                           ("library_ms", lib_ms), ("t_bytes", nbytes / HBM_BYTES_PER_S * 1e3),
+                           ("t_ops", 2.0 * m * k * n / PEAK_FLOPS[torch.bfloat16] * 1e3)):
+                sums[key] += v * count
+            sums["err"] = max(sums["err"], err)
+            sums["fma_err"] = max(sums["fma_err"], f_err)
+            log(f"  {plan.kernel} ms={ms:.4f} (bound share {bms / ms:.4f}) FMA ms={fma_ms:.4f} "
+                f"plain_ms={plain_ms:.4f} cublas_dequantized_ms={lib_ms:.4f} "
+                f"(bound share {bms / lib_ms:.4f}){extra} bound_ms={bms:.5f} ({by}); {plan}; "
+                f"{count} per 32-layer forward" + ("; cold weights" if m == 8 else ""))
+            if name in ("gate_up", "down", "head"):  # f32 x keeps f32 products: the FMA kernel
+                fma_err = max(fma_err, b7_error(x.float(), q, scales, f"{name} quant_matmul"))
+            del x, q, scales, s32
+            torch.cuda.empty_cache()
         per_m[m] = sums
-        torch.cuda.empty_cache()
     gen_case = [("int4_range", 2048, 4096, 14336, torch.bfloat16, 7),
+                ("int4_range", 8, 4096, 14336, torch.bfloat16, 7),
                 ("ragged", 7, 4100, 1000, torch.bfloat16, 127),
                 ("ragged", 7, 4100, 1000, torch.float32, 127),
                 ("ragged", 130, 4100, 1000, torch.bfloat16, 127),
                 ("f16_x", 8, 4096, 14336, torch.float16, 127),
-                ("f16_x", 2048, 4096, 4096, torch.float16, 127)]
+                ("f16_x", 2048, 4096, 4096, torch.float16, 127),
+                ("edge_m", 17, 4096, 1024, torch.bfloat16, 127),
+                ("edge_m", 65, 14336, 4096, torch.bfloat16, 127)]
     for label, m, k, n, dtype, qmax in gen_case:
-        b7_error(*b7_operands(gen, dev, m, k, n, dtype, qmax), label)
+        x, q, scales = b7_operands(gen, dev, m, k, n, dtype, qmax)
+        b7_error(x, q, scales, f"{label} {qmm.qmm_plan(m, k, n, dtype).kernel}")
     main, decode = per_m[2048], per_m[8]
 
     def bound(s):
         return (s["t_bytes"], "bytes") if s["t_bytes"] >= s["t_ops"] else (s["t_ops"], "operations")
 
     (bms, by), (dbms, dby) = bound(main), bound(decode)
-    log(f"B7 per 32-layer forward (225 launches, bf16): M=2048 kernel {main['ms']:.3f} ms, plain "
-        f"{main['plain_ms']:.3f} ms, cuBLAS on dequantized bf16 {main['library_ms']:.3f} ms, bound "
-        f"{bms:.3f} ms ({by}); M=8 kernel {decode['ms']:.3f} ms, plain {decode['plain_ms']:.3f} ms, "
-        f"cuBLAS {decode['library_ms']:.3f} ms, bound {dbms:.3f} ms ({dby})"
-        + (f"; torch._weight_int8pack_mm {int8pack}" if int8pack else "; torch._weight_int8pack_mm "
-           "not available on this card's torch"))
+    log(f"B7 per 32-layer forward (225 launches, bf16): M=2048 quant_matmul_mma {main['ms']:.3f} ms "
+        f"(FMA {main['fma_ms']:.3f}), plain {main['plain_ms']:.3f} ms, cuBLAS on dequantized bf16 "
+        f"{main['library_ms']:.3f} ms, bound {bms:.3f} ms ({by}): {main['ms'] / main['library_ms']:.3f}x "
+        f"cuBLAS, bound share {bms / main['ms']:.4f}; M=8 (cold weights) quant_matmul_splitk "
+        f"{decode['ms']:.3f} ms (FMA {decode['fma_ms']:.3f}), plain {decode['plain_ms']:.3f} ms, cuBLAS "
+        f"{decode['library_ms']:.3f} ms, bound {dbms:.3f} ms ({dby}): "
+        f"{decode['ms'] / decode['library_ms']:.3f}x cuBLAS, bound share {dbms / decode['ms']:.4f} "
+        f"(cuBLAS {dbms / decode['library_ms']:.4f})"
+        + (f"; torch._weight_int8pack_mm at M=8 {int8pack:.3f} ms" if int8pack else
+           "; torch._weight_int8pack_mm not available on this card's torch"))
+    common = dict(plain_ms=main["plain_ms"], bound_ms=bms, bound_by=by, library_ms=main["library_ms"])
+    results["quant_matmul_mma"] = dict(
+        max_abs_err=main["err"], ms=main["ms"], **common,
+        shape="sum over one 32-layer Llama-3-8B forward's 225 launches at M = 2048, bf16 x")
+    results["quant_matmul_splitk"] = dict(
+        max_abs_err=decode["err"], ms=decode["ms"], plain_ms=decode["plain_ms"], bound_ms=dbms,
+        bound_by=dby, library_ms=decode["library_ms"], int8pack_ms=int8pack or None,
+        shape="sum over one forward's 225 launches at M = 8, bf16 x, weights cold for the kernel "
+              "and cuBLAS (int8pack warm)")
     results["quant_matmul"] = dict(
-        max_abs_err=main["err"], ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=bms, bound_by=by,
-        library_ms=main["library_ms"], decode_max_abs_err=decode["err"], decode_ms=decode["ms"],
-        decode_plain_ms=decode["plain_ms"], decode_bound_ms=dbms, decode_bound_by=dby,
-        decode_library_ms=decode["library_ms"],
-        int8pack_ms={str(m): v for m, v in int8pack.items()} or None,
-        shape="sum over one 32-layer Llama-3-8B forward's 225 launches at M = 2048 (decode_*: M = 8)",
-    )
+        max_abs_err=main["fma_err"], ms=main["fma_ms"], **common, f32_max_abs_err=fma_err,
+        decode_ms=decode["fma_ms"], decode_max_abs_err=decode["fma_err"],
+        shape="the FMA variant (f32 x, unaligned rows) on the main path's bf16 work: sum over one "
+              "forward's 225 launches at M = 2048 (decode_*: M = 8, cold weights)")
 
 
 def time_int8pack(x, q, scales, iters):
     """ms of ``torch._weight_int8pack_mm`` (int8 weights as (N, K), scales
     in x's dtype) where this torch has it on CUDA, else None: a library call
-    of the same function, timed as a yardstick only (one call after one
-    warm-up at prefill shapes, where it takes up to seconds)."""
+    of the same function, timed as a yardstick only, at decode shapes (PR
+    4 measured it at M = 2048: tens of seconds per forward's worth)."""
     op = getattr(torch, "_weight_int8pack_mm", None)
     if op is None:
         return None
@@ -635,8 +772,6 @@ def time_int8pack(x, q, scales, iters):
     except (RuntimeError, NotImplementedError) as exc:
         log(f"  torch._weight_int8pack_mm unavailable: {str(exc).splitlines()[0][:120]}")
         return None
-    if x.shape[0] > 64:
-        return time_ms(lambda: op(x, qt, s), iters=1, repeats=1, warmup=1)
     return time_ms(lambda: op(x, qt, s), iters=iters, repeats=3)
 
 
@@ -939,7 +1074,7 @@ def phase_main_path(dev, card, model):
         if not ((new >= 0) & (new < cfg.vocab_size)).all():
             raise AssertionError("a generated token is out of the vocabulary")
     expected = {
-        "flash_fwd": n_layers * n_req,
+        "flash_fwd_mma": n_layers * n_req,
         "paged_decode": n_layers * steps,
         "fused_sample": steps + n_req,
     }
@@ -1099,7 +1234,7 @@ def serve_mix(dev, model, prompts, **overrides):
 def expected_launches(n_layers, delta, n_single, n_chunked, suffix=""):
     decode_steps = delta["steps"] - delta["verify"]
     return {
-        "flash_fwd": n_layers * n_single,
+        "flash_fwd_mma": n_layers * n_single,
         "paged_decode" + suffix: n_layers * decode_steps,
         "paged_verify" + suffix: n_layers * (delta["verify"] + delta["chunks"]),
         "fused_sample": decode_steps + n_single + n_chunked,
@@ -1316,7 +1451,8 @@ def phase_quantized(dev, card, model):
     wall = time.perf_counter() - t0
     launches = _build.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    expected = {"quant_matmul": (7 * n_layers + 1) * Q_FORWARDS, "flash_fwd": n_layers * Q_FORWARDS}
+    expected = {"quant_matmul_mma": (7 * n_layers + 1) * Q_FORWARDS,
+                "flash_fwd_mma": n_layers * Q_FORWARDS}
     check_launches("phase 8", launches, expected)
     if logits_q.shape != (Q_BATCH, Q_SEQ, cfg.vocab_size) or not torch.isfinite(logits_q).all():
         raise AssertionError("quantized logits have the wrong shape or are not finite")
@@ -1484,6 +1620,7 @@ def phase_train_parity(dev, card):
     import dataclasses
 
     from accelerate_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, llama_loss
+    from accelerate_tpu_torch.ops import _build
     from accelerate_tpu_torch.ops import flash_attention as fa
 
     cfg_k = LlamaConfig.llama3_8b(num_hidden_layers=2, param_dtype=torch.float32,
@@ -1501,7 +1638,14 @@ def phase_train_parity(dev, card):
         grads = {name: p.grad.detach().clone() for name, p in model.named_parameters()}
         return loss.item(), grads
 
+    _build.reset_launch_counts()
     loss_k, grads_k = loss_and_grads(cfg_k)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    n_layers = cfg_k.num_hidden_layers
+    # f32: the FMA forward; remat runs it twice
+    check_launches("phase 5", launches, {"flash_fwd": 2 * n_layers, "flash_bwd_dq": n_layers,
+                                         "flash_bwd_dkv": n_layers})
     loss_r, grads_r = loss_and_grads(cfg_r)
 
     def worst(grads):
@@ -1535,7 +1679,8 @@ def phase_train_parity(dev, card):
         raise AssertionError("phase 5's gradient tolerance cannot see a wrong-head dk")
     del model, grads_k, grads_r, grads_bad
     torch.cuda.empty_cache()
-    return dict(loss_rel_err=loss_err, grad_rel_err=grad_err, planted_fault_rel_err=bad_err)
+    counts = {k: launches[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    return counts, dict(loss_rel_err=loss_err, grad_rel_err=grad_err, planted_fault_rel_err=bad_err)
 
 
 # ----------------------------------------------------------------- phase 6
@@ -1585,13 +1730,9 @@ def phase_train_main_path(dev, card):
     launches = _build.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     losses = [l.item() for l in losses]
-    expected = {"flash_fwd": 2 * TRAIN_LAYERS * TRAIN_STEPS, "flash_bwd_dq": TRAIN_LAYERS * TRAIN_STEPS,
-                "flash_bwd_dkv": TRAIN_LAYERS * TRAIN_STEPS}
-    log(f"phase 6 launches during {TRAIN_STEPS} steps: "
-        f"{ {k: launches[k] for k in expected} }; expected {expected} (remat runs the forward twice)")
-    for name, n in expected.items():
-        if launches[name] != n:
-            raise AssertionError(f"kernel {name}: {launches[name]} launches on the training path, expected {n}")
+    expected = {"flash_fwd_mma": 2 * TRAIN_LAYERS * TRAIN_STEPS,
+                "flash_bwd_dq": TRAIN_LAYERS * TRAIN_STEPS, "flash_bwd_dkv": TRAIN_LAYERS * TRAIN_STEPS}
+    check_launches(f"phase 6 ({TRAIN_STEPS} steps; remat runs the forward twice)", launches, expected)
     log(f"phase 6 losses {[round(l, 4) for l in losses]}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError("training losses are not finite or did not fall")
@@ -1674,8 +1815,65 @@ def profile_train_step(step_fn, batch, step_ms, card):
                 groups_ms=groups, kernels=len(events))
 
 
+# dynamic shared memory of the tensor-core kernels' configurations (the
+# sources' MmaCfg): name fragment of the ptxas entry -> bytes per block
+MMA_SMEM = {
+    "quant_matmul_mma_kernel<128": 4 * (128 * 128 + 64 * 128),
+    "quant_matmul_mma_kernel<64": 4 * (64 * 128 + 64 * 128),
+    "quant_matmul_mma_kernel<16": 4 * (16 * 128 + 64 * 128),
+    "flash_fwd_mma_kernel<128,1": 64 * 256 + 2 * (2 * 64 * 256 + 256),
+    "flash_fwd_mma_kernel<128,2": 128 * 256 + 2 * (2 * 64 * 256 + 256),
+    "flash_fwd_mma_kernel<64,1": 64 * 128 + 2 * (2 * 64 * 128 + 256),
+    "flash_fwd_mma_kernel<64,2": 128 * 128 + 2 * (2 * 64 * 128 + 256),
+}
+
+
+def ptxas_report(text):
+    """One entry per kernel of an ``nvcc -Xptxas -v`` log: its name with
+    the template's integer arguments, registers, spills, static shared
+    memory and, for the tensor-core kernels, the dynamic shared memory and
+    the blocks per SM that registers and shared memory allow."""
+    import re
+
+    entries, name = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            # _Z[N]<len><identifier>...: the last identifier is the kernel's
+            i, ident = (3 if mangled.startswith("_ZN") else 2), mangled[:40]
+            while i < len(mangled) and mangled[i].isdigit():
+                j = i + len(re.match(r"\d+", mangled[i:]).group())
+                ident, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+            args = re.findall(r"L[ib](\d+)E", mangled)
+            kind = next((t for t in ("__nv_bfloat16", "__half") if t in mangled), "")
+            name = ident + "<" + ",".join(args) + (
+                ("," + kind) if kind else "") + ">"
+            spill = ""
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = f"spill {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m and name:
+            regs = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", m.group(2))
+            entry = f"{name} {regs} regs {spill}" + (f" smem {smem.group(1)} B" if smem else "")
+            dyn = next((v for k, v in MMA_SMEM.items() if name.startswith(k)), None)
+            if dyn is not None:
+                per_sm = min(65536 // (regs * 128), 233472 // (dyn + 1024))
+                entry += f" dynamic smem {dyn} B, {per_sm} blocks/SM"
+            entries.append(entry)
+            name = None
+    return entries
+
+
 KERNEL_META = {
     "flash_fwd": dict(
+        route="cuda", source="accelerate_tpu_torch/csrc/flash_fwd.cu",
+        replaces="accelerate_tpu/ops/flash_attention.py:98",
+    ),
+    "flash_fwd_mma": dict(
         route="cuda", source="accelerate_tpu_torch/csrc/flash_fwd.cu",
         replaces="accelerate_tpu/ops/flash_attention.py:98",
     ),
@@ -1711,6 +1909,14 @@ KERNEL_META = {
         route="cuda", source="accelerate_tpu_torch/csrc/quant_matmul.cu",
         replaces="accelerate_tpu/ops/quant_matmul.py:33",
     ),
+    "quant_matmul_mma": dict(
+        route="cuda", source="accelerate_tpu_torch/csrc/quant_matmul.cu",
+        replaces="accelerate_tpu/ops/quant_matmul.py:33",
+    ),
+    "quant_matmul_splitk": dict(
+        route="cuda", source="accelerate_tpu_torch/csrc/quant_matmul.cu",
+        replaces="accelerate_tpu/ops/quant_matmul.py:33",
+    ),
 }
 
 
@@ -1739,10 +1945,7 @@ def main(argv=None) -> int:
     log(f"phase 1 build: {time.perf_counter() - t0:.2f}s wall, per source "
         + ", ".join(f"{k}={v:.2f}s" for k, v in secs.items()))
     for name, text in _build.build_logs.items():
-        regs = [ln.strip() for ln in text.splitlines() if "registers" in ln]
-        spills = sorted({ln.strip() for ln in text.splitlines() if "spill" in ln})
-        log(f"  ptxas {name}: {len(regs)} kernels; " + " | ".join(regs[:4])
-            + (" || " + " | ".join(spills) if spills else ""))
+        log(f"  ptxas {name}: " + "; ".join(ptxas_report(text)))
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -1769,7 +1972,7 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             summary["checkpoint"] = phase_checkpoint(dev, card)
         torch.cuda.empty_cache()
-        summary["train_parity"] = phase_train_parity(dev, card)
+        by_path["training_f32"], summary["train_parity"] = phase_train_parity(dev, card)
         by_path["training"], summary["train_main_path"] = phase_train_main_path(dev, card)
         for counts in by_path.values():
             for name, n in counts.items():

@@ -6,8 +6,12 @@ atol = rtol = 1e-5: both sides accumulate scores and P·V in f32, so they
 differ only in summation order (the Pallas kernel merges tiles online,
 the port's plain version softmaxes the whole row at once).
 
-The CUDA kernel itself is compared with this plain version on the card
-(``chip_smoke.py``, and the ``cuda``-marked test below).
+With bf16 inputs both sides round P to bf16 before P·V; the test of that
+bounds the mean and the share of unequal elements instead (see there).
+
+The CUDA kernels themselves are compared with this plain version on the
+card (``chip_smoke.py``, and the ``cuda``-marked tests in
+``tests/test_torch_kernels.py``).
 """
 
 import numpy as np
@@ -30,12 +34,6 @@ from accelerate_tpu_torch.ops.flash_attention import (
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    return torch.device("cuda", 0)
 
 # name -> (B, S, H, H_kv, D, window, softcap, JAX block)
 CASES = {
@@ -108,16 +106,24 @@ def test_noncausal_plain_flash_matches_jax_kernel():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("window", [None, 100])
-def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, tol, window):
-    # ragged S (not a multiple of the kernel's 64-row tiles), GQA 4:1
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    q = torch.randn((2, 200, 8, 128), generator=gen, device=cuda_device).to(dtype)
-    k = torch.randn((2, 200, 2, 128), generator=gen, device=cuda_device).to(dtype)
-    v = torch.randn((2, 200, 2, 128), generator=gen, device=cuda_device).to(dtype)
-    out, lse = flash_attention_with_lse(q, k, v, window=window)
-    ref, ref_lse = flash_attention_reference(q, k, v, window=window)
-    assert (out.float() - ref.float()).abs().max().item() <= tol
-    assert (lse - ref_lse).abs().max().item() <= 1e-4
+# bf16 inputs: the TPU kernel rounds P to v's dtype before P·V and sums l
+# from the f32 P; a plain forward that keeps P in f32 differs from it in
+# 27-32 % of the bf16 outputs with a mean |diff| of 2.5-3.2e-4 on these
+# cases, one that rounds as the kernel does in 5-15 % with 3.1e-5-1.1e-4
+# (the rest: f32 summation order, tile by tile against whole rows, moving
+# an output across a bf16 rounding boundary). The bounds sit between the two.
+BF16_MEAN_DIFF_MAX = 1.8e-4
+BF16_UNEQUAL_SHARE_MAX = 0.21
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_flash_bf16_rounds_p_like_jax_kernel(case):
+    b, s, h, h_kv, d, window, softcap, blk = CASES[case]
+    q, k, v = _qkv(b, s, h, h_kv, d)
+    ref = j_flash(*(jnp.asarray(x, dtype=jnp.bfloat16) for x in (q, k, v)), causal=True,
+                  window=window, softcap=softcap, block_q=blk, block_k=blk, interpret=True)
+    out = flash_attention(*(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)),
+                          causal=True, window=window, softcap=softcap)
+    diff = np.abs(out.float().numpy() - np.asarray(ref, dtype=np.float32))
+    assert diff.mean() <= BF16_MEAN_DIFF_MAX
+    assert (diff > 0).mean() <= BF16_UNEQUAL_SHARE_MAX

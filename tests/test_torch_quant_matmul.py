@@ -9,8 +9,9 @@ Tolerances:
   round x to bf16, whose products with int8 values are exact in f32, so
   only the f32 summation order differs, and that can move the final
   rounding by one ulp;
-* kernel against plain on the card: the same one-ulp bounds (f32: 1e-4 of
-  the largest output, the sum running over up to 14,336 terms).
+
+The kernel variants against this plain version on the card, and the
+routing between them, are in ``tests/test_torch_kernels.py``.
 """
 
 import numpy as np
@@ -21,18 +22,11 @@ import jax.numpy as jnp
 
 from accelerate_tpu.ops.quant_matmul import quantized_matmul as j_qmm
 from accelerate_tpu.utils.quantization import _quantize_array
-from accelerate_tpu_torch.ops import _build
 from accelerate_tpu_torch.ops.quant_matmul import quantized_matmul, quantized_matmul_plain
 
 TOL = {"float32": dict(atol=1e-5, rtol=1e-5), "bfloat16": dict(atol=0, rtol=2**-7),
        "float16": dict(atol=0, rtol=2**-10)}
 
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    return torch.device("cuda", 0)
 
 
 def _np(x):
@@ -91,34 +85,3 @@ def test_plain_is_the_dequantized_product():
     x, q, scales = _operands((9,), 80, 24, seed=2)
     out = quantized_matmul_plain(torch.from_numpy(x), torch.from_numpy(q), torch.from_numpy(scales))
     np.testing.assert_allclose(_np(out), x @ (q.astype(np.float32) * scales), atol=1e-5, rtol=1e-5)
-
-
-# the card: the main path's shapes at decode and prefill M, the ragged edge,
-# int4-range codes and an f16 x, each against the plain version
-CARD_CASES = [
-    (8, 4096, 14336, torch.bfloat16), (2048, 14336, 4096, torch.bfloat16),
-    (8, 4096, 14336, torch.float32), (7, 4100, 1000, torch.bfloat16),
-    (130, 4100, 1000, torch.float32), (64, 512, 384, torch.float16),
-]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n,dtype", CARD_CASES)
-def test_kernel_matches_plain_on_card(cuda_device, m, k, n, dtype):
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    qmax = 7 if n == 384 else 127  # one int4-range case
-    q = torch.randint(-qmax, qmax + 1, (k, n), generator=gen, device=cuda_device, dtype=torch.int8)
-    scales = (0.5 + torch.rand(n, generator=gen, device=cuda_device)) * 0.3 / (qmax * 0.6 * k ** 0.5)
-    x = torch.randn((m, k), generator=gen, device=cuda_device).to(dtype)
-    before = _build.launch_counts()["quant_matmul"]
-    out = quantized_matmul(x, q, scales)
-    ref = quantized_matmul_plain(x, q, scales)
-    torch.cuda.synchronize()
-    assert _build.launch_counts()["quant_matmul"] == before + 1
-    assert out.dtype == dtype and out.shape == (m, n)
-    if dtype == torch.float32:
-        assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
-    else:
-        # atol: outputs that cancel to near zero, where f32 order matters more than an ulp
-        tol = dict(TOL[str(dtype).removeprefix("torch.")], atol=1e-5)
-        torch.testing.assert_close(out.float(), ref.float(), **tol)
