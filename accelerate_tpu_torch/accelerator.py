@@ -87,7 +87,9 @@ class Accelerator:
             self.state.mixed_precision)
         self.scaler: Optional[DynamicScale] = None
         if self.state.mixed_precision == "fp16":
-            self.scaler = DynamicScale(**(self.scaler_kwargs.to_dict() if self.scaler_kwargs else {}))
+            kw = self.scaler_kwargs.to_dict() if self.scaler_kwargs else {}
+            if kw.pop("enabled", True):
+                self.scaler = DynamicScale(**kw)
         self.step = 0
         self._forced_sync = False
         self._models: list = []
@@ -132,7 +134,9 @@ class Accelerator:
             elif isinstance(obj, DataLoaderShard):
                 result.append(self.prepare_data_loader(obj))
             elif isinstance(obj, torch.optim.lr_scheduler.LRScheduler):
-                raise NotImplementedError("schedulers (scheduler.py) are not ported yet (ROADMAP.md)")
+                raise NotImplementedError(
+                    "schedulers (scheduler.py, which GradientAccumulationPlugin.adjust_scheduler "
+                    "steps) are not ported yet (ROADMAP.md A4)")
             else:
                 result.append(obj)
         return result[0] if len(result) == 1 else tuple(result)
@@ -257,7 +261,7 @@ class Accelerator:
         if multi_step:
             raise NotImplementedError(
                 "multi_step=True (N steps in one program) is not ported; it waits "
-                "for CUDA graphs (ROADMAP.md A8)")
+                "for CUDA graphs (ROADMAP.md A9)")
         if self.ddp_handler is not None and self.ddp_handler.comm_hook == "powersgd":
             raise NotImplementedError(
                 "comm_hook='powersgd' compresses the cross-device gradient reduction; "

@@ -4,7 +4,9 @@
 // (its pallas_call at :72, launched by quantized_matmul). Computes
 //   out[m, n] = cast_out((sum_k xc[m, k] * q[k, n]) * scales[n])
 // with x (M, K) f32, bf16 or f16, q (K, N) int8, scales (N,) f32 per output
-// column and out (M, N) in x's dtype. xc is x itself when x is f32 and x
+// column and out (M, N) in x's dtype or in f32 (cast_out: the caller's
+// output dtype; an f32 output keeps the f32 sum times the scale, as the
+// JAX LM head's preferred_element_type=f32 does). xc is x itself when x is f32 and x
 // rounded to bf16 otherwise (the TPU kernel's compute dtype; an f16 x is
 // rounded to bf16 too). A bf16 value times an int8 is exact in f32, so the
 // only roundings are the f32 sum's and the final cast; the scale multiplies
@@ -94,11 +96,12 @@ template <> __device__ __forceinline__ __half store_out<__half>(float v) {
   return __float2half_rn(v);
 }
 
-// RM rows of the micro-tile per thread: the block covers BM = 16 * RM rows
-template <typename T, int RM>
+// RM rows of the micro-tile per thread: the block covers BM = 16 * RM rows;
+// O the output type (T, or float)
+template <typename T, typename O, int RM>
 __global__ void __launch_bounds__(NT) quant_matmul_kernel(
     const T* __restrict__ x, const int8_t* __restrict__ q,
-    const float* __restrict__ scales, T* __restrict__ out, int M, int K, int N) {
+    const float* __restrict__ scales, O* __restrict__ out, int M, int K, int N) {
   constexpr int BM = 16 * RM;
   constexpr int XP = BM + 1;  // padded k-major x tile: the transposing store hits distinct banks
   __shared__ float sX[BK * XP];
@@ -153,24 +156,24 @@ __global__ void __launch_bounds__(NT) quant_matmul_kernel(
 #pragma unroll
     for (int r = 0; r < RM; ++r) {
       const int gm = m0 + ty + 16 * r;
-      if (gm < M) out[(long)gm * N + gn] = store_out<T>(acc[r][c] * s);
+      if (gm < M) out[(long)gm * N + gn] = store_out<O>(acc[r][c] * s);
     }
   }
 }
 
-template <typename T>
+template <typename T, typename O>
 int launch(const void* x, const void* q, const void* scales, void* out, int M, int K,
            int N, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   const int8_t* qt = static_cast<const int8_t*>(q);
   const float* st = static_cast<const float*>(scales);
-  T* ot = static_cast<T*>(out);
+  O* ot = static_cast<O*>(out);
   if (M <= 16) {  // decode shapes: 16-row tiles waste fewer FMAs on padding rows
     dim3 grid((N + BN - 1) / BN, (M + 15) / 16);
-    quant_matmul_kernel<T, 1><<<grid, NT, 0, stream>>>(xt, qt, st, ot, M, K, N);
+    quant_matmul_kernel<T, O, 1><<<grid, NT, 0, stream>>>(xt, qt, st, ot, M, K, N);
   } else {
     dim3 grid((N + BN - 1) / BN, (M + 63) / 64);
-    quant_matmul_kernel<T, 4><<<grid, NT, 0, stream>>>(xt, qt, st, ot, M, K, N);
+    quant_matmul_kernel<T, O, 4><<<grid, NT, 0, stream>>>(xt, qt, st, ot, M, K, N);
   }
   return (int)cudaGetLastError();
 }
@@ -216,6 +219,17 @@ template <> __device__ __forceinline__ uint32_t pack_out<__half>(float lo, float
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// 8 neighbouring outputs cast to O, 16 bytes a store (a 16-byte aligned dst)
+template <typename O> __device__ __forceinline__ void store8(O* dst, const float (&v)[8]) {
+  *reinterpret_cast<uint4*>(dst) =
+      make_uint4(pack_out<O>(v[0], v[1]), pack_out<O>(v[2], v[3]), pack_out<O>(v[4], v[5]),
+                 pack_out<O>(v[6], v[7]));
+}
+template <> __device__ __forceinline__ void store8<float>(float* dst, const float (&v)[8]) {
+  reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
 template <typename T> __device__ __forceinline__ void to_bf16_frag(uint32_t (&a)[4]) {}
 template <> __device__ __forceinline__ void to_bf16_frag<__half>(uint32_t (&a)[4]) {
 #pragma unroll
@@ -224,12 +238,12 @@ template <> __device__ __forceinline__ void to_bf16_frag<__half>(uint32_t (&a)[4
 
 // SPLIT: blockIdx.z is the K slice (k_tiles_per_slice 64-deep tiles each)
 // and `out` the f32 workspace (slices, M, N), unscaled; otherwise `out` is
-// (M, N) of T, scaled and cast. Grid: (ceil(M / BM), ceil(N / 128), slices):
+// (M, N) of O (T, or float), scaled and cast. Grid: (ceil(M / BM), ceil(N / 128), slices):
 // the row tiles that share q's columns run side by side, so each weight
 // byte comes from device memory about once. Warp wn owns columns 32 wn ..
 // 32 wn + 31 of the block and all its rows, so each int8 weight is widened
 // once per block.
-template <typename T, int BM, bool SPLIT>
+template <typename T, typename O, int BM, bool SPLIT>
 __global__ void __launch_bounds__(MNT) quant_matmul_mma_kernel(
     const T* __restrict__ x, const int8_t* __restrict__ q, const float* __restrict__ scales,
     void* __restrict__ out, int M, int K, int N, int k_tiles_per_slice) {
@@ -357,30 +371,28 @@ __global__ void __launch_bounds__(MNT) quant_matmul_mma_kernel(
         float sv[8];
 #pragma unroll
         for (int j = 0; j < 8; ++j) sv[j] = v[j] * scales[gn + j];
-        *reinterpret_cast<uint4*>(static_cast<T*>(out) + (long)gm * N + gn) = make_uint4(
-            pack_out<T>(sv[0], sv[1]), pack_out<T>(sv[2], sv[3]),
-            pack_out<T>(sv[4], sv[5]), pack_out<T>(sv[6], sv[7]));
+        store8<O>(static_cast<O*>(out) + (long)gm * N + gn, sv);
       }
     }
 }
 
 // out = cast((sum over slices, ascending, of ws[s]) * scales), elementwise
-template <typename T>
+template <typename O>
 __global__ void __launch_bounds__(256) quant_matmul_splitk_reduce_kernel(
-    const float* __restrict__ ws, const float* __restrict__ scales, T* __restrict__ out,
+    const float* __restrict__ ws, const float* __restrict__ scales, O* __restrict__ out,
     int M, int N, int slices) {
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   const long mn = (long)M * N;
   if (i >= mn) return;
   float s = 0.f;
   for (int z = 0; z < slices; ++z) s += ws[z * mn + i];
-  out[i] = store_out<T>(s * scales[i % N]);
+  out[i] = store_out<O>(s * scales[i % N]);
 }
 
-template <typename T, int BM, bool SPLIT>
+template <typename T, typename O, int BM, bool SPLIT>
 int launch_mma(const void* x, const void* q, const void* scales, void* out, int M, int K,
                int N, int k_tiles_per_slice, int slices, cudaStream_t stream) {
-  auto kernel = quant_matmul_mma_kernel<T, BM, SPLIT>;
+  auto kernel = quant_matmul_mma_kernel<T, O, BM, SPLIT>;
   constexpr int smem = MmaCfg<BM>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -391,22 +403,23 @@ int launch_mma(const void* x, const void* q, const void* scales, void* out, int 
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename O>
 int launch_mma_bm(const void* x, const void* q, const void* scales, void* out, int M, int K,
                   int N, int bm, cudaStream_t s) {
-  if (bm == 128) return launch_mma<T, 128, false>(x, q, scales, out, M, K, N, 0, 1, s);
-  if (bm == 64) return launch_mma<T, 64, false>(x, q, scales, out, M, K, N, 0, 1, s);
+  if (bm == 128) return launch_mma<T, O, 128, false>(x, q, scales, out, M, K, N, 0, 1, s);
+  if (bm == 64) return launch_mma<T, O, 64, false>(x, q, scales, out, M, K, N, 0, 1, s);
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
+template <typename T, typename O>
 int launch_splitk(const void* x, const void* q, const void* scales, void* out, void* ws,
                   int M, int K, int N, int k_tiles_per_slice, int slices, cudaStream_t s) {
-  int err = launch_mma<T, 16, true>(x, q, scales, ws, M, K, N, k_tiles_per_slice, slices, s);
+  int err = launch_mma<T, float, 16, true>(x, q, scales, ws, M, K, N, k_tiles_per_slice,
+                                           slices, s);
   if (err) return err;
   const long mn = (long)M * N;
-  quant_matmul_splitk_reduce_kernel<T><<<(unsigned)((mn + 255) / 256), 256, 0, s>>>(
-      static_cast<const float*>(ws), static_cast<const float*>(scales), static_cast<T*>(out),
+  quant_matmul_splitk_reduce_kernel<O><<<(unsigned)((mn + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(ws), static_cast<const float*>(scales), static_cast<O*>(out),
       M, N, slices);
   return (int)cudaGetLastError();
 }
@@ -415,44 +428,60 @@ bool mma_shape_ok(int M, int K, int N) { return M > 0 && K > 0 && N > 0 && K % 8
 
 }  // namespace
 
-// dtype of x and out: 0 = float32, 1 = bfloat16, 2 = float16. Returns a
-// cudaError_t code (0 on success).
+// dtype of x: 0 = float32, 1 = bfloat16, 2 = float16; out_dtype, the
+// output's: x's dtype, or 0 (float32). Returns a cudaError_t code (0 on
+// success).
 extern "C" int quant_matmul(const void* x, const void* q, const void* scales, void* out,
-                            int M, int K, int N, int dtype, void* stream) {
+                            int M, int K, int N, int dtype, int out_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0) return 0;
-  if (K <= 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return launch<float>(x, q, scales, out, M, K, N, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, q, scales, out, M, K, N, s);
-  if (dtype == 2) return launch<__half>(x, q, scales, out, M, K, N, s);
+  if (K <= 0 || (out_dtype != dtype && out_dtype != 0)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return launch<float, float>(x, q, scales, out, M, K, N, s);
+  if (dtype == 1 && out_dtype == 0) return launch<__nv_bfloat16, float>(x, q, scales, out, M, K, N, s);
+  if (dtype == 1) return launch<__nv_bfloat16, __nv_bfloat16>(x, q, scales, out, M, K, N, s);
+  if (dtype == 2 && out_dtype == 0) return launch<__half, float>(x, q, scales, out, M, K, N, s);
+  if (dtype == 2) return launch<__half, __half>(x, q, scales, out, M, K, N, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// Tensor-core variant, bf16 (dtype 1) or f16 (dtype 2) x, tiles of bm =
-// 128 or 64 rows by 128 columns. Needs K % 8 == 0, N % 16 == 0 and 16-byte
-// aligned x, q and out. Returns a cudaError_t code.
+// Tensor-core variant, bf16 (dtype 1) or f16 (dtype 2) x, out_dtype x's or
+// 0 (float32), tiles of bm = 128 or 64 rows by 128 columns. Needs K % 8 ==
+// 0, N % 16 == 0 and 16-byte aligned x, q and out. Returns a cudaError_t
+// code.
 extern "C" int quant_matmul_mma(const void* x, const void* q, const void* scales, void* out,
-                                int M, int K, int N, int dtype, int bm, void* stream) {
+                                int M, int K, int N, int dtype, int out_dtype, int bm,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!mma_shape_ok(M, K, N)) return (int)cudaErrorInvalidValue;
-  if (dtype == 1) return launch_mma_bm<__nv_bfloat16>(x, q, scales, out, M, K, N, bm, s);
-  if (dtype == 2) return launch_mma_bm<__half>(x, q, scales, out, M, K, N, bm, s);
+  if (!mma_shape_ok(M, K, N) || (out_dtype != dtype && out_dtype != 0))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && out_dtype == 0)
+    return launch_mma_bm<__nv_bfloat16, float>(x, q, scales, out, M, K, N, bm, s);
+  if (dtype == 1)
+    return launch_mma_bm<__nv_bfloat16, __nv_bfloat16>(x, q, scales, out, M, K, N, bm, s);
+  if (dtype == 2 && out_dtype == 0)
+    return launch_mma_bm<__half, float>(x, q, scales, out, M, K, N, bm, s);
+  if (dtype == 2) return launch_mma_bm<__half, __half>(x, q, scales, out, M, K, N, bm, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // Split-K variant for M <= 16: `slices` K slices of k_tiles_per_slice
 // 64-deep tiles, f32 partial sums in ws (slices, M, N), then the ordered
-// reduction with the scale and the cast. Returns a cudaError_t code.
+// reduction with the scale and the cast to out_dtype. Returns a cudaError_t
+// code.
 extern "C" int quant_matmul_splitk(const void* x, const void* q, const void* scales, void* out,
-                                   void* ws, int M, int K, int N, int dtype,
+                                   void* ws, int M, int K, int N, int dtype, int out_dtype,
                                    int k_tiles_per_slice, int slices, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!mma_shape_ok(M, K, N) || M > 16 || k_tiles_per_slice <= 0 ||
-      (long)k_tiles_per_slice * slices * MBK < K || (long)k_tiles_per_slice * (slices - 1) * MBK >= K)
+      (long)k_tiles_per_slice * slices * MBK < K || (long)k_tiles_per_slice * (slices - 1) * MBK >= K ||
+      (out_dtype != dtype && out_dtype != 0))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1)
-    return launch_splitk<__nv_bfloat16>(x, q, scales, out, ws, M, K, N, k_tiles_per_slice, slices, s);
-  if (dtype == 2)
-    return launch_splitk<__half>(x, q, scales, out, ws, M, K, N, k_tiles_per_slice, slices, s);
+#define SPLITK(T_, O_) \
+  return launch_splitk<T_, O_>(x, q, scales, out, ws, M, K, N, k_tiles_per_slice, slices, s)
+  if (dtype == 1 && out_dtype == 0) SPLITK(__nv_bfloat16, float);
+  if (dtype == 1) SPLITK(__nv_bfloat16, __nv_bfloat16);
+  if (dtype == 2 && out_dtype == 0) SPLITK(__half, float);
+  if (dtype == 2) SPLITK(__half, __half);
+#undef SPLITK
   return (int)cudaErrorInvalidValue;
 }

@@ -10,7 +10,7 @@ loader registers with ``GradientState`` while iterated and looks one batch
 ahead, so the last batch arrives with ``end_of_dataloader`` already set
 (what forces the final gradient sync).
 
-Queued for the distributed slice (ROADMAP.md A7): ``BatchSamplerShard``,
+Queued with the data path (ROADMAP.md A5): ``BatchSamplerShard``,
 ``DataLoaderDispatcher``, unwrapping a ``torch.utils.data.DataLoader``,
 iterables of ready batches and ``skip_first_batches``.
 """
@@ -177,12 +177,12 @@ def prepare_data_loader(
         return dataloader
     if isinstance(dataloader, torch.utils.data.DataLoader):
         raise NotImplementedError(
-            "unwrapping a torch DataLoader waits for the distributed slice (ROADMAP.md A7); "
+            "unwrapping a torch DataLoader waits for the data path (ROADMAP.md A5); "
             "pass its dataset and batch_size")
     dataset = dataloader
     if not (isinstance(dataset, dict) or hasattr(dataset, "__getitem__")):
         raise NotImplementedError(
-            "iterables of ready-made batches wait for the distributed slice (ROADMAP.md A7); "
+            "iterables of ready-made batches wait for the data path (ROADMAP.md A5); "
             "pass a dict of arrays or a map-style dataset")
     if batch_size is None:
         raise ValueError("batch_size is required when passing a dataset")

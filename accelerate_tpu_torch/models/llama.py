@@ -94,11 +94,32 @@ class LlamaConfig:
     remat_policy: str = "nothing"  # "nothing" | "full" ("dots", "minimal" queued)
     attention_impl: str = "blockwise"  # "xla" | "blockwise" | "flash"
     attention_kv_block: int = 512
-    num_experts: int = 1  # > 1 (MoE) is not ported yet
+    # accepted so that configs written for the JAX package load; no-ops here:
+    # the TPU kernels' q-tile rows (the CUDA kernels size their own tiles)
+    # and lax.scan over the layers (the port loops over them either way)
+    attention_block_q: int = 2048
+    scan_layers: bool = True
+    # MoE (Mixtral-style): num_experts > 1 is refused (ROADMAP.md A11), and
+    # the other MoE fields act only then
+    num_experts: int = 1
+    num_experts_per_tok: int = 2
+    expert_capacity_factor: float = 1.25
+    moe_aux_loss_coef: float = 0.01
+    router_z_loss_coef: float = 0.0
+    # fp8 projections and the chunked cross entropy: refused when on
+    # (ROADMAP.md A4)
+    use_fp8: bool = False
+    use_chunked_ce: bool = False
+    ce_chunk_size: int = 4096
 
     def __post_init__(self):
         if self.head_dim is None:
             self.head_dim = self.hidden_size // self.num_attention_heads
+        if self.num_experts > 1 and self.hidden_act != "silu":
+            raise ValueError(
+                "hidden_act is silu-only on the MoE path; got "
+                f"{self.hidden_act!r} with num_experts={self.num_experts}"
+            )
         if self.alternating_sliding_window and self.sliding_window is None:
             raise ValueError(
                 "alternating_sliding_window=True needs sliding_window set "
@@ -116,6 +137,19 @@ class LlamaConfig:
         return cls(**{**dict(
             vocab_size=32000, hidden_size=4096, intermediate_size=11008,
             num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=32,
+        ), **overrides})
+
+    @classmethod
+    def mixtral_8x7b(cls, **overrides) -> "LlamaConfig":
+        """Mixtral-8x7B shape (HF mistralai/Mixtral-8x7B): 8 experts, 2 per
+        token. It builds; a model of it is refused until MoE layers are
+        ported (ROADMAP.md A11)."""
+        return cls(**{**dict(
+            vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+            num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+            max_position_embeddings=32768, rope_theta=1e6,
+            num_experts=8, num_experts_per_tok=2,
+            expert_capacity_factor=8.0,  # dropless: every token reaches its top 2
         ), **overrides})
 
     @classmethod
@@ -204,7 +238,17 @@ def _check_supported(config: LlamaConfig, params: Optional[dict] = None) -> None
         )
     if config.num_experts > 1:
         raise NotImplementedError(
-            "MoE layers (num_experts > 1) are not ported yet (ROADMAP.md)"
+            "MoE layers (num_experts > 1, with num_experts_per_tok, expert_capacity_factor, "
+            "moe_aux_loss_coef and router_z_loss_coef) are not ported yet (ROADMAP.md A11)"
+        )
+    if config.use_fp8:
+        raise NotImplementedError(
+            "use_fp8 (fp8 projections, ops/fp8.py) is not ported yet (ROADMAP.md A4)"
+        )
+    if config.use_chunked_ce:
+        raise NotImplementedError(
+            "use_chunked_ce (the chunked cross entropy, with ce_chunk_size) is not ported "
+            "yet (ROADMAP.md A4)"
         )
     if config.alternating_sliding_window:
         raise NotImplementedError(
@@ -494,18 +538,65 @@ def apply_rope_window(x, pos, theta: float, scaling=None):
     return _rotate(x, *_rope_window_tables(pos, x.shape[1], x.shape[-1], theta, scaling, x.device))
 
 
-def _matmul(config, y, w):
+def _matmul(config, y, w, out_dtype=None):
     """``y @ w`` for a projection weight: a float tensor is cast to the
     compute dtype; a per-channel quantized leaf (int8 or linear int4)
     multiplies as int8 through the quantized matmul kernel, scales after the
     sum (the same function as ``y @ dequantize(w)``); a block-scaled or
     NF4 leaf is dequantized to its original dtype, then cast, as the JAX
-    package does."""
+    package does. ``out_dtype=torch.float32`` keeps the f32 sums (the LM
+    head); by default the product is in the compute dtype."""
     if isinstance(w, QuantizedLeaf) and w.block_size is None:
-        return _qmm.quantized_matmul(y, w.q, w.scales)
+        return _qmm.quantized_matmul(y, w.q, w.scales, out_dtype=out_dtype)
     if not isinstance(w, torch.Tensor):
         w = w.dequantize()
+    if out_dtype == torch.float32:
+        return _f32_product(y, w.to(config.compute_dtype))
     return y @ w.to(config.compute_dtype)
+
+
+class _F32Product(torch.autograd.Function):
+    """``x @ w`` of two bf16 (or f16) operands with an f32 output: the JAX
+    head's ``einsum(..., preferred_element_type=jnp.float32)``. On CUDA one
+    cuBLAS GEMM with bf16 operands, f32 accumulation and an f32 output
+    (``aten::mm.dtype``); on the CPU, which has no kernel for that overload,
+    f32 operands, which give the same products (a bf16 x bf16 product is
+    exact in f32).
+
+    The backward rounds the f32 cotangent to the operands' dtype and runs
+    both products as bf16 GEMMs with f32 accumulation. The JAX backward is
+    a dot of the f32 cotangent with a bf16 operand, which XLA at its default
+    precision runs on the TPU as bf16 passes: the rounding is what the
+    reference does on its own chip. An f32 x f32 GEMM here would be ~17
+    TFLOP of f32 work a step at Llama-3-8B's vocabulary and batch 4 x 2048."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.device.type == "cuda":
+            out = torch.mm(x2, w, out_dtype=torch.float32)
+        else:
+            out = x2.float() @ w.float()
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        g = grad.reshape(-1, grad.shape[-1]).to(x.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (g @ w.T).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = x.reshape(-1, x.shape[-1]).T @ g
+        return dx, dw
+
+
+def _f32_product(x, w):
+    """``x @ w`` with f32 products and an f32 output (f32 operands as they are)."""
+    if x.dtype == torch.float32:
+        return x @ w.float()
+    return _F32Product.apply(x, w)
 
 
 def _proj(config, layer_params, name, y):
@@ -597,7 +688,21 @@ def _embed(config, params, ids):
 
 
 def _head(config, params, x):
-    """Final norm + LM head -> f32 logits."""
+    """Final norm + LM head -> f32 logits, as the JAX ``llama_apply``
+    computes them: operands in the compute dtype, f32 products and output
+    (``preferred_element_type=jnp.float32``), the final softcap in f32."""
+    x = rms_norm(x, params["final_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
+    if config.tie_word_embeddings:
+        logits = _f32_product(x, params["embed_tokens"]["embedding"].to(config.compute_dtype).T)
+    else:
+        logits = _matmul(config, x, params["lm_head"]["kernel"], out_dtype=torch.float32)
+    return tanh_softcap(logits, config.final_logit_softcap)
+
+
+def _serving_head(config, params, x):
+    """Final norm + LM head of the prefill, decode and verify steps, as the
+    JAX serving steps compute it (``_prefill_head``): the product and the
+    softcap in the compute dtype, then f32."""
     cdt = config.compute_dtype
     x = rms_norm(x, params["final_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
     if config.tie_word_embeddings:
@@ -723,7 +828,7 @@ def llama_prefill_at(config: LlamaConfig, params, input_ids, max_len: int, last_
     x, ks, vs = _prefill_stack(config, params, input_ids)
     last_index = torch.as_tensor(last_index, device=x.device).long()
     x_last = x[torch.arange(x.shape[0], device=x.device), last_index]
-    return _head(config, params, x_last), _pad_prefill_cache(ks, vs, max_len)
+    return _serving_head(config, params, x_last), _pad_prefill_cache(ks, vs, max_len)
 
 
 def _write_kv_at(cache, kv, pos):
@@ -878,7 +983,7 @@ def llama_decode_step(config: LlamaConfig, params, cache, token, pos, *, kv_layo
             kv_layout.commit(cv, view_v, pos)
         else:
             x, _, _ = _decode_layer(config, lp, x, ck, cv, pos, rope=rope)
-    return _head(config, params, x)[:, 0], cache
+    return _serving_head(config, params, x)[:, 0], cache
 
 
 def _verify_layer(config: LlamaConfig, layer_params, x, cache_k, cache_v, pos,
@@ -955,4 +1060,4 @@ def llama_verify_step(config: LlamaConfig, params, cache, tokens, pos, *, kv_lay
             x, k, v = _verify_layer(config, lp, x, ck, cv, pos, rope=rope)
         win_k.append(k)
         win_v.append(v)
-    return _head(config, params, x), {"k": torch.stack(win_k), "v": torch.stack(win_v)}
+    return _serving_head(config, params, x), {"k": torch.stack(win_k), "v": torch.stack(win_v)}

@@ -50,6 +50,8 @@ KERNELS = {
     "flash_fwd_mma": "flash_fwd.cu",
     "flash_bwd_dq": "flash_bwd.cu",
     "flash_bwd_dkv": "flash_bwd.cu",
+    "flash_bwd_dq_mma": "flash_bwd.cu",
+    "flash_bwd_dkv_mma": "flash_bwd.cu",
     "paged_decode": "paged_decode.cu",
     "paged_decode_int8": "paged_decode.cu",
     "paged_verify": "paged_verify.cu",

@@ -10,9 +10,11 @@
   ``jax.custom_vjp`` of ``_flash_core`` / ``_flash_core_lse``). A CUDA
   tensor launches the hand-written kernels (``csrc/flash_fwd.cu`` for the
   forward, ``csrc/flash_bwd.cu`` for dq and for dk/dv) or raises; a CPU
-  tensor runs the plain versions. The forward has two variants, chosen by
-  :func:`flash_fwd_kernel_for` from the dtype: ``flash_fwd_mma`` (bf16, the
-  products on the tensor cores) and ``flash_fwd`` (f32, FMA loops).
+  tensor runs the plain versions. Each kernel has two variants, chosen
+  from the dtype by :func:`flash_fwd_kernel_for` and
+  :func:`flash_bwd_kernel_for`: ``flash_fwd_mma``, ``flash_bwd_dq_mma`` and
+  ``flash_bwd_dkv_mma`` (bf16, the products on the tensor cores), and
+  ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` (f32, FMA loops).
 
 Layout (B, S, H, D) for q/out/do, (B, S, H_kv, D) for k/v, lse (B, H, Sq)
 f32. ``segment_ids`` (B, Sq) / ``kv_segment_ids`` (B, Skv) are packed-
@@ -37,6 +39,7 @@ from .attention import NEG_INF
 
 __all__ = [
     "flash_attention",
+    "flash_bwd_kernel_for",
     "flash_fwd_block_q",
     "flash_fwd_kernel_for",
     "flash_attention_with_lse",
@@ -230,6 +233,18 @@ def flash_fwd_kernel_for(dtype: torch.dtype) -> str:
     return "flash_fwd_mma" if dtype == torch.bfloat16 else "flash_fwd"
 
 
+def flash_bwd_kernel_for(dtype: torch.dtype) -> Tuple[str, str]:
+    """The backward kernels (dq, then dk/dv; their C entry points and launch
+    counters) that serve q/k/v of ``dtype``: ``flash_bwd_dq_mma`` and
+    ``flash_bwd_dkv_mma`` for bf16, whose products run on the tensor cores,
+    and ``flash_bwd_dq`` and ``flash_bwd_dkv`` for f32 (FMA loops)."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash kernels take float32 or bfloat16, got {dtype}")
+    if dtype == torch.bfloat16:
+        return "flash_bwd_dq_mma", "flash_bwd_dkv_mma"
+    return "flash_bwd_dq", "flash_bwd_dkv"
+
+
 def flash_fwd_block_q(b: int, h: int, sq: int) -> int:
     """q rows per block of ``flash_fwd_mma``: 128 (32 rows a warp, so each
     K/V fragment feeds two row tiles) where that still gives
@@ -258,41 +273,58 @@ def _launch_fwd(q, k, v, q_seg, kv_seg, causal, window, softcap):
     return out, lse
 
 
-def _bwd_launch_args(q, k, v, do, lse, delta, q_seg, kv_seg, causal, window, softcap):
+def _bwd_launch_args(q, k, v, do, lse, delta, q_seg, kv_seg, causal, window, name):
+    """Checked pointers and the integer dimensions of backward kernel
+    ``name``: the FMA kernels also take the dtype code."""
     _check_launch(q, k, v, (do, lse, delta))
     if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous():
         raise ValueError(f"do must be a contiguous {q.dtype} {tuple(q.shape)}, got "
                          f"{do.dtype} {tuple(do.shape)}")
+    if do.data_ptr() % 16:
+        raise ValueError("flash kernels take a 16-byte aligned do (16-byte copies)")
     b, sq, h, d = q.shape
-    for name, t in (("lse", lse), ("delta", delta)):
+    for arg, t in (("lse", lse), ("delta", delta)):
         if t.shape != (b, h, sq) or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 {(b, h, sq)}")
+            raise ValueError(f"{arg} must be a contiguous float32 {(b, h, sq)}")
+    if name.endswith("_mma") and q.dtype != torch.bfloat16:
+        raise TypeError(f"{name} takes bfloat16 q/k/v, got {q.dtype}")
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
            delta.data_ptr(), _seg_ptr(q_seg), _seg_ptr(kv_seg))
-    dims = (b, sq, k.shape[1], h, k.shape[2], d, _DTYPE_CODE[q.dtype], int(bool(causal)),
-            int(window or 0), float(softcap or 0.0), 1.0 / math.sqrt(d),
-            torch.cuda.current_stream(q.device).cuda_stream)
+    dims = [b, sq, k.shape[1], h, k.shape[2], d]
+    if not name.endswith("_mma"):
+        dims.append(_DTYPE_CODE[q.dtype])
+    dims += [int(bool(causal)), int(window or 0)]
     return ins, dims
 
 
 def _launch_bwd_dq(q, k, v, do, lse, delta, q_seg, kv_seg, causal, window, softcap):
-    """Kernel B2: dq from the saved lse and the precomputed delta."""
-    ins, dims = _bwd_launch_args(q, k, v, do, lse, delta, q_seg, kv_seg, causal, window, softcap)
+    """Kernel B2: dq from the saved lse and the precomputed delta, by the
+    variant :func:`flash_bwd_kernel_for` names for q's dtype."""
+    name = flash_bwd_kernel_for(q.dtype)[0]
+    ins, dims = _bwd_launch_args(q, k, v, do, lse, delta, q_seg, kv_seg, causal, window,
+                                  name)
     dq = torch.empty_like(q)
-    code = _build.entry("flash_bwd_dq", 9, 9, 2)(*ins, dq.data_ptr(), *dims)
-    _build.check("flash_bwd_dq", code)
-    _build.count_launch("flash_bwd_dq")
+    code = _build.entry(name, 9, len(dims), 2)(
+        *ins, dq.data_ptr(), *dims, float(softcap or 0.0), 1.0 / math.sqrt(q.shape[3]),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(name, code)
+    _build.count_launch(name)
     return dq
 
 
 def _launch_bwd_dkv(q, k, v, do, lse, delta, q_seg, kv_seg, causal, window, softcap):
-    """Kernel B3: dk and dv, each kv head summed over its group of q heads."""
-    ins, dims = _bwd_launch_args(q, k, v, do, lse, delta, q_seg, kv_seg, causal, window, softcap)
+    """Kernel B3: dk and dv, each kv head summed over its group of q heads,
+    by the variant :func:`flash_bwd_kernel_for` names for q's dtype."""
+    name = flash_bwd_kernel_for(q.dtype)[1]
+    ins, dims = _bwd_launch_args(q, k, v, do, lse, delta, q_seg, kv_seg, causal, window,
+                                  name)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    code = _build.entry("flash_bwd_dkv", 10, 9, 2)(*ins, dk.data_ptr(), dv.data_ptr(), *dims)
-    _build.check("flash_bwd_dkv", code)
-    _build.count_launch("flash_bwd_dkv")
+    code = _build.entry(name, 10, len(dims), 2)(
+        *ins, dk.data_ptr(), dv.data_ptr(), *dims, float(softcap or 0.0),
+        1.0 / math.sqrt(q.shape[3]), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(name, code)
+    _build.count_launch(name)
     return dk, dv
 
 

@@ -14,7 +14,7 @@ a CPU tensor runs :func:`quantized_matmul_plain`.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -75,26 +75,40 @@ def _shapes(x, q, scales):
     return lead, k, n
 
 
-def quantized_matmul_plain(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+def _out_dtype(x, out_dtype):
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if out_dtype not in (x.dtype, torch.float32):
+        raise TypeError(f"quantized_matmul writes x's dtype ({x.dtype}) or float32, got {out_dtype}")
+    return out_dtype
+
+
+def quantized_matmul_plain(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
+                           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain version of the kernel: the product in f32 of x (rounded to bf16
-    unless x is f32) and q, then times the f32 scales, cast to x's dtype."""
+    unless x is f32) and q, then times the f32 scales, cast to ``out_dtype``
+    (x's dtype by default, or float32)."""
     lead, k, n = _shapes(x, q, scales)
+    out_dtype = _out_dtype(x, out_dtype)
     compute = torch.float32 if x.dtype == torch.float32 else torch.bfloat16
     acc = x.reshape(-1, k).to(compute).float() @ q.float()
     out = acc * scales.reshape(n).float()
-    return out.to(x.dtype).reshape(*lead, n)
+    return out.to(out_dtype).reshape(*lead, n)
 
 
-def quantized_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+def quantized_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
+                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``x @ (q * scales)`` with int8 ``q`` read as int8 by the kernel.
 
     x: (..., K) float32, bfloat16 or float16; q: (K, N) int8; scales: any
     shape with N elements (``(N,)``, ``(1, N)``, a stacked leaf's ``(1, 1,
-    N)``), taken as f32. Returns (..., N) in x's dtype. A non-f32 x is
-    rounded to bf16 before the products, as the TPU kernel computes."""
+    N)``), taken as f32. Returns (..., N) in ``out_dtype``: x's dtype by
+    default, or float32, which keeps the f32 sums times the scales unrounded
+    (an LM head's f32 logits). A non-f32 x is rounded to bf16 before the
+    products, as the TPU kernel computes."""
     lead, k, n = _shapes(x, q, scales)
+    out_dtype = _out_dtype(x, out_dtype)
     if x.device.type == "cpu":
-        return quantized_matmul_plain(x, q, scales)
+        return quantized_matmul_plain(x, q, scales, out_dtype)
     if q.device != x.device or scales.device != x.device:
         raise ValueError("quantized_matmul: x, q and scales must be on one device")
     if x.dtype not in _DTYPE_CODE:
@@ -107,7 +121,7 @@ def quantized_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor) -> 
         raise ValueError(f"the quantized_matmul kernel runs on CUDA tensors; got {x.device}")
     s = scales.reshape(n).to(torch.float32).contiguous()
     m = math.prod(lead)
-    out = torch.empty((*lead, n), dtype=x.dtype, device=x.device)
+    out = torch.empty((*lead, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0 or k == 0:
         return out.zero_()
     aligned = x.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0
@@ -116,20 +130,21 @@ def quantized_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor) -> 
 
 def _launch(plan: QmmPlan, x, q, s, out):
     """Launch ``plan``'s kernel on checked operands (x (.., K), q (K, N),
-    f32 scales (N,), out (.., N)), count it and return ``out``."""
+    f32 scales (N,), out (.., N) of x's dtype or f32), count it and return
+    ``out``."""
     k, n = q.shape
     m = x.numel() // k
     ptrs = (x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr())
-    code_dtype = _DTYPE_CODE[x.dtype]
+    codes = (_DTYPE_CODE[x.dtype], _DTYPE_CODE[out.dtype])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if plan.kernel == "quant_matmul":
-        code = _build.entry(plan.kernel, 4, 4, 0)(*ptrs, m, k, n, code_dtype, stream)
+        code = _build.entry(plan.kernel, 4, 5, 0)(*ptrs, m, k, n, *codes, stream)
     elif plan.kernel == "quant_matmul_mma":
-        code = _build.entry(plan.kernel, 4, 5, 0)(*ptrs, m, k, n, code_dtype, plan.block_m, stream)
+        code = _build.entry(plan.kernel, 4, 6, 0)(*ptrs, m, k, n, *codes, plan.block_m, stream)
     else:
         ws = torch.empty((plan.slices, m, n), dtype=torch.float32, device=x.device)
-        code = _build.entry(plan.kernel, 5, 6, 0)(
-            *ptrs, ws.data_ptr(), m, k, n, code_dtype, plan.k_tiles_per_slice, plan.slices, stream)
+        code = _build.entry(plan.kernel, 5, 7, 0)(
+            *ptrs, ws.data_ptr(), m, k, n, *codes, plan.k_tiles_per_slice, plan.slices, stream)
     _build.check(plan.kernel, code)
     _build.count_launch(plan.kernel)
     return out

@@ -50,10 +50,17 @@ class KwargsHandler:
 class GradientAccumulationPlugin(KwargsHandler):
     """Gradient accumulation: ``num_steps`` micro-batches per update;
     ``sync_with_dataloader`` forces an update at the end of the data loader
-    even mid-window."""
+    even mid-window. ``adjust_scheduler`` steps a prepared scheduler once
+    per update; ``prepare`` refuses schedulers until ``scheduler.py`` is
+    ported (ROADMAP.md A4), so it has nothing to act on yet.
+    ``sync_each_batch`` reduces gradients across devices on every
+    micro-batch instead of deferring the reduction to the update; one
+    device has no such reduction, so both settings run the same step."""
 
     num_steps: int = 1
+    adjust_scheduler: bool = True
     sync_with_dataloader: bool = True
+    sync_each_batch: bool = False
 
     def __post_init__(self):
         if self.num_steps < 1:
@@ -76,12 +83,15 @@ class DistributedDataParallelKwargs(KwargsHandler):
 
 @dataclass
 class GradScalerKwargs(KwargsHandler):
-    """Dynamic loss scaling for fp16 (torch GradScaler's defaults)."""
+    """Dynamic loss scaling for fp16 (torch GradScaler's defaults);
+    ``enabled=False`` trains fp16 without loss scaling, as torch's
+    GradScaler does (the JAX package accepts the field and scales anyway)."""
 
     init_scale: float = 2.0**16
     growth_factor: float = 2.0
     backoff_factor: float = 0.5
     growth_interval: int = 2000
+    enabled: bool = True
 
 
 def _cast_floats(tree, dtype):

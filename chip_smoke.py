@@ -12,6 +12,9 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --kernels  # build + kernel checks only
+    python3 chip_smoke.py --step-ablation  # every phase, and phase 6's
+                                           # step with the f32 head and the
+                                           # tensor-core B2/B3 taken back
 
 Phases (any failure exits non-zero and prints no result):
   1. build the kernels (one nvcc per source, in parallel); print the card
@@ -19,13 +22,16 @@ Phases (any failure exits non-zero and prints no result):
   2. each kernel, every variant, against its plain version at the main
      paths' shapes (B1's tensor-core variant on bf16 and its FMA variant
      on f32, also with segment ids, a ragged S at D = 64, softcap with a
-     window, Sq != Skv, non-causal; B2/B3 also with segment ids, a ragged
-     S, an lse cotangent, softcap and window, non-causal; B4 with
+     window, Sq != Skv, non-causal; B2/B3's tensor-core variants on bf16
+     (two launches bitwise equal) and their FMA variants on f32 and on the
+     same bf16 inputs, also with segment ids, a ragged S, an lse
+     cotangent, softcap and window, non-causal; B4 with
      bf16/f32/int8 pools; B5 at the spec shape W=5 and the chunk shape
      W=512, bf16/f32/int8 pools, softcap, n_rep=1; B7 at every Llama-3-8B
      projection shape, M = 2048 through the tensor-core variant and M = 8
      through split-K, the FMA variant on the same bf16 inputs and on f32 x,
-     int4-range codes, ragged M/K/N, f16 x, M = 17 and 65): max abs error
+     int4-range codes, ragged M/K/N, f16 x, M = 17 and 65, and each
+     variant's f32 output of a bf16 x at the LM head's shape): max abs error
      against a stated tolerance, median kernel / plain / library times, the
      bound and the bound share (B7 at M = 8 on cold weights, rotated over
      copies that exceed the L2, for the kernels and cuBLAS alike)
@@ -43,7 +49,8 @@ Phases (any failure exits non-zero and prints no result):
      times, a profile of a verify step
   8. (run right after 7, on its model) quantized big-model inference: the
      model quantized to int8 in place, its forward over 4 x 512 tokens
-     through B7 and B1 (225 B7 launches per forward) held against the
+     through B7 and B1 (225 B7 launches per forward, the head's with f32
+     logits) held against the
      plain-dequantize path, with a planted scale fault that must fail the
      check; then Llama-3-8B at full width and 4 layers written to sharded
      safetensors, loaded into an empty (meta) model and quantized, bitwise
@@ -55,7 +62,9 @@ Phases (any failure exits non-zero and prints no result):
      prepare_data_loader and train_step(llama_loss, max_grad_norm=1.0) on
      Llama-3-8B at 4 layers, batch 4 x 2048; 2 warm-up and 8 timed steps
      with the launch counters reset just before; tokens/s, step time, MFU,
-     peak memory and a profile of one step
+     peak memory and a profile of one step; with --step-ablation, then
+     the step with the f32 head and the tensor-core B2/B3 each taken
+     back, in turns
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Long output goes to chiprun_out/.
 """
@@ -63,6 +72,7 @@ The line before the last is the ``kernels`` JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import math
@@ -281,10 +291,29 @@ BWD_CASES = {
 }
 
 
+@contextlib.contextmanager
+def bwd_kernels(names):
+    """Runs the flash backward by ``names`` (dq, then dk/dv) whatever the
+    dtype, by standing in for ``flash_bwd_kernel_for``: the FMA kernels
+    (``flash_bwd_kernel_for(torch.float32)``) then run on bf16 too."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    chosen = fa.flash_bwd_kernel_for
+    fa.flash_bwd_kernel_for = lambda dtype: names
+    try:
+        yield
+    finally:
+        fa.flash_bwd_kernel_for = chosen
+
+
 def check_flash_bwd(dev, gen, results):
+    """B2/B3 against the plain backward on every BWD_CASES case: f32 through
+    the FMA kernels; bf16 through the tensor-core kernels, launched twice
+    (the gradients must be bitwise equal), and through the FMA kernels on
+    the same inputs."""
     from accelerate_tpu_torch.ops.flash_attention import (
         _delta, _launch_bwd_dkv, _launch_bwd_dq, flash_attention_bwd_reference,
-        flash_attention_reference,
+        flash_attention_reference, flash_bwd_kernel_for,
     )
 
     for name, (b, s, h, h_kv, d, opt) in BWD_CASES.items():
@@ -301,38 +330,55 @@ def check_flash_bwd(dev, gen, results):
             out, lse = flash_attention_reference(q, k, v, **mask)
             delta = _delta(out, do, dlse)
             args = (q, k, v, do, lse, delta, seg, seg, causal, window, softcap)
-            got = (_launch_bwd_dq(*args), *_launch_bwd_dkv(*args))
             ref = flash_attention_bwd_reference(q, k, v, out, lse, do, dlse=dlse, **mask)
-            torch.cuda.synchronize()
-            errs, rels = {}, {}
-            for grad, g, r in zip(("dq", "dk", "dv"), got, ref):
-                errs[grad] = (g.float() - r.float()).abs().max().item()
-                big = r.float().abs().max().item()
-                rels[grad] = errs[grad] / big
-                log(f"B2/B3 flash_bwd {name} {dtype} (B={b}, S={s}, H={h}, Hkv={h_kv}, D={d}, "
-                    f"{opt or 'causal'}) {grad}: max_abs_err={errs[grad]:.3e} max |{grad}|={big:.3e} "
-                    f"ratio={rels[grad]:.3e} tol {BWD_TOL_REL[dtype]:g}")
-                if not rels[grad] <= BWD_TOL_REL[dtype]:
-                    raise AssertionError(f"flash backward {name} {dtype}: {grad} disagrees with "
-                                         "its plain version")
-            del got, ref
+            variants = [flash_bwd_kernel_for(dtype)]
+            if dtype == torch.bfloat16:
+                variants.append(flash_bwd_kernel_for(torch.float32))  # the FMA kernels
+            errors = {}
+            for dq_name, dkv_name in variants:
+                with bwd_kernels((dq_name, dkv_name)):
+                    got = (_launch_bwd_dq(*args), *_launch_bwd_dkv(*args))
+                torch.cuda.synchronize()
+                errs, rels = {}, {}
+                for grad, g, r in zip(("dq", "dk", "dv"), got, ref):
+                    errs[grad] = (g.float() - r.float()).abs().max().item()
+                    big = r.float().abs().max().item()
+                    rels[grad] = errs[grad] / big
+                    log(f"B2/B3 {dq_name}/{dkv_name} {name} {dtype} (B={b}, S={s}, H={h}, "
+                        f"Hkv={h_kv}, D={d}, {opt or 'causal'}) {grad}: max_abs_err={errs[grad]:.3e} "
+                        f"max |{grad}|={big:.3e} ratio={rels[grad]:.3e} tol {BWD_TOL_REL[dtype]:g}")
+                    if not rels[grad] <= BWD_TOL_REL[dtype]:
+                        raise AssertionError(f"flash backward {dq_name}/{dkv_name} {name} {dtype}: "
+                                             f"{grad} disagrees with its plain version")
+                if dq_name.endswith("_mma"):
+                    with bwd_kernels((dq_name, dkv_name)):
+                        again = (_launch_bwd_dq(*args), *_launch_bwd_dkv(*args))
+                    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                        raise AssertionError(f"{dq_name}/{dkv_name} {name}: two launches differ")
+                    log(f"  {dq_name}/{dkv_name} {name}: two launches bitwise equal")
+                    del again
+                errors[dq_name, dkv_name] = (errs, rels)
+                for kname, rel in ((dq_name, rels["dq"]), (dkv_name, max(rels["dk"], rels["dv"]))):
+                    entry = results.setdefault(kname, {})
+                    if name != "main":  # the worst ratio over the other cases
+                        entry["edge_max_rel_err"] = max(entry.get("edge_max_rel_err", 0.0), rel)
+                del got
+            del ref
             if name == "main":
-                time_flash_bwd(dtype, args, out, dlse, mask, errs, rels, results)
+                time_flash_bwd(dtype, args, out, dlse, mask, errors, results)
             del q, k, v, do, out, lse, delta, args
             torch.cuda.empty_cache()
 
 
-def time_flash_bwd(dtype, args, out, dlse, mask, errs, rels, results):
-    from accelerate_tpu_torch.ops.flash_attention import (
-        _launch_bwd_dkv, _launch_bwd_dq, flash_attention_bwd_reference,
-    )
+def time_flash_bwd(dtype, args, out, dlse, mask, errors, results):
+    """Times of each backward variant at the training shape against the
+    plain backward and SDPA's backward (one autograd call, the yardstick)."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
 
     q, k, v, do, lse = args[:5]
     b, s, h, d = q.shape
     h_kv = k.shape[2]
-    dq_ms = time_ms(lambda: _launch_bwd_dq(*args), iters=5)
-    dkv_ms = time_ms(lambda: _launch_bwd_dkv(*args), iters=5)
-    plain_ms = time_ms(lambda: flash_attention_bwd_reference(
+    plain_ms = time_ms(lambda: fa.flash_attention_bwd_reference(
         q, k, v, out, lse, do, dlse=dlse, **mask), iters=2, repeats=3)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     with torch.enable_grad():
@@ -347,18 +393,30 @@ def time_flash_bwd(dtype, args, out, dlse, mask, errs, rels, results):
     pairs = b * h * s * (s + 1) / 2
     dq_bound = bound_ms(3 * n_q + 2 * n_kv + 2 * n_row, 6.0 * d * pairs, dtype)
     dkv_bound = bound_ms(2 * n_q + 4 * n_kv + 2 * n_row, 8.0 * d * pairs, dtype)
-    log(f"  dq ms={dq_ms:.4f} bound_ms={dq_bound[0]:.5f} ({dq_bound[1]}); dk/dv ms={dkv_ms:.4f} "
-        f"bound_ms={dkv_bound[0]:.5f} ({dkv_bound[1]}); plain backward (dq, dk, dv) "
-        f"ms={plain_ms:.4f}; SDPA backward ms={lib_ms:.4f}")
-    if dtype == torch.bfloat16:
+    for (dq_name, dkv_name), (errs, rels) in errors.items():
+        slow = not dq_name.endswith("_mma")
+        with bwd_kernels((dq_name, dkv_name)):
+            dq_ms = time_ms(lambda: fa._launch_bwd_dq(*args), iters=2 if slow else 10)
+            dkv_ms = time_ms(lambda: fa._launch_bwd_dkv(*args), iters=2 if slow else 10)
+        log(f"  {dq_name} {dtype} ms={dq_ms:.4f} bound_ms={dq_bound[0]:.5f} ({dq_bound[1]}), bound "
+            f"share {dq_bound[0] / dq_ms:.4f}; {dkv_name} ms={dkv_ms:.4f} "
+            f"bound_ms={dkv_bound[0]:.5f} ({dkv_bound[1]}), bound share {dkv_bound[0] / dkv_ms:.4f}; "
+            f"plain backward (dq, dk, dv) ms={plain_ms:.4f}; SDPA backward ms={lib_ms:.4f}; "
+            f"dq + dk/dv {(dq_ms + dkv_ms) / lib_ms:.2f}x SDPA")
+        if dtype == torch.float32:  # the FMA kernels' own dtype, beside their bf16 row
+            results[dq_name].update(f32_ms=dq_ms, f32_library_ms=lib_ms, f32_max_abs_err=errs["dq"])
+            results[dkv_name].update(f32_ms=dkv_ms, f32_library_ms=lib_ms,
+                                     f32_max_abs_err=max(errs["dk"], errs["dv"]))
+            continue
         # max_rel_err: max abs error / max |gradient|, what BWD_TOL_REL limits
-        results["flash_bwd_dq"] = dict(
+        shape = f"B={b} S={s} H={h} Hkv={h_kv} D={d} causal, bf16"
+        results[dq_name].update(
             max_abs_err=errs["dq"], max_rel_err=rels["dq"], ms=dq_ms, plain_ms=plain_ms,
-            bound_ms=dq_bound[0], bound_by=dq_bound[1], library_ms=lib_ms)
-        results["flash_bwd_dkv"] = dict(
+            bound_ms=dq_bound[0], bound_by=dq_bound[1], library_ms=lib_ms, shape=shape)
+        results[dkv_name].update(
             max_abs_err=max(errs["dk"], errs["dv"]), max_rel_err=max(rels["dk"], rels["dv"]),
             ms=dkv_ms, plain_ms=plain_ms, bound_ms=dkv_bound[0], bound_by=dkv_bound[1],
-            library_ms=lib_ms)
+            library_ms=lib_ms, shape=shape)
 
 
 def random_tables(gen, dev, slots, bpr, nb, live_blocks):
@@ -603,25 +661,29 @@ def b7_operands(gen, dev, m, k, n, dtype, qmax=127):
     return x, q, scales
 
 
-def b7_error(x, q, scales, label, plan=None):
+def b7_error(x, q, scales, label, plan=None, out_dtype=None):
     """Max abs error of B7 against its plain version, held to B7_TOL (bf16,
-    f16) or B7_F32_RTOL: the variant the wrapper picks, or ``plan``'s."""
+    f16 outputs) or B7_F32_RTOL (f32 outputs): the variant the wrapper
+    picks, or ``plan``'s; ``out_dtype=torch.float32`` asks for the f32
+    output (the LM head's logits)."""
     from accelerate_tpu_torch.ops import quant_matmul as qmm
 
     if plan is None:
-        out = qmm.quantized_matmul(x, q, scales)
+        out = qmm.quantized_matmul(x, q, scales, out_dtype=out_dtype)
     else:
-        out = torch.empty((x.shape[0], q.shape[1]), dtype=x.dtype, device=x.device)
+        out = torch.empty((x.shape[0], q.shape[1]), dtype=out_dtype or x.dtype, device=x.device)
         qmm._launch(plan, x, q, scales.reshape(-1).float().contiguous(), out)
-    ref = qmm.quantized_matmul_plain(x, q, scales)
+    ref = qmm.quantized_matmul_plain(x, q, scales, out_dtype=out_dtype)
     torch.cuda.synchronize()
+    if out.dtype != ref.dtype:
+        raise AssertionError(f"quant_matmul {label}: output {out.dtype}, expected {ref.dtype}")
     err = (out.float() - ref.float()).abs().max().item()
     top = ref.float().abs().max().item()
-    if x.dtype == torch.float32:
+    if out.dtype == torch.float32:
         ok, tol = err <= B7_F32_RTOL * top, f"{B7_F32_RTOL:g} x max|out| = {B7_F32_RTOL * top:.3e}"
     else:
         ok, tol = err <= B7_TOL[x.dtype] and top < 4.0, f"{B7_TOL[x.dtype]:g} (max|out| {top:.3f} < 4)"
-    log(f"B7 {label} {x.dtype} (M={x.shape[0]}, K={q.shape[0]}, N={q.shape[1]}) "
+    log(f"B7 {label} {x.dtype} -> {out.dtype} (M={x.shape[0]}, K={q.shape[0]}, N={q.shape[1]}) "
         f"max_abs_err={err:.3e} tol {tol}")
     if not ok:
         raise AssertionError(f"quant_matmul {label} {x.dtype} disagrees with its plain version")
@@ -725,6 +787,17 @@ def check_quant_matmul(dev, gen, results):
     for label, m, k, n, dtype, qmax in gen_case:
         x, q, scales = b7_operands(gen, dev, m, k, n, dtype, qmax)
         b7_error(x, q, scales, f"{label} {qmm.qmm_plan(m, k, n, dtype).kernel}")
+    # the f32 output of the LM head (the training and scoring forward's
+    # logits): the same f32 sums times the scales, unrounded; each variant
+    # at the head's shape, and the FMA one at a ragged shape
+    f32_out = {}
+    for m, k, n in ((2048, 4096, 128256), (8, 4096, 128256), (130, 4100, 1000)):
+        plan = qmm.qmm_plan(m, k, n, torch.bfloat16)
+        x, q, scales = b7_operands(gen, dev, m, k, n, torch.bfloat16)
+        f32_out[plan.kernel] = b7_error(x, q, scales, f"f32_out {plan.kernel}",
+                                        out_dtype=torch.float32)
+        del x, q, scales
+    torch.cuda.empty_cache()
     main, decode = per_m[2048], per_m[8]
 
     def bound(s):
@@ -744,14 +817,17 @@ def check_quant_matmul(dev, gen, results):
     common = dict(plain_ms=main["plain_ms"], bound_ms=bms, bound_by=by, library_ms=main["library_ms"])
     results["quant_matmul_mma"] = dict(
         max_abs_err=main["err"], ms=main["ms"], **common,
+        f32_out_max_abs_err=f32_out["quant_matmul_mma"],
         shape="sum over one 32-layer Llama-3-8B forward's 225 launches at M = 2048, bf16 x")
     results["quant_matmul_splitk"] = dict(
-        max_abs_err=decode["err"], ms=decode["ms"], plain_ms=decode["plain_ms"], bound_ms=dbms,
+        max_abs_err=decode["err"], f32_out_max_abs_err=f32_out["quant_matmul_splitk"],
+        ms=decode["ms"], plain_ms=decode["plain_ms"], bound_ms=dbms,
         bound_by=dby, library_ms=decode["library_ms"], int8pack_ms=int8pack or None,
         shape="sum over one forward's 225 launches at M = 8, bf16 x, weights cold for the kernel "
               "and cuBLAS (int8pack warm)")
     results["quant_matmul"] = dict(
         max_abs_err=main["fma_err"], ms=main["fma_ms"], **common, f32_max_abs_err=fma_err,
+        f32_out_max_abs_err=f32_out["quant_matmul"],
         decode_ms=decode["fma_ms"], decode_max_abs_err=decode["fma_err"],
         shape="the FMA variant (f32 x, unaligned rows) on the main path's bf16 work: sum over one "
               "forward's 225 launches at M = 2048 (decode_*: M = 8, cold weights)")
@@ -1400,15 +1476,24 @@ Q_FORWARDS = 2  # timed forwards, after one warm-up
 CKPT_LAYERS = 4
 
 
+# phase 8's near-tie limit on its f32 logits, in bf16 ulps of the plain
+# path's largest |logit| (NEAR_TIE is two such ulps of logits of order 4):
+# on an H100 the sound path read 2 ulps on bf16-rounded logits and 2.13 in
+# f32, the planted scale fault about 100; the limit is twice the sound
+# reading
+Q_NEAR_TIE_ULPS = 4.0
+
+
 def greedy_agreement(logits, ref):
     """(share of positions whose argmax is ``ref``'s, largest gap at the
-    rest): how far the chosen token's ``ref`` logit sits below ``ref``'s
-    argmax, as in phase 7's teacher-forced check."""
+    rest, that gap in bf16 ulps of ``ref``'s largest |logit|): how far the
+    chosen token's ``ref`` logit sits below ``ref``'s argmax, as in phase
+    7's teacher-forced check."""
     chosen = logits.argmax(-1)
-    top = ref.argmax(-1)
-    share = (chosen == top).float().mean().item()
+    share = (chosen == ref.argmax(-1)).float().mean().item()
     gap = (ref.max(-1).values - ref.gather(-1, chosen[..., None])[..., 0]).max().item()
-    return share, gap
+    ulp = 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7)  # bf16: 8 significant bits
+    return share, gap, gap / ulp
 
 
 def projection_bytes(model) -> int:
@@ -1453,9 +1538,11 @@ def phase_quantized(dev, card, model):
     peak = torch.cuda.max_memory_allocated()
     expected = {"quant_matmul_mma": (7 * n_layers + 1) * Q_FORWARDS,
                 "flash_fwd_mma": n_layers * Q_FORWARDS}
-    check_launches("phase 8", launches, expected)
-    if logits_q.shape != (Q_BATCH, Q_SEQ, cfg.vocab_size) or not torch.isfinite(logits_q).all():
-        raise AssertionError("quantized logits have the wrong shape or are not finite")
+    check_launches("phase 8 (7 B7 launches a layer + the head's, whose output is f32)",
+                   launches, expected)
+    if (logits_q.shape != (Q_BATCH, Q_SEQ, cfg.vocab_size) or logits_q.dtype != torch.float32
+            or not torch.isfinite(logits_q).all()):
+        raise AssertionError("quantized logits are not finite f32 of the expected shape")
 
     # the plain path: the same model with B7's plain version in place of
     # the kernel (the same function; the f32 sums run in another order),
@@ -1472,27 +1559,29 @@ def phase_quantized(dev, card, model):
             qmm.quantized_matmul = kernel
 
     logits_p = logits_with(qmm.quantized_matmul_plain)
-    share, gap = greedy_agreement(logits_q, logits_p)
+    share, gap, gap_ulps = greedy_agreement(logits_q, logits_p)
     log(f"phase 8 kernel path (B7) vs plain path (B7's plain version), int8 Llama-3-8B {n_layers} "
         f"layers, {Q_BATCH} x {Q_SEQ} tokens: argmax share {share:.4f} (min {GREEDY_SHARE_MIN}), "
-        f"largest gap at the rest {gap:.4f} (near-tie limit {NEAR_TIE}); max |logit diff| "
+        f"largest gap at the rest {gap:.4f} = {gap_ulps:.3f} bf16 ulps of the largest |logit| "
+        f"{logits_p.abs().max().item():.4f} (near-tie limit {Q_NEAR_TIE_ULPS} ulps); max |logit diff| "
         f"{(logits_q - logits_p).abs().max().item():.4f}")
-    if not (share >= GREEDY_SHARE_MIN and gap <= NEAR_TIE):
+    if not (share >= GREEDY_SHARE_MIN and gap_ulps <= Q_NEAR_TIE_ULPS):
         raise AssertionError("phase 8: the quantized kernel path disagrees with the plain path")
-    bad_share, bad_gap = greedy_agreement(logits_with(
-        lambda x, q, sc: kernel(x, q, sc.reshape(-1).roll(1).contiguous())), logits_p)
+    bad_share, bad_gap, bad_ulps = greedy_agreement(logits_with(
+        lambda x, q, sc, out_dtype=None: kernel(x, q, sc.reshape(-1).roll(1).contiguous(),
+                                                out_dtype=out_dtype)), logits_p)
     log(f"phase 8 planted fault (each output column scaled by its neighbour's scale): argmax share "
-        f"{bad_share:.4f}, largest gap {bad_gap:.4f} (the check must fail)")
-    if bad_share >= GREEDY_SHARE_MIN and bad_gap <= NEAR_TIE:
+        f"{bad_share:.4f}, largest gap {bad_gap:.4f} = {bad_ulps:.3f} bf16 ulps (the check must fail)")
+    if bad_share >= GREEDY_SHARE_MIN and bad_ulps <= Q_NEAR_TIE_ULPS:
         raise AssertionError("phase 8's check cannot see neighbouring scales")
     # the JAX package's way, information only: every leaf dequantized to
     # bf16 (each weight rounded to bf16, which the kernel path never does),
     # then the float forward
     plain_params = map_tree(dequantize_leaf, model.params)
-    deq_share, deq_gap = greedy_agreement(logits_q, llama_apply(cfg, plain_params, ids))
+    deq_share, deq_gap, deq_ulps = greedy_agreement(logits_q, llama_apply(cfg, plain_params, ids))
     del plain_params
     log(f"phase 8 kernel path vs dequantize-then-bf16-matmul path (information only): argmax share "
-        f"{deq_share:.4f}, largest gap at the rest {deq_gap:.4f}")
+        f"{deq_share:.4f}, largest gap at the rest {deq_gap:.4f} = {deq_ulps:.3f} bf16 ulps")
 
     agree_bf16 = (logits_q.argmax(-1) == logits_bf16.argmax(-1)).float().mean().item()
     diff = (logits_q - logits_bf16).abs()
@@ -1508,7 +1597,8 @@ def phase_quantized(dev, card, model):
     return {k: launches[k] for k in expected}, dict(
         ms_per_forward=ms, tokens_per_s=tokens_per_s, peak_memory_bytes=peak, quantize_s=quant_s,
         int8_projection_bytes=int8_bytes, bf16_projection_bytes=bf16_bytes, greedy_share=share,
-        greedy_worst_gap=gap, planted_fault_share=bad_share, planted_fault_gap=bad_gap,
+        greedy_worst_gap=gap, greedy_worst_gap_ulps=gap_ulps, planted_fault_share=bad_share,
+        planted_fault_gap=bad_gap, planted_fault_gap_ulps=bad_ulps,
         dequantize_path_share=deq_share, dequantize_path_gap=deq_gap,
         argmax_agreement_with_bf16=agree_bf16, profile=profile)
 
@@ -1692,7 +1782,7 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 8
 PEAK_MEMORY_LIMIT = 75e9
 
 
-def phase_train_main_path(dev, card):
+def phase_train_main_path(dev, card, ablate=False):
     from accelerate_tpu_torch.accelerator import Accelerator
     from accelerate_tpu_torch.models.llama import (
         LlamaConfig, create_llama, llama_flops_per_token, llama_loss,
@@ -1731,7 +1821,8 @@ def phase_train_main_path(dev, card):
     peak = torch.cuda.max_memory_allocated()
     losses = [l.item() for l in losses]
     expected = {"flash_fwd_mma": 2 * TRAIN_LAYERS * TRAIN_STEPS,
-                "flash_bwd_dq": TRAIN_LAYERS * TRAIN_STEPS, "flash_bwd_dkv": TRAIN_LAYERS * TRAIN_STEPS}
+                "flash_bwd_dq_mma": TRAIN_LAYERS * TRAIN_STEPS,
+                "flash_bwd_dkv_mma": TRAIN_LAYERS * TRAIN_STEPS}
     check_launches(f"phase 6 ({TRAIN_STEPS} steps; remat runs the forward twice)", launches, expected)
     log(f"phase 6 losses {[round(l, 4) for l in losses]}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -1745,15 +1836,62 @@ def phase_train_main_path(dev, card):
     if peak > PEAK_MEMORY_LIMIT:
         raise AssertionError(f"peak memory {peak / 1e9:.1f} GB is over {PEAK_MEMORY_LIMIT / 1e9:.0f} GB")
     profile = profile_train_step(step_fn, batch, step_ms, card)
+    ablation = step_ablation(step_fn, batch, card) if ablate else None
     del model, optimizer, step_fn, batch, loader
     torch.cuda.empty_cache()
     return {k: launches[k] for k in expected}, dict(
         losses=losses, step_ms=step_ms, tokens_per_s=tokens_per_s, mfu=mfu, peak_memory_bytes=peak,
-        batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, layers=TRAIN_LAYERS, profile=profile)
+        batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, layers=TRAIN_LAYERS, profile=profile,
+        ablation_ms=ablation)
 
 
+ABLATION_STEPS = 3
+
+
+def step_ablation(step_fn, batch, card):
+    """Step ms on the same model with the f32 head and the tensor-core
+    B2/B3 each taken back: the bf16-rounded head (the serving steps' head,
+    which ``llama_apply`` used before) and the FMA B2/B3 on bf16. Four
+    configurations in turns, A B C D D C B A, ``ABLATION_STEPS`` timed steps
+    each after one untimed, so the two changes are told apart in one call
+    (``--step-ablation``)."""
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops.flash_attention import flash_bwd_kernel_for
+
+    head, mma, fma = llama._head, flash_bwd_kernel_for(torch.bfloat16), flash_bwd_kernel_for(
+        torch.float32)
+    configs = {
+        "bf16 head + FMA B2/B3": (llama._serving_head, fma),
+        "f32 head + FMA B2/B3": (head, fma),
+        "bf16 head + tensor-core B2/B3": (llama._serving_head, mma),
+        "f32 head + tensor-core B2/B3": (head, mma),
+    }
+    times = {name: [] for name in configs}
+    try:
+        for name in [*configs, *reversed(configs)]:
+            llama._head, kernels = configs[name]
+            with bwd_kernels(kernels):
+                step_fn(batch)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(ABLATION_STEPS):
+                    step_fn(batch)
+                torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) / ABLATION_STEPS * 1e3)
+    finally:
+        llama._head = head
+    log("phase 6 step ms, configurations in turns (A B C D D C B A, "
+        f"{ABLATION_STEPS} steps each): "
+        + "; ".join(f"{n} {t[0]:.1f} / {t[1]:.1f}" for n, t in times.items()) + f" [{card}]")
+    return times
+
+
+# kernel name fragments by group; the first match wins, so each tensor-core
+# variant comes before the FMA name it contains
 TRAIN_GROUPS = (
     ("flash_fwd", ("flash_fwd",)),
+    ("flash_bwd_dq_mma", ("flash_bwd_dq_mma",)),
+    ("flash_bwd_dkv_mma", ("flash_bwd_dkv_mma",)),
     ("flash_bwd_dq", ("flash_bwd_dq",)),
     ("flash_bwd_dkv", ("flash_bwd_dkv",)),
     ("matmul", ("gemm", "gemv", "cutlass", "sm90_", "cublas", "nvjet")),
@@ -1825,6 +1963,12 @@ MMA_SMEM = {
     "flash_fwd_mma_kernel<128,2": 128 * 256 + 2 * (2 * 64 * 256 + 256),
     "flash_fwd_mma_kernel<64,1": 64 * 128 + 2 * (2 * 64 * 128 + 256),
     "flash_fwd_mma_kernel<64,2": 128 * 128 + 2 * (2 * 64 * 128 + 256),
+    # flash_bwd.cu's DqCfg (Q, dO, two stages of K, V and kv segment ids)
+    # and DkvCfg (K, V, two stages of Q, dO, lse, delta, q segment ids)
+    "flash_bwd_dq_mma_kernel<128": 2 * 64 * 256 + 2 * (2 * 64 * 256 + 256),
+    "flash_bwd_dq_mma_kernel<64": 2 * 64 * 128 + 2 * (2 * 64 * 128 + 256),
+    "flash_bwd_dkv_mma_kernel<128": 2 * 64 * 256 + 2 * (2 * 64 * 256 + 3 * 64 * 4),
+    "flash_bwd_dkv_mma_kernel<64": 2 * 64 * 128 + 2 * (2 * 64 * 128 + 3 * 64 * 4),
 }
 
 
@@ -1885,6 +2029,14 @@ KERNEL_META = {
         route="cuda", source="accelerate_tpu_torch/csrc/flash_bwd.cu",
         replaces="accelerate_tpu/ops/flash_attention.py:281",
     ),
+    "flash_bwd_dq_mma": dict(
+        route="cuda", source="accelerate_tpu_torch/csrc/flash_bwd.cu",
+        replaces="accelerate_tpu/ops/flash_attention.py:236",
+    ),
+    "flash_bwd_dkv_mma": dict(
+        route="cuda", source="accelerate_tpu_torch/csrc/flash_bwd.cu",
+        replaces="accelerate_tpu/ops/flash_attention.py:281",
+    ),
     "paged_decode": dict(
         route="cuda", source="accelerate_tpu_torch/csrc/paged_decode.cu",
         replaces="accelerate_tpu/ops/paged_decode.py:87",
@@ -1926,6 +2078,9 @@ def main(argv=None) -> int:
                         help="build and check the kernels only (phases 1-2)")
     parser.add_argument("--layers", type=int, default=32,
                         help="depth of the serving main path's model (default: the full 32)")
+    parser.add_argument("--step-ablation", action="store_true",
+                        help="also time phase 6's step with the f32 head and the tensor-core "
+                             "B2/B3 each taken back, four configurations in turns")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU")
@@ -1973,7 +2128,8 @@ def main(argv=None) -> int:
             summary["checkpoint"] = phase_checkpoint(dev, card)
         torch.cuda.empty_cache()
         by_path["training_f32"], summary["train_parity"] = phase_train_parity(dev, card)
-        by_path["training"], summary["train_main_path"] = phase_train_main_path(dev, card)
+        by_path["training"], summary["train_main_path"] = phase_train_main_path(
+            dev, card, ablate=args.step_ablation)
         for counts in by_path.values():
             for name, n in counts.items():
                 launches[name] += n

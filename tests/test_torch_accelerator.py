@@ -16,7 +16,10 @@ import pytest
 import torch
 from torch import nn
 
+import dataclasses
+
 from accelerate_tpu.data_loader import SeedableRandomSampler as JSampler
+from accelerate_tpu.utils import dataclasses as jdc
 from accelerate_tpu_torch.accelerator import Accelerator
 from accelerate_tpu_torch.data_loader import SeedableRandomSampler, prepare_data_loader
 from accelerate_tpu_torch.model import MixedPrecisionModule, unwrap_model
@@ -25,6 +28,7 @@ from accelerate_tpu_torch.state import AcceleratorState, GradientState
 from accelerate_tpu_torch.utils.dataclasses import (
     DistributedDataParallelKwargs,
     GradScalerKwargs,
+    GradientAccumulationPlugin,
 )
 
 LR = 0.1
@@ -260,3 +264,63 @@ def test_what_waits_for_the_distributed_slice_raises():
         acc.prepare_data_loader(torch.utils.data.DataLoader(range(8), batch_size=4))
     with pytest.raises(NotImplementedError):
         acc.prepare(torch.optim.lr_scheduler.StepLR(torch.optim.SGD(model.parameters(), lr=LR), 1))
+
+
+def test_refusals_name_their_queue_items():
+    acc = Accelerator(cpu=True)
+    model = Regression()
+    acc.prepare(model, torch.optim.SGD(model.parameters(), lr=LR))
+    with pytest.raises(NotImplementedError, match=r"CUDA graphs \(ROADMAP.md A9\)"):
+        acc.train_step(regression_loss, multi_step=True)
+    with pytest.raises(NotImplementedError, match=r"data path \(ROADMAP.md A5\)"):
+        prepare_data_loader(torch.utils.data.DataLoader(range(8), batch_size=4), device="cpu")
+    with pytest.raises(NotImplementedError, match=r"data path \(ROADMAP.md A5\)"):
+        prepare_data_loader(iter([{"x": np.zeros(2)}]), batch_size=2, device="cpu")
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md A4"):
+        acc.prepare(torch.optim.lr_scheduler.StepLR(torch.optim.SGD(model.parameters(), lr=LR), 1))
+
+
+@pytest.mark.parametrize("name", ["GradientAccumulationPlugin", "GradScalerKwargs"])
+def test_kwargs_classes_take_every_field_of_the_jax_package(name):
+    jax_fields = {f.name: f.default for f in dataclasses.fields(getattr(jdc, name))}
+    ours = {f.name: f.default for f in dataclasses.fields(GradientAccumulationPlugin if name ==
+                                                           "GradientAccumulationPlugin"
+                                                           else GradScalerKwargs)}
+    assert ours == jax_fields
+
+
+def test_accumulation_fields_of_one_device():
+    # sync_each_batch: one device has no cross-device reduction to defer,
+    # so both settings give the same parameters; adjust_scheduler is
+    # accepted and has nothing to act on while prepare refuses schedulers
+    finals = []
+    for sync_each_batch in (False, True):
+        AcceleratorState._reset_state(reset_partial_state=True)
+        GradientState._reset_state()
+        plugin = GradientAccumulationPlugin(num_steps=2, sync_each_batch=sync_each_batch,
+                                            adjust_scheduler=False)
+        acc = Accelerator(cpu=True, gradient_accumulation_plugin=plugin)
+        model = Regression()
+        opt = torch.optim.SGD(model.parameters(), lr=LR)
+        model, opt = acc.prepare(model, opt)
+        step = acc.train_step(regression_loss)
+        data = make_data(8)
+        for i in range(4):
+            step({k: torch.from_numpy(v[2 * i:2 * i + 2]) for k, v in data.items()})
+        finals.append((model.a.item(), model.b.item()))
+    assert finals[0] == finals[1] and finals[0] != (0.0, 0.0)
+
+
+def test_grad_scaler_disabled_trains_fp16_without_scaling():
+    acc, model, opt = _fp16_setup()
+    assert acc.scaler is not None
+    AcceleratorState._reset_state(reset_partial_state=True)
+    GradientState._reset_state()
+    acc = Accelerator(cpu=True, mixed_precision="fp16",
+                      kwargs_handlers=[GradScalerKwargs(init_scale=2.0 ** 4, enabled=False)])
+    model = Regression(dtype=torch.float32)
+    opt = torch.optim.SGD(model.parameters(), lr=LR)
+    model, opt = acc.prepare(model, opt)
+    assert acc.scaler is None
+    loss = acc.train_step(regression_loss)(_fp16_batch())
+    assert torch.isfinite(loss) and not opt.step_was_skipped and model.module.a.item() != 0.0

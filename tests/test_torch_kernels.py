@@ -1,6 +1,6 @@
-"""The port's kernel variants: the routing that picks B1's and B7's variant
-(pure Python, on the CPU), the kernel registry, and every variant against
-its plain version on the card (``cuda``-marked).
+"""The port's kernel variants: the routing that picks B1's, B2/B3's and
+B7's variant (pure Python, on the CPU), the kernel registry, and every
+variant against its plain version on the card (``cuda``-marked).
 
 This file imports no JAX, so its ``cuda``-marked tests also run on a GPU
 machine that has none, without the suite's conftest (which imports JAX):
@@ -11,10 +11,15 @@ Tolerances on the card (kernel against plain version on the same inputs):
 * B1: bf16 out 2e-2 (a few bf16 ulps of outputs of order 1: both round P
   to bf16, from f32 scores summed in another order), f32 out 1e-4; lse
   1e-4 (f32 both ways).
+* B2/B3: each gradient within 2e-2 (bf16) or 1e-4 (f32) of its largest
+  entry: both sides round p and ds to bf16 before the products (an ulp
+  flip where the two f32 sums straddle a rounding boundary moves a
+  gradient by up to one bf16 ulp of its largest terms, 2^-8 relative);
+  two launches of the same inputs give bitwise equal gradients.
 * B7: one output ulp (rtol 2^-7 bf16, 2^-10 f16) with atol 1e-5 for
-  outputs that cancel to near zero; f32 1e-4 of the largest output.
-  bf16 x int8 products are exact in f32, so only the f32 summation order
-  differs.
+  outputs that cancel to near zero; f32 1e-4 of the largest output, also
+  for the f32 output of a bf16 x (the LM head's logits). bf16 x int8
+  products are exact in f32, so only the f32 summation order differs.
 """
 
 import ast
@@ -28,8 +33,10 @@ import torch
 
 from accelerate_tpu_torch.ops import _build
 from accelerate_tpu_torch.ops.flash_attention import (
+    flash_attention_bwd_reference,
     flash_attention_reference,
     flash_attention_with_lse,
+    flash_bwd_kernel_for,
     flash_fwd_block_q,
     flash_fwd_kernel_for,
 )
@@ -122,6 +129,39 @@ def test_flash_block_rows_fill_the_card(b, h, sq, block_q):
 def test_flash_forward_refuses_other_dtypes():
     with pytest.raises(TypeError):
         flash_fwd_kernel_for(torch.float16)
+
+
+@pytest.mark.parametrize("dtype,kernels", [
+    (torch.bfloat16, ("flash_bwd_dq_mma", "flash_bwd_dkv_mma")),
+    (torch.float32, ("flash_bwd_dq", "flash_bwd_dkv")),
+])
+def test_flash_backward_variant_by_dtype(dtype, kernels):
+    assert flash_bwd_kernel_for(dtype) == kernels
+    assert all(name in _build.KERNELS for name in kernels)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int32])
+def test_flash_backward_refuses_other_dtypes(dtype):
+    with pytest.raises(TypeError):
+        flash_bwd_kernel_for(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_quantized_matmul_f32_output_is_the_unrounded_sum(dtype):
+    # the plain version (what a CPU tensor runs): the f32 output is the f32
+    # sum times the scale, which x's-dtype output rounds once
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((5, 64), generator=gen).to(dtype)
+    q = torch.randint(-127, 128, (64, 48), generator=gen, dtype=torch.int8)
+    scales = torch.rand(48, generator=gen) * 0.01
+    f32 = quantized_matmul(x, q, scales, out_dtype=torch.float32)
+    assert f32.dtype == torch.float32
+    torch.testing.assert_close(f32.to(dtype), quantized_matmul(x, q, scales), atol=0, rtol=0)
+    compute = torch.float32 if dtype == torch.float32 else torch.bfloat16
+    ref = (x.to(compute).double() @ q.double()) * scales.double()
+    torch.testing.assert_close(f32.double(), ref, atol=1e-5 * ref.abs().max().item(), rtol=0)
+    with pytest.raises(TypeError, match="float32"):
+        quantized_matmul(x, q, scales, out_dtype=torch.float64)
 
 
 # ------------------------------------------------------------ registry
@@ -237,3 +277,72 @@ QMM_EDGE_CASES = [
 @pytest.mark.parametrize("m,k,n,dtype,qmax", QMM_EDGE_CASES)
 def test_kernel_edges_match_plain_on_card(cuda_device, m, k, n, dtype, qmax):
     _check_qmm(*_qmm_operands(cuda_device, m, k, n, dtype, qmax))
+
+
+# name -> (B, Sq, Skv, H, Hkv, D, causal, window, softcap, document starts, lse cotangent)
+FLASH_BWD_CARD_CASES = {
+    "ragged_200_segments": (2, 200, 200, 8, 2, 128, True, None, None, [(0, 77), (0, 77)], False),
+    "ragged_1000_d64_rep1": (1, 1000, 1000, 4, 4, 64, True, None, None, None, False),
+    "ragged_1000_rep4_lse": (2, 1000, 1000, 8, 2, 128, True, None, None, None, True),
+    "segments_off_grid": (2, 300, 300, 8, 2, 128, True, None, None,
+                          [(0, 37, 190), (0, 100, 250)], False),
+    "segments_d64_lse": (2, 600, 600, 8, 8, 64, True, None, None, [(0, 1, 333), (0, 599)], True),
+    "window_softcap": (2, 512, 512, 8, 2, 128, True, 100, 30.0, None, False),
+    "window_softcap_d64_rep4": (1, 333, 333, 4, 1, 64, True, 70, 30.0, None, False),
+    "sq_lt_skv": (1, 200, 520, 8, 8, 64, True, None, None, None, False),
+    "sq_gt_skv_causal": (1, 300, 130, 8, 2, 128, True, None, None, None, True),
+    "sq_gt_skv_noncausal": (1, 300, 130, 8, 2, 128, False, None, None, None, False),
+    "noncausal_softcap_rep1": (2, 257, 257, 4, 4, 128, False, None, 30.0, None, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", sorted(FLASH_BWD_CARD_CASES))
+def test_flash_backward_kernels_match_plain_on_card(cuda_device, case, dtype, tol):
+    # the autograd backward (B2 then B3, the variant for the dtype) against
+    # the plain backward given the plain forward's out and lse; tolerance
+    # relative to each gradient's largest entry; a second backward on the
+    # same inputs is bitwise equal (each block owns its output rows)
+    b, sq, skv, h, h_kv, d, causal, window, softcap, docs, with_dlse = FLASH_BWD_CARD_CASES[case]
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, do = (torch.randn((b, sq, h, d), generator=gen, device=cuda_device).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((b, skv, h_kv, d), generator=gen, device=cuda_device).to(dtype)
+            for _ in range(2))
+    dlse = torch.randn((b, h, sq), generator=gen, device=cuda_device) if with_dlse else None
+    seg = None if docs is None else _segments(docs, sq, cuda_device)
+    opts = dict(causal=causal, window=window, softcap=softcap, segment_ids=seg)
+    names = flash_bwd_kernel_for(dtype)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    before = _build.launch_counts()
+    runs = []
+    for _ in range(2):
+        out, lse = flash_attention_with_lse(*leaves, **opts)
+        outputs, cots = ((out, lse), (do, dlse)) if with_dlse else ((out,), (do,))
+        runs.append(torch.autograd.grad(outputs, leaves, cots))
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert all(after[n] == before[n] + 2 for n in names)
+    ref_out, ref_lse = flash_attention_reference(q, k, v, **opts)
+    ref = flash_attention_bwd_reference(q, k, v, ref_out, ref_lse, do, dlse=dlse, **opts)
+    for g, g2, r in zip(*runs, ref):
+        assert g.dtype == dtype and g.shape == r.shape
+        assert torch.equal(g, g2)
+        assert (g.float() - r.float()).abs().max().item() <= tol * r.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 2048])
+def test_kernel_f32_output_matches_plain_on_card(cuda_device, m):
+    # the LM head's shape: bf16 x, f32 logits from the f32 sums x scales
+    k, n = LLAMA3_8B["head"]
+    x, q, scales = _qmm_operands(cuda_device, m, k, n, torch.bfloat16)
+    kernel = qmm_plan(m, k, n, x.dtype).kernel
+    before = _build.launch_counts()[kernel]
+    out = quantized_matmul(x, q, scales, out_dtype=torch.float32)
+    ref = quantized_matmul_plain(x, q, scales, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[kernel] == before + 1
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()

@@ -161,6 +161,59 @@ def test_moe_and_alternating_window_are_queued():
         tl.init_llama_params(tl.LlamaConfig.gemma2_9b(num_hidden_layers=2), gen, device="cpu")
 
 
+def test_config_takes_every_field_of_the_jax_config():
+    import dataclasses
+
+    jax_fields = {f.name for f in dataclasses.fields(jl.LlamaConfig)}
+    assert jax_fields == {f.name for f in dataclasses.fields(tl.LlamaConfig)}
+    # the JAX package's defaults, except the dtype fields (jnp against torch)
+    jdef, tdef = jl.LlamaConfig(), tl.LlamaConfig()
+    for name in jax_fields - {"param_dtype", "compute_dtype"}:
+        assert getattr(tdef, name) == getattr(jdef, name), name
+    for preset in ("mixtral_8x7b", "llama3_8b", "mistral_7b", "gemma2_9b"):
+        jcfg, tcfg = getattr(jl.LlamaConfig, preset)(), getattr(tl.LlamaConfig, preset)()
+        for name in jax_fields - {"param_dtype", "compute_dtype"}:
+            assert getattr(tcfg, name) == getattr(jcfg, name), (preset, name)
+
+
+# field overrides -> (what the refusal names, its queue item)
+UNPORTED_CONFIGS = {
+    "moe": (dict(num_experts=4, num_experts_per_tok=1, expert_capacity_factor=2.0,
+                 moe_aux_loss_coef=0.1, router_z_loss_coef=1e-3), "MoE", "A11"),
+    "fp8": (dict(use_fp8=True), "use_fp8", "A4"),
+    "chunked_ce": (dict(use_chunked_ce=True, ce_chunk_size=64), "use_chunked_ce", "A4"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNPORTED_CONFIGS))
+def test_unported_config_fields_are_refused_by_item(case):
+    overrides, what, item = UNPORTED_CONFIGS[case]
+    cfg = tl.LlamaConfig.tiny(**overrides)  # builds, as the JAX config does
+    with pytest.raises(NotImplementedError, match=rf"{what}.*ROADMAP.md {item}\b"):
+        tl.create_llama(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match=rf"ROADMAP.md {item}\b"):
+        tl.llama_apply(cfg, {}, torch.zeros((1, 4), dtype=torch.long))
+
+
+def test_mixtral_preset_builds_and_is_refused_at_model_creation():
+    cfg = tl.LlamaConfig.mixtral_8x7b(num_hidden_layers=2)
+    assert (cfg.num_experts, cfg.num_experts_per_tok) == (8, 2)
+    with pytest.raises(NotImplementedError, match=r"MoE.*ROADMAP.md A11"):
+        tl.create_llama(cfg, device="cpu")
+    with pytest.raises(ValueError, match="silu"):
+        tl.LlamaConfig.mixtral_8x7b(hidden_act="gelu_tanh")
+
+
+def test_tpu_only_knobs_are_no_ops():
+    gen = torch.Generator().manual_seed(0)
+    base = tl.LlamaConfig.tiny(compute_dtype=torch.float32)
+    ids = torch.from_numpy(np.random.default_rng(5).integers(0, 256, size=(1, 8)))
+    params = tl.init_llama_params(base, gen, device="cpu")
+    ref = tl.llama_apply(base, params, ids)
+    knobs = tl.LlamaConfig.tiny(compute_dtype=torch.float32, attention_block_q=16, scan_layers=False)
+    torch.testing.assert_close(tl.llama_apply(knobs, params, ids), ref, atol=0, rtol=0)
+
+
 def test_kernel_decode_refuses_sliding_window(model):
     # the paged flash-decode kernel walks the whole live table: a windowed
     # config must be refused, not quietly sent through the plain attention

@@ -202,6 +202,130 @@ def test_serving_engine_with_trainable_weights_builds_no_graph():
     assert all(p.grad is None for p in model.parameters())
 
 
+# ------------------------------------------------------------ f32 logits
+# The head of the JAX llama_apply (accelerate_tpu/models/llama.py:736-745):
+# rms_norm, then einsum(x, head.astype(cdt), preferred_element_type=f32),
+# then the final softcap in f32. With bf16 operands every product is exact
+# in f32, so the port's f32 logits differ from JAX's by the f32 summation
+# order only: HEAD_RTOL of the largest |logit|. Logits rounded to bf16 miss
+# it by orders of magnitude (one bf16 ulp of a logit of 4 is 2^-6).
+HEAD_RTOL = 1e-5
+HEAD_D, HEAD_V = 256, 4096
+
+
+def _head_inputs(tied):
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(2, 16, HEAD_D)).astype(np.float32)
+    scale = (1 + 0.1 * rng.normal(size=(HEAD_D,))).astype(np.float32)
+    w = (rng.normal(size=(HEAD_D, HEAD_V)) / np.sqrt(HEAD_D)).astype(np.float32)
+    jparams = {"final_norm": {"scale": scale}}
+    if tied:
+        jparams["embed_tokens"] = {"embedding": np.ascontiguousarray(w.T)}
+    else:
+        jparams["lm_head"] = {"kernel": w}
+    return x, jparams
+
+
+def _jax_head(jcfg, jparams, x):
+    """Lines 736-745 of the JAX llama_apply on hidden states ``x``."""
+    h = jl.rms_norm(jnp.asarray(x).astype(jcfg.compute_dtype),
+                    jnp.asarray(jparams["final_norm"]["scale"]), jcfg.rms_norm_eps,
+                    jcfg.rms_norm_offset)
+    head = (jnp.asarray(jparams["embed_tokens"]["embedding"]).T if jcfg.tie_word_embeddings
+            else jnp.asarray(jparams["lm_head"]["kernel"]))
+    logits = jnp.einsum("bsd,dv->bsv", h, head.astype(jcfg.compute_dtype),
+                        preferred_element_type=jnp.float32)
+    return jl._tanh_softcap(logits, jcfg.final_logit_softcap)
+
+
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("cap", [None, 30.0])
+def test_bf16_head_gives_the_f32_logits_of_jax(cap, tied):
+    x, jparams = _head_inputs(tied)
+    kw = dict(hidden_size=HEAD_D, vocab_size=HEAD_V, final_logit_softcap=cap,
+              tie_word_embeddings=tied)
+    jcfg = jl.LlamaConfig.tiny(compute_dtype=jnp.bfloat16, **kw)
+    tcfg = tl.LlamaConfig.tiny(compute_dtype=torch.bfloat16, **kw)
+    ref = np.asarray(_jax_head(jcfg, jparams, x))
+    tparams = jax.tree_util.tree_map(torch.from_numpy, jparams)
+    got = tl._head(tcfg, tparams, torch.from_numpy(x).to(torch.bfloat16))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=HEAD_RTOL * np.abs(ref).max())
+
+
+def test_bf16_head_product_backward_rounds_the_cotangent_as_the_tpu_does():
+    # the JAX backward of the head's product dots the f32 cotangent with a
+    # bf16 operand (on the CPU in f32; on a TPU as bf16 passes) and rounds
+    # to bf16; the port rounds the cotangent to bf16 first, then one bf16
+    # GEMM with f32 sums and a bf16 output. Each gradient entry then
+    # differs by the cotangent's rounding (2^-9 of each term) and one
+    # output ulp (up to 2^-7 of the entry): 2^-6 of the largest entry
+    rng = np.random.default_rng(12)
+    h = rng.normal(size=(2, 16, HEAD_D)).astype(np.float32)
+    w = (rng.normal(size=(HEAD_D, HEAD_V)) / np.sqrt(HEAD_D)).astype(np.float32)
+    cot = rng.normal(size=(2, 16, HEAD_V)).astype(np.float32)
+    jh, jw = (jnp.asarray(a).astype(jnp.bfloat16) for a in (h, w))
+    out, vjp = jax.vjp(lambda a, b: jnp.einsum("bsd,dv->bsv", a, b,
+                                                preferred_element_type=jnp.float32), jh, jw)
+    jdh, jdw = vjp(jnp.asarray(cot))
+    th, tw = (torch.from_numpy(a).to(torch.bfloat16).requires_grad_() for a in (h, w))
+    got = tl._f32_product(th, tw)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), rtol=0,
+                               atol=HEAD_RTOL * np.abs(np.asarray(out)).max())
+    got.backward(torch.from_numpy(cot))
+    for t, j in ((th, jdh), (tw, jdw)):
+        assert t.grad.dtype == torch.bfloat16
+        ref = np.asarray(j.astype(jnp.float32))
+        np.testing.assert_allclose(t.grad.float().numpy(), ref, rtol=0,
+                                   atol=2 ** -6 * np.abs(ref).max())
+
+
+# bf16 through the whole model: bf16 keeps 8 significant bits, so each
+# rounding moves a value by up to 2^-9 of it, and the two frameworks round
+# at different places (XLA fuses elementwise chains and rounds once;
+# PyTorch rounds every op's output). Through two layers that is a few ulps:
+# logits 2.5e-2 of the largest |logit| (about 6 ulps of it), the loss rtol
+# 2e-4, each gradient leaf 4e-2 of its largest entry (about 10 ulps).
+BF16_LOGIT_RTOL = 2.5e-2
+BF16_LOSS_RTOL = 2e-4
+BF16_GRAD_RTOL = 4e-2
+
+
+@pytest.mark.parametrize("cap", [None, 30.0])
+def test_bf16_apply_and_loss_match_jax(params, cap):
+    jcfg = jl.LlamaConfig.tiny(compute_dtype=jnp.bfloat16, attention_impl="xla",
+                               attention_kv_block=16, final_logit_softcap=cap)
+    tcfg = tl.LlamaConfig.tiny(compute_dtype=torch.bfloat16, attention_impl="xla",
+                               final_logit_softcap=cap)
+    batch = _batches()["ignore_index"]
+    jparams = jax.tree_util.tree_map(jnp.asarray, params)
+    jlogits = np.asarray(jl.llama_apply(jcfg, jparams, jnp.asarray(batch["input_ids"])))
+    model = tl.LlamaForCausalLM(tcfg, tl.params_from_jax(tcfg, params, device="cpu"))
+    with torch.no_grad():
+        logits = model(torch.from_numpy(batch["input_ids"]))
+    assert logits.dtype == torch.float32
+    np.testing.assert_allclose(logits.numpy(), jlogits, rtol=0,
+                               atol=BF16_LOGIT_RTOL * np.abs(jlogits).max())
+    # both keep f32 logits: almost none of them is a bf16 value
+    for lg in (logits, torch.from_numpy(jlogits.copy())):
+        assert (lg == lg.to(torch.bfloat16).float()).float().mean().item() < 0.05
+
+    def j_loss(p):
+        return jl.llama_loss(lambda ids, **kw: jl.llama_apply(jcfg, p, ids, **kw),
+                             {k: jnp.asarray(v) for k, v in batch.items()})
+
+    jvalue, jgrads = jax.value_and_grad(j_loss)(jparams)
+    loss = tl.llama_loss(model, {k: torch.from_numpy(v) for k, v in batch.items()})
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jvalue), rtol=BF16_LOSS_RTOL)
+    for path, jg in jax.tree_util.tree_leaves_with_path(jgrads):
+        jg = np.asarray(jg)
+        np.testing.assert_allclose(_param(model, path).grad.numpy(), jg, rtol=0,
+                                   atol=BF16_GRAD_RTOL * np.abs(jg).max(),
+                                   err_msg=jax.tree_util.keystr(path))
+
+
 # ------------------------------------------------------------ trajectories
 LR = {"sgd": 0.1, "adamw": 1e-2}
 TRAJ_LOSS_RTOL = {"sgd": 1e-5, "adamw": 1e-4}
