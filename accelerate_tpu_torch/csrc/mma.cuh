@@ -91,15 +91,26 @@ __device__ __forceinline__ uint32_t half2_to_bf16x2(uint32_t r) {
 // and their difference, an integer of at most 8 significant bits, is x
 // exactly. One byte permute (the other two bytes are masked off), two
 // logic ops and one bf16x2 subtraction.
-template <int T>
-__device__ __forceinline__ uint32_t s8x2_to_bf16x2(uint32_t w0, uint32_t w1) {
-  constexpr uint32_t kSel = 0x4440u | T | ((T + 4) << 8);  // {w0.T, -, w1.T, -}
-  const uint32_t t = __byte_perm(w0, w1, kSel);
+// The int8 values in bytes 0 and 2 of t (bytes 1 and 3 are ignored).
+__device__ __forceinline__ uint32_t s8_bytes02_to_bf16x2(uint32_t t) {
   const uint32_t a = (t & 0x007F007Fu) | 0x43004300u;
   const uint32_t b = (t & 0x00800080u) | 0x43004300u;
   __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
                              *reinterpret_cast<const __nv_bfloat162*>(&b));
   return *reinterpret_cast<uint32_t*>(&d);
+}
+
+template <int T>
+__device__ __forceinline__ uint32_t s8x2_to_bf16x2(uint32_t w0, uint32_t w1) {
+  constexpr uint32_t kSel = 0x4440u | T | ((T + 4) << 8);  // {w0.T, -, w1.T, -}
+  return s8_bytes02_to_bf16x2(__byte_perm(w0, w1, kSel));
+}
+
+// Bytes 2P and 2P + 1 of w, int8 values, as exact bf16, {lo: byte 2P, hi:
+// byte 2P + 1}: a row of int8 widened in place to a row of bf16.
+template <int P>
+__device__ __forceinline__ uint32_t s8pair_to_bf16x2(uint32_t w) {
+  return s8_bytes02_to_bf16x2(__byte_perm(w, 0u, P ? 0x4342u : 0x4140u));
 }
 
 // 2^x by the special-function unit (ex2.approx.ftz: 2 ulp, subnormal

@@ -56,6 +56,8 @@ KERNELS = {
     "paged_decode_int8": "paged_decode.cu",
     "paged_verify": "paged_verify.cu",
     "paged_verify_int8": "paged_verify.cu",
+    "paged_verify_mma": "paged_verify.cu",
+    "paged_verify_int8_mma": "paged_verify.cu",
     "fused_sample": "fused_sample.cu",
     "quant_matmul": "quant_matmul.cu",
     "quant_matmul_mma": "quant_matmul.cu",

@@ -12,19 +12,24 @@
 * :func:`paged_flash_verify` — a W-query window (speculative verify, W =
   draft length + 1, or a chunk of a long prompt) over committed pool
   history plus the window's own K/V, which are not in the pool yet. A CUDA
-  tensor launches ``csrc/paged_verify.cu`` (replacing ``_verify_kernel``;
-  ``paged_verify_int8`` for an int8 pool); a CPU tensor runs
-  :func:`paged_flash_verify_reference`.
+  tensor launches ``csrc/paged_verify.cu`` (replacing ``_verify_kernel``):
+  bf16 q takes the tensor-core variant, ``paged_verify_mma`` or, for an
+  int8 pool, ``paged_verify_int8_mma``; f32 q the FMA variant,
+  ``paged_verify`` or ``paged_verify_int8`` (:func:`verify_kernel_for`).
+  :func:`verify_plan` sizes the tensor-core launch and splits the history
+  over several blocks where the grid would leave SMs idle. A CPU tensor
+  runs :func:`paged_flash_verify_reference`.
 * :func:`fused_sample` — temperature, top-k, top-p and the categorical draw
   in one kernel (``csrc/fused_sample.cu``, replacing ``_sample_kernel``),
-  with the same tie rules and the same noise operand as
+  one thread block cluster per row (:func:`fused_sample_plan`), with the
+  same tie rules and the same noise operand as
   :func:`fused_sample_reference`, so the two agree bitwise.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -35,7 +40,10 @@ __all__ = [
     "paged_flash_decode",
     "paged_flash_verify",
     "paged_flash_verify_reference",
+    "verify_kernel_for",
+    "verify_plan",
     "fused_sample",
+    "fused_sample_plan",
     "fused_sample_reference",
 ]
 
@@ -166,6 +174,64 @@ def paged_flash_verify_reference(
     return _window_attention(q, k, v, pos, scale, softcap).to(q.dtype)
 
 
+def verify_kernel_for(q_dtype: torch.dtype, pool_dtype: torch.dtype) -> str:
+    """The verify kernel that serves ``q_dtype`` over a pool of
+    ``pool_dtype``: bf16 q on the tensor cores (``*_mma``), f32 q on the
+    FMA kernels (f32 inputs keep f32 products); an int8 pool takes the
+    ``*_int8*`` entry point. Raises ``TypeError`` for any other pair."""
+    if q_dtype == torch.bfloat16 and pool_dtype in (torch.bfloat16, torch.int8):
+        return "paged_verify_int8_mma" if pool_dtype == torch.int8 else "paged_verify_mma"
+    if q_dtype == torch.float32 and pool_dtype in (torch.float32, torch.int8):
+        return "paged_verify_int8" if pool_dtype == torch.int8 else "paged_verify"
+    raise TypeError(f"the verify kernels take f32 or bf16 q over a pool of q's dtype or int8, "
+                    f"got q {q_dtype} and pool {pool_dtype}")
+
+
+class VerifyPlan(NamedTuple):
+    """Launch shape of the tensor-core verify kernel: query rows and keys
+    per block tile, row tiles per (slot, kv head), and history splits."""
+
+    block_rows: int
+    key_tile: int
+    row_tiles: int
+    splits: int
+
+
+def verify_plan(b: int, w: int, h: int, h_kv: int, max_hist: int) -> VerifyPlan:
+    """Rows: R = n_rep * W per (slot, kv head); R <= 32 (the spec shape, 20)
+    takes 32-row blocks with 32-key tiles, larger R 64-row blocks with
+    64-key tiles (this is the one place that pairs them: the kernel takes
+    both and refuses a pair it was not built for). Split: where the B * Hkv * row-tile blocks fall short of
+    the SMs, each block's history (at most ``max_hist`` = the table's
+    positions) is cut over enough blocks to reach ``FILL_BLOCKS``, never
+    into ranges of less than one key tile; the chunk shape (2,048 rows, 256
+    blocks) is not split."""
+    rows = w * (h // h_kv)
+    block_rows, key_tile = (32, 32) if rows <= 32 else (64, 64)
+    row_tiles = -(-rows // block_rows)
+    blocks = b * h_kv * row_tiles
+    splits = 1
+    if blocks < _build.SMS:
+        splits = max(1, min(-(-_build.FILL_BLOCKS // blocks), -(-max_hist // key_tile)))
+    return VerifyPlan(block_rows, key_tile, row_tiles, splits)
+
+
+# per device: the int32 tickets of the split verify's last-block combine,
+# one per (slot, kv head, row tile), all zero between launches (the last
+# block of each group resets its own). verify_plan splits only grids of
+# fewer than SMS groups, so SMS tickets always suffice and the tensor is
+# never replaced (a captured CUDA graph keeps using it). Launches on one
+# device share them, so they run on one stream at a time.
+_tickets: Dict[torch.device, torch.Tensor] = {}
+
+
+def _verify_tickets(device: torch.device) -> torch.Tensor:
+    t = _tickets.get(device)
+    if t is None:
+        t = _tickets[device] = torch.zeros(_build.SMS, dtype=torch.int32, device=device)
+    return t
+
+
 def paged_flash_verify(
     q: torch.Tensor,
     k_pool: torch.Tensor,
@@ -204,15 +270,32 @@ def paged_flash_verify(
     scales = (k_scale, v_scale) if quantized else ()
     _check_kernel_operands("paged verify", q, k_pool, v_pool, scales,
                            (win_k, win_v, block_tables, pos), n_rep, softcap)
+    name = verify_kernel_for(q.dtype, k_pool.dtype)
     out = torch.empty_like(q)
-    bs = k_pool.shape[1]
-    dims = (b, w, h, k_pool.shape[2], d, bs, block_tables.shape[1], _DTYPE_CODE[q.dtype])
+    h_kv, bs, bpr = k_pool.shape[2], k_pool.shape[1], block_tables.shape[1]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    name = "paged_verify_int8" if quantized else "paged_verify"
-    ptrs = (q, k_pool, v_pool, *scales, win_k, win_v, block_tables, pos, out)
-    code = _build.entry(name, len(ptrs), 8, 2)(
-        *(t.data_ptr() for t in ptrs), *dims, float(scale), float(softcap or 0.0), stream,
-    )
+    if not name.endswith("_mma"):
+        dims = (b, w, h, h_kv, d, bs, bpr, _DTYPE_CODE[q.dtype])
+        ptrs = (q, k_pool, v_pool, *scales, win_k, win_v, block_tables, pos, out)
+        code = _build.entry(name, len(ptrs), 8, 2)(
+            *(t.data_ptr() for t in ptrs), *dims, float(scale), float(softcap or 0.0), stream,
+        )
+    else:
+        if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool, win_k, win_v)):
+            raise ValueError("the tensor-core verify kernel takes 16-byte aligned q, pools and window")
+        plan = verify_plan(b, w, h, h_kv, bs * bpr)
+        work = tickets = None
+        if plan.splits > 1:
+            groups = b * h_kv * plan.row_tiles
+            work = torch.empty(groups * plan.splits * plan.block_rows * (d + 2),
+                               dtype=torch.float32, device=q.device)
+            tickets = _verify_tickets(q.device)
+        ptrs = [q, k_pool, v_pool, *scales, win_k, win_v, block_tables, pos, out, work, tickets]
+        dims = (b, w, h, h_kv, d, bs, bpr, plan.block_rows, plan.key_tile, plan.splits)
+        code = _build.entry(name, len(ptrs), 10, 2)(
+            *(None if t is None else t.data_ptr() for t in ptrs), *dims, float(scale),
+            float(softcap or 0.0), stream,
+        )
     _build.check(name, code)
     _build.count_launch(name)
     return out
@@ -288,6 +371,36 @@ def fused_sample_reference(
     return torch.where(t > 0, sampled, greedy).to(torch.int32)
 
 
+# the host's copy of fused_sample.cu's geometry, for an early refusal with
+# a clear message: its CLUSTER (blocks per row; 16 needs the non-portable
+# cluster size, which the H100 allows) and the dynamic shared memory a block
+# may use (the H100's 232,448 bytes a block, less the kernel's 30,864 bytes
+# of static buffers: the warps' histograms and the cluster's exchange
+# slots). The kernel's entry point derives the same and refuses a row that
+# does not fit; a card test holds the two limits to each other.
+SAMPLE_CLUSTER = 16
+SAMPLE_SMEM_LIMIT = 232448 - 30864
+
+
+class SamplePlan(NamedTuple):
+    cluster: int  # blocks per row
+    chunk: int  # elements of the row per block
+    smem_bytes: int  # dynamic shared memory per block: scaled logits and exp
+
+
+def fused_sample_plan(v: int) -> SamplePlan:
+    """One cluster of ``SAMPLE_CLUSTER`` blocks per row; each block keeps
+    its slice of the row twice (x / t and exp(x / t - max), f32) in shared
+    memory. Raises ``ValueError`` for a vocabulary whose slices do not fit
+    (V above 403,168)."""
+    chunk = -(-v // SAMPLE_CLUSTER)
+    smem = 2 * 4 * chunk
+    if smem > SAMPLE_SMEM_LIMIT:
+        raise ValueError(f"fused sample kernel holds at most {SAMPLE_SMEM_LIMIT // 8 * SAMPLE_CLUSTER} "
+                         f"logits a row in shared memory, got V = {v}")
+    return SamplePlan(SAMPLE_CLUSTER, chunk, smem)
+
+
 def fused_sample(
     logits: torch.Tensor,
     noise: torch.Tensor,
@@ -316,6 +429,7 @@ def fused_sample(
         raise TypeError("fused sample kernel takes f32 logits/noise/temperature/top_p and int32 top_k")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused sample kernel takes contiguous operands")
+    fused_sample_plan(v)
     if logits.device.type != "cuda":
         raise ValueError(f"the fused sample kernel runs on CUDA tensors; got {logits.device}")
     out = torch.empty((s,), dtype=torch.int32, device=logits.device)

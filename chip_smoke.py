@@ -27,7 +27,11 @@ Phases (any failure exits non-zero and prints no result):
      same bf16 inputs, also with segment ids, a ragged S, an lse
      cotangent, softcap and window, non-causal; B4 with
      bf16/f32/int8 pools; B5 at the spec shape W=5 and the chunk shape
-     W=512, bf16/f32/int8 pools, softcap, n_rep=1; B7 at every Llama-3-8B
+     W=512, softcap, n_rep=1: its tensor-core variants (bf16 q over the
+     bf16 and the int8 pool; two launches bitwise equal; timed in CUDA
+     graphs and eagerly) on every case, its FMA variants (f32 q) at the
+     spec shape and one chunk; B6 exact on 8 rows with ties and a 512-row
+     sweep, two launches equal, timed in CUDA graphs; B7 at every Llama-3-8B
      projection shape, M = 2048 through the tensor-core variant and M = 8
      through split-K, the FMA variant on the same bf16 inputs and on f32 x,
      int4-range codes, ragged M/K/N, f16 x, M = 17 and 65, and each
@@ -509,10 +513,30 @@ B5_CASES = {
     "spec_mha": (8, 5, 8, 8, B5_SPEC_POS, None),
 }
 B5_BPR, B5_BS = 128, 16
+# bf16 q is held per output row (slot, query, head) as well: its largest
+# error within 2^-6 of the row's largest |reference|, 2 to 4 bf16 ulps of
+# it (kernel and plain version each round p and the output to bf16: one
+# ulp apart reads up to 2^-7, and the sound maximum measured on an H100
+# was 8.8e-3). Small outputs deep in history are held to their own row's
+# scale, not to the absolute B4_TOL; a planted stale key tile must exceed
+# this limit (b5_planted_fault)
+B5_ROW_RTOL = 2.0 ** -6
+
+
+def row_rel_err(out, ref, valid):
+    """Largest over the compared rows of max |out - ref| / max |ref|, both
+    over a row's D outputs; ``valid`` (B, W) marks the compared rows."""
+    diff = (out.float() - ref.float()).abs().amax(-1)
+    return (diff / ref.float().abs().amax(-1))[valid].max().item()
+
+
+# graph-replayed launches per timing of the spec shape (tens of us each)
+B5_GRAPH_ITERS = {"spec": 50, "chunk": 10}
 
 
 def check_paged_verify(dev, gen, results):
-    from accelerate_tpu_torch.ops.paged_decode import paged_flash_verify, paged_flash_verify_reference
+    from accelerate_tpu_torch.ops.paged_decode import (
+        paged_flash_verify, paged_flash_verify_reference, verify_kernel_for, verify_plan)
 
     d, bs, bpr = 128, B5_BS, B5_BPR
     for case, (b, w, h, h_kv, pos_list, softcap) in B5_CASES.items():
@@ -521,13 +545,14 @@ def check_paged_verify(dev, gen, results):
         # every slot owns its whole row, as a request of max_len does
         tables = random_tables(gen, dev, b, bpr, nb, [bpr] * b)
         valid = (pos[:, None] + torch.arange(w, device=dev)[None, :]) < bpr * bs
-        main_case = case in ("spec", "chunk_1024")
-        combos = [(torch.bfloat16, torch.bfloat16)]
+        shape = "spec" if w <= 8 else "chunk"
+        plan = verify_plan(b, w, h, h_kv, bpr * bs)
+        # every case: both tensor-core variants (bf16 q over the bf16 and
+        # the int8 pool, the main paths' forms); the FMA pair (f32 q) at
+        # the spec shape and the chunk at offset 512, as before
+        combos = [(torch.bfloat16, torch.bfloat16), (torch.int8, torch.bfloat16)]
         if case in ("spec", "chunk_512"):
-            combos = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-                      (torch.int8, torch.float32), (torch.int8, torch.bfloat16)]
-        elif main_case:
-            combos += [(torch.int8, torch.bfloat16)]
+            combos += [(torch.float32, torch.float32), (torch.int8, torch.float32)]
         for pool_dtype, dtype in combos:
             kp, vp, scales = random_pools(gen, dev, nb, bs, h_kv, d, pool_dtype)
             q = torch.randn((b, w, h, d), generator=gen, device=dev).to(dtype)
@@ -535,38 +560,80 @@ def check_paged_verify(dev, gen, results):
             wv = torch.randn((b, w, h_kv, d), generator=gen, device=dev).to(dtype)
             args = (q, kp, vp, wk, wv, tables, pos)
             kw = dict(softcap=softcap, **scales)
+            name = verify_kernel_for(dtype, pool_dtype)
+            mma = name.endswith("_mma")
             out = paged_flash_verify(*args, **kw)
+            out2 = paged_flash_verify(*args, **kw)
             ref = paged_flash_verify_reference(*args, **kw)
             torch.cuda.synchronize()
             err = (out.float() - ref.float())[valid].abs().max().item()
+            rel = row_rel_err(out, ref, valid) if mma else None
+            same = torch.equal(out, out2)
             tol = B4_TOL[dtype]
-            name = "paged_verify_int8" if scales else "paged_verify"
             log(f"B5 {name} {case} pool {pool_dtype} q {dtype} (B={b}, W={w}, H={h}, Hkv={h_kv}, "
-                f"D={d}, bs={bs}, bpr={bpr}, pos={pos_list}, softcap={softcap}) "
-                f"max_abs_err={err:.3e} tol={tol:g}")
-            if not err <= tol:
+                f"D={d}, bs={bs}, bpr={bpr}, pos={pos_list}, softcap={softcap}"
+                + (f", {plan.block_rows}-row tiles, {plan.splits} history splits" if mma else "")
+                + f") max_abs_err={err:.3e} tol={tol:g}"
+                + (f", row_rel_err={rel:.3e} tol={B5_ROW_RTOL:g}" if mma else "")
+                + f", second launch bitwise equal: {same}")
+            if not err <= tol or (mma and not rel <= B5_ROW_RTOL):
                 raise AssertionError(f"{name} {case} {pool_dtype}/{dtype} disagrees with its plain version")
+            if mma and case == "spec":
+                fault_rel, fault_abs = b5_planted_fault(out, args, kw, pos, valid, bs)
+                results.setdefault(name, dict(library_ms=None)).update(
+                    row_rel_err=rel, fault_row_rel_err=fault_rel)
+            if mma and not same:
+                raise AssertionError(f"{name} {case}: a second launch gave other bits")
+            record = case in (("spec", "chunk_1024") if mma else ("spec", "chunk_512"))
             ms = time_ms(lambda: paged_flash_verify(*args, **kw))
-            plain_ms = time_ms(lambda: paged_flash_verify_reference(*args, **kw), iters=5, repeats=3)
+            # the tensor-core kernels take tens of us: an eager loop times
+            # the host's launch, so the recorded time replays a CUDA graph
+            graph_ms = (time_graph_ms(lambda: paged_flash_verify(*args, **kw), B5_GRAPH_ITERS[shape])
+                        if mma and (record or shape == "spec") else None)
+            plain_ms = (time_ms(lambda: paged_flash_verify_reference(*args, **kw), iters=5, repeats=3)
+                        if record else None)
             item = dtype.itemsize
             hist = sum(min(p, bpr * bs) for p in pos_list)
             nbytes = (2 * b * w * h * d * item + 2 * b * w * h_kv * d * item
                       + hist * pool_bytes_per_pos(h_kv, d, pool_dtype) + tables.numel() * 4 + b * 4)
             flops = sum(4.0 * h * d * w * (p + (w + 1) / 2) for p in pos_list)
             bms, by = bound_ms(nbytes, flops, dtype)
-            log(f"  ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.5f} ({by})")
-            if not (main_case and dtype == torch.bfloat16):
-                continue
-            shape = "spec" if case == "spec" else "chunk"
-            entry = results.setdefault(name, dict(library_ms=None))
-            if shape == "spec":
-                entry.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
-            else:
-                entry.update(chunk_max_abs_err=err, chunk_ms=ms, chunk_plain_ms=plain_ms,
-                             chunk_bound_ms=bms, chunk_bound_by=by)
-            del ref
+            log(f"  ms={ms:.4f} (eager)" + (f" graph_ms={graph_ms:.4f}" if graph_ms else "")
+                + (f" plain_ms={plain_ms:.4f}" if plain_ms else "") + f" bound_ms={bms:.5f} ({by})")
+            if record:
+                kern_ms = graph_ms if mma else ms
+                entry = results.setdefault(name, dict(library_ms=None))
+                if shape == "spec":
+                    entry.update(max_abs_err=err, ms=kern_ms, eager_ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bms, bound_by=by, splits=plan.splits if mma else None)
+                else:
+                    entry.update(chunk_max_abs_err=err, chunk_ms=kern_ms, chunk_eager_ms=ms,
+                                 chunk_plain_ms=plain_ms, chunk_bound_ms=bms, chunk_bound_by=by)
+            del ref, out, out2
         del kp, vp, q, wk, wv
     torch.cuda.empty_cache()
+
+
+def b5_planted_fault(out, args, kw, pos, valid, bs):
+    """The check's power: the plain version over a table whose positions
+    256..287 (two pool blocks, one 32-key tile) point at stale blocks, held
+    against the kernel's sound output on the rows with >= 300 history keys.
+    Raises unless the row check (B5_ROW_RTOL) sees the stale tile."""
+    from accelerate_tpu_torch.ops.paged_decode import paged_flash_verify_reference
+
+    q, kp, vp, wk, wv, tables, _ = args
+    stale = tables.clone()
+    stale[:, 256 // bs: 288 // bs] = tables[:, 1024 // bs: 1056 // bs]
+    ref = paged_flash_verify_reference(q, kp, vp, wk, wv, stale, pos, **kw)
+    deep = valid & (pos[:, None] >= 300)
+    rel = row_rel_err(out, ref, deep)
+    err = (out.float() - ref.float())[deep].abs().max().item()
+    log(f"  planted fault (one stale 32-key tile at positions 256..287): "
+        f"row_rel_err={rel:.3e} (limit {B5_ROW_RTOL:g}) max_abs_err={err:.3e} "
+        f"(absolute limit {B4_TOL[torch.bfloat16]:g})")
+    if not rel > B5_ROW_RTOL:
+        raise AssertionError("B5's row check does not see a stale key tile")
+    return rel, err
 
 
 def check_fused_sample(dev, gen, results):
@@ -583,15 +650,27 @@ def check_fused_sample(dev, gen, results):
     top_k = torch.tensor([0, 50, 0, 50, 1, 50, 40, 100], dtype=torch.int32, device=dev)
     top_p = torch.tensor([1.0, 1.0, 0.9, 0.9, 0.5, 0.9, 0.95, 0.8], device=dev)
     out = fused_sample(logits, noise, temp, top_k, top_p)
+    out2 = fused_sample(logits, noise, temp, top_k, top_p)
     ref = fused_sample_reference(logits, noise, temp, top_k, top_p)
     torch.cuda.synchronize()
     mismatches = int((out != ref).sum().item())
+    same = torch.equal(out, out2)
     log(f"B6 fused_sample (S={s}, V={v}) tokens={out.tolist()} ref={ref.tolist()} "
-        f"mismatches={mismatches} (tolerance: exact)")
-    if mismatches:
-        raise AssertionError("fused_sample disagrees with its plain version")
+        f"mismatches={mismatches} (tolerance: exact), second launch equal: {same}")
+    if mismatches or not same:
+        raise AssertionError("fused_sample disagrees with its plain version or with itself")
     sweep_mismatches = check_fused_sample_sweep(dev, gen, v)
-    ms = time_ms(lambda: fused_sample(logits, noise, temp, top_k, top_p))
+    sweep_mismatches += check_fused_sample_edges(dev, gen)
+    # tens of us: the recorded time replays a CUDA graph (an eager loop
+    # times the host's launch); the eager time stays beside it
+    eager_ms = time_ms(lambda: fused_sample(logits, noise, temp, top_k, top_p))
+    ms = time_graph_ms(lambda: fused_sample(logits, noise, temp, top_k, top_p), 50)
+    first = [t[:1] for t in (logits, noise, temp, top_k, top_p)]  # a greedy first token, S = 1
+    first_ms = time_graph_ms(lambda: fused_sample(*first), 50)
+    # the same settings on logits without ties (a model's logits): ties put
+    # many keys into one histogram bin at every level
+    untied = torch.randn((s, v), generator=gen, device=dev) * 3.0
+    untied_ms = time_graph_ms(lambda: fused_sample(untied, noise, temp, top_k, top_p), 50)
     plain_ms = time_ms(lambda: fused_sample_reference(logits, noise, temp, top_k, top_p), iters=3)
     # the function must read logits and noise once and write one token per
     # row; its least work is a scale, an exp, a noise add and a compare per
@@ -599,17 +678,60 @@ def check_fused_sample(dev, gen, results):
     nbytes = 2 * s * v * 4 + s * 16
     flops = 4.0 * s * v
     bms, by = bound_ms(nbytes, flops, torch.float32)
-    log(f"  ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.5f} ({by})")
+    log(f"  ms={ms:.4f} (graph; rows 6-7 tied) eager_ms={eager_ms:.4f} untied_ms={untied_ms:.4f} "
+        f"(graph) S=1 greedy ms={first_ms:.4f} (graph) plain_ms={plain_ms:.4f} "
+        f"bound_ms={bms:.5f} ({by})")
     results["fused_sample"] = dict(
-        max_abs_err=float(mismatches + sweep_mismatches), ms=ms, plain_ms=plain_ms,
-        bound_ms=bms, bound_by=by, library_ms=None,
+        max_abs_err=float(mismatches + sweep_mismatches), ms=ms, eager_ms=eager_ms,
+        untied_ms=untied_ms, first_token_ms=first_ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=None,
     )
 
 
-# rows of the wider B6 check: the kernel's block-tree sums (Z and the mass
-# above each top-p candidate) add in another order than torch's .sum, so
-# the two agree bitwise only while no row's cutoff falls within rounding of
-# p * Z; this many seeded rows put that to the test
+def check_fused_sample_edges(dev, gen) -> int:
+    """B6 where the main settings do not reach: top_p <= 0 (p * Z <= 0
+    keeps every token, so the draw equals top-p off), with top-k off and
+    on, tied and untied; and Qwen2's vocabulary, 152,064 (9,504 logits a
+    block: the three-limb mass histograms), at the 8 rows' settings.
+    Exact against the plain version and a second launch."""
+    from accelerate_tpu_torch.ops.paged_decode import fused_sample, fused_sample_reference
+
+    mismatches = 0
+    for v, s in ((128256, 8), (152064, 8)):
+        logits = torch.randn((s, v), generator=gen, device=dev) * 3.0
+        logits[s // 2:] = torch.round(logits[s // 2:])
+        u = torch.rand((s, v), generator=gen, device=dev).clamp_min(torch.finfo(torch.float32).tiny)
+        noise = -torch.log(-torch.log(u))
+        if v == 128256:
+            temp = torch.full((s,), 0.8, device=dev)
+            top_k = torch.tensor([0, 50] * (s // 2), dtype=torch.int32, device=dev)
+            top_p = torch.tensor([0.0, 0.0, -0.5, -0.5] * (s // 4), device=dev)
+        else:
+            temp = torch.tensor([0.0, 0.8, 0.8, 0.8, 1.0, 0.0, 0.7, 1.3], device=dev)
+            top_k = torch.tensor([0, 50, 0, 50, 1, 50, 40, 100], dtype=torch.int32, device=dev)
+            top_p = torch.tensor([1.0, 1.0, 0.9, 0.9, 0.5, 0.9, 0.95, 0.0], device=dev)
+        out = fused_sample(logits, noise, temp, top_k, top_p)
+        out2 = fused_sample(logits, noise, temp, top_k, top_p)
+        ref = fused_sample_reference(logits, noise, temp, top_k, top_p)
+        torch.cuda.synchronize()
+        bad = int((out != ref).sum().item())
+        same = torch.equal(out, out2)
+        kept = True
+        if v == 128256:  # top_p <= 0 draws what top-p off draws
+            kept = torch.equal(out, fused_sample(logits, noise, temp, top_k, torch.ones_like(top_p)))
+        log(f"B6 fused_sample edges (S={s}, V={v}, top_p={top_p.tolist()}, top_k={top_k.tolist()}) "
+            f"mismatches={bad} (tolerance: exact), second launch equal: {same}"
+            + (f", equal to top-p off: {kept}" if v == 128256 else ""))
+        if bad or not same or not kept:
+            raise AssertionError(f"fused_sample disagrees on its edge rows (V={v})")
+        mismatches += bad
+    return mismatches
+
+
+# rows of the wider B6 check: the kernel's fixed-point sums (Z and the mass
+# above each top-p candidate) round otherwise than torch's .sum, so the two
+# agree bitwise only while no row's cutoff falls within rounding of p * Z;
+# this many seeded rows put that to the test
 B6_SWEEP_ROWS = 512
 
 
@@ -630,13 +752,16 @@ def check_fused_sample_sweep(dev, gen, v) -> int:
     top_p = torch.where(q == 1, torch.ones_like(top_p), top_p)
     temp = torch.where((q == 3) & (r[3] < 0.5), torch.zeros_like(temp), temp)
     out = fused_sample(logits, noise, temp, top_k, top_p)
+    out2 = fused_sample(logits, noise, temp, top_k, top_p)
     ref = fused_sample_reference(logits, noise, temp, top_k, top_p)
     torch.cuda.synchronize()
     mismatches = int((out != ref).sum().item())
+    same = torch.equal(out, out2)
     log(f"B6 fused_sample sweep ({n} seeded rows: top-p only, top-k only, both, greedy) "
-        f"mismatches={mismatches} (tolerance: exact)")
-    if mismatches:
-        raise AssertionError(f"fused_sample disagrees with its plain version on {mismatches} rows")
+        f"mismatches={mismatches} (tolerance: exact), second launch equal: {same}")
+    if mismatches or not same:
+        raise AssertionError(f"fused_sample disagrees with its plain version on {mismatches} rows "
+                             f"or with itself")
     return mismatches
 
 
@@ -1312,7 +1437,7 @@ def expected_launches(n_layers, delta, n_single, n_chunked, suffix=""):
     return {
         "flash_fwd_mma": n_layers * n_single,
         "paged_decode" + suffix: n_layers * decode_steps,
-        "paged_verify" + suffix: n_layers * (delta["verify"] + delta["chunks"]),
+        "paged_verify" + suffix + "_mma": n_layers * (delta["verify"] + delta["chunks"]),
         "fused_sample": decode_steps + n_single + n_chunked,
     }
 
@@ -1954,7 +2079,8 @@ def profile_train_step(step_fn, batch, step_ms, card):
 
 
 # dynamic shared memory of the tensor-core kernels' configurations (the
-# sources' MmaCfg): name fragment of the ptxas entry -> bytes per block
+# sources' MmaCfg): name fragment of the ptxas entry -> bytes per block, or
+# (bytes, threads) where a block is not 128 threads
 MMA_SMEM = {
     "quant_matmul_mma_kernel<128": 4 * (128 * 128 + 64 * 128),
     "quant_matmul_mma_kernel<64": 4 * (64 * 128 + 64 * 128),
@@ -1969,6 +2095,18 @@ MMA_SMEM = {
     "flash_bwd_dq_mma_kernel<64": 2 * 64 * 128 + 2 * (2 * 64 * 128 + 256),
     "flash_bwd_dkv_mma_kernel<128": 2 * 64 * 256 + 2 * (2 * 64 * 256 + 3 * 64 * 4),
     "flash_bwd_dkv_mma_kernel<64": 2 * 64 * 128 + 2 * (2 * 64 * 128 + 3 * 64 * 4),
+    # paged_verify.cu's VCfg<D, warps, keys, int8> (Q, two stages of K, V
+    # and, for an int8 pool, the raw int8 K, V and their scales), with its
+    # threads; fused_sample.cu's two f32 slices of 8,016 (V = 128,256)
+    "paged_verify_mma_kernel<128,2,32,0": (32 * 256 + 2 * (2 * 32 * 256), 64),
+    "paged_verify_mma_kernel<128,2,32,1": (32 * 256 + 2 * (2 * 32 * 256 + 2 * 32 * 128 + 256), 64),
+    "paged_verify_mma_kernel<128,4,64,0": (64 * 256 + 2 * (2 * 64 * 256), 128),
+    "paged_verify_mma_kernel<128,4,64,1": (64 * 256 + 2 * (2 * 64 * 256 + 2 * 64 * 128 + 512), 128),
+    "paged_verify_mma_kernel<64,2,32,0": (32 * 128 + 2 * (2 * 32 * 128), 64),
+    "paged_verify_mma_kernel<64,2,32,1": (32 * 128 + 2 * (2 * 32 * 128 + 2 * 32 * 64 + 256), 64),
+    "paged_verify_mma_kernel<64,4,64,0": (64 * 128 + 2 * (2 * 64 * 128), 128),
+    "paged_verify_mma_kernel<64,4,64,1": (64 * 128 + 2 * (2 * 64 * 128 + 2 * 64 * 64 + 512), 128),
+    "fused_sample_kernel": (2 * 8016 * 4, 256),
 }
 
 
@@ -2005,7 +2143,9 @@ def ptxas_report(text):
             entry = f"{name} {regs} regs {spill}" + (f" smem {smem.group(1)} B" if smem else "")
             dyn = next((v for k, v in MMA_SMEM.items() if name.startswith(k)), None)
             if dyn is not None:
-                per_sm = min(65536 // (regs * 128), 233472 // (dyn + 1024))
+                dyn, threads = dyn if isinstance(dyn, tuple) else (dyn, 128)
+                static = int(smem.group(1)) if smem else 0
+                per_sm = min(65536 // (regs * threads), 233472 // (dyn + static + 1024))
                 entry += f" dynamic smem {dyn} B, {per_sm} blocks/SM"
             entries.append(entry)
             name = None
@@ -2050,6 +2190,14 @@ KERNEL_META = {
         replaces="accelerate_tpu/ops/paged_decode.py:222",
     ),
     "paged_verify_int8": dict(
+        route="cuda", source="accelerate_tpu_torch/csrc/paged_verify.cu",
+        replaces="accelerate_tpu/ops/paged_decode.py:222",
+    ),
+    "paged_verify_mma": dict(
+        route="cuda", source="accelerate_tpu_torch/csrc/paged_verify.cu",
+        replaces="accelerate_tpu/ops/paged_decode.py:222",
+    ),
+    "paged_verify_int8_mma": dict(
         route="cuda", source="accelerate_tpu_torch/csrc/paged_verify.cu",
         replaces="accelerate_tpu/ops/paged_decode.py:222",
     ),

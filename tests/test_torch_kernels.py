@@ -1,6 +1,7 @@
-"""The port's kernel variants: the routing that picks B1's, B2/B3's and
-B7's variant (pure Python, on the CPU), the kernel registry, and every
-variant against its plain version on the card (``cuda``-marked).
+"""The port's kernel variants: the routing that picks B1's, B2/B3's, B5's
+and B7's variant and B5's and B6's launch plans (pure Python, on the CPU),
+the kernel registry, and every variant against its plain version on the
+card (``cuda``-marked), B4, B5 and B6 among them.
 
 This file imports no JAX, so its ``cuda``-marked tests also run on a GPU
 machine that has none, without the suite's conftest (which imports JAX):
@@ -20,6 +21,13 @@ Tolerances on the card (kernel against plain version on the same inputs):
   outputs that cancel to near zero; f32 1e-4 of the largest output, also
   for the f32 output of a bf16 x (the LM head's logits). bf16 x int8
   products are exact in f32, so only the f32 summation order differs.
+* B4 and B5: bf16 q 2e-2 (outputs of order 1: p rounded to bf16 before
+  P.V, for an int8 pool too in B5's tensor-core variant, where the plain
+  version keeps f32), f32 q 1e-4 (f32 throughout, only the summation
+  order differs); the tensor-core B5 twice on the same inputs is bitwise
+  equal (its split partials combine in a fixed order).
+* B6: token ids exactly equal to the plain version's, and to a second
+  launch's.
 """
 
 import ast
@@ -28,6 +36,7 @@ import math
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -41,6 +50,19 @@ from accelerate_tpu_torch.ops.flash_attention import (
     flash_fwd_kernel_for,
 )
 from accelerate_tpu_torch.ops._build import FILL_BLOCKS, SMS
+from accelerate_tpu_torch.ops.attention import paged_attention
+from accelerate_tpu_torch.ops.paged_decode import (
+    SAMPLE_CLUSTER,
+    SAMPLE_SMEM_LIMIT,
+    fused_sample,
+    fused_sample_plan,
+    fused_sample_reference,
+    paged_flash_decode,
+    paged_flash_verify,
+    paged_flash_verify_reference,
+    verify_kernel_for,
+    verify_plan,
+)
 from accelerate_tpu_torch.ops.quant_matmul import (
     MMA_BK,
     MMA_BN,
@@ -162,6 +184,115 @@ def test_quantized_matmul_f32_output_is_the_unrounded_sum(dtype):
     torch.testing.assert_close(f32.double(), ref, atol=1e-5 * ref.abs().max().item(), rtol=0)
     with pytest.raises(TypeError, match="float32"):
         quantized_matmul(x, q, scales, out_dtype=torch.float64)
+
+
+@pytest.mark.parametrize("q_dtype,pool_dtype,kernel", [
+    (torch.bfloat16, torch.bfloat16, "paged_verify_mma"),
+    (torch.bfloat16, torch.int8, "paged_verify_int8_mma"),
+    (torch.float32, torch.float32, "paged_verify"),
+    (torch.float32, torch.int8, "paged_verify_int8"),
+])
+def test_verify_variant_by_q_and_pool_dtype(q_dtype, pool_dtype, kernel):
+    assert verify_kernel_for(q_dtype, pool_dtype) == kernel
+    assert kernel in _build.KERNELS
+
+
+@pytest.mark.parametrize("q_dtype,pool_dtype", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.float16, torch.float16), (torch.float16, torch.int8),
+])
+def test_verify_variant_refuses_other_dtype_pairs(q_dtype, pool_dtype):
+    with pytest.raises(TypeError):
+        verify_kernel_for(q_dtype, pool_dtype)
+
+
+# the engine's two verify shapes at Llama-3-8B (H = 32, Hkv = 8, 2,048
+# positions a row): speculative verify (8 slots, W = 5) and a 512-token chunk
+def test_verify_plan_splits_the_spec_shape_to_fill_the_card():
+    plan = verify_plan(8, 5, 32, 8, 2048)
+    assert (plan.block_rows, plan.key_tile, plan.row_tiles) == (32, 32, 1)
+    assert plan.splits > 1
+    assert 8 * 8 * plan.row_tiles * plan.splits >= FILL_BLOCKS
+    # one head per kv head (n_rep = 1) fills it the same way
+    mha = verify_plan(8, 5, 8, 8, 2048)
+    assert 8 * 8 * mha.row_tiles * mha.splits >= FILL_BLOCKS
+
+
+def test_verify_plan_does_not_split_the_chunk_shape():
+    plan = verify_plan(1, 512, 32, 8, 2048)
+    assert (plan.block_rows, plan.key_tile, plan.row_tiles, plan.splits) == (64, 64, 32, 1)
+    assert 8 * plan.row_tiles >= SMS
+
+
+@pytest.mark.parametrize("max_hist,splits", [(16, 1), (40, 2), (64, 2), (2048, 5)])
+def test_verify_plan_never_splits_below_one_key_tile(max_hist, splits):
+    assert verify_plan(8, 5, 32, 8, max_hist).splits == splits
+
+
+def test_split_plans_fit_the_per_device_tickets():
+    # the wrapper keeps SMS int32 tickets per device, one per split group
+    for b in (1, 2, 4, 8, 16, 32):
+        for w in (1, 5, 8, 16, 70, 512):
+            for h, h_kv in ((32, 8), (8, 8), (32, 4), (16, 2)):
+                plan = verify_plan(b, w, h, h_kv, 2048)
+                if plan.splits > 1:
+                    assert b * h_kv * plan.row_tiles < SMS
+
+
+@pytest.mark.parametrize("v", [64, 32000, 128256, 152064])
+def test_sample_plan_covers_the_row_and_fits_shared_memory(v):
+    plan = fused_sample_plan(v)
+    assert plan.cluster == 16 and plan.cluster * plan.chunk >= v > (plan.cluster - 1) * plan.chunk
+    assert plan.smem_bytes == 8 * plan.chunk <= SAMPLE_SMEM_LIMIT < 232448
+    if v == 128256:  # Llama-3's vocabulary: 8,016 logits a block, 64 KB
+        assert (plan.chunk, plan.smem_bytes) == (8016, 64128)
+
+
+def test_sample_plan_refuses_a_row_that_does_not_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_sample_plan(16 * SAMPLE_SMEM_LIMIT // 8 + 16)
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+# name -> (logits shape, top_k dtype, exception, message): what the B6
+# wrapper refuses
+SAMPLE_REFUSALS = {
+    "top_k_int64": ((4, 64), torch.int64, TypeError, "int32"),
+    "vocab_too_large": ((4, 500000), torch.int32, ValueError, "shared memory"),
+    "not_cuda": ((4, 64), torch.int32, ValueError, "CUDA"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SAMPLE_REFUSALS))
+def test_sample_wrapper_refuses_instead_of_falling_back(case):
+    shape, k_dtype, exc, message = SAMPLE_REFUSALS[case]
+    s = shape[0]
+    with pytest.raises(exc, match=message):
+        fused_sample(_meta(*shape), _meta(*shape), _meta(s), _meta(s, dtype=k_dtype), _meta(s))
+
+
+# name -> (q dtype, pool dtype, exception): pairs no verify kernel takes
+VERIFY_DTYPE_REFUSALS = {
+    "bf16_q_f32_pool": (torch.bfloat16, torch.float32, TypeError),
+    "f32_q_bf16_pool": (torch.float32, torch.bfloat16, TypeError),
+    "f16_q": (torch.float16, torch.float16, TypeError),
+    "bf16_not_cuda": (torch.bfloat16, torch.bfloat16, ValueError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(VERIFY_DTYPE_REFUSALS))
+def test_verify_wrapper_refuses_other_dtypes(case):
+    q_dtype, pool_dtype, exc = VERIFY_DTYPE_REFUSALS[case]
+    q = _meta(2, 5, 8, 64, dtype=q_dtype)
+    pool = _meta(5, 4, 2, 64, dtype=pool_dtype)
+    win = _meta(2, 5, 2, 64, dtype=q_dtype)
+    tables = torch.zeros((2, 3), dtype=torch.int32, device="meta")
+    pos = torch.zeros((2,), dtype=torch.int32, device="meta")
+    with pytest.raises(exc):
+        paged_flash_verify(q, pool, pool, win, win, tables, pos)
 
 
 # ------------------------------------------------------------ registry
@@ -346,3 +477,196 @@ def test_kernel_f32_output_matches_plain_on_card(cuda_device, m):
     assert _build.launch_counts()[kernel] == before + 1
     assert out.dtype == torch.float32 and out.shape == (m, n)
     assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+# ------------------------------------------------- B4, B5 and B6 on the card
+def _card_pools(gen, dev, nb, bs, h_kv, d, dtype):
+    if dtype == torch.int8:
+        kq = torch.randint(-127, 128, (nb, bs, h_kv, d), generator=gen, device=dev, dtype=torch.int8)
+        vq = torch.randint(-127, 128, (nb, bs, h_kv, d), generator=gen, device=dev, dtype=torch.int8)
+        ks = torch.rand((nb, bs), generator=gen, device=dev) * 0.02
+        vs = torch.rand((nb, bs), generator=gen, device=dev) * 0.02
+        return kq, vq, dict(k_scale=ks, v_scale=vs)
+    kp = torch.randn((nb, bs, h_kv, d), generator=gen, device=dev).to(dtype)
+    vp = torch.randn((nb, bs, h_kv, d), generator=gen, device=dev).to(dtype)
+    return kp, vp, {}
+
+
+# bf16 q is held per output row (slot, query, head) as well: its largest
+# error within 2^-6 of the row's largest |reference|, 2 to 4 bf16 ulps of
+# it (kernel and plain version each round p and the output to bf16: one
+# ulp apart reads up to 2^-7, and the sound maximum measured on an H100
+# was 8.3e-3). Small outputs deep in history are held to their own row's
+# scale, not to the absolute 2e-2 alone.
+VERIFY_ROW_RTOL = 2.0 ** -6
+
+
+def _verify_row_rel_err(out, ref, valid):
+    """Largest over the compared rows of max |out - ref| / max |ref|, both
+    over a row's D outputs; ``valid`` (B, W) marks the compared rows."""
+    diff = (out.float() - ref.float()).abs().amax(-1)
+    return (diff / ref.float().abs().amax(-1))[valid].max().item()
+
+
+# (pool dtype, q dtype, tolerance): the tensor-core pair, then the FMA pair
+VERIFY_CARD_DTYPES = {
+    "bf16_mma": (torch.bfloat16, torch.bfloat16, 2e-2),
+    "int8_bf16q_mma": (torch.int8, torch.bfloat16, 2e-2),
+    "f32_fma": (torch.float32, torch.float32, 1e-4),
+    "int8_f32q_fma": (torch.int8, torch.float32, 1e-4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", sorted(VERIFY_CARD_DTYPES))
+@pytest.mark.parametrize("w,n_rep,d,softcap", [
+    (1, 4, 128, None), (1, 1, 64, 30.0), (5, 4, 128, None), (5, 4, 128, 30.0), (5, 1, 128, None),
+    (70, 4, 128, 30.0), (70, 1, 128, None), (512, 4, 128, None), (512, 1, 64, 30.0),
+])
+def test_verify_kernels_match_plain_on_card(cuda_device, dtypes, w, n_rep, d, softcap):
+    # 4 slots of 768 positions: a fresh slot (pos 0), one mid-row, one whose
+    # window overhangs the table (only its rows inside the row are
+    # compared: the engine discards the rest) and a ghost slot (all-null
+    # row, reads block 0); W = 1 and 5 take the split history, W = 70 at
+    # n_rep 1 the split with 64-row tiles, W = 512 no split
+    pool_dtype, q_dtype, tol = VERIFY_CARD_DTYPES[dtypes]
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(w * 10 + n_rep)
+    slots, h_kv, bs, bpr = 4, 8, 16, 48
+    h = h_kv * n_rep
+    nb = slots * bpr + 1
+    tables = (torch.randperm(nb - 1, generator=gen, device=dev)[: slots * bpr] + 1)
+    tables = tables.reshape(slots, bpr).to(torch.int32)
+    tables[3] = 0
+    pos = torch.tensor([0, 17, bpr * bs - 3, 200], dtype=torch.int32, device=dev)
+    kp, vp, scales = _card_pools(gen, dev, nb, bs, h_kv, d, pool_dtype)
+    q = torch.randn((slots, w, h, d), generator=gen, device=dev).to(q_dtype)
+    wk, wv = (torch.randn((slots, w, h_kv, d), generator=gen, device=dev).to(q_dtype)
+              for _ in range(2))
+    args = (q, kp, vp, wk, wv, tables, pos)
+    name = verify_kernel_for(q_dtype, pool_dtype)
+    before = _build.launch_counts()[name]
+    out = paged_flash_verify(*args, softcap=softcap, **scales)
+    out2 = paged_flash_verify(*args, softcap=softcap, **scales)
+    ref = paged_flash_verify_reference(*args, softcap=softcap, **scales)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[name] == before + 2
+    assert torch.equal(out, out2)
+    valid = (pos[:, None] + torch.arange(w, device=dev)[None, :]) < bpr * bs
+    assert out.dtype == q_dtype and out.shape == q.shape
+    assert (out.float() - ref.float())[valid].abs().max().item() <= tol
+    if q_dtype == torch.bfloat16:
+        assert _verify_row_rel_err(out, ref, valid) <= VERIFY_ROW_RTOL
+
+
+@pytest.mark.cuda
+def test_paged_decode_kernel_matches_plain_on_card(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    slots, h, h_kv, d, bs, bpr = 6, 32, 8, 128, 16, 8
+    nb = slots * bpr + 1
+    pos = torch.tensor([0, 15, 16, 77, bpr * bs - 1, 40], dtype=torch.int32, device=cuda_device)
+    tables = (torch.randperm(nb - 1, generator=gen, device=cuda_device)[: slots * bpr] + 1)
+    tables = tables.reshape(slots, bpr).to(torch.int32)
+    tables[5] = 0  # vacant slot: all-null row with a stale pos
+    # (pool, q, tolerance): the float pools, then the int8 pool (B4-int8)
+    # with f32 q and with bf16 q (the main path's form)
+    for pool_dtype, dtype, tol in ((torch.float32, torch.float32, 1e-4),
+                                   (torch.bfloat16, torch.bfloat16, 2e-2),
+                                   (torch.int8, torch.float32, 1e-4),
+                                   (torch.int8, torch.bfloat16, 2e-2)):
+        q = torch.randn((slots, 1, h, d), generator=gen, device=cuda_device).to(dtype)
+        kp, vp, scales = _card_pools(gen, cuda_device, nb, bs, h_kv, d, pool_dtype)
+        name = "paged_decode_int8" if scales else "paged_decode"
+        before = _build.launch_counts()[name]
+        out = paged_flash_decode(q, kp, vp, tables, pos, softcap=50.0, **scales)
+        ref = paged_attention(q, kp, vp, tables, pos, softcap=50.0, **scales)
+        torch.cuda.synchronize()
+        assert _build.launch_counts()[name] == before + 1
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def _sample_inputs(seed, s, v, ties):
+    """Seeded (numpy) logits, Gumbel noise and per-row settings: greedy,
+    top-k only, top-p only, both, cycling; ``ties`` rounds the logits so
+    many values repeat (first-index and Z-over-k_eff rules)."""
+    rng = np.random.default_rng(seed)
+    logits = (rng.normal(size=(s, v)) * 3).astype(np.float32)
+    if ties:
+        logits[::2] = np.round(logits[::2])
+        logits[1::2] = np.round(logits[1::2] * 2) / 2
+    noise = rng.gumbel(size=(s, v)).astype(np.float32)
+    kind = np.arange(s) % 4
+    temp = np.where(kind == 0, 0.0, 0.3 + 1.2 * rng.random(s)).astype(np.float32)
+    top_k = np.where(kind % 2 == 1, 1 + rng.integers(0, 200, s), 0).astype(np.int32)
+    top_p = np.where(kind >= 2, 0.5 + 0.5 * rng.random(s), 1.0).astype(np.float32)
+    # rows 6 and 7 of every 8: top_p = 0 (p * Z = 0 keeps every token), the
+    # first without top-k, the second with it
+    top_p[np.arange(s) % 8 >= 6] = 0.0
+    return logits, noise, temp, top_k, top_p
+
+
+@pytest.mark.cuda
+def test_fused_sample_kernel_bitwise_on_card(cuda_device):
+    args = [torch.from_numpy(x).to(cuda_device) for x in _sample_inputs(3, 8, 64, ties=True)]
+    assert torch.equal(fused_sample(*args), fused_sample_reference(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 8, 512])
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("v", [128256, 152064])
+def test_fused_sample_kernel_matches_plain_at_serving_vocabs_on_card(cuda_device, s, ties, v):
+    # Llama-3's vocabulary (8,016 logits a block: two-limb mass histograms)
+    # and Qwen2's (9,504: three limbs)
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in _sample_inputs(s, s, v, ties)]
+    if s == 1:
+        args[2].fill_(0.9)  # a first token, sampled with top-k and top-p
+        args[3].fill_(50)
+        args[4].fill_(0.9)
+    before = _build.launch_counts()["fused_sample"]
+    out = fused_sample(*args)
+    out2 = fused_sample(*args)
+    ref = fused_sample_reference(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["fused_sample"] == before + 2
+    assert out.dtype == torch.int32 and out.shape == (s,)
+    assert torch.equal(out, out2)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_k", [0, 50])
+@pytest.mark.parametrize("top_p", [0.0, -0.5])
+def test_fused_sample_keeps_every_token_at_top_p_zero_on_card(cuda_device, top_k, top_p):
+    # p * Z <= 0: the top-p cutoff keeps every token, so the draw is the one
+    # with top-p off, on the kernel and its plain version alike
+    logits, noise, temp, _, _ = _sample_inputs(11, 8, 128256, ties=True)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (logits, noise, temp)]
+    args[2].fill_(0.8)
+    k = torch.full((8,), top_k, dtype=torch.int32, device=cuda_device)
+    out = fused_sample(*args, k, torch.full((8,), top_p, device=cuda_device))
+    off = fused_sample(*args, k, torch.ones(8, device=cuda_device))
+    ref = fused_sample_reference(*args, k, torch.full((8,), top_p, device=cuda_device))
+    assert torch.equal(out, ref)
+    assert torch.equal(out, off)
+
+
+@pytest.mark.cuda
+def test_sample_plan_limit_is_the_kernels_on_card(cuda_device):
+    # the host's SAMPLE_SMEM_LIMIT is the kernel's: the largest row the plan
+    # takes launches, and the kernel itself refuses one 16 logits longer
+    v = SAMPLE_SMEM_LIMIT // 8 * SAMPLE_CLUSTER
+    args = [torch.from_numpy(x[:1]).to(cuda_device) for x in _sample_inputs(5, 2, v, ties=False)]
+    args[2].fill_(0.7)
+    args[4].fill_(0.9)
+    assert torch.equal(fused_sample(*args), fused_sample_reference(*args))
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_sample_plan(v + SAMPLE_CLUSTER)
+    wide = torch.zeros((1, v + SAMPLE_CLUSTER), device=cuda_device)
+    out = torch.empty((1,), dtype=torch.int32, device=cuda_device)
+    code = _build.entry("fused_sample", 6, 2, 0)(
+        wide.data_ptr(), wide.data_ptr(), args[2].data_ptr(), args[3].data_ptr(),
+        args[4].data_ptr(), out.data_ptr(), 1, v + SAMPLE_CLUSTER,
+        torch.cuda.current_stream(cuda_device).cuda_stream)
+    assert code != 0

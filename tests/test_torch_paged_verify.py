@@ -42,7 +42,6 @@ from accelerate_tpu_torch.ops.attention import paged_attention, verify_attention
 from accelerate_tpu_torch.ops.paged_decode import (
     paged_flash_decode,
     paged_flash_verify,
-    paged_flash_verify_reference,
 )
 
 NB, BS, BPR, D = 12, 4, 4, 8
@@ -56,13 +55,6 @@ def _t(x):
 
 def _np(x):
     return np.asarray(x.detach().cpu()) if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    return torch.device("cuda", 0)
 
 
 # ------------------------------------------------------------------ int8 ops
@@ -426,44 +418,3 @@ def test_verify_wrapper_refuses_instead_of_falling_back(case):
     scales = {f"{w}_scale": _meta(5, 4, dtype=torch.float32) for w in opts.get("scales", ())}
     with pytest.raises(exc):
         paged_flash_verify(q, pool, pool, win, win, tables, pos, **scales)
-
-
-# ------------------------------------------------------------------ on card
-def _card_pools(gen, dev, nb, bs, h_kv, d, dtype):
-    if dtype == torch.int8:
-        kq = torch.randint(-127, 128, (nb, bs, h_kv, d), generator=gen, device=dev, dtype=torch.int8)
-        vq = torch.randint(-127, 128, (nb, bs, h_kv, d), generator=gen, device=dev, dtype=torch.int8)
-        ks = torch.rand((nb, bs), generator=gen, device=dev) * 0.02
-        vs = torch.rand((nb, bs), generator=gen, device=dev) * 0.02
-        return kq, vq, dict(k_scale=ks, v_scale=vs)
-    kp = torch.randn((nb, bs, h_kv, d), generator=gen, device=dev).to(dtype)
-    vp = torch.randn((nb, bs, h_kv, d), generator=gen, device=dev).to(dtype)
-    return kp, vp, {}
-
-
-@pytest.mark.cuda
-def test_verify_and_int8_decode_kernels_match_plain_on_card(cuda_device):
-    dev = cuda_device
-    gen = torch.Generator(device=dev).manual_seed(0)
-    slots, h, h_kv, d, bs, bpr = 4, 32, 8, 128, 16, 8
-    nb = slots * bpr + 1
-    tables = (torch.randperm(nb - 1, generator=gen, device=dev)[: slots * bpr] + 1)
-    tables = tables.reshape(slots, bpr).to(torch.int32)
-    tables[3] = 0  # a ghost slot: all-null row
-    pos = torch.tensor([0, 17, bpr * bs - 3, 40], dtype=torch.int32, device=dev)
-    for pool_dtype, q_dtype, tol in ((torch.float32, torch.float32, 1e-4),
-                                     (torch.bfloat16, torch.bfloat16, 2e-2),
-                                     (torch.int8, torch.float32, 1e-4)):
-        kp, vp, scales = _card_pools(gen, dev, nb, bs, h_kv, d, pool_dtype)
-        for w in (5, 70):
-            q = torch.randn((slots, w, h, d), generator=gen, device=dev).to(q_dtype)
-            wk = torch.randn((slots, w, h_kv, d), generator=gen, device=dev).to(q_dtype)
-            wv = torch.randn((slots, w, h_kv, d), generator=gen, device=dev).to(q_dtype)
-            out = paged_flash_verify(q, kp, vp, wk, wv, tables, pos, softcap=50.0, **scales)
-            ref = paged_flash_verify_reference(q, kp, vp, wk, wv, tables, pos, softcap=50.0, **scales)
-            assert (out.float() - ref.float()).abs().max().item() <= tol
-        if scales:
-            q1 = torch.randn((slots, 1, h, d), generator=gen, device=dev)
-            out = paged_flash_decode(q1, kp, vp, tables, pos, **scales)
-            ref = paged_attention(q1, kp, vp, tables, pos, **scales)
-            assert (out.float() - ref.float()).abs().max().item() <= tol
