@@ -52,7 +52,7 @@
 //   the wrapper allocates; the last block of the group to finish (an int32
 //   ticket the wrapper keeps per device, reset by that block) combines the
 //   partials in split order, so the call stays one launch and a second
-//   launch gives the same bits. Only tiles that cross the end of the
+//   launch gives the same bits (split_kv.cuh, shared with paged_decode.cu). Only tiles that cross the end of the
 //   history, and the window's tiles, pay for masks; softcap is a template
 //   switch.
 // * paged_verify (f32 q, or f32 q with an int8 pool: paged_verify_int8),
@@ -86,6 +86,7 @@
 
 #include "kv_pool.cuh"
 #include "mma.cuh"
+#include "split_kv.cuh"
 
 namespace {
 
@@ -335,7 +336,8 @@ int dispatch(const void* q, const void* kp, const void* vp, const void* ks, cons
 
 // ------------------------------------------------------ tensor-core variant
 using bf16 = __nv_bfloat16;
-constexpr float kLog2e = 1.4426950408889634f;
+using splitkv::kLog2e;
+using splitkv::swz;
 
 // RW warps of 16 query rows each, BK keys a tile; I8: an int8 pool with
 // per-position scales (the window stays bf16). Each stage holds the bf16 K
@@ -351,15 +353,8 @@ struct VCfg {
   static constexpr int STAGE = 2 * TILE + 2 * RAW + (I8 ? 2 * BK * 4 : 0);
   static constexpr int Q_BYTES = BQ * ROW;
   static constexpr int SMEM = Q_BYTES + 2 * STAGE;
-  static constexpr int PART = BQ * (D + 2);    // floats of one split's partial
+  static constexpr int PART = splitkv::part_floats(BQ, D);  // floats of one split's partial
 };
-
-// chunk ch of row r sits at chunk ch ^ (r % 8) of its row: the 8 rows an
-// ldmatrix phase reads at one logical chunk land in 8 distinct bank groups
-template <int D>
-__device__ __forceinline__ uint32_t vswz(int r, int ch) {
-  return r * (D * 2) + ((ch ^ (r & 7)) << 4);
-}
 
 // Grid: (row tiles * splits, Hkv, B); block x = row tile * splits + split.
 template <int D, int RW, int BK, bool I8, bool CAP>
@@ -394,7 +389,7 @@ __global__ void __launch_bounds__(32 * RW) paged_verify_mma_kernel(
   const int r0 = rt * C::BQ;
   const int p = max(pos[b], 0);
   const int nh = min(p, bpr * bs);  // history keys: positions 0 .. nh-1
-  const int* trow = tables + (long)b * bpr;
+  const splitkv::PoolRows pool_row = splitkv::pool_rows(tables + (long)b * bpr, bs);
   const long kv_stride = (long)Hkv * D;
   const long q_stride = (long)H * D;
 
@@ -408,13 +403,6 @@ __global__ void __launch_bounds__(32 * RW) paged_verify_mma_kernel(
   const int n_tiles = n_hist + n_win;
   const uint32_t sQ = tc::smem_addr(vsmem);
   auto stage_off = [](int stage) { return C::Q_BYTES + stage * C::STAGE; };
-  // pool row of history position kk; a power-of-two block size (the
-  // engine's 16) takes shifts in place of two integer divisions a row
-  const int bs_shift = (bs & (bs - 1)) == 0 ? __ffs(bs) - 1 : -1;
-  auto pool_row = [&](int kk) -> long {
-    if (bs_shift >= 0) return ((long)trow[kk >> bs_shift] << bs_shift) + (kk & (bs - 1));
-    return (long)trow[kk / bs] * bs + kk % bs;
-  };
 
   // tile j of this block into a stage: history rows through the table
   // (16-byte copies of the kv head's row, int8 ones raw with their two
@@ -446,8 +434,8 @@ __global__ void __launch_bounds__(32 * RW) paged_verify_mma_kernel(
           const int r = i / C::CH, ch = i % C::CH, kk = k0 + r;
           const bool ok = kk < nh;
           const long off = ok ? pool_row(kk) * kv_stride + (long)hk * D + ch * 8 : 0;
-          tc::cp_async16(sk + vswz<D>(r, ch), k_pool + off, ok);
-          tc::cp_async16(sv + vswz<D>(r, ch), v_pool + off, ok);
+          tc::cp_async16(sk + swz<D>(r, ch), k_pool + off, ok);
+          tc::cp_async16(sv + swz<D>(r, ch), v_pool + off, ok);
         }
       }
     } else {
@@ -456,8 +444,8 @@ __global__ void __launch_bounds__(32 * RW) paged_verify_mma_kernel(
         const int r = i / C::CH, ch = i % C::CH, kk = k0 + r;
         const bool ok = kk < W;
         const long off = ok ? ((long)b * W + kk) * kv_stride + (long)hk * D + ch * 8 : 0;
-        tc::cp_async16(sk + vswz<D>(r, ch), win_k + off, ok);
-        tc::cp_async16(sv + vswz<D>(r, ch), win_v + off, ok);
+        tc::cp_async16(sk + swz<D>(r, ch), win_k + off, ok);
+        tc::cp_async16(sv + swz<D>(r, ch), win_v + off, ok);
       }
     }
   };
@@ -466,7 +454,7 @@ __global__ void __launch_bounds__(32 * RW) paged_verify_mma_kernel(
     const int r = i / C::CH, ch = i % C::CH, row = r0 + r;
     const bool ok = row < R;
     const long off = ok ? ((long)b * W + row / nrep) * q_stride + (long)(hk * nrep + row % nrep) * D + ch * 8 : 0;
-    tc::cp_async16(sQ + vswz<D>(r, ch), q + off, ok);
+    tc::cp_async16(sQ + swz<D>(r, ch), q + off, ok);
   }
   if (n_tiles > 0) load_tile(0, 0);
   tc::cp_async_commit();
@@ -477,7 +465,7 @@ __global__ void __launch_bounds__(32 * RW) paged_verify_mma_kernel(
   uint32_t qf[D / 16][4];
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    tc::ldmatrix_x4(qf[kk], sQ + vswz<D>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)));
+    tc::ldmatrix_x4(qf[kk], sQ + swz<D>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)));
 
   // this thread's rows: row0 and row0 + 8, query indices qrow[]
   const int row0 = r0 + warp * 16 + g;
@@ -506,20 +494,9 @@ __global__ void __launch_bounds__(32 * RW) paged_verify_mma_kernel(
     if constexpr (I8) {
       scaled = hist;
       if (hist) {
-        // widen the raw int8 tiles to bf16 in the swizzled layout; int8
-        // values are exact in bf16
+        // widen the raw int8 tiles to bf16 in the stage's bf16 tiles
         unsigned char* st = vsmem + stage_off(stage);
-        for (int i = tid; i < 2 * BK * CH8; i += NT) {
-          const int kv = i / (BK * CH8), r = (i / CH8) % BK, ch = i % CH8;
-          const uint4 w = *reinterpret_cast<const uint4*>(st + 2 * C::TILE + kv * C::RAW + r * D + ch * 16);
-          const uint4 lo = make_uint4(tc::s8pair_to_bf16x2<0>(w.x), tc::s8pair_to_bf16x2<1>(w.x),
-                                      tc::s8pair_to_bf16x2<0>(w.y), tc::s8pair_to_bf16x2<1>(w.y));
-          const uint4 hi = make_uint4(tc::s8pair_to_bf16x2<0>(w.z), tc::s8pair_to_bf16x2<1>(w.z),
-                                      tc::s8pair_to_bf16x2<0>(w.w), tc::s8pair_to_bf16x2<1>(w.w));
-          unsigned char* dst = st + kv * C::TILE;
-          *reinterpret_cast<uint4*>(dst + vswz<D>(r, 2 * ch)) = lo;
-          *reinterpret_cast<uint4*>(dst + vswz<D>(r, 2 * ch + 1)) = hi;
-        }
+        splitkv::widen_int8<D, BK, NT>(st + 2 * C::TILE, st);
         __syncthreads();
       }
     }
@@ -537,7 +514,7 @@ __global__ void __launch_bounds__(32 * RW) paged_verify_mma_kernel(
 #pragma unroll
       for (int np = 0; np < NKT / 2; ++np) {
         uint32_t bk[4];
-        tc::ldmatrix_x4(bk, sk + vswz<D>(np * 16 + (lane & 7) + ((lane >> 4) << 3),
+        tc::ldmatrix_x4(bk, sk + swz<D>(np * 16 + (lane & 7) + ((lane >> 4) << 3),
                                          2 * kk + ((lane >> 3) & 1)));
         tc::mma_bf16(sc[2 * np], qf[kk], bk[0], bk[1]);
         tc::mma_bf16(sc[2 * np + 1], qf[kk], bk[2], bk[3]);
@@ -629,7 +606,7 @@ __global__ void __launch_bounds__(32 * RW) paged_verify_mma_kernel(
 #pragma unroll
       for (int dp = 0; dp < NDT / 2; ++dp) {
         uint32_t bv[4];
-        tc::ldmatrix_x4_trans(bv, sv + vswz<D>(kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3),
+        tc::ldmatrix_x4_trans(bv, sv + swz<D>(kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3),
                                                2 * dp + (lane >> 4)));
         tc::mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
         tc::mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);
@@ -672,42 +649,15 @@ __global__ void __launch_bounds__(32 * RW) paged_verify_mma_kernel(
     if (c == 0) *reinterpret_cast<float2*>(part + C::BQ * D + 2 * r) = make_float2(m_r[hr], l_row[hr]);
   }
   // ... and the last of the (slot, kv head, row tile)'s blocks to finish
-  // combines all splits in split order (the same bits whichever is last),
-  // then resets the ticket for the next launch
-  // (the flag lives in Q's tile, dead since Q went to registers: no
-  // static shared memory, so two int8 chunk blocks still share an SM)
-  int* s_last = reinterpret_cast<int*>(vsmem);
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) *s_last = atomicAdd(tickets + tix, 1) == splits - 1;
-  __syncthreads();
-  if (!*s_last) return;
-  __threadfence();
-  const float* parts = work + tix * splits * C::PART;
-  for (int i = tid; i < C::BQ * (D / 4); i += NT) {
-    const int r = i / (D / 4), c4 = i % (D / 4), row = r0 + r;
-    if (row >= R) continue;
-    float M = -INFINITY;
-    for (int s = 0; s < splits; ++s) M = fmaxf(M, __ldcg(parts + s * C::PART + C::BQ * D + 2 * r));
-    float L = 0.f;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int s = 0; s < splits; ++s) {
-      const float* ps = parts + s * C::PART;
-      const float2 ml = __ldcg(reinterpret_cast<const float2*>(ps + C::BQ * D + 2 * r));
-      const float w = tc::exp2_approx((ml.x - M) * kLog2e);
-      const float4 v = __ldcg(reinterpret_cast<const float4*>(ps + r * D) + c4);
-      L += ml.y * w;
-      acc.x += w * v.x;
-      acc.y += w * v.y;
-      acc.z += w * v.z;
-      acc.w += w * v.w;
-    }
-    L = fmaxf(L, 1e-30f);
-    bf16* orow = out + ((long)b * W + row / nrep) * q_stride + (long)(hk * nrep + row % nrep) * D + 4 * c4;
-    *reinterpret_cast<uint2*>(orow) = make_uint2(tc::pack_bf16(acc.x / L, acc.y / L),
-                                                 tc::pack_bf16(acc.z / L, acc.w / L));
-  }
-  if (tid == 0) tickets[tix] = 0;
+  // combines all splits (split_kv.cuh); its flag lives in Q's tile, dead
+  // since Q went to registers: no static shared memory, so two int8 chunk
+  // blocks still share an SM
+  if (!splitkv::last_of_group(tickets + tix, splits, reinterpret_cast<int*>(vsmem))) return;
+  splitkv::combine<D>(work + tix * splits * C::PART, splits, C::BQ, [&](int r) -> bf16* {
+    const int row = r0 + r;
+    if (row >= R) return nullptr;
+    return out + ((long)b * W + row / nrep) * q_stride + (long)(hk * nrep + row % nrep) * D;
+  }, tickets + tix);
 }
 
 template <int D, int RW, int BK, bool I8, bool CAP>

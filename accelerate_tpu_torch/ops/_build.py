@@ -54,6 +54,8 @@ KERNELS = {
     "flash_bwd_dkv_mma": "flash_bwd.cu",
     "paged_decode": "paged_decode.cu",
     "paged_decode_int8": "paged_decode.cu",
+    "paged_decode_mma": "paged_decode.cu",
+    "paged_decode_int8_mma": "paged_decode.cu",
     "paged_verify": "paged_verify.cu",
     "paged_verify_int8": "paged_verify.cu",
     "paged_verify_mma": "paged_verify.cu",

@@ -4,11 +4,14 @@
 * :func:`paged_flash_decode` — one query token per slot over the paged KV
   pool. A CUDA tensor launches ``csrc/paged_decode.cu`` (replacing the
   Pallas ``_decode_kernel``), which walks each slot's block table inside
-  the kernel and never touches the dead tail of the row; a CPU tensor runs
-  the plain version, :func:`~accelerate_tpu_torch.ops.attention
-  .paged_attention`, which gathers the whole table first. An int8 pool
-  with per-position scales launches the same source's ``paged_decode_int8``
-  entry point, counted under that name.
+  the kernel and never touches the dead tail of the row: bf16 q takes the
+  tensor-core variant, ``paged_decode_mma`` or, for an int8 pool with
+  per-position scales, ``paged_decode_int8_mma``; f32 q the FMA variant,
+  ``paged_decode`` or ``paged_decode_int8`` (:func:`decode_kernel_for`).
+  :func:`decode_plan` splits each slot's history over several blocks
+  where the grid would leave SMs idle. A CPU tensor runs the plain
+  version, :func:`~accelerate_tpu_torch.ops.attention.paged_attention`,
+  which gathers the whole table first.
 * :func:`paged_flash_verify` — a W-query window (speculative verify, W =
   draft length + 1, or a chunk of a long prompt) over committed pool
   history plus the window's own K/V, which are not in the pool yet. A CUDA
@@ -37,6 +40,8 @@ from . import _build
 from .attention import _gather_pool, _window_attention, _write_window, paged_attention
 
 __all__ = [
+    "decode_kernel_for",
+    "decode_plan",
     "paged_flash_decode",
     "paged_flash_verify",
     "paged_flash_verify_reference",
@@ -72,9 +77,12 @@ def _check_pools(q, k_pool, v_pool, k_scale, v_scale, block_tables, pos):
     return h // h_kv, quantized
 
 
-def _check_kernel_operands(name, q, k_pool, v_pool, scales, others, n_rep, softcap):
+def _check_kernel_operands(name, kernel, q, k_pool, v_pool, scales, others, n_rep, softcap):
     """What the CUDA kernels take; raises on anything else (never falls
-    back to the plain version). ``others`` ends with the tables and pos."""
+    back to the plain version). ``others`` ends with the tables and pos;
+    a tensor-core ``kernel`` (``*_mma``) copies q, the pools and the
+    operands before the tables in 16-byte pieces, so they must be 16-byte
+    aligned."""
     tensors = (q, k_pool, v_pool, *scales, *others)
     if any(t.device != q.device for t in tensors):
         raise ValueError(f"{name}: all operands must be on one device")
@@ -101,6 +109,9 @@ def _check_kernel_operands(name, q, k_pool, v_pool, scales, others, n_rep, softc
         raise ValueError(f"{name} kernel supports GQA groups of 1, 2, 4 or 8, got {n_rep}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
+    copied = (q, k_pool, v_pool, *others[:-2])
+    if kernel.endswith("_mma") and any(t.data_ptr() % 16 for t in copied):
+        raise ValueError(f"the tensor-core {name} kernel takes 16-byte aligned q, pools and window")
     if q.device.type != "cuda":
         raise ValueError(f"the {name} kernel runs on CUDA tensors; got {q.device}")
 
@@ -133,15 +144,23 @@ def paged_flash_decode(
         return paged_attention(q, k_pool, v_pool, block_tables, pos, k_scale=k_scale,
                                v_scale=v_scale, scale=scale, softcap=softcap).to(q.dtype)
     scales = (k_scale, v_scale) if quantized else ()
-    _check_kernel_operands("paged decode", q, k_pool, v_pool, scales, (block_tables, pos), n_rep, softcap)
+    name = decode_kernel_for(q.dtype, k_pool.dtype)
+    _check_kernel_operands("paged decode", name, q, k_pool, v_pool, scales, (block_tables, pos),
+                           n_rep, softcap)
     out = torch.empty_like(q)
-    bs = k_pool.shape[1]
-    dims = (b, h, k_pool.shape[2], d, bs, block_tables.shape[1], _DTYPE_CODE[q.dtype])
+    h_kv, bs, bpr = k_pool.shape[2], k_pool.shape[1], block_tables.shape[1]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    name = "paged_decode_int8" if quantized else "paged_decode"
-    ptrs = (q, k_pool, v_pool, *scales, block_tables, pos, out)
-    code = _build.entry(name, len(ptrs), 7, 2)(
-        *(t.data_ptr() for t in ptrs), *dims, float(scale), float(softcap or 0.0), stream,
+    if name.endswith("_mma"):
+        plan = decode_plan(b, h, h_kv, bs * bpr)
+        work, tickets = _split_scratch(q.device, b * h_kv, plan.splits, plan.rows, d)
+        ptrs = [q, k_pool, v_pool, *scales, block_tables, pos, out, work, tickets]
+        dims = (b, h, h_kv, d, bs, bpr, plan.key_tile, plan.splits)
+    else:
+        ptrs = [q, k_pool, v_pool, *scales, block_tables, pos, out]
+        dims = (b, h, h_kv, d, bs, bpr, _DTYPE_CODE[q.dtype])
+    code = _build.entry(name, len(ptrs), len(dims), 2)(
+        *(None if t is None else t.data_ptr() for t in ptrs), *dims, float(scale),
+        float(softcap or 0.0), stream,
     )
     _build.check(name, code)
     _build.count_launch(name)
@@ -174,17 +193,64 @@ def paged_flash_verify_reference(
     return _window_attention(q, k, v, pos, scale, softcap).to(q.dtype)
 
 
+def _kernel_for(stem: str, q_dtype: torch.dtype, pool_dtype: torch.dtype) -> str:
+    """bf16 q on the tensor cores (``*_mma``), f32 q on the FMA kernels
+    (f32 inputs keep f32 products); an int8 pool takes the ``*_int8*``
+    entry point. Raises ``TypeError`` for any other pair."""
+    int8 = "_int8" if pool_dtype == torch.int8 else ""
+    if q_dtype == torch.bfloat16 and pool_dtype in (torch.bfloat16, torch.int8):
+        return f"{stem}{int8}_mma"
+    if q_dtype == torch.float32 and pool_dtype in (torch.float32, torch.int8):
+        return f"{stem}{int8}"
+    raise TypeError(f"the {stem.replace('_', ' ')} kernels take f32 or bf16 q over a pool of q's "
+                    f"dtype or int8, got q {q_dtype} and pool {pool_dtype}")
+
+
+def decode_kernel_for(q_dtype: torch.dtype, pool_dtype: torch.dtype) -> str:
+    """The decode kernel that serves ``q_dtype`` over a pool of
+    ``pool_dtype``: ``paged_decode_mma`` / ``paged_decode_int8_mma`` (bf16
+    q), ``paged_decode`` / ``paged_decode_int8`` (f32 q)."""
+    return _kernel_for("paged_decode", q_dtype, pool_dtype)
+
+
 def verify_kernel_for(q_dtype: torch.dtype, pool_dtype: torch.dtype) -> str:
     """The verify kernel that serves ``q_dtype`` over a pool of
-    ``pool_dtype``: bf16 q on the tensor cores (``*_mma``), f32 q on the
-    FMA kernels (f32 inputs keep f32 products); an int8 pool takes the
-    ``*_int8*`` entry point. Raises ``TypeError`` for any other pair."""
-    if q_dtype == torch.bfloat16 and pool_dtype in (torch.bfloat16, torch.int8):
-        return "paged_verify_int8_mma" if pool_dtype == torch.int8 else "paged_verify_mma"
-    if q_dtype == torch.float32 and pool_dtype in (torch.float32, torch.int8):
-        return "paged_verify_int8" if pool_dtype == torch.int8 else "paged_verify"
-    raise TypeError(f"the verify kernels take f32 or bf16 q over a pool of q's dtype or int8, "
-                    f"got q {q_dtype} and pool {pool_dtype}")
+    ``pool_dtype``: ``paged_verify_mma`` / ``paged_verify_int8_mma`` (bf16
+    q), ``paged_verify`` / ``paged_verify_int8`` (f32 q)."""
+    return _kernel_for("paged_verify", q_dtype, pool_dtype)
+
+
+def _splits(groups: int, max_hist: int, key_tile: int) -> int:
+    """History splits per group of a split launch: where ``groups`` blocks
+    fall short of the SMs, enough to reach ``FILL_BLOCKS``, never into
+    ranges of less than one key tile of the ``max_hist`` positions a row
+    can hold. It depends on shapes only, so a CUDA graph can capture the
+    launch; each block finds its own share of its row's live range on the
+    device."""
+    if groups >= _build.SMS:
+        return 1
+    return max(1, min(-(-_build.FILL_BLOCKS // groups), -(-max_hist // key_tile)))
+
+
+class DecodePlan(NamedTuple):
+    """Launch shape of the tensor-core decode kernel: query rows per
+    (slot, kv head) group (its n_rep), keys per tile, history splits."""
+
+    rows: int
+    key_tile: int
+    splits: int
+
+
+# keys per tile of the tensor-core decode kernel: its 4 warps take 16 each
+# (csrc/paged_decode.cu DCfg; the kernel refuses any other)
+DECODE_KEY_TILE = 64
+
+
+def decode_plan(b: int, h: int, h_kv: int, max_hist: int) -> DecodePlan:
+    """One block per (slot, kv head) group and history split: 8 slots x 8
+    kv heads (64 groups) take 5 splits, 320 blocks; a grid of ``SMS``
+    groups or more is not split."""
+    return DecodePlan(h // h_kv, DECODE_KEY_TILE, _splits(b * h_kv, max_hist, DECODE_KEY_TILE))
 
 
 class VerifyPlan(NamedTuple):
@@ -201,35 +267,40 @@ def verify_plan(b: int, w: int, h: int, h_kv: int, max_hist: int) -> VerifyPlan:
     """Rows: R = n_rep * W per (slot, kv head); R <= 32 (the spec shape, 20)
     takes 32-row blocks with 32-key tiles, larger R 64-row blocks with
     64-key tiles (this is the one place that pairs them: the kernel takes
-    both and refuses a pair it was not built for). Split: where the B * Hkv * row-tile blocks fall short of
-    the SMs, each block's history (at most ``max_hist`` = the table's
-    positions) is cut over enough blocks to reach ``FILL_BLOCKS``, never
-    into ranges of less than one key tile; the chunk shape (2,048 rows, 256
+    both and refuses a pair it was not built for). Split (:func:`_splits`)
+    over the B * Hkv * row-tile groups; the chunk shape (2,048 rows, 256
     blocks) is not split."""
     rows = w * (h // h_kv)
     block_rows, key_tile = (32, 32) if rows <= 32 else (64, 64)
     row_tiles = -(-rows // block_rows)
-    blocks = b * h_kv * row_tiles
-    splits = 1
-    if blocks < _build.SMS:
-        splits = max(1, min(-(-_build.FILL_BLOCKS // blocks), -(-max_hist // key_tile)))
+    splits = _splits(b * h_kv * row_tiles, max_hist, key_tile)
     return VerifyPlan(block_rows, key_tile, row_tiles, splits)
 
 
-# per device: the int32 tickets of the split verify's last-block combine,
-# one per (slot, kv head, row tile), all zero between launches (the last
-# block of each group resets its own). verify_plan splits only grids of
-# fewer than SMS groups, so SMS tickets always suffice and the tensor is
-# never replaced (a captured CUDA graph keeps using it). Launches on one
-# device share them, so they run on one stream at a time.
+# per device: the int32 tickets of the split launches' last-block combine
+# (decode and verify), one per group, all zero between launches (the last
+# block of each group resets its own). A plan splits only grids of fewer
+# than SMS groups, so SMS tickets always suffice and the tensor is never
+# replaced (a captured CUDA graph keeps using it). Decode and verify share
+# it: launches on one stream run one after another, each launch's last
+# blocks reset their tickets before it ends, and the next launch starts
+# only then. So launches that use it run on one stream at a time.
 _tickets: Dict[torch.device, torch.Tensor] = {}
 
 
-def _verify_tickets(device: torch.device) -> torch.Tensor:
-    t = _tickets.get(device)
-    if t is None:
-        t = _tickets[device] = torch.zeros(_build.SMS, dtype=torch.int32, device=device)
-    return t
+def _split_scratch(device: torch.device, groups: int, splits: int, rows: int, d: int):
+    """(work, tickets) of a split launch: f32 partials, ``rows`` x (D + 2)
+    a group and split padded to a multiple of 4 (16-byte aligned, as
+    ``csrc/split_kv.cuh``'s ``part_floats``), and the device's tickets;
+    (None, None) unsplit."""
+    if splits == 1:
+        return None, None
+    tickets = _tickets.get(device)
+    if tickets is None:
+        tickets = _tickets[device] = torch.zeros(_build.SMS, dtype=torch.int32, device=device)
+    part = -(-rows * (d + 2) // 4) * 4
+    work = torch.empty(groups * splits * part, dtype=torch.float32, device=device)
+    return work, tickets
 
 
 def paged_flash_verify(
@@ -268,34 +339,25 @@ def paged_flash_verify(
         raise TypeError(f"paged verify kernel takes the window K/V in q's dtype {q.dtype}, "
                         f"got {win_k.dtype}, {win_v.dtype}")
     scales = (k_scale, v_scale) if quantized else ()
-    _check_kernel_operands("paged verify", q, k_pool, v_pool, scales,
-                           (win_k, win_v, block_tables, pos), n_rep, softcap)
     name = verify_kernel_for(q.dtype, k_pool.dtype)
+    _check_kernel_operands("paged verify", name, q, k_pool, v_pool, scales,
+                           (win_k, win_v, block_tables, pos), n_rep, softcap)
     out = torch.empty_like(q)
     h_kv, bs, bpr = k_pool.shape[2], k_pool.shape[1], block_tables.shape[1]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if not name.endswith("_mma"):
-        dims = (b, w, h, h_kv, d, bs, bpr, _DTYPE_CODE[q.dtype])
-        ptrs = (q, k_pool, v_pool, *scales, win_k, win_v, block_tables, pos, out)
-        code = _build.entry(name, len(ptrs), 8, 2)(
-            *(t.data_ptr() for t in ptrs), *dims, float(scale), float(softcap or 0.0), stream,
-        )
-    else:
-        if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool, win_k, win_v)):
-            raise ValueError("the tensor-core verify kernel takes 16-byte aligned q, pools and window")
+    if name.endswith("_mma"):
         plan = verify_plan(b, w, h, h_kv, bs * bpr)
-        work = tickets = None
-        if plan.splits > 1:
-            groups = b * h_kv * plan.row_tiles
-            work = torch.empty(groups * plan.splits * plan.block_rows * (d + 2),
-                               dtype=torch.float32, device=q.device)
-            tickets = _verify_tickets(q.device)
+        work, tickets = _split_scratch(q.device, b * h_kv * plan.row_tiles, plan.splits,
+                                       plan.block_rows, d)
         ptrs = [q, k_pool, v_pool, *scales, win_k, win_v, block_tables, pos, out, work, tickets]
         dims = (b, w, h, h_kv, d, bs, bpr, plan.block_rows, plan.key_tile, plan.splits)
-        code = _build.entry(name, len(ptrs), 10, 2)(
-            *(None if t is None else t.data_ptr() for t in ptrs), *dims, float(scale),
-            float(softcap or 0.0), stream,
-        )
+    else:
+        ptrs = [q, k_pool, v_pool, *scales, win_k, win_v, block_tables, pos, out]
+        dims = (b, w, h, h_kv, d, bs, bpr, _DTYPE_CODE[q.dtype])
+    code = _build.entry(name, len(ptrs), len(dims), 2)(
+        *(None if t is None else t.data_ptr() for t in ptrs), *dims, float(scale),
+        float(softcap or 0.0), stream,
+    )
     _build.check(name, code)
     _build.count_launch(name)
     return out

@@ -25,9 +25,13 @@ Phases (any failure exits non-zero and prints no result):
      window, Sq != Skv, non-causal; B2/B3's tensor-core variants on bf16
      (two launches bitwise equal) and their FMA variants on f32 and on the
      same bf16 inputs, also with segment ids, a ragged S, an lse
-     cotangent, softcap and window, non-causal; B4 with
-     bf16/f32/int8 pools; B5 at the spec shape W=5 and the chunk shape
-     W=512, softcap, n_rep=1: its tensor-core variants (bf16 q over the
+     cotangent, softcap and window, non-causal; B4's tensor-core variants
+     (bf16 q over the bf16 and the int8 pool; two launches bitwise equal,
+     each output row held to its own scale, a planted stale key tile;
+     timed in CUDA graphs and eagerly, beside the FMA variant on the same
+     inputs and SDPA over K/V gathered beforehand) and its FMA variants on
+     f32 q over the f32 and the int8 pool; B5 at the spec shape W=5 and
+     the chunk shape W=512, softcap, n_rep=1: its tensor-core variants (bf16 q over the
      bf16 and the int8 pool; two launches bitwise equal; timed in CUDA
      graphs and eagerly) on every case, its FMA variants (f32 q) at the
      spec shape and one chunk; B6 exact on 8 rows with ties and a 512-row
@@ -452,48 +456,158 @@ def pool_bytes_per_pos(h_kv, d, pool_dtype):
     return 2 * h_kv * d * pool_dtype.itemsize
 
 
+# B4 and B5: bf16 q is held per output row (slot, query, head) as well: its
+# largest error within 2^-6 of the row's largest |reference|, 2 to 4 bf16
+# ulps of it (kernel and plain version each round p and the output to bf16: one
+# ulp apart reads up to 2^-7, and the sound maximum measured on an H100
+# was 8.8e-3). Small outputs deep in history are held to their own row's
+# scale, not to the absolute B4_TOL; a planted stale key tile must exceed
+# this limit (b4_planted_fault, b5_planted_fault)
+B5_ROW_RTOL = 2.0 ** -6
+
+
+def row_rel_err(out, ref, valid):
+    """Largest over the compared rows of max |out - ref| / max |ref|, both
+    over a row's D outputs; ``valid`` (B, W) marks the compared rows."""
+    diff = (out.float() - ref.float()).abs().amax(-1)
+    return (diff / ref.float().abs().amax(-1))[valid].max().item()
+
+
+@contextlib.contextmanager
+def decode_kernel(name):
+    """Runs paged_flash_decode through kernel ``name`` whatever the dtypes,
+    by standing in for ``decode_kernel_for``: the FMA pair (the kernels
+    before the tensor-core redesign) then runs on bf16 q too."""
+    from accelerate_tpu_torch.ops import paged_decode as pd
+
+    chosen = pd.decode_kernel_for
+    pd.decode_kernel_for = lambda q_dtype, pool_dtype: name
+    try:
+        yield
+    finally:
+        pd.decode_kernel_for = chosen
+
+
+# B4's shape: 8 slots of a 1,024-position row: a fresh slot, an exactly
+# full first block, one past it, mid-row, an exactly full last block of the
+# row, main-path-like positions
+B4_POS = [0, 15, 16, 575, 576, 1023, 300, 47]
+B4_GRAPH_ITERS = 50
+
+
 def check_paged_decode(dev, gen, results):
-    from accelerate_tpu_torch.ops.attention import paged_attention
-    from accelerate_tpu_torch.ops.paged_decode import paged_flash_decode
+    """B4 against its plain version with the bf16, f32 and int8 pools: each
+    variant launched twice (bitwise equal), bf16 q also per output row
+    (B5_ROW_RTOL), with a planted stale key tile that must exceed that
+    limit; timed in CUDA graphs and eagerly, bf16 q also through the FMA
+    kernel on the same inputs, and beside SDPA over K/V gathered
+    beforehand (a yardstick: not the same function, the gather is left
+    out)."""
+    from accelerate_tpu_torch.ops.attention import _gather_pool, paged_attention
+    from accelerate_tpu_torch.ops.paged_decode import decode_kernel_for, decode_plan, paged_flash_decode
 
     slots, h, h_kv, d, bs, bpr = 8, 32, 8, 128, 16, 64
     nb = slots * bpr + 1
-    # fresh slot, exactly-full first block, one past it, mid, exactly-full
-    # last block of the row, main-path-like positions
-    pos_list = [0, 15, 16, 575, 576, bpr * bs - 1, 300, 47]
-    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
-    tables = random_tables(gen, dev, slots, bpr, nb, [p // bs + 1 for p in pos_list])
-    # (pool, q) dtypes: the float pools, then the int8 pool with f32 q and
-    # with bf16 q (the main path's form)
-    for pool_dtype, dtype in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-                              (torch.int8, torch.float32), (torch.int8, torch.bfloat16)):
+    pos = torch.tensor(B4_POS, dtype=torch.int32, device=dev)
+    tables = random_tables(gen, dev, slots, bpr, nb, [p // bs + 1 for p in B4_POS])
+    every = torch.ones((slots, 1), dtype=torch.bool, device=dev)
+    plan = decode_plan(slots, h, h_kv, bpr * bs)
+    live = sum(p + 1 for p in B4_POS)
+    # (pool, q) dtypes: the f32 pool and the int8 pool with f32 q (the FMA
+    # pair), then the bf16 and the int8 pool with bf16 q (the main paths'
+    # forms, the tensor-core pair)
+    for pool_dtype, dtype in ((torch.float32, torch.float32), (torch.int8, torch.float32),
+                              (torch.bfloat16, torch.bfloat16), (torch.int8, torch.bfloat16)):
         q = torch.randn((slots, 1, h, d), generator=gen, device=dev).to(dtype)
         kp, vp, scales = random_pools(gen, dev, nb, bs, h_kv, d, pool_dtype)
-        out = paged_flash_decode(q, kp, vp, tables, pos, **scales)
-        ref = paged_attention(q, kp, vp, tables, pos, **scales)
+        args = (q, kp, vp, tables, pos)
+        name = decode_kernel_for(dtype, pool_dtype)
+        mma = name.endswith("_mma")
+        out = paged_flash_decode(*args, **scales)
+        out2 = paged_flash_decode(*args, **scales)
+        ref = paged_attention(*args, **scales)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
+        rel = row_rel_err(out, ref, every) if dtype == torch.bfloat16 else None
+        same = torch.equal(out, out2)
         tol = B4_TOL[dtype]
-        name = "paged_decode_int8" if scales else "paged_decode"
-        log(f"B4 {name} pool {pool_dtype} q {dtype} (slots={slots}, bs={bs}, pos={pos_list}) "
-            f"max_abs_err={err:.3e} tol={tol:g}")
-        if not err <= tol:
+        log(f"B4 {name} pool {pool_dtype} q {dtype} (slots={slots}, H={h}, Hkv={h_kv}, D={d}, "
+            f"bs={bs}, pos={B4_POS}" + (f", {plan.splits} history splits" if mma else "")
+            + f") max_abs_err={err:.3e} tol={tol:g}"
+            + (f", row_rel_err={rel:.3e} tol={B5_ROW_RTOL:g}" if rel is not None else "")
+            + f", second launch bitwise equal: {same}")
+        if not err <= tol or (rel is not None and not rel <= B5_ROW_RTOL):
             raise AssertionError(f"{name} {pool_dtype}/{dtype} disagrees with its plain version")
-        ms = time_ms(lambda: paged_flash_decode(q, kp, vp, tables, pos, **scales))
-        plain_ms = time_ms(lambda: paged_attention(q, kp, vp, tables, pos, **scales))
-        live = sum(p + 1 for p in pos_list)
-        item = dtype.itemsize
-        nbytes = (live * pool_bytes_per_pos(h_kv, d, pool_dtype) + 2 * slots * h * d * item
+        if not same:
+            raise AssertionError(f"{name} {pool_dtype}/{dtype}: a second launch gave other bits")
+        entry = results.setdefault(name, dict(library_ms=None))
+        if rel is not None:
+            entry.update(row_rel_err=rel, fault_row_rel_err=b4_planted_fault(out, args, scales, pos, bs))
+
+        def kern():
+            return paged_flash_decode(*args, **scales)
+
+        ms = time_ms(kern)
+        graph_ms = time_graph_ms(kern, B4_GRAPH_ITERS)
+        plain_ms = time_ms(lambda: paged_attention(*args, **scales))
+        nbytes = (live * pool_bytes_per_pos(h_kv, d, pool_dtype) + 2 * slots * h * d * dtype.itemsize
                   + tables.numel() * 4 + slots * 4)
-        flops = 4.0 * live * h * d
-        bms, by = bound_ms(nbytes, flops, dtype)
-        log(f"  ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.5f} ({by})")
-        if dtype != torch.bfloat16:
-            continue  # the kernels line keeps the main path's form: bf16 q
-        results[name] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-            bound_by=by, library_ms=None,
-        )
+        bms, by = bound_ms(nbytes, 4.0 * live * h * d, dtype)
+        entry.update(max_abs_err=err, ms=graph_ms, eager_ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                     bound_by=by, splits=plan.splits if mma else None)
+        extra = ""
+        if dtype == torch.bfloat16:
+            # the FMA kernel on the same bf16 inputs: the kernel before the
+            # tensor-core redesign, timed in the same call
+            fma = "paged_decode_int8" if scales else "paged_decode"
+            with decode_kernel(fma):
+                fma_err = (paged_flash_decode(*args, **scales).float() - ref.float()).abs().max().item()
+                fma_ms, fma_graph_ms = time_ms(kern), time_graph_ms(kern, B4_GRAPH_ITERS)
+            # yardstick: SDPA over K/V gathered beforehand into a dense
+            # (B, Hkv, S, D) in bf16 with a length mask
+            kd, vd = (_gather_pool(x, tables, sc).to(dtype).transpose(1, 2).contiguous()
+                      for x, sc in ((kp, scales.get("k_scale")), (vp, scales.get("v_scale"))))
+            qt = q.transpose(1, 2)
+            mask = (torch.arange(bpr * bs, device=dev)[None, :] <= pos[:, None])[:, None, None, :]
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kd, vd, attn_mask=mask, enable_gqa=True)
+
+            sdpa_ms = time_graph_ms(sdpa, B4_GRAPH_ITERS)
+            entry.update(fma_ms=fma_ms, fma_graph_ms=fma_graph_ms, fma_max_abs_err=fma_err,
+                         sdpa_gathered_ms=sdpa_ms)
+            extra = (f" FMA {fma} on the same inputs: graph_ms={fma_graph_ms:.4f} ms={fma_ms:.4f} "
+                     f"max_abs_err={fma_err:.3e}; SDPA over pre-gathered K/V (not the same function: "
+                     f"the gather is left out) graph_ms={sdpa_ms:.4f}")
+            del kd, vd
+        log(f"  graph_ms={graph_ms:.4f} ms={ms:.4f} (eager) plain_ms={plain_ms:.4f} "
+            f"bound_ms={bms:.5f} ({by}), bound share {bms / graph_ms:.3f};" + extra)
+        del q, kp, vp, out, out2, ref
+    torch.cuda.empty_cache()
+
+
+def b4_planted_fault(out, args, scales, pos, bs):
+    """The check's power: the plain version over a table whose positions
+    256..319 (four pool blocks, one 64-key tile of the kernel) point at
+    other blocks, held against the kernel's sound output on the slots with
+    >= 320 keys. Raises unless the row check (B5_ROW_RTOL) sees the stale
+    tile."""
+    from accelerate_tpu_torch.ops.attention import paged_attention
+
+    q, kp, vp, tables, _ = args
+    stale = tables.clone()
+    cols = slice(256 // bs, 320 // bs)
+    stale[:, cols] = (tables[:, cols] + 7) % (kp.shape[0] - 1) + 1
+    ref = paged_attention(q, kp, vp, stale, pos, **scales)
+    deep = (pos >= 320)[:, None]
+    rel = row_rel_err(out, ref, deep)
+    err = (out.float() - ref.float())[deep.expand(-1, out.shape[1])].abs().max().item()
+    log(f"  planted fault (one stale 64-key tile at positions 256..319): row_rel_err={rel:.3e} "
+        f"(limit {B5_ROW_RTOL:g}) max_abs_err={err:.3e} (absolute limit {B4_TOL[torch.bfloat16]:g})")
+    if not rel > B5_ROW_RTOL:
+        raise AssertionError("B4's row check does not see a stale key tile")
+    return rel
 
 
 # B5 cases: name -> (B, W, H, Hkv, pos per slot, softcap); the spec shape
@@ -513,23 +627,6 @@ B5_CASES = {
     "spec_mha": (8, 5, 8, 8, B5_SPEC_POS, None),
 }
 B5_BPR, B5_BS = 128, 16
-# bf16 q is held per output row (slot, query, head) as well: its largest
-# error within 2^-6 of the row's largest |reference|, 2 to 4 bf16 ulps of
-# it (kernel and plain version each round p and the output to bf16: one
-# ulp apart reads up to 2^-7, and the sound maximum measured on an H100
-# was 8.8e-3). Small outputs deep in history are held to their own row's
-# scale, not to the absolute B4_TOL; a planted stale key tile must exceed
-# this limit (b5_planted_fault)
-B5_ROW_RTOL = 2.0 ** -6
-
-
-def row_rel_err(out, ref, valid):
-    """Largest over the compared rows of max |out - ref| / max |ref|, both
-    over a row's D outputs; ``valid`` (B, W) marks the compared rows."""
-    diff = (out.float() - ref.float()).abs().amax(-1)
-    return (diff / ref.float().abs().amax(-1))[valid].max().item()
-
-
 # graph-replayed launches per timing of the spec shape (tens of us each)
 B5_GRAPH_ITERS = {"spec": 50, "chunk": 10}
 
@@ -1276,7 +1373,7 @@ def phase_main_path(dev, card, model):
             raise AssertionError("a generated token is out of the vocabulary")
     expected = {
         "flash_fwd_mma": n_layers * n_req,
-        "paged_decode": n_layers * steps,
+        "paged_decode_mma": n_layers * steps,
         "fused_sample": steps + n_req,
     }
     log(f"phase 4 decode steps {steps}")
@@ -1344,7 +1441,7 @@ def profile_decode(eng, step_ms, card, n_steps=8, label="phase 4 decode",
         us = getattr(e, "self_device_time_total", 0.0)
         name = e.key.lower()
         for g in PROFILE_GROUPS:
-            if g in name:  # paged_decode also names paged_decode_int8's kernel
+            if g in name:  # paged_decode also names the int8 and tensor-core kernels
                 groups[g] += us
                 break
         else:
@@ -1436,7 +1533,7 @@ def expected_launches(n_layers, delta, n_single, n_chunked, suffix=""):
     decode_steps = delta["steps"] - delta["verify"]
     return {
         "flash_fwd_mma": n_layers * n_single,
-        "paged_decode" + suffix: n_layers * decode_steps,
+        "paged_decode" + suffix + "_mma": n_layers * decode_steps,
         "paged_verify" + suffix + "_mma": n_layers * (delta["verify"] + delta["chunks"]),
         "fused_sample": decode_steps + n_single + n_chunked,
     }
@@ -2107,6 +2204,12 @@ MMA_SMEM = {
     "paged_verify_mma_kernel<64,4,64,0": (64 * 128 + 2 * (2 * 64 * 128), 128),
     "paged_verify_mma_kernel<64,4,64,1": (64 * 128 + 2 * (2 * 64 * 128 + 2 * 64 * 64 + 512), 128),
     "fused_sample_kernel": (2 * 8016 * 4, 256),
+    # paged_decode.cu's DCfg<D, int8> (a ring of 3 stages of 64-key K and V
+    # tiles; int8: raw tiles and their scales, and one widened bf16 pair)
+    "paged_decode_mma_kernel<128,0": (3 * 2 * 64 * 256, 128),
+    "paged_decode_mma_kernel<128,1": (3 * (2 * 64 * 128 + 512) + 2 * 64 * 256, 128),
+    "paged_decode_mma_kernel<64,0": (3 * 2 * 64 * 128, 128),
+    "paged_decode_mma_kernel<64,1": (3 * (2 * 64 * 64 + 512) + 2 * 64 * 128, 128),
 }
 
 
@@ -2182,6 +2285,14 @@ KERNEL_META = {
         replaces="accelerate_tpu/ops/paged_decode.py:87",
     ),
     "paged_decode_int8": dict(
+        route="cuda", source="accelerate_tpu_torch/csrc/paged_decode.cu",
+        replaces="accelerate_tpu/ops/paged_decode.py:87",
+    ),
+    "paged_decode_mma": dict(
+        route="cuda", source="accelerate_tpu_torch/csrc/paged_decode.cu",
+        replaces="accelerate_tpu/ops/paged_decode.py:87",
+    ),
+    "paged_decode_int8_mma": dict(
         route="cuda", source="accelerate_tpu_torch/csrc/paged_decode.cu",
         replaces="accelerate_tpu/ops/paged_decode.py:87",
     ),

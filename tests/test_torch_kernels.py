@@ -1,7 +1,8 @@
-"""The port's kernel variants: the routing that picks B1's, B2/B3's, B5's
-and B7's variant and B5's and B6's launch plans (pure Python, on the CPU),
-the kernel registry, and every variant against its plain version on the
-card (``cuda``-marked), B4, B5 and B6 among them.
+"""The port's kernel variants: the routing that picks B1's, B2/B3's, B4's,
+B5's and B7's variant, B4's, B5's and B6's launch plans and what their
+wrappers refuse (pure Python, on the CPU), the kernel registry, and every
+variant against its plain version on the card (``cuda``-marked), B4, B5
+and B6 among them.
 
 This file imports no JAX, so its ``cuda``-marked tests also run on a GPU
 machine that has none, without the suite's conftest (which imports JAX):
@@ -22,10 +23,11 @@ Tolerances on the card (kernel against plain version on the same inputs):
   for the f32 output of a bf16 x (the LM head's logits). bf16 x int8
   products are exact in f32, so only the f32 summation order differs.
 * B4 and B5: bf16 q 2e-2 (outputs of order 1: p rounded to bf16 before
-  P.V, for an int8 pool too in B5's tensor-core variant, where the plain
-  version keeps f32), f32 q 1e-4 (f32 throughout, only the summation
-  order differs); the tensor-core B5 twice on the same inputs is bitwise
-  equal (its split partials combine in a fixed order).
+  P.V, for an int8 pool too in the tensor-core variants, where the plain
+  version keeps f32) and each output row within 2^-6 of its largest
+  |reference| (ROW_RTOL), f32 q 1e-4 (f32 throughout, only the summation
+  order differs); every variant twice on the same inputs is bitwise equal
+  (the tensor-core ones' split partials combine in a fixed order).
 * B6: token ids exactly equal to the plain version's, and to a second
   launch's.
 """
@@ -54,6 +56,8 @@ from accelerate_tpu_torch.ops.attention import paged_attention
 from accelerate_tpu_torch.ops.paged_decode import (
     SAMPLE_CLUSTER,
     SAMPLE_SMEM_LIMIT,
+    decode_kernel_for,
+    decode_plan,
     fused_sample,
     fused_sample_plan,
     fused_sample_reference,
@@ -230,13 +234,64 @@ def test_verify_plan_never_splits_below_one_key_tile(max_hist, splits):
 
 
 def test_split_plans_fit_the_per_device_tickets():
-    # the wrapper keeps SMS int32 tickets per device, one per split group
-    for b in (1, 2, 4, 8, 16, 32):
-        for w in (1, 5, 8, 16, 70, 512):
-            for h, h_kv in ((32, 8), (8, 8), (32, 4), (16, 2)):
+    # the wrappers keep SMS int32 tickets per device, one per split group
+    # (decode and verify share them)
+    for b in (1, 2, 4, 8, 16, 17, 32):
+        for h, h_kv in ((32, 8), (8, 8), (32, 4), (16, 2)):
+            for w in (1, 5, 8, 16, 70, 512):
                 plan = verify_plan(b, w, h, h_kv, 2048)
                 if plan.splits > 1:
                     assert b * h_kv * plan.row_tiles < SMS
+            for max_hist in (16, 1024, 2048):
+                if decode_plan(b, h, h_kv, max_hist).splits > 1:
+                    assert b * h_kv < SMS
+
+
+@pytest.mark.parametrize("q_dtype,pool_dtype,kernel", [
+    (torch.bfloat16, torch.bfloat16, "paged_decode_mma"),
+    (torch.bfloat16, torch.int8, "paged_decode_int8_mma"),
+    (torch.float32, torch.float32, "paged_decode"),
+    (torch.float32, torch.int8, "paged_decode_int8"),
+])
+def test_decode_variant_by_q_and_pool_dtype(q_dtype, pool_dtype, kernel):
+    assert decode_kernel_for(q_dtype, pool_dtype) == kernel
+    assert kernel in _build.KERNELS
+
+
+@pytest.mark.parametrize("q_dtype,pool_dtype", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.float16, torch.float16), (torch.float16, torch.int8), (torch.int8, torch.int8),
+])
+def test_decode_variant_refuses_other_dtype_pairs(q_dtype, pool_dtype):
+    with pytest.raises(TypeError):
+        decode_kernel_for(q_dtype, pool_dtype)
+
+
+# the engine's decode shape at Llama-3-8B (H = 32, Hkv = 8): 8 slots of
+# 1,024 (phase 4) or 2,048 (phase 7) positions
+@pytest.mark.parametrize("max_hist", [1024, 2048])
+def test_decode_plan_splits_eight_slots_to_fill_the_card(max_hist):
+    plan = decode_plan(8, 32, 8, max_hist)
+    assert (plan.rows, plan.key_tile) == (4, 64)
+    assert plan.splits > 1
+    assert 8 * 8 * plan.splits >= FILL_BLOCKS
+    # one head per kv head (n_rep = 1) fills it the same way
+    mha = decode_plan(8, 8, 8, max_hist)
+    assert mha.rows == 1 and 8 * 8 * mha.splits >= FILL_BLOCKS
+
+
+@pytest.mark.parametrize("b,h,h_kv", [(17, 32, 8), (32, 32, 8), (8, 32, 32), (132, 8, 1)])
+def test_decode_plan_does_not_split_a_grid_that_fills_the_card(b, h, h_kv):
+    assert b * h_kv >= SMS
+    assert decode_plan(b, h, h_kv, 2048).splits == 1
+
+
+@pytest.mark.parametrize("max_hist,splits", [(16, 1), (64, 1), (65, 2), (128, 2), (200, 4),
+                                             (1024, 5), (2048, 5)])
+def test_decode_plan_never_splits_below_one_key_tile(max_hist, splits):
+    plan = decode_plan(8, 32, 8, max_hist)
+    assert plan.splits == splits
+    assert plan.splits * plan.key_tile < max_hist + plan.key_tile
 
 
 @pytest.mark.parametrize("v", [64, 32000, 128256, 152064])
@@ -293,6 +348,46 @@ def test_verify_wrapper_refuses_other_dtypes(case):
     pos = torch.zeros((2,), dtype=torch.int32, device="meta")
     with pytest.raises(exc):
         paged_flash_verify(q, pool, pool, win, win, tables, pos)
+
+
+def _meta_offset(*shape, dtype, offset):
+    """A contiguous meta tensor ``offset`` elements into its storage (its
+    data_ptr is offset * itemsize)."""
+    return torch.empty(math.prod(shape) + offset, dtype=dtype, device="meta")[offset:].view(shape)
+
+
+# name -> (q, pool, scales, exception, message): what the B4 wrapper refuses
+# (q (2, 1, 8, 64), pools (5, 4, 2, 64) unless the case says otherwise); on
+# tensors that are not on the CPU none of them falls back to the plain version
+DECODE_REFUSALS = {
+    "bf16_q_f32_pool": (torch.bfloat16, torch.float32, False, TypeError, "dtype"),
+    "f32_q_bf16_pool": (torch.float32, torch.bfloat16, False, TypeError, "dtype"),
+    "f16_q": (torch.float16, torch.float16, False, TypeError, "dtype"),
+    "int8_pool_without_scales": (torch.bfloat16, torch.int8, False, TypeError, "dtype"),
+    "unaligned_q": (torch.bfloat16, torch.bfloat16, False, ValueError, "16-byte"),
+    "unaligned_pool": (torch.bfloat16, torch.int8, True, ValueError, "16-byte"),
+    "noncontiguous_pool": (torch.bfloat16, torch.bfloat16, False, ValueError, "contiguous"),
+    "head_dim_96": (torch.bfloat16, torch.bfloat16, False, ValueError, "head_dim"),
+    "n_rep_3": (torch.bfloat16, torch.bfloat16, False, ValueError, "GQA"),
+    "bf16_not_cuda": (torch.bfloat16, torch.bfloat16, False, ValueError, "CUDA"),
+    "int8_bf16_not_cuda": (torch.bfloat16, torch.int8, True, ValueError, "CUDA"),
+    "f32_not_cuda": (torch.float32, torch.float32, False, ValueError, "CUDA"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_REFUSALS))
+def test_decode_wrapper_refuses_instead_of_falling_back(case):
+    q_dtype, pool_dtype, with_scales, exc, message = DECODE_REFUSALS[case]
+    h, d = (6, 64) if case == "n_rep_3" else (8, 96 if case == "head_dim_96" else 64)
+    q = _meta_offset(2, 1, h, d, dtype=q_dtype, offset=1 if case == "unaligned_q" else 0)
+    pool = _meta_offset(5, 4, 2, d, dtype=pool_dtype, offset=1 if case == "unaligned_pool" else 0)
+    if case == "noncontiguous_pool":
+        pool = _meta(5, 2, 4, d, dtype=pool_dtype).transpose(1, 2)
+    scales = dict(k_scale=_meta(5, 4), v_scale=_meta(5, 4)) if with_scales else {}
+    tables = torch.zeros((2, 3), dtype=torch.int32, device="meta")
+    pos = torch.zeros((2,), dtype=torch.int32, device="meta")
+    with pytest.raises(exc, match=message):
+        paged_flash_decode(q, pool, pool, tables, pos, **scales)
 
 
 # ------------------------------------------------------------ registry
@@ -492,16 +587,16 @@ def _card_pools(gen, dev, nb, bs, h_kv, d, dtype):
     return kp, vp, {}
 
 
-# bf16 q is held per output row (slot, query, head) as well: its largest
-# error within 2^-6 of the row's largest |reference|, 2 to 4 bf16 ulps of
-# it (kernel and plain version each round p and the output to bf16: one
-# ulp apart reads up to 2^-7, and the sound maximum measured on an H100
+# B4 and B5: bf16 q is held per output row (slot, query, head) as well: its
+# largest error within 2^-6 of the row's largest |reference|, 2 to 4 bf16
+# ulps of it (kernel and plain version each round p and the output to bf16:
+# one ulp apart reads up to 2^-7, and the sound maximum measured on an H100
 # was 8.3e-3). Small outputs deep in history are held to their own row's
 # scale, not to the absolute 2e-2 alone.
-VERIFY_ROW_RTOL = 2.0 ** -6
+ROW_RTOL = 2.0 ** -6
 
 
-def _verify_row_rel_err(out, ref, valid):
+def _row_rel_err(out, ref, valid):
     """Largest over the compared rows of max |out - ref| / max |ref|, both
     over a row's D outputs; ``valid`` (B, W) marks the compared rows."""
     diff = (out.float() - ref.float()).abs().amax(-1)
@@ -509,7 +604,8 @@ def _verify_row_rel_err(out, ref, valid):
 
 
 # (pool dtype, q dtype, tolerance): the tensor-core pair, then the FMA pair
-VERIFY_CARD_DTYPES = {
+# (B4 and B5 alike)
+CARD_DTYPES = {
     "bf16_mma": (torch.bfloat16, torch.bfloat16, 2e-2),
     "int8_bf16q_mma": (torch.int8, torch.bfloat16, 2e-2),
     "f32_fma": (torch.float32, torch.float32, 1e-4),
@@ -518,7 +614,7 @@ VERIFY_CARD_DTYPES = {
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtypes", sorted(VERIFY_CARD_DTYPES))
+@pytest.mark.parametrize("dtypes", sorted(CARD_DTYPES))
 @pytest.mark.parametrize("w,n_rep,d,softcap", [
     (1, 4, 128, None), (1, 1, 64, 30.0), (5, 4, 128, None), (5, 4, 128, 30.0), (5, 1, 128, None),
     (70, 4, 128, 30.0), (70, 1, 128, None), (512, 4, 128, None), (512, 1, 64, 30.0),
@@ -529,7 +625,7 @@ def test_verify_kernels_match_plain_on_card(cuda_device, dtypes, w, n_rep, d, so
     # compared: the engine discards the rest) and a ghost slot (all-null
     # row, reads block 0); W = 1 and 5 take the split history, W = 70 at
     # n_rep 1 the split with 64-row tiles, W = 512 no split
-    pool_dtype, q_dtype, tol = VERIFY_CARD_DTYPES[dtypes]
+    pool_dtype, q_dtype, tol = CARD_DTYPES[dtypes]
     dev = cuda_device
     gen = torch.Generator(device=dev).manual_seed(w * 10 + n_rep)
     slots, h_kv, bs, bpr = 4, 8, 16, 48
@@ -556,33 +652,49 @@ def test_verify_kernels_match_plain_on_card(cuda_device, dtypes, w, n_rep, d, so
     assert out.dtype == q_dtype and out.shape == q.shape
     assert (out.float() - ref.float())[valid].abs().max().item() <= tol
     if q_dtype == torch.bfloat16:
-        assert _verify_row_rel_err(out, ref, valid) <= VERIFY_ROW_RTOL
+        assert _row_rel_err(out, ref, valid) <= ROW_RTOL
 
 
 @pytest.mark.cuda
-def test_paged_decode_kernel_matches_plain_on_card(cuda_device):
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    slots, h, h_kv, d, bs, bpr = 6, 32, 8, 128, 16, 8
+@pytest.mark.parametrize("dtypes", sorted(CARD_DTYPES))
+@pytest.mark.parametrize("n_rep,d,softcap", [
+    (4, 128, None), (4, 128, 30.0), (1, 128, None), (1, 64, 30.0), (8, 128, None), (8, 64, 30.0),
+    (4, 64, None), (2, 128, None),
+])
+@pytest.mark.parametrize("slots", [4, 20])
+def test_paged_decode_kernel_matches_plain_on_card(cuda_device, dtypes, n_rep, d, softcap, slots):
+    # slots x 8 kv heads: 4 slots take the split history (32 groups, 9
+    # splits of 12 key tiles), 20 slots fill the card unsplit (160 groups). A fresh slot
+    # (pos 0: one live key, most splits empty), a full first block, an
+    # exactly full last block of the row, a vacant slot (all-null row with a
+    # stale pos: reads block 0), the rest at random positions
+    pool_dtype, q_dtype, tol = CARD_DTYPES[dtypes]
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(slots * 100 + n_rep * 10 + d)
+    h_kv, bs, bpr = 8, 16, 48
+    h = h_kv * n_rep
     nb = slots * bpr + 1
-    pos = torch.tensor([0, 15, 16, 77, bpr * bs - 1, 40], dtype=torch.int32, device=cuda_device)
-    tables = (torch.randperm(nb - 1, generator=gen, device=cuda_device)[: slots * bpr] + 1)
+    tables = (torch.randperm(nb - 1, generator=gen, device=dev)[: slots * bpr] + 1)
     tables = tables.reshape(slots, bpr).to(torch.int32)
-    tables[5] = 0  # vacant slot: all-null row with a stale pos
-    # (pool, q, tolerance): the float pools, then the int8 pool (B4-int8)
-    # with f32 q and with bf16 q (the main path's form)
-    for pool_dtype, dtype, tol in ((torch.float32, torch.float32, 1e-4),
-                                   (torch.bfloat16, torch.bfloat16, 2e-2),
-                                   (torch.int8, torch.float32, 1e-4),
-                                   (torch.int8, torch.bfloat16, 2e-2)):
-        q = torch.randn((slots, 1, h, d), generator=gen, device=cuda_device).to(dtype)
-        kp, vp, scales = _card_pools(gen, cuda_device, nb, bs, h_kv, d, pool_dtype)
-        name = "paged_decode_int8" if scales else "paged_decode"
-        before = _build.launch_counts()[name]
-        out = paged_flash_decode(q, kp, vp, tables, pos, softcap=50.0, **scales)
-        ref = paged_attention(q, kp, vp, tables, pos, softcap=50.0, **scales)
-        torch.cuda.synchronize()
-        assert _build.launch_counts()[name] == before + 1
-        assert (out.float() - ref.float()).abs().max().item() <= tol
+    tables[3] = 0
+    pos = torch.randint(0, bpr * bs, (slots,), generator=gen, device=dev, dtype=torch.int32)
+    pos[:4] = torch.tensor([0, 15, bpr * bs - 1, 200], dtype=torch.int32, device=dev)
+    kp, vp, scales = _card_pools(gen, dev, nb, bs, h_kv, d, pool_dtype)
+    q = torch.randn((slots, 1, h, d), generator=gen, device=dev).to(q_dtype)
+    name = decode_kernel_for(q_dtype, pool_dtype)
+    if name.endswith("_mma"):
+        assert (decode_plan(slots, h, h_kv, bpr * bs).splits > 1) == (slots == 4)
+    before = _build.launch_counts()[name]
+    out = paged_flash_decode(q, kp, vp, tables, pos, softcap=softcap, **scales)
+    out2 = paged_flash_decode(q, kp, vp, tables, pos, softcap=softcap, **scales)
+    ref = paged_attention(q, kp, vp, tables, pos, softcap=softcap, **scales)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[name] == before + 2
+    assert torch.equal(out, out2)
+    assert out.dtype == q_dtype and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    if q_dtype == torch.bfloat16:
+        assert _row_rel_err(out, ref, torch.ones((slots, 1), dtype=torch.bool, device=dev)) <= ROW_RTOL
 
 
 def _sample_inputs(seed, s, v, ties):

@@ -2,9 +2,14 @@
 Pallas kernels (interpret mode on the CPU).
 
 Inputs come from a numpy seed. Paged decode: f32, atol = rtol = 1e-5 (f32
-accumulation on both sides; only the summation order differs). Fused
-sampling: token ids must agree exactly, with the same Gumbel noise handed
-to both sides.
+accumulation on both sides; only the summation order differs); bf16 q over
+a bf16 or an int8 pool (the main path's forms, which the card serves with
+the tensor-core kernels), 2e-2 absolute and each output row (slot, head)
+within 2^-6 of its largest |reference|: both sides accumulate in f32 and
+round p and the output to bf16, at other points (the JAX kernel rounds p
+per table block, the plain version once over the row), a bf16 ulp or two.
+Fused sampling: token ids must agree exactly, with the same Gumbel noise
+handed to both sides.
 """
 
 import numpy as np
@@ -73,6 +78,55 @@ def test_paged_decode_custom_scale_matches_jax_kernel():
                          jnp.asarray(pos), scale=0.0625, interpret=True)
     out = paged_flash_decode(*(torch.from_numpy(x) for x in (q, kp, vp, tables, pos)), scale=0.0625)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+# bf16 q over a bf16 pool and over an int8 pool with per-position scales,
+# at a width the kernels take (D = 64, GQA groups of 4, 16-position blocks)
+BF16_B, BF16_BPR, BF16_BS, BF16_H, BF16_HKV, BF16_D = 3, 4, 16, 8, 2, 64
+BF16_NB = BF16_B * BF16_BPR + 1
+BF16_ATOL = 2e-2
+BF16_ROW_RTOL = 2.0 ** -6
+
+
+def _bf16_inputs(seed, pool):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(BF16_B, 1, BF16_H, BF16_D)).astype(np.float32)
+    shape = (BF16_NB, BF16_BS, BF16_HKV, BF16_D)
+    tables = (rng.permutation(BF16_NB - 1)[: BF16_B * BF16_BPR] + 1).reshape(BF16_B, BF16_BPR)
+    if pool == "int8":
+        kp, vp = (rng.integers(-127, 128, size=shape).astype(np.int8) for _ in range(2))
+        scales = [(rng.random((BF16_NB, BF16_BS)) * 0.02 + 1e-3).astype(np.float32) for _ in range(2)]
+    else:
+        kp, vp = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
+        scales = None
+    return q, kp, vp, tables.astype(np.int32), scales
+
+
+@pytest.mark.parametrize("softcap", [None, 30.0])
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+def test_bf16_paged_decode_matches_jax_kernel(pool, softcap):
+    q, kp, vp, tables, scales = _bf16_inputs(seed=11 if pool == "bf16" else 12, pool=pool)
+    # a fresh slot, a mid-block one, an exactly full last block
+    pos = np.asarray([0, 21, BF16_BPR * BF16_BS - 1], np.int32)
+    jq = jnp.asarray(q).astype(jnp.bfloat16)
+    tq = torch.from_numpy(q).to(torch.bfloat16)
+    if pool == "bf16":
+        jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in (kp, vp))
+        tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (kp, vp))
+        jkw, tkw = {}, {}
+    else:
+        jk, jv, tk, tv = jnp.asarray(kp), jnp.asarray(vp), torch.from_numpy(kp), torch.from_numpy(vp)
+        jkw = dict(k_scale=jnp.asarray(scales[0]), v_scale=jnp.asarray(scales[1]))
+        tkw = dict(k_scale=torch.from_numpy(scales[0]), v_scale=torch.from_numpy(scales[1]))
+    ref = np.asarray(j_paged_decode(jq, jk, jv, jnp.asarray(tables), jnp.asarray(pos),
+                                    softcap=softcap, interpret=True, **jkw).astype(jnp.float32))
+    out = paged_flash_decode(tq, tk, tv, torch.from_numpy(tables), torch.from_numpy(pos),
+                             softcap=softcap, **tkw)
+    assert out.dtype == torch.bfloat16 and out.shape == tq.shape
+    out = out.float().numpy()
+    np.testing.assert_allclose(out, ref, atol=BF16_ATOL, rtol=0)
+    row_err = np.abs(out - ref).max(-1) / np.abs(ref).max(-1)
+    assert row_err.max() <= BF16_ROW_RTOL
 
 
 def test_int8_pool_and_verify_are_queued():
