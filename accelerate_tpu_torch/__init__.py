@@ -21,7 +21,9 @@ inference on one device: ``init_empty_weights``, safetensors checkpoints
 read and written without the ``safetensors`` package,
 ``load_checkpoint_in_model``, CPU and disk offload, and int8/int4/NF4
 weight quantization (``quantize_model``, ``load_and_quantize_model``) with
-the quantized matmul kernel.
+the quantized matmul kernel. The serving engine's step programs run as
+captured CUDA graphs; training has ``train_step(multi_step=True)``,
+schedulers, the selective remat policies and the chunked cross entropy.
 Distributed training, the host KV tier and the serving control plane are
 still to be ported (ROADMAP.md).
 """
@@ -29,6 +31,7 @@ still to be ported (ROADMAP.md).
 __version__ = "0.1.0"
 
 __all__ = [
+    "AcceleratedScheduler",
     "Accelerator",
     "ContinuousBatchingEngine",
     "InferenceServer",
@@ -38,6 +41,7 @@ __all__ = [
     "ServingConfig",
     "ServingResult",
     "create_llama",
+    "find_executable_batch_size",
     "get_logger",
     "init_empty_weights",
     "init_llama_params",
@@ -46,12 +50,21 @@ __all__ = [
     "load_checkpoint_in_model",
     "quantize_model",
     "quantized_matmul",
+    "release_memory",
     "resolve_device",
+    "set_seed",
+    "synchronize_rng_states",
 ]
 
 _LAZY = {
     "Accelerator": ("accelerator", "Accelerator"),
     "AcceleratedOptimizer": ("optimizer", "AcceleratedOptimizer"),
+    "AcceleratedScheduler": ("scheduler", "AcceleratedScheduler"),
+    "set_seed": ("utils.random", "set_seed"),
+    "synchronize_rng_states": ("utils.random", "synchronize_rng_states"),
+    "find_executable_batch_size": ("utils.memory", "find_executable_batch_size"),
+    "release_memory": ("utils.memory", "release_memory"),
+    "chunked_softmax_cross_entropy": ("ops.losses", "chunked_softmax_cross_entropy"),
     "AcceleratorState": ("state", "AcceleratorState"),
     "GradientState": ("state", "GradientState"),
     "PartialState": ("state", "PartialState"),

@@ -7,6 +7,11 @@
 / ``zero_grad``) or ``train_step(loss_fn, max_grad_norm=...)``, which runs
 forward, backward, accumulation and the update in one call.
 
+A scheduler passed to ``prepare`` (a ``torch.optim.lr_scheduler`` or a
+callable ``step -> lr``) is wrapped in
+:class:`~accelerate_tpu_torch.scheduler.AcceleratedScheduler`, which
+steps only when the optimizer updated.
+
 ``backward`` keeps the JAX signature: it takes the loss *function* and its
 arguments, differentiates ``loss / gradient_accumulation_steps`` (times the
 fp16 loss scale) and returns the unscaled loss. Everything outside one
@@ -21,10 +26,12 @@ from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils._pytree import tree_leaves, tree_map
 
 from .data_loader import DataLoaderShard, prepare_data_loader
 from .model import prepare_model, unwrap_model
 from .optimizer import AcceleratedOptimizer, DynamicScale
+from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .utils.dataclasses import (
     DataLoaderConfiguration,
@@ -54,6 +61,7 @@ class Accelerator:
         gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
         dataloader_config: Optional[DataLoaderConfiguration] = None,
         parallelism_config=None,
+        step_scheduler_with_optimizer: bool = True,
         cpu: bool = False,
         kwargs_handlers: Optional[Sequence] = None,
     ):
@@ -90,10 +98,12 @@ class Accelerator:
             kw = self.scaler_kwargs.to_dict() if self.scaler_kwargs else {}
             if kw.pop("enabled", True):
                 self.scaler = DynamicScale(**kw)
+        self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
         self.step = 0
         self._forced_sync = False
         self._models: list = []
         self._optimizers: list = []
+        self._schedulers: list = []
 
     # ------------------------------------------------------------- properties
     @property
@@ -122,7 +132,10 @@ class Accelerator:
     # ---------------------------------------------------------------- prepare
     def prepare(self, *args):
         """Prepare each object and return them in order: modules first (the
-        optimizer steps their parameters), then optimizers, then loaders."""
+        optimizer steps their parameters), then optimizers, loaders and
+        schedulers (a scheduler wraps the last optimizer prepared; any other
+        callable is taken for a schedule ``step -> lr``, as in the JAX
+        package)."""
         prepared = {i: self.prepare_model(obj) for i, obj in enumerate(args)
                     if isinstance(obj, nn.Module)}
         result = []
@@ -133,10 +146,9 @@ class Accelerator:
                 result.append(self.prepare_optimizer(obj))
             elif isinstance(obj, DataLoaderShard):
                 result.append(self.prepare_data_loader(obj))
-            elif isinstance(obj, torch.optim.lr_scheduler.LRScheduler):
-                raise NotImplementedError(
-                    "schedulers (scheduler.py, which GradientAccumulationPlugin.adjust_scheduler "
-                    "steps) are not ported yet (ROADMAP.md A4)")
+            elif isinstance(obj, (AcceleratedScheduler, torch.optim.lr_scheduler.LRScheduler)) \
+                    or callable(obj):
+                result.append(self.prepare_scheduler(obj))
             else:
                 result.append(obj)
         return result[0] if len(result) == 1 else tuple(result)
@@ -154,6 +166,18 @@ class Accelerator:
             optimizer = AcceleratedOptimizer(optimizer, scaler=self.scaler)
         self._optimizers.append(optimizer)
         return optimizer
+
+    def prepare_scheduler(self, scheduler) -> AcceleratedScheduler:
+        """Wrap ``scheduler`` so it steps with the last prepared optimizer's
+        real updates (``step_scheduler_with_optimizer``)."""
+        if not isinstance(scheduler, AcceleratedScheduler):
+            scheduler = AcceleratedScheduler(
+                scheduler,
+                optimizer=self._optimizers[-1] if self._optimizers else None,
+                step_with_optimizer=self.step_scheduler_with_optimizer,
+            )
+        self._schedulers.append(scheduler)
+        return scheduler
 
     def prepare_data_loader(self, dataloader, **kwargs) -> DataLoaderShard:
         """:func:`~accelerate_tpu_torch.data_loader.prepare_data_loader` on
@@ -253,15 +277,19 @@ class Accelerator:
         detached, on the device (no host readback outside the fp16 finite
         check).
 
+        ``multi_step=True``: the callable takes batches with a leading N
+        axis on every tensor and returns the (N,) losses of N steps, with the
+        accumulation and the fp16 scaler semantics of N single calls, as the
+        JAX package's ``lax.scan`` over its step. Here it is a Python loop
+        over the single step: the training step keeps the card busy (busy
+        share 0.98 at Llama-3-8B width), so one program for N steps would
+        save launch time the card does not wait for.
+
         The JAX ``donate`` and ``flatten_params`` have no counterpart:
         donation frees a jitted program's inputs, and ``flatten_params``
         (``utils/flatbuf.py``) packs the pytree into a few buffers to avoid
         a per-buffer cost at the TPU program boundary; PyTorch runs eagerly
         and updates in place, so there is no program boundary to pay."""
-        if multi_step:
-            raise NotImplementedError(
-                "multi_step=True (N steps in one program) is not ported; it waits "
-                "for CUDA graphs (ROADMAP.md A9)")
         if self.ddp_handler is not None and self.ddp_handler.comm_hook == "powersgd":
             raise NotImplementedError(
                 "comm_hook='powersgd' compresses the cross-device gradient reduction; "
@@ -289,4 +317,21 @@ class Accelerator:
                 optimizer.zero_grad()
             return loss.detach()
 
-        return step
+        if not multi_step:
+            return step
+
+        def steps(*batches):
+            return torch.stack([
+                step(*tree_map(lambda t: t[i] if isinstance(t, torch.Tensor) else t, batches))
+                for i in range(_steps_of(batches))])
+
+        return steps
+
+
+def _steps_of(batches) -> int:
+    """N, the leading axis that every tensor of a multi-step batch tree
+    shares."""
+    sizes = {t.shape[0] for t in tree_leaves(batches) if isinstance(t, torch.Tensor)}
+    if len(sizes) != 1:
+        raise ValueError(f"multi_step batches need one leading N axis on every tensor, got {sorted(sizes)}")
+    return sizes.pop()

@@ -5,11 +5,22 @@ iteration-level scheduling state (counterpart of
 * **Slots over a KV backend** (:mod:`~accelerate_tpu_torch.kvcache`):
   per-slot ``pos/done/budget/token`` and sampling parameters live on the
   device, so mixed greedy and sampled traffic shares one decode step.
-* **Device programs**: ``insert`` runs the bucketed prompt forward
+* **Device programs**, with the JAX package's names and signatures:
+  ``prefill_insert (bucket,)`` runs the bucketed prompt forward
   (``llama_prefill_at``), samples the first token and writes the prompt's
-  KV into the slot; ``step`` runs one decode step over every slot, vacant
-  and finished slots riding along masked. PyTorch runs them eagerly; the
-  KV store is updated in place.
+  KV into the slot; ``decode_step ()`` runs one decode step over every
+  slot, vacant and finished slots riding along masked; ``verify_step
+  (k,)`` and ``prefill_insert ("chunk", chunk)`` below. Each reads and
+  writes only tensors that live as long as the engine (the KV store, the
+  block tables, the per-slot state, the inputs staged from the host by
+  non-blocking copies, the outputs the readback copies), so on CUDA each
+  signature is one captured ``torch.cuda.CUDAGraph``: its first call runs
+  eagerly (it builds the kernels and allocates what lives outside the
+  graph), then it is captured once and replayed from then on. A capture
+  that fails raises. On the CPU the same bodies run eagerly and the same
+  signatures are recorded, so ``stats()["programs"]`` counts what JAX
+  compiles: two programs per (slots, max_len), three with ``spec``, and
+  the chunk program with ``prefill_chunk``.
 * **Speculative decoding** (``spec="ngram"``): a host drafter proposes up
   to ``spec_draft_len`` tokens per slot from n-gram matches in the slot's
   own history, and one verify step (``llama_verify_step`` over W =
@@ -23,9 +34,10 @@ iteration-level scheduling state (counterpart of
   with the other slots' decode steps; the last chunk samples the first
   token exactly as a single-shot prefill does.
 * **Deferred readback**: each program's (token, done) vectors are copied
-  to pinned host buffers with non-blocking copies and a CUDA event, and
-  read ``readback_lag`` programs later at :meth:`poll`, so the decode loop
-  never waits on the device (no ``.item()`` on the decode path).
+  to pinned host buffers (kept for reuse) with non-blocking copies and a
+  CUDA event, and read ``readback_lag`` programs later at :meth:`poll`, so
+  the decode loop never waits on the device (no ``.item()`` on the decode
+  path).
 * **Sampling**: ``attention_impl="kernel"`` (the JAX package's
   ``"pallas"``) sends decode attention through the paged flash-decode
   kernel and both decode's draw and prefill's first-token draw through
@@ -33,12 +45,14 @@ iteration-level scheduling state (counterpart of
   attention and the sort-based :func:`_sample_rows`. Both draw as
   ``argmax(filtered + gumbel)`` with the same Gumbel noise, drawn on the
   device from one ``torch.Generator`` per slot seeded by the request's
-  ``seed``: a slot's stream depends only on its own request. Every decode
-  or verify step takes the same numbers from each decoding slot's
-  generator (V Gumbel uniforms, then ``spec_draft_len`` acceptance
-  uniforms when ``spec`` is on), so a slot's draws never depend on whether
-  another slot's drafts turned the step into a verify step; with ``spec``
-  off the stream is the plain one.
+  ``seed`` at its first token: a slot's stream depends only on its own
+  request. Every decode or verify step takes the same numbers from every
+  slot's generator (V Gumbel uniforms, then ``spec_draft_len`` acceptance
+  uniforms when ``spec`` is on), so the step has one shape and a slot's
+  draws never depend on whether another slot's drafts turned the step
+  into a verify step; with ``spec`` off the stream is the plain one. The
+  generators are registered with each captured graph, so a replay
+  advances each stream exactly as an eager step does.
 
 Not ported yet (ROADMAP.md A3): disaggregated prefill
 (``prefill_remote``/``insert_prefilled``), the host KV tier
@@ -48,6 +62,7 @@ Not ported yet (ROADMAP.md A3): disaggregated prefill
 from __future__ import annotations
 
 import collections
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, List, Optional
@@ -56,10 +71,56 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
-from .kvcache import host_to_device, make_kv_backend
+from .kvcache import HostStage, make_kv_backend
+from .ops import _build
 from .utils.fault import EngineCapacityError, EngineInvariantError
 
 __all__ = ["ContinuousBatchingEngine", "SlotOccupant"]
+
+_graphs_disabled = False
+
+
+@contextlib.contextmanager
+def _disable_graphs():
+    """Private hook, in the spirit of ``jax.disable_jit``: engines built
+    inside run every program eagerly on CUDA too, kernel by kernel, through
+    the same bodies the graphs capture. It exists to hold the captured
+    programs against the eager ones in one process (``chip_smoke.py``, the
+    card tests); the engine never falls back to it."""
+    global _graphs_disabled
+    prev, _graphs_disabled = _graphs_disabled, True
+    try:
+        yield
+    finally:
+        _graphs_disabled = prev
+
+
+def _leaves(tree):
+    """The tensors of a KV store (float leaves or int8 ``{"q", "s"}`` pairs)."""
+    for leaf in tree.values():
+        yield from (_leaves(leaf) if isinstance(leaf, dict) else (leaf,))
+
+
+class _Graph:
+    """One program captured as a CUDA graph. The capture records each
+    kernel launch of ``body`` (the wrappers' counts go to ``launches``,
+    added once per :meth:`replay`) and advances no generator: the
+    registered ones advance at each replay, as an eager call would."""
+
+    def __init__(self, body: Callable[[], None], generators):
+        self.graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            self.graph.register_generator_state(gen)
+        # thread_local: the serving worker captures while other threads
+        # may use the card; a synchronising call in this thread still fails
+        with _build.capture_launches() as launches, \
+                torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            body()
+        self.launches = launches
+
+    def replay(self) -> None:
+        self.graph.replay()
+        _build.add_launches(self.launches)
 
 
 @dataclass
@@ -110,7 +171,7 @@ def _filter_logits(logits, temp, top_k, top_p):
     k_on = (top_k > 0) & (top_k < v)
     k_eff = top_k.long().clamp(1, v)
     rank = torch.arange(v, device=logits.device)[None, :]
-    neg_inf = torch.tensor(float("-inf"), device=logits.device)
+    neg_inf = torch.full((), float("-inf"), device=logits.device)
     sorted_f = torch.where(~k_on[:, None] | (rank < k_eff[:, None]), sorted_l, neg_inf)
     kth = torch.gather(sorted_l, 1, (k_eff - 1)[:, None])
     filtered = torch.where(k_on[:, None] & (scaled < kth), neg_inf, scaled)
@@ -183,7 +244,7 @@ def _verify_accept(logits, draft, dlen, temp, top_k, top_p, u, noise):
     d_rej = draft_ext.gather(1, a[:, None])[:, 0]
     vocab = torch.arange(v, device=dev)
     resid = torch.where((a < dlen)[:, None] & (vocab[None, :] == d_rej[:, None]),
-                        torch.tensor(float("-inf"), device=dev), finals_a)
+                        torch.full((), float("-inf"), device=dev), finals_a)
     t_final = torch.where(temp > 0, (resid + noise).argmax(dim=-1), greedy.gather(1, a[:, None])[:, 0])
     jw = torch.arange(w, device=dev)[None, :]
     return torch.where(jw < a[:, None], draft_ext, t_final[:, None]), a
@@ -326,6 +387,11 @@ class ContinuousBatchingEngine:
         self.spec_slot_steps = 0
         self.spec_ewma = 1.0  # engine-wide acceptance EWMA (optimistic)
         self._gens = [torch.Generator(device=self.device) for _ in range(slots)]
+        # program name -> the signatures it ran with (JAX: the jitted
+        # programs compiled); on CUDA each signature is one captured graph
+        self._programs: dict = {}
+        self._use_graphs = self.device.type == "cuda" and not _graphs_disabled
+        self._graphs: dict = {}
         self._init_state()
         self._occupants: List[Optional[SlotOccupant]] = [None] * slots
         self._free: List[int] = list(range(slots))
@@ -342,54 +408,133 @@ class ContinuousBatchingEngine:
         self.retired = 0
 
     # ----------------------------------------------------------- state
-    def _init_state(self) -> None:
-        s, dev = self.slots, self.device
-        self._cache = self._backend.init_device_state()
-        self._pos = torch.zeros((s,), dtype=torch.int32, device=dev)
-        # vacant slots are permanently done: they ride every step masked
-        self._carried = {
-            "token": torch.zeros((s,), dtype=torch.int32, device=dev),
-            "done": torch.ones((s,), dtype=torch.bool, device=dev),
-            "budget": torch.zeros((s,), dtype=torch.int32, device=dev),
-            "temp": torch.zeros((s,), dtype=torch.float32, device=dev),
-            "top_k": torch.zeros((s,), dtype=torch.int32, device=dev),
-            "top_p": torch.ones((s,), dtype=torch.float32, device=dev),
-            "eos": torch.full((s,), -1, dtype=torch.int32, device=dev),
-            "pad": torch.zeros((s,), dtype=torch.int32, device=dev),
-        }
-        # uniforms for the Gumbel noise and for draft acceptance; rows of
-        # slots that draw nothing keep 0.5 (unused)
-        self._uniform = torch.full((s, self.config.vocab_size), 0.5, device=dev)
-        self._accept_u = torch.full((s, max(self.spec_draft_len, 1)), 0.5, device=dev)
+    # the per-call scalar operands of the prefill and chunk programs, in
+    # order (``_args``, int64 on the device): the slot, the last prompt
+    # position (a chunk: its offset), the chunk's length, the column of the
+    # last prompt position in the chunk, whether it is the last chunk, and
+    # the request's budget
+    _ARGS = ("slot", "pos", "count", "col", "last", "budget")
 
-    def _gumbel(self) -> torch.Tensor:
-        """Gumbel noise of the (S, V) uniforms, like ``jax.random.gumbel``:
+    # the carried per-slot state of a vacant slot: permanently done, it
+    # rides every step masked
+    _CARRIED = {"token": (torch.int32, 0), "done": (torch.bool, True), "budget": (torch.int32, 0),
+                "temp": (torch.float32, 0.0), "top_k": (torch.int32, 0), "top_p": (torch.float32, 1.0),
+                "eos": (torch.int32, -1), "pad": (torch.int32, 0)}
+
+    def _init_state(self) -> None:
+        """Every tensor the programs read or write, allocated once: a
+        captured graph keeps their addresses (:meth:`reset` refills them in
+        place)."""
+        s, dev, k = self.slots, self.device, max(self.spec_draft_len, 1)
+        self._cache = self._backend.init_device_state()
+        self._tables = self._backend.device_tables()
+        self._pos = torch.zeros((s,), dtype=torch.int32, device=dev)
+        self._carried = {name: torch.full((s,), value, dtype=dtype, device=dev)
+                         for name, (dtype, value) in self._CARRIED.items()}
+        # uniforms for the Gumbel noise and for draft acceptance
+        self._uniform = torch.full((s, self.config.vocab_size), 0.5, device=dev)
+        self._accept_u = torch.full((s, k), 0.5, device=dev)
+        # inputs staged from the host before a program runs
+        self._args = torch.zeros((len(self._ARGS),), dtype=torch.int64, device=dev)
+        self._prompt_ids = torch.zeros((1, self.prompt_bucket), dtype=torch.int64, device=dev)
+        self._chunk_ids = torch.zeros((1, self.prefill_chunk or 1), dtype=torch.int64, device=dev)
+        self._draft = torch.zeros((s, k), dtype=torch.int64, device=dev)
+        self._dlen = torch.zeros((s,), dtype=torch.int64, device=dev)
+        self._stages = {name: HostStage(t) for name, t in (
+            ("args", self._args), ("prompt", self._prompt_ids), ("chunk", self._chunk_ids),
+            ("draft", self._draft), ("dlen", self._dlen))}
+        # outputs that are not carried state, read back after a program
+        self._out = {
+            "t0": torch.zeros((1,), dtype=torch.int32, device=dev),
+            "done0": torch.zeros((1,), dtype=torch.bool, device=dev),
+            "emitted": torch.zeros((s, k + 1), dtype=torch.int32, device=dev),
+            "m": torch.zeros((s,), dtype=torch.int32, device=dev),
+            "a": torch.zeros((s,), dtype=torch.int32, device=dev),
+        }
+
+    def _stage_args(self, **fields) -> None:
+        self._stages["args"].write([fields.get(name, 0) for name in self._ARGS])
+
+    def _arg(self, name: str) -> torch.Tensor:
+        """Operand ``name`` of ``_args``, a (1,) int64 view on the device."""
+        i = self._ARGS.index(name)
+        return self._args[i:i + 1]
+
+    def _run(self, name: str, sig: tuple, body: Callable[[], None]) -> None:
+        """Run program ``name`` with signature ``sig``: on CUDA the first
+        call runs ``body`` eagerly and captures it, later calls replay the
+        graph; eagerly on the CPU (and under :func:`_disable_graphs`). The
+        host's block table reaches the device first."""
+        self._programs.setdefault(name, set()).add(sig)
+        self._backend.device_tables()
+        if not self._use_graphs:
+            body()
+            return
+        graph = self._graphs.get((name, sig))
+        if graph is None:
+            body()  # the warm-up is the real call
+            self._graphs[(name, sig)] = _Graph(body, self._gens)
+            return
+        graph.replay()
+
+    def graph_launches(self) -> dict:
+        """Kernel launches of one replay of each captured program:
+        ``{"decode_step ()": {kernel: n, ...}, ...}`` (empty without graphs)."""
+        return {f"{name} {sig}": dict(g.launches) for (name, sig), g in self._graphs.items()}
+
+    @staticmethod
+    def _gumbel(u: torch.Tensor) -> torch.Tensor:
+        """Gumbel noise of uniforms, like ``jax.random.gumbel``:
         ``-log(-log(u))`` with ``u`` kept above the smallest normal float."""
-        u = self._uniform.clamp_min(torch.finfo(torch.float32).tiny)
+        u = u.clamp_min(torch.finfo(torch.float32).tiny)
         return -torch.log(-torch.log(u))
 
-    def _draw(self, rows: List[int]):
-        """One step's numbers for ``rows``, each from its slot's generator:
-        V Gumbel uniforms, then (with ``spec``) ``spec_draft_len`` acceptance
-        uniforms. Returns (Gumbel noise (S, V), acceptance uniforms (S, k))."""
+    def _draw(self):
+        """One step's numbers for every slot, each from its slot's
+        generator: V Gumbel uniforms, then (with ``spec``)
+        ``spec_draft_len`` acceptance uniforms. A slot that is not decoding
+        draws too (its generator is reseeded at its next request's first
+        token), so the step has one shape. Returns (Gumbel noise (S, V),
+        acceptance uniforms (S, k))."""
         v = self.config.vocab_size
-        for i in rows:
+        for i in range(self.slots):
             torch.rand(v, generator=self._gens[i], device=self.device, out=self._uniform[i])
             if self.spec is not None:
                 torch.rand(self.spec_draft_len, generator=self._gens[i], device=self.device,
                            out=self._accept_u[i])
-        return self._gumbel(), self._accept_u
+        return self._gumbel(self._uniform), self._accept_u
 
-    def _first_token(self, slot: int, logits, seed: int) -> torch.Tensor:
-        """Sample a request's first token from its last prompt position's
-        (1, V) logits: seeds the slot's generator and takes V uniforms, the
-        same for a single-shot prefill and for the last chunk."""
+    def _seed_first_token(self, slot: int, seed: int) -> None:
+        """Seed the slot's generator with the request's seed and draw its
+        first token's V uniforms, eagerly: the generator is picked on the
+        host. The same for a single-shot prefill and for the last chunk."""
         self._gens[slot].manual_seed(seed)
         torch.rand(self.config.vocab_size, generator=self._gens[slot], device=self.device,
                    out=self._uniform[slot])
+
+    def _install_first(self, logits, slot: torch.Tensor, is_last=None) -> None:
+        """Device half of a request's first token: sample it from its last
+        prompt position's (1, V) logits with the uniforms
+        :meth:`_seed_first_token` drew, and install the slot's carried
+        state. ``is_last`` ((1,) bool, chunks): a chunk before the last
+        installs a ghost (pad token, done, no budget) instead."""
         c = self._carried
-        return self._sample(logits, self._gumbel()[slot: slot + 1], c["temp"][slot: slot + 1],
-                            c["top_k"][slot: slot + 1], c["top_p"][slot: slot + 1])
+        pick = {name: c[name].index_select(0, slot) for name in ("temp", "top_k", "top_p", "eos", "pad")}
+        t0 = self._sample(logits, self._gumbel(self._uniform.index_select(0, slot)),
+                          pick["temp"], pick["top_k"], pick["top_p"])
+        budget = self._arg("budget").to(torch.int32)
+        eos = pick["eos"]
+        done0 = ((t0 == eos) & (eos >= 0)) | (budget <= 1)
+        budget = budget - 1
+        if is_last is not None:
+            t0 = torch.where(is_last, t0, pick["pad"])
+            done0 = done0 | ~is_last
+            budget = torch.where(is_last, budget, 0)
+        c["token"].index_copy_(0, slot, t0)
+        c["done"].index_copy_(0, slot, done0)
+        c["budget"].index_copy_(0, slot, budget)
+        self._out["t0"].copy_(t0)
+        self._out["done0"].copy_(done0)
 
     def _sample(self, logits, noise, temp, top_k, top_p):
         if self.attention_impl == "kernel":
@@ -400,8 +545,9 @@ class ContinuousBatchingEngine:
         return _sample_rows(logits, noise, temp, top_k, top_p)
 
     def _readback(self, *tensors):
-        """Start non-blocking device->host copies; returns (host tensors,
-        event) to be read once the event has completed."""
+        """Start non-blocking device->host copies into pinned buffers
+        (PyTorch's caching host allocator reuses their blocks); returns
+        (host tensors, event) to be read once the event has completed."""
         if self.device.type != "cuda":
             return tuple(t.clone() for t in tensors), None
         hosts = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors)
@@ -494,8 +640,8 @@ class ContinuousBatchingEngine:
         chunked = len(prompt) > self.prompt_bucket
         slot = self._free.pop()
         try:
-            table_row, shared = self._backend.acquire(slot, prompt, max_new_tokens,
-                                                      defer_register=chunked)
+            _, shared = self._backend.acquire(slot, prompt, max_new_tokens,
+                                              defer_register=chunked)
         except BaseException:
             self._free.append(slot)
             raise
@@ -525,29 +671,28 @@ class ContinuousBatchingEngine:
             # slot's position and ghost mask before any decode step
             self._dispatch_chunk(occ)
             return occ
-        dev = self.device
         length = len(prompt)
-        padded = np.zeros((1, self.prompt_bucket), np.int32)
+        padded = np.zeros((1, self.prompt_bucket), np.int64)
         padded[0, :length] = prompt
-        logits, new_cache = self._prefill_at_fn(
-            self.config, self.model.params, host_to_device(padded, dev).long(),
-            self.max_len, [length - 1],
-        )
-        t0 = self._first_token(slot, logits, seed)
-        self._backend.prefill_write(self._cache, new_cache, slot, host_to_device(table_row, dev))
-        self._pos[slot] = length
-        self._install_first(slot, t0, max_new_tokens, eos, occ)
+        self._stages["prompt"].write(padded)
+        self._stage_args(slot=slot, pos=length - 1, budget=max_new_tokens)
+        self._seed_first_token(slot, seed)
+        self._run("prefill_insert", (self.prompt_bucket,), self._prefill_body)
+        self._tick += 1
+        self._ring.append((self._tick, "prefill", occ, *self._readback(self._out["t0"], self._out["done0"])))
         return occ
 
-    def _install_first(self, slot, t0, budget, eos, occ) -> None:
-        """Carried state after a request's first token, and its ring entry."""
-        c = self._carried
-        done0 = ((t0 == eos) & (eos >= 0)) | (budget - 1 <= 0)
-        c["token"][slot: slot + 1] = t0
-        c["done"][slot: slot + 1] = done0
-        c["budget"][slot] = budget - 1
-        self._tick += 1
-        self._ring.append((self._tick, "prefill", occ, *self._readback(t0, done0)))
+    def _prefill_body(self) -> None:
+        """``prefill_insert (bucket,)``: the prompt's forward, its KV into
+        the slot's blocks, the slot's position, and the first token. Every
+        operand is on the device: the prompt, the slot and the last prompt
+        position (``_args``), the slot's table row."""
+        slot, last = self._arg("slot"), self._arg("pos")
+        logits, new_cache = self._prefill_at_fn(
+            self.config, self.model.params, self._prompt_ids, self.max_len, last)
+        self._backend.prefill_write(self._cache, new_cache, slot, self._tables.index_select(0, slot)[0])
+        self._pos.index_copy_(0, slot, (last + 1).to(torch.int32))
+        self._install_first(logits, slot)
 
     # ------------------------------------------------------- chunked prefill
     @torch.no_grad()
@@ -558,36 +703,26 @@ class ContinuousBatchingEngine:
         chunk's first position, which that chunk rewrites before anything
         attends it. The last chunk samples the first token; the prompt's
         parked prefix registrations are installed then."""
-        slot, chunk, dev = occ.slot, self.prefill_chunk, self.device
+        slot, chunk = occ.slot, self.prefill_chunk
         length = len(occ.prompt)
         offset = occ.prefill_pos
         chunk_len = min(chunk, length - offset)
         is_last = offset + chunk_len >= length
-        tokens = np.zeros((1, chunk), np.int32)
+        tokens = np.zeros((1, chunk), np.int64)
         tokens[0, :chunk_len] = occ.prompt[offset: offset + chunk_len]
-        pos = torch.full((1,), offset, dtype=torch.int32, device=dev)
-        cache, tables = self._backend.rows(self._cache, self._backend.device_tables(), slot)
-        logits, win_kv = self._verify_fn(
-            self.config, self.model.params, cache, host_to_device(tokens, dev).long(), pos,
-            kv_layout=self._backend.make_layout(tables),
-        )
-        count = torch.full((1,), chunk_len, dtype=torch.int32, device=dev)
-        self._backend.commit_window(cache, win_kv, tables, pos, count)
-        self._pos[slot] = offset + chunk_len
+        self._stages["chunk"].write(tokens)
+        args = occ.chunk_args
+        self._stage_args(slot=slot, pos=offset, count=chunk_len, col=min(length - 1 - offset, chunk - 1),
+                         last=int(is_last), budget=args["budget"])
+        if is_last:
+            self._seed_first_token(slot, args["seed"])
+        self._run("prefill_insert", ("chunk", chunk), self._chunk_body)
         self.prefill_chunks += 1
         occ.prefill_pos = offset + chunk_len
-        c = self._carried
+        self._tick += 1
         if not is_last:
-            # ride decode steps as a ghost, even if a cancelled predecessor
-            # left the slot's done flag off
-            c["token"][slot] = occ.pad_id
-            c["done"][slot] = True
-            c["budget"][slot] = 0
-            self._tick += 1
             self._ring.append((self._tick, "chunk", occ, (), None))
             return
-        args = occ.chunk_args
-        t0 = self._first_token(slot, logits[:, length - 1 - offset], args["seed"])
         occ.prefilling = False
         occ.chunk_args = None
         if occ in self._prefill_queue:
@@ -595,7 +730,25 @@ class ContinuousBatchingEngine:
         # the prompt's content now exists: later requests may share it
         if hasattr(self._backend, "promote_deferred"):
             self._backend.promote_deferred(slot)
-        self._install_first(slot, t0, args["budget"], args["eos"], occ)
+        self._ring.append((self._tick, "prefill", occ, *self._readback(self._out["t0"], self._out["done0"])))
+
+    def _chunk_body(self) -> None:
+        """``prefill_insert ("chunk", chunk)``: the window forward over one
+        slot at its offset, its first ``count`` columns committed, the
+        slot's position, and the first token, which only the last chunk
+        installs (a chunk before it leaves the slot a ghost, even if a
+        cancelled predecessor left its done flag off)."""
+        slot = self._arg("slot")
+        pos, count = self._arg("pos").to(torch.int32), self._arg("count").to(torch.int32)
+        cache, tables = self._backend.rows(self._cache, self._tables, slot)
+        logits, win_kv = self._verify_fn(
+            self.config, self.model.params, cache, self._chunk_ids, pos,
+            kv_layout=self._backend.make_layout(tables),
+        )
+        self._backend.commit_window(self._cache, win_kv, tables, pos, count, rows=slot)
+        self._pos.index_copy_(0, slot, pos + count)
+        last_col = logits.index_select(1, self._arg("col"))[:, 0]
+        self._install_first(last_col, slot, is_last=self._arg("last").bool())
 
     def prefill_step(self, limit: Optional[int] = None) -> bool:
         """Dispatch up to ``limit`` (default: the clamp of
@@ -655,50 +808,63 @@ class ContinuousBatchingEngine:
 
     @torch.no_grad()
     def _dispatch_decode(self) -> bool:
+        self._run("decode_step", (), self._decode_body)
+        self.steps += 1
+        self._tick += 1
         c = self._carried
-        tables = self._backend.device_tables()
-        layout = self._backend.make_layout(tables)
-        logits, self._cache = self._decode_fn(
+        self._ring.append((self._tick, "decode", self._ring_occupants(),
+                           *self._readback(c["token"], c["done"])))
+        return True
+
+    def _decode_body(self) -> None:
+        """``decode_step ()``: one token for every slot, the carried state
+        updated in place."""
+        c = self._carried
+        logits, _ = self._decode_fn(
             self.config, self.model.params, self._cache, c["token"][:, None].long(),
-            self._pos, kv_layout=layout,
+            self._pos, kv_layout=self._backend.make_layout(self._tables),
         )
-        noise, _ = self._draw(self._decoding_slots())
+        noise, _ = self._draw()
         nxt = self._sample(logits, noise, c["temp"], c["top_k"], c["top_p"])
-        done = c["done"]
-        emitting = ~done
+        emitting = ~c["done"]
         nxt = torch.where(emitting, nxt, c["pad"])
         budget = c["budget"] - emitting.to(torch.int32)
         hit_eos = (c["eos"] >= 0) & (nxt == c["eos"])
-        c["done"] = done | (emitting & (hit_eos | (budget <= 0)))
-        c["token"] = nxt
-        c["budget"] = budget
+        done = c["done"] | (emitting & (hit_eos | (budget <= 0)))
         self._pos += emitting.to(torch.int32)
-        self.steps += 1
-        self._tick += 1
-        self._ring.append((self._tick, "decode", self._ring_occupants(),
-                           *self._readback(nxt, c["done"])))
-        return True
+        c["token"].copy_(nxt)
+        c["budget"].copy_(budget)
+        c["done"].copy_(done)
 
     @torch.no_grad()
     def _dispatch_verify(self, draft_np: np.ndarray, dlen_np: np.ndarray) -> None:
-        """One verify step over every slot: window ``[token, drafts]`` at
-        ``pos .. pos+k``, drafts accepted by :func:`_verify_accept` with this
-        step's noise, so a row without drafts draws exactly what decode
+        self._stages["draft"].write(draft_np)
+        self._stages["dlen"].write(dlen_np)
+        self._run("verify_step", (self.spec_draft_len,), self._verify_body)
+        self.steps += 1
+        self.spec_verify_steps += 1
+        self._tick += 1
+        o = self._out
+        self._ring.append((self._tick, "verify", (self._ring_occupants(), dlen_np),
+                           *self._readback(o["emitted"], o["m"], o["a"], self._carried["done"])))
+
+    def _verify_body(self) -> None:
+        """``verify_step (k,)`` over every slot: window ``[token, drafts]``
+        at ``pos .. pos+k``, drafts accepted by :func:`_verify_accept` with
+        this step's noise, so a row without drafts draws exactly what decode
         draws. Emission stops at the budget and at the first EOS; exactly
         ``m`` window columns are committed (the last emitted token is
         carried, as after decode)."""
-        s, k = self.slots, self.spec_draft_len
+        k = self.spec_draft_len
         w = k + 1
         c, dev = self._carried, self.device
-        draft = host_to_device(draft_np, dev).long()  # (S, k)
-        dlen = host_to_device(dlen_np, dev).long()  # (S,)
+        draft, dlen = self._draft, self._dlen
         tokens = torch.cat([c["token"][:, None].long(), draft], dim=1)
-        tables = self._backend.device_tables()
         logits, win_kv = self._verify_fn(
             self.config, self.model.params, self._cache, tokens, self._pos,
-            kv_layout=self._backend.make_layout(tables),
+            kv_layout=self._backend.make_layout(self._tables),
         )
-        noise, u = self._draw(self._decoding_slots())
+        noise, u = self._draw()
         emitted, a = _verify_accept(logits, draft, dlen, c["temp"], c["top_k"], c["top_p"],
                                     u[:, :k], noise)
         # stop at the budget and at the first EOS
@@ -712,19 +878,17 @@ class ContinuousBatchingEngine:
         m = torch.where(emitting, m, torch.zeros_like(m))
         pad = c["pad"].long()
         emitted = torch.where(jw < m[:, None], emitted, pad[:, None])
-        self._backend.commit_window(self._cache, win_kv, tables, self._pos, m)
+        self._backend.commit_window(self._cache, win_kv, self._tables, self._pos, m)
         last = emitted.gather(1, (m - 1).clamp_min(0)[:, None])[:, 0]
         budget = c["budget"] - m.to(torch.int32)
-        c["token"] = torch.where(emitting, last, pad).to(torch.int32)
-        c["done"] = done | (emitting & ((first_eos < m) | (budget <= 0)))
-        c["budget"] = budget
         self._pos += m.to(torch.int32)
-        self.steps += 1
-        self.spec_verify_steps += 1
-        self._tick += 1
-        self._ring.append((self._tick, "verify", (self._ring_occupants(), dlen_np),
-                           *self._readback(emitted.to(torch.int32), m.to(torch.int32),
-                                           a.to(torch.int32), c["done"])))
+        c["token"].copy_(torch.where(emitting, last, pad))
+        c["done"].copy_(done | (emitting & ((first_eos < m) | (budget <= 0))))
+        c["budget"].copy_(budget)
+        o = self._out
+        o["emitted"].copy_(emitted)
+        o["m"].copy_(m)
+        o["a"].copy_(a)
 
     def set_spec_draft_limit(self, n: int) -> None:
         """Clamp the drafter's proposal length at runtime, in [0,
@@ -735,11 +899,9 @@ class ContinuousBatchingEngine:
         """Wait for every pending readback, so the drafter sees each slot's
         true history. Absorption and retirement still happen at
         :meth:`poll`, ``readback_lag`` steps late."""
-        for i in range(len(self._ring)):
-            entry = self._ring[i]
+        for entry in self._ring:
             if entry[4] is not None:
                 entry[4].synchronize()
-                self._ring[i] = (*entry[:4], None)
 
     def _pending_tokens(self, occ: SlotOccupant):
         """Tokens emitted for ``occ`` that sit in the (materialized) ring but
@@ -835,35 +997,38 @@ class ContinuousBatchingEngine:
             _, kind, payload, hosts, event = self._ring.popleft()
             if event is not None:
                 event.synchronize()  # the ring IS the readback point
-            if kind == "chunk":
-                continue  # progress only: the last chunk's entry carries t0
-            if kind == "prefill":
-                self._absorb(payload, int(hosts[0][0]), bool(hosts[1][0]), retired)
-                continue
-            if kind == "decode":
-                toks, dones = (h.numpy() for h in hosts)
-                for occ in payload:
-                    if occ is None or occ.finished:
-                        continue
-                    occ.decode_steps += 1
-                    self._absorb(occ, int(toks[occ.slot]), bool(dones[occ.slot]), retired)
-                continue
-            # verify: up to W tokens per slot; done applies to the last
-            occs, dlens = payload
-            emitted, ms, accs, dones = (h.numpy() for h in hosts)
-            for occ in occs:
+            self._absorb_entry(kind, payload, hosts, retired)
+        return retired
+
+    def _absorb_entry(self, kind, payload, hosts, retired: list) -> None:
+        if kind == "chunk":
+            return  # progress only: the last chunk's entry carries t0
+        if kind == "prefill":
+            self._absorb(payload, int(hosts[0][0]), bool(hosts[1][0]), retired)
+            return
+        if kind == "decode":
+            toks, dones = (h.numpy() for h in hosts)
+            for occ in payload:
                 if occ is None or occ.finished:
                     continue
                 occ.decode_steps += 1
-                i = occ.slot
-                if dlens[i] > 0:
-                    self._account_spec(occ, int(accs[i]), int(dlens[i]), int(ms[i]))
-                m = int(ms[i])
-                for j in range(m):
-                    if occ.finished:
-                        break
-                    self._absorb(occ, int(emitted[i, j]), bool(dones[i]) and j == m - 1, retired)
-        return retired
+                self._absorb(occ, int(toks[occ.slot]), bool(dones[occ.slot]), retired)
+            return
+        # verify: up to W tokens per slot; done applies to the last
+        occs, dlens = payload
+        emitted, ms, accs, dones = (h.numpy() for h in hosts)
+        for occ in occs:
+            if occ is None or occ.finished:
+                continue
+            occ.decode_steps += 1
+            i = occ.slot
+            if dlens[i] > 0:
+                self._account_spec(occ, int(accs[i]), int(dlens[i]), int(ms[i]))
+            m = int(ms[i])
+            for j in range(m):
+                if occ.finished:
+                    break
+                self._absorb(occ, int(emitted[i, j]), bool(dones[i]) and j == m - 1, retired)
 
     def _account_spec(self, occ: SlotOccupant, acc: int, dl: int, m: int) -> None:
         self.spec_accepted += acc
@@ -938,9 +1103,10 @@ class ContinuousBatchingEngine:
         return retired
 
     def reset(self) -> List[SlotOccupant]:
-        """Drop all device state after a failure: fresh store, empty ring.
-        Returns the orphaned occupants so the caller can fail their
-        requests."""
+        """Drop all device state after a failure: a cleared store and
+        per-slot state (refilled in place, so the captured programs stay
+        valid), an empty ring. Returns the orphaned occupants so the caller
+        can fail their requests."""
         orphans = [o for o in self._occupants if o is not None and not o.finished]
         for occ in orphans:
             occ.finished = True
@@ -950,7 +1116,14 @@ class ContinuousBatchingEngine:
         self._ring.clear()
         self._prefill_queue.clear()
         self._backend.reset()
-        self._init_state()
+        self._backend.device_tables()
+        for leaf in _leaves(self._cache):
+            leaf.zero_()
+        self._pos.zero_()
+        for name, (_, value) in self._CARRIED.items():
+            self._carried[name].fill_(value)
+        self._uniform.fill_(0.5)
+        self._accept_u.fill_(0.5)
         return orphans
 
     def live_tokens(self) -> int:
@@ -958,7 +1131,11 @@ class ContinuousBatchingEngine:
                    for o in self.occupants())
 
     def stats(self) -> dict:
+        """Host counters only (no device readback). ``programs``: each
+        program's number of signatures, as the JAX engine reports its
+        compiled programs; on CUDA each signature is one captured graph."""
         kv = self._backend.stats()
+        programs = {name: len(sigs) for name, sigs in self._programs.items()}
         live_tok = self.live_tokens()
         if self._backend.kind == "dense":
             reserved = self.live_count() * self.max_len
@@ -980,6 +1157,8 @@ class ContinuousBatchingEngine:
             "prefill_chunks_pending": self.prefill_chunks_pending(),
             "steps": self.steps,
             "retired": self.retired,
+            "programs": programs,
+            "program_count": sum(programs.values()),
             "kv": kv,
             "spec": {
                 "mode": self.spec or "off",

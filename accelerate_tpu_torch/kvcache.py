@@ -32,7 +32,12 @@ Safety invariants (why recycling a slot or a block cannot leak KV):
   the row, are dropped, never clamped onto live positions.
 
 Device tensors are updated in place (the JAX package rebuilt them
-functionally). The host-RAM spill tier is not ported yet (ROADMAP.md A3).
+functionally), and every device operand of the engine's programs is a
+tensor that lives as long as the engine: the block tables are one static
+``(slots, blocks_per_row)`` tensor, refreshed from the host table by a
+non-blocking copy (:class:`HostStage`) before the next program after an
+``acquire`` or a ``release``, so a captured CUDA graph keeps reading it.
+The host-RAM spill tier is not ported yet (ROADMAP.md A3).
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ __all__ = [
     "PagedKVBackend",
     "PagedBlockPool",
     "PagedKVLayout",
+    "HostStage",
     "make_kv_backend",
 ]
 
@@ -66,15 +72,27 @@ def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def host_to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Copy a host array to ``device`` without blocking the host on the
-    device's queue: through pinned memory and a non-blocking copy (the
-    caching host allocator keeps the staging buffer alive until the copy
-    has run)."""
-    t = torch.from_numpy(np.ascontiguousarray(arr))
-    if device.type != "cuda":
-        return t.clone()
-    return t.pin_memory().to(device, non_blocking=True)
+class HostStage:
+    """A pinned host buffer that feeds one device tensor, ``dst``, which
+    stays where it is: :meth:`write` fills the buffer and enqueues a
+    non-blocking copy into ``dst``. The copy reads the buffer when the
+    stream reaches it, so the next :meth:`write` first waits for the
+    event recorded after the last copy (at once in steady state: the
+    stream has long passed it). On the CPU the copy is a plain one."""
+
+    def __init__(self, dst: torch.Tensor):
+        self.dst = dst
+        cuda = dst.device.type == "cuda"
+        self.host = torch.empty(dst.shape, dtype=dst.dtype, pin_memory=cuda)
+        self._event = torch.cuda.Event() if cuda else None
+
+    def write(self, arr) -> None:
+        if self._event is not None:
+            self._event.synchronize()
+        self.host.numpy()[...] = arr
+        self.dst.copy_(self.host, non_blocking=True)
+        if self._event is not None:
+            self._event.record()
 
 
 # ------------------------------------------------------------------ int8 ops
@@ -398,24 +416,30 @@ class KVCacheBackend:
         """None: the model's decode step reads the cache directly (dense)."""
         raise NotImplementedError
 
-    def prefill_write(self, cache, new_cache, slot: int, table_row: torch.Tensor) -> dict:
+    def prefill_write(self, cache, new_cache, slot: torch.Tensor, table_row: torch.Tensor) -> dict:
         """Write a bucketed prefill's KV (``(L, 1, max_len, kvh, hd)`` per
-        leaf) into the store for ``slot``/``table_row``, in place."""
+        leaf) into the store for ``slot`` ((1,) int64 on the device) and
+        ``table_row`` ((blocks_per_row,) int32 on the device), in place."""
         raise NotImplementedError
 
-    def commit_window(self, cache, window_kv, tables, pos, count) -> dict:
+    def commit_window(self, cache, window_kv, tables, pos, count, rows=None) -> dict:
         """Write the first ``count[b]`` columns of a window (``window_kv``:
         ``{"k", "v"}`` of (L, B, W, kvh, hd), positions ``pos .. pos+W-1``)
         into the store, in place. Columns past ``count`` and positions past
-        the row are dropped, never clamped onto live positions."""
+        the row are dropped, never clamped onto live positions. ``rows``
+        ((B,) int64): the slots the window's rows belong to, where
+        ``tables`` were cut to them (:meth:`rows`); None for every slot."""
         raise NotImplementedError
 
-    def rows(self, cache, tables, slot: int):
-        """``(cache, tables)`` restricted to one slot's row, for a window
-        forward over that slot alone (chunked prefill)."""
+    def rows(self, cache, tables, slot: torch.Tensor):
+        """``(cache, tables)`` restricted to one slot's row (``slot`` (1,)
+        int64 on the device), for a window forward over that slot alone
+        (chunked prefill). The cache it returns is read only."""
         raise NotImplementedError
 
     def device_tables(self) -> torch.Tensor:
+        """The static device block tables, brought up to date with the host
+        table first (a non-blocking copy, only after a change)."""
         raise NotImplementedError
 
     def acquire(self, slot: int, prompt: np.ndarray, budget: int,
@@ -468,28 +492,28 @@ class DenseKVBackend(KVCacheBackend):
 
     def prefill_write(self, cache, new_cache, slot, table_row):
         for w in ("k", "v"):
-            cache[w][:, slot] = new_cache[w][:, 0].to(self._dtype)
+            cache[w].index_copy_(1, slot, new_cache[w][:, :1].to(self._dtype))
         return cache
 
-    def commit_window(self, cache, window_kv, tables, pos, count):
-        # row b of the window is arena row b of ``cache`` (the whole arena,
-        # or one slot's row from rows()); positions past max_len are dropped
-        # by writing them back unchanged: W <= max_len consecutive positions
-        # are distinct modulo max_len, so the wrapped targets never collide
-        # with a real write
+    def commit_window(self, cache, window_kv, tables, pos, count, rows=None):
+        # row b of the window is arena row rows[b]; positions past max_len
+        # are dropped by writing them back unchanged: W <= max_len
+        # consecutive positions are distinct modulo max_len, so the wrapped
+        # targets never collide with a real write
         b, w = window_kv["k"].shape[1:3]
         j = torch.arange(w, device=pos.device)[None, :]
         idx = pos.long()[:, None] + j
         valid = ((j < count.long()[:, None]) & (idx < self.max_len))[None, :, :, None, None]
-        rows = torch.arange(b, device=pos.device)[:, None]
-        target = (slice(None), rows, idx % self.max_len)
+        if rows is None:
+            rows = torch.arange(b, device=pos.device)
+        target = (slice(None), rows[:, None], idx % self.max_len)
         for w_ in ("k", "v"):
             leaf = cache[w_]
             leaf[target] = torch.where(valid, window_kv[w_].to(leaf.dtype), leaf[target])
         return cache
 
     def rows(self, cache, tables, slot):
-        return {w: c[:, slot: slot + 1] for w, c in cache.items()}, tables[slot: slot + 1]
+        return {w: c.index_select(1, slot) for w, c in cache.items()}, tables.index_select(0, slot)
 
     def device_tables(self):
         return self._tables
@@ -570,7 +594,10 @@ class PagedKVBackend(KVCacheBackend):
             num_blocks=pool_blocks, block_size=block_size, slots=slots,
             blocks_per_row=self.blocks_per_row,
         )
-        self._device_tables: Optional[torch.Tensor] = None
+        self._device_tables = torch.zeros((slots, self.blocks_per_row), dtype=torch.int32,
+                                          device=device)
+        self._table_stage = HostStage(self._device_tables)
+        self._tables_stale = True
 
     def init_device_state(self):
         shape = (self._layers, self.pool_blocks, self.block_size, self._kvh, self._hd)
@@ -590,30 +617,31 @@ class PagedKVBackend(KVCacheBackend):
         writes; shared prefix blocks are rewritten with identical bytes (int8:
         the same quantization of the same values)."""
         n, bs = self.prefill_blocks, self.block_size
-        ids = table_row[:n].long()
+        ids = table_row[:n].long()  # the row names the slot's blocks
         for w in ("k", "v"):
             fresh = new_cache[w][:, 0, : n * bs]  # (L, n*bs, kvh, hd)
             fresh = fresh.reshape(self._layers, n, bs, self._kvh, self._hd)
             _set_rows(cache[w], (slice(None), ids), fresh if self.quantized else fresh.to(self._dtype))
         return cache
 
-    def commit_window(self, cache, window_kv, tables, pos, count):
+    def commit_window(self, cache, window_kv, tables, pos, count, rows=None):
         layout = self.make_layout(tables)
         for w in ("k", "v"):
             layout.commit_window(cache[w], window_kv[w], pos, count)
         return cache
 
     def rows(self, cache, tables, slot):
-        return cache, tables[slot: slot + 1]
+        return cache, tables.index_select(0, slot)
 
     def device_tables(self):
-        if self._device_tables is None:
-            self._device_tables = host_to_device(self.pool.tables, self.device)
+        if self._tables_stale:
+            self._table_stage.write(self.pool.tables)
+            self._tables_stale = False
         return self._device_tables
 
     def acquire(self, slot, prompt, budget, defer_register=False):
         out = self.pool.acquire(slot, prompt, budget, defer_register=defer_register)
-        self._device_tables = None
+        self._tables_stale = True
         return out
 
     def promote_deferred(self, slot: int, count: Optional[int] = None) -> int:
@@ -621,7 +649,7 @@ class PagedKVBackend(KVCacheBackend):
 
     def release(self, slot):
         self.pool.release(slot)
-        self._device_tables = None
+        self._tables_stale = True
 
     def can_admit(self, prompt, budget):
         return self.pool.can_admit(prompt, budget)
@@ -639,7 +667,7 @@ class PagedKVBackend(KVCacheBackend):
 
     def reset(self):
         self.pool.reset()
-        self._device_tables = None
+        self._tables_stale = True
 
     def _per_block_bytes(self) -> int:
         """One block of one leaf over every layer; int8 adds its f32

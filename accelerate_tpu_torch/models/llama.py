@@ -7,7 +7,8 @@ Parameters keep the JAX package's pytree: stacked ``(L, ...)`` layer
 leaves, projection kernels in ``(in, out)`` layout, so ``params_from_jax``
 is a plain tree copy and each function here has a same-named counterpart.
 Layers run as a Python loop over the stack (the JAX ``lax.scan``); under
-remat ``"nothing"`` each layer is a ``torch.utils.checkpoint`` region.
+every remat policy but ``"full"`` each layer is a ``torch.utils.checkpoint``
+region (:func:`_remat_context`).
 :class:`LlamaForCausalLM` holds the stacked leaves as its parameters, and
 ``llama_apply`` splits each one into its layers with one ``unbind`` (see
 :func:`_layer_trees`).
@@ -24,15 +25,22 @@ int4 projection multiplies through the quantized matmul kernel, other
 quantized leaves are dequantized first. The prefill, decode and verify
 steps take float trees, as in the JAX package.
 
-Not ported yet (ROADMAP.md): remat ``"dots"``/``"minimal"``, chunked CE,
-MoE layers, Gemma-2's alternating sliding window and fp8.
+With ``use_chunked_ce`` the training forward returns the pre-head hidden
+states and the head (as the JAX package's does) and :func:`llama_loss`
+takes the cross entropy over vocabulary chunks
+(:func:`~accelerate_tpu_torch.ops.losses.chunked_softmax_cross_entropy`).
+
+Not ported yet (ROADMAP.md): MoE layers, Gemma-2's alternating sliding
+window and fp8.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
+import threading
 from typing import Any, Optional
 
 import numpy as np
@@ -91,7 +99,7 @@ class LlamaConfig:
     tie_word_embeddings: bool = False
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
-    remat_policy: str = "nothing"  # "nothing" | "full" ("dots", "minimal" queued)
+    remat_policy: str = "nothing"  # "nothing" | "full" | "dots" | "dots_no_batch" | "minimal"
     attention_impl: str = "blockwise"  # "xla" | "blockwise" | "flash"
     attention_kv_block: int = 512
     # accepted so that configs written for the JAX package load; no-ops here:
@@ -106,8 +114,7 @@ class LlamaConfig:
     expert_capacity_factor: float = 1.25
     moe_aux_loss_coef: float = 0.01
     router_z_loss_coef: float = 0.0
-    # fp8 projections and the chunked cross entropy: refused when on
-    # (ROADMAP.md A4)
+    # fp8 projections: refused when on (ROADMAP.md A4)
     use_fp8: bool = False
     use_chunked_ce: bool = False
     ce_chunk_size: int = 4096
@@ -244,11 +251,6 @@ def _check_supported(config: LlamaConfig, params: Optional[dict] = None) -> None
     if config.use_fp8:
         raise NotImplementedError(
             "use_fp8 (fp8 projections, ops/fp8.py) is not ported yet (ROADMAP.md A4)"
-        )
-    if config.use_chunked_ce:
-        raise NotImplementedError(
-            "use_chunked_ce (the chunked cross entropy, with ce_chunk_size) is not ported "
-            "yet (ROADMAP.md A4)"
         )
     if config.alternating_sliding_window:
         raise NotImplementedError(
@@ -613,7 +615,8 @@ def _mlp_block(config, layer_params, x):
     mlp = layer_params["mlp"]
     gate = _matmul(config, y, mlp["gate_proj"]["kernel"])
     up = _matmul(config, y, mlp["up_proj"]["kernel"])
-    y = _matmul(config, _mlp_act(config, gate) * up, mlp["down_proj"]["kernel"])
+    with _block_output("mlp_block_out"):
+        y = _matmul(config, _mlp_act(config, gate) * up, mlp["down_proj"]["kernel"])
     if config.post_block_norms:
         y = rms_norm(y, layer_params["mlp_out_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
     return x + y
@@ -621,7 +624,8 @@ def _mlp_block(config, layer_params, x):
 
 def _attn_out(config, layer_params, attn, residual):
     b, s = attn.shape[:2]
-    attn = _matmul(config, attn.reshape(b, s, -1), layer_params["attn"]["o_proj"]["kernel"])
+    with _block_output("attn_block_out"):
+        attn = _matmul(config, attn.reshape(b, s, -1), layer_params["attn"]["o_proj"]["kernel"])
     if config.post_block_norms:
         attn = rms_norm(attn, layer_params["attn_out_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
     return residual + attn
@@ -712,29 +716,100 @@ def _serving_head(config, params, x):
     return tanh_softcap(logits, config.final_logit_softcap).float()
 
 
+REMAT_POLICIES = ("nothing", "full", "dots", "dots_no_batch", "minimal")
+
+# the block output a "minimal" region saves, while its product runs
+_scope = threading.local()
+
+
+@contextlib.contextmanager
+def _block_output(name: str):
+    """Marks the product that makes a block's output (the JAX package's
+    ``checkpoint_name``): ``"attn_block_out"`` (o_proj) or
+    ``"mlp_block_out"`` (down_proj)."""
+    prev, _scope.name = getattr(_scope, "name", None), name
+    try:
+        yield
+    finally:
+        _scope.name = prev
+
+
+_aten = torch.ops.aten
+# matrix products without batch dimensions, and with them (the batched
+# attention einsums of the plain attention paths)
+_DOTS_NO_BATCH = (_aten.mm.default, _aten.addmm.default)
+_DOTS = _DOTS_NO_BATCH + (_aten.bmm.default, _aten.baddbmm.default)
+
+
+def _remat_saves(policy: str, op) -> bool:
+    """Whether a checkpointed layer keeps ``op``'s output for the backward
+    (the JAX package's ``checkpoint_dots``, ``..._with_no_batch_dims`` and
+    ``save_only_these_names("attn_block_out", "mlp_block_out")``)."""
+    if policy == "dots":
+        return op in _DOTS
+    if policy == "dots_no_batch":
+        return op in _DOTS_NO_BATCH
+    # minimal: the block outputs' products (before Gemma-2's post-block norms)
+    return op in _DOTS_NO_BATCH and getattr(_scope, "name", None) is not None
+
+
+def _remat_context(policy: str):
+    """``context_fn`` of a checkpointed layer under ``policy``, or None
+    (``"nothing"``: keep only the layer's input, recompute everything).
+    The selective policies see the dispatcher's ops: the flash kernels are
+    launched through ctypes inside an autograd Function, which the policy
+    cannot see, so the recompute runs the flash forward again (into fresh
+    outputs: only products are kept, and no kernel writes into one)."""
+    if policy == "nothing":
+        return None
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    def decide(ctx, op, *args, **kwargs):
+        if _remat_saves(policy, op):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, decide)
+
+
 def llama_apply(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
-                segment_ids=None, position_ids=None) -> torch.Tensor:
+                segment_ids=None, position_ids=None):
     """Causal forward over (B, S) token ids -> f32 logits (B, S, V).
     ``segment_ids`` (B, S): packed-sequence document labels (attention never
     crosses a boundary); ``position_ids`` (B, S): per-token RoPE positions.
-    With gradients on and remat ``"nothing"`` (the JAX default) each layer
-    is a checkpoint region: its activations are recomputed in the backward,
-    so the flash forward runs twice per layer and step."""
+    With gradients on, every remat policy but ``"full"`` (keep every
+    activation) makes each layer a checkpoint region that keeps its input
+    and recomputes in the backward what the policy does not save:
+    ``"nothing"`` (the JAX default) saves nothing else, ``"dots"`` every
+    matrix product, ``"dots_no_batch"`` those without batch dimensions (the
+    projections), ``"minimal"`` the o_proj and down_proj products (the
+    blocks' outputs). The flash forward runs twice per layer and step under
+    each of them.
+
+    ``use_chunked_ce``: instead of logits, ``{"hidden": (B, S, D) after the
+    final norm, "head_kernel": (D, V), "logit_softcap": ...}`` for
+    :func:`llama_loss`'s chunked cross entropy, as in the JAX package."""
     _check_supported(config)
-    if config.remat_policy not in ("nothing", "full"):
-        raise NotImplementedError(
-            f"remat_policy={config.remat_policy!r} is not ported yet (queued in "
-            "ROADMAP.md); use 'nothing' (recompute each layer) or 'full' (keep all)"
-        )
-    remat = config.remat_policy == "nothing" and torch.is_grad_enabled()
+    if config.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, got {config.remat_policy!r}")
+    remat = config.remat_policy != "full" and torch.is_grad_enabled()
+    context = _remat_context(config.remat_policy) if remat else None
+    extra = {} if context is None else {"context_fn": context}
     x = _embed(config, params, input_ids)
     for lp in _layer_trees(params["layers"], config.num_hidden_layers):
         if remat:
             x = torch.utils.checkpoint.checkpoint(
                 _layer, config, lp, x, 0, False, segment_ids, position_ids,
-                use_reentrant=False, preserve_rng_state=False)
+                use_reentrant=False, preserve_rng_state=False, **extra)
         else:
             x = _layer(config, lp, x, segment_ids=segment_ids, position_ids=position_ids)
+    if config.use_chunked_ce:
+        x = rms_norm(x, params["final_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
+        head = (params["embed_tokens"]["embedding"].T if config.tie_word_embeddings
+                else params["lm_head"]["kernel"])
+        if not isinstance(head, torch.Tensor):  # a quantized head: its float weights
+            head = head.dequantize()
+        return {"hidden": x, "head_kernel": head, "logit_softcap": config.final_logit_softcap}
     return _head(config, params, x)
 
 
@@ -771,15 +846,31 @@ def llama_ce_denominator(batch) -> torch.Tensor:
     return _mask_of(labels, batch.get("loss_mask")).sum().clamp_min(1)
 
 
-def llama_loss(model, batch) -> torch.Tensor:
+def llama_loss(model, batch, ce_chunk_size: Optional[int] = None) -> torch.Tensor:
     """Next-token cross entropy; ``batch = {"input_ids": (B, S)}`` with
     optional ``"labels"`` (default: the shifted input_ids), ``"loss_mask"``,
     and ``"segment_ids"``/``"position_ids"`` (forwarded to the model so
-    attention never crosses a packed document)."""
+    attention never crosses a packed document). A model with
+    ``use_chunked_ce`` returns its hidden states and head, and the loss is
+    taken over vocabulary chunks of ``ce_chunk_size`` (default: the
+    config's ``ce_chunk_size``) with the head in the hidden states' dtype,
+    so the (B, S, V) logits never exist."""
     input_ids = batch["input_ids"]
     packed = {k: batch[k] for k in ("segment_ids", "position_ids") if k in batch}
-    logits = model(input_ids, **packed)
+    out = model(input_ids, **packed)
     labels = batch.get("labels")
+    if isinstance(out, dict):
+        from ..ops.losses import chunked_softmax_cross_entropy
+
+        hidden = out["hidden"]
+        if labels is None:
+            labels = input_ids[:, 1:]
+            hidden = hidden[:, :-1]
+        chunk = ce_chunk_size or getattr(model, "config", LlamaConfig).ce_chunk_size
+        return chunked_softmax_cross_entropy(
+            hidden, out["head_kernel"].to(hidden.dtype), labels.clamp_min(0), chunk_size=chunk,
+            loss_mask=_mask_of(labels, batch.get("loss_mask")), logit_softcap=out["logit_softcap"])
+    logits = out
     if labels is None:
         labels = input_ids[:, 1:]
         logits = logits[:, :-1]

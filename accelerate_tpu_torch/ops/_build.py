@@ -16,11 +16,15 @@ Nothing here runs at import time: the first launch of a kernel builds it.
 
 Launch counters: every kernel wrapper calls :func:`count_launch` exactly
 where it launches its kernel, and nowhere else, so a run can show which
-kernels its main path went through.
+kernels its main path went through. A CUDA graph capture launches nothing:
+:func:`capture_launches` takes the counts its wrappers add while a graph
+is captured, and the graph's owner adds them once per replay
+(:func:`add_launches`), when the kernels do run.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -35,7 +39,9 @@ __all__ = [
     "FILL_BLOCKS",
     "KERNELS",
     "SMS",
+    "add_launches",
     "build_all",
+    "capture_launches",
     "count_launch",
     "launch_counts",
     "load",
@@ -96,6 +102,27 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+
+
+@contextlib.contextmanager
+def capture_launches():
+    """Around a CUDA graph capture: yields a dict that holds, on exit, the
+    launches the wrappers counted inside (kernel name -> count, only the
+    kernels captured), and leaves the totals as they were before."""
+    before = dict(_launches)
+    captured: Dict[str, int] = {}
+    try:
+        yield captured
+    finally:
+        captured.update({n: c - before[n] for n, c in _launches.items() if c != before[n]})
+        _launches.update(before)
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count one replay of a captured graph: ``counts`` from
+    :func:`capture_launches`."""
+    for name, n in counts.items():
+        _launches[name] += n
 
 
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"

@@ -172,6 +172,13 @@ class InferenceServer:
     def engine(self):
         return self._engine
 
+    def stats(self) -> dict:
+        """The engine's host counters (:meth:`~accelerate_tpu_torch.engine
+        .ContinuousBatchingEngine.stats`), ``programs`` and
+        ``program_count`` among them, with the server's counters under
+        ``"serving"``."""
+        return {**self._engine.stats(), "serving": self.metrics.snapshot()}
+
     # ------------------------------------------------------------ admission
     def submit(self, input_ids, *, max_new_tokens: Optional[int] = None,
                deadline_s: Optional[float] = None, temperature: float = 0.0,

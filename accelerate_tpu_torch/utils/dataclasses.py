@@ -50,9 +50,9 @@ class KwargsHandler:
 class GradientAccumulationPlugin(KwargsHandler):
     """Gradient accumulation: ``num_steps`` micro-batches per update;
     ``sync_with_dataloader`` forces an update at the end of the data loader
-    even mid-window. ``adjust_scheduler`` steps a prepared scheduler once
-    per update; ``prepare`` refuses schedulers until ``scheduler.py`` is
-    ported (ROADMAP.md A4), so it has nothing to act on yet.
+    even mid-window. ``adjust_scheduler`` is kept for the JAX package's
+    field set: there, as here, a prepared scheduler steps once per update
+    whatever it says.
     ``sync_each_batch`` reduces gradients across devices on every
     micro-batch instead of deferring the reduction to the update; one
     device has no such reduction, so both settings run the same step."""

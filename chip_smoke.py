@@ -12,9 +12,6 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --kernels  # build + kernel checks only
-    python3 chip_smoke.py --step-ablation  # every phase, and phase 6's
-                                           # step with the f32 head and the
-                                           # tensor-core B2/B3 taken back
 
 Phases (any failure exits non-zero and prints no result):
   1. build the kernels (one nvcc per source, in parallel); print the card
@@ -48,13 +45,26 @@ Phases (any failure exits non-zero and prints no result):
      decode and verify logits; greedy tokens, plain and speculative), with
      planted faults that must exceed the limit
   4. the serving main path: InferenceServer, Llama-3-8B, 32 layers, 16
-     requests; launch counters reset just before and read just after
+     requests, three runs through the engine whose programs are captured
+     CUDA graphs (one graph per JAX program signature, asserted against
+     JAX's counts in ``stats()["programs"]``; each replay's launches those
+     of one eager call), then the same requests once through the eager
+     engine (``engine._disable_graphs``): every request's tokens and steps
+     bitwise equal; launch counters reset just before each run and read
+     just after, the eager run's (counted at the wrappers) equal to the
+     graph run's (capture counts times replays); tokens/s and TTFT per run; steady-state decode step and
+     prefill times (three repeats) and a profile of replayed decode steps,
+     beside the eager engine's times
   7. (run right after 4, on its model) InferenceServer with speculative
      decoding and 512-token chunked prefill over 16 requests (12
-     drafter-friendly, 4 of 1,025-1,500 tokens), on the paged pool (A) and
-     the int8 pool (B): launches against the engine's counters, greedy
-     requests teacher-forced, tokens/s, TTFT, acceptance, step and chunk
-     times, a profile of a verify step
+     drafter-friendly, 4 of 1,025-1,500 tokens), on the paged pool (A:
+     three graph runs) and the int8 pool (B: one), each against the eager
+     engine on the same requests (tokens, steps and spec counters bitwise
+     equal), programs and launches per replay as in 4, launches against
+     the engine's counters, greedy requests teacher-forced, tokens/s,
+     TTFT, acceptance, steady-state verify and decode step and chunk
+     times (three repeats) with the host's wait for the readbacks before
+     drafting, a profile of replayed verify steps
   8. (run right after 7, on its model) quantized big-model inference: the
      model quantized to int8 in place, its forward over 4 x 512 tokens
      through B7 and B1 (225 B7 launches per forward, the head's with f32
@@ -70,9 +80,13 @@ Phases (any failure exits non-zero and prints no result):
      prepare_data_loader and train_step(llama_loss, max_grad_norm=1.0) on
      Llama-3-8B at 4 layers, batch 4 x 2048; 2 warm-up and 8 timed steps
      with the launch counters reset just before; tokens/s, step time, MFU,
-     peak memory and a profile of one step; with --step-ablation, then
-     the step with the f32 head and the tensor-core B2/B3 each taken
-     back, in turns
+     peak memory and a profile of one step; then the first step's
+     gradients, leaf by leaf, under remat "nothing", "dots" and "minimal",
+     each with the chunked cross entropy off and on (the policies bitwise
+     equal, chunked against dense within bf16 rounding, a planted zeroed
+     dh chunk that must exceed the limit); then the step under each of the
+     six: step time, peak memory, the flash forward's launches per step
+     (2L under each: the recompute runs it again) and losses that agree
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Long output goes to chiprun_out/.
 """
@@ -81,6 +95,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import itertools
 import json
 import math
@@ -1333,26 +1348,43 @@ def serving_model(dev, n_layers):
     return model
 
 
-def phase_main_path(dev, card, model):
-    from accelerate_tpu_torch.models.llama import llama_prefill_at
+SERVING = dict(engine_slots=8, engine_max_len=1024, engine_prompt_bucket=512, engine_block_size=16,
+               kv_cache="paged", attention_impl="kernel", engine_readback_lag=2)
+SERVING_REPEATS = 3  # timed runs of each mix through the graph engine
+# the JAX engine's compiled programs under each mix (accelerate_tpu/engine.py:23-34):
+# one graph per signature on the card
+JAX_PROGRAMS = {"serving": {"prefill_insert": 1, "decode_step": 1},
+                "spec": {"prefill_insert": 2, "decode_step": 1, "verify_step": 1}}
+
+
+def serve_mix(dev, model, prompts, scfg, new_tokens, engine=None, eager=False, warm=()):
+    """Serve ``prompts`` at once through an InferenceServer over ``engine``
+    (a new one when None: its programs captured as CUDA graphs, or run
+    eagerly with ``eager``, through ``engine._disable_graphs``). ``warm``
+    prompts are served first, 8 new tokens each, unrelated to the mix (a
+    shared prefix would skip its chunks). Launch counters reset just
+    before the mix and read just after. Closing the server resets the
+    engine in place, so its graphs serve the next mix. Even requests are
+    greedy, odd ones sampled. Returns a dict: results, wall_s, launches,
+    delta (the engine's counters over the mix), programs, engine."""
+    from accelerate_tpu_torch.engine import _disable_graphs
     from accelerate_tpu_torch.ops import _build
     from accelerate_tpu_torch.serving import InferenceServer
-    from accelerate_tpu_torch.utils.dataclasses import ServingConfig
 
-    cfg = model.config
-    n_layers = cfg.num_hidden_layers
-    scfg = ServingConfig(
-        engine_slots=8, engine_max_len=1024, engine_prompt_bucket=512, engine_block_size=16,
-        kv_cache="paged", attention_impl="kernel", engine_readback_lag=2,
-    )
-    rng = np.random.default_rng(0)
-    n_req, new_tokens = 16, 64
-    lens = rng.integers(64, 513, size=n_req)
-    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32) for n in lens]
-    with InferenceServer(model, scfg, device=dev) as srv:
-        srv.submit(prompts[0][:64], max_new_tokens=4).result(timeout=300)  # warm-up
+    with _disable_graphs() if eager else contextlib.nullcontext():
+        srv = InferenceServer(model, scfg, engine=engine, device=dev)
+    with srv:
+        for f in [srv.submit(p, max_new_tokens=8) for p in warm]:
+            f.result(timeout=300)
         eng = srv.engine
-        steps0 = eng.steps
+
+        def counters():
+            spec = eng.stats()["spec"]
+            return dict(steps=eng.steps, verify=eng.spec_verify_steps, chunks=eng.prefill_chunks,
+                        inserted=eng.inserted, **{k: spec[k] for k in ("drafted", "accepted", "wasted")})
+
+        before = counters()
+        torch.cuda.synchronize()
         _build.reset_launch_counts()
         t0 = time.perf_counter()
         futs = []
@@ -1361,78 +1393,195 @@ def phase_main_path(dev, card, model):
             futs.append(srv.submit(
                 p, max_new_tokens=new_tokens, temperature=0.8 if sampled else 0.0,
                 top_k=50 if sampled else None, top_p=0.9 if sampled else None, seed=i))
-        results = [f.result(timeout=600) for f in futs]
+        results = [f.result(timeout=900) for f in futs]
         wall = time.perf_counter() - t0
         launches = _build.launch_counts()
-        steps = eng.steps - steps0
+        after = counters()
+        stats = eng.stats()
+    vocab = model.config.vocab_size
     for p, r in zip(prompts, results):
         new = r.tokens[len(p):]
         if r.tokens.shape != (len(p) + new_tokens,) or not (r.tokens[: len(p)] == p).all():
             raise AssertionError("a result row has the wrong shape or prompt")
-        if not ((new >= 0) & (new < cfg.vocab_size)).all():
+        if not ((new >= 0) & (new < vocab)).all():
             raise AssertionError("a generated token is out of the vocabulary")
-    expected = {
-        "flash_fwd_mma": n_layers * n_req,
-        "paged_decode_mma": n_layers * steps,
-        "fused_sample": steps + n_req,
-    }
-    log(f"phase 4 decode steps {steps}")
-    check_launches("phase 4", launches, expected)
-    ttft = sorted(r.ttft_s for r in results)
-    gen_tokens = n_req * new_tokens
-    log(f"phase 4 served {n_req} requests (prompts {int(lens.min())}-{int(lens.max())}, "
-        f"{new_tokens} new tokens each, half sampled) in {wall:.3f}s: "
-        f"{gen_tokens / wall:.1f} generated tokens/s; TTFT min {ttft[0]:.4f}s "
-        f"p50 {ttft[len(ttft) // 2]:.4f}s max {ttft[-1]:.4f}s [{card}]")
+    delta = {k: after[k] - before[k] for k in after}
+    delta["hbm_bytes"] = stats["kv"]["hbm_bytes"]
+    return dict(results=results, wall_s=wall, launches=launches, delta=delta, engine=eng,
+                programs=stats["programs"], program_count=stats["program_count"],
+                tokens_per_s=len(prompts) * new_tokens / wall,
+                ttft_s=sorted(r.ttft_s for r in results))
 
-    # steady-state decode and prefill times on the same engine (after the run)
-    eng.reset()
+
+def check_programs(label, run, expected):
+    """The engine ran JAX's program signatures, each one captured graph."""
+    eng = run["engine"]
+    graphs = eng.graph_launches()
+    log(f"{label} programs {run['programs']} (program_count {run['program_count']}; JAX: {expected}); "
+        f"graphs captured: {sorted(graphs)}")
+    if run["programs"] != expected or run["program_count"] != sum(expected.values()):
+        raise AssertionError(f"{label}: programs {run['programs']}, JAX compiles {expected}")
+    if len(graphs) != run["program_count"]:
+        raise AssertionError(f"{label}: {len(graphs)} graphs for {run['program_count']} programs")
+
+
+def check_replay_launches(label, eng, n_layers, bucket, chunk=None, k=None, suffix=""):
+    """Each captured graph's launches per replay: those of one eager call."""
+    expected = {
+        "decode_step ()": {f"paged_decode{suffix}_mma": n_layers, "fused_sample": 1},
+        f"prefill_insert ({bucket},)": {"flash_fwd_mma": n_layers, "fused_sample": 1},
+        f"verify_step ({k},)": {f"paged_verify{suffix}_mma": n_layers},
+        f"prefill_insert ('chunk', {chunk})": {f"paged_verify{suffix}_mma": n_layers, "fused_sample": 1},
+    }
+    got = eng.graph_launches()
+    log(f"{label} launches per replay: {got}")
+    for name, counts in got.items():
+        if counts != expected.get(name):
+            raise AssertionError(f"{label}: graph {name} launches {counts} per replay, "
+                                 f"expected {expected.get(name)}")
+
+
+def check_same_as_eager(label, runs, eager):
+    """Every request's tokens and steps, and the spec counters, of each
+    graph run bitwise equal to the eager engine's on the same requests."""
+    keys = ("drafted", "accepted", "wasted")
+    for i, run in enumerate(runs):
+        tokens = all(np.array_equal(a.tokens, b.tokens) for a, b in zip(run["results"], eager["results"]))
+        steps = [r.decode_steps for r in run["results"]] == [r.decode_steps for r in eager["results"]]
+        spec = all(run["delta"][k] == eager["delta"][k] for k in keys)
+        if not (tokens and steps and spec):
+            raise AssertionError(
+                f"{label} graph run {i + 1} differs from the eager engine: tokens equal {tokens}, "
+                f"per-request steps equal {steps}, spec counters "
+                f"{ {k: (run['delta'][k], eager['delta'][k]) for k in keys} }")
+    log(f"{label}: the {len(runs)} graph runs equal the eager engine bitwise: every request's "
+        f"tokens and steps, spec counters { {k: eager['delta'][k] for k in keys} }")
+
+
+def log_run(label, run, card, extra=""):
+    ttft = run["ttft_s"]
+    log(f"{label}: {run['tokens_per_s']:.1f} generated tokens/s in {run['wall_s']:.3f}s; engine steps "
+        f"{run['delta']['steps']} (verify {run['delta']['verify']}, chunks {run['delta']['chunks']}); "
+        f"TTFT min {ttft[0]:.4f}s p50 {ttft[len(ttft) // 2]:.4f}s max {ttft[-1]:.4f}s{extra} [{card}]")
+
+
+def run_numbers(runs):
+    return [dict(tokens_per_s=r["tokens_per_s"], wall_s=r["wall_s"], ttft_min_s=r["ttft_s"][0],
+                 ttft_p50_s=r["ttft_s"][len(r["ttft_s"]) // 2], ttft_max_s=r["ttft_s"][-1],
+                 counters=r["delta"]) for r in runs]
+
+
+def phase_main_path(dev, card, model):
+    from accelerate_tpu_torch.models.llama import llama_prefill_at
+    from accelerate_tpu_torch.utils.dataclasses import ServingConfig
+
+    cfg = model.config
+    n_layers = cfg.num_hidden_layers
+    scfg = ServingConfig(**SERVING)
+    rng = np.random.default_rng(0)
+    n_req, new_tokens = 16, 64
+    lens = rng.integers(64, 513, size=n_req)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32) for n in lens]
+    warm = [np.random.default_rng(1).integers(0, cfg.vocab_size, size=64).astype(np.int32)]
+    def expected(run):
+        steps = run["delta"]["steps"]
+        return {"flash_fwd_mma": n_layers * n_req, "paged_decode_mma": n_layers * steps,
+                "fused_sample": steps + n_req}
+
+    runs, eng = [], None
+    for rep in range(SERVING_REPEATS):
+        run = serve_mix(dev, model, prompts, scfg, new_tokens, engine=eng, warm=() if eng else warm)
+        eng = run["engine"]
+        check_launches(f"phase 4 run {rep + 1}", run["launches"], expected(run))
+        log_run(f"phase 4 run {rep + 1} (graphs; {n_req} requests, prompts {int(lens.min())}-"
+                f"{int(lens.max())}, {new_tokens} new tokens each, half sampled)", run, card)
+        runs.append(run)
+    check_programs("phase 4", runs[0], JAX_PROGRAMS["serving"])
+    check_replay_launches("phase 4", eng, n_layers, SERVING["engine_prompt_bucket"])
+    eager = serve_mix(dev, model, prompts, scfg, new_tokens, eager=True, warm=warm)
+    log_run("phase 4 eager engine (same requests)", eager, card)
+    check_same_as_eager("phase 4", runs, eager)
+    # the graph runs' counts come from capture counts times replays; the
+    # eager run's are counted at the wrappers, launch by launch
+    check_launches("phase 4 eager", eager["launches"], expected(eager))
+    if eager["launches"] != runs[0]["launches"]:
+        raise AssertionError(f"phase 4: the graph run's launches {runs[0]['launches']} (from its "
+                             f"replays) differ from the eager run's {eager['launches']}")
+    steady = decode_steady_state(eng, prompts, card, SERVING_REPEATS, profile=True)
+    steady_eager = decode_steady_state(eager["engine"], prompts, card, 1, profile=False,
+                                       label="phase 4 eager")
+    eager_numbers = run_numbers([eager])[0]
+    del eager
     with torch.no_grad():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for p in prompts[:8]:
-            eng.insert(p[:300], max_new_tokens=200)
-        torch.cuda.synchronize()
-        prefill_ms = (time.perf_counter() - t0) / 8 * 1e3
-        for _ in range(4):
-            eng.step()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        n_steps = 32
-        for _ in range(n_steps):
-            eng.step()
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) / n_steps * 1e3
-        profile = profile_decode(eng, step_ms, card)
-        eng.reset()
         ids = torch.from_numpy(prompts[0][None].astype(np.int64)).to(dev)
         logits, _ = llama_prefill_at(cfg, model.params, ids, 1024, [ids.shape[1] - 1])
-        finite = bool(torch.isfinite(logits).all().item())
-    log(f"phase 4 decode {step_ms:.3f} ms/step (8 slots at pos 300-340), prefill "
-        f"{prefill_ms:.3f} ms/request (bucket 512) [{card}]")
-    if not finite:
-        raise AssertionError("full-depth prefill logits are not finite")
-    return {k: launches[k] for k in expected}, dict(tokens_per_s=gen_tokens / wall, ttft_min_s=ttft[0],
-                          ttft_p50_s=ttft[len(ttft) // 2],
-                          ttft_max_s=ttft[-1], decode_ms_per_step=step_ms,
-                          prefill_ms=prefill_ms, wall_s=wall, decode_steps=steps,
-                          decode_profile=profile)
+        if not bool(torch.isfinite(logits).all().item()):
+            raise AssertionError("full-depth prefill logits are not finite")
+    launches = runs[0]["launches"]
+    numbers = dict(runs=run_numbers(runs), eager_run=eager_numbers, programs=runs[0]["programs"],
+                   per_replay=eng.graph_launches(), steady=steady, steady_eager=steady_eager)
+    return {k: launches[k] for k in ("flash_fwd_mma", "paged_decode_mma", "fused_sample")}, numbers
 
 
 PROFILE_GROUPS = ("paged_verify", "paged_decode", "fused_sample", "flash_fwd", "sort")
 MATMUL_KEYS = ("gemm", "gemv", "cutlass", "sm90_", "cublas", "nvjet")
 
 
+def decode_steady_state(eng, prompts, card, repeats, profile, label="phase 4"):
+    """Decode ms per step at 8 slots (positions 300+, 32 steps, each
+    ``repeats`` times) and prefill ms per 300-token request (8 back to
+    back), on ``eng``; a profile of decode steps after the last repeat."""
+    decode_ms, prefill_ms, host_ms = [], [], []
+    with torch.no_grad():
+        for _ in range(repeats):
+            eng.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for p in prompts[:8]:
+                eng.insert(p[:300], max_new_tokens=200)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) / 8 * 1e3)
+            for _ in range(4):
+                eng.step()
+                eng.poll()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(32):
+                eng.step()
+                eng.poll()
+            torch.cuda.synchronize()
+            decode_ms.append((time.perf_counter() - t0) / 32 * 1e3)
+            host = []
+            for _ in range(8):  # the host's own time a step: until step() and poll() return
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.step()
+                eng.poll()
+                host.append((time.perf_counter() - t0) * 1e3)
+            host_ms.append(statistics.median(host))
+        prof = profile_decode(eng, statistics.median(decode_ms), card) if profile else None
+        eng.reset()
+    log(f"{label} steady state: decode ms/step (8 slots at pos 300-340) "
+        + ", ".join(f"{x:.3f}" for x in decode_ms) + "; the host's ms a step (median of 8, "
+        "from a synchronised start until step() and poll() return) "
+        + ", ".join(f"{x:.3f}" for x in host_ms) + "; prefill ms/request (bucket 512) "
+        + ", ".join(f"{x:.3f}" for x in prefill_ms) + f" [{card}]")
+    return dict(decode_ms_per_step=decode_ms, host_ms_per_step=host_ms, prefill_ms=prefill_ms,
+                decode_profile=prof)
+
+
 def profile_decode(eng, step_ms, card, n_steps=8, label="phase 4 decode",
                    out="profile_decode.txt"):
     """Device time per engine step by kernel group, from torch.profiler
-    over ``n_steps`` steps; the busy share divides it by the unprofiled
+    over ``n_steps`` steps (replays of the captured programs: CUPTI traces
+    the graphs' kernels); the busy share divides it by the unprofiled
     ``step_ms``. The full table goes to ``out`` in the output directory."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n_steps):
             eng.step()
+            eng.poll()
         torch.cuda.synchronize()
     groups = dict.fromkeys((*PROFILE_GROUPS, "matmul", "other"), 0.0)
     for e in prof.key_averages():
@@ -1478,64 +1627,24 @@ def spec_traffic(vocab):
     return short[:3] + long[:1] + short[3:6] + long[1:2] + short[6:9] + long[2:3] + short[9:] + long[3:]
 
 
-def serve_mix(dev, model, prompts, **overrides):
-    """Serve ``prompts`` at once through InferenceServer with the phase 7
-    config; launch counters reset just before the mix and read just after.
-    Returns (results, wall s, launches, engine counter deltas, engine)."""
-    from accelerate_tpu_torch.ops import _build
-    from accelerate_tpu_torch.serving import InferenceServer
-    from accelerate_tpu_torch.utils.dataclasses import ServingConfig
-
-    scfg = ServingConfig(**{**SPEC_SERVING, **overrides})
-    with InferenceServer(model, scfg, device=dev) as srv:
-        # warm-up: a single-shot and a chunked prompt, unrelated to the mix
-        # (a shared prefix would skip the mix's chunks)
-        vocab = model.config.vocab_size
-        warm = [srv.submit(np.random.default_rng(1).integers(0, vocab, size=n).astype(np.int32),
-                           max_new_tokens=8) for n in (64, 1100)]
-        for f in warm:
-            f.result(timeout=300)
-        eng = srv.engine
-        before = dict(steps=eng.steps, verify=eng.spec_verify_steps, chunks=eng.prefill_chunks,
-                      inserted=eng.inserted, **{k: eng.stats()["spec"][k]
-                                                for k in ("drafted", "accepted", "wasted")})
-        torch.cuda.synchronize()
-        _build.reset_launch_counts()
-        t0 = time.perf_counter()
-        futs = []
-        for i, p in enumerate(prompts):
-            sampled = i % 2 == 1
-            futs.append(srv.submit(
-                p, max_new_tokens=SPEC_NEW_TOKENS, temperature=0.8 if sampled else 0.0,
-                top_k=50 if sampled else None, top_p=0.9 if sampled else None, seed=i))
-        results = [f.result(timeout=900) for f in futs]
-        wall = time.perf_counter() - t0
-        launches = _build.launch_counts()
-        spec = eng.stats()["spec"]
-        delta = dict(steps=eng.steps - before["steps"],
-                     verify=eng.spec_verify_steps - before["verify"],
-                     chunks=eng.prefill_chunks - before["chunks"],
-                     inserted=eng.inserted - before["inserted"],
-                     **{k: spec[k] - before[k] for k in ("drafted", "accepted", "wasted")})
-        hbm = eng.stats()["kv"]["hbm_bytes"]
-    vocab = model.config.vocab_size
-    for p, r in zip(prompts, results):
-        new = r.tokens[len(p):]
-        if r.tokens.shape != (len(p) + SPEC_NEW_TOKENS,) or not (r.tokens[: len(p)] == p).all():
-            raise AssertionError("a result row has the wrong shape or prompt")
-        if not ((new >= 0) & (new < vocab)).all():
-            raise AssertionError("a generated token is out of the vocabulary")
-    delta["hbm_bytes"] = hbm
-    return results, wall, launches, delta, eng
+def spec_warm(vocab):
+    """Warm-up prompts unrelated to the mix: a single-shot, a chunked and a
+    drafter-friendly one, so every program is captured before the mix."""
+    rng = np.random.default_rng(1)
+    return [rng.integers(0, vocab, size=n).astype(np.int32) for n in (64, 1100)] + drafter_prompts(
+        np.random.default_rng(2), 1, 200, 200, vocab)
 
 
-def expected_launches(n_layers, delta, n_single, n_chunked, suffix=""):
+def expected_launches(n_layers, delta, n_single, suffix=""):
+    """Launches of a phase 7 mix from its counters: every chunk samples a
+    first token (only the last one installs it), as the JAX chunk program
+    does."""
     decode_steps = delta["steps"] - delta["verify"]
     return {
         "flash_fwd_mma": n_layers * n_single,
         "paged_decode" + suffix + "_mma": n_layers * decode_steps,
         "paged_verify" + suffix + "_mma": n_layers * (delta["verify"] + delta["chunks"]),
-        "fused_sample": decode_steps + n_single + n_chunked,
+        "fused_sample": decode_steps + n_single + delta["chunks"],
     }
 
 
@@ -1550,39 +1659,59 @@ def check_launches(label, launches, expected):
             raise AssertionError(f"kernel {name} launched {n} times on {label}, expected none")
 
 
+def check_spec_run(label, run, prompts, n_layers, n_single, n_chunked, suffix=""):
+    delta = run["delta"]
+    check_launches(label, run["launches"], expected_launches(n_layers, delta, n_single, suffix))
+    if delta["chunks"] != 3 * n_chunked or delta["inserted"] != len(prompts):
+        raise AssertionError(f"{label}: {delta['chunks']} chunks for {n_chunked} long prompts")
+    if not (delta["verify"] > 0 and delta["accepted"] > 0
+            and delta["accepted"] + delta["wasted"] == delta["drafted"]):
+        raise AssertionError(f"{label} speculation counters are off: {delta}")
+
+
 def phase_spec_path(dev, card, model):
     """Phase 7: speculative decoding, chunked prefill and the int8 pool
-    through InferenceServer on the phase-4 model; returns the launches of
-    server A (paged pool) and server B (int8 pool) and the numbers."""
+    through InferenceServer on the phase-4 model, through the graph engine
+    (A: three runs) and the eager engine on the same requests; returns the
+    launches of server A's first run (paged pool) and of server B (int8
+    pool) and the numbers."""
     import dataclasses
+
+    from accelerate_tpu_torch.utils.dataclasses import ServingConfig
 
     cfg = model.config
     n_layers = cfg.num_hidden_layers
     prompts = spec_traffic(cfg.vocab_size)
+    warm = spec_warm(cfg.vocab_size)
     is_long = [len(p) > SPEC_SERVING["engine_prompt_bucket"] for p in prompts]
     n_chunked = sum(is_long)
     n_single = len(prompts) - n_chunked
-    results, wall_a, launches, delta, eng = serve_mix(dev, model, prompts, kv_cache="paged")
-    expected = expected_launches(n_layers, delta, n_single, n_chunked)
-    log(f"phase 7 A (paged, spec ngram/4, chunk 512): engine steps {delta['steps']} (verify "
-        f"{delta['verify']}), chunks {delta['chunks']}, admissions {delta['inserted']}")
-    check_launches("phase 7 A", launches, expected)
-    if delta["chunks"] != 3 * n_chunked or delta["inserted"] != len(prompts):
-        raise AssertionError(f"phase 7 A: {delta['chunks']} chunks for {n_chunked} long prompts")
-    if not (delta["verify"] > 0 and delta["accepted"] > 0
-            and delta["accepted"] + delta["wasted"] == delta["drafted"]):
-        raise AssertionError(f"phase 7 A speculation counters are off: {delta}")
-    gen_tokens = len(prompts) * SPEC_NEW_TOKENS
+    shape = dict(bucket=SPEC_SERVING["engine_prompt_bucket"], chunk=SPEC_SERVING["engine_prefill_chunk"],
+                 k=SPEC_SERVING["spec_draft_len"])
+    scfg = ServingConfig(**SPEC_SERVING, kv_cache="paged")
+    runs, eng = [], None
+    for rep in range(SERVING_REPEATS):
+        run = serve_mix(dev, model, prompts, scfg, SPEC_NEW_TOKENS, engine=eng, warm=() if eng else warm)
+        eng = run["engine"]
+        check_spec_run(f"phase 7 A run {rep + 1}", run, prompts, n_layers, n_single, n_chunked)
+        d = run["delta"]
+        log_run(f"phase 7 A run {rep + 1} (graphs; paged, spec ngram/4, chunk 512; {n_single} "
+                f"drafter-friendly of 64-512 tokens, {n_chunked} of 1,025-1,500; {SPEC_NEW_TOKENS} new "
+                "tokens each, half sampled)", run, card,
+                f"; drafted {d['drafted']}, accepted {d['accepted']} (rate {d['accepted'] / d['drafted']:.3f})")
+        runs.append(run)
+    check_programs("phase 7 A", runs[0], JAX_PROGRAMS["spec"])
+    check_replay_launches("phase 7 A", eng, n_layers, **shape)
+    eager = serve_mix(dev, model, prompts, scfg, SPEC_NEW_TOKENS, eager=True, warm=warm)
+    check_spec_run("phase 7 A eager", eager, prompts, n_layers, n_single, n_chunked)
+    log_run("phase 7 A eager engine (same requests)", eager, card)
+    check_same_as_eager("phase 7 A", runs, eager)
+    results = runs[0]["results"]
     ttft = {k: sorted(r.ttft_s for r, lg in zip(results, is_long) if lg == k) for k in (False, True)}
-    spec = eng.stats()["spec"]
-    accept_rate = delta["accepted"] / delta["drafted"]
-    log(f"phase 7 A served {len(prompts)} requests ({n_single} drafter-friendly of 64-512 tokens, "
-        f"{n_chunked} of 1,025-1,500 in 512-token chunks; {SPEC_NEW_TOKENS} new tokens each, half "
-        f"sampled) in {wall_a:.3f}s: {gen_tokens / wall_a:.1f} generated tokens/s; TTFT short min/p50/max "
-        f"{ttft[False][0]:.4f}/{ttft[False][len(ttft[False]) // 2]:.4f}/{ttft[False][-1]:.4f}s, "
-        f"chunked {ttft[True][0]:.4f}/{ttft[True][len(ttft[True]) // 2]:.4f}/{ttft[True][-1]:.4f}s; "
-        f"drafted {delta['drafted']}, accepted {delta['accepted']} (rate {accept_rate:.3f}), tokens "
-        f"per slot and verify step {spec['tokens_per_step']:.3f} (engine lifetime) [{card}]")
+    log(f"phase 7 A run 1 TTFT short min/p50/max {ttft[False][0]:.4f}/{ttft[False][len(ttft[False]) // 2]:.4f}/"
+        f"{ttft[False][-1]:.4f}s, chunked {ttft[True][0]:.4f}/{ttft[True][len(ttft[True]) // 2]:.4f}/"
+        f"{ttft[True][-1]:.4f}s; tokens per slot and verify step "
+        f"{eng.stats()['spec']['tokens_per_step']:.3f} (engine lifetime) [{card}]")
     # every greedy request, teacher-forced through one plain-path forward:
     # each token that is not the reference argmax must be a near-tie; the
     # share of argmax tokens is held over all greedy requests together, as
@@ -1601,95 +1730,137 @@ def phase_spec_path(dev, card, model):
         f"limit {NEAR_TIE})")
     if not (share >= GREEDY_SHARE_MIN and worst_gap <= NEAR_TIE):
         raise AssertionError("phase 7 greedy tokens: kernel path disagrees with the plain path")
-    steady = spec_steady_state(eng, prompts, card)
+    steady = spec_steady_state(eng, prompts, card, SERVING_REPEATS, profile=True)
+    steady_eager = spec_steady_state(eager["engine"], prompts, card, 1, profile=False,
+                                     label="phase 7 eager")
     a_tokens = [r.tokens for r in results]
-    a_launches = {k: launches[k] for k in expected}
-    del eng, results
+    eager_numbers = run_numbers([eager])[0]
+    a_launches = {k: runs[0]["launches"][k] for k in expected_launches(n_layers, runs[0]["delta"], n_single)}
+    del eng, eager, results
     torch.cuda.empty_cache()
 
-    results, wall_b, launches, delta8, eng = serve_mix(dev, model, prompts, kv_cache="paged_int8")
-    expected8 = expected_launches(n_layers, delta8, n_single, n_chunked, suffix="_int8")
-    check_launches("phase 7 B", launches, expected8)
+    scfg8 = ServingConfig(**SPEC_SERVING, kv_cache="paged_int8")
+    run8 = serve_mix(dev, model, prompts, scfg8, SPEC_NEW_TOKENS, warm=warm)
+    check_spec_run("phase 7 B", run8, prompts, n_layers, n_single, n_chunked, suffix="_int8")
+    check_programs("phase 7 B", run8, JAX_PROGRAMS["spec"])
+    check_replay_launches("phase 7 B", run8["engine"], n_layers, suffix="_int8", **shape)
+    eager8 = serve_mix(dev, model, prompts, scfg8, SPEC_NEW_TOKENS, eager=True, warm=warm)
+    check_same_as_eager("phase 7 B", [run8], eager8)
     agree = total = 0
-    for i, (ta, r) in enumerate(zip(a_tokens, results)):
+    for i, (ta, r) in enumerate(zip(a_tokens, run8["results"])):
         if i % 2:
             continue
         new_a, new_b = ta[len(prompts[i]):], r.tokens[len(prompts[i]):]
         diverge = np.flatnonzero(new_a != new_b)
         agree += int(diverge[0]) if len(diverge) else len(new_a)
         total += len(new_a)
-    log(f"phase 7 B (paged_int8, same mix): {gen_tokens / wall_b:.1f} generated tokens/s in "
-        f"{wall_b:.3f}s; engine steps {delta8['steps']} (verify {delta8['verify']}), accepted "
-        f"{delta8['accepted']}/{delta8['drafted']}; pool {delta8['hbm_bytes'] / 1e9:.3f} GB against "
-        f"A's {delta['hbm_bytes'] / 1e9:.3f} GB; greedy tokens equal to A's up to the first "
-        f"divergence: {agree}/{total} (information only) [{card}]")
-    del eng, results
-    torch.cuda.empty_cache()
+    d8 = run8["delta"]
+    log_run("phase 7 B (graphs; paged_int8, same mix)", run8, card,
+            f"; accepted {d8['accepted']}/{d8['drafted']}; pool {d8['hbm_bytes'] / 1e9:.3f} GB against "
+            f"A's {runs[0]['delta']['hbm_bytes'] / 1e9:.3f} GB; greedy tokens equal to A's up to the "
+            f"first divergence: {agree}/{total} (information only)")
+    log_run("phase 7 B eager engine (same requests)", eager8, card)
+    b_launches = {k: run8["launches"][k]
+                  for k in expected_launches(n_layers, d8, n_single, suffix="_int8")}
     numbers = dict(
-        tokens_per_s=gen_tokens / wall_a, wall_s=wall_a, counters=delta, acceptance_rate=accept_rate,
-        tokens_per_verify_step=spec["tokens_per_step"],
+        runs=run_numbers(runs), eager_run=eager_numbers,
+        acceptance_rate=runs[0]["delta"]["accepted"] / runs[0]["delta"]["drafted"],
         ttft_short_s=ttft[False], ttft_chunked_s=ttft[True], greedy_share=share,
-        greedy_worst_gap=worst_gap, **steady,
-        int8=dict(tokens_per_s=gen_tokens / wall_b, wall_s=wall_b, counters=delta8,
+        greedy_worst_gap=worst_gap, programs=runs[0]["programs"], steady=steady,
+        steady_eager=steady_eager,
+        int8=dict(run=run_numbers([run8])[0], eager_run=run_numbers([eager8])[0],
                   greedy_prefix_agreement=agree / total),
     )
-    return a_launches, {k: launches[k] for k in expected8}, numbers
+    del run8, eager8
+    torch.cuda.empty_cache()
+    return a_launches, b_launches, numbers
 
 
-def spec_steady_state(eng, prompts, card):
-    """Steady-state verify-step and decode-step ms at 8 slots, ms per
-    512-token chunk, and a profile of verify steps, on phase 7 A's engine."""
-    with torch.no_grad():
-        eng.reset()
-        for p in prompts:
-            if len(p) <= 512 and eng.free_slots():
-                eng.insert(p[:300], max_new_tokens=600)
-        for _ in range(4):
-            eng.step()
-        verify_ms, decode_ms = [], []
-        for _ in range(24):
-            v0 = eng.spec_verify_steps
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            eng.step()
-            torch.cuda.synchronize()
-            (verify_ms if eng.spec_verify_steps > v0 else decode_ms).append(
-                (time.perf_counter() - t0) * 1e3)
-            eng.poll()
-        verify_med = statistics.median(verify_ms) if verify_ms else None
-        profile = profile_decode(eng, verify_med, card, n_steps=4, label="phase 7 verify step",
-                                 out="profile_verify.txt") if verify_med else None
-        eng.set_spec_draft_limit(0)
-        for _ in range(2):
-            eng.step()
-        torch.cuda.synchronize()
+def spec_steady_state(eng, prompts, card, repeats, profile, label="phase 7"):
+    """Steady-state verify-step and decode-step ms at 8 slots (24 steps a
+    repeat, split by kind), the host's wait for the pending readbacks
+    before each draft (``_materialize_ring``, timed here by a wrapper),
+    ms per 512-token chunk, and a profile of verify steps after the last
+    repeat, on phase 7 A's engine."""
+    numbers = dict(verify_ms=[], decode_ms=[], wait_ms=[], host_ms=[], plain_decode_ms=[], chunk_ms=[])
+    materialize = eng._materialize_ring
+    waits = []
+
+    def timed_materialize():
         t0 = time.perf_counter()
-        for _ in range(16):
-            eng.step()
-            eng.poll()
-        torch.cuda.synchronize()
-        plain_decode_ms = (time.perf_counter() - t0) / 16 * 1e3
-        eng.set_spec_draft_limit(eng.spec_draft_len)
-        eng.reset()
-        eng.set_prefill_chunk_limit(0)
-        long = [p for p in prompts if len(p) > 1024][0]
-        eng.insert(long, max_new_tokens=4)  # its first chunk runs here
-        chunk_ms = []
-        while eng.prefill_chunks_pending():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            eng.prefill_step(limit=1)
-            torch.cuda.synchronize()
-            chunk_ms.append((time.perf_counter() - t0) * 1e3)
-        eng.set_prefill_chunk_limit(1)
-        eng.reset()
-    log(f"phase 7 steady state at 8 slots (positions 300+): verify step median "
-        f"{verify_med if verify_med is None else round(verify_med, 3)} ms over {len(verify_ms)} "
-        f"steps, decode step (drafting off) {plain_decode_ms:.3f} ms/step, decode steps taken "
-        f"between verify steps {len(decode_ms)}; 512-token chunk at offsets 512 and 1024: "
-        + ", ".join(f"{x:.3f}" for x in chunk_ms) + f" ms [{card}]")
-    return dict(verify_step_ms=verify_med, verify_steps_timed=len(verify_ms),
-                decode_step_ms=plain_decode_ms, chunk_ms=chunk_ms, verify_profile=profile)
+        materialize()
+        waits.append((time.perf_counter() - t0) * 1e3)
+
+    eng._materialize_ring = timed_materialize
+    try:
+        with torch.no_grad():
+            for rep in range(repeats):
+                eng.reset()
+                for p in prompts:
+                    if len(p) <= 512 and eng.free_slots():
+                        eng.insert(p[:300], max_new_tokens=600)
+                for _ in range(4):
+                    eng.step()
+                    eng.poll()
+                verify_ms, decode_ms, host_ms = [], [], []
+                waits.clear()
+                for _ in range(24):
+                    v0 = eng.spec_verify_steps
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    eng.step()
+                    t1 = time.perf_counter()
+                    torch.cuda.synchronize()
+                    (verify_ms if eng.spec_verify_steps > v0 else decode_ms).append(
+                        (time.perf_counter() - t0) * 1e3)
+                    if eng.spec_verify_steps > v0:
+                        host_ms.append((t1 - t0) * 1e3)
+                    eng.poll()
+                numbers["verify_ms"].append(statistics.median(verify_ms) if verify_ms else None)
+                numbers["decode_ms"].append(statistics.median(decode_ms) if decode_ms else None)
+                numbers["wait_ms"].append(statistics.mean(waits) if waits else None)
+                numbers["host_ms"].append(statistics.median(host_ms) if host_ms else None)
+                if rep == repeats - 1 and profile and verify_ms:
+                    numbers["verify_profile"] = profile_decode(
+                        eng, statistics.median(verify_ms), card, n_steps=4,
+                        label=f"{label} verify step", out="profile_verify.txt")
+                eng.set_spec_draft_limit(0)
+                for _ in range(2):
+                    eng.step()
+                    eng.poll()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(16):
+                    eng.step()
+                    eng.poll()
+                torch.cuda.synchronize()
+                numbers["plain_decode_ms"].append((time.perf_counter() - t0) / 16 * 1e3)
+                eng.set_spec_draft_limit(eng.spec_draft_len)
+                eng.reset()
+                eng.set_prefill_chunk_limit(0)
+                long = [p for p in prompts if len(p) > 1024][0]
+                eng.insert(long, max_new_tokens=4)  # its first chunk runs here
+                while eng.prefill_chunks_pending():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    eng.prefill_step(limit=1)
+                    torch.cuda.synchronize()
+                    numbers["chunk_ms"].append((time.perf_counter() - t0) * 1e3)
+                eng.set_prefill_chunk_limit(1)
+                eng.reset()
+    finally:
+        eng._materialize_ring = materialize
+
+    def fmt(xs):
+        return ", ".join("-" if x is None else f"{x:.3f}" for x in xs)
+
+    log(f"{label} steady state at 8 slots (positions 300+), per repeat: verify step median "
+        f"{fmt(numbers['verify_ms'])} ms (each step synchronised), of it the host's until step() "
+        f"returns {fmt(numbers['host_ms'])} ms (drafting, staging, the replay's launch), and in "
+        f"that waiting for the readbacks before drafting {fmt(numbers['wait_ms'])} ms; decode step taken between verify steps "
+        f"{fmt(numbers['decode_ms'])} ms; decode step with drafting off {fmt(numbers['plain_decode_ms'])} "
+        f"ms/step; 512-token chunk at offsets 512 and 1024: {fmt(numbers['chunk_ms'])} ms [{card}]")
+    return numbers
 
 
 # ----------------------------------------------------------------- phase 8
@@ -2004,7 +2175,7 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 8
 PEAK_MEMORY_LIMIT = 75e9
 
 
-def phase_train_main_path(dev, card, ablate=False):
+def phase_train_main_path(dev, card):
     from accelerate_tpu_torch.accelerator import Accelerator
     from accelerate_tpu_torch.models.llama import (
         LlamaConfig, create_llama, llama_flops_per_token, llama_loss,
@@ -2058,54 +2229,193 @@ def phase_train_main_path(dev, card, ablate=False):
     if peak > PEAK_MEMORY_LIMIT:
         raise AssertionError(f"peak memory {peak / 1e9:.1f} GB is over {PEAK_MEMORY_LIMIT / 1e9:.0f} GB")
     profile = profile_train_step(step_fn, batch, step_ms, card)
-    ablation = step_ablation(step_fn, batch, card) if ablate else None
-    del model, optimizer, step_fn, batch, loader
+    # the Accelerator holds the model and optimizer it prepared
+    del model, optimizer, step_fn, loader, acc
+    gc.collect()
     torch.cuda.empty_cache()
+    gradients = variant_gradients(card, cfg, batch)
+    variants = train_variants(card, cfg, batch)
     return {k: launches[k] for k in expected}, dict(
         losses=losses, step_ms=step_ms, tokens_per_s=tokens_per_s, mfu=mfu, peak_memory_bytes=peak,
         batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, layers=TRAIN_LAYERS, profile=profile,
-        ablation_ms=ablation)
+        gradients=gradients, variants=variants)
 
 
-ABLATION_STEPS = 3
+TRAIN_VARIANT_WARMUP, TRAIN_VARIANT_STEPS = 2, 4  # untimed and timed steps of a variant
+# the variants' first-step gradients, before any update, leaf by leaf on one
+# model and batch: max |g - g_ref| over max |g_ref|, the worst leaf. Remat
+# recomputes the same kernels on the same inputs, so each policy's
+# gradients equal remat "nothing"'s bitwise at the same chunked-CE setting.
+# The chunked CE sums its chunks' f32 products of dh before one bf16
+# rounding, where the dense head's backward rounds one GEMM's sum: dh and
+# the leaves (bf16 values) apart by a few bf16 ulps (2^-8 each) of a leaf's
+# largest element
+TRAIN_GRAD_CHUNKED_TOL = 2.0 ** -6
+# the variants' losses against remat "nothing" without chunked CE: the same
+# first loss (no update yet) up to the loss's f32 summation, then bf16
+# steps apart (AdamW normalises each gradient, so a rounding difference
+# moves an element by up to lr)
+TRAIN_VARIANT_LOSS_RTOL = 1e-2
 
 
-def step_ablation(step_fn, batch, card):
-    """Step ms on the same model with the f32 head and the tensor-core
-    B2/B3 each taken back: the bf16-rounded head (the serving steps' head,
-    which ``llama_apply`` used before) and the FMA B2/B3 on bf16. Four
-    configurations in turns, A B C D D C B A, ``ABLATION_STEPS`` timed steps
-    each after one untimed, so the two changes are told apart in one call
-    (``--step-ablation``)."""
-    from accelerate_tpu_torch.models import llama
-    from accelerate_tpu_torch.ops.flash_attention import flash_bwd_kernel_for
+def variant_gradients(card, cfg0, batch):
+    """Phase 6's gradient check of the remat policies and the chunked CE:
+    one model from seed 0, the first step's gradients (``backward`` with
+    no update) under each of the six variants, each held against remat
+    ``"nothing"`` at the same chunked-CE setting (bitwise), and chunked
+    against dense at ``TRAIN_GRAD_CHUNKED_TOL``. A planted fault, the first
+    vocabulary chunk's term of dh zeroed in the chunked CE's backward, must
+    exceed that limit."""
+    import dataclasses
 
-    head, mma, fma = llama._head, flash_bwd_kernel_for(torch.bfloat16), flash_bwd_kernel_for(
-        torch.float32)
-    configs = {
-        "bf16 head + FMA B2/B3": (llama._serving_head, fma),
-        "f32 head + FMA B2/B3": (head, fma),
-        "bf16 head + tensor-core B2/B3": (llama._serving_head, mma),
-        "f32 head + tensor-core B2/B3": (head, mma),
-    }
-    times = {name: [] for name in configs}
-    try:
-        for name in [*configs, *reversed(configs)]:
-            llama._head, kernels = configs[name]
-            with bwd_kernels(kernels):
-                step_fn(batch)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(ABLATION_STEPS):
-                    step_fn(batch)
-                torch.cuda.synchronize()
-            times[name].append((time.perf_counter() - t0) / ABLATION_STEPS * 1e3)
-    finally:
-        llama._head = head
-    log("phase 6 step ms, configurations in turns (A B C D D C B A, "
-        f"{ABLATION_STEPS} steps each): "
-        + "; ".join(f"{n} {t[0]:.1f} / {t[1]:.1f}" for n, t in times.items()) + f" [{card}]")
-    return times
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.model import unwrap_model
+    from accelerate_tpu_torch.models.llama import create_llama, llama_loss
+    from accelerate_tpu_torch.ops import losses
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    AcceleratorState._reset_state(reset_partial_state=True)
+    GradientState._reset_state()
+    acc = Accelerator(mixed_precision="bf16")
+    model = create_llama(cfg0, seed=0, device=acc.device)
+    params = list(model.named_parameters())
+    # backward() accumulates for a prepared optimizer; nothing steps it
+    model, optimizer = acc.prepare(model, torch.optim.SGD(model.parameters(), lr=0.0))
+
+    def grads(policy, chunked):
+        unwrap_model(model).config = dataclasses.replace(cfg0, remat_policy=policy,
+                                                         use_chunked_ce=chunked)
+        for _, p in params:
+            p.grad = None
+        acc.backward(llama_loss, batch)
+        return {n: p.grad for n, p in params}
+
+    out, leaves = {}, {}
+
+    def record(key, g, ref):
+        errs = {n: ((g[n] - ref[n]).abs().max() / ref[n].abs().max()).item() for n in ref}
+        leaves[key] = max(errs, key=errs.get)
+        out[key] = errs[leaves[key]]
+
+    @contextlib.contextmanager
+    def zeroed_first_dh_chunk():
+        # the backward's head products alternate: chunk c's logits, then
+        # its dh term; the second is chunk 0's dh term
+        product, backward = losses._f32_product, losses._ChunkedNLL.backward
+        calls = []
+
+        def planted_product(x, w):
+            out = product(x, w)
+            calls.append(None)
+            return torch.zeros_like(out) if len(calls) == 2 else out
+
+        def planted_backward(ctx, grad):
+            losses._f32_product = planted_product
+            try:
+                return backward(ctx, grad)
+            finally:
+                losses._f32_product = product
+
+        losses._ChunkedNLL.backward = staticmethod(planted_backward)
+        try:
+            yield
+        finally:
+            losses._ChunkedNLL.backward = staticmethod(backward)
+
+    ref = grads("nothing", False)
+    for chunked in (False, True):
+        if chunked:
+            dense, ref = ref, grads("nothing", True)
+            record("chunked CE vs dense", ref, dense)
+            with zeroed_first_dh_chunk():
+                record("planted fault vs dense", grads("nothing", True), dense)
+            del dense
+        for policy in ("dots", "minimal"):
+            record(f"remat {policy} vs nothing, chunked CE {'on' if chunked else 'off'}",
+                   grads(policy, chunked), ref)
+    del ref, model, optimizer, params, acc
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 6 first-step gradients, worst leaf's max |g - g_ref| / max |g_ref|: "
+        + ", ".join(f"{k} {v:.3e} ({leaves[k]})" for k, v in out.items())
+        + f" (remat: bitwise; chunked CE: limit {TRAIN_GRAD_CHUNKED_TOL:.3e}) [{card}]")
+    remat = {k: v for k, v in out.items() if k.startswith("remat")}
+    if any(v != 0.0 for v in remat.values()):
+        raise AssertionError(f"phase 6: a remat policy's gradients differ from remat nothing's: {remat}")
+    if not out["chunked CE vs dense"] <= TRAIN_GRAD_CHUNKED_TOL:
+        raise AssertionError("phase 6: the chunked CE's gradients differ from the dense loss's "
+                             "beyond bf16 rounding")
+    if not out["planted fault vs dense"] > TRAIN_GRAD_CHUNKED_TOL:
+        raise AssertionError("phase 6's gradient limit cannot see a zeroed dh chunk")
+    return out
+
+
+def train_variants(card, cfg0, batch):
+    """Phase 6's step under remat ``"nothing"``, ``"dots"`` and
+    ``"minimal"``, each with ``use_chunked_ce`` off and on (chunks of
+    ``ce_chunk_size`` = 4096), in two passes, the second in the reverse
+    order: each time a fresh model from the same seed, then
+    ``TRAIN_VARIANT_WARMUP`` untimed and ``TRAIN_VARIANT_STEPS`` timed
+    steps on the same batch. Step ms (one reading a pass), peak memory
+    (``torch.cuda.max_memory_allocated`` from a reset just before the model
+    is built), the flash forward's launches per step (every policy
+    recomputes it: the checkpoint policies cannot see a ctypes launch) and
+    the losses, which must agree across variants."""
+    import dataclasses
+
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models.llama import create_llama, llama_loss
+    from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    out = {}
+    variants = [(p, c) for p in ("nothing", "dots", "minimal") for c in (False, True)]
+    for policy, chunked in variants + variants[::-1]:
+        name = f"remat {policy}, chunked CE {'on' if chunked else 'off'}"
+        AcceleratorState._reset_state(reset_partial_state=True)
+        GradientState._reset_state()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        acc = Accelerator(mixed_precision="bf16")
+        cfg = dataclasses.replace(cfg0, remat_policy=policy, use_chunked_ce=chunked)
+        model = create_llama(cfg, seed=0, device=acc.device)
+        optimizer = torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                                      weight_decay=0.01)
+        model, optimizer = acc.prepare(model, optimizer)
+        step_fn = acc.train_step(llama_loss, max_grad_norm=1.0)
+        losses = [step_fn(batch) for _ in range(TRAIN_VARIANT_WARMUP)]
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses += [step_fn(batch) for _ in range(TRAIN_VARIANT_STEPS)]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / TRAIN_VARIANT_STEPS * 1e3
+        fwd = _build.launch_counts()["flash_fwd_mma"] / TRAIN_VARIANT_STEPS
+        entry = out.setdefault(name, dict(step_ms=[], peak_memory_bytes=[], losses=[],
+                                          flash_fwd_per_step=fwd))
+        entry["step_ms"].append(step_ms)
+        entry["peak_memory_bytes"].append(torch.cuda.max_memory_allocated())
+        entry["losses"].append([x.item() for x in losses])
+        del model, optimizer, step_fn, acc
+        gc.collect()
+        if fwd != 2 * TRAIN_LAYERS:
+            raise AssertionError(f"phase 6 {name}: {fwd} flash forward launches a step, "
+                                 f"expected {2 * TRAIN_LAYERS} (the recompute runs it again)")
+    torch.cuda.empty_cache()
+    base = out["remat nothing, chunked CE off"]["losses"][0]
+    worst = max(abs(a - b) / abs(b) for v in out.values() for run in v["losses"]
+                for a, b in zip(run, base))
+    log(f"phase 6 variants ({TRAIN_VARIANT_STEPS} timed steps each after {TRAIN_VARIANT_WARMUP} "
+        "untimed, in two passes; step ms a pass, peak memory GB, flash forward launches a step, "
+        "losses): " + "; ".join(
+            f"{n}: {' / '.join(f'{x:.1f}' for x in v['step_ms'])} ms, "
+            f"{max(v['peak_memory_bytes']) / 1e9:.2f} GB, "
+            f"{v['flash_fwd_per_step']:.0f}, {[round(x, 4) for x in v['losses'][0]]}"
+            for n, v in out.items())
+        + f"; largest relative loss difference {worst:.2e} (limit {TRAIN_VARIANT_LOSS_RTOL}) [{card}]")
+    if not worst <= TRAIN_VARIANT_LOSS_RTOL:
+        raise AssertionError("phase 6 variants: the losses disagree beyond bf16 steps")
+    return out
 
 
 # kernel name fragments by group; the first match wins, so each tensor-core
@@ -2337,9 +2647,6 @@ def main(argv=None) -> int:
                         help="build and check the kernels only (phases 1-2)")
     parser.add_argument("--layers", type=int, default=32,
                         help="depth of the serving main path's model (default: the full 32)")
-    parser.add_argument("--step-ablation", action="store_true",
-                        help="also time phase 6's step with the f32 head and the tensor-core "
-                             "B2/B3 each taken back, four configurations in turns")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU")
@@ -2387,8 +2694,7 @@ def main(argv=None) -> int:
             summary["checkpoint"] = phase_checkpoint(dev, card)
         torch.cuda.empty_cache()
         by_path["training_f32"], summary["train_parity"] = phase_train_parity(dev, card)
-        by_path["training"], summary["train_main_path"] = phase_train_main_path(
-            dev, card, ablate=args.step_ablation)
+        by_path["training"], summary["train_main_path"] = phase_train_main_path(dev, card)
         for counts in by_path.values():
             for name, n in counts.items():
                 launches[name] += n

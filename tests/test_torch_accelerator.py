@@ -4,7 +4,8 @@
 the end of the data loader (the JAX package's ``tests/test_accelerator.py``
 pins the same patterns), gradient clipping, fp16 loss scaling skipping a
 step on non-finite gradients, the mixed-precision wrapper, the data loader,
-and the refusals of what waits for the distributed slice.
+the refusals of what waits for the distributed slice, and the multi-step
+``train_step`` and schedulers that took the place of earlier refusals.
 
 A two-parameter regression ``y = a * x + b`` in f64 keeps the arithmetic
 exact enough to compare the eager loop, ``train_step`` and a hand-rolled
@@ -24,6 +25,7 @@ from accelerate_tpu_torch.accelerator import Accelerator
 from accelerate_tpu_torch.data_loader import SeedableRandomSampler, prepare_data_loader
 from accelerate_tpu_torch.model import MixedPrecisionModule, unwrap_model
 from accelerate_tpu_torch.optimizer import DynamicScale
+from accelerate_tpu_torch.scheduler import AcceleratedScheduler
 from accelerate_tpu_torch.state import AcceleratorState, GradientState
 from accelerate_tpu_torch.utils.dataclasses import (
     DistributedDataParallelKwargs,
@@ -258,26 +260,35 @@ def test_what_waits_for_the_distributed_slice_raises():
         acc.prepare(model, torch.optim.SGD(model.parameters(), lr=LR))
         with pytest.raises(NotImplementedError, match=match):
             acc.train_step(regression_loss)
-    with pytest.raises(NotImplementedError, match="multi_step"):
+    # the multi-step callable keeps the comm-hook refusal of the single step
+    with pytest.raises(NotImplementedError, match="gradient-compression"):
         acc.train_step(regression_loss, multi_step=True)
     with pytest.raises(NotImplementedError, match="torch DataLoader"):
         acc.prepare_data_loader(torch.utils.data.DataLoader(range(8), batch_size=4))
-    with pytest.raises(NotImplementedError):
-        acc.prepare(torch.optim.lr_scheduler.StepLR(torch.optim.SGD(model.parameters(), lr=LR), 1))
+    # a scheduler is one device's business: prepared, not refused
+    assert isinstance(acc.prepare(torch.optim.lr_scheduler.StepLR(
+        torch.optim.SGD(model.parameters(), lr=LR), 1)), AcceleratedScheduler)
 
 
 def test_refusals_name_their_queue_items():
     acc = Accelerator(cpu=True)
     model = Regression()
-    acc.prepare(model, torch.optim.SGD(model.parameters(), lr=LR))
-    with pytest.raises(NotImplementedError, match=r"CUDA graphs \(ROADMAP.md A9\)"):
-        acc.train_step(regression_loss, multi_step=True)
+    _, opt = acc.prepare(model, torch.optim.SGD(model.parameters(), lr=LR))
+    # A9 (multi_step) landed: N steps in one call, one loss each
+    data = make_data(8)
+    losses = acc.train_step(regression_loss, multi_step=True)(
+        {k: torch.from_numpy(v).reshape(4, 2) for k, v in data.items()})
+    assert losses.shape == (4,) and bool(torch.isfinite(losses).all()) and opt._step_count == 4
     with pytest.raises(NotImplementedError, match=r"data path \(ROADMAP.md A5\)"):
         prepare_data_loader(torch.utils.data.DataLoader(range(8), batch_size=4), device="cpu")
     with pytest.raises(NotImplementedError, match=r"data path \(ROADMAP.md A5\)"):
         prepare_data_loader(iter([{"x": np.zeros(2)}]), batch_size=2, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md A4"):
-        acc.prepare(torch.optim.lr_scheduler.StepLR(torch.optim.SGD(model.parameters(), lr=LR), 1))
+    # A4's scheduler landed: it wraps the prepared optimizer and steps with it
+    sched = acc.prepare(torch.optim.lr_scheduler.StepLR(opt.optimizer, 1, gamma=0.5))
+    assert isinstance(sched, AcceleratedScheduler) and sched.optimizer is opt
+    acc.train_step(regression_loss)({k: torch.from_numpy(v[:2]) for k, v in data.items()})
+    sched.step()
+    assert sched.step_count == 1 and sched.get_last_lr() == [LR * 0.5]
 
 
 @pytest.mark.parametrize("name", ["GradientAccumulationPlugin", "GradScalerKwargs"])
@@ -291,8 +302,8 @@ def test_kwargs_classes_take_every_field_of_the_jax_package(name):
 
 def test_accumulation_fields_of_one_device():
     # sync_each_batch: one device has no cross-device reduction to defer,
-    # so both settings give the same parameters; adjust_scheduler is
-    # accepted and has nothing to act on while prepare refuses schedulers
+    # so both settings give the same parameters; adjust_scheduler changes
+    # nothing, as in the JAX package (tests/test_torch_scheduler.py)
     finals = []
     for sync_each_batch in (False, True):
         AcceleratorState._reset_state(reset_partial_state=True)

@@ -181,7 +181,6 @@ UNPORTED_CONFIGS = {
     "moe": (dict(num_experts=4, num_experts_per_tok=1, expert_capacity_factor=2.0,
                  moe_aux_loss_coef=0.1, router_z_loss_coef=1e-3), "MoE", "A11"),
     "fp8": (dict(use_fp8=True), "use_fp8", "A4"),
-    "chunked_ce": (dict(use_chunked_ce=True, ce_chunk_size=64), "use_chunked_ce", "A4"),
 }
 
 

@@ -141,23 +141,47 @@ def test_ce_denominator_and_flops_match_jax():
 
 
 def test_remat_policies(params):
-    # "nothing" recomputes each layer in the backward: the same gradients as
-    # keeping every activation ("full"); "dots"/"minimal" are queued
-    _, tcfg = _configs()
+    # every policy recomputes (part of) each layer in the backward: the same
+    # gradients as keeping every activation ("full"), through the flash
+    # attention (its plain version here) and through the plain "xla" one,
+    # whose batched einsums "dots" saves and "dots_no_batch" does not
+    # and the products each policy keeps are not run again in the backward
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountProducts(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = {"mm": 0, "bmm": 0}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name in self.n:
+                self.n[name] += 1
+            return func(*args, **(kwargs or {}))
+
     ids = torch.from_numpy(np.random.default_rng(2).integers(0, 256, size=(2, 12)).astype(np.int64))
-    grads = {}
-    for policy in ("nothing", "full"):
-        cfg = dataclasses.replace(tcfg, remat_policy=policy)
-        model = tl.LlamaForCausalLM(cfg, tl.params_from_jax(cfg, params, device="cpu"))
-        tl.llama_loss(model, {"input_ids": ids}).backward()
-        grads[policy] = {n: p.grad for n, p in model.named_parameters()}
-    for name, g in grads["nothing"].items():
-        torch.testing.assert_close(g, grads["full"][name], atol=1e-6, rtol=1e-6)
-    for policy in ("dots", "minimal"):
-        cfg = dataclasses.replace(tcfg, remat_policy=policy)
-        model = tl.LlamaForCausalLM(cfg, tl.params_from_jax(cfg, params, device="cpu"))
-        with pytest.raises(NotImplementedError, match="remat_policy"):
-            model(ids)
+    for impl in ("flash", "xla"):
+        tcfg = dataclasses.replace(_configs()[1], attention_impl=impl)
+        grads, products = {}, {}
+        for policy in tl.REMAT_POLICIES:
+            cfg = dataclasses.replace(tcfg, remat_policy=policy)
+            model = tl.LlamaForCausalLM(cfg, tl.params_from_jax(cfg, params, device="cpu"))
+            loss = tl.llama_loss(model, {"input_ids": ids})
+            with CountProducts() as count:
+                loss.backward()
+            grads[policy] = {n: p.grad for n, p in model.named_parameters()}
+            products[policy] = count.n
+        for policy in tl.REMAT_POLICIES:
+            for name, g in grads[policy].items():
+                torch.testing.assert_close(g, grads["full"][name], atol=1e-6, rtol=1e-6,
+                                           msg=f"{impl} {policy} {name}")
+        full, nothing = products["full"], products["nothing"]
+        assert products["dots"]["mm"] == products["dots_no_batch"]["mm"] == full["mm"] < nothing["mm"]
+        assert full["mm"] < products["minimal"]["mm"] < nothing["mm"]
+        if impl == "xla":  # the attention's batched products
+            assert products["dots"]["bmm"] == full["bmm"] < products["dots_no_batch"]["bmm"]
+    with pytest.raises(ValueError, match="remat_policy"):
+        tl.llama_apply(dataclasses.replace(tcfg, remat_policy="everything"), {}, ids)
 
 
 def test_stacked_parameters_take_every_layer_gradient(params, monkeypatch):
@@ -343,22 +367,27 @@ def jax_loss_and_grad():
     return jax.jit(jax.value_and_grad(loss))
 
 
-def _jax_trajectory(params, batches, accum, opt_name):
-    """Each step's loss, the params before each step (host copies), and
+def _jax_trajectory(params, batches, accum, opt_name, multi_step=False, **cfg_kw):
+    """Each step's loss, the params before each step (host copies; the
+    first only with ``multi_step``, whose one call runs every step), and
     the params after the last."""
     JAcceleratorState._reset_state()
     JGradientState._reset_state()
     JPartialState._reset_state()
-    jcfg, _ = _configs()
+    jcfg, _ = _configs(**cfg_kw)
     acc = JAccelerator(parallelism_config=ParallelismConfig(dp_shard_size=8),
                        gradient_accumulation_steps=accum)
     model = jl.create_llama(jcfg, seed=0)
     model.params = jax.tree_util.tree_map(jnp.asarray, params)
     tx = optax.sgd(LR["sgd"]) if opt_name == "sgd" else optax.adamw(LR["adamw"], weight_decay=0.01)
     model, tx = acc.prepare(model, tx)
-    step = acc.train_step(jl.llama_loss, max_grad_norm=1.0)
+    step = acc.train_step(jl.llama_loss, max_grad_norm=1.0, multi_step=multi_step)
     losses, before = [], []
-    for batch in batches:
+    if multi_step:
+        before.append(jax.tree_util.tree_map(np.asarray, model.params))
+        stacked = {k: jnp.asarray(np.stack([b[k] for b in batches])) for k in batches[0]}
+        losses = [float(x) for x in np.asarray(step(stacked))]
+    for batch in batches if not multi_step else ():
         before.append(jax.tree_util.tree_map(np.asarray, model.params))
         losses.append(float(step({k: jnp.asarray(v) for k, v in batch.items()})))
     out = jax.tree_util.tree_map(np.asarray, model.params)
@@ -423,3 +452,62 @@ def test_train_step_trajectory_matches_jax(params, jax_loss_and_grad, accum, opt
         np.testing.assert_allclose(got[~loose], leaf[~loose], rtol=0, atol=ADAM_PARAM_ATOL, err_msg=msg)
         np.testing.assert_allclose(got[loose], leaf[loose], rtol=0,
                                    atol=2 * LR["adamw"] * (4 // accum), err_msg=msg)
+
+
+def _port_sgd_trajectory(params, data, accum, multi_step=False, **cfg_kw):
+    """The port's SGD ``train_step`` over ``data`` in 8-row batches: each
+    step's loss (one call with ``multi_step``) and the params after."""
+    AcceleratorState._reset_state(reset_partial_state=True)
+    GradientState._reset_state()
+    try:
+        _, tcfg = _configs(**cfg_kw)
+        acc = Accelerator(cpu=True, gradient_accumulation_steps=accum)
+        model = tl.LlamaForCausalLM(tcfg, tl.params_from_jax(tcfg, params, device="cpu"))
+        model, _ = acc.prepare(model, torch.optim.SGD(model.parameters(), lr=LR["sgd"]))
+        step = acc.train_step(tl.llama_loss, max_grad_norm=1.0, multi_step=multi_step)
+        ids = torch.from_numpy(data).reshape(-1, 8, data.shape[1])
+        if multi_step:
+            losses = step({"input_ids": ids})
+            assert losses.shape == (ids.shape[0],)
+            losses = losses.tolist()
+        else:
+            losses = [step({"input_ids": b}).item() for b in ids]
+        return losses, {k: v.detach().clone() for k, v in model.named_parameters()}, model.params
+    finally:
+        AcceleratorState._reset_state(reset_partial_state=True)
+        GradientState._reset_state()
+
+
+def _assert_sgd_params(tparams, jparams):
+    for path, leaf in jax.tree_util.tree_leaves_with_path(jparams):
+        np.testing.assert_allclose(_leaf(tparams, path).numpy(), leaf, rtol=0, atol=1e-5,
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+@pytest.mark.parametrize("policy", ["dots", "dots_no_batch", "minimal"])
+def test_train_step_trajectory_matches_jax_under_remat(params, policy):
+    # the same 4-step SGD trajectory as JAX's train_step with the same
+    # remat_policy (JAX: checkpoint_dots, ..._with_no_batch_dims,
+    # save_only_these_names of the block outputs)
+    data = np.random.default_rng(4).integers(0, 256, size=(32, 16)).astype(np.int32)
+    batches = [{"input_ids": data[i:i + 8]} for i in range(0, 32, 8)]
+    jlosses, _, jparams = _jax_trajectory(params, batches, 1, "sgd", remat_policy=policy)
+    losses, _, tparams = _port_sgd_trajectory(params, data, 1, remat_policy=policy)
+    np.testing.assert_allclose(losses, jlosses, rtol=TRAJ_LOSS_RTOL["sgd"])
+    _assert_sgd_params(tparams, jparams)
+
+
+def test_multi_step_matches_single_calls_and_jax(params):
+    # N = 4 steps in one call with accumulation 2: the losses and params of
+    # four single calls, exactly, and of the JAX multi-step train_step
+    # (lax.scan) at slice 2's tolerances
+    data = np.random.default_rng(6).integers(0, 256, size=(32, 16)).astype(np.int32)
+    batches = [{"input_ids": data[i:i + 8]} for i in range(0, 32, 8)]
+    jlosses, _, jparams = _jax_trajectory(params, batches, 2, "sgd", multi_step=True)
+    losses, named, tparams = _port_sgd_trajectory(params, data, 2, multi_step=True)
+    single, named_single, _ = _port_sgd_trajectory(params, data, 2)
+    assert losses == single
+    for name, p in named.items():
+        assert torch.equal(p, named_single[name]), name
+    np.testing.assert_allclose(losses, jlosses, rtol=TRAJ_LOSS_RTOL["sgd"])
+    _assert_sgd_params(tparams, jparams)
