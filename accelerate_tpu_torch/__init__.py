@@ -24,8 +24,12 @@ weight quantization (``quantize_model``, ``load_and_quantize_model``) with
 the quantized matmul kernel. The serving engine's step programs run as
 captured CUDA graphs; training has ``train_step(multi_step=True)``,
 schedulers, the selective remat policies and the chunked cross entropy.
-Distributed training, the host KV tier and the serving control plane are
-still to be ported (ROADMAP.md).
+A training job resumes: the data path (torch ``DataLoader`` unwrapping,
+sharded samplers, exact mid-epoch ``state_dict``, the native packer of
+``csrc/packing.cpp``), atomic checkpoints with ``resume_from_latest``,
+the ``check_step_health`` watchdog, trackers, and the HF Llama
+converters. Distributed training, the host KV tier and the serving
+control plane are still to be ported (ROADMAP.md).
 """
 
 __version__ = "0.1.0"
@@ -33,6 +37,8 @@ __version__ = "0.1.0"
 __all__ = [
     "AcceleratedScheduler",
     "Accelerator",
+    "ProjectConfiguration",
+    "TrainingHealthConfig",
     "ContinuousBatchingEngine",
     "InferenceServer",
     "LlamaConfig",
@@ -51,6 +57,7 @@ __all__ = [
     "quantize_model",
     "quantized_matmul",
     "release_memory",
+    "skip_first_batches",
     "resolve_device",
     "set_seed",
     "synchronize_rng_states",
@@ -69,6 +76,28 @@ _LAZY = {
     "GradientState": ("state", "GradientState"),
     "PartialState": ("state", "PartialState"),
     "prepare_data_loader": ("data_loader", "prepare_data_loader"),
+    "skip_first_batches": ("data_loader", "skip_first_batches"),
+    "DataLoaderConfiguration": ("utils.dataclasses", "DataLoaderConfiguration"),
+    "ProjectConfiguration": ("utils.dataclasses", "ProjectConfiguration"),
+    "TrainingHealthConfig": ("utils.dataclasses", "TrainingHealthConfig"),
+    "GeneralTracker": ("tracking", "GeneralTracker"),
+    "wait_for_async_saves": ("checkpointing", "wait_for_async_saves"),
+    "list_checkpoints": ("checkpointing", "list_checkpoints"),
+    "verify_checkpoint": ("checkpointing", "verify_checkpoint"),
+    "is_checkpoint_committed": ("checkpointing", "is_checkpoint_committed"),
+    "CheckpointError": ("utils.fault", "CheckpointError"),
+    "CheckpointNotFoundError": ("utils.fault", "CheckpointNotFoundError"),
+    "CheckpointUncommittedError": ("utils.fault", "CheckpointUncommittedError"),
+    "CheckpointCorruptError": ("utils.fault", "CheckpointCorruptError"),
+    "CheckpointComponentMissingError": ("utils.fault", "CheckpointComponentMissingError"),
+    "TrainingHealthError": ("utils.fault", "TrainingHealthError"),
+    "install_preemption_handler": ("utils.fault", "install_preemption_handler"),
+    "health_summary": ("telemetry", "health_summary"),
+    "StepHealth": ("telemetry", "StepHealth"),
+    "DeferredReadbackRing": ("telemetry", "DeferredReadbackRing"),
+    "AsyncTrackerFlusher": ("telemetry", "AsyncTrackerFlusher"),
+    "convert_hf_state_dict": ("models.llama", "convert_hf_state_dict"),
+    "export_hf_state_dict": ("models.llama", "export_hf_state_dict"),
     "create_llama": ("models.llama", "create_llama"),
     "llama_loss": ("models.llama", "llama_loss"),
     "resolve_device": ("_device", "resolve_device"),

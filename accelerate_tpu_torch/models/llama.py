@@ -59,6 +59,9 @@ __all__ = [
     "create_llama",
     "init_llama_params",
     "params_from_jax",
+    "convert_hf_state_dict",
+    "export_hf_state_dict",
+    "load_hf_checkpoint",
     "rms_norm",
     "apply_rope",
     "apply_rope_at",
@@ -347,6 +350,166 @@ def params_from_jax(config: LlamaConfig, params_np: dict, device="cuda") -> dict
         return torch.from_numpy(arr.copy()).to(device=dev, dtype=config.param_dtype)
 
     return convert(params_np)
+
+
+# --------------------------------------------------------- HF checkpoint IO
+def _rope_unpermute(w: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
+    """HF's rotate-half q/k rows to the interleaved RoPE pairs the model
+    uses: for a torch-layout (out, in) weight, ours[h, 2i+m] =
+    hf[h, m*d/2 + i]."""
+    out_dim, in_dim = w.shape
+    return w.reshape(n_heads, 2, head_dim // 2, in_dim).transpose(1, 2).reshape(out_dim, in_dim)
+
+
+def _rope_permute(w: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
+    """The inverse of :func:`_rope_unpermute` (ours to HF)."""
+    out_dim, in_dim = w.shape
+    return w.reshape(n_heads, head_dim // 2, 2, in_dim).transpose(1, 2).reshape(out_dim, in_dim)
+
+
+_HF_LAYER_MAP = {
+    "self_attn.q_proj.weight": ("attn", "q_proj"),
+    "self_attn.k_proj.weight": ("attn", "k_proj"),
+    "self_attn.v_proj.weight": ("attn", "v_proj"),
+    "self_attn.o_proj.weight": ("attn", "o_proj"),
+    "mlp.gate_proj.weight": ("mlp", "gate_proj"),
+    "mlp.up_proj.weight": ("mlp", "up_proj"),
+    "mlp.down_proj.weight": ("mlp", "down_proj"),
+}
+
+
+def _rope_heads(config: LlamaConfig, name: str) -> Optional[int]:
+    if name.startswith("self_attn.q_proj") or name == "q_proj":
+        return config.num_attention_heads
+    if name.startswith("self_attn.k_proj") or name == "k_proj":
+        return config.num_key_value_heads
+    return None
+
+
+def convert_hf_state_dict(config: LlamaConfig, flat: dict, device="cuda") -> dict:
+    """A HuggingFace Llama checkpoint (a flat dict of tensors or arrays
+    under HF's names, as a safetensors file holds them) as the model's
+    parameter tree of ``config.param_dtype`` tensors on ``device``: each
+    ``nn.Linear`` (out, in) weight transposed to (in, out), the per-layer
+    tensors stacked on a leading L dimension, q/k rows taken from HF's
+    rotate-half order to interleaved pairs. Gemma-2's four norms and
+    Qwen2's q/k/v biases map as in the JAX package; MoE checkpoints wait
+    for ROADMAP.md A11."""
+    _check_supported(config)
+    dev = resolve_device(device)
+    L = config.num_hidden_layers
+
+    def get(key):
+        value = flat[key]
+        t = value if isinstance(value, torch.Tensor) else torch.from_numpy(np.asarray(value))
+        return t.detach().to(device=dev, dtype=config.param_dtype)
+
+    def stacked(suffix: str, transpose: bool) -> torch.Tensor:
+        heads = _rope_heads(config, suffix)
+        parts = []
+        for i in range(L):
+            w = get(f"model.layers.{i}.{suffix}")
+            if heads is not None:
+                w = _rope_unpermute(w, heads, config.head_dim)
+            parts.append(w.T if transpose else w)
+        return torch.stack(parts).contiguous()
+
+    params = {
+        "embed_tokens": {"embedding": get("model.embed_tokens.weight")},
+        "layers": {"attn": {}, "mlp": {},
+                   "input_norm": {"scale": stacked("input_layernorm.weight", transpose=False)}},
+        "final_norm": {"scale": get("model.norm.weight")},
+    }
+    if config.post_block_norms:
+        # Gemma-2's sandwich norms: HF's post_attention_layernorm normalises
+        # the attention output (attn_out_norm), pre_feedforward_layernorm is
+        # the pre-MLP norm (post_attn_norm)
+        params["layers"]["attn_out_norm"] = {
+            "scale": stacked("post_attention_layernorm.weight", transpose=False)}
+        params["layers"]["post_attn_norm"] = {
+            "scale": stacked("pre_feedforward_layernorm.weight", transpose=False)}
+        params["layers"]["mlp_out_norm"] = {
+            "scale": stacked("post_feedforward_layernorm.weight", transpose=False)}
+    else:
+        params["layers"]["post_attn_norm"] = {
+            "scale": stacked("post_attention_layernorm.weight", transpose=False)}
+    for hf_suffix, (group, name) in _HF_LAYER_MAP.items():
+        params["layers"][group][name] = {"kernel": stacked(hf_suffix, transpose=True)}
+    if not config.attention_bias and "model.layers.0.self_attn.q_proj.bias" in flat:
+        raise ValueError(
+            "checkpoint carries q/k/v projection biases (Qwen2-style) but "
+            "config.attention_bias=False: they would be dropped and every logit would "
+            "diverge from HF; set attention_bias=True (see LlamaConfig.qwen2_7b)")
+    if config.attention_bias:
+        for name in ("q_proj", "k_proj", "v_proj"):
+            heads = _rope_heads(config, name)
+            rows = []
+            for i in range(L):
+                b = get(f"model.layers.{i}.self_attn.{name}.bias")
+                if heads is not None:
+                    b = _rope_unpermute(b[:, None], heads, config.head_dim)[:, 0]
+                rows.append(b)
+            params["layers"]["attn"][name]["bias"] = torch.stack(rows)
+    if not config.tie_word_embeddings:
+        # a tied checkpoint loaded into an untied config takes the embedding
+        head = "lm_head.weight" if "lm_head.weight" in flat else "model.embed_tokens.weight"
+        params["lm_head"] = {"kernel": get(head).T.contiguous()}
+    return params
+
+
+def export_hf_state_dict(config: LlamaConfig, params: dict) -> dict:
+    """The inverse of :func:`convert_hf_state_dict`: HF-named CPU tensors in
+    the parameters' dtype."""
+
+    def host(t):
+        return t.detach().to("cpu")
+
+    out = {"model.embed_tokens.weight": host(params["embed_tokens"]["embedding"]),
+           "model.norm.weight": host(params["final_norm"]["scale"])}
+    L = config.num_hidden_layers
+    for hf_suffix, (group, name) in _HF_LAYER_MAP.items():
+        kernel = host(params["layers"][group][name]["kernel"])
+        bias = params["layers"][group][name].get("bias")
+        heads = _rope_heads(config, name)
+        for i in range(L):
+            w = kernel[i].T
+            if heads is not None:
+                w = _rope_permute(w, heads, config.head_dim)
+            out[f"model.layers.{i}.{hf_suffix}"] = w.contiguous()
+            if bias is not None:
+                b = host(bias)[i]
+                if heads is not None:
+                    b = _rope_permute(b[:, None], heads, config.head_dim)[:, 0]
+                out[f"model.layers.{i}.{hf_suffix[:-len('.weight')]}.bias"] = b.contiguous()
+    norms = (("input_layernorm", "input_norm"),)
+    if config.post_block_norms:
+        norms += (("post_attention_layernorm", "attn_out_norm"),
+                  ("pre_feedforward_layernorm", "post_attn_norm"),
+                  ("post_feedforward_layernorm", "mlp_out_norm"))
+    else:
+        norms += (("post_attention_layernorm", "post_attn_norm"),)
+    for hf_name, ours in norms:
+        scale = host(params["layers"][ours]["scale"])
+        for i in range(L):
+            out[f"model.layers.{i}.{hf_name}.weight"] = scale[i].contiguous()
+    if "lm_head" in params:
+        out["lm_head.weight"] = host(params["lm_head"]["kernel"]).T.contiguous()
+    return out
+
+
+def load_hf_checkpoint(model: "LlamaForCausalLM", directory: str) -> None:
+    """Load a HuggingFace-format safetensors Llama checkpoint into ``model``
+    (its parameters keep their device)."""
+    from ..utils.serialization import load_sharded_safetensors
+
+    tree = convert_hf_state_dict(model.config, load_sharded_safetensors(directory),
+                                 device=next(model.parameters()).device)
+    with torch.no_grad():
+        for path, name in model._paths:
+            node = tree
+            for key in path:
+                node = node[key]
+            getattr(model, name).copy_(node)
 
 
 def _flatten(tree, prefix=()):

@@ -10,6 +10,11 @@ on non-finite gradients; ``zero_grad`` does nothing mid-accumulation;
 ``clip_grad_norm_`` scales by ``min(1, max_norm / (norm + 1e-6))`` over the
 f32 global norm.
 
+``state_dict``/``load_state_dict`` round-trip the wrapped optimizer's
+state (torch AdamW's moments and step counters), the update count and
+the fp16 loss scale; a checkpoint (``checkpointing.py``) writes the
+tensors through the safetensors writer and the rest as JSON.
+
 ``optax.adamw(lr, weight_decay=wd)`` maps to ``torch.optim.AdamW(lr,
 betas=(0.9, 0.999), eps=1e-8, weight_decay=wd)``: both decay decoupled, on
 every parameter. Their default ``weight_decay`` differs (1e-4 against
@@ -57,6 +62,12 @@ class DynamicScale:
         if not grads:
             return True
         return bool(torch.stack([torch.isfinite(g).all() for g in grads]).all().item())
+
+    def state_dict(self) -> dict:
+        return {"scale": float(self.state["scale"]), "good_steps": int(self.state["good_steps"])}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.state = {"scale": float(sd["scale"]), "good_steps": int(sd["good_steps"])}
 
     def update(self, is_finite: bool) -> None:
         scale, good = self.state["scale"], self.state["good_steps"]
@@ -109,6 +120,7 @@ class AcceleratedOptimizer:
         self.step_was_skipped = False
         self._step_count = 0
         self._unscaled = False
+        self._last_grad_norm: Optional[torch.Tensor] = None
 
     def params(self) -> List[torch.Tensor]:
         return [p for group in self.optimizer.param_groups for p in group["params"]]
@@ -127,7 +139,8 @@ class AcceleratedOptimizer:
         if not grads:
             return torch.zeros(())
         self.unscale_()
-        return clip_grads_by_norm(grads, max_norm)
+        self._last_grad_norm = clip_grads_by_norm(grads, max_norm)
+        return self._last_grad_norm
 
     def clip_grad_value_(self, clip_value: float) -> None:
         grads = self.grads()
@@ -153,6 +166,7 @@ class AcceleratedOptimizer:
                 return
         self.optimizer.step(closure)
         self._unscaled = False
+        self._last_grad_norm = None
         self.step_was_skipped = False
         self._step_count += 1
 
@@ -161,6 +175,28 @@ class AcceleratedOptimizer:
         if self.gradient_state.sync_gradients:
             self.optimizer.zero_grad(set_to_none=set_to_none)
             self._unscaled = False
+            self._last_grad_norm = None
+
+    def state_dict(self) -> dict:
+        sd = {"optimizer": self.optimizer.state_dict(), "step_count": self._step_count}
+        if self.scaler is not None:
+            sd["scaler"] = self.scaler.state_dict()
+        return sd
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore :meth:`state_dict` through torch's ``load_state_dict``
+        (tensors already on their parameter's device and dtype are kept, not
+        copied)."""
+        inner = sd["optimizer"]
+        # JSON holds tuples (AdamW's betas) as lists: take the live type back
+        groups = [{k: tuple(v) if isinstance(group.get(k), tuple) else v for k, v in saved.items()}
+                  for group, saved in zip(self.optimizer.param_groups, inner["param_groups"])]
+        self.optimizer.load_state_dict({**inner, "param_groups": groups
+                                        + inner["param_groups"][len(groups):]})
+        self._step_count = sd.get("step_count", 0)
+        if self.scaler is not None and "scaler" in sd:
+            self.scaler.load_state_dict(sd["scaler"])
 
     def __repr__(self) -> str:
         return f"AcceleratedOptimizer({type(self.optimizer).__name__}, steps={self._step_count})"
+

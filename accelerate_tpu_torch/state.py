@@ -1,9 +1,12 @@
 """Process/device state singletons (counterpart of ``accelerate_tpu/state.py``).
 
 Single-process, single-device: ``PartialState`` holds the one process and
-its device (the card unless ``cpu=True``), ``AcceleratorState`` the mixed
-precision, ``GradientState`` the accumulation bookkeeping the eager loop
-observes. Each is a Borg singleton (every instance shares one state dict)
+its device (the card unless ``cpu=True``) and the process helpers the
+checkpoint, logging and tracking layers call (``is_main_process``,
+``wait_for_everyone``, ``gather_object``, ``main_process_first``: at world
+size 1 the barrier returns at once and a gather is a one-element list),
+``AcceleratorState`` the mixed precision, ``GradientState`` the
+accumulation bookkeeping the eager loop observes. Each is a Borg singleton (every instance shares one state dict)
 with a ``_reset_state`` hook for tests. Several processes or devices (the
 JAX package's multi-host SPMD) wait for the distributed slice (ROADMAP.md
 A7): a launch that sets ``WORLD_SIZE`` above 1 is refused.
@@ -11,13 +14,24 @@ A7): a launch that sets ``WORLD_SIZE`` above 1 is refused.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 from typing import Any
 
 from ._device import resolve_device
 
-__all__ = ["PartialState", "AcceleratorState", "GradientState"]
+__all__ = ["PartialState", "AcceleratorState", "GradientState", "process_layout"]
+
+
+def process_layout() -> tuple:
+    """(process index, number of processes) of the initialised
+    ``PartialState``, else of the launch environment (``RANK``,
+    ``WORLD_SIZE``), without building the state (which picks a device)."""
+    shared = PartialState._shared_state
+    if shared.get("initialized"):
+        return shared["process_index"], shared["num_processes"]
+    return int(os.environ.get("RANK", "0")), int(os.environ.get("WORLD_SIZE", "1"))
 
 
 def _flag(name: str) -> bool:
@@ -47,6 +61,9 @@ class PartialState:
                 "for the distributed slice (ROADMAP.md A7); run one process"
             )
         self.device = resolve_device("cpu" if cpu or _flag("ACCELERATE_USE_CPU") else "cuda")
+        self.process_index = 0
+        self.local_process_index = 0
+        self.num_processes = 1
         self.initialized = True
 
     @property
@@ -56,6 +73,30 @@ class PartialState:
     @initialized.setter
     def initialized(self, value: bool) -> None:
         self._shared_state["initialized"] = value
+
+    @property
+    def is_main_process(self) -> bool:
+        return self.process_index == 0
+
+    def wait_for_everyone(self, tag: str = "accelerate_tpu_torch.wait_for_everyone") -> None:
+        """Barrier across processes: with one process, nothing to wait for."""
+
+    def gather_object(self, obj) -> list:
+        """Every process's ``obj``, in process order."""
+        return [obj]
+
+    @contextlib.contextmanager
+    def main_process_first(self):
+        """Run the block on the main process first, then on the others."""
+        if not self.is_main_process:
+            self.wait_for_everyone("accelerate_tpu_torch.main_process_first")
+        yield
+        if self.is_main_process:
+            self.wait_for_everyone("accelerate_tpu_torch.main_process_first")
+
+    def print(self, *args, **kwargs) -> None:
+        if self.is_main_process:
+            print(*args, **kwargs)
 
     @classmethod
     def _reset_state(cls) -> None:
@@ -151,6 +192,18 @@ class GradientState:
         if self.active_dataloader is None:
             return False
         return getattr(self.active_dataloader, "end_of_dataloader", False)
+
+    @property
+    def in_dataloader(self) -> bool:
+        return self.active_dataloader is not None
+
+    @property
+    def remainder(self) -> int:
+        """Samples of the active loader's last batch that are real (the
+        rest pads an even batch); -1 when nothing was padded."""
+        if self.active_dataloader is None:
+            return -1
+        return getattr(self.active_dataloader, "remainder", -1)
 
     def _set_sync_gradients(self, value: bool) -> None:
         self.sync_gradients = value

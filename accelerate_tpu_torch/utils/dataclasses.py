@@ -3,9 +3,11 @@
 
 Training: the kwargs handlers a single-device ``Accelerator`` reads
 (``GradientAccumulationPlugin``, ``GradScalerKwargs``,
-``MixedPrecisionPolicy``, the ``DataLoaderConfiguration`` fields of
-single-process batching, and ``DistributedDataParallelKwargs``, whose
-gradient-compression hooks wait for the distributed slice).
+``MixedPrecisionPolicy``, ``DataLoaderConfiguration``,
+``ProjectConfiguration`` for checkpoint and log directories,
+``TrainingHealthConfig`` for the non-finite watchdog, and
+``DistributedDataParallelKwargs``, whose gradient-compression hooks wait
+for the distributed slice).
 
 Serving: only ``mode="continuous"`` is ported: the slot engine over a KV
 backend (dense, paged or the int8 paged pool), with speculative decoding
@@ -31,7 +33,9 @@ __all__ = [
     "GradientAccumulationPlugin",
     "KwargsHandler",
     "MixedPrecisionPolicy",
+    "ProjectConfiguration",
     "ServingConfig",
+    "TrainingHealthConfig",
 ]
 
 
@@ -131,13 +135,79 @@ class MixedPrecisionPolicy(KwargsHandler):
 
 @dataclass
 class DataLoaderConfiguration(KwargsHandler):
-    """The data-loader knobs of single-process batching: ``data_seed`` (the
-    shuffling seed), ``non_blocking`` (copies from pinned host buffers
-    overlap the step). Splitting and dispatching batches across processes
-    wait for the distributed slice."""
+    """Data-loader knobs (the JAX package's field set). ``split_batches``:
+    a loader's batch size is the global one, split across processes;
+    ``dispatch_batches``: the main process reads every batch and hands it
+    out (:class:`~accelerate_tpu_torch.data_loader.DataLoaderDispatcher`);
+    ``even_batches``: every process gets as many full batches, the tail
+    refilled from the start; ``use_seedable_sampler``: a shuffling torch
+    ``DataLoader`` is re-drawn from ``SeedableRandomSampler(data_seed)`` so
+    a resumed epoch replays the same order; ``non_blocking``: copies from
+    pinned host buffers overlap the step; ``use_stateful_dataloader`` is
+    kept for the field set (every prepared loader has ``state_dict``)."""
 
+    split_batches: bool = False
+    dispatch_batches: Optional[bool] = None
+    even_batches: bool = True
+    use_seedable_sampler: bool = True
     data_seed: Optional[int] = None
     non_blocking: bool = True
+    use_stateful_dataloader: bool = True
+
+
+@dataclass
+class ProjectConfiguration(KwargsHandler):
+    """Checkpoint and log directory layout. ``automatic_checkpoint_naming``
+    saves to ``<project_dir>/checkpoints/checkpoint_<iteration>``;
+    ``total_limit`` keeps that many committed checkpoints, every
+    ``checkpoint_keep_every``-th index exempt."""
+
+    project_dir: Optional[str] = None
+    logging_dir: Optional[str] = None
+    automatic_checkpoint_naming: bool = False
+    total_limit: Optional[int] = None
+    iteration: int = 0
+    save_on_each_node: bool = False
+    checkpoint_keep_every: Optional[int] = None
+
+    def set_directories(self, project_dir: Optional[str] = None):
+        self.project_dir = project_dir
+        if self.logging_dir is None:
+            self.logging_dir = project_dir
+
+    def __post_init__(self):
+        if self.logging_dir is None:
+            self.logging_dir = self.project_dir
+        if self.checkpoint_keep_every is not None and self.checkpoint_keep_every <= 0:
+            raise ValueError("checkpoint_keep_every must be a positive integer")
+
+
+@dataclass
+class TrainingHealthConfig(KwargsHandler):
+    """Policy of ``Accelerator.check_step_health`` on a non-finite loss (or
+    gradients, with ``check_grads``): ``"raise"`` a ``TrainingHealthError``,
+    ``"skip"`` the step (drop the gradients) or ``"restore"`` the last
+    committed checkpoint. ``max_bad_steps`` consecutive bad steps raise
+    under any policy. ``sync=True`` reads each step's verdict back in its
+    own call; ``sync=False`` reads the verdict of ``readback_depth`` calls
+    earlier from a ring, so the host does not wait for the step it just
+    launched (``Accelerator.health_drain`` applies what is left)."""
+
+    nonfinite_policy: str = "raise"
+    check_grads: bool = False
+    max_bad_steps: int = 10
+    sync: bool = True
+    readback_depth: int = 2
+
+    def __post_init__(self):
+        if self.nonfinite_policy not in ("raise", "skip", "restore"):
+            raise ValueError(
+                f"nonfinite_policy must be raise|skip|restore, got {self.nonfinite_policy!r}"
+            )
+        if self.max_bad_steps <= 0:
+            raise ValueError("max_bad_steps must be a positive integer")
+        if self.readback_depth < 1:
+            raise ValueError("readback_depth must be a positive integer")
 
 
 @dataclass

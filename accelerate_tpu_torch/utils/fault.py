@@ -1,16 +1,58 @@
-"""The error types the ported engine and server raise (counterpart of the
-serving half of ``accelerate_tpu/utils/fault.py``). Kept as a copy, not an
-import: the port never imports the JAX package.
+"""Fault-tolerance primitives of the port (counterpart of
+``accelerate_tpu/utils/fault.py``), kept as a copy, not an import: the port
+never imports the JAX package.
 
-``retriable`` and ``replica_id`` are the routing contract a caller reads
-instead of parsing the message: load and lifecycle conditions are
-retriable, a passed deadline or a failed batch is not."""
+* The checkpoint error taxonomy: "no checkpoint yet" (a first launch),
+  "a save was interrupted" (roll back) and "the bytes on disk disagree
+  with the manifest" (refuse to load) are different exceptions.
+* ``TrainingHealthError``, raised by the training health watchdog.
+* Fault injection (``ACCELERATE_TPU_FAULT_INJECT``): named points in the
+  checkpoint lifecycle where a test kills, fails, slows or hangs the
+  process, and a programmatic conductor hook for seeded schedules.
+* A preemption handler: SIGTERM/SIGINT join in-flight async saves, write
+  one committed emergency checkpoint and exit with
+  :data:`PREEMPTION_EXIT_CODE`; a signal during a save waits for its
+  commit.
+* The serving errors the ported engine and server raise. ``retriable`` and
+  ``replica_id`` are the routing contract a caller reads instead of
+  parsing the message.
+
+The serving faults of the fleet and transfer layers wait for the serving
+control plane (ROADMAP.md A10).
+"""
 
 from __future__ import annotations
 
+import os
+import random
+import signal
+import sys
+import threading
+import time
+import zlib
 from typing import Optional
 
 __all__ = [
+    "CheckpointError",
+    "CheckpointNotFoundError",
+    "CheckpointUncommittedError",
+    "CheckpointCorruptError",
+    "CheckpointComponentMissingError",
+    "TrainingHealthError",
+    "ComponentClosedError",
+    "FaultInjected",
+    "fault_point",
+    "install_conductor",
+    "uninstall_conductor",
+    "release_hang",
+    "release_all_hangs",
+    "reset_fault_state",
+    "install_preemption_handler",
+    "mark_save_started",
+    "mark_save_finished",
+    "PREEMPTION_EXIT_CODE",
+    "FAULT_INJECT_ENV",
+    "FAULT_SEED_ENV",
     "ServingError",
     "ServerOverloaded",
     "RequestDeadlineExceeded",
@@ -20,6 +62,50 @@ __all__ = [
     "EngineCapacityError",
     "EngineInvariantError",
 ]
+
+# 128 + SIGTERM: "terminated on request"
+PREEMPTION_EXIT_CODE = 143
+
+FAULT_INJECT_ENV = "ACCELERATE_TPU_FAULT_INJECT"
+# seed of the per-entry random streams behind ``flaky=p`` specs: the same
+# seed fires the same sequence
+FAULT_SEED_ENV = "ACCELERATE_TPU_FAULT_SEED"
+
+
+# ------------------------------------------------------------ error taxonomy
+class CheckpointError(RuntimeError):
+    """Base class of checkpoint load and save failures."""
+
+
+class CheckpointNotFoundError(CheckpointError, FileNotFoundError):
+    """The checkpoint directory does not exist (nothing was saved there).
+    A ``FileNotFoundError``, so ``resume_from_latest`` reads it as a first
+    launch."""
+
+
+class CheckpointUncommittedError(CheckpointError):
+    """The directory exists but has no ``COMMITTED`` manifest: a save was
+    interrupted before its atomic commit. Load a committed checkpoint."""
+
+
+class CheckpointCorruptError(CheckpointError):
+    """The ``COMMITTED`` manifest is there but the bytes on disk disagree
+    with it (a missing file, another size, a checksum mismatch) or the
+    manifest itself does not parse."""
+
+
+class CheckpointComponentMissingError(CheckpointError):
+    """A component the live training state needs (a prepared model) has no
+    counterpart in the checkpoint directory."""
+
+
+class TrainingHealthError(RuntimeError):
+    """Raised by the training health watchdog when its non-finite policy is
+    ``"raise"`` or ``max_bad_steps`` consecutive bad steps are reached."""
+
+
+class ComponentClosedError(RuntimeError):
+    """A method was called on a closed component (``AsyncTrackerFlusher``)."""
 
 
 class ServingError(RuntimeError):
@@ -78,3 +164,243 @@ class EngineCapacityError(ServingError):
 class EngineInvariantError(RuntimeError):
     """An engine-internal invariant broke; the engine state cannot be
     trusted and the caller should ``reset()``."""
+
+
+class FaultInjected(RuntimeError):
+    """Raised by :func:`fault_point` for ``point:raise`` specs."""
+
+
+# ------------------------------------------------------------ fault injection
+# Per-entry state, keyed by the raw spec entry, so two entries arming the
+# same point keep their own hit counters and random streams. Process-wide,
+# as the signals and the environment variable they serve are.
+_FAULT_LOCK = threading.Lock()
+_FAULT_HITS: dict = {}
+_FAULT_RNGS: dict = {}
+_HANG_EVENTS: dict = {}
+_HANG_DEFAULT_CAP_S = 30.0
+_CONDUCTOR = None
+
+
+def install_conductor(fn) -> None:
+    """Install a hook ``fn(name, context)`` that every :func:`fault_point`
+    hit consults before the environment's spec (seeded, phase-windowed
+    schedules a string cannot express). One at a time."""
+    global _CONDUCTOR
+    _CONDUCTOR = fn
+
+
+def uninstall_conductor(fn=None) -> None:
+    """Remove the hook; with ``fn``, only if it is still the one installed."""
+    global _CONDUCTOR
+    if fn is None or _CONDUCTOR is fn:
+        _CONDUCTOR = None
+
+
+def release_hang(name: str) -> bool:
+    """Release threads blocked at a ``hang``-armed point. Returns whether
+    one was armed at ``name``."""
+    with _FAULT_LOCK:
+        event = _HANG_EVENTS.get(name)
+    if event is None:
+        return False
+    event.set()
+    return True
+
+
+def release_all_hangs() -> None:
+    with _FAULT_LOCK:
+        events = list(_HANG_EVENTS.values())
+    for event in events:
+        event.set()
+
+
+def reset_fault_state() -> None:
+    """Reset hit counters, ``flaky`` streams and hang latches."""
+    release_all_hangs()
+    with _FAULT_LOCK:
+        _FAULT_HITS.clear()
+        _FAULT_RNGS.clear()
+        _HANG_EVENTS.clear()
+
+
+def _entry_rng(key: str) -> random.Random:
+    # crc32, not hash(): hash() is salted per process
+    seed = os.environ.get(FAULT_SEED_ENV, "0")
+    return random.Random(zlib.crc32(f"{seed}|{key}".encode()))
+
+
+def _fire_action(name: str, action: str) -> None:
+    if action == "kill":
+        os.kill(os.getpid(), signal.SIGKILL)
+    elif action == "exit":
+        os._exit(17)
+    elif action == "raise":
+        raise FaultInjected(name)
+    elif action == "sleep" or action.startswith("sleep="):
+        _, _, dur = action.partition("=")
+        time.sleep(float(dur) if dur else 0.05)
+    elif action == "hang" or action.startswith("hang="):
+        _, _, cap = action.partition("=")
+        with _FAULT_LOCK:
+            event = _HANG_EVENTS.setdefault(name, threading.Event())
+        event.wait(float(cap) if cap else _HANG_DEFAULT_CAP_S)
+    else:
+        raise ValueError(
+            f"unknown fault action {action!r} for point {name!r} "
+            "(expected kill|exit|raise|sleep[=s]|hang[=s])"
+        )
+
+
+_FAULT_MODIFIERS = ("flaky", "after", "every")
+
+
+def fault_point(name: str, **context) -> None:
+    """Fault-injection hook: if ``ACCELERATE_TPU_FAULT_INJECT`` names this
+    point, act here. The spec is a comma-separated list of
+    ``point[:action][:modifier...]`` entries. Actions: ``kill`` (the
+    default; SIGKILL, as a host loss: nothing else runs), ``exit``
+    (``os._exit(17)``), ``raise`` (:class:`FaultInjected`),
+    ``sleep[=s]`` and ``hang[=cap_s]`` (until :func:`release_hang`).
+    Modifiers: ``flaky=p`` (fire with probability p from a stream seeded by
+    ``ACCELERATE_TPU_FAULT_SEED`` and the entry; alone it implies
+    ``raise``), ``after=N`` (skip the first N hits), ``every=N``.
+    ``context`` goes to an installed conductor only.
+
+    Checkpointing calls it at ``after_model_save``,
+    ``after_optimizer_save``, ``before_commit``, ``before_rename`` and
+    ``before_gc``. The variable is read at each call, so a script can arm a
+    point between two saves."""
+    conductor = _CONDUCTOR
+    if conductor is not None:
+        conductor(name, context)
+    spec = os.environ.get(FAULT_INJECT_ENV)
+    if not spec:
+        return
+    for item in spec.split(","):
+        entry = item.strip()
+        point, _, tail = entry.partition(":")
+        if point != name:
+            continue
+        action = None
+        flaky = None
+        after = 0
+        every = 1
+        for token in filter(None, tail.split(":")):
+            mod, _, value = token.partition("=")
+            if mod in _FAULT_MODIFIERS:
+                if mod == "flaky":
+                    flaky = float(value)
+                elif mod == "after":
+                    after = int(value)
+                else:
+                    every = max(1, int(value))
+            elif action is None:
+                action = token
+            else:
+                raise ValueError(
+                    f"fault entry {entry!r}: second action {token!r} (one action per "
+                    f"entry; modifiers are {'/'.join(_FAULT_MODIFIERS)})"
+                )
+        if action is None:
+            action = "kill" if flaky is None and tail == "" else "raise"
+        with _FAULT_LOCK:
+            hits = _FAULT_HITS.get(entry, 0) + 1
+            _FAULT_HITS[entry] = hits
+            if flaky is not None and entry not in _FAULT_RNGS:
+                _FAULT_RNGS[entry] = _entry_rng(entry)
+            rng = _FAULT_RNGS.get(entry)
+            if hits <= after or (hits - after - 1) % every != 0:
+                continue
+            # drawn inside the lock and only on eligible hits: the stream's
+            # position is a function of (seed, entry, eligible hit)
+            if flaky is not None and rng.random() >= flaky:
+                continue
+        _fire_action(name, action)
+
+
+# ---------------------------------------------------------------- preemption
+_PREEMPTION = {
+    "requested": False,  # a handled signal arrived
+    "in_save": False,  # a save_state is in flight: the exit waits for it
+    "in_handler": False,  # the handler's own emergency save is running
+    "installed": False,
+}
+
+
+def install_preemption_handler(accelerator, signals: tuple = (signal.SIGTERM, signal.SIGINT),
+                               exit_code: int = PREEMPTION_EXIT_CODE) -> bool:
+    """On the first handled signal: join in-flight async saves, write one
+    committed ``save_state``, finish the trackers and exit with
+    ``exit_code``. A signal during a ``save_state`` only sets the flag: the
+    save finishes its commit and exits right after
+    (:func:`mark_save_finished`). Handlers can be installed from the main
+    thread only: elsewhere this returns False."""
+    if threading.current_thread() is not threading.main_thread():
+        return False
+
+    def _handler(signum, frame):
+        _PREEMPTION["requested"] = True
+        if _PREEMPTION["in_save"] or _PREEMPTION["in_handler"]:
+            return
+        _PREEMPTION["in_handler"] = True
+        try:
+            _emergency_save(accelerator, signum)
+        finally:
+            _PREEMPTION["in_handler"] = False
+        sys.exit(exit_code)
+
+    for sig in signals:
+        signal.signal(sig, _handler)
+    _PREEMPTION["installed"] = True
+    return True
+
+
+def _emergency_save(accelerator, signum: int) -> None:
+    from ..checkpointing import wait_for_async_saves
+    from ..logging import get_logger
+
+    logger = get_logger(__name__)
+    logger.warning("received signal %d: writing an emergency checkpoint before exit", signum)
+    wait_for_async_saves()
+    try:
+        path = accelerator.save_state()
+        logger.warning("emergency checkpoint committed at %s", path)
+        print(f"emergency checkpoint committed at {path}", flush=True)
+    finally:
+        accelerator.end_training()
+
+
+def mark_save_started() -> None:
+    """A ``save_state`` enters its critical section: a signal now waits."""
+    _PREEMPTION["in_save"] = True
+
+
+def mark_save_finished(accelerator=None, path: Optional[str] = None,
+                       exit_code: Optional[int] = None) -> None:
+    """A ``save_state`` committed (or, async, staged). If a signal waited
+    behind it, that checkpoint is the emergency checkpoint: land any
+    deferred async commit, report it and exit."""
+    _PREEMPTION["in_save"] = False
+    if not (_PREEMPTION["requested"] and _PREEMPTION["installed"]) or _PREEMPTION["in_handler"]:
+        return
+    from ..checkpointing import wait_for_async_saves
+    from ..logging import get_logger
+
+    get_logger(__name__).warning(
+        "a preemption signal arrived during save_state; the committed checkpoint is the "
+        "emergency checkpoint: exiting")
+    try:
+        wait_for_async_saves()
+        if path is not None:
+            print(f"emergency checkpoint committed at {path}", flush=True)
+    finally:
+        if accelerator is not None:
+            accelerator.end_training()
+    sys.exit(exit_code if exit_code is not None else PREEMPTION_EXIT_CODE)
+
+
+def _save_failed() -> None:
+    """A ``save_state`` raised: leave the critical section, so a later
+    signal is not deferred behind a save that will never finish."""
+    _PREEMPTION["in_save"] = False

@@ -4,9 +4,9 @@ card, and drives the port's main paths with seeded random weights:
 Llama-3-8B continuous-batching serving through ``InferenceServer`` at full
 width and depth, plain and with speculative decoding, chunked prefill and
 the int8 KV pool; the same model quantized to int8 weights, and a
-checkpoint written, loaded into an empty model and quantized; and
-Llama-3-8B training steps through the ``Accelerator`` at full width and 4
-layers.
+checkpoint written, loaded into an empty model and quantized; Llama-3-8B
+training steps through the ``Accelerator`` at full width and 4 layers;
+and a fine-tune at full width that is interrupted and resumes bitwise.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -87,6 +87,25 @@ Phases (any failure exits non-zero and prints no result):
      dh chunk that must exceed the limit); then the step under each of the
      six: step time, peak memory, the flash forward's launches per step
      (2L under each: the recompute runs it again) and losses that agree
+  9. (run after 6) a resumable fine-tune, the port of
+     examples/by_feature/fault_tolerance.py and packed_sft.py: seeded
+     documents of 64-3000 tokens packed by the native packer
+     (csrc/packing.cpp) into 2048-token rows with segment ids, a torch
+     DataLoader (2 workers, pinned) unwrapped by prepare_data_loader with
+     the seedable shuffle, Llama-3-8B at full width and the deepest of 1-4
+     layers whose two checkpoints fit the temporary directory with 20 % to
+     spare, f32 master weights, bf16 compute, accumulate/backward, AdamW,
+     max_grad_norm=1.0, a warm-up + cosine schedule; (a) 8 uninterrupted
+     steps; (b) 4 steps, save_state (automatic naming, total_limit=2), 2
+     steps, a save interrupted by a fault point before its commit, then a
+     fresh Accelerator's resume_from_latest and steps 5-8: losses and final
+     parameters bitwise equal to (a); (c) the same resume with the
+     loader's position discarded, which must differ; (d) check_step_health
+     restoring the step-4 checkpoint bitwise on a planted NaN, synchronous
+     and with its verdict 2 steps late; (e) the same resume from an async
+     save taken while training went on. Save, load and checksum GB/s, the
+     step with the loader against a resident batch, the packer, the health
+     check and the tracker's host cost; B1-B3 launches counted
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Long output goes to chiprun_out/.
 """
@@ -99,6 +118,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -117,8 +137,14 @@ B1_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 B4_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
+LOG_FILE = []  # main() opens chiprun_out/chip_smoke.log: every line printed is kept there too
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    for f in LOG_FILE:
+        f.write(msg + "\n")
+        f.flush()
 
 
 def card_line() -> str:
@@ -2485,6 +2511,510 @@ def profile_train_step(step_fn, batch, step_ms, card):
                 groups_ms=groups, kernels=len(events))
 
 
+# ----------------------------------------------------------------- phase 9
+# a resumable fine-tune (the port of examples/by_feature/fault_tolerance.py
+# and packed_sft.py): seeded documents packed by the native packer into
+# 2048-token rows with segment ids, fed through a torch DataLoader (2
+# workers, pinned) that prepare_data_loader unwraps with the seedable
+# shuffle, Llama-3-8B at full width through accumulate/backward, AdamW,
+# max_grad_norm=1.0 and a warm-up + cosine schedule; atomic checkpoints with
+# automatic naming and total_limit=2
+RESUME_BATCH, RESUME_SEQ = 4, 2048
+RESUME_STEPS, RESUME_SAVE_AT, RESUME_NAN_AT = 8, 4, 6
+RESUME_DOCS, RESUME_DOC_LEN = 240, (64, 3000)
+RESUME_MAX_LAYERS = 4
+RESUME_SPARE = 1.2  # two checkpoints (the committed one and a staging one) and 20 %
+RESUME_TIMED = 4  # steps timed with the loader and with a resident batch, each
+
+
+class PackedRows(torch.utils.data.Dataset):
+    """Packed training rows (module level: the loader's worker processes
+    take it by fork)."""
+
+    def __init__(self, tokens, segments, positions, masks):
+        self.tokens, self.segments, self.positions, self.masks = tokens, segments, positions, masks
+
+    def __len__(self):
+        return len(self.tokens)
+
+    def __getitem__(self, i):
+        return {"input_ids": self.tokens[i], "segment_ids": self.segments[i],
+                "position_ids": self.positions[i], "loss_mask": self.masks[i]}
+
+
+def warmup_cosine(step, peak=3e-4, warmup=2, total=RESUME_STEPS):
+    if step < warmup:
+        return peak * (step + 1) / warmup
+    return 0.5 * peak * (1 + math.cos(math.pi * min(1.0, (step - warmup) / (total - warmup))))
+
+
+def resume_depth(free_disk, free_ram):
+    """The deepest of 1-4 layers whose checkpoint (f32 weights and both
+    AdamW moments, 12 B a parameter, from a meta model's parameter count)
+    fits twice on the disk with 20 % to spare, and once in host memory
+    (the async save's pinned snapshot)."""
+    from accelerate_tpu_torch.big_modeling import init_empty_weights
+    from accelerate_tpu_torch.models.llama import LlamaConfig, create_llama
+
+    sizes = {}
+    for layers in range(RESUME_MAX_LAYERS, 0, -1):
+        with init_empty_weights():
+            model = create_llama(LlamaConfig.llama3_8b(num_hidden_layers=layers), device="cpu")
+        params = sum(p.numel() for p in model.parameters())
+        sizes[layers] = (params, 12 * params)
+        if 2 * 12 * params * RESUME_SPARE <= free_disk and 12 * params * RESUME_SPARE <= free_ram:
+            return layers, sizes
+    raise AssertionError(f"phase 9: {free_disk / 1e9:.1f} GB of disk and {free_ram / 1e9:.1f} GB of "
+                         f"host memory hold no checkpoint of 1 layer with 20 % to spare: {sizes}")
+
+
+def packed_rows(vocab, card):
+    """Seeded documents packed into rows, with the packer and the
+    collation timed per batch on the native and the NumPy paths."""
+    from accelerate_tpu_torch.utils import native
+
+    if not native.native_available():
+        raise AssertionError("phase 9: the native packer (csrc/packing.cpp) did not build or load")
+    rng = np.random.default_rng(9)
+    docs = [rng.integers(0, vocab, size=rng.integers(*RESUME_DOC_LEN)).astype(np.int32)
+            for _ in range(RESUME_DOCS)]
+    times = {}
+    for path in ("native", "numpy"):
+        lib = native.get_packing_lib
+        if path == "numpy":
+            native.get_packing_lib = lambda: None
+        try:
+            t0 = time.perf_counter()
+            tokens, segments = native.pack_dataset(docs, seq_len=RESUME_SEQ)
+            pack_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for i in range(0, len(docs), RESUME_BATCH):
+                native.collate_padded(docs[i:i + RESUME_BATCH], RESUME_SEQ, 0)
+            collate_s = time.perf_counter() - t0
+        finally:
+            native.get_packing_lib = lib
+        batches = len(tokens) // RESUME_BATCH
+        times[path] = dict(pack_ms_per_batch=pack_s * 1e3 / batches,
+                           collate_ms_per_batch=collate_s * 1e3 / math.ceil(len(docs) / RESUME_BATCH))
+        if path == "native":
+            want = (tokens, segments)
+        elif not (np.array_equal(tokens, want[0]) and np.array_equal(segments, want[1])):
+            raise AssertionError("phase 9: the native and the NumPy packer disagree")
+    kept = sum(len(d) <= RESUME_SEQ for d in docs)
+    fill = float((segments > 0).mean())
+    log(f"phase 9 data: {RESUME_DOCS} seeded documents of {RESUME_DOC_LEN[0]}-{RESUME_DOC_LEN[1]} "
+        f"tokens, {kept} fit a row (the packer drops longer ones), packed into {len(tokens)} rows of "
+        f"{RESUME_SEQ} (fill {fill:.3f}); host ms per batch of {RESUME_BATCH}: pack_dataset native "
+        f"{times['native']['pack_ms_per_batch']:.3f} / NumPy {times['numpy']['pack_ms_per_batch']:.3f}, "
+        f"collate_padded native {times['native']['collate_ms_per_batch']:.3f} / NumPy "
+        f"{times['numpy']['collate_ms_per_batch']:.3f} [{card}]")
+    masks = native.packed_loss_mask(segments)
+    return PackedRows(tokens, segments, native.packed_position_ids(segments), masks), times
+
+
+class ResumeRun:
+    """One fresh Accelerator (states reset) with the phase's model,
+    optimizer, loader and schedule; counts every training step it runs."""
+
+    steps_run = 0
+
+    def __init__(self, project, layers, dataset):
+        from accelerate_tpu_torch.accelerator import Accelerator
+        from accelerate_tpu_torch.models.llama import LlamaConfig, create_llama
+        from accelerate_tpu_torch.state import AcceleratorState, GradientState
+        from accelerate_tpu_torch.utils.dataclasses import DataLoaderConfiguration, ProjectConfiguration
+
+        AcceleratorState._reset_state(reset_partial_state=True)
+        GradientState._reset_state()
+        self.acc = Accelerator(
+            mixed_precision="bf16", dataloader_config=DataLoaderConfiguration(data_seed=0),
+            project_config=ProjectConfiguration(project_dir=project, automatic_checkpoint_naming=True,
+                                                total_limit=2))
+        cfg = LlamaConfig.llama3_8b(num_hidden_layers=layers, attention_impl="flash")
+        model = create_llama(cfg, seed=0, device=self.acc.device)
+        opt = torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=0.01)
+        loader = torch.utils.data.DataLoader(dataset, batch_size=RESUME_BATCH, shuffle=True,
+                                             num_workers=2, pin_memory=True, drop_last=True)
+        self.model, self.opt, self.loader, self.sched = self.acc.prepare(model, opt, loader,
+                                                                         warmup_cosine)
+        self.it = None
+        self.epoch = 0
+        self.losses = []
+
+    def next_batch(self):
+        """The loader's next batch (the timing steps run past the epoch)."""
+        if self.it is None:
+            self.it = iter(self.loader)
+        try:
+            return next(self.it)
+        except StopIteration:
+            self.epoch += 1
+            self.loader.set_epoch(self.epoch)
+            self.it = iter(self.loader)
+            return next(self.it)
+
+    def step(self, batch=None, check=None):
+        """One optimizer step on the loader's next batch (or ``batch``);
+        ``check(loss)`` runs between the backward and the update."""
+        from accelerate_tpu_torch.models.llama import llama_loss
+
+        if batch is None:
+            batch = self.next_batch()
+        acc = self.acc
+        with acc.accumulate(self.model):
+            loss = acc.backward(llama_loss, batch)
+            ok = check(loss) if check is not None else True
+            if ok:
+                acc.clip_grad_norm_(max_norm=1.0)
+                self.opt.step()
+                self.sched.step()
+            self.opt.zero_grad()
+        self.losses.append(loss)
+        ResumeRun.steps_run += 1
+        return batch
+
+    def timed_steps(self, n, batch=None, first=None):
+        """ms of each of ``n`` steps (synchronised after each); ``first``:
+        the first step's batch, fetched before the timing (so the loader's
+        start on a new epoch, its workers and the resume's skip, is not in
+        it)."""
+        out = []
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.step(first if i == 0 and first is not None else batch)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def params(self):
+        return [p.detach().clone() for p in self.model.parameters()]
+
+    def loss_values(self):
+        return [l.item() for l in self.losses]
+
+    def close(self):
+        if self.it is not None:
+            self.it.close()
+        self.acc.end_training()
+        self.acc.free_memory()
+        del self.model, self.opt, self.loader, self.sched, self.acc, self.it
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def same_params(a, b):
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def params_checksum(params):
+    """A 64-bit sum of the parameters' bit patterns (for the log)."""
+    total = sum(int(p.view(torch.int32).to(torch.int64).sum().item()) for p in params)
+    return f"{total & (2 ** 64 - 1):016x}"
+
+
+def profile_resume_step(run, label, trace_dir):
+    """Busy share of one step (the union of kernel intervals over the
+    step's wall), profiled; the trace stays in ``trace_dir``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run.step(run.resident if label == "resident" else None)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof, path=os.path.join(trace_dir, f"trace_resume_{label}.json"))
+    if not events:
+        log(f"phase 9 profile ({label}): the profiler recorded no device time (not measured)")
+        return None
+    busy_ms = busy_us(events) / 1e3
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, busy_share=busy_ms / wall_ms)
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, files in os.walk(path) for f in files)
+
+
+def phase_resume(card, phase6=None):
+    """Phase 9: (a) 8 steps uninterrupted; (b) 4 steps, save_state, 2 steps,
+    a save interrupted by a fault point before its commit, then a fresh
+    Accelerator's resume_from_latest (rolling back to the step-4
+    checkpoint) and steps 5-8, bitwise equal to (a); (c) the same resume
+    with the loader's position discarded, which must differ; (d) the
+    health watchdog restoring the step-4 checkpoint on a planted NaN,
+    synchronous and with a 2-step deferred verdict; (e) the same resume
+    from an async save taken while training went on."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch import checkpointing
+    from accelerate_tpu_torch.models.llama import LlamaConfig
+    from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.utils import fault
+    from accelerate_tpu_torch.utils.dataclasses import TrainingHealthConfig
+
+    tmp_root = tempfile.gettempdir()
+    free_disk = shutil.disk_usage(tmp_root).free
+    free_ram = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    layers, sizes = resume_depth(free_disk, free_ram)
+    params, ckpt_bytes = sizes[layers]
+    log(f"phase 9 space: {free_disk / 1e9:.1f} GB free on {tmp_root}, {free_ram / 1e9:.1f} GB of host "
+        f"memory free; a checkpoint of L layers is 12 B x params: " + ", ".join(
+            f"{l} layers {p / 1e9:.3f}B params {b / 1e9:.1f} GB" for l, (p, b) in sorted(sizes.items()))
+        + f"; depth {layers} (two checkpoints + 20 % fit)")
+    dataset, host = packed_rows(LlamaConfig.llama3_8b().vocab_size, card)
+    out = dict(layers=layers, params=params, free_disk_bytes=free_disk, free_ram_bytes=free_ram,
+               host=host)
+    ResumeRun.steps_run = 0
+    _build.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_", dir=tmp_root) as tmp:
+        project = os.path.join(tmp, "run")
+        ckpt_dir = os.path.join(project, "checkpoints")
+
+        # (a) the reference: 8 uninterrupted steps
+        run = ResumeRun(os.path.join(tmp, "reference"), layers, dataset)
+        ms = run.timed_steps(RESUME_SAVE_AT)
+        ref4 = run.params()
+        ms += run.timed_steps(RESUME_STEPS - RESUME_SAVE_AT)
+        ref8, ref_losses = run.params(), run.loss_values()
+        log(f"phase 9 (a) reference: losses {ref_losses}, final params checksum "
+            f"{params_checksum(ref8)}; step ms {[round(m, 1) for m in ms]}")
+        # the same model on: the loader against one resident batch, in turns
+        loader_ms, resident_ms = [], []
+        run.resident = run.step()
+        wait0 = run.loader.data_wait_s
+        for _ in range(RESUME_TIMED // 2):
+            loader_ms += run.timed_steps(1)
+            resident_ms += run.timed_steps(1, run.resident)
+            loader_ms += run.timed_steps(1)
+            resident_ms += run.timed_steps(1, run.resident)
+        data_wait_ms = (run.loader.data_wait_s - wait0) * 1e3 / len(loader_ms)
+        prof = {k: profile_resume_step(run, k, tmp) for k in ("loader", "resident")}
+        out["step"] = dict(reference_ms=ms, loader_ms=loader_ms, resident_ms=resident_ms,
+                           data_wait_ms_per_step=data_wait_ms, profile=prof)
+        p6 = (phase6 or {}).get("step_ms")
+        log(f"phase 9 step (eager loop, {layers} layers, batch {RESUME_BATCH} x {RESUME_SEQ}, segment "
+            f"ids): with the loader median {statistics.median(loader_ms):.1f} ms, with a resident batch "
+            f"{statistics.median(resident_ms):.1f} ms (in turns); the loop waited "
+            f"{data_wait_ms:.3f} ms a step for data; busy share with the loader "
+            + (f"{prof['loader']['busy_share']:.3f}" if prof["loader"] else "not measured")
+            + ", resident " + (f"{prof['resident']['busy_share']:.3f}" if prof["resident"]
+                               else "not measured")
+            + (f"; phase 6 (train_step, resident batch, {TRAIN_LAYERS} layers) {p6:.1f} ms" if p6 else "")
+            + f" [{card}]")
+        # the tracker and the health check's host cost a step
+        run.acc.log_with = ["jsonl"]
+        run.acc.project_configuration.logging_dir = tmp
+        run.acc.async_logging = True
+        run.acc.init_trackers("resume")
+        log_us = []
+        for i, loss in enumerate(run.losses):
+            t0 = time.perf_counter()
+            run.acc.log({"loss": loss, "lr": run.sched.get_last_lr()[0]}, step=i)
+            log_us.append((time.perf_counter() - t0) * 1e6)
+        run.acc.flush_trackers()
+        out["tracker_log_us"] = log_us
+        health_ms = {}
+        for sync in (True, False):
+            run.acc.health_config = TrainingHealthConfig(sync=sync, readback_depth=2)
+            per = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                run.step()
+                t0 = time.perf_counter()
+                run.acc.check_step_health(loss=run.losses[-1])
+                per.append((time.perf_counter() - t0) * 1e3)
+            run.acc.health_drain()
+            health_ms["sync" if sync else "ring"] = per
+        out["health_host_ms"] = health_ms
+        log(f"phase 9 host cost: AsyncTrackerFlusher log() median {statistics.median(log_us):.1f} us; "
+            f"check_step_health right after a step's launch: sync "
+            f"{statistics.median(health_ms['sync']):.3f} ms (waits for the step), ring "
+            f"{statistics.median(health_ms['ring']):.3f} ms [{card}]")
+        run.close()
+        del run
+
+        # (b) 4 steps, a committed save, 2 steps, a save interrupted before its commit
+        run = ResumeRun(project, layers, dataset)
+        if run.acc.resume_from_latest():
+            raise AssertionError("phase 9: a first launch found a checkpoint")
+        for _ in range(RESUME_SAVE_AT):
+            run.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt0 = run.acc.save_state()
+        save_s = time.perf_counter() - t0
+        written = dir_bytes(ckpt0)
+        t0 = time.perf_counter()
+        checkpointing.verify_checkpoint(ckpt0, level="checksum")
+        verify_s = time.perf_counter() - t0
+        for _ in range(RESUME_NAN_AT - RESUME_SAVE_AT):
+            run.step()
+        os.environ[fault.FAULT_INJECT_ENV] = "before_commit:raise"
+        try:
+            run.acc.save_state()
+            raise AssertionError("phase 9: the armed fault point did not interrupt the save")
+        except fault.FaultInjected:
+            pass
+        finally:
+            del os.environ[fault.FAULT_INJECT_ENV]
+        staged = sorted(os.listdir(ckpt_dir))
+        if staged != ["checkpoint_0", "checkpoint_1.tmp"]:
+            raise AssertionError(f"phase 9: after the interrupted save the tree holds {staged}")
+        run.close()
+        log(f"phase 9 (b) save_state at step {RESUME_SAVE_AT}: {written / 1e9:.3f} GB in {save_s:.2f}s "
+            f"({written / save_s / 1e9:.3f} GB/s, files flushed to disk); verify='checksum' "
+            f"{verify_s:.2f}s ({written / verify_s / 1e9:.3f} GB/s); a second save at step "
+            f"{RESUME_NAN_AT} interrupted before its commit left {staged} [{card}]")
+
+        # (b) resumed: roll back to the step-4 checkpoint, train steps 5-8
+        run = ResumeRun(project, layers, dataset)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not run.acc.resume_from_latest():
+            raise AssertionError("phase 9: resume_from_latest found nothing")
+        load_s = time.perf_counter() - t0
+        if run.acc._last_committed_checkpoint != ckpt0 or run.acc.step != RESUME_SAVE_AT:
+            raise AssertionError(f"phase 9: resumed {run.acc._last_committed_checkpoint} at step "
+                                 f"{run.acc.step}, not {ckpt0} at step {RESUME_SAVE_AT}")
+        if not same_params(run.params(), ref4):
+            raise AssertionError("phase 9: the resumed parameters differ from the step-4 reference")
+        no_save_ms = run.timed_steps(RESUME_STEPS - RESUME_SAVE_AT, first=run.next_batch())
+        resumed, final = run.loss_values(), run.params()
+        run.close()
+        losses_equal = resumed == ref_losses[RESUME_SAVE_AT:]
+        params_equal = same_params(final, ref8)
+        log(f"phase 9 (b) resume_from_latest (a fresh Accelerator, past the uncommitted save): "
+            f"{load_s:.2f}s ({written / load_s / 1e9:.3f} GB/s); losses 5-8 {resumed} bitwise equal "
+            f"to (a): {losses_equal}; final params (checksum {params_checksum(final)}) bitwise equal: "
+            f"{params_equal} [{card}]")
+        if not (losses_equal and params_equal):
+            raise AssertionError("phase 9: the resumed run differs from the uninterrupted one")
+        del final
+
+        # (c) planted fault: the same resume with the loader's position discarded
+        run = ResumeRun(project, layers, dataset)
+        run.acc.resume_from_latest()
+        run.loader.load_state_dict({})  # starts again from batch 0 of epoch 0
+        for _ in range(RESUME_STEPS - RESUME_SAVE_AT):
+            run.step()
+        planted, planted_equal = run.loss_values(), same_params(run.params(), ref8)
+        run.close()
+        log(f"phase 9 (c) planted fault (loader state discarded): losses {planted}; equal to (a): "
+            f"{planted == ref_losses[RESUME_SAVE_AT:]}, params equal: {planted_equal}")
+        if planted == ref_losses[RESUME_SAVE_AT:] or planted_equal:
+            raise AssertionError("phase 9: the planted sampler fault went unseen")
+
+        # (d) the health watchdog: restore on a planted NaN, sync and deferred
+        restore = {}
+        run = ResumeRun(project, layers, dataset)
+        run.acc.resume_from_latest()
+        nan_call = RESUME_NAN_AT - RESUME_SAVE_AT  # the call of step 6
+        for mode, cfg in (("sync", TrainingHealthConfig(nonfinite_policy="restore")),
+                          ("ring2", TrainingHealthConfig(nonfinite_policy="restore", sync=False,
+                                                         readback_depth=2))):
+            run.acc.health_config = cfg
+            verdict_call, calls = None, 0
+            while verdict_call is None and calls < nan_call + 4:
+                calls += 1
+                healthy = []
+
+                def check(loss, planted=calls == nan_call):
+                    healthy.append(run.acc.check_step_health(
+                        loss=torch.full_like(loss, float("nan")) if planted else loss))
+                    return healthy[-1]
+
+                run.step(check=check)
+                if not healthy[-1]:
+                    verdict_call = calls
+            back = run.acc.step == RESUME_SAVE_AT and same_params(run.params(), ref4)
+            restore[mode] = dict(nan_at_call=nan_call, verdict_call=verdict_call,
+                                 restored_bitwise=back)
+            run.acc._bad_step_count = 0
+        run.close()
+        lateness = (restore["ring2"]["verdict_call"] or 0) - nan_call
+        log(f"phase 9 (d) check_step_health(nonfinite_policy='restore'), NaN loss planted at step "
+            f"{RESUME_NAN_AT} (call {nan_call} after the resume): sync verdict at call "
+            f"{restore['sync']['verdict_call']}, restored the step-{RESUME_SAVE_AT} checkpoint bitwise: "
+            f"{restore['sync']['restored_bitwise']}; sync=False readback_depth=2: verdict {lateness} "
+            f"calls late, restored bitwise: {restore['ring2']['restored_bitwise']}")
+        if not (restore["sync"]["verdict_call"] == nan_call and lateness == 2
+                and restore["sync"]["restored_bitwise"] and restore["ring2"]["restored_bitwise"]):
+            raise AssertionError(f"phase 9 (d): the watchdog did not restore as expected: {restore}")
+        out["restore"] = restore
+
+        # (e) an async save while training goes on, then the same resume from it
+        run = ResumeRun(project, layers, dataset)
+        run.acc.resume_from_latest()
+        t0 = time.perf_counter()  # the next save would remove it first: timed apart
+        shutil.rmtree(os.path.join(ckpt_dir, "checkpoint_1.tmp"))
+        snap = {"remove_staging_s": time.perf_counter() - t0}
+        snapshot = checkpointing._snapshot
+
+        def timed_snapshot(tensors):
+            t = time.perf_counter()
+            out = snapshot(tensors)
+            snap["enqueue_s"] = time.perf_counter() - t
+            return out
+
+        checkpointing._snapshot = timed_snapshot
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            ckpt1 = run.acc.save_state(async_save=True)
+        finally:
+            checkpointing._snapshot = snapshot
+        submit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()  # the training stream waits for the snapshot's copy
+        snap["copy_wait_s"] = time.perf_counter() - t0
+        # the loader's start (workers, the resume's skip) before the timing,
+        # as for the steps without a save; a batch handed out before the
+        # save would count as consumed by it
+        async_ms = run.timed_steps(RESUME_NAN_AT - RESUME_SAVE_AT, first=run.next_batch())
+        t0 = time.perf_counter()
+        run.acc.wait_for_async_saves()
+        join_s = time.perf_counter() - t0
+        committed = checkpointing.is_checkpoint_committed(ckpt1)
+        run.close()
+        run = ResumeRun(project, layers, dataset)
+        run.acc.resume_from_latest()
+        if run.acc._last_committed_checkpoint != ckpt1:
+            raise AssertionError(f"phase 9 (e): resumed {run.acc._last_committed_checkpoint}, not {ckpt1}")
+        for _ in range(RESUME_STEPS - RESUME_SAVE_AT):
+            run.step()
+        async_losses, async_final = run.loss_values(), run.params()
+        run.close()
+        async_equal = async_losses == ref_losses[RESUME_SAVE_AT:] and same_params(async_final, ref8)
+        log(f"phase 9 (e) the interrupted save's staging directory removed in "
+            f"{snap['remove_staging_s']:.2f}s; async save_state submitted in {submit_s:.3f}s (the "
+            f"pinned snapshot's allocation and enqueue {snap['enqueue_s']:.3f}s), the copy then held "
+            f"the training stream "
+            f"{snap['copy_wait_s']:.3f}s; {len(async_ms)} steps during the write "
+            f"{[round(m, 1) for m in async_ms]} ms against {[round(m, 1) for m in no_save_ms]} without "
+            f"(resumed steps of (b); each first batch fetched before the timing), the commit joined {join_s:.2f}s after; committed: {committed}; "
+            f"resumed losses and final params bitwise equal to (a): {async_equal} [{card}]")
+        if not (committed and async_equal):
+            raise AssertionError("phase 9 (e): the async save did not resume the uninterrupted run")
+        del async_final, ref4, ref8
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    steps = ResumeRun.steps_run
+    expected = {"flash_fwd_mma": 2 * layers * steps, "flash_bwd_dq_mma": layers * steps,
+                "flash_bwd_dkv_mma": layers * steps}
+    check_launches(f"phase 9 ({steps} steps; remat runs the forward twice)", launches, expected)
+    out.update(save=dict(bytes=written, s=save_s, gb_per_s=written / save_s / 1e9),
+               load=dict(s=load_s, gb_per_s=written / load_s / 1e9),
+               verify_checksum_s=verify_s, async_save=dict(submit_s=submit_s, step_ms=async_ms,
+                                                           no_save_step_ms=no_save_ms, join_s=join_s,
+                                                           **snap),
+               ckpt_bytes=ckpt_bytes, steps=steps, ref_losses=ref_losses)
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in expected}, out
+
+
 # dynamic shared memory of the tensor-core kernels' configurations (the
 # sources' MmaCfg): name fragment of the ptxas entry -> bytes per block, or
 # (bytes, threads) where a block is not 128 threads
@@ -2651,6 +3181,16 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU")
         return 2
+    Path("chiprun_out").mkdir(exist_ok=True)
+    with open("chiprun_out/chip_smoke.log", "w") as log_file:
+        LOG_FILE.append(log_file)
+        try:
+            return run_phases(args)
+        finally:
+            LOG_FILE.clear()
+
+
+def run_phases(args) -> int:
     from accelerate_tpu_torch.ops import _build
 
     # G402-style reference numerics: plain f32 products stay full f32
@@ -2695,6 +3235,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         by_path["training_f32"], summary["train_parity"] = phase_train_parity(dev, card)
         by_path["training"], summary["train_main_path"] = phase_train_main_path(dev, card)
+        by_path["training_resume"], summary["resume"] = phase_resume(card, summary["train_main_path"])
         for counts in by_path.values():
             for name, n in counts.items():
                 launches[name] += n

@@ -5,7 +5,8 @@ the end of the data loader (the JAX package's ``tests/test_accelerator.py``
 pins the same patterns), gradient clipping, fp16 loss scaling skipping a
 step on non-finite gradients, the mixed-precision wrapper, the data loader,
 the refusals of what waits for the distributed slice, and the multi-step
-``train_step`` and schedulers that took the place of earlier refusals.
+``train_step``, schedulers and data path that took the place of earlier
+refusals.
 
 A two-parameter regression ``y = a * x + b`` in f64 keeps the arithmetic
 exact enough to compare the eager loop, ``train_step`` and a hand-rolled
@@ -263,8 +264,14 @@ def test_what_waits_for_the_distributed_slice_raises():
     # the multi-step callable keeps the comm-hook refusal of the single step
     with pytest.raises(NotImplementedError, match="gradient-compression"):
         acc.train_step(regression_loss, multi_step=True)
-    with pytest.raises(NotImplementedError, match="torch DataLoader"):
-        acc.prepare_data_loader(torch.utils.data.DataLoader(range(8), batch_size=4))
+    # the data path (A5) landed: a torch DataLoader is unwrapped, not refused
+    prepared = acc.prepare_data_loader(torch.utils.data.DataLoader(range(8), batch_size=4))
+    assert [b.tolist() for b in prepared] == [[0, 1, 2, 3], [4, 5, 6, 7]]
+    # what stays with the distributed slice: replicas and elastic resume
+    with pytest.raises(NotImplementedError, match="distributed slice"):
+        Accelerator(cpu=True, replication_config=object())
+    with pytest.raises(NotImplementedError, match="distributed slice"):
+        acc.resume_from_latest("/nonexistent", elastic=True)
     # a scheduler is one device's business: prepared, not refused
     assert isinstance(acc.prepare(torch.optim.lr_scheduler.StepLR(
         torch.optim.SGD(model.parameters(), lr=LR), 1)), AcceleratedScheduler)
@@ -279,10 +286,18 @@ def test_refusals_name_their_queue_items():
     losses = acc.train_step(regression_loss, multi_step=True)(
         {k: torch.from_numpy(v).reshape(4, 2) for k, v in data.items()})
     assert losses.shape == (4,) and bool(torch.isfinite(losses).all()) and opt._step_count == 4
-    with pytest.raises(NotImplementedError, match=r"data path \(ROADMAP.md A5\)"):
-        prepare_data_loader(torch.utils.data.DataLoader(range(8), batch_size=4), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"data path \(ROADMAP.md A5\)"):
-        prepare_data_loader(iter([{"x": np.zeros(2)}]), batch_size=2, device="cpu")
+    # A5 (the data path) landed: a torch DataLoader and an iterable of ready
+    # batches are prepared, and no refusal in the port names A5 or A6 any more
+    loader = prepare_data_loader(torch.utils.data.DataLoader(range(8), batch_size=4), device="cpu")
+    assert [b.tolist() for b in loader] == [[0, 1, 2, 3], [4, 5, 6, 7]]
+    ready = prepare_data_loader(iter([{"x": np.zeros(2)}]), batch_size=2, device="cpu")
+    assert [b["x"].tolist() for b in ready] == [[0.0, 0.0]]
+    import pathlib
+
+    port = pathlib.Path(__file__).resolve().parents[1] / "accelerate_tpu_torch"
+    named = [str(f) for f in port.rglob("*.py")
+             if "ROADMAP.md A5" in f.read_text() or "ROADMAP.md A6" in f.read_text()]
+    assert named == []
     # A4's scheduler landed: it wraps the prepared optimizer and steps with it
     sched = acc.prepare(torch.optim.lr_scheduler.StepLR(opt.optimizer, 1, gamma=0.5))
     assert isinstance(sched, AcceleratedScheduler) and sched.optimizer is opt

@@ -55,7 +55,9 @@ def test_port_and_chip_smoke_import_no_jax():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("engine", "serving", "state", "optimizer", "accelerator", "data_loader", "model",
                  "big_modeling", "ops.quant_matmul", "utils.quantization", "utils.serialization",
-                 "utils.modeling", "utils.offload", "utils.constants"):
+                 "utils.modeling", "utils.offload", "utils.constants", "checkpointing", "telemetry",
+                 "tracking", "logging", "scheduler", "utils.native", "utils.fault", "utils.random",
+                 "utils.dataclasses", "models.llama"):
         assert f"accelerate_tpu_torch.{name}" in report["modules"]
     leaked = [m for m in report["new"]
               if m == "jax" or m.startswith(("jax.", "jaxlib"))

@@ -8,6 +8,8 @@ the projections' f32 matmuls sum in a different order in XLA and in
 PyTorch, and those differences pass through two layers and the head.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -225,3 +227,68 @@ def test_kernel_decode_refuses_sliding_window(model):
     with pytest.raises(ValueError, match="sliding-window"):
         tl.llama_decode_step(wcfg, tparams, cache, torch.zeros((1, 1), dtype=torch.long),
                              torch.tensor([3], dtype=torch.int32), kv_layout=layout)
+
+
+# ------------------------------------------------------------ HF converters
+HF_CONFIGS = {
+    "llama": {},
+    "qwen2_biases": {"attention_bias": True},
+    "gemma2_norms": {"post_block_norms": True, "rms_norm_offset": True},
+    "tied": {"tie_word_embeddings": True},
+}
+
+
+def _hf_tensors(jcfg, seed):
+    """Seeded tensors under HF's names, with HF's shapes: what a
+    ``model.safetensors`` of this config holds (the JAX exporter lays them
+    out from a seeded tree; every leaf, norms and zero biases included,
+    moved off its initial value by seeded noise)."""
+    params = jax.tree_util.tree_map(np.asarray, jl.init_llama_params(jcfg, jax.random.key(seed)))
+    rng = np.random.default_rng(seed)
+    params = jax.tree_util.tree_map(
+        lambda x: (x + 0.05 * rng.normal(size=x.shape)).astype(np.float32), params)
+    return jl.export_hf_state_dict(jcfg, params)
+
+
+@pytest.mark.parametrize("case", sorted(HF_CONFIGS))
+def test_convert_hf_state_dict_equals_jax_and_round_trips(case, tmp_path):
+    from accelerate_tpu_torch.utils.serialization import load_sharded_safetensors, save_sharded_safetensors
+
+    jcfg, tcfg = _configs(**HF_CONFIGS[case])
+    flat = _hf_tensors(jcfg, seed=3)
+    save_sharded_safetensors({k: torch.from_numpy(v) for k, v in flat.items()}, str(tmp_path))
+    on_disk = load_sharded_safetensors(str(tmp_path))  # written by the port's own writer
+    want = jax.tree_util.tree_map(np.asarray, jl.convert_hf_state_dict(jcfg, flat))
+    got = tl.convert_hf_state_dict(tcfg, on_disk, device="cpu")
+    for path, leaf in jax.tree_util.tree_leaves_with_path(want):
+        node = got
+        for key in path:
+            node = node[key.key]
+        np.testing.assert_array_equal(node.numpy(), leaf, err_msg=jax.tree_util.keystr(path))
+    assert len(list(tl._flatten(got))) == len(jax.tree_util.tree_leaves(want))
+    back = tl.export_hf_state_dict(tcfg, got)
+    assert sorted(back) == sorted(flat)
+    for key, value in flat.items():
+        np.testing.assert_array_equal(back[key].numpy(), value, err_msg=key)
+
+
+def test_hf_checkpoint_loads_into_the_model(tmp_path):
+    from accelerate_tpu_torch.utils.serialization import save_sharded_safetensors
+
+    jcfg, tcfg = _configs()
+    flat = _hf_tensors(jcfg, seed=5)
+    save_sharded_safetensors({k: torch.from_numpy(v) for k, v in flat.items()}, str(tmp_path),
+                             max_shard_size="64KB")
+    model = tl.LlamaForCausalLM.from_seed(tcfg, seed=0, device="cpu")
+    tl.load_hf_checkpoint(model, str(tmp_path))
+    ids = np.random.default_rng(1).integers(0, 256, size=(2, 12)).astype(np.int32)
+    want = jl.llama_apply(jcfg, jl.convert_hf_state_dict(jcfg, flat), jnp.asarray(ids))
+    got = model(torch.from_numpy(ids))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **MODEL_TOL)
+
+
+def test_hf_biases_without_attention_bias_are_refused():
+    jcfg, tcfg = _configs(attention_bias=True)
+    flat = _hf_tensors(jcfg, seed=2)
+    with pytest.raises(ValueError, match="attention_bias"):
+        tl.convert_hf_state_dict(dataclasses.replace(tcfg, attention_bias=False), flat, device="cpu")
