@@ -28,8 +28,11 @@ A training job resumes: the data path (torch ``DataLoader`` unwrapping,
 sharded samplers, exact mid-epoch ``state_dict``, the native packer of
 ``csrc/packing.cpp``), atomic checkpoints with ``resume_from_latest``,
 the ``check_step_health`` watchdog, trackers, and the HF Llama
-converters. Distributed training, the host KV tier and the serving
-control plane are still to be ported (ROADMAP.md).
+converters. Data-parallel training across processes: DDP, FSDP2 and HSDP
+under a ``ParallelismConfig``, the collectives, loaders and checkpoints
+of several processes, ``notebook_launcher`` and ``python -m
+accelerate_tpu_torch.commands.launch``. Tensor parallelism, the host KV
+tier and the serving control plane are still to be ported (ROADMAP.md).
 """
 
 __version__ = "0.1.0"
@@ -37,6 +40,9 @@ __version__ = "0.1.0"
 __all__ = [
     "AcceleratedScheduler",
     "Accelerator",
+    "DistributedDataParallelKwargs",
+    "FSDPPlugin",
+    "ParallelismConfig",
     "ProjectConfiguration",
     "TrainingHealthConfig",
     "ContinuousBatchingEngine",
@@ -47,12 +53,14 @@ __all__ = [
     "ServingConfig",
     "ServingResult",
     "create_llama",
+    "debug_launcher",
     "find_executable_batch_size",
     "get_logger",
     "init_empty_weights",
     "init_llama_params",
     "llama_loss",
     "load_and_quantize_model",
+    "notebook_launcher",
     "load_checkpoint_in_model",
     "quantize_model",
     "quantized_matmul",
@@ -78,6 +86,11 @@ _LAZY = {
     "prepare_data_loader": ("data_loader", "prepare_data_loader"),
     "skip_first_batches": ("data_loader", "skip_first_batches"),
     "DataLoaderConfiguration": ("utils.dataclasses", "DataLoaderConfiguration"),
+    "DistributedDataParallelKwargs": ("utils.dataclasses", "DistributedDataParallelKwargs"),
+    "FSDPPlugin": ("utils.dataclasses", "FSDPPlugin"),
+    "ParallelismConfig": ("parallelism_config", "ParallelismConfig"),
+    "notebook_launcher": ("launchers", "notebook_launcher"),
+    "debug_launcher": ("launchers", "debug_launcher"),
     "ProjectConfiguration": ("utils.dataclasses", "ProjectConfiguration"),
     "TrainingHealthConfig": ("utils.dataclasses", "TrainingHealthConfig"),
     "GeneralTracker": ("tracking", "GeneralTracker"),

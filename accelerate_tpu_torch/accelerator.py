@@ -1,5 +1,4 @@
-"""The training facade on one device (counterpart of
-``accelerate_tpu/accelerator.py``).
+"""The training facade (counterpart of ``accelerate_tpu/accelerator.py``).
 
 ``Accelerator(mixed_precision=...)`` then ``prepare(model, optimizer)``,
 ``prepare_data_loader(...)`` and either the eager loop
@@ -18,15 +17,30 @@ naming and retention under ``ProjectConfiguration``, async saves, custom
 objects and pre-hooks, the preemption handler); ``check_step_health``
 (``TrainingHealthConfig``: raise, skip or restore on a non-finite step,
 read now or ``readback_depth`` steps later); trackers (``log_with``,
-``init_trackers``, ``log``, ``async_logging``); and the world-size-1
-collectives (``gather``, ``gather_for_metrics``, ``reduce``,
-``pad_across_processes``).
+``init_trackers``, ``log``, ``async_logging``); and the collectives across
+processes (``gather``, ``gather_for_metrics``, ``reduce``,
+``pad_across_processes``, ``ops/operations.py``).
 
 ``backward`` keeps the JAX signature: it takes the loss *function* and its
 arguments, differentiates ``loss / gradient_accumulation_steps`` (times the
-fp16 loss scale) and returns the unscaled loss. Everything outside one
-device (a mesh, pipeline schedules, gradient-compression hooks) waits for
-the distributed slice (ROADMAP.md A7) and raises.
+fp16 loss scale) and returns the unscaled loss.
+
+Several processes (one per card, or gloo ranks on the CPU under
+``cpu=True``; ``state.py`` starts the group) train data-parallel, as the
+``ParallelismConfig`` says (default: the launcher's environment, else DDP
+over every process): ``prepare`` wraps the model in DDP, FSDP2 or HSDP
+(``parallel/sharding.py``) and points the optimizer at the parameters that
+took the place of its own. A one-process run takes the same path when
+given a ``ParallelismConfig`` with an ``FSDPPlugin`` (FSDP2) or a
+``DistributedDataParallelKwargs`` (DDP). Each rank sees its own rows, and
+the step gives what the JAX step gives on the global batch: a loss with a
+``ce_denominator`` (``llama_loss``) has its per-rank sum divided by the
+valid-token count summed over the ranks, so uneven ``loss_mask``s average
+as one batch; the returned loss is the global one; ``accumulate`` and
+``train_step`` skip the gradient reduction on the micro-steps that do not
+update (``no_sync``); clipping takes the global norm. Tensor, context,
+sequence, pipeline and expert parallelism, PowerSGD and replicas wait for
+ROADMAP.md A7 and A11 and raise.
 """
 
 from __future__ import annotations
@@ -48,6 +62,7 @@ from .state import AcceleratorState, GradientState
 from .utils.dataclasses import (
     DataLoaderConfiguration,
     DistributedDataParallelKwargs,
+    FSDPPlugin,
     GradientAccumulationPlugin,
     GradScalerKwargs,
     MixedPrecisionPolicy,
@@ -66,9 +81,13 @@ def _split_loss(out):
 
 
 class Accelerator:
-    """Single entry object for training on one device. ``cpu=False`` (the
-    default) runs on the card and raises without one; ``cpu=True`` runs the
-    plain versions on the CPU."""
+    """Single entry object for training. ``cpu=False`` (the default) runs on
+    the card and raises without one; ``cpu=True`` runs the plain versions
+    on the CPU (several processes over gloo). ``device_placement=False``
+    leaves prepared models where they are and batches on the host;
+    ``rng_types`` names the generators each prepared loader synchronizes
+    from the main process at every epoch (``"python"``, ``"numpy"``,
+    ``"torch"``, ``"generator"``)."""
 
     def __init__(
         self,
@@ -76,27 +95,25 @@ class Accelerator:
         mixed_precision: Optional[str] = None,
         gradient_accumulation_steps: int = 1,
         gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
-        dataloader_config: Optional[DataLoaderConfiguration] = None,
+        fsdp_plugin: Optional[FSDPPlugin] = None,
         parallelism_config=None,
+        dataloader_config: Optional[DataLoaderConfiguration] = None,
         project_dir: Optional[str] = None,
         project_config: Optional[ProjectConfiguration] = None,
         log_with: Optional[Union[str, list]] = None,
-        step_scheduler_with_optimizer: bool = True,
+        rng_types: Optional[Sequence[str]] = None,
         cpu: bool = False,
+        device_placement: bool = True,
+        step_scheduler_with_optimizer: bool = True,
         kwargs_handlers: Optional[Sequence] = None,
         health_config: Optional[TrainingHealthConfig] = None,
         replication_config=None,
         async_logging: bool = False,
     ):
-        if parallelism_config is not None:
-            raise NotImplementedError(
-                "parallelism_config: a mesh of more than one device (FSDP2/DDP, tp, cp, "
-                "and pp with its 1F1B schedule) waits for the distributed slice (ROADMAP.md A7)"
-            )
         if replication_config is not None:
             raise NotImplementedError(
                 "replication_config: mirroring checkpoints to durable storage and restoring "
-                "from a replica come with elastic resume in the distributed slice (ROADMAP.md A7)"
+                "from a replica (consensus resume) wait for ROADMAP.md A7"
             )
         self.project_configuration = project_config or ProjectConfiguration(project_dir=project_dir)
         if project_dir is not None and self.project_configuration.project_dir is None:
@@ -120,9 +137,30 @@ class Accelerator:
             else:
                 raise TypeError(f"unsupported kwargs handler {type(handler).__name__}")
         self.dataloader_config = dataloader_config or DataLoaderConfiguration()
-        self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu)
+        if fsdp_plugin is None and os.environ.get("ACCELERATE_USE_FSDP", "") == "true":
+            fsdp_plugin = FSDPPlugin()
+        self.fsdp_plugin = fsdp_plugin
+        self.device_placement = device_placement
+        self.rng_types = rng_types
+        self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu,
+                                      parallelism_config=parallelism_config)
+        # the data-parallel layout: under several processes always; with
+        # one, when a configuration or the FSDP plugin asks for it
+        self.layout = "none"
+        self.mesh = None
+        if parallelism_config is not None or fsdp_plugin is not None or self.num_processes > 1:
+            from .parallel.sharding import data_parallel_layout, layout_mesh
+
+            forced_ddp = self.ddp_handler if parallelism_config is not None else None
+            self.layout = data_parallel_layout(self.parallelism_config, fsdp_plugin, forced_ddp)
+            if self.layout != "none":
+                self.mesh = layout_mesh(self.layout, self.parallelism_config, self.device.type)
+                self.state.device_mesh = self.mesh
+        self._param_map: dict = {}
+        self._replicated: set = set()  # parameters FSDP2 left whole
         if gradient_accumulation_plugin is None:
-            gradient_accumulation_plugin = GradientAccumulationPlugin(num_steps=gradient_accumulation_steps)
+            gradient_accumulation_plugin = GradientAccumulationPlugin(num_steps=int(os.environ.get(
+                "ACCELERATE_GRADIENT_ACCUMULATION_STEPS", gradient_accumulation_steps)))
         self.gradient_state = GradientState(gradient_accumulation_plugin)
         self.policy = self.mp_policy_override or MixedPrecisionPolicy.from_mixed_precision(
             self.state.mixed_precision)
@@ -185,8 +223,84 @@ class Accelerator:
         return self.state.process_index
 
     @property
+    def local_process_index(self) -> int:
+        return self.state.local_process_index
+
+    @property
     def is_main_process(self) -> bool:
         return self.state.is_main_process
+
+    @property
+    def is_local_main_process(self) -> bool:
+        return self.state.is_local_main_process
+
+    @property
+    def is_last_process(self) -> bool:
+        return self.state.is_last_process
+
+    @property
+    def use_distributed(self) -> bool:
+        return self.state.use_distributed
+
+    @property
+    def parallelism_config(self):
+        return self.state.parallelism_config
+
+    @property
+    def is_fsdp2(self) -> bool:
+        return self.layout in ("fsdp", "hsdp")
+
+    @property
+    def split_batches(self) -> bool:
+        return self.dataloader_config.split_batches
+
+    @property
+    def dispatch_batches(self):
+        return self.dataloader_config.dispatch_batches
+
+    @property
+    def even_batches(self) -> bool:
+        return self.dataloader_config.even_batches
+
+    @property
+    def use_seedable_sampler(self) -> bool:
+        return self.dataloader_config.use_seedable_sampler
+
+    @property
+    def non_blocking(self) -> bool:
+        return self.dataloader_config.non_blocking
+
+    def _mesh_axis_rank(self, *axis_names: str) -> int:
+        """This process's coordinate along the mesh dims (row-major over
+        several); 0 for a dim the mesh does not have."""
+        if self.mesh is None:
+            return 0
+        rank = 0
+        for name in axis_names:
+            if name in (self.mesh.mesh_dim_names or ()):
+                rank = rank * self.mesh.size(self.mesh.mesh_dim_names.index(name)) \
+                    + self.mesh.get_local_rank(name)
+        return rank
+
+    @property
+    def tensor_parallel_rank(self) -> int:
+        return self._mesh_axis_rank("tp")
+
+    @property
+    def pipeline_parallel_rank(self) -> int:
+        return self._mesh_axis_rank("pp")
+
+    @property
+    def context_parallel_rank(self) -> int:
+        return self._mesh_axis_rank("cp")
+
+    @property
+    def data_parallel_rank(self) -> int:
+        return self._mesh_axis_rank("dp_replicate", "dp_shard")
+
+    @property
+    def data_parallel_shard_rank(self) -> int:
+        return self._mesh_axis_rank("dp_shard")
 
     @property
     def project_dir(self):
@@ -204,26 +318,59 @@ class Accelerator:
         """``print`` on the main process (with one process, always)."""
         self.state.print(*args, **kwargs)
 
-    def wait_for_everyone(self, tag: str = "accelerate_tpu_torch.Accelerator.wait_for_everyone"):
-        self.state.wait_for_everyone(tag)
+    def wait_for_everyone(self, tag: str = "accelerate_tpu_torch.Accelerator.wait_for_everyone",
+                          timeout: Optional[float] = None):
+        self.state.wait_for_everyone(tag, timeout=timeout)
 
     @contextlib.contextmanager
     def main_process_first(self):
         with self.state.main_process_first():
             yield
 
+    @contextlib.contextmanager
+    def local_main_process_first(self):
+        with self.state.local_main_process_first():
+            yield
+
+    @contextlib.contextmanager
+    def split_between_processes(self, inputs, apply_padding: bool = False):
+        with self.state.split_between_processes(inputs, apply_padding=apply_padding) as part:
+            yield part
+
+    def on_main_process(self, function):
+        return self.state.on_main_process(function)
+
+    def on_local_main_process(self, function):
+        return self.state.on_local_main_process(function)
+
+    def on_last_process(self, function):
+        return self.state.on_last_process(function)
+
+    def on_process(self, function=None, process_index: int = None):
+        return self.state.on_process(function, process_index=process_index)
+
+    def on_local_process(self, function=None, local_process_index: int = None):
+        return self.state.on_local_process(function, local_process_index=local_process_index)
+
     def __repr__(self) -> str:
-        return f"Accelerator(device={self.device}, mixed_precision={self.mixed_precision!r})"
+        return (f"Accelerator(device={self.device}, mixed_precision={self.mixed_precision!r}, "
+                f"num_processes={self.num_processes}, layout={self.layout!r})")
 
     # ---------------------------------------------------------------- prepare
-    def prepare(self, *args):
+    def prepare(self, *args, device_placement=None):
         """Prepare each object and return them in order: modules first (the
         optimizer steps their parameters), then optimizers, loaders and
         schedulers (a scheduler wraps the last optimizer prepared; any other
         callable is taken for a schedule ``step -> lr``, as in the JAX
-        package)."""
-        prepared = {i: self.prepare_model(obj) for i, obj in enumerate(args)
-                    if isinstance(obj, nn.Module)}
+        package). ``device_placement``: one bool (or None: the
+        Accelerator's) per object, for the modules and loaders."""
+        if device_placement is None:
+            device_placement = [None] * len(args)
+        elif len(device_placement) != len(args):
+            raise ValueError(f"device_placement has {len(device_placement)} entries for "
+                             f"{len(args)} objects")
+        prepared = {i: self.prepare_model(obj, device_placement=device_placement[i])
+                    for i, obj in enumerate(args) if isinstance(obj, nn.Module)}
         result = []
         for i, obj in enumerate(args):
             if i in prepared:
@@ -231,7 +378,7 @@ class Accelerator:
             elif isinstance(obj, (torch.optim.Optimizer, AcceleratedOptimizer)):
                 result.append(self.prepare_optimizer(obj))
             elif isinstance(obj, (DataLoaderShard, DataLoaderDispatcher, torch.utils.data.DataLoader)):
-                result.append(self.prepare_data_loader(obj))
+                result.append(self.prepare_data_loader(obj, device_placement=device_placement[i]))
             elif isinstance(obj, (AcceleratedScheduler, torch.optim.lr_scheduler.LRScheduler)) \
                     or callable(obj):
                 result.append(self.prepare_scheduler(obj))
@@ -239,17 +386,50 @@ class Accelerator:
                 result.append(obj)
         return result[0] if len(result) == 1 else tuple(result)
 
-    def prepare_model(self, model: nn.Module) -> nn.Module:
+    def prepare_model(self, model: nn.Module, device_placement: Optional[bool] = None,
+                      evaluation_mode: bool = False) -> nn.Module:
         """``model`` on the device, wrapped for mixed precision unless it
-        casts per use (``model.prepare_model``)."""
-        model = prepare_model(model, self.policy, self.device)
+        casts per use (``model.prepare_model``), and for the data-parallel
+        layout (``parallel/sharding.py``). ``evaluation_mode=True``: for
+        inference, each process keeps its own whole copy (no DDP or FSDP2)
+        in eval mode. ``device_placement=False`` leaves it where it is."""
+        place = self.device_placement if device_placement is None else device_placement
+        device = self.device if place else None
+        if self.layout == "none" or evaluation_mode:
+            model = prepare_model(model, self.policy, device)
+            if evaluation_mode:
+                model.eval()
+        else:
+            from .parallel.sharding import shard_model
+
+            if self.layout == "ddp":
+                model = prepare_model(model, self.policy, device)
+            elif device is not None:
+                model = model.to(device)
+            model, pmap, replicated = shard_model(
+                model, self.layout, self.mesh, self.device, fsdp_plugin=self.fsdp_plugin,
+                ddp_handler=self.ddp_handler, policy=self.policy)
+            self._param_map.update(pmap)
+            self._replicated.update(replicated)
         if model not in self._models:
             self._models.append(model)
         return model
 
-    def prepare_optimizer(self, optimizer) -> AcceleratedOptimizer:
+    def prepare_optimizer(self, optimizer, device_placement=None) -> AcceleratedOptimizer:
+        """Wrap ``optimizer``; under a data-parallel layout, first point it
+        at the parameters that took its parameters' place (FSDP2 shards, a
+        Llama's per-layer ones), which needs it not to have stepped yet."""
+        inner = optimizer.optimizer if isinstance(optimizer, AcceleratedOptimizer) else optimizer
+        layout = None
+        if self._param_map:
+            from .parallel.sharding import remap_optimizer
+
+            layout = remap_optimizer(inner, self._param_map)
         if not isinstance(optimizer, AcceleratedOptimizer):
             optimizer = AcceleratedOptimizer(optimizer, scaler=self.scaler)
+        if layout is not None:
+            optimizer._ckpt_layout = layout
+        optimizer.replicated = [p for p in optimizer.params() if p in self._replicated]
         self._optimizers.append(optimizer)
         return optimizer
 
@@ -282,9 +462,12 @@ class Accelerator:
         kwargs.setdefault("use_seedable_sampler", cfg.use_seedable_sampler)
         if cfg.data_seed is not None:
             kwargs.setdefault("seed", cfg.data_seed)
+        if self.rng_types is not None:
+            kwargs.setdefault("rng_types", self.rng_types)
         prepared = prepare_data_loader(
             dataloader, device=self.device,
-            put_on_device=True if device_placement is None else device_placement, **kwargs)
+            put_on_device=self.device_placement if device_placement is None else device_placement,
+            **kwargs)
         self._dataloaders.append(prepared)
         return prepared
 
@@ -309,20 +492,53 @@ class Accelerator:
                 "backward() needs a prepared optimizer to accumulate gradients for; "
                 "pass the optimizer to prepare(), or use accelerator.train_step"
             )
+        self._check_comm_hook()
         loss, aux = _split_loss(loss_fn(model, *args, **kwargs))
-        (loss * (self._loss_scale() / self.gradient_state.num_steps)).backward()
-        loss = loss.detach()
-        return loss if aux is None else (loss, aux)
+        scale, loss_out = self._data_parallel_loss(loss_fn, loss, args)
+        (loss * (scale * self._loss_scale() / self.gradient_state.num_steps)).backward()
+        return loss_out if aux is None else (loss_out, aux)
+
+    def _data_parallel_loss(self, loss_fn: Callable, loss: torch.Tensor, batch: tuple) -> tuple:
+        """(gradient scale, the loss to return) of this rank's ``loss``.
+        One process: (1.0, the loss). Several: the JAX step's loss on the
+        global batch. A loss function with a ``ce_denominator`` (``llama_loss``)
+        divides a masked sum by the valid tokens: this rank's sum is summed
+        over the ranks and divided by their summed count (one all-reduce),
+        and the gradient scale ``count * n / global count`` makes the
+        data-parallel gradient mean the gradient of that global loss. Any
+        other loss is taken for a mean over equal rows: the mean of the
+        ranks' losses."""
+        if self.num_processes == 1:
+            return 1.0, loss.detach()
+        import torch.distributed as dist
+
+        fn = getattr(loss_fn, "func", loss_fn)  # a functools.partial of llama_loss
+        den_fn = getattr(fn, "ce_denominator", None)
+        if den_fn is None:
+            mean = loss.detach().clone()
+            dist.all_reduce(mean)
+            return 1.0, mean / self.num_processes
+        count = den_fn(*batch, clamp=False).to(device=loss.device, dtype=torch.float32)
+        local = count.clamp_min(1)
+        sums = torch.stack([loss.detach().float() * local, count])
+        dist.all_reduce(sums)
+        total = sums[1].clamp_min(1)
+        return local * self.num_processes / total, (sums[0] / total).to(loss.dtype)
 
     def unscale_gradients(self, optimizer: Optional[AcceleratedOptimizer] = None) -> None:
         """Divide the accumulated gradients by the fp16 loss scale (once)."""
         for opt in [optimizer] if optimizer is not None else self._optimizers:
             opt.unscale_()
 
-    def clip_grad_norm_(self, parameters=None, max_norm: float = 1.0):
+    def clip_grad_norm_(self, parameters=None, max_norm: float = 1.0, norm_type: float = 2.0):
         """Clip the accumulated gradients (of the prepared optimizer's
-        parameters) by their global L2 norm; nothing mid-accumulation.
-        Returns the norm before clipping."""
+        parameters) by their global L2 norm (over every shard, so every
+        rank clips by the same factor); nothing mid-accumulation. Returns
+        the norm before clipping. ``norm_type`` must be 2, the only norm the
+        JAX package clips by."""
+        if float(norm_type) != 2.0:
+            raise ValueError(f"norm_type={norm_type}: gradients are clipped by their L2 norm "
+                             "(norm_type=2.0), as in the JAX package")
         if not self.gradient_state.sync_gradients or not self._optimizers:
             return torch.zeros((), device=self.device)
         return self._optimizers[-1].clip_grad_norm_(max_norm)
@@ -347,9 +563,37 @@ class Accelerator:
 
     @contextlib.contextmanager
     def accumulate(self, *models):
-        """Per-micro-batch context that sets ``sync_gradients``."""
+        """Per-micro-batch context that sets ``sync_gradients``; on a
+        micro-batch that does not update, the data-parallel gradient
+        reduction of ``models`` (default: every prepared model) is skipped
+        (:meth:`no_sync`) unless the plugin's ``sync_each_batch``."""
         self._do_sync()
-        yield
+        with contextlib.ExitStack() as stack:
+            if not self.sync_gradients and not self.gradient_state.plugin_kwargs.get(
+                    "sync_each_batch", False):
+                for model in models or self._models:
+                    stack.enter_context(self.no_sync(model))
+            yield
+
+    @contextlib.contextmanager
+    def no_sync(self, model: nn.Module):
+        """Gradients computed inside stay on this rank and accumulate: DDP's
+        ``no_sync``, FSDP2's ``set_requires_gradient_sync(False)``; nothing
+        to skip on one process."""
+        from torch.distributed.fsdp import FSDPModule
+        from torch.nn.parallel import DistributedDataParallel
+
+        if isinstance(model, DistributedDataParallel):
+            with model.no_sync():
+                yield
+        elif isinstance(model, FSDPModule):
+            model.set_requires_gradient_sync(False)
+            try:
+                yield
+            finally:
+                model.set_requires_gradient_sync(True)
+        else:
+            yield
 
     @contextlib.contextmanager
     def autocast(self, autocast_handler=None):
@@ -358,7 +602,11 @@ class Accelerator:
         yield
 
     def unwrap_model(self, model: nn.Module, keep_fp32_wrapper: bool = True) -> nn.Module:
-        return model if keep_fp32_wrapper else unwrap_model(model)
+        """The module inside a DDP wrapper; with ``keep_fp32_wrapper=False``
+        also inside the mixed-precision wrapper."""
+        from .parallel.sharding import unwrap_data_parallel
+
+        return unwrap_data_parallel(model) if keep_fp32_wrapper else unwrap_model(model)
 
     def eval_step(self, eval_fn: Callable, model: Optional[nn.Module] = None) -> Callable:
         """A forward-only step: ``step(*batch)`` runs ``eval_fn(model,
@@ -373,38 +621,42 @@ class Accelerator:
 
     # ------------------------------------------------------------ collectives
     def gather(self, tensor):
-        """Every process's ``tensor`` concatenated on dim 0: with one
-        process, the tensor itself."""
-        return tensor
+        """Every process's tensors concatenated on dim 0, in process order
+        (``ops/operations.py``; one process: the tensors themselves)."""
+        from .ops.operations import gather
+
+        return gather(tensor)
 
     def gather_for_metrics(self, input_data, use_gather_object: bool = False):
         """:meth:`gather`, then on the loader's last batch only its
         ``remainder`` real samples (the even-batches padding dropped). Data
         that is not tensors goes through the object gather."""
+        from .ops.operations import gather_object
+
         if use_gather_object or not any(isinstance(t, torch.Tensor)
                                         for t in tree_leaves(input_data)):
-            return list(input_data) if isinstance(input_data, (list, tuple)) \
-                else self.state.gather_object(input_data)
-        data = self.gather(input_data)
+            data = gather_object(input_data)
+        else:
+            data = self.gather(input_data)
         gs = self.gradient_state
         if gs.end_of_dataloader and gs.remainder > 0:
             rem = gs.remainder
-            data = tree_map(lambda t: t[:rem] if isinstance(t, torch.Tensor) else t, data)
+            data = (data[:rem] if isinstance(data, list) else
+                    tree_map(lambda t: t[:rem] if isinstance(t, torch.Tensor) else t, data))
         return data
 
     def reduce(self, tensor, reduction: str = "sum", scale: float = 1.0):
-        """The sum (or mean) of ``tensor`` over processes, times ``scale``:
-        with one process, ``tensor * scale``."""
-        if reduction not in ("sum", "mean", "none"):
-            raise ValueError(f"reduction must be sum|mean|none, got {reduction!r}")
-        return tree_map(lambda t: t * scale if isinstance(t, torch.Tensor) and scale != 1.0 else t,
-                        tensor)
+        """The sum (or mean) of ``tensor`` over processes, times ``scale``."""
+        from .ops.operations import reduce
+
+        return reduce(tensor, reduction=reduction, scale=scale)
 
     def pad_across_processes(self, tensor, dim: int = 0, pad_index: int = 0,
                              pad_first: bool = False):
-        """Pad ``dim`` to the largest size over processes: with one
-        process, nothing to pad."""
-        return tensor
+        """Pad ``dim`` to the largest size over processes."""
+        from .ops.operations import pad_across_processes
+
+        return pad_across_processes(tensor, dim=dim, pad_index=pad_index, pad_first=pad_first)
 
     # --------------------------------------------------------------- triggers
     def set_trigger(self) -> None:
@@ -481,8 +733,9 @@ class Accelerator:
         unconditionally. Prepared loaders resume their mid-epoch position
         from the checkpoint (do not also ``skip_first_batches`` them). With
         automatic naming the next save goes past every checkpoint on disk.
-        ``elastic`` (default ``ACCELERATE_ELASTIC``) waits for the
-        distributed slice (ROADMAP.md A7)."""
+        ``elastic`` (default ``ACCELERATE_ELASTIC``) loads a checkpoint
+        saved by another number of processes (the tensors are whole, and
+        are sharded again as this run's layout says)."""
         if elastic is None:
             elastic = os.environ.get("ACCELERATE_ELASTIC", "").strip().lower() in (
                 "1", "true", "yes", "on")
@@ -521,10 +774,11 @@ class Accelerator:
         save_model_checkpoint(model, save_directory, max_shard_size=max_shard_size)
 
     def get_state_dict(self, model: nn.Module, unwrap: bool = True) -> dict:
-        """The model's tensors (detached) under their checkpoint names."""
-        from .checkpointing import model_tensors
+        """The model's whole tensors (detached; gathered from the shards
+        under FSDP2, the layers restacked) under their checkpoint names."""
+        from .checkpointing import full_model_tensors
 
-        return {k: t.detach() for k, t in model_tensors(model).items()}
+        return full_model_tensors(model)
 
     # ------------------------------------------------------- health watchdog
     def check_step_health(self, loss=None, grads=None, grad_norm=None) -> bool:
@@ -551,7 +805,18 @@ class Accelerator:
                                   if opt._last_grad_norm is not None), None)
         else:
             grads = None
+        if grads is not None and self.num_processes > 1:
+            from .optimizer import local_tensor
+
+            grads = tree_map(lambda g: local_tensor(g) if isinstance(g, torch.Tensor) else g, grads)
         summary = telemetry.health_summary(loss, grads, grad_norm)
+        if self.num_processes > 1:
+            # one verdict for every rank: each checked its own shards
+            import torch.distributed as dist
+
+            flags = summary[:2].clone()
+            dist.all_reduce(flags, op=dist.ReduceOp.MIN)
+            summary = torch.cat([flags, summary[2:]])
         step = self._health_seq
         self._health_seq += 1
         if cfg.sync:
@@ -672,6 +937,20 @@ class Accelerator:
                     for tracker in self.trackers:
                         tracker.finish()
 
+    def _check_comm_hook(self) -> None:
+        """Refuse a comm hook the layout cannot apply: PowerSGD (ROADMAP.md
+        A11), and any compression without a cross-process reduction."""
+        hook = self.ddp_handler.comm_hook if self.ddp_handler is not None else "no"
+        if hook == "powersgd":
+            raise NotImplementedError(
+                "comm_hook='powersgd' compresses the cross-process gradient reduction; "
+                "PowerSGD (ops/powersgd.py) waits for ROADMAP.md A11")
+        if hook != "no" and self.layout == "none":
+            raise NotImplementedError(
+                f"comm_hook={hook!r}: the gradient-compression dtype applies to the "
+                "cross-process reduction, and one process without a ParallelismConfig has "
+                "none; launch several processes or pass parallelism_config=")
+
     # ------------------------------------------------------ training: fused
     def train_step(
         self,
@@ -705,32 +984,27 @@ class Accelerator:
         (``utils/flatbuf.py``) packs the pytree into a few buffers to avoid
         a per-buffer cost at the TPU program boundary; PyTorch runs eagerly
         and updates in place, so there is no program boundary to pay."""
-        if self.ddp_handler is not None and self.ddp_handler.comm_hook == "powersgd":
-            raise NotImplementedError(
-                "comm_hook='powersgd' compresses the cross-device gradient reduction; "
-                "PowerSGD waits for the distributed slice (ROADMAP.md A7)")
-        if self.ddp_handler is not None and self.ddp_handler.comm_hook != "no":
-            raise NotImplementedError(
-                f"comm_hook={self.ddp_handler.comm_hook!r}: the gradient-compression dtype "
-                "applies to the cross-device reduction and waits for the distributed "
-                "slice (ROADMAP.md A7)")
+        self._check_comm_hook()
         model = model or self._models[-1]
         optimizer = optimizer or self._optimizers[-1]
         k = int(self.gradient_state.num_steps)
         state = {"count": 0}
+        each_batch = self.gradient_state.plugin_kwargs.get("sync_each_batch", False)
 
         def step(*batch):
             state["count"] = state["count"] % k + 1
             sync = state["count"] == k
             self.gradient_state._set_sync_gradients(sync)
-            loss, _ = _split_loss(loss_fn(model, *batch))
-            (loss * (self._loss_scale() / k)).backward()
+            with contextlib.nullcontext() if sync or each_batch else self.no_sync(model):
+                loss, _ = _split_loss(loss_fn(model, *batch))
+                scale, loss_out = self._data_parallel_loss(loss_fn, loss, batch)
+                (loss * (scale * self._loss_scale() / k)).backward()
             if sync:
                 if max_grad_norm is not None:
                     optimizer.clip_grad_norm_(max_grad_norm)
                 optimizer.step()
                 optimizer.zero_grad()
-            return loss.detach()
+            return loss_out
 
         if not multi_step:
             return step

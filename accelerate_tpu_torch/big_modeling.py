@@ -47,15 +47,31 @@ def _no_mesh(mesh) -> None:
 
 
 @contextlib.contextmanager
-def init_empty_weights():
+def init_empty_weights(include_buffers: bool = True):
     """Inside, every tensor a factory function makes without an explicit
     device is on ``meta``, and ``create_llama`` / ``LlamaForCausalLM
     .from_seed`` build their parameters there without drawing: the model
     has its shapes and dtypes and holds no memory until
     :func:`load_checkpoint_in_model` fills it (reference
-    big_modeling.py:62)."""
-    with torch.device("meta"):
+    big_modeling.py:62). ``include_buffers=False``: only parameters go to
+    ``meta`` (each registered parameter is moved there); buffers and other
+    tensors are made where they would be."""
+    if include_buffers:
+        with torch.device("meta"):
+            yield
+        return
+    register = torch.nn.Module.register_parameter
+
+    def register_on_meta(module, name, param):
+        if param is not None:
+            param = type(param)(param.to("meta"), requires_grad=param.requires_grad)
+        register(module, name, param)
+
+    torch.nn.Module.register_parameter = register_on_meta
+    try:
         yield
+    finally:
+        torch.nn.Module.register_parameter = register
 
 
 def abstract_params(init_fn: Callable, *args, **kwargs):

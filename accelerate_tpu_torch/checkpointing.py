@@ -34,9 +34,21 @@ commit waits for :func:`wait_for_async_saves` (the next save or load,
 ``end_training`` and interpreter exit call it), which raises a failed
 snapshot, write or commit.
 
-One process: a checkpoint saved by another number of processes, and
-``elastic=True`` resharding, wait for the distributed slice (ROADMAP.md
-A7).
+Several processes: the checkpoint is the same one file set, of whole
+tensors under the same keys. A model sharded by FSDP2 is gathered with
+``torch.distributed.checkpoint.state_dict.get_model_state_dict`` /
+``get_optimizer_state_dict`` (``full_state_dict=True, cpu_offload=True``),
+a Llama's per-layer units restacked under the stacked keys and each
+parameter's optimizer state under its stacked parameter's index; a DDP
+model's tensors are whole on every rank already. The main process writes
+and commits; the others wait at the protocol's barriers, and each writes
+its ``random_states_{rank}.pkl``. A load reads on the main process and
+hands the tensors out with ``set_model_state_dict`` /
+``set_optimizer_state_dict`` (``broadcast_from_rank0=True``), each rank
+keeping its shards. A checkpoint saved by another number of processes
+raises ``CheckpointTopologyError`` unless the load is asked for with
+``elastic=True``, which loads it into this run's layout (the tensors are
+whole, so nothing else changes).
 """
 
 from __future__ import annotations
@@ -108,14 +120,114 @@ _ATEXIT_REGISTERED = False
 
 # ------------------------------------------------------------------ tensors
 def model_tensors(model) -> dict:
-    """A prepared model's tensors under their checkpoint names: a model
-    with ``checkpoint_keys`` (the Llama port: tree paths joined with
+    """A prepared model's live tensors under their checkpoint names: a
+    model with ``checkpoint_keys`` (the Llama port: tree paths joined with
     ``"."``, as the JAX package names its leaves) by those, any other by
-    its ``state_dict`` keys."""
+    its ``state_dict`` keys. In the Llama's per-layer layout a layer
+    leaf's value is the list of its L per-layer tensors."""
     module = unwrap_model(model)
+    if hasattr(module, "checkpoint_fqns"):
+        live = dict(module.named_parameters())
+        return {key: [live[f] for f in fqns] if stacked else live[fqns[0]]
+                for key, fqns, stacked in module.checkpoint_fqns()}
     if hasattr(module, "checkpoint_keys"):
         return {key: getattr(module, name) for key, name in module.checkpoint_keys()}
     return dict(module.state_dict(keep_vars=True))
+
+
+def _has_dtensor(model) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(p, DTensor) for p in unwrap_model(model).parameters())
+
+
+def _key_layout(module) -> list:
+    """``(checkpoint key, module names, stacked)`` of every tensor of a
+    checkpoint of ``module``."""
+    if hasattr(module, "checkpoint_fqns"):
+        return module.checkpoint_fqns()
+    return [(k, [k], False) for k in module.state_dict().keys()]
+
+
+def full_model_tensors(model, cpu_offload: bool = False) -> dict:
+    """The model's whole tensors (detached) under their checkpoint names, a
+    Llama's layers restacked. A model with ``DTensor`` parameters (FSDP2)
+    is gathered by every process together (``get_model_state_dict``); with
+    ``cpu_offload`` only the main process receives them (the others get
+    ``{}``)."""
+    module = unwrap_model(model)
+    if _has_dtensor(module):
+        from torch.distributed.checkpoint.state_dict import StateDictOptions, get_model_state_dict
+
+        sd = get_model_state_dict(model, options=StateDictOptions(full_state_dict=True,
+                                                                    cpu_offload=cpu_offload))
+        if not sd:
+            return {}
+        return {key: torch.stack([sd[f] for f in fqns]) if stacked else sd[fqns[0]]
+                for key, fqns, stacked in _key_layout(module)}
+    return {k: (torch.stack(v) if isinstance(v, list) else v).detach()
+            for k, v in model_tensors(model).items()}
+
+
+def _owner(accelerator, opt):
+    """The prepared model whose parameters ``opt`` steps."""
+    first = next(iter(opt.params()), None)
+    for model in accelerator._models:
+        if any(p is first for p in model.parameters()):
+            return model
+    raise ValueError("the optimizer steps no prepared model's parameters")
+
+
+def _opt_layout(opt, model) -> tuple:
+    """(per original parameter ``(module names, stacked)``, the original
+    param groups as index lists) of an optimizer prepared under a layout;
+    without one, its parameters' own names."""
+    layout = getattr(opt, "_ckpt_layout", None)
+    if layout is not None:
+        return layout
+    names = {p: n for n, p in unwrap_model(model).named_parameters()}
+    entries, groups = [], []
+    for group in opt.optimizer.param_groups:
+        groups.append([len(entries) + i for i in range(len(group["params"]))])
+        entries += [([names[p]], False) for p in group["params"]]
+    return entries, groups
+
+
+def _full_optimizer_parts(opt, model) -> tuple:
+    """:func:`_optimizer_parts` of an optimizer of a sharded model: the
+    state gathered whole onto the main process (``get_optimizer_state_dict``)
+    and each per-layer parameter's state stacked under its stacked
+    parameter's index, so the file set is the one a single process writes.
+    Every process calls it; the others get ``({}, {})``."""
+    from torch.distributed.checkpoint.state_dict import StateDictOptions, get_optimizer_state_dict
+
+    osd = get_optimizer_state_dict(model, opt.optimizer, options=StateDictOptions(
+        full_state_dict=True, cpu_offload=True))
+    if not PartialState().is_main_process:
+        return {}, {}
+    layout, groups = _opt_layout(opt, model)
+    state = osd.get("state", {})
+    tensors, scalars, on_param = {}, {}, []
+    for i, (fqns, stacked) in enumerate(layout):
+        entries = [state.get(f) for f in fqns]
+        if any(e is None for e in entries):
+            continue
+        for key, first in entries[0].items():
+            name = f"state.{i}.{key}"
+            if not isinstance(first, torch.Tensor):
+                scalars[name] = first
+            elif stacked and first.dim() > 0:
+                tensors[name] = torch.stack([e[key] for e in entries])
+                on_param.append(name)
+            else:
+                tensors[name] = first
+                if first.dim() > 0:
+                    on_param.append(name)
+    hyper = [{k: v for k, v in g.items() if k != "params"} for g in osd["param_groups"]]
+    meta = {"step_count": opt._step_count,
+            "param_groups": [{**h, "params": idx} for h, idx in zip(hyper, groups)],
+            "scalars": scalars, "on_param_device": on_param}
+    return tensors, meta
 
 
 def _optimizer_parts(opt) -> tuple:
@@ -363,9 +475,14 @@ def _verify_level(override: Optional[str]) -> str:
 
 
 def _topology() -> dict:
+    from .state import AcceleratorState
+
     state = PartialState()
-    return {"num_processes": state.num_processes, "num_devices": 1,
-            "device": str(state.device)}
+    mesh = AcceleratorState._shared_state.get("device_mesh")
+    axes = ({n: mesh.size(i) for i, n in enumerate(mesh.mesh_dim_names)}
+            if mesh is not None else {})
+    return {"num_processes": state.num_processes, "num_devices": state.num_processes,
+            "device": str(state.device), "mesh_axes": axes}
 
 
 def _commit_staged(staging: str, final: str, accelerator) -> None:
@@ -504,12 +621,21 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None,
 
         tensors, jobs, opt_meta = {}, [], []
         for i, model in enumerate(accelerator._models):
-            jobs.append((f"{MODEL_NAME}{suffix(i)}", model_tensors(model)))
+            # FSDP2: gathered onto the main process by every process
+            live = (full_model_tensors(model, cpu_offload=True) if _has_dtensor(model)
+                    else model_tensors(model))
+            jobs.append((f"{MODEL_NAME}{suffix(i)}", {
+                k: torch.stack([t.detach() for t in v]) if isinstance(v, list) else v
+                for k, v in live.items()}))
         for i, opt in enumerate(accelerator._optimizers):
-            opt_tensors, meta = _optimizer_parts(opt)
+            opt_tensors, meta = (_full_optimizer_parts(opt, _owner(accelerator, opt))
+                                 if any(_has_dtensor(m) for m in accelerator._models)
+                                 else _optimizer_parts(opt))
             opt_meta.append(meta)
             if opt_tensors:
                 jobs.append((f"{OPTIMIZER_NAME}{suffix(i)}", opt_tensors))
+        if not state.is_main_process:
+            jobs = []  # the main process writes the tensors, whole on it
         for name, group in jobs:
             tensors.update({f"{name}/{k}": t for k, t in group.items()})
         error, event = None, None
@@ -591,10 +717,18 @@ def _to_host(tree):
     return tree
 
 
-def _copy_in(live: torch.Tensor, src: torch.Tensor) -> None:
+def _copy_in(live, src: torch.Tensor) -> None:
     """Copy a host tensor (a view of a mapped file) into ``live``; into the
     card through a pinned buffer (the copy from pageable memory runs at a
-    fraction of the pinned rate)."""
+    fraction of the pinned rate). ``live`` a list: its tensors take
+    ``src``'s slices along dim 0 (a stacked key into per-layer ones)."""
+    if isinstance(live, list):
+        if len(live) != src.shape[0]:
+            raise ValueError(f"checkpoint tensor stacks {src.shape[0]} slices, the live model "
+                             f"{len(live)}")
+        for t, part in zip(live, src.unbind(0)):
+            _copy_in(t, part)
+        return
     if live.shape != src.shape:
         raise ValueError(f"checkpoint tensor has shape {tuple(src.shape)}, the live one "
                          f"{tuple(live.shape)}")
@@ -623,7 +757,7 @@ def _load_tensors(live: dict, path: str, what: str) -> None:
             for name in names:
                 _copy_in(live[name], reader.get(name))
             reader.release_file(file)
-    if any(t.is_cuda for t in live.values()):
+    if any(t.is_cuda for v in live.values() for t in (v if isinstance(v, list) else [v])):
         torch.cuda.synchronize()
 
 
@@ -668,16 +802,86 @@ def _recover_parked(input_dir: str) -> None:
         os.rename(parked, input_dir)
 
 
-def _refuse_other_world(input_dir: str) -> None:
+def _topology_gate(input_dir: str, elastic: bool) -> None:
+    """A checkpoint saved by another number of processes loads only with
+    ``elastic=True`` (the JAX package's contract); raised before any tensor
+    is read."""
+    from .utils.fault import CheckpointTopologyError
+
     try:
         manifest = read_commit_manifest(input_dir)
     except CheckpointError:
         return  # verify="off": a tree without a manifest records no world
     saved = manifest.get("num_processes")
-    if saved is not None and saved != PartialState().num_processes:
-        raise NotImplementedError(
-            f"checkpoint {input_dir} was saved by {saved} processes; loading it into another "
-            "world size waits for the distributed slice (ROADMAP.md A7)")
+    live = PartialState().num_processes
+    if saved is None or saved == live:
+        return
+    if not elastic:
+        raise CheckpointTopologyError(
+            f"checkpoint {input_dir} was saved on a different topology: num_processes {saved} "
+            f"(saved) != {live} (live). Pass elastic=True to load_state/resume_from_latest to "
+            "load it into this run's layout.")
+    logger.warning(f"elastic load: {input_dir} was saved by {saved} processes, loading into {live}")
+
+
+def _load_sharded_model(model, path: str, what: str) -> None:
+    """Load whole tensors into a model with ``DTensor`` parameters: the
+    main process reads them (a Llama's stacked keys split into its
+    per-layer names) and ``set_model_state_dict`` hands every rank its
+    shards."""
+    from torch.distributed.checkpoint.state_dict import StateDictOptions, set_model_state_dict
+
+    module = unwrap_model(model)
+    opts = StateDictOptions(full_state_dict=True, broadcast_from_rank0=True)
+    if not PartialState().is_main_process:
+        set_model_state_dict(model, {}, options=opts)
+        return
+    with SafetensorsReader(path) as reader:
+        sd = {}
+        for key, fqns, stacked in _key_layout(module):
+            if key not in reader:
+                raise CheckpointComponentMissingError(f"{path} has no tensor {key!r} for {what}")
+            t = reader.get(key)
+            sd.update(zip(fqns, t.unbind(0)) if stacked else [(fqns[0], t)])
+        set_model_state_dict(model, sd, options=opts)
+
+
+def _load_sharded_optimizer(opt, model, path: Optional[str], meta: dict) -> None:
+    """:func:`_load_optimizer` for an optimizer of a sharded model: the
+    main process splits each stacked parameter's state into its per-layer
+    parameters' and ``set_optimizer_state_dict`` hands out the shards."""
+    from torch.distributed.checkpoint.state_dict import StateDictOptions, set_optimizer_state_dict
+
+    opts = StateDictOptions(full_state_dict=True, broadcast_from_rank0=True)
+    osd: dict = {}
+    reader = None
+    if PartialState().is_main_process:
+        layout, _ = _opt_layout(opt, model)
+        state: dict = {}
+
+        def put(name, value):
+            _, idx, key = name.split(".", 2)
+            fqns, stacked = layout[int(idx)]
+            split = stacked and isinstance(value, torch.Tensor) and value.dim() > 0
+            for i, f in enumerate(fqns):
+                state.setdefault(f, {})[key] = value[i] if split else value
+
+        if path is not None:
+            reader = SafetensorsReader(path)
+            for name in reader.keys():
+                put(name, reader.get(name))
+        for name, value in meta.get("scalars", {}).items():
+            put(name, value)
+        groups = [{**{k: v for k, v in g.items() if k != "params"},
+                   "params": [f for i in g["params"] for f in layout[i][0]]}
+                  for g in meta["param_groups"]]
+        osd = {"state": state, "param_groups": groups}
+    try:
+        set_optimizer_state_dict(model, opt.optimizer, osd, options=opts)
+    finally:
+        if reader is not None:
+            reader.close()
+    opt._step_count = meta.get("step_count", 0)
 
 
 def load_accelerator_state(accelerator, input_dir: Optional[str] = None,
@@ -688,17 +892,13 @@ def load_accelerator_state(accelerator, input_dir: Optional[str] = None,
     else ``"marker"``) and a failure raises the taxonomy's error:
     ``CheckpointNotFoundError``, ``CheckpointUncommittedError``,
     ``CheckpointCorruptError`` or ``CheckpointComponentMissingError``."""
-    if elastic:
-        raise NotImplementedError(
-            "elastic=True reshards a checkpoint onto another world size, which waits for "
-            "the distributed slice (ROADMAP.md A7)")
     state = PartialState()
     wait_for_async_saves()
     input_dir = _resolve_dir(accelerator, input_dir, for_save=False)
     if state.is_main_process:
         _recover_parked(input_dir)
     verify_checkpoint(input_dir, level=_verify_level(verify))
-    _refuse_other_world(input_dir)
+    _topology_gate(input_dir, elastic)
 
     def suffix(i):
         return "" if i == 0 else f"_{i}"
@@ -709,7 +909,10 @@ def load_accelerator_state(accelerator, input_dir: Optional[str] = None,
             raise CheckpointComponentMissingError(
                 f"checkpoint {input_dir} has no '{MODEL_NAME}{suffix(i)}' component for prepared "
                 f"model {i}")
-        _load_tensors(model_tensors(model), path, what=f"prepared model {i}")
+        if _has_dtensor(model):
+            _load_sharded_model(model, path, what=f"prepared model {i}")
+        else:
+            _load_tensors(model_tensors(model), path, what=f"prepared model {i}")
 
     meta_path = os.path.join(input_dir, "optimizer_meta.json")
     metas = []
@@ -722,7 +925,12 @@ def load_accelerator_state(accelerator, input_dir: Optional[str] = None,
             logger.warning(f"checkpoint {input_dir} has no state for optimizer {i}; it keeps "
                            "its live state")
             continue
-        _load_optimizer(opt, path if os.path.isdir(path) else None, metas[i])
+        path = path if os.path.isdir(path) else None
+        owner = _owner(accelerator, opt)
+        if _has_dtensor(owner):
+            _load_sharded_optimizer(opt, owner, path, metas[i])
+        else:
+            _load_optimizer(opt, path, metas[i])
 
     for i, sched in enumerate(accelerator._schedulers):
         p = os.path.join(input_dir, f"{SCHEDULER_NAME}{suffix(i)}.json")
@@ -766,12 +974,16 @@ def save_model_checkpoint(model, save_directory: str, max_shard_size: str = "10G
     interchange format (``Accelerator.save_model``)."""
     os.makedirs(save_directory, exist_ok=True)
     state = PartialState()
+    tensors = full_model_tensors(model, cpu_offload=True)
     if state.is_main_process:
-        save_sharded_safetensors(model_tensors(model), save_directory,
-                                 max_shard_size=max_shard_size)
+        save_sharded_safetensors(tensors, save_directory, max_shard_size=max_shard_size)
     state.wait_for_everyone("accelerate_tpu_torch.checkpointing.save_model_checkpoint")
 
 
 def load_model_checkpoint(model, load_directory: str) -> None:
-    """Load a safetensors checkpoint of the model's tensors into it."""
-    _load_tensors(model_tensors(model), load_directory, what="the model")
+    """Load a safetensors checkpoint of the model's tensors into it (a
+    sharded model on every process together)."""
+    if _has_dtensor(model):
+        _load_sharded_model(model, load_directory, what="the model")
+    else:
+        _load_tensors(model_tensors(model), load_directory, what="the model")

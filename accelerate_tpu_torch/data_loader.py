@@ -22,9 +22,15 @@ while iterated and looks one batch ahead, so the last batch arrives with
 mid-epoch resume: the epoch and the batches already handed out (a seeded
 order is replayed and skipped), or a stateful dataset's own state.
 
-One process: the sharding classes compute every process's indices as the
-JAX package's do, but ``PartialState`` runs one process until the
-distributed slice (ROADMAP.md A7).
+Several processes: each reads its own rows. The shard a process reads
+comes from the mesh (``mesh=``, default the one the ``Accelerator`` shards
+over; :func:`data_shard_info` over the ``batch_axes``), else from the
+process index; ``batch_size`` is per process unless ``split_batches``.
+With ``dispatch_batches`` the main process reads each global batch and
+broadcasts it, and every process keeps its block of rows (the rows the JAX
+package's global array puts on that process). ``rng_types`` synchronizes
+those generators from the main process at every epoch
+(``utils/random.py``), so a shuffle draws the same order everywhere.
 """
 
 from __future__ import annotations
@@ -48,9 +54,11 @@ from .state import GradientState, PartialState, process_layout
 __all__ = [
     "BatchSamplerShard",
     "DataLoaderDispatcher",
+    "BatchSharding",
     "DataLoaderShard",
     "IterableDatasetShard",
     "SeedableRandomSampler",
+    "batch_sharding",
     "data_shard_info",
     "default_collate",
     "make_padded_collate",
@@ -109,22 +117,65 @@ def make_padded_collate(pad_token_id: int = 0, max_length: Optional[int] = None,
     return collate
 
 
-def data_shard_info(row_blocks: Optional[dict] = None, process_index: Optional[int] = None,
+class BatchSharding(collections.namedtuple("BatchSharding", "mesh batch_axes seq_axes")):
+    """How a batch lies on a ``DeviceMesh``: dim 0 over ``batch_axes``
+    (the JAX package's ``NamedSharding(mesh, P(batch_axes, seq_axes))``)."""
+
+    def row_blocks(self) -> dict:
+        """``{rank: (start, stop)}``: the block of the batch dimension's
+        rows each rank holds, the ranks of the batch axes in row-major
+        order (one process per rank)."""
+        import numpy as _np
+
+        names = tuple(self.mesh.mesh_dim_names)
+        ranks = _np.asarray(self.mesh.mesh.tolist())
+        axes = [names.index(a) for a in self.batch_axes]
+        sizes = [ranks.shape[i] for i in axes]
+        blocks = {}
+        for coord in _np.ndindex(*ranks.shape):
+            row = 0
+            for i, size in zip(axes, sizes):
+                row = row * size + coord[i]
+            blocks[int(ranks[coord])] = (row, row + 1)
+        return blocks
+
+
+def batch_sharding(mesh, batch_axes: Sequence[str] = ("dp_replicate", "dp_shard"),
+                   seq_axes: Sequence[str] = ()) -> BatchSharding:
+    """A batch's :class:`BatchSharding` on ``mesh``: the listed axes the
+    mesh has above size 1. A sequence axis (cp, sp) waits for ROADMAP.md
+    A11."""
+    names = tuple(mesh.mesh_dim_names or ())
+
+    def present(axes):
+        return tuple(a for a in axes if a in names and mesh.size(names.index(a)) > 1)
+
+    if present(seq_axes):
+        raise NotImplementedError(f"seq_axes={tuple(seq_axes)}: a batch sharded on its sequence "
+                                  "dim (context/sequence parallelism) waits for ROADMAP.md A11")
+    return BatchSharding(mesh, present(batch_axes), ())
+
+
+def data_shard_info(sharding=None, process_index: Optional[int] = None,
                     num_processes: Optional[int] = None,
                     process_of_device: Optional[Callable] = None) -> tuple:
     """Which slice of the batch this process reads: ``(num_shards,
-    shard_index, rows_per_shard)``. ``row_blocks`` maps each device to the
-    ``(start, stop)`` block of the batch dimension's ``n_rows`` blocks it
-    holds (the JAX package reads it from a sharding's index map; the
-    port's device mesh comes with the distributed slice, ROADMAP.md A7).
-    Processes whose devices hold the same rows (tensor or context parallel
-    ranks) read the same slice; ``None`` means every process is its own
-    data shard."""
+    shard_index, rows_per_shard)``. ``sharding`` is a
+    :class:`BatchSharding` (its mesh's ranks are the processes), or a dict
+    mapping each device to the ``(start, stop)`` block of the batch
+    dimension's ``n_rows`` blocks it holds (the JAX package reads it from a
+    sharding's index map), with ``process_of_device``. Processes whose
+    devices hold the same rows (tensor or context parallel ranks) read the
+    same slice; ``None`` means every process is its own data shard."""
     index, count = process_layout()
     process_index = index if process_index is None else process_index
     num_processes = count if num_processes is None else num_processes
-    if row_blocks is None:
+    if sharding is None:
         return (num_processes, process_index, 1) if num_processes > 1 else (1, 0, 1)
+    if isinstance(sharding, BatchSharding):
+        row_blocks, process_of_device = sharding.row_blocks(), (lambda rank: rank)
+    else:
+        row_blocks = sharding
     if process_of_device is None:
         process_of_device = lambda d: d.process_index  # noqa: E731
     n_rows = max(stop for _, stop in row_blocks.values())
@@ -147,7 +198,9 @@ class SeedableRandomSampler:
     resumed run sees the same order (numpy's generator, as in the JAX
     package, so both draw the same permutation)."""
 
-    def __init__(self, data_source_len: int, seed: int = 0, epoch: int = 0):
+    def __init__(self, data_source_len: int, seed: int = 0, epoch: int = 0, generator=None):
+        # generator: a torch.Generator of the reference's sampler, accepted
+        # as the JAX package accepts it; the order is drawn from the seed
         self.data_source_len = data_source_len
         self.seed = seed
         self.epoch = epoch
@@ -559,18 +612,27 @@ class _BaseAcceleratedLoader:
 class DataLoaderShard(_BaseAcceleratedLoader):
     """This process's loader over an inner iterable of host batches (a
     batcher, a torch ``DataLoader`` or any iterable), yielding them on
-    ``device``."""
+    ``device``. ``sharding``: the :class:`BatchSharding` the rows were
+    chosen by (kept for the caller; the inner iterable already holds this
+    process's rows). ``rng_types`` (and ``synchronized_generator``, a
+    ``torch.Generator``) are synchronized from the main process as each
+    epoch starts."""
 
     def __init__(self, inner: Iterable, device: Optional[torch.device] = None,
                  device_prefetch: bool = True, non_blocking: bool = True,
                  batch_sampler: Optional[BatchSamplerShard] = None,
                  total_dataset_length: Optional[int] = None,
-                 total_batch_size: Optional[int] = None, sampler=None):
+                 total_batch_size: Optional[int] = None, sampler=None,
+                 sharding: Optional[BatchSharding] = None,
+                 rng_types: Optional[Sequence[str]] = None, synchronized_generator=None):
         super().__init__(device, device_prefetch, non_blocking, total_dataset_length,
                          total_batch_size)
         self.inner = inner
         self.batch_sampler = batch_sampler
         self.sampler = sampler
+        self.sharding = sharding
+        self.rng_types = rng_types
+        self.synchronized_generator = synchronized_generator
         self._skip_batches = 0
 
     @property
@@ -593,6 +655,10 @@ class DataLoaderShard(_BaseAcceleratedLoader):
         if self.total_dataset_length is not None and self.total_batch_size:
             rem = self.total_dataset_length % self.total_batch_size
             self.remainder = rem if rem != 0 else -1
+        if self.rng_types:
+            from .utils.random import synchronize_rng_states
+
+            synchronize_rng_states(self.rng_types, self.synchronized_generator)
         # _skip_once is an absolute position (it counts the skipped
         # batches already); adding _skip_batches would skip them twice
         skip = self._skip_once or self._skip_batches
@@ -634,18 +700,30 @@ class DataLoaderShard(_BaseAcceleratedLoader):
 
 
 class DataLoaderDispatcher(_BaseAcceleratedLoader):
-    """The main process reads every batch and hands it to the others. With
-    one process it reads and yields; more processes wait for the
-    distributed slice (ROADMAP.md A7)."""
+    """The main process reads every global batch and broadcasts it; each
+    process keeps its block of rows (``num_shards`` blocks, this process's
+    the ``shard_index``-th: the rows the JAX package's global array puts on
+    it). A last batch whose rows do not divide is filled from its first
+    rows, as even batches are, and ``remainder`` counts the real ones.
+    With one process it reads and yields."""
 
     def __init__(self, inner: Iterable, device: Optional[torch.device] = None,
                  device_prefetch: bool = True, non_blocking: bool = True,
                  split_batches: bool = True, total_dataset_length: Optional[int] = None,
-                 total_batch_size: Optional[int] = None):
+                 total_batch_size: Optional[int] = None, sharding: Optional[BatchSharding] = None,
+                 num_shards: int = 1, shard_index: int = 0):
         super().__init__(device, device_prefetch, non_blocking, total_dataset_length,
                          total_batch_size)
         self.inner = inner
         self.split_batches = split_batches
+        self.sharding = sharding
+        self.num_shards = num_shards
+        self.shard_index = shard_index
+        if process_layout()[1] > 1:
+            # the broadcast is a collective: it runs on the training thread,
+            # in the order every rank issues its collectives, not on the
+            # prefetch thread
+            self.device_prefetch = False
 
     @property
     def dataset(self):
@@ -655,11 +733,41 @@ class DataLoaderDispatcher(_BaseAcceleratedLoader):
         return len(self.inner)
 
     def _fetch(self):
-        if process_layout()[1] > 1:
-            raise NotImplementedError(
-                "dispatch_batches across processes broadcasts each batch and waits for "
-                "the distributed slice (ROADMAP.md A7)")
-        yield from iter(self.inner)
+        if process_layout()[1] == 1:
+            yield from iter(self.inner)
+            return
+        from .ops.operations import broadcast_object_list
+
+        it = iter(self.inner) if PartialState().is_main_process else None
+        while True:
+            # [batch] from the main process, [None] when it ran out
+            box = [next(it, None) if it is not None else None]
+            batch = broadcast_object_list(box, from_process=0)[0]
+            if batch is None:
+                return
+            yield self._rows(batch)
+
+    def _rows(self, batch):
+        """This process's block of a global batch's rows."""
+        n = self.num_shards
+
+        def take(x):
+            if not hasattr(x, "shape") or not getattr(x, "shape", ()):
+                return x
+            rows = x.shape[0]
+            per = -(-rows // n)
+            if rows % n:
+                fill = np.arange(per * n) % rows
+                x = x[torch.from_numpy(fill)] if isinstance(x, torch.Tensor) else x[fill]
+            return x[self.shard_index * per:(self.shard_index + 1) * per]
+
+        if isinstance(batch, dict):
+            return type(batch)((k, self._rows(v) if isinstance(v, (dict, list, tuple)) else take(v))
+                               for k, v in batch.items())
+        if isinstance(batch, (list, tuple)):
+            return type(batch)(self._rows(v) if isinstance(v, (dict, list, tuple)) else take(v)
+                               for v in batch)
+        return take(batch)
 
     def __iter__(self):
         if self.total_dataset_length is not None and self.total_batch_size:
@@ -761,12 +869,19 @@ def prepare_data_loader(
     non_blocking: bool = True,
     use_seedable_sampler: bool = True,
     put_on_device: bool = True,
+    mesh=None,
+    rng_types: Optional[Sequence[str]] = None,
+    batch_axes: Sequence[str] = ("dp_replicate", "dp_shard"),
+    seq_axes: Sequence[str] = (),
 ):
     """A loader over ``dataloader`` (see the module docstring for what it
     takes) that yields batches on ``device`` (default: the state's device,
     the card unless the state was made with ``cpu=True``;
     ``put_on_device=False`` leaves them on the host). ``batch_size`` is
-    per process unless ``split_batches``."""
+    per process unless ``split_batches``. ``mesh`` (default: the
+    ``Accelerator``'s, if it built one) and ``batch_axes`` decide which rows
+    this process reads (:func:`data_shard_info`); ``rng_types`` are
+    synchronized from the main process at every epoch."""
     if isinstance(dataloader, (DataLoaderShard, DataLoaderDispatcher)):
         return dataloader
     if not put_on_device:
@@ -775,14 +890,24 @@ def prepare_data_loader(
         device = PartialState().device
     else:
         device = resolve_device(device)
-    num_shards, shard_index = process_layout()[::-1]
-    num_shards, shard_index = (num_shards, shard_index) if num_shards > 1 else (1, 0)
+    if mesh is None:
+        from .state import AcceleratorState
+
+        mesh = AcceleratorState._shared_state.get("device_mesh")
+    sharding = batch_sharding(mesh, batch_axes, seq_axes) if mesh is not None else None
+    if sharding is not None and process_layout()[1] > 1:
+        num_shards, shard_index, _ = data_shard_info(sharding)
+    else:
+        num_shards, shard_index = process_layout()[::-1]
+        num_shards, shard_index = (num_shards, shard_index) if num_shards > 1 else (1, 0)
     common = dict(device=device, device_prefetch=device_prefetch, non_blocking=non_blocking)
+    shard_kw = dict(sharding=sharding, rng_types=rng_types)
+    dispatch_kw = dict(sharding=sharding, num_shards=num_shards, shard_index=shard_index)
 
     if isinstance(dataloader, torch.utils.data.DataLoader):
         return _prepare_from_torch_loader(
             dataloader, num_shards, shard_index, split_batches, even_batches,
-            bool(dispatch_batches), use_seedable_sampler, seed, common)
+            bool(dispatch_batches), use_seedable_sampler, seed, common, shard_kw, dispatch_kw)
 
     dataset = dataloader
     if isinstance(dataset, dict) or (hasattr(dataset, "__getitem__") and hasattr(dataset, "__len__")):
@@ -795,7 +920,7 @@ def prepare_data_loader(
             inner = _ArrayBatcher(dataset, _SimpleBatchSampler(sampler, global_batch, drop_last),
                                   collate_fn)
             return DataLoaderDispatcher(inner, total_dataset_length=length,
-                                        total_batch_size=global_batch, **common)
+                                        total_batch_size=global_batch, **common, **dispatch_kw)
         base = _SimpleBatchSampler(sampler, global_batch // num_shards, drop_last)
         shard_sampler = (BatchSamplerShard(base, num_processes=num_shards, process_index=shard_index,
                                            even_batches=even_batches)
@@ -803,17 +928,18 @@ def prepare_data_loader(
         return DataLoaderShard(_ArrayBatcher(dataset, shard_sampler, collate_fn),
                                batch_sampler=shard_sampler,
                                sampler=sampler if shuffle else None, total_dataset_length=length,
-                               total_batch_size=global_batch, **common)
+                               total_batch_size=global_batch, **common, **shard_kw)
 
     if not isinstance(dataset, collections.abc.Iterable):
         raise TypeError(f"cannot prepare a loader over {type(dataset).__name__}: expected a dict "
                         "of arrays, a map-style dataset, a torch DataLoader or an iterable of batches")
     # an iterable of ready batches
-    return DataLoaderShard(dataset, **common)
+    return DataLoaderShard(dataset, **common, **shard_kw)
 
 
 def _prepare_from_torch_loader(loader, num_shards, shard_index, split_batches, even_batches,
-                               dispatch_batches, use_seedable_sampler, seed, common):
+                               dispatch_batches, use_seedable_sampler, seed, common, shard_kw,
+                               dispatch_kw):
     """Rebuild a torch ``DataLoader`` around a sharded batch sampler, with
     its dataset, workers, collate function and pinning."""
     import torch.utils.data as tud
@@ -831,7 +957,7 @@ def _prepare_from_torch_loader(loader, num_shards, shard_index, split_batches, e
                                      drop_last=loader.drop_last, num_processes=num_shards,
                                      process_index=shard_index, split_batches=split_batches)
         return DataLoaderShard(tud.DataLoader(shard, batch_size=loader.batch_size, **kept),
-                               **common)
+                               **common, **shard_kw)
 
     batch_sampler, sampler = loader.batch_sampler, None
     if (use_seedable_sampler and loader.batch_size is not None
@@ -842,14 +968,16 @@ def _prepare_from_torch_loader(loader, num_shards, shard_index, split_batches, e
         # the loader's own batches are the global batches handed out
         return DataLoaderDispatcher(tud.DataLoader(dataset, batch_sampler=batch_sampler, **kept),
                                     total_dataset_length=len(dataset),
-                                    total_batch_size=loader.batch_size or 1, **common)
+                                    total_batch_size=loader.batch_size or 1, **common,
+                                    **dispatch_kw)
     shard_sampler = BatchSamplerShard(batch_sampler, num_processes=num_shards,
                                       process_index=shard_index, split_batches=split_batches,
                                       even_batches=even_batches)
     total_bs = (loader.batch_size or 1) * (1 if split_batches else num_shards)
     return DataLoaderShard(tud.DataLoader(dataset, batch_sampler=shard_sampler, **kept),
                            batch_sampler=shard_sampler, sampler=sampler,
-                           total_dataset_length=len(dataset), total_batch_size=total_bs, **common)
+                           total_dataset_length=len(dataset), total_batch_size=total_bs, **common,
+                           **shard_kw)
 
 
 # ---------------------------------------------------------------------- skip

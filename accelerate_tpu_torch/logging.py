@@ -3,10 +3,8 @@
 :func:`get_logger` returns a :class:`MultiProcessAdapter`: a record is
 emitted on the main process only unless ``main_process_only=False``;
 ``in_order=True`` emits process by process with a barrier between them;
-with several processes each line is prefixed with the rank. The port runs
-one process (``PartialState`` refuses more until the distributed slice,
-ROADMAP.md A7), where every record is emitted once, unprefixed. The
-adapter reads the process layout without building ``PartialState``, so
+with several processes each line is prefixed with the rank; with one,
+every record is emitted once, unprefixed. The adapter reads the process layout without building ``PartialState``, so
 logging never picks a device. ``ACCELERATE_LOG_LEVEL`` sets the level and
 ``ACCELERATE_LOG_ON_ALL_PROCESSES=1`` turns ``main_process_only`` off.
 """

@@ -50,7 +50,11 @@ def prepare_model(model: nn.Module, policy: MixedPrecisionPolicy, device) -> nn.
 
 
 def unwrap_model(model: nn.Module) -> nn.Module:
-    """The module inside a :class:`MixedPrecisionModule`, else ``model``."""
-    while isinstance(model, MixedPrecisionModule):
+    """The module inside a :class:`MixedPrecisionModule` or a
+    ``DistributedDataParallel`` (either or both), else ``model``. An FSDP2
+    module is its own (``fully_shard`` wraps nothing)."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    while isinstance(model, (MixedPrecisionModule, DistributedDataParallel)):
         model = model.module
     return model

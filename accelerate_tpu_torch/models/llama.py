@@ -520,6 +520,42 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
+class _LlamaLayer(nn.Module):
+    """One layer's parameters: the leaves of the stacked ``layers`` subtree
+    at one index, each a parameter named by its path within the layer
+    joined with ``"__"`` (``attn__q_proj__kernel``)."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        self._paths = []
+        for path, tensor in _flatten(tree):
+            name = "__".join(path)
+            self.register_parameter(name, nn.Parameter(tensor, requires_grad=tensor.requires_grad))
+            self._paths.append((path, name))
+
+    def forward(self, run_layer, x):
+        """``run_layer(this layer's tree, x)``: called as a module, so FSDP2
+        gathers this layer's weights just before and frees them after."""
+        return run_layer(self.tree(detach=False), x)
+
+    def tree(self, detach: bool) -> dict:
+        out: dict = {}
+        for path, name in self._paths:
+            node = out
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            p = getattr(self, name)
+            node[path[-1]] = p.detach() if detach else p
+        return out
+
+
+def _stack_layers(trees: list) -> dict:
+    """Per-layer trees as one stacked ``(L, ...)`` tree."""
+    first = trees[0]
+    return {k: _stack_layers([t[k] for t in trees]) if isinstance(v, dict)
+            else torch.stack([t[k] for t in trees]) for k, v in first.items()}
+
+
 class LlamaForCausalLM(nn.Module):
     """A Llama parameter tree as trainable module parameters, one per leaf
     (named by its path joined with ``"__"``), stacked ``(L, ...)`` layer
@@ -531,7 +567,16 @@ class LlamaForCausalLM(nn.Module):
     :func:`~accelerate_tpu_torch.model.prepare_model` leaves it unwrapped.
     ``utils.quantization.quantize_model`` replaces projection parameters by
     quantized leaves (modules under the same names), which ``params`` and
-    ``forward`` pass on as they are."""
+    ``forward`` pass on as they are.
+
+    :meth:`unstack_layers` turns the layout into one module per layer
+    (``self.layers``, an ``nn.ModuleList`` of L modules holding that
+    layer's leaves), which FSDP2 shards as one unit each, so a forward
+    gathers one layer's weights at a time; the forward then takes the
+    per-layer trees where it would unbind the stacked leaves, with the same
+    values and the same arithmetic. ``checkpoint_keys`` and the checkpoint
+    format keep the stacked keys in either layout (``checkpoint_fqns``
+    says which module names hold each key)."""
 
     casts_per_use = True
 
@@ -539,11 +584,62 @@ class LlamaForCausalLM(nn.Module):
         super().__init__()
         _check_supported(config)
         self.config = config
+        self.layers = None
         self._paths = []
         for path, tensor in _flatten(params):
             name = "__".join(path)
             self.register_parameter(name, nn.Parameter(tensor.detach()))
             self._paths.append((path, name))
+
+    def _per_layer(self, path) -> bool:
+        return self.layers is not None and path[0] == "layers"
+
+    def unstack_layers(self) -> dict:
+        """Re-register every stacked ``(L, ...)`` layer leaf as L per-layer
+        parameters in ``self.layers`` (idempotent). Returns ``{stacked
+        parameter: [its L per-layer parameters]}``, so an optimizer built on
+        the stacked ones can be pointed at these."""
+        if self.layers is not None:
+            return {}
+        n = self.config.num_hidden_layers
+        trees: list = [{} for _ in range(n)]
+        stacked = {}
+        for path, name in self._paths:
+            if path[0] != "layers":
+                continue
+            p = getattr(self, name)
+            if not isinstance(p, nn.Parameter):
+                raise NotImplementedError(
+                    f"{'.'.join(path)} is quantized: a quantized model is not split into layers "
+                    "(FSDP2 trains float weights)")
+            stacked[name] = p
+            for i in range(n):
+                node = trees[i]
+                for key in path[1:-1]:
+                    node = node.setdefault(key, {})
+                node[path[-1]] = p.detach()[i].clone().requires_grad_(p.requires_grad)
+        self.layers = nn.ModuleList([_LlamaLayer(t) for t in trees])
+        leaf_of = {name: "__".join(path[1:]) for path, name in self._paths if path[0] == "layers"}
+        moved = {}
+        for name, p in stacked.items():
+            del self._parameters[name]
+            moved[p] = [getattr(layer, leaf_of[name]) for layer in self.layers]
+        return moved
+
+    def checkpoint_fqns(self) -> list:
+        """``(checkpoint key, module names, stacked)`` per leaf: one name,
+        or in the per-layer layout a layer leaf's L names
+        (``layers.<i>.<leaf>``), stacked on dim 0 to make the key's
+        tensor."""
+        out = []
+        for path, name in self._paths:
+            if self._per_layer(path):
+                leaf = "__".join(path[1:])
+                out.append((".".join(path), [f"layers.{i}.{leaf}"
+                                             for i in range(self.config.num_hidden_layers)], True))
+            else:
+                out.append((".".join(path), [name], False))
+        return out
 
     @classmethod
     def from_seed(cls, config: LlamaConfig, seed: int = 0, device="cuda") -> "LlamaForCausalLM":
@@ -564,15 +660,24 @@ class LlamaForCausalLM(nn.Module):
     def _tree(self, detach: bool) -> dict:
         tree: dict = {}
         for path, name in self._paths:
+            if self._per_layer(path):
+                continue
             node = tree
             for key in path[:-1]:
                 node = node.setdefault(key, {})
             p = getattr(self, name)
             node[path[-1]] = p.detach() if detach and isinstance(p, torch.Tensor) else p
+        if self.layers is not None:
+            # the forward calls each layer module (its FSDP2 unit); a
+            # detached tree restacks them (a copy)
+            tree["layers"] = (_stack_layers([layer.tree(True) for layer in self.layers]) if detach
+                              else self.layers)
         return tree
 
     @property
     def params(self) -> dict:
+        """The detached tree with stacked layer leaves (restacked, a copy,
+        in the per-layer layout)."""
         return self._tree(detach=True)
 
     def forward(self, input_ids: torch.Tensor, segment_ids=None, position_ids=None) -> torch.Tensor:
@@ -959,13 +1064,23 @@ def llama_apply(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
     context = _remat_context(config.remat_policy) if remat else None
     extra = {} if context is None else {"context_fn": context}
     x = _embed(config, params, input_ids)
-    for lp in _layer_trees(params["layers"], config.num_hidden_layers):
+
+    def run_layer(lp, x):
         if remat:
-            x = torch.utils.checkpoint.checkpoint(
+            return torch.utils.checkpoint.checkpoint(
                 _layer, config, lp, x, 0, False, segment_ids, position_ids,
                 use_reentrant=False, preserve_rng_state=False, **extra)
-        else:
-            x = _layer(config, lp, x, segment_ids=segment_ids, position_ids=position_ids)
+        return _layer(config, lp, x, segment_ids=segment_ids, position_ids=position_ids)
+
+    layers = params["layers"]
+    if isinstance(layers, nn.ModuleList):  # per-layer modules: each call is an FSDP2 unit's
+        for layer in layers:
+            x = layer(run_layer, x)
+    else:
+        if not isinstance(layers, (list, tuple)):  # stacked leaves: one unbind each
+            layers = _layer_trees(layers, config.num_hidden_layers)
+        for lp in layers:
+            x = run_layer(lp, x)
     if config.use_chunked_ce:
         x = rms_norm(x, params["final_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
         head = (params["embed_tokens"]["embedding"].T if config.tie_word_embeddings
@@ -1001,12 +1116,15 @@ def _dense_ce_from_logits(logits, labels, mask, reduction: str = "mean"):
     return total / mask.sum().clamp_min(1)
 
 
-def llama_ce_denominator(batch) -> torch.Tensor:
-    """The valid-token count :func:`llama_loss` divides by."""
+def llama_ce_denominator(batch, clamp: bool = True) -> torch.Tensor:
+    """The valid-token count :func:`llama_loss` divides by (at least 1;
+    ``clamp=False``: the count itself, which sums over data-parallel
+    ranks)."""
     labels = batch.get("labels")
     if labels is None:
         labels = batch["input_ids"][:, 1:]
-    return _mask_of(labels, batch.get("loss_mask")).sum().clamp_min(1)
+    count = _mask_of(labels, batch.get("loss_mask")).sum()
+    return count.clamp_min(1) if clamp else count
 
 
 def llama_loss(model, batch, ce_chunk_size: Optional[int] = None) -> torch.Tensor:
@@ -1029,7 +1147,8 @@ def llama_loss(model, batch, ce_chunk_size: Optional[int] = None) -> torch.Tenso
         if labels is None:
             labels = input_ids[:, 1:]
             hidden = hidden[:, :-1]
-        chunk = ce_chunk_size or getattr(model, "config", LlamaConfig).ce_chunk_size
+        inner = getattr(model, "module", model)  # a DDP wrapper's module holds the config
+        chunk = ce_chunk_size or getattr(inner, "config", LlamaConfig).ce_chunk_size
         return chunked_softmax_cross_entropy(
             hidden, out["head_kernel"].to(hidden.dtype), labels.clamp_min(0), chunk_size=chunk,
             loss_mask=_mask_of(labels, batch.get("loss_mask")), logit_softcap=out["logit_softcap"])
@@ -1038,6 +1157,11 @@ def llama_loss(model, batch, ce_chunk_size: Optional[int] = None) -> torch.Tenso
         labels = input_ids[:, 1:]
         logits = logits[:, :-1]
     return _dense_ce_from_logits(logits, labels, batch.get("loss_mask"))
+
+
+# the data-parallel step divides each rank's loss sum by the global count
+# (``Accelerator._data_parallel_loss``), as the JAX step sees the global batch
+llama_loss.ce_denominator = llama_ce_denominator
 
 
 def llama_flops_per_token(config: LlamaConfig, seq_len: int) -> float:

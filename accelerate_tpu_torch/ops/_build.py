@@ -48,6 +48,7 @@ __all__ = [
     "reset_launch_counts",
     "check",
     "entry",
+    "refuse_dtensor",
 ]
 
 # kernel name (its C entry point) -> source file under accelerate_tpu_torch/csrc
@@ -222,3 +223,14 @@ def check(name: str, code: int) -> None:
     never runs, and a later synchronize would not report it)."""
     if code != 0:
         raise RuntimeError(f"CUDA kernel {name!r} launch failed with cudaError_t {code}")
+
+
+def refuse_dtensor(what: str, *tensors) -> None:
+    """A kernel wrapper takes plain tensors. A ``DTensor`` (an FSDP2 shard
+    that was not gathered) raises here, on every device: the wrapper
+    neither launches on a shard nor falls back to the plain version."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{what}: got a DTensor; the kernel takes whole plain tensors (FSDP2 "
+                        "gathers a layer's weights before its forward)")

@@ -173,6 +173,7 @@ def flash_attention_bwd_reference(
 
 
 def _check_inputs(q, k, v, segment_ids, kv_segment_ids):
+    _build.refuse_dtensor("flash attention", q, k, v, segment_ids, kv_segment_ids)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, S, H, D)")
     if k.shape != v.shape or q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:

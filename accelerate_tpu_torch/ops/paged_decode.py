@@ -57,6 +57,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 def _check_pools(q, k_pool, v_pool, k_scale, v_scale, block_tables, pos):
     """Shape checks shared by decode and verify; returns (n_rep, int8)."""
+    _build.refuse_dtensor("paged attention", q, k_pool, v_pool, k_scale, v_scale, block_tables, pos)
     b, _, h, d = q.shape
     nb, bs, h_kv, d_pool = k_pool.shape
     if v_pool.shape != k_pool.shape or d_pool != d:
@@ -475,6 +476,7 @@ def fused_sample(
     off; top_p >= 1 is off; temperature <= 0 is greedy). ``noise`` is the
     per-row Gumbel noise, so the draw is ``argmax(filtered + noise)``,
     exactly a categorical sample. Returns (S,) int32 token ids."""
+    _build.refuse_dtensor("fused_sample", logits, noise, temperature, top_k, top_p)
     if logits.dim() != 2 or noise.shape != logits.shape:
         raise ValueError(f"logits and noise must be (S, V), got {tuple(logits.shape)} and {tuple(noise.shape)}")
     s, v = logits.shape

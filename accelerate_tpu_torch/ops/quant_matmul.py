@@ -105,6 +105,7 @@ def quantized_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
     default, or float32, which keeps the f32 sums times the scales unrounded
     (an LM head's f32 logits). A non-f32 x is rounded to bf16 before the
     products, as the TPU kernel computes."""
+    _build.refuse_dtensor("quantized_matmul", x, q, scales)
     lead, k, n = _shapes(x, q, scales)
     out_dtype = _out_dtype(x, out_dtype)
     if x.device.type == "cpu":

@@ -10,6 +10,11 @@ on non-finite gradients; ``zero_grad`` does nothing mid-accumulation;
 ``clip_grad_norm_`` scales by ``min(1, max_norm / (norm + 1e-6))`` over the
 f32 global norm.
 
+Under FSDP2 the gradients are ``DTensor`` shards: the norm is the
+global one (each rank's local squares summed over the sharded mesh dims),
+so every rank clips by the same factor, and the fp16 finite check is
+agreed by every process; the returned norm is a plain tensor.
+
 ``state_dict``/``load_state_dict`` round-trip the wrapped optimizer's
 state (torch AdamW's moments and step counters), the update count and
 the fp16 loss scale; a checkpoint (``checkpointing.py``) writes the
@@ -30,7 +35,8 @@ import torch
 
 from .state import GradientState
 
-__all__ = ["AcceleratedOptimizer", "DynamicScale", "clip_grads_by_norm", "global_grad_norm"]
+__all__ = ["AcceleratedOptimizer", "DynamicScale", "clip_grads_by_norm", "global_grad_norm",
+           "local_tensor"]
 
 
 class DynamicScale:
@@ -54,14 +60,25 @@ class DynamicScale:
     def unscale_(self, grads: List[torch.Tensor]) -> None:
         inv = 1.0 / self.state["scale"]
         for g in grads:
-            g.mul_(inv)
+            local_tensor(g).mul_(inv)
 
     @staticmethod
     def grads_finite(grads: List[torch.Tensor]) -> bool:
-        """One host readback for the whole gradient set."""
-        if not grads:
-            return True
-        return bool(torch.stack([torch.isfinite(g).all() for g in grads]).all().item())
+        """One host readback for the whole gradient set; with several
+        processes, every process's verdict together (one all-reduce)."""
+        from .state import PartialState, process_layout
+
+        local = [local_tensor(g) for g in grads]
+        if process_layout()[1] == 1:
+            return not local or bool(torch.stack([torch.isfinite(g).all() for g in local]).all().item())
+        import torch.distributed as dist
+
+        device = PartialState().device
+        flag = torch.ones((), dtype=torch.int32, device=device)
+        if local:
+            flag = torch.stack([torch.isfinite(g).all() for g in local]).all().to(device, torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+        return bool(flag.item())
 
     def state_dict(self) -> dict:
         return {"scale": float(self.state["scale"]), "good_steps": int(self.state["good_steps"])}
@@ -79,11 +96,51 @@ class DynamicScale:
             self.state = {"scale": scale, "good_steps": good + 1}
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def local_tensor(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a ``DTensor``, else ``t``."""
+    return t.to_local() if _is_dtensor(t) else t
+
+
+def _sharded_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """The global L2 norm of gradients some of which are ``DTensor``
+    shards: each shard's squares summed over the mesh dims it is sharded
+    on (a replicated dim holds copies), then the plain ones added."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    buckets: dict = {}
+    for g in grads:
+        if _is_dtensor(g):
+            dims = tuple(i for i, pl in enumerate(g.placements) if isinstance(pl, Shard))
+            key = (id(g.device_mesh), dims)
+            mesh = g.device_mesh
+            g = g.to_local()
+        else:
+            key, mesh, dims = None, None, ()
+        sq = torch.linalg.vector_norm(g, dtype=torch.float32).square()
+        entry = buckets.setdefault(key, [mesh, dims, torch.zeros_like(sq)])
+        entry[2] = entry[2] + sq
+    total = None
+    for mesh, dims, sq in buckets.values():
+        for d in dims:
+            dist.all_reduce(sq, group=mesh.get_group(d))
+        total = sq if total is None else total + sq
+    return total.sqrt()
+
+
 def global_grad_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     """The L2 norm over every gradient, on the device, summed in f32 (or
-    the gradients' wider dtype)."""
+    the gradients' wider dtype); over the whole of sharded ones."""
     if not grads:
         return torch.zeros(())
+    if any(_is_dtensor(g) for g in grads):
+        return _sharded_norm(grads)
     norms = [torch.linalg.vector_norm(g, dtype=torch.promote_types(g.dtype, torch.float32))
              for g in grads]
     dtype = functools.reduce(torch.promote_types, (n.dtype for n in norms))
@@ -96,7 +153,7 @@ def clip_grads_by_norm(grads: List[torch.Tensor], max_norm: float) -> torch.Tens
     norm = global_grad_norm(grads)
     factor = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     for g in grads:
-        g.mul_(factor.to(g.dtype))
+        local_tensor(g).mul_(factor.to(g.dtype))
     return norm
 
 
@@ -121,12 +178,30 @@ class AcceleratedOptimizer:
         self._step_count = 0
         self._unscaled = False
         self._last_grad_norm: Optional[torch.Tensor] = None
+        # parameters left whole under FSDP2: their gradients are averaged
+        # across the processes once an update, before any use
+        self.replicated: List[torch.Tensor] = []
+        self._replicated_synced = False
 
     def params(self) -> List[torch.Tensor]:
         return [p for group in self.optimizer.param_groups for p in group["params"]]
 
     def grads(self) -> List[torch.Tensor]:
+        self._sync_replicated()
         return [p.grad for p in self.params() if p.grad is not None]
+
+    def _sync_replicated(self) -> None:
+        """Average the replicated parameters' gradients across the
+        processes, once per update and only on the step that updates."""
+        if not self.replicated or self._replicated_synced or not self.gradient_state.sync_gradients:
+            return
+        import torch.distributed as dist
+
+        for p in self.replicated:
+            if p.grad is not None:
+                dist.all_reduce(p.grad)
+                p.grad.div_(dist.get_world_size())
+        self._replicated_synced = True
 
     def unscale_(self) -> None:
         """Divide the gradients by the loss scale, once per update."""
@@ -148,7 +223,7 @@ class AcceleratedOptimizer:
             return
         self.unscale_()
         for g in grads:
-            g.clamp_(-clip_value, clip_value)
+            local_tensor(g).clamp_(-clip_value, clip_value)
 
     def step(self, closure=None) -> None:
         if not self.gradient_state.sync_gradients or not self.grads():
@@ -163,9 +238,11 @@ class AcceleratedOptimizer:
                 self.step_was_skipped = True
                 self.optimizer.zero_grad(set_to_none=True)
                 self._unscaled = False
+                self._replicated_synced = False
                 return
         self.optimizer.step(closure)
         self._unscaled = False
+        self._replicated_synced = False
         self._last_grad_norm = None
         self.step_was_skipped = False
         self._step_count += 1
@@ -175,6 +252,7 @@ class AcceleratedOptimizer:
         if self.gradient_state.sync_gradients:
             self.optimizer.zero_grad(set_to_none=set_to_none)
             self._unscaled = False
+            self._replicated_synced = False
             self._last_grad_norm = None
 
     def state_dict(self) -> dict:

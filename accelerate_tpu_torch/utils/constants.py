@@ -22,3 +22,15 @@ CHECKPOINT_DIR_PREFIX = "checkpoint"
 CHECKPOINT_COMMITTED_MARKER = "COMMITTED"
 CHECKPOINT_STAGING_SUFFIX = ".tmp"
 CHECKPOINT_OLD_SUFFIX = ".old"
+
+# the mesh's axes in their canonical order, and the joint (flattened)
+# logical axes a batch is sharded and a loss averaged over (the JAX
+# package's names, so a ParallelismConfig reads the same in both)
+MESH_AXIS_ORDER = ("dp_replicate", "dp_shard", "pp", "cp", "sp", "tp", "ep")
+JOINT_AXES = {
+    "dp": ("dp_replicate", "dp_shard"),
+    "dp_shard_cp": ("dp_shard", "cp"),
+    "dp_cp": ("dp_replicate", "dp_shard", "cp"),
+    "batch": ("dp_replicate", "dp_shard", "cp", "sp"),
+    "fsdp": ("dp_shard", "cp"),
+}

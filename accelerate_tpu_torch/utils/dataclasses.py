@@ -5,17 +5,20 @@ Training: the kwargs handlers a single-device ``Accelerator`` reads
 (``GradientAccumulationPlugin``, ``GradScalerKwargs``,
 ``MixedPrecisionPolicy``, ``DataLoaderConfiguration``,
 ``ProjectConfiguration`` for checkpoint and log directories,
-``TrainingHealthConfig`` for the non-finite watchdog, and
-``DistributedDataParallelKwargs``, whose gradient-compression hooks wait
-for the distributed slice).
+``TrainingHealthConfig`` for the non-finite watchdog), and the
+data-parallel ones (``DistributedDataParallelKwargs`` with its
+gradient-compression hooks, ``FSDPPlugin``, and the
+``PipelineParallelConfig`` a ``ParallelismConfig`` reads).
 
 Serving: only ``mode="continuous"`` is ported: the slot engine over a KV
 backend (dense, paged or the int8 paged pool), with speculative decoding
 and chunked prefill, the continuous-mode knobs and their validation, plus
 the admission knobs the server reads (queue bound, default budget and
-deadline, drain timeout). Static mode, retry/circuit breaker, the
-degradation ladder and the host KV tier are still to be ported
-(ROADMAP.md).
+deadline, drain timeout). ``ServingConfig`` takes every field of the JAX
+one; the knobs of what is still to be ported (static mode's batching, the
+host KV tier, retries, the circuit breaker, the degradation ladder and
+periodic metrics) raise at a value other than their default, naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -29,10 +32,12 @@ import torch
 __all__ = [
     "DataLoaderConfiguration",
     "DistributedDataParallelKwargs",
+    "FSDPPlugin",
     "GradScalerKwargs",
     "GradientAccumulationPlugin",
     "KwargsHandler",
     "MixedPrecisionPolicy",
+    "PipelineParallelConfig",
     "ProjectConfiguration",
     "ServingConfig",
     "TrainingHealthConfig",
@@ -73,16 +78,95 @@ class GradientAccumulationPlugin(KwargsHandler):
 
 @dataclass
 class DistributedDataParallelKwargs(KwargsHandler):
-    """Gradient communication hooks: ``comm_hook`` ``"bf16"``/``"fp16"``
-    (reduce gradients in a compressed dtype) or ``"powersgd"`` (low-rank
-    compression). Both act on the cross-device reduction, so a single-device
-    ``train_step`` refuses them until the distributed slice (ROADMAP.md A7)."""
+    """Gradient communication of the data-parallel dims, with the JAX
+    package's fields. ``comm_hook="bf16"``/``"fp16"`` reduces gradients in
+    that dtype: under ``dp_replicate`` alone as DDP's compress hook
+    (``bf16_compress_hook``/``fp16_compress_hook``), under ``dp_shard`` as
+    FSDP2's ``MixedPrecisionPolicy(reduce_dtype=...)``. ``"powersgd"``
+    (low-rank compression, ``ops/powersgd.py`` in the JAX package) waits for
+    ROADMAP.md A11; ``comm_wrapper`` and ``powersgd_rank`` are accepted as
+    the JAX package accepts them (``comm_wrapper`` must stay ``"no"``).
+    Passing this handler to a one-process ``Accelerator`` under a
+    ``ParallelismConfig`` wraps the model in DDP even at world size 1."""
 
     comm_hook: str = "no"  # "no" | "bf16" | "fp16" | "powersgd"
+    comm_wrapper: str = "no"
+    powersgd_rank: int = 4
 
     def __post_init__(self):
         if self.comm_hook not in ("no", "bf16", "fp16", "powersgd"):
             raise ValueError(f"comm_hook must be no|bf16|fp16|powersgd, got {self.comm_hook}")
+        if self.comm_wrapper != "no":
+            raise ValueError("comm_wrapper variants wrap a low-rank reduction the port does not "
+                             f"have; got {self.comm_wrapper!r}")
+        if self.powersgd_rank < 1:
+            raise ValueError(f"powersgd_rank must be >= 1, got {self.powersgd_rank}")
+
+    @property
+    def gradient_dtype(self):
+        return {"bf16": torch.bfloat16, "fp16": torch.float16}.get(self.comm_hook)
+
+
+@dataclass
+class FSDPPlugin(KwargsHandler):
+    """FSDP2 knobs, with the JAX package's fields. ``dp_shard`` shards with
+    ``fully_shard``: a Llama per layer (each layer one unit, gathered just
+    before it runs), then the root (embedding, final norm, head); another
+    module per child whose parameters hold at least ``min_weight_size``
+    elements, then the root. ``reshard_after_forward`` frees a unit's
+    gathered weights after its forward (gathered again for the backward).
+    ``activation_checkpointing`` recomputes each layer in the backward (the
+    Llama's ``remat_policy`` already does). ``cpu_offload``,
+    ``state_dict_type="sharded"`` and ``sharding_rules`` (the JAX
+    package's per-parameter PartitionSpecs) have no FSDP2 counterpart in
+    the port: a checkpoint always holds full tensors, and a non-default
+    value raises. Passing the plugin to a one-process ``Accelerator`` under
+    a ``ParallelismConfig`` shards over a one-rank mesh."""
+
+    min_weight_size: int = 2**10
+    reshard_after_forward: bool = True
+    cpu_offload: bool = False
+    state_dict_type: str = "sharded"  # "sharded" | "full"
+    activation_checkpointing: bool = False
+    sharding_rules: Optional[list] = None
+
+    def __post_init__(self):
+        import os
+
+        if os.environ.get("FSDP_MIN_WEIGHT_SIZE"):
+            self.min_weight_size = int(os.environ["FSDP_MIN_WEIGHT_SIZE"])
+        if os.environ.get("FSDP_ACTIVATION_CHECKPOINTING"):
+            self.activation_checkpointing = os.environ["FSDP_ACTIVATION_CHECKPOINTING"].strip(
+            ).lower() in ("1", "true", "yes", "on")
+        if os.environ.get("FSDP_STATE_DICT_TYPE"):
+            self.state_dict_type = os.environ["FSDP_STATE_DICT_TYPE"].lower()
+        if self.state_dict_type not in ("sharded", "full"):
+            raise ValueError(f"state_dict_type must be sharded|full, got {self.state_dict_type!r}")
+        if self.cpu_offload:
+            raise NotImplementedError("FSDPPlugin(cpu_offload=True): FSDP2's CPU offload is not "
+                                      "ported (ROADMAP.md A11)")
+        if self.sharding_rules:
+            raise NotImplementedError(
+                "FSDPPlugin(sharding_rules=...): per-parameter PartitionSpecs come with tensor "
+                "parallelism (ROADMAP.md A7); FSDP2 shards every parameter on dim 0")
+
+
+@dataclass
+class PipelineParallelConfig(KwargsHandler):
+    """The JAX package's pipeline knobs, which ``ParallelismConfig.from_env``
+    reads; pipeline parallelism itself waits for ROADMAP.md A11."""
+
+    num_microbatches: int = 4
+    schedule: str = "1f1b"
+    num_virtual_stages: int = 1
+
+    def __post_init__(self):
+        if self.schedule not in ("gpipe", "1f1b"):
+            raise ValueError(f"Unknown pipeline schedule {self.schedule}")
+        if self.num_virtual_stages < 1:
+            raise ValueError("num_virtual_stages must be >= 1")
+        if self.num_virtual_stages > 1 and self.schedule != "1f1b":
+            raise ValueError("num_virtual_stages > 1 requires the 1f1b schedule")
 
 
 @dataclass
@@ -210,6 +294,20 @@ class TrainingHealthConfig(KwargsHandler):
             raise ValueError("readback_depth must be a positive integer")
 
 
+# the ServingConfig fields of what is not ported yet, by ROADMAP.md item:
+# static mode's batching (A8), the host KV tier (A3), and retries, the
+# circuit breaker, the degradation ladder and periodic metrics (A10)
+QUEUED_SERVING_FIELDS = {
+    **dict.fromkeys(("max_batch_size", "batch_window_s", "batch_bucket", "pad_total_multiple"),
+                    "A8"),
+    **dict.fromkeys(("kv_host_tier_bytes", "kv_prefetch"), "A3"),
+    **dict.fromkeys(("max_retries", "retry_backoff_s", "retry_backoff_max_s", "retry_jitter",
+                     "breaker_threshold", "breaker_reset_s", "degrade_queue_fraction",
+                     "degrade_hard_fraction", "degraded_max_new_tokens", "metrics_interval_s"),
+                    "A10"),
+}
+
+
 @dataclass
 class ServingConfig:
     """Knobs of :class:`accelerate_tpu_torch.serving.InferenceServer`.
@@ -236,6 +334,11 @@ class ServingConfig:
     * ``engine_prefill_chunk``: prompts longer than
       ``engine_prompt_bucket`` are admitted and prefilled in chunks of this
       many positions, one chunk per scheduler tick between decode steps.
+    * The JAX package's other fields are accepted at their default and
+      raise otherwise (``QUEUED_SERVING_FIELDS`` names each one's item).
+      ``mode`` keeps the default ``"continuous"``: the JAX default
+      ``"static"`` waits for ROADMAP.md A8, and a default the port cannot
+      run would only raise.
     """
 
     mode: str = "continuous"
@@ -250,16 +353,38 @@ class ServingConfig:
     speculative: Optional[str] = None
     spec_draft_len: int = 4
     engine_prefill_chunk: Optional[int] = None
+    kv_host_tier_bytes: int = 0
+    kv_prefetch: bool = True
     max_queue: int = 256
+    max_batch_size: int = 8
+    batch_window_s: float = 0.002
+    batch_bucket: bool = True
+    pad_total_multiple: int = 64
     default_max_new_tokens: int = 32
     default_deadline_s: Optional[float] = None
+    max_retries: int = 2
+    retry_backoff_s: float = 0.05
+    retry_backoff_max_s: float = 2.0
+    retry_jitter: float = 0.25
+    breaker_threshold: int = 5
+    breaker_reset_s: float = 5.0
+    degrade_queue_fraction: float = 0.5
+    degrade_hard_fraction: float = 0.8
+    degraded_max_new_tokens: int = 16
     drain_timeout_s: float = 30.0
+    metrics_interval_s: Optional[float] = None
 
     def __post_init__(self):
+        for name, item in QUEUED_SERVING_FIELDS.items():
+            default = type(self).__dataclass_fields__[name].default
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"ServingConfig({name}={getattr(self, name)!r}): not ported yet "
+                    f"(ROADMAP.md {item}); leave it at {default!r}")
         if self.mode != "continuous":
             raise NotImplementedError(
                 f"mode={self.mode!r}: only mode='continuous' is ported; the "
-                "static generate() mode is queued in ROADMAP.md"
+                "static generate() mode waits for ROADMAP.md A8"
             )
         if self.engine_slots < 1:
             raise ValueError(f"engine_slots must be >= 1, got {self.engine_slots}")

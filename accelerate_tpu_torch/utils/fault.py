@@ -38,6 +38,8 @@ __all__ = [
     "CheckpointUncommittedError",
     "CheckpointCorruptError",
     "CheckpointComponentMissingError",
+    "CheckpointTopologyError",
+    "BarrierTimeoutError",
     "TrainingHealthError",
     "ComponentClosedError",
     "FaultInjected",
@@ -97,6 +99,18 @@ class CheckpointCorruptError(CheckpointError):
 class CheckpointComponentMissingError(CheckpointError):
     """A component the live training state needs (a prepared model) has no
     counterpart in the checkpoint directory."""
+
+
+class CheckpointTopologyError(CheckpointError):
+    """The checkpoint's commit manifest records another world size than
+    the live one and the load was not asked for with ``elastic=True``;
+    raised before any tensor is read, naming both."""
+
+
+class BarrierTimeoutError(RuntimeError):
+    """``PartialState.wait_for_everyone`` gave up waiting at a barrier (a
+    ``timeout`` or ``ACCELERATE_BARRIER_TIMEOUT``): a peer process is dead
+    or stuck. Names the barrier's tag."""
 
 
 class TrainingHealthError(RuntimeError):

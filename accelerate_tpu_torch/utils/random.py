@@ -1,12 +1,10 @@
 """Seeding and RNG synchronization (counterpart of
 ``accelerate_tpu/utils/random.py``).
 
-One process holds the whole run (``PartialState`` refuses a launch of
-several), so there is nothing to synchronize: :func:`synchronize_rng_state`
-and :func:`synchronize_rng_states` are no-ops, as the JAX package's are on
-one process, and the process index ``device_specific`` adds is 0.
-Broadcasting the main process's states waits for the distributed slice
-(ROADMAP.md A7).
+:func:`synchronize_rng_state` broadcasts the main process's Python, NumPy
+and torch CPU generator states (and a given ``torch.Generator``'s) to every
+process, as the JAX package's does; with one process it does nothing.
+``set_seed(device_specific=True)`` adds the process index.
 
 :func:`_collect_rng_state` and :func:`_restore_rng_state` are what a
 checkpoint saves per process (``random_states_{rank}.pkl``): Python's,
@@ -48,7 +46,10 @@ def set_seed(seed: int, device_specific: bool = False, deterministic: bool = Fal
     CPU generator and every CUDA device's default generator).
     ``device_specific=True`` adds the process index (0 on one process);
     ``deterministic=True`` asks torch for deterministic algorithms."""
-    # device_specific: seed + the process index, which is 0 on one process
+    if device_specific:
+        from ..state import process_layout
+
+        seed += process_layout()[0]
     random.seed(seed)
     np.random.seed(seed % (2**32))
     torch.manual_seed(seed)  # seeds the CUDA generators too, lazily without a card
@@ -57,8 +58,26 @@ def set_seed(seed: int, device_specific: bool = False, deterministic: bool = Fal
 
 
 def synchronize_rng_state(generator: Optional[torch.Generator] = None) -> None:
-    """Broadcast the main process's RNG states to the other processes: a
-    no-op on one process."""
+    """Broadcast the main process's RNG states (Python, NumPy, torch CPU,
+    and ``generator``'s) to the other processes: a no-op on one process."""
+    from ..state import PartialState, process_layout
+
+    if process_layout()[1] <= 1:
+        return
+    from ..ops.operations import broadcast_object_list
+
+    payload = None
+    if PartialState().is_main_process:
+        payload = {"python": random.getstate(), "numpy": np.random.get_state(),
+                   "torch": torch.get_rng_state()}
+        if generator is not None:
+            payload["generator"] = generator.get_state()
+    payload = broadcast_object_list([payload], from_process=0)[0]
+    random.setstate(payload["python"])
+    np.random.set_state(payload["numpy"])
+    torch.set_rng_state(payload["torch"])
+    if generator is not None and "generator" in payload:
+        generator.set_state(payload["generator"])
 
 
 def synchronize_rng_states(rng_types: Iterable[str] = ("python", "numpy"),

@@ -6,7 +6,8 @@ width and depth, plain and with speculative decoding, chunked prefill and
 the int8 KV pool; the same model quantized to int8 weights, and a
 checkpoint written, loaded into an empty model and quantized; Llama-3-8B
 training steps through the ``Accelerator`` at full width and 4 layers;
-and a fine-tune at full width that is interrupted and resumes bitwise.
+a fine-tune at full width that is interrupted and resumes bitwise; and
+the same training step under DDP and FSDP2 over NCCL at world size 1.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -106,6 +107,18 @@ Phases (any failure exits non-zero and prints no result):
      save taken while training went on. Save, load and checksum GB/s, the
      step with the loader against a resident batch, the packer, the health
      check and the tracker's host cost; B1-B3 launches counted
+ 10. (run after 9) data-parallel training at world size 1 over NCCL (an
+     in-process group on cuda:0): phase 6's model, seed, batch and step
+     through Accelerator(parallelism_config=...).train_step, (a) DDP
+     (dp_replicate_size=1, forced by a DistributedDataParallelKwargs) and
+     (b) FSDP2 (dp_shard_size=1 with an FSDPPlugin: one fully_shard unit
+     per layer, then the root); 2 untimed and 8 timed steps each with the
+     launch counters reset just before (2L B1, L B2, L B3 a step); the
+     first loss bitwise equal to phase 6's and all ten within 1e-2 of
+     them; step ms, tokens/s, MFU, peak memory, busy share beside phase
+     6's; a DTensor given to the flash wrapper must raise; then save_state
+     under FSDP2 at phase 9's depth rule and load_state into a fresh FSDP2
+     model, every parameter and moment bitwise
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Long output goes to chiprun_out/.
 """
@@ -2478,11 +2491,11 @@ def busy_us(events):
     return total
 
 
-def profile_train_step(step_fn, batch, step_ms, card):
+def profile_train_step(step_fn, batch, step_ms, card, label="phase 6", name="train"):
     """Device time of one training step by kernel group, from a
     torch.profiler trace of that step; the busy share is the union of the
     kernels' intervals over the profiled step's own wall time. The table
-    goes to chiprun_out/profile_train.txt, the trace to trace_train.json."""
+    goes to chiprun_out/profile_<name>.txt, the trace to trace_<name>.json."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2492,11 +2505,11 @@ def profile_train_step(step_fn, batch, step_ms, card):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     Path("chiprun_out").mkdir(exist_ok=True)
-    Path("chiprun_out/profile_train.txt").write_text(
+    Path(f"chiprun_out/profile_{name}.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total", row_limit=50))
-    events = device_events(prof)
+    events = device_events(prof, path=f"chiprun_out/trace_{name}.json")
     if not events:
-        log("phase 6 profile: the profiler recorded no device time (not measured)")
+        log(f"{label} profile: the profiler recorded no device time (not measured)")
         return None
     groups = dict.fromkeys([g for g, _ in TRAIN_GROUPS] + ["elementwise"], 0.0)
     for name, _, dur in events:
@@ -2504,11 +2517,229 @@ def profile_train_step(step_fn, batch, step_ms, card):
         group = next((g for g, keys in TRAIN_GROUPS if any(k in lower for k in keys)), "elementwise")
         groups[group] += dur / 1e3
     busy_ms = busy_us(events) / 1e3
-    log(f"phase 6 train-step profile: kernels busy {busy_ms:.1f} ms of the profiled step's "
+    log(f"{label} train-step profile: kernels busy {busy_ms:.1f} ms of the profiled step's "
         f"{wall_ms:.1f} ms (busy share {busy_ms / wall_ms:.3f}; unprofiled step {step_ms:.1f} ms); "
         f"by group ms " + ", ".join(f"{g}={v:.1f}" for g, v in groups.items()) + f" [{card}]")
     return dict(busy_ms=busy_ms, profiled_wall_ms=wall_ms, busy_share=busy_ms / wall_ms,
                 groups_ms=groups, kernels=len(events))
+
+
+# ---------------------------------------------------------------- phase 10
+# data-parallel training at world size 1 over NCCL: phase 6's model, seed,
+# batch, bf16 compute, f32 logits, AdamW and max_grad_norm=1.0 through
+# Accelerator(parallelism_config=...): (a) DDP (dp_replicate_size=1, forced
+# by a DistributedDataParallelKwargs), (b) FSDP2 (dp_shard_size=1 with an
+# FSDPPlugin: one fully_shard unit per layer, then the root). At world
+# size 1 the collectives move nothing between cards; the path, its hooks
+# and its copies run as on several. Then a save and a load under FSDP2 at
+# phase 9's depth rule, the load bitwise.
+DP_LAYOUTS = ("ddp", "fsdp")
+
+
+def dp_accelerator(layout):
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+    from accelerate_tpu_torch.utils.dataclasses import DistributedDataParallelKwargs, FSDPPlugin
+
+    AcceleratorState._reset_state(reset_partial_state=True)
+    GradientState._reset_state()
+    if layout == "ddp":
+        acc = Accelerator(mixed_precision="bf16", parallelism_config=ParallelismConfig(dp_replicate_size=1),
+                          kwargs_handlers=[DistributedDataParallelKwargs()])
+    else:
+        acc = Accelerator(mixed_precision="bf16", parallelism_config=ParallelismConfig(dp_shard_size=1),
+                          fsdp_plugin=FSDPPlugin())
+    if acc.layout != layout:
+        raise AssertionError(f"phase 10: asked for {layout}, the Accelerator chose {acc.layout}")
+    return acc
+
+
+def dp_model(acc, layers, seed):
+    from accelerate_tpu_torch.models.llama import LlamaConfig, create_llama
+
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=layers, attention_impl="flash")
+    model = create_llama(cfg, seed=seed, device=acc.device)
+    optimizer = torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=0.01)
+    model, optimizer = acc.prepare(model, optimizer)
+    return cfg, model, optimizer
+
+
+def dp_run(layout, card, phase6):
+    """One layout: 2 untimed and 8 timed steps, launches counted over the
+    timed ones, losses against phase 6's; returns (launches, numbers,
+    (acc, model, optimizer))."""
+    from torch.distributed.tensor import DTensor
+
+    from accelerate_tpu_torch.models.llama import llama_flops_per_token, llama_loss
+    from accelerate_tpu_torch.ops import _build
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    acc = dp_accelerator(layout)
+    t0 = time.perf_counter()
+    cfg, model, optimizer = dp_model(acc, TRAIN_LAYERS, seed=0)
+    params = list(model.parameters())
+    sharded = sum(isinstance(p, DTensor) for p in params)
+    if (layout == "fsdp") != (sharded == len(params)) or (layout == "ddp" and sharded):
+        raise AssertionError(f"phase 10 {layout}: {sharded} of {len(params)} parameters are DTensors")
+    step_fn = acc.train_step(llama_loss, max_grad_norm=1.0)
+    rng = np.random.default_rng(0)
+    data = {"input_ids": rng.integers(0, cfg.vocab_size, size=(4 * TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)}
+    loader = acc.prepare_data_loader(data, batch_size=TRAIN_BATCH, drop_last=True)
+    batch = next(iter(loader))  # phase 6's batch
+    torch.cuda.synchronize()
+    log(f"phase 10 ({layout}): {type(model).__name__} over mesh {acc.mesh}, {len(params)} parameters "
+        f"({sharded} DTensors), init {time.perf_counter() - t0:.1f}s")
+    losses = [step_fn(batch) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses += [step_fn(batch) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [l.item() for l in losses]
+    expected = {"flash_fwd_mma": 2 * TRAIN_LAYERS * TRAIN_STEPS,
+                "flash_bwd_dq_mma": TRAIN_LAYERS * TRAIN_STEPS,
+                "flash_bwd_dkv_mma": TRAIN_LAYERS * TRAIN_STEPS}
+    check_launches(f"phase 10 {layout} ({TRAIN_STEPS} steps)", launches, expected)
+    ref = phase6["losses"]
+    first_bitwise = losses[0] == ref[0]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    log(f"phase 10 {layout} losses {[round(l, 4) for l in losses]}; phase 6 {[round(l, 4) for l in ref]}; "
+        f"first step bitwise equal to phase 6's: {first_bitwise}; largest relative difference over the "
+        f"10 steps {worst:.3e} (limit {TRAIN_VARIANT_LOSS_RTOL})")
+    if not first_bitwise:
+        raise AssertionError(f"phase 10 {layout}: the first step's loss {losses[0]!r} differs from "
+                             f"phase 6's {ref[0]!r}, though its arithmetic is the same")
+    if not worst <= TRAIN_VARIANT_LOSS_RTOL:
+        raise AssertionError(f"phase 10 {layout}: losses {worst:.3e} from phase 6's")
+    step_ms = wall / TRAIN_STEPS * 1e3
+    tokens_per_s = TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ / wall
+    mfu = tokens_per_s * llama_flops_per_token(cfg, TRAIN_SEQ) / PEAK_FLOPS[torch.bfloat16]
+    profile = profile_train_step(step_fn, batch, step_ms, card, label=f"phase 10 {layout}",
+                                 name=f"train_{layout}")
+    busy = profile["busy_share"] if profile else None
+    log(f"phase 10 {layout} train step {step_ms:.1f} ms, {tokens_per_s:.0f} tokens/s, MFU {mfu:.4f}, "
+        f"peak memory {peak / 1e9:.2f} GB, busy share {busy if busy is None else round(busy, 3)}, "
+        f"launches {dict((k, launches[k]) for k in expected)}; phase 6 in this call: "
+        f"{phase6['step_ms']:.1f} ms, {phase6['tokens_per_s']:.0f} tokens/s, MFU {phase6['mfu']:.4f}, "
+        f"peak {phase6['peak_memory_bytes'] / 1e9:.2f} GB, busy share "
+        f"{(phase6.get('profile') or {}).get('busy_share')} [{card}]")
+    if peak > PEAK_MEMORY_LIMIT:
+        raise AssertionError(f"phase 10 {layout}: peak memory {peak / 1e9:.1f} GB")
+    del loader, step_fn
+    return {k: launches[k] for k in expected}, dict(
+        losses=losses, first_loss_bitwise=first_bitwise, worst_loss_rel=worst, step_ms=step_ms,
+        tokens_per_s=tokens_per_s, mfu=mfu, peak_memory_bytes=peak, profile=profile), (acc, model, optimizer)
+
+
+def local_tensors(model, optimizer):
+    """Every parameter's and AdamW state tensor's local shard (at world
+    size 1 the whole tensor), in order."""
+    from accelerate_tpu_torch.optimizer import local_tensor
+
+    out = [local_tensor(p.detach()) for p in model.parameters()]
+    for p in optimizer.params():
+        for key in sorted(optimizer.optimizer.state[p]):
+            out.append(local_tensor(optimizer.optimizer.state[p][key]))
+    return out
+
+
+def dp_checkpoint(card, trained):
+    """Save the FSDP2 run's state, load it into a fresh FSDP2 model and
+    optimizer, and compare every parameter and moment bitwise."""
+    import shutil
+    import tempfile
+
+    tmp_root = tempfile.gettempdir()
+    free_disk = shutil.disk_usage(tmp_root).free
+    free_ram = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    layers, sizes = resume_depth(free_disk, free_ram)
+    acc, model, optimizer = trained
+    if layers != TRAIN_LAYERS:  # a shallower model of its own, one step taken
+        from accelerate_tpu_torch.models.llama import llama_loss
+
+        del acc, model, optimizer, trained
+        gc.collect()
+        torch.cuda.empty_cache()
+        acc = dp_accelerator("fsdp")
+        cfg, model, optimizer = dp_model(acc, layers, seed=0)
+        ids = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ), device=acc.device)
+        acc.train_step(llama_loss, max_grad_norm=1.0)({"input_ids": ids})
+    nbytes = sizes[layers][1]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fsdp_", dir=tmp_root) as tmp:
+        path = os.path.join(tmp, "ckpt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc.save_state(path)
+        save_s = time.perf_counter() - t0
+        acc2 = dp_accelerator("fsdp")
+        _, model2, optimizer2 = dp_model(acc2, layers, seed=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc2.load_state(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        a, b = local_tensors(model, optimizer), local_tensors(model2, optimizer2)
+        same = len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+    log(f"phase 10 FSDP2 checkpoint at world size 1, {layers} layers ({nbytes / 1e9:.2f} GB: f32 weights "
+        f"and both AdamW moments, gathered whole with get_model_state_dict/get_optimizer_state_dict): "
+        f"save_state {save_s:.2f}s ({nbytes / save_s / 1e9:.3f} GB/s), load_state into a fresh FSDP2 "
+        f"model {load_s:.2f}s ({nbytes / load_s / 1e9:.3f} GB/s); {len(a)} parameter and moment "
+        f"tensors bitwise equal: {same} [{card}]")
+    if not same:
+        raise AssertionError("phase 10: the FSDP2 checkpoint did not load bitwise")
+    return dict(layers=layers, bytes=nbytes, save_s=save_s, load_s=load_s, bitwise=same)
+
+
+def phase_data_parallel(card, phase6):
+    """Phase 10: DDP and FSDP2 at world size 1 over NCCL (an in-process
+    group on cuda:0), then the FSDP2 checkpoint; ends the group."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+
+    from accelerate_tpu_torch.ops.flash_attention import flash_attention
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_rdzv_")
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    launches, out = {}, {}
+    try:
+        for layout in DP_LAYOUTS:
+            launches[layout], out[layout], trained = dp_run(layout, card, phase6)
+            if layout != "fsdp":
+                del trained
+        # a wrapper that meets a DTensor raises; it neither launches nor
+        # falls back to the plain version
+        acc = trained[0]
+        q = torch.zeros((1, 128, 4, 128), dtype=torch.bfloat16, device=acc.device)
+        dq = distribute_tensor(q, acc.mesh, [Replicate()])
+        assert isinstance(dq, DTensor)
+        try:
+            flash_attention(dq, dq, dq)
+        except TypeError as e:
+            log(f"phase 10: a DTensor given to the flash wrapper raised TypeError ({e})")
+        else:
+            raise AssertionError("phase 10: the flash wrapper took a DTensor")
+        out["checkpoint"] = dp_checkpoint(card, trained)
+        del trained, acc
+    finally:
+        AcceleratorState._reset_state(reset_partial_state=True)
+        GradientState._reset_state()
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return launches, out
 
 
 # ----------------------------------------------------------------- phase 9
@@ -3236,6 +3467,8 @@ def run_phases(args) -> int:
         by_path["training_f32"], summary["train_parity"] = phase_train_parity(dev, card)
         by_path["training"], summary["train_main_path"] = phase_train_main_path(dev, card)
         by_path["training_resume"], summary["resume"] = phase_resume(card, summary["train_main_path"])
+        dp_launches, summary["data_parallel"] = phase_data_parallel(card, summary["train_main_path"])
+        by_path["training_ddp"], by_path["training_fsdp2"] = dp_launches["ddp"], dp_launches["fsdp"]
         for counts in by_path.values():
             for name, n in counts.items():
                 launches[name] += n

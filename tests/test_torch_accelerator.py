@@ -4,7 +4,8 @@
 the end of the data loader (the JAX package's ``tests/test_accelerator.py``
 pins the same patterns), gradient clipping, fp16 loss scaling skipping a
 step on non-finite gradients, the mixed-precision wrapper, the data loader,
-the refusals of what waits for the distributed slice, and the multi-step
+the refusals of what still waits (tensor parallelism, PowerSGD, replicas),
+the C4 arguments the JAX package takes, and the multi-step
 ``train_step``, schedulers and data path that took the place of earlier
 refusals.
 
@@ -26,6 +27,8 @@ from accelerate_tpu_torch.accelerator import Accelerator
 from accelerate_tpu_torch.data_loader import SeedableRandomSampler, prepare_data_loader
 from accelerate_tpu_torch.model import MixedPrecisionModule, unwrap_model
 from accelerate_tpu_torch.optimizer import DynamicScale
+from accelerate_tpu_torch.parallel.sharding import data_parallel_layout
+from accelerate_tpu_torch.parallelism_config import ParallelismConfig
 from accelerate_tpu_torch.scheduler import AcceleratedScheduler
 from accelerate_tpu_torch.state import AcceleratorState, GradientState
 from accelerate_tpu_torch.utils.dataclasses import (
@@ -252,9 +255,14 @@ def test_data_loader_shuffles_like_the_jax_sampler_and_flags_the_end():
 
 
 def test_what_waits_for_the_distributed_slice_raises():
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        Accelerator(cpu=True, parallelism_config=object())
-    for hook, match in (("powersgd", "PowerSGD"), ("bf16", "gradient-compression")):
+    # the data-parallel dims landed (tests/test_torch_distributed_train.py);
+    # tensor parallelism waits for A7, cp/sp/pp/ep for A11
+    for axis, item in (("tp", "A7"), ("cp", "A11"), ("sp", "A11"), ("pp", "A11"), ("ep", "A11")):
+        cfg = ParallelismConfig(**{f"{axis}_size": 2})
+        cfg._infer_and_validate(2)
+        with pytest.raises(NotImplementedError, match=rf"ROADMAP.md {item}\b"):
+            data_parallel_layout(cfg)
+    for hook, match in (("powersgd", r"PowerSGD.*ROADMAP.md A11"), ("bf16", "gradient-compression")):
         AcceleratorState._reset_state(reset_partial_state=True)
         acc = Accelerator(cpu=True, kwargs_handlers=[DistributedDataParallelKwargs(comm_hook=hook)])
         model = Regression()
@@ -267,11 +275,11 @@ def test_what_waits_for_the_distributed_slice_raises():
     # the data path (A5) landed: a torch DataLoader is unwrapped, not refused
     prepared = acc.prepare_data_loader(torch.utils.data.DataLoader(range(8), batch_size=4))
     assert [b.tolist() for b in prepared] == [[0, 1, 2, 3], [4, 5, 6, 7]]
-    # what stays with the distributed slice: replicas and elastic resume
-    with pytest.raises(NotImplementedError, match="distributed slice"):
+    # what stays with A7: replicas; elastic resume landed (a missing
+    # directory is a first launch)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
         Accelerator(cpu=True, replication_config=object())
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        acc.resume_from_latest("/nonexistent", elastic=True)
+    assert acc.resume_from_latest("/nonexistent", elastic=True) is False
     # a scheduler is one device's business: prepared, not refused
     assert isinstance(acc.prepare(torch.optim.lr_scheduler.StepLR(
         torch.optim.SGD(model.parameters(), lr=LR), 1)), AcceleratedScheduler)
@@ -304,6 +312,218 @@ def test_refusals_name_their_queue_items():
     acc.train_step(regression_loss)({k: torch.from_numpy(v[:2]) for k, v in data.items()})
     sched.step()
     assert sched.step_count == 1 and sched.get_last_lr() == [LR * 0.5]
+    # A7's data-parallel half landed; what stays names A7 (tensor
+    # parallelism, replicas, the launch supervisor) or A11
+    from accelerate_tpu_torch.commands import launch
+    from accelerate_tpu_torch.parallelism_config import refuse_queued_dims
+    from accelerate_tpu_torch.utils.dataclasses import FSDPPlugin, ServingConfig
+
+    for axis, item in (("tp", "A7"), ("cp", "A11"), ("sp", "A11"), ("pp", "A11"), ("ep", "A11")):
+        with pytest.raises(NotImplementedError, match=rf"ROADMAP.md {item}\b"):
+            refuse_queued_dims({axis: 2})
+    for argv in (["--max_restarts", "1"], ["--watchdog_timeout", "5"], ["--handle_preemption"],
+                 ["--replicate_to", "/r"]):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP.md A7\b"):
+            launch.main([*argv, "--dry_run", "script.py"])
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md A7\b"):
+        Accelerator(cpu=True, replication_config=object())
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md A7\b"):
+        FSDPPlugin(sharding_rules=[(".*", None)])
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md A11\b"):
+        FSDPPlugin(cpu_offload=True)
+    AcceleratorState._reset_state(reset_partial_state=True)
+    acc = Accelerator(cpu=True, kwargs_handlers=[DistributedDataParallelKwargs(comm_hook="powersgd")])
+    model = Regression()
+    acc.prepare(model, torch.optim.SGD(model.parameters(), lr=LR))
+    with pytest.raises(NotImplementedError, match=r"PowerSGD.*ROADMAP.md A11\b"):
+        acc.train_step(regression_loss)
+    # C5: ServingConfig takes every JAX field; what is not ported refuses a
+    # value other than its default, naming its item
+    for name, item in QUEUED_SERVING.items():
+        field = dataclasses.fields(ServingConfig)[[f.name for f in dataclasses.fields(
+            ServingConfig)].index(name)]
+        ServingConfig(**{name: field.default})
+        with pytest.raises(NotImplementedError, match=rf"{name}.*ROADMAP.md {item}\b"):
+            ServingConfig(**{name: _other(field.default)})
+    with pytest.raises(NotImplementedError, match=r"static.*ROADMAP.md A8\b"):
+        ServingConfig(mode="static")
+    AcceleratorState._reset_state(reset_partial_state=True)
+    with pytest.raises(NotImplementedError, match=r"fp8.*ROADMAP.md A4\b"):
+        Accelerator(cpu=True, mixed_precision="fp8")
+
+
+# C5's fields by the item that owns them
+QUEUED_SERVING = {
+    **dict.fromkeys(("max_batch_size", "batch_window_s", "batch_bucket", "pad_total_multiple"), "A8"),
+    **dict.fromkeys(("kv_host_tier_bytes", "kv_prefetch"), "A3"),
+    **dict.fromkeys(("max_retries", "retry_backoff_s", "retry_backoff_max_s", "retry_jitter",
+                     "breaker_threshold", "breaker_reset_s", "degrade_queue_fraction",
+                     "degrade_hard_fraction", "degraded_max_new_tokens", "metrics_interval_s"), "A10"),
+}
+
+
+def _other(default):
+    if isinstance(default, bool):
+        return not default
+    if default is None:
+        return 1.0
+    return default * 2 + 1
+
+
+def test_serving_config_takes_every_field_of_the_jax_config():
+    from accelerate_tpu_torch.utils.dataclasses import ServingConfig
+
+    jax_fields = {f.name: f.default for f in dataclasses.fields(jdc.ServingConfig)}
+    ours = {f.name: f.default for f in dataclasses.fields(ServingConfig)}
+    # the default mode stays "continuous" until static mode lands (A8)
+    assert jax_fields.pop("mode") == "static" and ours.pop("mode") == "continuous"
+    assert ours == jax_fields
+
+
+# ------------------------------------------------------- C4: JAX's arguments
+def test_device_placement_rng_types_and_evaluation_mode():
+    acc = Accelerator(cpu=True, device_placement=False, rng_types=["torch"])
+    data = make_data(8)
+    model = Regression()
+    model, opt, loader = acc.prepare(model, torch.optim.SGD(model.parameters(), lr=LR),
+                                     torch.utils.data.DataLoader(range(8), batch_size=4))
+    assert loader.device is None  # batches stay on the host
+    assert acc.prepare_data_loader(data, batch_size=4).device is None
+    placed = acc.prepare_data_loader(data, batch_size=4, device_placement=True)
+    assert placed.device == torch.device("cpu") and placed.rng_types == ["torch"]
+    m2 = Regression()
+    m2, dl = acc.prepare(m2, torch.utils.data.DataLoader(range(4), batch_size=2),
+                         device_placement=[True, True])
+    assert dl.device == torch.device("cpu")
+    with pytest.raises(ValueError, match="device_placement"):
+        acc.prepare(Regression(), device_placement=[True, False])
+    evaluated = acc.prepare_model(Regression(), evaluation_mode=True)
+    assert not evaluated.training
+    wrapped = acc.prepare_optimizer(torch.optim.SGD(m2.parameters(), lr=LR), device_placement=True)
+    assert wrapped.optimizer.param_groups[0]["params"][0] is m2.a
+
+
+def test_clip_grad_norm_takes_the_l2_norm_type():
+    acc = Accelerator(cpu=True)
+    model = Regression()
+    model, opt = acc.prepare(model, torch.optim.SGD(model.parameters(), lr=LR))
+    batch = {k: torch.from_numpy(v) for k, v in make_data(4).items()}
+    acc.backward(regression_loss, batch)
+    grads = [p.grad.clone() for p in (model.a, model.b)]
+    norm = acc.clip_grad_norm_(model.parameters(), max_norm=1e-3, norm_type=2.0)
+    assert torch.isclose(norm, torch.linalg.vector_norm(torch.stack(grads)))
+    with pytest.raises(ValueError, match="norm_type"):
+        acc.clip_grad_norm_(model.parameters(), max_norm=1.0, norm_type=1.0)
+
+
+def test_init_empty_weights_include_buffers_and_sampler_generator():
+    from accelerate_tpu_torch.big_modeling import init_empty_weights
+
+    with init_empty_weights(include_buffers=False):
+        norm = nn.BatchNorm1d(4)
+    assert norm.weight.device.type == "meta" and norm.running_mean.device.type == "cpu"
+    with init_empty_weights():
+        norm = nn.BatchNorm1d(4)
+    assert norm.weight.device.type == "meta" and norm.running_mean.device.type == "meta"
+    gen = torch.Generator().manual_seed(1)
+    assert list(SeedableRandomSampler(20, seed=3, generator=gen)) == list(JSampler(20, seed=3))
+
+
+# a JAX argument the port does not take, by function, and why: TPU-only
+# knobs (block sizes, interpret mode, buffer donation, flat buffers), the
+# queue item that brings it, or the port's name for the same argument
+TPU = "TPU-only"
+SIGNATURE_EXEMPT = {
+    "accelerator:Accelerator.train_step": {"donate": TPU, "flatten_params": TPU},
+    "big_modeling:cpu_offload": {"execution_mesh": "A7"},
+    "big_modeling:dispatch_model": {"rules": "A7", "fsdp_axes": "A7"},
+    "big_modeling:get_max_memory": {"mesh": "A7"},
+    "big_modeling:load_checkpoint_and_dispatch": {"rules": "A7", "fsdp_axes": "A7"},
+    "engine:SlotOccupant.__init__": {"trace_id": "A10"},
+    "kvcache:PagedKVBackend.__init__": {"host_tier_bytes": "A3"},
+    "kvcache:make_kv_backend": {"host_tier_bytes": "A3"},
+    "kvcache:PagedKVLayout.commit_window": {"layer_cache": "renamed cache_leaf"},
+    "models.llama:create_llama": {"abstract": "init_empty_weights builds it empty"},
+    "models.llama:init_llama_params": {"key": "renamed generator (a torch.Generator)"},
+    "models.llama:llama_apply": {"position_offset": "A11", "attention_fn": "A11",
+                                 "layer_stack_fn": "A11", "return_aux": "A11"},
+    "models.llama:llama_flops_per_token": {"include_remat": "a no-op in the JAX package"},
+    "models.llama:llama_loss": {"model_view": "renamed model"},
+    "ops.attention:dispatch_attention": {"block_q": TPU},
+    "parallel.mesh:build_mesh": {"devices": "a mesh spans the process group, one device a rank",
+                                 "allow_split_physical_axes": TPU},
+    "ops.attention:dot_product_attention": {"bias": "A11", "kv_offset": "A11",
+                                            "softmax_dtype": "f32 always, the JAX default"},
+    "ops.attention:paged_attention": {"softmax_dtype": "f32 always, the JAX default"},
+    "ops.attention:verify_attention": {"softmax_dtype": "f32 always, the JAX default"},
+    "ops.flash_attention:flash_attention": {"block_q": TPU, "block_k": TPU, "interpret": TPU},
+    "ops.flash_attention:flash_attention_with_lse": {"block_q": TPU, "block_k": TPU,
+                                                     "interpret": TPU},
+    "ops.paged_decode:fused_sample": {"interpret": TPU},
+    "ops.paged_decode:paged_flash_decode": {"interpret": TPU},
+    "ops.paged_decode:paged_flash_verify": {"interpret": TPU},
+    "ops.quant_matmul:quantized_matmul": {"block_m": TPU, "block_n": TPU, "interpret": TPU},
+    "serving:InferenceServer.__init__": {"generate_fn": "A8", "trackers": "A10",
+                                         "replica_id": "A10"},
+    "serving:InferenceServer.submit": {"prefilled": "A3", "arrival_s": "A10", "trace_id": "A10"},
+    "serving:ServingMetrics.__init__": {"clock": "A10"},
+    "serving:ServingResult.__init__": {"degraded": "A10", "replica_id": "A10",
+                                       "failover_count": "A10"},
+    "utils.quantization:quantize_model": {"model": "renamed module"},
+}
+
+
+def _shared_signatures():
+    """``{"module:qualname": (port function, JAX function)}`` of every
+    public function and method both packages define under one name."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    import accelerate_tpu_torch
+
+    pairs = {}
+    for info in pkgutil.walk_packages(accelerate_tpu_torch.__path__, "accelerate_tpu_torch."):
+        short = info.name[len("accelerate_tpu_torch."):]
+        if short.split(".")[0] in ("commands", "test_utils"):
+            continue  # the JAX package's need jax and a TPU config
+        try:
+            jmod = importlib.import_module("accelerate_tpu." + short)
+        except ImportError:
+            continue
+        tmod = importlib.import_module(info.name)
+        for name, obj in vars(tmod).items():
+            jobj = getattr(jmod, name, None)
+            if name.startswith("_") or jobj is None or getattr(obj, "__module__", None) != info.name:
+                continue
+            if inspect.isfunction(obj) and callable(jobj):
+                pairs[f"{short}:{name}"] = (obj, jobj)
+            elif inspect.isclass(obj) and inspect.isclass(jobj):
+                for meth, fn in vars(obj).items():
+                    jfn = getattr(jobj, meth, None)
+                    if (meth == "__init__" or not meth.startswith("_")) and inspect.isfunction(fn) \
+                            and inspect.isfunction(jfn):
+                        pairs[f"{short}:{name}.{meth}"] = (fn, jfn)
+    return pairs
+
+
+def test_shared_functions_take_every_argument_of_the_jax_package():
+    import inspect
+
+    pairs = _shared_signatures()
+    assert len(pairs) > 150 and set(SIGNATURE_EXEMPT) <= set(pairs)
+    for label, (fn, jfn) in sorted(pairs.items()):
+        ours = inspect.signature(fn).parameters
+        if any(p.kind == p.VAR_KEYWORD for p in ours.values()):
+            continue  # **kwargs takes any name
+        theirs = inspect.signature(jfn).parameters
+        missing = {n for n, p in theirs.items() if n not in ours and not n.startswith("_")
+                   and p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)}
+        exempt = SIGNATURE_EXEMPT.get(label, {})
+        assert missing == set(exempt), (label, missing)
+        for arg, why in exempt.items():
+            if why.startswith("renamed "):
+                assert why.split()[1] in ours, (label, arg)
 
 
 @pytest.mark.parametrize("name", ["GradientAccumulationPlugin", "GradScalerKwargs"])

@@ -14,8 +14,9 @@ package's, and the resume against JAX.
   AdamW trajectory tolerance of ``tests/test_torch_llama_train.py`` (rtol
   1e-4: f32 on both sides, the matmuls sum in another order), and the
   port's resumed run is bitwise equal to its uninterrupted one.
-* What waits for the distributed slice (ROADMAP.md A7) is refused:
-  ``elastic=True``, a checkpoint of another world size, replication.
+* A checkpoint of another world size loads only with ``elastic=True``
+  (``CheckpointTopologyError`` otherwise); replication waits for
+  ROADMAP.md A7 and is refused.
 """
 
 import json
@@ -43,6 +44,7 @@ from accelerate_tpu_torch.checkpointing import load_model_checkpoint
 from accelerate_tpu_torch.models import llama as tl
 from accelerate_tpu_torch.state import AcceleratorState, GradientState
 from accelerate_tpu_torch.utils.dataclasses import ProjectConfiguration
+from accelerate_tpu_torch.utils.fault import CheckpointTopologyError
 from accelerate_tpu_torch.utils.serialization import load_sharded_safetensors, save_sharded_safetensors
 
 LR = 0.1
@@ -257,16 +259,18 @@ def test_what_waits_for_the_distributed_slice_is_refused(tmp_path):
     acc = _fresh(tmp_path)
     _regression(acc)
     ckpt = acc.save_state(str(tmp_path / "ckpt"))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md A7"):
-        acc.load_state(ckpt, elastic=True)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md A7"):
-        acc.resume_from_latest(ckpt, elastic=True)
+    # elastic loads landed: at the same world size elastic=True changes nothing
+    acc.load_state(ckpt, elastic=True)
+    assert acc.resume_from_latest(ckpt, elastic=True) is True
     marker = os.path.join(ckpt, "COMMITTED")
     manifest = json.load(open(marker))
     manifest["num_processes"] = 4
     json.dump(manifest, open(marker, "w"))
-    with pytest.raises(NotImplementedError, match=r"saved by 4 processes.*A7"):
+    # another world size: refused without elastic=True, as in the JAX package
+    with pytest.raises(CheckpointTopologyError, match=r"num_processes 4 \(saved\) != 1.*elastic=True"):
         acc.load_state(ckpt)
+    acc.load_state(ckpt, elastic=True)
+    # replicas stay with A7
     with pytest.raises(NotImplementedError, match=r"ROADMAP.md A7"):
         _fresh(tmp_path, replication_config=object())
 
