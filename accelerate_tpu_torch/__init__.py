@@ -31,7 +31,9 @@ the ``check_step_health`` watchdog, trackers, and the HF Llama
 converters. Data-parallel training across processes: DDP, FSDP2 and HSDP
 under a ``ParallelismConfig``, the collectives, loaders and checkpoints
 of several processes, ``notebook_launcher`` and ``python -m
-accelerate_tpu_torch.commands.launch``. Tensor parallelism, the host KV
+accelerate_tpu_torch.commands.launch``; tensor parallelism (Megatron, a
+sequence-parallel residual) alone and under FSDP2/HSDP, and big-model
+loading over a mesh. Replication, the launch supervisor, the host KV
 tier and the serving control plane are still to be ported (ROADMAP.md).
 """
 
@@ -44,6 +46,7 @@ __all__ = [
     "FSDPPlugin",
     "ParallelismConfig",
     "ProjectConfiguration",
+    "TensorParallelConfig",
     "TrainingHealthConfig",
     "ContinuousBatchingEngine",
     "InferenceServer",
@@ -89,6 +92,7 @@ _LAZY = {
     "DistributedDataParallelKwargs": ("utils.dataclasses", "DistributedDataParallelKwargs"),
     "FSDPPlugin": ("utils.dataclasses", "FSDPPlugin"),
     "ParallelismConfig": ("parallelism_config", "ParallelismConfig"),
+    "TensorParallelConfig": ("utils.dataclasses", "TensorParallelConfig"),
     "notebook_launcher": ("launchers", "notebook_launcher"),
     "debug_launcher": ("launchers", "debug_launcher"),
     "ProjectConfiguration": ("utils.dataclasses", "ProjectConfiguration"),

@@ -38,9 +38,16 @@ the step gives what the JAX step gives on the global batch: a loss with a
 valid-token count summed over the ranks, so uneven ``loss_mask``s average
 as one batch; the returned loss is the global one; ``accumulate`` and
 ``train_step`` skip the gradient reduction on the micro-steps that do not
-update (``no_sync``); clipping takes the global norm. Tensor, context,
-sequence, pipeline and expert parallelism, PowerSGD and replicas wait for
-ROADMAP.md A7 and A11 and raise.
+update (``no_sync``); clipping takes the global norm. Under ``tp``
+(``ParallelismConfig(tp_size=...)``, alone or with the data-parallel dims,
+or a ``TensorParallelConfig`` at ``tp_size=1``) a Llama is split Megatron-
+style with a sequence-parallel residual (``parallel/tp.py``) and then
+sharded over the data-parallel dims (FSDP2, HSDP); the ``tp`` ranks of one
+data-parallel coordinate read the same rows, the loss is reduced over the
+data-parallel ranks only, and the gradients of ``tp``-replicated
+parameters are summed over ``tp``. Context, sequence, pipeline and expert
+parallelism, PowerSGD and replicas wait for ROADMAP.md A7 and A11 and
+raise.
 """
 
 from __future__ import annotations
@@ -158,6 +165,7 @@ class Accelerator:
                 self.state.device_mesh = self.mesh
         self._param_map: dict = {}
         self._replicated: set = set()  # parameters FSDP2 left whole
+        self._tp_replicated: set = set()  # parameters replicated over tp
         if gradient_accumulation_plugin is None:
             gradient_accumulation_plugin = GradientAccumulationPlugin(num_steps=int(os.environ.get(
                 "ACCELERATE_GRADIENT_ACCUMULATION_STEPS", gradient_accumulation_steps)))
@@ -248,7 +256,7 @@ class Accelerator:
 
     @property
     def is_fsdp2(self) -> bool:
-        return self.layout in ("fsdp", "hsdp")
+        return self.layout in ("fsdp", "hsdp", "tp_fsdp", "tp_hsdp")
 
     @property
     def split_batches(self) -> bool:
@@ -406,11 +414,12 @@ class Accelerator:
                 model = prepare_model(model, self.policy, device)
             elif device is not None:
                 model = model.to(device)
-            model, pmap, replicated = shard_model(
+            model, pmap, replicated, tp_replicated = shard_model(
                 model, self.layout, self.mesh, self.device, fsdp_plugin=self.fsdp_plugin,
-                ddp_handler=self.ddp_handler, policy=self.policy)
+                ddp_handler=self.ddp_handler, policy=self.policy, tp_rules=self._tp_rules())
             self._param_map.update(pmap)
             self._replicated.update(replicated)
+            self._tp_replicated.update(tp_replicated)
         if model not in self._models:
             self._models.append(model)
         return model
@@ -430,8 +439,38 @@ class Accelerator:
         if layout is not None:
             optimizer._ckpt_layout = layout
         optimizer.replicated = [p for p in optimizer.params() if p in self._replicated]
+        optimizer.tp_replicated = [p for p in optimizer.params() if p in self._tp_replicated]
+        optimizer.tp_group = self.mesh.get_group("tp") if optimizer.tp_replicated else None
+        optimizer.dp_groups = self._data_parallel_groups()
         self._optimizers.append(optimizer)
         return optimizer
+
+    def _tp_rules(self) -> list:
+        """The user's ``(regex, dim)`` rules, the ``FSDPPlugin``'s in front
+        of the ``TensorParallelConfig``'s, as the JAX package orders them."""
+        rules = list(getattr(self.parallelism_config.tp_config, "sharding_rules", None) or [])
+        if self.fsdp_plugin is not None and self.fsdp_plugin.sharding_rules:
+            rules = list(self.fsdp_plugin.sharding_rules) + rules
+        from .parallel.sharding import TP_LAYOUTS
+
+        if rules and self.layout not in TP_LAYOUTS:
+            raise ValueError(f"sharding_rules place parameters over tp; the layout {self.layout!r} "
+                             "has no tp dim (set tp_size or pass a TensorParallelConfig)")
+        return rules
+
+    def _data_parallel_groups(self) -> list:
+        """The process groups a data-parallel reduction runs over, in turn:
+        the world's (None) when every process is its own data-parallel
+        rank, else the mesh's ``dp_replicate`` and ``dp_shard`` groups
+        above size 1 (the ``tp`` ranks hold the same rows); empty with one
+        data-parallel rank."""
+        if self.num_processes == 1:
+            return []
+        if self.mesh is None or self.parallelism_config.data_parallel_size == self.num_processes:
+            return [None]
+        names = self.mesh.mesh_dim_names
+        return [self.mesh.get_group(d) for d in ("dp_replicate", "dp_shard")
+                if d in names and self.mesh.size(names.index(d)) > 1]
 
     def prepare_scheduler(self, scheduler) -> AcceleratedScheduler:
         """Wrap ``scheduler`` so it steps with the last prepared optimizer's
@@ -507,23 +546,29 @@ class Accelerator:
         and the gradient scale ``count * n / global count`` makes the
         data-parallel gradient mean the gradient of that global loss. Any
         other loss is taken for a mean over equal rows: the mean of the
-        ranks' losses."""
-        if self.num_processes == 1:
+        ranks' losses. Every reduction runs over the data-parallel ranks
+        only: the ``tp`` ranks of one coordinate hold the same rows and the
+        same loss."""
+        groups = self._data_parallel_groups()
+        if not groups:
             return 1.0, loss.detach()
         import torch.distributed as dist
 
+        n = self.num_processes if groups == [None] else self.parallelism_config.data_parallel_size
         fn = getattr(loss_fn, "func", loss_fn)  # a functools.partial of llama_loss
         den_fn = getattr(fn, "ce_denominator", None)
         if den_fn is None:
             mean = loss.detach().clone()
-            dist.all_reduce(mean)
-            return 1.0, mean / self.num_processes
+            for group in groups:
+                dist.all_reduce(mean, group=group)
+            return 1.0, mean / n
         count = den_fn(*batch, clamp=False).to(device=loss.device, dtype=torch.float32)
         local = count.clamp_min(1)
         sums = torch.stack([loss.detach().float() * local, count])
-        dist.all_reduce(sums)
+        for group in groups:
+            dist.all_reduce(sums, group=group)
         total = sums[1].clamp_min(1)
-        return local * self.num_processes / total, (sums[0] / total).to(loss.dtype)
+        return local * n / total, (sums[0] / total).to(loss.dtype)
 
     def unscale_gradients(self, optimizer: Optional[AcceleratedOptimizer] = None) -> None:
         """Divide the accumulated gradients by the fp16 loss scale (once)."""
@@ -620,12 +665,26 @@ class Accelerator:
         return step
 
     # ------------------------------------------------------------ collectives
-    def gather(self, tensor):
-        """Every process's tensors concatenated on dim 0, in process order
-        (``ops/operations.py``; one process: the tensors themselves)."""
-        from .ops.operations import gather
+    def _row_owners(self) -> Optional[list]:
+        """The processes whose rows a gather keeps, in data-parallel order:
+        each coordinate's ``tp`` rank 0 (its ``tp`` ranks hold the same
+        rows), or None where every process holds its own."""
+        names = (self.mesh.mesh_dim_names or ()) if self.mesh is not None else ()
+        if "tp" not in names or self.mesh.size(names.index("tp")) == 1:
+            return None
+        return self.mesh.mesh.select(names.index("tp"), 0).flatten().tolist()
 
-        return gather(tensor)
+    def gather(self, tensor):
+        """Every data-parallel rank's tensors concatenated on dim 0, in
+        process order (``ops/operations.py``; one process: the tensors
+        themselves): under tensor parallelism each coordinate's rows once."""
+        from .ops.operations import gather, recursively_apply
+
+        data, owners = gather(tensor), self._row_owners()
+        if owners is None:
+            return data
+        n = self.num_processes
+        return recursively_apply(lambda t: t.unflatten(0, (n, -1))[owners].flatten(0, 1), data)
 
     def gather_for_metrics(self, input_data, use_gather_object: bool = False):
         """:meth:`gather`, then on the loader's last batch only its
@@ -635,7 +694,14 @@ class Accelerator:
 
         if use_gather_object or not any(isinstance(t, torch.Tensor)
                                         for t in tree_leaves(input_data)):
-            data = gather_object(input_data)
+            owners = self._row_owners()
+            if owners is None:
+                data = gather_object(input_data)
+            else:
+                parts = self.state.gather_object(input_data)
+                data = []
+                for i in owners:
+                    data.extend(parts[i]) if isinstance(parts[i], list) else data.append(parts[i])
         else:
             data = self.gather(input_data)
         gs = self.gradient_state
@@ -646,10 +712,12 @@ class Accelerator:
         return data
 
     def reduce(self, tensor, reduction: str = "sum", scale: float = 1.0):
-        """The sum (or mean) of ``tensor`` over processes, times ``scale``."""
+        """The sum (or mean) of ``tensor`` over the data-parallel ranks,
+        times ``scale`` (the ``tp`` ranks of one coordinate count once)."""
         from .ops.operations import reduce
 
-        return reduce(tensor, reduction=reduction, scale=scale)
+        groups = None if self._row_owners() is None else self._data_parallel_groups()
+        return reduce(tensor, reduction=reduction, scale=scale, groups=groups)
 
     def pad_across_processes(self, tensor, dim: int = 0, pad_index: int = 0,
                              pad_first: bool = False):

@@ -166,10 +166,19 @@ def data_shard_info(sharding=None, process_index: Optional[int] = None,
     dimension's ``n_rows`` blocks it holds (the JAX package reads it from a
     sharding's index map), with ``process_of_device``. Processes whose
     devices hold the same rows (tensor or context parallel ranks) read the
-    same slice; ``None`` means every process is its own data shard."""
+    same slice; ``None`` takes the batch's sharding on the mesh the
+    ``Accelerator`` laid out (its data-parallel dims: the ``tp`` ranks of
+    one coordinate read the same rows), and without one every process is
+    its own data shard."""
     index, count = process_layout()
     process_index = index if process_index is None else process_index
     num_processes = count if num_processes is None else num_processes
+    if sharding is None:
+        from .state import AcceleratorState
+
+        mesh = AcceleratorState._shared_state.get("device_mesh")
+        if mesh is not None and mesh.size() == num_processes:
+            sharding = batch_sharding(mesh)
     if sharding is None:
         return (num_processes, process_index, 1) if num_processes > 1 else (1, 0, 1)
     if isinstance(sharding, BatchSharding):

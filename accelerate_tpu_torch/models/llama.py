@@ -30,8 +30,26 @@ states and the head (as the JAX package's does) and :func:`llama_loss`
 takes the cross entropy over vocabulary chunks
 (:func:`~accelerate_tpu_torch.ops.losses.chunked_softmax_cross_entropy`).
 
-Not ported yet (ROADMAP.md): MoE layers, Gemma-2's alternating sliding
-window and fp8.
+Tensor parallelism (``parallel/tp.py``; ``model.tp`` set, the weights
+``DTensor`` blocks of a ``tp`` sub-mesh) runs the same functions on each
+rank's local blocks, with the JAX package's layout and its Megatron
+collectives made explicit (``ops/collectives.py``): the residual stream's
+sequence is split over ``tp`` between blocks (``constrain_activation``'s
+``"residual"``); each column-parallel block (q/k/v, gate/up, the head)
+gathers it whole first and each row-parallel projection (o_proj,
+down_proj) reduce-scatters its partial sums back; attention runs on the
+rank's heads (the head counts come from the local weights) over the whole
+sequence, with RoPE and segment ids as one process has them. Where ``tp``
+does not divide the sequence the residual stays whole, as in the JAX
+package: one all-reduce after each row-parallel projection. The embedding
+looks up the rank's vocabulary rows (other ids give zeros) and its
+reduce-scatter yields the split residual; the head's logits stay split
+over the vocabulary into the loss (``ops/losses.py``). Gemma's post-block
+norms and embedding scale apply after the collective, the softcaps on the
+local logits and scores.
+
+Not ported yet (ROADMAP.md): MoE layers and Gemma-2's alternating sliding
+window (A11), fp8 (A4), tensor parallelism in serving (A8).
 """
 
 from __future__ import annotations
@@ -41,7 +59,7 @@ import dataclasses
 import functools
 import math
 import threading
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -51,6 +69,14 @@ from torch import nn
 from .._device import resolve_device
 from ..ops import quant_matmul as _qmm
 from ..ops.attention import NEG_INF, _write_window, dispatch_attention, tanh_softcap
+from ..ops.collectives import (
+    copy_to_group,
+    gather_last_dim,
+    grad_share,
+    reduce_from_group,
+    sequence_all_gather,
+    sequence_reduce_scatter,
+)
 from ..utils.quantization import NF4Leaf, QuantizedLeaf
 
 __all__ = [
@@ -257,7 +283,7 @@ def _check_supported(config: LlamaConfig, params: Optional[dict] = None) -> None
         )
     if config.alternating_sliding_window:
         raise NotImplementedError(
-            "Gemma-2 alternating local/global attention is not ported yet (ROADMAP.md)"
+            "Gemma-2 alternating local/global attention is not ported yet (ROADMAP.md A11)"
         )
 
 
@@ -579,12 +605,14 @@ class LlamaForCausalLM(nn.Module):
     says which module names hold each key)."""
 
     casts_per_use = True
+    tensor_parallel_forward = True
 
     def __init__(self, config: LlamaConfig, params: dict):
         super().__init__()
         _check_supported(config)
         self.config = config
         self.layers = None
+        self.tp = None  # parallel.tp.TensorParallel, set by apply_tensor_parallel
         self._paths = []
         for path, tensor in _flatten(params):
             name = "__".join(path)
@@ -680,9 +708,14 @@ class LlamaForCausalLM(nn.Module):
         in the per-layer layout)."""
         return self._tree(detach=True)
 
-    def forward(self, input_ids: torch.Tensor, segment_ids=None, position_ids=None) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, segment_ids=None, position_ids=None,
+                vocab_shard: bool = False):
+        """:func:`llama_apply` on this model's parameters; laid out over
+        ``tp``, ``vocab_shard=True`` returns the rank's logits block (what
+        :func:`llama_loss` takes) instead of the whole logits."""
         return llama_apply(self.config, self._tree(detach=False), input_ids,
-                           segment_ids=segment_ids, position_ids=position_ids)
+                           segment_ids=segment_ids, position_ids=position_ids, tp=self.tp,
+                           vocab_shard=vocab_shard)
 
 
 def create_llama(config: LlamaConfig, seed: int = 0, device="cuda") -> LlamaForCausalLM:
@@ -877,40 +910,94 @@ def _proj(config, layer_params, name, y):
     return out
 
 
-def _mlp_block(config, layer_params, x):
+class _TPRun(NamedTuple):
+    """One forward's tensor-parallel group: its size, this rank's index,
+    and whether the residual's sequence is split over it (``sp``: the
+    sequence is a multiple of ``size``)."""
+
+    group: Any
+    size: int
+    rank: int
+    sp: bool
+
+
+def _tp_in(x, tp):
+    """The residual entering a column-parallel block: gathered whole along
+    the sequence (or, kept whole, copied in: its gradient is summed)."""
+    if tp is None:
+        return x
+    return sequence_all_gather(x, tp.group) if tp.sp else copy_to_group(x, tp.group)
+
+
+def _tp_out(x, tp):
+    """A row-parallel product's partial sums, summed over ``tp``: into this
+    rank's block of the sequence (or whole)."""
+    if tp is None:
+        return x
+    return sequence_reduce_scatter(x, tp.group) if tp.sp else reduce_from_group(x, tp.group)
+
+
+def _local_tree(tree, tp):
+    """A parameter tree's ``DTensor`` leaves as this rank's local blocks
+    (``to_local``, differentiable). With the residual kept whole, a
+    replicated leaf's gradient is whole on every rank: ``grad_share``
+    divides it by the group's size, so the optimizer's sum over ``tp``
+    gives it back, as it sums the partial gradients of the split
+    sequence."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    def local(leaf):
+        if not isinstance(leaf, DTensor):
+            return leaf
+        out = leaf.to_local()
+        if tp is not None and not tp.sp and all(isinstance(p, Replicate) for p in leaf.placements):
+            out = grad_share(out, tp.size)
+        return out
+
+    return {k: _local_tree(v, tp) if isinstance(v, dict) else
+            (v if isinstance(v, nn.Module) else local(v)) for k, v in tree.items()}
+
+
+def _mlp_block(config, layer_params, x, tp=None):
     """Post-attention half of a block: norm, SwiGLU/GeGLU MLP, residual."""
     y = rms_norm(x, layer_params["post_attn_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
+    y = _tp_in(y, tp)
     mlp = layer_params["mlp"]
     gate = _matmul(config, y, mlp["gate_proj"]["kernel"])
     up = _matmul(config, y, mlp["up_proj"]["kernel"])
     with _block_output("mlp_block_out"):
         y = _matmul(config, _mlp_act(config, gate) * up, mlp["down_proj"]["kernel"])
+    y = _tp_out(y, tp)
     if config.post_block_norms:
         y = rms_norm(y, layer_params["mlp_out_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
     return x + y
 
 
-def _attn_out(config, layer_params, attn, residual):
+def _attn_out(config, layer_params, attn, residual, tp=None):
     b, s = attn.shape[:2]
     with _block_output("attn_block_out"):
         attn = _matmul(config, attn.reshape(b, s, -1), layer_params["attn"]["o_proj"]["kernel"])
+    attn = _tp_out(attn, tp)
     if config.post_block_norms:
         attn = rms_norm(attn, layer_params["attn_out_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
     return residual + attn
 
 
 def _layer(config: LlamaConfig, layer_params, x, position_offset: int = 0,
-           collect_kv: bool = False, segment_ids=None, position_ids=None):
+           collect_kv: bool = False, segment_ids=None, position_ids=None, tp=None):
     """One block on (B, S, D) activations; ``collect_kv=True`` also returns
     the post-RoPE k/v for building the cache. ``segment_ids`` (B, S) keep
     attention inside packed documents; ``position_ids`` (B, S) are per-token
-    RoPE positions (restarting at each document)."""
-    h, kvh, hd = config.num_attention_heads, config.num_key_value_heads, config.head_dim
-    b, s, _ = x.shape
+    RoPE positions (restarting at each document). Under ``tp`` (a
+    :class:`_TPRun`) ``x`` is this rank's block of the sequence, or whole,
+    and the heads are the rank's (as many as its q/k/v columns hold)."""
+    hd = config.head_dim
     y = rms_norm(x, layer_params["input_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
-    q = _proj(config, layer_params, "q_proj", y).reshape(b, s, h, hd)
-    k = _proj(config, layer_params, "k_proj", y).reshape(b, s, kvh, hd)
-    v = _proj(config, layer_params, "v_proj", y).reshape(b, s, kvh, hd)
+    y = _tp_in(y, tp)
+    b, s, _ = y.shape
+    q = _proj(config, layer_params, "q_proj", y).reshape(b, s, -1, hd)
+    k = _proj(config, layer_params, "k_proj", y).reshape(b, s, -1, hd)
+    v = _proj(config, layer_params, "v_proj", y).reshape(b, s, -1, hd)
     sc = config._rope_scaling_key()
     q = apply_rope(q, position_offset, config.rope_theta, position_ids, sc)
     k = apply_rope(k, position_offset, config.rope_theta, position_ids, sc)
@@ -923,7 +1010,7 @@ def _layer(config: LlamaConfig, layer_params, x, position_offset: int = 0,
         window=config.sliding_window, softcap=config.attn_logit_softcap,
         segment_ids=segment_ids,
     )
-    x = _mlp_block(config, layer_params, _attn_out(config, layer_params, attn, x))
+    x = _mlp_block(config, layer_params, _attn_out(config, layer_params, attn, x, tp), tp)
     return (x, (k, v)) if collect_kv else x
 
 
@@ -952,18 +1039,33 @@ def _unbind_leaf(leaf):
     return leaf.unbind(0)
 
 
-def _embed(config, params, ids):
-    x = params["embed_tokens"]["embedding"][ids].to(config.compute_dtype)
+def _embed(config, params, ids, tp=None):
+    """The ids' embedding rows in the compute dtype (Gemma: times
+    sqrt(hidden)). Under ``tp`` the table is this rank's block of the
+    vocabulary: ids outside it give zeros, and the sum over ``tp`` (the
+    first reduce-scatter of the split residual) holds each row once."""
+    table = params["embed_tokens"]["embedding"]
+    if tp is None:
+        x = table[ids].to(config.compute_dtype)
+    else:
+        rows = table.shape[0]
+        local = ids - tp.rank * rows
+        inside = (local >= 0) & (local < rows)
+        x = torch.where(inside[..., None], table[local.clamp(0, rows - 1)], 0).to(config.compute_dtype)
+        x = _tp_out(x, tp)
     if config.scale_embeddings:
         x = x * torch.tensor(config.hidden_size ** 0.5, dtype=config.compute_dtype)
     return x
 
 
-def _head(config, params, x):
+def _head(config, params, x, tp=None):
     """Final norm + LM head -> f32 logits, as the JAX ``llama_apply``
     computes them: operands in the compute dtype, f32 products and output
-    (``preferred_element_type=jnp.float32``), the final softcap in f32."""
+    (``preferred_element_type=jnp.float32``), the final softcap in f32.
+    Under ``tp``: the whole sequence's logits over this rank's block of the
+    vocabulary."""
     x = rms_norm(x, params["final_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
+    x = _tp_in(x, tp)
     if config.tie_word_embeddings:
         logits = _f32_product(x, params["embed_tokens"]["embedding"].to(config.compute_dtype).T)
     else:
@@ -1041,7 +1143,7 @@ def _remat_context(policy: str):
 
 
 def llama_apply(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
-                segment_ids=None, position_ids=None):
+                segment_ids=None, position_ids=None, tp=None, vocab_shard: bool = False):
     """Causal forward over (B, S) token ids -> f32 logits (B, S, V).
     ``segment_ids`` (B, S): packed-sequence document labels (attention never
     crosses a boundary); ``position_ids`` (B, S): per-token RoPE positions.
@@ -1056,21 +1158,33 @@ def llama_apply(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
 
     ``use_chunked_ce``: instead of logits, ``{"hidden": (B, S, D) after the
     final norm, "head_kernel": (D, V), "logit_softcap": ...}`` for
-    :func:`llama_loss`'s chunked cross entropy, as in the JAX package."""
+    :func:`llama_loss`'s chunked cross entropy, as in the JAX package.
+
+    ``tp`` (a ``parallel.tp.TensorParallel``; ``params`` may hold its
+    ``DTensor`` blocks): the tensor-parallel forward (see the module
+    docstring); the logits are gathered whole over the vocabulary, or with
+    ``vocab_shard`` returned as ``{"logits": this rank's (B, S, V/tp),
+    "vocab_start": its first column, "tp_group": ...}``. The chunked
+    output then holds the rank's head block, its ``vocab_start`` and
+    ``tp_group``."""
     _check_supported(config)
     if config.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, got {config.remat_policy!r}")
+    if tp is not None:
+        tp = _TPRun(tp.group, tp.size, tp.rank, input_ids.shape[1] % tp.size == 0)
+    params = _local_tree(params, tp)
     remat = config.remat_policy != "full" and torch.is_grad_enabled()
     context = _remat_context(config.remat_policy) if remat else None
     extra = {} if context is None else {"context_fn": context}
-    x = _embed(config, params, input_ids)
+    x = _embed(config, params, input_ids, tp)
 
     def run_layer(lp, x):
+        lp = _local_tree(lp, tp)
         if remat:
             return torch.utils.checkpoint.checkpoint(
-                _layer, config, lp, x, 0, False, segment_ids, position_ids,
+                _layer, config, lp, x, 0, False, segment_ids, position_ids, tp,
                 use_reentrant=False, preserve_rng_state=False, **extra)
-        return _layer(config, lp, x, segment_ids=segment_ids, position_ids=position_ids)
+        return _layer(config, lp, x, segment_ids=segment_ids, position_ids=position_ids, tp=tp)
 
     layers = params["layers"]
     if isinstance(layers, nn.ModuleList):  # per-layer modules: each call is an FSDP2 unit's
@@ -1087,8 +1201,17 @@ def llama_apply(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
                 else params["lm_head"]["kernel"])
         if not isinstance(head, torch.Tensor):  # a quantized head: its float weights
             head = head.dequantize()
-        return {"hidden": x, "head_kernel": head, "logit_softcap": config.final_logit_softcap}
-    return _head(config, params, x)
+        out = {"hidden": _tp_in(x, tp), "head_kernel": head,
+               "logit_softcap": config.final_logit_softcap}
+        if tp is not None:
+            out.update(vocab_start=tp.rank * head.shape[1], tp_group=tp.group)
+        return out
+    logits = _head(config, params, x, tp)
+    if tp is None:
+        return logits
+    if vocab_shard:
+        return {"logits": logits, "vocab_start": tp.rank * logits.shape[-1], "tp_group": tp.group}
+    return gather_last_dim(logits, tp.group)
 
 
 # ----------------------------------------------------------------- loss
@@ -1100,17 +1223,25 @@ def _mask_of(labels, mask):
     return mask[:, : labels.shape[1]].float()
 
 
-def _dense_ce_from_logits(logits, labels, mask, reduction: str = "mean"):
+def _dense_ce_from_logits(logits, labels, mask, reduction: str = "mean", vocab_start: int = 0,
+                          tp_group=None):
     """Masked cross entropy from full logits: f32 logsumexp minus the label
     logit, summed over the mask, divided by ``max(sum(mask), 1)``
     (``reduction="sum"`` returns the masked sum). The label logit is a
     gather where the JAX package uses a one-hot einsum (a partitioner
-    workaround): the same value without a (B, S, V) one-hot."""
+    workaround): the same value without a (B, S, V) one-hot. With
+    ``tp_group``, ``logits`` are this rank's vocabulary block from column
+    ``vocab_start`` (``ops.losses.vocab_parallel_nll``)."""
     mask = _mask_of(labels, mask)
     labels = labels.clamp_min(0).long()
-    lse = torch.logsumexp(logits.float(), dim=-1)
-    label_logit = logits.gather(-1, labels[..., None])[..., 0].float()
-    total = ((lse - label_logit) * mask).sum()
+    if tp_group is not None:
+        from ..ops.losses import vocab_parallel_nll
+
+        nll = vocab_parallel_nll(logits.float(), labels, vocab_start, tp_group)
+    else:
+        lse = torch.logsumexp(logits.float(), dim=-1)
+        nll = lse - logits.gather(-1, labels[..., None])[..., 0].float()
+    total = (nll * mask).sum()
     if reduction == "sum":
         return total
     return total / mask.sum().clamp_min(1)
@@ -1138,25 +1269,31 @@ def llama_loss(model, batch, ce_chunk_size: Optional[int] = None) -> torch.Tenso
     so the (B, S, V) logits never exist."""
     input_ids = batch["input_ids"]
     packed = {k: batch[k] for k in ("segment_ids", "position_ids") if k in batch}
+    inner = getattr(model, "module", model)  # a DDP wrapper's module holds the config
+    if getattr(inner, "tp", None) is not None:  # the logits stay split over the vocabulary
+        packed["vocab_shard"] = True
     out = model(input_ids, **packed)
     labels = batch.get("labels")
-    if isinstance(out, dict):
+    if isinstance(out, dict) and "hidden" in out:
         from ..ops.losses import chunked_softmax_cross_entropy
 
         hidden = out["hidden"]
         if labels is None:
             labels = input_ids[:, 1:]
             hidden = hidden[:, :-1]
-        inner = getattr(model, "module", model)  # a DDP wrapper's module holds the config
         chunk = ce_chunk_size or getattr(inner, "config", LlamaConfig).ce_chunk_size
         return chunked_softmax_cross_entropy(
             hidden, out["head_kernel"].to(hidden.dtype), labels.clamp_min(0), chunk_size=chunk,
-            loss_mask=_mask_of(labels, batch.get("loss_mask")), logit_softcap=out["logit_softcap"])
-    logits = out
+            loss_mask=_mask_of(labels, batch.get("loss_mask")), logit_softcap=out["logit_softcap"],
+            vocab_start=out.get("vocab_start", 0), tp_group=out.get("tp_group"))
+    shard = out if isinstance(out, dict) else {"logits": out}
+    logits = shard["logits"]
     if labels is None:
         labels = input_ids[:, 1:]
         logits = logits[:, :-1]
-    return _dense_ce_from_logits(logits, labels, batch.get("loss_mask"))
+    return _dense_ce_from_logits(logits, labels, batch.get("loss_mask"),
+                                 vocab_start=shard.get("vocab_start", 0),
+                                 tp_group=shard.get("tp_group"))
 
 
 # the data-parallel step divides each rank's loss sum by the global count

@@ -92,8 +92,13 @@ _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 build_logs: Dict[str, str] = {}
 
 
+_count_lock = threading.Lock()
+
+
 def count_launch(name: str) -> None:
-    _launches[name] += 1
+    # ranks run as threads of one process may launch at once
+    with _count_lock:
+        _launches[name] += 1
 
 
 def launch_counts() -> Dict[str, int]:

@@ -16,6 +16,25 @@ through the JAX collectives (the backward of a sum is a sum, of a gather a
 reduce-scatter). ``pmax``/``pmin`` and ``ppermute`` act on values only.
 Gloo has no reduce-scatter: there it is an all-reduce and this rank's
 slice, the same value and the same gradient.
+
+The tensor-parallel forward's collectives (Megatron's, with sequence
+parallelism) take a process group and are autograd Functions whose
+backward is the collective the layout needs:
+
+* :func:`sequence_all_gather` (before a column-parallel block: the
+  sequence-sharded residual whole) and :func:`sequence_reduce_scatter`
+  (after a row-parallel projection: the partial sums summed and the
+  sequence sharded again), each the other's backward;
+* where ``tp`` does not divide the sequence the residual stays whole:
+  :func:`copy_to_group` (identity, an all-reduce backward) into a block and
+  :func:`reduce_from_group` (all-reduce, identity backward) out of it;
+* :func:`gather_last_dim` (whole logits from vocabulary shards; the
+  backward keeps this rank's slice, since every rank computes the same
+  loss from them) and :func:`grad_share` (identity; the backward divides
+  by the group's size, so that a gradient every rank computes whole is
+  summed over the group like a partial one);
+* :func:`all_reduce_` (in place, no gradient): the vocabulary-parallel
+  loss's row max, sum of exponentials and label logit.
 """
 
 from __future__ import annotations
@@ -27,6 +46,13 @@ import torch.distributed as dist
 
 __all__ = [
     "all_gather",
+    "all_reduce_",
+    "copy_to_group",
+    "gather_last_dim",
+    "grad_share",
+    "reduce_from_group",
+    "sequence_all_gather",
+    "sequence_reduce_scatter",
     "all_to_all",
     "axis_index",
     "axis_size",
@@ -185,3 +211,145 @@ def axis_size(axis: AxisNames, mesh=None) -> int:
     for name in _axes(axis):
         size *= m.size(m.mesh_dim_names.index(name))
     return size
+
+
+# ------------------------------------------------- tensor-parallel collectives
+def all_reduce_(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``x`` reduced over ``group`` in place (``"sum"`` or ``"max"``); no
+    gradient."""
+    dist.all_reduce(x, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op], group=group)
+    return x
+
+
+def _gather_seq(x: torch.Tensor, group) -> torch.Tensor:
+    """(B, s, ...) on each of n ranks -> (B, n * s, ...), rank order."""
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=group)
+    out = out.view(n, *x.shape)
+    return out.movedim(0, 1).reshape(x.shape[0], n * x.shape[1], *x.shape[2:])
+
+
+def _scatter_seq(x: torch.Tensor, group) -> torch.Tensor:
+    """(B, S, ...) partial sums -> this rank's (B, S / n, ...) of their sum."""
+    n = dist.get_world_size(group)
+    b, s = x.shape[:2]
+    parts = x.reshape(b, n, s // n, *x.shape[2:]).movedim(1, 0).contiguous()
+    out = x.new_empty(parts.shape[1:])
+    dist.reduce_scatter_tensor(out, parts.view(n * b, *parts.shape[2:]), group=group)
+    return out
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(x, group=group)
+    return x
+
+
+class _SequenceAllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _gather_seq(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _scatter_seq(grad, ctx.group), None
+
+
+class _SequenceReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _scatter_seq(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_seq(grad, ctx.group), None
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherLastDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        n = dist.get_world_size(group)
+        ctx.rank, ctx.width = dist.get_rank(group), x.shape[-1]
+        x = x.contiguous()
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=group)
+        return out.view(n, *x.shape).movedim(0, -2).reshape(*x.shape[:-1], n * x.shape[-1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(-1, ctx.rank * ctx.width, ctx.width), None
+
+
+class _GradShare(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad / ctx.n, None
+
+
+def sequence_all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's (B, S/n, ...) sequence block, concatenated on dim 1 in
+    rank order; the backward reduce-scatters the gradient along dim 1."""
+    return _SequenceAllGather.apply(x, group)
+
+
+def sequence_reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of (B, S, ...), this rank's block of S/n on
+    dim 1; the backward all-gathers the gradient along dim 1. S must be a
+    multiple of the group's size."""
+    n = dist.get_world_size(group)
+    if x.shape[1] % n:
+        raise ValueError(f"sequence_reduce_scatter: the sequence ({x.shape[1]}) is not a multiple "
+                         f"of the group's size {n}")
+    return _SequenceReduceScatter.apply(x, group)
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as it is; the backward sums the gradient over ``group``."""
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``; the backward passes the gradient
+    through."""
+    return _ReduceFromGroup.apply(x, group)
+
+
+def gather_last_dim(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's shard of the last dim, concatenated in rank order; the
+    backward keeps this rank's slice of the gradient."""
+    return _GatherLastDim.apply(x, group)
+
+
+def grad_share(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` as it is; the backward divides the gradient by ``n``."""
+    return _GradShare.apply(x, n)

@@ -11,6 +11,15 @@ product) instead of keeping them. Plain PyTorch, as the JAX package
 computes it in ``jnp`` outside any Pallas kernel: each chunk is one GEMM
 with f32 products and output from operands in the hidden states' dtype,
 as the port's LM head computes its logits.
+
+Under tensor parallelism the logits are split over the vocabulary and no
+rank holds them whole: :func:`vocab_parallel_nll` (the dense loss) and the
+chunked loss with ``tp_group`` take each row's max, sum of exponentials and
+label logit over the rank's block and all-reduce them over ``tp``
+(Megatron's vocabulary-parallel cross entropy); the backward needs no
+collective, since every rank computes the same loss, and the hidden
+states' gradient from the rank's block is summed by the collective that
+gathered them.
 """
 
 from __future__ import annotations
@@ -19,7 +28,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["chunked_softmax_cross_entropy"]
+__all__ = ["chunked_softmax_cross_entropy", "vocab_parallel_nll"]
 
 _NEG_BIG = -1e30  # the running max before the first chunk, as in JAX
 
@@ -37,13 +46,52 @@ def _capped(raw: torch.Tensor, softcap: Optional[float]) -> torch.Tensor:
     return raw if softcap is None else softcap * torch.tanh(raw / softcap)
 
 
+class _VocabParallelNLL(torch.autograd.Function):
+    """Per-row negative log-likelihood from this rank's (N, V/tp) block of
+    f32 logits; ``labels`` are offsets into the block (a row whose label is
+    another rank's has none here)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, group):
+        from .collectives import all_reduce_
+
+        width = logits.shape[-1]
+        m = all_reduce_(logits.amax(dim=-1), group, "max")
+        s = all_reduce_(torch.exp(logits - m[..., None]).sum(dim=-1), group)
+        inside = (labels >= 0) & (labels < width)
+        local = labels.clamp(0, width - 1)
+        label_logit = torch.where(inside, logits.gather(-1, local[..., None])[..., 0], 0.0)
+        all_reduce_(label_logit, group)
+        lse = torch.log(s) + m
+        ctx.save_for_backward(logits, lse, local, inside)
+        return lse - label_logit
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, lse, local, inside = ctx.saved_tensors
+        d = torch.exp(logits - lse[..., None]) * grad[..., None]
+        d.scatter_add_(-1, local[..., None], -(grad * inside)[..., None])
+        return d, None, None
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor, vocab_start: int,
+                       group) -> torch.Tensor:
+    """Per-token ``logsumexp(logits) - logits[label]`` over the whole
+    vocabulary from this rank's block (``logits`` (..., V/tp) f32, its first
+    column ``vocab_start``), the same value on every rank of ``group``;
+    ``labels`` index the whole vocabulary."""
+    return _VocabParallelNLL.apply(logits, labels.long() - vocab_start, group)
+
+
 class _ChunkedNLL(torch.autograd.Function):
     """Per-row negative log-likelihood of ``softmax(hidden @ kernel)`` at
     ``labels``, over vocabulary chunks; saves (hidden, kernel, labels, lse)
-    and recomputes each chunk in the backward."""
+    and recomputes each chunk in the backward. With ``group`` the kernel is
+    this rank's vocabulary block and ``labels`` offsets into it: the row
+    statistics are all-reduced over the group after the last chunk."""
 
     @staticmethod
-    def forward(ctx, hidden, kernel, labels, chunk_size, softcap):
+    def forward(ctx, hidden, kernel, labels, chunk_size, softcap, group):
         n, v = hidden.shape[0], kernel.shape[1]
         m = torch.full((n,), _NEG_BIG, dtype=torch.float32, device=hidden.device)
         s = torch.zeros((n,), dtype=torch.float32, device=hidden.device)
@@ -58,6 +106,13 @@ class _ChunkedNLL(torch.autograd.Function):
             local = (labels - c0).clamp(0, c1 - c0 - 1)
             in_chunk = (labels >= c0) & (labels < c1)
             label_logit = torch.where(in_chunk, logits.gather(1, local[:, None])[:, 0], label_logit)
+        if group is not None:
+            from .collectives import all_reduce_
+
+            m_all = all_reduce_(m.clone(), group, "max")
+            s = all_reduce_(s * torch.exp(m - m_all), group)
+            m = m_all
+            all_reduce_(label_logit, group)
         lse = m + torch.log(s.clamp_min(1e-30))
         ctx.save_for_backward(hidden, kernel, labels, lse)
         ctx.chunk_size, ctx.softcap = chunk_size, softcap
@@ -91,7 +146,7 @@ class _ChunkedNLL(torch.autograd.Function):
                 dh += _f32_product(d, k_chunk.T)
             if dk is not None:
                 dk[:, c0:c1] = hidden.T @ d
-        return (None if dh is None else dh.to(hidden.dtype)), dk, None, None, None
+        return (None if dh is None else dh.to(hidden.dtype)), dk, None, None, None, None
 
 
 def chunked_softmax_cross_entropy(
@@ -104,6 +159,8 @@ def chunked_softmax_cross_entropy(
     logit_dtype=torch.float32,
     reduction: str = "mean",
     logit_softcap: Optional[float] = None,
+    vocab_start: int = 0,
+    tp_group=None,
 ) -> torch.Tensor:
     """Cross entropy of ``softmax(hidden @ head_kernel)`` against ``labels``
     without the full logits. ``hidden`` (B, S, D), ``head_kernel`` (D, V)
@@ -113,7 +170,10 @@ def chunked_softmax_cross_entropy(
     Labels < 0 (HF's -100) are left out: without ``loss_mask`` the mask is
     ``labels >= 0``; an explicit ``loss_mask`` wins. Returns the masked
     mean (``reduction="mean"``, divided by ``max(sum(mask), 1)``) or sum
-    (``"sum"``) in f32."""
+    (``"sum"``) in f32. With ``tp_group``, ``head_kernel`` is this rank's
+    (D, V/tp) block of the head from column ``vocab_start`` (tensor
+    parallelism): the loss is the whole vocabulary's on every rank, and the
+    gradient of ``hidden`` is this block's share."""
     if logit_dtype != torch.float32:
         raise ValueError(f"the chunk logits are f32 (logit_dtype=torch.float32), got {logit_dtype}")
     if reduction not in ("mean", "sum"):
@@ -127,7 +187,8 @@ def chunked_softmax_cross_entropy(
                          "do not match")
     mask = (labels >= 0).float() if loss_mask is None else loss_mask.float()
     nll = _ChunkedNLL.apply(hidden.reshape(b * s, d), head_kernel,
-                            labels.reshape(-1).clamp_min(0).long(), chunk_size, logit_softcap)
+                            labels.reshape(-1).clamp_min(0).long() - vocab_start, chunk_size,
+                            logit_softcap, tp_group)
     total = (nll.reshape(b, s) * mask).sum()
     if reduction == "sum":
         return total

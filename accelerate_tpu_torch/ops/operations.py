@@ -155,23 +155,27 @@ def pad_input_tensors(tensor, batch_size: int, num_processes: int, dim: int = 0)
     return recursively_apply(_pad, tensor)
 
 
-def reduce(tensor, reduction: str = "mean", scale: float = 1.0):
+def reduce(tensor, reduction: str = "mean", scale: float = 1.0, groups=None):
     """The element-wise sum (or mean) of each process's tensors, times
-    ``scale``; ``"none"`` only scales."""
+    ``scale``; ``"none"`` only scales. ``groups``: the process groups to
+    sum over in turn (None: the world; empty: none)."""
     if reduction not in ("sum", "mean", "none"):
         raise ValueError(f"reduction must be sum|mean|none, got {reduction!r}")
     state = PartialState()
     dist = _world()
+    groups = [None] if groups is None else list(groups)
 
     def _reduce(t):
         out = t.clone()
         if state.num_processes > 1 and reduction != "none":
             buf = _on_comm_device(out)
-            dist.all_reduce(buf)
+            count = 1
+            for group in groups:
+                dist.all_reduce(buf, group=group)
+                count *= dist.get_world_size(group)
             out = buf.to(t.device)
             if reduction == "mean":
-                out = out / state.num_processes if out.is_floating_point() \
-                    else out // state.num_processes
+                out = out / count if out.is_floating_point() else out // count
         return out * scale if scale != 1.0 else out
 
     return recursively_apply(_reduce, tensor)

@@ -15,6 +15,14 @@ global one (each rank's local squares summed over the sharded mesh dims),
 so every rank clips by the same factor, and the fp16 finite check is
 agreed by every process; the returned norm is a plain tensor.
 
+Under tensor parallelism with a sequence-parallel residual a parameter
+replicated over ``tp`` (every norm scale) holds on each ``tp`` rank the
+gradient of its block of the sequence: once an update, before anything
+reads them, those are summed over ``tp`` (``tp_replicated``), while the
+data-parallel mean stays FSDP2's. The norm then counts such a gradient
+once (its placement is ``Replicate``) and sums the squares of split ones
+over ``tp`` and ``dp_shard``.
+
 ``state_dict``/``load_state_dict`` round-trip the wrapped optimizer's
 state (torch AdamW's moments and step counters), the update count and
 the fp16 loss scale; a checkpoint (``checkpointing.py``) writes the
@@ -29,6 +37,7 @@ every parameter. Their default ``weight_decay`` differs (1e-4 against
 from __future__ import annotations
 
 import functools
+import math
 from typing import List, Optional
 
 import torch
@@ -112,12 +121,13 @@ def _sharded_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     shards: each shard's squares summed over the mesh dims it is sharded
     on (a replicated dim holds copies), then the plain ones added."""
     import torch.distributed as dist
-    from torch.distributed.tensor import Shard
 
     buckets: dict = {}
     for g in grads:
         if _is_dtensor(g):
-            dims = tuple(i for i, pl in enumerate(g.placements) if isinstance(pl, Shard))
+            # a split dim: Shard, or FSDP2's strided shard of a dim tp splits too
+            dims = tuple(i for i, pl in enumerate(g.placements)
+                         if not (pl.is_replicate() or pl.is_partial()))
             key = (id(g.device_mesh), dims)
             mesh = g.device_mesh
             g = g.to_local()
@@ -179,8 +189,14 @@ class AcceleratedOptimizer:
         self._unscaled = False
         self._last_grad_norm: Optional[torch.Tensor] = None
         # parameters left whole under FSDP2: their gradients are averaged
-        # across the processes once an update, before any use
+        # over the data-parallel groups (None: the world) once an update,
+        # before any use
         self.replicated: List[torch.Tensor] = []
+        self.dp_groups: list = [None]
+        # parameters replicated over tp: their gradients are summed over
+        # tp_group once an update
+        self.tp_replicated: List[torch.Tensor] = []
+        self.tp_group = None
         self._replicated_synced = False
 
     def params(self) -> List[torch.Tensor]:
@@ -191,16 +207,23 @@ class AcceleratedOptimizer:
         return [p.grad for p in self.params() if p.grad is not None]
 
     def _sync_replicated(self) -> None:
-        """Average the replicated parameters' gradients across the
-        processes, once per update and only on the step that updates."""
-        if not self.replicated or self._replicated_synced or not self.gradient_state.sync_gradients:
+        """Sum the ``tp``-replicated parameters' gradients over ``tp`` and
+        average the ones FSDP2 left whole over the data-parallel ranks,
+        once per update and only on the step that updates."""
+        if (not (self.replicated or self.tp_replicated) or self._replicated_synced
+                or not self.gradient_state.sync_gradients):
             return
         import torch.distributed as dist
 
+        for p in self.tp_replicated:
+            if p.grad is not None:
+                dist.all_reduce(local_tensor(p.grad), group=self.tp_group)
         for p in self.replicated:
             if p.grad is not None:
-                dist.all_reduce(p.grad)
-                p.grad.div_(dist.get_world_size())
+                g = local_tensor(p.grad)
+                for group in self.dp_groups:
+                    dist.all_reduce(g, group=group)
+                g.div_(math.prod(dist.get_world_size(group) for group in self.dp_groups))
         self._replicated_synced = True
 
     def unscale_(self) -> None:

@@ -7,6 +7,12 @@ in row-major order (the last dim varies fastest, so ``dp_shard`` groups are
 neighbouring ranks, the ranks of one host). HSDP's mesh is the 2-D
 ``(dp_replicate, dp_shard)`` one: FSDP2 replicates over the first dim and
 shards over the second.
+
+Tensor parallelism lays every rank on the 3-D ``(dp_replicate, dp_shard,
+tp)`` mesh, ``tp`` innermost (a ``tp`` group is neighbouring ranks on one
+host's NVLink), size-1 dims kept; a parameter's ``tp`` shard lives on the
+``tp`` sub-mesh and FSDP2 shards over the ``dp_shard`` sub-mesh (or HSDP's
+``(dp_replicate, dp_shard)``) of the same root (:func:`sub_mesh`).
 """
 
 from __future__ import annotations
@@ -16,7 +22,14 @@ from typing import Optional, Sequence
 
 from ..utils.constants import MESH_AXIS_ORDER
 
-__all__ = ["build_hybrid_mesh", "build_mesh", "canonical_axis_sizes"]
+__all__ = ["build_hybrid_mesh", "build_mesh", "canonical_axis_sizes", "sub_mesh", "tp_mesh_dims"]
+
+TP_MESH_DIMS = ("dp_replicate", "dp_shard", "tp")
+
+
+def tp_mesh_dims() -> tuple:
+    """The dims of a tensor-parallel layout's mesh, in ``MESH_AXIS_ORDER``."""
+    return tuple(n for n in MESH_AXIS_ORDER if n in TP_MESH_DIMS)
 
 
 def build_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str],
@@ -55,3 +68,14 @@ def canonical_axis_sizes(sizes: dict) -> tuple:
     axes kept."""
     names = tuple(MESH_AXIS_ORDER)
     return tuple(int(sizes.get(n, 1)) for n in names), names
+
+
+def sub_mesh(mesh, names):
+    """The sub-mesh of ``mesh`` over the dims ``names`` (a name or a tuple,
+    in the mesh's order): its ranks are this rank's neighbours along those
+    dims."""
+    names = (names,) if isinstance(names, str) else tuple(names)
+    missing = [n for n in names if n not in (mesh.mesh_dim_names or ())]
+    if missing:
+        raise ValueError(f"the mesh {mesh.mesh_dim_names} has no dim {missing[0]!r}")
+    return mesh[names[0]] if len(names) == 1 else mesh[names]

@@ -1,8 +1,8 @@
-"""How ``prepare_model`` distributes a model over the data-parallel dims
+"""How ``prepare_model`` distributes a model over the mesh's dims
 (counterpart of ``accelerate_tpu/parallel/sharding.py``).
 
 The JAX package writes a ``PartitionSpec`` per parameter and lets XLA
-place the collectives. Here the three layouts are PyTorch's own:
+place the collectives. Here the data-parallel layouts are PyTorch's own:
 
 * ``"ddp"`` (``dp_replicate`` only): ``DistributedDataParallel`` over the
   ``dp_replicate`` group, the gradients views into its buckets; a
@@ -12,6 +12,20 @@ place the collectives. Here the three layouts are PyTorch's own:
   ``MixedPrecisionPolicy``'s ``reduce_dtype``.
 * ``"hsdp"`` (both): ``fully_shard`` on the 2-D ``(dp_replicate,
   dp_shard)`` mesh: replicated over the first dim, sharded over the second.
+
+Under ``tp`` (``tp_size > 1``, or a ``TensorParallelConfig``) the mesh is
+the 3-D ``(dp_replicate, dp_shard, tp)`` one and the model is first laid
+out over its ``tp`` sub-mesh (``parallel/tp.py``: ``DTensor`` blocks, the
+Megatron forward), then:
+
+* ``"tp"``: nothing else (no data-parallel dim);
+* ``"tp_fsdp"`` (``dp_shard``): FSDP2 on the ``dp_shard`` sub-mesh of
+  the same root, per layer: the standard FSDP2 + TP 2-D composition, each
+  parameter a 2-D ``DTensor``;
+* ``"tp_hsdp"`` (``dp_replicate``, with or without ``dp_shard``): FSDP2
+  on the ``(dp_replicate, dp_shard)`` sub-mesh, HSDP's replication over
+  the first dim (at ``dp_shard`` 1 a plain replication: DDP does not take
+  ``DTensor`` parameters).
 
 A Llama is sharded per layer, as the JAX package gathers one layer's
 weights at a time inside its scanned layer (``gather_over_fsdp``): its
@@ -32,22 +46,35 @@ at them and a checkpoint restacks the layers under the stacked keys.
 
 from __future__ import annotations
 
+import weakref
 from typing import Optional
 
 import torch
 from torch import nn
 
-__all__ = ["data_parallel_layout", "layout_mesh", "shard_model", "unwrap_data_parallel"]
+__all__ = ["TP_LAYOUTS", "data_parallel_layout", "layout_mesh", "shard_model",
+           "unwrap_data_parallel"]
+
+
+TP_LAYOUTS = ("tp", "tp_fsdp", "tp_hsdp")
 
 
 def data_parallel_layout(pcfg, fsdp_plugin=None, ddp_handler=None) -> str:
-    """``"ddp"``, ``"fsdp"``, ``"hsdp"`` or ``"none"`` for a validated
-    configuration: ``dp_shard`` above 1 or an ``FSDPPlugin`` shards (HSDP
-    with ``dp_replicate`` above 1 too); else ``dp_replicate`` above 1 or a
-    ``DistributedDataParallelKwargs`` handler replicates."""
+    """``"ddp"``, ``"fsdp"``, ``"hsdp"``, ``"tp"``, ``"tp_fsdp"``,
+    ``"tp_hsdp"`` or ``"none"`` for a validated configuration: under
+    ``tp`` (``tp_size`` above 1 or a ``tp_config``), ``dp_replicate``
+    above 1 replicates through HSDP, else ``dp_shard`` above 1 or an
+    ``FSDPPlugin`` shards; without it, ``dp_shard`` above 1 or an
+    ``FSDPPlugin`` shards (HSDP with ``dp_replicate`` above 1 too), else
+    ``dp_replicate`` above 1 or a ``DistributedDataParallelKwargs`` handler
+    replicates."""
     from ..parallelism_config import refuse_queued_dims
 
     refuse_queued_dims(pcfg.axis_sizes)
+    if pcfg.tp_layout:
+        if pcfg.dp_replicate_size > 1:
+            return "tp_hsdp"
+        return "tp_fsdp" if pcfg.dp_shard_size > 1 or fsdp_plugin is not None else "tp"
     if pcfg.dp_shard_size > 1 or fsdp_plugin is not None:
         return "hsdp" if pcfg.dp_replicate_size > 1 else "fsdp"
     if pcfg.dp_replicate_size > 1 or ddp_handler is not None:
@@ -57,8 +84,11 @@ def data_parallel_layout(pcfg, fsdp_plugin=None, ddp_handler=None) -> str:
 
 def layout_mesh(layout: str, pcfg, device_type: str):
     """The mesh a layout shards over."""
-    from .mesh import build_hybrid_mesh, build_mesh
+    from .mesh import build_hybrid_mesh, build_mesh, tp_mesh_dims
 
+    if layout in TP_LAYOUTS:
+        names = tp_mesh_dims()
+        return build_mesh([pcfg.axis_sizes[n] for n in names], names, device_type)
     if layout == "hsdp":
         return build_hybrid_mesh((pcfg.dp_replicate_size, 1), (1, pcfg.dp_shard_size),
                                  ("dp_replicate", "dp_shard"), device_type)
@@ -88,12 +118,16 @@ def _fsdp_mp_policy(policy, ddp_handler, casts_per_use: bool):
 
 
 def shard_model(model: nn.Module, layout: str, mesh, device: torch.device, fsdp_plugin=None,
-                ddp_handler=None, policy=None) -> tuple:
-    """``(wrapped model, param_map, replicated)``: ``model`` (already on
-    ``device``) wrapped for ``layout`` over ``mesh``; ``param_map`` maps
-    each parameter of ``model`` before the call to ``(new parameters,
-    module names, stacked)``; ``replicated`` lists the parameters FSDP2
-    left whole, whose gradients the optimizer averages."""
+                ddp_handler=None, policy=None, tp_rules=None) -> tuple:
+    """``(wrapped model, param_map, replicated, tp_replicated)``: ``model``
+    (already on ``device``) wrapped for ``layout`` over ``mesh``;
+    ``param_map`` maps each parameter of ``model`` before the call (by id,
+    weakly) to ``(new parameters, module names, stacked)``;
+    ``replicated`` lists the parameters FSDP2 left whole, whose gradients
+    the optimizer averages over the data-parallel ranks;
+    ``tp_replicated`` the parameters replicated over ``tp``, whose
+    gradients it sums over ``tp`` (the ``tp_rules`` in front of the
+    tensor-parallel defaults)."""
     from ..model import unwrap_model
 
     inner = unwrap_model(model)
@@ -113,10 +147,24 @@ def shard_model(model: nn.Module, layout: str, mesh, device: torch.device, fsdp_
             ddp_handler.comm_hook if ddp_handler is not None else "no")
         if hook is not None:
             wrapped.register_comm_hook(group, hook)
-        return wrapped, {p: ([p], [name], False) for name, p in before.items()}, []
+        return wrapped, {id(p): (weakref.ref(p), ([p], [name], False))
+                         for name, p in before.items()}, [], []
 
     from torch.distributed.fsdp import fully_shard
 
+    from .mesh import sub_mesh
+
+    tp_replicated = []
+    if layout in TP_LAYOUTS:
+        from .tp import apply_tensor_parallel
+
+        if hasattr(inner, "unstack_layers"):
+            inner.unstack_layers()
+        tp_replicated = apply_tensor_parallel(inner, sub_mesh(mesh, "tp"), tp_rules)
+        if layout == "tp":
+            return inner, _param_map(inner, before), [], tp_replicated
+        mesh = sub_mesh(mesh, "dp_shard" if layout == "tp_fsdp" else ("dp_replicate", "dp_shard"))
+    tp_names = [n for n, p in inner.named_parameters() if any(p is q for q in tp_replicated)]
     plugin = fsdp_plugin
     reshard = plugin.reshard_after_forward if plugin is not None else True
     casts = getattr(inner, "casts_per_use", False)
@@ -134,15 +182,33 @@ def shard_model(model: nn.Module, layout: str, mesh, device: torch.device, fsdp_
         for child in inner.children():
             if sum(p.numel() for p in child.parameters()) >= min_size:
                 fully_shard(child, **kw)
-    fully_shard(inner, **kw)
+    # the root's weights stay gathered until its backward: a chunked loss
+    # takes the head from the forward's output, after the root's forward
+    fully_shard(inner, **{**kw, "reshard_after_forward": False})
+    # FSDP2 put new parameters in place of the tp-replicated ones
+    named = dict(inner.named_parameters())
+    return inner, _param_map(inner, before), scalars, [named[n] for n in tp_names]
+
+
+def _param_map(inner: nn.Module, before: dict) -> dict:
+    """``{id(parameter before shard_model): (a weak reference to it, (its
+    parameters now, module names, stacked))}``. Weak: once the optimizer
+    is pointed at the new parameters nothing keeps the old ones (a model's
+    whole f32 weights) alive."""
     after = dict(inner.named_parameters())
     if hasattr(inner, "checkpoint_fqns"):
         key_of = {".".join(path): name for path, name in inner._paths}
-        pmap = {before[key_of[key]]: ([after[f] for f in fqns], fqns, stacked)
-                for key, fqns, stacked in inner.checkpoint_fqns()}
+        entries = [(before[key_of[key]], ([after[f] for f in fqns], fqns, stacked))
+                   for key, fqns, stacked in inner.checkpoint_fqns()]
     else:
-        pmap = {p: ([after[name]], [name], False) for name, p in before.items()}
-    return inner, pmap, scalars
+        entries = [(p, ([after[name]], [name], False)) for name, p in before.items()]
+    return {id(p): (weakref.ref(p), entry) for p, entry in entries}
+
+
+def _mapped(param_map: dict, p):
+    """``p``'s entry in a :func:`_param_map`, or None."""
+    ref, entry = param_map.get(id(p), (None, None))
+    return entry if ref is not None and ref() is p else None
 
 
 def remap_optimizer(optimizer: torch.optim.Optimizer, param_map: dict) -> Optional[list]:
@@ -150,7 +216,7 @@ def remap_optimizer(optimizer: torch.optim.Optimizer, param_map: dict) -> Option
     its own (a stacked leaf by its L per-layer ones, in layer order).
     Returns, per original parameter in order, ``(module names, stacked)``,
     the layout a checkpoint restacks by; None when nothing was replaced."""
-    if not any(p in param_map for g in optimizer.param_groups for p in g["params"]):
+    if not any(_mapped(param_map, p) for g in optimizer.param_groups for p in g["params"]):
         return None
     if optimizer.state:
         raise ValueError("prepare the optimizer before its first step: its state is keyed by the "
@@ -159,7 +225,7 @@ def remap_optimizer(optimizer: torch.optim.Optimizer, param_map: dict) -> Option
     for group in optimizer.param_groups:
         new, idx = [], []
         for p in group["params"]:
-            params, fqns, stacked = param_map.get(p, ([p], None, False))
+            params, fqns, stacked = _mapped(param_map, p) or ([p], None, False)
             if fqns is None:
                 raise ValueError("the optimizer holds a parameter of no prepared model")
             new.extend(params)

@@ -10,10 +10,13 @@ one process drives one card (or, with ``cpu=True``, one CPU rank), so the
 total a configuration must match is the world size.
 
 The data-parallel dims run: ``dp_replicate`` as DDP, ``dp_shard`` as FSDP2
-(``fully_shard``), both as HSDP. Tensor parallelism (``tp_size > 1``) waits
-for ROADMAP.md A7; ``cp``, ``sp``, ``pp`` and ``ep`` above 1 wait for
-ROADMAP.md A11. The configuration itself accepts them (its arithmetic is
-the JAX package's); building their mesh raises.
+(``fully_shard``), both as HSDP. ``tp`` runs Megatron tensor parallelism
+with a sequence-parallel residual (``parallel/tp.py``), alone or under
+FSDP2 and HSDP, on the ``(dp_replicate, dp_shard, tp)`` mesh with ``tp``
+innermost: one ``tp`` group is neighbouring ranks, the cards of one host.
+``cp``, ``sp``, ``pp`` and ``ep`` above 1 wait for ROADMAP.md A11. The
+configuration itself accepts them (its arithmetic is the JAX package's);
+building their mesh raises.
 """
 
 from __future__ import annotations
@@ -38,18 +41,17 @@ _AXIS_TO_FIELD = {
     "ep": "ep_size",
 }
 # the dims whose mesh is not ported yet, and the queue item that owns each
-QUEUED_DIMS = {"tp": "A7", "cp": "A11", "sp": "A11", "pp": "A11", "ep": "A11"}
+QUEUED_DIMS = {"cp": "A11", "sp": "A11", "pp": "A11", "ep": "A11"}
 
 
 def refuse_queued_dims(sizes: dict) -> None:
     """Raise for a dim above 1 whose parallelism is not ported yet."""
     for axis, item in QUEUED_DIMS.items():
         if sizes.get(axis, 1) > 1:
-            what = "tensor parallelism" if axis == "tp" else f"{axis} parallelism"
             raise NotImplementedError(
-                f"{_AXIS_TO_FIELD[axis]}={sizes[axis]}: {what} is not ported yet "
-                f"(ROADMAP.md {item}); the port runs dp_replicate (DDP), dp_shard (FSDP2) "
-                "and both (HSDP)")
+                f"{_AXIS_TO_FIELD[axis]}={sizes[axis]}: {axis} parallelism is not ported yet "
+                f"(ROADMAP.md {item}); the port runs dp_replicate (DDP), dp_shard (FSDP2), "
+                "both (HSDP) and tp (tensor parallelism, alone or with them)")
 
 
 @dataclass
@@ -59,8 +61,11 @@ class ParallelismConfig:
 
     * ``dp_replicate``: data-parallel replicas (DDP).
     * ``dp_shard``: parameter, gradient and optimizer-state sharding (FSDP2).
-    * ``pp``, ``cp``, ``sp``, ``tp``, ``ep``: pipeline, context, sequence,
-      tensor and expert parallelism (not ported yet: their mesh raises).
+    * ``tp``: Megatron tensor parallelism with a sequence-parallel
+      residual; ``tp_config`` (a ``TensorParallelConfig``) adds sharding
+      rules and, at ``tp_size=1``, forces the layout (a one-rank ``tp``).
+    * ``pp``, ``cp``, ``sp``, ``ep``: pipeline, context, sequence and
+      expert parallelism (not ported yet: their mesh raises).
     """
 
     dp_replicate_size: int = 1
@@ -218,19 +223,27 @@ class ParallelismConfig:
             cfg._infer_and_validate(total_devices)
         return cfg
 
+    @property
+    def tp_layout(self) -> bool:
+        """Whether the model is laid out over ``tp``: ``tp_size > 1``, or a
+        ``tp_config`` given at ``tp_size=1``."""
+        return self.tp_size > 1 or self.tp_config is not None
+
     def build_device_mesh(self, device_type: Optional[str] = None):
         """A ``torch.distributed.device_mesh.DeviceMesh`` over the active dims
         in canonical order (``init_device_mesh``), on the state's device
         type; a configuration with no dim above 1 gets a one-rank
-        ``("dp_shard",)`` mesh. Needs the process group (the state starts
-        it); a dim that is not ported yet raises."""
-        from .parallel.mesh import build_mesh
+        ``("dp_shard",)`` mesh. Under tensor parallelism the mesh is always
+        the 3-D ``(dp_replicate, dp_shard, tp)``, size-1 dims kept, so
+        FSDP2 and HSDP take their sub-mesh of it. Needs the process group
+        (the state starts it); a dim that is not ported yet raises."""
+        from .parallel.mesh import build_mesh, tp_mesh_dims
         from .state import PartialState
 
         state = PartialState()
         self._infer_and_validate(self._total_devices or state.num_processes)
         refuse_queued_dims(self.axis_sizes)
-        names = self.active_mesh_dims or ("dp_shard",)
+        names = tp_mesh_dims() if self.tp_layout else (self.active_mesh_dims or ("dp_shard",))
         return build_mesh([self.axis_sizes[n] for n in names], names,
                           device_type=device_type or state.device.type)
 

@@ -10,7 +10,10 @@ however many processes it was launched with:
 through ``prepare``/``accumulate``/``backward`` on every process's rows,
 against the same SGD by hand on the whole batch in one process;
 ``llama_check`` holds a tiny Llama's ``train_step`` under the launched
-layout (DDP, FSDP2 or HSDP) to the same bound, with uneven token counts.
+layout (DDP, FSDP2, HSDP, or tensor parallelism alone or with them:
+``--tp_size 4``, ``--tp_size 2 --dp_shard_size 2``) to the same bound,
+with uneven token counts. The ``tp`` ranks of one data-parallel coordinate
+read the same rows: the checks count rows over the data-parallel ranks.
 """
 
 from __future__ import annotations
@@ -30,8 +33,14 @@ def process_control_check(accelerator):
     accelerator.print("process control ok")
 
 
+def _dp_size(accelerator) -> int:
+    """The data-parallel ranks (every process, unless tp ranks share rows)."""
+    return accelerator.num_processes // max(accelerator.parallelism_config.tp_size, 1)
+
+
 def dl_shard_check(accelerator):
-    rows = 8 * accelerator.num_processes
+    dp = _dp_size(accelerator)
+    rows = 8 * dp
     data = {"x": np.arange(float(rows))[:, None]}
     loader = accelerator.prepare_data_loader(data, batch_size=4, drop_last=True)
     seen = [batch["x"] for batch in loader]
@@ -66,17 +75,17 @@ def _regression_loss(model, batch):
 def training_check(accelerator):
     """Data-parallel training equals one process's SGD on the whole batch
     (atol 1e-6): 16-row global batches, split evenly over the processes."""
-    if 16 % accelerator.num_processes:
-        accelerator.print(f"training parity skipped: 16 rows do not split over "
-                          f"{accelerator.num_processes} processes")
+    dp = _dp_size(accelerator)
+    if 16 % dp:
+        accelerator.print(f"training parity skipped: 16 rows do not split over {dp} "
+                          "data-parallel ranks")
         return
     rng = np.random.default_rng(0)
     x = rng.normal(size=64)
     data = {"x": x, "y": 2.0 * x + 3.0 + 0.1 * rng.normal(size=64)}
     model = _Regression()
     optimizer = torch.optim.SGD(model.parameters(), lr=0.1)
-    loader = accelerator.prepare_data_loader(data, batch_size=16 // accelerator.num_processes,
-                                             drop_last=True)
+    loader = accelerator.prepare_data_loader(data, batch_size=16 // dp, drop_last=True)
     model, optimizer = accelerator.prepare(model, optimizer)
     for batch in loader:
         with accelerator.accumulate(model):
@@ -106,10 +115,11 @@ def llama_check(accelerator):
     from accelerate_tpu_torch.models import llama as tl
     from accelerate_tpu_torch.optimizer import clip_grads_by_norm
 
-    n, rank = accelerator.num_processes, accelerator.process_index
+    n, rank = _dp_size(accelerator), accelerator.data_parallel_rank
     rows = 2 * n
-    # head_dim 64: the flash kernels take 64 or 128 on the card
-    cfg = tl.LlamaConfig.tiny(hidden_size=128, num_attention_heads=2, num_key_value_heads=1,
+    # head_dim 64: the flash kernels take 64 or 128 on the card; 4 query and
+    # key/value heads split over tp 4
+    cfg = tl.LlamaConfig.tiny(hidden_size=256, num_attention_heads=4, num_key_value_heads=4,
                               compute_dtype=torch.float32, attention_impl="flash")
     rng = np.random.default_rng(1)
     batches = []
@@ -161,11 +171,14 @@ def checkpoint_check(accelerator, model, opt, cfg):
     accelerator._models.remove(model)
     accelerator._optimizers.remove(opt)
     accelerator.load_state(path)
+    from accelerate_tpu_torch.optimizer import local_tensor
+
     want, got = accelerator.get_state_dict(model), accelerator.get_state_dict(fresh)
     assert all(torch.equal(want[k], got[k]) for k in want), "parameters differ after load_state"
     for a, b in zip(opt.params(), fresh_opt.params()):
         sa, sb = opt.optimizer.state[a], fresh_opt.optimizer.state[b]
-        assert sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+        assert sa.keys() == sb.keys() and all(
+            torch.equal(local_tensor(sa[k]), local_tensor(sb[k])) for k in sa)
     accelerator.wait_for_everyone()
     if accelerator.is_main_process:
         shutil.rmtree(path, ignore_errors=True)

@@ -40,6 +40,7 @@ __all__ = [
     "PipelineParallelConfig",
     "ProjectConfiguration",
     "ServingConfig",
+    "TensorParallelConfig",
     "TrainingHealthConfig",
 ]
 
@@ -116,12 +117,16 @@ class FSDPPlugin(KwargsHandler):
     elements, then the root. ``reshard_after_forward`` frees a unit's
     gathered weights after its forward (gathered again for the backward).
     ``activation_checkpointing`` recomputes each layer in the backward (the
-    Llama's ``remat_policy`` already does). ``cpu_offload``,
-    ``state_dict_type="sharded"`` and ``sharding_rules`` (the JAX
-    package's per-parameter PartitionSpecs) have no FSDP2 counterpart in
-    the port: a checkpoint always holds full tensors, and a non-default
-    value raises. Passing the plugin to a one-process ``Accelerator`` under
-    a ``ParallelismConfig`` shards over a one-rank mesh."""
+    Llama's ``remat_policy`` already does). ``sharding_rules``: ``(regex,
+    dim)`` pairs over the parameter paths, put in front of the tensor-
+    parallel rules (and of a ``TensorParallelConfig``'s), as the JAX
+    package puts its ``(regex, PartitionSpec)`` pairs; they place leaves
+    over ``tp`` (``parallel/tp.py``), while FSDP2 shards every parameter on
+    dim 0. ``cpu_offload`` and ``state_dict_type="sharded"`` have no FSDP2
+    counterpart in the port: a checkpoint always holds full tensors, and a
+    non-default value raises. Passing the plugin to a one-process
+    ``Accelerator`` under a ``ParallelismConfig`` shards over a one-rank
+    mesh."""
 
     min_weight_size: int = 2**10
     reshard_after_forward: bool = True
@@ -146,9 +151,37 @@ class FSDPPlugin(KwargsHandler):
             raise NotImplementedError("FSDPPlugin(cpu_offload=True): FSDP2's CPU offload is not "
                                       "ported (ROADMAP.md A11)")
         if self.sharding_rules:
-            raise NotImplementedError(
-                "FSDPPlugin(sharding_rules=...): per-parameter PartitionSpecs come with tensor "
-                "parallelism (ROADMAP.md A7); FSDP2 shards every parameter on dim 0")
+            from ..parallel.tp import check_rules
+
+            check_rules(self.sharding_rules)
+
+
+@dataclass
+class TensorParallelConfig(KwargsHandler):
+    """Tensor-parallel knobs, with the JAX package's fields and defaults.
+    ``sharding_rules``: ``(regex, dim)`` pairs over the parameter paths
+    (``layers/attn/q_proj/kernel``; ``dim`` indexes the leaf as the
+    checkpoint holds it, stacked ``(L, ...)`` layer leaves included, or is
+    None for a replicated leaf), put in front of
+    :func:`~accelerate_tpu_torch.parallel.tp.tensor_parallel_rules`. A rule
+    that matches no parameter, or that places a leaf where the tensor-
+    parallel forward does not run it, raises by name at ``prepare``.
+    ``enable_async_tp`` is accepted as the JAX package accepts it (XLA
+    overlaps its collectives itself): the port's collectives run in order
+    on the training stream. Given to a ``ParallelismConfig`` at
+    ``tp_size=1``, the model is laid out over a one-rank ``tp``."""
+
+    tp_size: int = 1
+    enable_async_tp: bool = False
+    sharding_rules: Optional[list] = None
+
+    def __post_init__(self):
+        if self.tp_size < 1:
+            raise ValueError(f"tp_size must be >= 1, got {self.tp_size}")
+        if self.sharding_rules:
+            from ..parallel.tp import check_rules
+
+            check_rules(self.sharding_rules)
 
 
 @dataclass

@@ -119,6 +119,22 @@ Phases (any failure exits non-zero and prints no result):
      6's; a DTensor given to the flash wrapper must raise; then save_state
      under FSDP2 at phase 9's depth rule and load_state into a fresh FSDP2
      model, every parameter and moment bitwise
+ 11. (run after 10) tensor parallelism: (a) phase 6's model, seed, batch
+     and step over a one-rank NCCL group, forced to the TP layout by a
+     TensorParallelConfig: every parameter a DTensor block on the tp mesh,
+     the sequence gather/scatter and the vocabulary-parallel loss on the
+     path; the first step's gradients kept, 2 untimed and 8 timed steps
+     with the launch counters reset just before (2L B1, L B2, L B3 a step,
+     counted under training_tp); all ten losses within 1e-2 of phase 6's;
+     step ms, tokens/s, MFU, peak memory, busy share beside phase 6's;
+     (b) four TP ranks on the one card, threads of this process over
+     torch's threaded process group: the same model, weights and batch
+     split over tp=4 (B1-B3 at 8 q heads and 2 kv heads, counted under
+     training_tp4_threads), three steps whose losses are held within 1e-2
+     of (a)'s and whose first-step gradients, gathered whole, within
+     TP_GRAD_TOL of a leaf's largest element of (a)'s; a planted fault
+     (the norm scales' tp gradient sum left out) must exceed that limit.
+     Phase 2 holds B1-B3 at tp=2's and tp=4's local head counts
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Long output goes to chiprun_out/.
 """
@@ -234,11 +250,40 @@ def segments(bounds_per_row, s, dev):
     return torch.stack(rows).to(torch.int32)
 
 
+def check_flash_tp_heads(dev, gen):
+    """B1 (both variants) at the training step's shape with the heads one
+    rank of tp=2 (16 q, 4 kv) and of tp=4 (8 q, 2 kv) holds, against its
+    plain version."""
+    from accelerate_tpu_torch.ops.flash_attention import (
+        flash_attention_reference, flash_attention_with_lse, flash_fwd_kernel_for,
+    )
+
+    b, s, d = 4, 2048, 128
+    for h, h_kv in ((16, 4), (8, 2)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+            k = torch.randn((b, s, h_kv, d), generator=gen, device=dev).to(dtype)
+            v = torch.randn((b, s, h_kv, d), generator=gen, device=dev).to(dtype)
+            out, lse = flash_attention_with_lse(q, k, v, causal=True)
+            ref, ref_lse = flash_attention_reference(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            err = max((out.float() - ref.float()).abs().max().item(),
+                      (lse - ref_lse).abs().max().item())
+            log(f"B1 {flash_fwd_kernel_for(dtype)} {dtype} at tp={32 // h}'s local heads (B={b}, "
+                f"S={s}, H={h}, Hkv={h_kv}, D={d}) max_abs_err={err:.3e} tol={B1_TOL[dtype]:g}")
+            if not err <= B1_TOL[dtype]:
+                raise AssertionError(f"flash_fwd {dtype} at H={h} Hkv={h_kv} disagrees with its "
+                                     "plain version")
+            del q, k, v, out, lse, ref, ref_lse
+    torch.cuda.empty_cache()
+
+
 def check_flash(dev, gen, results):
     from accelerate_tpu_torch.ops.flash_attention import (
         flash_attention_reference, flash_attention_with_lse, flash_fwd_kernel_for,
     )
 
+    check_flash_tp_heads(dev, gen)
     h, h_kv, d = 32, 8, 128
     # serving's prefill shape, then the training step's shape (in the line)
     for b, s in ((1, 512), (4, 2048)):
@@ -350,6 +395,9 @@ BWD_CASES = {
     "ragged_dlse": (2, 1000, 8, 2, 64, dict(dlse=True)),
     "softcap_window": (2, 512, 8, 2, 128, dict(softcap=30.0, window=200)),
     "noncausal": (1, 333, 4, 4, 64, dict(causal=False)),
+    # the training step's heads on one of tp=2 and tp=4 ranks (phase 11)
+    "tp2": (4, 2048, 16, 4, 128, {}),
+    "tp4": (4, 2048, 8, 2, 128, {}),
 }
 
 
@@ -2742,6 +2790,323 @@ def phase_data_parallel(card, phase6):
     return launches, out
 
 
+# ---------------------------------------------------------------- phase 11
+# tensor parallelism: (a) phase 6's step at tp=1 over NCCL, the TP layout
+# forced by a TensorParallelConfig; (b) four TP ranks as threads on the one
+# card. Both run at phase 6's depth, 4 layers.
+TP_THREADS = 4
+TP_THREAD_STEPS = 3
+TP_THREAD_TIMEOUT_S = 300
+# (b)'s first-step gradients against (a)'s, leaf by leaf: max |g - g_a| over
+# max |g_a|. Tensor parallelism sums each row-parallel product's bf16
+# partial sums over the ranks (each rounded to bf16 before the sum) where
+# one rank rounds one GEMM's f32 sum, so the residual stream and every
+# gradient downstream of it move by a few bf16 ulps (2^-8 each) of the
+# largest element; a norm scale's gradient without its tp sum keeps a
+# quarter of it, off by 0.75 of it
+TP_GRAD_TOL = 2.0 ** -5
+
+
+class _CallCounter:
+    """Counts calls of the module functions it wraps (the tensor-parallel
+    collectives and the vocabulary-parallel loss), as the forward calls
+    them."""
+
+    def __init__(self, targets):
+        self.targets, self.counts, self.saved = targets, {}, []
+
+    def __enter__(self):
+        for module, name in self.targets:
+            fn = getattr(module, name)
+            self.saved.append((module, name, fn))
+
+            def wrapped(*a, _fn=fn, _name=name, **kw):
+                self.counts[_name] = self.counts.get(_name, 0) + 1
+                return _fn(*a, **kw)
+
+            setattr(module, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
+
+
+def tp_counters():
+    from accelerate_tpu_torch.models import llama as tl
+    from accelerate_tpu_torch.ops import losses
+
+    return _CallCounter([(tl, "sequence_all_gather"), (tl, "sequence_reduce_scatter"),
+                         (tl, "copy_to_group"), (tl, "reduce_from_group"),
+                         (losses, "vocab_parallel_nll")])
+
+
+def whole_gradients(model, optimizer, to_host=True):
+    """Every gradient whole (tp sums done, blocks gathered) under its
+    checkpoint key, restacked; on the host."""
+    optimizer.grads()
+    named = dict(model.named_parameters())
+
+    def whole(name):
+        g = named[name].grad
+        g = g.full_tensor() if hasattr(g, "full_tensor") else g
+        return g.detach().float().cpu() if to_host else g.detach()
+
+    return {key: torch.stack([whole(f) for f in fqns]) if stacked else whole(fqns[0])
+            for key, fqns, stacked in model.checkpoint_fqns()}
+
+
+def tp_run(card, phase6):
+    """Phase 11 (a): the TP layout over the one-rank group; returns
+    (launches, numbers, first-step gradients on the host, the batch)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models.llama import LlamaConfig, create_llama, llama_flops_per_token, llama_loss
+    from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+    from accelerate_tpu_torch.utils.dataclasses import TensorParallelConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    AcceleratorState._reset_state(reset_partial_state=True)
+    GradientState._reset_state()
+    acc = Accelerator(mixed_precision="bf16",
+                      parallelism_config=ParallelismConfig(tp_config=TensorParallelConfig()))
+    if acc.layout != "tp":
+        raise AssertionError(f"phase 11: asked for the TP layout, the Accelerator chose {acc.layout}")
+    t0 = time.perf_counter()
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=TRAIN_LAYERS, attention_impl="flash")
+    model = create_llama(cfg, seed=0, device=acc.device)
+    optimizer = torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=0.01)
+    model, optimizer = acc.prepare(model, optimizer)
+    params = dict(model.named_parameters())
+    split = [n for n, p in params.items() if isinstance(p, DTensor) and isinstance(p.placements[0], Shard)]
+    whole = [n for n, p in params.items() if isinstance(p, DTensor) and isinstance(p.placements[0], Replicate)]
+    if len(split) + len(whole) != len(params) or model.tp is None or not split or not whole:
+        raise AssertionError(f"phase 11 (a): {len(split)} split and {len(whole)} replicated DTensors "
+                             f"of {len(params)} parameters, model.tp {model.tp}")
+    rng = np.random.default_rng(0)
+    data = {"input_ids": rng.integers(0, cfg.vocab_size, size=(4 * TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)}
+    loader = acc.prepare_data_loader(data, batch_size=TRAIN_BATCH, drop_last=True)
+    batch = next(iter(loader))  # phase 6's batch
+    # the first step's gradients (phase 11 (b) holds its own against them)
+    with tp_counters() as calls:
+        acc.backward(llama_loss, batch)
+    grads = whole_gradients(model, optimizer)
+    optimizer.zero_grad()
+    step_fn = acc.train_step(llama_loss, max_grad_norm=1.0)
+    torch.cuda.synchronize()
+    log(f"phase 11 (a) TP layout over mesh {acc.mesh}: {len(split)} parameters split over tp "
+        f"(Shard), {len(whole)} replicated; one forward and backward called {calls.counts} "
+        f"[{card}]")
+    if not calls.counts.get("vocab_parallel_nll") or not calls.counts.get("sequence_all_gather") \
+            or not calls.counts.get("sequence_reduce_scatter"):
+        raise AssertionError(f"phase 11 (a): the tensor-parallel path did not run ({calls.counts})")
+    losses = [step_fn(batch) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses += [step_fn(batch) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [l.item() for l in losses]
+    expected = {"flash_fwd_mma": 2 * TRAIN_LAYERS * TRAIN_STEPS,
+                "flash_bwd_dq_mma": TRAIN_LAYERS * TRAIN_STEPS,
+                "flash_bwd_dkv_mma": TRAIN_LAYERS * TRAIN_STEPS}
+    check_launches(f"phase 11 (a) tp ({TRAIN_STEPS} steps)", launches, expected)
+    ref = phase6["losses"]
+    first_bitwise = losses[0] == ref[0]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    log(f"phase 11 (a) tp losses {[round(l, 4) for l in losses]}; phase 6 {[round(l, 4) for l in ref]}; "
+        f"first step bitwise equal to phase 6's: {first_bitwise} (the one-rank gather, scatter and "
+        f"vocabulary all-reduces copy; the embedding's masked lookup and the loss's max, sum and "
+        f"log are phase 6's operations in its order); largest relative difference over the 10 "
+        f"steps {worst:.3e} (limit {TRAIN_VARIANT_LOSS_RTOL})")
+    if not worst <= TRAIN_VARIANT_LOSS_RTOL:
+        raise AssertionError(f"phase 11 (a): losses {worst:.3e} from phase 6's")
+    step_ms = wall / TRAIN_STEPS * 1e3
+    tokens_per_s = TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ / wall
+    mfu = tokens_per_s * llama_flops_per_token(cfg, TRAIN_SEQ) / PEAK_FLOPS[torch.bfloat16]
+    profile = profile_train_step(step_fn, batch, step_ms, card, label="phase 11 (a) tp",
+                                 name="train_tp")
+    busy = profile["busy_share"] if profile else None
+    log(f"phase 11 (a) tp train step {step_ms:.1f} ms, {tokens_per_s:.0f} tokens/s, MFU {mfu:.4f}, "
+        f"peak memory {peak / 1e9:.2f} GB, busy share {busy if busy is None else round(busy, 3)}, "
+        f"launches {dict((k, launches[k]) for k in expected)}; phase 6 in this call: "
+        f"{phase6['step_ms']:.1f} ms, {phase6['tokens_per_s']:.0f} tokens/s, MFU {phase6['mfu']:.4f}, "
+        f"peak {phase6['peak_memory_bytes'] / 1e9:.2f} GB, busy share "
+        f"{(phase6.get('profile') or {}).get('busy_share')} [{card}]")
+    if peak > PEAK_MEMORY_LIMIT:
+        raise AssertionError(f"phase 11 (a): peak memory {peak / 1e9:.1f} GB")
+    del loader, step_fn, model, optimizer, acc
+    return {k: launches[k] for k in expected}, dict(
+        losses=losses, first_loss_bitwise=first_bitwise, worst_loss_rel=worst, step_ms=step_ms,
+        tokens_per_s=tokens_per_s, mfu=mfu, peak_memory_bytes=peak, profile=profile,
+        calls=calls.counts), grads, {k: v.clone() for k, v in batch.items()}
+
+
+def tp_threads(card, ref_losses, ref_grads, batch, fault=False):
+    """Phase 11 (b): TP_THREADS ranks of tp, threads of this process over
+    torch's threaded process group on the one card, each holding its blocks
+    of the seed-0 model; TP_THREAD_STEPS steps of llama_loss, backward, the
+    optimizer's tp sum, clipping at 1.0 and AdamW. Returns (launches, losses,
+    worst gradient error over leaves by leaf, its worst leaf)."""
+    import threading
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed import multi_threaded_pg
+
+    from accelerate_tpu_torch.big_modeling import init_empty_weights
+    from accelerate_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, create_llama, llama_loss
+    from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.optimizer import AcceleratedOptimizer
+    from accelerate_tpu_torch.parallel.tp import apply_tensor_parallel
+
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=TRAIN_LAYERS, attention_impl="flash")
+    full = create_llama(cfg, seed=0, device="cuda")  # (a)'s weights
+    tree = {key: getattr(full, name).detach() for key, name in full.checkpoint_keys()}
+    with init_empty_weights():
+        shells = [create_llama(cfg) for _ in range(TP_THREADS)]
+    store = dist.HashStore()
+    out = {"losses": {}, "grads": {}, "errors": {}}
+    world = multi_threaded_pg._install_threaded_pg()
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    _build.reset_launch_counts()
+
+    def rank(r):
+        try:
+            dist.init_process_group("threaded", rank=r, world_size=TP_THREADS, store=store)
+            mesh = init_device_mesh("cuda", (TP_THREADS,), mesh_dim_names=("tp",))
+            model = shells[r]
+            model.unstack_layers()
+            replicated = apply_tensor_parallel(
+                model, mesh, source=lambda key, layer: tree[key] if layer is None else tree[key][layer])
+            opt = AcceleratedOptimizer(torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999),
+                                                         eps=1e-8, weight_decay=0.01))
+            # the planted fault: the replicated parameters' tp sum left out
+            opt.tp_replicated = [] if fault else replicated
+            opt.tp_group, opt.dp_groups = mesh.get_group(), []
+            losses = []
+            for step in range(TP_THREAD_STEPS):
+                loss = llama_loss(model, batch)
+                loss.backward()
+                if step == 0:
+                    opt.grads()
+                    named = dict(model.named_parameters())
+                    out["grads"][r] = {key: [named[f].grad.to_local().detach().clone() for f in fqns]
+                                       for key, fqns, _ in model.checkpoint_fqns()}
+                opt.clip_grad_norm_(1.0)
+                opt.step()
+                opt.zero_grad()
+                losses.append(loss.item())
+            out["losses"][r] = losses
+            out["placements"] = {key: named[fqns[0]].placements[0] for key, fqns, _ in model.checkpoint_fqns()}
+            dist.barrier()
+        except BaseException as e:  # handed to the main thread, which raises it
+            out["errors"][r] = e
+            raise
+
+    # daemons: a rank left waiting in a collective when another failed does
+    # not keep the process alive
+    threads = [threading.Thread(target=rank, args=(r,), daemon=True) for r in range(TP_THREADS)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=TP_THREAD_TIMEOUT_S)
+        if any(t.is_alive() for t in threads) and not out["errors"]:
+            raise AssertionError(f"phase 11 (b): a tp thread still runs after {TP_THREAD_TIMEOUT_S}s")
+    finally:
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+        multi_threaded_pg._uninstall_threaded_pg()
+        del world
+    if out["errors"]:
+        raise next(iter(out["errors"].values()))
+    launches = _build.launch_counts()
+    del full, tree, shells
+    # gather each leaf's blocks whole, restacked, and hold them against (a)'s
+    worst, worst_key = 0.0, None
+    for key, ref in ref_grads.items():
+        placement = out["placements"][key]
+        parts = [torch.stack(out["grads"][r][key]) if len(out["grads"][r][key]) > 1
+                 else out["grads"][r][key][0] for r in range(TP_THREADS)]
+        stacked = len(out["grads"][0][key]) > 1
+        if hasattr(placement, "dim"):
+            got = torch.cat(parts, dim=placement.dim + (1 if stacked else 0))
+        else:
+            got = parts[0]
+        ref_dev = ref.to(got.device)
+        err = ((got.float() - ref_dev).abs().max() / ref_dev.abs().max()).item()
+        if err > worst:
+            worst, worst_key = err, key
+    losses = out["losses"]
+    if any(losses[r] != losses[0] for r in range(TP_THREADS)):
+        raise AssertionError(f"phase 11 (b): the tp ranks computed different losses {losses}")
+    return launches, losses[0], worst, worst_key
+
+
+def phase_tensor_parallel(card, phase6):
+    """Phase 11: (a) over a one-rank NCCL group (ended after), then (b) and
+    its planted fault over torch's threaded group on the one card."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_rdzv_")
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        launches_a, out, grads, batch = tp_run(card, phase6)
+    finally:
+        AcceleratorState._reset_state(reset_partial_state=True)
+        GradientState._reset_state()
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    ref = out["losses"][:TP_THREAD_STEPS]
+    t0 = time.perf_counter()
+    launches_b, losses, err, leaf = tp_threads(card, ref, grads, batch)
+    secs = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, fault_losses, fault_err, fault_leaf = tp_threads(card, ref, grads, batch, fault=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    expected = {"flash_fwd_mma": 2 * TRAIN_LAYERS * TP_THREAD_STEPS * TP_THREADS,
+                "flash_bwd_dq_mma": TRAIN_LAYERS * TP_THREAD_STEPS * TP_THREADS,
+                "flash_bwd_dkv_mma": TRAIN_LAYERS * TP_THREAD_STEPS * TP_THREADS}
+    check_launches(f"phase 11 (b) {TP_THREADS} tp threads ({TP_THREAD_STEPS} steps, 8 q and 2 kv "
+                   "heads a rank)", launches_b, expected)
+    log(f"phase 11 (b) {TP_THREADS} tp ranks as threads on one card ({secs:.1f}s): losses "
+        f"{[round(l, 4) for l in losses]} against (a)'s {[round(l, 4) for l in ref]}, largest relative "
+        f"difference {worst:.3e} (limit {TRAIN_VARIANT_LOSS_RTOL}); first-step gradients gathered "
+        f"whole against (a)'s: worst leaf {leaf} at {err:.3e} of its largest element (limit "
+        f"{TP_GRAD_TOL:.4g}); planted fault (norm scales' tp gradient sum left out): worst leaf "
+        f"{fault_leaf} at {fault_err:.3e}, losses {[round(l, 4) for l in fault_losses]} [{card}]")
+    if not worst <= TRAIN_VARIANT_LOSS_RTOL:
+        raise AssertionError(f"phase 11 (b): losses {worst:.3e} from (a)'s")
+    if not err <= TP_GRAD_TOL:
+        raise AssertionError(f"phase 11 (b): gradient of {leaf} {err:.3e} from (a)'s")
+    if not fault_err > TP_GRAD_TOL:
+        raise AssertionError("phase 11 (b): the gradient check cannot see the norm scales' missing "
+                             f"tp sum ({fault_err:.3e})")
+    out["threads"] = dict(losses=losses, worst_loss_rel=worst, worst_grad_rel=err, worst_grad_leaf=leaf,
+                          fault_worst_grad_rel=fault_err, fault_leaf=fault_leaf, seconds=secs)
+    return launches_a, {k: launches_b[k] for k in expected}, out
+
+
 # ----------------------------------------------------------------- phase 9
 # a resumable fine-tune (the port of examples/by_feature/fault_tolerance.py
 # and packed_sft.py): seeded documents packed by the native packer into
@@ -3469,6 +3834,8 @@ def run_phases(args) -> int:
         by_path["training_resume"], summary["resume"] = phase_resume(card, summary["train_main_path"])
         dp_launches, summary["data_parallel"] = phase_data_parallel(card, summary["train_main_path"])
         by_path["training_ddp"], by_path["training_fsdp2"] = dp_launches["ddp"], dp_launches["fsdp"]
+        by_path["training_tp"], by_path["training_tp4_threads"], summary["tensor_parallel"] = (
+            phase_tensor_parallel(card, summary["train_main_path"]))
         for counts in by_path.values():
             for name, n in counts.items():
                 launches[name] += n

@@ -255,13 +255,19 @@ def test_data_loader_shuffles_like_the_jax_sampler_and_flags_the_end():
 
 
 def test_what_waits_for_the_distributed_slice_raises():
-    # the data-parallel dims landed (tests/test_torch_distributed_train.py);
-    # tensor parallelism waits for A7, cp/sp/pp/ep for A11
-    for axis, item in (("tp", "A7"), ("cp", "A11"), ("sp", "A11"), ("pp", "A11"), ("ep", "A11")):
+    # the data-parallel dims and tensor parallelism landed
+    # (tests/test_torch_distributed_train.py, test_torch_tensor_parallel.py);
+    # cp/sp/pp/ep wait for A11
+    for axis, item in (("cp", "A11"), ("sp", "A11"), ("pp", "A11"), ("ep", "A11")):
         cfg = ParallelismConfig(**{f"{axis}_size": 2})
         cfg._infer_and_validate(2)
         with pytest.raises(NotImplementedError, match=rf"ROADMAP.md {item}\b"):
             data_parallel_layout(cfg)
+    for sizes, layout in ((dict(tp_size=2), "tp"), (dict(tp_size=2, dp_shard_size=2), "tp_fsdp"),
+                          (dict(tp_size=2, dp_replicate_size=2), "tp_hsdp")):
+        cfg = ParallelismConfig(**sizes)
+        cfg._infer_and_validate(cfg.total_size)
+        assert data_parallel_layout(cfg) == layout
     for hook, match in (("powersgd", r"PowerSGD.*ROADMAP.md A11"), ("bf16", "gradient-compression")):
         AcceleratorState._reset_state(reset_partial_state=True)
         acc = Accelerator(cpu=True, kwargs_handlers=[DistributedDataParallelKwargs(comm_hook=hook)])
@@ -312,23 +318,34 @@ def test_refusals_name_their_queue_items():
     acc.train_step(regression_loss)({k: torch.from_numpy(v[:2]) for k, v in data.items()})
     sched.step()
     assert sched.step_count == 1 and sched.get_last_lr() == [LR * 0.5]
-    # A7's data-parallel half landed; what stays names A7 (tensor
-    # parallelism, replicas, the launch supervisor) or A11
+    # A7's data-parallel half and tensor parallelism landed; what stays
+    # names A7 (replicas, the launch supervisor) or A11
     from accelerate_tpu_torch.commands import launch
+    from accelerate_tpu_torch.models import llama as tl
+    from accelerate_tpu_torch.parallel import tp as ttp
     from accelerate_tpu_torch.parallelism_config import refuse_queued_dims
     from accelerate_tpu_torch.utils.dataclasses import FSDPPlugin, ServingConfig
 
-    for axis, item in (("tp", "A7"), ("cp", "A11"), ("sp", "A11"), ("pp", "A11"), ("ep", "A11")):
+    refuse_queued_dims({"tp": 2})
+    for axis, item in (("cp", "A11"), ("sp", "A11"), ("pp", "A11"), ("ep", "A11")):
         with pytest.raises(NotImplementedError, match=rf"ROADMAP.md {item}\b"):
             refuse_queued_dims({axis: 2})
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md A11\b"):
+        ttp.tensor_parallel_rules(layer_axis="pp")
+    with pytest.raises(ValueError, match=r"num_key_value_heads.*ROADMAP.md A11\b"):
+        ttp.check_tp_divides(tl.LlamaConfig.tiny(), 4)
+    with pytest.raises(NotImplementedError, match=r"alternating.*ROADMAP.md A11\b"):
+        tl.LlamaForCausalLM(tl.LlamaConfig.gemma2_9b(num_hidden_layers=1), {})
     for argv in (["--max_restarts", "1"], ["--watchdog_timeout", "5"], ["--handle_preemption"],
                  ["--replicate_to", "/r"]):
         with pytest.raises(NotImplementedError, match=r"ROADMAP.md A7\b"):
             launch.main([*argv, "--dry_run", "script.py"])
     with pytest.raises(NotImplementedError, match=r"ROADMAP.md A7\b"):
         Accelerator(cpu=True, replication_config=object())
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md A7\b"):
-        FSDPPlugin(sharding_rules=[(".*", None)])
+    # sharding rules landed with tensor parallelism: (regex, dim) pairs
+    assert FSDPPlugin(sharding_rules=[(".*norm", None)]).sharding_rules == [(".*norm", None)]
+    with pytest.raises(TypeError, match=r"\(regex, dim\)"):
+        FSDPPlugin(sharding_rules=[(".*", object())])
     with pytest.raises(NotImplementedError, match=r"ROADMAP.md A11\b"):
         FSDPPlugin(cpu_offload=True)
     AcceleratorState._reset_state(reset_partial_state=True)
@@ -435,10 +452,6 @@ def test_init_empty_weights_include_buffers_and_sampler_generator():
 TPU = "TPU-only"
 SIGNATURE_EXEMPT = {
     "accelerator:Accelerator.train_step": {"donate": TPU, "flatten_params": TPU},
-    "big_modeling:cpu_offload": {"execution_mesh": "A7"},
-    "big_modeling:dispatch_model": {"rules": "A7", "fsdp_axes": "A7"},
-    "big_modeling:get_max_memory": {"mesh": "A7"},
-    "big_modeling:load_checkpoint_and_dispatch": {"rules": "A7", "fsdp_axes": "A7"},
     "engine:SlotOccupant.__init__": {"trace_id": "A10"},
     "kvcache:PagedKVBackend.__init__": {"host_tier_bytes": "A3"},
     "kvcache:make_kv_backend": {"host_tier_bytes": "A3"},

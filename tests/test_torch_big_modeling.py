@@ -189,13 +189,38 @@ def test_find_tied_parameters():
 
 
 def test_meshes_and_sharding_plans_raise():
+    # meshes landed with tensor parallelism (tests/test_torch_tensor_parallel.py
+    # holds them across processes); over a one-rank (dp_shard, tp) mesh, what
+    # still raises: a rule that places a leaf where the tensor-parallel
+    # forward does not run it, rules for a model without that forward, a
+    # share over the budget, and FSDP over dims that are not ported
+    from accelerate_tpu_torch.parallel.mesh import build_mesh
+    from accelerate_tpu_torch.parallel.tp import tensor_parallel_rules
+    from accelerate_tpu_torch.state import AcceleratorState, PartialState
+
+    AcceleratorState._reset_state(reset_partial_state=True)
+    try:
+        PartialState(cpu=True)
+        mesh = build_mesh((1, 1), ("dp_shard", "tp"), "cpu")
+        model = _tiny_model()
+        with pytest.raises(ValueError, match=r"o_proj/kernel.*split on dim 1"):
+            tbm.plan_shardings(model, mesh, rules=[(r"o_proj/kernel", 2)] + tensor_parallel_rules())
+        with pytest.raises(ValueError, match="no tensor-parallel forward"):
+            tbm.plan_shardings(nn.Linear(4, 4), mesh, rules=[("weight", 0)])
+        with pytest.raises(MemoryError, match="GiB per rank"):
+            tbm.plan_shardings(model, mesh, rules=tensor_parallel_rules(), hbm_budget_bytes=1024)
+        plan = tbm.plan_shardings(model, mesh, rules=tensor_parallel_rules())
+        assert plan["layers.attn.q_proj.kernel"].tp_dim == 2
+        assert plan["layers.attn.o_proj.kernel"].tp_dim == 1
+        assert plan["layers.input_norm.scale"].tp_dim is None
+        ids = torch.arange(12).reshape(2, 6)
+        with torch.no_grad():
+            want = model(ids)
+            got = tbm.dispatch_model(model, mesh=mesh, rules=tensor_parallel_rules())(ids)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    finally:
+        AcceleratorState._reset_state(reset_partial_state=True)
     model = _tiny_model()
-    for call in (lambda: tbm.plan_shardings(model.params, None),
-                 lambda: tbm.dispatch_model(model, mesh=object(), device="cpu"),
-                 lambda: tbm.load_checkpoint_in_model(model, "unused", mesh=object(), device="cpu"),
-                 lambda: tbm.load_checkpoint_and_dispatch(model, "unused", mesh=object(), device="cpu")):
-        with pytest.raises(NotImplementedError, match="A7"):
-            call()
     assert tbm.dispatch_model(model, device="cpu") is model
 
 

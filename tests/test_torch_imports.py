@@ -59,7 +59,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "tracking", "logging", "scheduler", "utils.native", "utils.fault", "utils.random",
                  "utils.dataclasses", "models.llama", "parallelism_config", "parallel.mesh",
                  "parallel.sharding", "ops.collectives", "ops.operations", "launchers",
-                 "commands.launch", "test_utils.testing", "test_utils.scripts.test_script"):
+                 "commands.launch", "test_utils.testing", "test_utils.scripts.test_script",
+                 "parallel.tp", "test_utils.scripts.train_timing"):
         assert f"accelerate_tpu_torch.{name}" in report["modules"]
     leaked = [m for m in report["new"]
               if m == "jax" or m.startswith(("jax.", "jaxlib"))

@@ -155,6 +155,66 @@ def test_dense_decode_step_matches_jax(model):
     np.testing.assert_allclose(_np(tcache2["k"]), np.asarray(jcache2["k"]), **MODEL_TOL)
 
 
+# the Gemma, Qwen and Mistral knobs of LlamaConfig (f32, the plain
+# attention on both sides; every leaf moved off its initial value by
+# seeded noise, so norms and biases count)
+KNOB_CONFIGS = {
+    "gemma": dict(hidden_act="gelu_tanh", rms_norm_offset=True, scale_embeddings=True,
+                  tie_word_embeddings=True, post_block_norms=True, attn_logit_softcap=20.0,
+                  final_logit_softcap=15.0, query_pre_attn_scalar=32.0),
+    "qwen": dict(attention_bias=True, rms_norm_eps=1e-6, rope_theta=1e6),
+    "mistral": dict(sliding_window=5),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(KNOB_CONFIGS))
+def knob_model(request):
+    kw = KNOB_CONFIGS[request.param]
+    jcfg = jl.LlamaConfig.tiny(compute_dtype=jnp.float32, attention_impl="xla", **kw)
+    tcfg = tl.LlamaConfig.tiny(compute_dtype=torch.float32, attention_impl="xla", **kw)
+    rng = np.random.default_rng(11)
+    jparams = jax.tree_util.tree_map(
+        lambda x: (np.asarray(x) + 0.05 * rng.normal(size=x.shape)).astype(np.float32),
+        jl.init_llama_params(jcfg, jax.random.key(1)))
+    return jcfg, tcfg, jax.tree_util.tree_map(jnp.asarray, jparams), tl.params_from_jax(
+        tcfg, jparams, device="cpu")
+
+
+def test_knobs_llama_apply_matches_jax(knob_model):
+    jcfg, tcfg, jparams, tparams = knob_model
+    ids = np.random.default_rng(3).integers(0, 256, size=(2, 12)).astype(np.int32)
+    np.testing.assert_allclose(
+        _np(tl.LlamaForCausalLM(tcfg, tparams)(torch.from_numpy(ids).long())),
+        np.asarray(jl.llama_apply(jcfg, jparams, jnp.asarray(ids))), **MODEL_TOL)
+
+
+def test_knobs_prefill_at_matches_jax(knob_model):
+    jcfg, tcfg, jparams, tparams = knob_model
+    ids = np.random.default_rng(2).integers(0, 256, size=(2, 16)).astype(np.int32)
+    last = np.asarray([9, 15], np.int32)
+    jlog, jcache = jl.llama_prefill_at(jcfg, jparams, jnp.asarray(ids), 32, jnp.asarray(last))
+    tlog, tcache = tl.llama_prefill_at(tcfg, tparams, torch.from_numpy(ids).long(), 32,
+                                       torch.from_numpy(last))
+    np.testing.assert_allclose(_np(tlog), np.asarray(jlog), **MODEL_TOL)
+    for w in ("k", "v"):
+        np.testing.assert_allclose(_np(tcache[w]), np.asarray(jcache[w]), **MODEL_TOL)
+
+
+def test_knobs_dense_decode_step_matches_jax(knob_model):
+    jcfg, tcfg, jparams, tparams = knob_model
+    ids = np.random.default_rng(5).integers(0, 256, size=(2, 8)).astype(np.int32)
+    jlog, jcache = jl.llama_prefill(jcfg, jparams, jnp.asarray(ids), 16)
+    token = np.array(jnp.argmax(jlog, axis=-1), np.int32)[:, None]
+    pos = np.asarray([8, 8], np.int32)
+    jlog2, jcache2 = jl.llama_decode_step(jcfg, jparams, jcache, jnp.asarray(token), jnp.asarray(pos))
+    tcache = {w: torch.from_numpy(np.array(jcache[w])) for w in ("k", "v")}
+    tlog2, tcache2 = tl.llama_decode_step(tcfg, tparams, tcache, torch.from_numpy(token).long(),
+                                          torch.from_numpy(pos))
+    np.testing.assert_allclose(_np(tlog2), np.asarray(jlog2), **MODEL_TOL)
+    for w in ("k", "v"):
+        np.testing.assert_allclose(_np(tcache2[w]), np.asarray(jcache2[w]), **MODEL_TOL)
+
+
 def test_moe_and_alternating_window_are_queued():
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError, match="MoE"):

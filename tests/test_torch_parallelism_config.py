@@ -1,7 +1,8 @@
 """The port's ``ParallelismConfig`` against the JAX package's: every case of
 ``tests/test_parallelism_config.py`` (the same inputs give the same sizes,
-``*_dim_names``, flags and errors), the environment protocol, and what
-building a mesh of a dim that is not ported yet raises. Meshes at world
+``*_dim_names``, flags and errors), the environment protocol, the
+tensor-parallel mesh, and what building a mesh of a dim that is not ported
+yet raises. Meshes at world
 sizes 2 and 4 are built in ``tests/test_torch_collectives.py``.
 """
 
@@ -77,14 +78,24 @@ def test_config_takes_every_field_of_the_jax_config():
     assert {f.name: f.default for f in dataclasses.fields(ParallelismConfig)} == jax_fields
 
 
-@pytest.mark.parametrize("axis,item", [("tp", "A7"), ("cp", "A11"), ("sp", "A11"), ("pp", "A11"),
-                                       ("ep", "A11")])
+@pytest.mark.parametrize("axis,item", [pytest.param("tp", None, id="tp-A7"), ("cp", "A11"),
+                                       ("sp", "A11"), ("pp", "A11"), ("ep", "A11")])
 def test_a_mesh_of_a_queued_dim_names_its_item(axis, item):
+    # tensor parallelism (A7's, landed) builds its mesh: the 3-D
+    # (dp_replicate, dp_shard, tp) one, here over one process with a
+    # TensorParallelConfig; the dims still queued raise naming their item
     from accelerate_tpu_torch.state import AcceleratorState, PartialState
+    from accelerate_tpu_torch.utils.dataclasses import TensorParallelConfig
 
     AcceleratorState._reset_state(reset_partial_state=True)
     try:
         PartialState(cpu=True)
+        if item is None:
+            cfg = ParallelismConfig(tp_config=TensorParallelConfig())
+            mesh = cfg.build_device_mesh()
+            assert mesh.mesh_dim_names == ("dp_replicate", "dp_shard", "tp")
+            assert tuple(mesh.mesh.shape) == (1, 1, 1) and cfg.tp_layout
+            return
         cfg = ParallelismConfig(**{f"{axis}_size": 2})
         cfg._total_devices = 2  # as if validated on two processes: refused before any group
         cfg._infer_and_validate(2)
