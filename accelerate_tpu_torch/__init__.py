@@ -12,9 +12,11 @@ the same function; the plain version runs only for tensors on the CPU.
 This package never imports ``jax`` or ``accelerate_tpu``. Entry points take
 ``device=`` and default to ``"cuda"``; they raise when no GPU is present.
 
-Ported so far: Llama continuous-batching serving over a paged KV pool
-(``InferenceServer(mode="continuous")``) with speculative decoding,
-chunked prefill and the int8 pool; one-device Llama training through the
+Ported so far: Llama static generation (``generate``, its decode loop one
+CUDA graph per program key, and ``InferenceServer`` in its default static
+mode); continuous-batching serving over a paged KV pool
+(``ServingConfig(mode="continuous")``) with speculative decoding, chunked
+prefill and the int8 pool; one-device Llama training through the
 ``Accelerator`` (``prepare``, ``prepare_data_loader``, ``train_step`` or the
 eager ``backward`` loop) with the flash backward kernels; and big-model
 inference on one device: ``init_empty_weights``, safetensors checkpoints
@@ -57,6 +59,10 @@ __all__ = [
     "ServingResult",
     "create_llama",
     "debug_launcher",
+    "generate",
+    "generate_cache_stats",
+    "last_generate_stats",
+    "prepare_inference",
     "find_executable_batch_size",
     "get_logger",
     "init_empty_weights",
@@ -123,6 +129,10 @@ _LAZY = {
     "LlamaForCausalLM": ("models.llama", "LlamaForCausalLM"),
     "init_llama_params": ("models.llama", "init_llama_params"),
     "params_from_jax": ("models.llama", "params_from_jax"),
+    "generate": ("inference", "generate"),
+    "prepare_inference": ("inference", "prepare_inference"),
+    "generate_cache_stats": ("inference", "generate_cache_stats"),
+    "last_generate_stats": ("inference", "last_generate_stats"),
     "ContinuousBatchingEngine": ("engine", "ContinuousBatchingEngine"),
     "SlotOccupant": ("engine", "SlotOccupant"),
     "KVCacheBackend": ("kvcache", "KVCacheBackend"),

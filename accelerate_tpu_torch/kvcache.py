@@ -61,6 +61,7 @@ __all__ = [
     "PagedKVLayout",
     "HostStage",
     "make_kv_backend",
+    "pool_from_dense",
 ]
 
 KV_BACKENDS = ("dense", "paged", "paged_int8")
@@ -721,3 +722,28 @@ def make_kv_backend(kind: str, *, config, slots: int, max_len: int, prompt_bucke
             quantized=kind == "paged_int8", attention_impl=attention_impl,
         )
     raise ValueError(f"kv_cache must be one of {KV_BACKENDS}, got {kind!r}")
+
+
+# --------------------------------------------------- static generate() bridge
+def pool_from_dense(cache, block_size: int, quantized: bool):
+    """Re-lay a dense prefill cache ``{"k", "v"}`` of (L, B, total_len, kvh,
+    hd) as a block pool with identity tables, so static ``generate`` decodes
+    through the same :class:`PagedKVLayout` view/commit ops as the engine.
+    Row b's block j is pool block ``b * nb + j`` (no null block: every block
+    is a row's). ``quantized``: int8 ``{"q", "s"}`` leaves with one scale
+    per position (:func:`kv_quantize`). ``total_len`` must divide by
+    ``block_size``. Returns (pool ``{"k", "v"}``, tables (B, nb) int32)."""
+    L, b, total, kvh, hd = cache["k"].shape
+    if total % block_size:
+        raise ValueError(f"total_len {total} must be a multiple of block_size {block_size}")
+    nb = total // block_size
+
+    def relay(dense):
+        pool = dense.reshape(L, b * nb, block_size, kvh, hd)
+        if quantized:
+            q, s = kv_quantize(pool)
+            return {"q": q, "s": s}
+        return pool
+
+    tables = torch.arange(b * nb, dtype=torch.int32, device=cache["k"].device).reshape(b, nb)
+    return {"k": relay(cache["k"]), "v": relay(cache["v"])}, tables

@@ -23,7 +23,8 @@ Quantized weights (``utils.quantization.quantize_model``) run through
 :func:`llama_apply` and the model's forward only: a per-channel int8 or
 int4 projection multiplies through the quantized matmul kernel, other
 quantized leaves are dequantized first. The prefill, decode and verify
-steps take float trees, as in the JAX package.
+steps take float trees, as in the JAX package, whose ``generate`` and
+engine decode float trees only.
 
 With ``use_chunked_ce`` the training forward returns the pre-head hidden
 states and the head (as the JAX package's does) and :func:`llama_loss`
@@ -96,6 +97,8 @@ __all__ = [
     "llama_ce_denominator",
     "llama_flops_per_token",
     "llama_loss",
+    "init_kv_cache",
+    "llama_prefill",
     "llama_prefill_at",
     "llama_decode_step",
     "llama_verify_step",
@@ -268,9 +271,8 @@ def _check_supported(config: LlamaConfig, params: Optional[dict] = None) -> None
     if params is not None and any(not isinstance(leaf, torch.Tensor) for _, leaf in _flatten(params)):
         raise NotImplementedError(
             "a quantized parameter tree runs only through llama_apply (the model's "
-            "forward); the prefill, decode and verify steps and the engine take float "
-            "trees, as in the JAX package (static generate over quantized weights: "
-            "ROADMAP.md A8)"
+            "forward); the prefill, decode and verify steps, generate and the engine "
+            "take float trees: the JAX package decodes float trees only"
         )
     if config.num_experts > 1:
         raise NotImplementedError(
@@ -1335,6 +1337,25 @@ def _pad_prefill_cache(ks, vs, max_len: int):
     }
 
 
+def init_kv_cache(config: LlamaConfig, batch_size: int, max_len: int, dtype=None, device="cuda"):
+    """Per-layer stacked KV cache ``{"k", "v"}`` of zeros, (L, B, max_len,
+    kvh, hd) in ``dtype`` (default the compute dtype) on ``device``."""
+    shape = (config.num_hidden_layers, batch_size, max_len, config.num_key_value_heads,
+             config.head_dim)
+    dev = resolve_device(device)
+    dtype = dtype or config.compute_dtype
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def llama_prefill(config: LlamaConfig, params, input_ids, max_len: int):
+    """Full-forward prefill: one pass over the prompt (attention through
+    ``config.attention_impl``, the flash kernel under ``"flash"``), returning
+    (f32 last-position logits (B, V), the KV cache padded to ``max_len``)."""
+    x, ks, vs = _prefill_stack(config, params, input_ids)
+    return _serving_head(config, params, x[:, -1]), _pad_prefill_cache(ks, vs, max_len)
+
+
 def llama_prefill_at(config: LlamaConfig, params, input_ids, max_len: int, last_index):
     """Prefill a right-padded prompt batch with logits at per-row
     ``last_index`` (B,), the last real prompt position. Padding rows still
@@ -1470,8 +1491,9 @@ def _decode_layer(config: LlamaConfig, layer_params, x, cache_k, cache_v, pos,
 
 
 def llama_decode_step(config: LlamaConfig, params, cache, token, pos, *, kv_layout=None):
-    """One decode step: ``token`` (B, 1) at ``pos`` (scalar or (B,) tensor).
-    Returns (f32 logits (B, V), cache). ``cache`` leaves are (L, ...)
+    """One decode step: ``token`` (B, 1) at ``pos`` (scalar or (B,) tensor;
+    a 0-dim device tensor keeps the whole batch at one position, as static
+    ``generate``'s captured step reads it). Returns (f32 logits (B, V), cache). ``cache`` leaves are (L, ...)
     tensors updated in place: the dense arena (L, B, max_len, kvh, hd), or
     with ``kv_layout`` (a :class:`~accelerate_tpu_torch.kvcache
     .PagedKVLayout`) the block pool (L, num_blocks, block_size, kvh, hd)."""

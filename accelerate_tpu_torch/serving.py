@@ -1,27 +1,39 @@
-"""Serving in continuous mode (counterpart of ``accelerate_tpu/serving.py``
-``mode="continuous"``).
+"""Serving (counterpart of ``accelerate_tpu/serving.py``): static and
+continuous modes (``ServingConfig.mode``).
 
-One daemon worker thread owns the engine and the whole dispatch cycle:
-admit queued requests into free slots (each admission runs the prompt
-forward, or the first chunk of a long prompt), run one engine tick over
-every slot (pending chunks, then a decode or speculative verify step),
-read back the matured results, reply to retired requests, and shed
-requests past their deadline. ``submit`` only validates and enqueues, so any number of client
-threads can submit while the device stream stays single-controller.
+One daemon worker thread owns dispatch, so any number of client threads
+can ``submit`` while the device stream stays single-controller; ``submit``
+only validates and enqueues.
+
+* ``"static"`` (the default, as in the JAX package): admission-time
+  batching of whole :func:`~accelerate_tpu_torch.inference.generate` calls.
+  The worker takes the queue's head, gathers the requests behind it that
+  share its group key (prompt length, token budget, sampling parameters,
+  and the seed of sampled traffic) for up to ``batch_window_s``, pads the
+  rows to a power of two and the KV length to a multiple of
+  ``pad_total_multiple``, runs one ``generate`` and routes each row back.
+  A failed batch is retried with exponential backoff and jitter
+  (``max_retries``); a request's latency is its TTFT (the batch
+  materialises at once). ``generate_fn`` replaces the executor.
+* ``"continuous"``: admit queued requests into free engine slots (each
+  admission runs the prompt forward, or the first chunk of a long prompt),
+  run one engine tick over every slot (pending chunks, then a decode or
+  speculative verify step), read back the matured results, reply to
+  retired requests, and shed requests past their deadline.
 
 Robustness that is ported: a bounded admission queue
-(:class:`ServerOverloaded`), deadlines at admission and mid-decode
-(:class:`RequestDeadlineExceeded`), graceful drain (in-flight slots finish,
-queued requests get :class:`ServerDrainingError`), and an engine failure
-failing only the requests it held (:class:`BatchExecutionError`) before
-the engine state is rebuilt. Not ported yet (ROADMAP.md): static mode, the
-circuit breaker, the degradation ladder, trackers and the metrics
-exporter.
+(:class:`ServerOverloaded`), deadlines at admission, mid-decode and at
+completion (:class:`RequestDeadlineExceeded`), graceful drain (in-flight
+work finishes, queued requests get :class:`ServerDrainingError`), and a
+failure failing only the requests it held (:class:`BatchExecutionError`).
+Not ported yet (ROADMAP.md A10): the circuit breaker, the degradation
+ladder, trackers and the metrics exporter.
 """
 
 from __future__ import annotations
 
 import collections
+import random
 import threading
 import time
 from concurrent.futures import Future, InvalidStateError
@@ -29,7 +41,9 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
+from ._device import resolve_device
 from .logging import get_logger
 from .utils.dataclasses import ServingConfig
 from .utils.fault import (
@@ -38,6 +52,7 @@ from .utils.fault import (
     RequestDeadlineExceeded,
     ServerDrainingError,
     ServerOverloaded,
+    fault_point,
 )
 
 logger = get_logger(__name__)
@@ -58,6 +73,26 @@ class _Request:
     seed: int
     submitted_at: float
     future: Future = field(default_factory=Future)
+    # the token budget a static batch runs (set at dequeue; the degradation
+    # ladder that would clamp it, and set ``degraded``, waits for A10)
+    effective_max_new_tokens: int = 0
+    degraded: bool = False
+
+    def group_key(self) -> tuple:
+        """Requests sharing this key can ride one static ``generate()``
+        batch: the shapes and the batch-uniform sampling operands. ``seed``
+        joins only for sampled traffic: greedy decoding never reads it, and
+        a sampled request's draws must come from its own seed."""
+        return (
+            self.input_ids.shape[-1],
+            self.effective_max_new_tokens,
+            self.temperature,
+            self.top_k,
+            self.top_p,
+            self.eos_token_id,
+            self.pad_token_id,
+            self.seed if self.temperature > 0.0 else None,
+        )
 
 
 @dataclass
@@ -66,8 +101,10 @@ class ServingResult:
 
     tokens: np.ndarray  # (prompt_len + max_new_tokens,) int32
     latency_s: float
-    batch_size: int  # slots live when it retired
-    ttft_s: Optional[float] = None  # submit -> first token read back
+    batch_size: int  # static: the batch's requests; continuous: slots live when it retired
+    # continuous: submit -> first token read back; static: the latency (the
+    # batch materialises at once)
+    ttft_s: Optional[float] = None
     queue_wait_s: Optional[float] = None
     prefill_s: Optional[float] = None
     decode_steps: int = 0
@@ -93,7 +130,7 @@ class ServingMetrics:
 
     _COUNTERS = (
         "submitted", "completed", "rejected_queue_full", "rejected_draining",
-        "shed_deadline", "completed_late", "batch_failures",
+        "shed_deadline", "completed_late", "retries", "batch_failures", "batches",
         "engine_inserts", "engine_steps", "engine_retired",
     )
 
@@ -106,6 +143,10 @@ class ServingMetrics:
     def bump(self, name: str, by: int = 1) -> None:
         with self._lock:
             self._counts[name] += by
+
+    def __getitem__(self, name: str) -> int:
+        with self._lock:
+            return self._counts[name]
 
     def add(self, latency_s: float, ttft_s: float) -> None:
         with self._lock:
@@ -124,20 +165,37 @@ class ServingMetrics:
 
 
 class InferenceServer:
-    """Continuous-batching server over a
-    :class:`~accelerate_tpu_torch.engine.ContinuousBatchingEngine`.
+    """Static or continuous batching server (``config.mode``).
 
     ``model`` is a :class:`~accelerate_tpu_torch.models.llama
-    .LlamaForCausalLM` on ``device`` (default ``"cuda"``); ``engine`` injects
-    a pre-built engine instead (tests). Construction starts the worker;
-    use it as a context manager or call :meth:`close`.
+    .LlamaForCausalLM` on ``device`` (default ``"cuda"``; raises without a
+    GPU). Static mode: ``generate_fn`` replaces the batch executor (the
+    signature of :func:`~accelerate_tpu_torch.inference.generate`,
+    returning ``(batch, prompt + new)`` tokens; ``None`` runs ``generate``,
+    which needs the model's parameters on ``device``). Continuous mode:
+    ``engine`` injects a pre-built
+    :class:`~accelerate_tpu_torch.engine.ContinuousBatchingEngine` (tests),
+    ``None`` builds one from the ``engine_*`` knobs; ``generate_fn`` is
+    inert there, as the engine owns the device programs. Construction
+    starts the worker; use it as a context manager or call :meth:`close`.
     """
 
-    def __init__(self, model, config: Optional[ServingConfig] = None, *, engine=None,
-                 device="cuda", clock: Callable[[], float] = time.monotonic):
+    def __init__(self, model, config: Optional[ServingConfig] = None, *, generate_fn=None,
+                 engine=None, device="cuda", clock: Callable[[], float] = time.monotonic):
+        self.model = model
         self.config = config or ServingConfig()
         self._clock = clock
-        if engine is None:
+        self._generate_fn = generate_fn or self._default_generate
+        if self.config.mode == "static":
+            engine = None
+            dev = resolve_device(device)
+            if generate_fn is None:
+                param = next(iter(model.parameters()), None)
+                if param is not None and param.device != dev:
+                    raise ValueError(
+                        f"the model's parameters are on {param.device}, the server's device is "
+                        f"{dev}: place the model there first (prepare_inference(model, device=...))")
+        elif engine is None:
             from .engine import ContinuousBatchingEngine
 
             engine = ContinuousBatchingEngine(
@@ -165,19 +223,27 @@ class InferenceServer:
         self._worker_error: Optional[BaseException] = None
         self._drained = threading.Event()
         self.metrics = ServingMetrics()
+        self._batch_time_ewma = 0.0  # static: seconds a batch, for shedding at dequeue
+        self._rng = random.Random(0)  # backoff jitter only
         self._worker = threading.Thread(target=self._serve_loop, name="inference-server", daemon=True)
         self._worker.start()
 
     @property
     def engine(self):
+        """The continuous mode's slot engine (``None`` in static mode)."""
         return self._engine
 
     def stats(self) -> dict:
         """The engine's host counters (:meth:`~accelerate_tpu_torch.engine
         .ContinuousBatchingEngine.stats`), ``programs`` and
-        ``program_count`` among them, with the server's counters under
-        ``"serving"``."""
-        return {**self._engine.stats(), "serving": self.metrics.snapshot()}
+        ``program_count`` among them (continuous mode), with the server's
+        counters under ``"serving"``."""
+        engine = self._engine.stats() if self._engine is not None else {}
+        return {**engine, "serving": self.metrics.snapshot()}
+
+    def queue_depth(self) -> int:
+        with self._lock:
+            return len(self._queue)
 
     # ------------------------------------------------------------ admission
     def submit(self, input_ids, *, max_new_tokens: Optional[int] = None,
@@ -200,8 +266,9 @@ class InferenceServer:
         if ids.ndim != 1 or ids.shape[0] == 0:
             raise ValueError(f"input_ids must be a non-empty 1-D prompt, got shape {ids.shape}")
         budget = max_new_tokens or self.config.default_max_new_tokens
-        self._engine.validate_request(ids.shape[0], budget)
-        self._engine.validate_tokens(ids)
+        if self._engine is not None:
+            self._engine.validate_request(ids.shape[0], budget)
+            self._engine.validate_tokens(ids)
         now = self._clock()
         if deadline_s is None:
             deadline_s = self.config.default_deadline_s
@@ -268,7 +335,10 @@ class InferenceServer:
     # ---------------------------------------------------------- worker loop
     def _serve_loop(self) -> None:
         try:
-            self._loop_continuous()
+            if self._engine is not None:
+                self._loop_continuous()
+            else:
+                self._loop_static()
         except BaseException as exc:  # a dead worker must not hang clients
             with self._lock:
                 self._worker_error = exc
@@ -278,13 +348,186 @@ class InferenceServer:
         finally:
             with self._lock:
                 self._draining = True
-            for occ in self._engine.reset():
+            for occ in self._engine.reset() if self._engine is not None else ():
                 resolve_future(occ.tag.future, exception=ReplicaDeadError(
                     "serving worker exited with this request still in a decode slot",
                 ))
             self._reject_queued()
             self._drained.set()
 
+    # ------------------------------------------------------ static batching
+    def _loop_static(self) -> None:
+        """Admission-time batching of whole ``generate()`` calls. Draining
+        returns once the in-flight batch has replied; the finally rejects
+        what is still queued."""
+        while True:
+            with self._wake:
+                while not self._queue and not self._draining:
+                    self._wake.wait(timeout=0.05)
+                if self._draining:
+                    return
+            batch = self._collect_batch()
+            if batch:
+                self._execute(batch)
+
+    def _clamp_budget(self, req: _Request) -> None:
+        # the degradation ladder's clamp waits for A10: the whole budget runs
+        req.effective_max_new_tokens = req.max_new_tokens
+        req.degraded = False
+
+    def _shed(self, req: _Request, now: float) -> None:
+        if resolve_future(req.future, exception=RequestDeadlineExceeded(
+                f"deadline passed {now - req.deadline:.3f}s ago at dequeue (estimated batch "
+                f"time {self._batch_time_ewma:.3f}s); shed instead of wasting a batch slot")):
+            self.metrics.bump("shed_deadline")
+
+    def _collect_batch(self) -> list:
+        """Head-of-line batching: shed heads that cannot make their deadline
+        (the estimate is the EWMA of recent batch times), take the first
+        live request, then the compatible requests behind it, waiting up to
+        ``batch_window_s`` for more. An incompatible head ends the batch."""
+        cfg = self.config
+        with self._wake:
+            first = None
+            while self._queue:
+                now = self._clock()
+                req = self._queue.popleft()
+                if req.deadline is not None and now + self._batch_time_ewma > req.deadline:
+                    self._shed(req, now)
+                    continue
+                self._clamp_budget(req)
+                first = req
+                break
+            if first is None:
+                return []
+            batch = [first]
+            key = first.group_key()
+            window_end = self._clock() + cfg.batch_window_s
+            while len(batch) < cfg.max_batch_size and not self._draining:
+                if self._queue:
+                    now = self._clock()
+                    head = self._queue[0]
+                    if head.deadline is not None and now + self._batch_time_ewma > head.deadline:
+                        self._shed(self._queue.popleft(), now)
+                        continue
+                    self._clamp_budget(head)
+                    if head.group_key() != key:
+                        break  # it heads the next batch
+                    batch.append(self._queue.popleft())
+                    continue
+                remaining = window_end - self._clock()
+                if remaining <= 0:
+                    break
+                self._wake.wait(timeout=remaining)
+        return batch
+
+    def _bucket_rows(self, n: int) -> int:
+        if not self.config.batch_bucket:
+            return n
+        b = 1
+        while b < n:
+            b *= 2
+        return min(b, max(self.config.max_batch_size, n))
+
+    def _default_generate(self, model, ids, **kwargs):
+        from .inference import generate
+
+        return generate(model, ids, **kwargs)
+
+    def _run_batch(self, batch: list) -> np.ndarray:
+        cfg = self.config
+        first = batch[0]
+        rows = np.stack([r.input_ids for r in batch])
+        target = self._bucket_rows(len(batch))
+        if target > len(batch):  # pad rows so the program LRU sees pow-2 batch shapes
+            rows = np.concatenate([rows, np.repeat(rows[:1], target - len(batch), axis=0)], axis=0)
+        total = rows.shape[1] + first.effective_max_new_tokens
+        pad_to = -(-total // cfg.pad_total_multiple) * cfg.pad_total_multiple
+        kv_kwargs = {}
+        if cfg.kv_cache != "dense":  # dense is generate()'s default
+            kv_kwargs = {"kv_backend": cfg.kv_cache, "kv_block_size": cfg.engine_block_size}
+        out = self._generate_fn(
+            self.model, rows, max_new_tokens=first.effective_max_new_tokens,
+            temperature=first.temperature, seed=first.seed, pad_to=pad_to, top_k=first.top_k,
+            top_p=first.top_p, eos_token_id=first.eos_token_id, pad_token_id=first.pad_token_id,
+            **kv_kwargs,
+        )
+        # read back here: a transfer error is a batch failure, not the client's
+        if isinstance(out, torch.Tensor):
+            out = out.cpu().numpy()
+        return np.asarray(out)[: len(batch)]
+
+    def _execute(self, batch: list) -> None:
+        """Run one batch, retrying a failure ``max_retries`` times with
+        exponential backoff and jitter (a drain cuts the wait and the
+        ladder), then reply to each request with its row."""
+        cfg = self.config
+        attempt = 0
+        while True:
+            try:
+                t0 = self._clock()
+                fault_point("serving_before_batch")
+                out = self._run_batch(batch)
+                dt = self._clock() - t0
+                fault_point("serving_after_batch")
+            except BaseException as exc:  # classified below
+                if isinstance(exc, (KeyboardInterrupt, SystemExit)):
+                    # the worker is about to die: never leave the batch unresolved
+                    self._fail_batch(batch, exc, "worker interrupted mid-batch",
+                                     err_cls=ReplicaDeadError)
+                    raise
+                attempt += 1
+                self.metrics.bump("batch_failures")
+                if attempt > cfg.max_retries or self._draining:
+                    self._fail_batch(batch, exc,
+                                     f"batch failed permanently after {attempt} attempt(s)")
+                    return
+                self.metrics.bump("retries")
+                backoff = min(cfg.retry_backoff_s * (2 ** (attempt - 1)), cfg.retry_backoff_max_s)
+                backoff *= 1.0 + cfg.retry_jitter * self._rng.random()
+                logger.warning("batch attempt %d/%d failed (%s: %s); retrying in %.3fs",
+                               attempt, cfg.max_retries + 1, type(exc).__name__, exc, backoff)
+                with self._wake:  # a drain request cuts the wait short
+                    self._wake.wait(timeout=backoff)
+                continue
+            break
+        # the batch ran: any failure from here fails this batch's futures
+        # instead of escaping with them unresolved
+        try:
+            self.metrics.bump("batches")
+            self._batch_time_ewma = (dt if self._batch_time_ewma == 0.0
+                                     else 0.8 * self._batch_time_ewma + 0.2 * dt)
+            fault_point("serving_before_reply")
+            now = self._clock()
+            for i, req in enumerate(batch):
+                if req.deadline is not None and now > req.deadline:
+                    if resolve_future(req.future, exception=RequestDeadlineExceeded(
+                            f"batch completed {now - req.deadline:.3f}s past the deadline")):
+                        self.metrics.bump("completed_late")
+                    continue
+                latency = now - req.submitted_at
+                result = ServingResult(
+                    tokens=out[i], latency_s=latency, batch_size=len(batch), ttft_s=latency,
+                    queue_wait_s=max(0.0, latency - dt),
+                    decode_steps=req.effective_max_new_tokens,
+                )
+                if resolve_future(req.future, result=result):
+                    self.metrics.bump("completed")
+                    self.metrics.add(latency, latency)
+        except BaseException as exc:
+            self._fail_batch(batch, exc, "batch executed but the reply failed")
+            if isinstance(exc, (KeyboardInterrupt, SystemExit)):
+                raise
+            logger.exception("serving reply epilogue failed; the batch's futures were failed")
+
+    def _fail_batch(self, batch: list, cause: BaseException, reason: str,
+                    err_cls: type = BatchExecutionError) -> None:
+        err = err_cls(f"{reason}: {type(cause).__name__}: {cause}")
+        err.__cause__ = cause
+        for req in batch:
+            resolve_future(req.future, exception=err)
+
+    # ------------------------------------------------- continuous batching
     def _loop_continuous(self) -> None:
         """Each pass: admit into free slots, one decode step, read back,
         reply, shed. Draining stops admission but keeps stepping until every

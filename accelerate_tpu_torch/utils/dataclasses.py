@@ -10,15 +10,15 @@ data-parallel ones (``DistributedDataParallelKwargs`` with its
 gradient-compression hooks, ``FSDPPlugin``, and the
 ``PipelineParallelConfig`` a ``ParallelismConfig`` reads).
 
-Serving: only ``mode="continuous"`` is ported: the slot engine over a KV
-backend (dense, paged or the int8 paged pool), with speculative decoding
-and chunked prefill, the continuous-mode knobs and their validation, plus
-the admission knobs the server reads (queue bound, default budget and
-deadline, drain timeout). ``ServingConfig`` takes every field of the JAX
-one; the knobs of what is still to be ported (static mode's batching, the
-host KV tier, retries, the circuit breaker, the degradation ladder and
-periodic metrics) raise at a value other than their default, naming their
-ROADMAP.md item.
+Serving: both modes are ported, with the JAX default ``mode="static"``:
+static mode's batching and retry knobs; the continuous slot engine over a
+KV backend (dense, paged or the int8 paged pool), with speculative
+decoding and chunked prefill; the admission knobs the server reads (queue
+bound, default budget and deadline, drain timeout), and JAX's validation.
+``ServingConfig`` takes every field of the JAX one; the knobs of what is
+still to be ported (the host KV tier, the circuit breaker, the
+degradation ladder and periodic metrics) raise at a value other than
+their default, naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -328,14 +328,11 @@ class TrainingHealthConfig(KwargsHandler):
 
 
 # the ServingConfig fields of what is not ported yet, by ROADMAP.md item:
-# static mode's batching (A8), the host KV tier (A3), and retries, the
-# circuit breaker, the degradation ladder and periodic metrics (A10)
+# the host KV tier (A3), and the circuit breaker, the degradation ladder and
+# periodic metrics (A10)
 QUEUED_SERVING_FIELDS = {
-    **dict.fromkeys(("max_batch_size", "batch_window_s", "batch_bucket", "pad_total_multiple"),
-                    "A8"),
     **dict.fromkeys(("kv_host_tier_bytes", "kv_prefetch"), "A3"),
-    **dict.fromkeys(("max_retries", "retry_backoff_s", "retry_backoff_max_s", "retry_jitter",
-                     "breaker_threshold", "breaker_reset_s", "degrade_queue_fraction",
+    **dict.fromkeys(("breaker_threshold", "breaker_reset_s", "degrade_queue_fraction",
                      "degrade_hard_fraction", "degraded_max_new_tokens", "metrics_interval_s"),
                     "A10"),
 }
@@ -345,6 +342,19 @@ QUEUED_SERVING_FIELDS = {
 class ServingConfig:
     """Knobs of :class:`accelerate_tpu_torch.serving.InferenceServer`.
 
+    * ``mode``: ``"static"`` (the default, as in the JAX package) batches
+      whole :func:`~accelerate_tpu_torch.inference.generate` calls at
+      admission: up to ``max_batch_size`` requests that share a prompt
+      length, a token budget and sampling parameters, gathered for up to
+      ``batch_window_s``; with ``batch_bucket`` the rows are padded to a
+      power of two, and the KV length to a multiple of
+      ``pad_total_multiple``, so the program LRU sees few shapes. A failed
+      batch is retried ``max_retries`` times after an exponential backoff
+      (``retry_backoff_s`` doubling up to ``retry_backoff_max_s``, times
+      ``1 + retry_jitter * U[0, 1)``). ``kv_cache`` picks ``generate``'s
+      ``kv_backend`` (``engine_block_size`` its block). ``"continuous"``
+      runs the slot engine: the ``engine_*`` knobs below, ``attention_impl``,
+      ``speculative`` and ``engine_prefill_chunk`` need it.
     * ``engine_slots`` decode slots of ``engine_max_len`` positions each;
       prompts must fit ``engine_prompt_bucket`` (default ``engine_max_len //
       2``) and ``prompt + max_new_tokens <= engine_max_len``.
@@ -369,12 +379,9 @@ class ServingConfig:
       many positions, one chunk per scheduler tick between decode steps.
     * The JAX package's other fields are accepted at their default and
       raise otherwise (``QUEUED_SERVING_FIELDS`` names each one's item).
-      ``mode`` keeps the default ``"continuous"``: the JAX default
-      ``"static"`` waits for ROADMAP.md A8, and a default the port cannot
-      run would only raise.
     """
 
-    mode: str = "continuous"
+    mode: str = "static"
     engine_slots: int = 8
     engine_max_len: int = 256
     engine_prompt_bucket: Optional[int] = None
@@ -414,11 +421,8 @@ class ServingConfig:
                 raise NotImplementedError(
                     f"ServingConfig({name}={getattr(self, name)!r}): not ported yet "
                     f"(ROADMAP.md {item}); leave it at {default!r}")
-        if self.mode != "continuous":
-            raise NotImplementedError(
-                f"mode={self.mode!r}: only mode='continuous' is ported; the "
-                "static generate() mode waits for ROADMAP.md A8"
-            )
+        if self.mode not in ("static", "continuous"):
+            raise ValueError(f"mode must be 'static' or 'continuous', got {self.mode!r}")
         if self.engine_slots < 1:
             raise ValueError(f"engine_slots must be >= 1, got {self.engine_slots}")
         if self.engine_max_len < 2:
@@ -459,6 +463,11 @@ class ServingConfig:
                 "'paged' or 'paged_int8'): the kernels walk block tables, which "
                 "the dense arena does not have"
             )
+        if self.attention_impl == "kernel" and self.mode != "continuous":
+            raise ValueError(
+                "attention_impl='kernel' requires mode='continuous' (the static "
+                "generate() path has no paged decode hot loop to fuse)"
+            )
         if self.engine_pool_blocks is not None and self.engine_pool_blocks < 2:
             raise ValueError(
                 "engine_pool_blocks must be None (full provisioning) or >= 2 "
@@ -466,6 +475,11 @@ class ServingConfig:
             )
         if self.speculative not in (None, "ngram"):
             raise ValueError(f"speculative must be None or 'ngram', got {self.speculative!r}")
+        if self.speculative is not None and self.mode != "continuous":
+            raise ValueError(
+                "speculative decoding requires mode='continuous' (the static "
+                "path has no slot engine to verify drafts in)"
+            )
         if self.speculative is not None and self.spec_draft_len < 1:
             raise ValueError(
                 f"spec_draft_len must be >= 1 when speculative is enabled, got {self.spec_draft_len}"
@@ -477,8 +491,28 @@ class ServingConfig:
                 "engine_prefill_chunk must be in [1, engine_max_len-1], got "
                 f"{self.engine_prefill_chunk} (engine_max_len={self.engine_max_len})"
             )
+        if self.engine_prefill_chunk is not None and self.mode != "continuous":
+            raise ValueError(
+                "engine_prefill_chunk requires mode='continuous' (chunked "
+                "prefill is a slot-engine scheduling feature)"
+            )
         if self.max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {self.max_queue}")
+        if self.max_batch_size < 1:
+            raise ValueError(f"max_batch_size must be >= 1, got {self.max_batch_size}")
+        if self.batch_window_s < 0 or self.batch_window_s > 10:
+            raise ValueError(f"batch_window_s must be in [0, 10], got {self.batch_window_s}")
+        if self.pad_total_multiple < 1:
+            raise ValueError(f"pad_total_multiple must be >= 1, got {self.pad_total_multiple}")
+        if self.max_retries < 0:
+            raise ValueError(f"max_retries must be >= 0, got {self.max_retries}")
+        if self.retry_backoff_s < 0 or self.retry_backoff_max_s < self.retry_backoff_s:
+            raise ValueError(
+                "retry backoff must satisfy 0 <= retry_backoff_s <= retry_backoff_max_s, got "
+                f"{self.retry_backoff_s}/{self.retry_backoff_max_s}"
+            )
+        if not 0 <= self.retry_jitter <= 1:
+            raise ValueError(f"retry_jitter must be in [0, 1], got {self.retry_jitter}")
         if self.default_max_new_tokens < 1:
             raise ValueError(
                 f"default_max_new_tokens must be >= 1, got {self.default_max_new_tokens}"

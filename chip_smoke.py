@@ -6,8 +6,10 @@ width and depth, plain and with speculative decoding, chunked prefill and
 the int8 KV pool; the same model quantized to int8 weights, and a
 checkpoint written, loaded into an empty model and quantized; Llama-3-8B
 training steps through the ``Accelerator`` at full width and 4 layers;
-a fine-tune at full width that is interrupted and resumes bitwise; and
-the same training step under DDP and FSDP2 over NCCL at world size 1.
+a fine-tune at full width that is interrupted and resumes bitwise; the
+same training step under DDP and FSDP2 over NCCL at world size 1, and
+under tensor parallelism; and static generation (``generate`` and the
+static ``InferenceServer``) on the serving model.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -66,7 +68,25 @@ Phases (any failure exits non-zero and prints no result):
      TTFT, acceptance, steady-state verify and decode step and chunk
      times (three repeats) with the host's wait for the readbacks before
      drafting, a profile of replayed verify steps
-  8. (run right after 7, on its model) quantized big-model inference: the
+ 12. (run right after 7, on its model, before 8 quantizes it) static
+     generation: (a) ``generate`` at B = 8, a 512-token prompt and 128 new
+     tokens, greedy, under the dense, paged and paged_int8 KV backends:
+     eagerly (``engine._disable_graphs``), then twice through its CUDA
+     graph (the first call captures the decode step), the graph runs'
+     tokens bitwise equal to the eager run's; teacher-forced against the
+     plain forward (argmax share >= 0.9, near-ties <= Q_NEAR_TIE_ULPS); a
+     planted fault (the step's position frozen) must fail that check; 32
+     B1 launches per call; sampled (temperature 0.8, top-k 50, top-p 0.9)
+     equal for one seed twice and different for another; top_k=1 equal to
+     greedy up to a tie of the bf16 logits; prefill ms, decode ms per step
+     as graph replays and eagerly, B1 counted by the profiler in one
+     prefill, peak memory. (b) ``InferenceServer(model)`` at
+     ``ServingConfig()``'s defaults (static, dense, 8 rows a batch): 32
+     greedy requests (24 of 512 tokens, 8 of 256) with 64 new tokens, two
+     runs (the first captures its programs), every reply equal to a direct
+     ``generate`` of its batch's rows, one program per batch key; B1
+     launches under ``static`` in the kernels line
+  8. (run right after 12, on its model) quantized big-model inference: the
      model quantized to int8 in place, its forward over 4 x 512 tokens
      through B7 and B1 (225 B7 launches per forward, the head's with f32
      logits) held against the
@@ -1435,7 +1455,7 @@ def serving_model(dev, n_layers):
     return model
 
 
-SERVING = dict(engine_slots=8, engine_max_len=1024, engine_prompt_bucket=512, engine_block_size=16,
+SERVING = dict(mode="continuous", engine_slots=8, engine_max_len=1024, engine_prompt_bucket=512, engine_block_size=16,
                kv_cache="paged", attention_impl="kernel", engine_readback_lag=2)
 SERVING_REPEATS = 3  # timed runs of each mix through the graph engine
 # the JAX engine's compiled programs under each mix (accelerate_tpu/engine.py:23-34):
@@ -1697,7 +1717,7 @@ def profile_decode(eng, step_ms, card, n_steps=8, label="phase 4 decode",
 
 
 # ----------------------------------------------------------------- phase 7
-SPEC_SERVING = dict(engine_slots=8, engine_max_len=2048, engine_prompt_bucket=512,
+SPEC_SERVING = dict(mode="continuous", engine_slots=8, engine_max_len=2048, engine_prompt_bucket=512,
                     engine_block_size=16, attention_impl="kernel", speculative="ngram",
                     spec_draft_len=4, engine_prefill_chunk=512, engine_readback_lag=2)
 SPEC_NEW_TOKENS = 64
@@ -1950,6 +1970,266 @@ def spec_steady_state(eng, prompts, card, repeats, profile, label="phase 7"):
     return numbers
 
 
+# ---------------------------------------------------------------- phase 12
+STATIC_B, STATIC_PROMPT, STATIC_NEW = 8, 512, 128
+STATIC_BACKENDS = ("dense", "paged", "paged_int8")
+STATIC_SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.9)
+# the server's traffic: (requests, prompt length), all greedy, 64 new tokens
+STATIC_TRAFFIC = ((24, 512), (8, 256))
+STATIC_SERVER_NEW = 64
+
+
+def static_reference(cfg_r, params, ids, out):
+    """Teacher-forced plain forward (attention ``"xla"``) over each row's
+    prompt and generated tokens: the f32 logits (B, new, V) that scored
+    each generated token."""
+    from accelerate_tpu_torch.models.llama import llama_apply
+
+    p = ids.shape[1]
+    return llama_apply(cfg_r, params, out[:, :-1].long())[:, p - 1:]
+
+
+def static_decode_ms(prog, steps, eager_step=None):
+    """Mean ms a decode step over ``steps`` steps of a program that just
+    ran, its position and output column reset to the prompt's end (so no
+    step leaves the cache): graph replays, or ``eager_step`` calls."""
+    prog.pos.fill_(prog.prompt_len)
+    prog.col.zero_()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        if eager_step is None:
+            prog.graph.replay()
+        else:
+            eager_step()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / steps
+
+
+def top1_against_greedy(top1, greedy, cfg_r, params, ids):
+    """(rows of ``top1`` equal to ``greedy``, the largest gap, in bf16 ulps
+    of the plain forward's largest |logit|, between the two tokens where a
+    row first leaves greedy). The logits are bf16 values: two can tie at
+    the top, where greedy takes the first index and a top_k=1 draw either;
+    past that point the rows differ. Equal prefixes share the teacher-forced
+    reference of ``greedy``."""
+    ref = static_reference(cfg_r, params, ids, greedy)
+    p, same, worst = ids.shape[1], 0, 0.0
+    ulp = 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7)
+    for r in range(top1.shape[0]):
+        diff = (top1[r, p:] != greedy[r, p:]).nonzero()
+        if diff.numel() == 0:
+            same += 1
+            continue
+        j = int(diff[0, 0])
+        gap = (ref[r, j, greedy[r, p + j].long()] - ref[r, j, top1[r, p + j].long()]).abs().item()
+        worst = max(worst, gap / ulp)
+    return same, worst
+
+
+def static_programs(model):
+    return getattr(model, "_generate_cache", None) or {}
+
+
+def phase_static(dev, card, model):
+    """Phase 12: static generation on phase 4's model (Llama-3-8B, bf16,
+    flash prefill). (a) ``generate`` at B = 8, 512 prompt and 128 new
+    tokens under each KV backend, greedy: the graph runs bitwise equal to
+    the eager run, teacher-forced agreement with the plain forward, a
+    planted frozen position that must fail it; sampled determinism by seed
+    and top_k=1 against greedy. (b) ``InferenceServer(model)`` at the
+    default ``ServingConfig()`` (static, dense, 8 rows a batch) over 32
+    greedy requests, each reply equal to a direct ``generate`` of its
+    batch's rows. (c) prefill and decode ms, tokens/s, peak memory, B1
+    launches. Returns (launches of (b)'s first run, numbers)."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    from accelerate_tpu_torch import inference
+    from accelerate_tpu_torch.engine import _disable_graphs
+    from accelerate_tpu_torch.inference import generate, generate_cache_stats
+    from accelerate_tpu_torch.models.llama import llama_prefill
+    from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.serving import InferenceServer
+    from accelerate_tpu_torch.utils.dataclasses import ServingConfig
+
+    t_phase = time.perf_counter()
+    cfg = model.config
+    n_layers = cfg.num_hidden_layers
+    cfg_r = dataclasses.replace(cfg, attention_impl="xla")
+    params = model.params
+    rng = np.random.default_rng(12)
+    ids = rng.integers(0, cfg.vocab_size, size=(STATIC_B, STATIC_PROMPT)).astype(np.int32)
+    ids_t = torch.from_numpy(ids).to(dev)
+    static_programs(model).clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    numbers = dict(backends={})
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def agreement(out):
+        return choice_agreement(out[:, STATIC_PROMPT:].long(), static_reference(cfg_r, params, ids_t, out))
+
+    greedy = {}
+    for kv in STATIC_BACKENDS:
+        kw = dict(kv_backend=kv, kv_block_size=16)
+        with _disable_graphs():
+            eager, eager_s = timed(lambda: generate(model, ids, STATIC_NEW, **kw))
+        first, first_s = timed(lambda: generate(model, ids, STATIC_NEW, **kw))  # captures
+        _build.reset_launch_counts()
+        out, graph_s = timed(lambda: generate(model, ids, STATIC_NEW, **kw))
+        launches = _build.launch_counts()
+        check_launches(f"phase 12 generate {kv}", launches, {"flash_fwd_mma": n_layers})
+        if not (torch.equal(first, eager) and torch.equal(out, eager)):
+            raise AssertionError(f"phase 12 {kv}: the graph runs' tokens differ from the eager run's")
+        if out.shape != (STATIC_B, STATIC_PROMPT + STATIC_NEW) or not torch.equal(out[:, :STATIC_PROMPT], ids_t):
+            raise AssertionError(f"phase 12 {kv}: wrong shape or prompt")
+        share, gap, gap_ulps = agreement(out)
+        log(f"phase 12 generate {kv} (B={STATIC_B}, prompt {STATIC_PROMPT}, {STATIC_NEW} new, greedy): "
+            f"graph runs bitwise equal to the eager run; teacher-forced against the plain forward: "
+            f"argmax share {share:.4f} (min {GREEDY_SHARE_MIN}), largest gap at the rest {gap:.4f} = "
+            f"{gap_ulps:.3f} bf16 ulps (limit {Q_NEAR_TIE_ULPS}); wall: eager {eager_s:.3f}s, first "
+            f"graph call (captures) {first_s:.3f}s, graph {graph_s:.3f}s = "
+            f"{STATIC_B * STATIC_NEW / graph_s:.1f} generated tokens/s [{card}]")
+        if not (share >= GREEDY_SHARE_MIN and gap_ulps <= Q_NEAR_TIE_ULPS):
+            raise AssertionError(f"phase 12 {kv}: generated tokens disagree with the plain forward")
+        greedy[kv] = out
+        numbers["backends"][kv] = dict(share=share, gap=gap, gap_ulps=gap_ulps, eager_s=eager_s,
+                                       first_graph_s=first_s, graph_s=graph_s,
+                                       tokens_per_s=STATIC_B * STATIC_NEW / graph_s)
+    dense_key = next(k for k in static_programs(model) if k[9] == "dense" and not k[5])
+
+    # the decode step alone: graph replays against the same step run eagerly
+    for kv in STATIC_BACKENDS:
+        key = next(k for k in static_programs(model) if k[9] == kv and not k[5])
+        numbers["backends"][kv]["decode_ms"] = static_decode_ms(static_programs(model)[key], STATIC_NEW)
+    prog = static_programs(model)[dense_key]
+    prog.pos.fill_(prog.prompt_len)
+    prog.col.zero_()
+    numbers["profile"] = profile_decode(
+        SimpleNamespace(step=lambda: prog.graph.replay(), poll=lambda: None),
+        numbers["backends"]["dense"]["decode_ms"], card, label="phase 12 dense decode (graph)",
+        out="profile_static_decode.txt")
+    eager_ms = static_decode_ms(prog, 32, eager_step=lambda: prog.step(cfg, params))
+    prefill_ms = time_ms(lambda: llama_prefill(cfg, params, ids_t.long(), STATIC_PROMPT + STATIC_NEW),
+                         iters=3, repeats=3, warmup=1)
+    numbers.update(prefill_ms=prefill_ms, decode_eager_ms=eager_ms)
+    log(f"phase 12 B={STATIC_B}: prefill of {STATIC_PROMPT} tokens {prefill_ms:.2f} ms; decode step "
+        f"(graph replay) dense {numbers['backends']['dense']['decode_ms']:.3f} ms, paged "
+        f"{numbers['backends']['paged']['decode_ms']:.3f}, paged_int8 "
+        f"{numbers['backends']['paged_int8']['decode_ms']:.3f}; the dense step eagerly {eager_ms:.3f} ms "
+        f"[{card}]")
+
+    # the same prefill under the profiler: B1 once a layer
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        llama_prefill(cfg, params, ids_t.long(), STATIC_PROMPT + STATIC_NEW)
+        torch.cuda.synchronize()
+    events = device_events(prof, "chiprun_out/trace_static_prefill.json")
+    profiled_b1 = sum(1 for name, _, _ in events if "flash_fwd" in name)
+    log(f"phase 12 profiled prefill: {profiled_b1} flash_fwd kernels (expected {n_layers}), "
+        f"{len(events)} device events")
+    if events and profiled_b1 != n_layers:
+        raise AssertionError(f"phase 12: the profiler saw {profiled_b1} B1 launches in a prefill")
+    numbers["profiled_b1_per_prefill"] = profiled_b1 if events else None
+
+    # planted fault: the step's position frozen, so every step rewrites one
+    # cache column at one rotation; the agreement check must fail
+    advance = inference._advance
+    inference._advance = lambda p: p.col.add_(1)
+    static_programs(model).pop(dense_key)
+    try:
+        bad = generate(model, ids, STATIC_NEW)
+    finally:
+        inference._advance = advance
+        static_programs(model).clear()
+    bad_share, bad_gap, bad_ulps = agreement(bad)
+    log(f"phase 12 planted fault (position frozen): argmax share {bad_share:.4f}, largest gap "
+        f"{bad_gap:.4f} = {bad_ulps:.3f} bf16 ulps (the check must fail)")
+    if bad_share >= GREEDY_SHARE_MIN and bad_ulps <= Q_NEAR_TIE_ULPS:
+        raise AssertionError("phase 12's agreement check cannot see a frozen position")
+    numbers.update(fault_share=bad_share, fault_gap_ulps=bad_ulps)
+
+    # sampled: one seed twice (the first call captures), another seed; top_k=1
+    s1 = generate(model, ids, STATIC_NEW, seed=1, **STATIC_SAMPLED)
+    s2 = generate(model, ids, STATIC_NEW, seed=1, **STATIC_SAMPLED)
+    s3 = generate(model, ids, STATIC_NEW, seed=2, **STATIC_SAMPLED)
+    k1 = generate(model, ids, STATIC_NEW, temperature=0.8, top_k=1, seed=3)
+    vocab_ok = bool(((s1 >= 0) & (s1 < cfg.vocab_size)).all().item())
+    same_rows, tie_ulps = top1_against_greedy(k1, greedy["dense"], cfg_r, params, ids_t)
+    log(f"phase 12 sampled ({STATIC_SAMPLED}): seed 1 twice equal {torch.equal(s1, s2)}, seed 2 "
+        f"differs {not torch.equal(s1, s3)}; top_k=1: {same_rows}/{STATIC_B} rows equal greedy, the "
+        f"others leave it first at a tie of the bf16 logits, {tie_ulps:.3f} bf16 ulps apart in the "
+        f"plain forward (limit {Q_NEAR_TIE_ULPS})")
+    if not (torch.equal(s1, s2) and not torch.equal(s1, s3) and vocab_ok
+            and tie_ulps <= Q_NEAR_TIE_ULPS):
+        raise AssertionError("phase 12: sampled generate is not deterministic by seed, or top_k=1 "
+                             "is not greedy")
+    numbers.update(top1_rows_equal_greedy=same_rows, top1_divergence_ulps=tie_ulps)
+    numbers["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    static_programs(model).clear()
+    torch.cuda.empty_cache()
+
+    # (b) the static server at its defaults
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for count, n in STATIC_TRAFFIC for _ in range(count)]
+    scfg = ServingConfig()
+    runs = []
+    for rep in range(2):
+        with InferenceServer(model, scfg, device=dev) as srv:
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            futs = [srv.submit(p, max_new_tokens=STATIC_SERVER_NEW) for p in prompts]
+            results = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t0
+            launches = _build.launch_counts()
+            batches = srv.metrics["batches"]
+        keys = {(len(p), r.batch_size) for p, r in zip(prompts, results)}
+        check_launches(f"phase 12 server run {rep + 1}", launches, {"flash_fwd_mma": n_layers * batches})
+        if rep == 0 and generate_cache_stats(model)["size"] != len(keys):
+            raise AssertionError(f"phase 12: {generate_cache_stats(model)['size']} programs for the "
+                                 f"batches' {len(keys)} keys")
+        runs.append(dict(wall_s=wall, tokens_per_s=len(prompts) * STATIC_SERVER_NEW / wall,
+                         batches=batches, launches=launches,
+                         latency_p50_s=sorted(r.latency_s for r in results)[len(results) // 2],
+                         results=results))
+        log(f"phase 12 server run {rep + 1} (ServingConfig() defaults: static, dense; "
+            f"{len(prompts)} greedy requests, prompts {[n for _, n in STATIC_TRAFFIC]}, "
+            f"{STATIC_SERVER_NEW} new each): {batches} batches of sizes "
+            f"{sorted(r.batch_size for r in results)[::8]}, {runs[-1]['tokens_per_s']:.1f} generated "
+            f"tokens/s in {wall:.3f}s, latency p50 {runs[-1]['latency_p50_s']:.3f}s "
+            f"({'captures its programs' if rep == 0 else 'warm'}) [{card}]")
+    if any(r.batch_size != STATIC_B for run in runs for r in run["results"]):
+        raise AssertionError("phase 12: a server batch did not fill its 8 rows; the replies cannot "
+                             "be matched to a direct generate of consecutive rows")
+    for g in range(0, len(prompts), STATIC_B):
+        rows = np.stack(prompts[g:g + STATIC_B])
+        total = rows.shape[1] + STATIC_SERVER_NEW
+        direct = generate(model, rows, STATIC_SERVER_NEW, pad_to=-(-total // 64) * 64).cpu().numpy()
+        for run in runs:
+            for i, r in enumerate(run["results"][g:g + STATIC_B]):
+                if not np.array_equal(r.tokens, direct[i]):
+                    raise AssertionError(f"phase 12: request {g + i}'s reply differs from a direct "
+                                         "generate of its batch")
+    log(f"phase 12 server: every reply of both runs equals a direct generate of its batch's rows; "
+        f"{generate_cache_stats(model)['size']} programs; phase 12 took "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    static_programs(model).clear()
+    torch.cuda.empty_cache()
+    numbers["server"] = [{k: v for k, v in run.items() if k != "results"} for run in runs]
+    return {"flash_fwd_mma": runs[0]["launches"]["flash_fwd_mma"]}, numbers
+
+
 # ----------------------------------------------------------------- phase 8
 Q_BATCH, Q_SEQ = 4, 512
 Q_FORWARDS = 2  # timed forwards, after one warm-up
@@ -1969,7 +2249,12 @@ def greedy_agreement(logits, ref):
     rest, that gap in bf16 ulps of ``ref``'s largest |logit|): how far the
     chosen token's ``ref`` logit sits below ``ref``'s argmax, as in phase
     7's teacher-forced check."""
-    chosen = logits.argmax(-1)
+    return choice_agreement(logits.argmax(-1), ref)
+
+
+def choice_agreement(chosen, ref):
+    """:func:`greedy_agreement` of chosen token ids (...) against the
+    ``ref`` logits (..., V) that scored them."""
     share = (chosen == ref.argmax(-1)).float().mean().item()
     gap = (ref.max(-1).values - ref.gather(-1, chosen[..., None])[..., 0]).max().item()
     ulp = 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7)  # bf16: 8 significant bits
@@ -3824,6 +4109,8 @@ def run_phases(args) -> int:
             by_path["serving"], summary["main_path"] = phase_main_path(dev, card, model)
             by_path["serving_spec"], by_path["serving_int8"], summary["spec_path"] = (
                 phase_spec_path(dev, card, model))
+            # phase 12 before 8: phase 8 quantizes the model in place
+            by_path["static"], summary["static_path"] = phase_static(dev, card, model)
             by_path["quantized"], summary["quantized_path"] = phase_quantized(dev, card, model)
             del model
             torch.cuda.empty_cache()

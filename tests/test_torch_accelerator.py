@@ -362,8 +362,15 @@ def test_refusals_name_their_queue_items():
         ServingConfig(**{name: field.default})
         with pytest.raises(NotImplementedError, match=rf"{name}.*ROADMAP.md {item}\b"):
             ServingConfig(**{name: _other(field.default)})
-    with pytest.raises(NotImplementedError, match=r"static.*ROADMAP.md A8\b"):
-        ServingConfig(mode="static")
+    # static mode landed with A8: its batching and retry knobs take any
+    # valid value, and the slot engine's options name the mode they need
+    lifted = dict(max_batch_size=3, batch_window_s=0.5, batch_bucket=False,
+                  pad_total_multiple=7, max_retries=5, retry_backoff_s=0.5,
+                  retry_backoff_max_s=4.0, retry_jitter=1.0)
+    assert dataclasses.asdict(ServingConfig(mode="static", **lifted)).items() >= lifted.items()
+    with pytest.raises(ValueError, match="requires mode='continuous'"):
+        ServingConfig(speculative="ngram")
+    ServingConfig(mode="continuous", speculative="ngram")
     AcceleratorState._reset_state(reset_partial_state=True)
     with pytest.raises(NotImplementedError, match=r"fp8.*ROADMAP.md A4\b"):
         Accelerator(cpu=True, mixed_precision="fp8")
@@ -371,10 +378,8 @@ def test_refusals_name_their_queue_items():
 
 # C5's fields by the item that owns them
 QUEUED_SERVING = {
-    **dict.fromkeys(("max_batch_size", "batch_window_s", "batch_bucket", "pad_total_multiple"), "A8"),
     **dict.fromkeys(("kv_host_tier_bytes", "kv_prefetch"), "A3"),
-    **dict.fromkeys(("max_retries", "retry_backoff_s", "retry_backoff_max_s", "retry_jitter",
-                     "breaker_threshold", "breaker_reset_s", "degrade_queue_fraction",
+    **dict.fromkeys(("breaker_threshold", "breaker_reset_s", "degrade_queue_fraction",
                      "degrade_hard_fraction", "degraded_max_new_tokens", "metrics_interval_s"), "A10"),
 }
 
@@ -392,9 +397,8 @@ def test_serving_config_takes_every_field_of_the_jax_config():
 
     jax_fields = {f.name: f.default for f in dataclasses.fields(jdc.ServingConfig)}
     ours = {f.name: f.default for f in dataclasses.fields(ServingConfig)}
-    # the default mode stays "continuous" until static mode lands (A8)
-    assert jax_fields.pop("mode") == "static" and ours.pop("mode") == "continuous"
-    assert ours == jax_fields
+    # the defaults too: mode="static", as in the JAX package, since A8
+    assert ours == jax_fields and ours["mode"] == "static"
 
 
 # ------------------------------------------------------- C4: JAX's arguments
@@ -476,8 +480,7 @@ SIGNATURE_EXEMPT = {
     "ops.paged_decode:paged_flash_decode": {"interpret": TPU},
     "ops.paged_decode:paged_flash_verify": {"interpret": TPU},
     "ops.quant_matmul:quantized_matmul": {"block_m": TPU, "block_n": TPU, "interpret": TPU},
-    "serving:InferenceServer.__init__": {"generate_fn": "A8", "trackers": "A10",
-                                         "replica_id": "A10"},
+    "serving:InferenceServer.__init__": {"trackers": "A10", "replica_id": "A10"},
     "serving:InferenceServer.submit": {"prefilled": "A3", "arrival_s": "A10", "trace_id": "A10"},
     "serving:ServingMetrics.__init__": {"clock": "A10"},
     "serving:ServingResult.__init__": {"degraded": "A10", "replica_id": "A10",

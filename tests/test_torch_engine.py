@@ -205,7 +205,7 @@ def test_kernel_engine_refuses_sliding_window(models):
 
 def _server(tmodel, **kw):
     cfg = ServingConfig(**{**dict(
-        engine_slots=2, engine_max_len=64, engine_prompt_bucket=16, engine_readback_lag=1,
+        mode="continuous", engine_slots=2, engine_max_len=64, engine_prompt_bucket=16, engine_readback_lag=1,
         kv_cache="paged", engine_block_size=8, attention_impl="kernel"), **kw})
     return InferenceServer(tmodel, cfg, device="cpu")
 
@@ -256,15 +256,22 @@ def test_server_backpressure_deadline_and_drain(models):
 
 
 def test_serving_config_validation():
-    with pytest.raises(NotImplementedError, match="continuous"):
-        ServingConfig(mode="static")
+    # the JAX default mode; the slot engine's options name the mode they need
+    assert ServingConfig().mode == "static" == ServingConfig(mode="static").mode
+    with pytest.raises(ValueError, match="mode must be"):
+        ServingConfig(mode="batch")
+    for kw in (dict(attention_impl="kernel", kv_cache="paged"), dict(speculative="ngram"),
+               dict(engine_prefill_chunk=64)):
+        with pytest.raises(ValueError, match="requires mode='continuous'"):
+            ServingConfig(**kw)
     with pytest.raises(ValueError, match="paged"):
-        ServingConfig(attention_impl="kernel", kv_cache="dense")
-    ServingConfig(attention_impl="kernel", kv_cache="paged_int8", speculative="ngram",
-                  engine_prefill_chunk=64)
+        ServingConfig(mode="continuous", attention_impl="kernel", kv_cache="dense")
+    ServingConfig(mode="continuous", attention_impl="kernel", kv_cache="paged_int8",
+                  speculative="ngram", engine_prefill_chunk=64)
     with pytest.raises(ValueError, match="kv_cache"):
-        ServingConfig(kv_cache="paged_fp8")
+        ServingConfig(mode="continuous", kv_cache="paged_fp8")
     with pytest.raises(ValueError, match="multiple"):
-        ServingConfig(kv_cache="paged", engine_max_len=100, engine_block_size=16)
+        ServingConfig(mode="continuous", kv_cache="paged", engine_max_len=100,
+                      engine_block_size=16)
     with pytest.raises(ValueError, match="attention_impl"):
-        ServingConfig(attention_impl="pallas")
+        ServingConfig(mode="continuous", attention_impl="pallas")

@@ -106,7 +106,7 @@ def test_chunked_prefill_adds_the_chunk_signature(models, kv_cache):
 
 def test_the_server_reports_the_engine_programs(models):
     _, tmodel = models
-    cfg = ServingConfig(engine_slots=2, engine_max_len=32, engine_prompt_bucket=8,
+    cfg = ServingConfig(mode="continuous", engine_slots=2, engine_max_len=32, engine_prompt_bucket=8,
                         kv_cache="paged", engine_block_size=8)
     with InferenceServer(tmodel, cfg, device="cpu") as srv:
         srv.generate(np.arange(1, 6, dtype=np.int32), max_new_tokens=3)

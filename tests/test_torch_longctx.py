@@ -126,7 +126,7 @@ def test_unchunked_engine_rejects_past_bucket(models):
     with pytest.raises(ValueError, match="prefill_chunk"):
         ContinuousBatchingEngine(tmodel, max_len=32, prefill_chunk=32, device="cpu")
     with pytest.raises(ValueError, match="engine_prefill_chunk"):
-        ServingConfig(engine_max_len=32, engine_prefill_chunk=32)
+        ServingConfig(mode="continuous", engine_max_len=32, engine_prefill_chunk=32)
 
 
 def test_chunked_prefix_registers_only_after_the_last_chunk(models):
@@ -150,7 +150,7 @@ def test_chunked_prefix_registers_only_after_the_last_chunk(models):
 def test_server_serves_long_prompts_in_chunks(models, jax_chunked):
     _, tmodel = models
     reqs, jtokens, _ = jax_chunked
-    cfg = ServingConfig(engine_slots=2, engine_max_len=96, engine_prompt_bucket=16,
+    cfg = ServingConfig(mode="continuous", engine_slots=2, engine_max_len=96, engine_prompt_bucket=16,
                         engine_readback_lag=1, kv_cache="paged", engine_block_size=8,
                         attention_impl="kernel", engine_prefill_chunk=16)
     with InferenceServer(tmodel, cfg, device="cpu") as srv:

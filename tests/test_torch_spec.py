@@ -203,8 +203,8 @@ def test_server_spec_and_engine_agree(models):
     prompts = _rep_prompts(4, seed=31, unit=2, reps=6)
     budgets = [12, 8, 10, 6]
     expected = [_run(_port(tmodel, attention_impl="kernel"), [p], b)[0] for p, b in zip(prompts, budgets)]
-    cfg = ServingConfig(engine_slots=2, engine_max_len=64, engine_prompt_bucket=16,
-                        engine_readback_lag=2, kv_cache="paged", engine_block_size=8,
+    cfg = ServingConfig(mode="continuous", engine_slots=2, engine_max_len=64,
+                        engine_prompt_bucket=16, engine_readback_lag=2, kv_cache="paged", engine_block_size=8,
                         attention_impl="kernel", speculative="ngram", spec_draft_len=3)
     with InferenceServer(tmodel, cfg, device="cpu") as srv:
         res = [srv.submit(p, max_new_tokens=b, pad_token_id=0) for p, b in zip(prompts, budgets)]
@@ -230,7 +230,7 @@ def test_spec_stats_and_knob_validation(models):
         ContinuousBatchingEngine(tmodel, slots=1, max_len=8, spec="ngram", spec_draft_len=0,
                                  device="cpu")
     with pytest.raises(ValueError, match="speculative"):
-        ServingConfig(speculative="eagle")
+        ServingConfig(mode="continuous", speculative="eagle")
     with pytest.raises(ValueError, match="spec_draft_len"):
-        ServingConfig(speculative="ngram", spec_draft_len=0)
-    ServingConfig(spec_draft_len=0)  # inert while speculation is off
+        ServingConfig(mode="continuous", speculative="ngram", spec_draft_len=0)
+    ServingConfig(mode="continuous", spec_draft_len=0)  # inert while speculation is off
