@@ -35,8 +35,11 @@ under a ``ParallelismConfig``, the collectives, loaders and checkpoints
 of several processes, ``notebook_launcher`` and ``python -m
 accelerate_tpu_torch.commands.launch``; tensor parallelism (Megatron, a
 sequence-parallel residual) alone and under FSDP2/HSDP, and big-model
-loading over a mesh. Replication, the launch supervisor, the host KV
-tier and the serving control plane are still to be ported (ROADMAP.md).
+loading over a mesh. Training survives failures: the launch supervisor
+(restarts, the crash-loop breaker, the heartbeat watchdog, preemption),
+checkpoint replication (``ReplicationConfig``, ``elastic.py``) and the
+consensus resume. The host KV tier and the serving control plane are
+still to be ported (ROADMAP.md).
 """
 
 __version__ = "0.1.0"
@@ -48,6 +51,7 @@ __all__ = [
     "FSDPPlugin",
     "ParallelismConfig",
     "ProjectConfiguration",
+    "ReplicationConfig",
     "TensorParallelConfig",
     "TrainingHealthConfig",
     "ContinuousBatchingEngine",
@@ -103,6 +107,10 @@ _LAZY = {
     "debug_launcher": ("launchers", "debug_launcher"),
     "ProjectConfiguration": ("utils.dataclasses", "ProjectConfiguration"),
     "TrainingHealthConfig": ("utils.dataclasses", "TrainingHealthConfig"),
+    "ReplicationConfig": ("utils.dataclasses", "ReplicationConfig"),
+    "CheckpointReplicator": ("elastic", "CheckpointReplicator"),
+    "CheckpointDivergedError": ("utils.fault", "CheckpointDivergedError"),
+    "ReplicaUnavailableError": ("utils.fault", "ReplicaUnavailableError"),
     "GeneralTracker": ("tracking", "GeneralTracker"),
     "wait_for_async_saves": ("checkpointing", "wait_for_async_saves"),
     "list_checkpoints": ("checkpointing", "list_checkpoints"),

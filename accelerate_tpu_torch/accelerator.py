@@ -14,7 +14,11 @@ steps only when the optimizer updated.
 Around the step, as in the JAX package: ``save_state``/``load_state``/
 ``resume_from_latest`` (``checkpointing.py``: atomic commits, automatic
 naming and retention under ``ProjectConfiguration``, async saves, custom
-objects and pre-hooks, the preemption handler); ``check_step_health``
+objects and pre-hooks, the preemption handler; ``elastic.py``: replicas
+under a ``ReplicationConfig`` and, with several processes, the consensus
+resume); the heartbeat the launch supervisor's watchdog reads (touched
+when the Accelerator is built, after every step, and around a save and a
+load); ``check_step_health``
 (``TrainingHealthConfig``: raise, skip or restore on a non-finite step,
 read now or ``readback_depth`` steps later); trackers (``log_with``,
 ``init_trackers``, ``log``, ``async_logging``); and the collectives across
@@ -46,8 +50,7 @@ sharded over the data-parallel dims (FSDP2, HSDP); the ``tp`` ranks of one
 data-parallel coordinate read the same rows, the loss is reduced over the
 data-parallel ranks only, and the gradients of ``tp``-replicated
 parameters are summed over ``tp``. Context, sequence, pipeline and expert
-parallelism, PowerSGD and replicas wait for ROADMAP.md A7 and A11 and
-raise.
+parallelism and PowerSGD wait for ROADMAP.md A11 and raise.
 """
 
 from __future__ import annotations
@@ -74,6 +77,7 @@ from .utils.dataclasses import (
     GradScalerKwargs,
     MixedPrecisionPolicy,
     ProjectConfiguration,
+    ReplicationConfig,
     TrainingHealthConfig,
 )
 from .utils.fault import TrainingHealthError
@@ -85,6 +89,10 @@ __all__ = ["Accelerator"]
 
 def _split_loss(out):
     return out if isinstance(out, tuple) else (out, None)
+
+
+def _env_flag(name: str) -> bool:
+    return os.environ.get(name, "").strip().lower() in ("1", "true", "yes", "on")
 
 
 class Accelerator:
@@ -114,14 +122,9 @@ class Accelerator:
         step_scheduler_with_optimizer: bool = True,
         kwargs_handlers: Optional[Sequence] = None,
         health_config: Optional[TrainingHealthConfig] = None,
-        replication_config=None,
+        replication_config: Optional[ReplicationConfig] = None,
         async_logging: bool = False,
     ):
-        if replication_config is not None:
-            raise NotImplementedError(
-                "replication_config: mirroring checkpoints to durable storage and restoring "
-                "from a replica (consensus resume) wait for ROADMAP.md A7"
-            )
         self.project_configuration = project_config or ProjectConfiguration(project_dir=project_dir)
         if project_dir is not None and self.project_configuration.project_dir is None:
             self.project_configuration.set_directories(project_dir)
@@ -141,6 +144,8 @@ class Accelerator:
                 gradient_accumulation_plugin = handler
             elif isinstance(handler, TrainingHealthConfig) and health_config is None:
                 health_config = handler
+            elif isinstance(handler, ReplicationConfig) and replication_config is None:
+                replication_config = handler
             else:
                 raise TypeError(f"unsupported kwargs handler {type(handler).__name__}")
         self.dataloader_config = dataloader_config or DataLoaderConfiguration()
@@ -201,9 +206,18 @@ class Accelerator:
         self.async_logging = async_logging or os.environ.get(
             "ACCELERATE_ASYNC_LOGGING", "").strip().lower() in ("1", "true", "yes", "on")
         self._tracker_flusher = None
-        if os.environ.get("ACCELERATE_HANDLE_PREEMPTION", "").strip().lower() in (
-                "1", "true", "yes", "on"):
+        # checkpoint replication: every committed checkpoint is mirrored under
+        # the target; the launcher arms it through the environment
+        if replication_config is None and os.environ.get("ACCELERATE_REPLICATION_TARGET"):
+            replication_config = ReplicationConfig(
+                target=os.environ["ACCELERATE_REPLICATION_TARGET"],
+                copies=int(os.environ.get("ACCELERATE_REPLICATION_COPIES", "1")),
+                async_replicate=not _env_flag("ACCELERATE_REPLICATION_SYNC"))
+        self.replication_config = replication_config
+        self._replicator = None
+        if _env_flag("ACCELERATE_HANDLE_PREEMPTION"):
             self.install_preemption_handler()
+        self._touch_heartbeat()  # the worker is up: its start counts no further
 
     # ------------------------------------------------------------- properties
     @property
@@ -535,7 +549,23 @@ class Accelerator:
         loss, aux = _split_loss(loss_fn(model, *args, **kwargs))
         scale, loss_out = self._data_parallel_loss(loss_fn, loss, args)
         (loss * (scale * self._loss_scale() / self.gradient_state.num_steps)).backward()
+        self._touch_heartbeat()
         return loss_out if aux is None else (loss_out, aux)
+
+    def _touch_heartbeat(self) -> None:
+        """The liveness signal of the launch supervisor's watchdog: touch
+        ``ACCELERATE_HEARTBEAT_FILE`` (exported by ``launch
+        --watchdog_timeout``), ``<file>.<LOCAL_RANK>`` under torchrun, where
+        each rank beats on its own and the supervisor reads the oldest.
+        Nothing without the variable."""
+        hb = os.environ.get("ACCELERATE_HEARTBEAT_FILE")
+        if not hb:
+            return
+        rank = os.environ.get("LOCAL_RANK")
+        try:
+            os.utime(hb if rank is None else f"{hb}.{rank}", None)  # the supervisor made it
+        except OSError:
+            pass
 
     def _data_parallel_loss(self, loss_fn: Callable, loss: torch.Tensor, batch: tuple) -> tuple:
         """(gradient scale, the loss to return) of this rank's ``loss``.
@@ -778,21 +808,25 @@ class Accelerator:
         output_dir = _resolve_dir(self, output_dir, for_save=True)
         for hook in self._save_state_pre_hooks:
             hook(self._models, None, output_dir)
+        self._touch_heartbeat()  # a long write is progress, not a hang
         result = save_accelerator_state(self, output_dir, **save_kwargs)
         if not save_kwargs.get("async_save"):
             self._last_committed_checkpoint = result
+        self._touch_heartbeat()
         return result
 
     def load_state(self, input_dir: Optional[str] = None, **load_kwargs) -> None:
         """Restore the training state; with no ``input_dir``, the newest
         committed checkpoint under the project directory."""
-        from .checkpointing import _resolve_dir, load_accelerator_state, wait_for_async_saves
+        from .checkpointing import _resolve_for_load, load_accelerator_state, wait_for_async_saves
 
         wait_for_async_saves()  # a save still in flight may be the newest
-        input_dir = _resolve_dir(self, input_dir, for_save=False)
+        input_dir = _resolve_for_load(self, input_dir)
         for hook in self._load_state_pre_hooks:
             hook(self._models, input_dir)
+        self._touch_heartbeat()
         load_accelerator_state(self, input_dir, **load_kwargs)
+        self._touch_heartbeat()
 
     def resume_from_latest(self, input_dir: Optional[str] = None,
                            elastic: Optional[bool] = None) -> bool:
@@ -803,12 +837,25 @@ class Accelerator:
         automatic naming the next save goes past every checkpoint on disk.
         ``elastic`` (default ``ACCELERATE_ELASTIC``) loads a checkpoint
         saved by another number of processes (the tensors are whole, and
-        are sharded again as this run's layout says)."""
+        are sharded again as this run's layout says; the loaders' positions
+        are remapped to the new global batch).
+
+        Several processes resume through consensus (``elastic.py``): every
+        process gathers the others' views of the committed tree and all
+        load the highest index every non-empty tree holds
+        (``CheckpointDivergedError`` when their contents differ). When some
+        process lacks it, all fetch it from the ``ReplicationConfig``'s
+        replica together; with no checkpoint anywhere but a replica set,
+        they restore its newest."""
         if elastic is None:
-            elastic = os.environ.get("ACCELERATE_ELASTIC", "").strip().lower() in (
-                "1", "true", "yes", "on")
+            elastic = _env_flag("ACCELERATE_ELASTIC")
+        load_kwargs = {"elastic": True} if elastic else {}
+        pc = self.project_configuration
         try:
-            self.load_state(input_dir, **({"elastic": True} if elastic else {}))
+            if input_dir is None and self.num_processes > 1 and pc.project_dir:
+                self.load_state(self._consensus_checkpoint(), **load_kwargs)
+            else:
+                self.load_state(input_dir, **load_kwargs)
         except FileNotFoundError:
             return False
         pc = self.project_configuration
@@ -821,11 +868,65 @@ class Accelerator:
                 pc.iteration = max(indices) + 1
         return True
 
+    def _consensus_checkpoint(self) -> str:
+        """The checkpoint every process resumes from, present on each
+        (``resume_from_latest`` with several processes). Raises
+        ``CheckpointNotFoundError`` on a first launch."""
+        from . import elastic
+        from .utils.fault import CheckpointNotFoundError, ReplicaUnavailableError
+
+        base = os.path.join(self.project_configuration.project_dir, "checkpoints")
+        consensus = elastic.resolve_consensus_checkpoint(base)
+        if consensus is None:
+            # no process holds anything: a first launch, unless a replica
+            # set exists (every local disk was lost)
+            if self.replication_config is None:
+                raise CheckpointNotFoundError(f"No checkpoints under {base} on any process")
+            return elastic.ensure_local_checkpoint(self.replication_config, base)
+        if not consensus.missing_ranks:
+            return consensus.local_path
+        # missing_ranks comes from the gathered views, the same on every
+        # rank: the whole group enters the collective fetch, holders too
+        if self.replication_config is None:
+            raise ReplicaUnavailableError(
+                f"process(es) {sorted(consensus.missing_ranks)} do not hold the consensus "
+                f"checkpoint_{consensus.index} and no ReplicationConfig is active to fetch it")
+        return elastic.ensure_local_checkpoint(
+            self.replication_config, base, name=f"checkpoint_{consensus.index}",
+            expected_digest=consensus.digest)
+
     def wait_for_async_saves(self) -> None:
         """Join in-flight async saves and run their commits."""
         from .checkpointing import wait_for_async_saves
 
         wait_for_async_saves()
+
+    # ------------------------------------------------------------ replication
+    def _get_replicator(self):
+        if self.replication_config is None:
+            return None
+        if self._replicator is None:
+            from .elastic import CheckpointReplicator
+
+            self._replicator = CheckpointReplicator(self.replication_config)
+        return self._replicator
+
+    def _submit_replication(self, committed_dir: str) -> None:
+        """After a commit (``checkpointing._commit_staged``, the main
+        process): hand the checkpoint to the replicator. With
+        ``async_replicate=False`` the mirror runs here and its failure
+        raises out of ``save_state``; the checkpoint is committed either
+        way."""
+        if self.replication_config is None or not self.is_main_process:
+            return
+        self._get_replicator().submit(committed_dir)
+
+    def wait_for_replication(self, timeout: Optional[float] = None) -> None:
+        """Wait for every submitted mirror, then raise the first deferred
+        failure (``end_training``, the preemption handler and interpreter
+        exit call it)."""
+        if self._replicator is not None:
+            self._replicator.drain(timeout=timeout)
 
     def install_preemption_handler(self, **kwargs) -> bool:
         """Checkpoint, then exit, on SIGTERM/SIGINT (``utils/fault.py``)."""
@@ -986,24 +1087,28 @@ class Accelerator:
             self._tracker_flusher.flush()
 
     def end_training(self) -> None:
-        """Commit in-flight async saves, apply pending health verdicts, and
-        flush and finish the trackers; every step runs, and the first error
-        is raised after them."""
+        """Commit in-flight async saves, drain the replicator (their commits
+        feed it), apply pending health verdicts, and flush and finish the
+        trackers; every step runs, and the first error is raised after
+        them."""
         from .checkpointing import wait_for_async_saves
 
         try:
             wait_for_async_saves()
         finally:
             try:
-                self.health_drain()
+                self.wait_for_replication()
             finally:
                 try:
-                    if self._tracker_flusher is not None:
-                        flusher, self._tracker_flusher = self._tracker_flusher, None
-                        flusher.close()
+                    self.health_drain()
                 finally:
-                    for tracker in self.trackers:
-                        tracker.finish()
+                    try:
+                        if self._tracker_flusher is not None:
+                            flusher, self._tracker_flusher = self._tracker_flusher, None
+                            flusher.close()
+                    finally:
+                        for tracker in self.trackers:
+                            tracker.finish()
 
     def _check_comm_hook(self) -> None:
         """Refuse a comm hook the layout cannot apply: PowerSGD (ROADMAP.md
@@ -1072,6 +1177,7 @@ class Accelerator:
                     optimizer.clip_grad_norm_(max_grad_norm)
                 optimizer.step()
                 optimizer.zero_grad()
+            self._touch_heartbeat()
             return loss_out
 
         if not multi_step:

@@ -519,6 +519,12 @@ def _commit_staged(staging: str, final: str, accelerator) -> None:
     state.wait_for_everyone("accelerate_tpu_torch.checkpointing.post_commit_rename")
     fault_point("before_gc")
     _gc_checkpoints(accelerator)
+    # the checkpoint is durable here: the main process hands it to the
+    # replicator (elastic.py), which mirrors it under ReplicationConfig.target
+    if state.is_main_process:
+        submit = getattr(accelerator, "_submit_replication", None)
+        if submit is not None:
+            submit(final)
 
 
 def _gc_checkpoints(accelerator) -> None:
@@ -572,6 +578,28 @@ def _resolve_dir(accelerator, output_dir: Optional[str], for_save: bool) -> str:
             return os.path.join(base, f"{CHECKPOINT_DIR_PREFIX}_{pc.iteration}")
         return base
     return _latest_committed(base)
+
+
+def _resolve_for_load(accelerator, input_dir: Optional[str]) -> str:
+    """:func:`_resolve_dir` for a load, with the replica fallback: when the
+    local tree holds no committed checkpoint and a ``ReplicationConfig`` is
+    active, the newest verified replica is restored into it first (a host
+    whose disk is gone). With no local checkpoint and no replica,
+    ``CheckpointNotFoundError`` as before: ``resume_from_latest`` reads a
+    first launch."""
+    try:
+        return _resolve_dir(accelerator, input_dir, for_save=False)
+    except CheckpointNotFoundError:
+        rc = getattr(accelerator, "replication_config", None)
+        pc = accelerator.project_configuration
+        if rc is None or input_dir is not None or pc.project_dir is None:
+            raise
+        from .elastic import ensure_local_checkpoint
+
+        base = os.path.join(pc.project_dir, "checkpoints")
+        logger.warning(f"no committed checkpoint under {base}; attempting replica restore from "
+                       f"{rc.target}")
+        return ensure_local_checkpoint(rc, base)
 
 
 def _latest_committed(base: str) -> str:
@@ -700,6 +728,26 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None,
     return output_dir
 
 
+def _remap_loader_state(dl, sd: dict, saved_topology: dict) -> dict:
+    """A loader's saved position in batches of the live global batch: the
+    saved ``total_batch_size`` against the loader's, or, for a checkpoint
+    without it, the saved ``num_processes`` times the loader's per-process
+    batch (the per-process batch taken as unchanged)."""
+    new_total = getattr(dl, "total_batch_size", None)
+    old_total = sd.get("total_batch_size")
+    if old_total is None:
+        saved_procs = saved_topology.get("num_processes")
+        per_process = getattr(dl, "batch_size", None) or getattr(
+            getattr(dl, "batch_sampler", None), "batch_size", None)
+        if saved_procs and per_process:
+            old_total = per_process * saved_procs
+    if old_total and new_total and int(old_total) != int(new_total):
+        from .elastic import remap_sampler_state
+
+        sd = remap_sampler_state(sd, int(old_total), int(new_total))
+    return sd
+
+
 def _write_json(path: str, payload) -> None:
     with open(path, "w") as f:
         json.dump(_json_safe(payload), f)
@@ -802,26 +850,117 @@ def _recover_parked(input_dir: str) -> None:
         os.rename(parked, input_dir)
 
 
-def _topology_gate(input_dir: str, elastic: bool) -> None:
-    """A checkpoint saved by another number of processes loads only with
-    ``elastic=True`` (the JAX package's contract); raised before any tensor
-    is read."""
-    from .utils.fault import CheckpointTopologyError
+def _ensure_present(accelerator, input_dir: str) -> None:
+    """Make ``input_dir`` present on every process before it is read. The
+    presence of a tree is a fact of one host (host-local disks are what a
+    replica is for), but every recovery path runs collectives: the verdict
+    is gathered first and all processes take the same branch. A parked
+    ``.old`` is recovered (the main process first, then each other host its
+    own); what is still missing somewhere is fetched from a replica."""
+    state = PartialState()
+    many = state.num_processes > 1
+    if all(state.gather_object(os.path.isdir(input_dir))) if many else os.path.isdir(input_dir):
+        return
+    if state.is_main_process:
+        _recover_parked(input_dir)
+    if many:
+        state.wait_for_everyone("accelerate_tpu_torch.checkpointing.recover_parked")
+        if not state.is_main_process:
+            _recover_parked(input_dir)
+    if all(state.gather_object(os.path.isdir(input_dir))) if many else os.path.isdir(input_dir):
+        return
+    rc = getattr(accelerator, "replication_config", None)
+    if rc is None:
+        raise CheckpointNotFoundError(
+            f"checkpoint directory {input_dir} does not exist" if not os.path.isdir(input_dir)
+            else f"checkpoint directory {input_dir} is missing on a peer host and no "
+                 "ReplicationConfig is active to fetch it")
+    from .elastic import ensure_local_checkpoint
 
+    logger.warning(f"{input_dir} missing on at least one host; attempting replica restore from "
+                   f"{rc.target}")
+    ensure_local_checkpoint(rc, os.path.dirname(input_dir), name=os.path.basename(input_dir))
+
+
+def _verify_or_heal(accelerator, input_dir: str, level: str) -> None:
+    """Verify ``input_dir`` on every process, then decide together: a tree
+    whose bytes are corrupt on some host is parked at ``<dir>.corrupt`` there
+    and a checksum-verified replica restored under its name (with a
+    ``ReplicationConfig``); any other failure raises on every process. No
+    rename happens before every process has verified (the gather is the
+    rendezvous)."""
+    state = PartialState()
+    error: Optional[CheckpointError] = None
+    try:
+        verify_checkpoint(input_dir, level=level)
+    except CheckpointError as exc:
+        error = exc
+    mine = None if error is None else (isinstance(error, CheckpointCorruptError),
+                                       f"{type(error).__name__}: {error}")
+    failed = [(r, v) for r, v in enumerate(
+        state.gather_object(mine) if state.num_processes > 1 else [mine]) if v is not None]
+    if not failed:
+        return
+    rc = getattr(accelerator, "replication_config", None)
+    all_corrupt = all(corrupt for _r, (corrupt, _m) in failed)
+    if rc is None or not all_corrupt:
+        if error is not None:
+            raise error
+        detail = "; ".join(f"rank {r}: {m}" for r, (_c, m) in failed)
+        raise (CheckpointCorruptError if all_corrupt else CheckpointError)(
+            f"checkpoint {input_dir} failed verification on peer host(s): {detail}")
+    from .elastic import ensure_local_checkpoint
+
+    logger.warning(f"local checkpoint {input_dir} is corrupt on {len(failed)}/"
+                   f"{state.num_processes} host(s); restoring from replica {rc.target}")
+
+    def park():
+        if error is not None and os.path.isdir(input_dir):
+            corrupt = input_dir + ".corrupt"
+            shutil.rmtree(corrupt, ignore_errors=True)
+            os.rename(input_dir, corrupt)
+
+    if state.is_main_process:
+        park()
+    if state.num_processes > 1:
+        state.wait_for_everyone("accelerate_tpu_torch.elastic.park_corrupt")
+        if not state.is_main_process:
+            park()
+    ensure_local_checkpoint(rc, os.path.dirname(input_dir), name=os.path.basename(input_dir))
+    verify_checkpoint(input_dir, level=level)
+
+
+def _saved_topology(input_dir: str) -> dict:
+    """The topology a manifest records (``{}`` without one), its
+    ``num_processes`` the top-level one the gate has always read."""
     try:
         manifest = read_commit_manifest(input_dir)
     except CheckpointError:
-        return  # verify="off": a tree without a manifest records no world
-    saved = manifest.get("num_processes")
+        return {}
+    topo = dict(manifest.get("topology") or {})
+    if "num_processes" in manifest:
+        topo["num_processes"] = manifest["num_processes"]
+    return topo
+
+
+def _topology_gate(input_dir: str, elastic: bool) -> dict:
+    """A checkpoint saved by another number of processes loads only with
+    ``elastic=True`` (the JAX package's contract); raised before any tensor
+    is read. Returns the saved topology."""
+    from .utils.fault import CheckpointTopologyError
+
+    topo = _saved_topology(input_dir)  # verify="off": a tree without a manifest records no world
+    saved = topo.get("num_processes")
     live = PartialState().num_processes
     if saved is None or saved == live:
-        return
+        return topo
     if not elastic:
         raise CheckpointTopologyError(
             f"checkpoint {input_dir} was saved on a different topology: num_processes {saved} "
             f"(saved) != {live} (live). Pass elastic=True to load_state/resume_from_latest to "
             "load it into this run's layout.")
     logger.warning(f"elastic load: {input_dir} was saved by {saved} processes, loading into {live}")
+    return topo
 
 
 def _load_sharded_model(model, path: str, what: str) -> None:
@@ -864,7 +1003,11 @@ def _load_sharded_optimizer(opt, model, path: Optional[str], meta: dict) -> None
             fqns, stacked = layout[int(idx)]
             split = stacked and isinstance(value, torch.Tensor) and value.dim() > 0
             for i, f in enumerate(fqns):
-                state.setdefault(f, {})[key] = value[i] if split else value
+                # each layer its own tensor: AdamW steps a 0-dim step
+                # counter in place, and one shared by L layers would count L
+                # times an update
+                state.setdefault(f, {})[key] = (value[i] if split else value.clone()
+                                                if isinstance(value, torch.Tensor) else value)
 
         if path is not None:
             reader = SafetensorsReader(path)
@@ -891,14 +1034,18 @@ def load_accelerator_state(accelerator, input_dir: Optional[str] = None,
     is verified at ``verify`` (default ``ACCELERATE_CHECKPOINT_VERIFY``,
     else ``"marker"``) and a failure raises the taxonomy's error:
     ``CheckpointNotFoundError``, ``CheckpointUncommittedError``,
-    ``CheckpointCorruptError`` or ``CheckpointComponentMissingError``."""
+    ``CheckpointCorruptError`` or ``CheckpointComponentMissingError``.
+
+    With a ``ReplicationConfig`` (``elastic.py``) a tree missing or corrupt
+    on some process is restored from a checksum-verified replica first.
+    With ``elastic=True`` each loader's position is remapped from the
+    saved global batch to the live one (``remap_sampler_state``)."""
     state = PartialState()
     wait_for_async_saves()
-    input_dir = _resolve_dir(accelerator, input_dir, for_save=False)
-    if state.is_main_process:
-        _recover_parked(input_dir)
-    verify_checkpoint(input_dir, level=_verify_level(verify))
-    _topology_gate(input_dir, elastic)
+    input_dir = _resolve_for_load(accelerator, input_dir)
+    _ensure_present(accelerator, input_dir)
+    _verify_or_heal(accelerator, input_dir, _verify_level(verify))
+    saved_topology = _topology_gate(input_dir, elastic)
 
     def suffix(i):
         return "" if i == 0 else f"_{i}"
@@ -944,8 +1091,11 @@ def load_accelerator_state(accelerator, input_dir: Optional[str] = None,
             payload = json.load(f)
         accelerator.step = payload.get("step", 0)
         for dl, sd in zip(accelerator._dataloaders, payload.get("dataloaders", [])):
-            if hasattr(dl, "load_state_dict"):
-                dl.load_state_dict(sd)
+            if not hasattr(dl, "load_state_dict"):
+                continue
+            if elastic and sd:
+                sd = _remap_loader_state(dl, sd, saved_topology)
+            dl.load_state_dict(sd)
 
     p = os.path.join(input_dir, "scaler.json")
     if accelerator.scaler is not None and os.path.exists(p):

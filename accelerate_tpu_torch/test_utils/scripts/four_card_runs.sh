@@ -2,13 +2,25 @@
 # The four-card runs of the PyTorch port, from the repository root on a
 # host with four cards (one process a card, NCCL):
 #
-#   bash accelerate_tpu_torch/test_utils/scripts/four_card_runs.sh [sanity|full|shallow|all]
+#   bash accelerate_tpu_torch/test_utils/scripts/four_card_runs.sh [sanity|full|shallow|all|supervise]
 #
 # sanity:  the sanity script (test_script.py) under --tp_size 4 and under
 #          --tp_size 2 --dp_shard_size 2
 # full:    train_timing.py on Llama-3-8B at full depth (32 layers), global
 #          batch 4 x 2048: TP 4, TP 2 x FSDP2 2, FSDP2 4
 # shallow: the same at 4 layers under DDP 4, FSDP2 4 and HSDP 2 x 2
+# supervise (not part of all): the supervised fine-tune of
+#          crash_resume_script.py on Llama-3-8B at 4 layers under FSDP2 4,
+#          uninterrupted and with rank 2 killed at the end of step 2 on the
+#          first attempt (--max_restarts 1 --watchdog_timeout 300, a save
+#          after step 1): all four ranks restart and must end on the
+#          uninterrupted run's losses and every rank's parameters bit for
+#          bit; then elastic_recovery_script.py at 1 layer: FSDP2 4 with a
+#          synchronous replica, rank 3 lost after the commit, the tree
+#          wiped, a relaunch at 2 cards (FSDP2 2, --elastic) restoring
+#          from the replica, held bit for bit against a 2-card run that
+#          loads the replica directly (1 row a rank: the global batch and
+#          the loader's position change)
 # Each timing run writes chiprun_out/train_timing_<layout>_<layers>l.json;
 # the lines printed carry the card's name and power limit.
 set -euo pipefail
@@ -32,4 +44,57 @@ if [[ $what == shallow || $what == all ]]; then
   "${launch[@]}" --dp_replicate_size 4 "$timing" --layers 4
   "${launch[@]}" --dp_shard_size 4 "$timing" --layers 4
   "${launch[@]}" --dp_replicate_size 2 --dp_shard_size 2 "$timing" --layers 4
+fi
+if [[ $what == supervise ]]; then
+  crash=accelerate_tpu_torch/test_utils/scripts/crash_resume_script.py
+  elastic=accelerate_tpu_torch/test_utils/scripts/elastic_recovery_script.py
+  tmp=$(mktemp -d "${TMPDIR:-/tmp}/four_card_supervise.XXXXXX")
+  trap 'rm -rf "$tmp"' EXIT
+  out=chiprun_out/supervise
+  common=(--preset llama3_8b --layers 4 --rows 4 --seq 2048 --lr 3e-4 --total_steps 4)
+  "${launch[@]}" --dp_shard_size 4 "$crash" "${common[@]}" --project_dir "$tmp/ref" \
+    --out "${out}_ref.json" --events "${out}_ref.events"
+  rm -rf "$tmp/ref"
+  "${launch[@]}" --dp_shard_size 4 --max_restarts 1 --watchdog_timeout 300 --monitor_interval 1 \
+    "$crash" "${common[@]}" --project_dir "$tmp/crash" --save_at 1 \
+    --fault train_step_end:kill:after=1 --fault_rank 2 --out "${out}_crash.json" \
+    --events "${out}_crash.events" 2> >(tee "${out}_crash.stderr" >&2)
+  rm -rf "$tmp/crash"
+  ecommon=(--preset llama3_8b --layers 1 --rows 4 --seq 2048 --loader_batches 8 --per_process_rows 1)
+  # the host-loss launch ends non-zero by design (rank 3 SIGKILLs itself)
+  ACCELERATE_REPLICATION_SYNC=1 "${launch[@]}" --dp_shard_size 4 --replicate_to "$tmp/replica" \
+    "$elastic" "${ecommon[@]}" --project_dir "$tmp/e" --phase host_loss --steps 2 --kill_rank 3 \
+    || echo "host-loss launch exited $? (rank 3 killed after the commit)"
+  rm -rf "$tmp/e/checkpoints"
+  two=(python -m accelerate_tpu_torch.commands.launch --num_processes 2 --dp_shard_size 2)
+  ACCELERATE_REPLICATION_SYNC=1 "${two[@]}" --elastic --replicate_to "$tmp/replica" "$elastic" \
+    "${ecommon[@]}" --project_dir "$tmp/e" --phase resume --steps 2 --out "${out}_elastic.json" \
+    2> >(tee "${out}_elastic.stderr" >&2)
+  "${two[@]}" "$elastic" "${ecommon[@]}" --project_dir "$tmp/direct" --phase resume --steps 2 \
+    --load_dir "$tmp/replica/r0/checkpoint_0" --out "${out}_direct.json"
+  python - "$out" <<'PY'
+import json, subprocess, sys
+out = sys.argv[1]
+card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                      capture_output=True, text=True).stdout.strip().splitlines()[0]
+ref, crash = (json.load(open(f"{out}_{k}.json")) for k in ("ref", "crash"))
+events = [json.loads(l) for l in open(f"{out}_crash.events")]
+death = [e["t"] for e in events if e["event"] == "step" and e["attempt"] == 0][-1]
+first = [e["t"] for e in events if e["event"] == "step" and e["attempt"] == 1][0]
+saved = next(e for e in events if e["event"] == "saved")
+restarted = "restart 1/1" in open(f"{out}_crash.stderr").read()
+ok_crash = (restarted and crash["attempt"] == 1 and crash["start"] == 1
+            and crash["losses"] == ref["losses"][1:] and crash["checksum"] == ref["checksum"])
+el, direct = (json.load(open(f"{out}_{k}.json")) for k in ("elastic", "direct"))
+restored = "from replica" in open(f"{out}_elastic.stderr").read()
+ok_elastic = (restored and el["resumed"] and el["num_processes"] == 2 and el["position"] == 4
+              and el["losses"] == direct["losses"] and el["position"] == direct["position"])
+summary = {"card": card, "crash_restart_bitwise": ok_crash, "losses": ref["losses"],
+           "save_s": saved["save_s"], "restart_s": first - death,
+           "elastic_4_to_2_bitwise": ok_elastic, "elastic_losses": el["losses"],
+           "elastic_position": el["position"]}
+print(json.dumps(summary), flush=True)
+json.dump(summary, open(f"{out}_summary.json", "w"))
+sys.exit(0 if ok_crash and ok_elastic else 1)
+PY
 fi

@@ -39,6 +39,7 @@ __all__ = [
     "MixedPrecisionPolicy",
     "PipelineParallelConfig",
     "ProjectConfiguration",
+    "ReplicationConfig",
     "ServingConfig",
     "TensorParallelConfig",
     "TrainingHealthConfig",
@@ -325,6 +326,51 @@ class TrainingHealthConfig(KwargsHandler):
             raise ValueError("max_bad_steps must be a positive integer")
         if self.readback_depth < 1:
             raise ValueError("readback_depth must be a positive integer")
+
+
+@dataclass
+class ReplicationConfig(KwargsHandler):
+    """Checkpoint replication (``accelerate_tpu_torch/elastic.py``): after
+    every atomic commit the main process hands the checkpoint to a
+    replicator that mirrors it under ``target``, storage that outlives the
+    host, verified against the manifest and retried with a doubling
+    backoff. A host whose local tree is missing or fails its checksum
+    restores from a replica, verified against the replica's own manifest
+    first.
+
+    * ``target``: the root of the replicas; ``copies`` independent copies
+      live at ``target/r0/...``, ``target/r1/...``.
+    * ``async_replicate``: mirror on a background thread (drained by
+      ``end_training``, the preemption handler and interpreter exit);
+      ``False`` mirrors inside ``save_state`` and raises its failure there.
+    * ``max_retries`` / ``retry_backoff_s``: retries of one copy and the
+      first backoff (doubled each retry).
+    * ``verify``: what a staged replica must pass before its rename,
+      ``"size"`` or ``"checksum"``.
+    * ``keep``: keep the newest ``keep`` committed replicas a copy slot
+      (``None``: all)."""
+
+    target: str = ""
+    copies: int = 1
+    async_replicate: bool = True
+    max_retries: int = 3
+    retry_backoff_s: float = 0.25
+    verify: str = "checksum"
+    keep: Optional[int] = None
+
+    def __post_init__(self):
+        if not self.target:
+            raise ValueError("ReplicationConfig.target must be a non-empty path")
+        if self.copies < 1:
+            raise ValueError("copies must be a positive integer")
+        if self.max_retries < 0:
+            raise ValueError("max_retries must be >= 0")
+        if self.retry_backoff_s < 0:
+            raise ValueError("retry_backoff_s must be >= 0")
+        if self.verify not in ("size", "checksum"):
+            raise ValueError(f"verify must be size|checksum, got {self.verify!r}")
+        if self.keep is not None and self.keep < 1:
+            raise ValueError("keep must be None or a positive integer")
 
 
 # the ServingConfig fields of what is not ported yet, by ROADMAP.md item:

@@ -10,9 +10,12 @@ never imports the JAX package.
   checkpoint lifecycle where a test kills, fails, slows or hangs the
   process, and a programmatic conductor hook for seeded schedules.
 * A preemption handler: SIGTERM/SIGINT join in-flight async saves, write
-  one committed emergency checkpoint and exit with
-  :data:`PREEMPTION_EXIT_CODE`; a signal during a save waits for its
-  commit.
+  one committed emergency checkpoint, drain the checkpoint replicator and
+  exit with :data:`PREEMPTION_EXIT_CODE`; a signal during a save waits for
+  its commit. Before it exits, the rank leaves a marker in
+  ``ACCELERATE_PREEMPTION_DIR`` (exported by the launch supervisor): under
+  torchrun, which exits 1 whatever its workers' codes, the markers are how
+  the supervisor tells a planned shutdown from a crash.
 * The serving errors the ported engine and server raise. ``retriable`` and
   ``replica_id`` are the routing contract a caller reads instead of
   parsing the message.
@@ -23,6 +26,7 @@ control plane (ROADMAP.md A10).
 
 from __future__ import annotations
 
+import contextlib
 import os
 import random
 import signal
@@ -38,7 +42,9 @@ __all__ = [
     "CheckpointUncommittedError",
     "CheckpointCorruptError",
     "CheckpointComponentMissingError",
+    "CheckpointDivergedError",
     "CheckpointTopologyError",
+    "ReplicaUnavailableError",
     "BarrierTimeoutError",
     "TrainingHealthError",
     "ComponentClosedError",
@@ -50,9 +56,13 @@ __all__ = [
     "release_all_hangs",
     "reset_fault_state",
     "install_preemption_handler",
+    "preemption_requested",
+    "preemption_deferred",
+    "emergency_exit",
     "mark_save_started",
     "mark_save_finished",
     "PREEMPTION_EXIT_CODE",
+    "PREEMPTION_DIR_ENV",
     "FAULT_INJECT_ENV",
     "FAULT_SEED_ENV",
     "ServingError",
@@ -67,6 +77,10 @@ __all__ = [
 
 # 128 + SIGTERM: "terminated on request"
 PREEMPTION_EXIT_CODE = 143
+
+# the directory where each rank leaves ``preempted.<LOCAL_RANK>`` when its
+# preemption handler has committed the emergency checkpoint and exits
+PREEMPTION_DIR_ENV = "ACCELERATE_PREEMPTION_DIR"
 
 FAULT_INJECT_ENV = "ACCELERATE_TPU_FAULT_INJECT"
 # seed of the per-entry random streams behind ``flaky=p`` specs: the same
@@ -101,10 +115,21 @@ class CheckpointComponentMissingError(CheckpointError):
     counterpart in the checkpoint directory."""
 
 
+class CheckpointDivergedError(CheckpointError):
+    """Consensus resume found hosts whose manifests disagree about the
+    content of one checkpoint index, or whose committed histories share no
+    index: resuming would fork the replicas, so it is refused."""
+
+
 class CheckpointTopologyError(CheckpointError):
     """The checkpoint's commit manifest records another world size than
     the live one and the load was not asked for with ``elastic=True``;
     raised before any tensor is read, naming both."""
+
+
+class ReplicaUnavailableError(CheckpointError):
+    """A replica restore was needed (the local tree is missing or corrupt)
+    and no replica copy passed its checksum verification."""
 
 
 class BarrierTimeoutError(RuntimeError):
@@ -283,8 +308,13 @@ def fault_point(name: str, **context) -> None:
 
     Checkpointing calls it at ``after_model_save``,
     ``after_optimizer_save``, ``before_commit``, ``before_rename`` and
-    ``before_gc``. The variable is read at each call, so a script can arm a
-    point between two saves."""
+    ``before_gc``; replication (``elastic.py``) at ``before_replicate``
+    (after the commit, before any mirror work), ``during_replicate``
+    (between the file copies into a replica's staging directory),
+    ``after_replicate`` (after a replica's commit) and
+    ``before_replica_restore`` (before a verified replica is copied back).
+    The variable is read at each call, so a script can arm a point between
+    two saves."""
     conductor = _CONDUCTOR
     if conductor is not None:
         conductor(name, context)
@@ -339,7 +369,39 @@ _PREEMPTION = {
     "in_save": False,  # a save_state is in flight: the exit waits for it
     "in_handler": False,  # the handler's own emergency save is running
     "installed": False,
+    "deferred": 0,  # inside preemption_deferred(): the caller saves at a point it chooses
 }
+
+
+def preemption_requested() -> bool:
+    """Whether a handled SIGTERM/SIGINT has arrived in this process."""
+    return _PREEMPTION["requested"]
+
+
+@contextlib.contextmanager
+def preemption_deferred():
+    """Inside, a handled signal only records the request
+    (:func:`preemption_requested`). Several ranks whose emergency save is
+    collective must save at one point: a rank that saved from the handler
+    in the middle of a step would meet its peers' step collectives with the
+    save's. The caller agrees on a step boundary (a gather of the flags)
+    and calls :func:`emergency_exit` there on every rank."""
+    _PREEMPTION["deferred"] += 1
+    try:
+        yield
+    finally:
+        _PREEMPTION["deferred"] -= 1
+
+
+def emergency_exit(accelerator, exit_code: int = PREEMPTION_EXIT_CODE) -> None:
+    """What the handler does, called where the caller chose: join async
+    saves, write the committed emergency checkpoint, drain the replicator,
+    leave the rank's marker and exit with ``exit_code``."""
+    _PREEMPTION["requested"] = True
+    _PREEMPTION["in_handler"] = True  # a later signal is absorbed
+    _emergency_save(accelerator, signal.SIGTERM)
+    _report_preempted()
+    sys.exit(exit_code)
 
 
 def install_preemption_handler(accelerator, signals: tuple = (signal.SIGTERM, signal.SIGINT),
@@ -355,13 +417,17 @@ def install_preemption_handler(accelerator, signals: tuple = (signal.SIGTERM, si
 
     def _handler(signum, frame):
         _PREEMPTION["requested"] = True
-        if _PREEMPTION["in_save"] or _PREEMPTION["in_handler"]:
+        if _PREEMPTION["in_save"] or _PREEMPTION["in_handler"] or _PREEMPTION["deferred"]:
             return
         _PREEMPTION["in_handler"] = True
         try:
             _emergency_save(accelerator, signum)
-        finally:
+        except BaseException:
             _PREEMPTION["in_handler"] = False
+            raise
+        # in_handler stays set: a signal that arrives on the way out (torchrun
+        # passes one on to the ranks still running) is absorbed
+        _report_preempted()
         sys.exit(exit_code)
 
     for sig in signals:
@@ -381,8 +447,27 @@ def _emergency_save(accelerator, signum: int) -> None:
         path = accelerator.save_state()
         logger.warning("emergency checkpoint committed at %s", path)
         print(f"emergency checkpoint committed at {path}", flush=True)
+        # the emergency checkpoint's mirror lands too: a half-mirrored
+        # replica would stay an uncommitted staging directory
+        drain = getattr(accelerator, "wait_for_replication", None)
+        if drain is not None:
+            drain()
     finally:
         accelerator.end_training()
+
+
+def _report_preempted() -> None:
+    """Leave ``preempted.<LOCAL_RANK>`` in ``ACCELERATE_PREEMPTION_DIR``:
+    this rank committed its emergency checkpoint and exits on purpose."""
+    directory = os.environ.get(PREEMPTION_DIR_ENV)
+    if not directory:
+        return
+    try:
+        with open(os.path.join(directory, f"preempted.{os.environ.get('LOCAL_RANK', '0')}"),
+                  "w") as f:
+            f.write(str(os.getpid()))
+    except OSError:
+        pass
 
 
 def mark_save_started() -> None:
@@ -396,7 +481,8 @@ def mark_save_finished(accelerator=None, path: Optional[str] = None,
     behind it, that checkpoint is the emergency checkpoint: land any
     deferred async commit, report it and exit."""
     _PREEMPTION["in_save"] = False
-    if not (_PREEMPTION["requested"] and _PREEMPTION["installed"]) or _PREEMPTION["in_handler"]:
+    if (not (_PREEMPTION["requested"] and _PREEMPTION["installed"]) or _PREEMPTION["in_handler"]
+            or _PREEMPTION["deferred"]):
         return
     from ..checkpointing import wait_for_async_saves
     from ..logging import get_logger
@@ -406,11 +492,18 @@ def mark_save_finished(accelerator=None, path: Optional[str] = None,
         "emergency checkpoint: exiting")
     try:
         wait_for_async_saves()
+        drain = getattr(accelerator, "wait_for_replication", None)
+        if drain is not None:
+            try:
+                drain()
+            except Exception:  # noqa: BLE001 - exiting; a replica gap heals on resume
+                pass
         if path is not None:
             print(f"emergency checkpoint committed at {path}", flush=True)
     finally:
         if accelerator is not None:
             accelerator.end_training()
+    _report_preempted()
     sys.exit(exit_code if exit_code is not None else PREEMPTION_EXIT_CODE)
 
 

@@ -8,8 +8,9 @@ checkpoint written, loaded into an empty model and quantized; Llama-3-8B
 training steps through the ``Accelerator`` at full width and 4 layers;
 a fine-tune at full width that is interrupted and resumes bitwise; the
 same training step under DDP and FSDP2 over NCCL at world size 1, and
-under tensor parallelism; and static generation (``generate`` and the
-static ``InferenceServer``) on the serving model.
+under tensor parallelism; static generation (``generate`` and the static
+``InferenceServer``) on the serving model; and the fine-tune supervised
+by the launcher through a crash, a lost disk, a preemption and a hang.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -113,7 +114,7 @@ Phases (any failure exits non-zero and prints no result):
      documents of 64-3000 tokens packed by the native packer
      (csrc/packing.cpp) into 2048-token rows with segment ids, a torch
      DataLoader (2 workers, pinned) unwrapped by prepare_data_loader with
-     the seedable shuffle, Llama-3-8B at full width and the deepest of 1-4
+     the seedable shuffle, Llama-3-8B at full width and the deepest of 1-2
      layers whose two checkpoints fit the temporary directory with 20 % to
      spare, f32 master weights, bf16 compute, accumulate/backward, AdamW,
      max_grad_norm=1.0, a warm-up + cosine schedule; (a) 8 uninterrupted
@@ -155,6 +156,29 @@ Phases (any failure exits non-zero and prints no result):
      TP_GRAD_TOL of a leaf's largest element of (a)'s; a planted fault
      (the norm scales' tp gradient sum left out) must exceed that limit.
      Phase 2 holds B1-B3 at tp=2's and tp=4's local head counts
+ 13. (run after 11) training that survives failures: phase 9's model and
+     step (Llama-3-8B at full width, 1 layer: its checkpoint, the local
+     tree, the replica and a staging copy fit the temporary directory
+     with 20 % to spare), seeded packed rows a step, through ``python -m
+     accelerate_tpu_torch.commands.launch --num_processes 1`` running
+     accelerate_tpu_torch/test_utils/scripts/crash_resume_script.py, each
+     scenario a launch: (a) 6 uninterrupted steps; (b) --max_restarts 1
+     --watchdog_timeout 150 --replicate_to with a synchronous replica, a
+     committed save after step 3 and the worker killed by a fault point
+     at the end of step 4 on its first attempt, restarted by the
+     supervisor and resumed by resume_from_latest; (c) the local tree
+     wiped and a relaunch that restores the checkpoint from the replica;
+     a planted fault: one byte of the replica flipped, which
+     restore_from_replica must refuse with the checksum error and
+     ReplicaUnavailableError; (d) --handle_preemption and SIGTERM to the
+     launcher once the worker trains: one emergency checkpoint, launcher
+     rc 0 and no restart, then a relaunch that resumes it; (e) a hang at
+     the end of step 2 on the first attempt, killed by the watchdog (20 s)
+     and restarted. (b)-(e) end on (a)'s losses and parameter checksum
+     bit for bit. Step ms, save, mirror and replica-restore GB/s, the
+     emergency checkpoint's seconds, restart seconds and the watchdog's
+     latency are printed with the card; the children's B1-B3 launches,
+     every attempt, are counted under training_supervised
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Long output goes to chiprun_out/.
 """
@@ -2992,7 +3016,7 @@ def dp_checkpoint(card, trained):
     tmp_root = tempfile.gettempdir()
     free_disk = shutil.disk_usage(tmp_root).free
     free_ram = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
-    layers, sizes = resume_depth(free_disk, free_ram)
+    layers, sizes = resume_depth(free_disk, free_ram, max_layers=TRAIN_LAYERS)
     acc, model, optimizer = trained
     if layers != TRAIN_LAYERS:  # a shallower model of its own, one step taken
         from accelerate_tpu_torch.models.llama import llama_loss
@@ -3403,7 +3427,7 @@ def phase_tensor_parallel(card, phase6):
 RESUME_BATCH, RESUME_SEQ = 4, 2048
 RESUME_STEPS, RESUME_SAVE_AT, RESUME_NAN_AT = 8, 4, 6
 RESUME_DOCS, RESUME_DOC_LEN = 240, (64, 3000)
-RESUME_MAX_LAYERS = 4
+RESUME_MAX_LAYERS = 2  # the script's time limit holds phase 13 too
 RESUME_SPARE = 1.2  # two checkpoints (the committed one and a staging one) and 20 %
 RESUME_TIMED = 4  # steps timed with the loader and with a resident batch, each
 
@@ -3429,8 +3453,8 @@ def warmup_cosine(step, peak=3e-4, warmup=2, total=RESUME_STEPS):
     return 0.5 * peak * (1 + math.cos(math.pi * min(1.0, (step - warmup) / (total - warmup))))
 
 
-def resume_depth(free_disk, free_ram):
-    """The deepest of 1-4 layers whose checkpoint (f32 weights and both
+def resume_depth(free_disk, free_ram, max_layers=RESUME_MAX_LAYERS):
+    """The deepest of 1-max_layers layers whose checkpoint (f32 weights and both
     AdamW moments, 12 B a parameter, from a meta model's parameter count)
     fits twice on the disk with 20 % to spare, and once in host memory
     (the async save's pinned snapshot)."""
@@ -3438,7 +3462,7 @@ def resume_depth(free_disk, free_ram):
     from accelerate_tpu_torch.models.llama import LlamaConfig, create_llama
 
     sizes = {}
-    for layers in range(RESUME_MAX_LAYERS, 0, -1):
+    for layers in range(max_layers, 0, -1):
         with init_empty_weights():
             model = create_llama(LlamaConfig.llama3_8b(num_hidden_layers=layers), device="cpu")
         params = sum(p.numel() for p in model.parameters())
@@ -3896,6 +3920,295 @@ def phase_resume(card, phase6=None):
     return {k: launches[k] for k in expected}, out
 
 
+# phase 13: the supervised fine-tune (phase 9's model and step, seeded
+# packed rows a step) through the real launcher, each scenario a launch of
+# its own: N steps, a committed save after step SUP_SAVE_AT with a
+# synchronous replica, faults on the first attempt only
+SUP_ROWS, SUP_SEQ, SUP_STEPS, SUP_SAVE_AT = 4, 2048, 6, 3
+SUP_MAX_LAYERS = 1
+SUP_COPIES = 3  # checkpoints on disk at once: the local tree, the replica and a staging copy
+SUP_WATCHDOG_S = 150.0  # (b): above a worker's start and its longest save with the mirror
+SUP_HANG_WATCHDOG_S = 20.0  # (e): above the time from a worker's Accelerator to its first step
+SUP_MONITOR_S = 1.0
+SUP_PREEMPT_SLEEP_S = 1.0  # (d): the window between steps the signal lands in
+SUP_LAUNCH_TIMEOUT_S = 420
+SUP_SCRIPT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "accelerate_tpu_torch",
+                          "test_utils", "scripts", "crash_resume_script.py")
+
+
+def supervised_depth(free_disk):
+    """The deepest of 1-SUP_MAX_LAYERS layers whose checkpoint (12 B a
+    parameter: f32 weights, both AdamW moments) fits SUP_COPIES times on
+    the disk with 20 % to spare; the same meta-model count as phase 9."""
+    from accelerate_tpu_torch.big_modeling import init_empty_weights
+    from accelerate_tpu_torch.models.llama import LlamaConfig, create_llama
+
+    sizes = {}
+    for layers in range(SUP_MAX_LAYERS, 0, -1):
+        with init_empty_weights():
+            model = create_llama(LlamaConfig.llama3_8b(num_hidden_layers=layers), device="cpu")
+        params = sum(p.numel() for p in model.parameters())
+        sizes[layers] = 12 * params
+        if SUP_COPIES * 12 * params * RESUME_SPARE <= free_disk:
+            return layers, sizes
+    raise AssertionError(f"phase 13: {free_disk / 1e9:.1f} GB of disk hold no {SUP_COPIES} "
+                         f"checkpoints of 1 layer with 20 % to spare: {sizes}")
+
+
+def supervised_launch(tmp, name, launch_flags, script_args, env_extra=None, cpu=False,
+                      preset="llama3_8b", layers=1, signal_at_ready=False):
+    """One launch of the crash script through ``python -m
+    accelerate_tpu_torch.commands.launch --num_processes 1``; returns
+    (returncode, stdout, stderr, the script's summary or None, its events,
+    the launcher's exit time, the time the signal was sent or None). The
+    launcher runs in a session of its own, killed with its tree on a
+    timeout."""
+    import signal as _signal
+
+    out, events = os.path.join(tmp, f"{name}.json"), os.path.join(tmp, f"{name}.events")
+    ready = os.path.join(tmp, f"{name}.ready")
+    cmd = [sys.executable, "-m", "accelerate_tpu_torch.commands.launch", "--num_processes", "1",
+           "--monitor_interval", str(SUP_MONITOR_S), *(["--cpu"] if cpu else []), *launch_flags,
+           SUP_SCRIPT, *(["--cpu"] if cpu else []), "--preset", preset, "--layers", str(layers),
+           "--rows", str(SUP_ROWS), "--seq", str(SUP_SEQ), "--lr", "3e-4",
+           "--total_steps", str(SUP_STEPS), "--out", out, "--events", events,
+           "--launches_out", os.path.join(tmp, f"launches_{name}"), *script_args]
+    if signal_at_ready:
+        cmd += ["--ready_file", ready, "--step_sleep", str(SUP_PREEMPT_SLEEP_S)]
+    env = {k: v for k, v in os.environ.items() if not k.startswith("ACCELERATE_")}
+    env.update(env_extra or {})
+    launched = time.time()
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    sent = None
+    try:
+        if signal_at_ready:
+            deadline = time.time() + SUP_LAUNCH_TIMEOUT_S
+            while not os.path.exists(ready):
+                if proc.poll() is not None or time.time() > deadline:
+                    raise AssertionError(f"phase 13 ({name}): the worker never reached its first "
+                                         f"step (rc {proc.poll()})")
+                time.sleep(0.05)
+            sent = time.time()
+            proc.send_signal(_signal.SIGTERM)
+        stdout, stderr = proc.communicate(timeout=SUP_LAUNCH_TIMEOUT_S)
+    except BaseException:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, _signal.SIGKILL)
+        proc.communicate()
+        raise
+    ended = time.time()
+    with open(os.path.join("chiprun_out", f"phase13_{name}.log"), "w") as f:
+        f.write(stdout + "\n--- stderr ---\n" + stderr)
+    summary = json.load(open(out)) if os.path.exists(out) else None
+    evs = [json.loads(line) for line in open(events)] if os.path.exists(events) else []
+    starts = [e for e in evs if e["event"] == "start"]
+    first_steps = _steps(evs, starts[0]["attempt"]) if starts else []
+    if starts and first_steps:  # the first attempt: launcher + torchrun, the script, its beats
+        log(f"phase 13 ({name}) launch {ended - launched:.1f}s: the script started "
+            f"{starts[0]['process_t'] - launched:.1f}s after the launch, built its Accelerator "
+            f"(the first heartbeat) {starts[0]['built_t'] - starts[0]['process_t']:.1f}s later "
+            f"and ended its first step {first_steps[0]['t'] - starts[0]['built_t']:.1f}s after "
+            "that (the watchdog's first gap: the model, the resume, a step)")
+    return proc.returncode, stdout, stderr, summary, evs, ended, sent
+
+
+def _steps(evs, attempt=None):
+    return [e for e in evs if e["event"] == "step" and (attempt is None or e["attempt"] == attempt)]
+
+
+def phase_supervised(card, cpu=False, preset="llama3_8b"):
+    """Phase 13: the supervised fine-tune through the real launcher. (a) an
+    uninterrupted run of SUP_STEPS steps; (b) --max_restarts 1 with the
+    watchdog and a synchronous replica: a committed save after step
+    SUP_SAVE_AT, the worker killed at the end of the next step on its first
+    attempt, restarted and resumed; (c) the local tree wiped and a relaunch
+    that restores from the replica; (d) --handle_preemption and SIGTERM to
+    the launcher once the worker is training: an emergency checkpoint, rc
+    0, no restart, then a relaunch that resumes it; (e) a hang on the first
+    attempt that the watchdog kills, then a restart; each ends on (a)'s
+    losses and parameters bit for bit. Then a planted fault: one byte of
+    the replica flipped, which the restore must refuse."""
+    import re
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch import elastic
+    from accelerate_tpu_torch.utils.dataclasses import ReplicationConfig
+    from accelerate_tpu_torch.utils.fault import ReplicaUnavailableError
+
+    gc.collect()
+    if not cpu:
+        torch.cuda.empty_cache()  # the children need the card's memory
+    tmp_root = tempfile.gettempdir()
+    free_disk = shutil.disk_usage(tmp_root).free
+    layers, sizes = supervised_depth(free_disk) if preset == "llama3_8b" else (1, {1: 0})
+    log(f"phase 13 space: {free_disk / 1e9:.1f} GB free on {tmp_root}; a checkpoint of 1 layer is "
+        f"{sizes[1] / 1e9:.1f} GB; depth {layers} ({SUP_COPIES} checkpoints + 20 % fit)")
+    started = time.perf_counter()
+    out = dict(layers=layers)
+    kw = dict(cpu=cpu, preset=preset, layers=layers)
+    sync = {"ACCELERATE_REPLICATION_SYNC": "1"}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_supervised_", dir=tmp_root) as tmp:
+        replica = os.path.join(tmp, "replica")
+        project_b = os.path.join(tmp, "b")
+
+        def bitwise(label, summary, start):
+            same = (summary is not None and summary["checksum"] == ref["checksum"]
+                    and summary["losses"] == ref["losses"][start:])
+            if not same:
+                raise AssertionError(f"phase 13 {label}: losses {summary and summary['losses']} "
+                                     f"checksum {summary and summary['checksum']} against (a)'s "
+                                     f"{ref['losses'][start:]} {ref['checksum']}")
+            return same
+
+        # (a) the reference
+        rc, so, se, ref, evs_a, _, _ = supervised_launch(
+            tmp, "a", [], ["--project_dir", os.path.join(tmp, "a")], **kw)
+        if rc != 0 or ref is None or len(ref["losses"]) != SUP_STEPS:
+            raise AssertionError(f"phase 13 (a): rc {rc}\n{se[-3000:]}")
+        times = [e["t"] for e in _steps(evs_a)]
+        step_ms = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
+        out["a"] = dict(losses=ref["losses"], checksum=ref["checksum"], step_ms=step_ms)
+        log(f"phase 13 (a) reference: {SUP_STEPS} steps, losses {ref['losses']}, checksum "
+            f"{ref['checksum']}; step ms (host clock between steps, each ending in a loss read) "
+            f"{[round(m, 1) for m in step_ms]} [{card}]")
+
+        # (b) crash -> restart, with the watchdog and a synchronous replica
+        rc, so, se, sb, evs_b, _, _ = supervised_launch(
+            tmp, "b", ["--max_restarts", "1", "--watchdog_timeout", str(SUP_WATCHDOG_S),
+                       "--replicate_to", replica],
+            ["--project_dir", project_b, "--save_at", str(SUP_SAVE_AT),
+             "--fault", f"train_step_end:kill:after={SUP_SAVE_AT}"], env_extra=sync, **kw)
+        if rc != 0 or "restart 1/1" not in se or sb is None or sb["attempt"] != 1 \
+                or sb["start"] != SUP_SAVE_AT:
+            raise AssertionError(f"phase 13 (b): rc {rc}, summary {sb}\n{se[-3000:]}")
+        bitwise("(b)", sb, SUP_SAVE_AT)
+        saved = next(e for e in evs_b if e["event"] == "saved")
+        ckpt_bytes = dir_bytes(os.path.join(replica, "r0", f"checkpoint_0"))
+        death = _steps(evs_b, 0)[-1]["t"]
+        restart = next(e for e in evs_b if e["event"] == "start" and e["attempt"] == 1)
+        first_resumed = _steps(evs_b, 1)[0]["t"]
+        save_only = saved["save_s"] - saved["mirror_s"]
+        out["b"] = dict(ckpt_bytes=ckpt_bytes, save_s=save_only, mirror_s=saved["mirror_s"],
+                        save_gb_per_s=ckpt_bytes / save_only / 1e9,
+                        mirror_gb_per_s=ckpt_bytes / saved["mirror_s"] / 1e9,
+                        restart_s=first_resumed - death, resume_load_s=restart["resume_s"])
+        log(f"phase 13 (b) crash after step {SUP_SAVE_AT + 1} on attempt 0, restarted (restart 1/1) "
+            f"and resumed at step {sb['start']} through resume_from_latest: losses {sb['losses']} "
+            f"and checksum bitwise equal to (a): True; checkpoint {ckpt_bytes / 1e9:.3f} GB, "
+            f"save_state {save_only:.2f}s ({out['b']['save_gb_per_s']:.3f} GB/s, files flushed), "
+            f"synchronous mirror {saved['mirror_s']:.2f}s ({out['b']['mirror_gb_per_s']:.3f} GB/s, "
+            f"checksum-verified); restart {out['b']['restart_s']:.2f}s from the worker's death to "
+            f"its first resumed step (resume_from_latest {restart['resume_s']:.2f}s of it) [{card}]")
+
+        # (c) disk loss: the local tree wiped, a relaunch restores from the replica
+        shutil.rmtree(os.path.join(project_b, "checkpoints"))
+        rc, so, se, sc, evs_c, _, _ = supervised_launch(
+            tmp, "c", ["--replicate_to", replica], ["--project_dir", project_b],
+            env_extra=sync, **kw)
+        restored = re.search(r"restored .* from replica .* \(copied and verified in ([0-9.]+)s\)",
+                             se)
+        if rc != 0 or sc is None or not sc["resumed"] or restored is None:
+            raise AssertionError(f"phase 13 (c): rc {rc}, summary {sc}\n{se[-3000:]}")
+        bitwise("(c)", sc, SUP_SAVE_AT)
+        restore_s = float(restored.group(1))
+        resume_c = next(e for e in evs_c if e["event"] == "start")["resume_s"]
+        out["c"] = dict(restore_s=restore_s, restore_gb_per_s=ckpt_bytes / restore_s / 1e9,
+                        resume_s=resume_c)
+        log(f"phase 13 (c) local tree wiped: the relaunch restored checkpoint_0 from the replica "
+            f"(checksum-verified before and after the copy) in {restore_s:.2f}s "
+            f"({out['c']['restore_gb_per_s']:.3f} GB/s; resume_from_latest {resume_c:.2f}s with "
+            f"the load) and resumed bitwise equal to (a): True [{card}]")
+
+        # planted fault: one byte of the replica flipped; the restore must refuse it
+        victim = max((os.path.join(r, f) for r, _, fs in os.walk(os.path.join(replica, "r0"))
+                      for f in fs), key=os.path.getsize)
+        with open(victim, "r+b") as f:
+            f.seek(os.path.getsize(victim) // 2)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        t0 = time.perf_counter()
+        try:
+            elastic.restore_from_replica(ReplicationConfig(target=replica),
+                                         os.path.join(tmp, "planted"), name="checkpoint_0")
+            raise AssertionError("phase 13: the flipped replica byte was not refused")
+        except ReplicaUnavailableError as exc:
+            if "crc32 mismatch" not in str(exc) or os.path.exists(os.path.join(tmp, "planted")):
+                raise AssertionError(f"phase 13: the refusal did not name the checksum: {exc}")
+            out["planted"] = dict(refused=True, verify_s=time.perf_counter() - t0)
+        log(f"phase 13 planted fault: one byte of {os.path.relpath(victim, replica)} flipped; "
+            f"restore_from_replica refused the copy (crc32 mismatch) and raised "
+            f"ReplicaUnavailableError with no copy left, nothing copied, in "
+            f"{out['planted']['verify_s']:.2f}s")
+        shutil.rmtree(project_b)
+        shutil.rmtree(replica)
+
+        # (d) preemption: SIGTERM to the launcher once the worker trains
+        project_d = os.path.join(tmp, "d")
+        rc, so, se, sd, evs_d, ended, sent = supervised_launch(
+            tmp, "d", ["--handle_preemption"], ["--project_dir", project_d], signal_at_ready=True,
+            **kw)
+        committed = re.search(r"emergency checkpoint committed at (\S+)", so)
+        if rc != 0 or committed is None or "restart 1/" in se or sd is not None:
+            raise AssertionError(f"phase 13 (d): rc {rc}, summary {sd}\n{so[-2000:]}\n{se[-3000:]}")
+        from accelerate_tpu_torch.checkpointing import read_commit_manifest
+
+        manifest = read_commit_manifest(committed.group(1))
+        preempted = next(e for e in evs_d if e["event"] == "preempted")
+        emergency_s = manifest["time"] - preempted["t"]
+        rc, so, se, sd, evs_d2, _, _ = supervised_launch(
+            tmp, "d2", [], ["--project_dir", project_d], **kw)
+        if rc != 0 or sd is None or sd["start"] != preempted["step"]:
+            raise AssertionError(f"phase 13 (d) relaunch: rc {rc}, summary {sd}\n{se[-3000:]}")
+        bitwise("(d)", sd, sd["start"])
+        out["d"] = dict(at_step=sd["start"], emergency_save_s=emergency_s,
+                        signal_to_exit_s=ended - sent)
+        log(f"phase 13 (d) SIGTERM to the launcher after the first step: the rank checkpointed at "
+            f"step {sd['start']} (the emergency save committed {emergency_s:.2f}s after the step "
+            f"boundary that took the signal; {ended - sent:.2f}s from the signal to the launcher's "
+            f"exit), launcher rc 0, no restart; the relaunch resumed bitwise equal to (a): True "
+            f"[{card}]")
+        shutil.rmtree(project_d)
+
+        # (e) a hang on attempt 0: the watchdog kills, the supervisor restarts
+        rc, so, se, se_sum, evs_e, _, _ = supervised_launch(
+            tmp, "e", ["--max_restarts", "1", "--watchdog_timeout", str(SUP_HANG_WATCHDOG_S)],
+            ["--project_dir", os.path.join(tmp, "e"), "--fault", "train_step_end:hang=3600:after=1"],
+            **kw)
+        stale = re.search(r"heartbeat stale >([0-9.]+)s \(the oldest rank's last beat ([0-9.]+)s ago\)",
+                          se)
+        if rc != 0 or stale is None or "restart 1/1" not in se or se_sum is None:
+            raise AssertionError(f"phase 13 (e): rc {rc}, summary {se_sum}\n{se[-3000:]}")
+        bitwise("(e)", se_sum, 0)
+        age = float(stale.group(2))
+        out["e"] = dict(watchdog_s=SUP_HANG_WATCHDOG_S, detected_after_s=age,
+                        latency_over_timeout_s=age - SUP_HANG_WATCHDOG_S)
+        log(f"phase 13 (e) hang at the end of step 2 on attempt 0: the watchdog (T = "
+            f"{SUP_HANG_WATCHDOG_S:.0f}s, polled every {SUP_MONITOR_S:.0f}s) killed the worker "
+            f"{age:.1f}s after its last beat ({age - SUP_HANG_WATCHDOG_S:.1f}s past T), the "
+            f"supervisor restarted it (no checkpoint yet: from step 0) and it ended bitwise equal "
+            f"to (a): True [{card}]")
+
+        # the launches of every child, every attempt
+        launches = dict.fromkeys(KERNEL_META, 0)
+        for name in os.listdir(tmp):
+            if name.startswith("launches_") and ".rank" in name:
+                for k, v in json.load(open(os.path.join(tmp, name))).items():
+                    launches[k] += v
+        steps = sum(len(_steps(e)) for e in (evs_a, evs_b, evs_c, evs_d, evs_d2, evs_e))
+    fwd = "flash_fwd" if cpu else "flash_fwd_mma"
+    bwd = ("flash_bwd_dq", "flash_bwd_dkv") if cpu else ("flash_bwd_dq_mma", "flash_bwd_dkv_mma")
+    expected = {fwd: 2 * layers * steps, bwd[0]: layers * steps, bwd[1]: layers * steps}
+    if not cpu:
+        check_launches(f"phase 13 ({steps} steps over every launch and attempt)", launches,
+                       expected)
+    out.update(steps=steps, seconds=time.perf_counter() - started)
+    log(f"phase 13 took {out['seconds']:.1f}s [{card}]")
+    return {k: launches[k] for k in expected}, out
+
+
 # dynamic shared memory of the tensor-core kernels' configurations (the
 # sources' MmaCfg): name fragment of the ptxas entry -> bytes per block, or
 # (bytes, threads) where a block is not 128 threads
@@ -4123,6 +4436,7 @@ def run_phases(args) -> int:
         by_path["training_ddp"], by_path["training_fsdp2"] = dp_launches["ddp"], dp_launches["fsdp"]
         by_path["training_tp"], by_path["training_tp4_threads"], summary["tensor_parallel"] = (
             phase_tensor_parallel(card, summary["train_main_path"]))
+        by_path["training_supervised"], summary["supervised"] = phase_supervised(card)
         for counts in by_path.values():
             for name, n in counts.items():
                 launches[name] += n

@@ -281,10 +281,13 @@ def test_what_waits_for_the_distributed_slice_raises():
     # the data path (A5) landed: a torch DataLoader is unwrapped, not refused
     prepared = acc.prepare_data_loader(torch.utils.data.DataLoader(range(8), batch_size=4))
     assert [b.tolist() for b in prepared] == [[0, 1, 2, 3], [4, 5, 6, 7]]
-    # what stays with A7: replicas; elastic resume landed (a missing
-    # directory is a first launch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-        Accelerator(cpu=True, replication_config=object())
+    # A7's durability half landed: replicas are configured, and elastic
+    # resume too (a missing directory is a first launch)
+    from accelerate_tpu_torch.utils.dataclasses import ReplicationConfig
+
+    AcceleratorState._reset_state(reset_partial_state=True)
+    replicated = Accelerator(cpu=True, replication_config=ReplicationConfig(target="/r"))
+    assert replicated.replication_config.target == "/r" and replicated._get_replicator() is not None
     assert acc.resume_from_latest("/nonexistent", elastic=True) is False
     # a scheduler is one device's business: prepared, not refused
     assert isinstance(acc.prepare(torch.optim.lr_scheduler.StepLR(
@@ -318,8 +321,9 @@ def test_refusals_name_their_queue_items():
     acc.train_step(regression_loss)({k: torch.from_numpy(v[:2]) for k, v in data.items()})
     sched.step()
     assert sched.step_count == 1 and sched.get_last_lr() == [LR * 0.5]
-    # A7's data-parallel half and tensor parallelism landed; what stays
-    # names A7 (replicas, the launch supervisor) or A11
+    # A7 landed (data parallelism, tensor parallelism, the launch
+    # supervisor, replicas); what stays names A11, and --pod has no
+    # counterpart
     from accelerate_tpu_torch.commands import launch
     from accelerate_tpu_torch.models import llama as tl
     from accelerate_tpu_torch.parallel import tp as ttp
@@ -337,11 +341,17 @@ def test_refusals_name_their_queue_items():
     with pytest.raises(NotImplementedError, match=r"alternating.*ROADMAP.md A11\b"):
         tl.LlamaForCausalLM(tl.LlamaConfig.gemma2_9b(num_hidden_layers=1), {})
     for argv in (["--max_restarts", "1"], ["--watchdog_timeout", "5"], ["--handle_preemption"],
-                 ["--replicate_to", "/r"]):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md A7\b"):
-            launch.main([*argv, "--dry_run", "script.py"])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md A7\b"):
-        Accelerator(cpu=True, replication_config=object())
+                 ["--replicate_to", "/r"], ["--replicate_copies", "2"]):
+        assert launch.main([*argv, "--dry_run", "script.py"]) == 0
+    with pytest.raises(NotImplementedError, match="--pod"):
+        launch.main(["--pod", "p", "--dry_run", "script.py"])
+    from accelerate_tpu_torch.utils.dataclasses import ReplicationConfig
+
+    AcceleratorState._reset_state(reset_partial_state=True)
+    assert Accelerator(cpu=True, kwargs_handlers=[ReplicationConfig(target="/r", copies=2)]
+                       ).replication_config.copies == 2
+    port = pathlib.Path(__file__).resolve().parents[1] / "accelerate_tpu_torch"
+    assert [str(f) for f in port.rglob("*.py") if "ROADMAP.md A7" in f.read_text()] == []
     # sharding rules landed with tensor parallelism: (regex, dim) pairs
     assert FSDPPlugin(sharding_rules=[(".*norm", None)]).sharding_rules == [(".*norm", None)]
     with pytest.raises(TypeError, match=r"\(regex, dim\)"):

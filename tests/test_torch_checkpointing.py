@@ -15,8 +15,8 @@ package's, and the resume against JAX.
   1e-4: f32 on both sides, the matmuls sum in another order), and the
   port's resumed run is bitwise equal to its uninterrupted one.
 * A checkpoint of another world size loads only with ``elastic=True``
-  (``CheckpointTopologyError`` otherwise); replication waits for
-  ROADMAP.md A7 and is refused.
+  (``CheckpointTopologyError`` otherwise); with a ``ReplicationConfig`` a
+  save is mirrored (``tests/test_torch_elastic.py`` holds replication).
 """
 
 import json
@@ -270,9 +270,15 @@ def test_what_waits_for_the_distributed_slice_is_refused(tmp_path):
     with pytest.raises(CheckpointTopologyError, match=r"num_processes 4 \(saved\) != 1.*elastic=True"):
         acc.load_state(ckpt)
     acc.load_state(ckpt, elastic=True)
-    # replicas stay with A7
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md A7"):
-        _fresh(tmp_path, replication_config=object())
+    # replicas landed (A7's durability half): a save is mirrored
+    from accelerate_tpu_torch.utils.dataclasses import ReplicationConfig
+
+    replica = tmp_path / "replica"
+    acc = _fresh(tmp_path, replication_config=ReplicationConfig(target=str(replica),
+                                                               async_replicate=False))
+    _regression(acc)
+    acc.save_state(str(tmp_path / "mirrored"))
+    assert (replica / "r0" / "mirrored" / "COMMITTED").is_file()
 
 
 # ------------------------------------------------------------ resume vs JAX

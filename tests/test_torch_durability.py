@@ -6,8 +6,8 @@ subprocess mid-save (the previous checkpoint restored bit-identically), a
 SIGTERM emergency checkpoint, and the health watchdog's raise, skip and
 restore policies with ``max_bad_steps``. The JAX file's supervisor tests
 (crash-loop breaker, restart budget and backoff of ``accelerate-tpu
-launch``) have no counterpart yet: the launcher and its supervisor come
-with the distributed slice (ROADMAP.md A7).
+launch``) are ``tests/test_torch_supervisor.py``, held against the JAX
+supervisor itself.
 
 The model is a two-parameter regression ``a * x + b`` in f32 on the CPU
 (``Accelerator(cpu=True)``), trained by Adam through the eager loop.

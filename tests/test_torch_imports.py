@@ -60,7 +60,10 @@ def test_port_and_chip_smoke_import_no_jax():
                  "utils.dataclasses", "models.llama", "parallelism_config", "parallel.mesh",
                  "parallel.sharding", "ops.collectives", "ops.operations", "launchers",
                  "commands.launch", "test_utils.testing", "test_utils.scripts.test_script",
-                 "parallel.tp", "test_utils.scripts.train_timing", "inference"):
+                 "parallel.tp", "test_utils.scripts.train_timing", "inference", "elastic",
+                 "test_utils.training", "test_utils.scripts.crash_resume_script",
+                 "test_utils.scripts.preemption_script", "test_utils.scripts.elastic_recovery_script",
+                 "test_utils.scripts.fault_save_script"):
         assert f"accelerate_tpu_torch.{name}" in report["modules"]
     leaked = [m for m in report["new"]
               if m == "jax" or m.startswith(("jax.", "jaxlib"))
