@@ -123,6 +123,16 @@ class _Graph:
         _build.add_launches(self.launches)
 
 
+def _laid_over_mesh(model) -> bool:
+    """Whether ``model`` was laid out over a mesh: a ``tp`` handle, or a
+    ``DTensor`` parameter (``tp`` blocks, FSDP2 shards)."""
+    from torch.distributed.tensor import DTensor
+
+    params = getattr(model, "parameters", None)
+    return getattr(model, "tp", None) is not None or (
+        callable(params) and any(isinstance(p, DTensor) for p in params()))
+
+
 @dataclass
 class SlotOccupant:
     """Host-side record of one request living in a slot."""
@@ -318,6 +328,12 @@ class ContinuousBatchingEngine:
                 "the host-RAM KV tier (host_tier_bytes) is queued in ROADMAP.md A3 "
                 "(HostKVTier, restore_plan and the restore program are not ported)"
             )
+        if _laid_over_mesh(model):
+            raise NotImplementedError(
+                "the continuous engine over a model laid out over a mesh (tp blocks or FSDP2 "
+                "shards: the decode, verify and chunk kernels B4-B6 at a rank's heads) is not "
+                "ported yet (ROADMAP.md A8-bis); serve it with the static InferenceServer or "
+                "generate, which run on every rank of the mesh")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if max_len < 2:

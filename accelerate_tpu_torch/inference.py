@@ -29,6 +29,27 @@ Sampled draws come from the program's generator, seeded with ``seed``:
 they do not reproduce ``jax.random``. :func:`sample_logits` takes its
 Gumbel noise as an operand, so it can be held against JAX's sampler on
 JAX's noise.
+
+A model laid over a mesh (:func:`prepare_inference` with ``mesh``: ``tp``
+blocks by the rules, FSDP2 shards over ``dp_shard``) is generated by every
+rank of the mesh at once, each on its part: the steps read the leaves in
+place (``models.llama.serving_view``), the ``dp_shard`` shards gathered
+one layer at a time into the program's buffers, the cache holds the
+rank's kv heads and the logits buffer its vocabulary block, gathered whole
+before each sampling. The JAX package runs one controller; here each rank
+runs the same steps, so ``generate`` first checks that every rank was
+called with the same ids and sampling arguments (one all-gather of a
+small vector over ``tp`` and one over ``dp_shard``) and raises on a
+difference: a rank that drew other noise, or decoded other ids, would
+write other tokens into its cache and no collective would notice. Every
+rank seeds its generator with the same seed, so every draw is the same.
+The decode step stays one CUDA graph per program key with its collectives
+inside, captured by every rank together after the first step ran eagerly
+(which also starts the communicators). A process group that cannot be
+captured (torch's threaded one) runs the step eagerly
+(:func:`graphs_supported`). Over more than one rank the key ends with
+the layout (``tp`` and ``dp_shard`` sizes): one program per layout and
+key.
 """
 
 from __future__ import annotations
@@ -119,10 +140,84 @@ def _copy_tree(dst, src) -> None:
 
 
 def _param_ptrs(params) -> tuple:
+    """The addresses of a serving tree's leaves (FSDP2 shards by their
+    local blocks, a per-layer list in order)."""
+    from .models.llama import _Shard
+
     out = []
-    for leaf in params.values():
-        out.extend(_param_ptrs(leaf) if isinstance(leaf, dict) else (leaf.data_ptr(),))
+    nodes = params if isinstance(params, (list, tuple)) else params.values()
+    for leaf in nodes:
+        if isinstance(leaf, (dict, list)):
+            out.extend(_param_ptrs(leaf))
+        else:
+            out.append((leaf.local if isinstance(leaf, _Shard) else leaf).data_ptr())
     return tuple(out)
+
+
+def _group_size(group) -> int:
+    import torch.distributed as dist
+
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def graphs_supported(view) -> bool:
+    """Whether the decode step of a model with this ``serving_view`` can be
+    captured: on one process, or over NCCL; torch's threaded process group
+    (several ranks as threads of one process) cannot be, and runs eagerly."""
+    import torch.distributed as dist
+
+    groups = [g for g in (view.tp.group if view.tp is not None else None, view.fsdp_group)
+              if g is not None]
+    return all(dist.get_backend(g) == "nccl" for g in groups)
+
+
+# the sampling and shape arguments every rank of a mesh must share, in
+# the order _check_same_call gathers them
+_CALL_FIELDS = ("batch", "prompt_len", "total_len", "max_new_tokens", "temperature", "seed",
+                "top_k", "top_p", "eos_token_id", "pad_token_id", "kv_backend", "kv_block_size",
+                "input_ids")
+
+
+def _call_vector(ids, values: dict) -> torch.Tensor:
+    """The call's arguments as int64 (floats by their bits, the ids by a
+    position-weighted sum, which differs for any single changed id)."""
+    out = []
+    for name in _CALL_FIELDS[:-1]:
+        v = values[name]
+        if isinstance(v, float):
+            v = int(np.float64(v).view(np.int64))
+        out.append(-1 if v is None else int(v))
+    flat = ids.reshape(-1).long()
+    weights = torch.arange(1, flat.numel() + 1, device=flat.device, dtype=torch.int64) * 2654435761
+    return torch.cat([torch.tensor(out, dtype=torch.int64, device=ids.device),
+                      (flat * weights).sum().reshape(1)])
+
+
+def _check_same_call(ids, values: dict, groups) -> None:
+    """Raise on every rank unless every rank of the mesh passed the same
+    ``values`` and ids. The vectors are gathered over each group in turn
+    (``tp``, then ``dp_shard``, each gathering the blocks the last one
+    gathered), so every rank sees every rank's and reaches the same
+    verdict."""
+    import torch.distributed as dist
+
+    seen = _call_vector(ids, values)[None]
+    for group in groups:
+        n = _group_size(group)
+        if n <= 1:
+            continue
+        block = seen.contiguous()
+        out = block.new_empty(n * block.numel())
+        dist.all_gather_into_tensor(out, block.reshape(-1), group=group)
+        seen = out.view(n * block.shape[0], block.shape[1])
+    seen = seen.cpu()
+    bad = (seen != seen[0]).any(dim=0).nonzero().flatten().tolist()
+    if bad:
+        ranks = [r for r in range(seen.shape[0]) if not torch.equal(seen[r], seen[0])]
+        raise ValueError(
+            f"generate over a mesh: the rank(s) at mesh index {ranks} (row-major over "
+            f"dp_shard, tp) were called with another {', '.join(_CALL_FIELDS[i] for i in bad)} "
+            "than the first; every rank must generate the same ids with the same arguments")
 
 
 def _advance(prog) -> None:
@@ -133,26 +228,37 @@ def _advance(prog) -> None:
 
 class _Program:
     """One structural key's decode step: the buffers it reads and writes,
-    which live as long as the program, and its captured graph (CUDA)."""
+    which live as long as the program, and its captured graph (CUDA).
+    Under ``tp`` the cache holds this rank's kv heads and ``logits`` its
+    vocabulary block; under ``fsdp_group`` a :class:`~accelerate_tpu_torch
+    .ops.collectives.ShardGather` holds one layer's gathered weights."""
 
     def __init__(self, config, b: int, prompt_len: int, total_len: int, max_new_tokens: int, *,
                  temp_on: bool, top_k_width: Optional[int], top_p_on: bool, eos_on: bool,
-                 kv_backend: str, block_size: int, device: torch.device):
+                 kv_backend: str, block_size: int, device: torch.device, tp=None,
+                 fsdp_group=None):
         from .kvcache import PagedKVLayout, pool_from_dense
         from .models.llama import init_kv_cache
+        from .ops.collectives import ShardGather
 
         self.lock = threading.Lock()
         self.prompt_len, self.max_new_tokens = prompt_len, max_new_tokens
         self.temp_on, self.top_k_width, self.top_p_on, self.eos_on = (
             temp_on, top_k_width, top_p_on, eos_on)
-        self.cache = init_kv_cache(config, b, total_len, device=device)
+        self.tp = tp
+        self.fsdp = ShardGather(fsdp_group) if fsdp_group is not None else None
+        tp_size = tp.size if tp is not None else 1
+        self.tp_group = tp.group if tp is not None else None
+        self.cache = init_kv_cache(config, b, total_len, device=device, tp_size=tp_size)
         self.layout = None
         if kv_backend != "dense":
             self.cache, tables = pool_from_dense(self.cache, block_size,
-                                                 quantized=kv_backend == "paged_int8")
-            self.layout = PagedKVLayout(tables, block_size, config.compute_dtype)
+                                                 quantized=kv_backend == "paged_int8",
+                                                 group=self.tp_group)
+            self.layout = PagedKVLayout(tables, block_size, config.compute_dtype,
+                                        tp_group=self.tp_group)
         v = config.vocab_size
-        self.logits = torch.zeros((b, v), dtype=torch.float32, device=device)
+        self.logits = torch.zeros((b, v // tp_size), dtype=torch.float32, device=device)
         self.uniform = torch.zeros((b, v), dtype=torch.float32, device=device) if temp_on else None
         self.pos = torch.zeros((), dtype=torch.int64, device=device)
         self.col = torch.zeros((1,), dtype=torch.int64, device=device)
@@ -182,6 +288,13 @@ class _Program:
         self.pad.fill_(pad)
         self.gen.manual_seed(seed)
 
+    def whole_logits(self):
+        """The (B, V) logits the sampler reads: the buffer, or under ``tp``
+        every rank's vocabulary block gathered."""
+        from .ops.collectives import gather_last_dim
+
+        return self.logits if self.tp is None else gather_last_dim(self.logits, self.tp_group)
+
     def step(self, config, params) -> None:
         """One decode step on the buffers, in place: what a CUDA graph
         captures."""
@@ -195,14 +308,16 @@ class _Program:
             torch.rand(self.uniform.shape, generator=self.gen, device=self.uniform.device,
                        out=self.uniform)
             noise = ContinuousBatchingEngine._gumbel(self.uniform)
-        token = sample_logits(self.logits, noise, self.temp, self.top_p, temp_on=self.temp_on,
-                              top_k_width=self.top_k_width, top_p_on=self.top_p_on)
+        token = sample_logits(self.whole_logits(), noise, self.temp, self.top_p,
+                              temp_on=self.temp_on, top_k_width=self.top_k_width,
+                              top_p_on=self.top_p_on)
         if self.eos_on:
             token = torch.where(self.done, self.pad, token)
             self.done.logical_or_(token == self.eos)
         self.out.index_copy_(1, self.col, token[:, None])
         logits, _ = llama_decode_step(config, params, self.cache, token[:, None].long(), self.pos,
-                                      kv_layout=self.layout)
+                                      kv_layout=self.layout, tp=self.tp, fsdp=self.fsdp,
+                                      vocab_shard=True)
         self.logits.copy_(logits)
         _advance(self)
 
@@ -265,7 +380,7 @@ def generate(
     blocks; the decode always runs exactly ``max_new_tokens`` steps."""
     from . import engine as _engine
     from .kvcache import KV_BACKENDS, pool_from_dense
-    from .models.llama import LlamaConfig, _check_supported, llama_prefill
+    from .models.llama import LlamaConfig, _check_supported, _Shard, llama_prefill, serving_view
 
     if kv_backend not in KV_BACKENDS:
         raise ValueError(f"kv_backend must be one of {KV_BACKENDS}, got {kv_backend!r}")
@@ -277,9 +392,11 @@ def generate(
         raise NotImplementedError(
             f"generate for {type(config).__name__}: only the Llama family is ported; GPT-2's "
             "generate waits for gpt2.py (ROADMAP.md A11)")
-    params = model.params
+    view = serving_view(model)
+    params, tp = view.params, view.tp
     _check_supported(config, params)
-    device = params["embed_tokens"]["embedding"].device
+    embedding = params["embed_tokens"]["embedding"]
+    device = (embedding.local if isinstance(embedding, _Shard) else embedding).device
     if isinstance(input_ids, torch.Tensor):
         ids = input_ids.to(device=device, dtype=torch.int32)
     else:
@@ -301,11 +418,22 @@ def generate(
     )
     top_p_on = temp_on and top_p is not None and top_p < 1.0
     eos_on = eos_token_id is not None
+    groups = [tp.group if tp is not None else None, view.fsdp_group]
+    if any(_group_size(g) > 1 for g in groups):  # the same call on every rank
+        _check_same_call(ids, dict(
+            batch=b, prompt_len=prompt_len, total_len=total_len, max_new_tokens=max_new_tokens,
+            temperature=float(temperature), seed=seed, top_k=top_k,
+            top_p=None if top_p is None else float(top_p), eos_token_id=eos_token_id,
+            pad_token_id=pad_token_id, kv_backend=KV_BACKENDS.index(kv_backend),
+            kv_block_size=kv_block_size), groups)
     cache_key = (
         type(config).__name__, b, prompt_len, total_len, max_new_tokens,
         temp_on, top_k_width, top_p_on, eos_on,
         kv_backend, kv_block_size if paged else None,
     )
+    layout = ("tp", _group_size(groups[0]), "dp_shard", _group_size(groups[1]))
+    if layout != ("tp", 1, "dp_shard", 1):  # one device's keys are the JAX package's
+        cache_key += (layout,)
     programs, cache_lock = _model_generate_cache(model)
     with cache_lock:
         prog = programs.get(cache_key)
@@ -314,17 +442,20 @@ def generate(
     if prog is None:
         prog = _Program(config, b, prompt_len, total_len, max_new_tokens, temp_on=temp_on,
                         top_k_width=top_k_width, top_p_on=top_p_on, eos_on=eos_on,
-                        kv_backend=kv_backend, block_size=kv_block_size, device=device)
+                        kv_backend=kv_backend, block_size=kv_block_size, device=device, tp=tp,
+                        fsdp_group=view.fsdp_group)
         with cache_lock:
             programs[cache_key] = prog
             cache_max = getattr(model, "_generate_cache_max", _GENERATE_CACHE_MAX)
             while len(programs) > cache_max:
                 programs.popitem(last=False)
-    use_graphs = device.type == "cuda" and not _engine._graphs_disabled
+    use_graphs = device.type == "cuda" and not _engine._graphs_disabled and graphs_supported(view)
     with torch.no_grad(), prog.lock:
-        logits, cache = llama_prefill(config, params, ids.long(), total_len)
+        logits, cache = llama_prefill(config, params, ids.long(), total_len, tp=tp, fsdp=prog.fsdp,
+                                      vocab_shard=True)
         if paged:
-            cache, _ = pool_from_dense(cache, kv_block_size, quantized=kv_backend == "paged_int8")
+            cache, _ = pool_from_dense(cache, kv_block_size, quantized=kv_backend == "paged_int8",
+                                       group=prog.tp_group)
         prog.load(logits, cache, seed=seed, temp=temperature if temp_on else 1.0,
                   top_p=top_p if top_p_on else 1.0, eos=eos_token_id if eos_on else -1,
                   pad=pad_token_id)
@@ -362,15 +493,22 @@ def last_generate_stats(model) -> dict:
     return {"wasted_decode_steps": int(wasted.item())}
 
 
-def prepare_inference(model, mesh=None, rules=None, *, device="cuda"):
-    """The model placed on ``device`` (default ``"cuda"``; raises without a
-    GPU), as the JAX package's ``dispatch_model`` places it for inference.
-    ``mesh`` and ``rules`` (tensor parallelism in serving) are not ported
-    yet."""
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(
-            "prepare_inference(mesh=, rules=): tensor parallelism in serving (the prefill, "
-            "decode and verify steps over tp blocks) is not ported yet (ROADMAP.md A8)")
+def prepare_inference(model, mesh=None, rules=None, *, fsdp_axes=("dp_shard",), device="cuda"):
+    """The model laid out for inference as the JAX package's
+    ``dispatch_model`` lays it. Without ``mesh``: placed on ``device``
+    (default ``"cuda"``; raises without a GPU). With ``mesh`` (every rank
+    of it calls this, each holding the same values): on this rank's
+    device, a Llama split over the mesh's ``tp`` dim by ``rules``
+    (``parallel.tp.tensor_parallel_rules()``) and sharded per layer by
+    FSDP2 over the ``fsdp_axes`` (``big_modeling.dispatch_model``); with no
+    ``rules`` a mesh of ``dp_shard`` alone shards the parameters and
+    nothing else. :func:`generate` and the static ``InferenceServer`` then
+    run on every rank of the mesh."""
     from .big_modeling import dispatch_model
 
-    return dispatch_model(model, device=device)
+    if mesh is None:
+        if rules is not None:
+            raise ValueError("prepare_inference: rules split a model over a mesh's tp dim; pass "
+                             "the mesh too")
+        return dispatch_model(model, device=device)
+    return dispatch_model(model, mesh=mesh, rules=rules, fsdp_axes=fsdp_axes)

@@ -97,15 +97,23 @@ class HostStage:
 
 
 # ------------------------------------------------------------------ int8 ops
-def kv_quantize(x: torch.Tensor):
+def kv_quantize(x: torch.Tensor, group=None):
     """Symmetric int8 quantization with one f32 scale per leading position:
     ``x`` is ``(..., kvh, hd)``, the amax reduces over the last two axes
     (clamped at 1e-6). ``round`` is half-to-even and the division a true
     division, as ``jnp.round(x / scale)``, so the bytes equal the JAX
     package's. Deterministic: identical inputs give identical bytes, which
-    shared-prefix rewrites rely on. Returns ``(q int8, scale f32 (...))``."""
+    shared-prefix rewrites rely on. ``group``: ``x`` holds this ``tp``
+    rank's kv heads, and the amax is taken over every rank's (a max over
+    the group), so the scale and the bytes are one process's. Returns
+    ``(q int8, scale f32 (...))``."""
     xf = x.float()
-    amax = xf.abs().amax(dim=(-1, -2)).clamp_min(1e-6)
+    amax = xf.abs().amax(dim=(-1, -2))
+    if group is not None:
+        from .ops.collectives import all_reduce_
+
+        all_reduce_(amax, group, "max")
+    amax = amax.clamp_min(1e-6)
     scale = amax / 127.0
     q = torch.round(xf / scale[..., None, None]).clamp(-127, 127).to(torch.int8)
     return q, scale
@@ -117,11 +125,12 @@ def kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
     return (q.float() * scale[..., None, None]).to(dtype)
 
 
-def _set_rows(leaf, index, value):
+def _set_rows(leaf, index, value, group=None):
     """``leaf[index] = value`` for a float pool leaf or an int8 ``{"q",
-    "s"}`` pair (``value`` quantized per position first), in place."""
+    "s"}`` pair (``value`` quantized per position first, its scale over
+    ``group``'s heads too), in place."""
     if isinstance(leaf, dict):
-        q, s = kv_quantize(value)
+        q, s = kv_quantize(value, group)
         leaf["q"][index] = q
         leaf["s"][index] = s
     else:
@@ -137,14 +146,17 @@ class PagedKVLayout:
     (:meth:`view`), writes its new column into it, attends, and the column
     is committed back (:meth:`commit`). ``"kernel"``: the new column is
     committed first (:meth:`commit_column`) and the flash-decode kernel
-    walks the tables itself; no dense view exists."""
+    walks the tables itself; no dense view exists. ``tp_group``: the pool
+    holds this ``tp`` rank's kv heads, and an int8 column's scale is taken
+    over every rank's heads (:func:`kv_quantize`)."""
 
     def __init__(self, tables: torch.Tensor, block_size: int, compute_dtype,
-                 attention_impl: str = "reference"):
+                 attention_impl: str = "reference", tp_group=None):
         self.tables = tables
         self.block_size = block_size
         self.compute_dtype = compute_dtype
         self.attention_impl = attention_impl
+        self.tp_group = tp_group
         self._slots_at = None  # (pos, its version, block ids, offsets)
 
     def view(self, layer_cache) -> torch.Tensor:
@@ -173,7 +185,7 @@ class PagedKVLayout:
         return cached[2:]
 
     def _scatter(self, layer_cache, col, pos):
-        _set_rows(layer_cache, self._pool_index(pos), col)
+        _set_rows(layer_cache, self._pool_index(pos), col, self.tp_group)
         return layer_cache
 
     def commit(self, layer_cache, view, pos):
@@ -725,13 +737,14 @@ def make_kv_backend(kind: str, *, config, slots: int, max_len: int, prompt_bucke
 
 
 # --------------------------------------------------- static generate() bridge
-def pool_from_dense(cache, block_size: int, quantized: bool):
+def pool_from_dense(cache, block_size: int, quantized: bool, group=None):
     """Re-lay a dense prefill cache ``{"k", "v"}`` of (L, B, total_len, kvh,
     hd) as a block pool with identity tables, so static ``generate`` decodes
     through the same :class:`PagedKVLayout` view/commit ops as the engine.
     Row b's block j is pool block ``b * nb + j`` (no null block: every block
     is a row's). ``quantized``: int8 ``{"q", "s"}`` leaves with one scale
-    per position (:func:`kv_quantize`). ``total_len`` must divide by
+    per position (:func:`kv_quantize`; over ``group``'s kv heads too when
+    the cache holds a ``tp`` rank's). ``total_len`` must divide by
     ``block_size``. Returns (pool ``{"k", "v"}``, tables (B, nb) int32)."""
     L, b, total, kvh, hd = cache["k"].shape
     if total % block_size:
@@ -741,7 +754,7 @@ def pool_from_dense(cache, block_size: int, quantized: bool):
     def relay(dense):
         pool = dense.reshape(L, b * nb, block_size, kvh, hd)
         if quantized:
-            q, s = kv_quantize(pool)
+            q, s = kv_quantize(pool, group)
             return {"q": q, "s": s}
         return pool
 

@@ -49,8 +49,21 @@ over the vocabulary into the loss (``ops/losses.py``). Gemma's post-block
 norms and embedding scale apply after the collective, the softcaps on the
 local logits and scores.
 
+The serving steps (prefill, decode) take the same ``tp`` handle and a
+model laid over a mesh (``inference.prepare_inference(mesh=, rules=)``)
+through :func:`serving_view`, which reads its leaves in place: each
+rank's ``tp`` blocks, and under FSDP2 its ``dp_shard`` shards, which the
+step gathers whole one layer at a time (``fsdp``, an
+``ops.collectives.ShardGather``). A decode step has one position, which
+``tp`` never divides: it keeps the residual whole (one all-reduce after
+each row-parallel projection and after the embedding). The head computes
+the rank's vocabulary block and gathers the f32 logits whole, or with
+``vocab_shard`` returns the block. The KV cache holds the rank's kv heads
+(``init_kv_cache(tp_size=)``).
+
 Not ported yet (ROADMAP.md): MoE layers and Gemma-2's alternating sliding
-window (A11), fp8 (A4), tensor parallelism in serving (A8).
+window (A11), fp8 (A4), the verify step and the continuous engine over a
+mesh (A8-bis).
 """
 
 from __future__ import annotations
@@ -98,6 +111,7 @@ __all__ = [
     "llama_flops_per_token",
     "llama_loss",
     "init_kv_cache",
+    "serving_view",
     "llama_prefill",
     "llama_prefill_at",
     "llama_decode_step",
@@ -268,7 +282,8 @@ def _check_supported(config: LlamaConfig, params: Optional[dict] = None) -> None
     prefill, decode or verify step (or the engine) is given, which must be
     float: only :func:`llama_apply` takes quantized leaves, as in the JAX
     package, whose engine and ``generate`` take float trees."""
-    if params is not None and any(not isinstance(leaf, torch.Tensor) for _, leaf in _flatten(params)):
+    if params is not None and any(not isinstance(leaf, (torch.Tensor, _Shard))
+                                  for _, leaf in _flatten(_without_layer_list(params))):
         raise NotImplementedError(
             "a quantized parameter tree runs only through llama_apply (the model's "
             "forward); the prefill, decode and verify steps, generate and the engine "
@@ -1020,6 +1035,122 @@ def _layer_slice(layers: dict, i: int) -> dict:
     return {k: _layer_slice(v, i) if isinstance(v, dict) else v[i] for k, v in layers.items()}
 
 
+def _layer_params(layers, i: int) -> dict:
+    """Layer ``i``'s tree: a slice of the stacked leaves, or the ``i``-th
+    of a per-layer list (:func:`serving_view`)."""
+    return layers[i] if isinstance(layers, (list, tuple)) else _layer_slice(layers, i)
+
+
+def _without_layer_list(params: dict) -> dict:
+    """``params`` with a per-layer ``layers`` list as one dict per layer,
+    for :func:`_flatten`."""
+    layers = params.get("layers")
+    if not isinstance(layers, (list, tuple)):
+        return params
+    return {**params, "layers": {str(i): lp for i, lp in enumerate(layers)}}
+
+
+class _Shard(NamedTuple):
+    """A leaf FSDP2 shards over ``dp_shard``: this rank's block of dim 0
+    (``local``) and the whole leaf's rows (of the rank's ``tp`` block)."""
+
+    local: torch.Tensor
+    rows: int
+
+
+def _gathered(tree: dict, fsdp, prefix: str = "") -> dict:
+    """``tree`` with each :class:`_Shard` leaf gathered whole by ``fsdp``
+    (an ``ops.collectives.ShardGather``) into the buffer of its path; the
+    root's ``layers`` are left as they are."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if k == "layers" and not prefix:
+            out[k] = v
+        elif isinstance(v, dict):
+            out[k] = _gathered(v, fsdp, path)
+        elif isinstance(v, _Shard):
+            if fsdp is None:
+                raise ValueError(f"{path} is sharded over dp_shard: pass the step an fsdp gather "
+                                 "(ops.collectives.ShardGather over that group)")
+            out[k] = fsdp(path, v.local, v.rows)
+        else:
+            out[k] = v
+    return out
+
+
+class ServingView(NamedTuple):
+    """What the serving steps read of a model: the parameter tree (its
+    leaves in place, per layer a list in the per-layer layout), the
+    ``tp`` handle or None, and the ``dp_shard`` group FSDP2 shards over or
+    None."""
+
+    params: dict
+    tp: Any
+    fsdp_group: Any
+
+
+def _serving_leaf(p):
+    """A parameter as the serving steps read it: a plain tensor detached;
+    a ``DTensor`` as this rank's block (``to_local``), a :class:`_Shard`
+    where FSDP2 shards it over ``dp_shard``. Returns (leaf, its
+    ``dp_shard`` group or None)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(p, DTensor):
+        return (p.detach() if isinstance(p, torch.Tensor) else p), None
+    mesh, local = p.device_mesh, p.to_local().detach()
+    names = mesh.mesh_dim_names or ()
+    # a split placement has a dim: Shard, and FSDP2's _StridedShard over a
+    # tp split of the same dim (not a Shard subclass in every torch)
+    split = [getattr(placement, "dim", None) for placement in p.placements]
+    if "dp_shard" not in names or split[names.index("dp_shard")] is None:
+        return local, None
+    rows = p.shape[0]
+    for i, (name, dim) in enumerate(zip(names, split)):
+        if name != "dp_shard" and dim == 0:
+            rows //= mesh.size(i)
+    return _Shard(local, rows), mesh.get_group("dp_shard")
+
+
+def serving_view(model: "LlamaForCausalLM") -> ServingView:
+    """The model's leaves as the prefill and decode steps read them, in
+    place (no copy, so their addresses stay those a captured decode graph
+    reads): the stacked tree as it is; in the per-layer layout a list of
+    layer trees; laid over a mesh, each rank's ``tp`` blocks and FSDP2
+    ``dp_shard`` shards (the steps gather those whole one layer at a time).
+    FSDP2 units are resharded first (a forward may have left the root's
+    weights gathered)."""
+    from torch.distributed.fsdp import FSDPModule
+
+    for module in model.modules():
+        if isinstance(module, FSDPModule):
+            module.reshard()
+    groups = []
+
+    def leaf(p):
+        out, group = _serving_leaf(p)
+        if group is not None:
+            groups.append(group)
+        return out
+
+    tree: dict = {}
+    for path, name in model._paths:
+        if model._per_layer(path):
+            continue
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf(getattr(model, name))
+    if model.layers is not None:
+        tree["layers"] = [_map_tree(leaf, layer.tree(detach=False)) for layer in model.layers]
+    return ServingView(tree, model.tp, groups[0] if groups else None)
+
+
+def _map_tree(fn, tree: dict) -> dict:
+    return {k: _map_tree(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
 def _layer_trees(layers: dict, n: int) -> list:
     """Every layer's parameters from the stacked tree, by one ``unbind`` per
     leaf. Its backward stacks the ``n`` layer gradients once; ``n`` slices
@@ -1075,17 +1206,22 @@ def _head(config, params, x, tp=None):
     return tanh_softcap(logits, config.final_logit_softcap)
 
 
-def _serving_head(config, params, x):
+def _serving_head(config, params, x, tp=None, vocab_shard: bool = False):
     """Final norm + LM head of the prefill, decode and verify steps, as the
     JAX serving steps compute it (``_prefill_head``): the product and the
-    softcap in the compute dtype, then f32."""
+    softcap in the compute dtype, then f32. Under ``tp`` the product is the
+    rank's vocabulary block (the head's columns, or the tied embedding's
+    rows), gathered whole in f32 unless ``vocab_shard``."""
     cdt = config.compute_dtype
     x = rms_norm(x, params["final_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
     if config.tie_word_embeddings:
         logits = x @ params["embed_tokens"]["embedding"].to(cdt).T
     else:
         logits = _matmul(config, x, params["lm_head"]["kernel"])
-    return tanh_softcap(logits, config.final_logit_softcap).float()
+    logits = tanh_softcap(logits, config.final_logit_softcap).float()
+    if tp is None or vocab_shard:
+        return logits
+    return gather_last_dim(logits, tp.group)
 
 
 REMAT_POLICIES = ("nothing", "full", "dots", "dots_no_batch", "minimal")
@@ -1316,17 +1452,25 @@ def llama_flops_per_token(config: LlamaConfig, seq_len: int) -> float:
     return 3.0 * fwd
 
 
-def _prefill_stack(config: LlamaConfig, params, input_ids):
+def _prefill_stack(config: LlamaConfig, params, input_ids, tp=None, fsdp=None):
     """One full forward over the prompt -> (pre-final-norm hidden (B, S, D),
-    stacked K and V (L, B, S, kvh, hd))."""
+    stacked K and V (L, B, S, kvh, hd), the root's leaves whole, the
+    forward's ``_TPRun``). Under ``tp`` the K and V hold the rank's kv heads
+    and the hidden states are gathered whole along the sequence."""
     _check_supported(config, params)
-    x = _embed(config, params, input_ids)
+    if tp is not None:
+        tp = _TPRun(tp.group, tp.size, tp.rank, input_ids.shape[1] % tp.size == 0)
+    root = _gathered(params, fsdp)
+    x = _embed(config, root, input_ids, tp)
     ks, vs = [], []
     for i in range(config.num_hidden_layers):
-        x, (k, v) = _layer(config, _layer_slice(params["layers"], i), x, collect_kv=True)
+        lp = _gathered(_layer_params(params["layers"], i), fsdp, "layers")
+        x, (k, v) = _layer(config, lp, x, collect_kv=True, tp=tp)
         ks.append(k)
         vs.append(v)
-    return x, torch.stack(ks), torch.stack(vs)
+    if tp is not None and tp.sp:
+        x = sequence_all_gather(x, tp.group)
+    return x, torch.stack(ks), torch.stack(vs), root, tp
 
 
 def _pad_prefill_cache(ks, vs, max_len: int):
@@ -1337,10 +1481,16 @@ def _pad_prefill_cache(ks, vs, max_len: int):
     }
 
 
-def init_kv_cache(config: LlamaConfig, batch_size: int, max_len: int, dtype=None, device="cuda"):
+def init_kv_cache(config: LlamaConfig, batch_size: int, max_len: int, dtype=None, device="cuda",
+                  tp_size: int = 1):
     """Per-layer stacked KV cache ``{"k", "v"}`` of zeros, (L, B, max_len,
-    kvh, hd) in ``dtype`` (default the compute dtype) on ``device``."""
-    shape = (config.num_hidden_layers, batch_size, max_len, config.num_key_value_heads,
+    kvh / tp_size, hd) in ``dtype`` (default the compute dtype) on
+    ``device``: under tensor parallelism a rank's cache holds its kv
+    heads."""
+    if config.num_key_value_heads % tp_size:
+        raise ValueError(f"tp_size {tp_size} does not divide the {config.num_key_value_heads} kv "
+                         "heads")
+    shape = (config.num_hidden_layers, batch_size, max_len, config.num_key_value_heads // tp_size,
              config.head_dim)
     dev = resolve_device(device)
     dtype = dtype or config.compute_dtype
@@ -1348,23 +1498,33 @@ def init_kv_cache(config: LlamaConfig, batch_size: int, max_len: int, dtype=None
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
-def llama_prefill(config: LlamaConfig, params, input_ids, max_len: int):
+def llama_prefill(config: LlamaConfig, params, input_ids, max_len: int, *, tp=None, fsdp=None,
+                  vocab_shard: bool = False):
     """Full-forward prefill: one pass over the prompt (attention through
     ``config.attention_impl``, the flash kernel under ``"flash"``), returning
-    (f32 last-position logits (B, V), the KV cache padded to ``max_len``)."""
-    x, ks, vs = _prefill_stack(config, params, input_ids)
-    return _serving_head(config, params, x[:, -1]), _pad_prefill_cache(ks, vs, max_len)
+    (f32 last-position logits (B, V), the KV cache padded to ``max_len``).
+    ``tp`` (a ``parallel.tp.TensorParallel``) and ``fsdp`` (an
+    ``ops.collectives.ShardGather``) run it on a rank's part of a model
+    laid over a mesh (:func:`serving_view`): the cache holds the rank's kv
+    heads, and with ``vocab_shard`` the logits are the rank's vocabulary
+    block (B, V / tp)."""
+    x, ks, vs, root, tp = _prefill_stack(config, params, input_ids, tp, fsdp)
+    return (_serving_head(config, root, x[:, -1], tp, vocab_shard),
+            _pad_prefill_cache(ks, vs, max_len))
 
 
-def llama_prefill_at(config: LlamaConfig, params, input_ids, max_len: int, last_index):
+def llama_prefill_at(config: LlamaConfig, params, input_ids, max_len: int, last_index, *,
+                     tp=None, fsdp=None, vocab_shard: bool = False):
     """Prefill a right-padded prompt batch with logits at per-row
     ``last_index`` (B,), the last real prompt position. Padding rows still
     write KV, which is safe: decode masks ``k_pos <= pos`` and overwrites
-    each position before it becomes attendable."""
-    x, ks, vs = _prefill_stack(config, params, input_ids)
+    each position before it becomes attendable. ``tp``, ``fsdp`` and
+    ``vocab_shard`` as in :func:`llama_prefill`."""
+    x, ks, vs, root, tp = _prefill_stack(config, params, input_ids, tp, fsdp)
     last_index = torch.as_tensor(last_index, device=x.device).long()
     x_last = x[torch.arange(x.shape[0], device=x.device), last_index]
-    return _serving_head(config, params, x_last), _pad_prefill_cache(ks, vs, max_len)
+    return (_serving_head(config, root, x_last, tp, vocab_shard),
+            _pad_prefill_cache(ks, vs, max_len))
 
 
 def _write_kv_at(cache, kv, pos):
@@ -1448,21 +1608,25 @@ def _kernel_verify_override(config, kv_layout, pos, ck_pool, cv_pool):
 
 
 def _decode_layer(config: LlamaConfig, layer_params, x, cache_k, cache_v, pos,
-                  attention_override=None, rope=None):
+                  attention_override=None, rope=None, tp=None):
     """One block, one new position per row. ``pos`` is a scalar or (B,)
     tensor. Without an override, the new K/V column is written into the
     dense (B, max_len, kvh, hd) caches in place and attention is the
     grouped masked einsum; ``attention_override(q, k, v) -> (attn, ck, cv)``
     owns both the store and the attention instead (the kernel path).
     ``rope``: the (cos, sin) of ``pos``, when the caller computed them once
-    for every layer (:func:`apply_rope_at`'s tables)."""
-    h, kvh, hd = config.num_attention_heads, config.num_key_value_heads, config.head_dim
+    for every layer (:func:`apply_rope_at`'s tables). Under ``tp`` (a
+    :class:`_TPRun` that keeps the residual whole) the heads are the
+    rank's, as many as its q/k/v columns hold."""
+    hd = config.head_dim
     b, s, _ = x.shape
     cdt = config.compute_dtype
     y = rms_norm(x, layer_params["input_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
-    q = _proj(config, layer_params, "q_proj", y).reshape(b, s, h, hd)
-    k = _proj(config, layer_params, "k_proj", y).reshape(b, s, kvh, hd)
-    v = _proj(config, layer_params, "v_proj", y).reshape(b, s, kvh, hd)
+    y = _tp_in(y, tp)
+    q = _proj(config, layer_params, "q_proj", y).reshape(b, s, -1, hd)
+    k = _proj(config, layer_params, "k_proj", y).reshape(b, s, -1, hd)
+    v = _proj(config, layer_params, "v_proj", y).reshape(b, s, -1, hd)
+    h, kvh = q.shape[2], k.shape[2]
     if rope is None:
         rope = _rope_at_tables(pos, hd, config.rope_theta, config._rope_scaling_key(), x.device)
     q = _rotate(q, *rope)
@@ -1486,20 +1650,26 @@ def _decode_layer(config: LlamaConfig, layer_params, x, cache_k, cache_v, pos,
         attn = torch.einsum(
             "bgrqk,bkgd->bqgrd", weights.to(cdt).float(), cache_v.to(cdt).float()
         ).to(cdt)
-    x = _attn_out(config, layer_params, attn, x)
-    return _mlp_block(config, layer_params, x), cache_k, cache_v
+    x = _attn_out(config, layer_params, attn, x, tp)
+    return _mlp_block(config, layer_params, x, tp), cache_k, cache_v
 
 
-def llama_decode_step(config: LlamaConfig, params, cache, token, pos, *, kv_layout=None):
+def llama_decode_step(config: LlamaConfig, params, cache, token, pos, *, kv_layout=None, tp=None,
+                      fsdp=None, vocab_shard: bool = False):
     """One decode step: ``token`` (B, 1) at ``pos`` (scalar or (B,) tensor;
     a 0-dim device tensor keeps the whole batch at one position, as static
     ``generate``'s captured step reads it). Returns (f32 logits (B, V), cache). ``cache`` leaves are (L, ...)
     tensors updated in place: the dense arena (L, B, max_len, kvh, hd), or
     with ``kv_layout`` (a :class:`~accelerate_tpu_torch.kvcache
-    .PagedKVLayout`) the block pool (L, num_blocks, block_size, kvh, hd)."""
+    .PagedKVLayout`) the block pool (L, num_blocks, block_size, kvh, hd).
+    ``tp``, ``fsdp`` and ``vocab_shard`` as in :func:`llama_prefill`; one
+    position is never split over ``tp``, so the residual stays whole."""
     _check_supported(config, params)
+    if tp is not None:
+        tp = _TPRun(tp.group, tp.size, tp.rank, False)
     pos = torch.as_tensor(pos, device=token.device)
-    x = _embed(config, params, token)
+    root = _gathered(params, fsdp)
+    x = _embed(config, root, token, tp)
     # position-only work, done once for all layers
     rope = _rope_at_tables(pos, config.head_dim, config.rope_theta,
                            config._rope_scaling_key(), x.device)
@@ -1507,20 +1677,20 @@ def llama_decode_step(config: LlamaConfig, params, cache, token, pos, *, kv_layo
     if use_kernel:
         pos_i32 = (pos.expand(token.shape[0]) if pos.dim() == 0 else pos).to(torch.int32).contiguous()
     for i in range(config.num_hidden_layers):
-        lp = _layer_slice(params["layers"], i)
+        lp = _gathered(_layer_params(params["layers"], i), fsdp, "layers")
         ck, cv = _layer_leaf(cache["k"], i), _layer_leaf(cache["v"], i)
         if use_kernel:
             override = _kernel_decode_override(config, kv_layout, pos_i32, ck, cv)
             x, _, _ = _decode_layer(config, lp, x, None, None, pos, attention_override=override,
-                                    rope=rope)
+                                    rope=rope, tp=tp)
         elif kv_layout is not None:
             view_k, view_v = kv_layout.view(ck), kv_layout.view(cv)
-            x, view_k, view_v = _decode_layer(config, lp, x, view_k, view_v, pos, rope=rope)
+            x, view_k, view_v = _decode_layer(config, lp, x, view_k, view_v, pos, rope=rope, tp=tp)
             kv_layout.commit(ck, view_k, pos)
             kv_layout.commit(cv, view_v, pos)
         else:
-            x, _, _ = _decode_layer(config, lp, x, ck, cv, pos, rope=rope)
-    return _serving_head(config, params, x)[:, 0], cache
+            x, _, _ = _decode_layer(config, lp, x, ck, cv, pos, rope=rope, tp=tp)
+    return _serving_head(config, root, x, tp, vocab_shard)[:, 0], cache
 
 
 def _verify_layer(config: LlamaConfig, layer_params, x, cache_k, cache_v, pos,

@@ -34,7 +34,15 @@ backward is the collective the layout needs:
   by the group's size, so that a gradient every rank computes whole is
   summed over the group like a partial one);
 * :func:`all_reduce_` (in place, no gradient): the vocabulary-parallel
-  loss's row max, sum of exponentials and label logit.
+  loss's row max, sum of exponentials and label logit, and the int8 KV
+  cache's per-position scale over the ``tp`` ranks' heads.
+
+Serving over ``dp_shard`` (``inference.py``) reads FSDP2's shards with
+:class:`ShardGather`: each leaf's dim-0 shards all-gathered whole into a
+buffer kept for that leaf's name, so one layer's weights are whole at a
+time (what GSPMD does for an FSDP-sharded scan), with no FSDP2 module hook
+and no allocation after the first call: a CUDA graph captures the
+gathers.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ import torch.distributed as dist
 
 __all__ = [
     "all_gather",
+    "ShardGather",
     "all_reduce_",
     "copy_to_group",
     "gather_last_dim",
@@ -353,3 +362,36 @@ def gather_last_dim(x: torch.Tensor, group) -> torch.Tensor:
 def grad_share(x: torch.Tensor, n: int) -> torch.Tensor:
     """``x`` as it is; the backward divides the gradient by ``n``."""
     return _GradShare.apply(x, n)
+
+
+class ShardGather:
+    """All-gathers FSDP2's dim-0 shards over ``group`` (the ``dp_shard``
+    ranks). FSDP2 splits dim 0 as ``torch.chunk`` does, each rank's block
+    padded to ``ceil(rows / n)`` rows; the whole leaf is the gather's first
+    ``rows`` rows. A leaf name keeps its send and receive buffers from the
+    first call on, so every layer's leaf of that name lands in the same
+    buffer (the caller runs one layer at a time) and a CUDA graph replays
+    the gathers on the same addresses."""
+
+    def __init__(self, group):
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self._buffers: dict = {}
+
+    def __call__(self, name: str, local: torch.Tensor, rows: int) -> torch.Tensor:
+        """The whole (``rows``, ...) leaf from this rank's block ``local``:
+        a view of the buffer for ``name``, valid until the next call for
+        that name."""
+        chunk = -(-rows // self.size)
+        buffers = self._buffers.get(name)
+        if buffers is None:
+            rest = tuple(local.shape[1:])
+            # a block short of the padded rows is copied into a padded one
+            send = (None if local.shape[0] == chunk and local.is_contiguous()
+                    else local.new_zeros((chunk,) + rest))
+            buffers = self._buffers[name] = (send, local.new_empty((self.size * chunk,) + rest))
+        send, out = buffers
+        if send is not None:
+            send[:local.shape[0]].copy_(local)
+        dist.all_gather_into_tensor(out, local if send is None else send, group=self.group)
+        return out[:rows]

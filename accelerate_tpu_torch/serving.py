@@ -21,6 +21,17 @@ only validates and enqueues.
   speculative verify step), read back the matured results, reply to
   retired requests, and shed requests past their deadline.
 
+A model laid out over a mesh (``inference.prepare_inference(mesh=,
+rules=)``) is served by one controller, as the JAX package's one process
+serves it: every rank of the mesh builds the server, and the mesh's first
+rank admits, batches and retries requests (its results are the unsharded
+server's), while every other rank replays its batches, in order, through
+the same ``generate``: each batch's rows and arguments reach them over a
+gloo group of the mesh's ranks before the batch runs. ``submit`` on
+another rank raises; ``close`` or ``drain`` there waits until the first
+rank's ends them. The continuous engine over a mesh is not ported
+(ROADMAP.md A8-bis).
+
 Robustness that is ported: a bounded admission queue
 (:class:`ServerOverloaded`), deadlines at admission, mid-decode and at
 completion (:class:`RequestDeadlineExceeded`), graceful drain (in-flight
@@ -164,6 +175,58 @@ class ServingMetrics:
         return out
 
 
+# a replaying rank waits this long for the first rank's next batch
+_CONTROL_TIMEOUT_S = 7 * 24 * 3600.0
+
+
+def _mesh_ranks(model) -> Optional[list]:
+    """The global ranks of the mesh a model is laid out over (its first
+    ``DTensor`` parameter's), or None."""
+    from torch.distributed.tensor import DTensor
+
+    params = getattr(model, "parameters", None)
+    for p in (params() if callable(params) else ()):
+        if isinstance(p, DTensor):
+            return sorted(int(r) for r in p.device_mesh.mesh.flatten().tolist())
+    return None
+
+
+class _MeshControl:
+    """The static server's one controller over a mesh: the first rank
+    broadcasts each batch (rows and ``generate`` arguments) and the stop
+    over a gloo group of the mesh's ranks; the others receive them."""
+
+    def __init__(self, ranks: list):
+        import datetime
+
+        import torch.distributed as dist
+
+        if len(ranks) != dist.get_world_size():
+            raise NotImplementedError(
+                f"a static server over a mesh of {len(ranks)} of the {dist.get_world_size()} "
+                "processes: every process of the group must be a rank of the model's mesh")
+        self.leader = ranks[0]
+        self.rank = dist.get_rank()
+        self.group = dist.new_group(ranks, backend="gloo",
+                                    timeout=datetime.timedelta(seconds=_CONTROL_TIMEOUT_S))
+
+    @property
+    def is_leader(self) -> bool:
+        return self.rank == self.leader
+
+    def send(self, message) -> None:
+        import torch.distributed as dist
+
+        dist.broadcast_object_list([message], src=self.leader, group=self.group)
+
+    def receive(self):
+        import torch.distributed as dist
+
+        box = [None]
+        dist.broadcast_object_list(box, src=self.leader, group=self.group)
+        return box[0]
+
+
 class InferenceServer:
     """Static or continuous batching server (``config.mode``).
 
@@ -178,6 +241,10 @@ class InferenceServer:
     ``None`` builds one from the ``engine_*`` knobs; ``generate_fn`` is
     inert there, as the engine owns the device programs. Construction
     starts the worker; use it as a context manager or call :meth:`close`.
+
+    Static mode over a model laid out over a mesh: every rank builds the
+    server; the mesh's first rank serves, the others replay its batches
+    (see the module docstring).
     """
 
     def __init__(self, model, config: Optional[ServingConfig] = None, *, generate_fn=None,
@@ -186,10 +253,14 @@ class InferenceServer:
         self.config = config or ServingConfig()
         self._clock = clock
         self._generate_fn = generate_fn or self._default_generate
+        self._control = None
         if self.config.mode == "static":
             engine = None
+            ranks = _mesh_ranks(model)
+            if ranks is not None and len(ranks) > 1:
+                self._control = _MeshControl(ranks)
             dev = resolve_device(device)
-            if generate_fn is None:
+            if generate_fn is None and ranks is None:  # over a mesh, each rank on its own card
                 param = next(iter(model.parameters()), None)
                 if param is not None and param.device != dev:
                     raise ValueError(
@@ -256,7 +327,13 @@ class InferenceServer:
         Raises at once (before queueing) when the server is draining, the
         queue is full, or the request cannot fit the engine.
         ``deadline_s`` is relative (``None``: ``config.default_deadline_s``);
-        ``seed`` drives a sampled request's draws (``temperature > 0``)."""
+        ``seed`` drives a sampled request's draws (``temperature > 0``).
+        Over a mesh, only its first rank admits requests."""
+        if self._control is not None and not self._control.is_leader:
+            raise RuntimeError(
+                f"submit on rank {self._control.rank}: the model is served over a mesh, whose "
+                f"first rank ({self._control.leader}) admits every request; this rank replays "
+                "its batches")
         if self._closed or self._draining:
             self.metrics.bump("rejected_draining")
             raise ServerDrainingError(self._drain_reason(), retry_after_s=0.0)
@@ -307,7 +384,11 @@ class InferenceServer:
     def drain(self, timeout: Optional[float] = None) -> bool:
         """Stop admission, let in-flight slots finish, reject everything
         still queued. True when the worker exited within ``timeout``
-        (default ``config.drain_timeout_s``)."""
+        (default ``config.drain_timeout_s``). On a rank that replays the
+        first rank's batches, wait until the first rank's drain ends them
+        (``timeout`` None: however long that takes)."""
+        if self._control is not None and not self._control.is_leader:
+            return self._drained.wait(timeout)
         with self._wake:
             self._draining = True
             self._wake.notify_all()
@@ -337,6 +418,8 @@ class InferenceServer:
         try:
             if self._engine is not None:
                 self._loop_continuous()
+            elif self._control is not None and not self._control.is_leader:
+                self._loop_replay()
             else:
                 self._loop_static()
         except BaseException as exc:  # a dead worker must not hang clients
@@ -353,6 +436,11 @@ class InferenceServer:
                     "serving worker exited with this request still in a decode slot",
                 ))
             self._reject_queued()
+            if self._control is not None and self._control.is_leader:
+                try:
+                    self._control.send(("stop",))  # ends the replaying ranks' loops
+                except Exception:  # noqa: BLE001 - a lost peer must not hang this drain
+                    logger.exception("could not end the replaying ranks")
             self._drained.set()
 
     # ------------------------------------------------------ static batching
@@ -369,6 +457,22 @@ class InferenceServer:
             batch = self._collect_batch()
             if batch:
                 self._execute(batch)
+
+    def _loop_replay(self) -> None:
+        """A rank other than the mesh's first: run each batch the first rank
+        sends, in order, until its stop. A failed batch fails there too (the
+        same call over the same collectives), which retries or gives up."""
+        while True:
+            message = self._control.receive()
+            if message[0] == "stop":
+                return
+            _, rows, kwargs = message
+            try:
+                self._generate_fn(self.model, rows, **kwargs)
+                self.metrics.bump("batches")
+            except Exception:  # noqa: BLE001 - the first rank sees the batch fail and decides
+                self.metrics.bump("batch_failures")
+                logger.exception("replayed batch failed")
 
     def _clamp_budget(self, req: _Request) -> None:
         # the degradation ladder's clamp waits for A10: the whole budget runs
@@ -446,12 +550,14 @@ class InferenceServer:
         kv_kwargs = {}
         if cfg.kv_cache != "dense":  # dense is generate()'s default
             kv_kwargs = {"kv_backend": cfg.kv_cache, "kv_block_size": cfg.engine_block_size}
-        out = self._generate_fn(
-            self.model, rows, max_new_tokens=first.effective_max_new_tokens,
-            temperature=first.temperature, seed=first.seed, pad_to=pad_to, top_k=first.top_k,
-            top_p=first.top_p, eos_token_id=first.eos_token_id, pad_token_id=first.pad_token_id,
-            **kv_kwargs,
+        kwargs = dict(
+            max_new_tokens=first.effective_max_new_tokens, temperature=first.temperature,
+            seed=first.seed, pad_to=pad_to, top_k=first.top_k, top_p=first.top_p,
+            eos_token_id=first.eos_token_id, pad_token_id=first.pad_token_id, **kv_kwargs,
         )
+        if self._control is not None:  # the other ranks run the same call
+            self._control.send(("batch", rows, kwargs))
+        out = self._generate_fn(self.model, rows, **kwargs)
         # read back here: a transfer error is a batch failure, not the client's
         if isinstance(out, torch.Tensor):
             out = out.cpu().numpy()

@@ -40,7 +40,7 @@ import numpy as np
 
 
 def main() -> None:
-    from accelerate_tpu_torch.test_utils.training import Finetune, add_finetune_args
+    from accelerate_tpu_torch.test_utils.training import Finetune, add_finetune_args, say
     from accelerate_tpu_torch.utils.fault import FAULT_INJECT_ENV, fault_point
 
     ap = argparse.ArgumentParser()
@@ -96,7 +96,7 @@ def main() -> None:
                        "checksum": checksum, "attempt": run.attempt,
                        "num_processes": acc.num_processes}, f)
     run.close()
-    print(f"done: resumed={resumed} start={start} attempt={run.attempt}", flush=True)
+    say(f"done: resumed={resumed} start={start} attempt={run.attempt}")
 
 
 if __name__ == "__main__":

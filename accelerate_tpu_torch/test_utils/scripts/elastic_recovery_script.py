@@ -42,7 +42,7 @@ import numpy as np
 
 
 def main() -> None:
-    from accelerate_tpu_torch.test_utils.training import Finetune, add_finetune_args
+    from accelerate_tpu_torch.test_utils.training import Finetune, add_finetune_args, say
     from accelerate_tpu_torch.utils.fault import FAULT_INJECT_ENV
 
     ap = argparse.ArgumentParser()
@@ -67,27 +67,27 @@ def main() -> None:
             np.savez(path, **params)
 
     if args.phase == "first_launch":
-        print(f"rank {acc.process_index} resumed={acc.resume_from_latest()}", flush=True)
+        say(f"rank {acc.process_index} resumed={acc.resume_from_latest()}")
     elif args.phase == "verify":
-        print(f"resumed={acc.resume_from_latest(elastic=args.elastic or None)}", flush=True)
+        say(f"resumed={acc.resume_from_latest(elastic=args.elastic or None)}")
         dump(args.ref_out)
     elif args.phase == "train":
         run.step(run.batch(0))
         acc.save_state()
         dump(args.ref_out + ".step1.npz")
-        print("committed checkpoint_0", flush=True)
+        say("committed checkpoint_0")
         run.step(run.batch(1))
         dump(args.ref_out + ".step2.npz")
         if args.fault != "none":
             os.environ[FAULT_INJECT_ENV] = args.fault
         acc.save_state()
-        print("second save finished", flush=True)
+        say("second save finished")
     elif args.phase == "host_loss":
         for step in range(args.steps):
             run.step(run.batch(step))
         path = acc.save_state()
         acc.wait_for_everyone()  # the main process's mirror has landed
-        print(f"rank {acc.process_index} committed {os.path.basename(path)}", flush=True)
+        say(f"rank {acc.process_index} committed {os.path.basename(path)}")
         if acc.process_index == args.kill_rank:
             os.kill(os.getpid(), signal.SIGKILL)
     else:  # resume
@@ -105,7 +105,7 @@ def main() -> None:
             with open(args.out, "w") as f:
                 json.dump({"resumed": resumed, "step": step0, "position": position,
                            "losses": losses, "num_processes": acc.num_processes}, f)
-        print(f"resumed={resumed}", flush=True)
+        say(f"resumed={resumed}")
     run.close()
 
 

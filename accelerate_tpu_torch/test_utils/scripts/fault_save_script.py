@@ -28,7 +28,7 @@ import numpy as np
 
 
 def main() -> None:
-    from accelerate_tpu_torch.test_utils.training import Finetune, add_finetune_args
+    from accelerate_tpu_torch.test_utils.training import Finetune, add_finetune_args, say
     from accelerate_tpu_torch.utils.fault import FAULT_INJECT_ENV
 
     ap = argparse.ArgumentParser()
@@ -41,18 +41,18 @@ def main() -> None:
 
     run = Finetune(args)
     if args.phase == "verify":
-        print(f"resumed={run.acc.resume_from_latest()}", flush=True)
+        say(f"resumed={run.acc.resume_from_latest()}")
         np.savez(args.ref_out, **run.whole_params())
         run.close()
         return
     run.step(run.batch(0))
     run.acc.save_state()
     np.savez(args.ref_out, **run.whole_params())
-    print("committed checkpoint_0", flush=True)
+    say("committed checkpoint_0")
     run.step(run.batch(1))
     os.environ[FAULT_INJECT_ENV] = args.fault
     run.acc.save_state()
-    print("save unexpectedly survived", flush=True)
+    say("save unexpectedly survived")
 
 
 if __name__ == "__main__":

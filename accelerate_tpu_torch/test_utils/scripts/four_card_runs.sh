@@ -2,7 +2,7 @@
 # The four-card runs of the PyTorch port, from the repository root on a
 # host with four cards (one process a card, NCCL):
 #
-#   bash accelerate_tpu_torch/test_utils/scripts/four_card_runs.sh [sanity|full|shallow|all|supervise]
+#   bash accelerate_tpu_torch/test_utils/scripts/four_card_runs.sh [sanity|full|shallow|all|supervise|serve]
 #
 # sanity:  the sanity script (test_script.py) under --tp_size 4 and under
 #          --tp_size 2 --dp_shard_size 2
@@ -21,8 +21,13 @@
 #          from the replica, held bit for bit against a 2-card run that
 #          loads the replica directly (1 row a rank: the global batch and
 #          the loader's position change)
-# Each timing run writes chiprun_out/train_timing_<layout>_<layers>l.json;
-# the lines printed carry the card's name and power limit.
+# serve (not part of all): serve_timing.py, static generate of Llama-3-8B at
+#          32 layers (bf16, B = 8, 512 + 128 tokens, the decode step one CUDA
+#          graph with its NCCL collectives) under TP 4 and TP 2 x FSDP2 2,
+#          rank 0's greedy tokens held against card 0's unsharded model
+# Each timing run writes chiprun_out/train_timing_<layout>_<layers>l.json
+# (serve: serve_timing_<layout>_32l.json); the lines printed carry the
+# card's name and power limit.
 set -euo pipefail
 what=${1:-all}
 launch=(python -m accelerate_tpu_torch.commands.launch --num_processes 4)
@@ -44,6 +49,11 @@ if [[ $what == shallow || $what == all ]]; then
   "${launch[@]}" --dp_replicate_size 4 "$timing" --layers 4
   "${launch[@]}" --dp_shard_size 4 "$timing" --layers 4
   "${launch[@]}" --dp_replicate_size 2 --dp_shard_size 2 "$timing" --layers 4
+fi
+if [[ $what == serve ]]; then
+  serve=accelerate_tpu_torch/test_utils/scripts/serve_timing.py
+  "${launch[@]}" --tp_size 4 "$serve" --layers 32
+  "${launch[@]}" --tp_size 2 --dp_shard_size 2 "$serve" --layers 32
 fi
 if [[ $what == supervise ]]; then
   crash=accelerate_tpu_torch/test_utils/scripts/crash_resume_script.py

@@ -28,7 +28,7 @@ if __package__ in (None, ""):  # run as a file: the repository root on the path
 
 
 def main() -> None:
-    from accelerate_tpu_torch.test_utils.training import Finetune, add_finetune_args
+    from accelerate_tpu_torch.test_utils.training import Finetune, add_finetune_args, say
 
     ap = argparse.ArgumentParser()
     add_finetune_args(ap)
@@ -46,11 +46,11 @@ def main() -> None:
             run.step(run.batch(step))
             if not os.path.exists(args.ready_file):
                 open(args.ready_file, "w").close()
-                print("training started", flush=True)
+                say("training started")
             time.sleep(args.step_sleep)
             run.boundary()
     run.close()
-    print("finished without preemption", flush=True)
+    say("finished without preemption")
 
 
 if __name__ == "__main__":

@@ -29,10 +29,21 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 
 import numpy as np
 import torch
+
+def say(line: str) -> None:
+    """``line`` and its newline on stdout in one write. The ranks of a
+    launch share its stdout pipe, and ``print`` writes the text and the
+    newline in two writes: unbuffered, another rank's line can land between
+    them (``rank 0 resumed=Falserank 1 resumed=False``). One write of a
+    short line to a pipe is atomic."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
+
 
 DOC_LEN = {"tiny": (4, 40), "llama3_8b": (64, 3000)}
 TRACKED = ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma", "flash_fwd", "flash_bwd_dq",

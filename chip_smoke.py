@@ -9,8 +9,10 @@ training steps through the ``Accelerator`` at full width and 4 layers;
 a fine-tune at full width that is interrupted and resumes bitwise; the
 same training step under DDP and FSDP2 over NCCL at world size 1, and
 under tensor parallelism; static generation (``generate`` and the static
-``InferenceServer``) on the serving model; and the fine-tune supervised
-by the launcher through a crash, a lost disk, a preemption and a hang.
+``InferenceServer``) on the serving model; the fine-tune supervised
+by the launcher through a crash, a lost disk, a preemption and a hang;
+and static generation over a mesh (tensor parallelism alone and under
+FSDP2).
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -179,6 +181,25 @@ Phases (any failure exits non-zero and prints no result):
      emergency checkpoint's seconds, restart seconds and the watchdog's
      latency are printed with the card; the children's B1-B3 launches,
      every attempt, are counted under training_supervised
+ 14. (run after 13) serving over a mesh: (a) ``prepare_inference(mesh=,
+     rules=tensor_parallel_rules())`` over a one-rank NCCL group forced to
+     the TP layout (a TensorParallelConfig), Llama-3-8B at 8 layers, bf16:
+     ``generate`` greedy at B = 8, 512 + 128 tokens over the dense and the
+     paged cache, eagerly and as graph replays (the decode step captured
+     with its NCCL collectives), every run bitwise equal to the unsharded
+     model's in the same phase; tokens/s, decode replay ms and the peak
+     above the weights beside the unsharded figures; B1 counted under
+     static_tp; the same layout with FSDP2 forced on its one-rank dp_shard
+     dim (each layer's shards gathered inside the captured step), dense,
+     bitwise again (static_tp_fsdp); (d) ``InferenceServer(ServingConfig())`` over that model,
+     8 requests of 512 tokens and 64 new, every reply equal to a direct
+     ``generate`` (static_tp_server); (b) four tp ranks and (c) dp_shard 2
+     x tp 2 as threads over torch's threaded group on the card (it cannot
+     be captured: the decode runs eagerly) at 4 layers, 64 new tokens:
+     tokens equal on every rank and held against the plain forward by
+     phase 12's rule, B1 at 8/2 and 16/4 heads a rank counted
+     (static_tp4_threads, static_dp_shard2_tp2_threads), and a planted
+     fault (rank 1 sampling with another seed) caught on every rank
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Long output goes to chiprun_out/.
 """
@@ -4209,6 +4230,337 @@ def phase_supervised(card, cpu=False, preset="llama3_8b"):
     return {k: launches[k] for k in expected}, out
 
 
+# ---------------------------------------------------------------- phase 14
+# serving over a mesh: (a) the TP layout forced at tp = 1 over a one-rank
+# NCCL group, each generate against the unsharded model's; (b) four tp
+# ranks and (c) dp_shard 2 x tp 2 as threads on the one card (torch's
+# threaded group, which cannot be captured: the decode runs eagerly);
+# (d) the static server over (a)'s model. Phase 14's depth is cut first
+# when the script's time limit presses.
+SERVE_MESH_LAYERS = 8
+SERVE_THREAD_LAYERS = 4
+SERVE_THREAD_NEW = 64
+SERVE_THREAD_TIMEOUT_S = 300
+SERVE_THREAD_LAYOUTS = {"tp4": {"tp": 4}, "dp_shard2_tp2": {"dp_shard": 2, "tp": 2}}
+SERVE_SERVER_NEW = 64
+
+
+def serve_generate_runs(model, ids, kv, n_layers, label):
+    """``generate`` greedy three times: eagerly, the first graph call (it
+    captures) and a graph call, the last with the launch counters reset
+    just before. Returns (tokens, seconds of the graph call, its launches,
+    the program), raising unless all three are bitwise equal."""
+    from accelerate_tpu_torch.engine import _disable_graphs
+    from accelerate_tpu_torch.inference import generate
+    from accelerate_tpu_torch.ops import _build
+
+    kw = dict(kv_backend=kv, kv_block_size=16)
+    with _disable_graphs():
+        eager = generate(model, ids, STATIC_NEW, **kw)
+    first = generate(model, ids, STATIC_NEW, **kw)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = generate(model, ids, STATIC_NEW, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    check_launches(f"phase 14 (a) {label} generate {kv}", launches, {"flash_fwd_mma": n_layers})
+    if not (torch.equal(first, eager) and torch.equal(out, eager)):
+        raise AssertionError(f"phase 14 (a) {label} {kv}: the graph runs' tokens differ from the "
+                             "eager run's")
+    progs = list(static_programs(model).values())
+    if len(progs) != 1 or progs[0].graph is None:
+        raise AssertionError(f"phase 14 (a) {label} {kv}: {len(progs)} programs, graph "
+                             f"{progs[0].graph if progs else None}")
+    return out, secs, launches, progs[0]
+
+
+def serve_one_rank(dev, card):
+    """Phase 14 (a) and (d) over the one-rank NCCL group the caller
+    started. Returns (launches of (a)'s dense TP graph call, of its dense
+    TP x FSDP2 graph call, of (d)'s server run, numbers)."""
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import DTensor
+
+    from accelerate_tpu_torch.models.llama import serving_view
+    from accelerate_tpu_torch.parallel.mesh import sub_mesh
+
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.inference import generate, prepare_inference
+    from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.parallel.tp import tensor_parallel_rules
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+    from accelerate_tpu_torch.serving import InferenceServer
+    from accelerate_tpu_torch.utils.dataclasses import ServingConfig, TensorParallelConfig
+
+    n_layers = SERVE_MESH_LAYERS
+    acc = Accelerator(mixed_precision="bf16",
+                      parallelism_config=ParallelismConfig(tp_config=TensorParallelConfig()))
+    if acc.layout != "tp":
+        raise AssertionError(f"phase 14 (a): asked for the TP layout, the Accelerator chose {acc.layout}")
+    plain = serving_model(dev, n_layers)
+    laid = prepare_inference(serving_model(dev, n_layers), mesh=acc.mesh, rules=tensor_parallel_rules())
+    if laid.tp is None or not all(isinstance(p, DTensor) for p in laid.parameters()):
+        raise AssertionError("phase 14 (a): prepare_inference(mesh=, rules=) did not lay the model "
+                             "over the tp mesh")
+    cfg = plain.config
+    rng = np.random.default_rng(14)
+    ids = rng.integers(0, cfg.vocab_size, size=(STATIC_B, STATIC_PROMPT)).astype(np.int32)
+    numbers = {"backends": {}}
+    tp_launches = None
+    for kv in ("dense", "paged"):
+        row = {}
+        for label, model in (("unsharded", plain), ("tp", laid)):
+            static_programs(model).clear()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out, secs, launches, prog = serve_generate_runs(model, ids, kv, n_layers, label)
+            peak = torch.cuda.max_memory_allocated() - base
+            row[label] = dict(tokens=out, seconds=secs, tokens_per_s=STATIC_B * STATIC_NEW / secs,
+                              decode_ms=static_decode_ms(prog, STATIC_NEW), peak_bytes=peak)
+            if label == "tp" and kv == "dense":
+                tp_launches = launches
+            static_programs(model).clear()
+        same = torch.equal(row["tp"]["tokens"], row["unsharded"]["tokens"])
+        u, t = row["unsharded"], row["tp"]
+        log(f"phase 14 (a) generate {kv} (B={STATIC_B}, prompt {STATIC_PROMPT}, {STATIC_NEW} new, "
+            f"greedy, {n_layers} layers): TP layout at tp=1 over NCCL, decode step captured with its "
+            f"collectives, graph runs bitwise equal to the eager run and to the unsharded model's "
+            f"tokens: {same}; tokens/s TP {t['tokens_per_s']:.1f} vs unsharded {u['tokens_per_s']:.1f}, "
+            f"decode replay {t['decode_ms']:.3f} vs {u['decode_ms']:.3f} ms, generate's peak above the "
+            f"weights {t['peak_bytes'] / 1e9:.2f} vs {u['peak_bytes'] / 1e9:.2f} GB [{card}]")
+        if not same:
+            raise AssertionError(f"phase 14 (a) {kv}: the TP layout's tokens differ from the "
+                                 "unsharded model's")
+        numbers["backends"][kv] = {label: {k: v for k, v in r.items() if k != "tokens"}
+                                   for label, r in row.items()}
+        if kv == "dense":
+            plain_dense = row["unsharded"]["tokens"]
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same layout with FSDP2 forced on its one-rank dp_shard dim: the
+    # steps gather each layer's shards (ShardGather) inside the graph
+    sharded = prepare_inference(serving_model(dev, n_layers), mesh=acc.mesh,
+                                rules=tensor_parallel_rules())
+    for layer in sharded.layers:
+        fully_shard(layer, mesh=sub_mesh(acc.mesh, "dp_shard"))
+    fully_shard(sharded, mesh=sub_mesh(acc.mesh, "dp_shard"), reshard_after_forward=False)
+    if serving_view(sharded).fsdp_group is None:
+        raise AssertionError("phase 14 (a): FSDP2 over dp_shard left no shard to gather")
+    out, secs, fsdp_launches, prog = serve_generate_runs(sharded, ids, "dense", n_layers, "tp x fsdp")
+    same = torch.equal(out, plain_dense)
+    decode_ms = static_decode_ms(prog, STATIC_NEW)
+    log(f"phase 14 (a) generate dense under TP x FSDP2 at 1 x 1 (each layer's shards gathered "
+        f"inside the captured step): graph runs bitwise equal to the eager run and to the "
+        f"unsharded model's tokens: {same}; {STATIC_B * STATIC_NEW / secs:.1f} tokens/s, decode "
+        f"replay {decode_ms:.3f} ms [{card}]")
+    if not same:
+        raise AssertionError("phase 14 (a): the TP x FSDP2 layout's tokens differ from the "
+                             "unsharded model's")
+    numbers["tp_fsdp_dense"] = dict(seconds=secs, tokens_per_s=STATIC_B * STATIC_NEW / secs,
+                                    decode_ms=decode_ms)
+    static_programs(sharded).clear()
+    del sharded, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the static server at its defaults over the laid-out model
+    prompts = [rng.integers(0, cfg.vocab_size, size=STATIC_PROMPT).astype(np.int32)
+               for _ in range(STATIC_B)]
+    with InferenceServer(laid, ServingConfig(), device=dev) as srv:
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        futs = [srv.submit(p, max_new_tokens=SERVE_SERVER_NEW) for p in prompts]
+        results = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        server_launches = _build.launch_counts()
+        batches = srv.metrics["batches"]
+    check_launches("phase 14 (d) server", server_launches, {"flash_fwd_mma": n_layers * batches})
+    if any(r.batch_size != STATIC_B for r in results):
+        raise AssertionError("phase 14 (d): a server batch did not fill its 8 rows")
+    total = STATIC_PROMPT + SERVE_SERVER_NEW
+    direct = generate(laid, np.stack(prompts), SERVE_SERVER_NEW,
+                      pad_to=-(-total // 64) * 64).cpu().numpy()
+    same = all(np.array_equal(r.tokens, direct[i]) for i, r in enumerate(results))
+    log(f"phase 14 (d) InferenceServer(ServingConfig()) over the TP-laid model: {len(prompts)} greedy "
+        f"requests of {STATIC_PROMPT} tokens, {SERVE_SERVER_NEW} new, {batches} batch(es), "
+        f"{len(prompts) * SERVE_SERVER_NEW / wall:.1f} generated tokens/s in {wall:.3f}s (captures "
+        f"its program); every reply equal to a direct generate of the rows: {same} [{card}]")
+    if not same:
+        raise AssertionError("phase 14 (d): a reply differs from a direct generate of its batch")
+    numbers["server"] = dict(wall_s=wall, batches=batches, launches=server_launches)
+    static_programs(laid).clear()
+    del laid, acc
+    return tp_launches, fsdp_launches, server_launches, numbers
+
+
+def serve_threads(dims, whole, cfg, ids, fault=False):
+    """Phase 14 (b)/(c): one rank of the ``dims`` mesh a thread of this
+    process over torch's threaded group on the one card, each holding its
+    ``tp`` blocks (and under ``dp_shard`` its FSDP2 shards) of ``whole``
+    (checkpoint key -> tensor); each runs ``generate`` greedy, or with
+    ``fault`` sampled with rank 1's seed another. Returns ({rank: tokens},
+    {rank: what the fault raised}, the launches of the run)."""
+    import threading
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.fsdp import fully_shard
+    from torch.testing._internal.distributed import multi_threaded_pg
+
+    from accelerate_tpu_torch.big_modeling import init_empty_weights
+    from accelerate_tpu_torch.inference import generate, graphs_supported
+    from accelerate_tpu_torch.models.llama import create_llama, serving_view
+    from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.parallel.mesh import sub_mesh
+    from accelerate_tpu_torch.parallel.tp import apply_tensor_parallel
+
+    world = math.prod(dims.values())
+    with init_empty_weights():
+        shells = [create_llama(cfg) for _ in range(world)]
+    store = dist.HashStore()
+    out = {"tokens": {}, "caught": {}, "errors": {}, "graphs": {}}
+    pg = multi_threaded_pg._install_threaded_pg()
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    _build.reset_launch_counts()
+
+    def rank(r):
+        try:
+            dist.init_process_group("threaded", rank=r, world_size=world, store=store)
+            mesh = init_device_mesh("cuda", tuple(dims.values()), mesh_dim_names=tuple(dims))
+            model = shells[r]
+            model.unstack_layers()
+            apply_tensor_parallel(model, sub_mesh(mesh, "tp") if len(dims) > 1 else mesh,
+                                  source=lambda key, layer: whole[key] if layer is None else whole[key][layer])
+            if "dp_shard" in dims:
+                for layer in model.layers:
+                    fully_shard(layer, mesh=sub_mesh(mesh, "dp_shard"))
+                fully_shard(model, mesh=sub_mesh(mesh, "dp_shard"), reshard_after_forward=False)
+            out["graphs"][r] = graphs_supported(serving_view(model))
+            if fault:
+                try:
+                    generate(model, ids, SERVE_THREAD_NEW, **{**STATIC_SAMPLED, "seed": 3 + (r == 1)})
+                    out["caught"][r] = None
+                except ValueError as e:
+                    out["caught"][r] = str(e)
+            else:
+                out["tokens"][r] = generate(model, ids, SERVE_THREAD_NEW)
+            dist.barrier()
+        except BaseException as e:  # handed to the main thread, which raises it
+            out["errors"][r] = e
+            raise
+
+    threads = [threading.Thread(target=rank, args=(r,), daemon=True) for r in range(world)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=SERVE_THREAD_TIMEOUT_S)
+        if any(t.is_alive() for t in threads) and not out["errors"]:
+            raise AssertionError(f"phase 14: a serving thread still runs after {SERVE_THREAD_TIMEOUT_S}s")
+    finally:
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+        multi_threaded_pg._uninstall_threaded_pg()
+        del pg
+    if out["errors"]:
+        raise next(iter(out["errors"].values()))
+    if any(out["graphs"].values()):
+        raise AssertionError("phase 14: the threaded group claims a capturable decode step")
+    return out["tokens"], out["caught"], _build.launch_counts()
+
+
+def serve_thread_layouts(dev, card):
+    """Phase 14 (b) and (c) on a 4-layer model: greedy tokens held against
+    the plain forward by phase 12's rule, equal on every rank; B1 at the
+    ranks' heads counted; the planted seed fault caught on every rank.
+    Returns ({layout: launches}, numbers)."""
+    import dataclasses
+
+    n_layers = SERVE_THREAD_LAYERS
+    model = serving_model(dev, n_layers)
+    cfg = model.config
+    whole = {key: getattr(model, name).detach() for key, name in model.checkpoint_keys()}
+    params = model.params
+    cfg_r = dataclasses.replace(cfg, attention_impl="xla")
+    ids = np.random.default_rng(141).integers(0, cfg.vocab_size,
+                                              size=(STATIC_B, STATIC_PROMPT)).astype(np.int32)
+    ids_t = torch.from_numpy(ids).to(dev)
+    launches, numbers = {}, {}
+    for name, dims in SERVE_THREAD_LAYOUTS.items():
+        t0 = time.perf_counter()
+        tokens, _, counts = serve_threads(dims, whole, cfg, ids)
+        secs = time.perf_counter() - t0
+        world = math.prod(dims.values())
+        heads = (cfg.num_attention_heads // dims["tp"], cfg.num_key_value_heads // dims["tp"])
+        check_launches(f"phase 14 {name} ({world} threads, {heads[0]} q and {heads[1]} kv heads a "
+                       "rank)", counts, {"flash_fwd_mma": n_layers * world})
+        first = tokens[0]
+        equal = all(torch.equal(tokens[r], first) for r in tokens)
+        share, gap, gap_ulps = choice_agreement(
+            first[:, STATIC_PROMPT:].long(), static_reference(cfg_r, params, ids_t, first))
+        _, caught, _ = serve_threads(dims, whole, cfg, ids, fault=True)
+        fault_caught = len(caught) == world and all(c is not None and "seed" in c
+                                                    for c in caught.values())
+        log(f"phase 14 {name}: {world} ranks as threads (threaded group: the decode runs eagerly), "
+            f"{n_layers} layers, B={STATIC_B}, prompt {STATIC_PROMPT}, {SERVE_THREAD_NEW} new, greedy "
+            f"in {secs:.1f}s: tokens equal on every rank {equal}; teacher-forced against the plain "
+            f"forward: argmax share {share:.4f} (min {GREEDY_SHARE_MIN}), largest gap {gap:.4f} = "
+            f"{gap_ulps:.3f} bf16 ulps (limit {Q_NEAR_TIE_ULPS}); planted fault (rank 1 sampled with "
+            f"another seed) caught on every rank: {fault_caught} [{card}]")
+        if not (equal and share >= GREEDY_SHARE_MIN and gap_ulps <= Q_NEAR_TIE_ULPS):
+            raise AssertionError(f"phase 14 {name}: the ranks' tokens disagree with each other or "
+                                 "with the plain forward")
+        if not fault_caught:
+            raise AssertionError(f"phase 14 {name}: a rank sampling with another seed was not "
+                                 f"caught ({caught})")
+        launches[name] = {"flash_fwd_mma": counts["flash_fwd_mma"]}
+        numbers[name] = dict(seconds=secs, share=share, gap=gap, gap_ulps=gap_ulps,
+                             fault_caught=fault_caught)
+    del model, whole, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def phase_serving_mesh(dev, card):
+    """Phase 14: (a) and (d) over a one-rank NCCL group (ended after),
+    then (b) and (c) over torch's threaded group. Returns ({path:
+    launches}, numbers)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    t0 = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="chip_smoke_rdzv_")
+    AcceleratorState._reset_state(reset_partial_state=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        tp_launches, fsdp_launches, server_launches, numbers = serve_one_rank(dev, card)
+    finally:
+        AcceleratorState._reset_state(reset_partial_state=True)
+        GradientState._reset_state()
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    thread_launches, numbers["threads"] = serve_thread_layouts(dev, card)
+    numbers["seconds"] = time.perf_counter() - t0
+    log(f"phase 14 took {numbers['seconds']:.1f}s [{card}]")
+    paths = {"static_tp": tp_launches, "static_tp_fsdp": fsdp_launches,
+             "static_tp_server": server_launches}
+    paths.update({f"static_{name}_threads": counts for name, counts in thread_launches.items()})
+    return paths, numbers
+
+
 # dynamic shared memory of the tensor-core kernels' configurations (the
 # sources' MmaCfg): name fragment of the ptxas entry -> bytes per block, or
 # (bytes, threads) where a block is not 128 threads
@@ -4437,6 +4789,9 @@ def run_phases(args) -> int:
         by_path["training_tp"], by_path["training_tp4_threads"], summary["tensor_parallel"] = (
             phase_tensor_parallel(card, summary["train_main_path"]))
         by_path["training_supervised"], summary["supervised"] = phase_supervised(card)
+        with torch.no_grad():
+            mesh_paths, summary["serving_mesh"] = phase_serving_mesh(dev, card)
+        by_path.update(mesh_paths)
         for counts in by_path.values():
             for name, n in counts.items():
                 launches[name] += n

@@ -381,6 +381,20 @@ def test_refusals_name_their_queue_items():
     with pytest.raises(ValueError, match="requires mode='continuous'"):
         ServingConfig(speculative="ngram")
     ServingConfig(mode="continuous", speculative="ngram")
+    # A8 landed (prepare_inference(mesh=, rules=), generate and the static
+    # server over a mesh): no refusal names it; the continuous engine over
+    # a model laid out over a mesh names A8-bis
+    import re
+
+    from accelerate_tpu_torch.engine import ContinuousBatchingEngine
+
+    assert [str(f) for f in port.rglob("*.py")
+            if re.search(r"ROADMAP\.md A8\b(?!-)", f.read_text())] == []
+    laid = tl.LlamaForCausalLM.from_seed(tl.LlamaConfig.tiny(compute_dtype=torch.float32),
+                                         device="cpu")
+    laid.tp = object()  # what apply_tensor_parallel sets
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md A8-bis\b"):
+        ContinuousBatchingEngine(laid, device="cpu")
     AcceleratorState._reset_state(reset_partial_state=True)
     with pytest.raises(NotImplementedError, match=r"fp8.*ROADMAP.md A4\b"):
         Accelerator(cpu=True, mixed_precision="fp8")

@@ -281,14 +281,37 @@ def test_eos_freezes_the_sequence(models):
 
 
 # --------------------------------------------------------------- refusals
-def test_device_mesh_and_model_family_refusals(models):
+def test_device_mesh_and_model_family_refusals(models, tmp_path):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from accelerate_tpu_torch.big_modeling import dispatch_model
+    from accelerate_tpu_torch.parallel.tp import tensor_parallel_rules
+
     _, tmodel = models
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             prepare_inference(tmodel)  # the card by default
     assert prepare_inference(tmodel, device="cpu") is tmodel
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md A8\b"):
-        prepare_inference(tmodel, mesh=object(), device="cpu")
+    # A8 landed: a mesh lays the model out as dispatch_model does (here a
+    # one-rank gloo group; over several, tests/test_torch_tp_serving.py);
+    # rules without a mesh have nothing to split over
+    with pytest.raises(ValueError, match="pass the mesh"):
+        prepare_inference(tmodel, rules=[], device="cpu")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1, 1), mesh_dim_names=("dp_replicate", "dp_shard", "tp"))
+        laid, plain = (prepare_inference(_pair()[1], mesh=mesh, rules=tensor_parallel_rules()),
+                       dispatch_model(_pair()[1], mesh=mesh, rules=tensor_parallel_rules()))
+        theirs = dict(plain.named_parameters())
+        assert laid.tp is not None and laid.tp.size == 1
+        for name, p in laid.named_parameters():
+            assert p.placements == theirs[name].placements, name
+            assert torch.equal(p.to_local(), theirs[name].to_local()), name
+        ids = _prompts(2, 5)
+        np.testing.assert_array_equal(generate(laid, ids, 4).numpy(), generate(tmodel, ids, 4).numpy())
+    finally:
+        dist.destroy_process_group()
     other = types.SimpleNamespace(config=types.SimpleNamespace(vocab_size=8))
     with pytest.raises(NotImplementedError, match=r"gpt2.py.*ROADMAP.md A11\b"):
         generate(other, np.ones((1, 2), np.int32))
