@@ -123,16 +123,6 @@ class _Graph:
         _build.add_launches(self.launches)
 
 
-def _laid_over_mesh(model) -> bool:
-    """Whether ``model`` was laid out over a mesh: a ``tp`` handle, or a
-    ``DTensor`` parameter (``tp`` blocks, FSDP2 shards)."""
-    from torch.distributed.tensor import DTensor
-
-    params = getattr(model, "parameters", None)
-    return getattr(model, "tp", None) is not None or (
-        callable(params) and any(isinstance(p, DTensor) for p in params()))
-
-
 @dataclass
 class SlotOccupant:
     """Host-side record of one request living in a slot."""
@@ -321,14 +311,15 @@ class ContinuousBatchingEngine:
         device="cuda",
         clock: Callable[[], float] = time.monotonic,
     ):
-        from .models.llama import _check_supported, llama_decode_step, llama_prefill_at, llama_verify_step
+        from .models.llama import (_check_supported, llama_decode_step, llama_prefill_at,
+                                   llama_verify_step, mesh_ranks)
 
         if host_tier_bytes:
             raise NotImplementedError(
                 "the host-RAM KV tier (host_tier_bytes) is queued in ROADMAP.md A3 "
                 "(HostKVTier, restore_plan and the restore program are not ported)"
             )
-        if _laid_over_mesh(model):
+        if mesh_ranks(model) is not None:
             raise NotImplementedError(
                 "the continuous engine over a model laid out over a mesh (tp blocks or FSDP2 "
                 "shards: the decode, verify and chunk kernels B4-B6 at a rank's heads) is not "

@@ -34,9 +34,10 @@ A model laid over a mesh (:func:`prepare_inference` with ``mesh``: ``tp``
 blocks by the rules, FSDP2 shards over ``dp_shard``) is generated by every
 rank of the mesh at once, each on its part: the steps read the leaves in
 place (``models.llama.serving_view``), the ``dp_shard`` shards gathered
-one layer at a time into the program's buffers, the cache holds the
-rank's kv heads and the logits buffer its vocabulary block, gathered whole
-before each sampling. The JAX package runs one controller; here each rank
+one layer at a time into buffers the model's programs share (they run
+under one lock a model, which also keeps the ranks' collectives in one
+order), the cache holds the rank's kv heads and the logits buffer its
+vocabulary block, gathered whole before each sampling. The JAX package runs one controller; here each rank
 runs the same steps, so ``generate`` first checks that every rank was
 called with the same ids and sampling arguments (one all-gather of a
 small vector over ``tp`` and one over ``dp_shard``) and raises on a
@@ -54,6 +55,7 @@ key.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 from collections import OrderedDict
@@ -102,6 +104,27 @@ def _model_generate_cache(model):
                 model._generate_cache_max = _generate_cache_max()
                 cache = model._generate_cache = OrderedDict()
     return cache, lock
+
+
+def _model_mesh_state(model, fsdp_group):
+    """A model laid over a mesh: its one run lock and its one
+    :class:`~accelerate_tpu_torch.ops.collectives.ShardGather` over
+    ``fsdp_group`` (None without). Every program of the model runs under
+    the lock, so the ranks' collectives keep one order and the programs
+    share the gather's buffers (one layer's leaves and the head, not one
+    copy a program key)."""
+    from .ops.collectives import ShardGather
+
+    with _CACHE_ATTACH_LOCK:
+        lock = getattr(model, "_generate_mesh_lock", None)
+        if lock is None:
+            lock = model._generate_mesh_lock = threading.Lock()
+        gather = getattr(model, "_generate_gather", None)
+        if fsdp_group is None:
+            gather = None
+        elif gather is None or gather.group is not fsdp_group:
+            gather = model._generate_gather = ShardGather(fsdp_group)
+    return lock, gather
 
 
 def sample_logits(logits, noise, temp, p_threshold, *, temp_on: bool,
@@ -230,23 +253,22 @@ class _Program:
     """One structural key's decode step: the buffers it reads and writes,
     which live as long as the program, and its captured graph (CUDA).
     Under ``tp`` the cache holds this rank's kv heads and ``logits`` its
-    vocabulary block; under ``fsdp_group`` a :class:`~accelerate_tpu_torch
-    .ops.collectives.ShardGather` holds one layer's gathered weights."""
+    vocabulary block; under FSDP2 ``fsdp`` is the model's
+    :class:`~accelerate_tpu_torch.ops.collectives.ShardGather`, shared by
+    its programs."""
 
     def __init__(self, config, b: int, prompt_len: int, total_len: int, max_new_tokens: int, *,
                  temp_on: bool, top_k_width: Optional[int], top_p_on: bool, eos_on: bool,
-                 kv_backend: str, block_size: int, device: torch.device, tp=None,
-                 fsdp_group=None):
+                 kv_backend: str, block_size: int, device: torch.device, tp=None, fsdp=None):
         from .kvcache import PagedKVLayout, pool_from_dense
         from .models.llama import init_kv_cache
-        from .ops.collectives import ShardGather
 
         self.lock = threading.Lock()
         self.prompt_len, self.max_new_tokens = prompt_len, max_new_tokens
         self.temp_on, self.top_k_width, self.top_p_on, self.eos_on = (
             temp_on, top_k_width, top_p_on, eos_on)
         self.tp = tp
-        self.fsdp = ShardGather(fsdp_group) if fsdp_group is not None else None
+        self.fsdp = fsdp
         tp_size = tp.size if tp is not None else 1
         self.tp_group = tp.group if tp is not None else None
         self.cache = init_kv_cache(config, b, total_len, device=device, tp_size=tp_size)
@@ -419,52 +441,59 @@ def generate(
     top_p_on = temp_on and top_p is not None and top_p < 1.0
     eos_on = eos_token_id is not None
     groups = [tp.group if tp is not None else None, view.fsdp_group]
-    if any(_group_size(g) > 1 for g in groups):  # the same call on every rank
-        _check_same_call(ids, dict(
-            batch=b, prompt_len=prompt_len, total_len=total_len, max_new_tokens=max_new_tokens,
-            temperature=float(temperature), seed=seed, top_k=top_k,
-            top_p=None if top_p is None else float(top_p), eos_token_id=eos_token_id,
-            pad_token_id=pad_token_id, kv_backend=KV_BACKENDS.index(kv_backend),
-            kv_block_size=kv_block_size), groups)
-    cache_key = (
-        type(config).__name__, b, prompt_len, total_len, max_new_tokens,
-        temp_on, top_k_width, top_p_on, eos_on,
-        kv_backend, kv_block_size if paged else None,
-    )
-    layout = ("tp", _group_size(groups[0]), "dp_shard", _group_size(groups[1]))
-    if layout != ("tp", 1, "dp_shard", 1):  # one device's keys are the JAX package's
-        cache_key += (layout,)
-    programs, cache_lock = _model_generate_cache(model)
-    with cache_lock:
-        prog = programs.get(cache_key)
-        if prog is not None:
-            programs.move_to_end(cache_key)
-    if prog is None:
-        prog = _Program(config, b, prompt_len, total_len, max_new_tokens, temp_on=temp_on,
-                        top_k_width=top_k_width, top_p_on=top_p_on, eos_on=eos_on,
-                        kv_backend=kv_backend, block_size=kv_block_size, device=device, tp=tp,
-                        fsdp_group=view.fsdp_group)
+    laid = tp is not None or view.fsdp_group is not None
+    mesh_lock, fsdp = _model_mesh_state(model, view.fsdp_group) if laid else (None, None)
+    # a laid model's calls run one at a time from the same-call check on:
+    # every collective in one order on every rank
+    with mesh_lock if laid else contextlib.nullcontext():
+        if any(_group_size(g) > 1 for g in groups):  # the same call on every rank
+            _check_same_call(ids, dict(
+                batch=b, prompt_len=prompt_len, total_len=total_len, max_new_tokens=max_new_tokens,
+                temperature=float(temperature), seed=seed, top_k=top_k,
+                top_p=None if top_p is None else float(top_p), eos_token_id=eos_token_id,
+                pad_token_id=pad_token_id, kv_backend=KV_BACKENDS.index(kv_backend),
+                kv_block_size=kv_block_size), groups)
+        cache_key = (
+            type(config).__name__, b, prompt_len, total_len, max_new_tokens,
+            temp_on, top_k_width, top_p_on, eos_on,
+            kv_backend, kv_block_size if paged else None,
+        )
+        layout = ("tp", _group_size(groups[0]), "dp_shard", _group_size(groups[1]))
+        if layout != ("tp", 1, "dp_shard", 1):  # one device's keys are the JAX package's
+            cache_key += (layout,)
+        programs, cache_lock = _model_generate_cache(model)
         with cache_lock:
-            programs[cache_key] = prog
-            cache_max = getattr(model, "_generate_cache_max", _GENERATE_CACHE_MAX)
-            while len(programs) > cache_max:
-                programs.popitem(last=False)
-    use_graphs = device.type == "cuda" and not _engine._graphs_disabled and graphs_supported(view)
-    with torch.no_grad(), prog.lock:
-        logits, cache = llama_prefill(config, params, ids.long(), total_len, tp=tp, fsdp=prog.fsdp,
-                                      vocab_shard=True)
-        if paged:
-            cache, _ = pool_from_dense(cache, kv_block_size, quantized=kv_backend == "paged_int8",
-                                       group=prog.tp_group)
-        prog.load(logits, cache, seed=seed, temp=temperature if temp_on else 1.0,
-                  top_p=top_p if top_p_on else 1.0, eos=eos_token_id if eos_on else -1,
-                  pad=pad_token_id)
-        del logits, cache
-        prog.run(config, params, use_graphs)
-        out = torch.cat([ids, prog.out], dim=1)
-        # a device scalar, read only by last_generate_stats
-        model._last_generate_wasted = prog.wasted.clone()
-    return out
+            prog = programs.get(cache_key)
+            if prog is not None:
+                programs.move_to_end(cache_key)
+        if prog is None:
+            prog = _Program(config, b, prompt_len, total_len, max_new_tokens, temp_on=temp_on,
+                            top_k_width=top_k_width, top_p_on=top_p_on, eos_on=eos_on,
+                            kv_backend=kv_backend, block_size=kv_block_size, device=device, tp=tp,
+                            fsdp=fsdp)
+            with cache_lock:
+                programs[cache_key] = prog
+                cache_max = getattr(model, "_generate_cache_max", _GENERATE_CACHE_MAX)
+                while len(programs) > cache_max:
+                    programs.popitem(last=False)
+        use_graphs = (device.type == "cuda" and not _engine._graphs_disabled
+                      and graphs_supported(view))
+        with torch.no_grad(), contextlib.nullcontext() if laid else prog.lock:
+            logits, cache = llama_prefill(config, params, ids.long(), total_len, tp=tp,
+                                          fsdp=prog.fsdp, vocab_shard=True)
+            if paged:
+                cache, _ = pool_from_dense(cache, kv_block_size,
+                                           quantized=kv_backend == "paged_int8",
+                                           group=prog.tp_group)
+            prog.load(logits, cache, seed=seed, temp=temperature if temp_on else 1.0,
+                      top_p=top_p if top_p_on else 1.0, eos=eos_token_id if eos_on else -1,
+                      pad=pad_token_id)
+            del logits, cache
+            prog.run(config, params, use_graphs)
+            out = torch.cat([ids, prog.out], dim=1)
+            # a device scalar, read only by last_generate_stats
+            model._last_generate_wasted = prog.wasted.clone()
+        return out
 
 
 def generate_cache_stats(model) -> dict:
@@ -493,22 +522,20 @@ def last_generate_stats(model) -> dict:
     return {"wasted_decode_steps": int(wasted.item())}
 
 
-def prepare_inference(model, mesh=None, rules=None, *, fsdp_axes=("dp_shard",), device="cuda"):
+def prepare_inference(model, mesh=None, rules=None, *, device="cuda"):
     """The model laid out for inference as the JAX package's
     ``dispatch_model`` lays it. Without ``mesh``: placed on ``device``
     (default ``"cuda"``; raises without a GPU). With ``mesh`` (every rank
     of it calls this, each holding the same values): on this rank's
     device, a Llama split over the mesh's ``tp`` dim by ``rules``
     (``parallel.tp.tensor_parallel_rules()``) and sharded per layer by
-    FSDP2 over the ``fsdp_axes`` (``big_modeling.dispatch_model``); with no
+    FSDP2 over ``dp_shard`` (``big_modeling.dispatch_model``); with no
     ``rules`` a mesh of ``dp_shard`` alone shards the parameters and
     nothing else. :func:`generate` and the static ``InferenceServer`` then
     run on every rank of the mesh."""
     from .big_modeling import dispatch_model
 
-    if mesh is None:
-        if rules is not None:
-            raise ValueError("prepare_inference: rules split a model over a mesh's tp dim; pass "
-                             "the mesh too")
-        return dispatch_model(model, device=device)
-    return dispatch_model(model, mesh=mesh, rules=rules, fsdp_axes=fsdp_axes)
+    if mesh is None and rules is not None:
+        raise ValueError("prepare_inference: rules split a model over a mesh's tp dim; pass the "
+                         "mesh too")
+    return dispatch_model(model, mesh=mesh, rules=rules, device=device)

@@ -54,9 +54,10 @@ model laid over a mesh (``inference.prepare_inference(mesh=, rules=)``)
 through :func:`serving_view`, which reads its leaves in place: each
 rank's ``tp`` blocks, and under FSDP2 its ``dp_shard`` shards, which the
 step gathers whole one layer at a time (``fsdp``, an
-``ops.collectives.ShardGather``). A decode step has one position, which
-``tp`` never divides: it keeps the residual whole (one all-reduce after
-each row-parallel projection and after the embedding). The head computes
+``ops.collectives.ShardGather``); an untied embedding is looked up in its
+shards and summed over ``dp_shard`` instead. A decode step has one
+position, which ``tp`` never divides: it keeps the residual whole (one
+all-reduce after each row-parallel projection and after the embedding). The head computes
 the rank's vocabulary block and gathers the f32 logits whole, or with
 ``vocab_shard`` returns the block. The KV cache holds the rank's kv heads
 (``init_kv_cache(tp_size=)``).
@@ -77,6 +78,7 @@ from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 from torch import nn
 
@@ -84,6 +86,7 @@ from .._device import resolve_device
 from ..ops import quant_matmul as _qmm
 from ..ops.attention import NEG_INF, _write_window, dispatch_attention, tanh_softcap
 from ..ops.collectives import (
+    all_reduce_,
     copy_to_group,
     gather_last_dim,
     grad_share,
@@ -1058,14 +1061,14 @@ class _Shard(NamedTuple):
     rows: int
 
 
-def _gathered(tree: dict, fsdp, prefix: str = "") -> dict:
+def _gathered(tree: dict, fsdp, prefix: str = "", keep=()) -> dict:
     """``tree`` with each :class:`_Shard` leaf gathered whole by ``fsdp``
     (an ``ops.collectives.ShardGather``) into the buffer of its path; the
-    root's ``layers`` are left as they are."""
+    root's ``layers`` and its keys in ``keep`` are left as they are."""
     out = {}
     for k, v in tree.items():
         path = f"{prefix}/{k}" if prefix else k
-        if k == "layers" and not prefix:
+        if not prefix and (k == "layers" or k in keep):
             out[k] = v
         elif isinstance(v, dict):
             out[k] = _gathered(v, fsdp, path)
@@ -1077,6 +1080,12 @@ def _gathered(tree: dict, fsdp, prefix: str = "") -> dict:
         else:
             out[k] = v
     return out
+
+
+def _kept_root(config) -> tuple:
+    """The root leaves a serving step reads in their shards: the embedding,
+    unless the head reads it whole too (tied)."""
+    return () if config.tie_word_embeddings else ("embed_tokens",)
 
 
 class ServingView(NamedTuple):
@@ -1147,6 +1156,19 @@ def serving_view(model: "LlamaForCausalLM") -> ServingView:
     return ServingView(tree, model.tp, groups[0] if groups else None)
 
 
+def mesh_ranks(model) -> Optional[list]:
+    """The global ranks of the mesh ``model`` is laid out over (its first
+    ``DTensor`` parameter's: ``tp`` blocks or FSDP2 shards), or None where
+    no parameter is laid over a mesh."""
+    from torch.distributed.tensor import DTensor
+
+    params = getattr(model, "parameters", None)
+    for p in (params() if callable(params) else ()):
+        if isinstance(p, DTensor):
+            return sorted(int(r) for r in p.device_mesh.mesh.flatten().tolist())
+    return None
+
+
 def _map_tree(fn, tree: dict) -> dict:
     return {k: _map_tree(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
@@ -1172,20 +1194,34 @@ def _unbind_leaf(leaf):
     return leaf.unbind(0)
 
 
-def _embed(config, params, ids, tp=None):
+def _embed(config, params, ids, tp=None, fsdp=None):
     """The ids' embedding rows in the compute dtype (Gemma: times
     sqrt(hidden)). Under ``tp`` the table is this rank's block of the
     vocabulary: ids outside it give zeros, and the sum over ``tp`` (the
-    first reduce-scatter of the split residual) holds each row once."""
+    first reduce-scatter of the split residual) holds each row once. A
+    table FSDP2 shards over ``dp_shard`` (a :class:`_Shard`, read with
+    ``fsdp``'s group) is looked up in place the same way, its zeros summed
+    over ``dp_shard``: no gather of the table for a few rows."""
     table = params["embed_tokens"]["embedding"]
-    if tp is None:
+    shard = isinstance(table, _Shard)
+    if tp is None and not shard:
         x = table[ids].to(config.compute_dtype)
     else:
+        start = 0 if tp is None else tp.rank * (table.rows if shard else table.shape[0])
+        if shard:  # FSDP2's dim-0 block: ceil(rows / n) rows a rank
+            if fsdp is None:
+                raise ValueError("embed_tokens is sharded over dp_shard: pass the step an fsdp "
+                                 "gather (ops.collectives.ShardGather over that group)")
+            start += dist.get_rank(fsdp.group) * -(-table.rows // fsdp.size)
+            table = table.local
         rows = table.shape[0]
-        local = ids - tp.rank * rows
+        local = ids - start
         inside = (local >= 0) & (local < rows)
         x = torch.where(inside[..., None], table[local.clamp(0, rows - 1)], 0).to(config.compute_dtype)
-        x = _tp_out(x, tp)
+        if shard:
+            all_reduce_(x, fsdp.group)
+        if tp is not None:
+            x = _tp_out(x, tp)
     if config.scale_embeddings:
         x = x * torch.tensor(config.hidden_size ** 0.5, dtype=config.compute_dtype)
     return x
@@ -1460,8 +1496,8 @@ def _prefill_stack(config: LlamaConfig, params, input_ids, tp=None, fsdp=None):
     _check_supported(config, params)
     if tp is not None:
         tp = _TPRun(tp.group, tp.size, tp.rank, input_ids.shape[1] % tp.size == 0)
-    root = _gathered(params, fsdp)
-    x = _embed(config, root, input_ids, tp)
+    root = _gathered(params, fsdp, keep=_kept_root(config))
+    x = _embed(config, root, input_ids, tp, fsdp)
     ks, vs = [], []
     for i in range(config.num_hidden_layers):
         lp = _gathered(_layer_params(params["layers"], i), fsdp, "layers")
@@ -1668,8 +1704,8 @@ def llama_decode_step(config: LlamaConfig, params, cache, token, pos, *, kv_layo
     if tp is not None:
         tp = _TPRun(tp.group, tp.size, tp.rank, False)
     pos = torch.as_tensor(pos, device=token.device)
-    root = _gathered(params, fsdp)
-    x = _embed(config, root, token, tp)
+    root = _gathered(params, fsdp, keep=_kept_root(config))
+    x = _embed(config, root, token, tp, fsdp)
     # position-only work, done once for all layers
     rope = _rope_at_tables(pos, config.head_dim, config.rope_theta,
                            config._rope_scaling_key(), x.device)

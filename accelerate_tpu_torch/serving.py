@@ -27,10 +27,13 @@ serves it: every rank of the mesh builds the server, and the mesh's first
 rank admits, batches and retries requests (its results are the unsharded
 server's), while every other rank replays its batches, in order, through
 the same ``generate``: each batch's rows and arguments reach them over a
-gloo group of the mesh's ranks before the batch runs. ``submit`` on
-another rank raises; ``close`` or ``drain`` there waits until the first
-rank's ends them. The continuous engine over a mesh is not ported
-(ROADMAP.md A8-bis).
+gloo group of the mesh's ranks before the batch runs, and a beat each
+second it waits for requests. ``submit`` on another rank raises; ``close``
+or ``drain`` there waits until the first rank's ends them, or until the
+first rank has sent nothing for ``drain_timeout_s`` beyond its longest
+quiet: it is then taken as lost and the replaying server fails
+(:class:`ReplicaDeadError`). The continuous engine over a mesh is not
+ported (ROADMAP.md A8-bis).
 
 Robustness that is ported: a bounded admission queue
 (:class:`ServerOverloaded`), deadlines at admission, mid-decode and at
@@ -175,28 +178,29 @@ class ServingMetrics:
         return out
 
 
-# a replaying rank waits this long for the first rank's next batch
-_CONTROL_TIMEOUT_S = 7 * 24 * 3600.0
+# the longest the mesh's first rank stays quiet while it waits for
+# requests: it then sends a beat to the replaying ranks
+_BEAT_S = 1.0
 
 
-def _mesh_ranks(model) -> Optional[list]:
-    """The global ranks of the mesh a model is laid out over (its first
-    ``DTensor`` parameter's), or None."""
-    from torch.distributed.tensor import DTensor
-
-    params = getattr(model, "parameters", None)
-    for p in (params() if callable(params) else ()):
-        if isinstance(p, DTensor):
-            return sorted(int(r) for r in p.device_mesh.mesh.flatten().tolist())
-    return None
+def _leader_lost_after(cfg: ServingConfig) -> float:
+    """How long a replaying rank waits for the first rank's next message
+    before it takes the first rank as lost: ``drain_timeout_s`` beyond the
+    longest quiet the first rank keeps while alive (a beat interval, a
+    batch window, a retry's backoff)."""
+    return (cfg.drain_timeout_s + 2 * _BEAT_S + cfg.batch_window_s
+            + cfg.retry_backoff_max_s * (1 + cfg.retry_jitter))
 
 
 class _MeshControl:
     """The static server's one controller over a mesh: the first rank
-    broadcasts each batch (rows and ``generate`` arguments) and the stop
-    over a gloo group of the mesh's ranks; the others receive them."""
+    broadcasts each batch (rows and ``generate`` arguments), a beat when it
+    has been quiet for ``_BEAT_S``, and the stop, over a gloo group of the
+    mesh's ranks whose timeout is ``lost_after_s``; the others receive
+    them, and take the first rank as lost when nothing came in that
+    time."""
 
-    def __init__(self, ranks: list):
+    def __init__(self, ranks: list, lost_after_s: float):
         import datetime
 
         import torch.distributed as dist
@@ -207,8 +211,10 @@ class _MeshControl:
                 "processes: every process of the group must be a rank of the model's mesh")
         self.leader = ranks[0]
         self.rank = dist.get_rank()
+        self.lost_after_s = lost_after_s
         self.group = dist.new_group(ranks, backend="gloo",
-                                    timeout=datetime.timedelta(seconds=_CONTROL_TIMEOUT_S))
+                                    timeout=datetime.timedelta(seconds=lost_after_s))
+        self.last_sent = time.monotonic()
 
     @property
     def is_leader(self) -> bool:
@@ -218,12 +224,24 @@ class _MeshControl:
         import torch.distributed as dist
 
         dist.broadcast_object_list([message], src=self.leader, group=self.group)
+        self.last_sent = time.monotonic()
+
+    def beat_due(self) -> bool:
+        return time.monotonic() - self.last_sent >= _BEAT_S
 
     def receive(self):
+        """The first rank's next message; raises :class:`ReplicaDeadError`
+        when none came within ``lost_after_s``."""
         import torch.distributed as dist
 
         box = [None]
-        dist.broadcast_object_list(box, src=self.leader, group=self.group)
+        try:
+            dist.broadcast_object_list(box, src=self.leader, group=self.group)
+        except Exception as e:  # noqa: BLE001 - gloo's timeout, or a closed peer
+            raise ReplicaDeadError(
+                f"rank {self.rank}: the mesh's first rank ({self.leader}) sent no batch and no "
+                f"beat for {self.lost_after_s:.1f}s ({type(e).__name__}); taken as lost, this "
+                "rank stops replaying") from e
         return box[0]
 
 
@@ -256,9 +274,11 @@ class InferenceServer:
         self._control = None
         if self.config.mode == "static":
             engine = None
-            ranks = _mesh_ranks(model)
+            from .models.llama import mesh_ranks
+
+            ranks = mesh_ranks(model)
             if ranks is not None and len(ranks) > 1:
-                self._control = _MeshControl(ranks)
+                self._control = _MeshControl(ranks, _leader_lost_after(self.config))
             dev = resolve_device(device)
             if generate_fn is None and ranks is None:  # over a mesh, each rank on its own card
                 param = next(iter(model.parameters()), None)
@@ -385,8 +405,10 @@ class InferenceServer:
         """Stop admission, let in-flight slots finish, reject everything
         still queued. True when the worker exited within ``timeout``
         (default ``config.drain_timeout_s``). On a rank that replays the
-        first rank's batches, wait until the first rank's drain ends them
-        (``timeout`` None: however long that takes)."""
+        first rank's batches, wait until the first rank's drain ends them,
+        or until the first rank is taken as lost (``timeout`` None: however
+        long that takes, at most a quiet of ``drain_timeout_s`` beyond the
+        first rank's longest)."""
         if self._control is not None and not self._control.is_leader:
             return self._drained.wait(timeout)
         with self._wake:
@@ -448,12 +470,19 @@ class InferenceServer:
         """Admission-time batching of whole ``generate()`` calls. Draining
         returns once the in-flight batch has replied; the finally rejects
         what is still queued."""
+        control = self._control
         while True:
             with self._wake:
                 while not self._queue and not self._draining:
+                    if control is not None and control.beat_due():
+                        break
                     self._wake.wait(timeout=0.05)
                 if self._draining:
                     return
+                idle = not self._queue
+            if idle:  # over a mesh: tell the replaying ranks this rank is alive
+                control.send(("beat",))
+                continue
             batch = self._collect_batch()
             if batch:
                 self._execute(batch)
@@ -461,11 +490,17 @@ class InferenceServer:
     def _loop_replay(self) -> None:
         """A rank other than the mesh's first: run each batch the first rank
         sends, in order, until its stop. A failed batch fails there too (the
-        same call over the same collectives), which retries or gives up."""
+        same call over the same collectives), which retries or gives up; a
+        failure on this rank alone leaves the first rank in a collective
+        until the process group's own timeout, and this rank, hearing
+        nothing, takes it as lost. Raises :class:`ReplicaDeadError` when the
+        first rank is lost (the worker's end fails this server)."""
         while True:
             message = self._control.receive()
             if message[0] == "stop":
                 return
+            if message[0] == "beat":
+                continue
             _, rows, kwargs = message
             try:
                 self._generate_fn(self.model, rows, **kwargs)

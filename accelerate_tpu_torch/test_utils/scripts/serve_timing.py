@@ -13,7 +13,10 @@ The first ``generate`` captures the step; the second is timed (host clock
 around a call that ends in a read of the tokens); then the decode step's
 graph is replayed 128 times from the prompt's end (device time by CUDA
 events) and 16 more times under ``torch.profiler``, whose NCCL kernels give
-rank 0's NCCL device ms a step. Rank 0 also draws the unsharded model and
+rank 0's NCCL device ms a step. A last ``generate`` at half the prompt
+makes a second program key: the memory it adds on each rank (its cache
+and buffers; the FSDP2 gather buffers are the model's, made once) is
+reported beside those buffers' bytes. Rank 0 also draws the unsharded model and
 holds the mesh's greedy tokens against it by chip_smoke.py's phase 12
 rule: teacher-forced through the plain forward (attention ``"xla"``), the
 share of positions whose argmax is the token chosen at least 0.9 and
@@ -21,7 +24,8 @@ every other a near-tie of at most 4 bf16 ulps of the largest |logit|; it
 also says whether they equal its own ``generate``'s bit for bit. The main
 process prints one JSON line (also written under ``chiprun_out/``) with
 the card's name and power limit, tokens/s, the decode replay ms, the NCCL
-ms a step, every rank's peak memory and the check. ``--preset tiny --cpu``
+ms a step, every rank's peak memory, the memory a program key adds and the
+gather buffers', and the check. ``--preset tiny --cpu``
 rehearses it on gloo ranks (eagerly: no graph, no device time).
 """
 
@@ -118,6 +122,15 @@ def main(argv=None) -> dict:
                           if "nccl" in e.key.lower())
             nccl_ms = nccl_us / 1e3 / PROFILE_STEPS
         peaks = acc.state.gather_object(torch.cuda.max_memory_allocated() if cuda else 0)
+        # a second program key: what it keeps resident on each rank
+        held = torch.cuda.memory_allocated() if cuda else 0
+        generate(model, ids[:, :args.prompt // 2], args.new)
+        sync()
+        key_bytes = acc.state.gather_object((torch.cuda.memory_allocated() if cuda else 0) - held)
+        gather = getattr(model, "_generate_gather", None)
+        gather_bytes = acc.state.gather_object(0 if gather is None else sum(
+            t.numel() * t.element_size() for pair in gather._buffers.values() for t in pair
+            if t is not None))
         nccl = acc.state.gather_object(nccl_ms)
         check = None
         if acc.is_main_process:
@@ -136,7 +149,9 @@ def main(argv=None) -> dict:
         world=acc.num_processes, layers=args.layers, batch=BATCH, prompt=args.prompt,
         new=args.new, graphs=prog.graph is not None, generate_s=wall,
         tokens_per_s=BATCH * args.new / wall, decode_replay_ms=replay_ms,
-        nccl_ms_per_step_by_rank=nccl, peak_gb_per_rank=[x / 1e9 for x in peaks], check=check)
+        nccl_ms_per_step_by_rank=nccl, peak_gb_per_rank=[x / 1e9 for x in peaks],
+        second_key_gb_per_rank=[x / 1e9 for x in key_bytes],
+        gather_buffers_gb_per_rank=[x / 1e9 for x in gather_bytes], check=check)
     if acc.is_main_process:
         os.makedirs(OUT, exist_ok=True)
         line = json.dumps(result)

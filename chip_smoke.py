@@ -4235,8 +4235,9 @@ def phase_supervised(card, cpu=False, preset="llama3_8b"):
 # NCCL group, each generate against the unsharded model's; (b) four tp
 # ranks and (c) dp_shard 2 x tp 2 as threads on the one card (torch's
 # threaded group, which cannot be captured: the decode runs eagerly);
-# (d) the static server over (a)'s model. Phase 14's depth is cut first
-# when the script's time limit presses.
+# (d) the static server over (a)'s model, then (a)'s dense run again on
+# that model with FSDP2 forced over its one-rank dp_shard dim. Phase 14's
+# depth is cut first when the script's time limit presses.
 SERVE_MESH_LAYERS = 8
 SERVE_THREAD_LAYERS = 4
 SERVE_THREAD_NEW = 64
@@ -4342,32 +4343,6 @@ def serve_one_rank(dev, card):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the same layout with FSDP2 forced on its one-rank dp_shard dim: the
-    # steps gather each layer's shards (ShardGather) inside the graph
-    sharded = prepare_inference(serving_model(dev, n_layers), mesh=acc.mesh,
-                                rules=tensor_parallel_rules())
-    for layer in sharded.layers:
-        fully_shard(layer, mesh=sub_mesh(acc.mesh, "dp_shard"))
-    fully_shard(sharded, mesh=sub_mesh(acc.mesh, "dp_shard"), reshard_after_forward=False)
-    if serving_view(sharded).fsdp_group is None:
-        raise AssertionError("phase 14 (a): FSDP2 over dp_shard left no shard to gather")
-    out, secs, fsdp_launches, prog = serve_generate_runs(sharded, ids, "dense", n_layers, "tp x fsdp")
-    same = torch.equal(out, plain_dense)
-    decode_ms = static_decode_ms(prog, STATIC_NEW)
-    log(f"phase 14 (a) generate dense under TP x FSDP2 at 1 x 1 (each layer's shards gathered "
-        f"inside the captured step): graph runs bitwise equal to the eager run and to the "
-        f"unsharded model's tokens: {same}; {STATIC_B * STATIC_NEW / secs:.1f} tokens/s, decode "
-        f"replay {decode_ms:.3f} ms [{card}]")
-    if not same:
-        raise AssertionError("phase 14 (a): the TP x FSDP2 layout's tokens differ from the "
-                             "unsharded model's")
-    numbers["tp_fsdp_dense"] = dict(seconds=secs, tokens_per_s=STATIC_B * STATIC_NEW / secs,
-                                    decode_ms=decode_ms)
-    static_programs(sharded).clear()
-    del sharded, prog
-    gc.collect()
-    torch.cuda.empty_cache()
-
     # (d) the static server at its defaults over the laid-out model
     prompts = [rng.integers(0, cfg.vocab_size, size=STATIC_PROMPT).astype(np.int32)
                for _ in range(STATIC_B)]
@@ -4395,7 +4370,29 @@ def serve_one_rank(dev, card):
         raise AssertionError("phase 14 (d): a reply differs from a direct generate of its batch")
     numbers["server"] = dict(wall_s=wall, batches=batches, launches=server_launches)
     static_programs(laid).clear()
-    del laid, acc
+
+    # (a) again on the same model with FSDP2 forced on its one-rank dp_shard
+    # dim: the steps gather each layer's shards (the model's ShardGather)
+    # inside the graph and look the embedding up in its shard
+    for layer in laid.layers:
+        fully_shard(layer, mesh=sub_mesh(acc.mesh, "dp_shard"))
+    fully_shard(laid, mesh=sub_mesh(acc.mesh, "dp_shard"), reshard_after_forward=False)
+    if serving_view(laid).fsdp_group is None:
+        raise AssertionError("phase 14 (a): FSDP2 over dp_shard left no shard to gather")
+    out, secs, fsdp_launches, prog = serve_generate_runs(laid, ids, "dense", n_layers, "tp x fsdp")
+    same = torch.equal(out, plain_dense)
+    decode_ms = static_decode_ms(prog, STATIC_NEW)
+    log(f"phase 14 (a) generate dense under TP x FSDP2 at 1 x 1 (each layer's shards gathered "
+        f"inside the captured step): graph runs bitwise equal to the eager run and to the "
+        f"unsharded model's tokens: {same}; {STATIC_B * STATIC_NEW / secs:.1f} tokens/s, decode "
+        f"replay {decode_ms:.3f} ms [{card}]")
+    if not same:
+        raise AssertionError("phase 14 (a): the TP x FSDP2 layout's tokens differ from the "
+                             "unsharded model's")
+    numbers["tp_fsdp_dense"] = dict(seconds=secs, tokens_per_s=STATIC_B * STATIC_NEW / secs,
+                                    decode_ms=decode_ms)
+    static_programs(laid).clear()
+    del laid, acc, prog
     return tp_launches, fsdp_launches, server_launches, numbers
 
 

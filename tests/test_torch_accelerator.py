@@ -294,7 +294,7 @@ def test_what_waits_for_the_distributed_slice_raises():
         torch.optim.SGD(model.parameters(), lr=LR), 1)), AcceleratedScheduler)
 
 
-def test_refusals_name_their_queue_items():
+def test_refusals_name_their_queue_items(tmp_path):
     acc = Accelerator(cpu=True)
     model = Regression()
     _, opt = acc.prepare(model, torch.optim.SGD(model.parameters(), lr=LR))
@@ -390,11 +390,22 @@ def test_refusals_name_their_queue_items():
 
     assert [str(f) for f in port.rglob("*.py")
             if re.search(r"ROADMAP\.md A8\b(?!-)", f.read_text())] == []
-    laid = tl.LlamaForCausalLM.from_seed(tl.LlamaConfig.tiny(compute_dtype=torch.float32),
-                                         device="cpu")
-    laid.tp = object()  # what apply_tensor_parallel sets
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md A8-bis\b"):
-        ContinuousBatchingEngine(laid, device="cpu")
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from accelerate_tpu_torch.big_modeling import dispatch_model
+    from accelerate_tpu_torch.parallel.tp import tensor_parallel_rules
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0, world_size=1)
+    try:  # a one-rank mesh: tp blocks of one, as dispatch_model lays them
+        mesh = init_device_mesh("cpu", (1, 1, 1), mesh_dim_names=("dp_replicate", "dp_shard", "tp"))
+        laid = dispatch_model(tl.LlamaForCausalLM.from_seed(
+            tl.LlamaConfig.tiny(compute_dtype=torch.float32), device="cpu"), mesh=mesh,
+            rules=tensor_parallel_rules())
+        with pytest.raises(NotImplementedError, match=r"ROADMAP.md A8-bis\b"):
+            ContinuousBatchingEngine(laid, device="cpu")
+    finally:
+        dist.destroy_process_group()
     AcceleratorState._reset_state(reset_partial_state=True)
     with pytest.raises(NotImplementedError, match=r"fp8.*ROADMAP.md A4\b"):
         Accelerator(cpu=True, mixed_precision="fp8")

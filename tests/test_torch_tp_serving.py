@@ -231,9 +231,13 @@ def _layout_facts(model, mesh, tp_rules, params, pcfg):
     same = all(isinstance(p, DTensor) and p.placements == theirs[n].placements
                and torch.equal(p.to_local(), theirs[n].to_local())
                for n, p in model.named_parameters())
+    gather = getattr(model, "_generate_gather", None)
     return dict(caches=caches, logits=logits, held=held, share=share, whole=whole,
                 same_as_dispatch=same,
-                all_dtensor=all(isinstance(p, DTensor) for p in model.parameters()))
+                all_dtensor=all(isinstance(p, DTensor) for p in model.parameters()),
+                programs=len(progs), gather=gather is not None,
+                gather_shared=all(p.fsdp is gather for p in progs),
+                gathered=sorted(gather._buffers) if gather is not None else [])
 
 
 def _programs(model, ids):
@@ -327,6 +331,46 @@ def _layout_body(params, pcfg, name, eos, greedy, knobs_greedy, ckpt):
         out["server"] = _serve(model, rank)
         out["load"] = _load_and_generate(ckpt, mesh, tp_rules)
         out["engine"] = _engine_refusal(model)
+        out["leader"] = _leader_beats_then_goes_quiet(model, rank)
+    return out
+
+
+def _leader_beats_then_goes_quiet(model, rank):
+    """Two static servers with the bound ``_leader_lost_after`` gives a
+    short config: the first stays idle past that bound (rank 0's beats keep
+    rank 1 replaying) and then serves a request; under the second rank 0
+    sends nothing at all, as a killed process would. Rank 1 returns how
+    each server ended and how long its ``close`` waited."""
+    import contextlib
+    import time
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch.serving import InferenceServer, _leader_lost_after, _MeshControl
+    from accelerate_tpu_torch.utils.dataclasses import ServingConfig
+
+    cfg = ServingConfig(drain_timeout_s=1.0, retry_backoff_max_s=0.1)
+    bound = _leader_lost_after(cfg)
+    out = {"bound": bound}
+    srv = InferenceServer(model, cfg, device="cpu")
+    time.sleep(bound + 1.0)
+    if rank == 0:
+        srv.submit(_ids()[0], max_new_tokens=2).result(60)
+    else:
+        out["alive"] = dict(closed=srv.close(), replayed=srv.metrics["batches"],
+                            error=repr(srv._worker_error))
+    srv.close()
+    dist.barrier()
+    quiet = (mock.patch.object(_MeshControl, "send", lambda self, message: None) if rank == 0
+             else contextlib.nullcontext())
+    with quiet:
+        srv = InferenceServer(model, cfg, device="cpu")
+        t0 = time.monotonic()
+        closed = srv.close()
+        out["quiet"] = dict(closed=closed, waited=time.monotonic() - t0,
+                            error=repr(srv._worker_error))
+    dist.barrier()
     return out
 
 
@@ -512,6 +556,14 @@ def test_each_rank_holds_only_its_part(runs, name):
         assert facts["logits"] == [(ROWS, cfg.vocab_size // tp)]
         assert facts["all_dtensor"] and facts["same_as_dispatch"]
         assert facts["held"] == facts["share"] < facts["whole"]
+        # one gather a model over dp_shard, shared by its programs: one
+        # layer's leaves and the root's, never the untied embedding
+        assert facts["programs"] == 3 * len(BACKENDS) and facts["gather_shared"]
+        assert facts["gather"] == ("dp_shard_size" in pcfg)
+        if facts["gather"]:
+            assert "embed_tokens/embedding" not in facts["gathered"]
+            assert all(n.startswith(("layers/", "lm_head/", "final_norm/"))
+                       for n in facts["gathered"]), facts["gathered"]
 
 
 @pytest.mark.parametrize("name", list(LAYOUTS))
@@ -554,6 +606,17 @@ def test_submit_on_another_rank_raises_and_names_the_first(runs):
 
 def test_close_on_rank0_ends_the_other_ranks(runs):
     assert runs["tp"][1]["server"]["closed"] is True
+
+
+def test_replaying_rank_stays_alive_on_beats_and_fails_when_the_first_goes_quiet(runs):
+    leader = runs["tp"][1]["leader"]
+    bound = leader["bound"]
+    alive = leader["alive"]  # idle past the bound, then one batch replayed
+    assert alive["closed"] is True and alive["replayed"] == 1 and alive["error"] == "None"
+    quiet = leader["quiet"]
+    assert quiet["closed"] is True and bound <= quiet["waited"] < bound + 10, quiet
+    assert "ReplicaDeadError" in quiet["error"] and "first rank (0)" in quiet["error"]
+    assert runs["tp"][0]["leader"]["quiet"]["error"] == "None"
 
 
 def test_load_checkpoint_and_dispatch_then_generate(runs):
