@@ -54,6 +54,26 @@ iteration-level scheduling state (counterpart of
   generators are registered with each captured graph, so a replay
   advances each stream exactly as an eager step does.
 
+* **A model laid over a mesh** (``inference.prepare_inference(mesh=,
+  rules=)``: ``tp`` blocks, FSDP2 shards over ``dp_shard``): every rank of
+  the mesh builds the engine and makes the same host calls in the same
+  order, and each runs the same programs on its part of the model
+  (``models.llama.serving_view``): the store holds the rank's ``kv_heads /
+  tp`` heads in as many blocks as one process's (an int8 scale is taken
+  over every rank's heads), the ``dp_shard`` shards are gathered one layer
+  at a time into the buffers of the model's one
+  :class:`~accelerate_tpu_torch.ops.collectives.ShardGather`, and every
+  program runs under the model's run lock, which ``generate``'s programs
+  share, so the ranks' collectives keep one order. The logits are gathered
+  whole over ``tp`` before sampling: every rank samples the same row with
+  its own generator, seeded alike, and draws the same token; the host's
+  drafts read only token histories, which are equal on every rank. The
+  construction arguments are checked equal on every rank first (a
+  difference raises on every rank). The programs are captured with their
+  NCCL collectives after their first eager run, on the decision
+  ``inference.graphs_supported`` makes; torch's threaded process group
+  runs them eagerly.
+
 Not ported yet (ROADMAP.md A3): disaggregated prefill
 (``prefill_remote``/``insert_prefilled``), the host KV tier
 (``host_tier_bytes``) and the perfwatch/tracing hooks.
@@ -64,6 +84,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import time
+import zlib
 from dataclasses import dataclass, field
 from typing import Any, Callable, List, Optional
 
@@ -260,6 +281,39 @@ def _sample_rows(logits, noise, temp, top_k, top_p):
     return torch.where(temp > 0, sampled, greedy).to(torch.int32)
 
 
+# the construction arguments every rank of a mesh must share, in the order
+# _check_same_engine gathers them
+_ENGINE_FIELDS = ("slots", "max_len", "prompt_bucket", "readback_lag", "kv_cache", "block_size",
+                  "pool_blocks", "attention_impl", "prefill_chunk", "spec", "spec_draft_len",
+                  "spec_ngram", "spec_ngram_min")
+
+
+def _check_same_engine(values: dict, groups, device) -> None:
+    """Raise on every rank unless every rank of the mesh built its engine
+    with the same ``values`` (:data:`_ENGINE_FIELDS`): a rank with another
+    store, bucket or drafter would run other programs against its peers'
+    collectives."""
+    from .inference import _gather_over_mesh
+
+    def code(v):
+        if v is None:
+            return -1
+        if isinstance(v, str):
+            return zlib.crc32(v.encode())
+        return int(v)
+
+    vec = torch.tensor([code(values[name]) for name in _ENGINE_FIELDS], dtype=torch.int64,
+                       device=device)
+    seen = _gather_over_mesh(vec, groups)
+    bad = (seen != seen[0]).any(dim=0).nonzero().flatten().tolist()
+    if bad:
+        ranks = [r for r in range(seen.shape[0]) if not torch.equal(seen[r], seen[0])]
+        raise ValueError(
+            f"ContinuousBatchingEngine over a mesh: the rank(s) at mesh index {ranks} (row-major "
+            f"over dp_shard, tp) were built with another {', '.join(_ENGINE_FIELDS[i] for i in bad)} "
+            "than the first; every rank must build the engine with the same arguments")
+
+
 class ContinuousBatchingEngine:
     """Persistent slot-based decode state for one model.
 
@@ -279,7 +333,10 @@ class ContinuousBatchingEngine:
     (retirement still happens at :meth:`poll`). ``prefill_chunk`` admits
     prompts longer than the bucket, fed in chunks of that many positions.
     ``device`` defaults to ``"cuda"`` and must be where the model's
-    parameters are.
+    parameters are. Over a mesh (a model from ``prepare_inference(mesh=,
+    rules=)``) every rank builds the engine with the same arguments and
+    makes the same calls in the same order (the module docstring); the
+    continuous ``InferenceServer`` does that for its callers.
     """
 
     # acceptance-EWMA gate: a slot whose EWMA falls below the floor stops
@@ -311,20 +368,15 @@ class ContinuousBatchingEngine:
         device="cuda",
         clock: Callable[[], float] = time.monotonic,
     ):
-        from .models.llama import (_check_supported, llama_decode_step, llama_prefill_at,
-                                   llama_verify_step, mesh_ranks)
+        from .inference import _model_mesh_state, graphs_supported
+        from .models.llama import (_check_supported, _Shard, llama_decode_step, llama_prefill_at,
+                                   llama_verify_step, mesh_ranks, serving_view)
 
         if host_tier_bytes:
             raise NotImplementedError(
                 "the host-RAM KV tier (host_tier_bytes) is queued in ROADMAP.md A3 "
                 "(HostKVTier, restore_plan and the restore program are not ported)"
             )
-        if mesh_ranks(model) is not None:
-            raise NotImplementedError(
-                "the continuous engine over a model laid out over a mesh (tp blocks or FSDP2 "
-                "shards: the decode, verify and chunk kernels B4-B6 at a rank's heads) is not "
-                "ported yet (ROADMAP.md A8-bis); serve it with the static InferenceServer or "
-                "generate, which run on every rank of the mesh")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if max_len < 2:
@@ -350,10 +402,27 @@ class ContinuousBatchingEngine:
         self.device = resolve_device(device)
         self.model = model
         self.config = model.config
-        _check_supported(self.config, model.params)  # float trees only
-        params_dev = model.params["embed_tokens"]["embedding"].device
+        # laid over a mesh: the rank's leaves in place, its tp handle, and
+        # the model's one shard gather and run lock
+        self._view = serving_view(model) if mesh_ranks(model) is not None else None
+        view_params = self._view.params if self._view is not None else model.params
+        _check_supported(self.config, view_params)  # float trees only
+        embedding = view_params["embed_tokens"]["embedding"]
+        params_dev = (embedding.local if isinstance(embedding, _Shard) else embedding).device
         if params_dev != self.device:
             raise ValueError(f"model parameters are on {params_dev}, engine device is {self.device}")
+        self._tp = self._fsdp = self._mesh_lock = None
+        if self._view is not None:
+            self._tp = self._view.tp
+            self._mesh_lock, self._fsdp = _model_mesh_state(model, self._view.fsdp_group)
+            _check_same_engine(
+                dict(slots=slots, max_len=max_len, prompt_bucket=prompt_bucket,
+                     readback_lag=readback_lag, kv_cache=kv_cache, block_size=block_size,
+                     pool_blocks=pool_blocks, attention_impl=attention_impl,
+                     prefill_chunk=prefill_chunk, spec=spec, spec_draft_len=spec_draft_len,
+                     spec_ngram=spec_ngram, spec_ngram_min=spec_ngram_min),
+                [self._tp.group if self._tp is not None else None, self._view.fsdp_group],
+                self.device)
         self.slots = slots
         self.max_len = max_len
         self.prompt_bucket = prompt_bucket if prompt_bucket is not None else max(1, max_len // 2)
@@ -376,6 +445,7 @@ class ContinuousBatchingEngine:
             kv_cache, config=self.config, slots=slots, max_len=max_len,
             prompt_bucket=self.prompt_bucket, device=self.device, block_size=block_size,
             pool_blocks=pool_blocks, attention_impl=attention_impl,
+            tp_group=self._tp.group if self._tp is not None else None,
         )
         self._prefill_at_fn, self._decode_fn = llama_prefill_at, llama_decode_step
         self._verify_fn = llama_verify_step
@@ -397,7 +467,8 @@ class ContinuousBatchingEngine:
         # program name -> the signatures it ran with (JAX: the jitted
         # programs compiled); on CUDA each signature is one captured graph
         self._programs: dict = {}
-        self._use_graphs = self.device.type == "cuda" and not _graphs_disabled
+        self._use_graphs = (self.device.type == "cuda" and not _graphs_disabled
+                            and (self._view is None or graphs_supported(self._view)))
         self._graphs: dict = {}
         self._init_state()
         self._occupants: List[Optional[SlotOccupant]] = [None] * slots
@@ -474,15 +545,27 @@ class ContinuousBatchingEngine:
         host's block table reaches the device first."""
         self._programs.setdefault(name, set()).add(sig)
         self._backend.device_tables()
-        if not self._use_graphs:
-            body()
-            return
-        graph = self._graphs.get((name, sig))
-        if graph is None:
-            body()  # the warm-up is the real call
-            self._graphs[(name, sig)] = _Graph(body, self._gens)
-            return
-        graph.replay()
+        with self._mesh_lock or contextlib.nullcontext():
+            if not self._use_graphs:
+                body()
+                return
+            graph = self._graphs.get((name, sig))
+            if graph is None:
+                body()  # the warm-up is the real call
+                self._graphs[(name, sig)] = _Graph(body, self._gens)
+                return
+            graph.replay()
+
+    def _params(self):
+        """The tree the bodies read: the model's, or over a mesh the
+        rank's leaves in place."""
+        return self._view.params if self._view is not None else self.model.params
+
+    def _mesh(self) -> dict:
+        """The step functions' mesh arguments (none without a mesh)."""
+        if self._view is None:
+            return {}
+        return dict(tp=self._tp, fsdp=self._fsdp)
 
     def graph_launches(self) -> dict:
         """Kernel launches of one replay of each captured program:
@@ -696,7 +779,7 @@ class ContinuousBatchingEngine:
         position (``_args``), the slot's table row."""
         slot, last = self._arg("slot"), self._arg("pos")
         logits, new_cache = self._prefill_at_fn(
-            self.config, self.model.params, self._prompt_ids, self.max_len, last)
+            self.config, self._params(), self._prompt_ids, self.max_len, last, **self._mesh())
         self._backend.prefill_write(self._cache, new_cache, slot, self._tables.index_select(0, slot)[0])
         self._pos.index_copy_(0, slot, (last + 1).to(torch.int32))
         self._install_first(logits, slot)
@@ -749,8 +832,8 @@ class ContinuousBatchingEngine:
         pos, count = self._arg("pos").to(torch.int32), self._arg("count").to(torch.int32)
         cache, tables = self._backend.rows(self._cache, self._tables, slot)
         logits, win_kv = self._verify_fn(
-            self.config, self.model.params, cache, self._chunk_ids, pos,
-            kv_layout=self._backend.make_layout(tables),
+            self.config, self._params(), cache, self._chunk_ids, pos,
+            kv_layout=self._backend.make_layout(tables), **self._mesh(),
         )
         self._backend.commit_window(self._cache, win_kv, tables, pos, count, rows=slot)
         self._pos.index_copy_(0, slot, pos + count)
@@ -828,8 +911,8 @@ class ContinuousBatchingEngine:
         updated in place."""
         c = self._carried
         logits, _ = self._decode_fn(
-            self.config, self.model.params, self._cache, c["token"][:, None].long(),
-            self._pos, kv_layout=self._backend.make_layout(self._tables),
+            self.config, self._params(), self._cache, c["token"][:, None].long(),
+            self._pos, kv_layout=self._backend.make_layout(self._tables), **self._mesh(),
         )
         noise, _ = self._draw()
         nxt = self._sample(logits, noise, c["temp"], c["top_k"], c["top_p"])
@@ -868,8 +951,8 @@ class ContinuousBatchingEngine:
         draft, dlen = self._draft, self._dlen
         tokens = torch.cat([c["token"][:, None].long(), draft], dim=1)
         logits, win_kv = self._verify_fn(
-            self.config, self.model.params, self._cache, tokens, self._pos,
-            kv_layout=self._backend.make_layout(self._tables),
+            self.config, self._params(), self._cache, tokens, self._pos,
+            kv_layout=self._backend.make_layout(self._tables), **self._mesh(),
         )
         noise, u = self._draw()
         emitted, a = _verify_accept(logits, draft, dlen, c["temp"], c["top_k"], c["top_p"],
@@ -901,6 +984,10 @@ class ContinuousBatchingEngine:
         """Clamp the drafter's proposal length at runtime, in [0,
         spec_draft_len]; 0 sends every step down the plain decode path."""
         self._spec_limit = int(np.clip(n, 0, self.spec_draft_len))
+
+    @property
+    def spec_draft_limit(self) -> int:
+        return self._spec_limit
 
     def _materialize_ring(self) -> None:
         """Wait for every pending readback, so the drafter sees each slot's

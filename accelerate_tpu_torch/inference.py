@@ -216,15 +216,15 @@ def _call_vector(ids, values: dict) -> torch.Tensor:
                       (flat * weights).sum().reshape(1)])
 
 
-def _check_same_call(ids, values: dict, groups) -> None:
-    """Raise on every rank unless every rank of the mesh passed the same
-    ``values`` and ids. The vectors are gathered over each group in turn
+def _gather_over_mesh(vec: torch.Tensor, groups) -> torch.Tensor:
+    """Every rank's 1-D ``vec``, (ranks, len) on the host, row-major over
+    ``groups`` reversed. The vectors are gathered over each group in turn
     (``tp``, then ``dp_shard``, each gathering the blocks the last one
     gathered), so every rank sees every rank's and reaches the same
-    verdict."""
+    verdict on them."""
     import torch.distributed as dist
 
-    seen = _call_vector(ids, values)[None]
+    seen = vec[None]
     for group in groups:
         n = _group_size(group)
         if n <= 1:
@@ -233,7 +233,13 @@ def _check_same_call(ids, values: dict, groups) -> None:
         out = block.new_empty(n * block.numel())
         dist.all_gather_into_tensor(out, block.reshape(-1), group=group)
         seen = out.view(n * block.shape[0], block.shape[1])
-    seen = seen.cpu()
+    return seen.cpu()
+
+
+def _check_same_call(ids, values: dict, groups) -> None:
+    """Raise on every rank unless every rank of the mesh passed the same
+    ``values`` and ids (:func:`_gather_over_mesh`)."""
+    seen = _gather_over_mesh(_call_vector(ids, values), groups)
     bad = (seen != seen[0]).any(dim=0).nonzero().flatten().tolist()
     if bad:
         ranks = [r for r in range(seen.shape[0]) if not torch.equal(seen[r], seen[0])]

@@ -38,6 +38,12 @@ tensor that lives as long as the engine: the block tables are one static
 non-blocking copy (:class:`HostStage`) before the next program after an
 ``acquire`` or a ``release``, so a captured CUDA graph keeps reading it.
 The host-RAM spill tier is not ported yet (ROADMAP.md A3).
+
+Under tensor parallelism (``tp_group``: a model laid over a mesh's ``tp``
+dim) a backend's store holds this rank's ``kv_heads / tp`` heads in as
+many blocks as one process's: the same tables on every rank, the pool's
+bytes one process's over ``tp`` (an int8 pool's per-position scales are
+whole on every rank, taken over every rank's heads).
 """
 
 from __future__ import annotations
@@ -71,6 +77,14 @@ _NULL_BLOCK = 0  # reserved garbage sink; never allocated, never attended
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _group_size(group) -> int:
+    if group is None:
+        return 1
+    import torch.distributed as dist
+
+    return dist.get_world_size(group)
 
 
 class HostStage:
@@ -220,7 +234,7 @@ class PagedKVLayout:
         valid = (j < count.long()[:, None]) & (abs_pos < bpr * bs)
         blk = torch.gather(self.tables.long(), 1, (abs_pos // bs).clamp(0, bpr - 1))
         blk = torch.where(valid, blk, torch.full_like(blk, _NULL_BLOCK))
-        _set_rows(cache_leaf, (slice(None), blk, abs_pos % bs), window)
+        _set_rows(cache_leaf, (slice(None), blk, abs_pos % bs), window, self.tp_group)
         return cache_leaf
 
 
@@ -487,13 +501,13 @@ class DenseKVBackend(KVCacheBackend):
 
     kind = "dense"
 
-    def __init__(self, *, config, slots: int, max_len: int, device: torch.device):
+    def __init__(self, *, config, slots: int, max_len: int, device: torch.device, tp_group=None):
         self.config = config
         self.slots = slots
         self.max_len = max_len
         self.device = device
         self._shape = (config.num_hidden_layers, slots, max_len,
-                       config.num_key_value_heads, config.head_dim)
+                       config.num_key_value_heads // _group_size(tp_group), config.head_dim)
         self._dtype = config.compute_dtype
         self._tables = torch.zeros((slots, 1), dtype=torch.int32, device=device)
 
@@ -569,7 +583,7 @@ class PagedKVBackend(KVCacheBackend):
     def __init__(self, *, config, slots: int, max_len: int, prompt_bucket: int,
                  device: torch.device, block_size: int = 16,
                  pool_blocks: Optional[int] = None, quantized: bool = False,
-                 attention_impl: str = "reference"):
+                 attention_impl: str = "reference", tp_group=None):
         if attention_impl not in ("reference", "kernel"):
             raise ValueError(
                 f"attention_impl must be 'reference' or 'kernel', got {attention_impl!r}"
@@ -597,7 +611,8 @@ class PagedKVBackend(KVCacheBackend):
                 f"blocks of engine_block_size={block_size})"
             )
         self.pool_blocks = pool_blocks
-        self._kvh, self._hd = config.num_key_value_heads, config.head_dim
+        self.tp_group = tp_group
+        self._kvh, self._hd = config.num_key_value_heads // _group_size(tp_group), config.head_dim
         self._layers = config.num_hidden_layers
         self._dtype = config.compute_dtype
         self.quantized = quantized
@@ -621,7 +636,8 @@ class PagedKVBackend(KVCacheBackend):
         return {w: torch.zeros(shape, dtype=self._dtype, device=self.device) for w in ("k", "v")}
 
     def make_layout(self, tables):
-        return PagedKVLayout(tables, self.block_size, self._dtype, attention_impl=self.attention_impl)
+        return PagedKVLayout(tables, self.block_size, self._dtype, attention_impl=self.attention_impl,
+                             tp_group=self.tp_group)
 
     def prefill_write(self, cache, new_cache, slot, table_row):
         """Write the bucket's ``prefill_blocks`` blocks into the slot's
@@ -634,7 +650,8 @@ class PagedKVBackend(KVCacheBackend):
         for w in ("k", "v"):
             fresh = new_cache[w][:, 0, : n * bs]  # (L, n*bs, kvh, hd)
             fresh = fresh.reshape(self._layers, n, bs, self._kvh, self._hd)
-            _set_rows(cache[w], (slice(None), ids), fresh if self.quantized else fresh.to(self._dtype))
+            _set_rows(cache[w], (slice(None), ids), fresh if self.quantized else fresh.to(self._dtype),
+                      self.tp_group)
         return cache
 
     def commit_window(self, cache, window_kv, tables, pos, count, rows=None):
@@ -717,8 +734,9 @@ class PagedKVBackend(KVCacheBackend):
 def make_kv_backend(kind: str, *, config, slots: int, max_len: int, prompt_bucket: int,
                     device: torch.device, block_size: int = 16,
                     pool_blocks: Optional[int] = None,
-                    attention_impl: str = "reference") -> KVCacheBackend:
-    """Factory the engine (and ``ServingConfig.kv_cache``) selects through."""
+                    attention_impl: str = "reference", tp_group=None) -> KVCacheBackend:
+    """Factory the engine (and ``ServingConfig.kv_cache``) selects through;
+    ``tp_group``: the store holds this ``tp`` rank's kv heads."""
     if kind == "dense":
         if attention_impl != "reference":
             raise ValueError(
@@ -726,12 +744,13 @@ def make_kv_backend(kind: str, *, config, slots: int, max_len: int, prompt_bucke
                 "'paged' or 'paged_int8'); the dense arena has no block tables "
                 "for the kernel to walk"
             )
-        return DenseKVBackend(config=config, slots=slots, max_len=max_len, device=device)
+        return DenseKVBackend(config=config, slots=slots, max_len=max_len, device=device,
+                              tp_group=tp_group)
     if kind in ("paged", "paged_int8"):
         return PagedKVBackend(
             config=config, slots=slots, max_len=max_len, prompt_bucket=prompt_bucket,
             device=device, block_size=block_size, pool_blocks=pool_blocks,
-            quantized=kind == "paged_int8", attention_impl=attention_impl,
+            quantized=kind == "paged_int8", attention_impl=attention_impl, tp_group=tp_group,
         )
     raise ValueError(f"kv_cache must be one of {KV_BACKENDS}, got {kind!r}")
 

@@ -49,22 +49,23 @@ over the vocabulary into the loss (``ops/losses.py``). Gemma's post-block
 norms and embedding scale apply after the collective, the softcaps on the
 local logits and scores.
 
-The serving steps (prefill, decode) take the same ``tp`` handle and a
+The serving steps (prefill, decode, verify) take the same ``tp`` handle and a
 model laid over a mesh (``inference.prepare_inference(mesh=, rules=)``)
 through :func:`serving_view`, which reads its leaves in place: each
 rank's ``tp`` blocks, and under FSDP2 its ``dp_shard`` shards, which the
 step gathers whole one layer at a time (``fsdp``, an
 ``ops.collectives.ShardGather``); an untied embedding is looked up in its
 shards and summed over ``dp_shard`` instead. A decode step has one
-position, which ``tp`` never divides: it keeps the residual whole (one
-all-reduce after each row-parallel projection and after the embedding). The head computes
-the rank's vocabulary block and gathers the f32 logits whole, or with
-``vocab_shard`` returns the block. The KV cache holds the rank's kv heads
+position, which ``tp`` never divides, and a verify step's window of a
+few drafts or one prompt chunk is kept whole too: the residual stays whole
+(one all-reduce after each row-parallel projection and after the
+embedding). The head computes the rank's vocabulary block and gathers the
+f32 logits whole, or with ``vocab_shard`` returns the block. The KV cache
+and a verify step's window K/V hold the rank's kv heads
 (``init_kv_cache(tp_size=)``).
 
 Not ported yet (ROADMAP.md): MoE layers and Gemma-2's alternating sliding
-window (A11), fp8 (A4), the verify step and the continuous engine over a
-mesh (A8-bis).
+window (A11), fp8 (A4).
 """
 
 from __future__ import annotations
@@ -1730,21 +1731,25 @@ def llama_decode_step(config: LlamaConfig, params, cache, token, pos, *, kv_layo
 
 
 def _verify_layer(config: LlamaConfig, layer_params, x, cache_k, cache_v, pos,
-                  attention_override=None, rope=None):
+                  attention_override=None, rope=None, tp=None):
     """One block over a W-token window: ``x`` (B, W, D) at positions ``pos
     .. pos+W-1`` (``pos`` (B,)). The caches are read only: the window's K/V
     are written into copies so the window attends itself causally, and the
     rotated window K and raw V are returned for the caller to commit the
     accepted prefix. ``attention_override(q, k, v) -> attn`` (the kernel
     path) reads the pool and the window itself. ``rope``: the window's
-    (cos, sin), when the caller computed them once for every layer."""
-    h, kvh, hd = config.num_attention_heads, config.num_key_value_heads, config.head_dim
+    (cos, sin), when the caller computed them once for every layer. Under
+    ``tp`` (a :class:`_TPRun` that keeps the residual whole) the heads are
+    the rank's, as many as its q/k/v columns hold."""
+    hd = config.head_dim
     b, w, _ = x.shape
     cdt = config.compute_dtype
     y = rms_norm(x, layer_params["input_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
-    q = _proj(config, layer_params, "q_proj", y).reshape(b, w, h, hd)
-    k = _proj(config, layer_params, "k_proj", y).reshape(b, w, kvh, hd)
-    v = _proj(config, layer_params, "v_proj", y).reshape(b, w, kvh, hd)
+    y = _tp_in(y, tp)
+    q = _proj(config, layer_params, "q_proj", y).reshape(b, w, -1, hd)
+    k = _proj(config, layer_params, "k_proj", y).reshape(b, w, -1, hd)
+    v = _proj(config, layer_params, "v_proj", y).reshape(b, w, -1, hd)
+    h, kvh = q.shape[2], k.shape[2]
     if rope is None:
         rope = _rope_window_tables(pos, w, hd, config.rope_theta, config._rope_scaling_key(), x.device)
     q = _rotate(q, *rope)
@@ -1767,11 +1772,12 @@ def _verify_layer(config: LlamaConfig, layer_params, x, cache_k, cache_v, pos,
         attn = torch.einsum(
             "bgrqk,bkgd->bqgrd", weights.to(cdt).float(), cv.to(cdt).float()
         ).to(cdt)
-    x = _attn_out(config, layer_params, attn, x)
-    return _mlp_block(config, layer_params, x), k, v
+    x = _attn_out(config, layer_params, attn, x, tp)
+    return _mlp_block(config, layer_params, x, tp), k, v
 
 
-def llama_verify_step(config: LlamaConfig, params, cache, tokens, pos, *, kv_layout=None):
+def llama_verify_step(config: LlamaConfig, params, cache, tokens, pos, *, kv_layout=None, tp=None,
+                      fsdp=None, vocab_shard: bool = False):
     """Window forward: ``tokens`` (B, W), each row's carried token and its
     W-1 drafts (or a chunk of a prompt), at positions ``pos .. pos+W-1``
     (``pos`` (B,) tensor). Returns (f32 logits (B, W, V), the window KV
@@ -1779,10 +1785,17 @@ def llama_verify_step(config: LlamaConfig, params, cache, tokens, pos, *, kv_lay
     commits the accepted prefix (``commit_window``), so a rejected draft
     never reaches the store. With ``kv_layout`` the cache is the block pool
     (f32/bf16 or int8 ``{"q", "s"}`` leaves): the reference path gathers
-    each layer's dense view, the kernel path runs the verify kernel."""
+    each layer's dense view, the kernel path runs the verify kernel.
+    ``tp``, ``fsdp`` and ``vocab_shard`` as in :func:`llama_prefill`: the
+    window keeps the residual whole, the cache and the window KV hold the
+    rank's kv heads, and with ``vocab_shard`` the logits are the rank's
+    vocabulary block (B, W, V / tp)."""
     _check_supported(config, params)
+    if tp is not None:
+        tp = _TPRun(tp.group, tp.size, tp.rank, False)
     pos = torch.as_tensor(pos, device=tokens.device)
-    x = _embed(config, params, tokens)
+    root = _gathered(params, fsdp, keep=_kept_root(config))
+    x = _embed(config, root, tokens, tp, fsdp)
     # position-only work, done once for all layers
     rope = _rope_window_tables(pos, tokens.shape[1], config.head_dim, config.rope_theta,
                                config._rope_scaling_key(), x.device)
@@ -1791,16 +1804,17 @@ def llama_verify_step(config: LlamaConfig, params, cache, tokens, pos, *, kv_lay
         pos_i32 = pos.to(torch.int32).contiguous()
     win_k, win_v = [], []
     for i in range(config.num_hidden_layers):
-        lp = _layer_slice(params["layers"], i)
+        lp = _gathered(_layer_params(params["layers"], i), fsdp, "layers")
         ck, cv = _layer_leaf(cache["k"], i), _layer_leaf(cache["v"], i)
         if use_kernel:
             override = _kernel_verify_override(config, kv_layout, pos_i32, ck, cv)
             x, k, v = _verify_layer(config, lp, x, None, None, pos, attention_override=override,
-                                    rope=rope)
+                                    rope=rope, tp=tp)
         else:
             if kv_layout is not None:
                 ck, cv = kv_layout.view(ck), kv_layout.view(cv)
-            x, k, v = _verify_layer(config, lp, x, ck, cv, pos, rope=rope)
+            x, k, v = _verify_layer(config, lp, x, ck, cv, pos, rope=rope, tp=tp)
         win_k.append(k)
         win_v.append(v)
-    return _serving_head(config, params, x), {"k": torch.stack(win_k), "v": torch.stack(win_v)}
+    return (_serving_head(config, root, x, tp, vocab_shard),
+            {"k": torch.stack(win_k), "v": torch.stack(win_v)})

@@ -24,16 +24,24 @@ only validates and enqueues.
 A model laid out over a mesh (``inference.prepare_inference(mesh=,
 rules=)``) is served by one controller, as the JAX package's one process
 serves it: every rank of the mesh builds the server, and the mesh's first
-rank admits, batches and retries requests (its results are the unsharded
-server's), while every other rank replays its batches, in order, through
-the same ``generate``: each batch's rows and arguments reach them over a
-gloo group of the mesh's ranks before the batch runs, and a beat each
-second it waits for requests. ``submit`` on another rank raises; ``close``
-or ``drain`` there waits until the first rank's ends them, or until the
-first rank has sent nothing for ``drain_timeout_s`` beyond its longest
-quiet: it is then taken as lost and the replaying server fails
-(:class:`ReplicaDeadError`). The continuous engine over a mesh is not
-ported (ROADMAP.md A8-bis).
+rank admits, schedules and retries requests (its results are the
+unsharded server's), while every other rank replays its decisions, in
+order, over a gloo group of the mesh's ranks, and a beat each second the
+first rank waits for requests. Static mode sends each batch's rows and
+``generate`` arguments before the batch runs. Continuous mode sends each
+decision before it runs: an admission with the request's arguments and
+seed, and each engine tick with the chunk and spec limits; either
+carries the slots the first rank's clock cancelled since the last
+decision (deadlines), which the others cancel first. Every rank thus
+makes the same engine calls in the same order. A replaying rank never
+reads its clock to decide, and the message of a tick overlaps the
+device's work on the ticks before it, which nothing waits for.
+``submit`` on another rank raises; ``close`` or ``drain`` there waits
+until the first rank's ends them, or until the first rank has sent
+nothing for ``drain_timeout_s`` beyond its longest quiet: it is then
+taken as lost and the replaying server fails (:class:`ReplicaDeadError`).
+In both modes a failure on one replaying rank alone leaves the first
+rank inside a collective until the process group's own timeout.
 
 Robustness that is ported: a bounded admission queue
 (:class:`ServerOverloaded`), deadlines at admission, mid-decode and at
@@ -124,6 +132,13 @@ class ServingResult:
     decode_steps: int = 0
 
 
+def _engine_args(req: _Request) -> tuple:
+    """What a replaying rank needs of an offered request: its engine
+    arguments (no future, no deadline)."""
+    return (req.input_ids, req.max_new_tokens, req.temperature, req.top_k, req.top_p,
+            req.eos_token_id, req.pad_token_id, req.seed)
+
+
 def resolve_future(future: Future, *, result=None, exception: Optional[BaseException] = None) -> bool:
     """Resolve a client Future exactly once, tolerating a concurrent
     ``cancel()``. Returns True when this call delivered the outcome."""
@@ -193,12 +208,14 @@ def _leader_lost_after(cfg: ServingConfig) -> float:
 
 
 class _MeshControl:
-    """The static server's one controller over a mesh: the first rank
-    broadcasts each batch (rows and ``generate`` arguments), a beat when it
-    has been quiet for ``_BEAT_S``, and the stop, over a gloo group of the
-    mesh's ranks whose timeout is ``lost_after_s``; the others receive
-    them, and take the first rank as lost when nothing came in that
-    time."""
+    """The server's one controller over a mesh: the first rank broadcasts
+    each batch (static: rows and ``generate`` arguments) or decision
+    (continuous: an admission or a tick), a beat when it has been quiet for
+    ``_BEAT_S``, and the stop, over a gloo group of the mesh's ranks whose
+    timeout is ``lost_after_s``; the others receive them, and take the
+    first rank as lost when nothing came in that time. ``seconds`` and
+    ``messages`` count the host time the first rank spends sending (a
+    replaying rank: receiving, which includes its wait for the first)."""
 
     def __init__(self, ranks: list, lost_after_s: float):
         import datetime
@@ -207,14 +224,17 @@ class _MeshControl:
 
         if len(ranks) != dist.get_world_size():
             raise NotImplementedError(
-                f"a static server over a mesh of {len(ranks)} of the {dist.get_world_size()} "
+                f"a server over a mesh of {len(ranks)} of the {dist.get_world_size()} "
                 "processes: every process of the group must be a rank of the model's mesh")
         self.leader = ranks[0]
+        self.size = len(ranks)
         self.rank = dist.get_rank()
         self.lost_after_s = lost_after_s
         self.group = dist.new_group(ranks, backend="gloo",
                                     timeout=datetime.timedelta(seconds=lost_after_s))
         self.last_sent = time.monotonic()
+        self.seconds = 0.0
+        self.messages = 0
 
     @property
     def is_leader(self) -> bool:
@@ -223,7 +243,10 @@ class _MeshControl:
     def send(self, message) -> None:
         import torch.distributed as dist
 
+        t0 = time.perf_counter()
         dist.broadcast_object_list([message], src=self.leader, group=self.group)
+        self.seconds += time.perf_counter() - t0
+        self.messages += 1
         self.last_sent = time.monotonic()
 
     def beat_due(self) -> bool:
@@ -235,14 +258,21 @@ class _MeshControl:
         import torch.distributed as dist
 
         box = [None]
+        t0 = time.perf_counter()
         try:
             dist.broadcast_object_list(box, src=self.leader, group=self.group)
         except Exception as e:  # noqa: BLE001 - gloo's timeout, or a closed peer
             raise ReplicaDeadError(
-                f"rank {self.rank}: the mesh's first rank ({self.leader}) sent no batch and no "
-                f"beat for {self.lost_after_s:.1f}s ({type(e).__name__}); taken as lost, this "
-                "rank stops replaying") from e
+                f"rank {self.rank}: the mesh's first rank ({self.leader}) sent no message and "
+                f"no beat for {self.lost_after_s:.1f}s ({type(e).__name__}); taken as lost, "
+                "this rank stops replaying") from e
+        self.seconds += time.perf_counter() - t0
+        self.messages += 1
         return box[0]
+
+    def stats(self) -> dict:
+        return {"ranks": self.size, "leader": self.leader, "rank": self.rank,
+                "messages": self.messages, "seconds": self.seconds}
 
 
 class InferenceServer:
@@ -260,9 +290,9 @@ class InferenceServer:
     inert there, as the engine owns the device programs. Construction
     starts the worker; use it as a context manager or call :meth:`close`.
 
-    Static mode over a model laid out over a mesh: every rank builds the
-    server; the mesh's first rank serves, the others replay its batches
-    (see the module docstring).
+    Over a model laid out over a mesh, in either mode: every rank builds
+    the server; the mesh's first rank serves, the others replay its
+    batches or decisions (see the module docstring).
     """
 
     def __init__(self, model, config: Optional[ServingConfig] = None, *, generate_fn=None,
@@ -272,13 +302,13 @@ class InferenceServer:
         self._clock = clock
         self._generate_fn = generate_fn or self._default_generate
         self._control = None
+        from .models.llama import mesh_ranks
+
+        ranks = mesh_ranks(model)
+        if ranks is not None and len(ranks) > 1:
+            self._control = _MeshControl(ranks, _leader_lost_after(self.config))
         if self.config.mode == "static":
             engine = None
-            from .models.llama import mesh_ranks
-
-            ranks = mesh_ranks(model)
-            if ranks is not None and len(ranks) > 1:
-                self._control = _MeshControl(ranks, _leader_lost_after(self.config))
             dev = resolve_device(device)
             if generate_fn is None and ranks is None:  # over a mesh, each rank on its own card
                 param = next(iter(model.parameters()), None)
@@ -315,6 +345,8 @@ class InferenceServer:
         self._drained = threading.Event()
         self.metrics = ServingMetrics()
         self._batch_time_ewma = 0.0  # static: seconds a batch, for shedding at dequeue
+        # continuous over a mesh: the slots cancelled since the last decision sent
+        self._cancelled: list = []
         self._rng = random.Random(0)  # backoff jitter only
         self._worker = threading.Thread(target=self._serve_loop, name="inference-server", daemon=True)
         self._worker.start()
@@ -328,9 +360,13 @@ class InferenceServer:
         """The engine's host counters (:meth:`~accelerate_tpu_torch.engine
         .ContinuousBatchingEngine.stats`), ``programs`` and
         ``program_count`` among them (continuous mode), with the server's
-        counters under ``"serving"``."""
+        counters under ``"serving"`` and, over a mesh, the controller's
+        messages and the host seconds they took under ``"mesh"``."""
         engine = self._engine.stats() if self._engine is not None else {}
-        return {**engine, "serving": self.metrics.snapshot()}
+        out = {**engine, "serving": self.metrics.snapshot()}
+        if self._control is not None:
+            out["mesh"] = self._control.stats()
+        return out
 
     def queue_depth(self) -> int:
         with self._lock:
@@ -353,7 +389,7 @@ class InferenceServer:
             raise RuntimeError(
                 f"submit on rank {self._control.rank}: the model is served over a mesh, whose "
                 f"first rank ({self._control.leader}) admits every request; this rank replays "
-                "its batches")
+                "its decisions")
         if self._closed or self._draining:
             self.metrics.bump("rejected_draining")
             raise ServerDrainingError(self._drain_reason(), retry_after_s=0.0)
@@ -437,10 +473,11 @@ class InferenceServer:
 
     # ---------------------------------------------------------- worker loop
     def _serve_loop(self) -> None:
+        replaying = self._control is not None and not self._control.is_leader
         try:
             if self._engine is not None:
-                self._loop_continuous()
-            elif self._control is not None and not self._control.is_leader:
+                self._loop_replay_continuous() if replaying else self._loop_continuous()
+            elif replaying:
                 self._loop_replay()
             else:
                 self._loop_static()
@@ -670,19 +707,38 @@ class InferenceServer:
 
     # ------------------------------------------------- continuous batching
     def _loop_continuous(self) -> None:
-        """Each pass: admit into free slots, one decode step, read back,
+        """Each pass: admit into free slots, one engine tick, read back,
         reply, shed. Draining stops admission but keeps stepping until every
-        in-flight slot retires."""
-        eng = self._engine
+        in-flight slot retires. Over a mesh each decision goes to the
+        replaying ranks before it runs (:meth:`_decide`), and a beat after
+        each idle ``_BEAT_S``."""
+        eng, control = self._engine, self._control
         while True:
             with self._wake:
                 while not self._queue and eng.live_count() == 0 and not self._draining:
+                    if control is not None and control.beat_due():
+                        break
                     self._wake.wait(timeout=0.05)
                 if self._draining and eng.live_count() == 0:
                     return  # the finally rejects what is still queued
+                idle = not self._queue and eng.live_count() == 0
+            if idle:  # over a mesh: tell the replaying ranks this rank is alive
+                control.send(("beat",))
+                continue
             if not self._draining:
                 self._admit_slots()
+            self._decide("tick", (eng.prefill_chunk_limit, eng.spec_draft_limit))
             self._engine_tick()
+
+    def _decide(self, kind: str, payload) -> None:
+        """Over a mesh, send one decision to the replaying ranks before this
+        rank runs it (an ``"insert"`` with the request's engine arguments,
+        or a ``"tick"`` with the chunk and spec limits), with the slots this
+        rank's clock cancelled since the last decision, which they cancel
+        first."""
+        if self._control is not None:
+            cancels, self._cancelled = self._cancelled, []
+            self._control.send((kind, cancels, payload))
 
     def _admit_slots(self) -> None:
         eng = self._engine
@@ -703,17 +759,59 @@ class InferenceServer:
                 with self._wake:
                     self._queue.appendleft(req)
                 return
-            try:
-                eng.insert(
-                    req.input_ids, max_new_tokens=req.max_new_tokens,
-                    temperature=req.temperature, top_k=req.top_k, top_p=req.top_p,
-                    eos_token_id=req.eos_token_id, pad_token_id=req.pad_token_id,
-                    seed=req.seed, tag=req,
-                )
-            except Exception as exc:  # the engine failed: fail its requests, rebuild
-                self._engine_failure(exc, also_fail=req)
+            self._decide("insert", _engine_args(req))
+            if not self._insert(req):
                 return
-            self.metrics.bump("engine_inserts")
+
+    def _insert(self, req: _Request) -> bool:
+        """Admit ``req`` into a slot; False when the engine failed (its
+        requests failed, its state rebuilt)."""
+        try:
+            self._engine.insert(
+                req.input_ids, max_new_tokens=req.max_new_tokens,
+                temperature=req.temperature, top_k=req.top_k, top_p=req.top_p,
+                eos_token_id=req.eos_token_id, pad_token_id=req.pad_token_id,
+                seed=req.seed, tag=req,
+            )
+        except Exception as exc:  # the engine failed: fail its requests, rebuild
+            self._engine_failure(exc, also_fail=req)
+            return False
+        self.metrics.bump("engine_inserts")
+        return True
+
+    def _loop_replay_continuous(self) -> None:
+        """A rank other than the mesh's first in continuous mode: apply each
+        decision the first rank sends, in order, until its stop: its
+        cancels, then the admission (a request without a deadline) or the
+        tick (the limits, then :meth:`_engine_tick`). An engine failure here
+        is the first rank's too (the same calls over the same collectives),
+        which rebuilds its engine as this one does; a failure on this rank
+        alone leaves the first rank inside a collective until the process
+        group's own timeout, and this rank, hearing nothing, takes it as
+        lost. Raises :class:`ReplicaDeadError` when the first rank is
+        lost."""
+        eng = self._engine
+        while True:
+            message = self._control.receive()
+            if message[0] == "stop":
+                return
+            if message[0] == "beat":
+                continue
+            kind, cancels, payload = message
+            live = {occ.slot: occ for occ in eng.occupants()}
+            for slot in cancels:
+                eng.cancel(live[slot])
+                self.metrics.bump("engine_retired")
+            if kind == "insert":
+                ids, budget, temp, top_k, top_p, eos, pad, seed = payload
+                self._insert(_Request(input_ids=ids, max_new_tokens=budget, deadline=None,
+                                      temperature=temp, top_k=top_k, top_p=top_p,
+                                      eos_token_id=eos, pad_token_id=pad, seed=seed,
+                                      submitted_at=0.0))
+            else:
+                eng.set_prefill_chunk_limit(payload[0])
+                eng.set_spec_draft_limit(payload[1])
+                self._engine_tick()
 
     def _engine_tick(self) -> None:
         eng = self._engine
@@ -728,11 +826,15 @@ class InferenceServer:
             return
         self.metrics.bump("engine_steps")
         self._reply_retired(retired)
+        if self._control is not None and not self._control.is_leader:
+            return  # the first rank's clock cancels, sent with its next decision
         now = self._clock()
         for occ in eng.occupants():
             req = occ.tag
             if req.deadline is not None and now > req.deadline:
                 eng.cancel(occ)
+                if self._control is not None:
+                    self._cancelled.append(occ.slot)
                 self.metrics.bump("engine_retired")
                 if resolve_future(req.future, exception=RequestDeadlineExceeded(
                         f"deadline passed {now - req.deadline:.3f}s ago mid-decode")):

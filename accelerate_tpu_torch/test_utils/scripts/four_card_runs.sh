@@ -24,9 +24,13 @@
 # serve (not part of all): serve_timing.py, static generate of Llama-3-8B at
 #          32 layers (bf16, B = 8, 512 + 128 tokens, the decode step one CUDA
 #          graph with its NCCL collectives) under TP 4 and TP 2 x FSDP2 2,
-#          rank 0's greedy tokens held against card 0's unsharded model
+#          rank 0's greedy tokens held against card 0's unsharded model;
+#          then the continuous server (--mode continuous: chip_smoke.py
+#          phase 4's server and 16-request mix, the engine's programs
+#          captured with their collectives) under the same two layouts
 # Each timing run writes chiprun_out/train_timing_<layout>_<layers>l.json
-# (serve: serve_timing_<layout>_32l.json); the lines printed carry the
+# (serve: serve_timing_<layout>_32l.json and
+# serve_timing_continuous_<layout>_32l.json); the lines printed carry the
 # card's name and power limit.
 set -euo pipefail
 what=${1:-all}
@@ -54,6 +58,8 @@ if [[ $what == serve ]]; then
   serve=accelerate_tpu_torch/test_utils/scripts/serve_timing.py
   "${launch[@]}" --tp_size 4 "$serve" --layers 32
   "${launch[@]}" --tp_size 2 --dp_shard_size 2 "$serve" --layers 32
+  "${launch[@]}" --tp_size 4 "$serve" --layers 32 --mode continuous
+  "${launch[@]}" --tp_size 2 --dp_shard_size 2 "$serve" --layers 32 --mode continuous
 fi
 if [[ $what == supervise ]]; then
   crash=accelerate_tpu_torch/test_utils/scripts/crash_resume_script.py

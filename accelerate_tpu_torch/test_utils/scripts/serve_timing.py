@@ -1,5 +1,6 @@
-"""Times static generation of a Llama laid over the launcher's mesh
-(tensor parallelism, alone or under FSDP2): Llama-3-8B's widths in bf16,
+"""Times serving of a Llama laid over the launcher's mesh (tensor
+parallelism, alone or under FSDP2), static (``--mode static``, the
+default) or continuous (``--mode continuous``, below). Static: Llama-3-8B's widths in bf16,
 weights drawn from a seed, ``prepare_inference(mesh=, rules=
 tensor_parallel_rules())`` and ``generate`` greedy at B = 8, a 512-token
 prompt and 128 new tokens, the decode step one CUDA graph with its NCCL
@@ -27,6 +28,26 @@ the card's name and power limit, tokens/s, the decode replay ms, the NCCL
 ms a step, every rank's peak memory, the memory a program key adds and the
 gather buffers', and the check. ``--preset tiny --cpu``
 rehearses it on gloo ranks (eagerly: no graph, no device time).
+
+``--mode continuous``: every rank builds ``InferenceServer(model,
+ServingConfig(mode="continuous", ...))`` at ``chip_smoke.py`` phase 4's
+settings (8 slots, max_len 1024, bucket 512, paged pool of 16-token
+blocks, kernel attention); rank 0 serves phase 4's mix (16 random prompts
+of 64-512 tokens, 64 new tokens each, even requests greedy, odd ones
+sampled with their index as seed) after one warm-up request, twice: the
+first run captures the engine's programs with their NCCL collectives, the
+second is timed (tokens/s); the other ranks replay its decisions. Then every
+rank drives its engine directly, in step: 8 slots filled with 300-token
+prompts, 32 decode steps timed by CUDA events (the decode replay ms), 8
+more each timed on the host from a synchronised start until ``step()``
+and ``poll()`` return (the host's ms a step), 16 under ``torch.profiler``
+(the NCCL ms a step). The controller's own cost is the seconds rank 0
+spent broadcasting its decisions (admissions, ticks, beats) during the
+timed run, over its engine steps. Rank 0 draws the
+unsharded model and serves the same requests through a one-process engine:
+the greedy requests are held by phase 12's rule against the plain
+forward, and the count of requests equal to the one-process engine's bit
+for bit is reported.
 """
 
 from __future__ import annotations
@@ -46,6 +67,25 @@ from accelerate_tpu_torch.test_utils.scripts.train_timing import OUT, card_line
 BATCH, PROMPT, NEW = 8, 512, 128
 PROFILE_STEPS = 16
 GREEDY_SHARE_MIN, NEAR_TIE_ULPS = 0.9, 4.0
+# continuous mode: chip_smoke.py phase 4's server and mix
+SERVING = dict(mode="continuous", engine_slots=8, engine_max_len=1024, engine_prompt_bucket=512,
+               engine_block_size=16, kv_cache="paged", attention_impl="kernel",
+               engine_readback_lag=2)
+MIX_NEW = 64
+
+
+def _mix(vocab, n_req=16):
+    """Phase 4's prompts (64-512 random tokens) and its warm-up prompt."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 513, size=n_req)
+    prompts = [rng.integers(0, vocab, size=int(n)).astype(np.int32) for n in lens]
+    return prompts, np.random.default_rng(1).integers(0, vocab, size=64).astype(np.int32)
+
+
+def _request_kwargs(i):
+    sampled = i % 2 == 1
+    return dict(temperature=0.8 if sampled else 0.0, top_k=50 if sampled else None,
+                top_p=0.9 if sampled else None, seed=i)
 
 
 def _agreement(cfg, params, ids, out):
@@ -74,6 +114,8 @@ def main(argv=None) -> dict:
     p.add_argument("--prompt", type=int, default=PROMPT)
     p.add_argument("--new", type=int, default=NEW)
     p.add_argument("--cpu", action="store_true")
+    p.add_argument("--mode", default="static", choices=["static", "continuous"])
+    p.add_argument("--requests", type=int, default=16, help="continuous: requests of the mix")
     args = p.parse_args(argv)
 
     acc = Accelerator(cpu=args.cpu)
@@ -88,6 +130,8 @@ def main(argv=None) -> dict:
     if cuda:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+    if args.mode == "continuous":
+        return _continuous(args, acc, cfg, model, cuda, sync)
     ids = np.random.default_rng(15).integers(0, cfg.vocab_size,
                                              size=(BATCH, args.prompt)).astype(np.int32)
     with torch.no_grad():
@@ -160,6 +204,156 @@ def main(argv=None) -> dict:
         print(line, flush=True)
         if not check["passed"]:
             raise AssertionError(f"the mesh's greedy tokens disagree with the unsharded model: {check}")
+    acc.wait_for_everyone()
+    return result
+
+
+def _engine_agreement(cfg, params, prompts, tokens):
+    """Phase 12's rule over ``prompts``' greedy outputs: (argmax share
+    pooled over them, the largest gap in bf16 ulps of a request's largest
+    |logit|), each teacher-forced through the plain forward."""
+    from accelerate_tpu_torch.models.llama import llama_apply
+
+    plain = dataclasses.replace(cfg, attention_impl="xla")
+    agree = total = 0
+    worst = 0.0
+    for prompt, toks in zip(prompts, tokens):
+        dev = params["embed_tokens"]["embedding"].device
+        new = torch.as_tensor(np.asarray(toks[len(prompt):]), device=dev).long()
+        seq = torch.cat([torch.from_numpy(prompt).to(dev).long(), new[:-1]])[None]
+        ref = llama_apply(plain, params, seq)[0, len(prompt) - 1:]
+        agree += int((ref.argmax(-1) == new).sum())
+        total += len(new)
+        gap = (ref.max(-1).values - ref.gather(-1, new[:, None])[:, 0]).max().item()
+        worst = max(worst, gap / 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7))
+    return agree / total, worst
+
+
+def _continuous(args, acc, cfg, model, cuda, sync) -> dict:
+    """``--mode continuous`` (the module docstring)."""
+    from accelerate_tpu_torch.engine import ContinuousBatchingEngine
+    from accelerate_tpu_torch.models.llama import create_llama
+    from accelerate_tpu_torch.serving import InferenceServer
+    from accelerate_tpu_torch.utils.dataclasses import ServingConfig
+
+    scfg = ServingConfig(**SERVING)
+    prompts, warm = _mix(cfg.vocab_size, args.requests)
+    new = args.new if args.new != NEW else MIX_NEW
+    srv = InferenceServer(model, scfg, device=acc.device)
+    wall = steps = messages = send_s = None
+    if acc.is_main_process:
+        srv.submit(warm, max_new_tokens=8).result(timeout=900)
+        runs = []
+        for _ in range(2):  # the first captures the programs, the second is timed
+            before = srv.stats()
+            sync()
+            t0 = time.perf_counter()
+            futs = [srv.submit(p, max_new_tokens=new, **_request_kwargs(i))
+                    for i, p in enumerate(prompts)]
+            results = [f.result(timeout=900) for f in futs]
+            runs.append(time.perf_counter() - t0)
+            after = srv.stats()
+        wall = runs[-1]
+        steps = after["steps"] - before["steps"]
+        messages = after["mesh"]["messages"] - before["mesh"]["messages"]
+        send_s = after["mesh"]["seconds"] - before["mesh"]["seconds"]
+        tokens = [r.tokens for r in results]
+        engine_stats = srv.engine.stats()
+    srv.close()
+    eng = srv.engine
+    programs = eng.stats()["programs"]
+    graphs = sorted(f"{k}" for k in eng.graph_launches())
+    # every rank drives its engine in step: the same calls in the same order
+    replay_ms = host_ms = nccl_ms = None
+    with torch.no_grad():
+        eng.reset()
+        for p in prompts[:8]:
+            eng.insert(p[:300], max_new_tokens=200)
+        for _ in range(4):
+            eng.step()
+            eng.poll()
+        sync()
+        if cuda:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+        for _ in range(32):
+            eng.step()
+            eng.poll()
+        if cuda:
+            end.record()
+            end.synchronize()
+            replay_ms = start.elapsed_time(end) / 32
+        host = []
+        for _ in range(8):
+            sync()
+            t0 = time.perf_counter()
+            eng.step()
+            eng.poll()
+            host.append((time.perf_counter() - t0) * 1e3)
+        host_ms = sorted(host)[len(host) // 2]
+        if cuda:
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(PROFILE_STEPS):
+                    eng.step()
+                    eng.poll()
+                sync()
+            nccl_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                          if "nccl" in e.key.lower()) / 1e3 / PROFILE_STEPS
+        eng.reset()
+    pool_bytes = eng.stats()["kv"]["hbm_bytes"]
+    peaks = acc.state.gather_object(torch.cuda.max_memory_allocated() if cuda else 0)
+    nccl = acc.state.gather_object(nccl_ms)
+    replay = acc.state.gather_object(replay_ms)
+    hosts = acc.state.gather_object(host_ms)
+    check = None
+    if acc.is_main_process:
+        with torch.no_grad():
+            ref_model = create_llama(cfg, seed=0, device=acc.device)
+            ref = ContinuousBatchingEngine(
+                ref_model, slots=scfg.engine_slots, max_len=scfg.engine_max_len,
+                prompt_bucket=scfg.engine_prompt_bucket, kv_cache=scfg.kv_cache,
+                block_size=scfg.engine_block_size, attention_impl=scfg.attention_impl,
+                readback_lag=scfg.engine_readback_lag, device=acc.device)
+            occs = []
+            for i, p in enumerate(prompts):
+                while not ref.free_slots():
+                    ref.step()
+                    ref.poll()
+                occs.append(ref.insert(p, max_new_tokens=new, **_request_kwargs(i)))
+            ref.drain()
+            greedy = [i for i in range(len(prompts)) if i % 2 == 0]
+            share, ulps = _engine_agreement(cfg, ref_model.params, [prompts[i] for i in greedy],
+                                            [tokens[i] for i in greedy])
+            equal = sum(np.array_equal(t, o.output_row()) for t, o in zip(tokens, occs))
+            check = dict(argmax_share=share, largest_gap_ulps=ulps, equal_to_unsharded=equal,
+                         requests=len(prompts),
+                         passed=share >= GREEDY_SHARE_MIN and ulps <= NEAR_TIE_ULPS)
+            del ref, ref_model
+    pcfg = acc.parallelism_config
+    result = dict(
+        card=card_line() if cuda else "cpu (rehearsal; no device time)", mode="continuous",
+        layout=acc.layout, mesh={a: s for a, s in pcfg.axis_sizes.items() if s > 1} or {"world": 1},
+        world=acc.num_processes, layers=args.layers, requests=len(prompts), new=new,
+        programs=programs, graphs=graphs, serve_s=wall,
+        tokens_per_s=len(prompts) * new / wall if wall else None,
+        engine=None if not acc.is_main_process else dict(
+            steps=engine_stats["steps"], inserted=engine_stats["inserted"]),
+        timed_steps=steps, messages=messages,
+        broadcast_ms_per_step=(send_s / steps * 1e3) if steps else None,
+        decode_replay_ms_by_rank=replay, host_ms_per_step_by_rank=hosts,
+        nccl_ms_per_step_by_rank=nccl, peak_gb_per_rank=[x / 1e9 for x in peaks],
+        pool_gb_per_rank=pool_bytes / 1e9, check=check)
+    if acc.is_main_process:
+        os.makedirs(OUT, exist_ok=True)
+        line = json.dumps(result)
+        with open(os.path.join(OUT, f"serve_timing_continuous_{acc.layout}_{args.layers}l.json"),
+                  "w") as f:
+            f.write(line + "\n")
+        print(line, flush=True)
+        if not check["passed"]:
+            raise AssertionError(f"the mesh's greedy tokens disagree with the plain forward: {check}")
     acc.wait_for_everyone()
     return result
 

@@ -70,7 +70,8 @@ Phases (any failure exits non-zero and prints no result):
      the engine's counters, greedy requests teacher-forced, tokens/s,
      TTFT, acceptance, steady-state verify and decode step and chunk
      times (three repeats) with the host's wait for the readbacks before
-     drafting, a profile of replayed verify steps
+     drafting, a profile of replayed verify steps; then phase 15 (b)'s
+     four requests through its engine on each pool, its references
  12. (run right after 7, on its model, before 8 quantizes it) static
      generation: (a) ``generate`` at B = 8, a 512-token prompt and 128 new
      tokens, greedy, under the dense, paged and paged_int8 KV backends:
@@ -139,9 +140,7 @@ Phases (any failure exits non-zero and prints no result):
      launch counters reset just before (2L B1, L B2, L B3 a step); the
      first loss bitwise equal to phase 6's and all ten within 1e-2 of
      them; step ms, tokens/s, MFU, peak memory, busy share beside phase
-     6's; a DTensor given to the flash wrapper must raise; then save_state
-     under FSDP2 at phase 9's depth rule and load_state into a fresh FSDP2
-     model, every parameter and moment bitwise
+     6's; a DTensor given to the flash wrapper must raise
  11. (run after 10) tensor parallelism: (a) phase 6's model, seed, batch
      and step over a one-rank NCCL group, forced to the TP layout by a
      TensorParallelConfig: every parameter a DTensor block on the tp mesh,
@@ -193,13 +192,33 @@ Phases (any failure exits non-zero and prints no result):
      dim (each layer's shards gathered inside the captured step), dense,
      bitwise again (static_tp_fsdp); (d) ``InferenceServer(ServingConfig())`` over that model,
      8 requests of 512 tokens and 64 new, every reply equal to a direct
-     ``generate`` (static_tp_server); (b) four tp ranks and (c) dp_shard 2
-     x tp 2 as threads over torch's threaded group on the card (it cannot
-     be captured: the decode runs eagerly) at 4 layers, 64 new tokens:
-     tokens equal on every rank and held against the plain forward by
-     phase 12's rule, B1 at 8/2 and 16/4 heads a rank counted
-     (static_tp4_threads, static_dp_shard2_tp2_threads), and a planted
-     fault (rank 1 sampling with another seed) caught on every rank
+     ``generate`` (static_tp_server); (c) dp_shard 2 x tp 2 as threads
+     over torch's threaded group on the card (it cannot be captured: the
+     decode runs eagerly) at 4 layers, 64 new tokens: tokens equal on
+     every rank and held against the plain forward by phase 12's rule, B1
+     at 16/4 heads a rank counted (static_dp_shard2_tp2_threads), and a
+     planted fault (rank 1 sampling with another seed) caught on every
+     rank
+ 15. (run after 14) the continuous engine over a mesh: (a) phase 4's
+     32-layer model laid out by ``prepare_inference(mesh=,
+     rules=tensor_parallel_rules())`` over a one-rank NCCL group forced to
+     the TP layout, phase 4's 16 requests through
+     ``InferenceServer(mode="continuous")`` (the engine's programs
+     captured with their NCCL collectives): every request's tokens bitwise
+     equal to phase 4's; programs equal to JAX's, launches per replay,
+     launches against the engine's counters (continuous_tp); decode
+     replay ms and the host's ms a tick beside phase 4's, the pool's bytes;
+     (b) 4 of phase 7's requests (2 drafter-friendly greedy, 2 of
+     1,025-1,500 tokens sampled) with speculation and 512-token chunks on
+     the bf16 and the int8 pool, inserted at once into the engine and
+     drained (continuous_tp_spec, continuous_tp_int8): every request's
+     tokens bitwise equal to the same run on phase 7's unsharded model (at
+     the end of phase 7), programs and launches as in 7, the bf16 pool's
+     greedy requests teacher-forced by phase 7's rule; (c) tp 2
+     as threads (eager) at 4 layers, the same kind of traffic through the
+     engine: B1, B4, B5 and B6 at 16/4 heads a rank (continuous_tp2_threads),
+     tokens equal on both ranks and held against the plain forward by
+     phase 12's rule
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Long output goes to chiprun_out/.
 """
@@ -1509,7 +1528,8 @@ JAX_PROGRAMS = {"serving": {"prefill_insert": 1, "decode_step": 1},
                 "spec": {"prefill_insert": 2, "decode_step": 1, "verify_step": 1}}
 
 
-def serve_mix(dev, model, prompts, scfg, new_tokens, engine=None, eager=False, warm=()):
+def serve_mix(dev, model, prompts, scfg, new_tokens, engine=None, eager=False, warm=(),
+              indices=None):
     """Serve ``prompts`` at once through an InferenceServer over ``engine``
     (a new one when None: its programs captured as CUDA graphs, or run
     eagerly with ``eager``, through ``engine._disable_graphs``). ``warm``
@@ -1517,7 +1537,8 @@ def serve_mix(dev, model, prompts, scfg, new_tokens, engine=None, eager=False, w
     shared prefix would skip its chunks). Launch counters reset just
     before the mix and read just after. Closing the server resets the
     engine in place, so its graphs serve the next mix. Even requests are
-    greedy, odd ones sampled. Returns a dict: results, wall_s, launches,
+    greedy, odd ones sampled, each seeded with its index (``indices``: the
+    requests' indices in a mix they were taken from). Returns a dict: results, wall_s, launches,
     delta (the engine's counters over the mix), programs, engine."""
     from accelerate_tpu_torch.engine import _disable_graphs
     from accelerate_tpu_torch.ops import _build
@@ -1540,7 +1561,7 @@ def serve_mix(dev, model, prompts, scfg, new_tokens, engine=None, eager=False, w
         _build.reset_launch_counts()
         t0 = time.perf_counter()
         futs = []
-        for i, p in enumerate(prompts):
+        for i, p in zip(range(len(prompts)) if indices is None else indices, prompts):
             sampled = i % 2 == 1
             futs.append(srv.submit(
                 p, max_new_tokens=new_tokens, temperature=0.8 if sampled else 0.0,
@@ -1623,6 +1644,25 @@ def run_numbers(runs):
                  counters=r["delta"]) for r in runs]
 
 
+MAIN_NEW_TOKENS = 64
+
+
+def main_traffic(vocab):
+    """Phase 4's mix: 16 random prompts of 64-512 tokens, and one warm-up
+    prompt unrelated to it."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 513, size=16)
+    prompts = [rng.integers(0, vocab, size=int(n)).astype(np.int32) for n in lens]
+    return prompts, [np.random.default_rng(1).integers(0, vocab, size=64).astype(np.int32)]
+
+
+def main_expected(n_layers, n_req, run):
+    """Phase 4's launches from the engine's steps."""
+    steps = run["delta"]["steps"]
+    return {"flash_fwd_mma": n_layers * n_req, "paged_decode_mma": n_layers * steps,
+            "fused_sample": steps + n_req}
+
+
 def phase_main_path(dev, card, model):
     from accelerate_tpu_torch.models.llama import llama_prefill_at
     from accelerate_tpu_torch.utils.dataclasses import ServingConfig
@@ -1630,15 +1670,12 @@ def phase_main_path(dev, card, model):
     cfg = model.config
     n_layers = cfg.num_hidden_layers
     scfg = ServingConfig(**SERVING)
-    rng = np.random.default_rng(0)
-    n_req, new_tokens = 16, 64
-    lens = rng.integers(64, 513, size=n_req)
-    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32) for n in lens]
-    warm = [np.random.default_rng(1).integers(0, cfg.vocab_size, size=64).astype(np.int32)]
+    prompts, warm = main_traffic(cfg.vocab_size)
+    n_req, new_tokens = len(prompts), MAIN_NEW_TOKENS
+    lens = np.array([len(p) for p in prompts])
+
     def expected(run):
-        steps = run["delta"]["steps"]
-        return {"flash_fwd_mma": n_layers * n_req, "paged_decode_mma": n_layers * steps,
-                "fused_sample": steps + n_req}
+        return main_expected(n_layers, n_req, run)
 
     runs, eng = [], None
     for rep in range(SERVING_REPEATS):
@@ -1671,7 +1708,8 @@ def phase_main_path(dev, card, model):
             raise AssertionError("full-depth prefill logits are not finite")
     launches = runs[0]["launches"]
     numbers = dict(runs=run_numbers(runs), eager_run=eager_numbers, programs=runs[0]["programs"],
-                   per_replay=eng.graph_launches(), steady=steady, steady_eager=steady_eager)
+                   per_replay=eng.graph_launches(), steady=steady, steady_eager=steady_eager,
+                   tokens=[r.tokens for r in runs[0]["results"]])
     return {k: launches[k] for k in ("flash_fwd_mma", "paged_decode_mma", "fused_sample")}, numbers
 
 
@@ -1925,6 +1963,16 @@ def phase_spec_path(dev, card, model):
     )
     del run8, eager8
     torch.cuda.empty_cache()
+    # phase 15 (b)'s references: its four requests through this model's
+    # engine, on each pool
+    numbers["tokens"] = {}
+    for kv in ("paged", "paged_int8"):
+        ref = spec_engine_run(dev, model, kv)
+        numbers["tokens"][kv] = ref["tokens"]
+        log(f"phase 7 reference for phase 15 (b) on {kv}: {len(ref['tokens'])} requests in "
+            f"{ref['wall_s']:.3f}s, engine steps {ref['delta']}")
+        del ref
+        torch.cuda.empty_cache()
     return a_launches, b_launches, numbers
 
 
@@ -3016,68 +3064,12 @@ def dp_run(layout, card, phase6):
         tokens_per_s=tokens_per_s, mfu=mfu, peak_memory_bytes=peak, profile=profile), (acc, model, optimizer)
 
 
-def local_tensors(model, optimizer):
-    """Every parameter's and AdamW state tensor's local shard (at world
-    size 1 the whole tensor), in order."""
-    from accelerate_tpu_torch.optimizer import local_tensor
-
-    out = [local_tensor(p.detach()) for p in model.parameters()]
-    for p in optimizer.params():
-        for key in sorted(optimizer.optimizer.state[p]):
-            out.append(local_tensor(optimizer.optimizer.state[p][key]))
-    return out
-
-
-def dp_checkpoint(card, trained):
-    """Save the FSDP2 run's state, load it into a fresh FSDP2 model and
-    optimizer, and compare every parameter and moment bitwise."""
-    import shutil
-    import tempfile
-
-    tmp_root = tempfile.gettempdir()
-    free_disk = shutil.disk_usage(tmp_root).free
-    free_ram = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
-    layers, sizes = resume_depth(free_disk, free_ram, max_layers=TRAIN_LAYERS)
-    acc, model, optimizer = trained
-    if layers != TRAIN_LAYERS:  # a shallower model of its own, one step taken
-        from accelerate_tpu_torch.models.llama import llama_loss
-
-        del acc, model, optimizer, trained
-        gc.collect()
-        torch.cuda.empty_cache()
-        acc = dp_accelerator("fsdp")
-        cfg, model, optimizer = dp_model(acc, layers, seed=0)
-        ids = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ), device=acc.device)
-        acc.train_step(llama_loss, max_grad_norm=1.0)({"input_ids": ids})
-    nbytes = sizes[layers][1]
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_fsdp_", dir=tmp_root) as tmp:
-        path = os.path.join(tmp, "ckpt")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        acc.save_state(path)
-        save_s = time.perf_counter() - t0
-        acc2 = dp_accelerator("fsdp")
-        _, model2, optimizer2 = dp_model(acc2, layers, seed=1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        acc2.load_state(path)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        a, b = local_tensors(model, optimizer), local_tensors(model2, optimizer2)
-        same = len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
-    log(f"phase 10 FSDP2 checkpoint at world size 1, {layers} layers ({nbytes / 1e9:.2f} GB: f32 weights "
-        f"and both AdamW moments, gathered whole with get_model_state_dict/get_optimizer_state_dict): "
-        f"save_state {save_s:.2f}s ({nbytes / save_s / 1e9:.3f} GB/s), load_state into a fresh FSDP2 "
-        f"model {load_s:.2f}s ({nbytes / load_s / 1e9:.3f} GB/s); {len(a)} parameter and moment "
-        f"tensors bitwise equal: {same} [{card}]")
-    if not same:
-        raise AssertionError("phase 10: the FSDP2 checkpoint did not load bitwise")
-    return dict(layers=layers, bytes=nbytes, save_s=save_s, load_s=load_s, bitwise=same)
-
-
 def phase_data_parallel(card, phase6):
     """Phase 10: DDP and FSDP2 at world size 1 over NCCL (an in-process
-    group on cuda:0), then the FSDP2 checkpoint; ends the group."""
+    group on cuda:0); ends the group. The FSDP2 checkpoint round trip is
+    held bitwise by the CPU tests (``tests/test_torch_fsdp_resume.py``)
+    and on four cards (``four_card_runs.sh supervise``); its 23 GB save
+    here cost the script's time limit about a minute."""
     import shutil
     import tempfile
 
@@ -3108,7 +3100,6 @@ def phase_data_parallel(card, phase6):
             log(f"phase 10: a DTensor given to the flash wrapper raised TypeError ({e})")
         else:
             raise AssertionError("phase 10: the flash wrapper took a DTensor")
-        out["checkpoint"] = dp_checkpoint(card, trained)
         del trained, acc
     finally:
         AcceleratorState._reset_state(reset_partial_state=True)
@@ -4242,7 +4233,9 @@ SERVE_MESH_LAYERS = 8
 SERVE_THREAD_LAYERS = 4
 SERVE_THREAD_NEW = 64
 SERVE_THREAD_TIMEOUT_S = 300
-SERVE_THREAD_LAYOUTS = {"tp4": {"tp": 4}, "dp_shard2_tp2": {"dp_shard": 2, "tp": 2}}
+# one threaded layout (the script's time limit holds phase 15 too): both
+# dims, B1 at 16/4 heads; phase 11 (b) runs B1 at 8/2 heads
+SERVE_THREAD_LAYOUTS = {"dp_shard2_tp2": {"dp_shard": 2, "tp": 2}}
 SERVE_SERVER_NEW = 64
 
 
@@ -4396,13 +4389,12 @@ def serve_one_rank(dev, card):
     return tp_launches, fsdp_launches, server_launches, numbers
 
 
-def serve_threads(dims, whole, cfg, ids, fault=False):
-    """Phase 14 (b)/(c): one rank of the ``dims`` mesh a thread of this
-    process over torch's threaded group on the one card, each holding its
-    ``tp`` blocks (and under ``dp_shard`` its FSDP2 shards) of ``whole``
-    (checkpoint key -> tensor); each runs ``generate`` greedy, or with
-    ``fault`` sampled with rank 1's seed another. Returns ({rank: tokens},
-    {rank: what the fault raised}, the launches of the run)."""
+def thread_ranks(dims, whole, cfg, work, label):
+    """One rank of the ``dims`` mesh a thread of this process over torch's
+    threaded group on the one card, each holding its ``tp`` blocks (and
+    under ``dp_shard`` its FSDP2 shards) of ``whole`` (checkpoint key ->
+    tensor), each running ``work(model, rank)``. Returns ({rank: what work
+    returned}, the launches of the run)."""
     import threading
 
     import torch.distributed as dist
@@ -4411,7 +4403,7 @@ def serve_threads(dims, whole, cfg, ids, fault=False):
     from torch.testing._internal.distributed import multi_threaded_pg
 
     from accelerate_tpu_torch.big_modeling import init_empty_weights
-    from accelerate_tpu_torch.inference import generate, graphs_supported
+    from accelerate_tpu_torch.inference import graphs_supported
     from accelerate_tpu_torch.models.llama import create_llama, serving_view
     from accelerate_tpu_torch.ops import _build
     from accelerate_tpu_torch.parallel.mesh import sub_mesh
@@ -4421,7 +4413,7 @@ def serve_threads(dims, whole, cfg, ids, fault=False):
     with init_empty_weights():
         shells = [create_llama(cfg) for _ in range(world)]
     store = dist.HashStore()
-    out = {"tokens": {}, "caught": {}, "errors": {}, "graphs": {}}
+    out = {"results": {}, "errors": {}, "graphs": {}}
     pg = multi_threaded_pg._install_threaded_pg()
     torch._C._distributed_c10d._set_thread_isolation_mode(True)
     _build.reset_launch_counts()
@@ -4439,14 +4431,7 @@ def serve_threads(dims, whole, cfg, ids, fault=False):
                     fully_shard(layer, mesh=sub_mesh(mesh, "dp_shard"))
                 fully_shard(model, mesh=sub_mesh(mesh, "dp_shard"), reshard_after_forward=False)
             out["graphs"][r] = graphs_supported(serving_view(model))
-            if fault:
-                try:
-                    generate(model, ids, SERVE_THREAD_NEW, **{**STATIC_SAMPLED, "seed": 3 + (r == 1)})
-                    out["caught"][r] = None
-                except ValueError as e:
-                    out["caught"][r] = str(e)
-            else:
-                out["tokens"][r] = generate(model, ids, SERVE_THREAD_NEW)
+            out["results"][r] = work(model, r)
             dist.barrier()
         except BaseException as e:  # handed to the main thread, which raises it
             out["errors"][r] = e
@@ -4459,7 +4444,7 @@ def serve_threads(dims, whole, cfg, ids, fault=False):
         for t in threads:
             t.join(timeout=SERVE_THREAD_TIMEOUT_S)
         if any(t.is_alive() for t in threads) and not out["errors"]:
-            raise AssertionError(f"phase 14: a serving thread still runs after {SERVE_THREAD_TIMEOUT_S}s")
+            raise AssertionError(f"{label}: a thread still runs after {SERVE_THREAD_TIMEOUT_S}s")
     finally:
         torch._C._distributed_c10d._set_thread_isolation_mode(False)
         multi_threaded_pg._uninstall_threaded_pg()
@@ -4467,12 +4452,32 @@ def serve_threads(dims, whole, cfg, ids, fault=False):
     if out["errors"]:
         raise next(iter(out["errors"].values()))
     if any(out["graphs"].values()):
-        raise AssertionError("phase 14: the threaded group claims a capturable decode step")
-    return out["tokens"], out["caught"], _build.launch_counts()
+        raise AssertionError(f"{label}: the threaded group claims a capturable step")
+    return out["results"], _build.launch_counts()
+
+
+def serve_threads(dims, whole, cfg, ids, fault=False):
+    """Phase 14 (c) through :func:`thread_ranks`: each rank runs
+    ``generate`` greedy, or with ``fault`` sampled with rank 1's seed
+    another. Returns ({rank: tokens}, {rank: what the fault raised}, the
+    launches of the run)."""
+    from accelerate_tpu_torch.inference import generate
+
+    def work(model, r):
+        if not fault:
+            return generate(model, ids, SERVE_THREAD_NEW)
+        try:
+            generate(model, ids, SERVE_THREAD_NEW, **{**STATIC_SAMPLED, "seed": 3 + (r == 1)})
+        except ValueError as e:
+            return str(e)
+        return None
+
+    results, launches = thread_ranks(dims, whole, cfg, work, "phase 14")
+    return ({}, results, launches) if fault else (results, {}, launches)
 
 
 def serve_thread_layouts(dev, card):
-    """Phase 14 (b) and (c) on a 4-layer model: greedy tokens held against
+    """Phase 14 (c) on a 4-layer model: greedy tokens held against
     the plain forward by phase 12's rule, equal on every rank; B1 at the
     ranks' heads counted; the planted seed fault caught on every rank.
     Returns ({layout: launches}, numbers)."""
@@ -4526,7 +4531,7 @@ def serve_thread_layouts(dev, card):
 
 def phase_serving_mesh(dev, card):
     """Phase 14: (a) and (d) over a one-rank NCCL group (ended after),
-    then (b) and (c) over torch's threaded group. Returns ({path:
+    then (c) over torch's threaded group. Returns ({path:
     launches}, numbers)."""
     import shutil
     import tempfile
@@ -4555,6 +4560,275 @@ def phase_serving_mesh(dev, card):
     paths = {"static_tp": tp_launches, "static_tp_fsdp": fsdp_launches,
              "static_tp_server": server_launches}
     paths.update({f"static_{name}_threads": counts for name, counts in thread_launches.items()})
+    return paths, numbers
+
+
+# ---------------------------------------------------------------- phase 15
+# the continuous engine over a mesh: (a) phase 4's model and traffic under
+# the TP layout at tp = 1 over a one-rank NCCL group, through the
+# continuous InferenceServer; (b) four of phase 7's requests with
+# speculation and chunks on the bf16 and the int8 pool; (c) tp 2 as
+# threads at 4 layers, eagerly
+CONT_SPEC_PICK = (0, 3, 4, 7)  # of spec_traffic: 0, 4 drafter-friendly (greedy), 3, 7 long (sampled)
+CONT_THREAD_LAYERS = 4
+CONT_THREAD_DIMS = {"tp": 2}
+
+
+def spec_shape():
+    return dict(bucket=SPEC_SERVING["engine_prompt_bucket"], chunk=SPEC_SERVING["engine_prefill_chunk"],
+                k=SPEC_SERVING["spec_draft_len"])
+
+
+def pooled_teacher_forced(cfg_r, params, prompts, tokens):
+    """Phase 7's rule over greedy requests: (argmax share pooled over the
+    requests, the largest gap at the rest)."""
+    agree = total = 0
+    worst = 0.0
+    for p, t in zip(prompts, tokens):
+        a, n, gap = teacher_forced(cfg_r, params, p, list(t))
+        agree, total, worst = agree + a, total + n, max(worst, gap)
+    return agree / total, worst
+
+
+def spec_engine_run(dev, model, kv):
+    """Phase 15 (b)'s requests (``CONT_SPEC_PICK`` of phase 7's mix, even
+    indices greedy, odd ones sampled with their index as seed) inserted at
+    once into a fresh engine at phase 7's settings over the ``kv`` pool,
+    then drained; the launch counters reset just before. One schedule, so
+    two models that compute the same logits give the same tokens."""
+    from accelerate_tpu_torch.engine import ContinuousBatchingEngine
+    from accelerate_tpu_torch.ops import _build
+
+    sp = spec_traffic(model.config.vocab_size)
+    prompts = [sp[i] for i in CONT_SPEC_PICK]
+    eng = ContinuousBatchingEngine(
+        model, slots=SPEC_SERVING["engine_slots"], max_len=SPEC_SERVING["engine_max_len"],
+        prompt_bucket=SPEC_SERVING["engine_prompt_bucket"],
+        readback_lag=SPEC_SERVING["engine_readback_lag"], kv_cache=kv,
+        block_size=SPEC_SERVING["engine_block_size"], attention_impl="kernel", spec="ngram",
+        spec_draft_len=SPEC_SERVING["spec_draft_len"],
+        prefill_chunk=SPEC_SERVING["engine_prefill_chunk"], device=dev)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    occs = []
+    for i, p in zip(CONT_SPEC_PICK, prompts):
+        sampled = i % 2 == 1
+        occs.append(eng.insert(p, max_new_tokens=SPEC_NEW_TOKENS,
+                               temperature=0.8 if sampled else 0.0, top_k=50 if sampled else None,
+                               top_p=0.9 if sampled else None, seed=i))
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = eng.stats()
+    spec = stats["spec"]
+    delta = dict(steps=eng.steps, verify=eng.spec_verify_steps, chunks=eng.prefill_chunks,
+                 inserted=eng.inserted, **{k: spec[k] for k in ("drafted", "accepted", "wasted")})
+    return dict(tokens=[o.output_row() for o in occs], prompts=prompts, delta=delta,
+                launches=_build.launch_counts(), programs=stats["programs"],
+                program_count=stats["program_count"], engine=eng, wall_s=wall,
+                hbm_bytes=stats["kv"]["hbm_bytes"])
+
+
+def continuous_one_rank(dev, card, n_layers, reference):
+    """Phase 15 (a) and (b) over the one-rank NCCL group the caller
+    started. Returns ({path: launches}, numbers)."""
+    import dataclasses
+
+    from torch.distributed.tensor import DTensor
+
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.inference import prepare_inference
+    from accelerate_tpu_torch.models.llama import serving_view
+    from accelerate_tpu_torch.parallel.tp import tensor_parallel_rules
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+    from accelerate_tpu_torch.utils.dataclasses import ServingConfig, TensorParallelConfig
+
+    acc = Accelerator(mixed_precision="bf16",
+                      parallelism_config=ParallelismConfig(tp_config=TensorParallelConfig()))
+    if acc.layout != "tp":
+        raise AssertionError(f"phase 15: asked for the TP layout, the Accelerator chose {acc.layout}")
+    laid = prepare_inference(serving_model(dev, n_layers), mesh=acc.mesh, rules=tensor_parallel_rules())
+    if laid.tp is None or not all(isinstance(p, DTensor) for p in laid.parameters()):
+        raise AssertionError("phase 15: prepare_inference(mesh=, rules=) did not lay the model out")
+    cfg = laid.config
+    paths, numbers = {}, {}
+
+    # (a) phase 4's mix through the continuous server, one run (it captures)
+    prompts, warm = main_traffic(cfg.vocab_size)
+    run = serve_mix(dev, laid, prompts, ServingConfig(**SERVING), MAIN_NEW_TOKENS, warm=warm)
+    eng = run["engine"]
+    check_launches("phase 15 (a)", run["launches"], main_expected(n_layers, len(prompts), run))
+    check_programs("phase 15 (a)", run, JAX_PROGRAMS["serving"])
+    check_replay_launches("phase 15 (a)", eng, n_layers, SERVING["engine_prompt_bucket"])
+    same = [np.array_equal(r.tokens, t) for r, t in zip(run["results"], reference["serving"])]
+    log_run("phase 15 (a) (the continuous server over the TP layout at tp=1, NCCL collectives in "
+            "the captured programs; phase 4's 16 requests, half sampled)", run, card,
+            f"; tokens bitwise equal to phase 4's: {sum(same)}/{len(same)}; pool "
+            f"{run['delta']['hbm_bytes'] / 1e9:.3f} GB a rank")
+    if not all(same):
+        raise AssertionError(f"phase 15 (a): requests {[i for i, x in enumerate(same) if not x]} "
+                             "differ from phase 4's unsharded engine")
+    steady = decode_steady_state(eng, prompts, card, 1, profile=False, label="phase 15 (a)")
+    ref_steady = reference["steady"]
+    log(f"phase 15 (a) decode replay {steady['decode_ms_per_step'][0]:.3f} ms/step against phase 4's "
+        + ", ".join(f"{x:.3f}" for x in ref_steady["decode_ms_per_step"]) + "; the host's ms a tick "
+        f"{steady['host_ms_per_step'][0]:.3f} against "
+        + ", ".join(f"{x:.3f}" for x in ref_steady["host_ms_per_step"]) + f" [{card}]")
+    paths["continuous_tp"] = {k: run["launches"][k] for k in main_expected(n_layers, len(prompts), run)}
+    numbers["main"] = dict(run=run_numbers([run])[0], steady=steady, programs=run["programs"],
+                           per_replay=eng.graph_launches(), pool_bytes=run["delta"]["hbm_bytes"])
+    del eng, run
+    torch.cuda.empty_cache()
+
+    # (b) speculation and chunks on the bf16 and the int8 pool, through the
+    # engine (one schedule: its tokens are the unsharded engine's bit for bit)
+    cfg_r = dataclasses.replace(cfg, attention_impl="xla")
+    params = serving_view(laid).params  # at tp = 1 the rank's blocks are the whole leaves
+    for kv, suffix, path in (("paged", "", "continuous_tp_spec"),
+                             ("paged_int8", "_int8", "continuous_tp_int8")):
+        label = f"phase 15 (b) {kv}"
+        run = spec_engine_run(dev, laid, kv)
+        d, sub = run["delta"], run["prompts"]
+        n_single = sum(len(p) <= SPEC_SERVING["engine_prompt_bucket"] for p in sub)
+        expected = expected_launches(n_layers, d, n_single, suffix)
+        check_launches(label, run["launches"], expected)
+        check_programs(label, run, JAX_PROGRAMS["spec"])
+        check_replay_launches(label, run["engine"], n_layers, suffix=suffix, **spec_shape())
+        if not (d["verify"] > 0 and d["chunks"] == 3 * (len(sub) - n_single)):
+            raise AssertionError(f"{label}: the verify or the chunk program did not run: {d}")
+        same = [np.array_equal(t, r) for t, r in zip(run["tokens"], reference["spec"][kv])]
+        share = gap = None
+        if kv == "paged":  # phase 7's rule holds the bf16 pool (the plain forward has no int8)
+            greedy = [(p, t[len(p):]) for i, p, t in zip(CONT_SPEC_PICK, sub, run["tokens"])
+                      if i % 2 == 0]
+            share, gap = pooled_teacher_forced(cfg_r, params, *zip(*greedy))
+        log(f"{label} (the engine over the TP layout at tp=1; spec ngram/4, chunk 512; "
+            f"{n_single} drafter-friendly greedy, {len(sub) - n_single} of 1,025-1,500 sampled, "
+            f"{SPEC_NEW_TOKENS} new): {d} in {run['wall_s']:.3f}s; tokens bitwise equal to the "
+            f"unsharded engine's (phase 7's model) {sum(same)}/{len(same)}"
+            + ("" if share is None else f"; greedy teacher-forced share {share:.3f} (min "
+               f"{GREEDY_SHARE_MIN}), largest gap {gap:.4f} (near-tie limit {NEAR_TIE})")
+            + f"; pool {run['hbm_bytes'] / 1e9:.3f} GB a rank [{card}]")
+        if not all(same):
+            raise AssertionError(f"{label}: requests {[i for i, x in enumerate(same) if not x]} "
+                                 "differ from the unsharded engine's")
+        if share is not None and not (share >= GREEDY_SHARE_MIN and gap <= NEAR_TIE):
+            raise AssertionError(f"{label}: greedy tokens disagree with the plain forward")
+        paths[path] = {k: run["launches"][k] for k in expected}
+        numbers[kv] = dict(wall_s=run["wall_s"], delta=d, programs=run["programs"],
+                           greedy_share=share, greedy_worst_gap=gap, pool_bytes=run["hbm_bytes"])
+        del run
+        torch.cuda.empty_cache()
+    del laid, params, acc
+    return paths, numbers
+
+
+def continuous_threads(dev, card):
+    """Phase 15 (c): tp 2 as threads, 4 layers, the engine eagerly over
+    (b)'s four prompts, all greedy: B1, B4, B5 and B6 at 16/4 heads a rank.
+    Returns (launches, numbers)."""
+    import dataclasses
+
+    from accelerate_tpu_torch.engine import ContinuousBatchingEngine
+
+    n_layers = CONT_THREAD_LAYERS
+    model = serving_model(dev, n_layers)
+    cfg = model.config
+    whole = {key: getattr(model, name).detach() for key, name in model.checkpoint_keys()}
+    params = model.params
+    prompts = [spec_traffic(cfg.vocab_size)[i] for i in CONT_SPEC_PICK]
+    n_single = sum(len(p) <= SPEC_SERVING["engine_prompt_bucket"] for p in prompts)
+
+    def work(laid, r):
+        eng = ContinuousBatchingEngine(
+            laid, slots=8, max_len=SPEC_SERVING["engine_max_len"],
+            prompt_bucket=SPEC_SERVING["engine_prompt_bucket"], kv_cache="paged", block_size=16,
+            attention_impl="kernel", spec="ngram", spec_draft_len=SPEC_SERVING["spec_draft_len"],
+            prefill_chunk=SPEC_SERVING["engine_prefill_chunk"], device=dev)
+        occs = [eng.insert(p, max_new_tokens=SPEC_NEW_TOKENS) for p in prompts]
+        eng.drain()
+        return dict(tokens=[list(o.tokens) for o in occs],
+                    delta=dict(steps=eng.steps, verify=eng.spec_verify_steps, chunks=eng.prefill_chunks),
+                    pool_bytes=eng.stats()["kv"]["hbm_bytes"])
+
+    t0 = time.perf_counter()
+    results, counts = thread_ranks(CONT_THREAD_DIMS, whole, cfg, work, "phase 15 (c)")
+    secs = time.perf_counter() - t0
+    world = math.prod(CONT_THREAD_DIMS.values())
+    first = results[0]
+    equal = all(res["tokens"] == first["tokens"] and res["delta"] == first["delta"]
+                for res in results.values())
+    expected = {k: world * n for k, n in expected_launches(n_layers, first["delta"], n_single).items()}
+    tp = CONT_THREAD_DIMS["tp"]
+    heads = (cfg.num_attention_heads // tp, cfg.num_key_value_heads // tp)
+    check_launches(f"phase 15 (c) ({world} threads, {heads[0]} q and {heads[1]} kv heads a rank)",
+                   counts, expected)
+    cfg_r = dataclasses.replace(cfg, attention_impl="xla")
+    shares = [teacher_forced_ulps(cfg_r, params, p, t) for p, t in zip(prompts, first["tokens"])]
+    n = sum(k for _, _, k in shares)
+    share = sum(a * k for a, _, k in shares) / n
+    gap_ulps = max(g for _, g, _ in shares)
+    log(f"phase 15 (c): tp {tp} as threads (threaded group: the engine runs eagerly), {n_layers} "
+        f"layers, (b)'s 4 prompts greedy, spec ngram/4, chunk 512, {SPEC_NEW_TOKENS} new in "
+        f"{secs:.1f}s; engine steps {first['delta']}; tokens and steps equal on every rank {equal}; "
+        f"teacher-forced against the plain forward: argmax share {share:.4f} (min "
+        f"{GREEDY_SHARE_MIN}), largest gap {gap_ulps:.3f} bf16 ulps (limit {Q_NEAR_TIE_ULPS}); pool "
+        f"{first['pool_bytes'] / 1e9:.3f} GB a rank [{card}]")
+    if not (equal and share >= GREEDY_SHARE_MIN and gap_ulps <= Q_NEAR_TIE_ULPS):
+        raise AssertionError("phase 15 (c): the ranks' tokens disagree with each other or with the "
+                             "plain forward")
+    if not (first["delta"]["verify"] > 0 and first["delta"]["chunks"] > 0):
+        raise AssertionError(f"phase 15 (c): the verify or the chunk program never ran ({first['delta']})")
+    del model, whole, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ({k: counts[k] for k in expected},
+            dict(seconds=secs, share=share, gap_ulps=gap_ulps, delta=first["delta"],
+                 pool_bytes=first["pool_bytes"]))
+
+
+def teacher_forced_ulps(cfg_r, params, prompt, tokens):
+    """Phase 12's rule for one request: (argmax share, largest gap in bf16
+    ulps of the plain forward's largest |logit|, positions), teacher-forced
+    over prompt + output."""
+    from accelerate_tpu_torch.models.llama import llama_apply
+
+    dev = params["embed_tokens"]["embedding"].device
+    toks = torch.tensor(tokens, device=dev).long()
+    seq = torch.cat([torch.from_numpy(prompt).to(dev).long(), toks[:-1]])[None]
+    ref = llama_apply(cfg_r, params, seq)[0, len(prompt) - 1:]
+    share, _, gap_ulps = choice_agreement(toks, ref)
+    return share, gap_ulps, len(tokens)
+
+
+def phase_continuous_mesh(dev, card, n_layers, reference):
+    """Phase 15: (a) and (b) over a one-rank NCCL group (ended after), then
+    (c) over torch's threaded group. Returns ({path: launches}, numbers)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    t0 = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="chip_smoke_rdzv_")
+    AcceleratorState._reset_state(reset_partial_state=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        paths, numbers = continuous_one_rank(dev, card, n_layers, reference)
+    finally:
+        AcceleratorState._reset_state(reset_partial_state=True)
+        GradientState._reset_state()
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    paths["continuous_tp2_threads"], numbers["threads"] = continuous_threads(dev, card)
+    numbers["seconds"] = time.perf_counter() - t0
+    log(f"phase 15 took {numbers['seconds']:.1f}s [{card}]")
     return paths, numbers
 
 
@@ -4763,32 +5037,64 @@ def run_phases(args) -> int:
         check_quant_matmul(dev, gen, results)
     launches = dict.fromkeys(KERNEL_META, 0)
     by_path = {}
-    summary = {"card": card, "build_s": secs}
+    summary = {"card": card, "build_s": secs, "phase_seconds": {"1-2": time.perf_counter() - t0}}
+    seconds = summary["phase_seconds"]
+
+    @contextlib.contextmanager
+    def phase(name):
+        start = time.perf_counter()
+        yield
+        seconds[name] = time.perf_counter() - start
+
     if not args.kernels:
         with torch.no_grad():
-            phase_engine_parity(dev, card)
-            model = serving_model(dev, args.layers)
-            by_path["serving"], summary["main_path"] = phase_main_path(dev, card, model)
-            by_path["serving_spec"], by_path["serving_int8"], summary["spec_path"] = (
-                phase_spec_path(dev, card, model))
+            with phase("3"):
+                phase_engine_parity(dev, card)
+            with phase("4"):
+                model = serving_model(dev, args.layers)
+                by_path["serving"], summary["main_path"] = phase_main_path(dev, card, model)
+            with phase("7"):
+                by_path["serving_spec"], by_path["serving_int8"], summary["spec_path"] = (
+                    phase_spec_path(dev, card, model))
             # phase 12 before 8: phase 8 quantizes the model in place
-            by_path["static"], summary["static_path"] = phase_static(dev, card, model)
-            by_path["quantized"], summary["quantized_path"] = phase_quantized(dev, card, model)
-            del model
-            torch.cuda.empty_cache()
-            summary["checkpoint"] = phase_checkpoint(dev, card)
+            with phase("12"):
+                by_path["static"], summary["static_path"] = phase_static(dev, card, model)
+            with phase("8"):
+                by_path["quantized"], summary["quantized_path"] = phase_quantized(dev, card, model)
+                del model
+                torch.cuda.empty_cache()
+                summary["checkpoint"] = phase_checkpoint(dev, card)
+        # the tokens phase 15 holds the mesh engine's against (not JSON)
+        reference = {"serving": summary["main_path"].pop("tokens"),
+                     "steady": summary["main_path"]["steady"],
+                     "spec": summary["spec_path"].pop("tokens")}
         torch.cuda.empty_cache()
-        by_path["training_f32"], summary["train_parity"] = phase_train_parity(dev, card)
-        by_path["training"], summary["train_main_path"] = phase_train_main_path(dev, card)
-        by_path["training_resume"], summary["resume"] = phase_resume(card, summary["train_main_path"])
-        dp_launches, summary["data_parallel"] = phase_data_parallel(card, summary["train_main_path"])
+        with phase("5"):
+            by_path["training_f32"], summary["train_parity"] = phase_train_parity(dev, card)
+        with phase("6"):
+            by_path["training"], summary["train_main_path"] = phase_train_main_path(dev, card)
+        with phase("9"):
+            by_path["training_resume"], summary["resume"] = phase_resume(
+                card, summary["train_main_path"])
+        with phase("10"):
+            dp_launches, summary["data_parallel"] = phase_data_parallel(
+                card, summary["train_main_path"])
         by_path["training_ddp"], by_path["training_fsdp2"] = dp_launches["ddp"], dp_launches["fsdp"]
-        by_path["training_tp"], by_path["training_tp4_threads"], summary["tensor_parallel"] = (
-            phase_tensor_parallel(card, summary["train_main_path"]))
-        by_path["training_supervised"], summary["supervised"] = phase_supervised(card)
+        with phase("11"):
+            by_path["training_tp"], by_path["training_tp4_threads"], summary["tensor_parallel"] = (
+                phase_tensor_parallel(card, summary["train_main_path"]))
+        with phase("13"):
+            by_path["training_supervised"], summary["supervised"] = phase_supervised(card)
         with torch.no_grad():
-            mesh_paths, summary["serving_mesh"] = phase_serving_mesh(dev, card)
-        by_path.update(mesh_paths)
+            with phase("14"):
+                mesh_paths, summary["serving_mesh"] = phase_serving_mesh(dev, card)
+            by_path.update(mesh_paths)
+            with phase("15"):
+                cont_paths, summary["continuous_mesh"] = phase_continuous_mesh(
+                    dev, card, args.layers, reference)
+            by_path.update(cont_paths)
+        log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+            + f"; total {sum(seconds.values()):.1f}s [{card}]")
         for counts in by_path.values():
             for name, n in counts.items():
                 launches[name] += n

@@ -382,14 +382,15 @@ def test_refusals_name_their_queue_items(tmp_path):
         ServingConfig(speculative="ngram")
     ServingConfig(mode="continuous", speculative="ngram")
     # A8 landed (prepare_inference(mesh=, rules=), generate and the static
-    # server over a mesh): no refusal names it; the continuous engine over
-    # a model laid out over a mesh names A8-bis
+    # server over a mesh), and A8-bis (the continuous engine over a model
+    # laid out over a mesh): no refusal names either, and the engine runs
+    # a laid model as it runs the model itself
     import re
 
     from accelerate_tpu_torch.engine import ContinuousBatchingEngine
 
     assert [str(f) for f in port.rglob("*.py")
-            if re.search(r"ROADMAP\.md A8\b(?!-)", f.read_text())] == []
+            if re.search(r"ROADMAP\.md A8\b", f.read_text())] == []
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -399,11 +400,19 @@ def test_refusals_name_their_queue_items(tmp_path):
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0, world_size=1)
     try:  # a one-rank mesh: tp blocks of one, as dispatch_model lays them
         mesh = init_device_mesh("cpu", (1, 1, 1), mesh_dim_names=("dp_replicate", "dp_shard", "tp"))
-        laid = dispatch_model(tl.LlamaForCausalLM.from_seed(
-            tl.LlamaConfig.tiny(compute_dtype=torch.float32), device="cpu"), mesh=mesh,
-            rules=tensor_parallel_rules())
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md A8-bis\b"):
-            ContinuousBatchingEngine(laid, device="cpu")
+        tiny = tl.LlamaConfig.tiny(compute_dtype=torch.float32)
+        laid = dispatch_model(tl.LlamaForCausalLM.from_seed(tiny, device="cpu"), mesh=mesh,
+                              rules=tensor_parallel_rules())
+        prompt = np.arange(3, 10, dtype=np.int32)
+
+        def engine_tokens(model):
+            eng = ContinuousBatchingEngine(model, slots=2, max_len=32, device="cpu")
+            occ = eng.insert(prompt, max_new_tokens=5)
+            eng.drain()
+            return occ.tokens
+
+        assert engine_tokens(laid) == engine_tokens(
+            tl.LlamaForCausalLM.from_seed(tiny, device="cpu"))
     finally:
         dist.destroy_process_group()
     AcceleratorState._reset_state(reset_partial_state=True)

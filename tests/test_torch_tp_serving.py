@@ -40,8 +40,10 @@ Held:
   1's ``close`` returns once rank 0's has ended it.
 * A planted fault: rank 1 called with another seed is caught on every
   rank. ``load_checkpoint_and_dispatch`` into ``tp`` 2 then ``generate``
-  gives the one-process tokens; the continuous engine refuses a model laid
-  over a mesh, naming its queue item.
+  gives the one-process tokens; the continuous engine, which refused a
+  model laid over a mesh until it was ported, runs it on every rank and
+  gives the one-process ``generate``'s greedy tokens
+  (``tests/test_torch_tp_engine.py`` holds it in full).
 """
 
 import os
@@ -330,7 +332,7 @@ def _layout_body(params, pcfg, name, eos, greedy, knobs_greedy, ckpt):
         out["lru"] = _lru_bound(params, pcfg)
         out["server"] = _serve(model, rank)
         out["load"] = _load_and_generate(ckpt, mesh, tp_rules)
-        out["engine"] = _engine_refusal(model)
+        out["engine"] = _engine_tokens(model)
         out["leader"] = _leader_beats_then_goes_quiet(model, rank)
     return out
 
@@ -385,14 +387,15 @@ def _load_and_generate(ckpt, mesh, tp_rules):
     return generate(model, _ids(), NEW).numpy()
 
 
-def _engine_refusal(model):
+def _engine_tokens(model):
+    """The continuous engine on the mesh model: every row of ``_ids()``
+    greedy, as prompt + new tokens."""
     from accelerate_tpu_torch.engine import ContinuousBatchingEngine
 
-    try:
-        ContinuousBatchingEngine(model, device="cpu")
-    except NotImplementedError as e:
-        return str(e)
-    return None
+    eng = ContinuousBatchingEngine(model, slots=ROWS, max_len=32, device="cpu")
+    occs = [eng.insert(row, max_new_tokens=NEW) for row in _ids()]
+    eng.drain()
+    return np.stack([o.output_row() for o in occs])
 
 
 def _jax_config():
@@ -626,5 +629,8 @@ def test_load_checkpoint_and_dispatch_then_generate(runs):
 
 
 def test_continuous_engine_refuses_a_model_laid_over_a_mesh(runs):
-    for res in runs["tp"]:
-        assert res["engine"] is not None and "ROADMAP.md A8-bis" in res["engine"]
+    """It no longer refuses (ROADMAP.md A8-bis landed): on every rank of
+    ``tp`` 2 the engine's greedy tokens are the one-process ``generate``'s."""
+    for r, res in enumerate(runs["tp"]):
+        _near_tie_held(res["engine"], runs["one"]["tokens"]["dense", "greedy"],
+                       runs["one"]["scores"]["dense"], f"engine over tp rank {r}")
