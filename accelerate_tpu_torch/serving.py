@@ -133,7 +133,7 @@ class ServingResult:
 
 
 def _engine_args(req: _Request) -> tuple:
-    """What a replaying rank needs of an offered request: its engine
+    """What a replaying rank needs of an admitted request: its engine
     arguments (no future, no deadline)."""
     return (req.input_ids, req.max_new_tokens, req.temperature, req.top_k, req.top_p,
             req.eos_token_id, req.pad_token_id, req.seed)
@@ -472,9 +472,23 @@ class InferenceServer:
         self.close()
 
     # ---------------------------------------------------------- worker loop
+    def _work_device(self):
+        """The card this server's device work runs on: the engine's, or in
+        static mode the model's parameters' (over a mesh, this rank's)."""
+        if self._engine is not None:
+            return self._engine.device
+        params = getattr(self.model, "parameters", None)
+        param = next(iter(params()), None) if callable(params) else None
+        return None if param is None else param.device
+
     def _serve_loop(self) -> None:
         replaying = self._control is not None and not self._control.is_leader
         try:
+            # a thread starts on the first card: over a mesh each rank works
+            # on its own, and CUDA events and streams follow the current one
+            device = self._work_device()
+            if device is not None and device.type == "cuda":
+                torch.cuda.set_device(device)
             if self._engine is not None:
                 self._loop_replay_continuous() if replaying else self._loop_continuous()
             elif replaying:
@@ -490,7 +504,13 @@ class InferenceServer:
         finally:
             with self._lock:
                 self._draining = True
-            for occ in self._engine.reset() if self._engine is not None else ():
+            orphans = self._engine.occupants() if self._engine is not None else ()
+            if self._engine is not None:
+                try:
+                    self._engine.reset()
+                except Exception:  # noqa: BLE001 - the requests below must still be failed
+                    logger.exception("could not reset the engine as the worker ended")
+            for occ in orphans:
                 resolve_future(occ.tag.future, exception=ReplicaDeadError(
                     "serving worker exited with this request still in a decode slot",
                 ))

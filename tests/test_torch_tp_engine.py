@@ -494,3 +494,35 @@ def test_replaying_rank_fails_when_the_first_goes_quiet(runs):
     assert quiet["closed"] is True and quiet["bound"] <= quiet["waited"] < quiet["bound"] + 10, quiet
     assert "ReplicaDeadError" in quiet["error"] and "first rank (0)" in quiet["error"]
     assert runs["tp"][0]["quiet"]["error"] == "None"
+
+
+def test_the_server_worker_runs_on_its_engine_card(monkeypatch):
+    """Over a mesh each rank's engine lives on its own card, and a new
+    thread starts on the first: the server's worker makes the engine's
+    card its current device before any work (CUDA events and streams
+    follow the current device)."""
+    import threading
+
+    from accelerate_tpu_torch.serving import InferenceServer
+    from accelerate_tpu_torch.utils.dataclasses import ServingConfig
+
+    seen = []
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: seen.append(
+        (threading.current_thread().name, torch.device(d))))
+
+    class IdleEngine:  # what the worker reads of an engine on the second card
+        device = torch.device("cuda", 1)
+
+        def live_count(self):
+            return 0
+
+        def occupants(self):
+            return []
+
+        def reset(self):
+            return []
+
+    srv = InferenceServer(torch.nn.Linear(2, 2), ServingConfig(mode="continuous"),
+                          engine=IdleEngine(), device="cpu")
+    assert srv.close() is True
+    assert seen == [("inference-server", torch.device("cuda", 1))]
