@@ -293,7 +293,7 @@ def _check_same_engine(values: dict, groups, device) -> None:
     with the same ``values`` (:data:`_ENGINE_FIELDS`): a rank with another
     store, bucket or drafter would run other programs against its peers'
     collectives."""
-    from .inference import _gather_over_mesh
+    from .inference import _check_same
 
     def code(v):
         if v is None:
@@ -304,14 +304,8 @@ def _check_same_engine(values: dict, groups, device) -> None:
 
     vec = torch.tensor([code(values[name]) for name in _ENGINE_FIELDS], dtype=torch.int64,
                        device=device)
-    seen = _gather_over_mesh(vec, groups)
-    bad = (seen != seen[0]).any(dim=0).nonzero().flatten().tolist()
-    if bad:
-        ranks = [r for r in range(seen.shape[0]) if not torch.equal(seen[r], seen[0])]
-        raise ValueError(
-            f"ContinuousBatchingEngine over a mesh: the rank(s) at mesh index {ranks} (row-major "
-            f"over dp_shard, tp) were built with another {', '.join(_ENGINE_FIELDS[i] for i in bad)} "
-            "than the first; every rank must build the engine with the same arguments")
+    _check_same(vec, groups, _ENGINE_FIELDS, "ContinuousBatchingEngine over a mesh",
+                "every rank must build the engine with the same arguments")
 
 
 class ContinuousBatchingEngine:

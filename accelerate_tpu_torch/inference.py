@@ -236,17 +236,25 @@ def _gather_over_mesh(vec: torch.Tensor, groups) -> torch.Tensor:
     return seen.cpu()
 
 
-def _check_same_call(ids, values: dict, groups) -> None:
-    """Raise on every rank unless every rank of the mesh passed the same
-    ``values`` and ids (:func:`_gather_over_mesh`)."""
-    seen = _gather_over_mesh(_call_vector(ids, values), groups)
+def _check_same(vec: torch.Tensor, groups, names, what: str, should: str) -> None:
+    """Raise on every rank unless every rank of the mesh holds the same
+    1-D ``vec`` (:func:`_gather_over_mesh`): the message names the
+    differing ``names`` (one a column) and the mesh indices of the ranks
+    that differ from the first; ``what`` opens it, ``should`` ends it."""
+    seen = _gather_over_mesh(vec, groups)
     bad = (seen != seen[0]).any(dim=0).nonzero().flatten().tolist()
     if bad:
         ranks = [r for r in range(seen.shape[0]) if not torch.equal(seen[r], seen[0])]
         raise ValueError(
-            f"generate over a mesh: the rank(s) at mesh index {ranks} (row-major over "
-            f"dp_shard, tp) were called with another {', '.join(_CALL_FIELDS[i] for i in bad)} "
-            "than the first; every rank must generate the same ids with the same arguments")
+            f"{what}: the rank(s) at mesh index {ranks} (row-major over dp_shard, tp) differ "
+            f"from the first in {', '.join(names[i] for i in bad)}; {should}")
+
+
+def _check_same_call(ids, values: dict, groups) -> None:
+    """Raise on every rank unless every rank of the mesh passed the same
+    ``values`` and ids (:func:`_check_same`)."""
+    _check_same(_call_vector(ids, values), groups, _CALL_FIELDS, "generate over a mesh",
+                "every rank must generate the same ids with the same arguments")
 
 
 def _advance(prog) -> None:

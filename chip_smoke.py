@@ -192,13 +192,13 @@ Phases (any failure exits non-zero and prints no result):
      dim (each layer's shards gathered inside the captured step), dense,
      bitwise again (static_tp_fsdp); (d) ``InferenceServer(ServingConfig())`` over that model,
      8 requests of 512 tokens and 64 new, every reply equal to a direct
-     ``generate`` (static_tp_server); (c) dp_shard 2 x tp 2 as threads
-     over torch's threaded group on the card (it cannot be captured: the
-     decode runs eagerly) at 4 layers, 64 new tokens: tokens equal on
-     every rank and held against the plain forward by phase 12's rule, B1
-     at 16/4 heads a rank counted (static_dp_shard2_tp2_threads), and a
-     planted fault (rank 1 sampling with another seed) caught on every
-     rank
+     ``generate`` (static_tp_server); (b) four tp ranks and (c) dp_shard 2
+     x tp 2 as threads over torch's threaded group on the card (it cannot
+     be captured: the decode runs eagerly) at 4 layers, 64 new tokens:
+     tokens equal on every rank and held against the plain forward by
+     phase 12's rule, B1 at 8/2 and 16/4 heads a rank counted
+     (static_tp4_threads, static_dp_shard2_tp2_threads), and a planted
+     fault (rank 1 sampling with another seed) caught on every rank
  15. (run after 14) the continuous engine over a mesh: (a) phase 4's
      32-layer model laid out by ``prepare_inference(mesh=,
      rules=tensor_parallel_rules())`` over a one-rank NCCL group forced to
@@ -1528,8 +1528,7 @@ JAX_PROGRAMS = {"serving": {"prefill_insert": 1, "decode_step": 1},
                 "spec": {"prefill_insert": 2, "decode_step": 1, "verify_step": 1}}
 
 
-def serve_mix(dev, model, prompts, scfg, new_tokens, engine=None, eager=False, warm=(),
-              indices=None):
+def serve_mix(dev, model, prompts, scfg, new_tokens, engine=None, eager=False, warm=()):
     """Serve ``prompts`` at once through an InferenceServer over ``engine``
     (a new one when None: its programs captured as CUDA graphs, or run
     eagerly with ``eager``, through ``engine._disable_graphs``). ``warm``
@@ -1537,8 +1536,7 @@ def serve_mix(dev, model, prompts, scfg, new_tokens, engine=None, eager=False, w
     shared prefix would skip its chunks). Launch counters reset just
     before the mix and read just after. Closing the server resets the
     engine in place, so its graphs serve the next mix. Even requests are
-    greedy, odd ones sampled, each seeded with its index (``indices``: the
-    requests' indices in a mix they were taken from). Returns a dict: results, wall_s, launches,
+    greedy, odd ones sampled. Returns a dict: results, wall_s, launches,
     delta (the engine's counters over the mix), programs, engine."""
     from accelerate_tpu_torch.engine import _disable_graphs
     from accelerate_tpu_torch.ops import _build
@@ -1561,7 +1559,7 @@ def serve_mix(dev, model, prompts, scfg, new_tokens, engine=None, eager=False, w
         _build.reset_launch_counts()
         t0 = time.perf_counter()
         futs = []
-        for i, p in zip(range(len(prompts)) if indices is None else indices, prompts):
+        for i, p in enumerate(prompts):
             sampled = i % 2 == 1
             futs.append(srv.submit(
                 p, max_new_tokens=new_tokens, temperature=0.8 if sampled else 0.0,
@@ -4236,9 +4234,7 @@ SERVE_MESH_LAYERS = 8
 SERVE_THREAD_LAYERS = 4
 SERVE_THREAD_NEW = 64
 SERVE_THREAD_TIMEOUT_S = 300
-# one threaded layout (the script's time limit holds phase 15 too): both
-# dims, B1 at 16/4 heads; phase 11 (b) runs B1 at 8/2 heads
-SERVE_THREAD_LAYOUTS = {"dp_shard2_tp2": {"dp_shard": 2, "tp": 2}}
+SERVE_THREAD_LAYOUTS = {"tp4": {"tp": 4}, "dp_shard2_tp2": {"dp_shard": 2, "tp": 2}}
 SERVE_SERVER_NEW = 64
 
 
@@ -4460,7 +4456,7 @@ def thread_ranks(dims, whole, cfg, work, label):
 
 
 def serve_threads(dims, whole, cfg, ids, fault=False):
-    """Phase 14 (c) through :func:`thread_ranks`: each rank runs
+    """Phase 14 (b) and (c) through :func:`thread_ranks`: each rank runs
     ``generate`` greedy, or with ``fault`` sampled with rank 1's seed
     another. Returns ({rank: tokens}, {rank: what the fault raised}, the
     launches of the run)."""
@@ -4480,7 +4476,7 @@ def serve_threads(dims, whole, cfg, ids, fault=False):
 
 
 def serve_thread_layouts(dev, card):
-    """Phase 14 (c) on a 4-layer model: greedy tokens held against
+    """Phase 14 (b) and (c) on a 4-layer model: greedy tokens held against
     the plain forward by phase 12's rule, equal on every rank; B1 at the
     ranks' heads counted; the planted seed fault caught on every rank.
     Returns ({layout: launches}, numbers)."""
@@ -4534,7 +4530,7 @@ def serve_thread_layouts(dev, card):
 
 def phase_serving_mesh(dev, card):
     """Phase 14: (a) and (d) over a one-rank NCCL group (ended after),
-    then (c) over torch's threaded group. Returns ({path:
+    then (b) and (c) over torch's threaded group. Returns ({path:
     launches}, numbers)."""
     import shutil
     import tempfile
