@@ -25,6 +25,12 @@ read now or ``readback_depth`` steps later); trackers (``log_with``,
 processes (``gather``, ``gather_for_metrics``, ``reduce``,
 ``pad_across_processes``, ``ops/operations.py``).
 
+Under ``mixed_precision="fp8"`` (bf16 compute) ``prepare`` puts the
+products on the card's fp8 tensor cores (``ops/fp8.py``) before any
+wrapping: a Llama's ``use_fp8`` is set, any other module is rewritten
+(``fp8_rewrite``), and each scale's amax is all-reduced over the ranks the
+JAX package's spans (``parallel.sharding.fp8_groups``).
+
 ``backward`` keeps the JAX signature: it takes the loss *function* and its
 arguments, differentiates ``loss / gradient_accumulation_steps`` (times the
 fp16 loss scale) and returns the unscaled loss.
@@ -171,6 +177,7 @@ class Accelerator:
         self._param_map: dict = {}
         self._replicated: set = set()  # parameters FSDP2 left whole
         self._tp_replicated: set = set()  # parameters replicated over tp
+        self._fp8_groups = None  # ops.fp8.Fp8Groups of the layout, made at the first prepare
         if gradient_accumulation_plugin is None:
             gradient_accumulation_plugin = GradientAccumulationPlugin(num_steps=int(os.environ.get(
                 "ACCELERATE_GRADIENT_ACCUMULATION_STEPS", gradient_accumulation_steps)))
@@ -227,6 +234,12 @@ class Accelerator:
     @property
     def mixed_precision(self) -> str:
         return self.state.mixed_precision
+
+    @property
+    def fp8_backend(self) -> Optional[str]:
+        """``"NATIVE"`` under ``mixed_precision="fp8"`` (``ops/fp8.py``: the
+        card's fp8 tensor cores through ``torch._scaled_mm``), else None."""
+        return "NATIVE" if self.state.mixed_precision == "fp8" else None
 
     @property
     def gradient_accumulation_steps(self) -> int:
@@ -417,6 +430,8 @@ class Accelerator:
         in eval mode. ``device_placement=False`` leaves it where it is."""
         place = self.device_placement if device_placement is None else device_placement
         device = self.device if place else None
+        if self.state.mixed_precision == "fp8":
+            self._prepare_fp8(model, evaluation_mode)
         if self.layout == "none" or evaluation_mode:
             model = prepare_model(model, self.policy, device)
             if evaluation_mode:
@@ -437,6 +452,31 @@ class Accelerator:
         if model not in self._models:
             self._models.append(model)
         return model
+
+    def _prepare_fp8(self, model: nn.Module, evaluation_mode: bool) -> None:
+        """fp8 products (``ops/fp8.py``), before any wrapping: a model with a
+        ``use_fp8`` config field (the Llama) turns it on and takes the
+        layout's amax groups; any other module is rewritten
+        (``fp8_rewrite``). Each scale spans what the JAX amax spans on the
+        mesh (``parallel.sharding.fp8_groups``); in evaluation mode each
+        process runs its own copy on its own rows, and its scales are its
+        own."""
+        from .model import unwrap_model
+        from .ops.fp8 import Fp8Groups, fp8_rewrite
+        from .parallel.sharding import fp8_groups
+
+        if evaluation_mode:
+            groups = Fp8Groups()
+        else:
+            if self._fp8_groups is None:
+                self._fp8_groups = fp8_groups(self.layout, self.mesh)
+            groups = self._fp8_groups
+        inner = unwrap_model(model)
+        if hasattr(getattr(inner, "config", None), "use_fp8"):
+            inner.config.use_fp8 = True
+            inner.fp8_groups = groups
+        else:
+            fp8_rewrite(inner, amax_group=groups)
 
     def prepare_optimizer(self, optimizer, device_placement=None) -> AcceleratedOptimizer:
         """Wrap ``optimizer``; under a data-parallel layout, first point it

@@ -64,8 +64,17 @@ f32 logits whole, or with ``vocab_shard`` returns the block. The KV cache
 and a verify step's window K/V hold the rank's kv heads
 (``init_kv_cache(tp_size=)``).
 
+With ``use_fp8`` the seven projections of :func:`_layer` (the training
+forward and the prefill) run through ``ops.fp8.fp8_dot``: e4m3 operands,
+an e5m2 cotangent, f32 sums, per-tensor scales over the groups the model
+was given (``LlamaForCausalLM.fp8_groups``, set by ``prepare``; under
+``tp`` the prefill's are the ``tp`` group). q/k/v share one quantized
+input, as gate and up do. The decode and verify steps (and so chunked
+prefill), the head and the embedding stay in the compute dtype, as in the
+JAX package, whose ``_dot`` only ``_layer`` calls.
+
 Not ported yet (ROADMAP.md): MoE layers and Gemma-2's alternating sliding
-window (A11), fp8 (A4).
+window (A11).
 """
 
 from __future__ import annotations
@@ -84,6 +93,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from .._device import resolve_device
+from ..ops import fp8 as _fp8
 from ..ops import quant_matmul as _qmm
 from ..ops.attention import NEG_INF, _write_window, dispatch_attention, tanh_softcap
 from ..ops.collectives import (
@@ -164,7 +174,7 @@ class LlamaConfig:
     expert_capacity_factor: float = 1.25
     moe_aux_loss_coef: float = 0.01
     router_z_loss_coef: float = 0.0
-    # fp8 projections: refused when on (ROADMAP.md A4)
+    # fp8 projections in the training forward and the prefill (ops/fp8.py)
     use_fp8: bool = False
     use_chunked_ce: bool = False
     ce_chunk_size: int = 4096
@@ -297,10 +307,6 @@ def _check_supported(config: LlamaConfig, params: Optional[dict] = None) -> None
         raise NotImplementedError(
             "MoE layers (num_experts > 1, with num_experts_per_tok, expert_capacity_factor, "
             "moe_aux_loss_coef and router_z_loss_coef) are not ported yet (ROADMAP.md A11)"
-        )
-    if config.use_fp8:
-        raise NotImplementedError(
-            "use_fp8 (fp8 projections, ops/fp8.py) is not ported yet (ROADMAP.md A4)"
         )
     if config.alternating_sliding_window:
         raise NotImplementedError(
@@ -634,6 +640,7 @@ class LlamaForCausalLM(nn.Module):
         self.config = config
         self.layers = None
         self.tp = None  # parallel.tp.TensorParallel, set by apply_tensor_parallel
+        self.fp8_groups = None  # ops.fp8.Fp8Groups under use_fp8, set by prepare
         self._paths = []
         for path, tensor in _flatten(params):
             name = "__".join(path)
@@ -736,7 +743,7 @@ class LlamaForCausalLM(nn.Module):
         :func:`llama_loss` takes) instead of the whole logits."""
         return llama_apply(self.config, self._tree(detach=False), input_ids,
                            segment_ids=segment_ids, position_ids=position_ids, tp=self.tp,
-                           vocab_shard=vocab_shard)
+                           vocab_shard=vocab_shard, fp8_groups=self.fp8_groups)
 
 
 def create_llama(config: LlamaConfig, seed: int = 0, device="cuda") -> LlamaForCausalLM:
@@ -862,14 +869,22 @@ def apply_rope_window(x, pos, theta: float, scaling=None):
     return _rotate(x, *_rope_window_tables(pos, x.shape[1], x.shape[-1], theta, scaling, x.device))
 
 
-def _matmul(config, y, w, out_dtype=None):
+def _matmul(config, y, w, out_dtype=None, fp8=None, qy=None):
     """``y @ w`` for a projection weight: a float tensor is cast to the
     compute dtype; a per-channel quantized leaf (int8 or linear int4)
     multiplies as int8 through the quantized matmul kernel, scales after the
     sum (the same function as ``y @ dequantize(w)``); a block-scaled or
     NF4 leaf is dequantized to its original dtype, then cast, as the JAX
     package does. ``out_dtype=torch.float32`` keeps the f32 sums (the LM
-    head); by default the product is in the compute dtype."""
+    head); by default the product is in the compute dtype. ``fp8`` (an
+    ``ops.fp8.Fp8Groups``): the product is ``fp8_dot`` of ``y`` and the
+    weight in the compute dtype (a quantized leaf dequantized first, as the
+    JAX package dequantizes every leaf), ``qy`` ``y``'s quantized pair when
+    several products share it."""
+    if fp8 is not None:
+        if not isinstance(w, torch.Tensor):
+            w = w.dequantize()
+        return _fp8.fp8_dot(y, w.to(config.compute_dtype), amax_group=fp8, quantized_x=qy)
     if isinstance(w, QuantizedLeaf) and w.block_size is None:
         return _qmm.quantized_matmul(y, w.q, w.scales, out_dtype=out_dtype)
     if not isinstance(w, torch.Tensor):
@@ -923,9 +938,9 @@ def _f32_product(x, w):
     return _F32Product.apply(x, w)
 
 
-def _proj(config, layer_params, name, y):
+def _proj(config, layer_params, name, y, fp8=None, qy=None):
     p = layer_params["attn"][name]
-    out = _matmul(config, y, p["kernel"])
+    out = _matmul(config, y, p["kernel"], fp8=fp8, qy=qy)
     if "bias" in p:
         out = out + p["bias"].to(config.compute_dtype)
     return out
@@ -979,25 +994,33 @@ def _local_tree(tree, tp):
             (v if isinstance(v, nn.Module) else local(v)) for k, v in tree.items()}
 
 
-def _mlp_block(config, layer_params, x, tp=None):
-    """Post-attention half of a block: norm, SwiGLU/GeGLU MLP, residual."""
+def _fp8_input(y, fp8):
+    """``y``'s quantized pair for the products that share it, under fp8."""
+    return None if fp8 is None else _fp8.quantize_input(y, fp8)
+
+
+def _mlp_block(config, layer_params, x, tp=None, fp8=None):
+    """Post-attention half of a block: norm, SwiGLU/GeGLU MLP, residual.
+    ``fp8``: the projections through ``fp8_dot`` (see :func:`_matmul`)."""
     y = rms_norm(x, layer_params["post_attn_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
     y = _tp_in(y, tp)
     mlp = layer_params["mlp"]
-    gate = _matmul(config, y, mlp["gate_proj"]["kernel"])
-    up = _matmul(config, y, mlp["up_proj"]["kernel"])
+    qy = _fp8_input(y, fp8)
+    gate = _matmul(config, y, mlp["gate_proj"]["kernel"], fp8=fp8, qy=qy)
+    up = _matmul(config, y, mlp["up_proj"]["kernel"], fp8=fp8, qy=qy)
     with _block_output("mlp_block_out"):
-        y = _matmul(config, _mlp_act(config, gate) * up, mlp["down_proj"]["kernel"])
+        y = _matmul(config, _mlp_act(config, gate) * up, mlp["down_proj"]["kernel"], fp8=fp8)
     y = _tp_out(y, tp)
     if config.post_block_norms:
         y = rms_norm(y, layer_params["mlp_out_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
     return x + y
 
 
-def _attn_out(config, layer_params, attn, residual, tp=None):
+def _attn_out(config, layer_params, attn, residual, tp=None, fp8=None):
     b, s = attn.shape[:2]
     with _block_output("attn_block_out"):
-        attn = _matmul(config, attn.reshape(b, s, -1), layer_params["attn"]["o_proj"]["kernel"])
+        attn = _matmul(config, attn.reshape(b, s, -1), layer_params["attn"]["o_proj"]["kernel"],
+                       fp8=fp8)
     attn = _tp_out(attn, tp)
     if config.post_block_norms:
         attn = rms_norm(attn, layer_params["attn_out_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
@@ -1005,20 +1028,23 @@ def _attn_out(config, layer_params, attn, residual, tp=None):
 
 
 def _layer(config: LlamaConfig, layer_params, x, position_offset: int = 0,
-           collect_kv: bool = False, segment_ids=None, position_ids=None, tp=None):
+           collect_kv: bool = False, segment_ids=None, position_ids=None, tp=None, fp8=None):
     """One block on (B, S, D) activations; ``collect_kv=True`` also returns
     the post-RoPE k/v for building the cache. ``segment_ids`` (B, S) keep
     attention inside packed documents; ``position_ids`` (B, S) are per-token
     RoPE positions (restarting at each document). Under ``tp`` (a
     :class:`_TPRun`) ``x`` is this rank's block of the sequence, or whole,
-    and the heads are the rank's (as many as its q/k/v columns hold)."""
+    and the heads are the rank's (as many as its q/k/v columns hold).
+    ``fp8`` (an ``ops.fp8.Fp8Groups``, given under ``use_fp8``): the seven
+    projections through ``fp8_dot``, on the rank's blocks."""
     hd = config.head_dim
     y = rms_norm(x, layer_params["input_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
     y = _tp_in(y, tp)
     b, s, _ = y.shape
-    q = _proj(config, layer_params, "q_proj", y).reshape(b, s, -1, hd)
-    k = _proj(config, layer_params, "k_proj", y).reshape(b, s, -1, hd)
-    v = _proj(config, layer_params, "v_proj", y).reshape(b, s, -1, hd)
+    qy = _fp8_input(y, fp8)
+    q = _proj(config, layer_params, "q_proj", y, fp8, qy).reshape(b, s, -1, hd)
+    k = _proj(config, layer_params, "k_proj", y, fp8, qy).reshape(b, s, -1, hd)
+    v = _proj(config, layer_params, "v_proj", y, fp8, qy).reshape(b, s, -1, hd)
     sc = config._rope_scaling_key()
     q = apply_rope(q, position_offset, config.rope_theta, position_ids, sc)
     k = apply_rope(k, position_offset, config.rope_theta, position_ids, sc)
@@ -1031,8 +1057,16 @@ def _layer(config: LlamaConfig, layer_params, x, position_offset: int = 0,
         window=config.sliding_window, softcap=config.attn_logit_softcap,
         segment_ids=segment_ids,
     )
-    x = _mlp_block(config, layer_params, _attn_out(config, layer_params, attn, x, tp), tp)
+    x = _mlp_block(config, layer_params, _attn_out(config, layer_params, attn, x, tp, fp8), tp, fp8)
     return (x, (k, v)) if collect_kv else x
+
+
+def _fp8_run(config: LlamaConfig, groups=None):
+    """The ``fp8`` argument of :func:`_layer`: None unless ``use_fp8``; else
+    ``groups`` (an ``ops.fp8.Fp8Groups``), or none (this rank's values)."""
+    if not config.use_fp8:
+        return None
+    return groups if groups is not None else _fp8.Fp8Groups()
 
 
 def _layer_slice(layers: dict, i: int) -> dict:
@@ -1280,9 +1314,10 @@ def _block_output(name: str):
 
 
 _aten = torch.ops.aten
-# matrix products without batch dimensions, and with them (the batched
-# attention einsums of the plain attention paths)
-_DOTS_NO_BATCH = (_aten.mm.default, _aten.addmm.default)
+# matrix products without batch dimensions (the fp8 product's
+# ``_scaled_mm`` among them), and with them (the batched attention einsums
+# of the plain attention paths)
+_DOTS_NO_BATCH = (_aten.mm.default, _aten.addmm.default, _aten._scaled_mm.default)
 _DOTS = _DOTS_NO_BATCH + (_aten.bmm.default, _aten.baddbmm.default)
 
 
@@ -1318,7 +1353,8 @@ def _remat_context(policy: str):
 
 
 def llama_apply(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
-                segment_ids=None, position_ids=None, tp=None, vocab_shard: bool = False):
+                segment_ids=None, position_ids=None, tp=None, vocab_shard: bool = False,
+                fp8_groups=None):
     """Causal forward over (B, S) token ids -> f32 logits (B, S, V).
     ``segment_ids`` (B, S): packed-sequence document labels (attention never
     crosses a boundary); ``position_ids`` (B, S): per-token RoPE positions.
@@ -1341,7 +1377,11 @@ def llama_apply(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
     ``vocab_shard`` returned as ``{"logits": this rank's (B, S, V/tp),
     "vocab_start": its first column, "tp_group": ...}``. The chunked
     output then holds the rank's head block, its ``vocab_start`` and
-    ``tp_group``."""
+    ``tp_group``.
+
+    ``use_fp8``: each layer's projections through ``fp8_dot``, their scales
+    over ``fp8_groups`` (an ``ops.fp8.Fp8Groups``; None: this rank's
+    values)."""
     _check_supported(config)
     if config.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, got {config.remat_policy!r}")
@@ -1352,14 +1392,16 @@ def llama_apply(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
     context = _remat_context(config.remat_policy) if remat else None
     extra = {} if context is None else {"context_fn": context}
     x = _embed(config, params, input_ids, tp)
+    fp8 = _fp8_run(config, fp8_groups)
 
     def run_layer(lp, x):
         lp = _local_tree(lp, tp)
         if remat:
             return torch.utils.checkpoint.checkpoint(
-                _layer, config, lp, x, 0, False, segment_ids, position_ids, tp,
+                _layer, config, lp, x, 0, False, segment_ids, position_ids, tp, fp8,
                 use_reentrant=False, preserve_rng_state=False, **extra)
-        return _layer(config, lp, x, segment_ids=segment_ids, position_ids=position_ids, tp=tp)
+        return _layer(config, lp, x, segment_ids=segment_ids, position_ids=position_ids, tp=tp,
+                      fp8=fp8)
 
     layers = params["layers"]
     if isinstance(layers, nn.ModuleList):  # per-layer modules: each call is an FSDP2 unit's
@@ -1493,16 +1535,20 @@ def _prefill_stack(config: LlamaConfig, params, input_ids, tp=None, fsdp=None):
     """One full forward over the prompt -> (pre-final-norm hidden (B, S, D),
     stacked K and V (L, B, S, kvh, hd), the root's leaves whole, the
     forward's ``_TPRun``). Under ``tp`` the K and V hold the rank's kv heads
-    and the hidden states are gathered whole along the sequence."""
+    and the hidden states are gathered whole along the sequence. Under
+    ``use_fp8`` the projections run through ``fp8_dot``; over ``tp`` their
+    scales span the ``tp`` group (the ranks serve the same rows, so that is
+    every rank whose values differ)."""
     _check_supported(config, params)
     if tp is not None:
         tp = _TPRun(tp.group, tp.size, tp.rank, input_ids.shape[1] % tp.size == 0)
+    fp8 = _fp8_run(config, None if tp is None else _fp8.Fp8Groups(tp.group, tp.group))
     root = _gathered(params, fsdp, keep=_kept_root(config))
     x = _embed(config, root, input_ids, tp, fsdp)
     ks, vs = [], []
     for i in range(config.num_hidden_layers):
         lp = _gathered(_layer_params(params["layers"], i), fsdp, "layers")
-        x, (k, v) = _layer(config, lp, x, collect_kv=True, tp=tp)
+        x, (k, v) = _layer(config, lp, x, collect_kv=True, tp=tp, fp8=fp8)
         ks.append(k)
         vs.append(v)
     if tp is not None and tp.sp:

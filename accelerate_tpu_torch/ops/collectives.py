@@ -37,6 +37,10 @@ backward is the collective the layout needs:
   loss's row max, sum of exponentials and label logit, and the int8 KV
   cache's per-position scale over the ``tp`` ranks' heads.
 
+:func:`mirror_group` makes a process group of its own over the ranks of a
+mesh dim (fp8's amax reductions run on one, apart from the collectives
+that DDP and FSDP2 issue from autograd hooks while they run).
+
 Serving over ``dp_shard`` (``inference.py``) reads FSDP2's shards with
 :class:`ShardGather`: each leaf's dim-0 shards all-gathered whole into a
 buffer kept for that leaf's name, so one layer's weights are whole at a
@@ -49,6 +53,7 @@ from __future__ import annotations
 
 from typing import Sequence, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -56,6 +61,7 @@ __all__ = [
     "all_gather",
     "ShardGather",
     "all_reduce_",
+    "mirror_group",
     "copy_to_group",
     "gather_last_dim",
     "grad_share",
@@ -228,6 +234,24 @@ def all_reduce_(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     gradient."""
     dist.all_reduce(x, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op], group=group)
     return x
+
+
+def mirror_group(mesh, dims: AxisNames):
+    """A new process group over the ranks that share this rank's
+    coordinates on ``mesh``'s other dims (the ranks of its ``dims``
+    together): the same ranks as the mesh's group of those dims, with a
+    communicator of its own. Every rank makes every such group, in the same
+    order, as ``new_group`` requires; each returns its own."""
+    names = list(mesh.mesh_dim_names)
+    axes = [names.index(d) for d in _axes(dims)]
+    ranks = mesh.mesh.permute([i for i in range(len(names)) if i not in axes] + axes)
+    ranks = ranks.reshape(-1, int(np.prod([mesh.size(i) for i in axes])))
+    me, mine = dist.get_rank(), None
+    for row in ranks.tolist():
+        group = dist.new_group(row)
+        if me in row:
+            mine = group
+    return mine
 
 
 def _gather_seq(x: torch.Tensor, group) -> torch.Tensor:

@@ -52,7 +52,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-__all__ = ["TP_LAYOUTS", "data_parallel_layout", "layout_mesh", "shard_model",
+__all__ = ["TP_LAYOUTS", "data_parallel_layout", "fp8_groups", "layout_mesh", "shard_model",
            "unwrap_data_parallel"]
 
 
@@ -95,6 +95,27 @@ def layout_mesh(layout: str, pcfg, device_type: str):
     if layout == "fsdp":
         return build_mesh((pcfg.dp_shard_size,), ("dp_shard",), device_type)
     return build_mesh((pcfg.dp_replicate_size,), ("dp_replicate",), device_type)
+
+
+def fp8_groups(layout: str, mesh):
+    """The ``ops.fp8.Fp8Groups`` of a layout's fp8 scales, as the JAX amax
+    of a sharded array spans the mesh: activations and cotangents over
+    every rank of ``mesh`` (the data-parallel ranks' rows, the ``tp``
+    ranks' blocks), weights over ``tp`` (FSDP2 hands a product the gathered
+    weight, DDP a whole one). Each is a group of its own
+    (``ops.collectives.mirror_group``): the amax reductions run inside the
+    backward while DDP's bucket reductions and FSDP2's collectives run on
+    theirs. Over one rank (or no mesh) no group and no collective."""
+    from ..ops.collectives import mirror_group
+    from ..ops.fp8 import Fp8Groups
+
+    if mesh is None or mesh.mesh.numel() == 1:
+        return Fp8Groups()
+    names = mesh.mesh_dim_names
+    weight = None
+    if layout in TP_LAYOUTS and mesh.size(names.index("tp")) > 1:
+        weight = mirror_group(mesh, "tp")
+    return Fp8Groups(act=mirror_group(mesh, tuple(names)), weight=weight)
 
 
 def unwrap_data_parallel(model: nn.Module) -> nn.Module:

@@ -307,8 +307,9 @@ class PartialState:
 class AcceleratorState:
     """Mixed precision and the parallelism configuration on top of
     :class:`PartialState`, whose attributes it proxies. ``mixed_precision``
-    is ``"no"``, ``"bf16"`` or ``"fp16"`` (default:
-    ``ACCELERATE_MIXED_PRECISION`` or ``"no"``); ``"fp8"`` is not ported yet.
+    is ``"no"``, ``"bf16"``, ``"fp16"`` or ``"fp8"`` (default:
+    ``ACCELERATE_MIXED_PRECISION`` or ``"no"``; ``"fp8"`` is bf16 compute
+    with the projections through ``ops/fp8.py``).
     ``parallelism_config`` defaults to ``ParallelismConfig.from_env`` over
     the world (data parallel over every process unless the launcher's
     environment says otherwise); ``device_mesh`` is the mesh the
@@ -330,10 +331,8 @@ class AcceleratorState:
         if mixed_precision is None:
             mixed_precision = os.environ.get("ACCELERATE_MIXED_PRECISION", "no")
         mixed_precision = str(mixed_precision).lower()
-        if mixed_precision == "fp8":
-            raise NotImplementedError("mixed_precision='fp8' (ops/fp8.py) is not ported yet (ROADMAP.md A4)")
-        if mixed_precision not in ("no", "bf16", "fp16"):
-            raise ValueError(f"Unknown mixed_precision {mixed_precision!r}; choose from no|bf16|fp16")
+        if mixed_precision not in ("no", "bf16", "fp16", "fp8"):
+            raise ValueError(f"Unknown mixed_precision {mixed_precision!r}; choose from no|bf16|fp16|fp8")
         self._partial = PartialState(cpu=cpu)
         self.mixed_precision = mixed_precision
         if parallelism_config is None:

@@ -2,7 +2,7 @@
 # The four-card runs of the PyTorch port, from the repository root on a
 # host with four cards (one process a card, NCCL):
 #
-#   bash accelerate_tpu_torch/test_utils/scripts/four_card_runs.sh [sanity|full|shallow|all|supervise|serve]
+#   bash accelerate_tpu_torch/test_utils/scripts/four_card_runs.sh [sanity|full|shallow|all|supervise|serve|fp8]
 #
 # sanity:  the sanity script (test_script.py) under --tp_size 4 and under
 #          --tp_size 2 --dp_shard_size 2
@@ -28,7 +28,12 @@
 #          then the continuous server (--mode continuous: chip_smoke.py
 #          phase 4's server and 16-request mix, the engine's programs
 #          captured with their collectives) under the same two layouts
+# fp8 (not part of all): train_timing.py at 32 layers under TP 4 and FSDP2 4,
+#          each in bf16 and then with --mixed_precision fp8 (ops/fp8.py: the
+#          projections on the fp8 tensor cores, their scales all-reduced
+#          over the mesh), on the same cards
 # Each timing run writes chiprun_out/train_timing_<layout>_<layers>l.json
+# (fp8: train_timing_<layout>_32l_fp8.json)
 # (serve: serve_timing_<layout>_32l.json and
 # serve_timing_continuous_<layout>_32l.json); the lines printed carry the
 # card's name and power limit.
@@ -53,6 +58,14 @@ if [[ $what == shallow || $what == all ]]; then
   "${launch[@]}" --dp_replicate_size 4 "$timing" --layers 4
   "${launch[@]}" --dp_shard_size 4 "$timing" --layers 4
   "${launch[@]}" --dp_replicate_size 2 --dp_shard_size 2 "$timing" --layers 4
+fi
+if [[ $what == fp8 ]]; then
+  for layout in "--tp_size 4" "--dp_shard_size 4"; do
+    # shellcheck disable=SC2086  # the layout is two words
+    "${launch[@]}" $layout "$timing" --layers 32
+    # shellcheck disable=SC2086
+    "${launch[@]}" $layout "$timing" --layers 32 --mixed_precision fp8
+  done
 fi
 if [[ $what == serve ]]; then
   serve=accelerate_tpu_torch/test_utils/scripts/serve_timing.py

@@ -22,6 +22,14 @@ them out), the NCCL kernels' device ms a step, the flash kernels' launches
 per step and the losses; rank 0's profile tables, by host and by device
 time, go to ``chiprun_out/``. ``--preset tiny --cpu`` rehearses it on gloo
 ranks: its times say nothing of a card.
+
+``--mixed_precision fp8`` runs the projections through ``ops/fp8.py``
+(``torch._scaled_mm`` on e4m3 operands, scales all-reduced over the mesh)
+and adds MFU over the 1,979 TFLOP/s fp8 peak, the amax all-reduces a step
+(counted on the model's ``Fp8Groups``), the device ms of the kernels
+launched inside the ``fp8_quantize`` ranges (the quantize passes, their
+NCCL all-reduces apart) and of the ``fp8_layout`` copies, from rank 0's
+profile; the JSON line's file name ends in ``_fp8``.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import numpy as np
 import torch
 
 PEAK_BF16 = 989e12  # H100 SXM, dense, at its 700 W limit
+PEAK_FP8 = 1979e12
 BATCH, WARMUP, STEPS, PROFILE_STEPS = 4, 2, 8, 2  # global rows a step; steps
 OUT = "chiprun_out"
 
@@ -60,23 +69,39 @@ def _union_us(events) -> float:
     return busy
 
 
+def _range_ms(trace_events, steps: int) -> dict:
+    """Device ms a step of the kernels launched inside the ``fp8_quantize``
+    and ``fp8_layout`` profiler ranges (``ops.fp8.kernels_in_ranges``), the
+    quantize ranges' NCCL kernels (the amax all-reduces) apart."""
+    from accelerate_tpu_torch.ops.fp8 import kernels_in_ranges
+
+    ranges = kernels_in_ranges(trace_events)
+    quantize = ranges["fp8_quantize"]
+    return {"fp8_quantize": sum(ms for n, ms in quantize if "nccl" not in n.lower()) / steps,
+            "fp8_amax_all_reduce": sum(ms for n, ms in quantize if "nccl" in n.lower()) / steps,
+            "fp8_layout": sum(ms for _, ms in ranges["fp8_layout"]) / steps}
+
+
 def _busy_and_nccl_ms(prof, steps: int, trace: str) -> tuple:
     """(busy us with the NCCL kernels, busy us without them, NCCL kernels'
-    device ms a step, device ms a step) from the profile's Chrome trace."""
+    device ms a step, device ms a step, the fp8 ranges' device ms a step)
+    from the profile's Chrome trace."""
     prof.export_chrome_trace(trace)
     with open(trace) as f:
-        events = [(e["name"], float(e["ts"]), float(e["dur"])) for e in json.load(f)["traceEvents"]
-                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+        trace_events = json.load(f)["traceEvents"]
+    events = [(e["name"], float(e["ts"]), float(e["dur"])) for e in trace_events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
     if not events:
-        return None, None, None, None
+        return None, None, None, None, None
     compute = [e for e in events if "nccl" not in e[0].lower()]
     nccl = sum(d for n, _, d in events if "nccl" in n.lower())
     return (_union_us(events), _union_us(compute), nccl / 1e3 / steps,
-            sum(d for _, _, d in events) / 1e3 / steps)
+            sum(d for _, _, d in events) / 1e3 / steps, _range_ms(trace_events, steps))
 
 
 def main(argv=None) -> dict:
     from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.model import unwrap_model
     from accelerate_tpu_torch.models.llama import LlamaConfig, create_llama, llama_flops_per_token, llama_loss
     from accelerate_tpu_torch.ops import _build
 
@@ -85,9 +110,12 @@ def main(argv=None) -> dict:
     p.add_argument("--layers", type=int, default=32)
     p.add_argument("--seq", type=int, default=2048)
     p.add_argument("--cpu", action="store_true")
+    p.add_argument("--mixed_precision", default="bf16", choices=["bf16", "fp8"])
     args = p.parse_args(argv)
 
-    acc = Accelerator(mixed_precision=None if args.cpu else "bf16", cpu=args.cpu)
+    fp8 = args.mixed_precision == "fp8"
+    # the CPU rehearsal keeps f32 compute (no bf16 there); fp8 runs on either
+    acc = Accelerator(mixed_precision="fp8" if fp8 else None if args.cpu else "bf16", cpu=args.cpu)
     make = getattr(LlamaConfig, args.preset)
     cfg = make(num_hidden_layers=args.layers, attention_impl="flash",
                **({"compute_dtype": torch.float32} if args.cpu else {}))
@@ -113,16 +141,19 @@ def main(argv=None) -> dict:
     if acc.device.type == "cuda":  # the training's own peak from here on
         init_peak = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+    groups = getattr(unwrap_model(model), "fp8_groups", None)
     losses = [step(batch) for _ in range(WARMUP)]
     sync()
     _build.reset_launch_counts()
+    reductions = groups.reductions if groups is not None else 0
     t0 = time.perf_counter()
     losses += [step(batch) for _ in range(STEPS)]
     host = time.perf_counter() - t0  # the host's time to issue the steps
     sync()
     wall = time.perf_counter() - t0
     launches = {k: v / STEPS for k, v in _build.launch_counts().items() if v}
-    busy = compute_busy = nccl_ms = device_ms = None
+    amax_per_step = (groups.reductions - reductions) / STEPS if groups is not None else None
+    busy = compute_busy = nccl_ms = device_ms = fp8_ms = None
     if acc.device.type == "cuda":
         from torch.profiler import ProfilerActivity, profile
 
@@ -135,9 +166,10 @@ def main(argv=None) -> dict:
             sync()
             p_wall = (time.perf_counter() - p0) * 1e6
         if acc.is_main_process:
-            name = f"{acc.layout}_{args.layers}l"
+            name = f"{acc.layout}_{args.layers}l" + ("_fp8" if fp8 else "")
             trace = os.path.join(OUT, f"trace_timing_{name}.json")
-            busy_us, compute_us, nccl_ms, device_ms = _busy_and_nccl_ms(prof, PROFILE_STEPS, trace)
+            busy_us, compute_us, nccl_ms, device_ms, fp8_ms = _busy_and_nccl_ms(
+                prof, PROFILE_STEPS, trace)
             os.remove(trace)  # tens of MB a run; the tables below keep what it showed
             if busy_us is not None:
                 busy, compute_busy = busy_us / p_wall, compute_us / p_wall
@@ -156,7 +188,11 @@ def main(argv=None) -> dict:
         init_s=init_s, steps=STEPS, step_ms=step_ms,
         host_ms_per_step=host / STEPS * 1e3,
         tokens_per_s=tokens_per_s,
+        mixed_precision=args.mixed_precision,
         mfu=tokens_per_s * llama_flops_per_token(cfg, args.seq) / (PEAK_BF16 * acc.num_processes),
+        mfu_fp8_peak=(tokens_per_s * llama_flops_per_token(cfg, args.seq)
+                      / (PEAK_FP8 * acc.num_processes)) if fp8 else None,
+        amax_all_reduces_per_step=amax_per_step, fp8_device_ms_per_step=fp8_ms if fp8 else None,
         peak_gb_per_rank=[x / 1e9 for x in peaks], init_peak_gb_per_rank=[x / 1e9 for x in init_peaks],
         busy_share_with_nccl=busy, compute_busy_share=compute_busy, nccl_ms_per_step=nccl_ms,
         device_ms_per_step=device_ms, launches_per_step=launches,
@@ -164,7 +200,9 @@ def main(argv=None) -> dict:
     if acc.is_main_process:
         os.makedirs(OUT, exist_ok=True)
         line = json.dumps(result)
-        with open(os.path.join(OUT, f"train_timing_{acc.layout}_{args.layers}l.json"), "w") as f:
+        suffix = "_fp8" if fp8 else ""
+        with open(os.path.join(OUT, f"train_timing_{acc.layout}_{args.layers}l{suffix}.json"),
+                  "w") as f:
             f.write(line + "\n")
         print(line, flush=True)
     if not all(np.isfinite(result["losses"])):

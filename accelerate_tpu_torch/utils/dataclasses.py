@@ -230,7 +230,8 @@ def _cast_floats(tree, dtype):
 class MixedPrecisionPolicy(KwargsHandler):
     """Three-dtype policy: parameters stored in ``param_dtype``, cast to
     ``compute_dtype`` for the forward, float outputs cast to
-    ``output_dtype``. ``"bf16"`` is f32 params, bf16 compute, f32 outputs."""
+    ``output_dtype``. ``"bf16"`` (and ``"fp8"``) is f32 params, bf16
+    compute, f32 outputs."""
 
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
@@ -242,6 +243,10 @@ class MixedPrecisionPolicy(KwargsHandler):
             return cls(compute_dtype="bfloat16")
         if mixed_precision == "fp16":
             return cls(compute_dtype="float16")
+        if mixed_precision == "fp8":
+            # the products' operands are fp8 (ops/fp8.py); everything else,
+            # and the products' outputs, in bf16
+            return cls(compute_dtype="bfloat16")
         return cls()
 
     def cast_to_compute(self, tree):

@@ -5,8 +5,8 @@ Llama-3-8B continuous-batching serving through ``InferenceServer`` at full
 width and depth, plain and with speculative decoding, chunked prefill and
 the int8 KV pool; the same model quantized to int8 weights, and a
 checkpoint written, loaded into an empty model and quantized; Llama-3-8B
-training steps through the ``Accelerator`` at full width and 4 layers;
-a fine-tune at full width that is interrupted and resumes bitwise; the
+training steps through the ``Accelerator`` at full width and 4 layers,
+in bf16 and in fp8; a fine-tune at full width that is interrupted and resumes bitwise; the
 same training step under DDP and FSDP2 over NCCL at world size 1, and
 under tensor parallelism; static generation (``generate`` and the static
 ``InferenceServer``) on the serving model; the fine-tune supervised
@@ -112,6 +112,29 @@ Phases (any failure exits non-zero and prints no result):
      dh chunk that must exceed the limit); then the step under each of the
      six: step time, peak memory, the flash forward's launches per step
      (2L under each: the recompute runs it again) and losses that agree
+ 16. (run right after 6) fp8 training: (a) phase 6's model, seed, batch and
+     AdamW under Accelerator(mixed_precision="fp8") (prepare sets
+     use_fp8: each layer's seven projections through ops/fp8.py's
+     fp8_dot, torch._scaled_mm on e4m3 operands with an e5m2 cotangent),
+     2 untimed and 4 timed steps with the launch counters reset just
+     before (2L B1, L B2, L B3 and 28L _scaled_mm a step, under
+     training_fp8), every gradient norm finite, the first four losses
+     within 1e-2 of phase 6's (the fifth and sixth, where the repeated
+     batch's memorization amplifies fp8's gradient noise, printed); ms a
+     step, tokens/s, MFU over the bf16 and the fp8 peak,
+     peak memory and a profile with the quantize passes' and layout
+     copies' device ms, beside phase 6's; (d) greedy generate on that
+     model (B = 4, 512 + 64): the prefill through fp8 (7L _scaled_mm; B1
+     under prefill_fp8, L launches), the tokens teacher-forced through the fp8
+     prefill's cache and the bf16 verify step by phase 12's rule, and
+     against the same model with use_fp8=False (reported); (b) one
+     projection of each Llama-3-8B shape at M = 8192: the card's quantized
+     bytes bitwise the CPU's, fp8_dot's forward and both gradients against
+     the plain version on the card within 2^-7 of the largest |reference|,
+     a planted scale one e4m3 step off that must exceed it, _scaled_mm's
+     ms against a bf16 torch.mm; (c) fp8_rewrite through prepare on a
+     256 -> 512 -> 8 MLP: five train_step calls lower the loss, its first
+     product through _scaled_mm (2 a step), bitwise fp8_dot's
   9. (run after 6) a resumable fine-tune, the port of
      examples/by_feature/fault_tolerance.py and packed_sft.py: seeded
      documents of 64-3000 tokens packed by the native packer
@@ -122,7 +145,8 @@ Phases (any failure exits non-zero and prints no result):
      spare, f32 master weights, bf16 compute, accumulate/backward, AdamW,
      max_grad_norm=1.0, a warm-up + cosine schedule; (a) 8 uninterrupted
      steps; (b) 4 steps, save_state (automatic naming, total_limit=2), 2
-     steps, a save interrupted by a fault point before its commit, then a
+     steps, a save interrupted by a fault point once the model's tensors
+     are written (before the optimizer's and the commit), then a
      fresh Accelerator's resume_from_latest and steps 5-8: losses and final
      parameters bitwise equal to (a); (c) the same resume with the
      loader's position discarded, which must differ; (d) check_step_health
@@ -167,16 +191,17 @@ Phases (any failure exits non-zero and prints no result):
      --watchdog_timeout 150 --replicate_to with a synchronous replica, a
      committed save after step 3 and the worker killed by a fault point
      at the end of step 4 on its first attempt, restarted by the
-     supervisor and resumed by resume_from_latest; (c) the local tree
-     wiped and a relaunch that restores the checkpoint from the replica;
-     a planted fault: one byte of the replica flipped, which
-     restore_from_replica must refuse with the checksum error and
-     ReplicaUnavailableError; (d) --handle_preemption and SIGTERM to the
-     launcher once the worker trains: one emergency checkpoint, launcher
-     rc 0 and no restart, then a relaunch that resumes it; (e) a hang at
+     supervisor and resumed by resume_from_latest; a planted fault: one
+     byte of the replica flipped, which restore_from_replica must refuse
+     with the checksum error and ReplicaUnavailableError ((c), the local
+     tree wiped and a relaunch restoring from the replica, is held on the
+     CPU by tests/test_torch_elastic.py); (d) --handle_preemption and
+     SIGTERM to the launcher once the worker trains: one emergency
+     checkpoint, launcher rc 0 and no restart, then a relaunch that
+     resumes it; (e) a hang at
      the end of step 2 on the first attempt, killed by the watchdog (40 s)
-     and restarted. (b)-(e) end on (a)'s losses and parameter checksum
-     bit for bit. Step ms, save, mirror and replica-restore GB/s, the
+     and restarted. (b), (d), (e) end on (a)'s losses and parameter checksum
+     bit for bit. Step ms, save and mirror GB/s, the
      emergency checkpoint's seconds, restart seconds and the watchdog's
      latency are printed with the card; the children's B1-B3 launches,
      every attempt, are counted under training_supervised
@@ -227,6 +252,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import itertools
 import json
@@ -2948,6 +2974,344 @@ def profile_train_step(step_fn, batch, step_ms, card, label="phase 6", name="tra
                 groups_ms=groups, kernels=len(events))
 
 
+# ---------------------------------------------------------------- phase 16
+# fp8 training: phase 6's model, seed, batch and optimizer under
+# Accelerator(mixed_precision="fp8"): the seven projections of every layer
+# through ops.fp8.fp8_dot (torch._scaled_mm on e4m3 operands, an e5m2
+# cotangent), the attention through B1-B3, the head in bf16 with f32 logits
+FP8_WARMUP, FP8_STEPS = 2, 4
+# the losses held within TRAIN_VARIANT_LOSS_RTOL of phase 6's: the first
+# four (no update, then three). Phase 6 memorizes its one repeated batch
+# (the loss halves a step from the fifth), and a trajectory that does so
+# grows a gradient difference tenfold in two steps: phase 6's chunked-CE
+# variant, a bf16 rounding apart, moves from 3e-4 to 3e-3 of the loss
+# between steps 4 and 6. fp8's gradients differ from bf16's by e5m2 steps
+# (12-25 % of an element), so its fifth and sixth losses move by several
+# percent (5.3e-2 at the sixth on an H100): they are printed, not held
+FP8_HELD_LOSSES = 4
+FP8_M = TRAIN_BATCH * TRAIN_SEQ  # the projections' rows at phase 6's batch
+# (M, K, N) of each projection of Llama-3-8B at phase 6's batch (q and o, k
+# and v, gate and up share theirs), and a product whose dims are no multiple
+# of 16 (a generic module's): _scaled_mm takes it zero-padded
+FP8_SHAPES = {"q_proj": (FP8_M, 4096, 4096), "k_proj/v_proj": (FP8_M, 4096, 1024),
+              "o_proj": (FP8_M, 4096, 4096), "gate_proj/up_proj": (FP8_M, 4096, 14336),
+              "down_proj": (FP8_M, 14336, 4096), "unaligned": (37, 300, 260)}
+# _scaled_mm against its plain version (the same fp8 operands' f32 product
+# on the card, f32 sums, the scale after): both round a sum of exact
+# products to bf16, and the tensor cores keep fewer bits of a partial sum
+# than f32 before cuBLAS promotes it: on an H100 the outputs and gradients
+# were apart by up to 1.6 bf16 ulps of the largest |reference| (6.2e-3).
+# FP8_MM_TOL is 2 such ulps, 2^-7; a scale off by one e4m3 step (2^-3) is
+# 16 times that
+FP8_MM_TOL = 2.0 ** -7
+FP8_FAULT_STEP = 2.0 ** -3
+FP8_GENERIC_STEPS = 5
+FP8_GEN_BATCH, FP8_GEN_PROMPT, FP8_GEN_NEW = 4, 512, 64
+FP8_PEAK = 1979e12  # H100 SXM dense fp8 (NVIDIA data sheet, at 700 W)
+
+
+def fp8_projection_checks(dev, card, gen):
+    """Phase 16 (b): one projection of each Llama-3-8B shape at M = 8192
+    and one product of unaligned dims:
+    the quantized bytes on the card bitwise the CPU's, ``fp8_dot``'s
+    forward and both gradients (``_scaled_mm``) against the plain version
+    on the same operands, a planted scale fault, and each shape's
+    ``_scaled_mm`` ms against a bf16 ``torch.mm`` of the same shape."""
+    from accelerate_tpu_torch.ops import fp8
+
+    out = {}
+    for name, (m, k, n) in FP8_SHAPES.items():
+        x = (torch.randn(m, k, generator=gen, device=dev) * 2.0).to(torch.bfloat16)
+        w = (torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
+        g = (torch.randn(m, n, generator=gen, device=dev) * 1e-3).to(torch.bfloat16)
+        (qx, sx), (qw, sw), (qg, sg) = (fp8.quantize_e4m3(x), fp8.quantize_e4m3(w),
+                                        fp8.quantize_e5m2(g))
+        for label, (q, s), (qc, sc) in (("x", (qx, sx), fp8.quantize_e4m3(x.cpu())),
+                                        ("w", (qw, sw), fp8.quantize_e4m3(w.cpu())),
+                                        ("g", (qg, sg), fp8.quantize_e5m2(g.cpu()))):
+            if not (torch.equal(q.view(torch.uint8).cpu(), qc.view(torch.uint8))
+                    and s.item() == sc.item()):
+                raise AssertionError(f"phase 16 (b) {name}: the card's quantized {label} differs "
+                                     "from the CPU's")
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        before = fp8.scaled_mm_count()
+        y = fp8.fp8_dot(xr, wr)
+        y.backward(g)
+        if fp8.scaled_mm_count() - before != 3:
+            raise AssertionError(f"phase 16 (b) {name}: {fp8.scaled_mm_count() - before} "
+                                 "_scaled_mm launches for a forward and its backward, not 3")
+        errs = {}
+        y = y.detach()
+        for label, got, ref in (
+                ("out", y, fp8.scaled_mm_plain(qx, qw, sx * sw, torch.bfloat16)),
+                ("dx", xr.grad, fp8.scaled_mm_plain(qg, qw.t(), sg * sw, torch.bfloat16)),
+                ("dw", wr.grad, fp8.scaled_mm_plain(qx.t(), qg, sg * sx, torch.bfloat16))):
+            errs[label] = ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+        planted_ref = fp8.scaled_mm_plain(qx, qw, sx * sw * (1 + FP8_FAULT_STEP), torch.bfloat16)
+        planted = ((y.float() - planted_ref.float()).abs().max()
+                   / planted_ref.float().abs().max()).item()
+        if max(errs.values()) > FP8_MM_TOL or planted <= FP8_MM_TOL:
+            raise AssertionError(f"phase 16 (b) {name}: errors {errs} (limit {FP8_MM_TOL}), the "
+                                 f"planted scale fault {planted}")
+        qw_col = qw.t().contiguous().t()
+        ms = time_ms(lambda: fp8.scaled_mm(qx, qw_col, sx * sw, torch.bfloat16), iters=10)
+        bf16_ms = time_ms(lambda: torch.mm(x, w), iters=10)
+        dot_ms = time_ms(lambda: fp8.fp8_dot(x, w), iters=10)
+        flops = 2.0 * m * k * n
+        t_ops, t_bytes = flops / FP8_PEAK, (m * k + k * n + 2 * m * n) / HBM_BYTES_PER_S
+        bound, by = max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+        out[name] = dict(m=m, k=k, n=n, errors=errs, planted_scale_fault=planted, scaled_mm_ms=ms,
+                         bf16_mm_ms=bf16_ms, fp8_dot_forward_ms=dot_ms, bound_ms=bound,
+                         bound_by=by)
+        log(f"phase 16 (b) {name} M={m} K={k} N={n}: quantized x, w, g bitwise the CPU's; "
+            f"out/dx/dw max err {errs['out']:.2e}/{errs['dx']:.2e}/{errs['dw']:.2e} of the largest "
+            f"|ref| (limit {FP8_MM_TOL:.2e}; a scale one e4m3 step off {planted:.2e}); _scaled_mm "
+            f"{ms:.4f} ms ({flops / ms / 1e9:.0f} TFLOP/s, bound {bound:.4f}), bf16 torch.mm "
+            f"{bf16_ms:.4f} ms ({bf16_ms / ms:.2f}x), fp8_dot forward with its quantize passes "
+            f"{dot_ms:.4f} ms [{card}]")
+        del x, w, g, xr, wr, y, qx, qw, qg, qw_col
+    torch.cuda.empty_cache()
+    return out
+
+
+def fp8_generic_module(dev, card):
+    """Phase 16 (c): ``mixed_precision="fp8"`` on a module without a
+    ``use_fp8`` field, the JAX test's 256 -> 512 -> 8 MLP: ``prepare``
+    rewrites it (``fp8_rewrite``), five ``train_step`` calls lower the loss,
+    and the first product runs through ``_scaled_mm`` (two launches a
+    step: its forward and its weight's gradient, the input needing none;
+    the second product, N = 8, stays)."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.ops import fp8
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    class Mlp(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            g = torch.Generator().manual_seed(0)
+            self.w1 = torch.nn.Parameter(torch.randn(256, 512, generator=g) * 0.05)
+            self.w2 = torch.nn.Parameter(torch.randn(512, 8, generator=g) * 0.05)
+
+        def forward(self, x):
+            x = x.to(self.w1.dtype)
+            return torch.tanh(x @ self.w1) @ self.w2
+
+    AcceleratorState._reset_state(reset_partial_state=True)
+    GradientState._reset_state()
+    acc = Accelerator(mixed_precision="fp8")
+    model = Mlp()
+    opt = torch.optim.SGD(model.parameters(), lr=1e-2)
+    model, opt = acc.prepare(model, opt)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(16, 256, generator=gen, device=dev)
+    y = torch.randn(16, 8, generator=gen, device=dev)
+    step = acc.train_step(lambda m, b: ((m(b["x"]) - b["y"]) ** 2).mean())
+    before = fp8.scaled_mm_count()
+    losses = [step({"x": x, "y": y}).item() for _ in range(FP8_GENERIC_STEPS)]
+    launches = fp8.scaled_mm_count() - before
+    inner = model.module  # the MixedPrecisionModule's: the forward sees bf16 weights
+    with torch.no_grad():
+        w1, w2 = inner.w1.to(torch.bfloat16), inner.w2.to(torch.bfloat16)
+        first_fp8 = torch.equal(model(x), (torch.tanh(fp8.fp8_dot(x.to(torch.bfloat16), w1))
+                                           @ w2).float())
+    log(f"phase 16 (c) fp8_rewrite on a 256 -> 512 -> 8 MLP through prepare and train_step: losses "
+        f"{[round(l, 5) for l in losses]}, {launches} _scaled_mm launches in "
+        f"{FP8_GENERIC_STEPS} steps; the forward bitwise tanh(fp8_dot(x, w1)) @ w2: {first_fp8} "
+        f"[{card}]")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0] and first_fp8
+            and launches == 2 * FP8_GENERIC_STEPS):
+        raise AssertionError(f"phase 16 (c): losses {losses}, {launches} _scaled_mm launches")
+    del model, opt, step, acc
+    AcceleratorState._reset_state(reset_partial_state=True)
+    GradientState._reset_state()
+    return dict(losses=losses, scaled_mm_launches=launches, first_product_fp8=first_fp8)
+
+
+def fp8_generate(dev, card, model):
+    """Phase 16 (d): greedy ``generate`` on (a)'s trained model, its prefill
+    through fp8 (the decode in bf16, as the JAX package's), B1 launched by
+    the prefill alone; the tokens teacher-forced through two references by
+    phase 12's rule (argmax share >= GREEDY_SHARE_MIN, the largest gap where
+    a token leaves the reference's argmax within Q_NEAR_TIE_ULPS bf16 ulps
+    of its largest |logit|): the computation generate ran (the fp8 prefill's
+    cache, then the window of generated tokens through the bf16 verify
+    step), and the same model with ``use_fp8=False`` (the bf16 forward)."""
+    from accelerate_tpu_torch.inference import generate
+    from accelerate_tpu_torch.models.llama import llama_prefill, llama_verify_step
+    from accelerate_tpu_torch.ops import _build, fp8
+
+    cfg = model.config
+    ids_np = np.random.default_rng(16).integers(
+        0, cfg.vocab_size, size=(FP8_GEN_BATCH, FP8_GEN_PROMPT)).astype(np.int32)
+    ids = torch.from_numpy(ids_np)
+    generate(model, ids_np, FP8_GEN_NEW)  # builds the program (and its graph)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    mm0 = fp8.scaled_mm_count()
+    out = generate(model, ids_np, FP8_GEN_NEW)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    prefill_mm = fp8.scaled_mm_count() - mm0
+    out = out.to(dev)
+    p = FP8_GEN_PROMPT
+    params = model.params
+    cfg_r = dataclasses.replace(cfg, attention_impl="xla")
+    with torch.no_grad():
+        # the computation generate ran: the fp8 prefill's cache, then the
+        # generated tokens as one window through the bf16 verify step
+        logits0, cache = llama_prefill(cfg, params, ids.to(dev).long(), p + FP8_GEN_NEW)
+        win, _ = llama_verify_step(cfg_r, params, cache, out[:, p:-1].long(),
+                                   torch.full((FP8_GEN_BATCH,), p, device=dev, dtype=torch.int32))
+        ref_fp8 = torch.cat([logits0[:, None], win], dim=1)
+        ref_bf16 = static_reference(dataclasses.replace(cfg_r, use_fp8=False), params, ids.to(dev),
+                                    out)
+    chosen = out[:, p:].long()
+    numbers = {}
+    for label, ref in (("fp8 prefill", ref_fp8), ("use_fp8=False", ref_bf16)):
+        share, gap, ulps = choice_agreement(chosen, ref)
+        numbers[label] = dict(share=share, gap=gap, gap_ulps=ulps)
+    held, told = numbers["fp8 prefill"], numbers["use_fp8=False"]
+    log(f"phase 16 (d) generate B={FP8_GEN_BATCH} {p} + {FP8_GEN_NEW} greedy on (a)'s model: "
+        f"launches {dict((k, v) for k, v in launches.items() if v)}, {prefill_mm} _scaled_mm (the "
+        f"prefill's); teacher-forced against the fp8 prefill + bf16 window (held: share >= "
+        f"{GREEDY_SHARE_MIN}, gap <= {Q_NEAR_TIE_ULPS} ulps): share {held['share']:.4f}, largest "
+        f"gap {held['gap_ulps']:.2f} ulps; against use_fp8=False (reported): share "
+        f"{told['share']:.4f}, largest gap {told['gap_ulps']:.2f} ulps [{card}]")
+    check_launches("phase 16 (d) (one generate: B1 in the prefill only)", launches,
+                   {"flash_fwd_mma": cfg.num_hidden_layers})
+    if (prefill_mm != 7 * cfg.num_hidden_layers or held["share"] < GREEDY_SHARE_MIN
+            or held["gap_ulps"] > Q_NEAR_TIE_ULPS):
+        raise AssertionError(f"phase 16 (d): {prefill_mm} _scaled_mm in the prefill; generate's "
+                             f"tokens against the fp8 prefill's computation: {held}")
+    return {"flash_fwd_mma": launches["flash_fwd_mma"]}, numbers
+
+
+def phase_fp8(dev, card, phase6):
+    """Phase 16: fp8 training. (a) phase 6's model, seed, batch and AdamW
+    under ``Accelerator(mixed_precision="fp8")``: 2 untimed and 4 timed
+    steps with the launch counters reset just before (2L B1, L B2, L B3 and
+    28 L ``_scaled_mm`` a step: each layer's seven products forward, again
+    in the recompute, and two backward), each step's gradient norm finite,
+    the first FP8_HELD_LOSSES losses within TRAIN_VARIANT_LOSS_RTOL of phase
+    6's, all finite and falling; ms a step,
+    tokens/s, MFU over the bf16 and the fp8 peak, peak memory and a profile
+    (the quantize passes' and the layout copies' device ms) beside phase
+    6's; (b) the projections at their shapes; (c) a generic module;
+    (d) generate on (a)'s model."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models.llama import (
+        LlamaConfig, create_llama, llama_flops_per_token, llama_loss,
+    )
+    from accelerate_tpu_torch.ops import _build, fp8
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    AcceleratorState._reset_state(reset_partial_state=True)
+    GradientState._reset_state()
+    torch.cuda.reset_peak_memory_stats()
+    acc = Accelerator(mixed_precision="fp8")
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=TRAIN_LAYERS, attention_impl="flash")
+    model = create_llama(cfg, seed=0, device=acc.device)
+    optimizer = torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=0.01)
+    model, optimizer = acc.prepare(model, optimizer)
+    if not (model.config.use_fp8 and acc.fp8_backend == "NATIVE"):
+        raise AssertionError("phase 16: prepare did not turn the model's fp8 projections on")
+    kept = []
+    clip = optimizer.clip_grad_norm_
+
+    def clip_and_keep(max_norm):  # train_step clips through the optimizer: keep each norm
+        kept.append(clip(max_norm))
+        return kept[-1]
+
+    optimizer.clip_grad_norm_ = clip_and_keep
+    step_fn = acc.train_step(llama_loss, max_grad_norm=1.0)
+    rng = np.random.default_rng(0)
+    data = {"input_ids": rng.integers(0, cfg.vocab_size, size=(4 * TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)}
+    loader = acc.prepare_data_loader(data, batch_size=TRAIN_BATCH, drop_last=True)
+    batch = next(iter(loader))  # phase 6's batch, repeated on every step
+    losses = [step_fn(batch) for _ in range(FP8_WARMUP)]
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    mm0 = fp8.scaled_mm_count()
+    t0 = time.perf_counter()
+    losses += [step_fn(batch) for _ in range(FP8_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    mm_per_step = (fp8.scaled_mm_count() - mm0) / FP8_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    optimizer.clip_grad_norm_ = clip
+    losses = [l.item() for l in losses]
+    norms = [float(n) for n in kept]
+    L = TRAIN_LAYERS
+    expected = {"flash_fwd_mma": 2 * L * FP8_STEPS, "flash_bwd_dq_mma": L * FP8_STEPS,
+                "flash_bwd_dkv_mma": L * FP8_STEPS}
+    check_launches(f"phase 16 (a) ({FP8_STEPS} fp8 steps; remat runs the forward twice)", launches,
+                   expected)
+    step_ms = wall / FP8_STEPS * 1e3
+    tokens_per_s = FP8_STEPS * TRAIN_BATCH * TRAIN_SEQ / wall
+    flops = tokens_per_s * llama_flops_per_token(cfg, TRAIN_SEQ)
+    mfu, mfu_fp8 = flops / PEAK_FLOPS[torch.bfloat16], flops / FP8_PEAK
+    ref = phase6["losses"][:len(losses)]
+    rels = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    rel = max(rels[:FP8_HELD_LOSSES])
+    log(f"phase 16 (a) losses {[round(l, 4) for l in losses]} against phase 6's "
+        f"{[round(l, 4) for l in ref]}: relative differences {[f'{r:.2e}' for r in rels]} (the "
+        f"first {FP8_HELD_LOSSES} held within {TRAIN_VARIANT_LOSS_RTOL}); grad norms "
+        f"{[round(n, 4) for n in norms]}; _scaled_mm {mm_per_step:.0f} a step (expected {28 * L})")
+    log(f"phase 16 (a) fp8 train step {step_ms:.1f} ms, {tokens_per_s:.0f} tokens/s, MFU "
+        f"{mfu:.4f} of the 989 TFLOP/s bf16 peak ({mfu_fp8:.4f} of the 1,979 fp8 peak), peak memory "
+        f"{peak / 1e9:.2f} GB; phase 6 (bf16) {phase6['step_ms']:.1f} ms, "
+        f"{phase6['tokens_per_s']:.0f} tokens/s, MFU {phase6['mfu']:.4f}, "
+        f"{phase6['peak_memory_bytes'] / 1e9:.2f} GB [{card}]")
+    if (rel > TRAIN_VARIANT_LOSS_RTOL or not all(np.isfinite(norms)) or len(norms) != len(losses)
+            or not all(np.isfinite(losses)) or not losses[-1] < losses[0]
+            or mm_per_step != 28 * L or peak > PEAK_MEMORY_LIMIT):
+        raise AssertionError(f"phase 16 (a): losses {losses} against {ref}, norms {norms}, "
+                             f"_scaled_mm {mm_per_step} a step, peak {peak / 1e9:.1f} GB")
+    profile = profile_fp8_step(step_fn, batch, step_ms, card)
+    del optimizer, step_fn, loader, acc
+    gc.collect()
+    torch.cuda.empty_cache()
+    model.eval()
+    by_path = {"training_fp8": {k: launches[k] for k in expected}}
+    by_path["prefill_fp8"], greedy = fp8_generate(dev, card, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    shapes = fp8_projection_checks(dev, card, gen)
+    generic = fp8_generic_module(dev, card)
+    return by_path, dict(
+        losses=losses, grad_norms=norms, step_ms=step_ms, tokens_per_s=tokens_per_s, mfu_bf16_peak=mfu,
+        mfu_fp8_peak=mfu_fp8, peak_memory_bytes=peak, scaled_mm_per_step=mm_per_step,
+        loss_rel_to_phase6=rels,
+        phase6=dict(step_ms=phase6["step_ms"], tokens_per_s=phase6["tokens_per_s"],
+                    mfu=phase6["mfu"], peak_memory_bytes=phase6["peak_memory_bytes"]),
+        profile=profile, projections=shapes, generic=generic, generate=greedy)
+
+
+def profile_fp8_step(step_fn, batch, step_ms, card):
+    """Phase 6's train-step profile of one fp8 step, and the device ms of
+    the kernels launched inside the ``fp8_quantize`` and ``fp8_layout``
+    ranges (``ops.fp8.kernels_in_ranges`` on the step's trace)."""
+    from accelerate_tpu_torch.ops.fp8 import kernels_in_ranges
+
+    prof = profile_train_step(step_fn, batch, step_ms, card, label="phase 16", name="train_fp8")
+    events = json.loads(Path("chiprun_out/trace_train_fp8.json").read_text())["traceEvents"]
+    ranges = {name: sum(ms for _, ms in kernels)
+              for name, kernels in kernels_in_ranges(events).items()}
+    if prof is None or not any(ranges.values()):
+        log("phase 16 profile: no kernel of the fp8 ranges in the trace (not measured)")
+        return dict(step=prof, ranges_ms=None)
+    share = (ranges["fp8_quantize"] + ranges["fp8_layout"]) / prof["profiled_wall_ms"]
+    log(f"phase 16 profile: device ms a step of the kernels inside the fp8 ranges: quantize "
+        f"{ranges['fp8_quantize']:.1f}, layout copies {ranges['fp8_layout']:.1f}, of the profiled "
+        f"step's {prof['profiled_wall_ms']:.1f} ms (share {share:.3f}) [{card}]")
+    return dict(step=prof, ranges_ms=ranges, share=share)
+
+
 # ---------------------------------------------------------------- phase 10
 # data-parallel training at world size 1 over NCCL: phase 6's model, seed,
 # batch, bf16 compute, f32 logits, AdamW and max_grad_norm=1.0 through
@@ -3767,7 +4131,10 @@ def phase_resume(card, phase6=None):
         verify_s = time.perf_counter() - t0
         for _ in range(RESUME_NAN_AT - RESUME_SAVE_AT):
             run.step()
-        os.environ[fault.FAULT_INJECT_ENV] = "before_commit:raise"
+        # interrupted once the model's tensors are written, before the
+        # optimizer's and the commit: the staging directory holds a third of
+        # a checkpoint (a full one cost ~29 s more of the script's time)
+        os.environ[fault.FAULT_INJECT_ENV] = "after_model_save:raise"
         try:
             run.acc.save_state()
             raise AssertionError("phase 9: the armed fault point did not interrupt the save")
@@ -4035,13 +4402,15 @@ def phase_supervised(card, cpu=False, preset="llama3_8b"):
     uninterrupted run of SUP_STEPS steps; (b) --max_restarts 1 with the
     watchdog and a synchronous replica: a committed save after step
     SUP_SAVE_AT, the worker killed at the end of the next step on its first
-    attempt, restarted and resumed; (c) the local tree wiped and a relaunch
-    that restores from the replica; (d) --handle_preemption and SIGTERM to
+    attempt, restarted and resumed; (d) --handle_preemption and SIGTERM to
     the launcher once the worker is training: an emergency checkpoint, rc
     0, no restart, then a relaunch that resumes it; (e) a hang on the first
     attempt that the watchdog kills, then a restart; each ends on (a)'s
-    losses and parameters bit for bit. Then a planted fault: one byte of
-    the replica flipped, which the restore must refuse."""
+    losses and parameters bit for bit. After (b) a planted fault: one byte
+    of its replica flipped, which the restore must refuse. (c), the local
+    tree wiped and a relaunch restoring from the replica (55 s of the
+    script's time), is held on the CPU by tests/test_torch_elastic.py
+    (``test_resume_restores_bitwise_from_replica_after_tree_wipe``)."""
     import re
     import shutil
     import tempfile
@@ -4114,25 +4483,6 @@ def phase_supervised(card, cpu=False, preset="llama3_8b"):
             f"synchronous mirror {saved['mirror_s']:.2f}s ({out['b']['mirror_gb_per_s']:.3f} GB/s, "
             f"checksum-verified); restart {out['b']['restart_s']:.2f}s from the worker's death to "
             f"its first resumed step (resume_from_latest {restart['resume_s']:.2f}s of it) [{card}]")
-
-        # (c) disk loss: the local tree wiped, a relaunch restores from the replica
-        shutil.rmtree(os.path.join(project_b, "checkpoints"))
-        rc, so, se, sc, evs_c, _, _ = supervised_launch(
-            tmp, "c", ["--replicate_to", replica], ["--project_dir", project_b],
-            env_extra=sync, **kw)
-        restored = re.search(r"restored .* from replica .* \(copied and verified in ([0-9.]+)s\)",
-                             se)
-        if rc != 0 or sc is None or not sc["resumed"] or restored is None:
-            raise AssertionError(f"phase 13 (c): rc {rc}, summary {sc}\n{se[-3000:]}")
-        bitwise("(c)", sc, SUP_SAVE_AT)
-        restore_s = float(restored.group(1))
-        resume_c = next(e for e in evs_c if e["event"] == "start")["resume_s"]
-        out["c"] = dict(restore_s=restore_s, restore_gb_per_s=ckpt_bytes / restore_s / 1e9,
-                        resume_s=resume_c)
-        log(f"phase 13 (c) local tree wiped: the relaunch restored checkpoint_0 from the replica "
-            f"(checksum-verified before and after the copy) in {restore_s:.2f}s "
-            f"({out['c']['restore_gb_per_s']:.3f} GB/s; resume_from_latest {resume_c:.2f}s with "
-            f"the load) and resumed bitwise equal to (a): True [{card}]")
 
         # planted fault: one byte of the replica flipped; the restore must refuse it
         victim = max((os.path.join(r, f) for r, _, fs in os.walk(os.path.join(replica, "r0"))
@@ -4210,7 +4560,7 @@ def phase_supervised(card, cpu=False, preset="llama3_8b"):
             if name.startswith("launches_") and ".rank" in name:
                 for k, v in json.load(open(os.path.join(tmp, name))).items():
                     launches[k] += v
-        steps = sum(len(_steps(e)) for e in (evs_a, evs_b, evs_c, evs_d, evs_d2, evs_e))
+        steps = sum(len(_steps(e)) for e in (evs_a, evs_b, evs_d, evs_d2, evs_e))
     fwd = "flash_fwd" if cpu else "flash_fwd_mma"
     bwd = ("flash_bwd_dq", "flash_bwd_dkv") if cpu else ("flash_bwd_dq_mma", "flash_bwd_dkv_mma")
     expected = {fwd: 2 * layers * steps, bwd[0]: layers * steps, bwd[1]: layers * steps}
@@ -5072,6 +5422,9 @@ def run_phases(args) -> int:
             by_path["training_f32"], summary["train_parity"] = phase_train_parity(dev, card)
         with phase("6"):
             by_path["training"], summary["train_main_path"] = phase_train_main_path(dev, card)
+        with phase("16"):
+            fp8_paths, summary["fp8"] = phase_fp8(dev, card, summary["train_main_path"])
+        by_path.update(fp8_paths)
         with phase("9"):
             by_path["training_resume"], summary["resume"] = phase_resume(
                 card, summary["train_main_path"])

@@ -415,9 +415,15 @@ def test_refusals_name_their_queue_items(tmp_path):
             tl.LlamaForCausalLM.from_seed(tiny, device="cpu"))
     finally:
         dist.destroy_process_group()
+    # A4's fp8 landed: mixed_precision="fp8" runs (ops/fp8.py), and no
+    # refusal names A4
     AcceleratorState._reset_state(reset_partial_state=True)
-    with pytest.raises(NotImplementedError, match=r"fp8.*ROADMAP.md A4\b"):
-        Accelerator(cpu=True, mixed_precision="fp8")
+    acc = Accelerator(cpu=True, mixed_precision="fp8")
+    assert acc.mixed_precision == "fp8" and acc.fp8_backend == "NATIVE"
+    model = acc.prepare(tl.create_llama(tl.LlamaConfig.tiny(compute_dtype=torch.float32),
+                                        device="cpu"))
+    assert model.config.use_fp8
+    assert [str(f) for f in port.rglob("*.py") if re.search(r"ROADMAP\.md A4\b", f.read_text())] == []
 
 
 # C5's fields by the item that owns them
@@ -517,6 +523,7 @@ SIGNATURE_EXEMPT = {
                                             "softmax_dtype": "f32 always, the JAX default"},
     "ops.attention:paged_attention": {"softmax_dtype": "f32 always, the JAX default"},
     "ops.attention:verify_attention": {"softmax_dtype": "f32 always, the JAX default"},
+    "ops.fp8:fp8_rewrite": {"fn": "renamed module (a torch module, rewritten in place)"},
     "ops.flash_attention:flash_attention": {"block_q": TPU, "block_k": TPU, "interpret": TPU},
     "ops.flash_attention:flash_attention_with_lse": {"block_q": TPU, "block_k": TPU,
                                                      "interpret": TPU},

@@ -242,7 +242,6 @@ def test_config_takes_every_field_of_the_jax_config():
 UNPORTED_CONFIGS = {
     "moe": (dict(num_experts=4, num_experts_per_tok=1, expert_capacity_factor=2.0,
                  moe_aux_loss_coef=0.1, router_z_loss_coef=1e-3), "MoE", "A11"),
-    "fp8": (dict(use_fp8=True), "use_fp8", "A4"),
 }
 
 
@@ -254,6 +253,22 @@ def test_unported_config_fields_are_refused_by_item(case):
         tl.create_llama(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=rf"ROADMAP.md {item}\b"):
         tl.llama_apply(cfg, {}, torch.zeros((1, 4), dtype=torch.long))
+
+
+def test_use_fp8_config_builds_and_runs_its_projections_through_fp8(monkeypatch):
+    # A4's fp8 landed: a use_fp8 model builds and runs (the case the queue
+    # item refused), its seven projections a layer through ops.fp8.fp8_dot
+    from accelerate_tpu_torch.ops import fp8 as tf
+
+    cfg = tl.LlamaConfig.tiny(use_fp8=True, compute_dtype=torch.float32)
+    model = tl.create_llama(cfg, device="cpu")
+    ids = torch.zeros((1, 4), dtype=torch.long)
+    calls = []
+    real = tf.fp8_dot
+    monkeypatch.setattr(tf, "fp8_dot", lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    with torch.no_grad():
+        logits = tl.llama_apply(cfg, model.params, ids)
+    assert torch.isfinite(logits).all() and len(calls) == 7 * cfg.num_hidden_layers
 
 
 def test_mixtral_preset_builds_and_is_refused_at_model_creation():
