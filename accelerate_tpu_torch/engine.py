@@ -74,19 +74,50 @@ iteration-level scheduling state (counterpart of
   ``inference.graphs_supported`` makes; torch's threaded process group
   runs them eagerly.
 
-Not ported yet (ROADMAP.md A3): disaggregated prefill
-(``prefill_remote``/``insert_prefilled``), the host KV tier
-(``host_tier_bytes``) and the perfwatch/tracing hooks.
+* **Host-RAM KV tier** (``host_tier_bytes``, paged stores): evicted
+  prefix blocks spill to host memory (:mod:`~accelerate_tpu_torch.kvcache`)
+  and a chunked admission of their prefix restores them before its first
+  chunk, so the chunks start past the restored tokens. The restore is
+  recorded as JAX's ``prefill_insert ("restore", R)``, R =
+  ``blocks_per_row``, and runs eagerly: one ``index_copy_`` per pool leaf
+  over the restored blocks. Its operands are fresh tensors each time (the
+  host payloads on the device), so a captured graph would need a static
+  staging buffer of R blocks (256 MiB in bf16 for Llama-3-8B at max_len
+  2048) and one more copy of every block into it; the eager scatter moves
+  each byte once. JAX pads the batch to R blocks with the null block as
+  target, which the eager scatter has no need of. :meth:`prefetch` starts
+  the host-to-device copies at submit time.
+* **Disaggregated prefill**: :meth:`prefill_remote` runs a request's
+  bucketed prompt forward and its first-token draw off the decode loop, on
+  the calling thread's own CUDA stream, into fresh tensors
+  (``prefill_forward (bucket,)``, eager: the decode thread may be
+  replaying or capturing meanwhile); :meth:`insert_prefilled` commits the
+  :class:`RemotePrefill` into a slot (``prefill_commit ()``, eager: its
+  inputs are that prefill's tensors), after the engine's stream waits on
+  the event the prefill carries. The result is bitwise :meth:`insert`'s.
+  The slot epochs fence a prefill that arrives over the wire
+  (``kvtransfer.py``): :meth:`reserve_slot` takes a slot out of the free
+  list for a transfer, and every return of a slot bumps its epoch, so a
+  late commit into a recycled slot raises
+  :class:`~accelerate_tpu_torch.utils.fault.TransferStaleEpochError`.
+  Over a mesh the host tier, :meth:`prefill_remote`,
+  :meth:`reserve_slot` and :meth:`insert_prefilled` raise (ROADMAP.md
+  A3-bis): a forward on a worker thread would issue collectives outside
+  the model's run lock and the ranks' one order.
+
+Not ported yet (ROADMAP.md A10): the tracing spans and the perfwatch
+hooks.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import threading
 import time
 import zlib
 from dataclasses import dataclass, field
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -94,9 +125,9 @@ import torch
 from ._device import resolve_device
 from .kvcache import HostStage, make_kv_backend
 from .ops import _build
-from .utils.fault import EngineCapacityError, EngineInvariantError
+from .utils.fault import EngineCapacityError, EngineInvariantError, TransferStaleEpochError
 
-__all__ = ["ContinuousBatchingEngine", "SlotOccupant"]
+__all__ = ["ContinuousBatchingEngine", "SlotOccupant", "RemotePrefill"]
 
 _graphs_disabled = False
 
@@ -179,6 +210,62 @@ class SlotOccupant:
         out[: len(self.prompt)] = self.prompt
         out[len(self.prompt): len(self.prompt) + len(self.tokens)] = self.tokens
         return out
+
+
+@dataclass
+class RemotePrefill:
+    """A prompt forward run off the decode loop
+    (:meth:`ContinuousBatchingEngine.prefill_remote`): the bucketed
+    prefill's ``max_len``-wide KV window, the first sampled token and what
+    the slot's generator needs, ready for :meth:`ContinuousBatchingEngine
+    .insert_prefilled`. Committing it is bitwise :meth:`~
+    ContinuousBatchingEngine.insert`: the same forward, the same draw.
+
+    ``cache`` is ``{"k", "v"}`` of (L, 1, max_len, kv heads, head_dim)
+    and ``t0`` a (1,) int32 tensor, on the engine's device; ``next_key``
+    is the port's counterpart of the JAX package's advanced key: a (1,)
+    int64 CPU tensor holding the seed the slot's generator is reseeded
+    with, after which the commit draws the first token's V uniforms again
+    (the generator is registered with the captured graphs, so it must be
+    left as :meth:`~ContinuousBatchingEngine.insert` leaves it). ``event``
+    (CUDA) is recorded after the forward on the stream that ran it: the
+    commit's stream waits on it. ``engine_config``, ``prompt_bucket`` and
+    ``max_len`` are the structural stamp a receiving engine checks;
+    ``reservation`` is the ``(slot, epoch)`` a wire transfer reserved
+    (``kvtransfer.py``), None for a hand-off in one process."""
+
+    prompt: np.ndarray  # (prompt_len,) int32, unpadded
+    max_new_tokens: int
+    temperature: float
+    top_k: Optional[int]
+    top_p: Optional[float]
+    eos_token_id: Optional[int]
+    pad_token_id: Optional[int]
+    seed: int
+    cache: Any
+    t0: Any
+    next_key: Any
+    engine_config: Any = None
+    prompt_bucket: int = 0
+    max_len: int = 0
+    reservation: Optional[Tuple[int, int]] = None
+    event: Any = None
+
+    def to_bytes(self) -> bytes:
+        """The versioned wire encoding
+        (:func:`~accelerate_tpu_torch.kvtransfer.encode_remote_prefill`)."""
+        from .kvtransfer import encode_remote_prefill
+
+        return encode_remote_prefill(self)
+
+    @classmethod
+    def from_bytes(cls, data: bytes, *, engine=None) -> "RemotePrefill":
+        """Decode :meth:`to_bytes`; ``engine`` (the receiving one) checks
+        the structural stamp, rebinds ``engine_config`` to its own and
+        takes the leaves to its device."""
+        from .kvtransfer import decode_remote_prefill
+
+        return decode_remote_prefill(data, engine=engine)
 
 
 def _filter_logits(logits, temp, top_k, top_p):
@@ -366,11 +453,6 @@ class ContinuousBatchingEngine:
         from .models.llama import (_check_supported, _Shard, llama_decode_step, llama_prefill_at,
                                    llama_verify_step, mesh_ranks, serving_view)
 
-        if host_tier_bytes:
-            raise NotImplementedError(
-                "the host-RAM KV tier (host_tier_bytes) is queued in ROADMAP.md A3 "
-                "(HostKVTier, restore_plan and the restore program are not ported)"
-            )
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if max_len < 2:
@@ -406,6 +488,8 @@ class ContinuousBatchingEngine:
         if params_dev != self.device:
             raise ValueError(f"model parameters are on {params_dev}, engine device is {self.device}")
         self._tp = self._fsdp = self._mesh_lock = None
+        if self._view is not None and host_tier_bytes:
+            self._refuse_over_mesh("the host-RAM KV tier (host_tier_bytes)")
         if self._view is not None:
             self._tp = self._view.tp
             self._mesh_lock, self._fsdp = _model_mesh_state(model, self._view.fsdp_group)
@@ -440,7 +524,11 @@ class ContinuousBatchingEngine:
             prompt_bucket=self.prompt_bucket, device=self.device, block_size=block_size,
             pool_blocks=pool_blocks, attention_impl=attention_impl,
             tp_group=self._tp.group if self._tp is not None else None,
+            host_tier_bytes=host_tier_bytes,
         )
+        if hasattr(self._backend, "bind_cache_reader"):
+            # the spill gather reads the store, which is updated in place
+            self._backend.bind_cache_reader(lambda: self._cache)
         self._prefill_at_fn, self._decode_fn = llama_prefill_at, llama_decode_step
         self._verify_fn = llama_verify_step
         self.spec = spec
@@ -467,15 +555,27 @@ class ContinuousBatchingEngine:
         self._init_state()
         self._occupants: List[Optional[SlotOccupant]] = [None] * slots
         self._free: List[int] = list(range(slots))
+        # the slot-epoch fence of wire-shipped prefills: every return of a
+        # slot to the free list bumps its epoch, and a reservation is
+        # honoured only under its epoch. The lock covers the free list, the
+        # epochs and the reservations (transfer receivers reserve and
+        # release from their threads); no device work runs under it
+        self._admission_lock = threading.Lock()
+        self._epochs: List[int] = [0] * slots
+        self._reservations: dict = {}  # slot -> expiry on the engine's clock
+        # prefill_remote's CUDA stream, one per calling thread
+        self._remote = threading.local()
         self._ring: collections.deque = collections.deque()
         # round-robin queue of PREFILLING occupants and the per-tick chunk
         # clamp (0 pauses chunked prefill)
         self._prefill_queue: collections.deque = collections.deque()
         self._prefill_chunk_limit = 1
         self.prefill_chunks = 0
+        self.kv_restores = 0
         self._tick = 0
         self.peak_live = 0
         self.inserted = 0
+        self.remote_prefills = 0
         self.steps = 0
         self.retired = 0
 
@@ -603,15 +703,21 @@ class ContinuousBatchingEngine:
         state. ``is_last`` ((1,) bool, chunks): a chunk before the last
         installs a ghost (pad token, done, no budget) instead."""
         c = self._carried
-        pick = {name: c[name].index_select(0, slot) for name in ("temp", "top_k", "top_p", "eos", "pad")}
+        pick = {name: c[name].index_select(0, slot) for name in ("temp", "top_k", "top_p")}
         t0 = self._sample(logits, self._gumbel(self._uniform.index_select(0, slot)),
                           pick["temp"], pick["top_k"], pick["top_p"])
+        self._install(t0, slot, is_last)
+
+    def _install(self, t0, slot: torch.Tensor, is_last=None) -> None:
+        """The slot's carried state after its first token ``t0`` ((1,)
+        int32): done at EOS or when the budget (``_args``) is spent."""
+        c = self._carried
+        eos, pad = c["eos"].index_select(0, slot), c["pad"].index_select(0, slot)
         budget = self._arg("budget").to(torch.int32)
-        eos = pick["eos"]
         done0 = ((t0 == eos) & (eos >= 0)) | (budget <= 1)
         budget = budget - 1
         if is_last is not None:
-            t0 = torch.where(is_last, t0, pick["pad"])
+            t0 = torch.where(is_last, t0, pad)
             done0 = done0 | ~is_last
             budget = torch.where(is_last, budget, 0)
         c["token"].index_copy_(0, slot, t0)
@@ -644,6 +750,96 @@ class ContinuousBatchingEngine:
     # --------------------------------------------------------- host API
     def free_slots(self) -> int:
         return len(self._free)
+
+    def _refuse_over_mesh(self, what: str) -> None:
+        raise NotImplementedError(
+            f"{what} on an engine over a mesh is queued in ROADMAP.md A3-bis: a prompt forward "
+            "on a worker thread would issue collectives outside the model's run lock and the "
+            "ranks' one order")
+
+    def _pop_free_slot(self) -> int:
+        with self._admission_lock:
+            if not self._free:
+                raise EngineCapacityError("no free slot (caller must gate on free_slots())")
+            return self._free.pop()
+
+    def _return_slot(self, slot: int) -> None:
+        """Back to the free list, with an epoch bump: a reservation or a
+        transfer under the old epoch is stale from now on."""
+        with self._admission_lock:
+            self._epochs[slot] += 1
+            self._reservations.pop(slot, None)
+            self._free.append(slot)
+
+    # ------------------------------------------------ slot-epoch reservations
+    def slot_epoch(self, slot: int) -> int:
+        """The slot's epoch: bumped each time the slot returns to the free
+        list. A transfer receiver fences its COMMIT against it."""
+        with self._admission_lock:
+            return self._epochs[slot]
+
+    def reserve_slot(self, ttl_s: float = 30.0) -> Tuple[int, int]:
+        """Take a free slot out of the free list for an incoming KV
+        transfer and return ``(slot, epoch)``. :meth:`insert_prefilled`
+        takes the reservation while the epoch is current;
+        :meth:`release_reservation` or, after ``ttl_s`` on the engine's
+        clock, :meth:`poll` gives the slot back with an epoch bump. Safe
+        from any thread."""
+        if self._view is not None:
+            self._refuse_over_mesh("reserve_slot")
+        with self._admission_lock:
+            if not self._free:
+                raise EngineCapacityError(
+                    "no free slot to reserve for an incoming KV transfer "
+                    "(slots free as occupants retire)")
+            slot = self._free.pop()
+            self._reservations[slot] = self._clock() + ttl_s
+            return slot, self._epochs[slot]
+
+    def release_reservation(self, slot: int, epoch: int) -> bool:
+        """Give a reserved slot back (its epoch bumps, so a late COMMIT of
+        the old epoch is refused). False when the reservation is already
+        gone. Safe from any thread."""
+        with self._admission_lock:
+            if slot not in self._reservations or self._epochs[slot] != epoch:
+                return False
+            del self._reservations[slot]
+            self._epochs[slot] += 1
+            self._free.append(slot)
+            return True
+
+    def _reap_reservations(self) -> None:
+        """Give back reservations past their TTL (a sender that died after
+        BEGIN sends no ABORT)."""
+        if not self._reservations:
+            return
+        now = self._clock()
+        with self._admission_lock:
+            for slot in [s for s, expiry in self._reservations.items() if now >= expiry]:
+                del self._reservations[slot]
+                self._epochs[slot] += 1
+                self._free.append(slot)
+
+    def kv_prefix_digest(self, limit: int = 512) -> dict:
+        """``{"block_size": B, "crcs": [...]}``: crc32 of each registered
+        block-aligned prefix key (at most ``limit``), for placing requests
+        where their prefix is warm; empty for the dense store."""
+        fn = getattr(self._backend, "prefix_digest", None)
+        return {"block_size": getattr(self._backend, "block_size", 0),
+                "crcs": fn(limit) if fn is not None else []}
+
+    @property
+    def kv_host_tier(self):
+        """The backend's :class:`~accelerate_tpu_torch.kvcache.HostKVTier`
+        (None without a host tier)."""
+        return getattr(self._backend, "host_tier", None)
+
+    def prefetch(self, prompt) -> None:
+        """Start the host-to-device copies of the host-tier blocks
+        ``prompt`` would restore (on a side stream), so they run while the
+        request waits. Safe from any thread; nothing without a host tier."""
+        if hasattr(self._backend, "prefetch"):
+            self._backend.prefetch(np.asarray(prompt, np.int32).reshape(-1))
 
     def live_count(self) -> int:
         return sum(1 for o in self._occupants if o is not None and not o.finished)
@@ -719,15 +915,13 @@ class ContinuousBatchingEngine:
             eos_token_id if eos_token_id is not None else 0)
         # finished slots feed their pad token to the next steps' embedding
         self.validate_tokens(np.append(prompt, pad_id))
-        if not self._free:
-            raise EngineCapacityError("no free slot (caller must gate on free_slots())")
         chunked = len(prompt) > self.prompt_bucket
-        slot = self._free.pop()
+        slot = self._pop_free_slot()
         try:
-            _, shared = self._backend.acquire(slot, prompt, max_new_tokens,
-                                              defer_register=chunked)
+            row, shared = self._backend.acquire(slot, prompt, max_new_tokens,
+                                                defer_register=chunked)
         except BaseException:
-            self._free.append(slot)
+            self._return_slot(slot)
             raise
         eos = eos_token_id if eos_token_id is not None else -1
         c = self._carried
@@ -744,9 +938,20 @@ class ContinuousBatchingEngine:
         self.inserted += 1
         self.peak_live = max(self.peak_live, self.live_count())
         if chunked:
+            # consecutive host-tier blocks past the shared ones come back in
+            # one restore; their content is the original bytes, so their
+            # registrations serve prefix hits at once
+            restored = 0
+            if hasattr(self._backend, "restore_plan"):
+                plan = self._backend.restore_plan(slot, prompt, shared, row)
+                if plan is not None:
+                    n, payloads, ids = plan
+                    self._dispatch_restore(occ, payloads, ids)
+                    self._backend.promote_deferred(slot, n)
+                    restored = n
             # chunks start at the first one not covered by shared prefix
             # blocks; min(.., P-1) keeps the last position in the last chunk
-            shared_tokens = shared * getattr(self._backend, "block_size", 0)
+            shared_tokens = (shared + restored) * getattr(self._backend, "block_size", 0)
             chunk = self.prefill_chunk
             occ.prefill_pos = (min(shared_tokens, len(prompt) - 1) // chunk) * chunk
             occ.chunk_args = dict(seed=seed, budget=max_new_tokens, eos=eos)
@@ -765,6 +970,29 @@ class ContinuousBatchingEngine:
         self._tick += 1
         self._ring.append((self._tick, "prefill", occ, *self._readback(self._out["t0"], self._out["done0"])))
         return occ
+
+    @torch.no_grad()
+    def _dispatch_restore(self, occ: SlotOccupant, payloads, ids) -> None:
+        """``prefill_insert ("restore", blocks_per_row)``: the host-tier
+        payloads scattered into the slot's fresh blocks ``ids``, eagerly,
+        one ``index_copy_`` per pool leaf (the module docstring)."""
+        self._programs.setdefault("prefill_insert", set()).add(
+            ("restore", self._backend.blocks_per_row))
+        target = torch.tensor(ids, dtype=torch.long).to(self.device)
+
+        def scatter(leaf, parts):
+            leaf.index_copy_(1, target, torch.stack(parts, dim=1).to(leaf.dtype))
+
+        for w in ("k", "v"):
+            leaf = self._cache[w]
+            if isinstance(leaf, dict):
+                for part in ("q", "s"):
+                    scatter(leaf[part], [p[w][part] for p in payloads])
+            else:
+                scatter(leaf, [p[w] for p in payloads])
+        self.kv_restores += 1
+        self._tick += 1
+        self._ring.append((self._tick, "chunk", occ, (), None))
 
     def _prefill_body(self) -> None:
         """``prefill_insert (bucket,)``: the prompt's forward, its KV into
@@ -863,13 +1091,169 @@ class ContinuousBatchingEngine:
         chunk = self.prefill_chunk or self.prompt_bucket
         return sum(-(-(len(o.prompt) - o.prefill_pos) // chunk) for o in self._prefill_queue)
 
-    def prefill_remote(self, *args, **kwargs):
-        """Prefill off the decode loop (disaggregated serving)."""
-        raise NotImplementedError(
-            "prefill_remote/insert_prefilled (disaggregated prefill) are queued in ROADMAP.md A3"
+    # ------------------------------------------------- disaggregated prefill
+    def _remote_stream(self):
+        """The calling thread's stream for :meth:`prefill_remote` (a side
+        stream of its own, made at its first call)."""
+        stream = getattr(self._remote, "stream", None)
+        if stream is None:
+            stream = self._remote.stream = torch.cuda.Stream(self.device)
+        return stream
+
+    @torch.no_grad()
+    def prefill_remote(
+        self,
+        prompt,
+        *,
+        max_new_tokens: int,
+        temperature: float = 0.0,
+        top_k: Optional[int] = None,
+        top_p: Optional[float] = None,
+        eos_token_id: Optional[int] = None,
+        pad_token_id: Optional[int] = None,
+        seed: int = 0,
+        trace_id: Optional[str] = None,
+    ) -> RemotePrefill:
+        """Run a request's bucketed prompt forward and draw its first
+        token without admitting it (``prefill_forward (bucket,)``): safe
+        from any thread, it reads the model and writes only tensors of its
+        own, eagerly, on the calling thread's own CUDA stream. The first
+        token's V uniforms come from a generator of its own seeded with
+        ``seed``, as :meth:`insert` draws them. Commit the result with
+        :meth:`insert_prefilled` on the serving thread. ``trace_id`` is
+        taken for the JAX package's signature; its span waits for the
+        tracing module (ROADMAP.md A10)."""
+        if self._view is not None:
+            self._refuse_over_mesh("prefill_remote")
+        prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
+        self.validate_request(len(prompt), max_new_tokens)
+        if len(prompt) > self.prompt_bucket:
+            raise ValueError(
+                "prefill_remote cannot disaggregate a chunked (long) prompt; admit it "
+                "with insert() so its chunks interleave with decode")
+        pad_id = pad_token_id if pad_token_id is not None else (
+            eos_token_id if eos_token_id is not None else 0)
+        self.validate_tokens(np.append(prompt, pad_id))
+        self._programs.setdefault("prefill_forward", set()).add((self.prompt_bucket,))
+        cuda = self.device.type == "cuda"
+        with torch.cuda.device(self.device) if cuda else contextlib.nullcontext(), \
+                torch.cuda.stream(self._remote_stream()) if cuda else contextlib.nullcontext():
+            padded = np.zeros((1, self.prompt_bucket), np.int64)
+            padded[0, :len(prompt)] = prompt
+            ids = torch.from_numpy(padded).to(self.device)
+            logits, cache = self._prefill_at_fn(self.config, self._params(), ids, self.max_len,
+                                                [len(prompt) - 1])
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed)
+            uniform = torch.rand((1, self.config.vocab_size), generator=gen, device=self.device)
+            operand = lambda v, dtype: torch.full((1,), v, dtype=dtype, device=self.device)  # noqa: E731
+            t0 = self._sample(logits, self._gumbel(uniform), operand(temperature, torch.float32),
+                              operand(top_k if top_k is not None else 0, torch.int32),
+                              operand(top_p if top_p is not None else 1.0, torch.float32))
+            event = None
+            if cuda:
+                event = torch.cuda.Event()
+                event.record()
+        self.remote_prefills += 1
+        return RemotePrefill(
+            prompt=prompt, max_new_tokens=max_new_tokens, temperature=temperature, top_k=top_k,
+            top_p=top_p, eos_token_id=eos_token_id, pad_token_id=pad_token_id, seed=seed,
+            cache=cache, t0=t0, next_key=torch.tensor([seed], dtype=torch.int64),
+            engine_config=self.config, prompt_bucket=self.prompt_bucket, max_len=self.max_len,
+            event=event,
         )
 
-    insert_prefilled = prefill_remote
+    def _structurally_accepts(self, pre) -> bool:
+        return (isinstance(pre, RemotePrefill) and pre.engine_config is self.config
+                and pre.prompt_bucket == self.prompt_bucket and pre.max_len == self.max_len)
+
+    def accepts_prefill(self, pre) -> bool:
+        """Whether :meth:`insert_prefilled` can commit ``pre``: computed for
+        this model config, prompt bucket and ``max_len``, and, if it came
+        over the wire, its reservation still current (else the caller
+        falls back to :meth:`insert`)."""
+        if not self._structurally_accepts(pre):
+            return False
+        if pre.reservation is not None:
+            slot, epoch = pre.reservation
+            with self._admission_lock:
+                if slot not in self._reservations or self._epochs[slot] != epoch:
+                    return False
+        return True
+
+    @torch.no_grad()
+    def insert_prefilled(self, pre: RemotePrefill, *, max_new_tokens: Optional[int] = None,
+                         tag: Any = None) -> SlotOccupant:
+        """Admit a :class:`RemotePrefill` into a slot (``prefill_commit
+        ()``): its KV window into the slot's blocks and its first token
+        installed, bitwise what :meth:`insert` with that budget leaves.
+        ``max_new_tokens`` may lower the prefill's budget, never raise it.
+        A prefill from the wire commits into the slot its transfer reserved,
+        and only under the epoch it reserved
+        (:class:`~accelerate_tpu_torch.utils.fault.TransferStaleEpochError`
+        otherwise). The slot's generator is reseeded and draws the first
+        token's uniforms again, as :meth:`insert` leaves it."""
+        if self._view is not None:
+            self._refuse_over_mesh("insert_prefilled")
+        if not self._structurally_accepts(pre):
+            raise ValueError(
+                "RemotePrefill is not compatible with this engine (model config / prompt_bucket "
+                "/ max_len mismatch); recompute it with prefill_remote or fall back to insert()")
+        budget = pre.max_new_tokens if max_new_tokens is None else max_new_tokens
+        if budget > pre.max_new_tokens:
+            raise ValueError(f"insert_prefilled budget ({budget}) cannot exceed the prefill's "
+                             f"budget ({pre.max_new_tokens})")
+        prompt = np.asarray(pre.prompt, dtype=np.int32).reshape(-1)
+        self.validate_request(len(prompt), budget)
+        if pre.reservation is not None:
+            slot, epoch = pre.reservation
+            with self._admission_lock:
+                fresh = slot in self._reservations and self._epochs[slot] == epoch
+                if fresh:
+                    del self._reservations[slot]
+            if not fresh:
+                raise TransferStaleEpochError(
+                    f"KV transfer reservation for slot {slot} is stale (transfer epoch {epoch}, "
+                    f"current {self.slot_epoch(slot)}): the slot was released while the stream "
+                    "was in flight; fall back to a local prefill")
+        else:
+            slot = self._pop_free_slot()
+        try:
+            self._backend.acquire(slot, prompt, budget)
+        except BaseException:
+            self._return_slot(slot)
+            raise
+        pad_id = pre.pad_token_id if pre.pad_token_id is not None else (
+            pre.eos_token_id if pre.eos_token_id is not None else 0)
+        c = self._carried
+        c["temp"][slot] = float(pre.temperature)
+        c["top_k"][slot] = int(pre.top_k if pre.top_k is not None else 0)
+        c["top_p"][slot] = float(pre.top_p if pre.top_p is not None else 1.0)
+        c["eos"][slot] = pre.eos_token_id if pre.eos_token_id is not None else -1
+        c["pad"][slot] = pad_id
+        occ = SlotOccupant(slot=slot, tag=tag, prompt=prompt, budget=budget, pad_id=pad_id,
+                           eos_id=pre.eos_token_id, inserted_s=self._clock())
+        self._occupants[slot] = occ
+        self.inserted += 1
+        self.peak_live = max(self.peak_live, self.live_count())
+        self._stage_args(slot=slot, pos=len(prompt) - 1, budget=budget)
+        self._seed_first_token(slot, int(pre.next_key[0]))
+        self._programs.setdefault("prefill_commit", set()).add(())
+        tables = self._backend.device_tables()
+        if pre.event is not None:
+            # the forward ran on its own stream: wait for it, and keep its
+            # tensors from that stream's reuse until this one is past them
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(pre.event)
+            for leaf in (*pre.cache.values(), pre.t0):
+                leaf.record_stream(stream)
+        slot_t, last = self._arg("slot"), self._arg("pos")
+        self._backend.prefill_write(self._cache, pre.cache, slot_t, tables.index_select(0, slot_t)[0])
+        self._pos.index_copy_(0, slot_t, (last + 1).to(torch.int32))
+        self._install(pre.t0.to(torch.int32), slot_t)
+        self._tick += 1
+        self._ring.append((self._tick, "prefill", occ, *self._readback(self._out["t0"], self._out["done0"])))
+        return occ
 
     # ------------------------------------------------------------- steps
     def step(self) -> bool:
@@ -1080,6 +1464,7 @@ class ContinuousBatchingEngine:
     def poll(self, force: bool = False) -> List[SlotOccupant]:
         """Read back every ring entry at least ``readback_lag`` steps old
         (all with ``force=True``) and return the occupants retired."""
+        self._reap_reservations()  # the TTL of abandoned KV transfers
         retired: List[SlotOccupant] = []
         while self._ring and (force or self._tick - self._ring[0][0] >= self.readback_lag):
             _, kind, payload, hosts, event = self._ring.popleft()
@@ -1148,7 +1533,7 @@ class ContinuousBatchingEngine:
     def _retire(self, occ: SlotOccupant) -> None:
         occ.finished = True
         self._occupants[occ.slot] = None
-        self._free.append(occ.slot)
+        self._return_slot(occ.slot)  # the epoch bump fences late transfers
         # frees the blocks and points the row at the null block, so the
         # ghost slot's masked writes land in the sink
         self._backend.release(occ.slot)
@@ -1200,7 +1585,12 @@ class ContinuousBatchingEngine:
             occ.finished = True
         self.peak_live = 0
         self._occupants = [None] * self.slots
-        self._free = list(range(self.slots))
+        with self._admission_lock:
+            # every epoch bumps: a transfer reserved against the old state
+            # is fenced for good
+            self._epochs = [e + 1 for e in self._epochs]
+            self._reservations.clear()
+            self._free = list(range(self.slots))
         self._ring.clear()
         self._prefill_queue.clear()
         self._backend.reset()
@@ -1239,10 +1629,12 @@ class ContinuousBatchingEngine:
             "peak_live": self.peak_live,
             "free": len(self._free),
             "inserted": self.inserted,
+            "remote_prefills": self.remote_prefills,
             "prefill_chunk": self.prefill_chunk,
             "prefill_chunk_limit": self._prefill_chunk_limit,
             "prefill_chunks": self.prefill_chunks,
             "prefill_chunks_pending": self.prefill_chunks_pending(),
+            "kv_restores": self.kv_restores,
             "steps": self.steps,
             "retired": self.retired,
             "programs": programs,

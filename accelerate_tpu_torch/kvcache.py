@@ -37,7 +37,20 @@ tensor that lives as long as the engine: the block tables are one static
 ``(slots, blocks_per_row)`` tensor, refreshed from the host table by a
 non-blocking copy (:class:`HostStage`) before the next program after an
 ``acquire`` or a ``release``, so a captured CUDA graph keeps reading it.
-The host-RAM spill tier is not ported yet (ROADMAP.md A3).
+
+* **Host-RAM spill tier** (``host_tier_bytes``, :class:`HostKVTier`): an
+  evicted registered prefix block spills to host memory under its prefix
+  key instead of dying, and a later chunked admission of that prefix
+  restores it. Because the pool is updated in place, the victims' bytes
+  are gathered into a fresh device tensor inside :meth:`PagedKVBackend
+  .acquire`, on the engine's stream, before the program that reuses the
+  blocks is enqueued behind it; a non-blocking copy takes the gather to
+  pinned host memory and records an event, and a spill thread waits on
+  the event and files each block. A payload is the pool's own bytes
+  (bf16/f32, or int8 ``q`` with f32 ``s``) in a pinned tensor, so a
+  restore puts back exactly what was evicted and its host-to-device
+  copies are asynchronous. :meth:`PagedKVBackend.prefetch` starts those
+  copies from the submitter's thread on a side stream.
 
 Under tensor parallelism (``tp_group``: a model laid over a mesh's ``tp``
 dim) a backend's store holds this rank's ``kv_heads / tp`` heads in as
@@ -49,15 +62,25 @@ whole on every rank, taken over every rank's heads).
 from __future__ import annotations
 
 import collections
-from typing import Dict, List, Optional, Tuple
+import contextlib
+import queue
+import threading
+import time
+import weakref
+import zlib
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .utils.fault import EngineCapacityError
+from .logging import get_logger
+from .utils.fault import EngineCapacityError, fault_point
+
+logger = get_logger(__name__)
 
 __all__ = [
     "KV_BACKENDS",
+    "HostKVTier",
     "kv_quantize",
     "kv_dequantize",
     "KVCacheBackend",
@@ -137,6 +160,122 @@ def kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
     """Inverse of :func:`kv_quantize`: ``q (..., kvh, hd)`` times the
     per-position ``scale (...)``, in ``dtype``."""
     return (q.float() * scale[..., None, None]).to(dtype)
+
+
+def _map_leaves(fn, tree):
+    """``fn`` over the tensors of a KV payload: ``{"k", "v"}`` of tensors
+    or of int8 ``{"q", "s"}`` pairs."""
+    return {name: _map_leaves(fn, leaf) if isinstance(leaf, dict) else fn(leaf)
+            for name, leaf in tree.items()}
+
+
+class _HostBlock(dict):
+    """One spilled block's payload (``{"k", "v"}`` as :func:`_map_leaves`
+    walks it). On the card its tensors are views of a slot of
+    :class:`_PinnedSlabs`: ``slot`` names it, and ``reads`` holds the
+    events recorded after each copy out of it, which must complete before
+    the slot takes another block."""
+
+    def __init__(self, leaves, slot=None):
+        super().__init__(leaves)
+        self.slot = slot
+        self.reads: list = []
+
+
+class _PinnedSlabs:
+    """Pinned host memory of the spill tier, one slot a block, allocated
+    in slabs of ``per_slab`` blocks (``template``: each leaf's block shape
+    and dtype). Pinning memory is slow and holds up the host-to-device
+    copies other threads enqueue meanwhile, and copies out of views of one
+    allocation run faster than out of as many small ones (PERF.md §6:
+    a block a pinned buffer of its own made a restore slower than
+    recomputing the prompt): so the tier pins its capacity in slabs at its
+    first spill, on the spill thread, and reuses a freed slot. A slot
+    freed while a copy out of it may still be in flight waits until that
+    copy's events complete."""
+
+    def __init__(self, template, per_slab: int = 64):
+        self.template = template
+        self.per_slab = per_slab
+        self._slabs: list = []
+        self._free: List[int] = []
+        self._pending: collections.deque = collections.deque()  # (slot, read events)
+        self._lock = threading.Lock()
+
+    def _grow(self) -> None:
+        base = len(self._slabs) * self.per_slab
+        self._slabs.append(_map_leaves(
+            lambda spec: torch.empty((self.per_slab, *spec[0]), dtype=spec[1], pin_memory=True),
+            self.template))
+        self._free.extend(range(base + self.per_slab - 1, base - 1, -1))
+
+    def reserve(self, slots: int) -> None:
+        """Pin slabs until they hold at least ``slots`` blocks."""
+        with self._lock:
+            while len(self._slabs) * self.per_slab < slots:
+                self._grow()
+
+    def available(self) -> int:
+        """Slots free now (a pending one once its reads completed)."""
+        with self._lock:
+            while self._pending and all(e.query() for e in self._pending[0][1]):
+                self._free.append(self._pending.popleft()[0])
+            return len(self._free)
+
+    def take(self) -> _HostBlock:
+        with self._lock:
+            if not self._free and self._pending:
+                slot, reads = self._pending.popleft()
+                for e in reads:
+                    e.synchronize()
+                self._free.append(slot)
+            if not self._free:
+                self._grow()
+            slot = self._free.pop()
+        slab, i = divmod(slot, self.per_slab)
+        return _HostBlock(_map_leaves(lambda t: t[i], self._slabs[slab]), slot)
+
+    def slab(self, index: int):
+        return self._slabs[index]
+
+    def free(self, block: _HostBlock) -> None:
+        with self._lock:
+            if block.reads:
+                self._pending.append((block.slot, list(block.reads)))
+            else:
+                self._free.append(block.slot)
+
+
+def _map_pairs(fn, a, b):
+    """``fn(x, y)`` over the tensors of two payloads of one structure."""
+    for name, leaf in a.items():
+        if isinstance(leaf, dict):
+            _map_pairs(fn, leaf, b[name])
+        else:
+            fn(leaf, b[name])
+
+
+def _spill_worker(backend_ref, spills: queue.Queue) -> None:
+    """The spill thread of a :class:`PagedKVBackend` (``backend_ref``, a
+    weak reference): files each queued gather in its host tier, until
+    ``None`` or the backend is gone."""
+    while True:
+        item = spills.get()
+        try:
+            backend = backend_ref() if item is not None else None
+            if backend is None:
+                return
+            keys, gathered, ready = item
+            # a crash here loses the spill and nothing else: the gather
+            # only read the pool, and the tier is host state
+            fault_point("kvcache.spill_mid")
+            backend._file(keys, gathered, ready)
+        except Exception:  # noqa: BLE001 - a failed spill only loses a cache hit
+            logger.exception("host-tier spill failed; the evicted block is lost to the "
+                             "tier (device pool unaffected)")
+        finally:
+            backend = item = None
+            spills.task_done()
 
 
 def _set_rows(leaf, index, value, group=None):
@@ -238,6 +377,117 @@ class PagedKVLayout:
         return cache_leaf
 
 
+# ----------------------------------------------------------- host spill tier
+class HostKVTier:
+    """Host-RAM tier below the pool's cached LRU: evicted registered prefix
+    blocks land here under the same exact prefix-bytes key as the device
+    registry, holding the pool's bytes (bf16/f32, or int8 ``q`` with f32
+    per-position ``s``), so a hit restores exactly what a block that was
+    never evicted would hold. Keys are content (the whole token prefix,
+    and quantization is deterministic), so a stored block cannot go stale
+    while the model stays the same.
+
+    :meth:`insert` runs on the backend's spill thread; :meth:`lookup`,
+    :meth:`stats` and :meth:`clear` on the engine's or a submitter's
+    thread: every access holds the lock. Capacity is counted in blocks
+    (``capacity_bytes // block_bytes``) and LRU-evicted on insert."""
+
+    def __init__(self, capacity_bytes: int, block_bytes: int):
+        if capacity_bytes < 0:
+            raise ValueError(f"capacity_bytes must be >= 0, got {capacity_bytes}")
+        if block_bytes < 1:
+            raise ValueError(f"block_bytes must be >= 1, got {block_bytes}")
+        self.capacity_bytes = capacity_bytes
+        self.block_bytes = block_bytes
+        self.capacity_blocks = capacity_bytes // block_bytes
+        self._blocks: "collections.OrderedDict[bytes, Any]" = collections.OrderedDict()
+        self._lock = threading.Lock()
+        # called, under the lock, with each payload the tier lets go (LRU
+        # drops, a key filed again, clear): the owner reuses its memory
+        self.on_drop: Optional[Callable[[Any], None]] = None
+        self.spill_blocks = 0
+        self.spill_bytes = 0
+        self.restore_hits = 0
+        self.restore_bytes = 0
+        self.restore_misses = 0
+        self.dropped = 0  # LRU-evicted out of the tier
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._blocks)
+
+    def bytes_used(self) -> int:
+        with self._lock:
+            return len(self._blocks) * self.block_bytes
+
+    def insert(self, key: bytes, payload: Any) -> bool:
+        """File one spilled block. False when the tier has no capacity (the
+        spill still counts, so the eviction pressure shows)."""
+        with self._lock:
+            self.spill_blocks += 1
+            self.spill_bytes += self.block_bytes
+            if self.capacity_blocks < 1:
+                self.dropped += 1
+                return False
+            while len(self._blocks) >= self.capacity_blocks:
+                self._let_go(self._blocks.popitem(last=False)[1])
+                self.dropped += 1
+            self._let_go(self._blocks.get(key))
+            self._blocks[key] = payload
+            self._blocks.move_to_end(key)
+            return True
+
+    def _let_go(self, payload) -> None:
+        if payload is not None and self.on_drop is not None:
+            self.on_drop(payload)
+
+    def lookup(self, key: bytes) -> Optional[Any]:
+        """Probe; a hit refreshes its recency, a miss counts. Hits count at
+        restore time (:meth:`count_restore`)."""
+        with self._lock:
+            payload = self._blocks.get(key)
+            if payload is None:
+                self.restore_misses += 1
+                return None
+            self._blocks.move_to_end(key)
+            return payload
+
+    def count_restore(self, n_blocks: int) -> None:
+        with self._lock:
+            self.restore_hits += n_blocks
+            self.restore_bytes += n_blocks * self.block_bytes
+
+    def hot_keys(self, n: int = 8) -> List[bytes]:
+        """The ``n`` most recently used keys, hottest first."""
+        with self._lock:
+            return list(reversed(self._blocks.keys()))[: max(0, n)]
+
+    def contains(self, key: bytes) -> bool:
+        """Membership without touching recency or the counters."""
+        with self._lock:
+            return key in self._blocks
+
+    def clear(self) -> None:
+        with self._lock:
+            for payload in self._blocks.values():
+                self._let_go(payload)
+            self._blocks.clear()
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "host_tier_capacity_bytes": self.capacity_bytes,
+                "host_tier_blocks": len(self._blocks),
+                "host_tier_bytes": len(self._blocks) * self.block_bytes,
+                "spill_blocks": self.spill_blocks,
+                "spill_bytes": self.spill_bytes,
+                "restore_hits": self.restore_hits,
+                "restore_bytes": self.restore_bytes,
+                "restore_misses": self.restore_misses,
+                "host_tier_dropped": self.dropped,
+            }
+
+
 # ------------------------------------------------------------ host block pool
 class PagedBlockPool:
     """Host-side allocator of the device block pool: free list, reference
@@ -261,6 +511,10 @@ class PagedBlockPool:
         self.block_size = block_size
         self.slots = slots
         self.blocks_per_row = blocks_per_row
+        # host-tier spill: called with (key, block) for each evicted block
+        # that still owns its key, before the registry entry dies (the
+        # owner gathers the bytes before the block is written again)
+        self.spill_fn: Optional[Callable[[bytes, int], None]] = None
         self.reset()
 
     def reset(self) -> None:
@@ -315,6 +569,8 @@ class PagedBlockPool:
         blk, _ = self._cached.popitem(last=False)  # LRU
         key = self._key_of.pop(blk)
         if self._registry.get(key) == blk:
+            if self.spill_fn is not None:
+                self.spill_fn(key, blk)
             del self._registry[key]
         return blk
 
@@ -583,7 +839,7 @@ class PagedKVBackend(KVCacheBackend):
     def __init__(self, *, config, slots: int, max_len: int, prompt_bucket: int,
                  device: torch.device, block_size: int = 16,
                  pool_blocks: Optional[int] = None, quantized: bool = False,
-                 attention_impl: str = "reference", tp_group=None):
+                 attention_impl: str = "reference", tp_group=None, host_tier_bytes: int = 0):
         if attention_impl not in ("reference", "kernel"):
             raise ValueError(
                 f"attention_impl must be 'reference' or 'kernel', got {attention_impl!r}"
@@ -626,6 +882,26 @@ class PagedKVBackend(KVCacheBackend):
                                           device=device)
         self._table_stage = HostStage(self._device_tables)
         self._tables_stale = True
+        # the host-RAM spill tier (module docstring): the victims of the
+        # current acquire, the spill thread's queue, and the prefetched
+        # payloads by key, (device payload, event), which a submitter's
+        # thread fills and the serving worker takes (under the lock)
+        if host_tier_bytes < 0:
+            raise ValueError(f"host_tier_bytes must be >= 0, got {host_tier_bytes}")
+        self.host_tier: Optional[HostKVTier] = None
+        self._cache_reader: Optional[Callable[[], Any]] = None
+        self._spill_batch: List[Tuple[bytes, int]] = []
+        self._spill_q: Optional[queue.Queue] = None
+        self._spill_thread: Optional[threading.Thread] = None
+        self._prefetched: Dict[bytes, Any] = {}
+        self._prefetch_lock = threading.Lock()
+        self._streams: Dict[str, Any] = {}  # the spill's and the prefetch's side streams
+        self._slabs: Optional[_PinnedSlabs] = None  # the tier's pinned memory (CUDA)
+        self.prefetch_hits = 0
+        if host_tier_bytes > 0:
+            self.host_tier = HostKVTier(host_tier_bytes, self.host_block_bytes())
+            self.host_tier.on_drop = self._drop_block
+            self.pool.spill_fn = lambda key, blk: self._spill_batch.append((key, blk))
 
     def init_device_state(self):
         shape = (self._layers, self.pool_blocks, self.block_size, self._kvh, self._hd)
@@ -672,10 +948,244 @@ class PagedKVBackend(KVCacheBackend):
     def acquire(self, slot, prompt, budget, defer_register=False):
         out = self.pool.acquire(slot, prompt, budget, defer_register=defer_register)
         self._tables_stale = True
+        self._flush_spills()
         return out
 
     def promote_deferred(self, slot: int, count: Optional[int] = None) -> int:
         return self.pool.promote_deferred(slot, count)
+
+    def prefix_digest(self, limit: int = 512) -> List[int]:
+        """crc32 of each registered block-aligned prefix key, at most
+        ``limit``: a fingerprint of what this pool holds (a collision only
+        mis-scores a placement; nothing correct depends on it)."""
+        keys = list(self.pool._registry.keys())[: max(0, limit)]
+        return [zlib.crc32(k) & 0xFFFFFFFF for k in keys]
+
+    # ---------------------------------------------------- host tier: spill
+    def host_block_bytes(self) -> int:
+        """Host bytes of one spilled block: K and V as the pool holds them
+        (int8 with its f32 scales)."""
+        return 2 * self._per_block_bytes()
+
+    def bind_cache_reader(self, reader: Callable[[], Any]) -> None:
+        """The engine's store, read by the spill gather (the store is
+        updated in place, so the reader returns the same tensors)."""
+        self._cache_reader = reader
+
+    def _side_stream(self, name: str):
+        with self._prefetch_lock:
+            if name not in self._streams:
+                self._streams[name] = torch.cuda.Stream(self.device)
+            return self._streams[name]
+
+    def _flush_spills(self) -> None:
+        """Gather this acquire's eviction victims out of the pool into a
+        fresh device tensor per leaf, ``(n, L, ...)``, on the current (the
+        engine's) stream, before the program that overwrites the blocks is
+        enqueued behind it, and hand the gather, with an event recorded
+        after it, to the spill thread."""
+        batch, self._spill_batch = self._spill_batch, []
+        if not batch or self.host_tier is None or self._cache_reader is None:
+            return
+        keys = [key for key, _ in batch]
+        ids = torch.tensor([blk for _, blk in batch], dtype=torch.long).to(self.device)
+        gathered = _map_leaves(lambda leaf: leaf.index_select(1, ids).transpose(0, 1).contiguous(),
+                               self._cache_reader())
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record()
+        self._spill_worker_q().put((keys, gathered, ready))
+
+    def _spill_worker_q(self) -> queue.Queue:
+        """The spill thread's queue, its thread started at the first spill.
+        The thread holds the backend weakly: an engine let go is collected
+        with its store and graphs, and its thread ends."""
+        if self._spill_q is None:
+            self._spill_q = queue.Queue()
+            self._spill_thread = threading.Thread(
+                target=_spill_worker, args=(weakref.ref(self), self._spill_q), name="kv-spill",
+                daemon=True)
+            self._spill_thread.start()
+            weakref.finalize(self, self._spill_q.put, None)
+        return self._spill_q
+
+    def _file(self, keys, gathered, ready) -> None:
+        """File each block of a spill gather in the tier, in host memory of
+        its own. On the card: a slot of the pinned slabs each, filled by
+        non-blocking copies on the spill's side stream once the gather is
+        done, a round of as many blocks as there are free slots at a time
+        (filing a round lets go of the tier's oldest blocks, whose slots
+        the next round takes); the gather is dropped only after them."""
+        k = gathered["k"]
+        n = (k["q"] if isinstance(k, dict) else k).shape[0]
+        if self.host_tier.capacity_blocks < 1:
+            for key in keys:  # counted, then dropped, as the tier does
+                self.host_tier.insert(key, None)
+            return
+        if ready is None:
+            for i, key in enumerate(keys):
+                self.host_tier.insert(key, _HostBlock(_map_leaves(lambda t: t[i].clone(), gathered)))
+            return
+        if self._slabs is None:
+            self._slabs = _PinnedSlabs(_map_leaves(lambda t: (tuple(t.shape[1:]), t.dtype), gathered))
+        self._slabs.reserve(self.host_tier.capacity_blocks)
+        stream = self._side_stream("spill")
+        with torch.cuda.device(self.device), torch.cuda.stream(stream):
+            stream.wait_event(ready)
+        start = 0
+        while start < n:
+            count = min(n - start, max(1, self._slabs.available()))
+            blocks = []
+            try:
+                with torch.cuda.device(self.device), torch.cuda.stream(stream):
+                    for i in range(start, start + count):
+                        blocks.append(self._slabs.take())
+                        _map_pairs(lambda dst, src: dst.copy_(src[i], non_blocking=True), blocks[-1],
+                                   gathered)
+                    done = torch.cuda.Event()
+                    done.record(stream)
+                done.synchronize()
+            except BaseException:
+                for block in blocks:
+                    self._slabs.free(block)
+                raise
+            for key, block in zip(keys[start: start + count], blocks):
+                if not self.host_tier.insert(key, block):
+                    self._drop_block(block)
+            start += count
+
+    def _drop_block(self, block) -> None:
+        if isinstance(block, _HostBlock) and block.slot is not None:
+            self._slabs.free(block)
+
+    def spill_flush(self, timeout_s: float = 30.0) -> None:
+        """Wait (at most ``timeout_s``) until every queued spill is in the
+        tier; for tests and measurements, never the serving path."""
+        if self._spill_q is None:
+            return
+        deadline = time.monotonic() + timeout_s
+        while self._spill_q.unfinished_tasks:
+            if time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"host-tier spill queue did not drain in {timeout_s}s "
+                    f"({self._spill_q.unfinished_tasks} task(s) pending)")
+            time.sleep(0.002)
+
+    # -------------------------------------------------- host tier: restore
+    def _host_chain(self, prompt: np.ndarray, start_depth: int) -> List[bytes]:
+        """Keys of the consecutive host-tier (or prefetched) blocks of
+        ``prompt`` from block depth ``start_depth``, up to the first miss."""
+        if self.host_tier is None:
+            return []
+        bs = self.block_size
+        keys: List[bytes] = []
+        for depth in range(start_depth, len(prompt) // bs):
+            key = prompt[: (depth + 1) * bs].tobytes()
+            with self._prefetch_lock:
+                prefetched = key in self._prefetched
+            if not prefetched and self.host_tier.lookup(key) is None:
+                break
+            keys.append(key)
+        return keys
+
+    def _to_device(self, blocks: List[_HostBlock], stream=None):
+        """Host blocks on the device, in order, by non-blocking copies on
+        ``stream`` (default: the current one): one copy a leaf for each
+        run of consecutive slots of one slab (a prefix spilled together
+        lies in such runs), then an event that each slot's next use waits
+        for. Under the tier's lock, so the tier cannot let a slot go in
+        between. Returns (device payloads, the event)."""
+        if self.device.type != "cuda":
+            return [_map_leaves(lambda t: t.clone(), b) for b in blocks], None
+        per_slab = self._slabs.per_slab
+        out: list = []
+        with self.host_tier._lock, torch.cuda.device(self.device), \
+                torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+            i = 0
+            while i < len(blocks):
+                j = i + 1
+                while (j < len(blocks) and blocks[j].slot == blocks[j - 1].slot + 1
+                       and blocks[j].slot % per_slab):
+                    j += 1
+                slab, first = divmod(blocks[i].slot, per_slab)
+                run = _map_leaves(lambda t: t[first: first + j - i].to(self.device, non_blocking=True),
+                                  self._slabs.slab(slab))
+                out.extend(_map_leaves(lambda t: t[k], run) for k in range(j - i))
+                i = j
+            read = torch.cuda.Event()
+            read.record()
+            for block in blocks:
+                block.reads = [e for e in block.reads if not e.query()] + [read]
+        return out, read
+
+    def prefetch(self, prompt) -> int:
+        """Start the host-to-device copies of every host-tier block
+        ``prompt`` would restore, on a side stream with an event, so they
+        overlap the request's wait in the queue. Runs on the submitter's
+        thread. Returns how many blocks are now on their way."""
+        if self.host_tier is None:
+            return 0
+        prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
+        shared = len(self.pool._shared_prefix(prompt))
+        n, keys, blocks = 0, [], []
+        for key in self._host_chain(prompt, shared):
+            with self._prefetch_lock:
+                present = key in self._prefetched
+            if not present:
+                payload = self.host_tier.lookup(key)
+                if payload is None:
+                    break
+                keys.append(key)
+                blocks.append(payload)
+            n += 1
+        if blocks:
+            stream = self._side_stream("prefetch") if self.device.type == "cuda" else None
+            payloads, event = self._to_device(blocks, stream)
+            with self._prefetch_lock:
+                for key, dev in zip(keys, payloads):
+                    self._prefetched.setdefault(key, (dev, event))
+        return n
+
+    def restore_plan(self, slot: int, prompt: np.ndarray, shared: int, row: np.ndarray):
+        """The host-tier blocks a chunked admission restores: the
+        consecutive hits past the device registry's ``shared`` blocks, on
+        the device (prefetched, or copied now on the current stream), bound
+        for the slot's fresh blocks ``row[shared: shared + n]``. Returns
+        ``(n, payloads, target_ids)`` or None. A prefetched payload came on
+        a side stream: the current stream waits for its event, and its
+        memory is marked as used here. The caller scatters the payloads,
+        then promotes the slot's first ``n`` parked registrations: the
+        restored content is the original bytes."""
+        if self.host_tier is None:
+            return None
+        prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
+        payloads, fetch = [], []  # fetch: (index in payloads, host block)
+        for key in self._host_chain(prompt, shared):
+            with self._prefetch_lock:
+                taken = self._prefetched.pop(key, None)
+            if taken is None:
+                host = self.host_tier.lookup(key)
+                if host is None:  # dropped from the tier since the probe
+                    break
+                fetch.append((len(payloads), host))
+                payloads.append(None)
+                continue
+            dev, event = taken
+            if event is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(event)
+                _map_leaves(lambda t: t.record_stream(stream), dev)
+            self.prefetch_hits += 1
+            payloads.append(dev)
+        if not payloads:
+            return None
+        if fetch:
+            for (i, _), dev in zip(fetch, self._to_device([b for _, b in fetch])[0]):
+                payloads[i] = dev
+        n = len(payloads)
+        self.host_tier.count_restore(n)
+        return n, payloads, np.asarray(row[shared: shared + n], np.int32)
 
     def release(self, slot):
         self.pool.release(slot)
@@ -698,6 +1208,12 @@ class PagedKVBackend(KVCacheBackend):
     def reset(self):
         self.pool.reset()
         self._tables_stale = True
+        # the host tier survives: its keys are content, so a rebuilt engine
+        # restores warm prefixes; prefetches die with the store they were
+        # bound for
+        self._spill_batch = []
+        with self._prefetch_lock:
+            self._prefetched = {}
 
     def _per_block_bytes(self) -> int:
         """One block of one leaf over every layer; int8 adds its f32
@@ -719,7 +1235,7 @@ class PagedKVBackend(KVCacheBackend):
         return self.pool.active_blocks() * self.block_size
 
     def stats(self):
-        return {
+        out = {
             "backend": self.kind,
             "block_size": self.block_size,
             "pool_blocks": self.pool_blocks,
@@ -729,20 +1245,31 @@ class PagedKVBackend(KVCacheBackend):
             "reserved_tokens": self.reserved_tokens(),
             **self.pool.stats(),
         }
+        if self.host_tier is not None:
+            out.update(self.host_tier.stats())
+            out["prefetch_hits"] = self.prefetch_hits
+        return out
 
 
 def make_kv_backend(kind: str, *, config, slots: int, max_len: int, prompt_bucket: int,
                     device: torch.device, block_size: int = 16,
                     pool_blocks: Optional[int] = None,
-                    attention_impl: str = "reference", tp_group=None) -> KVCacheBackend:
+                    attention_impl: str = "reference", tp_group=None,
+                    host_tier_bytes: int = 0) -> KVCacheBackend:
     """Factory the engine (and ``ServingConfig.kv_cache``) selects through;
-    ``tp_group``: the store holds this ``tp`` rank's kv heads."""
+    ``tp_group``: the store holds this ``tp`` rank's kv heads;
+    ``host_tier_bytes``: the host-RAM spill tier's capacity (paged only)."""
     if kind == "dense":
         if attention_impl != "reference":
             raise ValueError(
                 "attention_impl='kernel' requires a paged KV cache (kv_cache="
                 "'paged' or 'paged_int8'); the dense arena has no block tables "
                 "for the kernel to walk"
+            )
+        if host_tier_bytes > 0:
+            raise ValueError(
+                "kv_host_tier_bytes requires a paged KV cache (kv_cache='paged' or "
+                "'paged_int8'); the dense arena has no blocks to spill"
             )
         return DenseKVBackend(config=config, slots=slots, max_len=max_len, device=device,
                               tp_group=tp_group)
@@ -751,6 +1278,7 @@ def make_kv_backend(kind: str, *, config, slots: int, max_len: int, prompt_bucke
             config=config, slots=slots, max_len=max_len, prompt_bucket=prompt_bucket,
             device=device, block_size=block_size, pool_blocks=pool_blocks,
             quantized=kind == "paged_int8", attention_impl=attention_impl, tp_group=tp_group,
+            host_tier_bytes=host_tier_bytes,
         )
     raise ValueError(f"kv_cache must be one of {KV_BACKENDS}, got {kind!r}")
 

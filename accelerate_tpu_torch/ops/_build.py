@@ -93,10 +93,18 @@ build_logs: Dict[str, str] = {}
 
 
 _count_lock = threading.Lock()
+# the capture a thread has open (its dict), if any: a launch counts there
+# and not in the totals; another thread's launches go on to the totals
+_capturing = threading.local()
 
 
 def count_launch(name: str) -> None:
-    # ranks run as threads of one process may launch at once
+    # ranks run as threads of one process may launch at once, and a worker
+    # thread may launch while another thread captures a graph
+    captured = getattr(_capturing, "counts", None)
+    if captured is not None:
+        captured[name] = captured.get(name, 0) + 1
+        return
     with _count_lock:
         _launches[name] += 1
 
@@ -113,22 +121,25 @@ def reset_launch_counts() -> None:
 @contextlib.contextmanager
 def capture_launches():
     """Around a CUDA graph capture: yields a dict that holds, on exit, the
-    launches the wrappers counted inside (kernel name -> count, only the
-    kernels captured), and leaves the totals as they were before."""
-    before = dict(_launches)
+    launches the wrappers counted inside on this thread (kernel name ->
+    count, only the kernels captured). Those launches stay out of the
+    totals; launches that other threads make meanwhile count there as
+    always."""
     captured: Dict[str, int] = {}
+    outer = getattr(_capturing, "counts", None)
+    _capturing.counts = captured
     try:
         yield captured
     finally:
-        captured.update({n: c - before[n] for n, c in _launches.items() if c != before[n]})
-        _launches.update(before)
+        _capturing.counts = outer
 
 
 def add_launches(counts: Dict[str, int]) -> None:
     """Count one replay of a captured graph: ``counts`` from
     :func:`capture_launches`."""
-    for name, n in counts.items():
-        _launches[name] += n
+    with _count_lock:
+        for name, n in counts.items():
+            _launches[name] += n
 
 
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"

@@ -16,10 +16,13 @@ only validates and enqueues.
   (``max_retries``); a request's latency is its TTFT (the batch
   materialises at once). ``generate_fn`` replaces the executor.
 * ``"continuous"``: admit queued requests into free engine slots (each
-  admission runs the prompt forward, or the first chunk of a long prompt),
-  run one engine tick over every slot (pending chunks, then a decode or
-  speculative verify step), read back the matured results, reply to
-  retired requests, and shed requests past their deadline.
+  admission runs the prompt forward, or the first chunk of a long prompt,
+  or commits a prompt forward already run off the decode loop:
+  ``submit(prefilled=)``), run one engine tick over every slot (pending
+  chunks, then a decode or speculative verify step), read back the
+  matured results, reply to retired requests, and shed requests past
+  their deadline. ``kv_host_tier_bytes`` gives the engine a host-RAM KV
+  tier, and ``kv_prefetch`` starts a request's host-tier copies at submit.
 
 A model laid out over a mesh (``inference.prepare_inference(mesh=,
 rules=)``) is served by one controller, as the JAX package's one process
@@ -70,6 +73,7 @@ from .logging import get_logger
 from .utils.dataclasses import ServingConfig
 from .utils.fault import (
     BatchExecutionError,
+    KVTransferError,
     ReplicaDeadError,
     RequestDeadlineExceeded,
     ServerDrainingError,
@@ -99,6 +103,9 @@ class _Request:
     # ladder that would clamp it, and set ``degraded``, waits for A10)
     effective_max_new_tokens: int = 0
     degraded: bool = False
+    # continuous: a prompt forward run off the decode loop (an
+    # engine.RemotePrefill), committed at admission when the engine takes it
+    prefill: object = None
 
     def group_key(self) -> tuple:
         """Requests sharing this key can ride one static ``generate()``
@@ -160,7 +167,7 @@ class ServingMetrics:
     _COUNTERS = (
         "submitted", "completed", "rejected_queue_full", "rejected_draining",
         "shed_deadline", "completed_late", "retries", "batch_failures", "batches",
-        "engine_inserts", "engine_steps", "engine_retired",
+        "engine_inserts", "engine_steps", "engine_retired", "prefill_commit_fallbacks",
     )
 
     def __init__(self, window: int = 1024):
@@ -332,6 +339,7 @@ class InferenceServer:
                 spec=self.config.speculative,
                 spec_draft_len=self.config.spec_draft_len,
                 prefill_chunk=self.config.engine_prefill_chunk,
+                host_tier_bytes=self.config.kv_host_tier_bytes,
                 device=device,
                 clock=clock,
             )
@@ -372,18 +380,34 @@ class InferenceServer:
         with self._lock:
             return len(self._queue)
 
+    def kv_prefix_digest(self) -> Optional[dict]:
+        """The engine's prefix-registry digest
+        (:meth:`~accelerate_tpu_torch.engine.ContinuousBatchingEngine
+        .kv_prefix_digest`); None in static mode."""
+        if self._engine is None:
+            return None
+        fn = getattr(self._engine, "kv_prefix_digest", None)
+        return fn() if fn is not None else None
+
     # ------------------------------------------------------------ admission
     def submit(self, input_ids, *, max_new_tokens: Optional[int] = None,
                deadline_s: Optional[float] = None, temperature: float = 0.0,
                top_k: Optional[int] = None, top_p: Optional[float] = None,
                eos_token_id: Optional[int] = None, pad_token_id: Optional[int] = None,
-               seed: int = 0) -> Future:
+               seed: int = 0, prefilled=None) -> Future:
         """Admit one request; returns a Future resolving to
         :class:`ServingResult` or raising the typed error that ended it.
         Raises at once (before queueing) when the server is draining, the
         queue is full, or the request cannot fit the engine.
         ``deadline_s`` is relative (``None``: ``config.default_deadline_s``);
         ``seed`` drives a sampled request's draws (``temperature > 0``).
+        ``prefilled`` (continuous mode): the request's
+        :class:`~accelerate_tpu_torch.engine.RemotePrefill`, committed at
+        admission instead of running the prompt forward on the serving
+        thread; a prefill the engine cannot take (another shape, a budget
+        below the request's, a stale reservation) falls back to that
+        forward. With ``config.kv_prefetch`` the request's host-tier
+        blocks start their copies to the card here, on this thread.
         Over a mesh, only its first rank admits requests."""
         if self._control is not None and not self._control.is_leader:
             raise RuntimeError(
@@ -399,9 +423,17 @@ class InferenceServer:
         if ids.ndim != 1 or ids.shape[0] == 0:
             raise ValueError(f"input_ids must be a non-empty 1-D prompt, got shape {ids.shape}")
         budget = max_new_tokens or self.config.default_max_new_tokens
+        if prefilled is not None and self._engine is None:
+            raise ValueError("prefilled= requires mode='continuous' (no slot engine to commit the "
+                             "precomputed prefill into)")
+        if prefilled is not None and self._control is not None:
+            raise NotImplementedError(
+                "submit(prefilled=) on a server over a mesh is queued in ROADMAP.md A3-bis")
         if self._engine is not None:
             self._engine.validate_request(ids.shape[0], budget)
             self._engine.validate_tokens(ids)
+            if self.config.kv_prefetch:
+                self._engine.prefetch(ids)
         now = self._clock()
         if deadline_s is None:
             deadline_s = self.config.default_deadline_s
@@ -410,7 +442,7 @@ class InferenceServer:
             deadline=(now + deadline_s) if deadline_s is not None else None,
             temperature=temperature, top_k=top_k, top_p=top_p,
             eos_token_id=eos_token_id, pad_token_id=pad_token_id, seed=seed,
-            submitted_at=now,
+            submitted_at=now, prefill=prefilled,
         )
         with self._wake:
             if self._draining or self._closed:
@@ -787,17 +819,37 @@ class InferenceServer:
         """Admit ``req`` into a slot; False when the engine failed (its
         requests failed, its state rebuilt)."""
         try:
-            self._engine.insert(
-                req.input_ids, max_new_tokens=req.max_new_tokens,
-                temperature=req.temperature, top_k=req.top_k, top_p=req.top_p,
-                eos_token_id=req.eos_token_id, pad_token_id=req.pad_token_id,
-                seed=req.seed, tag=req,
-            )
+            if not self._insert_prefilled(req):
+                self._engine.insert(
+                    req.input_ids, max_new_tokens=req.max_new_tokens,
+                    temperature=req.temperature, top_k=req.top_k, top_p=req.top_p,
+                    eos_token_id=req.eos_token_id, pad_token_id=req.pad_token_id,
+                    seed=req.seed, tag=req,
+                )
         except Exception as exc:  # the engine failed: fail its requests, rebuild
             self._engine_failure(exc, also_fail=req)
             return False
         self.metrics.bump("engine_inserts")
         return True
+
+    def _insert_prefilled(self, req: _Request) -> bool:
+        """Commit ``req``'s prefill when the engine takes it and its budget
+        covers the request's; True when it did. A transfer error (the
+        reservation went stale since the check) counts a fallback; a
+        reservation still held is released, so the slot does not wait for
+        its TTL."""
+        pre, eng = req.prefill, self._engine
+        if pre is None:
+            return False
+        if req.max_new_tokens <= pre.max_new_tokens and eng.accepts_prefill(pre):
+            try:
+                eng.insert_prefilled(pre, max_new_tokens=req.max_new_tokens, tag=req)
+                return True
+            except KVTransferError:
+                self.metrics.bump("prefill_commit_fallbacks")
+        if getattr(pre, "reservation", None) is not None:
+            eng.release_reservation(*pre.reservation)
+        return False
 
     def _loop_replay_continuous(self) -> None:
         """A rank other than the mesh's first in continuous mode: apply each

@@ -2,7 +2,7 @@
 # The four-card runs of the PyTorch port, from the repository root on a
 # host with four cards (one process a card, NCCL):
 #
-#   bash accelerate_tpu_torch/test_utils/scripts/four_card_runs.sh [sanity|full|shallow|all|supervise|serve|fp8]
+#   bash accelerate_tpu_torch/test_utils/scripts/four_card_runs.sh [sanity|full|shallow|all|supervise|serve|fp8|disagg]
 #
 # sanity:  the sanity script (test_script.py) under --tp_size 4 and under
 #          --tp_size 2 --dp_shard_size 2
@@ -32,6 +32,11 @@
 #          each in bf16 and then with --mixed_precision fp8 (ops/fp8.py: the
 #          projections on the fp8 tensor cores, their scales all-reduced
 #          over the mesh), on the same cards
+# disagg (not part of all): disagg_timing.py, chip_smoke.py phase 4's model
+#          (32 layers) and mix with each prompt forward run by a prefill
+#          process on cuda:1 and shipped over TCPTransport (loopback) to the
+#          continuous server on cuda:0; tokens bitwise the one-card run's
+#          (chiprun_out/disagg_timing.json)
 # Each timing run writes chiprun_out/train_timing_<layout>_<layers>l.json
 # (fp8: train_timing_<layout>_32l_fp8.json)
 # (serve: serve_timing_<layout>_32l.json and
@@ -73,6 +78,9 @@ if [[ $what == serve ]]; then
   "${launch[@]}" --tp_size 2 --dp_shard_size 2 "$serve" --layers 32
   "${launch[@]}" --tp_size 4 "$serve" --layers 32 --mode continuous
   "${launch[@]}" --tp_size 2 --dp_shard_size 2 "$serve" --layers 32 --mode continuous
+fi
+if [[ $what == disagg ]]; then
+  python -m accelerate_tpu_torch.test_utils.scripts.disagg_timing --layers 32
 fi
 if [[ $what == supervise ]]; then
   crash=accelerate_tpu_torch/test_utils/scripts/crash_resume_script.py

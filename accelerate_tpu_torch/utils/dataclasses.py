@@ -379,14 +379,10 @@ class ReplicationConfig(KwargsHandler):
 
 
 # the ServingConfig fields of what is not ported yet, by ROADMAP.md item:
-# the host KV tier (A3), and the circuit breaker, the degradation ladder and
-# periodic metrics (A10)
-QUEUED_SERVING_FIELDS = {
-    **dict.fromkeys(("kv_host_tier_bytes", "kv_prefetch"), "A3"),
-    **dict.fromkeys(("breaker_threshold", "breaker_reset_s", "degrade_queue_fraction",
-                     "degrade_hard_fraction", "degraded_max_new_tokens", "metrics_interval_s"),
-                    "A10"),
-}
+# the circuit breaker, the degradation ladder and periodic metrics (A10)
+QUEUED_SERVING_FIELDS = dict.fromkeys(
+    ("breaker_threshold", "breaker_reset_s", "degrade_queue_fraction", "degrade_hard_fraction",
+     "degraded_max_new_tokens", "metrics_interval_s"), "A10")
 
 
 @dataclass
@@ -428,6 +424,10 @@ class ServingConfig:
     * ``engine_prefill_chunk``: prompts longer than
       ``engine_prompt_bucket`` are admitted and prefilled in chunks of this
       many positions, one chunk per scheduler tick between decode steps.
+    * ``kv_host_tier_bytes``: a host-RAM tier of that many bytes below the
+      paged pool's cached blocks: evicted prefix blocks spill there and a
+      chunked admission of their prefix restores them. ``kv_prefetch``
+      starts a request's host-tier copies to the card at submit.
     * The JAX package's other fields are accepted at their default and
       raise otherwise (``QUEUED_SERVING_FIELDS`` names each one's item).
     """
@@ -547,6 +547,12 @@ class ServingConfig:
                 "engine_prefill_chunk requires mode='continuous' (chunked "
                 "prefill is a slot-engine scheduling feature)"
             )
+        if self.kv_host_tier_bytes < 0:
+            raise ValueError(f"kv_host_tier_bytes must be >= 0, got {self.kv_host_tier_bytes}")
+        if self.kv_host_tier_bytes > 0 and self.kv_cache not in ("paged", "paged_int8"):
+            raise ValueError(
+                "kv_host_tier_bytes requires a paged KV cache (the host tier spills and restores "
+                "pool blocks, which the dense arena does not have)")
         if self.max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {self.max_queue}")
         if self.max_batch_size < 1:

@@ -20,8 +20,12 @@ never imports the JAX package.
   ``replica_id`` are the routing contract a caller reads instead of
   parsing the message.
 
-The serving faults of the fleet and transfer layers wait for the serving
-control plane (ROADMAP.md A10).
+* The KV transfer errors of disaggregated prefill (``kvtransfer.py``):
+  :class:`KVTransferError` and its three kinds, each ``retriable`` (the
+  decode side can always recompute the prompt forward itself).
+
+The serving faults of the fleet layer wait for the serving control plane
+(ROADMAP.md A10).
 """
 
 from __future__ import annotations
@@ -73,6 +77,10 @@ __all__ = [
     "ReplicaDeadError",
     "EngineCapacityError",
     "EngineInvariantError",
+    "KVTransferError",
+    "TransferAbortedError",
+    "TransferStaleEpochError",
+    "TransferCorruptError",
 ]
 
 # 128 + SIGTERM: "terminated on request"
@@ -196,6 +204,43 @@ class ReplicaDeadError(BatchExecutionError):
 class EngineCapacityError(ServingError):
     """No free slot or KV block for this request right now (callers gate
     on ``free_slots()`` / ``can_admit()``)."""
+
+    retriable = True
+
+
+class KVTransferError(ServingError):
+    """Base class of the KV transfer failures (``kvtransfer.py``, the wire
+    of disaggregated prefill). Each kind is retriable: a failed transfer
+    never dooms the request, whose prompt forward the decode side can run
+    itself."""
+
+    retriable = True
+
+
+class TransferAbortedError(KVTransferError):
+    """The transfer died mid-stream: the sender or the connection was
+    lost, a deadline passed, the receiver had no slot, or a fault was
+    injected. The receiver drops its staging and releases the slot
+    reservation; nothing reached the pool, so a retry (fresh transfer id,
+    fresh reservation) or a local prefill are both safe."""
+
+    retriable = True
+
+
+class TransferStaleEpochError(KVTransferError):
+    """The transfer's slot reservation is stale: the slot was released
+    (deadline, reservation TTL, engine reset) and perhaps given to another
+    request while the stream was in flight, so the late prefill must never
+    land. The request may be retried with a fresh transfer; this transfer
+    id must not be replayed."""
+
+    retriable = True
+
+
+class TransferCorruptError(KVTransferError):
+    """A frame or payload failed verification: a chunk's crc32, the whole
+    payload's at COMMIT, the framing, or the payload's encoding. Staging
+    is dropped; a retry re-sends from the sender's copy."""
 
     retriable = True
 

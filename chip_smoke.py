@@ -3,7 +3,8 @@ this checkout, holds each one against its plain PyTorch version on the
 card, and drives the port's main paths with seeded random weights:
 Llama-3-8B continuous-batching serving through ``InferenceServer`` at full
 width and depth, plain and with speculative decoding, chunked prefill and
-the int8 KV pool; the same model quantized to int8 weights, and a
+the int8 KV pool, with the host-RAM KV tier, disaggregated prefill and the
+KV transfer wire; the same model quantized to int8 weights, and a
 checkpoint written, loaded into an empty model and quantized; Llama-3-8B
 training steps through the ``Accelerator`` at full width and 4 layers,
 in bf16 and in fp8; a fine-tune at full width that is interrupted and resumes bitwise; the
@@ -72,7 +73,32 @@ Phases (any failure exits non-zero and prints no result):
      times (three repeats) with the host's wait for the readbacks before
      drafting, a profile of replayed verify steps; then phase 15 (b)'s
      four requests through its engine on each pool, its references
- 12. (run right after 7, on its model, before 8 quantizes it) static
+ 17. (run right after 7, on its model) the host KV tier and disaggregation:
+     (a) the host-RAM KV tier: an engine at max_len 2048, bucket and
+     chunk 512, blocks of 16, a pool of 195 blocks (two long requests)
+     and a 1 GiB tier; a 1,536-token greedy prompt P (96 blocks) served
+     cold, evicted by two long prompts served together, served again
+     (exactly one restore program of 96 blocks, its first block's bytes
+     and its tokens bitwise the cold serve's), then from the device's
+     prefix cache, then evicted and restored once more; TTFT of each,
+     the restore's device ms and host-to-device GB/s, the spills' GB/s,
+     and decode ticks with a spill in flight against ticks without; the
+     same on the int8 pool (q and s bitwise); launches against the
+     engine's counters (host_tier, host_tier_int8); (b) P evicted again
+     and served through InferenceServer(kv_prefetch=True): 96 prefetch
+     hits, tokens bitwise; (c) phase 4's mix through plain inserts, then
+     through prefill_remote on two worker threads and
+     submit(prefilled=): every request's tokens bitwise the plain run's,
+     programs prefill_forward (512,) and prefill_commit () at JAX's
+     counts, no fallback; tokens/s and TTFT of both, the decode step
+     alone and beside a remote forward (disagg); (d) 4 requests
+     prefilled by a second engine and shipped to a server over (c)'s
+     engine in process and over TCP loopback (kvtransfer.py), tokens
+     bitwise the local prefill's, bytes, ms and GB/s a ship, a corrupted
+     chunk raising TransferCorruptError and a reservation released before
+     COMMIT raising TransferStaleEpochError on the sender while requests
+     in flight finish bitwise (kvtx)
+ 12. (run right after 17, on its model, before 8 quantizes it) static
      generation: (a) ``generate`` at B = 8, a 512-token prompt and 128 new
      tokens, greedy, under the dense, paged and paged_int8 KV backends:
      eagerly (``engine._disable_graphs``), then twice through its CUDA
@@ -2085,6 +2111,549 @@ def spec_steady_state(eng, prompts, card, repeats, profile, label="phase 7"):
         f"{fmt(numbers['decode_ms'])} ms; decode step with drafting off {fmt(numbers['plain_decode_ms'])} "
         f"ms/step; 512-token chunk at offsets 512 and 1024: {fmt(numbers['chunk_ms'])} ms [{card}]")
     return numbers
+
+
+# ---------------------------------------------------------------- phase 17
+# (a): a pool of about two long requests' blocks, so two long prompts
+# served together evict every block of a third (P), and a host tier of
+# 1 GiB (512 bf16 blocks of Llama-3-8B)
+TIER_ENGINE = dict(slots=4, max_len=2048, prompt_bucket=512, block_size=16, prefill_chunk=512,
+                   pool_blocks=195, attention_impl="kernel", readback_lag=2, host_tier_bytes=1 << 30)
+TIER_PROMPT, TIER_NEW = 1536, 16  # P: 96 full blocks
+TIER_SHORT, TIER_SHORT_NEW = 512, 100  # (a)'s decode ticks with and without a spill in flight
+DISAGG_WORKERS = 2
+WIRE_REQUESTS = 4
+WIRE_CHUNK_BYTES = 1 << 20
+TIER_JAX_PROGRAMS = {"prefill_insert": 3, "decode_step": 1}  # bucket, chunk, restore
+DISAGG_JAX_PROGRAMS = {"prefill_insert": 1, "decode_step": 1, "prefill_forward": 1,
+                       "prefill_commit": 1}
+
+
+def tier_traffic(vocab):
+    """P, the two long prompts that evict it (Q1, Q2), two pairs more that
+    evict it again ((a)'s second restore and (b)), and three 512-token
+    prompts for the spill ticks."""
+    rng = np.random.default_rng(17)
+    long = [rng.integers(0, vocab, size=TIER_PROMPT).astype(np.int32) for _ in range(7)]
+    short = [rng.integers(0, vocab, size=TIER_SHORT).astype(np.int32) for _ in range(3)]
+    return long, short
+
+
+def leaf_bytes(pre):
+    """A RemotePrefill's payload bytes on the wire, its meta left out: the
+    KV window, the first token, the seed and the prompt."""
+    return (sum(t.numel() * t.element_size() for t in (*pre.cache.values(), pre.t0, pre.next_key))
+            + pre.prompt.nbytes)
+
+
+def wait_for(pre):
+    """``pre`` once its forward has run (its event; None on the CPU)."""
+    if pre.event is not None:
+        pre.event.synchronize()
+    return pre
+
+
+def sync_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def engine_serve(eng, prompts, budgets):
+    """Insert ``prompts`` (greedy) at once and tick until all retire;
+    returns (tokens per request, seconds from the first insert until the
+    first request's first token was read back)."""
+    t0 = time.perf_counter()
+    occs = [eng.insert(p, max_new_tokens=b) for p, b in zip(prompts, budgets)]
+    ttft = None
+    while eng.live_count():
+        eng.step()
+        eng.poll()
+        if ttft is None and occs[0].tokens:
+            ttft = time.perf_counter() - t0
+    eng.poll(force=True)
+    if ttft is None:
+        ttft = time.perf_counter() - t0
+    return [list(o.tokens) for o in occs], ttft
+
+
+def first_block(eng, prompt):
+    """The pool bytes of ``prompt``'s first block (from the registry), on
+    the host: ``{"k", "v"}`` of tensors or of int8 ``{"q", "s"}``."""
+    blk = eng._backend.pool._registry[prompt[: eng._backend.block_size].tobytes()]
+
+    def take(leaf):
+        return {n: t[:, blk].cpu().clone() for n, t in leaf.items()} if isinstance(leaf, dict) \
+            else leaf[:, blk].cpu().clone()
+
+    return {w: take(eng._cache[w]) for w in ("k", "v")}
+
+
+def same_block(a, b):
+    if isinstance(a, dict):
+        return all(same_block(a[n], b[n]) for n in a)
+    return bool(torch.equal(a, b))
+
+
+def instrument_tier(eng):
+    """CUDA events around the next restore (before the plan, after its
+    host-to-device copies are enqueued, after the scatter) and the host
+    clock of each spill gather: wrappers on the instance only."""
+    marks = {"spills": []}
+    backend = eng._backend
+    plan_fn, restore_fn, flush_fn = backend.restore_plan, eng._dispatch_restore, backend._flush_spills
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def plan(*a, **k):
+        start = event()
+        out = plan_fn(*a, **k)
+        if out is not None:
+            marks.update(start=start, copied=event(), blocks=out[0])
+        return out
+
+    def insert(*a, **k):
+        marks["filed"] = time.perf_counter()
+        return insert_fn(*a, **k)
+
+    def restore(*a, **k):
+        restore_fn(*a, **k)
+        marks["scattered"] = event()
+
+    def flush():
+        if backend._spill_batch:
+            marks["spills"].append((time.perf_counter(), len(backend._spill_batch)))
+        flush_fn()
+
+    insert_fn = backend.host_tier.insert
+    backend.restore_plan, eng._dispatch_restore, backend._flush_spills = plan, restore, flush
+    backend.host_tier.insert = insert
+    return marks
+
+
+def tier_counters(eng):
+    kv = eng.stats()["kv"]
+    return dict(steps=eng.steps, verify=0, chunks=eng.prefill_chunks, restores=eng.kv_restores,
+                **{k: kv[k] for k in ("spill_blocks", "restore_hits", "restore_misses",
+                                      "prefetch_hits", "host_tier_dropped")})
+
+
+def host_tier_run(dev, card, model, kv, label):
+    """(a) on one pool: P cold, P evicted by Q1 + Q2 served together, P
+    again (one restore of 96 blocks, one chunk), P once more (a device
+    prefix hit); on the bf16 pool also the decode ticks with and without a
+    spill in flight. Every check raises. Returns (engine, launches,
+    numbers, P's tokens)."""
+    from accelerate_tpu_torch.engine import ContinuousBatchingEngine
+    from accelerate_tpu_torch.ops import _build
+
+    n_layers = model.config.num_hidden_layers
+    long, short = tier_traffic(model.config.vocab_size)
+    p, q1, q2 = long[:3]
+    eng = ContinuousBatchingEngine(model, kv_cache=kv, device=dev, **TIER_ENGINE)
+    backend = eng._backend
+    marks = instrument_tier(eng)
+    block_bytes = backend.host_block_bytes()
+    # warm-up: every program of the mix captured before the counted run
+    # (the restore runs eagerly and needs none)
+    engine_serve(eng, [long[3][:700], short[0][:200]], [4, 4])
+    eng.reset()
+    backend.host_tier.clear()
+    before = tier_counters(eng)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    (cold,), ttft_cold = engine_serve(eng, [p], [TIER_NEW])
+    block0 = first_block(eng, p)
+    numbers = {}
+    n_single = 0
+    if kv == "paged":
+        # decode ticks of three 512-token requests with a spill in flight
+        # (the third's admission evicts P's oldest blocks) and without
+        occs = [eng.insert(s, max_new_tokens=TIER_SHORT_NEW) for s in short[:2]]
+        for _ in range(4):
+            eng.step()
+            eng.poll()
+        occs.append(eng.insert(short[2], max_new_tokens=TIER_SHORT_NEW))
+        n_single = 3
+        spilling = []
+        while backend._spill_q is not None and backend._spill_q.unfinished_tasks and len(spilling) < 32:
+            spilling.append(sync_ms(lambda: (eng.step(), eng.poll())))
+        backend.spill_flush()
+        quiet = [sync_ms(lambda: (eng.step(), eng.poll())) for _ in range(8)]
+        eng.drain()
+        numbers.update(spill_tick_ms=spilling, quiet_tick_ms=quiet)
+        log(f"phase 17 (a) {label}: decode ticks of 3 slots with a spill in flight "
+            + ", ".join(f"{x:.3f}" for x in spilling) + " ms; after it "
+            + ", ".join(f"{x:.3f}" for x in quiet) + f" ms (each tick synchronised) [{card}]")
+    def evict(prompts):
+        """Serve ``prompts`` together (two long ones take the whole pool):
+        every block of P goes to the tier. Returns (blocks spilled,
+        seconds from the first gather to the last block filed)."""
+        spills0, tier0 = len(marks["spills"]), backend.host_tier.stats()["spill_blocks"]
+        engine_serve(eng, prompts, [2] * len(prompts))
+        backend.spill_flush()
+        if backend.pool._shared_prefix(p):
+            raise AssertionError(f"phase 17 (a) {label}: P still has device blocks after the eviction")
+        return (backend.host_tier.stats()["spill_blocks"] - tier0,
+                marks["filed"] - marks["spills"][spills0][0])
+
+    def restore():
+        """P again: one restore of its 96 blocks, then one chunk. Returns
+        (TTFT, restore ms, its host-to-device copies' ms) of device time."""
+        hits0, restores0 = backend.host_tier.stats()["restore_hits"], eng.kv_restores
+        (again,), ttft = engine_serve(eng, [p], [TIER_NEW])
+        torch.cuda.synchronize()
+        restored = backend.host_tier.stats()["restore_hits"] - hits0
+        if eng.kv_restores - restores0 != 1 or restored != TIER_PROMPT // 16 or marks["blocks"] != restored:
+            raise AssertionError(f"phase 17 (a) {label}: {eng.kv_restores - restores0} restores of "
+                                 f"{restored} blocks, expected one of {TIER_PROMPT // 16}")
+        if not same_block(first_block(eng, p), block0):
+            raise AssertionError(f"phase 17 (a) {label}: P's first block after the restore is not "
+                                 "bitwise its bytes before the eviction")
+        if again != cold:
+            raise AssertionError(f"phase 17 (a) {label}: P's tokens after the restore {again} differ "
+                                 f"from its cold serve's {cold}")
+        return (ttft, marks["start"].elapsed_time(marks["scattered"]),
+                marks["start"].elapsed_time(marks["copied"]))
+
+    nbytes = TIER_PROMPT // 16 * block_bytes
+    spills, restores = [evict([q1, q2])], [restore()]
+    (hit,), ttft_device = engine_serve(eng, [p], [TIER_NEW])
+    if hit != cold:
+        raise AssertionError(f"phase 17 (a) {label}: P's tokens on a device prefix hit differ")
+    spills.append(evict(long[3:5]))
+    restores.append(restore())
+    after = tier_counters(eng)
+    launches = _build.launch_counts()
+    delta = {k: after[k] - before[k] for k in after}
+    expected = expected_launches(n_layers, delta, n_single, "_int8" if kv == "paged_int8" else "")
+    expected = {k: n for k, n in expected.items() if n}  # no single-shot prefill on the int8 pool
+    check_launches(f"phase 17 (a) {label}", launches, expected)
+    programs = eng.stats()["programs"]
+    graphs = eng.graph_launches()
+    if programs != TIER_JAX_PROGRAMS or len(graphs) != (sum(programs.values()) - 1) * eng._use_graphs:
+        raise AssertionError(f"phase 17 (a) {label}: programs {programs} ({len(graphs)} graphs), JAX "
+                             f"compiles {TIER_JAX_PROGRAMS}; the restore runs eagerly")
+    numbers.update(
+        ttft_cold_s=ttft_cold, ttft_host_hit_s=[r[0] for r in restores], ttft_device_hit_s=ttft_device,
+        restore_ms=[r[1] for r in restores], h2d_ms=[r[2] for r in restores],
+        h2d_gb_s=[nbytes / r[2] / 1e6 for r in restores], restore_bytes=nbytes,
+        spill_blocks=[n for n, _ in spills], spill_ms=[t * 1e3 for _, t in spills],
+        spill_gb_s=[n * block_bytes / t / 1e9 for n, t in spills],
+        counters=delta, programs=programs, block_bytes=block_bytes)
+    fmt = lambda xs, f: ", ".join(f.format(x) for x in xs)  # noqa: E731
+    log(f"phase 17 (a) {label}: P ({TIER_PROMPT} tokens, {TIER_NEW} new, greedy) cold TTFT "
+        f"{ttft_cold:.4f}s, host-tier hit {fmt(numbers['ttft_host_hit_s'], '{:.4f}')}s (two runs: one "
+        f"restore of {TIER_PROMPT // 16} blocks, {nbytes / 2**20:.0f} MiB, then one chunk), device "
+        f"prefix hit {ttft_device:.4f}s (TTFT includes the readback lag of 2 ticks); restore "
+        f"{fmt(numbers['restore_ms'], '{:.3f}')} ms of device time, its host-to-device copies "
+        f"{fmt(numbers['h2d_ms'], '{:.3f}')} ms = {fmt(numbers['h2d_gb_s'], '{:.2f}')} GB/s; the "
+        f"evictions' spills of {fmt(numbers['spill_blocks'], '{}')} blocks landed in the tier "
+        f"{fmt(numbers['spill_ms'], '{:.1f}')} ms after their first gather "
+        f"({fmt(numbers['spill_gb_s'], '{:.2f}')} GB/s, beside the evicting prompts' chunks; the "
+        "tier's first spill also pins its capacity); P's first block bitwise its bytes before the "
+        f"eviction, tokens bitwise the cold serve's; counters {delta}; programs {programs} [{card}]")
+    return eng, {k: launches[k] for k in expected}, numbers, cold
+
+
+def prefetch_run(dev, card, model, eng, cold, ttft_hit):
+    """(b): P evicted again, then served through an InferenceServer over
+    the same engine with kv_prefetch on: its 96 blocks start their copies
+    at submit, on the submitter's thread."""
+    from accelerate_tpu_torch.serving import InferenceServer
+    from accelerate_tpu_torch.utils.dataclasses import ServingConfig
+
+    long, _ = tier_traffic(model.config.vocab_size)
+    p = long[0]
+    engine_serve(eng, long[5:7], [2, 2])
+    eng._backend.spill_flush()
+    if eng._backend.pool._shared_prefix(p):
+        raise AssertionError("phase 17 (b): P still has device blocks")
+    hits0 = eng._backend.prefetch_hits
+    scfg = ServingConfig(mode="continuous", engine_slots=TIER_ENGINE["slots"],
+                         engine_max_len=TIER_ENGINE["max_len"], kv_cache="paged",
+                         kv_host_tier_bytes=TIER_ENGINE["host_tier_bytes"], kv_prefetch=True)
+    with InferenceServer(model, scfg, engine=eng, device=dev) as srv:
+        result = srv.submit(p, max_new_tokens=TIER_NEW).result(timeout=300)
+    hits = eng._backend.prefetch_hits - hits0
+    if hits != TIER_PROMPT // 16:
+        raise AssertionError(f"phase 17 (b): {hits} prefetch hits, expected {TIER_PROMPT // 16}")
+    if result.tokens[len(p):].tolist() != cold:
+        raise AssertionError("phase 17 (b): P's tokens through the server differ from the cold serve's")
+    log(f"phase 17 (b) prefetch: P through InferenceServer(kv_prefetch=True): {hits} prefetch hits, "
+        f"TTFT {result.ttft_s:.4f}s (from submit; (a)'s host-tier hit on the engine "
+        f"{ttft_hit:.4f}s), tokens bitwise the cold serve's [{card}]")
+    return dict(prefetch_hits=hits, ttft_s=result.ttft_s)
+
+
+def sampling(i):
+    """phase 4's mix: even requests greedy, odd ones sampled."""
+    if i % 2:
+        return dict(temperature=0.8, top_k=50, top_p=0.9, seed=i)
+    return dict(temperature=0.0, seed=i)
+
+
+def disagg_mix(dev, model, prompts, scfg, new_tokens, eng):
+    """Each request's prompt forward through ``prefill_remote`` on
+    DISAGG_WORKERS threads, then ``submit(prefilled=)`` to a server over
+    ``eng``; all requests arrive at once. TTFT counts from that arrival."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.serving import InferenceServer
+
+    srv = InferenceServer(model, scfg, engine=eng, device=dev)
+    with srv:
+        before = dict(steps=eng.steps, inserted=eng.inserted, remote=eng.remote_prefills)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+
+        def one(i):
+            kw = sampling(i)
+            pre = eng.prefill_remote(prompts[i], max_new_tokens=new_tokens, **kw)
+            return time.perf_counter() - t0, srv.submit(prompts[i], max_new_tokens=new_tokens,
+                                                        prefilled=pre, **kw)
+
+        with ThreadPoolExecutor(DISAGG_WORKERS) as pool:
+            subs = list(pool.map(one, range(len(prompts))))
+        results = [f.result(timeout=900) for _, f in subs]
+        wall = time.perf_counter() - t0
+        launches = _build.launch_counts()
+        fallbacks = srv.metrics["prefill_commit_fallbacks"]
+        stats = eng.stats()
+    delta = dict(steps=eng.steps - before["steps"], inserted=eng.inserted - before["inserted"],
+                 remote=eng.remote_prefills - before["remote"])
+    return dict(results=results, wall_s=wall, launches=launches, delta=delta, fallbacks=fallbacks,
+                programs=stats["programs"], tokens_per_s=len(prompts) * new_tokens / wall,
+                ttft_s=sorted(s + r.ttft_s for (s, _), r in zip(subs, results)))
+
+
+def decode_beside_remote(eng, prompts, card):
+    """Decode ms a step at 8 slots (positions 300+, 32 steps each
+    synchronised as a block) alone, and while a worker thread runs
+    ``prefill_remote`` forwards of a 512-token prompt back to back."""
+    import threading
+
+    eng.reset()
+    for p in prompts[:8]:
+        eng.insert(p[:300], max_new_tokens=200)
+    for _ in range(4):
+        eng.step()
+        eng.poll()
+
+    def steps():
+        for _ in range(32):
+            eng.step()
+            eng.poll()
+
+    alone = sync_ms(steps) / 32
+    stop, forwards = threading.Event(), [0]
+    long = [p for p in prompts if len(p) == max(len(q) for q in prompts)][0]
+
+    def remote():
+        while not stop.is_set():
+            wait_for(eng.prefill_remote(long, max_new_tokens=8))
+            forwards[0] += 1
+
+    worker = threading.Thread(target=remote, name="phase17-remote")
+    worker.start()
+    try:
+        while forwards[0] < 1:
+            time.sleep(0.001)
+        beside = sync_ms(steps) / 32
+    finally:
+        stop.set()
+        worker.join(timeout=120)
+    eng.reset()
+    log(f"phase 17 (c) decode step at 8 slots: {alone:.3f} ms alone, {beside:.3f} ms while a worker "
+        f"thread runs prefill_remote forwards of a {len(long)}-token prompt ({forwards[0]} ran) [{card}]")
+    return dict(decode_ms=alone, decode_beside_remote_ms=beside, remote_forwards=forwards[0])
+
+
+def wire_run(dev, card, model, rx, prompts, plain_tokens):
+    """(d): WIRE_REQUESTS prefills from a second engine (one slot, the same
+    shape) shipped to a server over ``rx``, in process and over TCP
+    loopback, committed with submit(prefilled=): tokens bitwise the local
+    prefill's; then a corrupted chunk and a reservation released before
+    COMMIT, while the server serves."""
+    import json as _json
+
+    from accelerate_tpu_torch.engine import ContinuousBatchingEngine
+    from accelerate_tpu_torch.kvtransfer import (_FRAME_BEGIN, _FRAME_CHUNK, _U32, KVTransferManager,
+                                                 _crc, _pack_frame, _raise_on_error_ack,
+                                                 encode_remote_prefill)
+    from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.serving import InferenceServer
+    from accelerate_tpu_torch.utils.dataclasses import ServingConfig
+    from accelerate_tpu_torch.utils.fault import (TransferCorruptError, TransferStaleEpochError,
+                                                  install_conductor, uninstall_conductor)
+
+    n_layers = model.config.num_hidden_layers
+    tx = ContinuousBatchingEngine(model, slots=1, max_len=SERVING["engine_max_len"],
+                                  prompt_bucket=SERVING["engine_prompt_bucket"], kv_cache="paged",
+                                  block_size=SERVING["engine_block_size"], attention_impl="kernel",
+                                  device=dev)
+    numbers = {}
+    steps0, forwards0 = rx.steps, tx.remote_prefills
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with InferenceServer(model, ServingConfig(**SERVING), engine=rx, device=dev) as srv:
+        for transport in ("inproc", "tcp"):
+            mgr = KVTransferManager(transport=transport, chunk_bytes=WIRE_CHUNK_BYTES)
+            try:
+                mgr.register("rx", srv)
+                ship_ms, nbytes, futs = [], [], []
+                for i in range(WIRE_REQUESTS):
+                    kw = sampling(i)
+                    pre = wait_for(tx.prefill_remote(prompts[i], max_new_tokens=MAIN_NEW_TOKENS, **kw))
+                    nbytes.append(leaf_bytes(pre))
+                    t0 = time.perf_counter()
+                    tid = mgr.ship(pre, "rx", trace_id=f"phase17-{transport}-{i}")
+                    ship_ms.append((time.perf_counter() - t0) * 1e3)
+                    futs.append(srv.submit(prompts[i], max_new_tokens=MAIN_NEW_TOKENS,
+                                           prefilled=mgr.take("rx", tid), **kw))
+                nbytes = statistics.median(nbytes)
+                results = [f.result(timeout=300) for f in futs]
+            finally:
+                mgr.close()
+            for i, r in enumerate(results):
+                if not np.array_equal(r.tokens, plain_tokens[i]):
+                    raise AssertionError(f"phase 17 (d) {transport}: request {i}'s tokens differ from "
+                                         "the local prefill's")
+            if srv.metrics["prefill_commit_fallbacks"]:
+                raise AssertionError(f"phase 17 (d) {transport}: a shipped prefill fell back")
+            med = statistics.median(ship_ms)
+            numbers[transport] = dict(bytes=nbytes, ship_ms=ship_ms, gb_s=nbytes / med / 1e6)
+            log(f"phase 17 (d) {transport}: {WIRE_REQUESTS} prefills of {nbytes / 2**20:.1f} MiB each (meta aside) "
+                f"(chunks of {WIRE_CHUNK_BYTES >> 20} MiB) shipped in "
+                + ", ".join(f"{x:.1f}" for x in ship_ms) + f" ms (median {med:.1f} ms, "
+                f"{nbytes / med / 1e6:.2f} GB/s: encode, crc32s, frames, decode and the copy to the "
+                f"card), tokens bitwise the local prefill's [{card}]")
+        launches = _build.launch_counts()
+        forwards, steps = tx.remote_prefills - forwards0, rx.steps - steps0
+        # a corrupted chunk dies typed and frees its reservation
+        mgr = KVTransferManager(transport="inproc", chunk_bytes=WIRE_CHUNK_BYTES)
+        try:
+            recv = mgr.register("rx", srv)
+            payload = encode_remote_prefill(tx.prefill_remote(prompts[0], max_new_tokens=8))
+            meta = {"wire_version": 1, "trace_id": None, "n_chunks": 1, "total_bytes": len(payload),
+                    "payload_crc": _crc(payload), "prompt_len": len(prompts[0]), "prefix_crc": 0}
+            free = rx.free_slots()
+            _raise_on_error_ack(recv.feed(_pack_frame(_FRAME_BEGIN, "corrupt",
+                                                      _json.dumps(meta).encode())))
+            try:
+                _raise_on_error_ack(recv.feed(_pack_frame(
+                    _FRAME_CHUNK, "corrupt", _U32.pack(0) + _U32.pack(_crc(payload) ^ 1) + payload)))
+                raise AssertionError("phase 17 (d): a corrupted chunk was taken")
+            except TransferCorruptError:
+                pass
+            if rx.free_slots() != free:
+                raise AssertionError("phase 17 (d): the corrupted transfer kept its reservation")
+            # a reservation released before COMMIT: the sender gets the
+            # stale-epoch error, and requests in flight finish unharmed
+            busy = [srv.submit(prompts[i], max_new_tokens=MAIN_NEW_TOKENS, **sampling(i))
+                    for i in range(4, 6)]
+
+            def release_at_commit(name, context):
+                if name == "kvtx.commit":
+                    st = recv._inflight[context["transfer"]]
+                    rx.release_reservation(st.slot, st.epoch)
+
+            install_conductor(release_at_commit)
+            try:
+                mgr.ship(tx.prefill_remote(prompts[1], max_new_tokens=8), "rx")
+                raise AssertionError("phase 17 (d): a transfer whose reservation was released committed")
+            except TransferStaleEpochError:
+                pass
+            finally:
+                uninstall_conductor(release_at_commit)
+            for i, f in zip(range(4, 6), busy):
+                if not np.array_equal(f.result(timeout=300).tokens, plain_tokens[i]):
+                    raise AssertionError("phase 17 (d): a request served beside the stale transfer "
+                                         "differs")
+            numbers["receiver"] = dict(recv.stats)
+        finally:
+            mgr.close()
+    expected = {"flash_fwd_mma": n_layers * forwards, "paged_decode_mma": n_layers * steps,
+                "fused_sample": forwards + steps}
+    check_launches("phase 17 (d)", launches, expected)
+    log(f"phase 17 (d): a corrupted chunk raised TransferCorruptError and freed its slot; a "
+        f"reservation released before COMMIT raised TransferStaleEpochError on the sender while "
+        f"2 requests in flight finished bitwise; receiver {numbers['receiver']} [{card}]")
+    return {k: launches[k] for k in expected}, numbers
+
+
+def phase_disaggregated(dev, card, model):
+    """Phase 17: the host-RAM KV tier (a) with prefetch (b), disaggregated
+    prefill (c) and the KV transfer wire (d), on the phase-4 model."""
+    from accelerate_tpu_torch.utils.dataclasses import ServingConfig
+
+    by_path, numbers = {}, {}
+    n_layers = model.config.num_hidden_layers
+    eng, by_path["host_tier"], numbers["host_tier"], cold = host_tier_run(
+        dev, card, model, "paged", "bf16 pool")
+    numbers["prefetch"] = prefetch_run(dev, card, model, eng, cold,
+                                       numbers["host_tier"]["ttft_host_hit_s"][-1])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng8, by_path["host_tier_int8"], numbers["host_tier_int8"], _ = host_tier_run(
+        dev, card, model, "paged_int8", "int8 pool")
+    del eng8
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) phase 4's mix through plain inserts, then through prefill_remote
+    # on worker threads and submit(prefilled=), on one engine
+    scfg = ServingConfig(**SERVING)
+    prompts, warm = main_traffic(model.config.vocab_size)
+    plain = serve_mix(dev, model, prompts, scfg, MAIN_NEW_TOKENS, warm=warm)
+    eng = plain["engine"]
+    check_launches("phase 17 (c) plain", plain["launches"],
+                   main_expected(n_layers, len(prompts), plain))
+    log_run("phase 17 (c) plain inserts (phase 4's mix)", plain, card)
+    disagg = disagg_mix(dev, model, prompts, scfg, MAIN_NEW_TOKENS, eng)
+    for i, (a, b) in enumerate(zip(plain["results"], disagg["results"])):
+        if not np.array_equal(a.tokens, b.tokens):
+            raise AssertionError(f"phase 17 (c): request {i}'s tokens through prefill_remote differ "
+                                 "from plain insert's")
+    if disagg["programs"] != DISAGG_JAX_PROGRAMS or disagg["fallbacks"]:
+        raise AssertionError(f"phase 17 (c): programs {disagg['programs']} (JAX: "
+                             f"{DISAGG_JAX_PROGRAMS}), fallbacks {disagg['fallbacks']}")
+    if len(eng.graph_launches()) != 2 * eng._use_graphs:
+        raise AssertionError(f"phase 17 (c): graphs {sorted(eng.graph_launches())}; prefill_forward "
+                             "and prefill_commit run eagerly")
+    expected = {"flash_fwd_mma": n_layers * len(prompts),
+                "paged_decode_mma": n_layers * disagg["delta"]["steps"],
+                "fused_sample": disagg["delta"]["steps"] + len(prompts)}
+    check_launches("phase 17 (c) disagg", disagg["launches"], expected)
+    by_path["disagg"] = {k: disagg["launches"][k] for k in expected}
+    cfg = model.config
+    window = 2 * n_layers * SERVING["engine_max_len"] * cfg.num_key_value_heads * cfg.head_dim * 2
+    ttft = disagg["ttft_s"]
+    log(f"phase 17 (c) disaggregated: {disagg['tokens_per_s']:.1f} generated tokens/s in "
+        f"{disagg['wall_s']:.3f}s ({DISAGG_WORKERS} prefill threads, {disagg['delta']['remote']} "
+        f"remote prefills, engine steps {disagg['delta']['steps']}); TTFT from arrival min "
+        f"{ttft[0]:.4f}s p50 {ttft[len(ttft) // 2]:.4f}s max {ttft[-1]:.4f}s; every request's tokens "
+        f"bitwise plain insert's; programs {disagg['programs']}; fallbacks 0; each RemotePrefill "
+        f"holds a max_len-wide KV window of {window / 2**20:.0f} MiB [{card}]")
+    steady = decode_beside_remote(eng, prompts, card)
+    numbers["disagg"] = dict(plain=run_numbers([plain])[0], tokens_per_s=disagg["tokens_per_s"],
+                             wall_s=disagg["wall_s"], ttft_s=ttft, window_bytes=window,
+                             programs=disagg["programs"], steps=disagg["delta"]["steps"], **steady)
+    plain_tokens = [r.tokens for r in plain["results"]]
+    del plain, disagg
+    by_path["kvtx"], numbers["kvtx"] = wire_run(dev, card, model, eng, prompts, plain_tokens)
+    del eng
+    gc.collect()  # an engine and its store's reader hold each other
+    torch.cuda.empty_cache()
+    return by_path, numbers
+
 
 
 # ---------------------------------------------------------------- phase 12
@@ -5405,6 +5974,9 @@ def run_phases(args) -> int:
             with phase("7"):
                 by_path["serving_spec"], by_path["serving_int8"], summary["spec_path"] = (
                     phase_spec_path(dev, card, model))
+            with phase("17"):
+                tier_paths, summary["disaggregated"] = phase_disaggregated(dev, card, model)
+            by_path.update(tier_paths)
             # phase 12 before 8: phase 8 quantizes the model in place
             with phase("12"):
                 by_path["static"], summary["static_path"] = phase_static(dev, card, model)

@@ -397,7 +397,11 @@ def test_refusals_name_their_queue_items(tmp_path):
     from accelerate_tpu_torch.big_modeling import dispatch_model
     from accelerate_tpu_torch.parallel.tp import tensor_parallel_rules
 
-    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0, world_size=1)
+    # a one-rank group of this test's own, unless one is running already
+    started = not dist.is_initialized()
+    if started:
+        dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0, world_size=1)
+    assert dist.get_world_size() == 1
     try:  # a one-rank mesh: tp blocks of one, as dispatch_model lays them
         mesh = init_device_mesh("cpu", (1, 1, 1), mesh_dim_names=("dp_replicate", "dp_shard", "tp"))
         tiny = tl.LlamaConfig.tiny(compute_dtype=torch.float32)
@@ -413,8 +417,25 @@ def test_refusals_name_their_queue_items(tmp_path):
 
         assert engine_tokens(laid) == engine_tokens(
             tl.LlamaForCausalLM.from_seed(tiny, device="cpu"))
+        # A3 landed on one card; over a mesh its host tier, remote prefill,
+        # reservations and commits name A3-bis
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A3-bis"):
+            ContinuousBatchingEngine(laid, slots=2, max_len=32, kv_cache="paged",
+                                     host_tier_bytes=1 << 20, device="cpu")
+        eng = ContinuousBatchingEngine(laid, slots=2, max_len=32, device="cpu")
+        for call in (lambda: eng.prefill_remote(prompt, max_new_tokens=4), eng.reserve_slot,
+                     lambda: eng.insert_prefilled(None)):
+            with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A3-bis"):
+                call()
     finally:
-        dist.destroy_process_group()
+        if started:
+            dist.destroy_process_group()
+    # A3's ServingConfig fields take any valid value now, and no refusal in
+    # the port names A3 itself
+    assert ServingConfig(mode="continuous", kv_cache="paged", kv_host_tier_bytes=1 << 20,
+                         kv_prefetch=False).kv_host_tier_bytes == 1 << 20
+    assert [str(f) for f in port.rglob("*.py") if re.search(r"ROADMAP\.md A3\b(?!-bis)",
+                                                            f.read_text())] == []
     # A4's fp8 landed: mixed_precision="fp8" runs (ops/fp8.py), and no
     # refusal names A4
     AcceleratorState._reset_state(reset_partial_state=True)
@@ -426,12 +447,10 @@ def test_refusals_name_their_queue_items(tmp_path):
     assert [str(f) for f in port.rglob("*.py") if re.search(r"ROADMAP\.md A4\b", f.read_text())] == []
 
 
-# C5's fields by the item that owns them
-QUEUED_SERVING = {
-    **dict.fromkeys(("kv_host_tier_bytes", "kv_prefetch"), "A3"),
-    **dict.fromkeys(("breaker_threshold", "breaker_reset_s", "degrade_queue_fraction",
-                     "degrade_hard_fraction", "degraded_max_new_tokens", "metrics_interval_s"), "A10"),
-}
+# C5's fields by the item that owns them (A3's host tier landed)
+QUEUED_SERVING = dict.fromkeys(("breaker_threshold", "breaker_reset_s", "degrade_queue_fraction",
+                                "degrade_hard_fraction", "degraded_max_new_tokens",
+                                "metrics_interval_s"), "A10")
 
 
 def _other(default):
@@ -507,8 +526,6 @@ TPU = "TPU-only"
 SIGNATURE_EXEMPT = {
     "accelerator:Accelerator.train_step": {"donate": TPU, "flatten_params": TPU},
     "engine:SlotOccupant.__init__": {"trace_id": "A10"},
-    "kvcache:PagedKVBackend.__init__": {"host_tier_bytes": "A3"},
-    "kvcache:make_kv_backend": {"host_tier_bytes": "A3"},
     "kvcache:PagedKVLayout.commit_window": {"layer_cache": "renamed cache_leaf"},
     "models.llama:create_llama": {"abstract": "init_empty_weights builds it empty"},
     "models.llama:init_llama_params": {"key": "renamed generator (a torch.Generator)"},
@@ -532,7 +549,7 @@ SIGNATURE_EXEMPT = {
     "ops.paged_decode:paged_flash_verify": {"interpret": TPU},
     "ops.quant_matmul:quantized_matmul": {"block_m": TPU, "block_n": TPU, "interpret": TPU},
     "serving:InferenceServer.__init__": {"trackers": "A10", "replica_id": "A10"},
-    "serving:InferenceServer.submit": {"prefilled": "A3", "arrival_s": "A10", "trace_id": "A10"},
+    "serving:InferenceServer.submit": {"arrival_s": "A10", "trace_id": "A10"},
     "serving:ServingMetrics.__init__": {"clock": "A10"},
     "serving:ServingResult.__init__": {"degraded": "A10", "replica_id": "A10",
                                        "failover_count": "A10"},

@@ -220,6 +220,10 @@ def test_meshes_and_sharding_plans_raise():
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     finally:
         AcceleratorState._reset_state(reset_partial_state=True)
+        import torch.distributed as dist
+
+        if dist.is_initialized():  # build_mesh started a one-rank group
+            dist.destroy_process_group()
     model = _tiny_model()
     assert tbm.dispatch_model(model, device="cpu") is model
 

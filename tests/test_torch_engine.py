@@ -171,12 +171,15 @@ def test_engine_refuses_what_it_cannot_do(models):
                                        k: v for k, v in ENGINE_KW.items() if k != "kv_cache"})
     assert eng.stats()["kv"]["backend"] == "paged_int8" and eng.stats()["spec"]["mode"] == "ngram"
     eng.validate_request(40, 8)  # past the bucket: chunked
-    # still queued, each naming its queue
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
-        ContinuousBatchingEngine(tmodel, kv_cache="paged", host_tier_bytes=1 << 20, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
-        eng.prefill_remote(PROMPTS[0], max_new_tokens=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
+    # the host tier and disaggregated prefill are ported (test_torch_kvtier.py,
+    # test_torch_disagg.py): they construct and run, and refuse what JAX does
+    tiered = ContinuousBatchingEngine(tmodel, kv_cache="paged", host_tier_bytes=1 << 20, device="cpu")
+    assert tiered.kv_host_tier.capacity_bytes == 1 << 20
+    with pytest.raises(ValueError, match="paged"):
+        ContinuousBatchingEngine(tmodel, kv_cache="dense", host_tier_bytes=1 << 20, device="cpu")
+    pre = eng.prefill_remote(PROMPTS[0], max_new_tokens=4)
+    assert eng.accepts_prefill(pre) and not tiered.accepts_prefill(pre)
+    with pytest.raises(ValueError, match="not compatible"):
         eng.insert_prefilled(None)
     with pytest.raises(ValueError, match="paged"):
         ContinuousBatchingEngine(tmodel, attention_impl="kernel", kv_cache="dense", device="cpu")

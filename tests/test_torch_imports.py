@@ -63,7 +63,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "parallel.tp", "test_utils.scripts.train_timing", "inference", "elastic",
                  "test_utils.training", "test_utils.scripts.crash_resume_script",
                  "test_utils.scripts.preemption_script", "test_utils.scripts.elastic_recovery_script",
-                 "test_utils.scripts.fault_save_script", "test_utils.scripts.serve_timing"):
+                 "test_utils.scripts.fault_save_script", "test_utils.scripts.serve_timing",
+                 "kvtransfer", "test_utils.scripts.disagg_timing"):
         assert f"accelerate_tpu_torch.{name}" in report["modules"]
     leaked = [m for m in report["new"]
               if m == "jax" or m.startswith(("jax.", "jaxlib"))
