@@ -38,8 +38,11 @@ sequence-parallel residual) alone and under FSDP2/HSDP, and big-model
 loading over a mesh. Training survives failures: the launch supervisor
 (restarts, the crash-loop breaker, the heartbeat watchdog, preemption),
 checkpoint replication (``ReplicationConfig``, ``elastic.py``) and the
-consensus resume. The host KV tier and the serving control plane are
-still to be ported (ROADMAP.md).
+consensus resume. Serving has the host-RAM KV tier and disaggregated
+prefill, and the control plane: the circuit breaker and degradation
+ladder, the span tracer (``tracing``), the perf observatory and metrics
+exporter (``perfwatch``), and ``FleetRouter`` over several servers with
+failover (ROADMAP.md lists what is still to be ported).
 """
 
 __version__ = "0.1.0"
@@ -154,6 +157,18 @@ _LAZY = {
     "ServingMetrics": ("serving", "ServingMetrics"),
     "ServingConfig": ("utils.dataclasses", "ServingConfig"),
     "ServingError": ("utils.fault", "ServingError"),
+    "FleetRouter": ("fleet", "FleetRouter"),
+    "FleetMetrics": ("fleet", "FleetMetrics"),
+    "FleetConfig": ("utils.dataclasses", "FleetConfig"),
+    "FleetMembership": ("elastic", "FleetMembership"),
+    "tracing": ("tracing", None),
+    "Tracer": ("tracing", "Tracer"),
+    "MetricsRegistry": ("tracing", "MetricsRegistry"),
+    "TracingConfig": ("utils.dataclasses", "TracingConfig"),
+    "perfwatch": ("perfwatch", None),
+    "PerfWatch": ("perfwatch", "PerfWatch"),
+    "MetricsExporter": ("perfwatch", "MetricsExporter"),
+    "ObservabilityConfig": ("utils.dataclasses", "ObservabilityConfig"),
     "EngineCapacityError": ("utils.fault", "EngineCapacityError"),
     "EngineInvariantError": ("utils.fault", "EngineInvariantError"),
     "init_empty_weights": ("big_modeling", "init_empty_weights"),
@@ -183,5 +198,5 @@ def __getattr__(name):
 
         module_name, attr = _LAZY[name]
         module = importlib.import_module(f".{module_name}", __name__)
-        return getattr(module, attr)
+        return module if attr is None else getattr(module, attr)
     raise AttributeError(f"module 'accelerate_tpu_torch' has no attribute {name!r}")

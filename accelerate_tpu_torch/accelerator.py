@@ -63,12 +63,14 @@ from __future__ import annotations
 
 import contextlib
 import os
+import time
 from typing import Callable, Optional, Sequence, Union
 
 import torch
 from torch import nn
 from torch.utils._pytree import tree_leaves, tree_map
 
+from . import tracing
 from .data_loader import DataLoaderDispatcher, DataLoaderShard, prepare_data_loader, skip_first_batches
 from .logging import get_logger
 from .model import prepare_model, unwrap_model
@@ -210,6 +212,10 @@ class Accelerator:
         self._health_ring = None
         self._health_seq = 0
         self.last_health = None
+        # the perf observatory's window: the time between two materialised
+        # health verdicts is the step's throughput, read where the host
+        # already waits for the card
+        self._pw_mark = None
         self.async_logging = async_logging or os.environ.get(
             "ACCELERATE_ASYNC_LOGGING", "").strip().lower() in ("1", "true", "yes", "on")
         self._tracker_flusher = None
@@ -1029,12 +1035,17 @@ class Accelerator:
         step = self._health_seq
         self._health_seq += 1
         if cfg.sync:
-            return self._apply_health_verdict(telemetry.read_summary(summary, step))
+            verdict = self._apply_health_verdict(telemetry.read_summary(summary, step))
+            self._pw_note_train(1)
+            return verdict
         if self._health_ring is None:
             self._health_ring = telemetry.DeferredReadbackRing(cfg.readback_depth)
         ok = True
+        matured_n = 0
         for s, matured in self._health_ring.push((step, telemetry.start_readback(summary))):
             ok = self._apply_health_verdict(telemetry.read_summary(matured, s)) and ok
+            matured_n += 1
+        self._pw_note_train(matured_n)
         return ok
 
     def health_drain(self) -> bool:
@@ -1044,12 +1055,47 @@ class Accelerator:
 
         ok = True
         ring = self._health_ring
-        while ring is not None and len(ring):
-            # one at a time: a restore clears the ring (what is left
-            # predates the reload)
-            step, summary = ring.popleft()
-            ok = self._apply_health_verdict(telemetry.read_summary(summary, step)) and ok
+        if ring is None:
+            return True
+        with tracing.span("train.ring_drain", pending=len(ring)):
+            while len(ring):
+                # one at a time: a restore clears the ring (what is left
+                # predates the reload)
+                step, summary = ring.popleft()
+                ok = self._apply_health_verdict(telemetry.read_summary(summary, step)) and ok
         return ok
+
+    def _pw_note_train(self, verdicts: int) -> None:
+        """Bill the time since the previous materialised health verdict to
+        the training step (``perfwatch``): the verdicts' readback already
+        waited for the card, so this adds a clock read and nothing else.
+        ``verdicts == 0`` (the deferred ring still filling) leaves the
+        window open."""
+        if verdicts <= 0:
+            return
+        from . import perfwatch
+
+        now = time.monotonic()
+        mark, self._pw_mark = self._pw_mark, now
+        if mark is None:
+            return
+        perfwatch.get_watch().record(f"train.{self._pw_variant()}/fused_train_step",
+                                     (now - mark) / verdicts, calls=verdicts)
+
+    def _pw_variant(self) -> str:
+        """The program variant of this process's layout (dp<n>, fsdp<n>,
+        tp<n>, hsdp<r>x<s>), as the JAX package names its baselines."""
+        pc = self.parallelism_config
+        r = getattr(pc, "dp_replicate_size", 1) or 1
+        s = getattr(pc, "dp_shard_size", 1) or 1
+        t = getattr(pc, "tp_size", 1) or 1
+        if t > 1:
+            return f"tp{t}"
+        if r > 1 and s > 1:
+            return f"hsdp{r}x{s}"
+        if s > 1:
+            return f"fsdp{s}"
+        return f"dp{r}"
 
     def _apply_health_verdict(self, health) -> bool:
         cfg = self.health_config
@@ -1208,15 +1254,18 @@ class Accelerator:
             state["count"] = state["count"] % k + 1
             sync = state["count"] == k
             self.gradient_state._set_sync_gradients(sync)
-            with contextlib.nullcontext() if sync or each_batch else self.no_sync(model):
-                loss, _ = _split_loss(loss_fn(model, *batch))
-                scale, loss_out = self._data_parallel_loss(loss_fn, loss, batch)
-                (loss * (scale * self._loss_scale() / k)).backward()
-            if sync:
-                if max_grad_norm is not None:
-                    optimizer.clip_grad_norm_(max_grad_norm)
-                optimizer.step()
-                optimizer.zero_grad()
+            # the host's dispatch (the kernels run on the card's stream),
+            # sampled: one step in decode_sample_every
+            with tracing.step_span("train.step_dispatch", getattr(optimizer, "_step_count", 0)):
+                with contextlib.nullcontext() if sync or each_batch else self.no_sync(model):
+                    loss, _ = _split_loss(loss_fn(model, *batch))
+                    scale, loss_out = self._data_parallel_loss(loss_fn, loss, batch)
+                    (loss * (scale * self._loss_scale() / k)).backward()
+                if sync:
+                    if max_grad_norm is not None:
+                        optimizer.clip_grad_norm_(max_grad_norm)
+                    optimizer.step()
+                    optimizer.zero_grad()
             self._touch_heartbeat()
             return loss_out
 

@@ -67,6 +67,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import tracing
 from .logging import get_logger
 from .model import unwrap_model
 from .state import PartialState
@@ -489,6 +490,11 @@ def _commit_staged(staging: str, final: str, accelerator) -> None:
     """Write the manifest into the staging directory, rename it into place
     (parking a same-name predecessor at ``<final>.old`` until the rename
     lands), then run retention."""
+    with tracing.span("ckpt.commit", step=int(getattr(accelerator, "step", 0) or 0), final=final):
+        _commit_staged_inner(staging, final, accelerator)
+
+
+def _commit_staged_inner(staging: str, final: str, accelerator) -> None:
     state = PartialState()
     state.wait_for_everyone("accelerate_tpu_torch.checkpointing.pre_commit")
     fault_point("before_commit")
@@ -612,11 +618,15 @@ def _latest_committed(base: str) -> str:
     committed = [p for p in entries if is_checkpoint_committed(p)]
     if committed:
         chosen = committed[-1]
-        for newer in entries[entries.index(chosen) + 1:]:
+        rolled_back = entries[entries.index(chosen) + 1:]
+        for newer in rolled_back:
             logger.warning(
                 f"ignoring uncommitted checkpoint {newer} (interrupted save: no "
                 f"{CHECKPOINT_COMMITTED_MARKER} manifest); rolling back to the last committed "
                 f"checkpoint {chosen}")
+        if rolled_back:
+            # the spans that led to the interrupted save, for a postmortem
+            tracing.flight_dump("checkpoint_rollback")
         return chosen
     logger.warning(f"no checkpoint under {base} carries a {CHECKPOINT_COMMITTED_MARKER} manifest; "
                    "loading the newest one unverified")

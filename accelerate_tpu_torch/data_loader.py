@@ -48,6 +48,7 @@ from typing import Any, Callable, Iterable, Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from . import tracing
 from ._device import resolve_device
 from .state import GradientState, PartialState, process_layout
 
@@ -418,6 +419,7 @@ class _DevicePrefetcher:
         self.error: Optional[BaseException] = None
         self.wait_s = 0.0
         self.batches = 0
+        self._fetches = 0
         self._stop = threading.Event()
         self.thread = threading.Thread(target=self._worker, daemon=True, name="device-prefetch")
         self.thread.start()
@@ -460,8 +462,12 @@ class _DevicePrefetcher:
         return self
 
     def __next__(self):
+        # the blocking get is the data wait (a sampled span)
+        step = self._fetches
+        self._fetches += 1
         t0 = time.perf_counter()
-        item = self.q.get()
+        with tracing.step_span("train.data_wait", step):
+            item = self.q.get()
         self.wait_s += time.perf_counter() - t0
         if item is self._SENTINEL:
             if self.error is not None:

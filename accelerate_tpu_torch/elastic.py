@@ -24,10 +24,10 @@ Fault points (``ACCELERATE_TPU_FAULT_INJECT``, ``utils/fault.py``):
 ``before_replicate``, ``during_replicate``, ``after_replicate`` and
 ``before_replica_restore``.
 
-The JAX module opens tracing spans around a mirror; the port has no
-``tracing.py`` yet (ROADMAP.md A10), so there are none here. Its
-``FleetMembership`` belongs to the serving fleet (A10) and its topology
-block to orbax's resharding: the port's manifest records the topology in
+A mirror runs inside an ``elastic.replicate`` span (``tracing.py``).
+:class:`FleetMembership` is the serving fleet's ledger of replicas
+(``fleet.py``). The JAX module's topology block belongs to orbax's
+resharding: the port's manifest records the topology in
 ``checkpointing._topology``.
 """
 
@@ -44,6 +44,7 @@ import time
 from dataclasses import dataclass
 from typing import Optional
 
+from . import tracing
 from .logging import get_logger
 from .state import PartialState
 from .utils.constants import (
@@ -68,6 +69,7 @@ logger = get_logger(__name__)
 __all__ = [
     "CheckpointReplicator",
     "ConsensusResult",
+    "FleetMembership",
     "ReplicationConfig",
     "checkpoint_digest",
     "ensure_local_checkpoint",
@@ -341,6 +343,10 @@ class CheckpointReplicator:
                     self._cond.notify_all()
 
     def _mirror_with_retry(self, src: str) -> None:
+        with tracing.span("elastic.replicate", src=src) as sp:
+            self._mirror_with_retry_inner(src, sp)
+
+    def _mirror_with_retry_inner(self, src: str, sp) -> None:
         started = time.perf_counter()
         name = os.path.basename(src.rstrip(os.sep))
         failures: list = []
@@ -371,6 +377,8 @@ class CheckpointReplicator:
             succeeded += 1
             if self.config.keep:
                 _gc_replicas(root, self.config.keep)
+        sp.set("succeeded", succeeded)
+        sp.set("failed", len(failures))
         if failures:
             if len(failures) == 1 and succeeded == 0:
                 raise failures[0][1]
@@ -551,3 +559,91 @@ def remap_sampler_state(sd: dict, old_total_batch: int, new_total_batch: int) ->
                 f"{key}={new} replays {samples - new * new_total_batch} sample(s)")
         out[key] = new
     return out
+
+
+# ----------------------------------------------------------- fleet membership
+class FleetMembership:
+    """Replica membership ledger for the serving fleet — the serving twin of
+    the training gang's consensus machinery above. Where training elasticity
+    is collective (every host votes, then everyone moves together), serving
+    elasticity is incremental: replicas join (supervisor relaunch =
+    scale-up) and leave (graceful drain = zero-drop scale-down) one at a
+    time while the router keeps placing traffic. This ledger makes those
+    transitions *observable state changes* instead of silent router-internal
+    mutations:
+
+    * a monotonic ``version`` bumped by every join/leave, so pollers can
+      cheaply detect "the fleet changed since I last looked";
+    * :meth:`snapshot` — a consistent ``{version, members}`` view;
+    * :meth:`subscribe` — callbacks ``(event, replica_id, version)`` fired
+      on every transition (``event`` is ``"join"`` or ``"leave"``), invoked
+      OUTSIDE the ledger lock so a slow subscriber can never wedge a
+      scale-down.
+
+    Thread-safe; used by :class:`accelerate_tpu_torch.fleet.FleetRouter` for
+    every replica lifecycle change.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._members: dict = {}
+        self._version = 0
+        self._subscribers: list = []
+
+    @property
+    def version(self) -> int:
+        with self._lock:
+            return self._version
+
+    def join(self, replica_id: str, meta: Optional[dict] = None) -> int:
+        """Record a replica joining (idempotent per id — rejoining updates
+        its metadata); returns the new membership version."""
+        with self._lock:
+            self._members[replica_id] = dict(meta or {})
+            self._version += 1
+            version = self._version
+            subscribers = list(self._subscribers)
+        self._notify(subscribers, "join", replica_id, version)
+        return version
+
+    def leave(self, replica_id: str) -> int:
+        """Record a replica leaving (idempotent — a double leave does not
+        bump the version); returns the membership version."""
+        with self._lock:
+            if replica_id not in self._members:
+                return self._version
+            del self._members[replica_id]
+            self._version += 1
+            version = self._version
+            subscribers = list(self._subscribers)
+        self._notify(subscribers, "leave", replica_id, version)
+        return version
+
+    def members(self) -> dict:
+        """Current ``{replica_id: metadata}`` membership view."""
+        with self._lock:
+            return {k: dict(v) for k, v in sorted(self._members.items())}
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "version": self._version,
+                "members": {k: dict(v) for k, v in self._members.items()},
+            }
+
+    def subscribe(self, callback) -> None:
+        """Register ``callback(event, replica_id, version)`` for future
+        membership transitions."""
+        with self._lock:
+            self._subscribers.append(callback)
+
+    @staticmethod
+    def _notify(subscribers, event: str, replica_id: str, version: int) -> None:
+        for cb in subscribers:
+            try:
+                cb(event, replica_id, version)
+            except Exception as exc:  # noqa: BLE001 — observers never wedge lifecycle
+                logger.warning(
+                    "fleet membership subscriber failed on %s(%s): %s: %s",
+                    event, replica_id, type(exc).__name__, exc,
+                )

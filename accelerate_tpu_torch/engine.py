@@ -105,14 +105,24 @@ iteration-level scheduling state (counterpart of
   A3-bis): a forward on a worker thread would issue collectives outside
   the model's run lock and the ranks' one order.
 
-Not ported yet (ROADMAP.md A10): the tracing spans and the perfwatch
-hooks.
+Spans (``tracing.py``), each around the host side of a program, never
+inside a captured graph's body: ``engine.prefill`` (an admission's prompt
+forward, or ``prefill_remote``'s with ``remote=True``),
+``engine.prefill_chunk``, ``engine.kv_restore``,
+``engine.insert_prefilled``, ``engine.retire``, and the sampled
+``engine.decode_step`` and ``engine.spec_verify`` (one step in
+``TracingConfig.decode_sample_every``). :meth:`poll`, which waits for the
+ring's events, bills the time since the last poll to the programs that
+retired in it (``perfwatch.PerfWatch.record_window``, family
+``engine.dense``, ``engine.paged``, ``engine.paged_kernel`` (the kernels'
+route, the JAX package's ``engine.paged_pallas``) or ``engine.spec``).
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import threading
 import time
 import zlib
@@ -122,6 +132,7 @@ from typing import Any, Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import perfwatch, tracing
 from ._device import resolve_device
 from .kvcache import HostStage, make_kv_backend
 from .ops import _build
@@ -130,6 +141,13 @@ from .utils.fault import EngineCapacityError, EngineInvariantError, TransferStal
 __all__ = ["ContinuousBatchingEngine", "SlotOccupant", "RemotePrefill"]
 
 _graphs_disabled = False
+# the graphs of one process (the engines' and static generate's) capture
+# and replay one at a time: a fleet's replicas on one card each run their
+# programs from their own serving thread, torch allows one capture at a
+# time in a process, and a capture (its eager warm-up, the graph's
+# recording and the collector switched off around it) must not meet
+# another thread's replay or capture
+_GRAPH_LOCK = threading.Lock()
 
 
 @contextlib.contextmanager
@@ -153,25 +171,58 @@ def _leaves(tree):
         yield from (_leaves(leaf) if isinstance(leaf, dict) else (leaf,))
 
 
+_CAPTURE_STREAMS: dict = {}  # card index -> the stream its captures run on
+
+
+def _capture_stream():
+    """The stream captures on the current card run on: one a card, made at
+    its first capture and kept (called under ``_GRAPH_LOCK``). A new stream
+    each capture would come round torch's stream pool to one that other
+    work uses."""
+    card = torch.cuda.current_device()
+    if card not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[card] = torch.cuda.Stream(card)
+    return _CAPTURE_STREAMS[card]
+
+
 class _Graph:
-    """One program captured as a CUDA graph. The capture records each
-    kernel launch of ``body`` (the wrappers' counts go to ``launches``,
-    added once per :meth:`replay`) and advances no generator: the
-    registered ones advance at each replay, as an eager call would."""
+    """One program captured as a CUDA graph. Building it runs ``body`` once
+    eagerly (the program's first call is a real one, and builds what lives
+    outside the graph), then records it; the capture records each kernel
+    launch of ``body`` (the wrappers' counts go to ``launches``, added once
+    per :meth:`replay`) and advances no generator: the registered ones
+    advance at each replay, as an eager call would. The build and every
+    replay hold ``_GRAPH_LOCK``."""
 
     def __init__(self, body: Callable[[], None], generators):
-        self.graph = torch.cuda.CUDAGraph()
-        for gen in generators:
-            self.graph.register_generator_state(gen)
-        # thread_local: the serving worker captures while other threads
-        # may use the card; a synchronising call in this thread still fails
-        with _build.capture_launches() as launches, \
-                torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+        with _GRAPH_LOCK:
             body()
+            self.graph = torch.cuda.CUDAGraph()
+            for gen in generators:
+                self.graph.register_generator_state(gen)
+            # the collector runs no finalizer inside the capture: freeing
+            # cyclic garbage there (a dropped engine's pinned readback
+            # buffers) makes the host allocator query events, which ends
+            # the capture
+            gc.collect()
+            was_enabled = gc.isenabled()
+            gc.disable()
+            try:
+                # thread_local: the serving worker captures while other
+                # threads may use the card; a synchronising call in this
+                # thread still fails
+                with _build.capture_launches() as launches, \
+                        torch.cuda.graph(self.graph, stream=_capture_stream(),
+                                         capture_error_mode="thread_local"):
+                    body()
+            finally:
+                if was_enabled:
+                    gc.enable()
         self.launches = launches
 
     def replay(self) -> None:
-        self.graph.replay()
+        with _GRAPH_LOCK:
+            self.graph.replay()
         _build.add_launches(self.launches)
 
 
@@ -202,6 +253,9 @@ class SlotOccupant:
     spec_ewma: float = 0.3
     spec_skips: int = 0
     spec_cooldown: int = 8
+    # the request's trace id (the tag's, at admission) and the programs that
+    # emitted tokens for it (``ServingResult.decode_steps``)
+    trace_id: Optional[str] = None
     decode_steps: int = 0
 
     def output_row(self) -> np.ndarray:
@@ -578,6 +632,11 @@ class ContinuousBatchingEngine:
         self.remote_prefills = 0
         self.steps = 0
         self.retired = 0
+        # the perf observatory's window: wall time is read at poll(), which
+        # waits for the ring's events anyway, and split across the programs
+        # that retired since the last one
+        self._perfwatch = perfwatch.get_watch()
+        self._pw_mark = self._clock()
 
     # ----------------------------------------------------------- state
     # the per-call scalar operands of the prefill and chunk programs, in
@@ -645,7 +704,6 @@ class ContinuousBatchingEngine:
                 return
             graph = self._graphs.get((name, sig))
             if graph is None:
-                body()  # the warm-up is the real call
                 self._graphs[(name, sig)] = _Graph(body, self._gens)
                 return
             graph.replay()
@@ -930,9 +988,10 @@ class ContinuousBatchingEngine:
         c["top_p"][slot] = float(top_p if top_p is not None else 1.0)
         c["eos"][slot] = eos
         c["pad"][slot] = pad_id
+        trace_id = getattr(tag, "trace_id", None)
         occ = SlotOccupant(
             slot=slot, tag=tag, prompt=prompt, budget=max_new_tokens, pad_id=pad_id,
-            eos_id=eos_token_id, inserted_s=self._clock(), prefilling=chunked,
+            eos_id=eos_token_id, inserted_s=self._clock(), prefilling=chunked, trace_id=trace_id,
         )
         self._occupants[slot] = occ
         self.inserted += 1
@@ -966,7 +1025,10 @@ class ContinuousBatchingEngine:
         self._stages["prompt"].write(padded)
         self._stage_args(slot=slot, pos=length - 1, budget=max_new_tokens)
         self._seed_first_token(slot, seed)
-        self._run("prefill_insert", (self.prompt_bucket,), self._prefill_body)
+        # the span times the host's dispatch (a replay, or the first call's
+        # eager run and capture), outside the body a graph records
+        with tracing.span("engine.prefill", trace_id=trace_id, slot=slot, prompt_len=length):
+            self._run("prefill_insert", (self.prompt_bucket,), self._prefill_body)
         self._tick += 1
         self._ring.append((self._tick, "prefill", occ, *self._readback(self._out["t0"], self._out["done0"])))
         return occ
@@ -983,13 +1045,15 @@ class ContinuousBatchingEngine:
         def scatter(leaf, parts):
             leaf.index_copy_(1, target, torch.stack(parts, dim=1).to(leaf.dtype))
 
-        for w in ("k", "v"):
-            leaf = self._cache[w]
-            if isinstance(leaf, dict):
-                for part in ("q", "s"):
-                    scatter(leaf[part], [p[w][part] for p in payloads])
-            else:
-                scatter(leaf, [p[w] for p in payloads])
+        with tracing.span("engine.kv_restore", trace_id=occ.trace_id, slot=occ.slot,
+                          blocks=len(payloads)):
+            for w in ("k", "v"):
+                leaf = self._cache[w]
+                if isinstance(leaf, dict):
+                    for part in ("q", "s"):
+                        scatter(leaf[part], [p[w][part] for p in payloads])
+                else:
+                    scatter(leaf, [p[w] for p in payloads])
         self.kv_restores += 1
         self._tick += 1
         self._ring.append((self._tick, "chunk", occ, (), None))
@@ -1028,7 +1092,9 @@ class ContinuousBatchingEngine:
                          last=int(is_last), budget=args["budget"])
         if is_last:
             self._seed_first_token(slot, args["seed"])
-        self._run("prefill_insert", ("chunk", chunk), self._chunk_body)
+        with tracing.span("engine.prefill_chunk", trace_id=occ.trace_id, slot=slot, offset=offset,
+                          chunk_len=chunk_len):
+            self._run("prefill_insert", ("chunk", chunk), self._chunk_body)
         self.prefill_chunks += 1
         occ.prefill_pos = offset + chunk_len
         self._tick += 1
@@ -1120,9 +1186,8 @@ class ContinuousBatchingEngine:
         own, eagerly, on the calling thread's own CUDA stream. The first
         token's V uniforms come from a generator of its own seeded with
         ``seed``, as :meth:`insert` draws them. Commit the result with
-        :meth:`insert_prefilled` on the serving thread. ``trace_id`` is
-        taken for the JAX package's signature; its span waits for the
-        tracing module (ROADMAP.md A10)."""
+        :meth:`insert_prefilled` on the serving thread. The forward runs in
+        an ``engine.prefill`` span (``remote=True``) under ``trace_id``."""
         if self._view is not None:
             self._refuse_over_mesh("prefill_remote")
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
@@ -1141,8 +1206,10 @@ class ContinuousBatchingEngine:
             padded = np.zeros((1, self.prompt_bucket), np.int64)
             padded[0, :len(prompt)] = prompt
             ids = torch.from_numpy(padded).to(self.device)
-            logits, cache = self._prefill_at_fn(self.config, self._params(), ids, self.max_len,
-                                                [len(prompt) - 1])
+            with tracing.span("engine.prefill", trace_id=trace_id, remote=True,
+                              prompt_len=len(prompt)):
+                logits, cache = self._prefill_at_fn(self.config, self._params(), ids,
+                                                    self.max_len, [len(prompt) - 1])
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
             uniform = torch.rand((1, self.config.vocab_size), generator=gen, device=self.device)
@@ -1231,8 +1298,9 @@ class ContinuousBatchingEngine:
         c["top_p"][slot] = float(pre.top_p if pre.top_p is not None else 1.0)
         c["eos"][slot] = pre.eos_token_id if pre.eos_token_id is not None else -1
         c["pad"][slot] = pad_id
+        trace_id = getattr(tag, "trace_id", None)
         occ = SlotOccupant(slot=slot, tag=tag, prompt=prompt, budget=budget, pad_id=pad_id,
-                           eos_id=pre.eos_token_id, inserted_s=self._clock())
+                           eos_id=pre.eos_token_id, inserted_s=self._clock(), trace_id=trace_id)
         self._occupants[slot] = occ
         self.inserted += 1
         self.peak_live = max(self.peak_live, self.live_count())
@@ -1248,9 +1316,12 @@ class ContinuousBatchingEngine:
             for leaf in (*pre.cache.values(), pre.t0):
                 leaf.record_stream(stream)
         slot_t, last = self._arg("slot"), self._arg("pos")
-        self._backend.prefill_write(self._cache, pre.cache, slot_t, tables.index_select(0, slot_t)[0])
-        self._pos.index_copy_(0, slot_t, (last + 1).to(torch.int32))
-        self._install(pre.t0.to(torch.int32), slot_t)
+        with tracing.span("engine.insert_prefilled", trace_id=trace_id, slot=slot,
+                          prompt_len=len(prompt)):
+            self._backend.prefill_write(self._cache, pre.cache, slot_t,
+                                        tables.index_select(0, slot_t)[0])
+            self._pos.index_copy_(0, slot_t, (last + 1).to(torch.int32))
+            self._install(pre.t0.to(torch.int32), slot_t)
         self._tick += 1
         self._ring.append((self._tick, "prefill", occ, *self._readback(self._out["t0"], self._out["done0"])))
         return occ
@@ -1276,7 +1347,11 @@ class ContinuousBatchingEngine:
 
     @torch.no_grad()
     def _dispatch_decode(self) -> bool:
-        self._run("decode_step", (), self._decode_body)
+        # sampled: a span every decode_sample_every steps, the host's
+        # dispatch only (the replayed graph never sees the tracer)
+        with tracing.step_span("engine.decode_step", self.steps, live=self.live_count(),
+                               tick=self._tick):
+            self._run("decode_step", (), self._decode_body)
         self.steps += 1
         self._tick += 1
         c = self._carried
@@ -1308,7 +1383,9 @@ class ContinuousBatchingEngine:
     def _dispatch_verify(self, draft_np: np.ndarray, dlen_np: np.ndarray) -> None:
         self._stages["draft"].write(draft_np)
         self._stages["dlen"].write(dlen_np)
-        self._run("verify_step", (self.spec_draft_len,), self._verify_body)
+        with tracing.step_span("engine.spec_verify", self.steps, drafted=int(dlen_np.sum()),
+                               live=self.live_count()):
+            self._run("verify_step", (self.spec_draft_len,), self._verify_body)
         self.steps += 1
         self.spec_verify_steps += 1
         self._tick += 1
@@ -1466,12 +1543,37 @@ class ContinuousBatchingEngine:
         (all with ``force=True``) and return the occupants retired."""
         self._reap_reservations()  # the TTL of abandoned KV transfers
         retired: List[SlotOccupant] = []
+        popped: collections.Counter = collections.Counter()
         while self._ring and (force or self._tick - self._ring[0][0] >= self.readback_lag):
             _, kind, payload, hosts, event = self._ring.popleft()
+            popped[kind] += 1
             if event is not None:
                 event.synchronize()  # the ring IS the readback point
             self._absorb_entry(kind, payload, hosts, retired)
+        if popped:
+            self._pw_flush(popped)
+        elif not self._ring:
+            # an idle poll moves the mark: the time between requests is
+            # never billed to the next window's programs
+            self._pw_mark = self._clock()
         return retired
+
+    def _pw_flush(self, popped: "collections.Counter") -> None:
+        """Bill the wall time since the previous poll to the programs that
+        retired from the ring in it (``perfwatch`` splits it by their
+        predictions, or equally without a baseline)."""
+        now = self._clock()
+        dt, self._pw_mark = now - self._pw_mark, now
+        if self.attention_impl == "kernel":
+            family = "engine.paged_kernel"
+        elif self.spec is not None:
+            family = "engine.spec"
+        elif self._backend.kind.startswith("paged"):
+            family = "engine.paged"
+        else:
+            family = "engine.dense"
+        self._perfwatch.record_window(
+            family, {perfwatch.RING_KIND_PROGRAM[k]: n for k, n in popped.items()}, dt)
 
     def _absorb_entry(self, kind, payload, hosts, retired: list) -> None:
         if kind == "chunk":
@@ -1531,12 +1633,14 @@ class ContinuousBatchingEngine:
             retired.append(occ)
 
     def _retire(self, occ: SlotOccupant) -> None:
-        occ.finished = True
-        self._occupants[occ.slot] = None
-        self._return_slot(occ.slot)  # the epoch bump fences late transfers
-        # frees the blocks and points the row at the null block, so the
-        # ghost slot's masked writes land in the sink
-        self._backend.release(occ.slot)
+        with tracing.span("engine.retire", trace_id=occ.trace_id, slot=occ.slot,
+                          tokens=len(occ.tokens), decode_steps=occ.decode_steps):
+            occ.finished = True
+            self._occupants[occ.slot] = None
+            self._return_slot(occ.slot)  # the epoch bump fences late transfers
+            # frees the blocks and points the row at the null block, so the
+            # ghost slot's masked writes land in the sink
+            self._backend.release(occ.slot)
         self.retired += 1
 
     def cancel(self, occ: SlotOccupant) -> None:

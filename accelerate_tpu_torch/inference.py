@@ -373,8 +373,7 @@ class _Program:
             self.graph = None
         done = 0
         if self.graph is None and n:
-            self.step(config, params)
-            done = 1
+            done = 1  # building the graph runs the first step
             self.graph = _Graph(lambda: self.step(config, params),
                                 [self.gen] if self.temp_on else [])
             self.graph_params = ptrs

@@ -130,7 +130,10 @@ class HostStage:
         self.host.numpy()[...] = arr
         self.dst.copy_(self.host, non_blocking=True)
         if self._event is not None:
-            self._event.record()
+            # on dst's card: the calling thread's current card may be
+            # another (an engine built on one thread for cuda:1, then run
+            # by its serving thread)
+            self._event.record(torch.cuda.current_stream(self.dst.device))
 
 
 # ------------------------------------------------------------------ int8 ops

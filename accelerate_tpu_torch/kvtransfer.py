@@ -65,6 +65,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import tracing
 from .utils.fault import (
     EngineCapacityError,
     FaultInjected,
@@ -816,8 +817,8 @@ class KVTransferManager:
              trace_id: Optional[str] = None) -> str:
         """Ship one :class:`~accelerate_tpu_torch.engine.RemotePrefill` to
         ``replica_id``'s receiver; returns the transfer id to :meth:`take`
-        the rebuilt prefill under. ``trace_id`` rides BEGIN's meta (its
-        ``kvtx.send`` span waits for the tracing module, ROADMAP.md A10).
+        the rebuilt prefill under. ``trace_id`` rides BEGIN's meta and
+        names the ``kvtx.send`` span the attempts run in.
         Raises the error that ended the transfer once retries or the
         budget are spent, and :class:`TransferStaleEpochError` at once,
         never retried."""
@@ -828,31 +829,35 @@ class KVTransferManager:
         base = f"kvtx-{next(self._seq)}"
         delay = self._backoff_s
         attempt = 0
-        while True:
-            # a fresh id per attempt: a half-dead earlier attempt may still
-            # hold the receiver's staging under its id, and a duplicate
-            # BEGIN is refused
-            tid = base if attempt == 0 else f"{base}-r{attempt}"
-            try:
-                self._attempt(replica_id, tid, trace_id, chunks, payload_crc, len(payload), pre)
-                self.stats["shipped"] += 1
-                return tid
-            except TransferStaleEpochError:
-                self.stats["stale"] += 1
-                raise
-            except (KVTransferError, FaultInjected, OSError) as exc:
-                typed = exc if isinstance(exc, KVTransferError) else TransferAbortedError(
-                    f"transfer {tid} died on sender: {type(exc).__name__}: {exc}")
-                attempt += 1
-                if attempt > self._retries or (
-                        self._budget is not None and not self._budget.try_acquire()):
-                    self.stats["failed"] += 1
-                    raise typed from exc
-                self.stats["retries"] += 1
-                if self._on_retry is not None:
-                    self._on_retry()
-                self._sleep(delay)
-                delay *= 2.0
+        with tracing.span("kvtx.send", trace_id=trace_id, replica=replica_id, transfer=base,
+                          bytes=len(payload), chunks=len(chunks),
+                          transport=self.transport_name) as sp:
+            while True:
+                # a fresh id per attempt: a half-dead earlier attempt may still
+                # hold the receiver's staging under its id, and a duplicate
+                # BEGIN is refused
+                tid = base if attempt == 0 else f"{base}-r{attempt}"
+                try:
+                    self._attempt(replica_id, tid, trace_id, chunks, payload_crc, len(payload), pre)
+                    self.stats["shipped"] += 1
+                    sp.set("attempts", attempt + 1)
+                    return tid
+                except TransferStaleEpochError:
+                    self.stats["stale"] += 1
+                    raise
+                except (KVTransferError, FaultInjected, OSError) as exc:
+                    typed = exc if isinstance(exc, KVTransferError) else TransferAbortedError(
+                        f"transfer {tid} died on sender: {type(exc).__name__}: {exc}")
+                    attempt += 1
+                    if attempt > self._retries or (
+                            self._budget is not None and not self._budget.try_acquire()):
+                        self.stats["failed"] += 1
+                        raise typed from exc
+                    self.stats["retries"] += 1
+                    if self._on_retry is not None:
+                        self._on_retry()
+                    self._sleep(delay)
+                    delay *= 2.0
 
     def _attempt(self, replica_id: str, tid: str, trace_id: Optional[str],
                  chunks: List[bytes], payload_crc: int, total_bytes: int,

@@ -46,13 +46,36 @@ taken as lost and the replaying server fails (:class:`ReplicaDeadError`).
 In both modes a failure on one replaying rank alone leaves the first
 rank inside a collective until the process group's own timeout.
 
-Robustness that is ported: a bounded admission queue
-(:class:`ServerOverloaded`), deadlines at admission, mid-decode and at
-completion (:class:`RequestDeadlineExceeded`), graceful drain (in-flight
-work finishes, queued requests get :class:`ServerDrainingError`), and a
-failure failing only the requests it held (:class:`BatchExecutionError`).
-Not ported yet (ROADMAP.md A10): the circuit breaker, the degradation
-ladder, trackers and the metrics exporter.
+Robustness, as in the JAX package: a bounded admission queue
+(:class:`ServerOverloaded`, with a ``retry_after_s`` hint), deadlines at
+admission, mid-decode and at completion (:class:`RequestDeadlineExceeded`),
+graceful drain (in-flight work finishes, queued requests get
+:class:`ServerDrainingError`; also once the training side's preemption
+handler has taken a SIGTERM), a failure failing only the
+requests it held (:class:`BatchExecutionError`), and the control plane:
+
+* **Circuit breaker**: ``breaker_threshold`` consecutive failed batch
+  attempts (continuous: engine failures) open it; ``submit`` then raises
+  :class:`CircuitOpenError` until ``breaker_reset_s`` has passed, when one
+  half-open probe (a batch of one, or one admission) closes or reopens it.
+* **Degradation ladder**: under queue pressure new budgets are clamped
+  (``degrade_queue_fraction``, ``degrade_hard_fraction``,
+  ``degraded_max_new_tokens``; ``ServingResult.degraded``) before anything
+  is shed; in continuous mode the speculative draft limit is halved, then
+  drafting stops, first.
+* **Metrics**: :class:`ServingMetrics` over a
+  :class:`~accelerate_tpu_torch.tracing.MetricsRegistry`, flushed to
+  ``trackers`` every ``metrics_interval_s``; :meth:`InferenceServer.health`
+  and :meth:`InferenceServer.metrics_snapshot` for the fleet router and the
+  exporter (``perfwatch.py``, armed by ``ACCELERATE_METRICS_PORT``).
+* **Spans**: ``serving.batch`` and ``serving.admit`` under the request's
+  trace id (``submit(trace_id=)``, or a new one), and a flight-recorder
+  dump when the worker dies (``tracing.py``).
+
+Over a mesh only the first rank's breaker reads its clock: its state
+travels in each batch and tick it sends, and the replaying ranks adopt it,
+so every rank reports one verdict; the ladder's spec rung is the spec limit
+each tick already carries, and a clamped budget is the admission's.
 """
 
 from __future__ import annotations
@@ -63,22 +86,27 @@ import threading
 import time
 from concurrent.futures import Future, InvalidStateError
 from dataclasses import dataclass, field
-from typing import Callable, Optional
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from . import perfwatch, tracing
 from ._device import resolve_device
 from .logging import get_logger
+from .telemetry import LatencyReservoir
+from .tracing import MetricsRegistry
 from .utils.dataclasses import ServingConfig
 from .utils.fault import (
     BatchExecutionError,
+    CircuitOpenError,
     KVTransferError,
     ReplicaDeadError,
     RequestDeadlineExceeded,
     ServerDrainingError,
     ServerOverloaded,
     fault_point,
+    preemption_requested,
 )
 
 logger = get_logger(__name__)
@@ -99,13 +127,14 @@ class _Request:
     seed: int
     submitted_at: float
     future: Future = field(default_factory=Future)
-    # the token budget a static batch runs (set at dequeue; the degradation
-    # ladder that would clamp it, and set ``degraded``, waits for A10)
+    # the token budget after the degradation ladder's clamp (set at dequeue)
     effective_max_new_tokens: int = 0
     degraded: bool = False
     # continuous: a prompt forward run off the decode loop (an
     # engine.RemotePrefill), committed at admission when the engine takes it
-    prefill: object = None
+    prefill: Any = None
+    # the request's trace id, carried fleet -> server -> engine
+    trace_id: Optional[str] = None
 
     def group_key(self) -> tuple:
         """Requests sharing this key can ride one static ``generate()``
@@ -128,21 +157,25 @@ class _Request:
 class ServingResult:
     """What a completed request's Future resolves to."""
 
-    tokens: np.ndarray  # (prompt_len + max_new_tokens,) int32
+    tokens: np.ndarray  # (prompt_len + new,) int32
     latency_s: float
     batch_size: int  # static: the batch's requests; continuous: slots live when it retired
+    degraded: bool  # the ladder clamped the token budget
     # continuous: submit -> first token read back; static: the latency (the
     # batch materialises at once)
     ttft_s: Optional[float] = None
+    replica_id: Optional[str] = None  # the server that answered (None outside a fleet)
     queue_wait_s: Optional[float] = None
     prefill_s: Optional[float] = None
     decode_steps: int = 0
+    # dispatches before the one that answered (set by the fleet router)
+    failover_count: int = 0
 
 
 def _engine_args(req: _Request) -> tuple:
     """What a replaying rank needs of an admitted request: its engine
-    arguments (no future, no deadline)."""
-    return (req.input_ids, req.max_new_tokens, req.temperature, req.top_k, req.top_p,
+    arguments, the clamped budget among them (no future, no deadline)."""
+    return (req.input_ids, req.effective_max_new_tokens, req.temperature, req.top_k, req.top_p,
             req.eos_token_id, req.pad_token_id, req.seed)
 
 
@@ -162,42 +195,125 @@ def resolve_future(future: Future, *, result=None, exception: Optional[BaseExcep
 
 
 class ServingMetrics:
-    """Thread-safe counters and recent latency samples (seconds)."""
+    """Thread-safe serving counters and latency reservoirs, over one
+    :class:`~accelerate_tpu_torch.tracing.MetricsRegistry` (prefix
+    ``serving/``), which owns the lock, the flush cadence and the tracker
+    bridge. :meth:`snapshot` flattens everything into one ``serving/...``
+    dict; the reservoirs' percentiles appear as ``<name>_p50`` etc."""
 
     _COUNTERS = (
-        "submitted", "completed", "rejected_queue_full", "rejected_draining",
-        "shed_deadline", "completed_late", "retries", "batch_failures", "batches",
-        "engine_inserts", "engine_steps", "engine_retired", "prefill_commit_fallbacks",
+        "submitted",
+        "completed",
+        "rejected_queue_full",
+        "rejected_breaker",
+        "rejected_draining",
+        "shed_deadline",
+        "completed_late",
+        "retries",
+        "batch_failures",
+        "batches",
+        "breaker_opens",
+        "degraded",
+        # continuous mode only
+        "engine_inserts",
+        "engine_steps",
+        "engine_retired",
+        # a prefill from the wire lost its reservation between the check
+        # and the commit: the prompt forward ran locally instead
+        "prefill_commit_fallbacks",
     )
 
-    def __init__(self, window: int = 1024):
-        self._lock = threading.Lock()
-        self._counts = dict.fromkeys(self._COUNTERS, 0)
-        self.latency: collections.deque = collections.deque(maxlen=window)
-        self.ttft: collections.deque = collections.deque(maxlen=window)
+    def __init__(self, clock=time.monotonic):
+        self.registry = MetricsRegistry(prefix="serving/", counters=self._COUNTERS, clock=clock)
+        self.latency = LatencyReservoir()  # seconds, completed requests
+        self.queue_wait = LatencyReservoir()  # seconds queued
+        # a short window, so p99 follows the current service
+        self.ttft = LatencyReservoir(size=256)
+        self.registry.attach_reservoir("latency", self.latency)
+        self.registry.attach_reservoir("queue_wait", self.queue_wait)
+        self.registry.attach_reservoir("ttft", self.ttft)
+        for name in ("queue_depth", "breaker_state", "kv_hbm_bytes", "kv_utilization",
+                     "prefix_hit_rate", "spec_acceptance_rate", "spec_tokens_per_step"):
+            self.registry.gauge(name, 0.0)
 
     def bump(self, name: str, by: int = 1) -> None:
-        with self._lock:
-            self._counts[name] += by
+        self.registry.bump(name, by)
+
+    def gauge(self, name: str, value: float) -> None:
+        self.registry.gauge(name, value)
 
     def __getitem__(self, name: str) -> int:
-        with self._lock:
-            return self._counts[name]
-
-    def add(self, latency_s: float, ttft_s: float) -> None:
-        with self._lock:
-            self.latency.append(latency_s)
-            self.ttft.append(ttft_s)
+        return self.registry[name]
 
     def snapshot(self) -> dict:
+        return self.registry.snapshot()
+
+
+class _CircuitBreaker:
+    """Three states over consecutive failed batch attempts: CLOSED ->
+    (``threshold`` failures) -> OPEN -> (``reset_s``) -> HALF_OPEN (one
+    probe) -> CLOSED on success, OPEN on failure. Transitions happen on the
+    worker thread; ``submit`` only reads."""
+
+    CLOSED, OPEN, HALF_OPEN = 0, 1, 2
+
+    def __init__(self, threshold: int, reset_s: float, clock: Callable[[], float]):
+        self.threshold = threshold
+        self.reset_s = reset_s
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._state = self.CLOSED
+        self._failures = 0
+        self._opened_at = 0.0
+        self.opens = 0
+
+    def state(self) -> int:
+        """The state; an OPEN breaker whose window has passed reports (and
+        becomes) HALF_OPEN."""
         with self._lock:
-            out = {f"serving/{k}": v for k, v in self._counts.items()}
-            for name, samples in (("latency", self.latency), ("ttft", self.ttft)):
-                if samples:
-                    arr = np.asarray(samples)
-                    out[f"serving/{name}_p50_s"] = float(np.percentile(arr, 50))
-                    out[f"serving/{name}_p99_s"] = float(np.percentile(arr, 99))
-        return out
+            if self._state == self.OPEN and self._clock() - self._opened_at >= self.reset_s:
+                self._state = self.HALF_OPEN
+            return self._state
+
+    @property
+    def rejects_admission(self) -> bool:
+        return self.state() == self.OPEN
+
+    def seconds_until_probe(self) -> float:
+        with self._lock:
+            if self._state != self.OPEN:
+                return 0.0
+            return max(0.0, self.reset_s - (self._clock() - self._opened_at))
+
+    def record_failure(self) -> bool:
+        """Count one failed attempt; True when it opened (or reopened) the
+        breaker."""
+        with self._lock:
+            self._failures += 1
+            was_open = self._state == self.OPEN
+            if self._state == self.HALF_OPEN or self._failures >= self.threshold:
+                self._state = self.OPEN
+                self._opened_at = self._clock()
+                if not was_open:
+                    self.opens += 1
+                    return True
+            return False
+
+    def record_success(self) -> None:
+        with self._lock:
+            self._failures = 0
+            self._state = self.CLOSED
+
+    # the port's addition, for a server over a mesh: the first rank's
+    # verdict travels in its messages, and the replaying ranks adopt it
+    # instead of reading their own clocks
+    def _verdict(self) -> tuple:
+        with self._lock:
+            return (self._state, self._failures, self.opens)
+
+    def _adopt(self, verdict: tuple) -> None:
+        with self._lock:
+            self._state, self._failures, self.opens = verdict
 
 
 # the longest the mesh's first rank stays quiet while it waits for
@@ -292,20 +408,28 @@ class InferenceServer:
     returning ``(batch, prompt + new)`` tokens; ``None`` runs ``generate``,
     which needs the model's parameters on ``device``). Continuous mode:
     ``engine`` injects a pre-built
-    :class:`~accelerate_tpu_torch.engine.ContinuousBatchingEngine` (tests),
-    ``None`` builds one from the ``engine_*`` knobs; ``generate_fn`` is
-    inert there, as the engine owns the device programs. Construction
-    starts the worker; use it as a context manager or call :meth:`close`.
+    :class:`~accelerate_tpu_torch.engine.ContinuousBatchingEngine` (tests,
+    or replicas sharing one model), ``None`` builds one from the
+    ``engine_*`` knobs; ``generate_fn`` is inert there, as the engine owns
+    the device programs. ``trackers`` receive a metrics snapshot every
+    ``config.metrics_interval_s`` and at drain; ``replica_id`` names the
+    server inside a fleet and is stamped on its typed errors and results;
+    ``clock`` is the monotonic time source. Construction starts the
+    worker; use it as a context manager or call :meth:`close`.
 
     Over a model laid out over a mesh, in either mode: every rank builds
     the server; the mesh's first rank serves, the others replay its
     batches or decisions (see the module docstring).
     """
 
-    def __init__(self, model, config: Optional[ServingConfig] = None, *, generate_fn=None,
-                 engine=None, device="cuda", clock: Callable[[], float] = time.monotonic):
+    def __init__(self, model, config: Optional[ServingConfig] = None, *,
+                 generate_fn: Optional[Callable[..., Any]] = None, trackers: Sequence = (),
+                 clock: Callable[[], float] = time.monotonic, engine=None,
+                 replica_id: Optional[str] = None, device="cuda"):
         self.model = model
         self.config = config or ServingConfig()
+        self.replica_id = replica_id
+        self.trackers = list(trackers)
         self._clock = clock
         self._generate_fn = generate_fn or self._default_generate
         self._control = None
@@ -351,18 +475,36 @@ class InferenceServer:
         self._closed = False
         self._worker_error: Optional[BaseException] = None
         self._drained = threading.Event()
-        self.metrics = ServingMetrics()
-        self._batch_time_ewma = 0.0  # static: seconds a batch, for shedding at dequeue
+        self.metrics = ServingMetrics(clock=clock)
+        self._breaker = _CircuitBreaker(self.config.breaker_threshold,
+                                        self.config.breaker_reset_s, clock)
+        # seconds a batch (static) or a tick (continuous), for shedding at
+        # dequeue, the overload hint and the fleet's placement
+        self._batch_time_ewma = 0.0
         # continuous over a mesh: the slots cancelled since the last decision sent
         self._cancelled: list = []
         self._rng = random.Random(0)  # backoff jitter only
         self._worker = threading.Thread(target=self._serve_loop, name="inference-server", daemon=True)
         self._worker.start()
+        # the pull endpoint (ACCELERATE_METRICS_PORT), on a standalone
+        # server only: a fleet's replicas are exported by the router
+        self._exporter = (perfwatch.maybe_exporter(self.metrics_snapshot)
+                          if replica_id is None else None)
+
+    @property
+    def _replaying(self) -> bool:
+        return self._control is not None and not self._control.is_leader
 
     @property
     def engine(self):
-        """The continuous mode's slot engine (``None`` in static mode)."""
+        """The continuous mode's slot engine (``None`` in static mode). The
+        fleet's prefill workers reach ``prefill_remote`` through it;
+        everything else on the engine belongs to the serving thread."""
         return self._engine
+
+    @property
+    def draining(self) -> bool:
+        return self._draining or self._closed
 
     def stats(self) -> dict:
         """The engine's host counters (:meth:`~accelerate_tpu_torch.engine
@@ -383,22 +525,59 @@ class InferenceServer:
     def kv_prefix_digest(self) -> Optional[dict]:
         """The engine's prefix-registry digest
         (:meth:`~accelerate_tpu_torch.engine.ContinuousBatchingEngine
-        .kv_prefix_digest`); None in static mode."""
+        .kv_prefix_digest`), which the fleet's prober gossips for
+        KV-affinity placement; None in static mode."""
         if self._engine is None:
             return None
         fn = getattr(self._engine, "kv_prefix_digest", None)
         return fn() if fn is not None else None
+
+    def health(self) -> dict:
+        """One cheap health sample for routers and probers (no device work,
+        no tracker I/O): ``draining``, ``worker_alive``, ``worker_error``
+        (the type name that killed the worker), ``breaker_state`` (0 CLOSED,
+        1 OPEN, 2 HALF_OPEN), ``queue_depth``/``queue_free``, ``inflight``
+        (live engine slots; 0 in static mode), ``batch_ewma_s`` (the
+        placement's cost estimate), ``mode`` and ``replica_id``."""
+        depth = self.queue_depth()
+        return {
+            "replica_id": self.replica_id,
+            "mode": self.config.mode,
+            "draining": self.draining or preemption_requested(),
+            "worker_alive": self._worker.is_alive(),
+            "worker_error": (type(self._worker_error).__name__
+                             if self._worker_error is not None else None),
+            "breaker_state": self._breaker.state(),
+            "queue_depth": depth,
+            "queue_free": max(0, self.config.max_queue - depth),
+            "inflight": self._engine.live_count() if self._engine is not None else 0,
+            "batch_ewma_s": self._batch_time_ewma,
+        }
+
+    def metrics_snapshot(self) -> dict:
+        """One flat metrics dict for exporters and the fleet: the registry's
+        snapshot with the engine's gauges read again (``engine.stats()``
+        reads host counters only), and the process's perf observatory
+        (``perf/<program>/...``)."""
+        if self._engine is not None:
+            self._sync_kv_gauges()
+        out = self.metrics.registry.snapshot()
+        out.update(perfwatch.get_watch().snapshot())
+        return out
 
     # ------------------------------------------------------------ admission
     def submit(self, input_ids, *, max_new_tokens: Optional[int] = None,
                deadline_s: Optional[float] = None, temperature: float = 0.0,
                top_k: Optional[int] = None, top_p: Optional[float] = None,
                eos_token_id: Optional[int] = None, pad_token_id: Optional[int] = None,
-               seed: int = 0, prefilled=None) -> Future:
+               seed: int = 0, prefilled=None, arrival_s: Optional[float] = None,
+               trace_id: Optional[str] = None) -> Future:
         """Admit one request; returns a Future resolving to
         :class:`ServingResult` or raising the typed error that ended it.
-        Raises at once (before queueing) when the server is draining, the
-        queue is full, or the request cannot fit the engine.
+        Raises at once (before queueing) when the server is draining
+        (:class:`ServerDrainingError`), its breaker is open
+        (:class:`CircuitOpenError`), the queue is full
+        (:class:`ServerOverloaded`), or the request cannot fit the engine.
         ``deadline_s`` is relative (``None``: ``config.default_deadline_s``);
         ``seed`` drives a sampled request's draws (``temperature > 0``).
         ``prefilled`` (continuous mode): the request's
@@ -408,15 +587,27 @@ class InferenceServer:
         below the request's, a stale reservation) falls back to that
         forward. With ``config.kv_prefetch`` the request's host-tier
         blocks start their copies to the card here, on this thread.
-        Over a mesh, only its first rank admits requests."""
-        if self._control is not None and not self._control.is_leader:
+        ``arrival_s`` back-dates the request's arrival on this server's
+        clock (a fleet's failover or remote prefill keeps the client's
+        latency honest); ``trace_id`` joins an existing trace, else one is
+        made when the tracer is on. Over a mesh, only its first rank admits
+        requests."""
+        if self._replaying:
             raise RuntimeError(
                 f"submit on rank {self._control.rank}: the model is served over a mesh, whose "
                 f"first rank ({self._control.leader}) admits every request; this rank replays "
                 "its decisions")
-        if self._closed or self._draining:
+        fault_point("serving_submit", replica=self.replica_id)
+        if self._closed or self._draining or preemption_requested():
             self.metrics.bump("rejected_draining")
-            raise ServerDrainingError(self._drain_reason(), retry_after_s=0.0)
+            raise ServerDrainingError(self._drain_reason(), replica_id=self.replica_id,
+                                      retry_after_s=0.0)
+        if self._breaker.rejects_admission:
+            self.metrics.bump("rejected_breaker")
+            wait = self._breaker.seconds_until_probe()
+            raise CircuitOpenError(
+                f"circuit breaker open after repeated batch failures; retry in {wait:.2f}s",
+                replica_id=self.replica_id, retry_after_s=wait)
         ids = np.asarray(input_ids, dtype=np.int32)
         if ids.ndim == 2 and ids.shape[0] == 1:
             ids = ids[0]
@@ -442,19 +633,23 @@ class InferenceServer:
             deadline=(now + deadline_s) if deadline_s is not None else None,
             temperature=temperature, top_k=top_k, top_p=top_p,
             eos_token_id=eos_token_id, pad_token_id=pad_token_id, seed=seed,
-            submitted_at=now, prefill=prefilled,
+            submitted_at=arrival_s if arrival_s is not None else now, prefill=prefilled,
+            trace_id=trace_id or (tracing.new_trace_id() if tracing.get_tracer().enabled else None),
         )
         with self._wake:
             if self._draining or self._closed:
                 self.metrics.bump("rejected_draining")
-                raise ServerDrainingError(self._drain_reason(), retry_after_s=0.0)
+                raise ServerDrainingError(self._drain_reason(), replica_id=self.replica_id,
+                                          retry_after_s=0.0)
             if len(self._queue) >= self.config.max_queue:
                 self.metrics.bump("rejected_queue_full")
+                hint = self._retry_after_hint(len(self._queue))
                 raise ServerOverloaded(
-                    f"admission queue full ({self.config.max_queue}); back off and resubmit",
-                )
+                    f"admission queue full ({self.config.max_queue}); back off and resubmit in "
+                    f"~{hint:.2f}s", replica_id=self.replica_id, retry_after_s=hint)
             self._queue.append(req)
             self.metrics.bump("submitted")
+            self.metrics.gauge("queue_depth", len(self._queue))
             self._wake.notify()
         return req.future
 
@@ -477,7 +672,7 @@ class InferenceServer:
         or until the first rank is taken as lost (``timeout`` None: however
         long that takes, at most a quiet of ``drain_timeout_s`` beyond the
         first rank's longest)."""
-        if self._control is not None and not self._control.is_leader:
+        if self._replaying:
             return self._drained.wait(timeout)
         with self._wake:
             self._draining = True
@@ -489,12 +684,17 @@ class InferenceServer:
         return done
 
     def close(self, drain: bool = True, timeout: Optional[float] = None) -> bool:
-        """Drain (or, with ``drain=False``, stop without waiting) and join
-        the worker. Idempotent."""
+        """Drain (or, with ``drain=False``, stop without waiting), join the
+        worker, stop the exporter and flush the trackers. Idempotent."""
         done = self.drain(timeout if drain else 0.0)
         self._closed = True
         if self._worker is not threading.current_thread():
             self._worker.join(timeout=self.config.drain_timeout_s)
+        if self._exporter is not None:
+            self._exporter.close()
+            self._exporter = None
+        if self.trackers:
+            self._flush_metrics(force=True)
         return done
 
     def __enter__(self) -> "InferenceServer":
@@ -514,7 +714,7 @@ class InferenceServer:
         return None if param is None else param.device
 
     def _serve_loop(self) -> None:
-        replaying = self._control is not None and not self._control.is_leader
+        replaying = self._replaying
         try:
             # a thread starts on the first card: over a mesh each rank works
             # on its own, and CUDA events and streams follow the current one
@@ -528,10 +728,13 @@ class InferenceServer:
             else:
                 self._loop_static()
         except BaseException as exc:  # a dead worker must not hang clients
+            # admission stops first: nothing consumes the queue any more
             with self._lock:
                 self._worker_error = exc
                 self._draining = True
             logger.exception("serving worker died; failing in-flight and queued requests")
+            # the last seconds of spans, for a postmortem of the death
+            tracing.flight_dump("worker_death")
             raise
         finally:
             with self._lock:
@@ -545,7 +748,7 @@ class InferenceServer:
             for occ in orphans:
                 resolve_future(occ.tag.future, exception=ReplicaDeadError(
                     "serving worker exited with this request still in a decode slot",
-                ))
+                    replica_id=self.replica_id))
             self._reject_queued()
             if self._control is not None and self._control.is_leader:
                 try:
@@ -553,6 +756,20 @@ class InferenceServer:
                 except Exception:  # noqa: BLE001 - a lost peer must not hang this drain
                     logger.exception("could not end the replaying ranks")
             self._drained.set()
+            self._flush_metrics(force=True)
+
+    def _beat(self) -> None:
+        """Over a mesh: tell the replaying ranks this rank is alive when it
+        has been quiet for ``_BEAT_S``."""
+        if self._control is not None and self._control.beat_due():
+            self._control.send(("beat",))
+
+    def _wait_for_breaker(self) -> None:
+        """The breaker is open: shed the queued requests that cannot make
+        their deadline before the probe, and wait a little."""
+        self._shed_expired()
+        self._beat()
+        time.sleep(min(0.01, max(self._breaker.seconds_until_probe(), 0.001)))
 
     # ------------------------------------------------------ static batching
     def _loop_static(self) -> None:
@@ -563,34 +780,49 @@ class InferenceServer:
         while True:
             with self._wake:
                 while not self._queue and not self._draining:
+                    if preemption_requested():
+                        self._draining = True
+                        break
                     if control is not None and control.beat_due():
                         break
+                    if self._flush_due():
+                        break  # flushed below, with the lock released
                     self._wake.wait(timeout=0.05)
-                if self._draining:
+                if self._draining or preemption_requested():
+                    self._draining = True
                     return
                 idle = not self._queue
-            if idle:  # over a mesh: tell the replaying ranks this rank is alive
-                control.send(("beat",))
+            # a slow tracker must never stall submit() or a wakeup
+            self._flush_metrics()
+            if idle:
+                self._beat()
                 continue
-            batch = self._collect_batch()
+            st = self._breaker.state()
+            if st == _CircuitBreaker.OPEN:
+                # failing fast is submit()'s; here shed what cannot wait
+                self._wait_for_breaker()
+                continue
+            batch = self._collect_batch(probe=(st == _CircuitBreaker.HALF_OPEN))
             if batch:
                 self._execute(batch)
 
     def _loop_replay(self) -> None:
         """A rank other than the mesh's first: run each batch the first rank
-        sends, in order, until its stop. A failed batch fails there too (the
-        same call over the same collectives), which retries or gives up; a
-        failure on this rank alone leaves the first rank in a collective
-        until the process group's own timeout, and this rank, hearing
-        nothing, takes it as lost. Raises :class:`ReplicaDeadError` when the
-        first rank is lost (the worker's end fails this server)."""
+        sends, in order, until its stop, adopting the first rank's breaker
+        verdict. A failed batch fails there too (the same call over the same
+        collectives), which retries or gives up; a failure on this rank
+        alone leaves the first rank in a collective until the process
+        group's own timeout, and this rank, hearing nothing, takes it as
+        lost. Raises :class:`ReplicaDeadError` when the first rank is lost
+        (the worker's end fails this server)."""
         while True:
             message = self._control.receive()
             if message[0] == "stop":
                 return
             if message[0] == "beat":
                 continue
-            _, rows, kwargs = message
+            _, rows, kwargs, verdict = message
+            self._breaker._adopt(verdict)
             try:
                 self._generate_fn(self.model, rows, **kwargs)
                 self.metrics.bump("batches")
@@ -598,47 +830,115 @@ class InferenceServer:
                 self.metrics.bump("batch_failures")
                 logger.exception("replayed batch failed")
 
-    def _clamp_budget(self, req: _Request) -> None:
-        # the degradation ladder's clamp waits for A10: the whole budget runs
-        req.effective_max_new_tokens = req.max_new_tokens
-        req.degraded = False
+    def _estimated_batch_s(self) -> float:
+        return self._batch_time_ewma
+
+    def _retry_after_hint(self, depth: int) -> float:
+        """The ``retry_after_s`` of :class:`ServerOverloaded`: the estimated
+        time until a queue place frees, from the batch-time EWMA and the
+        depth (static: ``max_batch_size`` requests a batch; continuous: a
+        slot every ``engine_slots``-th of a degraded budget's steps). A cold
+        EWMA falls back to the batch window; clamped to [1 ms, 5 s]."""
+        ewma = self._batch_time_ewma
+        if self._engine is not None:
+            per_free = (ewma or 0.01) * max(1, self.config.degraded_max_new_tokens)
+            per_free /= max(1, self.config.engine_slots)
+        else:
+            waves = (max(1, depth) + self.config.max_batch_size - 1) // max(
+                1, self.config.max_batch_size)
+            per_free = (ewma or self.config.batch_window_s or 0.01) * waves
+        return float(min(5.0, max(1e-3, per_free)))
+
+    def _degrade_level(self, depth: int) -> int:
+        frac = depth / self.config.max_queue
+        if frac >= self.config.degrade_hard_fraction:
+            return 2
+        if frac >= self.config.degrade_queue_fraction:
+            return 1
+        return 0
+
+    def _apply_spec_degradation(self, level: int) -> None:
+        """The continuous ladder's first rung: under queue pressure shrink
+        the speculative draft limit before anyone's budget (level 1 halves
+        it, level 2 stops drafting; the verify program keeps its width, so
+        nothing is recaptured), and restore it when the pressure goes."""
+        eng = self._engine
+        if eng is None or getattr(eng, "spec", None) is None:
+            return
+        full = self.config.spec_draft_len
+        if level >= 2:
+            eng.set_spec_draft_limit(0)
+        elif level == 1:
+            eng.set_spec_draft_limit(max(1, full // 2))
+        else:
+            eng.set_spec_draft_limit(full)
+
+    def _clamp_budget(self, req: _Request, level: int) -> None:
+        budget = req.max_new_tokens
+        if level == 1:
+            budget = min(budget, self.config.degraded_max_new_tokens)
+        elif level == 2:
+            budget = min(budget, max(1, self.config.degraded_max_new_tokens // 2))
+        req.degraded = budget < req.max_new_tokens
+        req.effective_max_new_tokens = budget
 
     def _shed(self, req: _Request, now: float) -> None:
         if resolve_future(req.future, exception=RequestDeadlineExceeded(
                 f"deadline passed {now - req.deadline:.3f}s ago at dequeue (estimated batch "
-                f"time {self._batch_time_ewma:.3f}s); shed instead of wasting a batch slot")):
+                f"time {self._estimated_batch_s():.3f}s); shed instead of wasting a batch slot",
+                replica_id=self.replica_id)):
             self.metrics.bump("shed_deadline")
 
-    def _collect_batch(self) -> list:
+    def _shed_expired(self) -> None:
+        """Drop the queued requests that can no longer make their deadline
+        (while the breaker is open, so their clients hear at once)."""
+        now = self._clock()
+        with self._lock:
+            keep: collections.deque = collections.deque()
+            while self._queue:
+                req = self._queue.popleft()
+                if req.deadline is not None and now + self._estimated_batch_s() > req.deadline:
+                    self._shed(req, now)
+                else:
+                    keep.append(req)
+            self._queue = keep
+            self.metrics.gauge("queue_depth", len(self._queue))
+
+    def _collect_batch(self, probe: bool = False) -> list:
         """Head-of-line batching: shed heads that cannot make their deadline
-        (the estimate is the EWMA of recent batch times), take the first
-        live request, then the compatible requests behind it, waiting up to
-        ``batch_window_s`` for more. An incompatible head ends the batch."""
+        (the estimate is the EWMA of recent batch times), clamp the first
+        live request's budget by the ladder, then take the compatible
+        requests behind it, waiting up to ``batch_window_s`` for more. An
+        incompatible head ends the batch. ``probe`` (a half-open breaker)
+        takes one request."""
         cfg = self.config
+        max_size = 1 if probe else cfg.max_batch_size
         with self._wake:
             first = None
             while self._queue:
                 now = self._clock()
                 req = self._queue.popleft()
-                if req.deadline is not None and now + self._batch_time_ewma > req.deadline:
+                level = self._degrade_level(len(self._queue) + 1)
+                if req.deadline is not None and now + self._estimated_batch_s() > req.deadline:
                     self._shed(req, now)
                     continue
-                self._clamp_budget(req)
+                self._clamp_budget(req, level)
                 first = req
                 break
             if first is None:
+                self.metrics.gauge("queue_depth", len(self._queue))
                 return []
             batch = [first]
             key = first.group_key()
             window_end = self._clock() + cfg.batch_window_s
-            while len(batch) < cfg.max_batch_size and not self._draining:
+            while len(batch) < max_size and not self._draining:
                 if self._queue:
                     now = self._clock()
                     head = self._queue[0]
-                    if head.deadline is not None and now + self._batch_time_ewma > head.deadline:
+                    if head.deadline is not None and now + self._estimated_batch_s() > head.deadline:
                         self._shed(self._queue.popleft(), now)
                         continue
-                    self._clamp_budget(head)
+                    self._clamp_budget(head, self._degrade_level(len(self._queue)))
                     if head.group_key() != key:
                         break  # it heads the next batch
                     batch.append(self._queue.popleft())
@@ -647,6 +947,8 @@ class InferenceServer:
                 if remaining <= 0:
                     break
                 self._wake.wait(timeout=remaining)
+            self.metrics.gauge("queue_depth", len(self._queue))
+        self.metrics.bump("degraded", sum(1 for r in batch if r.degraded))
         return batch
 
     def _bucket_rows(self, n: int) -> int:
@@ -680,7 +982,7 @@ class InferenceServer:
             eos_token_id=first.eos_token_id, pad_token_id=first.pad_token_id, **kv_kwargs,
         )
         if self._control is not None:  # the other ranks run the same call
-            self._control.send(("batch", rows, kwargs))
+            self._control.send(("batch", rows, kwargs, self._breaker._verdict()))
         out = self._generate_fn(self.model, rows, **kwargs)
         # read back here: a transfer error is a batch failure, not the client's
         if isinstance(out, torch.Tensor):
@@ -690,16 +992,21 @@ class InferenceServer:
     def _execute(self, batch: list) -> None:
         """Run one batch, retrying a failure ``max_retries`` times with
         exponential backoff and jitter (a drain cuts the wait and the
-        ladder), then reply to each request with its row."""
+        ladder), each failed attempt counted by the breaker, then reply to
+        each request with its row."""
         cfg = self.config
         attempt = 0
         while True:
             try:
+                # the clock first: an armed serving_before_batch sleep lands
+                # inside the measured window, as a slow batch would
                 t0 = self._clock()
-                fault_point("serving_before_batch")
-                out = self._run_batch(batch)
+                fault_point("serving_before_batch", replica=self.replica_id)
+                with tracing.span("serving.batch", trace_id=batch[0].trace_id,
+                                  batch_size=len(batch), attempt=attempt):
+                    out = self._run_batch(batch)
                 dt = self._clock() - t0
-                fault_point("serving_after_batch")
+                fault_point("serving_after_batch", replica=self.replica_id)
             except BaseException as exc:  # classified below
                 if isinstance(exc, (KeyboardInterrupt, SystemExit)):
                     # the worker is about to die: never leave the batch unresolved
@@ -708,6 +1015,10 @@ class InferenceServer:
                     raise
                 attempt += 1
                 self.metrics.bump("batch_failures")
+                if self._breaker.record_failure():
+                    self.metrics.bump("breaker_opens")
+                    logger.warning("circuit breaker OPEN after %d consecutive batch failures "
+                                   "(last: %s)", cfg.breaker_threshold, exc)
                 if attempt > cfg.max_retries or self._draining:
                     self._fail_batch(batch, exc,
                                      f"batch failed permanently after {attempt} attempt(s)")
@@ -724,26 +1035,33 @@ class InferenceServer:
         # the batch ran: any failure from here fails this batch's futures
         # instead of escaping with them unresolved
         try:
+            self._breaker.record_success()
             self.metrics.bump("batches")
             self._batch_time_ewma = (dt if self._batch_time_ewma == 0.0
                                      else 0.8 * self._batch_time_ewma + 0.2 * dt)
-            fault_point("serving_before_reply")
+            # no baseline program: a measured-only row; dt is the time this
+            # loop measured, the tokens' readback its synchronisation
+            perfwatch.get_watch().record("serving.static/batch", dt)
+            fault_point("serving_before_reply", replica=self.replica_id)
             now = self._clock()
             for i, req in enumerate(batch):
                 if req.deadline is not None and now > req.deadline:
                     if resolve_future(req.future, exception=RequestDeadlineExceeded(
-                            f"batch completed {now - req.deadline:.3f}s past the deadline")):
+                            f"batch completed {now - req.deadline:.3f}s past the deadline",
+                            replica_id=self.replica_id)):
                         self.metrics.bump("completed_late")
                     continue
                 latency = now - req.submitted_at
                 result = ServingResult(
-                    tokens=out[i], latency_s=latency, batch_size=len(batch), ttft_s=latency,
-                    queue_wait_s=max(0.0, latency - dt),
-                    decode_steps=req.effective_max_new_tokens,
+                    tokens=out[i], latency_s=latency, batch_size=len(batch),
+                    degraded=req.degraded, ttft_s=latency, replica_id=self.replica_id,
+                    queue_wait_s=max(0.0, latency - dt), decode_steps=req.effective_max_new_tokens,
                 )
                 if resolve_future(req.future, result=result):
                     self.metrics.bump("completed")
-                    self.metrics.add(latency, latency)
+                    self.metrics.latency.add(latency)
+                    self.metrics.ttft.add(latency)  # the batch materialises at once
+                    self.metrics.queue_wait.add(max(0.0, latency - dt))
         except BaseException as exc:
             self._fail_batch(batch, exc, "batch executed but the reply failed")
             if isinstance(exc, (KeyboardInterrupt, SystemExit)):
@@ -752,81 +1070,127 @@ class InferenceServer:
 
     def _fail_batch(self, batch: list, cause: BaseException, reason: str,
                     err_cls: type = BatchExecutionError) -> None:
-        err = err_cls(f"{reason}: {type(cause).__name__}: {cause}")
+        err = err_cls(f"{reason}: {type(cause).__name__}: {cause}", replica_id=self.replica_id)
         err.__cause__ = cause
         for req in batch:
             resolve_future(req.future, exception=err)
 
     # ------------------------------------------------- continuous batching
     def _loop_continuous(self) -> None:
-        """Each pass: admit into free slots, one engine tick, read back,
-        reply, shed. Draining stops admission but keeps stepping until every
-        in-flight slot retires. Over a mesh each decision goes to the
+        """Each pass: admit into free slots (one, as the probe, when the
+        breaker is half-open; none while it is open), one engine tick, read
+        back, reply, shed. Draining stops admission but keeps stepping until
+        every in-flight slot retires. Over a mesh each decision goes to the
         replaying ranks before it runs (:meth:`_decide`), and a beat after
         each idle ``_BEAT_S``."""
         eng, control = self._engine, self._control
         while True:
             with self._wake:
-                while not self._queue and eng.live_count() == 0 and not self._draining:
+                while (not self._queue and eng.live_count() == 0 and not self._draining
+                       and not preemption_requested() and not self._flush_due()):
                     if control is not None and control.beat_due():
                         break
                     self._wake.wait(timeout=0.05)
-                if self._draining and eng.live_count() == 0:
-                    return  # the finally rejects what is still queued
+                if self._draining or preemption_requested():
+                    self._draining = True
+                    if eng.live_count() == 0:
+                        return  # the finally rejects what is still queued
                 idle = not self._queue and eng.live_count() == 0
-            if idle:  # over a mesh: tell the replaying ranks this rank is alive
-                control.send(("beat",))
+            self._flush_metrics()
+            if idle:
+                self._beat()
                 continue
-            if not self._draining:
-                self._admit_slots()
-            self._decide("tick", (eng.prefill_chunk_limit, eng.spec_draft_limit))
+            st = self._breaker.state()
+            if st == _CircuitBreaker.OPEN:
+                # an engine failure resets the engine, so an open breaker
+                # has no live slots: wait out the probe window
+                if eng.live_count() == 0:
+                    self._wait_for_breaker()
+                    continue
+                self._shed_expired()
+            elif not self._draining:
+                self._admit_slots(probe=(st == _CircuitBreaker.HALF_OPEN))
+            if eng.live_count() > 0:
+                with self._wake:
+                    depth = len(self._queue)
+                self._apply_spec_degradation(self._degrade_level(depth))
+            self._decide("tick", (eng.prefill_chunk_limit, eng.spec_draft_limit,
+                                  self._breaker._verdict()))
             self._engine_tick()
 
     def _decide(self, kind: str, payload) -> None:
         """Over a mesh, send one decision to the replaying ranks before this
         rank runs it (an ``"insert"`` with the request's engine arguments,
-        or a ``"tick"`` with the chunk and spec limits), with the slots this
-        rank's clock cancelled since the last decision, which they cancel
-        first."""
+        or a ``"tick"`` with the chunk and spec limits and the breaker's
+        verdict), with the slots this rank's clock cancelled since the last
+        decision, which they cancel first."""
         if self._control is not None:
             cancels, self._cancelled = self._cancelled, []
             self._control.send((kind, cancels, payload))
 
-    def _admit_slots(self) -> None:
+    def _estimated_completion_s(self, budget: int) -> float:
+        """Continuous mode: the EWMA is a tick's time, so a request's
+        completion estimate scales with its budget."""
+        return self._batch_time_ewma * max(1, budget)
+
+    def _admit_slots(self, probe: bool = False) -> None:
+        """Admit queued requests into free slots, each budget clamped by the
+        ladder; ``probe`` (a half-open breaker) admits at most one."""
         eng = self._engine
-        while eng.free_slots() > 0:
+        limit = 1 if probe else eng.free_slots()
+        admitted = 0
+        while admitted < limit and eng.free_slots() > 0:
             with self._wake:
                 if not self._queue:
                     return
+                now = self._clock()
                 req = self._queue.popleft()
-            now = self._clock()
-            if req.deadline is not None and now > req.deadline:
-                if resolve_future(req.future, exception=RequestDeadlineExceeded(
-                        f"deadline passed {now - req.deadline:.3f}s ago while queued")):
-                    self.metrics.bump("shed_deadline")
+                level = self._degrade_level(len(self._queue) + 1)
+                self.metrics.gauge("queue_depth", len(self._queue))
+            if (req.deadline is not None
+                    and now + self._estimated_completion_s(req.max_new_tokens) > req.deadline):
+                self._shed(req, now)
                 continue
+            # the clamp is this request's slot budget alone: degradation
+            # never touches a slot already decoding
+            self._clamp_budget(req, level)
             # paged KV: a free slot is not enough, the blocks must be free
             # too; requeue at the head and retry after retirements
-            if not eng.can_admit(req.input_ids, req.max_new_tokens):
+            if not eng.can_admit(req.input_ids, req.effective_max_new_tokens):
                 with self._wake:
                     self._queue.appendleft(req)
+                    self.metrics.gauge("queue_depth", len(self._queue))
                 return
+            if req.degraded:
+                self.metrics.bump("degraded")
             self._decide("insert", _engine_args(req))
-            if not self._insert(req):
+            if not self._insert(req, now):
                 return
+            admitted += 1
 
-    def _insert(self, req: _Request) -> bool:
+    def _insert(self, req: _Request, now: float = 0.0) -> bool:
         """Admit ``req`` into a slot; False when the engine failed (its
         requests failed, its state rebuilt)."""
         try:
-            if not self._insert_prefilled(req):
-                self._engine.insert(
-                    req.input_ids, max_new_tokens=req.max_new_tokens,
-                    temperature=req.temperature, top_k=req.top_k, top_p=req.top_p,
-                    eos_token_id=req.eos_token_id, pad_token_id=req.pad_token_id,
-                    seed=req.seed, tag=req,
-                )
-        except Exception as exc:  # the engine failed: fail its requests, rebuild
+            fault_point("serving_before_batch", replica=self.replica_id)
+            with tracing.span("serving.admit", trace_id=req.trace_id,
+                              queue_wait_s=max(0.0, now - req.submitted_at),
+                              degraded=req.degraded) as sp:
+                if self._insert_prefilled(req):
+                    sp.set("path", "insert_prefilled")
+                else:
+                    sp.set("path", "insert")
+                    self._engine.insert(
+                        req.input_ids, max_new_tokens=req.effective_max_new_tokens,
+                        temperature=req.temperature, top_k=req.top_k, top_p=req.top_p,
+                        eos_token_id=req.eos_token_id, pad_token_id=req.pad_token_id,
+                        seed=req.seed, tag=req,
+                    )
+        except BaseException as exc:  # classified below
+            if isinstance(exc, (KeyboardInterrupt, SystemExit)):
+                self._fail_batch([req], exc, "worker interrupted mid-insert",
+                                 err_cls=ReplicaDeadError)
+                raise
             self._engine_failure(exc, also_fail=req)
             return False
         self.metrics.bump("engine_inserts")
@@ -834,16 +1198,16 @@ class InferenceServer:
 
     def _insert_prefilled(self, req: _Request) -> bool:
         """Commit ``req``'s prefill when the engine takes it and its budget
-        covers the request's; True when it did. A transfer error (the
-        reservation went stale since the check) counts a fallback; a
-        reservation still held is released, so the slot does not wait for
-        its TTL."""
+        covers the request's clamped one; True when it did. A transfer
+        error (the reservation went stale since the check) counts a
+        fallback; a reservation still held is released, so the slot does
+        not wait for its TTL."""
         pre, eng = req.prefill, self._engine
         if pre is None:
             return False
-        if req.max_new_tokens <= pre.max_new_tokens and eng.accepts_prefill(pre):
+        if req.effective_max_new_tokens <= pre.max_new_tokens and eng.accepts_prefill(pre):
             try:
-                eng.insert_prefilled(pre, max_new_tokens=req.max_new_tokens, tag=req)
+                eng.insert_prefilled(pre, max_new_tokens=req.effective_max_new_tokens, tag=req)
                 return True
             except KVTransferError:
                 self.metrics.bump("prefill_commit_fallbacks")
@@ -854,14 +1218,15 @@ class InferenceServer:
     def _loop_replay_continuous(self) -> None:
         """A rank other than the mesh's first in continuous mode: apply each
         decision the first rank sends, in order, until its stop: its
-        cancels, then the admission (a request without a deadline) or the
-        tick (the limits, then :meth:`_engine_tick`). An engine failure here
-        is the first rank's too (the same calls over the same collectives),
-        which rebuilds its engine as this one does; a failure on this rank
-        alone leaves the first rank inside a collective until the process
-        group's own timeout, and this rank, hearing nothing, takes it as
-        lost. Raises :class:`ReplicaDeadError` when the first rank is
-        lost."""
+        cancels, then the admission (a request without a deadline, with the
+        first rank's clamped budget) or the tick (the limits and the
+        breaker's verdict, then :meth:`_engine_tick`). An engine failure
+        here is the first rank's too (the same calls over the same
+        collectives), which rebuilds its engine as this one does; a failure
+        on this rank alone leaves the first rank inside a collective until
+        the process group's own timeout, and this rank, hearing nothing,
+        takes it as lost. Raises :class:`ReplicaDeadError` when the first
+        rank is lost."""
         eng = self._engine
         while True:
             message = self._control.receive()
@@ -879,26 +1244,43 @@ class InferenceServer:
                 self._insert(_Request(input_ids=ids, max_new_tokens=budget, deadline=None,
                                       temperature=temp, top_k=top_k, top_p=top_p,
                                       eos_token_id=eos, pad_token_id=pad, seed=seed,
-                                      submitted_at=0.0))
+                                      submitted_at=0.0, effective_max_new_tokens=budget))
             else:
                 eng.set_prefill_chunk_limit(payload[0])
                 eng.set_spec_draft_limit(payload[1])
+                self._breaker._adopt(payload[2])
                 self._engine_tick()
 
     def _engine_tick(self) -> None:
+        """One engine step (pending chunks, then a decode or verify step),
+        the ring's readback, the retirements' replies and the mid-decode
+        deadline shed."""
         eng = self._engine
         if eng.live_count() == 0:
+            # nothing decoding: read back what the ring still holds
             self._reply_retired(eng.poll(force=True))
             return
         try:
+            t0 = self._clock()
             eng.step()
             retired = eng.poll()
-        except Exception as exc:
+            dt = self._clock() - t0
+            fault_point("serving_after_batch", replica=self.replica_id)
+        except BaseException as exc:  # classified below
+            if isinstance(exc, (KeyboardInterrupt, SystemExit)):
+                self._fail_batch([o.tag for o in eng.reset()], exc, "worker interrupted mid-step",
+                                 err_cls=ReplicaDeadError)
+                raise
             self._engine_failure(exc)
             return
         self.metrics.bump("engine_steps")
+        self._sync_kv_gauges()
+        if not self._replaying:
+            self._breaker.record_success()
+        self._batch_time_ewma = (dt if self._batch_time_ewma == 0.0
+                                 else 0.8 * self._batch_time_ewma + 0.2 * dt)
         self._reply_retired(retired)
-        if self._control is not None and not self._control.is_leader:
+        if self._replaying:
             return  # the first rank's clock cancels, sent with its next decision
         now = self._clock()
         for occ in eng.occupants():
@@ -909,55 +1291,129 @@ class InferenceServer:
                     self._cancelled.append(occ.slot)
                 self.metrics.bump("engine_retired")
                 if resolve_future(req.future, exception=RequestDeadlineExceeded(
-                        f"deadline passed {now - req.deadline:.3f}s ago mid-decode")):
+                        f"deadline passed {now - req.deadline:.3f}s ago mid-decode; slot freed",
+                        replica_id=self.replica_id)):
                     self.metrics.bump("shed_deadline")
 
     def _reply_retired(self, retired: list) -> None:
+        """Resolve the futures of the occupants the ring just retired. The
+        tokens exist, so a failure here fails these requests instead of
+        stranding them."""
         if not retired:
             return
-        now = self._clock()
-        occupancy = self._engine.live_count() + len(retired)
-        for occ in retired:
-            req = occ.tag
-            self.metrics.bump("engine_retired")
-            if req.deadline is not None and now > req.deadline:
-                if resolve_future(req.future, exception=RequestDeadlineExceeded(
-                        f"decode finished {now - req.deadline:.3f}s past the deadline")):
-                    self.metrics.bump("completed_late")
-                continue
-            latency = now - req.submitted_at
-            ttft = (occ.first_token_s - req.submitted_at) if occ.first_token_s is not None else latency
-            result = ServingResult(
-                tokens=occ.output_row(), latency_s=latency, batch_size=occupancy,
-                ttft_s=max(0.0, ttft), queue_wait_s=max(0.0, occ.inserted_s - req.submitted_at),
-                prefill_s=(max(0.0, occ.first_token_s - occ.inserted_s)
-                           if occ.first_token_s is not None else None),
-                decode_steps=occ.decode_steps,
-            )
-            if resolve_future(req.future, result=result):
-                self.metrics.bump("completed")
-                self.metrics.add(latency, max(0.0, ttft))
+        reqs = [occ.tag for occ in retired]
+        try:
+            fault_point("serving_before_reply", replica=self.replica_id)
+            now = self._clock()
+            occupancy = self._engine.live_count() + len(retired)
+            for occ in retired:
+                req = occ.tag
+                self.metrics.bump("engine_retired")
+                if req.deadline is not None and now > req.deadline:
+                    if resolve_future(req.future, exception=RequestDeadlineExceeded(
+                            f"decode finished {now - req.deadline:.3f}s past the deadline",
+                            replica_id=self.replica_id)):
+                        self.metrics.bump("completed_late")
+                    continue
+                latency = now - req.submitted_at
+                ttft = ((occ.first_token_s - req.submitted_at) if occ.first_token_s is not None
+                        else latency)
+                queued = max(0.0, occ.inserted_s - req.submitted_at)
+                result = ServingResult(
+                    tokens=occ.output_row(), latency_s=latency, batch_size=occupancy,
+                    degraded=req.degraded, ttft_s=max(0.0, ttft), replica_id=self.replica_id,
+                    queue_wait_s=queued,
+                    prefill_s=(max(0.0, occ.first_token_s - occ.inserted_s)
+                               if occ.first_token_s is not None else None),
+                    decode_steps=occ.decode_steps,
+                )
+                if resolve_future(req.future, result=result):
+                    self.metrics.bump("completed")
+                    self.metrics.latency.add(latency)
+                    self.metrics.ttft.add(max(0.0, ttft))
+                    self.metrics.queue_wait.add(queued)
+        except BaseException as exc:  # never strand a retiree
+            self._fail_batch(reqs, exc, "decode finished but the reply failed")
+            if isinstance(exc, (KeyboardInterrupt, SystemExit)):
+                raise
+            logger.exception("continuous reply epilogue failed; the retired slots' futures "
+                             "were failed")
+
+    def _sync_kv_gauges(self) -> None:
+        """Publish the engine's KV health (pool bytes, token utilisation,
+        prefix hit rate, the host tier's traffic) and speculative acceptance
+        as serving gauges, with the whole ``engine.stats()`` tree folded in
+        under ``serving/engine/...``."""
+        stats = self._engine.stats()
+        self.metrics.registry.ingest(stats, prefix="engine")
+        kv = stats.get("kv")
+        if kv:
+            self.metrics.gauge("kv_hbm_bytes", kv.get("hbm_bytes", 0))
+            self.metrics.gauge("kv_utilization", kv.get("utilization", 0.0))
+            hits = kv.get("prefix_hits", 0)
+            misses = kv.get("prefix_misses", 0)
+            if hits + misses:
+                self.metrics.gauge("prefix_hit_rate", hits / (hits + misses))
+            if "host_tier_bytes" in kv:
+                self.metrics.gauge("kv_host_tier_bytes", kv["host_tier_bytes"])
+                self.metrics.gauge("kv_host_tier_blocks", kv.get("host_tier_blocks", 0))
+                self.metrics.gauge("kv_restore_hits", kv.get("restore_hits", 0))
+                self.metrics.gauge("kv_restore_bytes", kv.get("restore_bytes", 0))
+                self.metrics.gauge("kv_spill_bytes", kv.get("spill_bytes", 0))
+        if "prefill_chunks_pending" in stats:
+            self.metrics.gauge("prefill_chunks_pending", stats["prefill_chunks_pending"])
+        spec = stats.get("spec")
+        if spec and spec.get("mode") != "off":
+            self.metrics.gauge("spec_acceptance_rate", spec.get("acceptance_rate", 0.0))
+            self.metrics.gauge("spec_tokens_per_step", spec.get("tokens_per_step", 0.0))
 
     def _engine_failure(self, exc: BaseException, also_fail=None) -> None:
         """An engine program raised: its in-flight state cannot be trusted,
-        so fail every request it held and rebuild the engine state."""
+        so fail every request it held, rebuild the engine state, and let the
+        breaker gate admission (over a mesh, the first rank's breaker)."""
         self.metrics.bump("batch_failures")
+        if not self._replaying and self._breaker.record_failure():
+            self.metrics.bump("breaker_opens")
+            logger.warning("circuit breaker OPEN after %d consecutive engine failures (last: %s)",
+                           self.config.breaker_threshold, exc)
         victims = [o.tag for o in self._engine.reset()]
         if also_fail is not None:
             victims.append(also_fail)
-        for req in victims:
-            err = BatchExecutionError(
-                f"engine program failed ({type(exc).__name__}: {exc}); "
-                f"{len(victims)} in-flight request(s) lost"
-            )
-            err.__cause__ = exc
-            resolve_future(req.future, exception=err)
-        logger.warning("engine failure reset the KV store: %s: %s", type(exc).__name__, exc)
+        if victims:
+            self._fail_batch(victims, exc,
+                             f"engine program failed; {len(victims)} in-flight request(s) lost")
+        logger.warning("engine failure reset the KV store (%d in-flight request(s) failed): %s: %s",
+                       len(victims), type(exc).__name__, exc)
 
     def _reject_queued(self) -> None:
         with self._lock:
             queued, self._queue = list(self._queue), collections.deque()
+            self.metrics.gauge("queue_depth", 0)
         for req in queued:
             if resolve_future(req.future, exception=ServerDrainingError(
-                    self._drain_reason(), retry_after_s=0.0)):
+                    self._drain_reason(), replica_id=self.replica_id, retry_after_s=0.0)):
                 self.metrics.bump("rejected_draining")
+
+    # -------------------------------------------------------------- metrics
+    def _flush_due(self) -> bool:
+        return bool(self.trackers) and self.metrics.registry.due(self.config.metrics_interval_s)
+
+    def _flush_metrics(self, force: bool = False) -> None:
+        """The periodic tracker flush (the registry keeps the cadence and
+        the ``log_batch`` bridge), always with the server lock released."""
+        if not self.trackers:
+            return
+        reg = self.metrics.registry
+        if force or reg.due(self.config.metrics_interval_s):
+            self.metrics.gauge("breaker_state", self._breaker.state())
+            reg.flush(self.trackers)
+
+    def log_metrics(self, step: Optional[int] = None, trackers: Optional[Sequence] = None):
+        """Push one metrics snapshot through ``GeneralTracker.log_batch``
+        (beside the periodic flush); returns the snapshot."""
+        self.metrics.gauge("breaker_state", self._breaker.state())
+        snapshot = self.metrics.snapshot()
+        for tracker in trackers if trackers is not None else self.trackers:
+            tracker.log_batch([(snapshot, step, {})])
+        return snapshot
+

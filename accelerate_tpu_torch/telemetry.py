@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from . import tracing
 from .logging import get_logger
 
 logger = get_logger(__name__)
@@ -295,6 +296,11 @@ class AsyncTrackerFlusher:
                 return
 
     def _write(self, entries):
+        with tracing.span("telemetry.flush_drain", batches=len(entries),
+                          trackers=len(self.trackers)):
+            self._write_entries(entries)
+
+    def _write_entries(self, entries):
         materialized = []
         for values, step, log_kwargs in entries:
             try:

@@ -2,7 +2,7 @@
 # The four-card runs of the PyTorch port, from the repository root on a
 # host with four cards (one process a card, NCCL):
 #
-#   bash accelerate_tpu_torch/test_utils/scripts/four_card_runs.sh [sanity|full|shallow|all|supervise|serve|fp8|disagg]
+#   bash accelerate_tpu_torch/test_utils/scripts/four_card_runs.sh [sanity|full|shallow|all|supervise|serve|fp8|disagg|fleet]
 #
 # sanity:  the sanity script (test_script.py) under --tp_size 4 and under
 #          --tp_size 2 --dp_shard_size 2
@@ -37,6 +37,12 @@
 #          process on cuda:1 and shipped over TCPTransport (loopback) to the
 #          continuous server on cuda:0; tokens bitwise the one-card run's
 #          (chiprun_out/disagg_timing.json)
+# fleet (not part of all): fleet_timing.py, one continuous server a card
+#          (phase 4's server and kind of mix, 64 requests, each card its own
+#          copy of the 32-layer model) behind one FleetRouter: the mix on
+#          cuda:0 alone, through the fleet (tokens bitwise), and with r0's
+#          worker killed mid-decode (every request finished on the others,
+#          bitwise) (chiprun_out/fleet_timing.json)
 # Each timing run writes chiprun_out/train_timing_<layout>_<layers>l.json
 # (fp8: train_timing_<layout>_32l_fp8.json)
 # (serve: serve_timing_<layout>_32l.json and
@@ -78,6 +84,9 @@ if [[ $what == serve ]]; then
   "${launch[@]}" --tp_size 2 --dp_shard_size 2 "$serve" --layers 32
   "${launch[@]}" --tp_size 4 "$serve" --layers 32 --mode continuous
   "${launch[@]}" --tp_size 2 --dp_shard_size 2 "$serve" --layers 32 --mode continuous
+fi
+if [[ $what == fleet ]]; then
+  python -m accelerate_tpu_torch.test_utils.scripts.fleet_timing --layers 32
 fi
 if [[ $what == disagg ]]; then
   python -m accelerate_tpu_torch.test_utils.scripts.disagg_timing --layers 32

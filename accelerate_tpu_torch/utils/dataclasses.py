@@ -15,10 +15,12 @@ static mode's batching and retry knobs; the continuous slot engine over a
 KV backend (dense, paged or the int8 paged pool), with speculative
 decoding and chunked prefill; the admission knobs the server reads (queue
 bound, default budget and deadline, drain timeout), and JAX's validation.
-``ServingConfig`` takes every field of the JAX one; the knobs of what is
-still to be ported (the host KV tier, the circuit breaker, the
-degradation ladder and periodic metrics) raise at a value other than
-their default, naming their ROADMAP.md item.
+``ServingConfig`` takes every field of the JAX one, the circuit breaker,
+the degradation ladder and the periodic tracker flush among them. The
+serving control plane's other knobs: ``TracingConfig`` (the span tracer
+and flight recorder, ``tracing.py``), ``ObservabilityConfig`` (the perf
+observatory and metrics exporter, ``perfwatch.py``) and ``FleetConfig``
+(the multi-replica router, ``fleet.py``).
 """
 
 from __future__ import annotations
@@ -33,15 +35,18 @@ __all__ = [
     "DataLoaderConfiguration",
     "DistributedDataParallelKwargs",
     "FSDPPlugin",
+    "FleetConfig",
     "GradScalerKwargs",
     "GradientAccumulationPlugin",
     "KwargsHandler",
     "MixedPrecisionPolicy",
+    "ObservabilityConfig",
     "PipelineParallelConfig",
     "ProjectConfiguration",
     "ReplicationConfig",
     "ServingConfig",
     "TensorParallelConfig",
+    "TracingConfig",
     "TrainingHealthConfig",
 ]
 
@@ -378,11 +383,102 @@ class ReplicationConfig(KwargsHandler):
             raise ValueError("keep must be None or a positive integer")
 
 
-# the ServingConfig fields of what is not ported yet, by ROADMAP.md item:
-# the circuit breaker, the degradation ladder and periodic metrics (A10)
-QUEUED_SERVING_FIELDS = dict.fromkeys(
-    ("breaker_threshold", "breaker_reset_s", "degrade_queue_fraction", "degrade_hard_fraction",
-     "degraded_max_new_tokens", "metrics_interval_s"), "A10")
+@dataclass
+class TracingConfig(KwargsHandler):
+    """Knobs of the span tracer and flight recorder
+    (:mod:`accelerate_tpu_torch.tracing`).
+
+    * ``enabled``: the switch. The default tracer reads
+      ``ACCELERATE_TRACING`` (anything but ``0``/``false``/``off``/``no``
+      keeps it on); a config given to ``tracing.configure`` wins. A
+      disabled span costs one attribute check.
+    * ``ring_capacity``: spans kept per thread; an overflow drops the
+      oldest and counts it (``dropped_spans``).
+    * ``retain_s``: a dump holds the spans that ended in the last
+      ``retain_s`` seconds.
+    * ``decode_sample_every``: the engine opens an ``engine.decode_step``
+      span every N steps.
+    * ``dump_dir``/``max_dumps``: where dumps land and how many one
+      process may write.
+    * ``dump_on_failure``: dump on typed failures (worker death,
+      ``FailoverExhaustedError``, checkpoint rollback). SIGUSR1 dumps are
+      installed apart, by ``tracing.install_signal_handlers``.
+    """
+
+    enabled: bool = True
+    ring_capacity: int = 2048
+    retain_s: float = 30.0
+    decode_sample_every: int = 16
+    dump_dir: str = "runs"
+    max_dumps: int = 8
+    dump_on_failure: bool = True
+
+    def __post_init__(self):
+        if self.ring_capacity < 16:
+            raise ValueError(f"ring_capacity must be >= 16, got {self.ring_capacity}")
+        if self.retain_s <= 0:
+            raise ValueError(f"retain_s must be > 0, got {self.retain_s}")
+        if self.decode_sample_every < 1:
+            raise ValueError(
+                f"decode_sample_every must be >= 1, got {self.decode_sample_every}")
+        if self.max_dumps < 0:
+            raise ValueError(f"max_dumps must be >= 0, got {self.max_dumps}")
+
+
+@dataclass
+class ObservabilityConfig(KwargsHandler):
+    """Knobs of the perf observatory (:mod:`accelerate_tpu_torch.perfwatch`).
+
+    * ``enabled``: program timers on (the default watch reads
+      ``ACCELERATE_PERFWATCH``; ``0``/``false``/``off``/``no`` turns it
+      off). A disabled record is one attribute check.
+    * ``ewma_alpha``: the newest sample's weight in a program's EWMA.
+    * ``window``: the samples a program's percentiles are taken over.
+    * ``baseline_path``: a JSON file of per-program predictions (``chip``,
+      ``tolerance``, ``programs``). The port's one divergence from the JAX
+      default (``runs/perf_baseline.json``): ``None``, measured-only mode.
+      That file holds a TPU's predictions (``chip: "v5p"``), which must
+      never be set against a card's times; a baseline whose ``chip`` is not
+      in ``perfwatch.CHIPS`` is refused.
+    * ``drift_enabled``: arm the drift sentinel (off by default).
+    * ``drift_tolerance``: overrides the baseline's ``tolerance``.
+    * ``drift_min_samples``: samples before a program's median is compared.
+    * ``drift_consecutive``: evaluations in a row outside the band before
+      the sentinel files a finding.
+    * ``drift_interval_s``: the least time between two evaluations.
+    * ``exporter_port``: serve ``/metrics`` (Prometheus text) and
+      ``/snapshot.json`` there; 0 (the default) starts no thread, and
+      ``ACCELERATE_METRICS_PORT`` seeds the port.
+    * ``exporter_host``: the exporter's address (loopback by default).
+    """
+
+    enabled: bool = True
+    ewma_alpha: float = 0.2
+    window: int = 512
+    baseline_path: Optional[str] = None
+    drift_enabled: bool = False
+    drift_tolerance: Optional[float] = None
+    drift_min_samples: int = 8
+    drift_consecutive: int = 2
+    drift_interval_s: float = 1.0
+    exporter_port: int = 0
+    exporter_host: str = "127.0.0.1"
+
+    def __post_init__(self):
+        if not 0.0 < self.ewma_alpha <= 1.0:
+            raise ValueError(f"ewma_alpha must be in (0, 1], got {self.ewma_alpha}")
+        if self.window < 1:
+            raise ValueError(f"window must be >= 1, got {self.window}")
+        if self.drift_tolerance is not None and self.drift_tolerance <= 0:
+            raise ValueError(f"drift_tolerance must be > 0, got {self.drift_tolerance}")
+        if self.drift_min_samples < 1:
+            raise ValueError(f"drift_min_samples must be >= 1, got {self.drift_min_samples}")
+        if self.drift_consecutive < 1:
+            raise ValueError(f"drift_consecutive must be >= 1, got {self.drift_consecutive}")
+        if self.drift_interval_s < 0:
+            raise ValueError(f"drift_interval_s must be >= 0, got {self.drift_interval_s}")
+        if not 0 <= self.exporter_port <= 65535:
+            raise ValueError(f"exporter_port must be in [0, 65535], got {self.exporter_port}")
 
 
 @dataclass
@@ -428,8 +524,19 @@ class ServingConfig:
       paged pool's cached blocks: evicted prefix blocks spill there and a
       chunked admission of their prefix restores them. ``kv_prefetch``
       starts a request's host-tier copies to the card at submit.
-    * The JAX package's other fields are accepted at their default and
-      raise otherwise (``QUEUED_SERVING_FIELDS`` names each one's item).
+    * Retry and circuit breaker: ``breaker_threshold`` consecutive failed
+      batch attempts (continuous: engine failures) open the breaker;
+      ``submit`` then raises :class:`~accelerate_tpu_torch.utils.fault
+      .CircuitOpenError` until ``breaker_reset_s`` has passed, and one
+      half-open probe (a batch of one, one admission) closes it again or
+      reopens it.
+    * Degradation ladder, before anything is shed: with the queue at
+      ``degrade_queue_fraction`` of ``max_queue`` new budgets are clamped
+      to ``degraded_max_new_tokens``, at ``degrade_hard_fraction`` to half
+      that (``ServingResult.degraded``); in continuous mode the first rung
+      halves the speculative draft limit, the second stops drafting.
+    * ``metrics_interval_s``: with trackers attached, a metrics snapshot
+      goes to their ``log_batch`` at most this often (and once at drain).
     """
 
     mode: str = "static"
@@ -466,12 +573,6 @@ class ServingConfig:
     metrics_interval_s: Optional[float] = None
 
     def __post_init__(self):
-        for name, item in QUEUED_SERVING_FIELDS.items():
-            default = type(self).__dataclass_fields__[name].default
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"ServingConfig({name}={getattr(self, name)!r}): not ported yet "
-                    f"(ROADMAP.md {item}); leave it at {default!r}")
         if self.mode not in ("static", "continuous"):
             raise ValueError(f"mode must be 'static' or 'continuous', got {self.mode!r}")
         if self.engine_slots < 1:
@@ -570,9 +671,224 @@ class ServingConfig:
             )
         if not 0 <= self.retry_jitter <= 1:
             raise ValueError(f"retry_jitter must be in [0, 1], got {self.retry_jitter}")
+        if self.breaker_threshold < 1:
+            raise ValueError(f"breaker_threshold must be >= 1, got {self.breaker_threshold}")
+        if self.breaker_reset_s <= 0:
+            raise ValueError(f"breaker_reset_s must be > 0, got {self.breaker_reset_s}")
+        if not 0 < self.degrade_queue_fraction <= 1:
+            raise ValueError(
+                f"degrade_queue_fraction must be in (0, 1], got {self.degrade_queue_fraction}")
+        if not self.degrade_queue_fraction <= self.degrade_hard_fraction <= 1:
+            raise ValueError(
+                "degrade_hard_fraction must be in [degrade_queue_fraction, 1], got "
+                f"{self.degrade_hard_fraction}")
+        if self.degraded_max_new_tokens < 1:
+            raise ValueError(
+                f"degraded_max_new_tokens must be >= 1, got {self.degraded_max_new_tokens}")
         if self.default_max_new_tokens < 1:
             raise ValueError(
                 f"default_max_new_tokens must be >= 1, got {self.default_max_new_tokens}"
             )
         if self.drain_timeout_s < 0:
             raise ValueError(f"drain_timeout_s must be >= 0, got {self.drain_timeout_s}")
+
+
+@dataclass
+class FleetConfig(KwargsHandler):
+    """Knobs of :class:`accelerate_tpu_torch.fleet.FleetRouter`. Failover
+    and hedging are bounded: an outage lowers goodput, never multiplies
+    the work.
+
+    * Placement: ``"least_loaded"`` scores each routable replica by its
+      queued and in-flight work times its batch-time EWMA and takes the
+      least; ``"round_robin"`` ignores load. Draining, dead and
+      breaker-open replicas are never candidates. With ``kv_affinity`` a
+      replica whose gossiped prefix digest holds the request's prefix has
+      its score multiplied by ``kv_affinity_weight``.
+    * Health: a prober reads every replica's ``health()`` each
+      ``probe_interval_s``, each read bounded by ``probe_timeout_s``; the
+      router's per-replica breakers open after ``breaker_threshold``
+      failures and re-probe after ``breaker_reset_s``. ``auto_respawn`` with
+      a ``replica_factory`` relaunches a dead replica after
+      ``respawn_backoff_s``.
+    * Failover: a request that fails with a ``retriable`` typed error is
+      resubmitted to a survivor, at most ``max_failovers`` times, each
+      unplanned one spending a token of the fleet's retry budget
+      (``retry_budget_capacity`` tokens refilled at
+      ``retry_budget_refill_per_s``); a planned drain (scale-down) spends
+      none.
+    * Hedging: with ``hedge_deadline_fraction`` a request whose remaining
+      deadline is below that fraction of its estimated completion goes to
+      a second replica too (first result wins), one token each.
+    * Brown-out: a replica whose probe-latency EWMA crosses
+      ``brownout_probe_ewma_s``, whose perfwatch ratio crosses
+      ``brownout_residual_ratio`` times its peers' median, or whose probe
+      hangs is deprioritised (``brownout_placement_penalty``), its
+      in-flight requests hedged (``hedge_brownout``), and after
+      ``brownout_drain_after_s`` a :class:`~accelerate_tpu_torch.utils
+      .fault.ReplicaBrownoutError` is filed with perfwatch; it clears below
+      ``brownout_clear_fraction`` of the threshold.
+    * Disaggregated prefill: ``disaggregate_prefill`` runs each
+      continuous-mode request's prompt forward on one of
+      ``prefill_workers`` threads (``prefill_remote``) and commits it on
+      the replica (``submit(prefilled=)``); ``kv_transfer`` ships it over a
+      transport (``"inproc"`` or ``"tcp"``, ``kvtransfer.py``) with the
+      ``kv_transfer_*`` knobs, each retry spending a budget token.
+      ``replicate_hot_prefixes`` copies each replica's N hottest host-tier
+      prefix blocks to its siblings' tiers every probe pass.
+    * ``metrics_interval_s``: the router's trackers get a snapshot at most
+      this often.
+    """
+
+    placement: str = "least_loaded"
+    probe_interval_s: float = 0.25
+    breaker_threshold: int = 3
+    breaker_reset_s: float = 2.0
+    max_failovers: int = 3
+    retry_budget_capacity: int = 64
+    retry_budget_refill_per_s: float = 16.0
+    hedge_deadline_fraction: Optional[float] = None
+    disaggregate_prefill: bool = False
+    prefill_workers: int = 2
+    # wire-capable KV transfer + affinity routing (docstring section above)
+    kv_transfer: Optional[str] = None
+    kv_transfer_chunk_bytes: int = 65536
+    kv_transfer_chunk_deadline_s: float = 2.0
+    kv_transfer_retries: int = 2
+    kv_transfer_backoff_s: float = 0.05
+    kv_affinity: bool = True
+    kv_affinity_weight: float = 0.5
+    replicate_hot_prefixes: int = 0
+    auto_respawn: bool = False
+    respawn_backoff_s: float = 0.5
+    # gray-failure / brown-out quarantine (docstring section above)
+    probe_timeout_s: float = 0.5
+    brownout_probe_ewma_s: float = 0.05
+    brownout_residual_ratio: float = 2.0
+    brownout_clear_fraction: float = 0.5
+    brownout_drain_after_s: float = 5.0
+    brownout_placement_penalty: float = 4.0
+    hedge_brownout: bool = True
+    drain_timeout_s: float = 30.0
+    default_deadline_s: Optional[float] = None
+    # push a fleet metrics snapshot to the router's trackers at most this
+    # often (seconds; None disables) — same MetricsRegistry flush cadence
+    # the serving layer uses for ServingConfig.metrics_interval_s
+    metrics_interval_s: Optional[float] = None
+
+    def __post_init__(self):
+        if self.placement not in ("least_loaded", "round_robin"):
+            raise ValueError(
+                "placement must be 'least_loaded' or 'round_robin', got "
+                f"{self.placement!r}"
+            )
+        if self.probe_interval_s <= 0:
+            raise ValueError(
+                f"probe_interval_s must be > 0, got {self.probe_interval_s}"
+            )
+        if self.breaker_threshold < 1:
+            raise ValueError(
+                f"breaker_threshold must be >= 1, got {self.breaker_threshold}"
+            )
+        if self.breaker_reset_s <= 0:
+            raise ValueError(
+                f"breaker_reset_s must be > 0, got {self.breaker_reset_s}"
+            )
+        if self.max_failovers < 0:
+            raise ValueError(
+                f"max_failovers must be >= 0, got {self.max_failovers}"
+            )
+        if self.retry_budget_capacity < 0:
+            raise ValueError(
+                "retry_budget_capacity must be >= 0, got "
+                f"{self.retry_budget_capacity}"
+            )
+        if self.retry_budget_refill_per_s < 0:
+            raise ValueError(
+                "retry_budget_refill_per_s must be >= 0, got "
+                f"{self.retry_budget_refill_per_s}"
+            )
+        if self.hedge_deadline_fraction is not None and not (
+            0 < self.hedge_deadline_fraction
+        ):
+            raise ValueError(
+                "hedge_deadline_fraction must be None or > 0, got "
+                f"{self.hedge_deadline_fraction}"
+            )
+        if self.prefill_workers < 1:
+            raise ValueError(
+                f"prefill_workers must be >= 1, got {self.prefill_workers}"
+            )
+        if self.respawn_backoff_s < 0:
+            raise ValueError(
+                f"respawn_backoff_s must be >= 0, got {self.respawn_backoff_s}"
+            )
+        if self.probe_timeout_s <= 0:
+            raise ValueError(
+                f"probe_timeout_s must be > 0, got {self.probe_timeout_s}"
+            )
+        if self.brownout_probe_ewma_s <= 0:
+            raise ValueError(
+                "brownout_probe_ewma_s must be > 0, got "
+                f"{self.brownout_probe_ewma_s}"
+            )
+        if self.brownout_residual_ratio <= 1:
+            raise ValueError(
+                "brownout_residual_ratio must be > 1, got "
+                f"{self.brownout_residual_ratio}"
+            )
+        if not (0 < self.brownout_clear_fraction < 1):
+            raise ValueError(
+                "brownout_clear_fraction must be in (0, 1), got "
+                f"{self.brownout_clear_fraction}"
+            )
+        if self.brownout_drain_after_s < 0:
+            raise ValueError(
+                "brownout_drain_after_s must be >= 0, got "
+                f"{self.brownout_drain_after_s}"
+            )
+        if self.brownout_placement_penalty < 1:
+            raise ValueError(
+                "brownout_placement_penalty must be >= 1, got "
+                f"{self.brownout_placement_penalty}"
+            )
+        if self.drain_timeout_s < 0:
+            raise ValueError(
+                f"drain_timeout_s must be >= 0, got {self.drain_timeout_s}"
+            )
+        if self.kv_transfer not in (None, "inproc", "tcp"):
+            raise ValueError(
+                "kv_transfer must be None, 'inproc', or 'tcp', got "
+                f"{self.kv_transfer!r}"
+            )
+        if self.kv_transfer_chunk_bytes < 1:
+            raise ValueError(
+                "kv_transfer_chunk_bytes must be >= 1, got "
+                f"{self.kv_transfer_chunk_bytes}"
+            )
+        if self.kv_transfer_chunk_deadline_s <= 0:
+            raise ValueError(
+                "kv_transfer_chunk_deadline_s must be > 0, got "
+                f"{self.kv_transfer_chunk_deadline_s}"
+            )
+        if self.kv_transfer_retries < 0:
+            raise ValueError(
+                "kv_transfer_retries must be >= 0, got "
+                f"{self.kv_transfer_retries}"
+            )
+        if self.kv_transfer_backoff_s < 0:
+            raise ValueError(
+                "kv_transfer_backoff_s must be >= 0, got "
+                f"{self.kv_transfer_backoff_s}"
+            )
+        if not (0 < self.kv_affinity_weight <= 1):
+            raise ValueError(
+                "kv_affinity_weight must be in (0, 1] (a score multiplier "
+                f"— lower favors affinity harder), got "
+                f"{self.kv_affinity_weight}"
+            )
+        if self.replicate_hot_prefixes < 0:
+            raise ValueError(
+                "replicate_hot_prefixes must be >= 0, got "
+                f"{self.replicate_hot_prefixes}"
+            )

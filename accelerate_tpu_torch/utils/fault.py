@@ -23,9 +23,11 @@ never imports the JAX package.
 * The KV transfer errors of disaggregated prefill (``kvtransfer.py``):
   :class:`KVTransferError` and its three kinds, each ``retriable`` (the
   decode side can always recompute the prompt forward itself).
-
-The serving faults of the fleet layer wait for the serving control plane
-(ROADMAP.md A10).
+* The serving control plane's and the fleet's: :class:`CircuitOpenError`
+  (the server's breaker is open), :class:`NoHealthyReplicaError` and
+  :class:`FailoverExhaustedError` (``fleet.py``), and the findings of the
+  perf observatory (``perfwatch.py``): :class:`PerfDriftError` and its
+  fleet kind :class:`ReplicaBrownoutError`.
 """
 
 from __future__ import annotations
@@ -72,10 +74,15 @@ __all__ = [
     "ServingError",
     "ServerOverloaded",
     "RequestDeadlineExceeded",
+    "CircuitOpenError",
     "ServerDrainingError",
     "BatchExecutionError",
     "ReplicaDeadError",
+    "NoHealthyReplicaError",
+    "FailoverExhaustedError",
     "EngineCapacityError",
+    "PerfDriftError",
+    "ReplicaBrownoutError",
     "EngineInvariantError",
     "KVTransferError",
     "TransferAbortedError",
@@ -181,6 +188,14 @@ class RequestDeadlineExceeded(ServingError):
     retriable = False
 
 
+class CircuitOpenError(ServingError):
+    """The server's circuit breaker is open after consecutive failed batch
+    attempts: it fails fast instead of queueing onto a broken backend.
+    Resubmit after the breaker's reset window (``retry_after_s``)."""
+
+    retriable = True
+
+
 class ServerDrainingError(ServingError):
     """The server is draining or closed; queued requests are rejected."""
 
@@ -197,6 +212,24 @@ class BatchExecutionError(ServingError):
 class ReplicaDeadError(BatchExecutionError):
     """The serving worker died with this request still in a slot. The
     request itself is fine, so it may be retried elsewhere."""
+
+    retriable = True
+
+
+class NoHealthyReplicaError(ServingError):
+    """The fleet router found no replica able to take the request now:
+    every one is draining, dead, breaker-open or refused admission.
+    Replicas heal, respawn and drain their queues: back off and resubmit."""
+
+    retriable = True
+
+
+class FailoverExhaustedError(ServingError):
+    """Failover gave up on the request: its per-request cap was reached or
+    the fleet-wide retry budget was empty, the backstop that keeps an
+    outage from turning into a retry storm. ``__cause__`` carries the last
+    replica's error. Retriable by the client after a backoff (the budget
+    refills); the router itself retries no further."""
 
     retriable = True
 
@@ -248,6 +281,51 @@ class TransferCorruptError(KVTransferError):
 class EngineInvariantError(RuntimeError):
     """An engine-internal invariant broke; the engine state cannot be
     trusted and the caller should ``reset()``."""
+
+
+class PerfDriftError(RuntimeError):
+    """A program's measured time sat outside the tolerance band around its
+    committed prediction for ``drift_consecutive`` evaluations in a row
+    (the perfwatch drift sentinel). Carries the program and both sides of
+    the comparison."""
+
+    def __init__(self, program: str, measured_s: float, predicted_s: float,
+                 tolerance: float):
+        self.program = program
+        self.measured_s = measured_s
+        self.predicted_s = predicted_s
+        self.tolerance = tolerance
+        super().__init__(
+            f"perf drift on {program}: measured {measured_s:.6f}s vs "
+            f"predicted {predicted_s:.6f}s (tolerance {tolerance:.0%})"
+        )
+
+
+class ReplicaBrownoutError(PerfDriftError):
+    """A replica has been browned out (slow or hanging health probes, or a
+    perfwatch residual past its band, while it still answers as alive) for
+    longer than ``FleetConfig.brownout_drain_after_s``. Filed, never
+    raised, by the fleet router into perfwatch's findings, so a consumer of
+    :class:`PerfDriftError` findings drains and replaces it;
+    ``replica_id`` names it (``program``/``measured_s``/``predicted_s``
+    keep the drift finding's shape)."""
+
+    def __init__(self, replica_id: str, *, score: float,
+                 probe_ewma_s: float, threshold_s: float,
+                 sustained_s: float):
+        self.replica_id = replica_id
+        self.score = score
+        self.sustained_s = sustained_s
+        self.program = f"fleet/replica/{replica_id}"
+        self.measured_s = probe_ewma_s
+        self.predicted_s = threshold_s
+        self.tolerance = 0.0
+        RuntimeError.__init__(
+            self,
+            f"replica {replica_id} browned out for {sustained_s:.1f}s "
+            f"(score {score:.2f}, probe ewma {probe_ewma_s:.4f}s vs "
+            f"threshold {threshold_s:.4f}s); drain and replace"
+        )
 
 
 class FaultInjected(RuntimeError):

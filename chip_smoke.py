@@ -11,9 +11,10 @@ in bf16 and in fp8; a fine-tune at full width that is interrupted and resumes bi
 same training step under DDP and FSDP2 over NCCL at world size 1, and
 under tensor parallelism; static generation (``generate`` and the static
 ``InferenceServer``) on the serving model; the fine-tune supervised
-by the launcher through a crash, a lost disk, a preemption and a hang;
-and static generation over a mesh (tensor parallelism alone and under
-FSDP2).
+by the launcher through a crash, a preemption and a hang; static
+generation over a mesh (tensor parallelism alone and under FSDP2); and
+a fleet of two replicas behind ``FleetRouter`` with failover, the circuit
+breaker, the degradation ladder, tracing and perfwatch.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -98,7 +99,33 @@ Phases (any failure exits non-zero and prints no result):
      chunk raising TransferCorruptError and a reservation released before
      COMMIT raising TransferStaleEpochError on the sender while requests
      in flight finish bitwise (kvtx)
- 12. (run right after 17, on its model, before 8 quantizes it) static
+ 18. (run right after 17, on phase 4's model) the serving fleet: two
+     continuous servers ("r0", "r1"), each with its own engine and pool
+     over the one model, behind a ``FleetRouter``: (a) phase 4's 16
+     requests, every one bitwise equal to phase 4's single server, both
+     replicas serving, B1/B4/B6 counted (fleet) against the engines'
+     counters; tokens/s beside phase 4's, TTFT p50/p99, each replica's
+     share; (d) on (a)'s fleet: the mix with tracing off and on, twice
+     each (the goodput it costs against tracing_bench.py's 2 %, reported),
+     one request's span tree from ``fleet.submit`` to ``engine.retire``,
+     a flight dump read back as Chrome JSON, perfwatch's measured
+     ``decode_step`` median beside phase 4's steady decode and a baseline
+     for the card (the decode's bytes bound: weights and live KV over
+     3.35 TB/s), and the exporter's Prometheus text scraped over
+     127.0.0.1; (b) failover: first phase 4's mix again on (a)'s fleet
+     with r0's worker killed mid-decode through the fault points, every
+     request (the moved ones on r1, started again with their seeds)
+     bitwise phase 4's; then the same prompts greedy with speculation on
+     both replicas and r0's worker killed again: all
+     16 complete, the moved ones on r1 with ``failover_count`` > 0, no
+     untyped error, the retry budget spent once a ReplicaDeadError, B1,
+     B4, B5 and B6 counted (fleet_spec), the greedy tokens held by phase
+     12's rule (a slot's logits under speculation depend on its
+     neighbours); (c) the static server's breaker on an injected clock and
+     the continuous server's ladder on one slot, each against the sequence
+     tests/test_torch_serving_control.py holds to the JAX server's. The
+     fleets close and the engines are freed before phase 12
+ 12. (run right after 18, on its model, before 8 quantizes it) static
      generation: (a) ``generate`` at B = 8, a 512-token prompt and 128 new
      tokens, greedy, under the dense, paged and paged_int8 KV backends:
      eagerly (``engine._disable_graphs``), then twice through its CUDA
@@ -212,25 +239,28 @@ Phases (any failure exits non-zero and prints no result):
      tree, the replica and a staging copy fit the temporary directory
      with 20 % to spare), seeded packed rows a step, through ``python -m
      accelerate_tpu_torch.commands.launch --num_processes 1`` running
-     accelerate_tpu_torch/test_utils/scripts/crash_resume_script.py, each
-     scenario a launch: (a) 6 uninterrupted steps; (b) --max_restarts 1
-     --watchdog_timeout 150 --replicate_to with a synchronous replica, a
-     committed save after step 3 and the worker killed by a fault point
-     at the end of step 4 on its first attempt, restarted by the
-     supervisor and resumed by resume_from_latest; a planted fault: one
-     byte of the replica flipped, which restore_from_replica must refuse
-     with the checksum error and ReplicaUnavailableError ((c), the local
-     tree wiped and a relaunch restoring from the replica, is held on the
-     CPU by tests/test_torch_elastic.py); (d) --handle_preemption and
-     SIGTERM to the launcher once the worker trains: one emergency
-     checkpoint, launcher rc 0 and no restart, then a relaunch that
-     resumes it; (e) a hang at
-     the end of step 2 on the first attempt, killed by the watchdog (40 s)
-     and restarted. (b), (d), (e) end on (a)'s losses and parameter checksum
-     bit for bit. Step ms, save and mirror GB/s, the
-     emergency checkpoint's seconds, restart seconds and the watchdog's
-     latency are printed with the card; the children's B1-B3 launches,
-     every attempt, are counted under training_supervised
+     accelerate_tpu_torch/test_utils/scripts/crash_resume_script.py: (e) a
+     hang at the end of step 2 on the first attempt, killed by the
+     watchdog (40 s), and the restart from step 0, 6 steps uninterrupted
+     in a fresh process: the reference (the hung attempt's two losses
+     bitwise its first two); (d) --handle_preemption --replicate_to with a
+     synchronous replica, SIGTERM to the launcher once the worker trains:
+     one emergency checkpoint, mirrored, launcher rc 0 and no restart; (b)
+     the relaunch, --max_restarts 1 --watchdog_timeout 150, resumes that
+     checkpoint at (d)'s step, its worker killed by a fault point at the
+     end of its second step on its first attempt, restarted by the
+     supervisor and resumed from the same checkpoint by
+     resume_from_latest (the run's one save serves the preemption and the
+     crash), ending on (e)'s losses and parameter checksum bit for bit; a
+     planted fault: one byte of the replica flipped, which
+     restore_from_replica must refuse with the checksum error and
+     ReplicaUnavailableError ((c), the local tree wiped and a relaunch
+     restoring from the replica, is held on the CPU by
+     tests/test_torch_elastic.py). Step ms, the emergency checkpoint's
+     seconds and GB/s, the signal-to-exit and restart seconds, the
+     resume's GB/s and the watchdog's latency are printed with the card;
+     the children's B1-B3 launches, every attempt, are counted under
+     training_supervised
  14. (run after 13) serving over a mesh: (a) ``prepare_inference(mesh=,
      rules=tensor_parallel_rules())`` over a one-rank NCCL group forced to
      the TP layout (a TensorParallelConfig), Llama-3-8B at 8 layers, bf16:
@@ -4867,10 +4897,11 @@ def phase_resume(card, phase6=None):
 
 
 # phase 13: the supervised fine-tune (phase 9's model and step, seeded
-# packed rows a step) through the real launcher, each scenario a launch of
-# its own: N steps, a committed save after step SUP_SAVE_AT with a
-# synchronous replica, faults on the first attempt only
-SUP_ROWS, SUP_SEQ, SUP_STEPS, SUP_SAVE_AT = 4, 2048, 6, 3
+# packed rows a step) through the real launcher: N steps; the preemption's
+# emergency checkpoint (mirrored to a synchronous replica) is the one
+# checkpoint the crash then resumes from; faults on the first attempt only
+SUP_ROWS, SUP_SEQ, SUP_STEPS = 4, 2048, 6
+SUP_KILL_AFTER = 1  # (b): the worker dies at the end of its second step (after=1)
 SUP_MAX_LAYERS = 1
 SUP_COPIES = 3  # checkpoints on disk at once: the local tree, the replica and a staging copy
 SUP_WATCHDOG_S = 150.0  # (b): above a worker's start and its longest save with the mirror
@@ -4967,24 +4998,28 @@ def _steps(evs, attempt=None):
 
 
 def phase_supervised(card, cpu=False, preset="llama3_8b"):
-    """Phase 13: the supervised fine-tune through the real launcher. (a) an
-    uninterrupted run of SUP_STEPS steps; (b) --max_restarts 1 with the
-    watchdog and a synchronous replica: a committed save after step
-    SUP_SAVE_AT, the worker killed at the end of the next step on its first
-    attempt, restarted and resumed; (d) --handle_preemption and SIGTERM to
-    the launcher once the worker is training: an emergency checkpoint, rc
-    0, no restart, then a relaunch that resumes it; (e) a hang on the first
-    attempt that the watchdog kills, then a restart; each ends on (a)'s
-    losses and parameters bit for bit. After (b) a planted fault: one byte
-    of its replica flipped, which the restore must refuse. (c), the local
-    tree wiped and a relaunch restoring from the replica (55 s of the
-    script's time), is held on the CPU by tests/test_torch_elastic.py
-    (``test_resume_restores_bitwise_from_replica_after_tree_wipe``)."""
+    """Phase 13: the supervised fine-tune through the real launcher. (e) a
+    hang on the first attempt that the watchdog kills, then a restart from
+    step 0 that runs SUP_STEPS steps uninterrupted in a fresh process: the
+    reference (the hung attempt's steps bitwise equal to its first ones);
+    (d) --handle_preemption and a synchronous replica, SIGTERM to the
+    launcher once the worker is training: one emergency checkpoint (the
+    run's only save, mirrored), rc 0, no restart; (b) the relaunch with
+    --max_restarts 1 and the watchdog resumes that checkpoint, its worker is
+    killed at the end of its second step on its first attempt, restarted
+    and resumed from the same checkpoint; it ends on (e)'s losses and
+    parameters bit for bit, and its first attempt resumed at (d)'s step.
+    After (b) a planted fault: one byte of the replica flipped, which the
+    restore must refuse. (c), the local tree wiped and a relaunch restoring
+    from the replica, is held on the CPU by tests/test_torch_elastic.py
+    (``test_resume_restores_bitwise_from_replica_after_tree_wipe``). The
+    uninterrupted reference run of PRs 14-18 ((a)) is (e)'s restart."""
     import re
     import shutil
     import tempfile
 
     from accelerate_tpu_torch import elastic
+    from accelerate_tpu_torch.checkpointing import read_commit_manifest
     from accelerate_tpu_torch.utils.dataclasses import ReplicationConfig
     from accelerate_tpu_torch.utils.fault import ReplicaUnavailableError
 
@@ -5002,56 +5037,98 @@ def phase_supervised(card, cpu=False, preset="llama3_8b"):
     sync = {"ACCELERATE_REPLICATION_SYNC": "1"}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_supervised_", dir=tmp_root) as tmp:
         replica = os.path.join(tmp, "replica")
-        project_b = os.path.join(tmp, "b")
+        project = os.path.join(tmp, "db")
 
         def bitwise(label, summary, start):
             same = (summary is not None and summary["checksum"] == ref["checksum"]
                     and summary["losses"] == ref["losses"][start:])
             if not same:
                 raise AssertionError(f"phase 13 {label}: losses {summary and summary['losses']} "
-                                     f"checksum {summary and summary['checksum']} against (a)'s "
+                                     f"checksum {summary and summary['checksum']} against (e)'s "
                                      f"{ref['losses'][start:]} {ref['checksum']}")
             return same
 
-        # (a) the reference
-        rc, so, se, ref, evs_a, _, _ = supervised_launch(
-            tmp, "a", [], ["--project_dir", os.path.join(tmp, "a")], **kw)
-        if rc != 0 or ref is None or len(ref["losses"]) != SUP_STEPS:
-            raise AssertionError(f"phase 13 (a): rc {rc}\n{se[-3000:]}")
-        times = [e["t"] for e in _steps(evs_a)]
+        # (e) a hang on attempt 0: the watchdog kills, the supervisor restarts
+        # from step 0 (no checkpoint yet), and the restart, an uninterrupted
+        # run in a fresh process, is the reference the other scenarios end on
+        rc, so, se, ref, evs_e, _, _ = supervised_launch(
+            tmp, "e", ["--max_restarts", "1", "--watchdog_timeout", str(SUP_HANG_WATCHDOG_S)],
+            ["--project_dir", os.path.join(tmp, "e"), "--fault", "train_step_end:hang=3600:after=1"],
+            **kw)
+        stale = re.search(r"heartbeat stale >([0-9.]+)s \(the oldest rank's last beat ([0-9.]+)s ago\)",
+                          se)
+        hung = [e["loss"] for e in _steps(evs_e, 0)]
+        if rc != 0 or stale is None or "restart 1/1" not in se or ref is None \
+                or ref["attempt"] != 1 or ref["start"] != 0 or len(ref["losses"]) != SUP_STEPS:
+            raise AssertionError(f"phase 13 (e): rc {rc}, summary {ref}\n{se[-3000:]}")
+        if len(hung) != 2 or hung != ref["losses"][:2]:
+            raise AssertionError(f"phase 13 (e): the hung attempt's losses {hung} against the "
+                                 f"restart's {ref['losses'][:2]}")
+        age = float(stale.group(2))
+        times = [e["t"] for e in _steps(evs_e, 1)]
         step_ms = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
-        out["a"] = dict(losses=ref["losses"], checksum=ref["checksum"], step_ms=step_ms)
-        log(f"phase 13 (a) reference: {SUP_STEPS} steps, losses {ref['losses']}, checksum "
-            f"{ref['checksum']}; step ms (host clock between steps, each ending in a loss read) "
-            f"{[round(m, 1) for m in step_ms]} [{card}]")
+        out["e"] = dict(watchdog_s=SUP_HANG_WATCHDOG_S, detected_after_s=age,
+                        latency_over_timeout_s=age - SUP_HANG_WATCHDOG_S, losses=ref["losses"],
+                        checksum=ref["checksum"], step_ms=step_ms)
+        log(f"phase 13 (e) hang at the end of step 2 on attempt 0: the watchdog (T = "
+            f"{SUP_HANG_WATCHDOG_S:.0f}s, polled every {SUP_MONITOR_S:.0f}s) killed the worker "
+            f"{age:.1f}s after its last beat ({age - SUP_HANG_WATCHDOG_S:.1f}s past T), the "
+            f"supervisor restarted it from step 0 (no checkpoint yet) and it ran {SUP_STEPS} steps "
+            f"uninterrupted, the hung attempt's two losses bitwise equal to its first two: True; the "
+            f"reference: losses {ref['losses']}, checksum {ref['checksum']}; step ms (host clock "
+            f"between steps, each ending in a loss read) {[round(m, 1) for m in step_ms]} [{card}]")
 
-        # (b) crash -> restart, with the watchdog and a synchronous replica
+        # (d) preemption: SIGTERM to the launcher once the worker trains; the
+        # emergency checkpoint is mirrored before the rank exits
+        rc, so, se, sd, evs_d, ended, sent = supervised_launch(
+            tmp, "d", ["--handle_preemption", "--replicate_to", replica],
+            ["--project_dir", project], env_extra=sync, signal_at_ready=True, **kw)
+        committed = re.search(r"emergency checkpoint committed at (\S+)", so)
+        if rc != 0 or committed is None or "restart 1/" in se or sd is not None:
+            raise AssertionError(f"phase 13 (d): rc {rc}, summary {sd}\n{so[-2000:]}\n{se[-3000:]}")
+        manifest = read_commit_manifest(committed.group(1))
+        preempted = next(e for e in evs_d if e["event"] == "preempted")
+        emergency_s = manifest["time"] - preempted["t"]
+        name = os.path.basename(committed.group(1).rstrip(os.sep))
+        mirrored = os.path.join(replica, "r0", name)
+        read_commit_manifest(mirrored)  # the replica's copy committed before the exit
+        ckpt_bytes = dir_bytes(mirrored)
+        out["d"] = dict(at_step=preempted["step"], emergency_save_s=emergency_s,
+                        signal_to_exit_s=ended - sent, ckpt_bytes=ckpt_bytes)
+        log(f"phase 13 (d) SIGTERM to the launcher after the first step: the rank checkpointed at "
+            f"step {preempted['step']} ({ckpt_bytes / 1e9:.3f} GB; the emergency save committed "
+            f"{emergency_s:.2f}s after the step boundary that took the signal, "
+            f"{ckpt_bytes / emergency_s / 1e9:.3f} GB/s with the files flushed and checksummed; "
+            f"{ended - sent:.2f}s from the signal to the launcher's exit, the synchronous mirror "
+            f"to the replica included), launcher rc 0, no restart [{card}]")
+
+        # (b) crash -> restart: the relaunch resumes (d)'s checkpoint, dies
+        # at the end of its second step, and the restart resumes it again
         rc, so, se, sb, evs_b, _, _ = supervised_launch(
             tmp, "b", ["--max_restarts", "1", "--watchdog_timeout", str(SUP_WATCHDOG_S),
                        "--replicate_to", replica],
-            ["--project_dir", project_b, "--save_at", str(SUP_SAVE_AT),
-             "--fault", f"train_step_end:kill:after={SUP_SAVE_AT}"], env_extra=sync, **kw)
+            ["--project_dir", project, "--fault", f"train_step_end:kill:after={SUP_KILL_AFTER}"],
+            env_extra=sync, **kw)
+        starts = {e["attempt"]: e for e in evs_b if e["event"] == "start"}
+        at = preempted["step"]
         if rc != 0 or "restart 1/1" not in se or sb is None or sb["attempt"] != 1 \
-                or sb["start"] != SUP_SAVE_AT:
-            raise AssertionError(f"phase 13 (b): rc {rc}, summary {sb}\n{se[-3000:]}")
-        bitwise("(b)", sb, SUP_SAVE_AT)
-        saved = next(e for e in evs_b if e["event"] == "saved")
-        ckpt_bytes = dir_bytes(os.path.join(replica, "r0", f"checkpoint_0"))
+                or sb["start"] != at or starts.get(0, {}).get("step") != at \
+                or len(_steps(evs_b, 0)) != SUP_KILL_AFTER + 1:
+            raise AssertionError(f"phase 13 (b): rc {rc}, summary {sb}, starts {starts}\n"
+                                 f"{se[-3000:]}")
+        bitwise("(d) and (b)", sb, at)
         death = _steps(evs_b, 0)[-1]["t"]
-        restart = next(e for e in evs_b if e["event"] == "start" and e["attempt"] == 1)
         first_resumed = _steps(evs_b, 1)[0]["t"]
-        save_only = saved["save_s"] - saved["mirror_s"]
-        out["b"] = dict(ckpt_bytes=ckpt_bytes, save_s=save_only, mirror_s=saved["mirror_s"],
-                        save_gb_per_s=ckpt_bytes / save_only / 1e9,
-                        mirror_gb_per_s=ckpt_bytes / saved["mirror_s"] / 1e9,
-                        restart_s=first_resumed - death, resume_load_s=restart["resume_s"])
-        log(f"phase 13 (b) crash after step {SUP_SAVE_AT + 1} on attempt 0, restarted (restart 1/1) "
-            f"and resumed at step {sb['start']} through resume_from_latest: losses {sb['losses']} "
-            f"and checksum bitwise equal to (a): True; checkpoint {ckpt_bytes / 1e9:.3f} GB, "
-            f"save_state {save_only:.2f}s ({out['b']['save_gb_per_s']:.3f} GB/s, files flushed), "
-            f"synchronous mirror {saved['mirror_s']:.2f}s ({out['b']['mirror_gb_per_s']:.3f} GB/s, "
-            f"checksum-verified); restart {out['b']['restart_s']:.2f}s from the worker's death to "
-            f"its first resumed step (resume_from_latest {restart['resume_s']:.2f}s of it) [{card}]")
+        out["b"] = dict(restart_s=first_resumed - death, resume_load_s=starts[1]["resume_s"],
+                        relaunch_load_s=starts[0]["resume_s"],
+                        load_gb_per_s=ckpt_bytes / starts[1]["resume_s"] / 1e9)
+        log(f"phase 13 (d) relaunch and (b) crash: the relaunch resumed (d)'s checkpoint at step "
+            f"{at} ({starts[0]['resume_s']:.2f}s), its worker was killed at the end of step "
+            f"{at + SUP_KILL_AFTER} on attempt 0, restarted (restart 1/1) and resumed at step "
+            f"{sb['start']} through resume_from_latest: losses {sb['losses']} and checksum bitwise "
+            f"equal to (e)'s uninterrupted restart: True; restart {out['b']['restart_s']:.2f}s from the worker's death to "
+            f"its first resumed step (resume_from_latest {starts[1]['resume_s']:.2f}s of it, "
+            f"{out['b']['load_gb_per_s']:.3f} GB/s) [{card}]")
 
         # planted fault: one byte of the replica flipped; the restore must refuse it
         victim = max((os.path.join(r, f) for r, _, fs in os.walk(os.path.join(replica, "r0"))
@@ -5064,7 +5141,7 @@ def phase_supervised(card, cpu=False, preset="llama3_8b"):
         t0 = time.perf_counter()
         try:
             elastic.restore_from_replica(ReplicationConfig(target=replica),
-                                         os.path.join(tmp, "planted"), name="checkpoint_0")
+                                         os.path.join(tmp, "planted"), name=name)
             raise AssertionError("phase 13: the flipped replica byte was not refused")
         except ReplicaUnavailableError as exc:
             if "crc32 mismatch" not in str(exc) or os.path.exists(os.path.join(tmp, "planted")):
@@ -5074,54 +5151,8 @@ def phase_supervised(card, cpu=False, preset="llama3_8b"):
             f"restore_from_replica refused the copy (crc32 mismatch) and raised "
             f"ReplicaUnavailableError with no copy left, nothing copied, in "
             f"{out['planted']['verify_s']:.2f}s")
-        shutil.rmtree(project_b)
+        shutil.rmtree(project)
         shutil.rmtree(replica)
-
-        # (d) preemption: SIGTERM to the launcher once the worker trains
-        project_d = os.path.join(tmp, "d")
-        rc, so, se, sd, evs_d, ended, sent = supervised_launch(
-            tmp, "d", ["--handle_preemption"], ["--project_dir", project_d], signal_at_ready=True,
-            **kw)
-        committed = re.search(r"emergency checkpoint committed at (\S+)", so)
-        if rc != 0 or committed is None or "restart 1/" in se or sd is not None:
-            raise AssertionError(f"phase 13 (d): rc {rc}, summary {sd}\n{so[-2000:]}\n{se[-3000:]}")
-        from accelerate_tpu_torch.checkpointing import read_commit_manifest
-
-        manifest = read_commit_manifest(committed.group(1))
-        preempted = next(e for e in evs_d if e["event"] == "preempted")
-        emergency_s = manifest["time"] - preempted["t"]
-        rc, so, se, sd, evs_d2, _, _ = supervised_launch(
-            tmp, "d2", [], ["--project_dir", project_d], **kw)
-        if rc != 0 or sd is None or sd["start"] != preempted["step"]:
-            raise AssertionError(f"phase 13 (d) relaunch: rc {rc}, summary {sd}\n{se[-3000:]}")
-        bitwise("(d)", sd, sd["start"])
-        out["d"] = dict(at_step=sd["start"], emergency_save_s=emergency_s,
-                        signal_to_exit_s=ended - sent)
-        log(f"phase 13 (d) SIGTERM to the launcher after the first step: the rank checkpointed at "
-            f"step {sd['start']} (the emergency save committed {emergency_s:.2f}s after the step "
-            f"boundary that took the signal; {ended - sent:.2f}s from the signal to the launcher's "
-            f"exit), launcher rc 0, no restart; the relaunch resumed bitwise equal to (a): True "
-            f"[{card}]")
-        shutil.rmtree(project_d)
-
-        # (e) a hang on attempt 0: the watchdog kills, the supervisor restarts
-        rc, so, se, se_sum, evs_e, _, _ = supervised_launch(
-            tmp, "e", ["--max_restarts", "1", "--watchdog_timeout", str(SUP_HANG_WATCHDOG_S)],
-            ["--project_dir", os.path.join(tmp, "e"), "--fault", "train_step_end:hang=3600:after=1"],
-            **kw)
-        stale = re.search(r"heartbeat stale >([0-9.]+)s \(the oldest rank's last beat ([0-9.]+)s ago\)",
-                          se)
-        if rc != 0 or stale is None or "restart 1/1" not in se or se_sum is None:
-            raise AssertionError(f"phase 13 (e): rc {rc}, summary {se_sum}\n{se[-3000:]}")
-        bitwise("(e)", se_sum, 0)
-        age = float(stale.group(2))
-        out["e"] = dict(watchdog_s=SUP_HANG_WATCHDOG_S, detected_after_s=age,
-                        latency_over_timeout_s=age - SUP_HANG_WATCHDOG_S)
-        log(f"phase 13 (e) hang at the end of step 2 on attempt 0: the watchdog (T = "
-            f"{SUP_HANG_WATCHDOG_S:.0f}s, polled every {SUP_MONITOR_S:.0f}s) killed the worker "
-            f"{age:.1f}s after its last beat ({age - SUP_HANG_WATCHDOG_S:.1f}s past T), the "
-            f"supervisor restarted it (no checkpoint yet: from step 0) and it ended bitwise equal "
-            f"to (a): True [{card}]")
 
         # the launches of every child, every attempt
         launches = dict.fromkeys(KERNEL_META, 0)
@@ -5129,7 +5160,7 @@ def phase_supervised(card, cpu=False, preset="llama3_8b"):
             if name.startswith("launches_") and ".rank" in name:
                 for k, v in json.load(open(os.path.join(tmp, name))).items():
                     launches[k] += v
-        steps = sum(len(_steps(e)) for e in (evs_a, evs_b, evs_d, evs_d2, evs_e))
+        steps = sum(len(_steps(e)) for e in (evs_e, evs_d, evs_b))
     fwd = "flash_fwd" if cpu else "flash_fwd_mma"
     bwd = ("flash_bwd_dq", "flash_bwd_dkv") if cpu else ("flash_bwd_dq_mma", "flash_bwd_dkv_mma")
     expected = {fwd: 2 * layers * steps, bwd[0]: layers * steps, bwd[1]: layers * steps}
@@ -5750,6 +5781,505 @@ def phase_continuous_mesh(dev, card, n_layers, reference):
     return paths, numbers
 
 
+# ---------------------------------------------------------------- phase 18
+# the serving fleet: two continuous replicas of phase 4's model (one set of
+# weights, an engine and a pool each) behind a FleetRouter; (a) phase 4's
+# mix, (b) the mix again while r0's worker is killed, then the same prompts
+# greedy with speculation while it is killed again, (c) the breaker and the
+# ladder on one server, (d) tracing and perfwatch
+FLEET_REPLICAS = ("r0", "r1")
+FLEET_SPEC = dict(SERVING, speculative="ngram", spec_draft_len=4)
+FLEET_KILL_TICK = 24  # (b): r0's worker dies at its 24th engine tick of the mix, mid-decode
+FLEET_TRACE_RUNS = 2  # (d): mixes with tracing off and on, alternating
+# the prober's reads share the host's cores with two engine threads: a
+# brown-out (a probe slower than 50 ms) is not what this phase measures,
+# and its hedges would run requests twice
+FLEET_CONFIG = dict(brownout_probe_ewma_s=5.0, hedge_brownout=False)
+TRACING_GATE = 0.02  # benchmarks/tracing_bench.py's bound on the goodput tracing may cost
+# (c): the static breaker's sequence, the one tests/test_torch_serving_control.py
+# (test_breaker_cycle_through_the_static_server) holds to the JAX server's:
+# two failed batches, the refusal with its reset hint, OPEN then HALF_OPEN,
+# the failed probe, the probe that closes it, CLOSED
+BREAKER_SEQUENCE = [("BatchExecutionError", False, "r0"), ("BatchExecutionError", False, "r0"),
+                    ("CircuitOpenError", True, "r0", 5.0), ("health", 1), ("health", 2),
+                    ("BatchExecutionError", False, "r0"), ("probe", False, "r0", 0), ("health", 0)]
+BREAKER_COUNTS = {"breaker_opens": 2, "rejected_breaker": 1, "batch_failures": 3, "completed": 2,
+                  "batches": 2}
+# (c): the ladder's scenario of test_continuous_ladder_and_spec_rung_match_jax:
+# one slot, the first tick held while three requests queue (3 of 4 places)
+LADDER_SERVING = dict(mode="continuous", engine_slots=1, engine_max_len=64, engine_prompt_bucket=16,
+                      engine_readback_lag=0, kv_cache="paged", engine_block_size=16,
+                      attention_impl="kernel", speculative="ngram", spec_draft_len=4, max_queue=4,
+                      degrade_queue_fraction=0.5, degrade_hard_fraction=0.75,
+                      degraded_max_new_tokens=4)
+LADDER_PROMPTS = ([7, 8, 9, 7, 8, 9, 7, 8], [3, 4, 3, 4, 3, 4, 3, 4, 3], [11, 12, 13, 11, 12, 13],
+                  [5, 17, 33, 2, 9])
+LADDER_BUDGETS = [12, 2, 4, 12]  # the clamps JAX's server gives them: none, hard, soft, none
+LADDER_DEGRADED = [False, True, True, False]
+
+
+class FakeClock:
+    """A monotonic clock advanced by hand (the breaker's reset window)."""
+
+    def __init__(self, t=100.0):
+        self.t = t
+
+    def __call__(self):
+        return self.t
+
+
+def fleet_servers(dev, model, scfg, warm):
+    """One continuous server per replica id over ``model``, each with its
+    own engine, warmed one after the other (their graphs captured before
+    the mix)."""
+    from accelerate_tpu_torch.serving import InferenceServer
+
+    servers = {rid: InferenceServer(model, scfg, replica_id=rid, device=dev)
+               for rid in FLEET_REPLICAS}
+    for srv in servers.values():
+        for f in [srv.submit(p, max_new_tokens=8) for p in warm]:
+            f.result(timeout=300)
+    return servers
+
+
+def fleet_mix(router, servers, prompts, new_tokens, sampled=True):
+    """Submit ``prompts`` at once through ``router`` (odd ones sampled,
+    seed i, as phase 4 serves them, when ``sampled``); launch counters
+    reset just before and read just after. Returns results, wall time,
+    launches and the engines' counter deltas."""
+    from accelerate_tpu_torch.ops import _build
+
+    def counters():
+        return {rid: dict(steps=s.engine.steps, verify=s.engine.spec_verify_steps,
+                          inserted=s.engine.inserted) for rid, s in servers.items()}
+
+    before = counters()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    futs = []
+    for i, p in enumerate(prompts):
+        odd = sampled and i % 2 == 1
+        futs.append(router.submit(p, max_new_tokens=new_tokens, temperature=0.8 if odd else 0.0,
+                                  top_k=50 if odd else None, top_p=0.9 if odd else None, seed=i))
+    results, errors = [], []
+    for f in futs:
+        exc = f.exception(timeout=900)
+        if exc is not None:
+            errors.append(f"{type(exc).__name__}: {exc}")
+        else:
+            results.append(f.result())
+    done = time.perf_counter()
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    if errors:
+        raise AssertionError(f"phase 18: {len(errors)} request(s) ended in an error: {errors[:3]}")
+    after = counters()
+    delta = {k: sum(after[r][k] - before[r][k] for r in servers) for k in ("steps", "verify",
+                                                                           "inserted")}
+    return dict(results=results, wall_s=done - t0, end_t=done, launches=launches, delta=delta,
+                tokens_per_s=len(prompts) * new_tokens / (done - t0),
+                ttft_s=sorted(r.ttft_s for r in results))
+
+
+def fleet_kill_mix(router, servers, prompts, new_tokens, sampled):
+    """``fleet_mix`` with r0's serving worker killed at its
+    ``FLEET_KILL_TICK``-th engine tick of the mix, through the fault
+    points. Adds ``killed_t``, the kill's time (None when r0 never reached
+    that tick)."""
+    from accelerate_tpu_torch.utils.fault import install_conductor, uninstall_conductor
+
+    ticks, killed = {"n": 0}, {}
+
+    def conductor(name, context):
+        if name == "serving_after_batch" and context.get("replica") == "r0":
+            ticks["n"] += 1
+            if ticks["n"] == FLEET_KILL_TICK:
+                killed["t"] = time.perf_counter()
+                raise SystemExit("phase 18 (b): r0's serving worker killed")
+
+    install_conductor(conductor)
+    try:
+        run = fleet_mix(router, servers, prompts, new_tokens, sampled=sampled)
+    finally:
+        uninstall_conductor(conductor)
+    run["killed_t"] = killed.get("t")
+    return run
+
+
+def fleet_expected(n_layers, delta):
+    decode = delta["steps"] - delta["verify"]
+    out = {"flash_fwd_mma": n_layers * delta["inserted"], "paged_decode_mma": n_layers * decode,
+           "fused_sample": decode + delta["inserted"]}
+    if delta["verify"]:
+        out["paged_verify_mma"] = n_layers * delta["verify"]
+    return out
+
+
+def pct(sorted_values, p):
+    return sorted_values[min(len(sorted_values) - 1, int(round(p / 100 * (len(sorted_values) - 1))))]
+
+
+def perf_family(scfg):
+    """The engine's perfwatch family for a serving config (``engine.py``
+    ``_pw_flush``)."""
+    return "engine.paged_kernel" if scfg["attention_impl"] == "kernel" else "engine.paged"
+
+
+def fleet_baseline(path, model, prompts, new_tokens):
+    """(d)'s baseline for the card: ``decode_step`` at its bytes bound, the
+    weights and the live KV of 8 slots at the mix's mean position over
+    3.35 TB/s; ``prefill_insert`` at the larger of its bytes and its bf16
+    operations (2 per parameter and prompt token, the 512 bucket)."""
+    cfg = model.config
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    params = sum(p.numel() for p in model.parameters())
+    kv_per_pos = 2 * cfg.num_hidden_layers * cfg.num_key_value_heads * cfg.head_dim * 2
+    mean_pos = float(np.mean([len(p) for p in prompts])) + new_tokens / 2
+    decode_s = (weights + 8 * mean_pos * kv_per_pos) / HBM_BYTES_PER_S
+    bucket = SERVING["engine_prompt_bucket"]
+    prefill_s = max(weights / HBM_BYTES_PER_S, 2 * params * bucket / PEAK_FLOPS[torch.bfloat16])
+    family = perf_family(SERVING)
+    doc = {"chip": "h100", "tolerance": 0.05, "programs": {
+        f"{family}/decode_step": {"predicted_s": decode_s, "bound": "hbm", "flops": 2 * params * 8,
+                                  "tok_s": 8 / decode_s},
+        f"{family}/prefill_insert": {"predicted_s": prefill_s, "bound": "flops",
+                                     "flops": 2 * params * bucket}}}
+    Path(path).write_text(json.dumps(doc))
+    return dict(decode_s=decode_s, prefill_s=prefill_s, weights_bytes=weights,
+                kv_bytes=8 * mean_pos * kv_per_pos)
+
+
+def span_tree(tracer):
+    """One traced request's spans, by its fleet.submit: their names and
+    whether each expected child sits inside its parent on one thread."""
+    (root, *_) = tracer.spans(name="fleet.submit")
+    trace = tracer.spans(trace_id=root.trace_id)
+    names = [s.name for s in trace]
+
+    def inside(child, parent):
+        c = [s for s in trace if s.name == child]
+        p = [s for s in trace if s.name == parent]
+        return bool(c and p) and all(any(q.tid == s.tid and q.t0 <= s.t0 and s.t1 <= q.t1 for q in p)
+                                     for s in c)
+
+    nested = {f"{c} in {p}": inside(c, p) for c, p in (("fleet.dispatch", "fleet.submit"),
+                                                       ("engine.prefill", "serving.admit"))}
+    return names, nested
+
+
+def breaker_cycle(dev, model):
+    """(c): the static server's breaker on an injected clock, the batch
+    executor failing until the backend "recovers", then ``generate`` on the
+    card."""
+    from accelerate_tpu_torch.inference import generate
+    from accelerate_tpu_torch.serving import InferenceServer
+    from accelerate_tpu_torch.utils.dataclasses import ServingConfig
+
+    state = {"broken": True}
+    clock = FakeClock()
+
+    def fn(m, ids, **kw):
+        if state["broken"]:
+            raise RuntimeError("backend down")
+        return generate(m, ids, **kw)
+
+    cfg = ServingConfig(max_retries=0, breaker_threshold=2, breaker_reset_s=5.0, max_batch_size=1,
+                        batch_window_s=0.0)
+    seen = []
+
+    def error(fut):
+        exc = fut.exception(300)
+        return (type(exc).__name__, exc.retriable, exc.replica_id)
+
+    with InferenceServer(model, cfg, generate_fn=fn, clock=clock, replica_id="r0",
+                         device=dev) as srv:
+        prompt = np.arange(1, 4, dtype=np.int32)
+        for _ in range(2):
+            seen.append(error(srv.submit(prompt)))
+        deadline = time.time() + 30
+        while not srv._breaker.rejects_admission and time.time() < deadline:
+            time.sleep(0.002)
+        try:
+            srv.submit(prompt)
+            seen.append("admitted")
+        except Exception as exc:  # noqa: BLE001 - the sequence holds its type
+            seen.append((type(exc).__name__, exc.retriable, exc.replica_id, exc.retry_after_s))
+        seen.append(("health", srv.health()["breaker_state"]))
+        clock.t += 5.0
+        seen.append(("health", srv.health()["breaker_state"]))
+        seen.append(error(srv.submit(prompt)))
+        while not srv._breaker.rejects_admission and time.time() < deadline:
+            time.sleep(0.002)
+        state["broken"] = False
+        clock.t += 5.0
+        res = srv.submit(prompt).result(300)
+        seen.append(("probe", res.degraded, res.replica_id, res.failover_count))
+        seen.append(("health", srv.health()["breaker_state"]))
+        second = srv.submit(prompt).result(300)
+        counts = {k: srv.metrics[k] for k in BREAKER_COUNTS}
+    vocab = model.config.vocab_size
+    valid = all(r.tokens.shape == (3 + 32,) and ((r.tokens >= 0) & (r.tokens < vocab)).all()
+                for r in (res, second))
+    return seen, counts, valid
+
+
+def ladder_run(dev, model):
+    """(c): the ladder on one continuous server (1 slot, speculation on):
+    the first tick held while three requests queue; the spec limits the
+    ladder set, each request's budget and ``degraded``."""
+    import threading
+
+    from accelerate_tpu_torch.serving import InferenceServer
+    from accelerate_tpu_torch.utils.dataclasses import ServingConfig
+
+    srv = InferenceServer(model, ServingConfig(**LADDER_SERVING), device=dev)
+    eng = srv.engine
+    with srv:  # warm: the programs captured before the scenario
+        srv.submit(np.asarray(LADDER_PROMPTS[0], np.int32), max_new_tokens=12).result(300)
+    srv = InferenceServer(model, ServingConfig(**LADDER_SERVING), engine=eng, device=dev)
+    limits, gate, entered = [], threading.Event(), threading.Event()
+    real_limit, real_step = eng.set_spec_draft_limit, eng.step
+
+    def record_limit(n):
+        limits.append(int(n))
+        return real_limit(n)
+
+    def held_step():
+        entered.set()
+        gate.wait(60)
+        return real_step()
+
+    eng.set_spec_draft_limit, eng.step = record_limit, held_step
+    try:
+        prompts = [np.asarray(p, np.int32) for p in LADDER_PROMPTS]
+        first = srv.submit(prompts[0], max_new_tokens=12)
+        if not entered.wait(120):
+            raise AssertionError("phase 18 (c): the ladder's first tick never ran")
+        futs = [first] + [srv.submit(p, max_new_tokens=12) for p in prompts[1:]]
+        gate.set()
+        results = [f.result(300) for f in futs]
+        degraded = srv.metrics["degraded"]
+    finally:
+        gate.set()
+        srv.close()
+        eng.set_spec_draft_limit, eng.step = real_limit, real_step
+    del eng
+    return dict(limits=limits, degraded=[r.degraded for r in results],
+                budgets=[len(r.tokens) - len(p) for r, p in zip(results, prompts)],
+                counter=degraded)
+
+
+def phase_fleet(dev, card, model, phase4):
+    """Phase 18: A10's serving half on the card. Returns the launches of
+    (a) (``fleet``) and (b) (``fleet_spec``) and the numbers."""
+    import shutil
+    import tempfile
+    import urllib.request
+
+    from accelerate_tpu_torch import perfwatch, tracing
+    from accelerate_tpu_torch.fleet import FleetRouter
+    from accelerate_tpu_torch.utils.dataclasses import (FleetConfig, ObservabilityConfig,
+                                                        ServingConfig, TracingConfig)
+
+    cfg = model.config
+    n_layers = cfg.num_hidden_layers
+    prompts, warm = main_traffic(cfg.vocab_size)
+    new_tokens = MAIN_NEW_TOKENS
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    prev_tracing = tracing.get_tracer().config
+    out = {}
+    try:
+        # (d)'s baseline first: every engine of the phase bills its windows
+        # to this watch
+        base = fleet_baseline(os.path.join(tmp, "baseline.json"), model, prompts, new_tokens)
+        watch = perfwatch.configure(ObservabilityConfig(baseline_path=os.path.join(tmp,
+                                                                                   "baseline.json")))
+        tracing.configure(TracingConfig(dump_dir=tmp))
+
+        # (a) routing: phase 4's mix through the fleet
+        servers = fleet_servers(dev, model, ServingConfig(**SERVING), warm)
+        router = FleetRouter(dict(servers), FleetConfig(**FLEET_CONFIG))
+        run = fleet_mix(router, servers, prompts, new_tokens)
+        check_launches("phase 18 (a)", run["launches"], fleet_expected(n_layers, run["delta"]))
+        same = [np.array_equal(r.tokens, t) for r, t in zip(run["results"], phase4["tokens"])]
+        share = {rid: sum(r.replica_id == rid for r in run["results"]) for rid in FLEET_REPLICAS}
+        ttft = run["ttft_s"]
+        p4 = phase4["runs"][0]["tokens_per_s"]
+        log(f"phase 18 (a) fleet of {len(servers)} continuous replicas of phase 4's model, its 16 "
+            f"requests: {sum(same)}/16 bitwise equal to phase 4's single server; "
+            f"{run['tokens_per_s']:.1f} tokens/s against phase 4's {p4:.1f}; TTFT p50 "
+            f"{pct(ttft, 50):.4f}s p99 {pct(ttft, 99):.4f}s; requests by replica {share}; engine "
+            f"steps {run['delta']['steps']} [{card}]")
+        if not all(same) or min(share.values()) == 0:
+            raise AssertionError(f"phase 18 (a): bitwise {same}, shares {share}")
+        a_launches = {k: run["launches"][k] for k in fleet_expected(n_layers, run["delta"])}
+        out["a"] = dict(tokens_per_s=run["tokens_per_s"], phase4_tokens_per_s=p4,
+                        ttft_p50_s=pct(ttft, 50), ttft_p99_s=pct(ttft, 99), share=share,
+                        steps=run["delta"]["steps"])
+
+        # (d) tracing off against on, the span tree, the dump, perfwatch and
+        # the exporter, on (a)'s fleet
+        rates = {False: [], True: []}
+        for _ in range(FLEET_TRACE_RUNS):
+            for on in (False, True):
+                tracing.configure(TracingConfig(enabled=on, dump_dir=tmp))
+                rates[on].append(fleet_mix(router, servers, prompts, new_tokens)["tokens_per_s"])
+        tracer = tracing.get_tracer()  # on: the last mix's spans
+        names, nested = span_tree(tracer)
+        need = {"fleet.submit", "fleet.dispatch", "serving.admit", "engine.prefill", "engine.retire"}
+        dump = tracer.dump("phase18")
+        doc = json.loads(Path(dump).read_text())
+        complete = sum(e["ph"] == "X" for e in doc["traceEvents"])
+        off, on = statistics.median(rates[False]), statistics.median(rates[True])
+        cost = (off - on) / off
+        log(f"phase 18 (d) tracing: tokens/s off {[round(r, 1) for r in rates[False]]} on "
+            f"{[round(r, 1) for r in rates[True]]}: {cost * 100:.2f} % of goodput (tracing_bench.py "
+            f"gates {TRACING_GATE * 100:.0f} %, reported only); one request's trace "
+            f"{names} (nested {nested}); flight dump {complete} spans, "
+            f"{len(doc['traceEvents'])} events, valid Chrome JSON [{card}]")
+        if not need <= set(names) or names[0] != "fleet.submit" or names[-1] != "engine.retire" \
+                or not all(nested.values()) or complete == 0:
+            raise AssertionError(f"phase 18 (d): span tree {names}, nested {nested}")
+        rows = {r["program"]: r for r in watch.table()}
+        program = f"{perf_family(SERVING)}/decode_step"
+        dec = rows[program]
+        replay = statistics.median(phase4["steady"]["decode_ms_per_step"])
+        log(f"phase 18 (d) perfwatch {program}: {dec['samples']} calls, median "
+            f"{dec['measured_s'] * 1e3:.3f} ms (a tick, host included) against phase 4's steady "
+            f"decode {replay:.3f} ms/step; predicted {dec['predicted_s'] * 1e3:.3f} ms (weights "
+            f"{base['weights_bytes'] / 1e9:.2f} GB + live KV {base['kv_bytes'] / 1e9:.3f} GB at "
+            f"3.35 TB/s), measured/predicted {dec['ratio']:.3f}, status {dec['status']} [{card}]")
+        if not dec["samples"] or dec["measured_s"] is None:
+            raise AssertionError("phase 18 (d): perfwatch measured no decode step")
+        exporter = perfwatch.MetricsExporter(router.metrics_snapshot, host="127.0.0.1", port=0)
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{exporter.port}/metrics",
+                                        timeout=30) as resp:
+                text = resp.read().decode()
+        finally:
+            exporter.close()
+        Path("chiprun_out", "phase18_metrics.prom").write_text(text)
+        lines = text.splitlines()
+        shown = [ln for ln in lines if ln.startswith(("accelerate_fleet_completed",
+                                                      "accelerate_fleet_routed",
+                                                      "accelerate_perf_engine_paged_kernel_decode_step_ratio",
+                                                      "accelerate_fleet_replica_serving_completed"))]
+        log(f"phase 18 (d) exporter on 127.0.0.1:{exporter.port}/metrics: {len(lines)} samples "
+            f"(chiprun_out/phase18_metrics.prom), among them: " + "; ".join(shown))
+        if not shown:
+            raise AssertionError("phase 18 (d): the exporter served none of the fleet's samples")
+        out["d"] = dict(tokens_per_s_off=rates[False], tokens_per_s_on=rates[True],
+                        tracing_cost=cost, spans=names, dump_spans=complete,
+                        decode_measured_s=dec["measured_s"], decode_predicted_s=dec["predicted_s"],
+                        ratio=dec["ratio"], decode_calls=dec["samples"],
+                        phase4_decode_ms=replay, exporter_samples=len(lines))
+
+        # (b) failover, first without speculation: phase 4's mix again on
+        # (a)'s fleet with r0's worker killed mid-decode through the fault
+        # points; a moved request starts again on r1 with its seed, so every
+        # request's tokens are phase 4's bitwise, the moved ones too
+        tracing.configure(TracingConfig(dump_dir=tmp))
+        run_k = fleet_kill_mix(router, servers, prompts, new_tokens, sampled=True)
+        check_launches("phase 18 (b) without speculation", run_k["launches"],
+                       fleet_expected(n_layers, run_k["delta"]))
+        same_k = [np.array_equal(r.tokens, t) for r, t in zip(run_k["results"], phase4["tokens"])]
+        moved_k = [r for r in run_k["results"] if r.failover_count]
+        alive_k = servers["r0"].health()["worker_alive"]
+        kill_to_last_k = None if run_k["killed_t"] is None else run_k["end_t"] - run_k["killed_t"]
+        log(f"phase 18 (b) failover without speculation, phase 4's mix on (a)'s fleet: r0 killed at "
+            f"its tick {FLEET_KILL_TICK} (worker alive after: {alive_k}); {sum(same_k)}/16 bitwise "
+            f"equal to phase 4's single server, none in an error; {len(moved_k)} moved to "
+            f"{sorted({r.replica_id for r in moved_k})} with failover_count "
+            f"{[r.failover_count for r in moved_k]}; {kill_to_last_k}s from the kill to the last "
+            f"result; {run_k['tokens_per_s']:.1f} tokens/s against (a)'s "
+            f"{out['a']['tokens_per_s']:.1f} [{card}]")
+        if kill_to_last_k is None or alive_k or not all(same_k) or not moved_k \
+                or any(r.replica_id != "r1" for r in moved_k):
+            raise AssertionError(f"phase 18 (b) without speculation: killed at "
+                                 f"{run_k['killed_t']}, alive {alive_k}, bitwise {same_k}, moved "
+                                 f"{len(moved_k)}")
+        out["b_exact"] = dict(tokens_per_s=run_k["tokens_per_s"], kill_to_last_s=kill_to_last_k,
+                              moved=len(moved_k), bitwise=sum(same_k))
+        router.close()
+        del router, servers, run, run_k
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) failover with speculation: the same prompts, greedy, with
+        # speculation on both replicas so that B5 runs; r0's worker killed
+        # mid-decode again
+        warm_b = warm + drafter_prompts(np.random.default_rng(2), 1, 200, 200, cfg.vocab_size)
+        servers = fleet_servers(dev, model, ServingConfig(**FLEET_SPEC), warm_b)
+        fcfg = FleetConfig(**FLEET_CONFIG, retry_budget_refill_per_s=0.0)  # its spend, exactly
+        router = FleetRouter(dict(servers), fcfg)
+        run_b = fleet_kill_mix(router, servers, prompts, new_tokens, sampled=False)
+        moved = [r for r in run_b["results"] if r.failover_count]
+        m = router.metrics
+        unplanned = m["failovers"] - m["redistributed"]
+        spent = fcfg.retry_budget_capacity - router._budget.available()
+        alive = servers["r0"].health()["worker_alive"]
+        check_launches("phase 18 (b)", run_b["launches"], fleet_expected(n_layers, run_b["delta"]))
+        # speculation makes a slot's logits depend on its neighbours (a step
+        # is a verify step when any slot drafted), and the failover moves
+        # slots: the greedy tokens are held by phase 12's rule (phase 15
+        # (c)'s for speculative traffic), not bitwise
+        cfg_r = dataclasses.replace(cfg, attention_impl="xla")
+        tf = [teacher_forced_ulps(cfg_r, model.params, p, r.tokens[len(p):].tolist())
+              for p, r in zip(prompts, run_b["results"])]
+        share_b = sum(a * k for a, _, k in tf) / sum(k for _, _, k in tf)
+        gap = max(g for _, g, _ in tf)
+        if run_b["killed_t"] is None:
+            raise AssertionError("phase 18 (b): r0's worker was never killed")
+        kill_to_last = run_b["end_t"] - run_b["killed_t"]
+        log(f"phase 18 (b) failover: r0 killed at its tick {FLEET_KILL_TICK} (worker alive after: "
+            f"{alive}); {len(run_b['results'])}/16 completed, none in an error; {len(moved)} moved "
+            f"to {sorted({r.replica_id for r in moved})} with failover_count "
+            f"{[r.failover_count for r in moved]}; failovers {m['failovers']} (planned drains "
+            f"{m['redistributed']}), retry budget spent {spent:.0f} = unplanned {unplanned}; "
+            f"{kill_to_last:.3f}s from the kill to the last result; {run_b['tokens_per_s']:.1f} "
+            f"tokens/s against (a)'s {out['a']['tokens_per_s']:.1f}; "
+            f"verify steps {run_b['delta']['verify']} of {run_b['delta']['steps']}; greedy tokens "
+            f"teacher-forced against the plain forward: argmax share {share_b:.4f} (min "
+            f"{GREEDY_SHARE_MIN}), largest gap {gap:.3f} bf16 ulps (limit {Q_NEAR_TIE_ULPS}) "
+            f"[{card}]")
+        if alive or not moved or any(r.replica_id != "r1" for r in moved) \
+                or round(spent) != unplanned + m["hedges"] or sum(r.failover_count for r in moved) != m["failovers"] \
+                or share_b < GREEDY_SHARE_MIN or gap > Q_NEAR_TIE_ULPS:
+            raise AssertionError(f"phase 18 (b): alive {alive}, moved "
+                                 f"{len(moved)}, spent {spent} of {unplanned} unplanned")
+        b_launches = {k: run_b["launches"][k] for k in fleet_expected(n_layers, run_b["delta"])}
+        out["b"] = dict(tokens_per_s=run_b["tokens_per_s"], kill_to_last_s=kill_to_last,
+                        moved=len(moved), failovers=m["failovers"], redistributed=m["redistributed"],
+                        budget_spent=spent, verify_steps=run_b["delta"]["verify"],
+                        greedy_share=share_b, greedy_gap_ulps=gap)
+        router.close()
+        del router, servers, run_b
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the breaker and the ladder, each against the JAX sequence
+        seen, counts, valid = breaker_cycle(dev, model)
+        ladder = ladder_run(dev, model)
+        log(f"phase 18 (c) breaker: {seen} counters {counts}; the probes' tokens valid {valid}; "
+            f"ladder: spec limits {ladder['limits']}, budgets {ladder['budgets']}, degraded "
+            f"{ladder['degraded']} (counter {ladder['counter']}) [{card}]")
+        if seen != BREAKER_SEQUENCE or counts != BREAKER_COUNTS or not valid:
+            raise AssertionError(f"phase 18 (c): the breaker's sequence {seen} {counts}, JAX's "
+                                 f"{BREAKER_SEQUENCE} {BREAKER_COUNTS}")
+        if ladder["degraded"] != LADDER_DEGRADED or ladder["budgets"] != LADDER_BUDGETS \
+                or ladder["limits"][0] != 4 or 0 not in ladder["limits"] or ladder["counter"] != 2:
+            raise AssertionError(f"phase 18 (c): the ladder {ladder}")
+        out["c"] = dict(breaker=seen, counts=counts, ladder=ladder)
+    finally:
+        tracing.configure(prev_tracing)
+        perfwatch.configure(ObservabilityConfig())
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"fleet": a_launches, "fleet_spec": b_launches}, out
+
+
 # dynamic shared memory of the tensor-core kernels' configurations (the
 # sources' MmaCfg): name fragment of the ptxas entry -> bytes per block, or
 # (bytes, threads) where a block is not 128 threads
@@ -5977,6 +6507,9 @@ def run_phases(args) -> int:
             with phase("17"):
                 tier_paths, summary["disaggregated"] = phase_disaggregated(dev, card, model)
             by_path.update(tier_paths)
+            with phase("18"):
+                fleet_paths, summary["fleet"] = phase_fleet(dev, card, model, summary["main_path"])
+            by_path.update(fleet_paths)
             # phase 12 before 8: phase 8 quantizes the model in place
             with phase("12"):
                 by_path["static"], summary["static_path"] = phase_static(dev, card, model)

@@ -364,14 +364,18 @@ def test_refusals_name_their_queue_items(tmp_path):
     acc.prepare(model, torch.optim.SGD(model.parameters(), lr=LR))
     with pytest.raises(NotImplementedError, match=r"PowerSGD.*ROADMAP.md A11\b"):
         acc.train_step(regression_loss)
-    # C5: ServingConfig takes every JAX field; what is not ported refuses a
-    # value other than its default, naming its item
-    for name, item in QUEUED_SERVING.items():
-        field = dataclasses.fields(ServingConfig)[[f.name for f in dataclasses.fields(
-            ServingConfig)].index(name)]
-        ServingConfig(**{name: field.default})
-        with pytest.raises(NotImplementedError, match=rf"{name}.*ROADMAP.md {item}\b"):
-            ServingConfig(**{name: _other(field.default)})
+    # C5: ServingConfig takes every JAX field. A10's serving half landed:
+    # the breaker, the ladder and the tracker interval take any valid value
+    # (and refuse an invalid one as the JAX config does); nothing refuses
+    # as "not ported"
+    for name, value in A10_SERVING.items():
+        assert getattr(ServingConfig(**{name: value}), name) == value
+        if name == "metrics_interval_s":
+            continue  # any value: the JAX config checks none
+        bad = 0.1 if name == "degrade_hard_fraction" else 0
+        for config_cls in (ServingConfig, jdc.ServingConfig):
+            with pytest.raises(ValueError, match=name):
+                config_cls(**{name: bad})
     # static mode landed with A8: its batching and retry knobs take any
     # valid value, and the slot engine's options name the mode they need
     lifted = dict(max_batch_size=3, batch_window_s=0.5, batch_bucket=False,
@@ -447,18 +451,11 @@ def test_refusals_name_their_queue_items(tmp_path):
     assert [str(f) for f in port.rglob("*.py") if re.search(r"ROADMAP\.md A4\b", f.read_text())] == []
 
 
-# C5's fields by the item that owns them (A3's host tier landed)
-QUEUED_SERVING = dict.fromkeys(("breaker_threshold", "breaker_reset_s", "degrade_queue_fraction",
-                                "degrade_hard_fraction", "degraded_max_new_tokens",
-                                "metrics_interval_s"), "A10")
-
-
-def _other(default):
-    if isinstance(default, bool):
-        return not default
-    if default is None:
-        return 1.0
-    return default * 2 + 1
+# C5's fields of A10's serving half, each with a valid value other than its
+# default (A3's host tier landed before)
+A10_SERVING = {"breaker_threshold": 7, "breaker_reset_s": 0.5, "degrade_queue_fraction": 0.25,
+               "degrade_hard_fraction": 0.9, "degraded_max_new_tokens": 4,
+               "metrics_interval_s": 0.5}
 
 
 def test_serving_config_takes_every_field_of_the_jax_config():
@@ -525,7 +522,6 @@ def test_init_empty_weights_include_buffers_and_sampler_generator():
 TPU = "TPU-only"
 SIGNATURE_EXEMPT = {
     "accelerator:Accelerator.train_step": {"donate": TPU, "flatten_params": TPU},
-    "engine:SlotOccupant.__init__": {"trace_id": "A10"},
     "kvcache:PagedKVLayout.commit_window": {"layer_cache": "renamed cache_leaf"},
     "models.llama:create_llama": {"abstract": "init_empty_weights builds it empty"},
     "models.llama:init_llama_params": {"key": "renamed generator (a torch.Generator)"},
@@ -548,11 +544,6 @@ SIGNATURE_EXEMPT = {
     "ops.paged_decode:paged_flash_decode": {"interpret": TPU},
     "ops.paged_decode:paged_flash_verify": {"interpret": TPU},
     "ops.quant_matmul:quantized_matmul": {"block_m": TPU, "block_n": TPU, "interpret": TPU},
-    "serving:InferenceServer.__init__": {"trackers": "A10", "replica_id": "A10"},
-    "serving:InferenceServer.submit": {"arrival_s": "A10", "trace_id": "A10"},
-    "serving:ServingMetrics.__init__": {"clock": "A10"},
-    "serving:ServingResult.__init__": {"degraded": "A10", "replica_id": "A10",
-                                       "failover_count": "A10"},
     "utils.quantization:quantize_model": {"model": "renamed module"},
 }
 

@@ -2,7 +2,8 @@
 
 On the CPU (no JAX imported, so the ``cuda``-marked tests also run on the
 card's machine without the suite's conftest): the launch counts a capture
-takes, the static block tables, the engine state that keeps its tensors
+takes, the one lock graph builds and replays hold, the static block
+tables, the engine state that keeps its tensors
 across a reset (a captured graph keeps their addresses), the private
 eager hook, and the fixed-shape draw that advances every slot's generator.
 
@@ -57,6 +58,73 @@ def test_capture_launches_takes_the_counts_and_restores_the_totals():
         _build.add_launches(captured)
     counts = _build.launch_counts()
     assert counts["fused_sample"] == 4 and counts["paged_decode_mma"] == 6
+    _build.reset_launch_counts()
+
+
+def test_graph_builds_and_replays_hold_one_lock(monkeypatch):
+    """Two static servers (or a static and a continuous replica) on one
+    card build and replay ``_Graph``s from their own threads: a build (the
+    eager warm-up and the capture, the collector off) holds the process's
+    one graph lock, and another thread's replay waits for it. torch's CUDA
+    graph is faked, so this runs on the CPU."""
+    import gc
+    import threading
+
+    class FakeGraph:
+        replays = 0
+
+        def register_generator_state(self, gen):
+            pass
+
+        def replay(self):
+            FakeGraph.replays += 1
+
+    @contextlib.contextmanager
+    def fake_capture(graph, stream=None, capture_error_mode=None):
+        yield
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", fake_capture)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda card: f"stream {card}")
+    monkeypatch.setattr(engine_mod, "_CAPTURE_STREAMS", {})
+    _build.reset_launch_counts()
+
+    calls = []
+
+    def body():
+        assert engine_mod._GRAPH_LOCK.locked()
+        calls.append(gc.isenabled())
+        _build.count_launch("fused_sample")
+
+    built = engine_mod._Graph(body, [])
+    assert calls == [True, False]  # the warm-up, then the capture with the collector off
+    assert built.launches == {"fused_sample": 1} and gc.isenabled()
+    assert engine_mod._CAPTURE_STREAMS == {0: "stream 0"}
+
+    inside, release, replayed = threading.Event(), threading.Event(), threading.Event()
+
+    def slow_body():
+        if len(calls) == 3:  # the capture: wait inside it
+            inside.set()
+            assert release.wait(10)
+        body()
+
+    def replay_other():
+        built.replay()
+        replayed.set()
+
+    builder = threading.Thread(target=engine_mod._Graph, args=(slow_body, []))
+    builder.start()
+    assert inside.wait(10)
+    replayer = threading.Thread(target=replay_other)
+    replayer.start()
+    assert not replayed.wait(0.2)  # the replay waits for the other thread's capture
+    release.set()
+    builder.join(10)
+    replayer.join(10)
+    assert replayed.is_set() and FakeGraph.replays == 1
+    assert _build.launch_counts()["fused_sample"] == 3  # two warm-ups and the one replay
     _build.reset_launch_counts()
 
 
@@ -200,3 +268,29 @@ def test_graph_engine_equals_the_eager_engine_on_card(cuda_device, kind, spec, c
     decode_steps = geng.steps - geng.spec_verify_steps
     assert glaunch[f"paged_decode{suffix}_mma"] == layers * decode_steps
     assert glaunch[f"paged_verify{suffix}_mma"] == layers * (geng.spec_verify_steps + geng.prefill_chunks)
+
+
+@pytest.mark.cuda
+def test_servers_on_two_cards_serve_from_one_process():
+    """Continuous servers on cuda:0 and cuda:1, built on this thread and
+    run by their own serving threads (a fleet across cards): each engine's
+    staging events and graph captures follow its card, not the building
+    or the first-capturing thread's, and both cards' greedy tokens are the
+    same bits."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs: one server a card in one process")
+    from accelerate_tpu_torch.serving import InferenceServer
+    from accelerate_tpu_torch.utils.dataclasses import ServingConfig
+
+    cfg = ServingConfig(mode="continuous", engine_slots=4, engine_max_len=128,
+                        engine_prompt_bucket=32, kv_cache="paged", attention_impl="kernel",
+                        engine_readback_lag=1)
+    devices = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    prompts = _prompts(512, n=6)
+    tokens = []
+    for dev in devices:
+        with InferenceServer(_model(dev, torch.bfloat16), cfg, device=dev) as srv:
+            tokens.append([srv.submit(p, max_new_tokens=12).result(timeout=300).tokens.tolist()
+                           for p in prompts])
+            assert len(srv.engine._graphs) == 2
+    assert tokens[0] == tokens[1]

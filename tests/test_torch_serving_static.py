@@ -190,9 +190,8 @@ def test_queue_full_rejects_with_typed_error():
             except Exception as exc:  # noqa: BLE001 - compared below
                 overload = (type(exc).__name__, exc.retriable)
             gate.set()
-            # a full queue is full occupancy: the JAX server's degradation
-            # ladder (A10 in the port) may clamp the budgets, but every
-            # admitted request completes
+            # a full queue is full occupancy: the degradation ladder may
+            # clamp the budgets, but every admitted request completes
             completed = [f.result(5).tokens.shape[0] >= 3 for f in [first, *queued]]
         finally:
             gate.set()
@@ -337,8 +336,8 @@ def test_retry_gives_up_after_budget():
 
 
 def test_failed_batches_retry_at_the_default_ladder():
-    # at their defaults both servers retry a failed batch twice; the JAX
-    # server's breaker (A10 in the port) stays closed at 3 failures of 5
+    # at their defaults both servers retry a failed batch twice; the
+    # breaker stays closed at 3 failures of 5
     def scenario(make, Config):
         calls = []
 
