@@ -41,8 +41,10 @@ checkpoint replication (``ReplicationConfig``, ``elastic.py``) and the
 consensus resume. Serving has the host-RAM KV tier and disaggregated
 prefill, and the control plane: the circuit breaker and degradation
 ladder, the span tracer (``tracing``), the perf observatory and metrics
-exporter (``perfwatch``), and ``FleetRouter`` over several servers with
-failover (ROADMAP.md lists what is still to be ported).
+exporter (``perfwatch``), ``FleetRouter`` over several servers with
+failover, the SLO controller that walks the fleet's ladder of knobs
+(``SLOController``) and the seeded chaos conductor with its invariant
+monitors (``chaos``) (ROADMAP.md lists what is still to be ported).
 """
 
 __version__ = "0.1.0"
@@ -160,7 +162,16 @@ _LAZY = {
     "FleetRouter": ("fleet", "FleetRouter"),
     "FleetMetrics": ("fleet", "FleetMetrics"),
     "FleetConfig": ("utils.dataclasses", "FleetConfig"),
+    "SLOController": ("controller", "SLOController"),
+    "ControllerConfig": ("utils.dataclasses", "ControllerConfig"),
+    "ControllerStaleError": ("utils.fault", "ControllerStaleError"),
     "FleetMembership": ("elastic", "FleetMembership"),
+    "chaos": ("chaos", None),
+    "ChaosRule": ("chaos", "ChaosRule"),
+    "ChaosSchedule": ("chaos", "ChaosSchedule"),
+    "ChaosConductor": ("chaos", "ChaosConductor"),
+    "InvariantMonitors": ("chaos", "InvariantMonitors"),
+    "InvariantViolation": ("chaos", "InvariantViolation"),
     "tracing": ("tracing", None),
     "Tracer": ("tracing", "Tracer"),
     "MetricsRegistry": ("tracing", "MetricsRegistry"),

@@ -1119,8 +1119,8 @@ class FleetRouter:
         while not self._stop.wait(self.config.probe_interval_s):
             self._probe_pass()
             self._replicate_hot_prefixes()
-            # freshness stamp an SLO controller's fail-static rule reads (the
-            # controller is queued, ROADMAP.md A10).
+            # the freshness stamp the SLO controller's fail-static rule
+            # reads (controller.py).
             # Stamped EVERY pass: probes are timeout-bounded and
             # concurrent, so one hung replica degrades into a brown-out
             # finding on THAT replica instead of staling this gauge and

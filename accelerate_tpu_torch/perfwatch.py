@@ -448,9 +448,8 @@ class PerfWatch:
 
     def consume_drift_findings(self) -> List[PerfDriftError]:
         """Drain the findings list (oldest first): the handoff to a
-        consumer that acts on drift (a controller that replaces the
-        replica; the SLO controller is queued, ROADMAP.md A10). A drained
-        finding is handled:
+        consumer that acts on drift (``controller.py``'s SLO controller
+        replaces the replica). A drained finding is handled:
         it will not be re-delivered, and the per-program dump budget
         (``_drift_dumped``) is left intact so a recurrence after the
         consumer's remediation still cannot storm dumps."""

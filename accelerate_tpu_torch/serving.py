@@ -557,12 +557,19 @@ class InferenceServer:
     def metrics_snapshot(self) -> dict:
         """One flat metrics dict for exporters and the fleet: the registry's
         snapshot with the engine's gauges read again (``engine.stats()``
-        reads host counters only), and the process's perf observatory
-        (``perf/<program>/...``)."""
+        reads host counters only), and the perf observatory
+        (``perf/<program>/...``): the one the engine bills (the process's
+        when the engine was built), else the process's. Replicas of one
+        process built each under a watch of its own (``perfwatch.configure``)
+        so report their own measured-vs-predicted ratios, as replicas in
+        processes of their own do, and the fleet's brown-out detector can
+        tell one slow replica from its peers."""
+        watch = perfwatch.get_watch()
         if self._engine is not None:
             self._sync_kv_gauges()
+            watch = self._engine._perfwatch
         out = self.metrics.registry.snapshot()
-        out.update(perfwatch.get_watch().snapshot())
+        out.update(watch.snapshot())
         return out
 
     # ------------------------------------------------------------ admission

@@ -2,7 +2,7 @@
 # The four-card runs of the PyTorch port, from the repository root on a
 # host with four cards (one process a card, NCCL):
 #
-#   bash accelerate_tpu_torch/test_utils/scripts/four_card_runs.sh [sanity|full|shallow|all|supervise|serve|fp8|disagg|fleet]
+#   bash accelerate_tpu_torch/test_utils/scripts/four_card_runs.sh [sanity|full|shallow|all|supervise|serve|fp8|disagg|fleet|control]
 #
 # sanity:  the sanity script (test_script.py) under --tp_size 4 and under
 #          --tp_size 2 --dp_shard_size 2
@@ -43,6 +43,13 @@
 #          cuda:0 alone, through the fleet (tokens bitwise), and with r0's
 #          worker killed mid-decode (every request finished on the others,
 #          bitwise) (chiprun_out/fleet_timing.json)
+# control (not part of all): control_timing.py, the SLO controller over a
+#          fleet that starts with one replica on cuda:0 and whose
+#          replica_factory takes the next idle card (max_replicas 4, each
+#          card its own copy of the 32-layer model), through a seeded ramp
+#          -> flash crowd -> drain of phase 7's mix scaled to four cards;
+#          then four static replicas over the same arrivals: replica-seconds
+#          and TTFT p99 against the SLO for both (chiprun_out/control_timing.json)
 # Each timing run writes chiprun_out/train_timing_<layout>_<layers>l.json
 # (fp8: train_timing_<layout>_32l_fp8.json)
 # (serve: serve_timing_<layout>_32l.json and
@@ -87,6 +94,9 @@ if [[ $what == serve ]]; then
 fi
 if [[ $what == fleet ]]; then
   python -m accelerate_tpu_torch.test_utils.scripts.fleet_timing --layers 32
+fi
+if [[ $what == control ]]; then
+  python -m accelerate_tpu_torch.test_utils.scripts.control_timing --layers 32
 fi
 if [[ $what == disagg ]]; then
   python -m accelerate_tpu_torch.test_utils.scripts.disagg_timing --layers 32

@@ -32,6 +32,7 @@ from typing import Optional
 import torch
 
 __all__ = [
+    "ControllerConfig",
     "DataLoaderConfiguration",
     "DistributedDataParallelKwargs",
     "FSDPPlugin",
@@ -892,3 +893,92 @@ class FleetConfig(KwargsHandler):
                 "replicate_hot_prefixes must be >= 0, got "
                 f"{self.replicate_hot_prefixes}"
             )
+
+
+@dataclass
+class ControllerConfig(KwargsHandler):
+    """Knobs of :class:`accelerate_tpu_torch.controller.SLOController`, the
+    closed loop over a fleet (the JAX package's fields, defaults and
+    checks). Every way a controller could destabilise what it controls
+    has a guard here.
+
+    * Loop and objectives: a tick each ``interval_s``; the pressure is the
+      worst measured/objective ratio of the TTFT p99 (``ttft_slo_s``), the
+      latency p99 (``latency_slo_s``), the queue occupancy
+      (``target_queue_fraction``), the open breakers and the KV-transfer
+      failure fraction times ``transfer_pressure_weight``; ``None`` turns a
+      latency term off, a weight of 0 the transfer term.
+    * Hysteresis: pressure at or above ``escalate_threshold`` engages one
+      rung, at or below ``relax_threshold`` releases one, and between them
+      nothing moves. A knob moves at most once a ``knob_cooldown_s``, the
+      replica count once a ``scale_cooldown_s``.
+    * Storm control: every actuation takes a token of a bucket of
+      ``actuation_budget_capacity`` refilled at
+      ``actuation_budget_refill_per_s``.
+    * Fail-static: a snapshot older than ``stale_after_s`` (the prober's
+      last pass) or fewer than ``min_coverage`` of the replicas readable
+      freezes actuation with one
+      :class:`~accelerate_tpu_torch.utils.fault.ControllerStaleError` an
+      episode.
+    * Replicas: between ``min_replicas`` and ``max_replicas`` (scaling
+      needs the router's ``replica_factory``); ``replace_on_drift``
+      answers perfwatch's drift findings by replacing a replica, whose
+      drain is bounded by ``replace_drain_timeout_s``.
+    * ``dry_run``: decide, count and trace, touch nothing."""
+
+    interval_s: float = 0.5
+    ttft_slo_s: Optional[float] = 1.0
+    latency_slo_s: Optional[float] = None
+    target_queue_fraction: float = 0.5
+    escalate_threshold: float = 1.0
+    relax_threshold: float = 0.6
+    knob_cooldown_s: float = 2.0
+    scale_cooldown_s: float = 5.0
+    actuation_budget_capacity: int = 8
+    actuation_budget_refill_per_s: float = 0.5
+    stale_after_s: float = 2.0
+    min_coverage: float = 1.0
+    min_replicas: int = 1
+    max_replicas: int = 8
+    replace_on_drift: bool = True
+    replace_drain_timeout_s: float = 5.0
+    transfer_pressure_weight: float = 2.0
+    dry_run: bool = False
+
+    def __post_init__(self):
+        if self.interval_s <= 0:
+            raise ValueError(f"interval_s must be > 0, got {self.interval_s}")
+        if self.ttft_slo_s is not None and self.ttft_slo_s <= 0:
+            raise ValueError(f"ttft_slo_s must be None or > 0, got {self.ttft_slo_s}")
+        if self.latency_slo_s is not None and self.latency_slo_s <= 0:
+            raise ValueError(f"latency_slo_s must be None or > 0, got {self.latency_slo_s}")
+        if not 0 < self.target_queue_fraction <= 1:
+            raise ValueError(
+                f"target_queue_fraction must be in (0, 1], got {self.target_queue_fraction}")
+        if self.relax_threshold < 0 or self.escalate_threshold <= self.relax_threshold:
+            raise ValueError(
+                "hysteresis band requires 0 <= relax_threshold < escalate_threshold, got "
+                f"{self.relax_threshold}/{self.escalate_threshold}")
+        if self.knob_cooldown_s < 0 or self.scale_cooldown_s < 0:
+            raise ValueError(
+                f"cooldowns must be >= 0, got {self.knob_cooldown_s}/{self.scale_cooldown_s}")
+        if self.actuation_budget_capacity < 1:
+            raise ValueError(
+                f"actuation_budget_capacity must be >= 1, got {self.actuation_budget_capacity}")
+        if self.actuation_budget_refill_per_s < 0:
+            raise ValueError("actuation_budget_refill_per_s must be >= 0, got "
+                             f"{self.actuation_budget_refill_per_s}")
+        if self.stale_after_s <= 0:
+            raise ValueError(f"stale_after_s must be > 0, got {self.stale_after_s}")
+        if not 0 < self.min_coverage <= 1:
+            raise ValueError(f"min_coverage must be in (0, 1], got {self.min_coverage}")
+        if not 1 <= self.min_replicas <= self.max_replicas:
+            raise ValueError(
+                "replica bounds require 1 <= min_replicas <= max_replicas, got "
+                f"{self.min_replicas}/{self.max_replicas}")
+        if self.replace_drain_timeout_s < 0:
+            raise ValueError(
+                f"replace_drain_timeout_s must be >= 0, got {self.replace_drain_timeout_s}")
+        if self.transfer_pressure_weight < 0:
+            raise ValueError(
+                f"transfer_pressure_weight must be >= 0, got {self.transfer_pressure_weight}")

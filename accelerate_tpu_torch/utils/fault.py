@@ -11,8 +11,8 @@ never imports the JAX package.
   process, and a programmatic conductor hook for seeded schedules.
 * A preemption handler: SIGTERM/SIGINT join in-flight async saves, write
   one committed emergency checkpoint, drain the checkpoint replicator and
-  exit with :data:`PREEMPTION_EXIT_CODE`; a signal during a save waits for
-  its commit. Before it exits, the rank leaves a marker in
+  exit with :data:`PREEMPTION_EXIT_CODE` (``os._exit``: nothing can swallow
+  it); a signal during a save waits for its commit. Before it exits, the rank leaves a marker in
   ``ACCELERATE_PREEMPTION_DIR`` (exported by the launch supervisor): under
   torchrun, which exits 1 whatever its workers' codes, the markers are how
   the supervisor tells a planned shutdown from a crash.
@@ -27,12 +27,14 @@ never imports the JAX package.
   (the server's breaker is open), :class:`NoHealthyReplicaError` and
   :class:`FailoverExhaustedError` (``fleet.py``), and the findings of the
   perf observatory (``perfwatch.py``): :class:`PerfDriftError` and its
-  fleet kind :class:`ReplicaBrownoutError`.
+  fleet kind :class:`ReplicaBrownoutError`; the SLO controller's
+  fail-static finding :class:`ControllerStaleError` (``controller.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
 import os
 import random
 import signal
@@ -83,6 +85,7 @@ __all__ = [
     "EngineCapacityError",
     "PerfDriftError",
     "ReplicaBrownoutError",
+    "ControllerStaleError",
     "EngineInvariantError",
     "KVTransferError",
     "TransferAbortedError",
@@ -328,6 +331,32 @@ class ReplicaBrownoutError(PerfDriftError):
         )
 
 
+class ControllerStaleError(RuntimeError):
+    """The SLO controller's telemetry was stale or partial at a tick: the
+    prober has not refreshed the fleet snapshot within ``stale_after_s``,
+    or fewer than ``min_coverage`` of the live replicas answered a health
+    read. Recorded, never raised across the control loop, by
+    :class:`accelerate_tpu_torch.controller.SLOController` as its
+    fail-static finding: actuation freezes until telemetry is fresh again.
+    Carries the evidence (``reason``, ``age_s``, ``coverage``)."""
+
+    def __init__(self, reason: str, *, age_s: Optional[float] = None,
+                 coverage: Optional[float] = None):
+        self.reason = reason
+        self.age_s = age_s
+        self.coverage = coverage
+        detail = []
+        if age_s is not None:
+            detail.append(f"snapshot age {age_s:.3f}s")
+        if coverage is not None:
+            detail.append(f"replica coverage {coverage:.0%}")
+        suffix = f" ({', '.join(detail)})" if detail else ""
+        super().__init__(
+            f"controller telemetry unusable: {reason}{suffix} — "
+            "actuation frozen (fail-static)"
+        )
+
+
 class FaultInjected(RuntimeError):
     """Raised by :func:`fault_point` for ``point:raise`` specs."""
 
@@ -524,7 +553,7 @@ def emergency_exit(accelerator, exit_code: int = PREEMPTION_EXIT_CODE) -> None:
     _PREEMPTION["in_handler"] = True  # a later signal is absorbed
     _emergency_save(accelerator, signal.SIGTERM)
     _report_preempted()
-    sys.exit(exit_code)
+    _exit_committed(exit_code)
 
 
 def install_preemption_handler(accelerator, signals: tuple = (signal.SIGTERM, signal.SIGINT),
@@ -551,7 +580,7 @@ def install_preemption_handler(accelerator, signals: tuple = (signal.SIGTERM, si
         # in_handler stays set: a signal that arrives on the way out (torchrun
         # passes one on to the ranks still running) is absorbed
         _report_preempted()
-        sys.exit(exit_code)
+        _exit_committed(exit_code)
 
     for sig in signals:
         signal.signal(sig, _handler)
@@ -627,7 +656,26 @@ def mark_save_finished(accelerator=None, path: Optional[str] = None,
         if accelerator is not None:
             accelerator.end_training()
     _report_preempted()
-    sys.exit(exit_code if exit_code is not None else PREEMPTION_EXIT_CODE)
+    _exit_committed(exit_code if exit_code is not None else PREEMPTION_EXIT_CODE)
+
+
+def _exit_committed(exit_code: int) -> None:
+    """End the process with ``exit_code`` once its emergency checkpoint is
+    committed. Not ``sys.exit``: the handler runs in whatever frame the
+    signal interrupted, and some frames drop what is raised in them. A
+    file object's finalizer flushes its buffer, checks for signals there
+    and clears the handler's ``SystemExit``; the training loop then went on
+    past its emergency checkpoint and exited 0. What the interpreter's exit
+    would still do for the port, ``end_training`` has done (async saves
+    joined, the replicator drained, trackers finished); the standard
+    streams and the logging handlers are flushed here."""
+    for stream in (sys.stdout, sys.stderr):
+        try:
+            stream.flush()
+        except (OSError, ValueError):  # closed or gone: nothing left to flush
+            pass
+    logging.shutdown()
+    os._exit(exit_code)
 
 
 def _save_failed() -> None:

@@ -14,7 +14,9 @@ under tensor parallelism; static generation (``generate`` and the static
 by the launcher through a crash, a preemption and a hang; static
 generation over a mesh (tensor parallelism alone and under FSDP2); and
 a fleet of two replicas behind ``FleetRouter`` with failover, the circuit
-breaker, the degradation ladder, tracing and perfwatch.
+breaker, the degradation ladder, tracing and perfwatch; the SLO controller
+walking its ladder over that fleet through a flash crowd, and the seeded
+chaos conductor with its invariant monitors.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -124,8 +126,40 @@ Phases (any failure exits non-zero and prints no result):
      neighbours); (c) the static server's breaker on an injected clock and
      the continuous server's ladder on one slot, each against the sequence
      tests/test_torch_serving_control.py holds to the JAX server's. The
-     fleets close and the engines are freed before phase 12
- 12. (run right after 18, on its model, before 8 quantizes it) static
+     fleets close and the engines are freed before phase 19
+ 19. (run right after 18, on phase 4's model) the control plane: two
+     continuous servers of phase 7's kind ("r0", "r1": speculation, 512-token
+     chunks), each engine billing a perfwatch of its own with phase 18's
+     H100 baseline, behind a ``FleetRouter`` whose ``replica_factory``
+     builds "ctl-N" over the same model (free card memory checked first):
+     (a) ``SLOController`` through a seeded ramp -> flash crowd -> drain of
+     phase 7's mix (``test_utils/arrivals.py``; rates shares of phase 18's
+     tokens/s, the crowd twice it, the TTFT SLO twice phase 18's p99; two
+     chunks a tick, so that the longctx rung halves rather than pauses
+     them): the rungs
+     engage in the JAX order up to scale (a third replica) and release in
+     reverse, the added replica drained first, no future dropped, every
+     failure typed (``ServerOverloaded`` with its ``retry_after_s``), the
+     greedy tokens held by phase 12's rule, r0's and r1's programs and
+     graphs unchanged; B1/B4/B5/B6 counted (control) against the engines'
+     counters; the rung timeline with its pressure, TTFT p50/p99 by phase,
+     tokens/s, replica-seconds against three static replicas over the same
+     window, the tick's ms and the seconds the new replica's graph builds
+     held the graph lock every engine's replays take; (c) fail-static:
+     ``controller_observe:raise`` armed under load freezes actuation with
+     one ``ControllerStaleError`` and no actuation, disarming it thaws;
+     (d) docs/control_plane.md's chaos plan (r0 straggling 0.45 s an
+     admission from the crowd on, ``fleet_probe`` flaky at p = 0.2 in the
+     crowd, one raise in r1's admission) over a shorter schedule, under
+     ``InvariantMonitors`` (every future, every registry, the traces):
+     clean, one kill, the firing sequence replayed twice; goodput and TTFT
+     p99 against the same arrivals without chaos, beside chaos_bench.py's
+     0.85x and 1.5x (printed: the replicas share one card); (b) drift: r0
+     slowed 0.1 s an admission by a ``ChaosRule``, its perfwatch's
+     measured-against-baseline ratio past its peers' makes the fleet file
+     one brown-out finding naming it, and the controller replaces it: a
+     fresh replica up, r0 drained, no future dropped
+ 12. (run right after 19, on its model, before 8 quantizes it) static
      generation: (a) ``generate`` at B = 8, a 512-token prompt and 128 new
      tokens, greedy, under the dense, paged and paged_int8 KV backends:
      eagerly (``engine._disable_graphs``), then twice through its CUDA
@@ -307,6 +341,7 @@ The line before the last is the ``kernels`` JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -5930,21 +5965,34 @@ def fleet_baseline(path, model, prompts, new_tokens):
     """(d)'s baseline for the card: ``decode_step`` at its bytes bound, the
     weights and the live KV of 8 slots at the mix's mean position over
     3.35 TB/s; ``prefill_insert`` at the larger of its bytes and its bf16
-    operations (2 per parameter and prompt token, the 512 bucket)."""
+    operations (2 per parameter and prompt token, the 512 bucket).
+    ``verify_step`` (8 slots of a draft and its token) and ``prefill_chunk``
+    (a 512-token chunk) the same way: a window's time is split by the
+    predictions of the programs that retired in it, and one without a
+    prediction would bill its time to its neighbours."""
     cfg = model.config
     weights = sum(p.numel() * p.element_size() for p in model.parameters())
     params = sum(p.numel() for p in model.parameters())
     kv_per_pos = 2 * cfg.num_hidden_layers * cfg.num_key_value_heads * cfg.head_dim * 2
     mean_pos = float(np.mean([len(p) for p in prompts])) + new_tokens / 2
     decode_s = (weights + 8 * mean_pos * kv_per_pos) / HBM_BYTES_PER_S
+    bf16 = PEAK_FLOPS[torch.bfloat16]
     bucket = SERVING["engine_prompt_bucket"]
-    prefill_s = max(weights / HBM_BYTES_PER_S, 2 * params * bucket / PEAK_FLOPS[torch.bfloat16])
+    prefill_s = max(weights / HBM_BYTES_PER_S, 2 * params * bucket / bf16)
+    window = 8 * (SPEC_SERVING["spec_draft_len"] + 1)
+    verify_s = max(decode_s, 2 * params * window / bf16)
+    chunk = SPEC_SERVING["engine_prefill_chunk"]
+    chunk_s = max(weights / HBM_BYTES_PER_S, 2 * params * chunk / bf16)
     family = perf_family(SERVING)
     doc = {"chip": "h100", "tolerance": 0.05, "programs": {
         f"{family}/decode_step": {"predicted_s": decode_s, "bound": "hbm", "flops": 2 * params * 8,
                                   "tok_s": 8 / decode_s},
         f"{family}/prefill_insert": {"predicted_s": prefill_s, "bound": "flops",
-                                     "flops": 2 * params * bucket}}}
+                                     "flops": 2 * params * bucket},
+        f"{family}/verify_step": {"predicted_s": verify_s, "bound": "hbm",
+                                  "flops": 2 * params * window},
+        f"{family}/prefill_chunk": {"predicted_s": chunk_s, "bound": "flops",
+                                    "flops": 2 * params * chunk}}}
     Path(path).write_text(json.dumps(doc))
     return dict(decode_s=decode_s, prefill_s=prefill_s, weights_bytes=weights,
                 kv_bytes=8 * mean_pos * kv_per_pos)
@@ -6280,6 +6328,427 @@ def phase_fleet(dev, card, model, phase4):
     return {"fleet": a_launches, "fleet_spec": b_launches}, out
 
 
+# ----------------------------------------------------------------- phase 19
+# phase 7's server with a bounded queue the admission rung can halve
+CONTROL_SERVING = dict(SPEC_SERVING, kv_cache="paged", max_queue=24)
+# the hedge rung's knob is set; the brown-out detector's perf term stays
+# off until (b) arms it (three engine threads share the card and the host)
+CONTROL_FLEET = dict(FLEET_CONFIG, probe_interval_s=0.1, hedge_deadline_fraction=0.5,
+                     brownout_residual_ratio=1e9)
+CONTROL_LOOP = dict(interval_s=0.2, knob_cooldown_s=0.2, scale_cooldown_s=1.0,
+                    actuation_budget_capacity=32, actuation_budget_refill_per_s=5.0,
+                    stale_after_s=5.0, min_replicas=2, max_replicas=3, replace_on_drift=False)
+# (a)'s rates in shares of phase 18's tokens/s (the crowd: twice it)
+CONTROL_SCHEDULE = dict(base=0.3, peak=0.7, crowd=2.0, ramp_s=4.0, flash_s=4.0, drain_s=4.0)
+CHAOS_SCHEDULE = dict(base=0.3, peak=0.6, crowd=1.5, ramp_s=3.0, flash_s=3.0, drain_s=3.0)
+CONTROL_SEED = 19
+# phase 7's long prompts take three chunks a request, phase 4's none: the
+# SLO is this many times phase 18's TTFT p99, which the ramp keeps and the
+# crowd breaches
+CONTROL_SLO_X = 2.0
+# chunks a tick: the longctx rung halves 2 to 1 and relaxes back; from the
+# engine's default of 1 it would pause chunked prefill, and each paused
+# long prompt holds its slot until the rung is released
+CONTROL_CHUNK_LIMIT = 2
+CONTROL_RELAX_S = 90.0  # the longest wait for the ladder's way back
+CONTROL_WINDOW = 8  # each replica's perfwatch reservoir: (b)'s drift shows in 4 windows
+DRIFT_SLEEP_S = 0.1
+DRIFT_REQUESTS = 48  # at once: placed about evenly before either replica admits any
+DRIFT_BURST_S = 0.05
+# budgets of 1-12 tokens: slots free at different ticks, so while its
+# queue lasts r0 admits (and sleeps) in nearly every window its perfwatch
+# bills, and the median of its last CONTROL_WINDOW windows moves
+DRIFT_BUDGETS = 12
+DRIFT_AFTER_S = 0.3
+CHAOS_GATE = (0.85, 1.5)  # benchmarks/chaos_bench.py: goodput >= 0.85x, TTFT p99 <= 1.5x
+
+
+def wait_until(predicate, timeout_s, interval_s=0.02):
+    deadline = time.perf_counter() + timeout_s
+    while time.perf_counter() < deadline:
+        if predicate():
+            return True
+        time.sleep(interval_s)
+    return predicate()
+
+
+def longest_distinct(pairs):
+    """``(prompt index, tokens)`` pairs less the ones whose tokens are a
+    prefix of another's for the same prompt (a clamped budget's)."""
+    keep = []
+    for i, toks in sorted(set(pairs), key=lambda p: -len(p[1])):
+        if not any(j == i and other[:len(toks)] == toks for j, other in keep):
+            keep.append((i, toks))
+    return keep
+
+
+def phase_control(dev, card, model, phase18):
+    """Phase 19: the SLO controller and the chaos conductor over a fleet on
+    the card. Returns the launches of (a) (``control``) and the numbers."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch import chaos, perfwatch, tracing
+    from accelerate_tpu_torch import engine as engine_mod
+    from accelerate_tpu_torch.controller import SLOController
+    from accelerate_tpu_torch.fleet import FleetRouter
+    from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.serving import InferenceServer
+    from accelerate_tpu_torch.test_utils import arrivals
+    from accelerate_tpu_torch.test_utils.scripts import control_timing as ct
+    from accelerate_tpu_torch.utils.dataclasses import (ControllerConfig, FleetConfig,
+                                                        ObservabilityConfig, ServingConfig,
+                                                        TracingConfig)
+    from accelerate_tpu_torch.utils.fault import FAULT_INJECT_ENV, ControllerStaleError
+
+    cfg = model.config
+    n_layers = cfg.num_hidden_layers
+    prompts, warm = spec_traffic(cfg.vocab_size), spec_warm(cfg.vocab_size)
+    bucket = CONTROL_SERVING["engine_prompt_bucket"]
+    greedy = [len(p) <= bucket for p in prompts]  # phase 7's: drafter-friendly greedy, long sampled
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_control_")
+    prev_tracing = tracing.get_tracer().config
+    built, single, builds = {}, {}, []
+    real_graph_init = engine_mod._Graph.__init__
+
+    def timed_graph_init(self, body, generators):
+        # a build holds the one graph lock every engine's replays take
+        t0 = time.perf_counter()
+        real_graph_init(self, body, generators)
+        builds.append(time.perf_counter() - t0)
+
+    def server(rid):
+        """A continuous replica over ``model``, warmed: its programs captured
+        before traffic. Its single-shot prefills are counted (B1's launches
+        are L each)."""
+        srv = InferenceServer(model, ServingConfig(**CONTROL_SERVING), replica_id=rid, device=dev)
+        eng, single[rid] = srv.engine, 0
+        eng.set_prefill_chunk_limit(CONTROL_CHUNK_LIMIT)
+        real_insert = eng.insert
+
+        def insert(prompt, *args, **kwargs):
+            single[rid] += len(prompt) <= eng.prompt_bucket
+            return real_insert(prompt, *args, **kwargs)
+
+        eng.insert = insert
+        # one at a time: the random prompts alone step through decode_step;
+        # then drafter-friendly prompts until the drafter's first proposal
+        # has built verify_step
+        for p in warm:
+            srv.submit(p, max_new_tokens=8).result(timeout=300)
+        for p in [p for p, g in zip(prompts, greedy) if g]:
+            if "verify_step" in eng.stats()["programs"]:
+                break
+            srv.submit(p, max_new_tokens=SPEC_NEW_TOKENS).result(timeout=300)
+        have = eng.stats()["programs"]
+        if have != JAX_PROGRAMS["spec"]:
+            raise AssertionError(f"phase 19: {rid}'s warm-up built {have}, JAX's spec engine "
+                                 f"compiles {JAX_PROGRAMS['spec']}")
+        # from here the replica bills a watch of its own, which its
+        # metrics_snapshot() reports: the warm-up's eager runs and captures
+        # are not among its windows
+        eng._perfwatch = perfwatch.PerfWatch(obs)
+        built[rid] = srv
+        return srv
+
+    def counters(rid):
+        eng = built[rid].engine
+        return dict(steps=eng.steps, verify=eng.spec_verify_steps, chunks=eng.prefill_chunks,
+                    single=single[rid])
+
+    def programs(rid):
+        eng = built[rid].engine
+        return eng.stats()["programs"], sorted(eng.graph_launches())
+
+    kv_bytes = (2 * n_layers * cfg.num_key_value_heads * cfg.head_dim * 2
+                * CONTROL_SERVING["engine_slots"] * CONTROL_SERVING["engine_max_len"])
+    scaled = {}
+
+    def factory(rid):
+        free, total = torch.cuda.mem_get_info(dev)
+        if free < 2 * kv_bytes:
+            raise AssertionError(f"phase 19: {free / 1e9:.2f} GB free of {total / 1e9:.2f}, a "
+                                 f"replica's pool takes {kv_bytes / 1e9:.2f}")
+        t0, n0 = time.perf_counter(), len(builds)
+        srv = server(rid)
+        scaled[rid] = dict(build_s=time.perf_counter() - t0, graphs=len(builds) - n0,
+                           graph_lock_s=sum(builds[n0:]), max_graph_s=max(builds[n0:], default=0.0),
+                           free_gb=free / 1e9, total_gb=total / 1e9, pool_gb=kv_bytes / 1e9)
+        return srv
+
+    out, router = {}, None
+    try:
+        engine_mod._Graph.__init__ = timed_graph_init
+        tracing.configure(TracingConfig(dump_dir=tmp))
+        fleet_baseline(os.path.join(tmp, "baseline.json"), model, prompts, SPEC_NEW_TOKENS)
+        obs = ObservabilityConfig(baseline_path=os.path.join(tmp, "baseline.json"),
+                                  window=CONTROL_WINDOW)
+        for rid in FLEET_REPLICAS:
+            server(rid)
+        # the process's watch: the findings the controller answers
+        fleet_watch = perfwatch.configure(obs)
+        router = FleetRouter({rid: built[rid] for rid in FLEET_REPLICAS},
+                             FleetConfig(**CONTROL_FLEET), replica_factory=factory)
+
+        # (a) the loop through a flash crowd
+        cap = phase18["a"]["tokens_per_s"] / SPEC_NEW_TOKENS
+        slo = CONTROL_SLO_X * phase18["a"]["ttft_p99_s"]
+        cs = CONTROL_SCHEDULE
+        sched = arrivals.ramp_flash_crowd_drain(
+            base_rps=cs["base"] * cap, peak_rps=cs["peak"] * cap, ramp_s=cs["ramp_s"],
+            flash_s=cs["flash_s"], drain_s=cs["drain_s"], flash_multiplier=cs["crowd"] / cs["peak"],
+            seed=CONTROL_SEED)
+        order = arrivals.prompt_order(len(sched), len(prompts), seed=CONTROL_SEED)
+        programs0 = {rid: programs(rid) for rid in FLEET_REPLICAS}
+        ctl = SLOController(router, ControllerConfig(ttft_slo_s=slo, **CONTROL_LOOP),
+                            watch=fleet_watch)
+        ticks = ct.timed_ticks(ctl)
+        before = {rid: counters(rid) for rid in built}
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        try:
+            with ct.FleetMeter(router, ctl) as meter:
+                ctl.start()
+                run = ct.drive(router, sched, prompts, order, greedy, new_tokens=SPEC_NEW_TOKENS)
+                relaxed = wait_until(lambda: not ctl.engaged_rungs()
+                                     and router.replica_ids() == list(FLEET_REPLICAS),
+                                     CONTROL_RELAX_S)
+        finally:
+            ctl.close()
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+        delta = {k: sum(counters(rid)[k] - before.get(rid, {}).get(k, 0) for rid in built)
+                 for k in ("steps", "verify", "chunks", "single")}
+        expected = expected_launches(n_layers, delta, delta["single"])
+        check_launches("phase 19 (a)", launches, expected)
+        events = ct.ladder_events(meter.timeline)
+        problems = ct.ladder_problems(meter.timeline, len(FLEET_REPLICAS))
+        reached = any(len(reps) > len(FLEET_REPLICAS) and rungs == tuple(ct.RUNG_ORDER)
+                      for _, rungs, reps, _ in meter.timeline)
+        ups = [rid for _, kind, rid, _ in events if kind == "up"]
+        downs = [rid for _, kind, rid, _ in events if kind == "down"]
+        same_programs = {rid: programs(rid) == programs0[rid] for rid in FLEET_REPLICAS}
+        cfg_r = dataclasses.replace(cfg, attention_impl="xla")
+        pairs = [(r["prompt"], tuple(int(t) for t in r["outcome"].tokens[len(prompts[r["prompt"]]):]))
+                 for r in run["requests"]
+                 if greedy[r["prompt"]] and not isinstance(r["outcome"], BaseException)]
+        tf = [teacher_forced_ulps(cfg_r, model.params, prompts[i], list(toks))
+              for i, toks in longest_distinct(pairs)]
+        share = sum(a * k for a, _, k in tf) / max(1, sum(k for _, _, k in tf))
+        gap = max((g for _, g, _ in tf), default=0.0)
+        window = meter.window_s
+        new_rid = ups[0] if ups else None
+        stall = scaled.get(new_rid, {})
+        timeline = [(t, kind, what, None if p is None else round(p, 3)) for t, kind, what, p in events]
+        log(f"phase 19 (a) SLOController over r0, r1 (phase 7's servers, max_queue "
+            f"{CONTROL_SERVING['max_queue']}) through a seeded ramp -> crowd -> drain of phase 7's "
+            f"mix: {len(sched)} arrivals {sched.phase_counts()} at {cs['base']}-{cs['peak']} of "
+            f"phase 18's {phase18['a']['tokens_per_s']:.1f} tokens/s, the crowd {cs['crowd']}x; TTFT "
+            f"SLO {slo:.4f}s ({CONTROL_SLO_X} x phase 18's p99); chunks a tick "
+            f"{CONTROL_CHUNK_LIMIT}; rungs (t s, action, what, pressure): {timeline}; "
+            f"{run['completed']} completed ({run['degraded']} degraded), failures {run['typed']}, "
+            f"retry_after_s {sorted(set(round(h, 3) for h in run['retry_after_s']))[:6]}, untyped "
+            f"{len(run['untyped'])}, dropped {run['dropped']} [{card}]")
+        log(f"phase 19 (a) TTFT by phase { {k: {kk: (round(vv, 4) if isinstance(vv, float) else vv) for kk, vv in v.items()} for k, v in run['ttft_by_phase'].items()} }; "
+            f"{run['tokens_per_s']:.1f} tokens/s; replica-seconds {meter.replica_seconds:.2f} against "
+            f"{3 * window:.2f} for three static replicas over the same {window:.2f}s window "
+            f"({meter.replica_seconds / (3 * window):.3f}); controller tick ms p50 "
+            f"{ct.pct(ticks, 50):.3f} max {max(ticks):.3f} ({len(ticks)} ticks; the scale tick builds "
+            f"the replica); {new_rid}: built in {stall.get('build_s', 0.0):.2f}s, {stall.get('graphs')} "
+            f"graph builds held the graph lock {stall.get('graph_lock_s', 0.0):.3f}s (longest "
+            f"{stall.get('max_graph_s', 0.0):.3f}s), stalling every other engine's replays that long; "
+            f"free memory before it {stall.get('free_gb', 0.0):.2f} of {stall.get('total_gb', 0.0):.2f} "
+            f"GB (its pool {stall.get('pool_gb', 0.0):.2f}); programs unchanged {same_programs}; "
+            f"greedy tokens teacher-forced: share {share:.4f} (min {GREEDY_SHARE_MIN}), largest gap "
+            f"{gap:.3f} bf16 ulps (limit {Q_NEAR_TIE_ULPS}), {len(tf)} distinct sequences [{card}]")
+        if problems or not relaxed or not reached or set(downs) != set(ups) \
+                or run["dropped"] or run["untyped"] \
+                or not all(h is not None and h > 0 for h in run["retry_after_s"]) \
+                or not all(same_programs.values()) or share < GREEDY_SHARE_MIN or gap > Q_NEAR_TIE_ULPS:
+            raise AssertionError(f"phase 19 (a): problems {problems[:3]}, relaxed {relaxed}, "
+                                 f"scale reached {reached}, up {ups}, down {downs}, dropped "
+                                 f"{run['dropped']}, untyped {run['untyped'][:3]}, programs "
+                                 f"before {programs0} after "
+                                 f"{ {rid: programs(rid) for rid in FLEET_REPLICAS} }, share "
+                                 f"{share}, gap {gap}")
+        a_launches = {k: launches[k] for k in expected}
+        out["a"] = dict(ct.summary(run), events=timeline, replica_seconds=meter.replica_seconds,
+                        static_replica_seconds=3 * window, window_s=window, slo_s=slo,
+                        tick_ms_p50=ct.pct(ticks, 50), tick_ms_max=max(ticks), ticks=len(ticks),
+                        scale=stall, greedy_share=share, greedy_gap_ulps=gap, delta=delta)
+        for rid in list(built):
+            if rid not in router.replica_ids():
+                built.pop(rid)  # drained and closed by scale_down
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) fail-static under load: the observe path blinded, then not
+        ctl = SLOController(router, ControllerConfig(
+            ttft_slo_s=None, target_queue_fraction=0.05, knob_cooldown_s=0.0, scale_cooldown_s=0.0,
+            min_replicas=2, max_replicas=2, stale_after_s=30.0, replace_on_drift=False),
+            watch=fleet_watch)
+        ctl.tick()
+        futs = [router.submit(p, max_new_tokens=SPEC_NEW_TOKENS, **ct.request_kwargs(g, i))
+                for i, (p, g) in enumerate(zip(prompts, greedy))]
+        wait_until(lambda: any(s.health()["queue_depth"] for s in router.servers().values()), 30)
+        acts = ctl.metrics["actuations"]
+        os.environ[FAULT_INJECT_ENV] = "controller_observe:raise"
+        try:
+            for _ in range(5):
+                ctl.tick()
+            frozen, findings = ctl.frozen, ctl.stale_findings()
+            frozen_acts = ctl.metrics["actuations"] - acts
+        finally:
+            os.environ.pop(FAULT_INJECT_ENV, None)
+        ctl.tick()
+        thawed, recoveries = not ctl.frozen, ctl.metrics["recoveries"]
+        resumed = ctl.metrics["actuations"] - acts
+        outcomes = [f.exception(timeout=300) for f in futs]
+        for _ in range(20):  # idle: one rung released a tick
+            if not ctl.engaged_rungs():
+                break
+            ctl.tick()
+        ctl.close()
+        log(f"phase 19 (c) fail-static: controller_observe:raise armed for 5 ticks under 16 queued "
+            f"requests: frozen {frozen}, findings {[type(f).__name__ for f in findings]} "
+            f"({findings[0] if findings else None}), actuations while frozen {frozen_acts}; "
+            f"disarmed: thawed {thawed}, recoveries {recoveries}, actuations after {resumed}; the "
+            f"requests' failures {[type(e).__name__ for e in outcomes if e is not None]}; rungs "
+            f"after {ctl.engaged_rungs()} [{card}]")
+        if not frozen or len(findings) != 1 or not isinstance(findings[0], ControllerStaleError) \
+                or frozen_acts or not thawed or recoveries != 1 or ctl.engaged_rungs() \
+                or any(e is not None for e in outcomes):
+            raise AssertionError(f"phase 19 (c): frozen {frozen}, findings {findings}, actuations "
+                                 f"{frozen_acts}, thawed {thawed}, outcomes {outcomes}")
+        out["c"] = dict(findings=len(findings), frozen_actuations=frozen_acts, recoveries=recoveries,
+                        actuations_after=resumed)
+
+        # (d) the chaos plan of docs/control_plane.md against the same
+        # arrivals without chaos
+        ds = CHAOS_SCHEDULE
+        sched_d = arrivals.ramp_flash_crowd_drain(
+            base_rps=ds["base"] * cap, peak_rps=ds["peak"] * cap, ramp_s=ds["ramp_s"],
+            flash_s=ds["flash_s"], drain_s=ds["drain_s"], flash_multiplier=ds["crowd"] / ds["peak"],
+            seed=CONTROL_SEED + 1)
+        order_d = arrivals.prompt_order(len(sched_d), len(prompts), seed=CONTROL_SEED + 1)
+        plain = ct.drive(router, sched_d, prompts, order_d, greedy, new_tokens=SPEC_NEW_TOKENS)
+        windows = {name: (t0, t1) for name, t0, t1 in chaos.phase_windows(sched_d.phases)}
+        crowd0, crowd1 = windows["flash"]
+        plan = chaos.ChaosSchedule(name="gray-failure-storm", seed=4242, rules=(
+            chaos.ChaosRule(point="serving_before_batch", action="sleep=0.45",
+                            match={"replica": "r0"}, start_s=crowd0, label="straggler"),
+            chaos.ChaosRule(point="fleet_probe", action="raise", prob=0.2, start_s=crowd0,
+                            end_s=crowd1, label="flaky-probe"),
+            chaos.ChaosRule(point="serving_before_batch", action="raise", match={"replica": "r1"},
+                            max_fires=1, label="kill"),
+        ))
+        tracer = tracing.configure(TracingConfig(dump_dir=tmp, ring_capacity=8192))
+        mon = chaos.InvariantMonitors(tracer=tracer)
+        mon.watch_registry("fleet", router.metrics.registry)
+        for rid, srv in router.servers().items():
+            mon.watch_registry(rid, srv.metrics.registry)
+        with chaos.ChaosConductor(plan) as con:
+            stormy = ct.drive(router, sched_d, prompts, order_d, greedy, new_tokens=SPEC_NEW_TOKENS,
+                              monitors=mon, on_phase=lambda _: mon.sample())
+        submits = [sp for sp in tracer.spans() if sp.name == "fleet.submit"]
+        traced = len(submits) == len(stormy["futures"])
+        if traced:
+            for i, (sp, fut) in enumerate(zip(submits, stormy["futures"])):
+                mon.track(f"trace-{i}", fut, trace_id=sp.trace_id)
+        violations = mon.check(quiesce_timeout_s=120)
+        seq, hits = con.firing_sequence(), con.hit_log()
+        replays = [con.replay(hits) == seq, con.replay(hits) == seq]
+        goodput = stormy["goodput_rps"] / max(plain["goodput_rps"], 1e-9)
+        ttft_x = (stormy["ttft_p99_s"] or 0.0) / max(plain["ttft_p99_s"] or 0.0, 1e-9)
+        log(f"phase 19 (d) chaos {plan.name} (seed {plan.seed}) over {len(sched_d)} arrivals "
+            f"{sched_d.phase_counts()}: firings {dict(collections.Counter(l for l, _, _ in seq))} of "
+            f"{len(hits)} hits, replay equal {replays}; monitors: {len(violations)} violations "
+            f"{[str(v) for v in violations[:3]]}, traces verified {traced} ({len(submits)} submit "
+            f"spans, {mon.unverified_traces} unverified); goodput {stormy['goodput_rps']:.3f} against "
+            f"{plain['goodput_rps']:.3f} req/s without chaos ({goodput:.3f}x; chaos_bench.py gates "
+            f"{CHAOS_GATE[0]}x), TTFT p99 {stormy['ttft_p99_s']:.4f}s against "
+            f"{plain['ttft_p99_s']:.4f}s ({ttft_x:.3f}x; gate {CHAOS_GATE[1]}x), printed, not held: "
+            f"the replicas share one card; failures {stormy['typed']} [{card}]")
+        if violations or con.fires("kill") != 1 or not all(replays) or not traced \
+                or stormy["dropped"] or stormy["untyped"] or plain["dropped"] or plain["untyped"]:
+            raise AssertionError(f"phase 19 (d): violations {violations[:3]}, kills "
+                                 f"{con.fires('kill')}, replays {replays}, traced {traced}")
+        out["d"] = dict(plain=ct.summary(plain), chaos=ct.summary(stormy), goodput_x=goodput,
+                        ttft_p99_x=ttft_x, firings=len(seq), hits=len(hits))
+
+        # (b) drift: r0 slowed at each admission; its perfwatch ratio past its
+        # peers' is one brown-out finding naming it, and the controller
+        # replaces it. First each replica bills a fresh watch again (its
+        # reservoirs held (d)'s windows, the straggler's sleeps among them,
+        # and long prompts' chunks that (b) never runs) and sees normal
+        # traffic
+        for rid, srv in router.servers().items():
+            srv.engine._perfwatch = perfwatch.PerfWatch(obs)
+        for rid, srv in router.servers().items():
+            for f in [srv.submit(p, max_new_tokens=DRIFT_BUDGETS) for p in prompts[:3] * 4]:
+                f.result(timeout=300)
+        fleet_watch.consume_drift_findings()  # nothing filed before is (b)'s to answer
+        router.config.brownout_residual_ratio = FleetConfig().brownout_residual_ratio
+        router.config.brownout_drain_after_s = DRIFT_AFTER_S
+        time.sleep(5 * CONTROL_FLEET["probe_interval_s"])
+        clean = {rid: s["brownout"] for rid, s in router.stats()["replicas"].items()}
+        ctl = SLOController(router, ControllerConfig(
+            interval_s=0.1, ttft_slo_s=None, escalate_threshold=100.0, relax_threshold=0.0,
+            scale_cooldown_s=600.0, min_replicas=1, max_replicas=3, replace_drain_timeout_s=60.0),
+            watch=fleet_watch)
+        drift = chaos.ChaosSchedule(name="drift", seed=CONTROL_SEED, rules=(
+            chaos.ChaosRule(point="serving_before_batch", action=f"sleep={DRIFT_SLEEP_S}",
+                            match={"replica": "r0"}, label="drift"),))
+        sched_b = arrivals.from_phases(
+            [arrivals.Phase("burst", DRIFT_BURST_S, DRIFT_REQUESTS / DRIFT_BURST_S)],
+            seed=CONTROL_SEED)
+        short = [i for i, g in enumerate(greedy) if g]
+        try:
+            with chaos.ChaosConductor(drift) as con_b:
+                ctl.start()
+                run_b = ct.drive(router, sched_b, [prompts[i] for i in short],
+                                 arrivals.prompt_order(len(sched_b), len(short), seed=CONTROL_SEED),
+                                 [True] * len(short),
+                                 new_tokens=lambda k: 1 + k % DRIFT_BUDGETS)
+                replaced = wait_until(lambda: ctl.metrics["drift_replacements"] >= 1
+                                      and "r0" not in router.replica_ids(), 120)
+        finally:
+            ctl.close()
+        ids = router.replica_ids()
+        fresh = [rid for rid in ids if rid not in FLEET_REPLICAS]
+        ratios = {rid: {r["program"].rsplit("/", 1)[-1]: None if r["ratio"] is None
+                        else round(r["ratio"], 2) for r in built[rid].engine._perfwatch.table()}
+                  for rid in FLEET_REPLICAS}
+        log(f"phase 19 (b) drift: r0 slowed {DRIFT_SLEEP_S}s an admission ({con_b.fires('drift')} "
+            f"firings) under a burst of {len(sched_b)} greedy requests of 1-{DRIFT_BUDGETS} "
+            f"tokens; brown-outs before {clean}, after {router.metrics['brownouts']} (measured/"
+            f"predicted by program at the end {ratios}); findings filed "
+            f"{router.metrics['brownout_findings']}; "
+            f"replacements {ctl.metrics['drift_replacements']}, replicas now {ids} (fresh {fresh}, "
+            f"built in {scaled.get(fresh[0], {}).get('build_s', 0.0) if fresh else 0.0:.2f}s); "
+            f"{run_b['completed']} completed, failures {run_b['typed']}, untyped "
+            f"{len(run_b['untyped'])}, dropped {run_b['dropped']} [{card}]")
+        if any(clean.values()) or not replaced or ctl.metrics["drift_replacements"] != 1 \
+                or len(fresh) != 1 or run_b["dropped"] or run_b["untyped"]:
+            raise AssertionError(f"phase 19 (b): clean {clean}, replaced {replaced}, replicas "
+                                 f"{ids}, dropped {run_b['dropped']}, untyped {run_b['untyped'][:3]}, "
+                                 f"ratios {ratios}")
+        out["b"] = dict(ct.summary(run_b), replacements=ctl.metrics["drift_replacements"],
+                        replicas=ids, fresh=scaled.get(fresh[0]))
+    finally:
+        engine_mod._Graph.__init__ = real_graph_init
+        os.environ.pop(FAULT_INJECT_ENV, None)
+        if router is not None:
+            router.close(drain=False)
+        tracing.configure(prev_tracing)
+        perfwatch.configure(ObservabilityConfig())
+        shutil.rmtree(tmp, ignore_errors=True)
+        built.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"control": a_launches}, out
+
+
 # dynamic shared memory of the tensor-core kernels' configurations (the
 # sources' MmaCfg): name fragment of the ptxas entry -> bytes per block, or
 # (bytes, threads) where a block is not 128 threads
@@ -6510,6 +6979,10 @@ def run_phases(args) -> int:
             with phase("18"):
                 fleet_paths, summary["fleet"] = phase_fleet(dev, card, model, summary["main_path"])
             by_path.update(fleet_paths)
+            with phase("19"):
+                control_paths, summary["control"] = phase_control(dev, card, model,
+                                                                  summary["fleet"])
+            by_path.update(control_paths)
             # phase 12 before 8: phase 8 quantizes the model in place
             with phase("12"):
                 by_path["static"], summary["static_path"] = phase_static(dev, card, model)

@@ -364,11 +364,10 @@ def test_refusals_name_their_queue_items(tmp_path):
     acc.prepare(model, torch.optim.SGD(model.parameters(), lr=LR))
     with pytest.raises(NotImplementedError, match=r"PowerSGD.*ROADMAP.md A11\b"):
         acc.train_step(regression_loss)
-    # C5: ServingConfig takes every JAX field. A10's serving half landed:
-    # the breaker, the ladder and the tracker interval take any valid value
-    # (and refuse an invalid one as the JAX config does); nothing refuses
-    # as "not ported"
-    for name, value in A10_SERVING.items():
+    # C5: ServingConfig takes every JAX field: the breaker, the ladder and
+    # the tracker interval take any valid value (and refuse an invalid one
+    # as the JAX config does); nothing refuses as "not ported"
+    for name, value in CONTROL_SERVING.items():
         assert getattr(ServingConfig(**{name: value}), name) == value
         if name == "metrics_interval_s":
             continue  # any value: the JAX config checks none
@@ -449,11 +448,14 @@ def test_refusals_name_their_queue_items(tmp_path):
                                         device="cpu"))
     assert model.config.use_fp8
     assert [str(f) for f in port.rglob("*.py") if re.search(r"ROADMAP\.md A4\b", f.read_text())] == []
+    # A10 landed whole (the serving half, then the SLO controller and the
+    # chaos conductor): nothing in the port names it
+    assert [str(f) for f in port.rglob("*.py") if re.search(r"\bA10\b", f.read_text())] == []
 
 
-# C5's fields of A10's serving half, each with a valid value other than its
-# default (A3's host tier landed before)
-A10_SERVING = {"breaker_threshold": 7, "breaker_reset_s": 0.5, "degrade_queue_fraction": 0.25,
+# C5's serving control-plane fields, each with a valid value other than its
+# default
+CONTROL_SERVING = {"breaker_threshold": 7, "breaker_reset_s": 0.5, "degrade_queue_fraction": 0.25,
                "degrade_hard_fraction": 0.9, "degraded_max_new_tokens": 4,
                "metrics_interval_s": 0.5}
 
@@ -587,6 +589,15 @@ def test_shared_functions_take_every_argument_of_the_jax_package():
 
     pairs = _shared_signatures()
     assert len(pairs) > 150 and set(SIGNATURE_EXEMPT) <= set(pairs)
+    # the control plane's modules are held too: the SLO controller, the
+    # chaos conductor and monitors, their config and fail-static finding
+    assert {"controller:SLOController.__init__", "controller:SLOController.tick",
+            "controller:ControlSignals.__init__", "chaos:ChaosRule.__init__",
+            "chaos:ChaosSchedule.__init__", "chaos:ChaosConductor.__init__",
+            "chaos:ChaosConductor.replay", "chaos:InvariantMonitors.__init__",
+            "chaos:InvariantMonitors.check", "chaos:phase_windows",
+            "utils.dataclasses:ControllerConfig.__init__",
+            "utils.fault:ControllerStaleError.__init__"} <= set(pairs)
     for label, (fn, jfn) in sorted(pairs.items()):
         ours = inspect.signature(fn).parameters
         if any(p.kind == p.VAR_KEYWORD for p in ours.values()):

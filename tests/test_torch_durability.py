@@ -523,3 +523,49 @@ def test_sigterm_produces_committed_emergency_checkpoint(tmp_path):
     committed = ckpt_mod.list_checkpoints(os.path.join(project, "checkpoints"), committed_only=True)
     assert committed
     ckpt_mod.verify_checkpoint(committed[-1], level="checksum")
+
+
+_FINALIZER_SCRIPT = textwrap.dedent('''
+    import io, os, signal, sys
+    import torch
+    sys.path.insert(0, {repo!r})
+    from accelerate_tpu_torch.accelerator import Accelerator
+
+    class CloseRunsPython(io.RawIOBase):
+        """The interpreter calls close() from the object's finalizer and
+        clears whatever it raises, as a file object's flush does."""
+
+        def writable(self):
+            return True
+
+        def close(self):
+            os.kill(os.getpid(), signal.SIGTERM)
+            for _ in range(1000):
+                pass  # the handler runs at a bytecode boundary in here
+            super().close()
+
+    acc = Accelerator(cpu=True, project_dir=sys.argv[1])
+    acc.project_configuration.automatic_checkpoint_naming = True
+    model = torch.nn.Linear(2, 2)
+    model, opt = acc.prepare(model, torch.optim.SGD(model.parameters(), lr=0.1))
+    CloseRunsPython()  # dropped at once: the signal lands inside its finalizer
+    print("training went on after the emergency checkpoint", flush=True)
+''')
+
+
+def test_sigterm_inside_a_finalizer_still_exits_with_the_preemption_code(tmp_path):
+    """A signal handled inside a frame that drops exceptions (here a
+    stream's finalizer, as the flush of a just-written file is) still ends
+    the process with the preemption code after the emergency checkpoint:
+    the loop never goes on past it."""
+    script = _script(tmp_path, _FINALIZER_SCRIPT)
+    project = str(tmp_path / "proj")
+    env = dict(_env(), ACCELERATE_HANDLE_PREEMPTION="1")
+    proc = subprocess.run([sys.executable, script, project], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == fault.PREEMPTION_EXIT_CODE, f"{proc.returncode}\n{proc.stdout}\n{proc.stderr}"
+    assert "emergency checkpoint committed at" in proc.stdout
+    assert "training went on" not in proc.stdout
+    committed = ckpt_mod.list_checkpoints(os.path.join(project, "checkpoints"), committed_only=True)
+    assert len(committed) == 1
+    ckpt_mod.verify_checkpoint(committed[0], level="checksum")

@@ -64,7 +64,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "test_utils.training", "test_utils.scripts.crash_resume_script",
                  "test_utils.scripts.preemption_script", "test_utils.scripts.elastic_recovery_script",
                  "test_utils.scripts.fault_save_script", "test_utils.scripts.serve_timing",
-                 "kvtransfer", "test_utils.scripts.disagg_timing"):
+                 "kvtransfer", "test_utils.scripts.disagg_timing", "controller", "chaos",
+                 "test_utils.arrivals", "test_utils.scripts.control_timing"):
         assert f"accelerate_tpu_torch.{name}" in report["modules"]
     leaked = [m for m in report["new"]
               if m == "jax" or m.startswith(("jax.", "jaxlib"))
