@@ -100,10 +100,32 @@ iteration-level scheduling state (counterpart of
   list for a transfer, and every return of a slot bumps its epoch, so a
   late commit into a recycled slot raises
   :class:`~accelerate_tpu_torch.utils.fault.TransferStaleEpochError`.
-  Over a mesh the host tier, :meth:`prefill_remote`,
-  :meth:`reserve_slot` and :meth:`insert_prefilled` raise (ROADMAP.md
-  A3-bis): a forward on a worker thread would issue collectives outside
-  the model's run lock and the ranks' one order.
+
+* **The host tier and disaggregated prefill over a mesh.** Each rank's
+  tier files its own heads of each block on its own spill thread, so two
+  ranks may hold different chains of a prompt (a spill still queued, one
+  lost, a block the LRU dropped): a chunked admission first waits for
+  this rank's queued spills (``spill_flush``, bounded) and then takes the
+  smallest of the ranks' chain lengths (a MIN over ``tp`` and
+  ``dp_shard`` under the run lock), so every rank restores the same
+  blocks and starts its chunks at the same offset. :meth:`prefill_remote`
+  is an SPMD call, as every other call over a mesh: every rank makes it in
+  the same order relative to :meth:`insert` and :meth:`step`, and it runs
+  under the run lock on the calling thread's current stream, gathering
+  the window's kv heads over ``tp``, so its :class:`RemotePrefill` is the
+  whole window (its ``to_bytes`` is one process's, and a one-card engine
+  commits it). :meth:`insert_prefilled` takes the first rank's window
+  and first token on every rank (a broadcast over the model's groups
+  under the run lock) and commits this rank's kv heads of it; a replaying
+  rank passes a window of the right shape to receive into. Slots,
+  reservations and the epoch fence are the first rank's state: an
+  admission may name its slot (``slot=``, which must be free here, else
+  :class:`~accelerate_tpu_torch.utils.fault.EngineInvariantError`), and
+  ``on_slot`` hears the slot an admission took before anything runs, so
+  the first rank's server can send it to the others. Not here: a remote
+  forward beside the decode loop on a mesh, which would need a second
+  communicator on a stream of its own; over a mesh a server runs remote
+  forwards in its decision stream (``serving.py``).
 
 Spans (``tracing.py``), each around the host side of a program, never
 inside a captured graph's body: ``engine.prefill`` (an admission's prompt
@@ -481,6 +503,9 @@ class ContinuousBatchingEngine:
     _SPEC_MIN_ACCEPT = 0.1
     _SPEC_COOLDOWN = 8
     _SPEC_COOLDOWN_MAX = 128
+    # over a mesh: the longest a restore's plan waits for this rank's
+    # queued spills to be filed
+    _SPILL_FLUSH_S = 30.0
 
     def __init__(
         self,
@@ -542,8 +567,6 @@ class ContinuousBatchingEngine:
         if params_dev != self.device:
             raise ValueError(f"model parameters are on {params_dev}, engine device is {self.device}")
         self._tp = self._fsdp = self._mesh_lock = None
-        if self._view is not None and host_tier_bytes:
-            self._refuse_over_mesh("the host-RAM KV tier (host_tier_bytes)")
         if self._view is not None:
             self._tp = self._view.tp
             self._mesh_lock, self._fsdp = _model_mesh_state(model, self._view.fsdp_group)
@@ -809,17 +832,39 @@ class ContinuousBatchingEngine:
     def free_slots(self) -> int:
         return len(self._free)
 
-    def _refuse_over_mesh(self, what: str) -> None:
-        raise NotImplementedError(
-            f"{what} on an engine over a mesh is queued in ROADMAP.md A3-bis: a prompt forward "
-            "on a worker thread would issue collectives outside the model's run lock and the "
-            "ranks' one order")
-
-    def _pop_free_slot(self) -> int:
+    def _take_slot(self, slot: Optional[int] = None) -> int:
+        """A slot out of the free list: the next one, or ``slot``, which
+        must be free (a rank that replays the first rank's admissions takes
+        the slot that rank named; another would give the ranks different
+        block tables)."""
         with self._admission_lock:
-            if not self._free:
-                raise EngineCapacityError("no free slot (caller must gate on free_slots())")
-            return self._free.pop()
+            if slot is None:
+                if not self._free:
+                    raise EngineCapacityError("no free slot (caller must gate on free_slots())")
+                return self._free.pop()
+            if slot not in self._free:
+                raise EngineInvariantError(
+                    f"slot {slot} was named for this admission but is not free on this engine "
+                    f"(free: {sorted(self._free)}): the ranks' slots diverged")
+            self._free.remove(slot)
+            return slot
+
+    def _groups(self) -> list:
+        """The model's process groups over a mesh, ``dp_shard`` then ``tp``
+        (those it has)."""
+        return [g for g in (self._view.fsdp_group, self._tp.group if self._tp is not None else None)
+                if g is not None]
+
+    def _agree_min(self, n: int) -> int:
+        """The smallest ``n`` of every rank of the mesh (a MIN over each of
+        the model's groups, under the run lock)."""
+        from .ops.collectives import all_reduce_
+
+        t = torch.full((1,), n, dtype=torch.int64, device=self.device)
+        with self._mesh_lock:
+            for group in self._groups():
+                all_reduce_(t, group, "min")
+        return int(t.item())
 
     def _return_slot(self, slot: int) -> None:
         """Back to the free list, with an epoch bump: a reservation or a
@@ -842,9 +887,8 @@ class ContinuousBatchingEngine:
         takes the reservation while the epoch is current;
         :meth:`release_reservation` or, after ``ttl_s`` on the engine's
         clock, :meth:`poll` gives the slot back with an epoch bump. Safe
-        from any thread."""
-        if self._view is not None:
-            self._refuse_over_mesh("reserve_slot")
+        from any thread. Over a mesh only the first rank reserves: the
+        slot reaches the others with the commit that names it."""
         with self._admission_lock:
             if not self._free:
                 raise EngineCapacityError(
@@ -961,12 +1005,16 @@ class ContinuousBatchingEngine:
         pad_token_id: Optional[int] = None,
         seed: int = 0,
         tag: Any = None,
+        slot: Optional[int] = None,
+        on_slot: Optional[Callable[[int], None]] = None,
     ) -> SlotOccupant:
         """Admit one request into a free slot: bucketed prompt forward,
         first token sampled on the device, prompt KV written into the
         slot's blocks. A prompt longer than the bucket (``prefill_chunk``
         set) takes the chunked path: its first chunk runs here, the rest
-        one per :meth:`step`."""
+        one per :meth:`step`. ``slot`` names the slot (it must be free);
+        ``on_slot(slot)`` runs once the slot is taken, before anything
+        else (over a mesh, the module docstring)."""
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
         self.validate_request(len(prompt), max_new_tokens)
         pad_id = pad_token_id if pad_token_id is not None else (
@@ -974,8 +1022,10 @@ class ContinuousBatchingEngine:
         # finished slots feed their pad token to the next steps' embedding
         self.validate_tokens(np.append(prompt, pad_id))
         chunked = len(prompt) > self.prompt_bucket
-        slot = self._pop_free_slot()
+        slot = self._take_slot(slot)
         try:
+            if on_slot is not None:
+                on_slot(slot)
             row, shared = self._backend.acquire(slot, prompt, max_new_tokens,
                                                 defer_register=chunked)
         except BaseException:
@@ -1002,7 +1052,13 @@ class ContinuousBatchingEngine:
             # registrations serve prefix hits at once
             restored = 0
             if hasattr(self._backend, "restore_plan"):
-                plan = self._backend.restore_plan(slot, prompt, shared, row)
+                agree = None
+                if self._view is not None and self.kv_host_tier is not None:
+                    # every rank plans against its spills filed, and
+                    # restores the chain every rank holds
+                    self._backend.spill_flush(self._SPILL_FLUSH_S)
+                    agree = self._agree_min
+                plan = self._backend.restore_plan(slot, prompt, shared, row, agree=agree)
                 if plan is not None:
                     n, payloads, ids = plan
                     self._dispatch_restore(occ, payloads, ids)
@@ -1187,9 +1243,10 @@ class ContinuousBatchingEngine:
         token's V uniforms come from a generator of its own seeded with
         ``seed``, as :meth:`insert` draws them. Commit the result with
         :meth:`insert_prefilled` on the serving thread. The forward runs in
-        an ``engine.prefill`` span (``remote=True``) under ``trace_id``."""
-        if self._view is not None:
-            self._refuse_over_mesh("prefill_remote")
+        an ``engine.prefill`` span (``remote=True``) under ``trace_id``.
+        Over a mesh it is an SPMD call on every rank, under the run lock on
+        the current stream, and returns the whole window (the module
+        docstring)."""
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
         self.validate_request(len(prompt), max_new_tokens)
         if len(prompt) > self.prompt_bucket:
@@ -1201,15 +1258,22 @@ class ContinuousBatchingEngine:
         self.validate_tokens(np.append(prompt, pad_id))
         self._programs.setdefault("prefill_forward", set()).add((self.prompt_bucket,))
         cuda = self.device.type == "cuda"
+        mesh = self._view is not None
         with torch.cuda.device(self.device) if cuda else contextlib.nullcontext(), \
-                torch.cuda.stream(self._remote_stream()) if cuda else contextlib.nullcontext():
+                torch.cuda.stream(self._remote_stream()) if cuda and not mesh \
+                else contextlib.nullcontext():
             padded = np.zeros((1, self.prompt_bucket), np.int64)
             padded[0, :len(prompt)] = prompt
             ids = torch.from_numpy(padded).to(self.device)
             with tracing.span("engine.prefill", trace_id=trace_id, remote=True,
-                              prompt_len=len(prompt)):
+                              prompt_len=len(prompt)), \
+                    self._mesh_lock or contextlib.nullcontext():
                 logits, cache = self._prefill_at_fn(self.config, self._params(), ids,
-                                                    self.max_len, [len(prompt) - 1])
+                                                    self.max_len, [len(prompt) - 1], **self._mesh())
+                if self._tp is not None:
+                    from .models.llama import gather_kv_window
+
+                    cache = gather_kv_window(cache, self._tp)
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
             uniform = torch.rand((1, self.config.vocab_size), generator=gen, device=self.device)
@@ -1248,9 +1312,26 @@ class ContinuousBatchingEngine:
                     return False
         return True
 
+    def _share_window(self, pre: RemotePrefill):
+        """Over a mesh: the first rank's window and first token on every
+        rank, broadcast in place over the model's groups under the run
+        lock (``pre``'s tensors on a replaying rank are the receiving
+        buffers); returns this rank's kv heads of the window and the first
+        token."""
+        from .models.llama import kv_window_heads
+        from .ops.collectives import broadcast_first_
+
+        cache = {w: pre.cache[w].contiguous() for w in ("k", "v")}
+        t0 = pre.t0.contiguous()
+        with self._mesh_lock:
+            for leaf in (cache["k"], cache["v"], t0):
+                broadcast_first_(leaf, self._groups())
+        return kv_window_heads(cache, self._tp), t0
+
     @torch.no_grad()
     def insert_prefilled(self, pre: RemotePrefill, *, max_new_tokens: Optional[int] = None,
-                         tag: Any = None) -> SlotOccupant:
+                         tag: Any = None, slot: Optional[int] = None,
+                         on_slot: Optional[Callable[[int], None]] = None) -> SlotOccupant:
         """Admit a :class:`RemotePrefill` into a slot (``prefill_commit
         ()``): its KV window into the slot's blocks and its first token
         installed, bitwise what :meth:`insert` with that budget leaves.
@@ -1259,9 +1340,9 @@ class ContinuousBatchingEngine:
         and only under the epoch it reserved
         (:class:`~accelerate_tpu_torch.utils.fault.TransferStaleEpochError`
         otherwise). The slot's generator is reseeded and draws the first
-        token's uniforms again, as :meth:`insert` leaves it."""
-        if self._view is not None:
-            self._refuse_over_mesh("insert_prefilled")
+        token's uniforms again, as :meth:`insert` leaves it. ``slot`` and
+        ``on_slot`` as in :meth:`insert`; over a mesh every rank commits
+        the first rank's window (the module docstring)."""
         if not self._structurally_accepts(pre):
             raise ValueError(
                 "RemotePrefill is not compatible with this engine (model config / prompt_bucket "
@@ -1284,8 +1365,10 @@ class ContinuousBatchingEngine:
                     f"current {self.slot_epoch(slot)}): the slot was released while the stream "
                     "was in flight; fall back to a local prefill")
         else:
-            slot = self._pop_free_slot()
+            slot = self._take_slot(slot)
         try:
+            if on_slot is not None:
+                on_slot(slot)
             self._backend.acquire(slot, prompt, budget)
         except BaseException:
             self._return_slot(slot)
@@ -1318,10 +1401,13 @@ class ContinuousBatchingEngine:
         slot_t, last = self._arg("slot"), self._arg("pos")
         with tracing.span("engine.insert_prefilled", trace_id=trace_id, slot=slot,
                           prompt_len=len(prompt)):
-            self._backend.prefill_write(self._cache, pre.cache, slot_t,
-                                        tables.index_select(0, slot_t)[0])
+            window, t0 = (pre.cache, pre.t0) if self._view is None else self._share_window(pre)
+            # an int8 store's scales are taken over the tp group
+            with self._mesh_lock or contextlib.nullcontext():
+                self._backend.prefill_write(self._cache, window, slot_t,
+                                            tables.index_select(0, slot_t)[0])
             self._pos.index_copy_(0, slot_t, (last + 1).to(torch.int32))
-            self._install(pre.t0.to(torch.int32), slot_t)
+            self._install(t0.to(torch.int32), slot_t)
         self._tick += 1
         self._ring.append((self._tick, "prefill", occ, *self._readback(self._out["t0"], self._out["done0"])))
         return occ

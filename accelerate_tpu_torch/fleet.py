@@ -46,8 +46,13 @@ the same weights.
   forward (:meth:`~accelerate_tpu_torch.engine.ContinuousBatchingEngine
   .prefill_remote`, on the thread's own CUDA stream) and hand the replica
   the result (``submit(prefilled=)``), by reference or over a KV transport
-  (``kvtransfer.py``). Replicas over a mesh refuse it, as their engines
-  refuse ``prefill_remote`` and the host tier (ROADMAP.md A3-bis).
+  (``kvtransfer.py``). A replica over a mesh runs the forward in its
+  server's decision stream instead (``InferenceServer._prefill_in_stream``:
+  every rank runs it there, in one order with the decode loop's
+  collectives), and its receiver runs on its first rank. Its host tier
+  takes no replicated hot prefixes: the router reaches only the first
+  rank's tier, and a block there alone restores on no rank (the ranks
+  restore the chain they all hold).
 
 Fault points (``ACCELERATE_TPU_FAULT_INJECT``, or a conductor):
 ``fleet_route`` (placement), ``fleet_failover`` (a retriable failure is
@@ -87,6 +92,11 @@ from .utils.fault import (
 logger = get_logger(__name__)
 
 __all__ = ["FleetRouter", "FleetMetrics", "ReplicaHandle"]
+
+
+def _over_mesh(engine) -> bool:
+    """Whether a replica's engine runs a model laid over a mesh."""
+    return getattr(engine, "_view", None) is not None
 
 
 def _detached_block(payload):
@@ -445,13 +455,6 @@ class FleetRouter:
         errors and results attribute correctly."""
         if self._closedf():
             raise ServerDrainingError("fleet router is closed")
-        if getattr(server, "_control", None) is not None and (
-                self.config.disaggregate_prefill or self.config.kv_transfer is not None):
-            # the port's replica over a mesh: its engine refuses
-            # prefill_remote and commits from other threads
-            raise NotImplementedError(
-                f"replica {replica_id!r} is served over a mesh: disaggregated prefill and the KV "
-                "wire for it are queued in ROADMAP.md A3-bis")
         if getattr(server, "replica_id", None) is None:
             server.replica_id = replica_id
         handle = ReplicaHandle(
@@ -1034,23 +1037,27 @@ class FleetRouter:
                     if freq.max_new_tokens is not None
                     else handle.server.config.default_max_new_tokens
                 )
+                kwargs = dict(
+                    max_new_tokens=budget,
+                    temperature=freq.temperature,
+                    top_k=freq.top_k,
+                    top_p=freq.top_p,
+                    eos_token_id=freq.eos_token_id,
+                    pad_token_id=freq.pad_token_id,
+                    seed=freq.seed,
+                    trace_id=freq.trace_id,
+                )
                 try:
                     with tracing.span(
                         "fleet.prefill_remote", trace_id=freq.trace_id,
                         replica=handle.replica_id,
                         prompt_len=int(freq.input_ids.shape[0]),
                     ):
-                        pre = eng.prefill_remote(
-                            freq.input_ids,
-                            max_new_tokens=budget,
-                            temperature=freq.temperature,
-                            top_k=freq.top_k,
-                            top_p=freq.top_p,
-                            eos_token_id=freq.eos_token_id,
-                            pad_token_id=freq.pad_token_id,
-                            seed=freq.seed,
-                            trace_id=freq.trace_id,
-                        )
+                        if _over_mesh(eng):
+                            pre = handle.server._prefill_in_stream(
+                                freq.input_ids, **kwargs).result()
+                        else:
+                            pre = eng.prefill_remote(freq.input_ids, **kwargs)
                     self.metrics.bump("prefills")
                 except Exception as exc:  # noqa: BLE001 — fall back to plain submit
                     pre = None
@@ -1152,10 +1159,9 @@ class FleetRouter:
             handles = [h for h in self._handles.values() if not h.leaving]
         tiers = []
         for h in handles:
-            tier = getattr(
-                getattr(h.server, "engine", None), "kv_host_tier", None
-            )
-            if tier is not None:
+            eng = getattr(h.server, "engine", None)
+            tier = getattr(eng, "kv_host_tier", None)
+            if tier is not None and not _over_mesh(eng):
                 tiers.append(tier)
         if len(tiers) < 2:
             return

@@ -56,7 +56,14 @@ Under tensor parallelism (``tp_group``: a model laid over a mesh's ``tp``
 dim) a backend's store holds this rank's ``kv_heads / tp`` heads in as
 many blocks as one process's: the same tables on every rank, the pool's
 bytes one process's over ``tp`` (an int8 pool's per-position scales are
-whole on every rank, taken over every rank's heads).
+whole on every rank, taken over every rank's heads). Its host tier files
+the rank's heads of each block, and counts blocks and bytes as the whole
+model's (``host_tier_bytes`` is the whole model's budget, as in the JAX
+package), so every rank's tier holds as many blocks as one process's and
+reports the same counters. Each rank's spill thread files on its own
+clock, so a restore over a mesh is planned after this rank's spills are
+filed (:meth:`PagedKVBackend.spill_flush`) and its length is agreed by
+every rank (``restore_plan(agree=)``).
 """
 
 from __future__ import annotations
@@ -74,7 +81,7 @@ import numpy as np
 import torch
 
 from .logging import get_logger
-from .utils.fault import EngineCapacityError, fault_point
+from .utils.fault import EngineCapacityError, SpillFlushTimeoutError, fault_point
 
 logger = get_logger(__name__)
 
@@ -966,9 +973,12 @@ class PagedKVBackend(KVCacheBackend):
 
     # ---------------------------------------------------- host tier: spill
     def host_block_bytes(self) -> int:
-        """Host bytes of one spilled block: K and V as the pool holds them
-        (int8 with its f32 scales)."""
-        return 2 * self._per_block_bytes()
+        """Host bytes of one spilled block of the whole model: K and V as
+        the pool holds them (int8 with its f32 scales), at every kv head.
+        Under ``tp`` a rank files only its heads, so its tier's memory is
+        this over ``tp``; the tier counts capacity and traffic in these
+        bytes, as the JAX package's does."""
+        return 2 * self._per_block_bytes(self.config.num_key_value_heads)
 
     def bind_cache_reader(self, reader: Callable[[], Any]) -> None:
         """The engine's store, read by the spill gather (the store is
@@ -1064,13 +1074,15 @@ class PagedKVBackend(KVCacheBackend):
 
     def spill_flush(self, timeout_s: float = 30.0) -> None:
         """Wait (at most ``timeout_s``) until every queued spill is in the
-        tier; for tests and measurements, never the serving path."""
+        tier, else raise :class:`~accelerate_tpu_torch.utils.fault
+        .SpillFlushTimeoutError`. One process's serving path never waits
+        for it; an engine over a mesh does before it plans a restore."""
         if self._spill_q is None:
             return
         deadline = time.monotonic() + timeout_s
         while self._spill_q.unfinished_tasks:
             if time.monotonic() >= deadline:
-                raise TimeoutError(
+                raise SpillFlushTimeoutError(
                     f"host-tier spill queue did not drain in {timeout_s}s "
                     f"({self._spill_q.unfinished_tasks} task(s) pending)")
             time.sleep(0.002)
@@ -1150,31 +1162,41 @@ class PagedKVBackend(KVCacheBackend):
                     self._prefetched.setdefault(key, (dev, event))
         return n
 
-    def restore_plan(self, slot: int, prompt: np.ndarray, shared: int, row: np.ndarray):
+    def restore_plan(self, slot: int, prompt: np.ndarray, shared: int, row: np.ndarray,
+                     agree: Optional[Callable[[int], int]] = None):
         """The host-tier blocks a chunked admission restores: the
         consecutive hits past the device registry's ``shared`` blocks, on
         the device (prefetched, or copied now on the current stream), bound
         for the slot's fresh blocks ``row[shared: shared + n]``. Returns
-        ``(n, payloads, target_ids)`` or None. A prefetched payload came on
-        a side stream: the current stream waits for its event, and its
-        memory is marked as used here. The caller scatters the payloads,
-        then promotes the slot's first ``n`` parked registrations: the
-        restored content is the original bytes."""
+        ``(n, payloads, target_ids)`` or None. ``agree`` (an engine over a
+        mesh) takes this rank's count of hits and returns the count every
+        rank restores, at most it: it is called whenever the backend has a
+        tier, hits or not. A prefetched payload came on a side stream: the
+        current stream waits for its event, and its memory is marked as used
+        here. The caller scatters the payloads, then promotes the slot's
+        first ``n`` parked registrations: the restored content is the
+        original bytes."""
         if self.host_tier is None:
             return None
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
-        payloads, fetch = [], []  # fetch: (index in payloads, host block)
+        chain = []  # (key, host block or None when prefetched)
         for key in self._host_chain(prompt, shared):
             with self._prefetch_lock:
-                taken = self._prefetched.pop(key, None)
-            if taken is None:
-                host = self.host_tier.lookup(key)
-                if host is None:  # dropped from the tier since the probe
-                    break
+                prefetched = key in self._prefetched
+            host = None if prefetched else self.host_tier.lookup(key)
+            if not prefetched and host is None:  # dropped from the tier since the probe
+                break
+            chain.append((key, host))
+        if agree is not None:
+            chain = chain[: agree(len(chain))]
+        payloads, fetch = [], []  # fetch: (index in payloads, host block)
+        for key, host in chain:
+            if host is not None:
                 fetch.append((len(payloads), host))
                 payloads.append(None)
                 continue
-            dev, event = taken
+            with self._prefetch_lock:
+                dev, event = self._prefetched.pop(key)
             if event is not None:
                 stream = torch.cuda.current_stream(self.device)
                 stream.wait_event(event)
@@ -1218,10 +1240,10 @@ class PagedKVBackend(KVCacheBackend):
         with self._prefetch_lock:
             self._prefetched = {}
 
-    def _per_block_bytes(self) -> int:
-        """One block of one leaf over every layer; int8 adds its f32
-        per-position scales."""
-        per_block = self._layers * self.block_size * self._kvh * self._hd
+    def _per_block_bytes(self, kv_heads: Optional[int] = None) -> int:
+        """One block of one leaf over every layer, at this store's kv heads
+        or ``kv_heads``; int8 adds its f32 per-position scales."""
+        per_block = self._layers * self.block_size * (kv_heads or self._kvh) * self._hd
         if self.quantized:
             return per_block + self._layers * self.block_size * 4
         return per_block * self._dtype.itemsize

@@ -336,12 +336,21 @@ class KVReceiver:
     Thread-safety: ``feed`` may be called from any transport thread. The
     receiver's own lock guards only its staging/completion tables and is
     never held across engine calls (the engine's admission lock is a
-    separate leaf lock — no ordering edge between the two)."""
+    separate leaf lock — no ordering edge between the two).
+
+    A replica over a mesh receives on its first rank, whose engine holds
+    the reservations and the epoch fence; the committed window reaches the
+    other ranks with the server's ``"insert_prefilled"`` decision. A
+    replaying rank's server has no receiver."""
 
     def __init__(self, server, *, clock: Callable[[], float] = time.monotonic,
                  reservation_ttl_s: float = 30.0):
         self._server = server
         self._engine = server.engine
+        if getattr(server, "_replaying", False):
+            raise TransferAbortedError(
+                "a replica over a mesh receives KV transfers on its first rank; this rank "
+                "replays that rank's admissions")
         if self._engine is None:
             raise TransferAbortedError(
                 "KV transfer requires a continuous-mode replica "

@@ -1191,6 +1191,32 @@ def serving_view(model: "LlamaForCausalLM") -> ServingView:
     return ServingView(tree, model.tp, groups[0] if groups else None)
 
 
+def kv_window_heads(window: dict, tp) -> dict:
+    """This ``tp`` rank's kv heads of a whole KV window ``{"k", "v"}`` of
+    (L, B, T, kv heads, head_dim): rank r holds the r-th block of heads,
+    as its ``k_proj``/``v_proj`` blocks compute them. The window itself
+    without ``tp``."""
+    if tp is None:
+        return window
+    n = window["k"].shape[3] // tp.size
+    return {w: t[:, :, :, tp.rank * n:(tp.rank + 1) * n] for w, t in window.items()}
+
+
+def gather_kv_window(window: dict, tp) -> dict:
+    """The whole KV window from each ``tp`` rank's kv heads (the inverse of
+    :func:`kv_window_heads`): an all-gather over the group on the heads
+    axis."""
+    import torch.distributed as dist
+
+    out = {}
+    for w, t in window.items():
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(tp.size)]
+        dist.all_gather(parts, t, group=tp.group)
+        out[w] = torch.cat(parts, dim=3)
+    return out
+
+
 def mesh_ranks(model) -> Optional[list]:
     """The global ranks of the mesh ``model`` is laid out over (its first
     ``DTensor`` parameter's: ``tp`` blocks or FSDP2 shards), or None where

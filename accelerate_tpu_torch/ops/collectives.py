@@ -34,8 +34,10 @@ backward is the collective the layout needs:
   by the group's size, so that a gradient every rank computes whole is
   summed over the group like a partial one);
 * :func:`all_reduce_` (in place, no gradient): the vocabulary-parallel
-  loss's row max, sum of exponentials and label logit, and the int8 KV
-  cache's per-position scale over the ``tp`` ranks' heads.
+  loss's row max, sum of exponentials and label logit, the int8 KV
+  cache's per-position scale over the ``tp`` ranks' heads, and the
+  engine's agreed restore length; :func:`broadcast_first_` (in place): a
+  disaggregated prefill's KV window from the mesh's first rank.
 
 :func:`mirror_group` makes a process group of its own over the ranks of a
 mesh dim (fp8's amax reductions run on one, apart from the collectives
@@ -230,9 +232,23 @@ def axis_size(axis: AxisNames, mesh=None) -> int:
 
 # ------------------------------------------------- tensor-parallel collectives
 def all_reduce_(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
-    """``x`` reduced over ``group`` in place (``"sum"`` or ``"max"``); no
-    gradient."""
-    dist.all_reduce(x, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op], group=group)
+    """``x`` reduced over ``group`` in place (``"sum"``, ``"max"`` or
+    ``"min"``); no gradient."""
+    ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+    dist.all_reduce(x, op=ops[op], group=group)
+    return x
+
+
+def broadcast_first_(x: torch.Tensor, groups) -> torch.Tensor:
+    """``x`` of the mesh's first rank on every rank, in place; no
+    gradient. ``groups`` are the process groups of the mesh's dims, outer
+    first: over each in turn, the ranks that are first along every later
+    dim send from the group's first rank, so the value moves out along one
+    dim at a time and each byte crosses each link once."""
+    for i, group in enumerate(groups):
+        if any(dist.get_rank(later) != 0 for later in groups[i + 1:]):
+            continue
+        dist.broadcast(x, src=dist.get_global_rank(group, 0), group=group)
     return x
 
 

@@ -33,10 +33,25 @@ order, over a gloo group of the mesh's ranks, and a beat each second the
 first rank waits for requests. Static mode sends each batch's rows and
 ``generate`` arguments before the batch runs. Continuous mode sends each
 decision before it runs: an admission with the request's arguments and
-seed, and each engine tick with the chunk and spec limits; either
-carries the slots the first rank's clock cancelled since the last
-decision (deadlines), which the others cancel first. Every rank thus
-makes the same engine calls in the same order. A replaying rank never
+seed and the slot it takes, and each engine tick with the chunk and spec
+limits; either carries the slots the first rank's clock cancelled since
+the last decision (deadlines), which the others cancel first. Every rank
+thus makes the same engine calls in the same order, in the same slots
+(the first rank's free list also lends slots to the KV wire's
+reservations, which the others never see: a replaying rank takes the
+slot it is told). A committed remote prefill (``submit(prefilled=)``,
+the KV wire) is an ``"insert_prefilled"`` decision: the slot, the
+prefill's scalars and its window's shape, after which the engine
+broadcasts the first rank's window over the model's groups (not this
+control channel, which pickles; a Llama-3-8B window is 128 MiB at
+``max_len`` 2048). A fleet's remote prompt forward for this server is a
+``"prefill"`` decision, run by every rank in the decision stream
+(:meth:`InferenceServer._prefill_in_stream`): over a mesh a forward
+beside the decode loop would meet the ranks' collectives in another
+order. ``kv_prefetch`` prefetches on the first rank only, at submit: a
+replaying rank hears of a request only with its admission, which
+restores at once, and the agreed restore length keeps the ranks'
+restores equal whatever each rank holds prefetched. A replaying rank never
 reads its clock to decide, and the message of a tick overlaps the
 device's work on the ticks before it, which nothing waits for.
 ``submit`` on another rank raises; ``close`` or ``drain`` there waits
@@ -177,6 +192,34 @@ def _engine_args(req: _Request) -> tuple:
     arguments, the clamped budget among them (no future, no deadline)."""
     return (req.input_ids, req.effective_max_new_tokens, req.temperature, req.top_k, req.top_p,
             req.eos_token_id, req.pad_token_id, req.seed)
+
+
+def _prefilled_args(req: _Request) -> tuple:
+    """What a replaying rank needs of a committed remote prefill:
+    :func:`_engine_args`, then the prefill's budget, its generator seed
+    (``next_key``) and its window's and first token's shapes and dtypes
+    (the window itself comes by the engine's broadcast)."""
+    pre = req.prefill
+    return (*_engine_args(req), pre.max_new_tokens, int(pre.next_key[0]),
+            {w: (tuple(t.shape), t.dtype) for w, t in pre.cache.items()},
+            (tuple(pre.t0.shape), pre.t0.dtype))
+
+
+def _window_receiver(eng, args: tuple):
+    """A replaying rank's :class:`~accelerate_tpu_torch.engine
+    .RemotePrefill` for an ``"insert_prefilled"`` decision: the first
+    rank's scalars and empty tensors of its window's shapes, which the
+    engine's broadcast fills."""
+    from .engine import RemotePrefill
+
+    ids, _, temp, top_k, top_p, eos, pad, seed, budget, next_key, window, t0 = args
+    empty = lambda spec: torch.empty(spec[0], dtype=spec[1], device=eng.device)  # noqa: E731
+    return RemotePrefill(
+        prompt=ids, max_new_tokens=budget, temperature=temp, top_k=top_k, top_p=top_p,
+        eos_token_id=eos, pad_token_id=pad, seed=seed,
+        cache={w: empty(spec) for w, spec in window.items()}, t0=empty(t0),
+        next_key=torch.tensor([next_key], dtype=torch.int64), engine_config=eng.config,
+        prompt_bucket=eng.prompt_bucket, max_len=eng.max_len)
 
 
 def resolve_future(future: Future, *, result=None, exception: Optional[BaseException] = None) -> bool:
@@ -483,6 +526,9 @@ class InferenceServer:
         self._batch_time_ewma = 0.0
         # continuous over a mesh: the slots cancelled since the last decision sent
         self._cancelled: list = []
+        # continuous: remote prompt forwards queued for the decision stream
+        # (prompt, prefill_remote's arguments, future)
+        self._prefills: collections.deque = collections.deque()
         self._rng = random.Random(0)  # backoff jitter only
         self._worker = threading.Thread(target=self._serve_loop, name="inference-server", daemon=True)
         self._worker.start()
@@ -624,9 +670,6 @@ class InferenceServer:
         if prefilled is not None and self._engine is None:
             raise ValueError("prefilled= requires mode='continuous' (no slot engine to commit the "
                              "precomputed prefill into)")
-        if prefilled is not None and self._control is not None:
-            raise NotImplementedError(
-                "submit(prefilled=) on a server over a mesh is queued in ROADMAP.md A3-bis")
         if self._engine is not None:
             self._engine.validate_request(ids.shape[0], budget)
             self._engine.validate_tokens(ids)
@@ -1093,8 +1136,9 @@ class InferenceServer:
         eng, control = self._engine, self._control
         while True:
             with self._wake:
-                while (not self._queue and eng.live_count() == 0 and not self._draining
-                       and not preemption_requested() and not self._flush_due()):
+                while (not self._queue and not self._prefills and eng.live_count() == 0
+                       and not self._draining and not preemption_requested()
+                       and not self._flush_due()):
                     if control is not None and control.beat_due():
                         break
                     self._wake.wait(timeout=0.05)
@@ -1102,8 +1146,9 @@ class InferenceServer:
                     self._draining = True
                     if eng.live_count() == 0:
                         return  # the finally rejects what is still queued
-                idle = not self._queue and eng.live_count() == 0
+                idle = not self._queue and not self._prefills and eng.live_count() == 0
             self._flush_metrics()
+            self._run_prefills()
             if idle:
                 self._beat()
                 continue
@@ -1127,13 +1172,71 @@ class InferenceServer:
 
     def _decide(self, kind: str, payload) -> None:
         """Over a mesh, send one decision to the replaying ranks before this
-        rank runs it (an ``"insert"`` with the request's engine arguments,
-        or a ``"tick"`` with the chunk and spec limits and the breaker's
-        verdict), with the slots this rank's clock cancelled since the last
-        decision, which they cancel first."""
+        rank runs it (an ``"insert"`` or ``"insert_prefilled"`` with its
+        slot and the request's engine arguments, a ``"prefill"`` with
+        ``prefill_remote``'s, or a ``"tick"`` with the chunk and spec limits
+        and the breaker's verdict), with the slots this rank's clock
+        cancelled since the last decision, which they cancel first."""
         if self._control is not None:
             cancels, self._cancelled = self._cancelled, []
             self._control.send((kind, cancels, payload))
+
+    def _on_slot(self, kind: str, payload: Callable[[], tuple]):
+        """The engine's ``on_slot`` hook of an admission on the first rank
+        over a mesh: the decision with the slot the engine just took and
+        ``payload()`` (None elsewhere: a one-process server or a replaying
+        rank sends none)."""
+        if self._control is None or self._replaying:
+            return None
+        return lambda slot: self._decide(kind, (slot, payload()))
+
+    # ------------------------------------------------- remote prefill jobs
+    def _prefill_in_stream(self, input_ids, **kwargs) -> Future:
+        """Queue a remote prompt forward (``engine.prefill_remote`` with
+        ``kwargs``) for the serving thread, which runs it between its
+        decisions, over a mesh as a ``"prefill"`` decision on every rank.
+        The Future resolves to the :class:`~accelerate_tpu_torch.engine
+        .RemotePrefill`, or to the error that ended it (a drain fails it
+        with :class:`ServerDrainingError`). The fleet's prefill workers
+        use it for a replica over a mesh; over a mesh only its first rank
+        takes them."""
+        if self._replaying:
+            raise RuntimeError(
+                f"remote prefill on rank {self._control.rank}: the model is served over a mesh, "
+                f"whose first rank ({self._control.leader}) runs every remote prefill")
+        future: Future = Future()
+        with self._wake:
+            if self._draining or self._closed or self._engine is None:
+                raise ServerDrainingError(self._drain_reason(), replica_id=self.replica_id,
+                                          retry_after_s=0.0)
+            self._prefills.append((np.asarray(input_ids, np.int32).reshape(-1), kwargs, future))
+            self._wake.notify()
+        return future
+
+    def _run_prefills(self) -> None:
+        """Run the queued remote prompt forwards in order (each a
+        ``"prefill"`` decision over a mesh); while draining, fail them."""
+        while True:
+            with self._wake:
+                if not self._prefills:
+                    return
+                ids, kwargs, future = self._prefills.popleft()
+                draining = self._draining
+            if draining:
+                resolve_future(future, exception=ServerDrainingError(
+                    self._drain_reason(), replica_id=self.replica_id, retry_after_s=0.0))
+                continue
+            try:
+                self._decide("prefill", (ids, kwargs))
+            except BaseException as exc:  # the worker dies; its waiter must not
+                resolve_future(future, exception=exc)
+                raise
+            try:
+                pre = self._engine.prefill_remote(ids, **kwargs)
+            except Exception as exc:  # noqa: BLE001 - the caller falls back to a local prefill
+                resolve_future(future, exception=exc)
+                continue
+            resolve_future(future, result=pre)
 
     def _estimated_completion_s(self, budget: int) -> float:
         """Continuous mode: the EWMA is a tick's time, so a request's
@@ -1170,20 +1273,20 @@ class InferenceServer:
                 return
             if req.degraded:
                 self.metrics.bump("degraded")
-            self._decide("insert", _engine_args(req))
             if not self._insert(req, now):
                 return
             admitted += 1
 
-    def _insert(self, req: _Request, now: float = 0.0) -> bool:
-        """Admit ``req`` into a slot; False when the engine failed (its
-        requests failed, its state rebuilt)."""
+    def _insert(self, req: _Request, now: float = 0.0, slot: Optional[int] = None) -> bool:
+        """Admit ``req`` into a slot (on a replaying rank, ``slot``: the one
+        the first rank named); False when the engine failed (its requests
+        failed, its state rebuilt)."""
         try:
             fault_point("serving_before_batch", replica=self.replica_id)
             with tracing.span("serving.admit", trace_id=req.trace_id,
                               queue_wait_s=max(0.0, now - req.submitted_at),
                               degraded=req.degraded) as sp:
-                if self._insert_prefilled(req):
+                if self._insert_prefilled(req, slot):
                     sp.set("path", "insert_prefilled")
                 else:
                     sp.set("path", "insert")
@@ -1191,7 +1294,8 @@ class InferenceServer:
                         req.input_ids, max_new_tokens=req.effective_max_new_tokens,
                         temperature=req.temperature, top_k=req.top_k, top_p=req.top_p,
                         eos_token_id=req.eos_token_id, pad_token_id=req.pad_token_id,
-                        seed=req.seed, tag=req,
+                        seed=req.seed, tag=req, slot=slot,
+                        on_slot=self._on_slot("insert", lambda: _engine_args(req)),
                     )
         except BaseException as exc:  # classified below
             if isinstance(exc, (KeyboardInterrupt, SystemExit)):
@@ -1203,18 +1307,21 @@ class InferenceServer:
         self.metrics.bump("engine_inserts")
         return True
 
-    def _insert_prefilled(self, req: _Request) -> bool:
+    def _insert_prefilled(self, req: _Request, slot: Optional[int] = None) -> bool:
         """Commit ``req``'s prefill when the engine takes it and its budget
         covers the request's clamped one; True when it did. A transfer
         error (the reservation went stale since the check) counts a
         fallback; a reservation still held is released, so the slot does
-        not wait for its TTL."""
+        not wait for its TTL. Over a mesh the commit is an
+        ``"insert_prefilled"`` decision (:func:`_prefilled_args`)."""
         pre, eng = req.prefill, self._engine
         if pre is None:
             return False
         if req.effective_max_new_tokens <= pre.max_new_tokens and eng.accepts_prefill(pre):
             try:
-                eng.insert_prefilled(pre, max_new_tokens=req.effective_max_new_tokens, tag=req)
+                eng.insert_prefilled(
+                    pre, max_new_tokens=req.effective_max_new_tokens, tag=req, slot=slot,
+                    on_slot=self._on_slot("insert_prefilled", lambda: _prefilled_args(req)))
                 return True
             except KVTransferError:
                 self.metrics.bump("prefill_commit_fallbacks")
@@ -1246,12 +1353,22 @@ class InferenceServer:
             for slot in cancels:
                 eng.cancel(live[slot])
                 self.metrics.bump("engine_retired")
-            if kind == "insert":
-                ids, budget, temp, top_k, top_p, eos, pad, seed = payload
+            if kind in ("insert", "insert_prefilled"):
+                slot, args = payload
+                ids, budget, temp, top_k, top_p, eos, pad, seed = args[:8]
                 self._insert(_Request(input_ids=ids, max_new_tokens=budget, deadline=None,
                                       temperature=temp, top_k=top_k, top_p=top_p,
                                       eos_token_id=eos, pad_token_id=pad, seed=seed,
-                                      submitted_at=0.0, effective_max_new_tokens=budget))
+                                      submitted_at=0.0, effective_max_new_tokens=budget,
+                                      prefill=(_window_receiver(eng, args)
+                                               if kind == "insert_prefilled" else None)),
+                             slot=slot)
+            elif kind == "prefill":
+                ids, kwargs = payload
+                try:  # the first rank's result is the one its fleet takes
+                    eng.prefill_remote(ids, **kwargs)
+                except Exception:  # noqa: BLE001 - the first rank fails it alike
+                    logger.exception("replayed remote prefill failed")
             else:
                 eng.set_prefill_chunk_limit(payload[0])
                 eng.set_spec_draft_limit(payload[1])
@@ -1395,7 +1512,11 @@ class InferenceServer:
     def _reject_queued(self) -> None:
         with self._lock:
             queued, self._queue = list(self._queue), collections.deque()
+            prefills, self._prefills = list(self._prefills), collections.deque()
             self.metrics.gauge("queue_depth", 0)
+        for _, _, future in prefills:
+            resolve_future(future, exception=ServerDrainingError(
+                self._drain_reason(), replica_id=self.replica_id, retry_after_s=0.0))
         for req in queued:
             if resolve_future(req.future, exception=ServerDrainingError(
                     self._drain_reason(), replica_id=self.replica_id, retry_after_s=0.0)):

@@ -22,6 +22,31 @@ the reference's bit for bit. Prints one JSON line (also written to
 ``chiprun_out/disagg_timing.json``) with the card's name and power limit,
 tokens/s and TTFT (from the mix's start) of both runs, and the ship ms
 and GB/s. ``--preset tiny --cpu`` rehearses it on the CPU.
+
+``--tp 2`` serves over tensor parallelism instead, under the launcher
+(two processes, cards 0 and 1), with the prefill process on card 2:
+
+    python -m accelerate_tpu_torch.commands.launch --num_processes 2 --tp_size 2 \
+        accelerate_tpu_torch/test_utils/scripts/disagg_timing.py --tp 2 --layers 32
+
+Every rank builds the continuous server over the model laid out by
+``prepare_inference(mesh=, rules=tensor_parallel_rules())``; rank 0 serves
+the mix with local prefills (the reference), then with each prompt forward
+run by the one-card prefill process and shipped to it, which commits each
+on every rank (the ``"insert_prefilled"`` decision, the window broadcast
+from rank 0). One-card and TP 2 prefills round differently, so the
+shipped run's greedy requests are held by ``chip_smoke.py`` phase 12's
+rule against the plain forward of the unsharded model (teacher-forced:
+the argmax share at least 0.9, every other position a near-tie of at most
+4 bf16 ulps), and the requests equal to the local-prefill run bit for bit
+are counted. Then phase 17 (a)'s tier traffic on a server with a host
+tier: P cold, P evicted by two long prompts, P again (restored over the
+mesh): P's restored tokens must be its cold run's bit for bit. Writes
+``chiprun_out/disagg_tp_timing.json`` with the card's name and power
+limit, tokens/s, TTFT, the ms a ship, the window broadcast's ms (CUDA
+events on rank 0 around each commit's broadcast) and the restore's ms.
+``--preset tiny --cpu`` rehearses it on gloo ranks
+(``launch --cpu --num_processes 2 --tp_size 2``).
 """
 
 from __future__ import annotations
@@ -31,6 +56,7 @@ import json
 import multiprocessing as mp
 import os
 import statistics
+import sys
 import time
 
 import numpy as np
@@ -44,14 +70,19 @@ CHUNK_BYTES = 1 << 20
 ACK_DEADLINE_S = 60.0
 
 
+def _model_config(args, dtype):
+    from accelerate_tpu_torch.models.llama import LlamaConfig
+
+    return getattr(LlamaConfig, args["preset"])(num_hidden_layers=args["layers"],
+                                                attention_impl="flash", param_dtype=dtype,
+                                                compute_dtype=dtype)
+
+
 def _model(args, device):
-    from accelerate_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from accelerate_tpu_torch.models.llama import LlamaForCausalLM
 
     dtype = torch.float32 if args["cpu"] else torch.bfloat16
-    cfg = getattr(LlamaConfig, args["preset"])(num_hidden_layers=args["layers"],
-                                               attention_impl="flash", param_dtype=dtype,
-                                               compute_dtype=dtype)
-    return LlamaForCausalLM.from_seed(cfg, seed=0, device=device)
+    return LlamaForCausalLM.from_seed(_model_config(args, dtype), seed=0, device=device)
 
 
 def _prefill_side(conn, endpoint, args) -> None:
@@ -67,7 +98,7 @@ def _prefill_side(conn, endpoint, args) -> None:
         def _endpoint_for(self, replica_id):
             return endpoint
 
-    device = torch.device("cpu") if args["cpu"] else torch.device("cuda", 1)
+    device = torch.device("cpu") if args["cpu"] else torch.device("cuda", args["prefill_card"])
     if device.type == "cuda":
         torch.cuda.set_device(device)
     torch.set_num_threads(4)
@@ -117,7 +148,12 @@ def main(argv=None) -> dict:
     p.add_argument("--layers", type=int, default=32)
     p.add_argument("--requests", type=int, default=16)
     p.add_argument("--cpu", action="store_true")
+    p.add_argument("--tp", type=int, default=1,
+                   help="serve over tensor parallelism of this size (under the launcher)")
     args = vars(p.parse_args(argv))
+    if args["tp"] > 1:
+        return _tp_main(args)
+    args["prefill_card"] = 1
     device = torch.device("cpu") if args["cpu"] else torch.device("cuda", 0)
     if device.type == "cuda":
         if torch.cuda.device_count() < 2:
@@ -196,6 +232,201 @@ def main(argv=None) -> dict:
     if not (all(equal) and fallbacks == 0):
         raise SystemExit("disaggregated tokens differ from the one-card run's (or a prefill fell back)")
     return summary
+
+
+# phase 17 (a)'s tier traffic (chip_smoke.py): P, and two prompts that evict it
+TIER_SERVING = dict(mode="continuous", engine_slots=4, engine_max_len=2048,
+                    engine_prompt_bucket=512, engine_block_size=16, engine_prefill_chunk=512,
+                    engine_pool_blocks=195, kv_cache="paged", attention_impl="kernel",
+                    engine_readback_lag=2, kv_host_tier_bytes=1 << 30)
+TIER_PROMPT, TIER_NEW = 1536, 16
+
+
+def _tier_prompts(vocab):
+    rng = np.random.default_rng(17)
+    return [rng.integers(0, vocab, size=TIER_PROMPT).astype(np.int32) for _ in range(3)]
+
+
+def _events(eng, cuda):
+    """CUDA events around each commit's window broadcast and each restore
+    (its plan to its scatter) of ``eng``: wrappers on the instance. Returns
+    {"share": [(start, end)], "restore": [(start, end)]}."""
+    marks = {"share": [], "restore": [], "plan": None}
+
+    def event():
+        if not cuda:
+            return time.perf_counter()
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    share, plan, restore = eng._share_window, eng._backend.restore_plan, eng._dispatch_restore
+
+    def timed_share(pre):
+        start = event()
+        out = share(pre)
+        marks["share"].append((start, event()))
+        return out
+
+    def timed_plan(*a, **k):
+        marks["plan"] = event()
+        return plan(*a, **k)
+
+    def timed_restore(*a, **k):
+        restore(*a, **k)
+        marks["restore"].append((marks["plan"], event()))
+
+    eng._share_window, eng._backend.restore_plan = timed_share, timed_plan
+    eng._dispatch_restore = timed_restore
+    return marks
+
+
+def _ms(pairs, cuda):
+    if cuda:
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in pairs]
+    return [(b - a) * 1e3 for a, b in pairs]
+
+
+def _tp_main(args) -> dict:
+    """``--tp N`` (the module docstring)."""
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.inference import prepare_inference
+    from accelerate_tpu_torch.kvtransfer import KVTransferManager
+    from accelerate_tpu_torch.models.llama import create_llama
+    from accelerate_tpu_torch.parallel.tp import tensor_parallel_rules
+    from accelerate_tpu_torch.serving import InferenceServer
+    from accelerate_tpu_torch.test_utils.scripts.serve_timing import _engine_agreement
+    from accelerate_tpu_torch.utils.dataclasses import ServingConfig
+
+    acc = Accelerator(cpu=args["cpu"])
+    if acc.parallelism_config.tp_size != args["tp"] or acc.num_processes != args["tp"]:
+        raise RuntimeError(f"--tp {args['tp']} runs under the launcher with --num_processes "
+                           f"{args['tp']} --tp_size {args['tp']}")
+    cuda = acc.device.type == "cuda"
+    if cuda and torch.cuda.device_count() < args["tp"] + 1:
+        raise RuntimeError(f"--tp {args['tp']} needs {args['tp'] + 1} cards (the prefill process "
+                           f"on card {args['tp']})")
+    args["prefill_card"] = args["tp"]
+    card = card_line() if cuda else "cpu (rehearsal; no device time)"
+    ctx = mp.get_context("spawn")
+    main_rank = acc.is_main_process
+    out = None
+    with torch.no_grad():
+        dtype = torch.float32 if args["cpu"] else torch.bfloat16
+        cfg = _model_config(args, dtype)
+        model = prepare_inference(create_llama(cfg, seed=0, device=acc.device), mesh=acc.mesh,
+                                  rules=tensor_parallel_rules())
+        prompts, warm = _mix(cfg.vocab_size, args["requests"])
+        srv = InferenceServer(model, ServingConfig(**SERVING), device=acc.device)
+        marks = _events(srv.engine, cuda)
+        if main_rank:
+            mgr = KVTransferManager(transport="tcp", chunk_bytes=CHUNK_BYTES,
+                                    chunk_deadline_s=ACK_DEADLINE_S)
+            child = None
+            try:
+                srv.submit(warm, max_new_tokens=8).result(timeout=900)
+
+                def plain(i, t0):
+                    return (time.perf_counter() - t0,
+                            srv.submit(prompts[i], max_new_tokens=MIX_NEW, **_request_kwargs(i)))
+
+                _serve(srv, prompts, plain)  # captures the programs
+                reference, plain_numbers = _serve(srv, prompts, plain)
+                mgr.register("decode", srv)
+                parent, child_end = ctx.Pipe()
+                child = ctx.Process(target=_prefill_side,
+                                    args=(child_end, mgr._endpoint_for("decode"), args))
+                child.start()
+                if parent.recv() != "ready":
+                    raise RuntimeError("the prefill process did not start")
+                ships = []
+
+                def shipped(i, t0):
+                    if i == 0:
+                        parent.send("go")
+                    msg = parent.recv()
+                    if msg is None:
+                        raise RuntimeError("the prefill process ended early")
+                    j, tid, ship_ms, nbytes = msg
+                    ships.append((ship_ms, nbytes))
+                    return (time.perf_counter() - t0,
+                            srv.submit(prompts[j], max_new_tokens=MIX_NEW,
+                                       prefilled=mgr.take("decode", tid), **_request_kwargs(j)))
+
+                del marks["share"][:]
+                results, disagg_numbers = _serve(srv, prompts, shipped)
+                if parent.recv() is not None:
+                    raise RuntimeError("the prefill process sent more than the mix")
+                child.join(timeout=120)
+                share_ms = _ms(marks["share"], cuda)
+                fallbacks = srv.metrics["prefill_commit_fallbacks"]
+                programs = srv.engine.stats()["programs"]
+            finally:
+                mgr.close()
+                srv.close()
+                if child is not None and child.is_alive():
+                    child.kill()
+                    child.join(timeout=30)
+        else:
+            srv.close()
+        # phase 17 (a)'s tier traffic on a server with a host tier
+        tier = InferenceServer(model, ServingConfig(**TIER_SERVING), device=acc.device)
+        tier_marks = _events(tier.engine, cuda)
+        if main_rank:
+            p, q1, q2 = _tier_prompts(cfg.vocab_size)
+            with tier:
+                cold = tier.submit(p, max_new_tokens=TIER_NEW).result(timeout=900).tokens
+                for f in [tier.submit(q, max_new_tokens=2) for q in (q1, q2)]:
+                    f.result(timeout=900)
+                again = tier.submit(p, max_new_tokens=TIER_NEW).result(timeout=900).tokens
+            restore_ms = _ms(tier_marks["restore"], cuda)
+            kv = tier.engine.stats()["kv"]
+            tier_numbers = dict(restored_bitwise_cold=bool(np.array_equal(cold, again)),
+                                restores=tier.engine.kv_restores, restore_hits=kv["restore_hits"],
+                                restore_ms=restore_ms,
+                                restore_bytes=kv["restore_bytes"],  # the whole model's
+                                restore_bytes_per_rank=kv["restore_bytes"] // args["tp"])
+        else:
+            tier.close()
+        peaks = acc.state.gather_object(torch.cuda.max_memory_allocated() if cuda else 0)
+        if main_rank:
+            ref_model = create_llama(cfg, seed=0, device=acc.device)
+            greedy = [i for i in range(len(prompts)) if i % 2 == 0]
+            share, ulps = _engine_agreement(cfg, ref_model.params, [prompts[i] for i in greedy],
+                                            [results[i].tokens for i in greedy])
+            equal = [bool(np.array_equal(a.tokens, b.tokens)) for a, b in zip(reference, results)]
+            bytes_each = statistics.median(n for _, n in ships)
+            ship_ms = [s for s, _ in ships]
+            out = {
+                "card": card, "tp": args["tp"], "layers": args["layers"],
+                "requests": len(prompts), "prefill_device": f"cuda:{args['tp']}" if cuda else "cpu",
+                "check": dict(argmax_share=share, largest_gap_ulps=ulps, greedy=len(greedy),
+                              passed=share >= 0.9 and ulps <= 4.0),
+                "requests_bitwise_local_prefill": sum(equal),
+                "fallbacks": fallbacks, "programs": programs,
+                "plain": plain_numbers, "disaggregated": disagg_numbers,
+                "ship_ms": ship_ms, "ship_ms_median": statistics.median(ship_ms),
+                "payload_bytes": bytes_each,
+                "ship_gb_s": bytes_each / statistics.median(ship_ms) / 1e6,
+                "window_broadcast_ms": share_ms,
+                "window_broadcast_ms_median": statistics.median(share_ms),
+                "tier": tier_numbers, "peak_gb_per_rank": [x / 1e9 for x in peaks],
+            }
+            os.makedirs(OUT, exist_ok=True)
+            with open(os.path.join(OUT, "disagg_tp_timing.json"), "w") as f:
+                json.dump(out, f, indent=1)
+            print(json.dumps(out), flush=True)
+    ok = not main_rank or (out["check"]["passed"] and fallbacks == 0
+                           and out["tier"]["restored_bitwise_cold"] and out["tier"]["restores"] == 1)
+    if not ok:
+        print("TP 2 disaggregation failed its check (phase 12's rule, a fallback, or the restored "
+              "tokens)", file=sys.stderr, flush=True)
+    # every collective is done (the gather above); the servers' process
+    # groups and daemon threads are left to the exit, which on four cards
+    # waited past the run's time limit after the summary was written
+    sys.stdout.flush()
+    os._exit(0 if ok else 1)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 # The four-card runs of the PyTorch port, from the repository root on a
 # host with four cards (one process a card, NCCL):
 #
-#   bash accelerate_tpu_torch/test_utils/scripts/four_card_runs.sh [sanity|full|shallow|all|supervise|serve|fp8|disagg|fleet|control]
+#   bash accelerate_tpu_torch/test_utils/scripts/four_card_runs.sh [sanity|full|shallow|all|supervise|serve|fp8|disagg|disagg_tp|fleet|control]
 #
 # sanity:  the sanity script (test_script.py) under --tp_size 4 and under
 #          --tp_size 2 --dp_shard_size 2
@@ -37,6 +37,13 @@
 #          process on cuda:1 and shipped over TCPTransport (loopback) to the
 #          continuous server on cuda:0; tokens bitwise the one-card run's
 #          (chiprun_out/disagg_timing.json)
+# disagg_tp (not part of all): disagg_timing.py --tp 2, the continuous
+#          server over TP 2 on cards 0-1 (two processes), phase 4's mix
+#          prefilled by a one-card process on card 2 and shipped over
+#          TCPTransport to rank 0, held by phase 12's rule against the plain
+#          forward (one-card and TP 2 prefills round differently), then
+#          phase 17 (a)'s tier traffic on the TP 2 server: P's restored
+#          tokens bitwise its cold run's (chiprun_out/disagg_tp_timing.json)
 # fleet (not part of all): fleet_timing.py, one continuous server a card
 #          (phase 4's server and kind of mix, 64 requests, each card its own
 #          copy of the 32-layer model) behind one FleetRouter: the mix on
@@ -100,6 +107,10 @@ if [[ $what == control ]]; then
 fi
 if [[ $what == disagg ]]; then
   python -m accelerate_tpu_torch.test_utils.scripts.disagg_timing --layers 32
+fi
+if [[ $what == disagg_tp ]]; then
+  python -m accelerate_tpu_torch.commands.launch --num_processes 2 --tp_size 2 \
+    accelerate_tpu_torch/test_utils/scripts/disagg_timing.py --tp 2 --layers 32
 fi
 if [[ $what == supervise ]]; then
   crash=accelerate_tpu_torch/test_utils/scripts/crash_resume_script.py

@@ -87,6 +87,7 @@ __all__ = [
     "ReplicaBrownoutError",
     "ControllerStaleError",
     "EngineInvariantError",
+    "SpillFlushTimeoutError",
     "KVTransferError",
     "TransferAbortedError",
     "TransferStaleEpochError",
@@ -284,6 +285,13 @@ class TransferCorruptError(KVTransferError):
 class EngineInvariantError(RuntimeError):
     """An engine-internal invariant broke; the engine state cannot be
     trusted and the caller should ``reset()``."""
+
+
+class SpillFlushTimeoutError(TimeoutError):
+    """The host-RAM KV tier's spill queue did not drain within its bound
+    (``kvcache.PagedKVBackend.spill_flush``): the spill thread is stuck. An
+    engine over a mesh waits for its spills before it plans a restore, so
+    it raises this instead of planning against a tier still filling."""
 
 
 class PerfDriftError(RuntimeError):

@@ -12,7 +12,9 @@ same training step under DDP and FSDP2 over NCCL at world size 1, and
 under tensor parallelism; static generation (``generate`` and the static
 ``InferenceServer``) on the serving model; the fine-tune supervised
 by the launcher through a crash, a preemption and a hang; static
-generation over a mesh (tensor parallelism alone and under FSDP2); and
+generation over a mesh (tensor parallelism alone and under FSDP2), the
+continuous engine over it with the host KV tier, disaggregated prefill and
+the KV wire; and
 a fleet of two replicas behind ``FleetRouter`` with failover, the circuit
 breaker, the degradation ladder, tracing and perfwatch; the SLO controller
 walking its ladder over that fleet through a flash crowd, and the seeded
@@ -334,6 +336,27 @@ Phases (any failure exits non-zero and prints no result):
      engine: B1, B4, B5 and B6 at 16/4 heads a rank (continuous_tp2_threads),
      tokens equal on both ranks and held against the plain forward by
      phase 12's rule
+ 20. (run right after 15 (a) and (b), on 15 (a)'s laid model in its
+     one-rank NCCL group) A3 over a mesh: (a) phase 17 (a)'s tier traffic
+     on the bf16 and the int8 pool of an engine over the laid model (each
+     restore planned after the rank's spills are filed, its length agreed
+     over the mesh): P's tokens, the restore and tier counters, the
+     programs and the launches equal phase 17 (a)'s on the unsharded model
+     (mesh_tier, mesh_tier_int8), the restore ms beside phase 17's; (b)
+     phase 4's mix through ``FleetRouter(disaggregate_prefill=True)`` whose
+     one replica is the continuous server over the laid model (each prompt
+     forward in the server's decision stream, each commit broadcasting the
+     first rank's window): every request bitwise phase 15 (a)'s, programs
+     equal to JAX's (mesh_disagg), the broadcast's ms; (c) 4 prefills of an
+     unsharded engine shipped over TCP loopback to that server: tokens
+     bitwise, ms and GB/s a ship, a reservation released before COMMIT
+     raising ``TransferStaleEpochError`` on the sender (mesh_kvtx); (d) tp
+     2 as threads (eager) at 4 layers: P cold, evicted and restored, two
+     prompts through ``prefill_remote`` and ``insert_prefilled`` (one over
+     the wire's bytes) bitwise ``insert``'s, B1, B4, B5 and B6 at 16/4
+     heads a rank (mesh_tp2_threads), tokens equal on both ranks and held
+     by phase 12's rule, and a planted fault (rank 1 committing the other
+     rank's heads) caught
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Long output goes to chiprun_out/.
 """
@@ -2308,12 +2331,12 @@ def tier_counters(eng):
                                       "prefetch_hits", "host_tier_dropped")})
 
 
-def host_tier_run(dev, card, model, kv, label):
+def host_tier_run(dev, card, model, kv, label, tag="phase 17 (a)"):
     """(a) on one pool: P cold, P evicted by Q1 + Q2 served together, P
     again (one restore of 96 blocks, one chunk), P once more (a device
     prefix hit); on the bf16 pool also the decode ticks with and without a
-    spill in flight. Every check raises. Returns (engine, launches,
-    numbers, P's tokens)."""
+    spill in flight. Every check raises; ``tag`` names the phase in its
+    messages. Returns (engine, launches, numbers, P's tokens)."""
     from accelerate_tpu_torch.engine import ContinuousBatchingEngine
     from accelerate_tpu_torch.ops import _build
 
@@ -2352,7 +2375,7 @@ def host_tier_run(dev, card, model, kv, label):
         quiet = [sync_ms(lambda: (eng.step(), eng.poll())) for _ in range(8)]
         eng.drain()
         numbers.update(spill_tick_ms=spilling, quiet_tick_ms=quiet)
-        log(f"phase 17 (a) {label}: decode ticks of 3 slots with a spill in flight "
+        log(f"{tag} {label}: decode ticks of 3 slots with a spill in flight "
             + ", ".join(f"{x:.3f}" for x in spilling) + " ms; after it "
             + ", ".join(f"{x:.3f}" for x in quiet) + f" ms (each tick synchronised) [{card}]")
     def evict(prompts):
@@ -2363,7 +2386,7 @@ def host_tier_run(dev, card, model, kv, label):
         engine_serve(eng, prompts, [2] * len(prompts))
         backend.spill_flush()
         if backend.pool._shared_prefix(p):
-            raise AssertionError(f"phase 17 (a) {label}: P still has device blocks after the eviction")
+            raise AssertionError(f"{tag} {label}: P still has device blocks after the eviction")
         return (backend.host_tier.stats()["spill_blocks"] - tier0,
                 marks["filed"] - marks["spills"][spills0][0])
 
@@ -2375,13 +2398,13 @@ def host_tier_run(dev, card, model, kv, label):
         torch.cuda.synchronize()
         restored = backend.host_tier.stats()["restore_hits"] - hits0
         if eng.kv_restores - restores0 != 1 or restored != TIER_PROMPT // 16 or marks["blocks"] != restored:
-            raise AssertionError(f"phase 17 (a) {label}: {eng.kv_restores - restores0} restores of "
+            raise AssertionError(f"{tag} {label}: {eng.kv_restores - restores0} restores of "
                                  f"{restored} blocks, expected one of {TIER_PROMPT // 16}")
         if not same_block(first_block(eng, p), block0):
-            raise AssertionError(f"phase 17 (a) {label}: P's first block after the restore is not "
+            raise AssertionError(f"{tag} {label}: P's first block after the restore is not "
                                  "bitwise its bytes before the eviction")
         if again != cold:
-            raise AssertionError(f"phase 17 (a) {label}: P's tokens after the restore {again} differ "
+            raise AssertionError(f"{tag} {label}: P's tokens after the restore {again} differ "
                                  f"from its cold serve's {cold}")
         return (ttft, marks["start"].elapsed_time(marks["scattered"]),
                 marks["start"].elapsed_time(marks["copied"]))
@@ -2390,7 +2413,7 @@ def host_tier_run(dev, card, model, kv, label):
     spills, restores = [evict([q1, q2])], [restore()]
     (hit,), ttft_device = engine_serve(eng, [p], [TIER_NEW])
     if hit != cold:
-        raise AssertionError(f"phase 17 (a) {label}: P's tokens on a device prefix hit differ")
+        raise AssertionError(f"{tag} {label}: P's tokens on a device prefix hit differ")
     spills.append(evict(long[3:5]))
     restores.append(restore())
     after = tier_counters(eng)
@@ -2398,11 +2421,11 @@ def host_tier_run(dev, card, model, kv, label):
     delta = {k: after[k] - before[k] for k in after}
     expected = expected_launches(n_layers, delta, n_single, "_int8" if kv == "paged_int8" else "")
     expected = {k: n for k, n in expected.items() if n}  # no single-shot prefill on the int8 pool
-    check_launches(f"phase 17 (a) {label}", launches, expected)
+    check_launches(f"{tag} {label}", launches, expected)
     programs = eng.stats()["programs"]
     graphs = eng.graph_launches()
     if programs != TIER_JAX_PROGRAMS or len(graphs) != (sum(programs.values()) - 1) * eng._use_graphs:
-        raise AssertionError(f"phase 17 (a) {label}: programs {programs} ({len(graphs)} graphs), JAX "
+        raise AssertionError(f"{tag} {label}: programs {programs} ({len(graphs)} graphs), JAX "
                              f"compiles {TIER_JAX_PROGRAMS}; the restore runs eagerly")
     numbers.update(
         ttft_cold_s=ttft_cold, ttft_host_hit_s=[r[0] for r in restores], ttft_device_hit_s=ttft_device,
@@ -2410,9 +2433,9 @@ def host_tier_run(dev, card, model, kv, label):
         h2d_gb_s=[nbytes / r[2] / 1e6 for r in restores], restore_bytes=nbytes,
         spill_blocks=[n for n, _ in spills], spill_ms=[t * 1e3 for _, t in spills],
         spill_gb_s=[n * block_bytes / t / 1e9 for n, t in spills],
-        counters=delta, programs=programs, block_bytes=block_bytes)
+        counters=delta, programs=programs, block_bytes=block_bytes, tokens=cold)
     fmt = lambda xs, f: ", ".join(f.format(x) for x in xs)  # noqa: E731
-    log(f"phase 17 (a) {label}: P ({TIER_PROMPT} tokens, {TIER_NEW} new, greedy) cold TTFT "
+    log(f"{tag} {label}: P ({TIER_PROMPT} tokens, {TIER_NEW} new, greedy) cold TTFT "
         f"{ttft_cold:.4f}s, host-tier hit {fmt(numbers['ttft_host_hit_s'], '{:.4f}')}s (two runs: one "
         f"restore of {TIER_PROMPT // 16} blocks, {nbytes / 2**20:.0f} MiB, then one chunk), device "
         f"prefix hit {ttft_device:.4f}s (TTFT includes the readback lag of 2 ticks); restore "
@@ -5616,7 +5639,7 @@ def spec_engine_run(dev, model, kv):
 
 def continuous_one_rank(dev, card, n_layers, reference):
     """Phase 15 (a) and (b) over the one-rank NCCL group the caller
-    started. Returns ({path: launches}, numbers)."""
+    started. Returns ({path: launches}, numbers, (a)'s laid model)."""
     import dataclasses
 
     from torch.distributed.tensor import DTensor
@@ -5704,8 +5727,8 @@ def continuous_one_rank(dev, card, n_layers, reference):
                            greedy_share=share, greedy_worst_gap=gap, pool_bytes=run["hbm_bytes"])
         del run
         torch.cuda.empty_cache()
-    del laid, params, acc
-    return paths, numbers
+    del params, acc
+    return paths, numbers, laid
 
 
 def continuous_threads(dev, card):
@@ -5786,9 +5809,11 @@ def teacher_forced_ulps(cfg_r, params, prompt, tokens):
     return share, gap_ulps, len(tokens)
 
 
-def phase_continuous_mesh(dev, card, n_layers, reference):
-    """Phase 15: (a) and (b) over a one-rank NCCL group (ended after), then
-    (c) over torch's threaded group. Returns ({path: launches}, numbers)."""
+def phase_continuous_mesh(dev, card, n_layers, reference, tier_reference):
+    """Phase 15: (a) and (b) over a one-rank NCCL group, then phase 20
+    (a)-(c) on (a)'s laid model in that group (ended after), then 15 (c)
+    and 20 (d) over torch's threaded group. Returns ({path: launches},
+    numbers) of phase 15, then of phase 20 (its seconds among them)."""
     import shutil
     import tempfile
 
@@ -5802,7 +5827,10 @@ def phase_continuous_mesh(dev, card, n_layers, reference):
     dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0, world_size=1,
                             device_id=torch.device("cuda", 0))
     try:
-        paths, numbers = continuous_one_rank(dev, card, n_layers, reference)
+        paths, numbers, laid = continuous_one_rank(dev, card, n_layers, reference)
+        numbers["seconds"] = time.perf_counter() - t0
+        paths20, numbers20 = phase_mesh_tier(dev, card, laid, reference, tier_reference)
+        del laid
     finally:
         AcceleratorState._reset_state(reset_partial_state=True)
         GradientState._reset_state()
@@ -5810,10 +5838,338 @@ def phase_continuous_mesh(dev, card, n_layers, reference):
         torch.cuda.empty_cache()
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
+    t1 = time.perf_counter()
     paths["continuous_tp2_threads"], numbers["threads"] = continuous_threads(dev, card)
-    numbers["seconds"] = time.perf_counter() - t0
-    log(f"phase 15 took {numbers['seconds']:.1f}s [{card}]")
+    t2 = time.perf_counter()
+    paths20["mesh_tp2_threads"], numbers20["threads"] = mesh_tier_threads(dev, card)
+    numbers["seconds"] += t2 - t1
+    numbers20["seconds"] += time.perf_counter() - t2
+    log(f"phase 15 took {numbers['seconds']:.1f}s, phase 20 {numbers20['seconds']:.1f}s [{card}]")
+    return paths, numbers, paths20, numbers20
+
+
+# ---------------------------------------------------------------- phase 20
+# A3 over a mesh: the host tier, disaggregated prefill and the KV wire on
+# phase 15 (a)'s laid model (one rank over NCCL), then tp 2 as threads
+MESH_TIER_THREAD_LAYERS = 4
+
+
+def instrument_share(eng):
+    """CUDA events around each broadcast of a committed window
+    (``engine._share_window``): a wrapper on the instance; returns the list
+    of (start, end) events it fills."""
+    marks = []
+    share = eng._share_window
+
+    def timed(pre):
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = share(pre)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        marks.append((start, end))
+        return out
+
+    eng._share_window = timed
+    return marks
+
+
+def share_ms(marks):
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in marks]
+
+
+def mesh_tier_pools(dev, card, laid, tier_reference):
+    """Phase 20 (a): phase 17 (a)'s traffic on each pool of an engine over
+    the laid model; tokens, counters, programs and launches equal to phase
+    17 (a)'s on the unsharded model."""
+    paths, numbers = {}, {}
+    for kv, path, label in (("paged", "mesh_tier", "bf16 pool"),
+                            ("paged_int8", "mesh_tier_int8", "int8 pool")):
+        eng, launches, nums, cold = host_tier_run(
+            dev, card, laid, kv, f"{label} over the TP layout at tp=1", tag="phase 20 (a)")
+        want = tier_reference[kv]
+        got = dict(tokens=cold, counters=nums["counters"], programs=nums["programs"],
+                   launches=launches)
+        diffs = {k: (v, want[k]) for k, v in got.items() if v != want[k]}
+        fmt = lambda xs: ", ".join(f"{x:.3f}" for x in xs)  # noqa: E731
+        log(f"phase 20 (a) {label}: restore {fmt(nums['restore_ms'])} ms of device time over the TP "
+            f"layout against phase 17 (a)'s {fmt(want['restore_ms'])} ms on the unsharded model; "
+            f"P's tokens, the tier's counters, the programs and the launches equal phase 17 "
+            f"(a)'s: {not diffs} [{card}]")
+        if diffs:
+            raise AssertionError(f"phase 20 (a) {label}: differs from phase 17 (a): {diffs}")
+        paths[path] = launches
+        numbers[kv] = {k: nums[k] for k in ("restore_ms", "h2d_ms", "ttft_cold_s", "ttft_host_hit_s",
+                                            "counters")}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
     return paths, numbers
+
+
+def mesh_disagg_wire(dev, card, laid, reference):
+    """Phase 20 (b) and (c): phase 4's mix through a FleetRouter with
+    disaggregated prefill whose one replica is the continuous server over
+    the laid model, then WIRE_REQUESTS prefills of an unsharded engine
+    shipped to that server over TCP loopback, and a reservation released
+    before COMMIT."""
+    from accelerate_tpu_torch.engine import ContinuousBatchingEngine
+    from accelerate_tpu_torch.fleet import FleetRouter
+    from accelerate_tpu_torch.kvtransfer import KVTransferManager
+    from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.serving import InferenceServer
+    from accelerate_tpu_torch.utils.dataclasses import FleetConfig, ServingConfig
+    from accelerate_tpu_torch.utils.fault import (TransferStaleEpochError, install_conductor,
+                                                  uninstall_conductor)
+
+    n_layers = laid.config.num_hidden_layers
+    prompts, warm = main_traffic(laid.config.vocab_size)
+    want = reference["serving"]
+    paths, numbers = {}, {}
+    srv = InferenceServer(laid, ServingConfig(**SERVING), device=dev)
+    eng = srv.engine
+    shares = instrument_share(eng)
+    for f in [srv.submit(p, max_new_tokens=8) for p in warm]:  # captures the plain programs
+        f.result(timeout=300)
+    router = FleetRouter({"m": srv}, FleetConfig(disaggregate_prefill=True))
+    try:
+        # (b) every prompt forward in the replica's decision stream
+        before = dict(steps=eng.steps, remote=eng.remote_prefills)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        futs = [router.submit(p, max_new_tokens=MAIN_NEW_TOKENS, **sampling(i))
+                for i, p in enumerate(prompts)]
+        results = [f.result(timeout=900) for f in futs]
+        wall = time.perf_counter() - t0
+        launches = _build.launch_counts()
+        steps, remote = eng.steps - before["steps"], eng.remote_prefills - before["remote"]
+        m = router.metrics
+        fallbacks = {k: m[f"prefill_fallback/{k}"] for k in ("unavailable", "stale_epoch",
+                                                             "transfer_failed")}
+        programs = eng.stats()["programs"]
+        same = [np.array_equal(r.tokens, t) for r, t in zip(results, want)]
+        ttft = sorted(r.ttft_s for r in results)
+        b_share = share_ms(shares)
+        log(f"phase 20 (b) FleetRouter(disaggregate_prefill=True) over the continuous server on the "
+            f"TP layout: {len(prompts) * MAIN_NEW_TOKENS / wall:.1f} generated tokens/s in "
+            f"{wall:.3f}s, {m['prefills']} remote prefills in the decision stream, engine steps "
+            f"{steps}; TTFT min {ttft[0]:.4f}s p50 {ttft[len(ttft) // 2]:.4f}s max {ttft[-1]:.4f}s; "
+            f"tokens bitwise phase 15 (a)'s {sum(same)}/{len(same)}; programs {programs}; fallbacks "
+            f"{fallbacks}; window broadcast median {statistics.median(b_share):.3f} ms over "
+            f"{len(b_share)} commits (one rank) [{card}]")
+        if not all(same):
+            raise AssertionError(f"phase 20 (b): requests {[i for i, x in enumerate(same) if not x]} "
+                                 "differ from phase 15 (a)'s")
+        if (programs != DISAGG_JAX_PROGRAMS or any(fallbacks.values()) or remote != len(prompts)
+                or m["prefills"] != len(prompts)):
+            raise AssertionError(f"phase 20 (b): programs {programs} (JAX: {DISAGG_JAX_PROGRAMS}), "
+                                 f"fallbacks {fallbacks}, {remote} remote prefills")
+        expected = {"flash_fwd_mma": n_layers * remote, "paged_decode_mma": n_layers * steps,
+                    "fused_sample": steps + remote}
+        check_launches("phase 20 (b)", launches, expected)
+        paths["mesh_disagg"] = {k: launches[k] for k in expected}
+        numbers["disagg"] = dict(tokens_per_s=len(prompts) * MAIN_NEW_TOKENS / wall, wall_s=wall,
+                                 ttft_s=ttft, steps=steps, programs=programs, share_ms=b_share)
+        del results, futs
+
+        # (c) an unsharded engine's prefills over the wire to the same server
+        tx_model = serving_model(dev, n_layers)
+        tx = ContinuousBatchingEngine(tx_model, slots=1, max_len=SERVING["engine_max_len"],
+                                      prompt_bucket=SERVING["engine_prompt_bucket"], kv_cache="paged",
+                                      block_size=SERVING["engine_block_size"], attention_impl="kernel",
+                                      device=dev)
+        mgr = KVTransferManager(transport="tcp", chunk_bytes=WIRE_CHUNK_BYTES)
+        try:
+            recv = mgr.register("rx", srv)
+            del shares[:]
+            steps0, forwards0 = eng.steps, tx.remote_prefills
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            ship_ms, nbytes, futs = [], [], []
+            for i in range(WIRE_REQUESTS):
+                kw = sampling(i)
+                pre = wait_for(tx.prefill_remote(prompts[i], max_new_tokens=MAIN_NEW_TOKENS, **kw))
+                nbytes.append(leaf_bytes(pre))
+                t0 = time.perf_counter()
+                tid = mgr.ship(pre, "rx", trace_id=f"phase20-{i}")
+                ship_ms.append((time.perf_counter() - t0) * 1e3)
+                futs.append(srv.submit(prompts[i], max_new_tokens=MAIN_NEW_TOKENS,
+                                       prefilled=mgr.take("rx", tid), **kw))
+            results = [f.result(timeout=300) for f in futs]
+            launches = _build.launch_counts()
+            forwards, steps = tx.remote_prefills - forwards0, eng.steps - steps0
+            c_share = share_ms(shares)
+            same = [np.array_equal(r.tokens, want[i]) for i, r in enumerate(results)]
+            if not all(same) or srv.metrics["prefill_commit_fallbacks"]:
+                raise AssertionError(f"phase 20 (c): tokens bitwise the local prefill's {same}, "
+                                     f"fallbacks {srv.metrics['prefill_commit_fallbacks']}")
+            expected = {"flash_fwd_mma": n_layers * forwards, "paged_decode_mma": n_layers * steps,
+                        "fused_sample": forwards + steps}
+            check_launches("phase 20 (c)", launches, expected)
+            paths["mesh_kvtx"] = {k: launches[k] for k in expected}
+            # a reservation released before COMMIT: the sender gets the
+            # stale-epoch error, and requests in flight finish unharmed
+            busy = [srv.submit(prompts[i], max_new_tokens=MAIN_NEW_TOKENS, **sampling(i))
+                    for i in range(4, 6)]
+
+            def release_at_commit(name, context):
+                if name == "kvtx.commit":
+                    st = recv._inflight[context["transfer"]]
+                    eng.release_reservation(st.slot, st.epoch)
+
+            install_conductor(release_at_commit)
+            try:
+                mgr.ship(tx.prefill_remote(prompts[1], max_new_tokens=8), "rx")
+                raise AssertionError("phase 20 (c): a transfer whose reservation was released "
+                                     "committed")
+            except TransferStaleEpochError:
+                pass
+            finally:
+                uninstall_conductor(release_at_commit)
+            for i, f in zip(range(4, 6), busy):
+                if not np.array_equal(f.result(timeout=300).tokens, want[i]):
+                    raise AssertionError("phase 20 (c): a request served beside the stale transfer "
+                                         "differs")
+        finally:
+            mgr.close()
+        nb = statistics.median(nbytes)
+        log(f"phase 20 (c) tcp: {WIRE_REQUESTS} prefills of {nb / 2**20:.1f} MiB each from an "
+            f"unsharded engine shipped to the server over the TP layout in "
+            + ", ".join(f"{x:.1f}" for x in ship_ms) + " ms ("
+            + ", ".join(f"{nb / x / 1e6:.3f}" for x in ship_ms) + " GB/s), window broadcast "
+            + ", ".join(f"{x:.3f}" for x in c_share) + " ms (one rank); tokens bitwise the local "
+            f"prefill's; a reservation released before COMMIT raised TransferStaleEpochError on "
+            f"the sender while 2 requests in flight finished bitwise; receiver {dict(recv.stats)} "
+            f"[{card}]")
+        numbers["kvtx"] = dict(bytes=nb, ship_ms=ship_ms, gb_s=[nb / x / 1e6 for x in ship_ms],
+                               share_ms=c_share, receiver=dict(recv.stats))
+    finally:
+        router.close()
+    del tx, tx_model, eng, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths, numbers
+
+
+def phase_mesh_tier(dev, card, laid, reference, tier_reference):
+    """Phase 20 (a)-(c) on phase 15 (a)'s laid model, inside its one-rank
+    NCCL group. Returns ({path: launches}, numbers)."""
+    t0 = time.perf_counter()
+    paths, numbers = mesh_tier_pools(dev, card, laid, tier_reference)
+    more_paths, more = mesh_disagg_wire(dev, card, laid, reference)
+    paths.update(more_paths)
+    numbers.update(more, seconds=time.perf_counter() - t0)
+    return paths, numbers
+
+
+def other_rank_heads(real):
+    """The planted fault of phase 20 (d): the rank of ``tp`` index 1 takes
+    the kv heads of the next rank's block of a window."""
+    def heads(window, tp):
+        if tp is None or tp.rank != 1:
+            return real(window, tp)
+        n = window["k"].shape[3] // tp.size
+        r = (tp.rank + 1) % tp.size
+        return {w: t[:, :, :, r * n:(r + 1) * n] for w, t in window.items()}
+    return heads
+
+
+def mesh_tier_threads(dev, card):
+    """Phase 20 (d): tp 2 as threads (eager) at 4 layers: phase 17 (a)'s
+    P cold, evicted into the tier and restored; two 512-token prompts
+    through prefill_remote and insert_prefilled, the second over the
+    wire's bytes, each beside insert; then the same commits with rank 1
+    taking the other rank's heads. Returns (launches, numbers)."""
+    from accelerate_tpu_torch.engine import ContinuousBatchingEngine, RemotePrefill
+    from accelerate_tpu_torch.models import llama as tl
+
+    n_layers = MESH_TIER_THREAD_LAYERS
+    model = serving_model(dev, n_layers)
+    cfg = model.config
+    whole = {key: getattr(model, name).detach() for key, name in model.checkpoint_keys()}
+    params = model.params
+    long, short = tier_traffic(cfg.vocab_size)
+    p, remote = long[0], short[:2]
+
+    def commits(eng):
+        rows = []
+        for i, q in enumerate(remote):
+            pre = eng.prefill_remote(q, max_new_tokens=TIER_NEW)
+            if i == 1:
+                pre = RemotePrefill.from_bytes(pre.to_bytes(), engine=eng)
+            occ = eng.insert_prefilled(pre)
+            eng.drain()
+            rows.append(list(occ.tokens))
+        return rows
+
+    def work(laid, r):
+        eng = ContinuousBatchingEngine(laid, kv_cache="paged", device=dev, **TIER_ENGINE)
+        (cold,), _ = engine_serve(eng, [p], [TIER_NEW])
+        engine_serve(eng, long[1:3], [2, 2])
+        eng._backend.spill_flush()
+        if eng._backend.pool._shared_prefix(p):
+            raise AssertionError("phase 20 (d): P still has device blocks after the eviction")
+        (again,), _ = engine_serve(eng, [p], [TIER_NEW])
+        rows = commits(eng)
+        inserted = [engine_serve(eng, [q], [TIER_NEW])[0][0] for q in remote]
+        kv = eng.stats()["kv"]
+        return dict(cold=cold, again=again, remote=rows, insert=inserted,
+                    restores=eng.kv_restores, hits=kv["restore_hits"],
+                    delta=dict(steps=eng.steps, verify=0, chunks=eng.prefill_chunks),
+                    forwards=eng.remote_prefills)
+
+    def faulty(laid, r):
+        return commits(ContinuousBatchingEngine(laid, kv_cache="paged", device=dev, **TIER_ENGINE))
+
+    t0 = time.perf_counter()
+    results, counts = thread_ranks(CONT_THREAD_DIMS, whole, cfg, work, "phase 20 (d)")
+    secs = time.perf_counter() - t0
+    real = tl.kv_window_heads
+    tl.kv_window_heads = other_rank_heads(real)
+    try:
+        planted, _ = thread_ranks(CONT_THREAD_DIMS, whole, cfg, faulty, "phase 20 (d) fault")
+    finally:
+        tl.kv_window_heads = real
+    first = results[0]
+    world = math.prod(CONT_THREAD_DIMS.values())
+    equal = all(res == first for res in results.values())
+    n_single = len(remote) + first["forwards"]  # the inserts' prefills and the remote forwards
+    expected = {k: world * n for k, n in expected_launches(n_layers, first["delta"], n_single).items()}
+    tp = CONT_THREAD_DIMS["tp"]
+    heads = (cfg.num_attention_heads // tp, cfg.num_key_value_heads // tp)
+    check_launches(f"phase 20 (d) ({world} threads, {heads[0]} q and {heads[1]} kv heads a rank)",
+                   counts, expected)
+    cfg_r = dataclasses.replace(cfg, attention_impl="xla")
+    shares = [teacher_forced_ulps(cfg_r, params, q, t)
+              for q, t in ((p, first["cold"]), *zip(remote, first["remote"]))]
+    n = sum(k for _, _, k in shares)
+    share = sum(a * k for a, _, k in shares) / n
+    gap_ulps = max(g for _, g, _ in shares)
+    caught = all(res != first["remote"] for res in planted.values())
+    log(f"phase 20 (d): tp {tp} as threads (eager), {n_layers} layers: P ({TIER_PROMPT} tokens) "
+        f"cold, evicted and restored ({first['restores']} restore of {first['hits']} blocks), two "
+        f"{TIER_SHORT}-token prompts through prefill_remote and insert_prefilled (the second over "
+        f"the wire's bytes) in {secs:.1f}s; tokens equal on every rank {equal}; restored P bitwise "
+        f"its cold serve {first['again'] == first['cold']}; commits bitwise insert "
+        f"{first['remote'] == first['insert']}; teacher-forced against the plain forward: argmax "
+        f"share {share:.4f} (min {GREEDY_SHARE_MIN}), largest gap {gap_ulps:.3f} bf16 ulps (limit "
+        f"{Q_NEAR_TIE_ULPS}); planted fault (rank 1 commits the other rank's heads) caught "
+        f"{caught} [{card}]")
+    if not (equal and first["again"] == first["cold"] and first["remote"] == first["insert"]
+            and first["restores"] == 1 and first["hits"] == TIER_PROMPT // 16):
+        raise AssertionError("phase 20 (d): the ranks disagree, or the restore or a commit is not "
+                             "bitwise the plain path")
+    if not (share >= GREEDY_SHARE_MIN and gap_ulps <= Q_NEAR_TIE_ULPS):
+        raise AssertionError("phase 20 (d): the tokens disagree with the plain forward")
+    if not caught:
+        raise AssertionError("phase 20 (d): the planted heads fault went unseen")
+    del model, whole, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ({k: counts[k] for k in expected},
+            dict(seconds=secs, share=share, gap_ulps=gap_ulps, delta=first["delta"]))
 
 
 # ---------------------------------------------------------------- phase 18
@@ -6976,6 +7332,11 @@ def run_phases(args) -> int:
             with phase("17"):
                 tier_paths, summary["disaggregated"] = phase_disaggregated(dev, card, model)
             by_path.update(tier_paths)
+            # what phase 20 (a) holds the tier over the TP layout against
+            tier_reference = {kv: dict(launches=tier_paths[path], **summary["disaggregated"][key])
+                              for kv, path, key in (("paged", "host_tier", "host_tier"),
+                                                    ("paged_int8", "host_tier_int8",
+                                                     "host_tier_int8"))}
             with phase("18"):
                 fleet_paths, summary["fleet"] = phase_fleet(dev, card, model, summary["main_path"])
             by_path.update(fleet_paths)
@@ -7020,9 +7381,12 @@ def run_phases(args) -> int:
                 mesh_paths, summary["serving_mesh"] = phase_serving_mesh(dev, card)
             by_path.update(mesh_paths)
             with phase("15"):
-                cont_paths, summary["continuous_mesh"] = phase_continuous_mesh(
-                    dev, card, args.layers, reference)
+                cont_paths, summary["continuous_mesh"], tier_paths, summary["mesh_tier"] = (
+                    phase_continuous_mesh(dev, card, args.layers, reference, tier_reference))
             by_path.update(cont_paths)
+            by_path.update(tier_paths)
+            seconds["20"] = summary["mesh_tier"]["seconds"]
+            seconds["15"] -= seconds["20"]
         log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
             + f"; total {sum(seconds.values()):.1f}s [{card}]")
         for counts in by_path.values():

@@ -420,16 +420,19 @@ def test_refusals_name_their_queue_items(tmp_path):
 
         assert engine_tokens(laid) == engine_tokens(
             tl.LlamaForCausalLM.from_seed(tiny, device="cpu"))
-        # A3 landed on one card; over a mesh its host tier, remote prefill,
-        # reservations and commits name A3-bis
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A3-bis"):
-            ContinuousBatchingEngine(laid, slots=2, max_len=32, kv_cache="paged",
-                                     host_tier_bytes=1 << 20, device="cpu")
-        eng = ContinuousBatchingEngine(laid, slots=2, max_len=32, device="cpu")
-        for call in (lambda: eng.prefill_remote(prompt, max_new_tokens=4), eng.reserve_slot,
-                     lambda: eng.insert_prefilled(None)):
-            with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A3-bis"):
-                call()
+        # A3-bis landed (A3 over a mesh): the host tier, remote prefill,
+        # reservations and commits run on a laid model as on the model itself
+        def a3_tokens(model):
+            eng = ContinuousBatchingEngine(model, slots=2, max_len=32, kv_cache="paged",
+                                           host_tier_bytes=1 << 20, device="cpu")
+            slot, epoch = eng.reserve_slot()
+            assert eng.release_reservation(slot, epoch)
+            occ = eng.insert_prefilled(eng.prefill_remote(prompt, max_new_tokens=4))
+            eng.drain()
+            return occ.tokens, eng.stats()["kv"]["host_tier_capacity_bytes"]
+
+        assert a3_tokens(laid) == a3_tokens(tl.LlamaForCausalLM.from_seed(tiny, device="cpu"))
+        assert [str(f) for f in port.rglob("*.py") if "A3-bis" in f.read_text()] == []
     finally:
         if started:
             dist.destroy_process_group()

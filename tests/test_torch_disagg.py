@@ -260,6 +260,9 @@ def test_capture_counts_only_its_own_thread():
 
 
 def test_refusals_over_a_mesh_name_a3_bis(models, tmp_path):
+    """A3-bis landed: on a one-rank mesh the host tier, ``prefill_remote``,
+    ``reserve_slot`` and ``insert_prefilled`` run, and every request's
+    tokens are the unsharded engine's."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -276,19 +279,26 @@ def test_refusals_over_a_mesh_name_a3_bis(models, tmp_path):
         tiny = LlamaConfig.tiny(compute_dtype=torch.float32)
         laid = dispatch_model(LlamaForCausalLM.from_seed(tiny, device="cpu"), mesh=mesh,
                               rules=tensor_parallel_rules())
-        with pytest.raises(NotImplementedError, match=r"host_tier_bytes.*ROADMAP\.md A3-bis"):
-            ContinuousBatchingEngine(laid, kv_cache="paged", host_tier_bytes=1 << 20, device="cpu",
-                                     **{k: v for k, v in KW.items()})
-        eng = ContinuousBatchingEngine(laid, kv_cache="paged", device="cpu", **KW)
-        for call in (lambda: eng.prefill_remote(PROMPTS[0], max_new_tokens=4),
-                     lambda: eng.reserve_slot(),
-                     lambda: eng.insert_prefilled(RemotePrefill(
-                         prompt=PROMPTS[0], max_new_tokens=4, temperature=0.0, top_k=None,
-                         top_p=None, eos_token_id=None, pad_token_id=None, seed=0, cache=None,
-                         t0=None, next_key=None))):
-            with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A3-bis"):
-                call()
-        assert eng.free_slots() == 2
+
+        def run(model):
+            eng = ContinuousBatchingEngine(model, kv_cache="paged", host_tier_bytes=1 << 20,
+                                           device="cpu", **KW)
+            rows = [_insert(eng, p, **kw) for p, kw in zip(PROMPTS, CASES)]
+            slot, epoch = eng.reserve_slot()
+            assert eng.release_reservation(slot, epoch)
+            for p, kw in zip(PROMPTS, CASES):
+                pre = eng.prefill_remote(p, max_new_tokens=6, pad_token_id=0, **kw)
+                assert pre.cache["k"].shape == (2, 1, 32, 2, 16)  # the whole window
+                rows.append(_commit(eng, pre))
+            assert eng.free_slots() == 2
+            return rows, eng.stats()["programs"]
+
+        got, want = run(laid), run(LlamaForCausalLM.from_seed(tiny, device="cpu"))
+        for a, b in zip(got[0], want[0]):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(got[0][2:], got[0][:2]):  # commits are inserts
+            np.testing.assert_array_equal(a, b)
+        assert got[1] == want[1]
     finally:
         if started:
             dist.destroy_process_group()

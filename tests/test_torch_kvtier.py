@@ -70,6 +70,7 @@ def _scenario(eng, prefetch):
         eng.prefetch(prompt)
     occ2 = eng.insert(prompt, max_new_tokens=4, pad_token_id=0)
     eng.drain()
+    eng._backend.spill_flush()  # the last admission's spills land before the counters are read
     kv = eng.stats()["kv"]
     return first, occ2.output_row(), dict(kv_restores=eng.kv_restores,
                                           **{k: kv[k] for k in COUNTERS})
