@@ -55,8 +55,12 @@ style with a sequence-parallel residual (``parallel/tp.py``) and then
 sharded over the data-parallel dims (FSDP2, HSDP); the ``tp`` ranks of one
 data-parallel coordinate read the same rows, the loss is reduced over the
 data-parallel ranks only, and the gradients of ``tp``-replicated
-parameters are summed over ``tp``. Context, sequence, pipeline and expert
-parallelism and PowerSGD wait for ROADMAP.md A11 and raise.
+parameters are summed over ``tp``. Under ``ep`` (``ep_size > 1``) an MoE
+Llama keeps ``num_experts / ep_size`` experts a rank (``parallel/ep.py``),
+laid out and sharded the same way; over the data-parallel ranks its MoE
+layers route each global batch as one, as the JAX step does
+(``ops/moe.py``). Context, sequence and pipeline parallelism, MoE under
+``tp`` and PowerSGD wait for ROADMAP.md A11 and raise.
 """
 
 from __future__ import annotations
@@ -289,7 +293,7 @@ class Accelerator:
 
     @property
     def is_fsdp2(self) -> bool:
-        return self.layout in ("fsdp", "hsdp", "tp_fsdp", "tp_hsdp")
+        return self.layout in ("fsdp", "hsdp", "tp_fsdp", "tp_hsdp", "ep_fsdp", "ep_hsdp")
 
     @property
     def split_batches(self) -> bool:
@@ -455,9 +459,28 @@ class Accelerator:
             self._param_map.update(pmap)
             self._replicated.update(replicated)
             self._tp_replicated.update(tp_replicated)
+            self._route_over_data_parallel(model)
         if model not in self._models:
             self._models.append(model)
         return model
+
+    def _route_over_data_parallel(self, model: nn.Module) -> None:
+        """Give an MoE model (a config with ``num_experts > 1``) the
+        data-parallel ranks its layers route one batch over, as the JAX
+        step routes the global batch: a group of their own
+        (``ops.collectives.mirror_group``), since the routing's collectives
+        run inside the backward beside DDP's and FSDP2's."""
+        from .model import unwrap_model
+        from .ops.collectives import mirror_group
+
+        inner = unwrap_model(model)
+        if getattr(getattr(inner, "config", None), "num_experts", 1) <= 1:
+            return
+        names = self.mesh.mesh_dim_names
+        dims = tuple(d for d in ("dp_replicate", "dp_shard")
+                     if d in names and self.mesh.size(names.index(d)) > 1)
+        if dims:
+            inner.dp_group = mirror_group(self.mesh, dims)
 
     def _prepare_fp8(self, model: nn.Module, evaluation_mode: bool) -> None:
         """fp8 products (``ops/fp8.py``), before any wrapping: a model with a
@@ -743,12 +766,14 @@ class Accelerator:
     # ------------------------------------------------------------ collectives
     def _row_owners(self) -> Optional[list]:
         """The processes whose rows a gather keeps, in data-parallel order:
-        each coordinate's ``tp`` rank 0 (its ``tp`` ranks hold the same
-        rows), or None where every process holds its own."""
+        each coordinate's ``tp`` (or ``ep``) rank 0 (its ``tp`` or ``ep``
+        ranks hold the same rows), or None where every process holds its
+        own."""
         names = (self.mesh.mesh_dim_names or ()) if self.mesh is not None else ()
-        if "tp" not in names or self.mesh.size(names.index("tp")) == 1:
+        dim = next((d for d in ("tp", "ep") if d in names), None)
+        if dim is None or self.mesh.size(names.index(dim)) == 1:
             return None
-        return self.mesh.mesh.select(names.index("tp"), 0).flatten().tolist()
+        return self.mesh.mesh.select(names.index(dim), 0).flatten().tolist()
 
     def gather(self, tensor):
         """Every data-parallel rank's tensors concatenated on dim 0, in

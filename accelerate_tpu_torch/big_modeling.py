@@ -15,8 +15,10 @@ Over a mesh (a ``DeviceMesh`` of the process group, one card a rank) the
 plan is the training layout's: ``rules`` (``(regex, dim)`` pairs, the whole
 list, as the JAX package's ``dispatch_model`` takes them; e.g.
 ``parallel.tp.tensor_parallel_rules()``) split a Llama over the mesh's
-``tp`` dim for its tensor-parallel forward, and FSDP2 shards over the
-``fsdp_axes`` (each per-layer leaf on dim 0, gathered a layer at a time).
+``tp`` dim for its tensor-parallel forward (an MoE Llama's experts over
+the mesh's ``ep`` dim instead, with ``parallel.ep.expert_parallel_rules()``),
+and FSDP2 shards over the ``fsdp_axes`` (each per-layer leaf on dim 0,
+gathered a layer at a time).
 :func:`plan_shardings` says where each leaf goes and checks that a rank's
 share fits its budget (:func:`get_max_memory`), as the JAX package's does;
 :func:`load_checkpoint_and_dispatch` then copies each rank only its
@@ -105,11 +107,13 @@ def get_max_memory(mesh=None) -> dict[str, int]:
 class LeafPlan(NamedTuple):
     """Where a leaf (as its checkpoint key holds it) goes on a mesh: the
     dim split over ``tp`` (None: replicated), the dim FSDP2 shards over the
-    ``fsdp_axes`` (None: not sharded), and the bytes one rank holds."""
+    ``fsdp_axes`` (None: not sharded), the bytes one rank holds, and the
+    dim an MoE model splits over ``ep``."""
 
     tp_dim: Optional[int]
     fsdp_dim: Optional[int]
     rank_bytes: int
+    ep_dim: Optional[int] = None
 
 
 def _mesh_size(mesh, axes) -> int:
@@ -128,11 +132,25 @@ def _fsdp_axes(mesh, fsdp_axes) -> tuple:
     return axes
 
 
-def _tp_size(mesh, rules) -> int:
-    """The ``tp`` ranks a model is split over: the mesh's ``tp`` dim when
-    ``rules`` are given (without rules every leaf is replicated, as the
-    JAX plan without rules has it)."""
-    return _mesh_size(mesh, ("tp",)) if rules is not None else 1
+def _split_dim(model) -> str:
+    """The dim ``rules`` split ``model`` over: ``"ep"`` for an MoE Llama
+    (its experts), else ``"tp"``."""
+    return "ep" if getattr(getattr(model, "config", None), "num_experts", 1) > 1 else "tp"
+
+
+def _split_plan(model, mesh, rules) -> dict:
+    """``{parameter name: (checkpoint key, layer, dim)}`` of ``rules`` (the
+    whole list) over the mesh's ``tp`` dim, or an MoE model's ``ep`` dim
+    (MoE under ``tp`` waits for ROADMAP.md A11)."""
+    from .parallel.ep import expert_parallel_plan
+    from .parallel.tp import tensor_parallel_plan
+
+    if _split_dim(model) == "tp":
+        return tensor_parallel_plan(model, _mesh_size(mesh, ("tp",)), rules, defaults=False)
+    if _mesh_size(mesh, ("tp",)) > 1:
+        raise NotImplementedError("MoE layers under tensor parallelism are not ported yet "
+                                  "(ROADMAP.md A11): lay an MoE model over ep and dp_shard")
+    return expert_parallel_plan(model, _mesh_size(mesh, ("ep",)), rules, defaults=False)
 
 
 def plan_shardings(abstract_tree, mesh, rules=None, fsdp_axes=("dp_shard",),
@@ -144,16 +162,17 @@ def plan_shardings(abstract_tree, mesh, rules=None, fsdp_axes=("dp_shard",),
     leaf elsewhere raises), FSDP2 shards each leaf's per-layer dim 0 over
     the ``fsdp_axes`` (rows padded to a multiple). Raises ``MemoryError``
     when one rank's share exceeds ``hbm_budget_bytes`` (default: the least
-    of :func:`get_max_memory` over the mesh), as the JAX package's does."""
-    from .parallel.tp import tensor_parallel_plan
-
+    of :func:`get_max_memory` over the mesh), as the JAX package's does.
+    An MoE Llama's ``rules`` (``parallel.ep.expert_parallel_rules()``)
+    split its experts over the mesh's ``ep`` dim (``ep_dim``)."""
     model = abstract_tree
-    tp = _tp_size(mesh, rules)
+    split = _split_dim(model)
+    n_split = _mesh_size(mesh, (split,)) if rules is not None else 1
     n_fsdp = _mesh_size(mesh, _fsdp_axes(mesh, fsdp_axes))
     by_key = {}
     if rules is not None:
         if getattr(model, "tensor_parallel_forward", False):
-            for _, (key, _, dim) in tensor_parallel_plan(model, tp, rules, defaults=False).items():
+            for _, (key, _, dim) in _split_plan(model, mesh, rules).items():
                 by_key[key] = dim
         elif rules:
             raise ValueError(f"sharding rule {list(rules)[0]!r}: {type(model).__name__} has no "
@@ -162,16 +181,17 @@ def plan_shardings(abstract_tree, mesh, rules=None, fsdp_axes=("dp_shard",),
     for key, attr in named_leaves(model):
         leaf = get_leaf(model, attr)
         shape = list(leaf.shape)
-        tp_dim = by_key.get(key)
+        split_dim = by_key.get(key)
         # a Llama's stacked (L, ...) layer leaf is sharded per layer, on dim 1
         per_layer = hasattr(model, "unstack_layers") and key.split(".")[0] == "layers"
         fsdp_dim = (1 if per_layer else 0) if n_fsdp > 1 and shape else None
         local = list(shape)
-        if tp_dim is not None:
-            local[tp_dim] //= tp
+        if split_dim is not None:
+            local[split_dim] //= n_split
         if fsdp_dim is not None:
             local[fsdp_dim] = -(-local[fsdp_dim] // n_fsdp)
-        plans[key] = LeafPlan(tp_dim, fsdp_dim, math.prod(local) * leaf.element_size())
+        dims = (None, split_dim) if split == "ep" else (split_dim, None)
+        plans[key] = LeafPlan(dims[0], fsdp_dim, math.prod(local) * leaf.element_size(), dims[1])
     if hbm_budget_bytes is None:
         budgets = get_max_memory(mesh)
         hbm_budget_bytes = min(budgets.values()) if budgets else None
@@ -179,7 +199,8 @@ def plan_shardings(abstract_tree, mesh, rules=None, fsdp_axes=("dp_shard",),
     if hbm_budget_bytes is not None and per_rank > hbm_budget_bytes:
         raise MemoryError(
             f"Sharded model needs ~{per_rank / 2**30:.1f} GiB per rank but the budget is "
-            f"{hbm_budget_bytes / 2**30:.1f} GiB; add mesh dims (dp_shard/tp) or use cpu_offload().")
+            f"{hbm_budget_bytes / 2**30:.1f} GiB; add mesh dims (dp_shard/tp/ep) or use "
+            "cpu_offload().")
     return plans
 
 
@@ -230,18 +251,22 @@ def _rank_device(mesh) -> torch.device:
 
 
 def _shard_over_mesh(model: nn.Module, mesh, rules, fsdp_axes, source=None) -> nn.Module:
-    """Split ``model`` over the mesh's ``tp`` dim (with ``rules``) and shard
-    it with FSDP2 over the ``fsdp_axes``: a Llama per layer, then the root."""
+    """Split ``model`` over the mesh's ``tp`` dim (an MoE model over
+    ``ep``; with ``rules``) and shard it with FSDP2 over the ``fsdp_axes``:
+    a Llama per layer, then the root."""
     from torch.distributed.fsdp import fully_shard
 
+    from .parallel.ep import apply_expert_parallel
     from .parallel.mesh import sub_mesh
     from .parallel.tp import apply_tensor_parallel
 
     axes = _fsdp_axes(mesh, fsdp_axes)
     if (rules is not None or axes) and hasattr(model, "unstack_layers"):
         model.unstack_layers()
-    if rules is not None and "tp" in (mesh.mesh_dim_names or ()):
-        apply_tensor_parallel(model, sub_mesh(mesh, "tp"), rules, defaults=False, source=source)
+    split = _split_dim(model)
+    if rules is not None and split in (mesh.mesh_dim_names or ()):
+        apply = apply_expert_parallel if split == "ep" else apply_tensor_parallel
+        apply(model, sub_mesh(mesh, split), rules, defaults=False, source=source)
     if axes:
         fsdp_mesh = sub_mesh(mesh, axes)
         for layer in getattr(model, "layers", None) or []:
@@ -255,8 +280,9 @@ def dispatch_model(model: nn.Module, mesh=None, rules=None, fsdp_axes=("dp_shard
     """Place a materialized model on one device (reference dispatch_model,
     big_modeling.py:315), or lay it over ``mesh``: on this rank's device,
     split over ``tp`` by ``rules`` (the Llama's tensor-parallel forward
-    then runs on each rank's blocks and gathers the logits whole), sharded
-    by FSDP2 over the ``fsdp_axes``. Every rank holds the same values
+    then runs on each rank's blocks and gathers the logits whole; an MoE
+    Llama's experts over ``ep``, each rank running its own), sharded by
+    FSDP2 over the ``fsdp_axes``. Every rank holds the same values
     before."""
     if mesh is None:
         return model.to(resolve_device(device))
@@ -278,7 +304,7 @@ def _load_over_mesh(model, checkpoint, mesh, rules, fsdp_axes, strict):
             raise KeyError(f"Missing keys in checkpoint: {missing[:10]}"
                            f"{'...' if len(missing) > 10 else ''}")
         if rules is not None and getattr(model, "tensor_parallel_forward", False) \
-                and "tp" in (mesh.mesh_dim_names or ()):
+                and _split_dim(model) in (mesh.mesh_dim_names or ()):
             def source(key, layer):
                 value = reader.get(key)
                 return value if layer is None else value[layer]

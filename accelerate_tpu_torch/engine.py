@@ -566,9 +566,9 @@ class ContinuousBatchingEngine:
         params_dev = (embedding.local if isinstance(embedding, _Shard) else embedding).device
         if params_dev != self.device:
             raise ValueError(f"model parameters are on {params_dev}, engine device is {self.device}")
-        self._tp = self._fsdp = self._mesh_lock = None
+        self._tp = self._ep = self._fsdp = self._mesh_lock = None
         if self._view is not None:
-            self._tp = self._view.tp
+            self._tp, self._ep = self._view.tp, self._view.ep
             self._mesh_lock, self._fsdp = _model_mesh_state(model, self._view.fsdp_group)
             _check_same_engine(
                 dict(slots=slots, max_len=max_len, prompt_bucket=prompt_bucket,
@@ -576,8 +576,7 @@ class ContinuousBatchingEngine:
                      pool_blocks=pool_blocks, attention_impl=attention_impl,
                      prefill_chunk=prefill_chunk, spec=spec, spec_draft_len=spec_draft_len,
                      spec_ngram=spec_ngram, spec_ngram_min=spec_ngram_min),
-                [self._tp.group if self._tp is not None else None, self._view.fsdp_group],
-                self.device)
+                [self._view.model_group, self._view.fsdp_group], self.device)
         self.slots = slots
         self.max_len = max_len
         self.prompt_bucket = prompt_bucket if prompt_bucket is not None else max(1, max_len // 2)
@@ -691,7 +690,11 @@ class ContinuousBatchingEngine:
         # inputs staged from the host before a program runs
         self._args = torch.zeros((len(self._ARGS),), dtype=torch.int64, device=dev)
         self._prompt_ids = torch.zeros((1, self.prompt_bucket), dtype=torch.int64, device=dev)
-        self._chunk_ids = torch.zeros((1, self.prefill_chunk or 1), dtype=torch.int64, device=dev)
+        # an MoE model's chunk runs every slot's row, as the JAX chunk program
+        # does: its layers route the S x chunk token set, idle rows included
+        self._chunk_rows = s if self.config.num_experts > 1 else 1
+        self._chunk_ids = torch.zeros((self._chunk_rows, self.prefill_chunk or 1), dtype=torch.int64,
+                                      device=dev)
         self._draft = torch.zeros((s, k), dtype=torch.int64, device=dev)
         self._dlen = torch.zeros((s,), dtype=torch.int64, device=dev)
         self._stages = {name: HostStage(t) for name, t in (
@@ -740,7 +743,7 @@ class ContinuousBatchingEngine:
         """The step functions' mesh arguments (none without a mesh)."""
         if self._view is None:
             return {}
-        return dict(tp=self._tp, fsdp=self._fsdp)
+        return dict(tp=self._tp, fsdp=self._fsdp, ep=self._ep)
 
     def graph_launches(self) -> dict:
         """Kernel launches of one replay of each captured program:
@@ -851,9 +854,8 @@ class ContinuousBatchingEngine:
 
     def _groups(self) -> list:
         """The model's process groups over a mesh, ``dp_shard`` then ``tp``
-        (those it has)."""
-        return [g for g in (self._view.fsdp_group, self._tp.group if self._tp is not None else None)
-                if g is not None]
+        or ``ep`` (those it has)."""
+        return [g for g in (self._view.fsdp_group, self._view.model_group) if g is not None]
 
     def _agree_min(self, n: int) -> int:
         """The smallest ``n`` of every rank of the mesh (a MIN over each of
@@ -1130,18 +1132,21 @@ class ContinuousBatchingEngine:
     @torch.no_grad()
     def _dispatch_chunk(self, occ: SlotOccupant) -> None:
         """One chunk of a long prompt: a window forward over the slot alone
-        (B = 1) at its offset, teacher-forced on the prompt, committing every
-        real column. The slot's masked decode writes land at the next
-        chunk's first position, which that chunk rewrites before anything
-        attends it. The last chunk samples the first token; the prompt's
-        parked prefix registrations are installed then."""
+        (B = 1; an MoE model's over every slot, the others' rows zeros at
+        their positions, as the JAX program routes them) at its offset,
+        teacher-forced on the prompt, committing every real column. The
+        slot's masked decode writes land at the next chunk's first
+        position, which that chunk rewrites before anything attends it. The
+        last chunk samples the first token; the prompt's parked prefix
+        registrations are installed then."""
         slot, chunk = occ.slot, self.prefill_chunk
         length = len(occ.prompt)
         offset = occ.prefill_pos
         chunk_len = min(chunk, length - offset)
         is_last = offset + chunk_len >= length
-        tokens = np.zeros((1, chunk), np.int64)
-        tokens[0, :chunk_len] = occ.prompt[offset: offset + chunk_len]
+        tokens = np.zeros((self._chunk_rows, chunk), np.int64)
+        row = slot if self._chunk_rows > 1 else 0
+        tokens[row, :chunk_len] = occ.prompt[offset: offset + chunk_len]
         self._stages["chunk"].write(tokens)
         args = occ.chunk_args
         self._stage_args(slot=slot, pos=offset, count=chunk_len, col=min(length - 1 - offset, chunk - 1),
@@ -1174,12 +1179,22 @@ class ContinuousBatchingEngine:
         cancelled predecessor left its done flag off)."""
         slot = self._arg("slot")
         pos, count = self._arg("pos").to(torch.int32), self._arg("count").to(torch.int32)
-        cache, tables = self._backend.rows(self._cache, self._tables, slot)
-        logits, win_kv = self._verify_fn(
-            self.config, self._params(), cache, self._chunk_ids, pos,
-            kv_layout=self._backend.make_layout(tables), **self._mesh(),
-        )
-        self._backend.commit_window(self._cache, win_kv, tables, pos, count, rows=slot)
+        if self._chunk_rows > 1:  # every slot's row at its position, only the slot's committed
+            rows_pos = self._pos.index_copy(0, slot, pos)
+            logits, win_kv = self._verify_fn(
+                self.config, self._params(), self._cache, self._chunk_ids, rows_pos,
+                kv_layout=self._backend.make_layout(self._tables), **self._mesh(),
+            )
+            self._backend.commit_window(self._cache, win_kv, self._tables, rows_pos,
+                                        torch.zeros_like(rows_pos).index_copy_(0, slot, count))
+            logits = logits.index_select(0, slot)
+        else:
+            cache, tables = self._backend.rows(self._cache, self._tables, slot)
+            logits, win_kv = self._verify_fn(
+                self.config, self._params(), cache, self._chunk_ids, pos,
+                kv_layout=self._backend.make_layout(tables), **self._mesh(),
+            )
+            self._backend.commit_window(self._cache, win_kv, tables, pos, count, rows=slot)
         self._pos.index_copy_(0, slot, pos + count)
         last_col = logits.index_select(1, self._arg("col"))[:, 0]
         self._install_first(last_col, slot, is_last=self._arg("last").bool())

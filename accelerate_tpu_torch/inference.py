@@ -189,8 +189,7 @@ def graphs_supported(view) -> bool:
     (several ranks as threads of one process) cannot be, and runs eagerly."""
     import torch.distributed as dist
 
-    groups = [g for g in (view.tp.group if view.tp is not None else None, view.fsdp_group)
-              if g is not None]
+    groups = [g for g in (view.model_group, view.fsdp_group) if g is not None]
     return all(dist.get_backend(g) == "nccl" for g in groups)
 
 
@@ -273,7 +272,8 @@ class _Program:
 
     def __init__(self, config, b: int, prompt_len: int, total_len: int, max_new_tokens: int, *,
                  temp_on: bool, top_k_width: Optional[int], top_p_on: bool, eos_on: bool,
-                 kv_backend: str, block_size: int, device: torch.device, tp=None, fsdp=None):
+                 kv_backend: str, block_size: int, device: torch.device, tp=None, fsdp=None,
+                 ep=None):
         from .kvcache import PagedKVLayout, pool_from_dense
         from .models.llama import init_kv_cache
 
@@ -283,6 +283,7 @@ class _Program:
             temp_on, top_k_width, top_p_on, eos_on)
         self.tp = tp
         self.fsdp = fsdp
+        self.ep = ep
         tp_size = tp.size if tp is not None else 1
         self.tp_group = tp.group if tp is not None else None
         self.cache = init_kv_cache(config, b, total_len, device=device, tp_size=tp_size)
@@ -352,7 +353,7 @@ class _Program:
             self.done.logical_or_(token == self.eos)
         self.out.index_copy_(1, self.col, token[:, None])
         logits, _ = llama_decode_step(config, params, self.cache, token[:, None].long(), self.pos,
-                                      kv_layout=self.layout, tp=self.tp, fsdp=self.fsdp,
+                                      kv_layout=self.layout, tp=self.tp, fsdp=self.fsdp, ep=self.ep,
                                       vocab_shard=True)
         self.logits.copy_(logits)
         _advance(self)
@@ -453,8 +454,8 @@ def generate(
     )
     top_p_on = temp_on and top_p is not None and top_p < 1.0
     eos_on = eos_token_id is not None
-    groups = [tp.group if tp is not None else None, view.fsdp_group]
-    laid = tp is not None or view.fsdp_group is not None
+    groups = [view.model_group, view.fsdp_group]
+    laid = any(g is not None for g in groups)
     mesh_lock, fsdp = _model_mesh_state(model, view.fsdp_group) if laid else (None, None)
     # a laid model's calls run one at a time from the same-call check on:
     # every collective in one order on every rank
@@ -471,7 +472,10 @@ def generate(
             temp_on, top_k_width, top_p_on, eos_on,
             kv_backend, kv_block_size if paged else None,
         )
-        layout = ("tp", _group_size(groups[0]), "dp_shard", _group_size(groups[1]))
+        layout = ("tp", _group_size(tp.group if tp is not None else None),
+                  "dp_shard", _group_size(groups[1]))
+        if view.ep is not None:
+            layout += ("ep", view.ep.size)
         if layout != ("tp", 1, "dp_shard", 1):  # one device's keys are the JAX package's
             cache_key += (layout,)
         programs, cache_lock = _model_generate_cache(model)
@@ -483,7 +487,7 @@ def generate(
             prog = _Program(config, b, prompt_len, total_len, max_new_tokens, temp_on=temp_on,
                             top_k_width=top_k_width, top_p_on=top_p_on, eos_on=eos_on,
                             kv_backend=kv_backend, block_size=kv_block_size, device=device, tp=tp,
-                            fsdp=fsdp)
+                            fsdp=fsdp, ep=view.ep)
             with cache_lock:
                 programs[cache_key] = prog
                 cache_max = getattr(model, "_generate_cache_max", _GENERATE_CACHE_MAX)
@@ -493,7 +497,7 @@ def generate(
                       and graphs_supported(view))
         with torch.no_grad(), contextlib.nullcontext() if laid else prog.lock:
             logits, cache = llama_prefill(config, params, ids.long(), total_len, tp=tp,
-                                          fsdp=prog.fsdp, vocab_shard=True)
+                                          fsdp=prog.fsdp, vocab_shard=True, ep=prog.ep)
             if paged:
                 cache, _ = pool_from_dense(cache, kv_block_size,
                                            quantized=kv_backend == "paged_int8",
@@ -541,8 +545,10 @@ def prepare_inference(model, mesh=None, rules=None, *, device="cuda"):
     (default ``"cuda"``; raises without a GPU). With ``mesh`` (every rank
     of it calls this, each holding the same values): on this rank's
     device, a Llama split over the mesh's ``tp`` dim by ``rules``
-    (``parallel.tp.tensor_parallel_rules()``) and sharded per layer by
-    FSDP2 over ``dp_shard`` (``big_modeling.dispatch_model``); with no
+    (``parallel.tp.tensor_parallel_rules()``; an MoE Llama's experts over
+    the mesh's ``ep`` dim by ``parallel.ep.expert_parallel_rules()``) and
+    sharded per layer by FSDP2 over ``dp_shard``
+    (``big_modeling.dispatch_model``); with no
     ``rules`` a mesh of ``dp_shard`` alone shards the parameters and
     nothing else. :func:`generate` and the static ``InferenceServer`` then
     run on every rank of the mesh."""

@@ -73,8 +73,20 @@ input, as gate and up do. The decode and verify steps (and so chunked
 prefill), the head and the embedding stay in the compute dtype, as in the
 JAX package, whose ``_dot`` only ``_layer`` calls.
 
-Not ported yet (ROADMAP.md): MoE layers and Gemma-2's alternating sliding
-window (A11).
+A config with ``num_experts > 1`` (Mixtral) replaces each layer's MLP by
+the routed SwiGLU experts of ``ops.moe.moe_ffn``, in every function here
+(the training forward, the prefill, decode and verify steps), as the JAX
+``_layer``, ``_decode_layer`` and ``_verify_layer`` do; the training
+forward with ``return_aux=True`` also returns the layers' pre-scaled aux
+losses summed, which :func:`llama_loss` adds to the loss. Under ``use_fp8``
+an MoE layer runs only q/k/v/o through ``fp8_dot``: the JAX ``moe_ffn``
+never calls ``_dot``. Under expert parallelism (``parallel/ep.py``; the
+model's ``ep`` handle, the expert leaves ``DTensor`` blocks of an ``ep``
+sub-mesh on their expert dim) each rank holds ``E / ep`` experts and the
+whole of every other leaf; the functions take ``ep`` and run the rank's
+experts (see ``ops/moe.py``). MoE under ``tp`` waits for ROADMAP.md A11.
+
+Not ported yet (ROADMAP.md A11): Gemma-2's alternating sliding window.
 """
 
 from __future__ import annotations
@@ -167,8 +179,8 @@ class LlamaConfig:
     # and lax.scan over the layers (the port loops over them either way)
     attention_block_q: int = 2048
     scan_layers: bool = True
-    # MoE (Mixtral-style): num_experts > 1 is refused (ROADMAP.md A11), and
-    # the other MoE fields act only then
+    # MoE (Mixtral-style): num_experts > 1 replaces the dense MLP by the
+    # routed experts of ops/moe.py; the other MoE fields act only then
     num_experts: int = 1
     num_experts_per_tok: int = 2
     expert_capacity_factor: float = 1.25
@@ -208,9 +220,9 @@ class LlamaConfig:
 
     @classmethod
     def mixtral_8x7b(cls, **overrides) -> "LlamaConfig":
-        """Mixtral-8x7B shape (HF mistralai/Mixtral-8x7B): 8 experts, 2 per
-        token. It builds; a model of it is refused until MoE layers are
-        ported (ROADMAP.md A11)."""
+        """Mixtral-8x7B shape (HF mistralai/Mixtral-8x7B; its
+        ``block_sparse_moe`` checkpoints convert through
+        :func:`convert_hf_state_dict`): 8 experts, 2 per token, dropless."""
         return cls(**{**dict(
             vocab_size=32000, hidden_size=4096, intermediate_size=14336,
             num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
@@ -303,11 +315,6 @@ def _check_supported(config: LlamaConfig, params: Optional[dict] = None) -> None
             "forward); the prefill, decode and verify steps, generate and the engine "
             "take float trees: the JAX package decodes float trees only"
         )
-    if config.num_experts > 1:
-        raise NotImplementedError(
-            "MoE layers (num_experts > 1, with num_experts_per_tok, expert_capacity_factor, "
-            "moe_aux_loss_coef and router_z_loss_coef) are not ported yet (ROADMAP.md A11)"
-        )
     if config.alternating_sliding_window:
         raise NotImplementedError(
             "Gemma-2 alternating local/global attention is not ported yet (ROADMAP.md A11)"
@@ -362,6 +369,27 @@ def init_llama_params(config: LlamaConfig, generator: torch.Generator,
             entry["bias"] = torch.zeros((L, out_dim), dtype=dt, device=dev)
         return entry
 
+    def experts(in_dim, out_dim, scale):
+        # (L, E, in, out), one expert at a time for the draw's footprint
+        out = torch.empty((L, config.num_experts, in_dim, out_dim), dtype=dt, device=dev)
+        for layer in range(L):
+            for e in range(config.num_experts):
+                out[layer, e] = draw((in_dim, out_dim), scale)
+        return out
+
+    def mlp():
+        if config.num_experts > 1:
+            # the JAX scales: the router as a projection, the experts
+            # 1/sqrt(d) on their way in and 1/sqrt(i) on the way out
+            return {"router": {"kernel": stacked(d, config.num_experts)},
+                    "experts": {"w_gate": experts(d, i, 1.0 / math.sqrt(d)),
+                                "w_up": experts(d, i, 1.0 / math.sqrt(d)),
+                                "w_down": experts(i, d, 1.0 / math.sqrt(i))}}
+        return {"gate_proj": {"kernel": stacked(d, i)},
+                "up_proj": {"kernel": stacked(d, i)},
+                "down_proj": {"kernel": stacked(i, d)}}
+
+    # drawn in this order (the dict's), so a seed gives the same weights
     params = {
         "embed_tokens": {"embedding": draw((v, d), 0.02)},
         "layers": {
@@ -371,11 +399,7 @@ def init_llama_params(config: LlamaConfig, generator: torch.Generator,
                 "v_proj": proj(d, kvh * hd),
                 "o_proj": {"kernel": stacked(h * hd, d)},
             },
-            "mlp": {
-                "gate_proj": {"kernel": stacked(d, i)},
-                "up_proj": {"kernel": stacked(d, i)},
-                "down_proj": {"kernel": stacked(i, d)},
-            },
+            "mlp": mlp(),
             "input_norm": {"scale": norm((L, d))},
             "post_attn_norm": {"scale": norm((L, d))},
         },
@@ -445,9 +469,10 @@ def convert_hf_state_dict(config: LlamaConfig, flat: dict, device="cuda") -> dic
     parameter tree of ``config.param_dtype`` tensors on ``device``: each
     ``nn.Linear`` (out, in) weight transposed to (in, out), the per-layer
     tensors stacked on a leading L dimension, q/k rows taken from HF's
-    rotate-half order to interleaved pairs. Gemma-2's four norms and
-    Qwen2's q/k/v biases map as in the JAX package; MoE checkpoints wait
-    for ROADMAP.md A11."""
+    rotate-half order to interleaved pairs. Gemma-2's four norms, Qwen2's
+    q/k/v biases and Mixtral's ``block_sparse_moe`` (the router
+    ``gate``, experts ``w1``/``w3``/``w2`` as gate/up/down, stacked (L, E,
+    in, out)) map as in the JAX package."""
     _check_supported(config)
     dev = resolve_device(device)
     L = config.num_hidden_layers
@@ -486,7 +511,19 @@ def convert_hf_state_dict(config: LlamaConfig, flat: dict, device="cuda") -> dic
     else:
         params["layers"]["post_attn_norm"] = {
             "scale": stacked("post_attention_layernorm.weight", transpose=False)}
-    for hf_suffix, (group, name) in _HF_LAYER_MAP.items():
+    layer_map = _HF_LAYER_MAP
+    if config.num_experts > 1:
+        def stacked_experts(w_name: str) -> torch.Tensor:
+            return torch.stack([torch.stack([
+                get(f"model.layers.{i}.block_sparse_moe.experts.{e}.{w_name}.weight").T
+                for e in range(config.num_experts)]) for i in range(L)]).contiguous()
+
+        params["layers"]["mlp"] = {
+            "router": {"kernel": stacked("block_sparse_moe.gate.weight", transpose=True)},
+            "experts": {"w_gate": stacked_experts("w1"), "w_up": stacked_experts("w3"),
+                        "w_down": stacked_experts("w2")}}
+        layer_map = {k: v for k, v in _HF_LAYER_MAP.items() if v[0] == "attn"}
+    for hf_suffix, (group, name) in layer_map.items():
         params["layers"][group][name] = {"kernel": stacked(hf_suffix, transpose=True)}
     if not config.attention_bias and "model.layers.0.self_attn.q_proj.bias" in flat:
         raise ValueError(
@@ -520,7 +557,18 @@ def export_hf_state_dict(config: LlamaConfig, params: dict) -> dict:
     out = {"model.embed_tokens.weight": host(params["embed_tokens"]["embedding"]),
            "model.norm.weight": host(params["final_norm"]["scale"])}
     L = config.num_hidden_layers
-    for hf_suffix, (group, name) in _HF_LAYER_MAP.items():
+    layer_map = _HF_LAYER_MAP
+    if config.num_experts > 1:
+        layer_map = {k: v for k, v in _HF_LAYER_MAP.items() if v[0] == "attn"}
+        router = host(params["layers"]["mlp"]["router"]["kernel"])
+        experts = {k: host(v) for k, v in params["layers"]["mlp"]["experts"].items()}
+        for i in range(L):
+            out[f"model.layers.{i}.block_sparse_moe.gate.weight"] = router[i].T.contiguous()
+            for e in range(config.num_experts):
+                for ours, hf_w in (("w_gate", "w1"), ("w_up", "w3"), ("w_down", "w2")):
+                    out[f"model.layers.{i}.block_sparse_moe.experts.{e}.{hf_w}.weight"] = \
+                        experts[ours][i, e].T.contiguous()
+    for hf_suffix, (group, name) in layer_map.items():
         kernel = host(params["layers"][group][name]["kernel"])
         bias = params["layers"][group][name].get("bias")
         heads = _rope_heads(config, name)
@@ -640,6 +688,11 @@ class LlamaForCausalLM(nn.Module):
         self.config = config
         self.layers = None
         self.tp = None  # parallel.tp.TensorParallel, set by apply_tensor_parallel
+        self.ep = None  # parallel.ep.ExpertParallel, set by apply_expert_parallel
+        # the data-parallel ranks an MoE layer routes one batch over, set by prepare
+        self.dp_group = None
+        # the JAX Model's name: an MoE model's forward returns its aux too
+        self.name = "llama-moe" if config.num_experts > 1 else "llama"
         self.fp8_groups = None  # ops.fp8.Fp8Groups under use_fp8, set by prepare
         self._paths = []
         for path, tensor in _flatten(params):
@@ -654,7 +707,10 @@ class LlamaForCausalLM(nn.Module):
         """Re-register every stacked ``(L, ...)`` layer leaf as L per-layer
         parameters in ``self.layers`` (idempotent). Returns ``{stacked
         parameter: [its L per-layer parameters]}``, so an optimizer built on
-        the stacked ones can be pointed at these."""
+        the stacked ones can be pointed at these. Each stacked parameter's
+        storage is released once its layers are copied out (it holds no
+        values after), so the copy never holds the whole model twice: at
+        Mixtral's width an 8-layer f32 model is 47.5 GB."""
         if self.layers is not None:
             return {}
         n = self.config.num_hidden_layers
@@ -674,6 +730,7 @@ class LlamaForCausalLM(nn.Module):
                 for key in path[1:-1]:
                     node = node.setdefault(key, {})
                 node[path[-1]] = p.detach()[i].clone().requires_grad_(p.requires_grad)
+            p.data = p.data.new_empty((0,))
         self.layers = nn.ModuleList([_LlamaLayer(t) for t in trees])
         leaf_of = {name: "__".join(path[1:]) for path, name in self._paths if path[0] == "layers"}
         moved = {}
@@ -740,10 +797,14 @@ class LlamaForCausalLM(nn.Module):
                 vocab_shard: bool = False):
         """:func:`llama_apply` on this model's parameters; laid out over
         ``tp``, ``vocab_shard=True`` returns the rank's logits block (what
-        :func:`llama_loss` takes) instead of the whole logits."""
+        :func:`llama_loss` takes) instead of the whole logits. An MoE model
+        (``name`` ``"llama-moe"``) returns ``(logits, {"aux_loss": ...})``,
+        as the JAX ``create_llama``'s apply does."""
         return llama_apply(self.config, self._tree(detach=False), input_ids,
                            segment_ids=segment_ids, position_ids=position_ids, tp=self.tp,
-                           vocab_shard=vocab_shard, fp8_groups=self.fp8_groups)
+                           vocab_shard=vocab_shard, fp8_groups=self.fp8_groups,
+                           return_aux=self.config.num_experts > 1, ep=self.ep,
+                           dp_group=self.dp_group)
 
 
 def create_llama(config: LlamaConfig, seed: int = 0, device="cuda") -> LlamaForCausalLM:
@@ -999,21 +1060,48 @@ def _fp8_input(y, fp8):
     return None if fp8 is None else _fp8.quantize_input(y, fp8)
 
 
-def _mlp_block(config, layer_params, x, tp=None, fp8=None):
-    """Post-attention half of a block: norm, SwiGLU/GeGLU MLP, residual.
-    ``fp8``: the projections through ``fp8_dot`` (see :func:`_matmul`)."""
+def _mlp_block(config, layer_params, x, tp=None, fp8=None, ep=None, dp=None):
+    """Post-attention half of a block: norm, SwiGLU/GeGLU MLP (or the
+    routed experts of an MoE config), residual. Returns (x, the layer's
+    pre-scaled aux loss, None without experts). ``fp8``: the dense MLP's
+    projections through ``fp8_dot`` (see :func:`_matmul`); the experts stay
+    in the compute dtype. ``ep``: the rank's experts and their group;
+    ``dp``: the data-parallel group whose rows the layer routes as one
+    batch (``ops.moe.moe_ffn``'s ``dp_group``)."""
     y = rms_norm(x, layer_params["post_attn_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
-    y = _tp_in(y, tp)
     mlp = layer_params["mlp"]
-    qy = _fp8_input(y, fp8)
-    gate = _matmul(config, y, mlp["gate_proj"]["kernel"], fp8=fp8, qy=qy)
-    up = _matmul(config, y, mlp["up_proj"]["kernel"], fp8=fp8, qy=qy)
-    with _block_output("mlp_block_out"):
-        y = _matmul(config, _mlp_act(config, gate) * up, mlp["down_proj"]["kernel"], fp8=fp8)
-    y = _tp_out(y, tp)
+    aux = None
+    if config.num_experts > 1:
+        from ..ops.moe import moe_ffn
+
+        if tp is not None:
+            raise NotImplementedError(_MOE_UNDER_TP)
+        # quantized leaves dequantized first, as the JAX package does every leaf
+        mlp = _map_tree(lambda w: w if isinstance(w, torch.Tensor) else w.dequantize(), mlp)
+        # under remat "minimal" nothing of it is kept: its output is a sum,
+        # not one of the products the policy saves (the values are the same)
+        y, aux = moe_ffn(
+            y, mlp["router"]["kernel"], mlp["experts"]["w_gate"], mlp["experts"]["w_up"],
+            mlp["experts"]["w_down"], num_selected=config.num_experts_per_tok,
+            capacity_factor=config.expert_capacity_factor, compute_dtype=config.compute_dtype,
+            aux_loss_coef=config.moe_aux_loss_coef, router_z_loss_coef=config.router_z_loss_coef,
+            ep=ep, dp_group=dp)
+    else:
+        y = _tp_in(y, tp)
+        qy = _fp8_input(y, fp8)
+        gate = _matmul(config, y, mlp["gate_proj"]["kernel"], fp8=fp8, qy=qy)
+        up = _matmul(config, y, mlp["up_proj"]["kernel"], fp8=fp8, qy=qy)
+        with _block_output("mlp_block_out"):
+            y = _matmul(config, _mlp_act(config, gate) * up, mlp["down_proj"]["kernel"], fp8=fp8)
+        y = _tp_out(y, tp)
     if config.post_block_norms:
         y = rms_norm(y, layer_params["mlp_out_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
-    return x + y
+    return x + y, aux
+
+
+_MOE_UNDER_TP = ("MoE layers under tensor parallelism (tp on the experts' intermediate dim) are "
+                 "not ported yet (ROADMAP.md A11): lay an MoE model over ep and the "
+                 "data-parallel dims")
 
 
 def _attn_out(config, layer_params, attn, residual, tp=None, fp8=None):
@@ -1028,15 +1116,19 @@ def _attn_out(config, layer_params, attn, residual, tp=None, fp8=None):
 
 
 def _layer(config: LlamaConfig, layer_params, x, position_offset: int = 0,
-           collect_kv: bool = False, segment_ids=None, position_ids=None, tp=None, fp8=None):
-    """One block on (B, S, D) activations; ``collect_kv=True`` also returns
-    the post-RoPE k/v for building the cache. ``segment_ids`` (B, S) keep
+           collect_kv: bool = False, segment_ids=None, position_ids=None, tp=None, fp8=None,
+           ep=None, dp=None):
+    """One block on (B, S, D) activations -> (x, the layer's pre-scaled MoE
+    aux loss or None); ``collect_kv=True`` also returns the post-RoPE k/v
+    for building the cache, as ``(x, (k, v))``. ``segment_ids`` (B, S) keep
     attention inside packed documents; ``position_ids`` (B, S) are per-token
     RoPE positions (restarting at each document). Under ``tp`` (a
     :class:`_TPRun`) ``x`` is this rank's block of the sequence, or whole,
     and the heads are the rank's (as many as its q/k/v columns hold).
     ``fp8`` (an ``ops.fp8.Fp8Groups``, given under ``use_fp8``): the seven
-    projections through ``fp8_dot``, on the rank's blocks."""
+    projections through ``fp8_dot``, on the rank's blocks (q/k/v/o only in
+    an MoE layer). ``ep``, ``dp``: the rank's experts, the data-parallel
+    routing group (:func:`_mlp_block`)."""
     hd = config.head_dim
     y = rms_norm(x, layer_params["input_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
     y = _tp_in(y, tp)
@@ -1057,8 +1149,9 @@ def _layer(config: LlamaConfig, layer_params, x, position_offset: int = 0,
         window=config.sliding_window, softcap=config.attn_logit_softcap,
         segment_ids=segment_ids,
     )
-    x = _mlp_block(config, layer_params, _attn_out(config, layer_params, attn, x, tp, fp8), tp, fp8)
-    return (x, (k, v)) if collect_kv else x
+    x, aux = _mlp_block(config, layer_params, _attn_out(config, layer_params, attn, x, tp, fp8),
+                        tp, fp8, ep, dp)
+    return (x, (k, v)) if collect_kv else (x, aux)
 
 
 def _fp8_run(config: LlamaConfig, groups=None):
@@ -1126,12 +1219,20 @@ def _kept_root(config) -> tuple:
 class ServingView(NamedTuple):
     """What the serving steps read of a model: the parameter tree (its
     leaves in place, per layer a list in the per-layer layout), the
-    ``tp`` handle or None, and the ``dp_shard`` group FSDP2 shards over or
-    None."""
+    ``tp`` handle or None, the ``dp_shard`` group FSDP2 shards over or
+    None, and the ``ep`` handle of an MoE model laid over ``ep`` or None."""
 
     params: dict
     tp: Any
     fsdp_group: Any
+    ep: Any = None
+
+    @property
+    def model_group(self):
+        """The group of the dim the layers are split over (``tp`` or
+        ``ep``), or None."""
+        split = self.tp if self.tp is not None else self.ep
+        return None if split is None else split.group
 
 
 def _serving_leaf(p):
@@ -1188,7 +1289,7 @@ def serving_view(model: "LlamaForCausalLM") -> ServingView:
         node[path[-1]] = leaf(getattr(model, name))
     if model.layers is not None:
         tree["layers"] = [_map_tree(leaf, layer.tree(detach=False)) for layer in model.layers]
-    return ServingView(tree, model.tp, groups[0] if groups else None)
+    return ServingView(tree, model.tp, groups[0] if groups else None, getattr(model, "ep", None))
 
 
 def kv_window_heads(window: dict, tp) -> dict:
@@ -1380,7 +1481,7 @@ def _remat_context(policy: str):
 
 def llama_apply(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
                 segment_ids=None, position_ids=None, tp=None, vocab_shard: bool = False,
-                fp8_groups=None):
+                fp8_groups=None, return_aux: bool = False, ep=None, dp_group=None):
     """Causal forward over (B, S) token ids -> f32 logits (B, S, V).
     ``segment_ids`` (B, S): packed-sequence document labels (attention never
     crosses a boundary); ``position_ids`` (B, S): per-token RoPE positions.
@@ -1407,8 +1508,19 @@ def llama_apply(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
 
     ``use_fp8``: each layer's projections through ``fp8_dot``, their scales
     over ``fp8_groups`` (an ``ops.fp8.Fp8Groups``; None: this rank's
-    values)."""
+    values).
+
+    ``return_aux=True``: ``(logits, {"aux_loss": the layers' pre-scaled MoE
+    aux losses summed in f32})`` (zero without experts), as the JAX
+    package's; with ``use_chunked_ce`` the dict carries ``"aux_loss"``.
+    ``ep`` (a ``parallel.ep.ExpertParallel``; the expert leaves may be its
+    ``DTensor`` blocks): each MoE layer runs this rank's experts.
+    ``dp_group``: ``input_ids`` are this rank's rows of a batch split over
+    the group's data-parallel ranks, which each MoE layer routes as one
+    batch, as the JAX step routes the global batch (``ops/moe.py``)."""
     _check_supported(config)
+    if tp is not None and config.num_experts > 1:
+        raise NotImplementedError(_MOE_UNDER_TP)
     if config.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, got {config.remat_policy!r}")
     if tp is not None:
@@ -1424,20 +1536,23 @@ def llama_apply(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
         lp = _local_tree(lp, tp)
         if remat:
             return torch.utils.checkpoint.checkpoint(
-                _layer, config, lp, x, 0, False, segment_ids, position_ids, tp, fp8,
+                _layer, config, lp, x, 0, False, segment_ids, position_ids, tp, fp8, ep, dp_group,
                 use_reentrant=False, preserve_rng_state=False, **extra)
         return _layer(config, lp, x, segment_ids=segment_ids, position_ids=position_ids, tp=tp,
-                      fp8=fp8)
+                      fp8=fp8, ep=ep, dp=dp_group)
 
     layers = params["layers"]
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if isinstance(layers, nn.ModuleList):  # per-layer modules: each call is an FSDP2 unit's
-        for layer in layers:
-            x = layer(run_layer, x)
+        calls = (functools.partial(layer, run_layer) for layer in layers)
     else:
         if not isinstance(layers, (list, tuple)):  # stacked leaves: one unbind each
             layers = _layer_trees(layers, config.num_hidden_layers)
-        for lp in layers:
-            x = run_layer(lp, x)
+        calls = (functools.partial(run_layer, lp) for lp in layers)
+    for call in calls:
+        x, aux = call(x)
+        if aux is not None:  # pre-scaled per layer (moe_ffn)
+            aux_total = aux_total + aux
     if config.use_chunked_ce:
         x = rms_norm(x, params["final_norm"]["scale"], config.rms_norm_eps, config.rms_norm_offset)
         head = (params["embed_tokens"]["embedding"].T if config.tie_word_embeddings
@@ -1448,13 +1563,14 @@ def llama_apply(config: LlamaConfig, params: dict, input_ids: torch.Tensor,
                "logit_softcap": config.final_logit_softcap}
         if tp is not None:
             out.update(vocab_start=tp.rank * head.shape[1], tp_group=tp.group)
+        if return_aux:
+            out["aux_loss"] = aux_total
         return out
     logits = _head(config, params, x, tp)
-    if tp is None:
-        return logits
-    if vocab_shard:
-        return {"logits": logits, "vocab_start": tp.rank * logits.shape[-1], "tp_group": tp.group}
-    return gather_last_dim(logits, tp.group)
+    if tp is not None:
+        logits = ({"logits": logits, "vocab_start": tp.rank * logits.shape[-1], "tp_group": tp.group}
+                  if vocab_shard else gather_last_dim(logits, tp.group))
+    return (logits, {"aux_loss": aux_total}) if return_aux else logits
 
 
 # ----------------------------------------------------------------- loss
@@ -1509,7 +1625,8 @@ def llama_loss(model, batch, ce_chunk_size: Optional[int] = None) -> torch.Tenso
     ``use_chunked_ce`` returns its hidden states and head, and the loss is
     taken over vocabulary chunks of ``ce_chunk_size`` (default: the
     config's ``ce_chunk_size``) with the head in the hidden states' dtype,
-    so the (B, S, V) logits never exist."""
+    so the (B, S, V) logits never exist. An MoE model's aux loss (beside
+    its logits, or in the chunked dict) is added, as in the JAX package."""
     input_ids = batch["input_ids"]
     packed = {k: batch[k] for k in ("segment_ids", "position_ids") if k in batch}
     inner = getattr(model, "module", model)  # a DDP wrapper's module holds the config
@@ -1525,18 +1642,21 @@ def llama_loss(model, batch, ce_chunk_size: Optional[int] = None) -> torch.Tenso
             labels = input_ids[:, 1:]
             hidden = hidden[:, :-1]
         chunk = ce_chunk_size or getattr(inner, "config", LlamaConfig).ce_chunk_size
-        return chunked_softmax_cross_entropy(
+        loss = chunked_softmax_cross_entropy(
             hidden, out["head_kernel"].to(hidden.dtype), labels.clamp_min(0), chunk_size=chunk,
             loss_mask=_mask_of(labels, batch.get("loss_mask")), logit_softcap=out["logit_softcap"],
             vocab_start=out.get("vocab_start", 0), tp_group=out.get("tp_group"))
+        return loss + out["aux_loss"] if "aux_loss" in out else loss
+    out, aux = out if isinstance(out, tuple) else (out, None)
     shard = out if isinstance(out, dict) else {"logits": out}
     logits = shard["logits"]
     if labels is None:
         labels = input_ids[:, 1:]
         logits = logits[:, :-1]
-    return _dense_ce_from_logits(logits, labels, batch.get("loss_mask"),
+    loss = _dense_ce_from_logits(logits, labels, batch.get("loss_mask"),
                                  vocab_start=shard.get("vocab_start", 0),
                                  tp_group=shard.get("tp_group"))
+    return loss if aux is None else loss + aux["aux_loss"]
 
 
 # the data-parallel step divides each rank's loss sum by the global count
@@ -1547,7 +1667,9 @@ llama_loss.ce_denominator = llama_ce_denominator
 def llama_flops_per_token(config: LlamaConfig, seq_len: int) -> float:
     """Useful training FLOPs per token for MFU: 3 x (forward matmuls +
     attention upper bound + LM head); the remat recompute is not useful
-    work and is not counted."""
+    work and is not counted. An MoE config is counted as the JAX package
+    counts it: one dense SwiGLU of ``intermediate_size`` a layer (not the
+    k experts a token runs, nor the router)."""
     d, i, v = config.hidden_size, config.intermediate_size, config.vocab_size
     h, kvh, hd = config.num_attention_heads, config.num_key_value_heads, config.head_dim
     per_layer = 2 * d * (h * hd) + 2 * 2 * d * (kvh * hd) + 2 * (h * hd) * d  # qkvo
@@ -1557,14 +1679,15 @@ def llama_flops_per_token(config: LlamaConfig, seq_len: int) -> float:
     return 3.0 * fwd
 
 
-def _prefill_stack(config: LlamaConfig, params, input_ids, tp=None, fsdp=None):
+def _prefill_stack(config: LlamaConfig, params, input_ids, tp=None, fsdp=None, ep=None):
     """One full forward over the prompt -> (pre-final-norm hidden (B, S, D),
     stacked K and V (L, B, S, kvh, hd), the root's leaves whole, the
     forward's ``_TPRun``). Under ``tp`` the K and V hold the rank's kv heads
     and the hidden states are gathered whole along the sequence. Under
     ``use_fp8`` the projections run through ``fp8_dot``; over ``tp`` their
     scales span the ``tp`` group (the ranks serve the same rows, so that is
-    every rank whose values differ)."""
+    every rank whose values differ). ``ep``: each MoE layer runs this
+    rank's experts."""
     _check_supported(config, params)
     if tp is not None:
         tp = _TPRun(tp.group, tp.size, tp.rank, input_ids.shape[1] % tp.size == 0)
@@ -1574,7 +1697,7 @@ def _prefill_stack(config: LlamaConfig, params, input_ids, tp=None, fsdp=None):
     ks, vs = [], []
     for i in range(config.num_hidden_layers):
         lp = _gathered(_layer_params(params["layers"], i), fsdp, "layers")
-        x, (k, v) = _layer(config, lp, x, collect_kv=True, tp=tp, fp8=fp8)
+        x, (k, v) = _layer(config, lp, x, collect_kv=True, tp=tp, fp8=fp8, ep=ep)
         ks.append(k)
         vs.append(v)
     if tp is not None and tp.sp:
@@ -1608,7 +1731,7 @@ def init_kv_cache(config: LlamaConfig, batch_size: int, max_len: int, dtype=None
 
 
 def llama_prefill(config: LlamaConfig, params, input_ids, max_len: int, *, tp=None, fsdp=None,
-                  vocab_shard: bool = False):
+                  vocab_shard: bool = False, ep=None):
     """Full-forward prefill: one pass over the prompt (attention through
     ``config.attention_impl``, the flash kernel under ``"flash"``), returning
     (f32 last-position logits (B, V), the KV cache padded to ``max_len``).
@@ -1616,20 +1739,21 @@ def llama_prefill(config: LlamaConfig, params, input_ids, max_len: int, *, tp=No
     ``ops.collectives.ShardGather``) run it on a rank's part of a model
     laid over a mesh (:func:`serving_view`): the cache holds the rank's kv
     heads, and with ``vocab_shard`` the logits are the rank's vocabulary
-    block (B, V / tp)."""
-    x, ks, vs, root, tp = _prefill_stack(config, params, input_ids, tp, fsdp)
+    block (B, V / tp). ``ep`` (a ``parallel.ep.ExpertParallel``): a model
+    laid over ``ep``, whose MoE layers run the rank's experts."""
+    x, ks, vs, root, tp = _prefill_stack(config, params, input_ids, tp, fsdp, ep)
     return (_serving_head(config, root, x[:, -1], tp, vocab_shard),
             _pad_prefill_cache(ks, vs, max_len))
 
 
 def llama_prefill_at(config: LlamaConfig, params, input_ids, max_len: int, last_index, *,
-                     tp=None, fsdp=None, vocab_shard: bool = False):
+                     tp=None, fsdp=None, vocab_shard: bool = False, ep=None):
     """Prefill a right-padded prompt batch with logits at per-row
     ``last_index`` (B,), the last real prompt position. Padding rows still
     write KV, which is safe: decode masks ``k_pos <= pos`` and overwrites
-    each position before it becomes attendable. ``tp``, ``fsdp`` and
-    ``vocab_shard`` as in :func:`llama_prefill`."""
-    x, ks, vs, root, tp = _prefill_stack(config, params, input_ids, tp, fsdp)
+    each position before it becomes attendable. ``tp``, ``fsdp``,
+    ``vocab_shard`` and ``ep`` as in :func:`llama_prefill`."""
+    x, ks, vs, root, tp = _prefill_stack(config, params, input_ids, tp, fsdp, ep)
     last_index = torch.as_tensor(last_index, device=x.device).long()
     x_last = x[torch.arange(x.shape[0], device=x.device), last_index]
     return (_serving_head(config, root, x_last, tp, vocab_shard),
@@ -1717,7 +1841,7 @@ def _kernel_verify_override(config, kv_layout, pos, ck_pool, cv_pool):
 
 
 def _decode_layer(config: LlamaConfig, layer_params, x, cache_k, cache_v, pos,
-                  attention_override=None, rope=None, tp=None):
+                  attention_override=None, rope=None, tp=None, ep=None):
     """One block, one new position per row. ``pos`` is a scalar or (B,)
     tensor. Without an override, the new K/V column is written into the
     dense (B, max_len, kvh, hd) caches in place and attention is the
@@ -1760,19 +1884,21 @@ def _decode_layer(config: LlamaConfig, layer_params, x, cache_k, cache_v, pos,
             "bgrqk,bkgd->bqgrd", weights.to(cdt).float(), cache_v.to(cdt).float()
         ).to(cdt)
     x = _attn_out(config, layer_params, attn, x, tp)
-    return _mlp_block(config, layer_params, x, tp), cache_k, cache_v
+    return _mlp_block(config, layer_params, x, tp, ep=ep)[0], cache_k, cache_v
 
 
 def llama_decode_step(config: LlamaConfig, params, cache, token, pos, *, kv_layout=None, tp=None,
-                      fsdp=None, vocab_shard: bool = False):
+                      fsdp=None, vocab_shard: bool = False, ep=None):
     """One decode step: ``token`` (B, 1) at ``pos`` (scalar or (B,) tensor;
     a 0-dim device tensor keeps the whole batch at one position, as static
     ``generate``'s captured step reads it). Returns (f32 logits (B, V), cache). ``cache`` leaves are (L, ...)
     tensors updated in place: the dense arena (L, B, max_len, kvh, hd), or
     with ``kv_layout`` (a :class:`~accelerate_tpu_torch.kvcache
     .PagedKVLayout`) the block pool (L, num_blocks, block_size, kvh, hd).
-    ``tp``, ``fsdp`` and ``vocab_shard`` as in :func:`llama_prefill`; one
-    position is never split over ``tp``, so the residual stays whole."""
+    ``tp``, ``fsdp``, ``vocab_shard`` and ``ep`` as in :func:`llama_prefill`;
+    one position is never split over ``tp``, so the residual stays whole.
+    An MoE layer routes every row of the step, idle slots included, as the
+    JAX decode step does."""
     _check_supported(config, params)
     if tp is not None:
         tp = _TPRun(tp.group, tp.size, tp.rank, False)
@@ -1791,19 +1917,20 @@ def llama_decode_step(config: LlamaConfig, params, cache, token, pos, *, kv_layo
         if use_kernel:
             override = _kernel_decode_override(config, kv_layout, pos_i32, ck, cv)
             x, _, _ = _decode_layer(config, lp, x, None, None, pos, attention_override=override,
-                                    rope=rope, tp=tp)
+                                    rope=rope, tp=tp, ep=ep)
         elif kv_layout is not None:
             view_k, view_v = kv_layout.view(ck), kv_layout.view(cv)
-            x, view_k, view_v = _decode_layer(config, lp, x, view_k, view_v, pos, rope=rope, tp=tp)
+            x, view_k, view_v = _decode_layer(config, lp, x, view_k, view_v, pos, rope=rope, tp=tp,
+                                              ep=ep)
             kv_layout.commit(ck, view_k, pos)
             kv_layout.commit(cv, view_v, pos)
         else:
-            x, _, _ = _decode_layer(config, lp, x, ck, cv, pos, rope=rope, tp=tp)
+            x, _, _ = _decode_layer(config, lp, x, ck, cv, pos, rope=rope, tp=tp, ep=ep)
     return _serving_head(config, root, x, tp, vocab_shard)[:, 0], cache
 
 
 def _verify_layer(config: LlamaConfig, layer_params, x, cache_k, cache_v, pos,
-                  attention_override=None, rope=None, tp=None):
+                  attention_override=None, rope=None, tp=None, ep=None):
     """One block over a W-token window: ``x`` (B, W, D) at positions ``pos
     .. pos+W-1`` (``pos`` (B,)). The caches are read only: the window's K/V
     are written into copies so the window attends itself causally, and the
@@ -1845,11 +1972,11 @@ def _verify_layer(config: LlamaConfig, layer_params, x, cache_k, cache_v, pos,
             "bgrqk,bkgd->bqgrd", weights.to(cdt).float(), cv.to(cdt).float()
         ).to(cdt)
     x = _attn_out(config, layer_params, attn, x, tp)
-    return _mlp_block(config, layer_params, x, tp), k, v
+    return _mlp_block(config, layer_params, x, tp, ep=ep)[0], k, v
 
 
 def llama_verify_step(config: LlamaConfig, params, cache, tokens, pos, *, kv_layout=None, tp=None,
-                      fsdp=None, vocab_shard: bool = False):
+                      fsdp=None, vocab_shard: bool = False, ep=None):
     """Window forward: ``tokens`` (B, W), each row's carried token and its
     W-1 drafts (or a chunk of a prompt), at positions ``pos .. pos+W-1``
     (``pos`` (B,) tensor). Returns (f32 logits (B, W, V), the window KV
@@ -1858,8 +1985,8 @@ def llama_verify_step(config: LlamaConfig, params, cache, tokens, pos, *, kv_lay
     never reaches the store. With ``kv_layout`` the cache is the block pool
     (f32/bf16 or int8 ``{"q", "s"}`` leaves): the reference path gathers
     each layer's dense view, the kernel path runs the verify kernel.
-    ``tp``, ``fsdp`` and ``vocab_shard`` as in :func:`llama_prefill`: the
-    window keeps the residual whole, the cache and the window KV hold the
+    ``tp``, ``fsdp``, ``vocab_shard`` and ``ep`` as in :func:`llama_prefill`:
+    the window keeps the residual whole, the cache and the window KV hold the
     rank's kv heads, and with ``vocab_shard`` the logits are the rank's
     vocabulary block (B, W, V / tp)."""
     _check_supported(config, params)
@@ -1881,11 +2008,11 @@ def llama_verify_step(config: LlamaConfig, params, cache, tokens, pos, *, kv_lay
         if use_kernel:
             override = _kernel_verify_override(config, kv_layout, pos_i32, ck, cv)
             x, k, v = _verify_layer(config, lp, x, None, None, pos, attention_override=override,
-                                    rope=rope, tp=tp)
+                                    rope=rope, tp=tp, ep=ep)
         else:
             if kv_layout is not None:
                 ck, cv = kv_layout.view(ck), kv_layout.view(cv)
-            x, k, v = _verify_layer(config, lp, x, ck, cv, pos, rope=rope, tp=tp)
+            x, k, v = _verify_layer(config, lp, x, ck, cv, pos, rope=rope, tp=tp, ep=ep)
         win_k.append(k)
         win_v.append(v)
     return (_serving_head(config, root, x, tp, vocab_shard),

@@ -68,6 +68,7 @@ __all__ = [
     "gather_last_dim",
     "grad_share",
     "reduce_from_group",
+    "sum_over_group",
     "sequence_all_gather",
     "sequence_reduce_scatter",
     "all_to_all",
@@ -397,6 +398,24 @@ def gather_last_dim(x: torch.Tensor, group) -> torch.Tensor:
     """Every rank's shard of the last dim, concatenated in rank order; the
     backward keeps this rank's slice of the gradient."""
     return _GatherLastDim.apply(x, group)
+
+
+class _SumOverGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.group), None
+
+
+def sum_over_group(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, a value every rank's loss then
+    holds whole; the backward sums the gradient over ``group`` too, so each
+    rank's share of the value gets every rank's cotangent."""
+    return _SumOverGroup.apply(x, group)
 
 
 def grad_share(x: torch.Tensor, n: int) -> torch.Tensor:

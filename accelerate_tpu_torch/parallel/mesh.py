@@ -12,7 +12,9 @@ Tensor parallelism lays every rank on the 3-D ``(dp_replicate, dp_shard,
 tp)`` mesh, ``tp`` innermost (a ``tp`` group is neighbouring ranks on one
 host's NVLink), size-1 dims kept; a parameter's ``tp`` shard lives on the
 ``tp`` sub-mesh and FSDP2 shards over the ``dp_shard`` sub-mesh (or HSDP's
-``(dp_replicate, dp_shard)``) of the same root (:func:`sub_mesh`).
+``(dp_replicate, dp_shard)``) of the same root (:func:`sub_mesh`). Expert
+parallelism lays its ranks the same way on ``(dp_replicate, dp_shard,
+ep)``, ``ep`` innermost.
 """
 
 from __future__ import annotations
@@ -22,14 +24,21 @@ from typing import Optional, Sequence
 
 from ..utils.constants import MESH_AXIS_ORDER
 
-__all__ = ["build_hybrid_mesh", "build_mesh", "canonical_axis_sizes", "sub_mesh", "tp_mesh_dims"]
+__all__ = ["build_hybrid_mesh", "build_mesh", "canonical_axis_sizes", "model_mesh_dims", "sub_mesh",
+           "tp_mesh_dims"]
 
 TP_MESH_DIMS = ("dp_replicate", "dp_shard", "tp")
 
 
 def tp_mesh_dims() -> tuple:
     """The dims of a tensor-parallel layout's mesh, in ``MESH_AXIS_ORDER``."""
-    return tuple(n for n in MESH_AXIS_ORDER if n in TP_MESH_DIMS)
+    return model_mesh_dims("tp")
+
+
+def model_mesh_dims(dim: str) -> tuple:
+    """The dims of a layout whose model is split over ``dim`` (``"tp"`` or
+    ``"ep"``) besides the data-parallel dims, in ``MESH_AXIS_ORDER``."""
+    return tuple(n for n in MESH_AXIS_ORDER if n in ("dp_replicate", "dp_shard", dim))
 
 
 def build_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str],

@@ -27,6 +27,13 @@ Megatron forward), then:
   the first dim (at ``dp_shard`` 1 a plain replication: DDP does not take
   ``DTensor`` parameters).
 
+Under ``ep`` (an MoE model over ``ep_size > 1``) the mesh is the 3-D
+``(dp_replicate, dp_shard, ep)`` one and the model is first laid out over
+its ``ep`` sub-mesh (``parallel/ep.py``: the expert leaves split on their
+expert dim, the rest replicated), then ``"ep"``, ``"ep_fsdp"`` and
+``"ep_hsdp"`` shard it as the ``tp`` layouts do: the data-parallel
+reductions run over the ranks of one ``ep`` index, never across ``ep``.
+
 A Llama is sharded per layer, as the JAX package gathers one layer's
 weights at a time inside its scanned layer (``gather_over_fsdp``): its
 stacked ``(L, ...)`` leaves are re-registered as one module per layer
@@ -52,29 +59,38 @@ from typing import Optional
 import torch
 from torch import nn
 
-__all__ = ["TP_LAYOUTS", "data_parallel_layout", "fp8_groups", "layout_mesh", "shard_model",
-           "unwrap_data_parallel"]
+__all__ = ["EP_LAYOUTS", "TP_LAYOUTS", "data_parallel_layout", "fp8_groups", "layout_mesh",
+           "shard_model", "unwrap_data_parallel"]
 
 
 TP_LAYOUTS = ("tp", "tp_fsdp", "tp_hsdp")
+EP_LAYOUTS = ("ep", "ep_fsdp", "ep_hsdp")
+
+
+def model_dim_of(layout: str) -> Optional[str]:
+    """``"tp"`` or ``"ep"`` for a layout that splits the model over that
+    dim, else None."""
+    return layout.split("_")[0] if layout in TP_LAYOUTS + EP_LAYOUTS else None
 
 
 def data_parallel_layout(pcfg, fsdp_plugin=None, ddp_handler=None) -> str:
     """``"ddp"``, ``"fsdp"``, ``"hsdp"``, ``"tp"``, ``"tp_fsdp"``,
-    ``"tp_hsdp"`` or ``"none"`` for a validated configuration: under
-    ``tp`` (``tp_size`` above 1 or a ``tp_config``), ``dp_replicate``
+    ``"tp_hsdp"``, their ``"ep"`` counterparts or ``"none"`` for a
+    validated configuration: under ``tp`` (``tp_size`` above 1 or a
+    ``tp_config``) or ``ep`` (``ep_size`` above 1), ``dp_replicate``
     above 1 replicates through HSDP, else ``dp_shard`` above 1 or an
-    ``FSDPPlugin`` shards; without it, ``dp_shard`` above 1 or an
+    ``FSDPPlugin`` shards; without them, ``dp_shard`` above 1 or an
     ``FSDPPlugin`` shards (HSDP with ``dp_replicate`` above 1 too), else
     ``dp_replicate`` above 1 or a ``DistributedDataParallelKwargs`` handler
     replicates."""
     from ..parallelism_config import refuse_queued_dims
 
     refuse_queued_dims(pcfg.axis_sizes)
-    if pcfg.tp_layout:
+    dim = pcfg.model_dim
+    if dim is not None:
         if pcfg.dp_replicate_size > 1:
-            return "tp_hsdp"
-        return "tp_fsdp" if pcfg.dp_shard_size > 1 or fsdp_plugin is not None else "tp"
+            return f"{dim}_hsdp"
+        return f"{dim}_fsdp" if pcfg.dp_shard_size > 1 or fsdp_plugin is not None else dim
     if pcfg.dp_shard_size > 1 or fsdp_plugin is not None:
         return "hsdp" if pcfg.dp_replicate_size > 1 else "fsdp"
     if pcfg.dp_replicate_size > 1 or ddp_handler is not None:
@@ -84,10 +100,10 @@ def data_parallel_layout(pcfg, fsdp_plugin=None, ddp_handler=None) -> str:
 
 def layout_mesh(layout: str, pcfg, device_type: str):
     """The mesh a layout shards over."""
-    from .mesh import build_hybrid_mesh, build_mesh, tp_mesh_dims
+    from .mesh import build_hybrid_mesh, build_mesh, model_mesh_dims
 
-    if layout in TP_LAYOUTS:
-        names = tp_mesh_dims()
+    if model_dim_of(layout):
+        names = model_mesh_dims(model_dim_of(layout))
         return build_mesh([pcfg.axis_sizes[n] for n in names], names, device_type)
     if layout == "hsdp":
         return build_hybrid_mesh((pcfg.dp_replicate_size, 1), (1, pcfg.dp_shard_size),
@@ -176,15 +192,22 @@ def shard_model(model: nn.Module, layout: str, mesh, device: torch.device, fsdp_
     from .mesh import sub_mesh
 
     tp_replicated = []
-    if layout in TP_LAYOUTS:
-        from .tp import apply_tensor_parallel
-
+    dim = model_dim_of(layout)
+    if dim is not None:
         if hasattr(inner, "unstack_layers"):
             inner.unstack_layers()
-        tp_replicated = apply_tensor_parallel(inner, sub_mesh(mesh, "tp"), tp_rules)
-        if layout == "tp":
+        if dim == "tp":
+            from .tp import apply_tensor_parallel
+
+            tp_replicated = apply_tensor_parallel(inner, sub_mesh(mesh, "tp"), tp_rules)
+        else:  # every replicated leaf's gradient is whole on each ep rank: no sum
+            from .ep import apply_expert_parallel
+
+            apply_expert_parallel(inner, sub_mesh(mesh, "ep"))
+        if layout == dim:
             return inner, _param_map(inner, before), [], tp_replicated
-        mesh = sub_mesh(mesh, "dp_shard" if layout == "tp_fsdp" else ("dp_replicate", "dp_shard"))
+        mesh = sub_mesh(mesh, "dp_shard" if layout.endswith("_fsdp")
+                        else ("dp_replicate", "dp_shard"))
     tp_names = [n for n, p in inner.named_parameters() if any(p is q for q in tp_replicated)]
     plugin = fsdp_plugin
     reshard = plugin.reshard_after_forward if plugin is not None else True

@@ -34,6 +34,7 @@ right.
 
 from __future__ import annotations
 
+import functools
 import re
 from typing import Optional, Sequence
 
@@ -97,9 +98,16 @@ def plan_tensor_parallel(leaves: dict, rules: Optional[Sequence] = None,
     leaf raises; else ``rules`` are the whole list (as the JAX package's
     ``dispatch_model`` takes them). Either way a rule that places a leaf
     elsewhere than the forward runs it raises by name."""
+    return plan_by_rules(leaves, rules, tensor_parallel_rules(), "tp", defaults)
+
+
+def plan_by_rules(leaves: dict, rules, forward: list, axis: str, defaults: bool = True) -> dict:
+    """``{path: dim or None}``: where ``rules`` (in front of ``forward``,
+    the forward's own rules, with ``defaults``) put each leaf over the mesh
+    dim ``axis``; a rule that places a leaf elsewhere than ``forward`` does
+    raises, and with ``defaults`` so does a user rule that matches none."""
     user = list(rules or [])
     check_rules(user)
-    forward = tensor_parallel_rules()
     every = user + forward if defaults else user
     plan, used = {}, set()
     for path, shape in leaves.items():
@@ -117,13 +125,16 @@ def plan_tensor_parallel(leaves: dict, rules: Optional[Sequence] = None,
             where = "replicated" if want is None else f"split on dim {want}"
             raise ValueError(
                 f"sharding rule {rule!r} puts {path} "
-                f"{'replicated' if dim is None else f'on dim {dim}'} over tp; the "
-                f"tensor-parallel forward runs it {where}")
+                f"{'replicated' if dim is None else f'on dim {dim}'} over {axis}; the "
+                f"{_FORWARD_NAMES[axis]} forward runs it {where}")
         plan[path] = dim
     unused = [user[i] for i in range(len(user)) if i not in used]
     if defaults and unused:
         raise ValueError(f"sharding rule {unused[0]!r} matches no parameter")
     return plan
+
+
+_FORWARD_NAMES = {"tp": "tensor-parallel", "ep": "expert-parallel"}
 
 
 def check_tp_divides(config, n: int) -> None:
@@ -171,12 +182,24 @@ def tensor_parallel_plan(model: nn.Module, size: int, rules: Optional[Sequence] 
     the dim of the parameter (as it is registered: per-layer or stacked)
     split over ``tp``, None for a replicated one."""
     check_tp_divides(model.config, size)
+    if getattr(model.config, "num_experts", 1) > 1:
+        raise NotImplementedError(
+            "MoE layers under tensor parallelism (tp on the experts' intermediate dim) are not "
+            "ported yet (ROADMAP.md A11): lay an MoE model over ep and the data-parallel dims")
+    return parameter_plan(model, functools.partial(plan_tensor_parallel, rules=rules,
+                                                   defaults=defaults))
+
+
+def parameter_plan(model: nn.Module, plan_leaves) -> dict:
+    """``{parameter name: (checkpoint key, layer index or None, dim or
+    None)}`` from ``plan_leaves({path: shape})`` (``{path: dim}`` on the
+    stacked leaves), each dim moved to the parameter as it is registered."""
     paths = _leaf_paths(model)
     named = dict(model.named_parameters())
     leaves = {}
     for fqn, (path, offset) in paths.items():
         leaves.setdefault(path, (None,) * offset + tuple(named[fqn].shape))
-    plan = plan_tensor_parallel(leaves, rules, defaults)
+    plan = plan_leaves(leaves)
     out = {}
     for fqn, (path, offset) in paths.items():
         layer = int(fqn.split(".")[1]) if offset else None
@@ -198,8 +221,6 @@ def apply_tensor_parallel(model: nn.Module, mesh, rules: Optional[Sequence] = No
     A model without a tensor-parallel forward (no
     ``tensor_parallel_forward``) is left as it is: replicated over ``tp``;
     rules given for it raise."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-
     tp = TensorParallel(mesh)
     if not getattr(model, "tensor_parallel_forward", False):
         if rules and defaults:
@@ -207,15 +228,29 @@ def apply_tensor_parallel(model: nn.Module, mesh, rules: Optional[Sequence] = No
                              "tensor-parallel forward (the Llama port has); it is replicated "
                              "over tp")
         return []
+    replicated = lay_out(model, mesh, tensor_parallel_plan(model, tp.size, rules, defaults), source)
+    model.tp = tp
+    return replicated
+
+
+def lay_out(model: nn.Module, mesh, plan: dict, source=None) -> list:
+    """Make each parameter of ``plan`` (:func:`parameter_plan`) a
+    ``DTensor`` on the 1-D ``mesh``: this rank's block where the plan
+    splits it (``Shard(dim)``), else replicated; the whole values from the
+    parameters or from ``source(checkpoint key, layer index or None)``.
+    Returns the replicated parameters."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    size, rank = mesh.size(), mesh.get_local_rank()
     replicated = []
     device = torch.device(mesh.device_type, torch.cuda.current_device()) \
         if mesh.device_type == "cuda" else torch.device(mesh.device_type)
-    for fqn, (key, layer, dim) in tensor_parallel_plan(model, tp.size, rules, defaults).items():
+    for fqn, (key, layer, dim) in plan.items():
         owner, _, name = fqn.rpartition(".")
         module = model.get_submodule(owner)
         p = getattr(module, name)
         whole = p.detach() if source is None else source(key, layer)
-        local = whole if dim is None else whole.chunk(tp.size, dim)[tp.rank]
+        local = whole if dim is None else whole.chunk(size, dim)[rank]
         if source is not None:  # a copy of the block alone, never a view of the source
             local = local.to(device=device, dtype=p.dtype, copy=True)
         elif dim is not None:  # a view would keep the whole tensor alive
@@ -226,5 +261,4 @@ def apply_tensor_parallel(model: nn.Module, mesh, rules: Optional[Sequence] = No
         setattr(module, name, new)
         if dim is None:
             replicated.append(new)
-    model.tp = tp
     return replicated

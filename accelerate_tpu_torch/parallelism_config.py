@@ -14,9 +14,12 @@ The data-parallel dims run: ``dp_replicate`` as DDP, ``dp_shard`` as FSDP2
 with a sequence-parallel residual (``parallel/tp.py``), alone or under
 FSDP2 and HSDP, on the ``(dp_replicate, dp_shard, tp)`` mesh with ``tp``
 innermost: one ``tp`` group is neighbouring ranks, the cards of one host.
-``cp``, ``sp``, ``pp`` and ``ep`` above 1 wait for ROADMAP.md A11. The
-configuration itself accepts them (its arithmetic is the JAX package's);
-building their mesh raises.
+``ep`` runs expert parallelism for MoE models (``parallel/ep.py``), alone
+or under FSDP2 and HSDP, on the ``(dp_replicate, dp_shard, ep)`` mesh with
+``ep`` innermost; ``ep`` with ``tp`` (MoE under tensor parallelism) waits
+for ROADMAP.md A11. ``cp``, ``sp`` and ``pp`` above 1 wait for ROADMAP.md
+A11. The configuration itself accepts them (its arithmetic is the JAX
+package's); building their mesh raises.
 """
 
 from __future__ import annotations
@@ -41,17 +44,23 @@ _AXIS_TO_FIELD = {
     "ep": "ep_size",
 }
 # the dims whose mesh is not ported yet, and the queue item that owns each
-QUEUED_DIMS = {"cp": "A11", "sp": "A11", "pp": "A11", "ep": "A11"}
+QUEUED_DIMS = {"cp": "A11", "sp": "A11", "pp": "A11"}
 
 
 def refuse_queued_dims(sizes: dict) -> None:
-    """Raise for a dim above 1 whose parallelism is not ported yet."""
+    """Raise for a dim above 1 whose parallelism is not ported yet, and for
+    ``ep`` beside ``tp`` (MoE under tensor parallelism)."""
     for axis, item in QUEUED_DIMS.items():
         if sizes.get(axis, 1) > 1:
             raise NotImplementedError(
                 f"{_AXIS_TO_FIELD[axis]}={sizes[axis]}: {axis} parallelism is not ported yet "
                 f"(ROADMAP.md {item}); the port runs dp_replicate (DDP), dp_shard (FSDP2), "
-                "both (HSDP) and tp (tensor parallelism, alone or with them)")
+                "both (HSDP), tp (tensor parallelism) and ep (expert parallelism), tp or ep "
+                "alone or with them")
+    if sizes.get("ep", 1) > 1 and sizes.get("tp", 1) > 1:
+        raise NotImplementedError(
+            f"ep_size={sizes['ep']} with tp_size={sizes['tp']}: MoE under tensor parallelism "
+            "is not ported yet (ROADMAP.md A11); use ep with the data-parallel dims")
 
 
 @dataclass
@@ -64,8 +73,10 @@ class ParallelismConfig:
     * ``tp``: Megatron tensor parallelism with a sequence-parallel
       residual; ``tp_config`` (a ``TensorParallelConfig``) adds sharding
       rules and, at ``tp_size=1``, forces the layout (a one-rank ``tp``).
-    * ``pp``, ``cp``, ``sp``, ``ep``: pipeline, context, sequence and
-      expert parallelism (not ported yet: their mesh raises).
+    * ``ep``: expert parallelism of an MoE model (each rank holds
+      ``num_experts / ep_size`` experts), not beside ``tp``.
+    * ``pp``, ``cp``, ``sp``: pipeline, context and sequence parallelism
+      (not ported yet: their mesh raises).
     """
 
     dp_replicate_size: int = 1
@@ -229,21 +240,32 @@ class ParallelismConfig:
         ``tp_config`` given at ``tp_size=1``."""
         return self.tp_size > 1 or self.tp_config is not None
 
+    @property
+    def model_dim(self) -> Optional[str]:
+        """The dim a model is split over besides the data-parallel ones:
+        ``"tp"`` under :attr:`tp_layout`, ``"ep"`` with ``ep_size > 1``,
+        else None."""
+        if self.tp_layout:
+            return "tp"
+        return "ep" if self.ep_enabled else None
+
     def build_device_mesh(self, device_type: Optional[str] = None):
         """A ``torch.distributed.device_mesh.DeviceMesh`` over the active dims
         in canonical order (``init_device_mesh``), on the state's device
         type; a configuration with no dim above 1 gets a one-rank
-        ``("dp_shard",)`` mesh. Under tensor parallelism the mesh is always
-        the 3-D ``(dp_replicate, dp_shard, tp)``, size-1 dims kept, so
-        FSDP2 and HSDP take their sub-mesh of it. Needs the process group
-        (the state starts it); a dim that is not ported yet raises."""
-        from .parallel.mesh import build_mesh, tp_mesh_dims
+        ``("dp_shard",)`` mesh. Under tensor or expert parallelism the mesh
+        is always the 3-D ``(dp_replicate, dp_shard, tp)`` or
+        ``(dp_replicate, dp_shard, ep)``, size-1 dims kept, so FSDP2 and
+        HSDP take their sub-mesh of it. Needs the process group (the state
+        starts it); a dim that is not ported yet raises."""
+        from .parallel.mesh import build_mesh, model_mesh_dims
         from .state import PartialState
 
         state = PartialState()
         self._infer_and_validate(self._total_devices or state.num_processes)
         refuse_queued_dims(self.axis_sizes)
-        names = tp_mesh_dims() if self.tp_layout else (self.active_mesh_dims or ("dp_shard",))
+        names = (model_mesh_dims(self.model_dim) if self.model_dim
+                 else (self.active_mesh_dims or ("dp_shard",)))
         return build_mesh([self.axis_sizes[n] for n in names], names,
                           device_type=device_type or state.device.type)
 

@@ -2,7 +2,7 @@
 # The four-card runs of the PyTorch port, from the repository root on a
 # host with four cards (one process a card, NCCL):
 #
-#   bash accelerate_tpu_torch/test_utils/scripts/four_card_runs.sh [sanity|full|shallow|all|supervise|serve|fp8|disagg|disagg_tp|fleet|control]
+#   bash accelerate_tpu_torch/test_utils/scripts/four_card_runs.sh [sanity|full|shallow|all|supervise|serve|fp8|disagg|disagg_tp|fleet|control|moe]
 #
 # sanity:  the sanity script (test_script.py) under --tp_size 4 and under
 #          --tp_size 2 --dp_shard_size 2
@@ -57,6 +57,15 @@
 #          -> flash crowd -> drain of phase 7's mix scaled to four cards;
 #          then four static replicas over the same arrivals: replica-seconds
 #          and TTFT p99 against the SLO for both (chiprun_out/control_timing.json)
+# moe (not part of all): Mixtral-8x7B at full width. serve_timing.py
+#          --preset mixtral_8x7b --mode continuous at 32 layers (93.4 GB in
+#          bf16) over ep 4 (each card its 2 experts a layer, about 26 GB):
+#          chip_smoke.py phase 4's server and 16-request mix, tokens/s and
+#          TTFT, the greedy requests teacher-forced through the laid model's
+#          plain forward; then train_timing.py --preset mixtral_8x7b at 8
+#          layers (f32 weights, AdamW) over dp_shard 2 x ep 2, ms a step
+#          (chiprun_out/serve_timing_continuous_ep_32l.json,
+#          train_timing_ep_fsdp_8l.json)
 # Each timing run writes chiprun_out/train_timing_<layout>_<layers>l.json
 # (fp8: train_timing_<layout>_32l_fp8.json)
 # (serve: serve_timing_<layout>_32l.json and
@@ -98,6 +107,11 @@ if [[ $what == serve ]]; then
   "${launch[@]}" --tp_size 2 --dp_shard_size 2 "$serve" --layers 32
   "${launch[@]}" --tp_size 4 "$serve" --layers 32 --mode continuous
   "${launch[@]}" --tp_size 2 --dp_shard_size 2 "$serve" --layers 32 --mode continuous
+fi
+if [[ $what == moe ]]; then
+  serve=accelerate_tpu_torch/test_utils/scripts/serve_timing.py
+  "${launch[@]}" --ep_size 4 "$serve" --preset mixtral_8x7b --layers 32 --mode continuous
+  "${launch[@]}" --dp_shard_size 2 --ep_size 2 "$timing" --preset mixtral_8x7b --layers 8
 fi
 if [[ $what == fleet ]]; then
   python -m accelerate_tpu_torch.test_utils.scripts.fleet_timing --layers 32

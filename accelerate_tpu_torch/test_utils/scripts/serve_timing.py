@@ -48,6 +48,17 @@ unsharded model and serves the same requests through a one-process engine:
 the greedy requests are held by phase 12's rule against the plain
 forward, and the count of requests equal to the one-process engine's bit
 for bit is reported.
+
+``--preset mixtral_8x7b`` (continuous mode, under ``--ep_size``): the MoE
+model laid over the launcher's ``ep`` dim (``parallel/ep.py``), each rank
+holding ``8 / ep`` experts a layer. At 32 layers it is 93.4 GB in bf16,
+more than one card holds, so no rank draws it whole: it is built empty and
+each leaf's layer drawn on the card from a generator seeded by the leaf
+and the layer (the same values on every rank), of which the rank keeps its
+experts. Nor can one card hold the unsharded reference: every rank
+teacher-forces the greedy requests through the laid model's plain forward
+together (``llama_apply`` with the model's ``ep``), held by phase 21's
+bf16 MoE rule (the share at least ``MOE_SHARE_MIN``, the gap reported).
 """
 
 from __future__ import annotations
@@ -67,6 +78,10 @@ from accelerate_tpu_torch.test_utils.scripts.train_timing import OUT, card_line
 BATCH, PROMPT, NEW = 8, 512, 128
 PROFILE_STEPS = 16
 GREEDY_SHARE_MIN, NEAR_TIE_ULPS = 0.9, 4.0
+# a bf16 MoE's rule (chip_smoke.py MOE_BF16_SHARE_MIN): a token whose router
+# logits sit within bf16's rounding of a tie takes other experts on the
+# plain forward, so its share is held at a floor and its gap reported
+MOE_SHARE_MIN = 0.75
 # continuous mode: chip_smoke.py phase 4's server and mix
 SERVING = dict(mode="continuous", engine_slots=8, engine_max_len=1024, engine_prompt_bucket=512,
                engine_block_size=16, kv_cache="paged", attention_impl="kernel",
@@ -109,7 +124,9 @@ def main(argv=None) -> dict:
     from accelerate_tpu_torch.parallel.tp import tensor_parallel_rules
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--preset", default="llama3_8b", choices=["llama3_8b", "tiny"])
+    p.add_argument("--preset", default="llama3_8b", choices=["llama3_8b", "mixtral_8x7b", "tiny"])
+    p.add_argument("--num_experts", type=int, default=None,
+                   help="the preset's MoE experts (e.g. 4 with --preset tiny to rehearse --ep_size)")
     p.add_argument("--layers", type=int, default=32)
     p.add_argument("--prompt", type=int, default=PROMPT)
     p.add_argument("--new", type=int, default=NEW)
@@ -121,12 +138,21 @@ def main(argv=None) -> dict:
     acc = Accelerator(cpu=args.cpu)
     cuda = acc.device.type == "cuda"
     dtype = torch.float32 if args.cpu else torch.bfloat16
+    # dropless, as the Mixtral preset: the teacher-forced full forward
+    # routes a whole sequence at once, decode one position a slot
+    experts = {} if args.num_experts is None else {
+        "num_experts": args.num_experts, "expert_capacity_factor": float(args.num_experts)}
     cfg = getattr(LlamaConfig, args.preset)(num_hidden_layers=args.layers, attention_impl="flash",
-                                            param_dtype=dtype, compute_dtype=dtype)
+                                            param_dtype=dtype, compute_dtype=dtype, **experts)
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    rules = tensor_parallel_rules() if acc.parallelism_config.tp_size > 1 else None
-    model = prepare_inference(create_llama(cfg, seed=0, device=acc.device), mesh=acc.mesh,
-                              rules=rules)
+    if cfg.num_experts > 1:
+        if args.mode != "continuous" or acc.parallelism_config.ep_size < 2:
+            raise ValueError("--preset mixtral_8x7b runs --mode continuous under --ep_size")
+        model = _expert_parallel_model(cfg, acc)
+    else:
+        rules = tensor_parallel_rules() if acc.parallelism_config.tp_size > 1 else None
+        model = prepare_inference(create_llama(cfg, seed=0, device=acc.device), mesh=acc.mesh,
+                                  rules=rules)
     if cuda:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -208,20 +234,54 @@ def main(argv=None) -> dict:
     return result
 
 
-def _engine_agreement(cfg, params, prompts, tokens):
+def _expert_parallel_model(cfg, acc):
+    """The MoE model laid over the mesh's ``ep`` dim without drawing it
+    whole: built empty, each leaf's layer drawn on this card from a
+    generator seeded by the leaf and the layer (norms at one, a projection
+    ``normal / sqrt(in)``, the embedding ``normal * 0.02``), the rank's
+    experts kept."""
+    import zlib
+
+    from accelerate_tpu_torch.big_modeling import init_empty_weights
+    from accelerate_tpu_torch.models.llama import create_llama
+    from accelerate_tpu_torch.parallel.ep import apply_expert_parallel, expert_parallel_rules
+    from accelerate_tpu_torch.parallel.mesh import sub_mesh
+
+    with init_empty_weights():
+        model = create_llama(cfg)
+    shapes = {key: tuple(getattr(model, name).shape) for key, name in model.checkpoint_keys()}
+    model.unstack_layers()
+
+    def source(key, layer):
+        shape = shapes[key] if layer is None else shapes[key][1:]
+        if key.endswith("norm.scale"):
+            return torch.ones(shape, dtype=cfg.param_dtype, device=acc.device)
+        gen = torch.Generator(device=acc.device)
+        gen.manual_seed(zlib.crc32(f"{key}/{layer}".encode()))
+        scale = 0.02 if key.startswith("embed_tokens") else shape[-2] ** -0.5
+        return (torch.randn(shape, generator=gen, device=acc.device) * scale).to(cfg.param_dtype)
+
+    apply_expert_parallel(model, sub_mesh(acc.mesh, "ep"), expert_parallel_rules(), defaults=False,
+                          source=source)
+    return model
+
+
+def _engine_agreement(cfg, params, prompts, tokens, ep=None):
     """Phase 12's rule over ``prompts``' greedy outputs: (argmax share
     pooled over them, the largest gap in bf16 ulps of a request's largest
-    |logit|), each teacher-forced through the plain forward."""
+    |logit|), each teacher-forced through the plain forward (over ``ep``:
+    this rank's experts, every rank of it together)."""
     from accelerate_tpu_torch.models.llama import llama_apply
 
     plain = dataclasses.replace(cfg, attention_impl="xla")
     agree = total = 0
     worst = 0.0
     for prompt, toks in zip(prompts, tokens):
-        dev = params["embed_tokens"]["embedding"].device
+        emb = params["embed_tokens"]["embedding"]
+        dev = (emb.to_local() if hasattr(emb, "to_local") else emb).device
         new = torch.as_tensor(np.asarray(toks[len(prompt):]), device=dev).long()
         seq = torch.cat([torch.from_numpy(prompt).to(dev).long(), new[:-1]])[None]
-        ref = llama_apply(plain, params, seq)[0, len(prompt) - 1:]
+        ref = llama_apply(plain, params, seq, ep=ep)[0, len(prompt) - 1:]
         agree += int((ref.argmax(-1) == new).sum())
         total += len(new)
         gap = (ref.max(-1).values - ref.gather(-1, new[:, None])[:, 0]).max().item()
@@ -258,6 +318,7 @@ def _continuous(args, acc, cfg, model, cuda, sync) -> dict:
         messages = after["mesh"]["messages"] - before["mesh"]["messages"]
         send_s = after["mesh"]["seconds"] - before["mesh"]["seconds"]
         tokens = [r.tokens for r in results]
+        ttft = sorted(r.ttft_s for r in results)
         engine_stats = srv.engine.stats()
     srv.close()
     eng = srv.engine
@@ -308,7 +369,19 @@ def _continuous(args, acc, cfg, model, cuda, sync) -> dict:
     replay = acc.state.gather_object(replay_ms)
     hosts = acc.state.gather_object(host_ms)
     check = None
-    if acc.is_main_process:
+    if cfg.num_experts > 1:  # every rank teacher-forces rank 0's tokens on the laid model
+        import torch.distributed as dist
+
+        shared = [tokens if acc.is_main_process else None]
+        dist.broadcast_object_list(shared, src=0)
+        greedy = [i for i in range(len(prompts)) if i % 2 == 0]
+        with torch.no_grad():
+            share, ulps = _engine_agreement(cfg, model._tree(detach=False),
+                                            [prompts[i] for i in greedy],
+                                            [shared[0][i] for i in greedy], ep=model.ep)
+        check = dict(argmax_share=share, largest_gap_ulps=ulps, requests=len(prompts),
+                     passed=share >= MOE_SHARE_MIN)
+    elif acc.is_main_process:
         with torch.no_grad():
             ref_model = create_llama(cfg, seed=0, device=acc.device)
             ref = ContinuousBatchingEngine(
@@ -338,6 +411,7 @@ def _continuous(args, acc, cfg, model, cuda, sync) -> dict:
         world=acc.num_processes, layers=args.layers, requests=len(prompts), new=new,
         programs=programs, graphs=graphs, serve_s=wall,
         tokens_per_s=len(prompts) * new / wall if wall else None,
+        ttft_p50_s=ttft[len(ttft) // 2] if wall else None, ttft_max_s=ttft[-1] if wall else None,
         engine=None if not acc.is_main_process else dict(
             steps=engine_stats["steps"], inserted=engine_stats["inserted"]),
         timed_steps=steps, messages=messages,

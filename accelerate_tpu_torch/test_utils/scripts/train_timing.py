@@ -106,7 +106,9 @@ def main(argv=None) -> dict:
     from accelerate_tpu_torch.ops import _build
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--preset", default="llama3_8b", choices=["llama3_8b", "tiny"])
+    p.add_argument("--preset", default="llama3_8b", choices=["llama3_8b", "mixtral_8x7b", "tiny"])
+    p.add_argument("--num_experts", type=int, default=None,
+                   help="the preset's MoE experts (e.g. 4 with --preset tiny to rehearse --ep_size)")
     p.add_argument("--layers", type=int, default=32)
     p.add_argument("--seq", type=int, default=2048)
     p.add_argument("--cpu", action="store_true")
@@ -118,7 +120,8 @@ def main(argv=None) -> dict:
     acc = Accelerator(mixed_precision="fp8" if fp8 else None if args.cpu else "bf16", cpu=args.cpu)
     make = getattr(LlamaConfig, args.preset)
     cfg = make(num_hidden_layers=args.layers, attention_impl="flash",
-               **({"compute_dtype": torch.float32} if args.cpu else {}))
+               **({"compute_dtype": torch.float32} if args.cpu else {}),
+               **({} if args.num_experts is None else {"num_experts": args.num_experts}))
     pcfg = acc.parallelism_config
     dp = pcfg.data_parallel_size
     if BATCH % dp:

@@ -18,7 +18,8 @@ the KV wire; and
 a fleet of two replicas behind ``FleetRouter`` with failover, the circuit
 breaker, the degradation ladder, tracing and perfwatch; the SLO controller
 walking its ladder over that fleet through a flash crowd, and the seeded
-chaos conductor with its invariant monitors.
+chaos conductor with its invariant monitors; and Mixtral-style MoE
+serving and training at full width, also over expert parallelism.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -357,6 +358,26 @@ Phases (any failure exits non-zero and prints no result):
      heads a rank (mesh_tp2_threads), tokens equal on both ranks and held
      by phase 12's rule, and a planted fault (rank 1 committing the other
      rank's heads) caught
+ 21. (run after 8, which frees the serving model) Mixtral-style MoE
+     (``ops/moe.py``), Mixtral-8x7B at full width with seeded random
+     weights: (a) 8 layers in bf16 (11.87 B parameters, the preset's
+     dropless capacity factor 8.0), phase 4's 16 requests through the
+     continuous engine (kernel attention, programs captured), twice;
+     programs equal to JAX's, launches against the engine's counters
+     (moe_serving); the same mix on the plain attention, and static
+     ``generate`` on two of its greedy requests, every greedy output
+     teacher-forced through the plain forward by phase 12's rule;
+     tokens/s, TTFT, the decode step's ms and, from an eager step's
+     profile, the share of its device time in the expert products (the
+     ``moe_experts`` range); (b) 2 layers at capacity factor 1.25 (3.17 B
+     parameters, f32 weights, AdamW), 8 steps of ``train_step(llama_loss,
+     max_grad_norm=1.0)`` at phase 6's batch shape: losses finite and
+     falling, the aux loss printed, step 1's loss within
+     ``MOE_TRAIN_LOSS_RTOL`` of the same step on the plain attention, ms
+     a step, peak memory, B1-B3 counted (moe_training); (c) ep = 2 as two
+     thread ranks (eager) at 4 layers, each holding 4 experts a layer:
+     greedy ``generate`` tokens equal to ep = 1's, two SGD steps' losses
+     within ``MOE_EP_LOSS_RTOL`` of ep = 1's (moe_ep2_threads)
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Long output goes to chiprun_out/.
 """
@@ -5396,12 +5417,13 @@ def serve_one_rank(dev, card):
     return tp_launches, fsdp_launches, server_launches, numbers
 
 
-def thread_ranks(dims, whole, cfg, work, label):
+def thread_ranks(dims, whole, cfg, work, label, split="tp"):
     """One rank of the ``dims`` mesh a thread of this process over torch's
-    threaded group on the one card, each holding its ``tp`` blocks (and
-    under ``dp_shard`` its FSDP2 shards) of ``whole`` (checkpoint key ->
-    tensor), each running ``work(model, rank)``. Returns ({rank: what work
-    returned}, the launches of the run)."""
+    threaded group on the one card, each holding its ``tp`` blocks (an MoE
+    model with ``split="ep"``: its experts) and under ``dp_shard`` its
+    FSDP2 shards of ``whole`` (checkpoint key -> tensor), each running
+    ``work(model, rank)``. Returns ({rank: what work returned}, the
+    launches of the run)."""
     import threading
 
     import torch.distributed as dist
@@ -5413,9 +5435,11 @@ def thread_ranks(dims, whole, cfg, work, label):
     from accelerate_tpu_torch.inference import graphs_supported
     from accelerate_tpu_torch.models.llama import create_llama, serving_view
     from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.parallel.ep import apply_expert_parallel
     from accelerate_tpu_torch.parallel.mesh import sub_mesh
     from accelerate_tpu_torch.parallel.tp import apply_tensor_parallel
 
+    lay = apply_expert_parallel if split == "ep" else apply_tensor_parallel
     world = math.prod(dims.values())
     with init_empty_weights():
         shells = [create_llama(cfg) for _ in range(world)]
@@ -5431,8 +5455,8 @@ def thread_ranks(dims, whole, cfg, work, label):
             mesh = init_device_mesh("cuda", tuple(dims.values()), mesh_dim_names=tuple(dims))
             model = shells[r]
             model.unstack_layers()
-            apply_tensor_parallel(model, sub_mesh(mesh, "tp") if len(dims) > 1 else mesh,
-                                  source=lambda key, layer: whole[key] if layer is None else whole[key][layer])
+            lay(model, sub_mesh(mesh, split) if len(dims) > 1 else mesh,
+                source=lambda key, layer: whole[key] if layer is None else whole[key][layer])
             if "dp_shard" in dims:
                 for layer in model.layers:
                     fully_shard(layer, mesh=sub_mesh(mesh, "dp_shard"))
@@ -7105,6 +7129,404 @@ def phase_control(dev, card, model, phase18):
     return {"control": a_launches}, out
 
 
+# ----------------------------------------------------------------- phase 21
+MOE_SERVE_LAYERS = 8  # 11.87 B parameters, 23.7 GB in bf16
+MOE_TRAIN_LAYERS = 2  # 3.17 B: f32 weights, gradients and AdamW's two moments 50.7 GB
+MOE_TRAIN_FACTOR = 1.25
+MOE_TRAIN_STEPS = 8
+MOE_GENERATE_PICK = (0, 2)  # of phase 4's mix (greedy), through static generate
+MOE_PROFILE_STEPS = 8
+# bf16 greedy outputs teacher-forced through the plain forward: a token
+# whose router logits sit within bf16's rounding of a tie takes other
+# experts on the two paths, and its FFN output (and, through attention,
+# every later position's) moves by far more than a near-tie; the share of
+# argmax agreement is held at this floor and the tokens that changed
+# experts are counted beside it. The f32 engine holds the algorithm by
+# phase 12's rule (GREEDY_SHARE_MIN, Q_NEAR_TIE_ULPS)
+MOE_BF16_SHARE_MIN = 0.75
+MOE_F32_LAYERS = 2  # 3.17 B parameters in f32, 12.7 GB
+# step 1's loss, flash against the plain attention: bf16 products, and a
+# token whose router logits sit within bf16's rounding of a tie may pick
+# another expert
+MOE_TRAIN_LOSS_RTOL = 1e-2
+MOE_THREAD_LAYERS = 4
+MOE_THREAD_B, MOE_THREAD_PROMPT, MOE_THREAD_NEW = 4, 128, 32
+MOE_THREAD_ROWS, MOE_THREAD_SEQ, MOE_THREAD_LR = 2, 512, 1e-2
+# (c)'s losses at ep = 2 against ep = 1 on the same bf16 weights: each
+# token's expert rows are summed in f32 over the ranks, one bf16 ulp
+MOE_EP_LOSS_RTOL = 2.0 ** -8
+
+
+def moe_model(dev, n_layers, label, **fields):
+    """Mixtral-8x7B at full width, bf16, seeded random weights."""
+    from accelerate_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    dtype = fields.pop("dtype", torch.bfloat16)
+    cfg = LlamaConfig.mixtral_8x7b(num_hidden_layers=n_layers, param_dtype=dtype,
+                                   compute_dtype=dtype, attention_impl="flash", **fields)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM.from_seed(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"{label} model: Mixtral-8x7B, {n_layers} layers, 8 experts of {cfg.intermediate_size} (2 a "
+        f"token, capacity factor {cfg.expert_capacity_factor}), {str(dtype)[6:]}, seeded random weights, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.2f}B params, "
+        f"init {time.perf_counter() - t0:.1f}s")
+    return model
+
+
+def moe_decode_profile(eng, prompts, step_ms, card):
+    """The share of an eager decode step's device time in the expert
+    products (the ``moe_experts`` range's kernels), over
+    ``MOE_PROFILE_STEPS`` steps at 8 slots from position 300."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from accelerate_tpu_torch.ops.fp8 import kernels_in_ranges
+
+    eng.reset()
+    for p in prompts[:8]:
+        eng.insert(p[:300], max_new_tokens=200)
+    for _ in range(4):
+        eng.step()
+        eng.poll()
+    eng._use_graphs = False  # a range sees the kernels its ops launch, not a replay's
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(MOE_PROFILE_STEPS):
+                eng.step()
+                eng.poll()
+            torch.cuda.synchronize()
+    finally:
+        eng._use_graphs = True
+        eng.reset()
+    path = Path("chiprun_out", "trace_moe_decode.json")
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")
+               and "dur" in e]
+    device_ms = sum(float(e["dur"]) for e in kernels) / 1e3 / MOE_PROFILE_STEPS
+    expert_ms = sum(ms for _, ms in kernels_in_ranges(events, ("moe_experts",))["moe_experts"])
+    expert_ms /= MOE_PROFILE_STEPS
+    Path("chiprun_out", "profile_moe_decode.txt").write_text(
+        prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    if device_ms == 0.0:
+        log("phase 21 (a) decode profile: the profiler recorded no device time (not measured)")
+        return None
+    log(f"phase 21 (a) decode profile (eager steps, 8 slots): device time {device_ms:.3f} ms/step, "
+        f"the expert products {expert_ms:.3f} ms/step: share {expert_ms / device_ms:.3f} of the "
+        f"step's device time; the graph step takes {step_ms:.3f} ms [{card}]")
+    return dict(device_ms_per_step=device_ms, expert_ms_per_step=expert_ms,
+                expert_share=expert_ms / device_ms)
+
+
+class RouteLog:
+    """Records each ``ops.moe`` routing's chosen experts (``(N, k)``, kept
+    or not) while entered: ``ops.moe._route`` wrapped, one entry a layer."""
+
+    def __enter__(self):
+        from accelerate_tpu_torch.ops import moe
+
+        self.calls, self._real = [], moe._route
+
+        def route(*args, **kwargs):
+            a = self._real(*args, **kwargs)
+            self.calls.append(torch.where(a.kept, a.expert, -1).sort(dim=1).values)
+            return a
+
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        from accelerate_tpu_torch.ops import moe
+
+        moe._route = self._real
+
+
+def moe_teacher_forced(cfg, params, prompts, outputs):
+    """Phase 12's rule over greedy outputs, pooled: (argmax share against
+    the plain forward, the largest gap in bf16 ulps, positions, positions
+    whose token took other experts in some layer on the plain forward
+    than on the model's own forward (attention ``cfg.attention_impl``)
+    over the same tokens)."""
+    from accelerate_tpu_torch.models.llama import llama_apply
+
+    cfg_r = dataclasses.replace(cfg, attention_impl="xla")
+    dev = params["embed_tokens"]["embedding"].device
+    agree = total = moved = positions = 0
+    worst = 0.0
+    for prompt, out in zip(prompts, outputs):
+        toks = torch.as_tensor(np.asarray(out), device=dev).long()
+        seq = torch.cat([torch.from_numpy(prompt).to(dev).long(), toks[:-1]])[None]
+        with RouteLog() as plain:
+            ref = llama_apply(cfg_r, params, seq)[0, len(prompt) - 1:]
+        with RouteLog() as own:
+            llama_apply(cfg, params, seq)
+        share, _, ulps = choice_agreement(toks, ref)
+        agree, total, worst = agree + share * len(toks), total + len(toks), max(worst, ulps)
+        changed = torch.zeros(seq.shape[1], dtype=torch.bool, device=dev)
+        for a, b in zip(plain.calls, own.calls):
+            changed |= (a != b).any(dim=1)
+        moved, positions = moved + int(changed.sum()), positions + seq.shape[1]
+    return agree / total, worst, total, moved, positions
+
+
+def moe_f32_engine(dev, card, prompts):
+    """Phase 21 (a)'s f32 check: Mixtral at ``MOE_F32_LAYERS`` layers in
+    f32 through the continuous engine (kernel attention, CUDA graphs),
+    phase 4's mix, its greedy outputs held by phase 12's rule against the
+    plain forward. Returns (launches, numbers)."""
+    from accelerate_tpu_torch.utils.dataclasses import ServingConfig
+
+    model = moe_model(dev, MOE_F32_LAYERS, "phase 21 (a) f32", dtype=torch.float32)
+    run = serve_mix(dev, model, prompts, ServingConfig(**SERVING), MAIN_NEW_TOKENS)
+    steps, n_req = run["delta"]["steps"], len(prompts)
+    check_launches("phase 21 (a) f32 (f32 q: B1's and B4's FMA variants)", run["launches"],
+                   {"flash_fwd": MOE_F32_LAYERS * n_req, "paged_decode": MOE_F32_LAYERS * steps,
+                    "fused_sample": steps + n_req})
+    greedy = [i for i in range(n_req) if i % 2 == 0]
+    share, ulps, n, moved, positions = moe_teacher_forced(
+        model.config, model.params, [prompts[i] for i in greedy],
+        [run["results"][i].tokens[len(prompts[i]):] for i in greedy])
+    log(f"phase 21 (a) f32, {MOE_F32_LAYERS} layers: {run['tokens_per_s']:.1f} tokens/s; greedy "
+        f"outputs teacher-forced on the plain forward: share {share:.4f} over {n} tokens, largest "
+        f"gap {ulps:.3f} bf16 ulps (min {GREEDY_SHARE_MIN}, limit {Q_NEAR_TIE_ULPS}); tokens that "
+        f"changed experts against the kernel path's forward {moved}/{positions} [{card}]")
+    if share < GREEDY_SHARE_MIN or ulps > Q_NEAR_TIE_ULPS:
+        raise AssertionError(f"phase 21 (a): the f32 engine's greedy tokens disagree with the plain "
+                             f"forward (share {share:.4f}, gap {ulps:.3f} ulps)")
+    launches = run["launches"]
+    del model, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(share=share, gap_ulps=ulps, tokens=n, moved=moved, positions=positions)
+
+
+def moe_serving(dev, card):
+    """Phase 21 (a): phase 4's 16 requests through the continuous engine
+    (kernel attention, CUDA graphs) on Mixtral at 8 layers in bf16, the
+    greedy outputs of the same engine on the plain attention and of static
+    generate beside them, each teacher-forced through the plain forward
+    (``MOE_BF16_SHARE_MIN``, the tokens that changed experts counted); the
+    algorithm held in f32 by :func:`moe_f32_engine`."""
+    from accelerate_tpu_torch.inference import generate
+    from accelerate_tpu_torch.utils.dataclasses import ServingConfig
+
+    model = moe_model(dev, MOE_SERVE_LAYERS, "phase 21 (a)")
+    cfg, n_layers = model.config, MOE_SERVE_LAYERS
+    params = model.params
+    prompts, warm = main_traffic(cfg.vocab_size)
+    n_req, new_tokens = len(prompts), MAIN_NEW_TOKENS
+    run = serve_mix(dev, model, prompts, ServingConfig(**SERVING), new_tokens, warm=warm)
+    eng = run["engine"]
+    check_launches("phase 21 (a)", run["launches"], main_expected(n_layers, n_req, run))
+    check_programs("phase 21 (a)", run, JAX_PROGRAMS["serving"])
+    log_run("phase 21 (a) run 1 (graphs; phase 4's mix)", run, card)
+    again = serve_mix(dev, model, prompts, ServingConfig(**SERVING), new_tokens, engine=eng)
+    log_run("phase 21 (a) run 2 (the same engine)", again, card)
+    plain = serve_mix(dev, model, prompts, ServingConfig(**dict(SERVING, attention_impl="reference")),
+                      new_tokens, warm=warm)
+    log_run("phase 21 (a) reference attention", plain, card)
+    greedy = [i for i in range(n_req) if i % 2 == 0]
+    outputs = {name: [r["results"][i].tokens[len(prompts[i]):] for i in greedy]
+               for name, r in (("kernel", run), ("reference", plain))}
+    same = sum(np.array_equal(a, b) for a, b in zip(outputs["kernel"], outputs["reference"]))
+    gen_out = [generate(model, torch.from_numpy(prompts[i][None].astype(np.int64)).to(dev),
+                        new_tokens)[0, len(prompts[i]):].cpu().numpy() for i in MOE_GENERATE_PICK]
+    prefix = [int(np.argmax(o != run["results"][i].tokens[len(prompts[i]):]))
+              if (o != run["results"][i].tokens[len(prompts[i]):]).any() else len(o)
+              for i, o in zip(MOE_GENERATE_PICK, gen_out)]
+    held = {name: moe_teacher_forced(cfg, params, [prompts[i] for i in greedy], outs)
+            for name, outs in outputs.items()}
+    held["generate"] = moe_teacher_forced(cfg, params, [prompts[i] for i in MOE_GENERATE_PICK],
+                                          gen_out)
+    log(f"phase 21 (a) greedy requests: {same}/{len(greedy)} bitwise equal between the kernel and the "
+        f"reference attention; static generate on requests {list(MOE_GENERATE_PICK)} equal to the "
+        f"engine's first {prefix} of {new_tokens}; teacher-forced on the plain forward (share, "
+        f"largest gap in bf16 ulps, tokens that changed experts against the model's own forward): "
+        + "; ".join(f"{name} {h[0]:.4f}, {h[1]:.3f}, {h[3]}/{h[4]}" for name, h in held.items())
+        + f" (min share {MOE_BF16_SHARE_MIN}) [{card}]")
+    for name, h in held.items():
+        if h[0] < MOE_BF16_SHARE_MIN:
+            raise AssertionError(f"phase 21 (a): the {name} greedy tokens disagree with the plain "
+                                 f"forward (share {h[0]:.4f})")
+    del plain
+    steady = decode_steady_state(eng, prompts, card, 1, profile=False, label="phase 21 (a)")
+    profile = moe_decode_profile(eng, prompts, statistics.median(steady["decode_ms_per_step"]), card)
+    launches = run["launches"]
+    numbers = dict(runs=run_numbers([run, again]), programs=run["programs"], bitwise_greedy=same,
+                   greedy=len(greedy), generate_prefix=prefix, steady=steady, profile=profile,
+                   teacher_forced={k: dict(zip(("share", "gap_ulps", "tokens", "moved", "positions"),
+                                               v)) for k, v in held.items()})
+    del model, params, run, again, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_launches, numbers["f32"] = moe_f32_engine(dev, card, prompts)
+    return ({k: launches[k] for k in ("flash_fwd_mma", "paged_decode_mma", "fused_sample")},
+            {k: f32_launches.get(k, 0) for k in ("flash_fwd", "paged_decode", "fused_sample")},
+            numbers)
+
+
+def moe_train_step_loss(impl, steps, batch_np=None):
+    """A fresh Mixtral at ``MOE_TRAIN_LAYERS`` (f32 weights, bf16
+    compute, capacity factor 1.25) through ``Accelerator.prepare`` and
+    ``train_step(llama_loss, max_grad_norm=1.0)`` for ``steps`` steps on
+    one batch of phase 6's shape, attention ``impl``. Returns (losses,
+    step ms over the steps after the first, launches over those, peak
+    memory, the aux loss after the last step, the batch, the parameters)."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models.llama import LlamaConfig, create_llama, llama_loss
+    from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    AcceleratorState._reset_state(reset_partial_state=True)
+    GradientState._reset_state()
+    torch.cuda.reset_peak_memory_stats()
+    acc = Accelerator(mixed_precision="bf16")
+    cfg = LlamaConfig.mixtral_8x7b(num_hidden_layers=MOE_TRAIN_LAYERS, attention_impl=impl,
+                                   expert_capacity_factor=MOE_TRAIN_FACTOR)
+    model = create_llama(cfg, seed=0, device=acc.device)
+    optimizer = torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=0.01)
+    model, optimizer = acc.prepare(model, optimizer)
+    step_fn = acc.train_step(llama_loss, max_grad_norm=1.0)
+    if batch_np is None:
+        batch_np = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(TRAIN_BATCH, TRAIN_SEQ))
+    batch = {"input_ids": torch.from_numpy(batch_np.astype(np.int32)).to(acc.device)}
+    losses = [step_fn(batch)]
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses += [step_fn(batch) for _ in range(steps - 1)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        aux = model(batch["input_ids"])[1]["aux_loss"].item() if steps > 1 else None
+    losses = [l.item() for l in losses]
+    n_params = sum(p.numel() for p in model.parameters())
+    del model, optimizer, step_fn, acc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, (wall / (steps - 1) * 1e3 if steps > 1 else None), launches, peak, aux, \
+        batch_np, n_params
+
+
+def moe_training(card):
+    """Phase 21 (b): 8 training steps of Mixtral at 2 layers through the
+    Accelerator (bf16, AdamW, max_grad_norm 1.0) at phase 6's batch shape;
+    step 1's loss held against the same step on the plain attention."""
+    plain, _, _, _, _, batch_np, _ = moe_train_step_loss("xla", 1)
+    losses, step_ms, launches, peak, aux, _, n_params = moe_train_step_loss(
+        "flash", MOE_TRAIN_STEPS, batch_np)
+    timed = MOE_TRAIN_STEPS - 1
+    expected = {"flash_fwd_mma": 2 * MOE_TRAIN_LAYERS * timed,
+                "flash_bwd_dq_mma": MOE_TRAIN_LAYERS * timed,
+                "flash_bwd_dkv_mma": MOE_TRAIN_LAYERS * timed}
+    check_launches(f"phase 21 (b) ({timed} steps; remat runs the forward twice)", launches, expected)
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3
+    rel = abs(losses[0] - plain[0]) / abs(plain[0])
+    log(f"phase 21 (b): Mixtral-8x7B width, {MOE_TRAIN_LAYERS} layers, {n_params / 1e9:.3f}B params "
+        f"(f32 weights, bf16 compute), capacity factor {MOE_TRAIN_FACTOR}, AdamW, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}: losses {[round(l, 4) for l in losses]}, aux loss after step "
+        f"{MOE_TRAIN_STEPS} {aux:.6f}; step 1 {losses[0]:.6f} against the plain attention's "
+        f"{plain[0]:.6f} (relative {rel:.2e}, limit {MOE_TRAIN_LOSS_RTOL}); step {step_ms:.1f} ms "
+        f"(steps 2-{MOE_TRAIN_STEPS}), {tokens_per_s:.0f} tokens/s, peak memory {peak / 1e9:.2f} GB "
+        f"[{card}]")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError("phase 21 (b): the losses are not finite or did not fall")
+    if rel > MOE_TRAIN_LOSS_RTOL:
+        raise AssertionError(f"phase 21 (b): step 1's loss {losses[0]} is {rel:.2e} from the plain "
+                             f"attention's {plain[0]}")
+    if peak > PEAK_MEMORY_LIMIT:
+        raise AssertionError(f"phase 21 (b): peak memory {peak / 1e9:.1f} GB is over "
+                             f"{PEAK_MEMORY_LIMIT / 1e9:.0f} GB")
+    return {k: launches[k] for k in expected}, dict(
+        losses=losses, plain_step1=plain[0], step1_rel=rel, aux_loss=aux, step_ms=step_ms,
+        tokens_per_s=tokens_per_s, peak_memory_bytes=peak, params=n_params)
+
+
+def moe_train_two_steps(model, batch):
+    """Two SGD steps (lr ``MOE_THREAD_LR``) of ``llama_loss`` on ``batch``:
+    the two losses."""
+    from accelerate_tpu_torch.models.llama import llama_loss
+
+    optimizer = torch.optim.SGD(model.parameters(), lr=MOE_THREAD_LR)
+    losses = []
+    with torch.enable_grad():
+        for _ in range(2):
+            loss = llama_loss(model, batch)
+            loss.backward()
+            optimizer.step()
+            optimizer.zero_grad(set_to_none=True)
+            losses.append(loss.item())
+    return losses
+
+
+def moe_ep_threads(dev, card):
+    """Phase 21 (c): ep = 2 on the one card as two thread ranks at full
+    width and 4 layers, each holding 4 experts a layer: greedy generate
+    tokens and two training steps' losses against ep = 1 on the same
+    weights."""
+    from accelerate_tpu_torch.inference import generate
+
+    model = moe_model(dev, MOE_THREAD_LAYERS, "phase 21 (c)")
+    cfg = model.config
+    whole = {key: getattr(model, name).detach() for key, name in model.checkpoint_keys()}
+    rng = np.random.default_rng(211)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(MOE_THREAD_B, MOE_THREAD_PROMPT))
+                           ).to(dev)
+    batch = {"input_ids": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(MOE_THREAD_ROWS, MOE_THREAD_SEQ)).astype(np.int32)).to(dev)}
+    ref_tokens = generate(model, ids, MOE_THREAD_NEW)
+
+    def work(m, r):
+        tokens = generate(m, ids, MOE_THREAD_NEW)
+        return tokens, moe_train_two_steps(m, batch)
+
+    t0 = time.perf_counter()
+    results, counts = thread_ranks({"ep": 2}, whole, cfg, work, "phase 21 (c)", split="ep")
+    secs = time.perf_counter() - t0
+    del whole
+    ref_losses = moe_train_two_steps(model, batch)
+    L = MOE_THREAD_LAYERS
+    check_launches("phase 21 (c) (2 ranks: a generate's prefill, two remat training steps each)",
+                   counts, {"flash_fwd_mma": 2 * (L + 4 * L), "flash_bwd_dq_mma": 2 * 2 * L,
+                            "flash_bwd_dkv_mma": 2 * 2 * L})
+    equal = all(torch.equal(results[r][0], ref_tokens) for r in results)
+    rel = max(abs(a - b) / abs(b) for r in results for a, b in zip(results[r][1], ref_losses))
+    log(f"phase 21 (c): ep = 2 as two thread ranks (threaded group: eager), {L} layers, 4 experts a "
+        f"rank; generate B={MOE_THREAD_B}, prompt {MOE_THREAD_PROMPT}, {MOE_THREAD_NEW} new, greedy: "
+        f"tokens equal to ep = 1's on both ranks {equal}; two SGD steps (lr {MOE_THREAD_LR}) on "
+        f"{MOE_THREAD_ROWS} x {MOE_THREAD_SEQ}: ep = 2 losses "
+        f"{[[round(x, 6) for x in results[r][1]] for r in sorted(results)]} against ep = 1's "
+        f"{[round(x, 6) for x in ref_losses]} (largest relative {rel:.2e}, limit {MOE_EP_LOSS_RTOL}); "
+        f"{secs:.1f}s [{card}]")
+    if not equal:
+        raise AssertionError("phase 21 (c): the ep = 2 ranks' greedy tokens differ from ep = 1's")
+    if rel > MOE_EP_LOSS_RTOL:
+        raise AssertionError(f"phase 21 (c): the ep = 2 losses are {rel:.2e} from ep = 1's")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma")}, dict(
+        seconds=secs, tokens_equal=equal, losses={r: results[r][1] for r in results},
+        ref_losses=ref_losses, loss_rel=rel)
+
+
+def phase_moe(dev, card):
+    """Phase 21: Mixtral-style MoE on the card: (a) serving, (b) training,
+    (c) ep = 2 as two thread ranks. Returns ({path: launches}, numbers)."""
+    with torch.no_grad():
+        serving, serving_f32, numbers_a = moe_serving(dev, card)
+    training, numbers_b = moe_training(card)
+    with torch.no_grad():
+        threads, numbers_c = moe_ep_threads(dev, card)
+    return ({"moe_serving": serving, "moe_serving_f32": serving_f32, "moe_training": training,
+             "moe_ep2_threads": threads},
+            dict(serving=numbers_a, training=numbers_b, ep2_threads=numbers_c))
+
+
 # dynamic shared memory of the tensor-core kernels' configurations (the
 # sources' MmaCfg): name fragment of the ptxas entry -> bytes per block, or
 # (bytes, threads) where a block is not 128 threads
@@ -7352,6 +7774,10 @@ def run_phases(args) -> int:
                 del model
                 torch.cuda.empty_cache()
                 summary["checkpoint"] = phase_checkpoint(dev, card)
+        # phase 21 after phase 8 freed the serving model
+        with phase("21"):
+            moe_paths, summary["moe"] = phase_moe(dev, card)
+        by_path.update(moe_paths)
         # the tokens phase 15 holds the mesh engine's against (not JSON)
         reference = {"serving": summary["main_path"].pop("tokens"),
                      "steady": summary["main_path"]["steady"],

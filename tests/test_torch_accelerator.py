@@ -255,16 +255,18 @@ def test_data_loader_shuffles_like_the_jax_sampler_and_flags_the_end():
 
 
 def test_what_waits_for_the_distributed_slice_raises():
-    # the data-parallel dims and tensor parallelism landed
-    # (tests/test_torch_distributed_train.py, test_torch_tensor_parallel.py);
-    # cp/sp/pp/ep wait for A11
-    for axis, item in (("cp", "A11"), ("sp", "A11"), ("pp", "A11"), ("ep", "A11")):
+    # the data-parallel dims, tensor and expert parallelism landed
+    # (tests/test_torch_distributed_train.py, test_torch_tensor_parallel.py,
+    # test_torch_ep.py); cp/sp/pp wait for A11
+    for axis, item in (("cp", "A11"), ("sp", "A11"), ("pp", "A11")):
         cfg = ParallelismConfig(**{f"{axis}_size": 2})
         cfg._infer_and_validate(2)
         with pytest.raises(NotImplementedError, match=rf"ROADMAP.md {item}\b"):
             data_parallel_layout(cfg)
     for sizes, layout in ((dict(tp_size=2), "tp"), (dict(tp_size=2, dp_shard_size=2), "tp_fsdp"),
-                          (dict(tp_size=2, dp_replicate_size=2), "tp_hsdp")):
+                          (dict(tp_size=2, dp_replicate_size=2), "tp_hsdp"),
+                          (dict(ep_size=2), "ep"), (dict(ep_size=2, dp_shard_size=2), "ep_fsdp"),
+                          (dict(ep_size=2, dp_replicate_size=2), "ep_hsdp")):
         cfg = ParallelismConfig(**sizes)
         cfg._infer_and_validate(cfg.total_size)
         assert data_parallel_layout(cfg) == layout
@@ -331,9 +333,12 @@ def test_refusals_name_their_queue_items(tmp_path):
     from accelerate_tpu_torch.utils.dataclasses import FSDPPlugin, ServingConfig
 
     refuse_queued_dims({"tp": 2})
-    for axis, item in (("cp", "A11"), ("sp", "A11"), ("pp", "A11"), ("ep", "A11")):
+    refuse_queued_dims({"ep": 2})
+    for axis, item in (("cp", "A11"), ("sp", "A11"), ("pp", "A11")):
         with pytest.raises(NotImplementedError, match=rf"ROADMAP.md {item}\b"):
             refuse_queued_dims({axis: 2})
+    with pytest.raises(NotImplementedError, match=r"MoE under tensor parallelism.*ROADMAP.md A11\b"):
+        refuse_queued_dims({"ep": 2, "tp": 2})
     with pytest.raises(NotImplementedError, match=r"ROADMAP.md A11\b"):
         ttp.tensor_parallel_rules(layer_axis="pp")
     with pytest.raises(ValueError, match=r"num_key_value_heads.*ROADMAP.md A11\b"):
@@ -531,7 +536,7 @@ SIGNATURE_EXEMPT = {
     "models.llama:create_llama": {"abstract": "init_empty_weights builds it empty"},
     "models.llama:init_llama_params": {"key": "renamed generator (a torch.Generator)"},
     "models.llama:llama_apply": {"position_offset": "A11", "attention_fn": "A11",
-                                 "layer_stack_fn": "A11", "return_aux": "A11"},
+                                 "layer_stack_fn": "A11"},
     "models.llama:llama_flops_per_token": {"include_remat": "a no-op in the JAX package"},
     "models.llama:llama_loss": {"model_view": "renamed model"},
     "ops.attention:dispatch_attention": {"block_q": TPU},

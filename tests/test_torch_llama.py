@@ -217,8 +217,10 @@ def test_knobs_dense_decode_step_matches_jax(knob_model):
 
 def test_moe_and_alternating_window_are_queued():
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tl.init_llama_params(tl.LlamaConfig.tiny(num_experts=4), gen, device="cpu")
+    # MoE layers landed (tests/test_torch_moe.py): the router and the
+    # stacked experts are drawn, no dense MLP
+    mlp = tl.init_llama_params(tl.LlamaConfig.tiny(num_experts=4), gen, device="cpu")["layers"]["mlp"]
+    assert set(mlp) == {"router", "experts"} and mlp["experts"]["w_down"].shape == (2, 4, 128, 64)
     with pytest.raises(NotImplementedError, match="alternating"):
         tl.init_llama_params(tl.LlamaConfig.gemma2_9b(num_hidden_layers=2), gen, device="cpu")
 
@@ -240,8 +242,8 @@ def test_config_takes_every_field_of_the_jax_config():
 
 # field overrides -> (what the refusal names, its queue item)
 UNPORTED_CONFIGS = {
-    "moe": (dict(num_experts=4, num_experts_per_tok=1, expert_capacity_factor=2.0,
-                 moe_aux_loss_coef=0.1, router_z_loss_coef=1e-3), "MoE", "A11"),
+    "alternating_window": (dict(sliding_window=4, alternating_sliding_window=True),
+                           "alternating", "A11"),
 }
 
 
@@ -272,10 +274,17 @@ def test_use_fp8_config_builds_and_runs_its_projections_through_fp8(monkeypatch)
 
 
 def test_mixtral_preset_builds_and_is_refused_at_model_creation():
+    # MoE layers landed: the Mixtral preset builds and runs at tiny width
     cfg = tl.LlamaConfig.mixtral_8x7b(num_hidden_layers=2)
     assert (cfg.num_experts, cfg.num_experts_per_tok) == (8, 2)
-    with pytest.raises(NotImplementedError, match=r"MoE.*ROADMAP.md A11"):
-        tl.create_llama(cfg, device="cpu")
+    small = tl.LlamaConfig.mixtral_8x7b(num_hidden_layers=2, hidden_size=64, intermediate_size=96,
+                                        num_attention_heads=4, num_key_value_heads=2,
+                                        vocab_size=128, compute_dtype=torch.float32)
+    model = tl.create_llama(small, device="cpu")
+    with torch.no_grad():
+        logits, aux = model(torch.zeros((1, 6), dtype=torch.long))
+    assert logits.shape == (1, 6, 128) and torch.isfinite(logits).all()
+    assert model.name == "llama-moe" and aux["aux_loss"].item() > 0
     with pytest.raises(ValueError, match="silu"):
         tl.LlamaConfig.mixtral_8x7b(hidden_act="gelu_tanh")
 

@@ -83,7 +83,9 @@ def test_config_takes_every_field_of_the_jax_config():
 def test_a_mesh_of_a_queued_dim_names_its_item(axis, item):
     # tensor parallelism (A7's, landed) builds its mesh: the 3-D
     # (dp_replicate, dp_shard, tp) one, here over one process with a
-    # TensorParallelConfig; the dims still queued raise naming their item
+    # TensorParallelConfig; the dims still queued raise naming their item.
+    # Expert parallelism landed (tests/test_torch_ep.py builds its meshes):
+    # what stays queued of it is ep beside tp, MoE under tensor parallelism
     from accelerate_tpu_torch.state import AcceleratorState, PartialState
     from accelerate_tpu_torch.utils.dataclasses import TensorParallelConfig
 
@@ -96,9 +98,11 @@ def test_a_mesh_of_a_queued_dim_names_its_item(axis, item):
             assert mesh.mesh_dim_names == ("dp_replicate", "dp_shard", "tp")
             assert tuple(mesh.mesh.shape) == (1, 1, 1) and cfg.tp_layout
             return
-        cfg = ParallelismConfig(**{f"{axis}_size": 2})
-        cfg._total_devices = 2  # as if validated on two processes: refused before any group
-        cfg._infer_and_validate(2)
+        sizes = {f"{axis}_size": 2, **({"tp_size": 2} if axis == "ep" else {})}
+        cfg = ParallelismConfig(**sizes)
+        # as if validated on its processes: refused before any group
+        cfg._total_devices = cfg.total_size
+        cfg._infer_and_validate(cfg.total_size)
         with pytest.raises(NotImplementedError, match=rf"ROADMAP.md {item}\b"):
             cfg.build_device_mesh()
     finally:
